@@ -6,18 +6,25 @@ Phases, each raising on failure:
 
 1. device — require CUDA, print the card's name and power limit, turn TF32
    off for float32 products;
-2. build — compile both CUDA kernels from gofr_tpu_torch/csrc (one nvcc per
+2. build — compile the CUDA kernels from gofr_tpu_torch/csrc (one nvcc per
    source, in parallel) into build/kernels;
-3. kernels — hold each kernel against its plain PyTorch version at the
-   serving path's Gemma-2B shapes, in bfloat16 and float32, and time the
-   kernel, the plain version, one PyTorch library call where one computes
-   the same function, and the card's bound for the same work;
+3. kernels — hold each kernel (flash attention, paged decode over bf16/f32
+   pools, paged decode over int8 pools) against its plain PyTorch version
+   at the serving path's Gemma-2B shapes, with bfloat16 and float32
+   queries, and time the kernel, the plain version, one PyTorch library
+   call where one computes the same function, and the card's bound for
+   the same work;
 4. engine — serve concurrent Gemma-2B requests (full width and depth,
    random weights from a seeded generator) through the port's LLMEngine
    at its defaults, check every stream, check every served token against
    greedy decoding by the plain full-prompt forward, and check that both
    kernels launched during this phase;
-5. report — a "kernels" JSON line, then the last line
+5. int8 engine — the same burst through LLMEngine(kv_int8=True,
+   quantize=True) on the same weights: int8 weights and an int8 KV pool
+   read by the int8 paged-decode kernel; every served token checked
+   against the plain forward on the same int8 weights, under a gap
+   constant set from this path's measured logit drift;
+6. report — a "kernels" JSON line, then the last line
    {"ok": true, "device": {...}}.
 
 Imports nothing of JAX and nothing of the JAX package. Exits non-zero,
@@ -36,8 +43,19 @@ import time
 import numpy as np
 import torch
 
-from gofr_tpu_torch.llm import GenRequest, LLMEngine
-from gofr_tpu_torch.models import KVCache, TransformerConfig, init_params, prefill_append, transformer_forward
+from gofr_tpu_torch.kvcache import gather_slots, quantize_rows, scatter_rows
+from gofr_tpu_torch.llm import KV_BLOCK, GenRequest, LLMEngine
+from gofr_tpu_torch.models import (
+    KVCache,
+    QTensor,
+    TransformerConfig,
+    decode_chunk_paged,
+    init_params,
+    prefill_append,
+    qmm,
+    transformer_forward,
+)
+from gofr_tpu_torch.models import transformer as T
 from gofr_tpu_torch.ops import _build
 from gofr_tpu_torch.ops import attention as A
 
@@ -56,6 +74,13 @@ ML_RTOL = 1e-4
 # across 18 layers moves logits by a few hundredths (measured: see the
 # "logit drift" line this script prints).
 TOKEN_GAP = 0.25
+# The int8 engine's tokens are checked against the plain forward on the
+# same int8 weights (W8A8 products, unquantized K/V, no kernels); the
+# served path adds the int8 KV round trip and weight-only decode products.
+# INT8_TOKEN_GAP is at least twice that path's measured logit drift (the
+# "int8 logit drift" line: 0.3555 on an H100 80GB HBM3 at 700 W), and at
+# most 1 token in 8 may need it.
+INT8_TOKEN_GAP = 1.0
 
 # Published dense peaks (NVIDIA data sheets) by the name nvidia-smi reports:
 # memory bytes/s, bf16 tensor-core FLOP/s, f32 (non-tensor) FLOP/s.
@@ -277,6 +302,61 @@ def phase_kernels(dev: dict, seed: int) -> dict:
     timings["paged_decode_partials"] = t
     print(f"timing paged_decode_partials: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
           f"bound {bound_ms:.5f} ms ({bound_by}), {rows} band rows")
+
+    # -- kernel 3: paged_decode_partials over int8 pools (same shapes; rows
+    # made by the port's own quantize_rows). Both sides dequantize in f32,
+    # so o differs only by summation order: F32_ATOL, m and l ML_RTOL.
+    errs["paged_decode_partials_int8"] = 0.0
+    kq, ks = quantize_rows(rnd(NB, B, 1, 256, dtype=torch.float32))
+    vq, vs = quantize_rows(rnd(NB, B, 1, 256, dtype=torch.float32))
+    for dtype in (torch.bfloat16, torch.float32):
+        q = rnd(nb, 8, 256, dtype=dtype)
+        tables = torch.randperm(NB, generator=g, device="cuda")[: nb * MB].reshape(nb, MB).to(torch.int32)
+        hi = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+        for name, lo, lcap in (
+            ("full band", torch.zeros_like(hi), 0.0),
+            ("window band lo>0", torch.clamp(hi - 40, min=0).to(torch.int32), 0.0),
+            ("logit cap 30", torch.zeros_like(hi), 30.0),
+        ):
+            kw = dict(scale=1 / 16, logit_cap=lcap, k_scales=ks, v_scales=vs)
+            o1, m1, l1 = A.paged_decode_partials(q, kq, vq, tables, lo, hi, **kw)
+            o2, m2, l2 = A.paged_decode_partials_plain(q, kq, vq, tables, lo, hi, **kw)
+            torch.cuda.synchronize()
+            err = (o1 - o2).abs().max().item()
+            ok = (
+                err <= F32_ATOL
+                and torch.allclose(m1, m2, rtol=ML_RTOL, atol=0.0)
+                and torch.allclose(l1, l2, rtol=ML_RTOL, atol=0.0)
+            )
+            print(f"paged_decode_partials int8 q {str(dtype)[6:]:8s} {name:18s} o max_abs_err {err:.3e} "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"int8 paged_decode_partials disagrees with its plain version: {name} {dtype}")
+            errs["paged_decode_partials_int8"] = max(errs["paged_decode_partials_int8"], err)
+
+    q = rnd(nb, 8, 256, dtype=torch.bfloat16)
+    tables = torch.randperm(NB, generator=g, device="cuda")[: nb * MB].reshape(nb, MB).to(torch.int32)
+    hi = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    lo = torch.zeros_like(hi)
+    rows = int(hi.sum())
+    table_entries = int(((hi + B - 1) // B).sum())
+    # band rows of K and V (1 byte per element) and their f32 scales (one
+    # per row per tensor), the table entries that name their blocks, lo and
+    # hi, and the f32 outputs o, m, l. The dots run on dequantized f32
+    # values, so the operations count against the f32 peak.
+    nbytes = (q.numel() * 2 + 2 * rows * 256 + 2 * rows * 4 + table_entries * 4 + 2 * nb * 4
+              + (nb * 8 * 256 + 2 * nb * 8) * 4)
+    bound_ms, bound_by = _bound(nbytes, 4 * 256 * 8 * rows, torch.float32, peaks)
+    kw = dict(scale=1 / 16, k_scales=ks, v_scales=vs)
+    t = {
+        "ms": time_ms(lambda: A.paged_decode_partials(q, kq, vq, tables, lo, hi, **kw)),
+        "plain_ms": time_ms(lambda: A.paged_decode_partials_plain(q, kq, vq, tables, lo, hi, **kw)),
+        "library_ms": None,
+        "bound_ms": bound_ms, "bound_by": bound_by,
+    }
+    timings["paged_decode_partials_int8"] = t
+    print(f"timing paged_decode_partials int8: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+          f"bound {bound_ms:.5f} ms ({bound_by}), {rows} band rows")
     return {"errs": errs, "timings": timings}
 
 
@@ -361,6 +441,7 @@ def phase_engine(dev: dict, seed: int) -> dict:
         new_tokens = 32
         A.flash_attention.launches = 0
         A.paged_decode_partials.launches = 0
+        A.paged_decode_partials.launches_int8 = 0
         results, reqs, wall = _serve(eng, prompts, new_tokens)
         launches = {
             "flash_attention": A.flash_attention.launches,
@@ -456,23 +537,213 @@ def phase_engine(dev: dict, seed: int) -> dict:
     return out
 
 
+def _tensor_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_tensor_bytes(v) for v in tree.values())
+    if isinstance(tree, QTensor):
+        return _tensor_bytes(tree.q) + _tensor_bytes(tree.s)
+    return tree.numel() * tree.element_size()
+
+
+def _int8_path_drift(cfg, qparams, prompt, capacity, steps=8):
+    """Logit drift of the int8 serving path against the plain forward on
+    the same int8 weights: the prompt is prefilled in 64-token chunks
+    through an int8 pool (each chunk's view gathered and dequantized, its
+    rows quantized again at the scatter, as the engine's unified step
+    does), then ``steps`` greedy decode steps run through the int8 kernel.
+    Returns the largest |served - plain| logit over the prefill's last
+    position and every decode step."""
+    L, MB = cfg.n_layers, capacity // KV_BLOCK
+    shape = (L, MB, KV_BLOCK, cfg.n_kv_heads, cfg.head_dim)
+    pool = KVCache(
+        k=torch.zeros(shape, dtype=torch.int8, device="cuda"),
+        v=torch.zeros(shape, dtype=torch.int8, device="cuda"),
+        length=torch.zeros(1, dtype=torch.int32, device="cuda"),
+    )
+    scales = torch.zeros((2,) + shape[:-1], dtype=torch.float32, device="cuda")
+    tables = torch.arange(MB, dtype=torch.int32, device="cuda")[None]
+    cur = 0
+    for c0 in range(0, len(prompt), 64):
+        chunk = prompt[c0 : c0 + 64]
+        toks = torch.zeros((1, 64), dtype=torch.long, device="cuda")
+        toks[0, : len(chunk)] = torch.tensor(chunk, device="cuda")
+        cursors = torch.tensor([cur], dtype=torch.int32, device="cuda")
+        view = gather_slots(pool.k, pool.v, tables, cursors, scales=(scales[0], scales[1]), dtype=cfg.dtype)
+        logits_c, view = prefill_append(
+            qparams, cfg, toks, view, cursors, torch.tensor([len(chunk)], dtype=torch.int32, device="cuda")
+        )
+        pos = torch.arange(cur, cur + len(chunk), device="cuda")[None]
+        scatter_rows(
+            pool.k, pool.v, tables, view.k[:, :, cur : cur + len(chunk)], view.v[:, :, cur : cur + len(chunk)],
+            pos, torch.ones_like(pos, dtype=torch.bool), scales=scales,
+        )
+        cur += len(chunk)
+    pool.length.fill_(cur)
+    served = [logits_c[0]]
+
+    def capture(logits, temps, gen):
+        served.append(logits[0].clone())
+        return logits.argmax(dim=-1).to(torch.int32)
+
+    first = logits_c.argmax(dim=-1).to(torch.int32)
+    toks, _last, _ = decode_chunk_paged(
+        qparams, cfg, first, pool, tables, torch.ones(1, dtype=torch.bool, device="cuda"),
+        torch.zeros(1, device="cuda"), None, n_steps=steps, sample_fn=capture, block=KV_BLOCK, scales=scales,
+    )
+    seq = prompt + [int(first[0])] + toks[:-1, 0].tolist()
+    plain = transformer_forward(
+        qparams, cfg, torch.tensor([seq], device="cuda"), torch.arange(len(seq), device="cuda")[None, :]
+    )[0, len(prompt) - 1 :]
+    return max(float((s - p).abs().max()) for s, p in zip(served, plain))
+
+
+def phase_engine_int8(dev: dict, seed: int) -> dict:
+    """The engine burst with int8 weights and an int8 KV pool."""
+    cfg = TransformerConfig.gemma_2b()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(seed), "cuda")  # the bf16 phase's weights
+    bf16_bytes = _tensor_bytes(params)
+    eng = LLMEngine(cfg, params, seed=seed, kv_int8=True, quantize=True)
+    del params
+    qparams = eng.params
+    weight_bytes = _tensor_bytes(qparams)
+    pool_bytes = _tensor_bytes({"k": eng.pool.k, "v": eng.pool.v, "scales": eng.pool_scales})
+    print(f"int8 engine: weights {weight_bytes} bytes (bf16 {bf16_bytes}); KV pool {pool_bytes} bytes "
+          f"(int8 rows + f32 scales, {eng.kv.pool.n_blocks} blocks of {eng.kv.block_bytes} bytes)")
+    try:
+        eng.generate([1, 2, 3], max_new_tokens=4)  # warm-up, outside the timed run
+        rng = np.random.default_rng(seed)
+        plens = [5, 16, 17, 63, 64, 65, 200, 440]
+        prompts = [rng.integers(1, cfg.vocab_size, n).tolist() for n in plens]
+        new_tokens = 32
+        A.flash_attention.launches = 0
+        A.paged_decode_partials.launches = 0
+        A.paged_decode_partials.launches_int8 = 0
+        chunks0 = eng.stats()["chunks"]
+        results, reqs, wall = _serve(eng, prompts, new_tokens)
+        launches = {
+            "flash_attention": A.flash_attention.launches,
+            "paged_decode_partials": A.paged_decode_partials.launches,
+            "paged_decode_partials_int8": A.paged_decode_partials.launches_int8,
+        }
+        stats = eng.stats()
+        _profile(lambda: _serve(eng, prompts, new_tokens))
+    finally:
+        eng.close()
+    chunks = stats["chunks"] - chunks0
+    print(f"int8 engine launches {launches} over {chunks} decode chunks "
+          f"({launches['paged_decode_partials_int8'] / max(chunks, 1):.1f} int8 launches per chunk; "
+          f"{cfg.n_layers * 8} per 8-step chunk)")
+    if launches["paged_decode_partials_int8"] <= 0 or launches["paged_decode_partials_int8"] % cfg.n_layers:
+        raise AssertionError(f"int8 kernel launches {launches['paged_decode_partials_int8']}: not whole decode steps")
+    if launches["paged_decode_partials"] or launches["flash_attention"] <= 0:
+        raise AssertionError(f"int8 engine launched the wrong kernels: {launches}")
+    if not stats["quantized"] or not stats["kvcache"]["int8"]:
+        raise AssertionError(f"int8 engine stats: {stats}")
+
+    total = 0
+    for i, toks in sorted(results.items()):
+        if len(toks) != new_tokens or any(t < 0 or t >= cfg.vocab_size for t in toks):
+            raise AssertionError(f"int8 request {i} (prompt {plens[i]}): bad stream {toks}")
+        total += len(toks)
+    if len(results) != len(prompts):
+        raise AssertionError(f"int8 engine: {len(results)} of {len(prompts)} requests finished")
+
+    drift = _int8_path_drift(cfg, qparams, prompts[6], eng.kv.capacity)
+    print(f"int8 logit drift, served int8 path (int8 KV round trip between chunks, int8 kernel decode, "
+          f"weight-only decode products) vs plain forward on the int8 weights (prompt {len(prompts[6])}, "
+          f"prefill + 8 decode steps): max_abs {drift:.4f} on {dev['smi']}; gap constant {INT8_TOKEN_GAP}")
+    if not math.isfinite(drift) or 2 * drift > INT8_TOKEN_GAP:
+        raise AssertionError(f"int8 path logit drift {drift}: INT8_TOKEN_GAP {INT8_TOKEN_GAP} is under twice it")
+
+    # every served token against the plain forward on the same int8
+    # weights, teacher-forced on the served stream
+    checked = exempt = 0
+    for i, p in enumerate(prompts):
+        seq = p + results[i][:-1]
+        logits = transformer_forward(
+            qparams, cfg, torch.tensor([seq], device="cuda"), torch.arange(len(seq), device="cuda")[None, :]
+        )[0, len(p) - 1 :]
+        top2 = torch.topk(logits, 2, dim=-1)
+        gaps = (top2.values[:, 0] - top2.values[:, 1]).tolist()
+        want = top2.indices[:, 0].tolist()
+        n_match = n_exempt = 0
+        for j, served in enumerate(results[i]):
+            if served == want[j]:
+                n_match += 1
+            elif gaps[j] < INT8_TOKEN_GAP:
+                n_exempt += 1
+            else:
+                raise AssertionError(
+                    f"int8 request {i} (prompt {plens[i]}): token {j} served {served} != plain argmax "
+                    f"{want[j]}, gap {gaps[j]:.4f}"
+                )
+        checked += n_match
+        exempt += n_exempt
+        print(f"int8 stream prompt {plens[i]:3d}: {n_match} of {len(results[i])} tokens equal the plain greedy "
+              f"argmax, {n_exempt} differ within tolerance (top-2 gap < {INT8_TOKEN_GAP}); "
+              f"smallest gap {min(gaps):.4f}")
+        del logits
+    if 8 * exempt > total:
+        raise AssertionError(f"int8 engine: {exempt} of {total} tokens needed the gap exemption (> 1 in 8)")
+
+    # eager weight-only products dequantize the int8 weight per call: its
+    # cost at the decode shape (32 rows), on the widest layer weight and
+    # the unembed, against the same product on a bf16 copy made once
+    x = torch.randn((32, cfg.d_model), device="cuda").to(cfg.dtype)
+    wg = qparams["layers"]["w_gate"]
+    w = QTensor(wg.q[0], wg.s[0])
+    w_bf16 = w.q.to(cfg.dtype) * w.s
+    emb = qparams["embed"]
+    emb_bf16 = emb.q.to(cfg.dtype) * emb.s
+    x3 = x[:, None]
+    cost = {
+        "qmm_w_gate_ms": time_ms(lambda: qmm(x, w)),
+        "bf16_w_gate_ms": time_ms(lambda: x @ w_bf16),
+        "unembed_int8_ms": time_ms(lambda: T._unembed(qparams, cfg, x3)),
+        "unembed_bf16_ms": time_ms(lambda: T._unembed({"embed": emb_bf16}, cfg, x3)),
+    }
+    print(f"qmm cost at 32 rows: w_gate {list(w.q.shape)} int8 {cost['qmm_w_gate_ms']:.4f} ms vs a "
+          f"{str(cfg.dtype)[6:]} copy {cost['bf16_w_gate_ms']:.4f} ms; unembed {list(emb.q.shape)} int8 "
+          f"{cost['unembed_int8_ms']:.4f} ms vs a {str(cfg.dtype)[6:]} copy {cost['unembed_bf16_ms']:.4f} ms")
+
+    ttfts = sorted(reqs[i].first_token_at - reqs[i].submitted_at for i in reqs)
+    out = {
+        "requests": len(results), "tokens": total, "wall_s": wall, "tok_s": total / wall,
+        "ttft_p50_s": ttfts[len(ttfts) // 2], "ttft_max_s": ttfts[-1], "launches": launches,
+        "tokens_matched": checked, "tokens_exempt": exempt, "drift": drift,
+        "weight_bytes": weight_bytes, "pool_bytes": pool_bytes, **cost,
+    }
+    print(
+        f"int8 engine gemma_2b (kv_int8, quantize) on {dev['smi']}: {out['requests']} requests, {total} tokens "
+        f"in {wall:.3f}s = {out['tok_s']:.1f} tok/s; ttft p50 {out['ttft_p50_s']:.3f}s max "
+        f"{out['ttft_max_s']:.3f}s; {checked} tokens matched, {exempt} exempt; launches {launches}"
+    )
+    return out
+
+
 def main() -> int:
     dev = phase_device()
     phase_build()
     kern = phase_kernels(dev, SEED)
     eng = phase_engine(dev, SEED)
+    eng8 = phase_engine_int8(dev, SEED)
+    # name -> (source, replaced Pallas kernel, timing key, engine run whose
+    # launches count)
     sources = {
         "flash_attention": ("gofr_tpu_torch/csrc/flash_attention.cu", "gofr_tpu/ops/attention.py:101",
-                            "flash_attention c64"),
+                            "flash_attention c64", eng),
         "paged_decode_partials": ("gofr_tpu_torch/csrc/paged_decode.cu", "gofr_tpu/ops/attention.py:661",
-                                  "paged_decode_partials"),
+                                  "paged_decode_partials", eng),
+        "paged_decode_partials_int8": ("gofr_tpu_torch/csrc/paged_decode.cu",
+                                       "gofr_tpu/ops/attention.py:661 (quantized=True)",
+                                       "paged_decode_partials_int8", eng8),
     }
     kernels = []
-    for name, (src, replaces, tkey) in sources.items():
+    for name, (src, replaces, tkey, run) in sources.items():
         t = kern["timings"][tkey]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": eng["launches"][name], "max_abs_err": kern["errs"][name],
+            "launches": run["launches"][name], "max_abs_err": kern["errs"][name],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         })

@@ -1,8 +1,10 @@
 // Paged-attention decode partials for Hopper (sm_90a).
 //
 // Replaces: gofr_tpu/ops/attention.py:_paged_decode_kernel (via
-// _paged_decode_partials), unquantized. The int8 variant (quantized=True)
-// is not ported yet.
+// _paged_decode_partials), both variants: gofr_paged_decode_partials reads
+// pools of q's type (bf16 or f32); gofr_paged_decode_partials_int8 reads
+// int8 pools with one f32 scale per (block, row, KV head)
+// (quantized=True), for bf16 or f32 queries.
 //
 // What it computes: for each sequence b and KV head h, the GQA group of
 // queries q[b, h*G .. h*G+G-1] (scaled by `scale` in f32) attends the
@@ -11,10 +13,16 @@
 // soft-cap. Outputs the online-softmax partials the caller merges with
 // the decode chunk's buffer region: o (normalized, f32), m (running max)
 // and l (denominator); an empty band gives o = 0, m = NEG_INF, l = 0.
+// int8 rows are dequantized in f32 after the read: the V row is staged as
+// int8 and each element is multiplied by its row's scale before P.V (the
+// Pallas kernel's multiply-then-dot); the K scale is folded into the score,
+// s = (q . k_int8) * k_scale, which differs from scaling each K element
+// first only in the rounding of the f32 score.
 //
 // What bounds it on this card: decode attention moves each K/V row once
 // for G = 8 queries (Gemma-2B), about 2 flops per byte, so the roofline
-// bound is the memory rate. With one CTA per (sequence, KV head) the
+// bound is the memory rate (int8 rows move half the bytes of bf16 ones,
+// plus a 4-byte scale per row). With one CTA per (sequence, KV head) the
 // serving shape (32 slots, 1 KV head) fills only 32 CTAs of the H100's
 // 132 SMs, and each CTA walks its blocks one after another, waiting for
 // each block's loads, so the kernel is latency-bound well above the
@@ -29,6 +37,7 @@
 // already allows) and asynchronous copies are later work.
 
 #include <cstdint>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -40,44 +49,51 @@ constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxGroup = 16;
 
-// shared memory carve: Ks [B][D + pad] T | Vs [B][D] T | Qs [G][D] f32 |
-// Ss [kMaxGroup][B] f32 | As [kMaxGroup] f32 | Ms, Ls [G] f32, each T
-// region 16-byte aligned. Ss and As rows past G stay 0, so the P.V loop
-// runs over kMaxGroup rows with no runtime predicate.
-template <typename T, int D>
+// shared memory carve: Ks [B][D + pad] S | Vs [B][D] S | Qs [G][D] f32 |
+// Ss [kMaxGroup][B] f32 | As [kMaxGroup] f32 | Ms, Ls [G] f32 (| Ksc, Vsc
+// [B] f32 row scales for int8 S), each S region 16-byte aligned. Ss and As
+// rows past G stay 0, so the P.V loop runs over kMaxGroup rows with no
+// runtime predicate. T is the query's type, S the pool's storage type.
+template <typename S>
+__host__ __device__ constexpr bool quantized() { return std::is_same<S, int8_t>::value; }
+template <typename S, int D>
 __host__ __device__ size_t off_v(int B) {
-  return gofr::align16(sizeof(T) * (size_t)B * (D + gofr::row_pad<T>()));
+  return gofr::align16(sizeof(S) * (size_t)B * (D + gofr::row_pad<S>()));
 }
-template <typename T, int D>
+template <typename S, int D>
 __host__ __device__ size_t off_q(int B) {
-  return gofr::align16(off_v<T, D>(B) + sizeof(T) * (size_t)B * D);
+  return gofr::align16(off_v<S, D>(B) + sizeof(S) * (size_t)B * D);
 }
-template <typename T, int D>
+template <typename S, int D>
 size_t smem_bytes(int G, int B) {
-  return off_q<T, D>(B) + sizeof(float) * ((size_t)G * D + (size_t)kMaxGroup * (B + 1) + 2 * G);
+  return off_q<S, D>(B) + sizeof(float) * ((size_t)G * D + (size_t)kMaxGroup * (B + 1) + 2 * G +
+                                           (quantized<S>() ? 2 * (size_t)B : 0));
 }
 
-template <typename T, int D>
+template <typename T, typename S, int D>
 __global__ void __launch_bounds__(kThreads)
-paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
-                    const T* __restrict__ v_pool, const int* __restrict__ tables,
+paged_decode_kernel(const T* __restrict__ q, const S* __restrict__ k_pool,
+                    const S* __restrict__ v_pool, const float* __restrict__ k_scales,
+                    const float* __restrict__ v_scales, const int* __restrict__ tables,
                     const int* __restrict__ lo_v, const int* __restrict__ hi_v,
                     float* __restrict__ o, float* __restrict__ m_out, float* __restrict__ l_out,
                     int hq, int hkv, int n_blocks, int B, int MB, float scale, float logit_cap) {
-  constexpr int KS = D + gofr::row_pad<T>();
+  constexpr int KS = D + gofr::row_pad<S>();
   constexpr int CPT = (D + kThreads - 1) / kThreads;  // output columns per thread
   const int G = hq / hkv;
   const int b = blockIdx.x, h = blockIdx.y;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* Ks = reinterpret_cast<T*>(smem_raw);                             // [B][KS]
-  T* Vs = reinterpret_cast<T*>(smem_raw + off_v<T, D>(B));            // [B][D]
-  float* Qs = reinterpret_cast<float*>(smem_raw + off_q<T, D>(B));    // [G][D], pre-scaled
+  S* Ks = reinterpret_cast<S*>(smem_raw);                             // [B][KS]
+  S* Vs = reinterpret_cast<S*>(smem_raw + off_v<S, D>(B));            // [B][D]
+  float* Qs = reinterpret_cast<float*>(smem_raw + off_q<S, D>(B));    // [G][D], pre-scaled
   float* Ss = Qs + G * D;          // [kMaxGroup][B] scores, then probabilities
   float* As = Ss + kMaxGroup * B;  // [kMaxGroup] this block's rescale
   float* Ms = As + kMaxGroup;      // [G] running max
   float* Ls = Ms + G;              // [G] running denominator
+  float* Ksc = Ls + G;             // [B] K row scales (int8 S only)
+  float* Vsc = Ksc + B;            // [B] V row scales (int8 S only)
 
   constexpr int VEC = gofr::vec_elems<T>();
   const T* qb = q + ((size_t)b * hq + (size_t)h * G) * D;
@@ -107,16 +123,23 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
     const int base = j * B;
     const int blk = min(max(tables[(size_t)b * MB + j], 0), n_blocks - 1);
     __syncthreads();  // previous block fully consumed
-    gofr::stage_kv<T, D, KS, kThreads>(k_pool, v_pool, Ks, Vs, B, B, [&](int r) {
+    gofr::stage_kv<S, D, KS, kThreads>(k_pool, v_pool, Ks, Vs, B, B, [&](int r) {
       return (((size_t)blk * B + r) * hkv + h) * D;
     });
+    if constexpr (quantized<S>()) {
+      for (int r = tid; r < B; r += kThreads) {
+        const size_t si = ((size_t)blk * B + r) * hkv + h;
+        Ksc[r] = k_scales[si];
+        Vsc[r] = v_scales[si];
+      }
+    }
     __syncthreads();
 
     // scores for every (query, row) pair of the block
     for (int i = tid; i < G * B; i += kThreads) {
       const int g = i / B, r = i % B;
       const float* qr = Qs + g * D;
-      const T* kr = Ks + r * KS;
+      const S* kr = Ks + r * KS;
       float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;  // four chains, not one
 #pragma unroll 4
       for (int d = 0; d < D; d += 4) {
@@ -125,7 +148,9 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
         s2 = fmaf(qr[d + 2], gofr::to_f32(kr[d + 2]), s2);
         s3 = fmaf(qr[d + 3], gofr::to_f32(kr[d + 3]), s3);
       }
-      Ss[i] = gofr::soft_cap((s0 + s1) + (s2 + s3), logit_cap);
+      float sc = (s0 + s1) + (s2 + s3);
+      if constexpr (quantized<S>()) sc *= Ksc[r];
+      Ss[i] = gofr::soft_cap(sc, logit_cap);
     }
     __syncthreads();
 
@@ -167,7 +192,8 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
 #pragma unroll
       for (int g = 0; g < kMaxGroup; ++g) acc[g][c] *= As[g];
       for (int r = 0; r < B; ++r) {
-        const float vv = gofr::to_f32(Vs[r * D + col]);
+        float vv = gofr::to_f32(Vs[r * D + col]);
+        if constexpr (quantized<S>()) vv *= Vsc[r];
 #pragma unroll
         for (int g = 0; g < kMaxGroup; ++g) acc[g][c] = fmaf(Ss[g * B + r], vv, acc[g][c]);
       }
@@ -194,32 +220,33 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k_pool, const void* v_pool, const int* tables,
-                   const int* lo, const int* hi, float* o, float* m, float* l, int b, int hq,
-                   int hkv, int n_blocks, int B, int MB, float scale, float logit_cap,
-                   cudaStream_t stream) {
+template <typename T, typename S, int D>
+cudaError_t launch(const void* q, const void* k_pool, const void* v_pool, const float* k_scales,
+                   const float* v_scales, const int* tables, const int* lo, const int* hi,
+                   float* o, float* m, float* l, int b, int hq, int hkv, int n_blocks, int B,
+                   int MB, float scale, float logit_cap, cudaStream_t stream) {
   const int G = hq / hkv;
-  const size_t smem = smem_bytes<T, D>(G, B);
-  cudaError_t err = gofr::allow_smem(paged_decode_kernel<T, D>, smem);
+  const size_t smem = smem_bytes<S, D>(G, B);
+  cudaError_t err = gofr::allow_smem(paged_decode_kernel<T, S, D>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(b, hkv);
-  paged_decode_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pool), static_cast<const T*>(v_pool),
-      tables, lo, hi, o, m, l, hq, hkv, n_blocks, B, MB, scale, logit_cap);
+  paged_decode_kernel<T, S, D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const S*>(k_pool), static_cast<const S*>(v_pool),
+      k_scales, v_scales, tables, lo, hi, o, m, l, hq, hkv, n_blocks, B, MB, scale, logit_cap);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename S>
 cudaError_t dispatch_d(int d, const void* q, const void* k_pool, const void* v_pool,
-                       const int* tables, const int* lo, const int* hi, float* o, float* m,
-                       float* l, int b, int hq, int hkv, int n_blocks, int B, int MB, float scale,
-                       float logit_cap, cudaStream_t stream) {
+                       const float* k_scales, const float* v_scales, const int* tables,
+                       const int* lo, const int* hi, float* o, float* m, float* l, int b, int hq,
+                       int hkv, int n_blocks, int B, int MB, float scale, float logit_cap,
+                       cudaStream_t stream) {
   switch (d) {
-#define GOFR_CASE(DIM)                                                                          \
-  case DIM:                                                                                     \
-    return launch<T, DIM>(q, k_pool, v_pool, tables, lo, hi, o, m, l, b, hq, hkv, n_blocks, B, \
-                          MB, scale, logit_cap, stream);
+#define GOFR_CASE(DIM)                                                                       \
+  case DIM:                                                                                  \
+    return launch<T, S, DIM>(q, k_pool, v_pool, k_scales, v_scales, tables, lo, hi, o, m, l, \
+                             b, hq, hkv, n_blocks, B, MB, scale, logit_cap, stream);
     GOFR_CASE(16)
     GOFR_CASE(32)
     GOFR_CASE(64)
@@ -231,20 +258,23 @@ cudaError_t dispatch_d(int d, const void* q, const void* k_pool, const void* v_p
   }
 }
 
+int check_args(int hq, int hkv, int block, int n_blocks) {
+  return hkv <= 0 || hq % hkv != 0 || hq / hkv > kMaxGroup || block <= 0 || n_blocks <= 0;
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. q [b, hq, d]; k_pool/v_pool
-// [n_blocks, block, hkv, d]; tables [b, table_width] int32; lo/hi [b]
-// int32; o [b, hq, d] f32; m/l [b, hq] f32 — all contiguous. Returns the
-// cudaError_t of the launch (0 = launched).
+// [n_blocks, block, hkv, d] of q's type; tables [b, table_width] int32;
+// lo/hi [b] int32; o [b, hq, d] f32; m/l [b, hq] f32 — all contiguous.
+// Returns the cudaError_t of the launch (0 = launched).
 extern "C" int gofr_paged_decode_partials(const void* q, const void* k_pool, const void* v_pool,
                                           const void* tables, const void* lo, const void* hi,
                                           void* o, void* m, void* l, int dtype, int b, int hq,
                                           int hkv, int d, int n_blocks, int block,
                                           int table_width, float scale, float logit_cap,
                                           void* stream) {
-  if (hkv <= 0 || hq % hkv != 0 || hq / hkv > kMaxGroup || block <= 0 || n_blocks <= 0)
-    return cudaErrorInvalidValue;
+  if (check_args(hq, hkv, block, n_blocks)) return cudaErrorInvalidValue;
   const int* t = static_cast<const int*>(tables);
   const int* lo_p = static_cast<const int*>(lo);
   const int* hi_p = static_cast<const int*>(hi);
@@ -253,10 +283,44 @@ extern "C" int gofr_paged_decode_partials(const void* q, const void* k_pool, con
   float* l_p = static_cast<float*>(l);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch_d<float>(d, q, k_pool, v_pool, t, lo_p, hi_p, o_p, m_p, l_p, b, hq, hkv,
-                             n_blocks, block, table_width, scale, logit_cap, s);
+    return dispatch_d<float, float>(d, q, k_pool, v_pool, nullptr, nullptr, t, lo_p, hi_p, o_p,
+                                    m_p, l_p, b, hq, hkv, n_blocks, block, table_width, scale,
+                                    logit_cap, s);
   if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(d, q, k_pool, v_pool, t, lo_p, hi_p, o_p, m_p, l_p, b, hq,
-                                     hkv, n_blocks, block, table_width, scale, logit_cap, s);
+    return dispatch_d<__nv_bfloat16, __nv_bfloat16>(d, q, k_pool, v_pool, nullptr, nullptr, t,
+                                                    lo_p, hi_p, o_p, m_p, l_p, b, hq, hkv,
+                                                    n_blocks, block, table_width, scale,
+                                                    logit_cap, s);
+  return cudaErrorInvalidValue;
+}
+
+// As gofr_paged_decode_partials, with int8 k_pool/v_pool [n_blocks, block,
+// hkv, d] and f32 k_scales/v_scales [n_blocks, block, hkv]; dtype is q's
+// type (0 = float32, 1 = bfloat16).
+extern "C" int gofr_paged_decode_partials_int8(const void* q, const void* k_pool,
+                                               const void* v_pool, const void* k_scales,
+                                               const void* v_scales, const void* tables,
+                                               const void* lo, const void* hi, void* o, void* m,
+                                               void* l, int dtype, int b, int hq, int hkv, int d,
+                                               int n_blocks, int block, int table_width,
+                                               float scale, float logit_cap, void* stream) {
+  if (check_args(hq, hkv, block, n_blocks)) return cudaErrorInvalidValue;
+  const float* ks = static_cast<const float*>(k_scales);
+  const float* vs = static_cast<const float*>(v_scales);
+  const int* t = static_cast<const int*>(tables);
+  const int* lo_p = static_cast<const int*>(lo);
+  const int* hi_p = static_cast<const int*>(hi);
+  float* o_p = static_cast<float*>(o);
+  float* m_p = static_cast<float*>(m);
+  float* l_p = static_cast<float*>(l);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return dispatch_d<float, int8_t>(d, q, k_pool, v_pool, ks, vs, t, lo_p, hi_p, o_p, m_p, l_p,
+                                     b, hq, hkv, n_blocks, block, table_width, scale, logit_cap,
+                                     s);
+  if (dtype == 1)
+    return dispatch_d<__nv_bfloat16, int8_t>(d, q, k_pool, v_pool, ks, vs, t, lo_p, hi_p, o_p,
+                                             m_p, l_p, b, hq, hkv, n_blocks, block, table_width,
+                                             scale, logit_cap, s);
   return cudaErrorInvalidValue;
 }

@@ -1,9 +1,9 @@
 """KV memory manager (counterpart of gofr_tpu/kvcache, paged layout only).
 
 The JAX package's CacheManager picks between a paged pool, a rolling ring
-and a dense slab, and adds a radix prefix index, sessions and int8 rows.
-This slice ports the serving default — the paged pool — with the same
-sizing rules:
+and a dense slab, and adds a radix prefix index and sessions. The port
+keeps the serving default — the paged pool, bf16/f32 or int8 rows — with
+the same sizing rules:
 
 - ``table_width = ceil(max_seq_len / block)`` entries per slot table;
 - ``capacity = table_width * block`` logical rows per slot;
@@ -14,7 +14,8 @@ sizing rules:
 
 Host tables grow as each cursor advances (``ensure``) and return their
 blocks on ``release_slot``; the device pool tensors are
-[L, n_blocks, block, hkv, hd] and belong to the engine.
+[L, n_blocks, block, hkv, hd] (plus [2, L, n_blocks, block, hkv] float32
+scales for an int8 pool) and belong to the engine.
 """
 
 from __future__ import annotations
@@ -24,10 +25,19 @@ import threading
 import numpy as np
 import torch
 
-from .paged import BlockPool, PoolExhausted, SlotTable, gather_slots, scatter_rows
+from .paged import (
+    BlockPool,
+    PoolExhausted,
+    SlotTable,
+    dequantize_rows,
+    gather_slots,
+    quantize_rows,
+    scatter_rows,
+)
 
 __all__ = [
-    "BlockPool", "CacheManager", "PoolExhausted", "SlotTable", "gather_slots", "scatter_rows",
+    "BlockPool", "CacheManager", "PoolExhausted", "SlotTable", "dequantize_rows",
+    "gather_slots", "quantize_rows", "scatter_rows",
 ]
 
 
@@ -45,6 +55,7 @@ class CacheManager:
         *,
         append_widths: tuple = (),
         block: int = 16,
+        kv_int8: bool = False,
     ):
         self.cfg = cfg
         self.slots = slots
@@ -53,8 +64,11 @@ class CacheManager:
         self.block = int(block)
         self.table_width = -(-max_seq_len // self.block)
         self.capacity = self.table_width * self.block
-        itemsize = torch.empty((), dtype=cfg.dtype).element_size()
-        self.block_bytes = 2 * cfg.n_layers * self.block * cfg.n_kv_heads * cfg.head_dim * itemsize
+        self.int8 = bool(kv_int8)
+        itemsize = 1 if self.int8 else torch.empty((), dtype=cfg.dtype).element_size()
+        rows = 2 * cfg.n_layers * self.block * cfg.n_kv_heads
+        # an int8 row carries one float32 scale per (row, KV head)
+        self.block_bytes = rows * cfg.head_dim * itemsize + (rows * 4 if self.int8 else 0)
         # worst case with zero sharing: every slot fully grown
         self.pool = BlockPool(slots * self.table_width, self.block, self.block_bytes)
         self._slot_tables = [SlotTable(self.table_width) for _ in range(slots)]
@@ -62,18 +76,25 @@ class CacheManager:
         self.tables_dirty = True
         self._lock = threading.Lock()
 
-    def pool_tensors(self, device) -> "KVCache":  # noqa: F821 — models.transformer
-        """Zeroed device pool [L, n_blocks, block, hkv, hd] plus per-slot
-        lengths; the engine owns these tensors."""
+    def pool_tensors(self, device):
+        """Zeroed device pool [L, n_blocks, block, hkv, hd] (int8 when
+        ``kv_int8``, else the model dtype) plus per-slot lengths, and the
+        int8 pool's zeroed float32 scales [2, L, n_blocks, block, hkv]
+        (None otherwise). The engine owns these tensors."""
         from ..models.transformer import KVCache
 
         cfg = self.cfg
         shape = (cfg.n_layers, self.pool.n_blocks, self.block, cfg.n_kv_heads, cfg.head_dim)
-        return KVCache(
-            k=torch.zeros(shape, dtype=cfg.dtype, device=device),
-            v=torch.zeros(shape, dtype=cfg.dtype, device=device),
+        dtype = torch.int8 if self.int8 else cfg.dtype
+        cache = KVCache(
+            k=torch.zeros(shape, dtype=dtype, device=device),
+            v=torch.zeros(shape, dtype=dtype, device=device),
             length=torch.zeros((self.slots,), dtype=torch.int32, device=device),
         )
+        scales = (
+            torch.zeros((2,) + shape[:-1], dtype=torch.float32, device=device) if self.int8 else None
+        )
+        return cache, scales
 
     def blocks_for(self, tokens: int) -> int:
         return -(-max(0, int(tokens)) // self.block)
@@ -164,6 +185,8 @@ class CacheManager:
             return {
                 "layout": "paged",
                 "block": self.block,
+                "int8": self.int8,
+                "block_bytes": self.block_bytes,
                 "pool_blocks": self.pool.n_blocks,
                 "blocks_in_use": self.pool.blocks_in_use(),
                 "reserved": self.pool.reserved,

@@ -2,14 +2,17 @@
 
 One device pool of fixed-size blocks backs every engine slot: logical row
 ``p`` of a slot lives at pool row ``table[p // B] * B + p % B``. This
-slice ports the unshared pool — no radix tree, no prefix sharing, no int8
-rows — so every block has refcount 1 and is private to its slot.
+port keeps the unshared pool — no radix tree, no prefix sharing — so every
+block has refcount 1 and is private to its slot. An int8 pool stores each
+row as int8 plus one float32 scale per (row, KV head) beside it
+(:func:`quantize_rows`).
 
 Host bookkeeping (copied and trimmed from the JAX package, which is
 host-only code there too): :class:`BlockPool` (refcounts, free list,
 admission reservations) and :class:`SlotTable` (one block table per
 slot). Device helpers: :func:`gather_slots` builds the dense per-slot
-view through the tables; :func:`scatter_rows` writes rows through them.
+view through the tables; :func:`scatter_rows` writes rows through them;
+:func:`quantize_rows` / :func:`dequantize_rows` are the int8 row codec.
 """
 
 from __future__ import annotations
@@ -19,7 +22,10 @@ from typing import Any
 import numpy as np
 import torch
 
-__all__ = ["BlockPool", "PoolExhausted", "SlotTable", "gather_slots", "scatter_rows"]
+__all__ = [
+    "BlockPool", "PoolExhausted", "SlotTable", "dequantize_rows", "gather_slots",
+    "quantize_rows", "scatter_rows",
+]
 
 
 class PoolExhausted(RuntimeError):
@@ -109,30 +115,55 @@ class SlotTable:
         return [int(b) for b in self.rows[: self.hi]]
 
 
-def gather_slots(pool_k, pool_v, tables, lengths):
+def gather_slots(pool_k, pool_v, tables, lengths, *, scales=None, dtype=None):
     """Dense per-slot view THROUGH the block tables: logical row ``p`` of
     slot ``s`` comes from pool block ``tables[s, p // B]``, row ``p % B``
     (table entries clipped into range, like the JAX gather). Returns a
-    KVCache of fresh [L, S, MB*B, h, d] tensors with ``length=lengths``."""
+    KVCache of fresh [L, S, MB*B, h, d] tensors with ``length=lengths``.
+    With ``scales`` = (k_scales, v_scales), each [L, NB, B, h] (int8
+    pool), rows are dequantized in ``dtype``: the scale is cast to
+    ``dtype`` before the multiply, as in the JAX function."""
     from ..models.transformer import KVCache
 
     idx = tables.long().clamp(0, pool_k.shape[1] - 1)
 
-    def take(pool):
+    def take(pool, sc):
         g = pool[:, idx]  # [L, S, MB, B, h, d]
         L, S, MB, B, h, d = g.shape
-        return g.reshape(L, S, MB * B, h, d)
+        g = g.reshape(L, S, MB * B, h, d)
+        if sc is not None:
+            s = sc[:, idx].reshape(L, S, MB * B, h)
+            g = dequantize_rows(g, s, dtype)
+        return g
 
-    return KVCache(k=take(pool_k), v=take(pool_v), length=lengths)
+    ks, vs = (None, None) if scales is None else scales
+    return KVCache(k=take(pool_k, ks), v=take(pool_v, vs), length=lengths)
 
 
-def scatter_rows(pool_k, pool_v, tables, rows_k, rows_v, positions, valid):
+def quantize_rows(rows: torch.Tensor):
+    """Symmetric per-row int8 over the last (head_dim) axis: scale =
+    max(amax, 1e-8) / 127 in float32, values rounded half to even and
+    clipped to +-127. Returns (int8 rows, float32 scales without that
+    axis)."""
+    rf = rows.float()
+    scale = rf.abs().amax(dim=-1).clamp(min=1e-8) / 127.0
+    q = torch.round(rf / scale[..., None]).clamp(-127, 127).to(torch.int8)
+    return q, scale
+
+
+def dequantize_rows(q: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
+    return q.to(dtype) * scale[..., None].to(dtype)
+
+
+def scatter_rows(pool_k, pool_v, tables, rows_k, rows_v, positions, valid, *, scales=None):
     """Write per-slot K/V rows through the block tables, IN PLACE (the
     JAX function returns new pools; writing the pool in place saves a
     copy of the whole pool). ``rows_k/v`` are [L, S, W, h, d],
     ``positions`` [S, W] logical rows, ``valid`` [S, W] bool. Invalid
-    lanes, and targets outside the pool, write nothing. Returns
-    (pool_k, pool_v)."""
+    lanes, and targets outside the pool, write nothing. With ``scales``
+    (the int8 pool's [2, L, NB, B, h] float32 tensor) the rows are
+    quantized first and their scales written in place beside them.
+    Returns (pool_k, pool_v)."""
     L, NB, B, h, d = pool_k.shape
     positions = positions.long()
     bi = (positions // B).clamp(0, tables.shape[1] - 1)
@@ -141,8 +172,10 @@ def scatter_rows(pool_k, pool_v, tables, rows_k, rows_v, positions, valid):
     keep = valid & (flat >= 0) & (flat < NB * B)
     s_idx, w_idx = keep.nonzero(as_tuple=True)
     idx = flat[s_idx, w_idx]
-    for pool, rows in ((pool_k, rows_k), (pool_v, rows_v)):
-        pool.view(L, NB * B, h, d).index_copy_(
-            1, idx, rows[:, s_idx, w_idx].to(pool.dtype)
-        )
+    for c, (pool, rows) in enumerate(((pool_k, rows_k), (pool_v, rows_v))):
+        rows = rows[:, s_idx, w_idx]
+        if scales is not None:
+            rows, sc = quantize_rows(rows)
+            scales[c].view(L, NB * B, h).index_copy_(1, idx, sc)
+        pool.view(L, NB * B, h, d).index_copy_(1, idx, rows.to(pool.dtype))
     return pool_k, pool_v

@@ -16,7 +16,11 @@ paged KV pool, in the JAX engine's default configuration:
 - the pure decode chunk program (JAX ``llm.decode_chunk{K}``) when no
   prompt is pending, K = 8 (or 2 for tail ends);
 - greedy (temperature 0) or top-64 temperature sampling from a
-  ``torch.Generator``, with the ``finite_guard`` sentinel.
+  ``torch.Generator``, with the ``finite_guard`` sentinel;
+- int8 serving, as the JAX engine's two flags: ``quantize=True`` serves
+  int8 weights (``models.quant``; W8A8 prefill, weight-only decode) and
+  ``kv_int8=True`` an int8 KV pool with float32 row scales, read by the
+  int8 paged-decode kernel. Either works alone.
 
 The pack/meta layouts of the JAX programs are kept: pack [nb, S+3] int32
 = tokens | cursor | n_new | temperature bits; meta [2, nb] int32 = slot
@@ -25,9 +29,9 @@ The pack/meta layouts of the JAX programs are kept: pack [nb, S+3] int32
 Left out of this slice (queued in ROADMAP.md): lookahead pipelining and
 the collector thread — a step's tokens are fetched and emitted before the
 next dispatch — and every feature that is off by default in the JAX
-engine (speculation, grammar, LoRA, prefix cache, sessions, int8 KV,
-overload control and fair queuing, goodput, flight recorder), plus the
-monolithic wave scheduler.
+engine (speculation, grammar, LoRA, prefix cache, sessions, overload
+control and fair queuing, goodput, flight recorder), plus the monolithic
+wave scheduler.
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ import torch
 
 from . import resolve_device
 from .kvcache import CacheManager, gather_slots, scatter_rows
+from .models.quant import QTensor, is_quantized, quantize_params
 from .models.transformer import decode_chunk_paged, prefill_append
 
 _EOS_DEFAULT = -1  # no EOS cut by default (random-weight models)
@@ -152,13 +157,19 @@ class GenRequest:
 def _to_device(tree, device: torch.device):
     if isinstance(tree, dict):
         return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, QTensor):
+        return QTensor(tree.q.to(device), tree.s.to(device))
     return tree.to(device)
 
 
 class LLMEngine:
     """Paged-KV serving engine with chunked prefill and fused decode
     chunks. Runs on ``cuda`` unless ``device="cpu"`` is passed (the CPU
-    runs every kernel's plain version); raises without a GPU otherwise."""
+    runs every kernel's plain version); raises without a GPU otherwise.
+
+    ``quantize=True`` quantizes the params to int8 at construction unless
+    they already are; ``kv_int8=True`` stores the KV pool as int8 rows
+    with float32 scales."""
 
     def __init__(
         self,
@@ -170,10 +181,15 @@ class LLMEngine:
         prefill_buckets: tuple[int, ...] = (16, 64, 128),
         seed: int = 0,
         device=None,
+        quantize: bool = False,
+        kv_int8: bool = False,
     ):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = _to_device(params, self.device)
+        if quantize and not is_quantized(self.params):
+            self.params = quantize_params(self.params, cfg.dtype)
+        self.quantized = bool(quantize)
         self.slots = slots
         self.max_seq_len = max_seq_len
         self.prefill_buckets = tuple(sorted(b for b in prefill_buckets if b <= max_seq_len))
@@ -188,13 +204,15 @@ class LLMEngine:
         self.chunk_shapes = tuple(sorted(shapes)) or (min(PREFILL_CHUNK, max_seq_len),)
         self.kv = CacheManager(
             cfg, slots, max_seq_len, DECODE_CHUNK, append_widths=self.chunk_shapes, block=KV_BLOCK,
+            kv_int8=kv_int8,
         )
         dev = self.device
-        # device-resident state: the paged pool (+ per-slot lengths), the
-        # block tables' device mirror, the chain tail, active mask and
-        # temperatures. active is never cleared on retire: the host live
-        # mask keeps a retired slot from advancing or writing.
-        self.pool = self.kv.pool_tensors(dev)
+        # device-resident state: the paged pool (+ per-slot lengths, and
+        # the int8 pool's scales), the block tables' device mirror, the
+        # chain tail, active mask and temperatures. active is never cleared
+        # on retire: the host live mask keeps a retired slot from
+        # advancing or writing.
+        self.pool, self.pool_scales = self.kv.pool_tensors(dev)
         self._tables_dev = torch.zeros((slots, self.kv.table_width), dtype=torch.int32, device=dev)
         self._tail = torch.zeros((slots,), dtype=torch.int32, device=dev)
         self._active = torch.zeros((slots,), dtype=torch.bool, device=dev)
@@ -261,6 +279,7 @@ class LLMEngine:
             return {
                 "scheduler": "chunked",
                 "slots": self.slots,
+                "quantized": self.quantized,
                 "submitted": self.submitted,
                 "finished": self.finished,
                 "steps": self.steps,
@@ -533,9 +552,11 @@ class LLMEngine:
     # -- device programs ------------------------------------------------------
     def _step_program(self, shape, pack, meta, live, tables):
         """The unified step (JAX ``llm.step_p{shape}_d{K}``). Updates the
-        pool, lengths, tail, active and temps IN PLACE; returns (first
-        tokens [nb], decode tokens [K, slots])."""
-        dev, cfg, slots = self.device, self.cfg, self.slots
+        pool (and its int8 scales), lengths, tail, active and temps IN
+        PLACE; returns (first tokens [nb], decode tokens [K, slots]). An
+        int8 pool's packed slot views are dequantized in the model dtype;
+        the chunk rows are quantized again at the scatter back."""
+        dev, cfg, slots, sc = self.device, self.cfg, self.slots, self.pool_scales
         cap = self.kv.capacity
         pack_t = torch.from_numpy(pack).to(dev)
         meta_t = torch.from_numpy(meta).to(dev)
@@ -546,14 +567,17 @@ class LLMEngine:
         req_temps = pack_t[:, shape + 2].contiguous().view(torch.float32)
         slot_idx, finish = meta_t[0], meta_t[1]
         tsub = tables[slot_idx.clamp(0, slots - 1).long()]
-        sub = gather_slots(self.pool.k, self.pool.v, tsub, cursors)
+        sub = gather_slots(
+            self.pool.k, self.pool.v, tsub, cursors,
+            scales=None if sc is None else (sc[0], sc[1]), dtype=cfg.dtype,
+        )
         logits, sub2 = prefill_append(self.params, cfg, tokens, sub, cursors, n_new)
         ar = torch.arange(shape, device=dev)[None, :]
         pos_a = cursors[:, None].long() + ar
         valid_a = (ar < n_new[:, None]) & (pos_a < cap)
         scatter_rows(
             self.pool.k, self.pool.v, tsub,
-            _rows_at(sub2.k, pos_a), _rows_at(sub2.v, pos_a), pos_a, valid_a,
+            _rows_at(sub2.k, pos_a), _rows_at(sub2.v, pos_a), pos_a, valid_a, scales=sc,
         )
         _scatter_slots(self.pool.length, slot_idx, cursors + n_new)
         first = self._sample(logits, req_temps, self._gen)
@@ -566,7 +590,7 @@ class LLMEngine:
         toks, last, _ = decode_chunk_paged(
             self.params, cfg, self._tail, self.pool, tables, self._active & live_t,
             self._temps, self._gen, n_steps=self.decode_chunk, sample_fn=self._sample,
-            block=self.kv.block,
+            block=self.kv.block, scales=sc,
         )
         self._tail = last
         return first, toks
@@ -578,6 +602,7 @@ class LLMEngine:
         toks, last, _ = decode_chunk_paged(
             self.params, self.cfg, self._tail, self.pool, tables, self._active & live_t,
             self._temps, self._gen, n_steps=k, sample_fn=self._sample, block=self.kv.block,
+            scales=self.pool_scales,
         )
         self._tail = last
         return toks

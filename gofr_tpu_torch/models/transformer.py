@@ -14,11 +14,17 @@ the model dtype before the multiply, GeGLU with the tanh-approximate GELU
 tied embeddings (an ``unembed`` leaf wins when present), logits rounded
 to the model dtype by the unembed product and returned as f32.
 
+Weights may be int8 (``models.quant.QTensor`` leaves): as in the JAX
+package, prefill chunks and the full-prompt forward run W8A8 products
+(``qmm_a8``) and the decode chunk weight-only ones (``qmm``); plain
+tensors take a plain ``x @ w`` either way.
+
 Serving entry points: ``prefill_append`` (one chunked-prefill append into
 a gathered per-slot view, write-then-attend through ``flash_attention``)
-and ``decode_chunk_paged`` (fused decode steps reading the paged pool
-through ``paged_decode_partials``). ``transformer_forward`` is the plain
-oracle: dense causal attention through ``mha_reference``, no kernels.
+and ``decode_chunk_paged`` (fused decode steps reading the paged pool,
+bf16/f32 or int8, through ``paged_decode_partials``).
+``transformer_forward`` is the plain oracle: dense causal attention
+through ``mha_reference``, no kernels.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ from ..ops import (
     paged_chunk_decode_attention,
     rms_norm,
 )
+from .quant import QTensor, qmm, qmm_a8
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,24 +133,37 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator | None = None
 
 def params_from_jax(np_tree: dict, cfg: TransformerConfig, device=None) -> dict:
     """The JAX parameter pytree, mapped to numpy (``jax.tree.map(np.asarray,
-    params)``), as the port's parameter dictionary on ``device`` in
-    ``cfg.dtype``. Same keys and layouts; bfloat16 arrays pass through
-    float32, which is exact."""
+    params)``), as the port's parameter dictionary on ``device``. Same keys
+    and layouts. Plain leaves become ``cfg.dtype``; bfloat16 arrays pass
+    through float32, which is exact. A quantized tree's ``QTensor(q, s)``
+    leaves (any NamedTuple with fields ``q`` and ``s``) become the port's
+    ``QTensor``: ``q`` stays int8, ``s`` goes to ``cfg.dtype``."""
     import numpy as np
 
     dev = resolve_device(device)
 
+    def real(a):
+        return torch.from_numpy(np.array(a, dtype=np.float32)).to(device=dev, dtype=cfg.dtype)
+
     def conv(a):
         if isinstance(a, dict):
             return {key: conv(val) for key, val in a.items()}
-        return torch.from_numpy(np.array(a, dtype=np.float32)).to(device=dev, dtype=cfg.dtype)
+        if getattr(a, "_fields", None) == ("q", "s"):
+            q = np.asarray(a.q)
+            if q.dtype != np.int8:
+                raise TypeError(f"quantized leaf has q of dtype {q.dtype}, expected int8")
+            return QTensor(q=torch.from_numpy(q.copy()).to(dev), s=real(a.s))
+        return real(a)
 
     return conv(np_tree)
 
 
 def _layer(params: dict, i: int) -> dict:
     """One layer's weights (views along the stacked leading axis)."""
-    return {name: w[i] for name, w in params["layers"].items()}
+    return {
+        name: QTensor(w.q[i], w.s[i]) if isinstance(w, QTensor) else w[i]
+        for name, w in params["layers"].items()
+    }
 
 
 def _act(cfg: TransformerConfig, x: torch.Tensor) -> torch.Tensor:
@@ -154,45 +174,52 @@ def _act(cfg: TransformerConfig, x: torch.Tensor) -> torch.Tensor:
     raise ValueError(f"unknown activation {cfg.act!r}; expected 'gelu' or 'silu'")
 
 
-def _mlp(cfg: TransformerConfig, h: torch.Tensor, lp: dict) -> torch.Tensor:
-    """Dense gated MLP; the caller adds the residual."""
-    return (_act(cfg, h @ lp["w_gate"]) * (h @ lp["w_up"])) @ lp["w_down"]
+def _mlp(cfg: TransformerConfig, h: torch.Tensor, lp: dict, mm) -> torch.Tensor:
+    """Dense gated MLP; the caller adds the residual. ``mm`` is the
+    product (``qmm`` or ``qmm_a8``)."""
+    return mm(_act(cfg, mm(h, lp["w_gate"])) * mm(h, lp["w_up"]), lp["w_down"])
 
 
-def _qkv(cfg: TransformerConfig, h: torch.Tensor, lp: dict, positions: torch.Tensor):
+def _qkv(cfg: TransformerConfig, h: torch.Tensor, lp: dict, positions: torch.Tensor, mm):
     """Projections + RoPE: q [b, s, hq, hd], k/v [b, s, hkv, hd]."""
     b, s, _ = h.shape
-    q = (h @ lp["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
-    kv = (h @ lp["wkv"]).reshape(b, s, cfg.n_kv_heads, 2, cfg.head_dim)
+    q = mm(h, lp["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
+    kv = mm(h, lp["wkv"]).reshape(b, s, cfg.n_kv_heads, 2, cfg.head_dim)
     k, v = kv[:, :, :, 0], kv[:, :, :, 1]
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v.contiguous()
 
 
-def _attn_out(cfg, x, attn, lp):
+def _attn_out(cfg, x, attn, lp, mm):
     b, s = attn.shape[:2]
-    return x + (attn.reshape(b, s, cfg.n_heads * cfg.head_dim) @ lp["wo"]).to(x.dtype)
+    return x + mm(attn.reshape(b, s, cfg.n_heads * cfg.head_dim), lp["wo"]).to(x.dtype)
 
 
 def _layer_body(cfg: TransformerConfig, x: torch.Tensor, lp: dict, positions: torch.Tensor):
-    """One decoder layer on a full prompt (the JAX prefill branch):
-    returns (x, k, v). Dense causal attention via mha_reference."""
+    """One decoder layer on a full prompt (the JAX prefill branch, W8A8
+    for int8 weights): returns (x, k, v). Dense causal attention via
+    mha_reference."""
     h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-    q, k, v = _qkv(cfg, h, lp, positions)
+    q, k, v = _qkv(cfg, h, lp, positions, qmm_a8)
     attn = mha_reference(
         q, k, v, causal=True, logit_cap=cfg.attn_logit_cap, window=cfg.sliding_window,
     )
-    x = _attn_out(cfg, x, attn, lp)
+    x = _attn_out(cfg, x, attn, lp, qmm_a8)
     h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-    return x + _mlp(cfg, h, lp), k, v
+    return x + _mlp(cfg, h, lp, qmm_a8), k, v
 
 
 def _embed_tokens(params: dict, cfg: TransformerConfig, tokens: torch.Tensor) -> torch.Tensor:
     """Embedding gather + Gemma sqrt(d) scaling: the scale is computed in
     f32, cast to the model dtype (45.25 in bf16 for d=2048), and the
-    multiply runs in that dtype."""
-    x = params["embed"][tokens.long()].to(cfg.dtype)
+    multiply runs in that dtype. An int8 embedding gathers int8 rows and
+    applies its per-d-column scale in the model dtype."""
+    emb = params["embed"]
+    if isinstance(emb, QTensor):
+        x = emb.q[tokens.long()].to(cfg.dtype) * emb.s.to(cfg.dtype)
+    else:
+        x = emb[tokens.long()].to(cfg.dtype)
     if not cfg.scale_embed:
         return x
     scale = torch.sqrt(torch.tensor(float(cfg.d_model), dtype=torch.float32)).to(cfg.dtype)
@@ -201,9 +228,13 @@ def _embed_tokens(params: dict, cfg: TransformerConfig, tokens: torch.Tensor) ->
 
 def _unembed(params: dict, cfg: TransformerConfig, x: torch.Tensor) -> torch.Tensor:
     """[b, s, d] -> [b, s, vocab] f32 logits (tied unless an ``unembed``
-    leaf is present); the product runs in the model dtype."""
+    leaf is present); the product runs in the model dtype. An int8 table
+    folds its d-column scale into the activations: (x * s) @ q.T."""
     emb = params.get("unembed", params["embed"])
-    logits = (x @ emb.T.to(cfg.dtype)).float()
+    if isinstance(emb, QTensor):
+        logits = ((x * emb.s.to(cfg.dtype)) @ emb.q.T.to(cfg.dtype)).float()
+    else:
+        logits = (x @ emb.T.to(cfg.dtype)).float()
     if cfg.final_logit_cap > 0.0:
         logits = cfg.final_logit_cap * torch.tanh(logits / cfg.final_logit_cap)
     return logits
@@ -224,8 +255,9 @@ def transformer_forward(
     unembed_positions: torch.Tensor | None = None,  # [b] -> logits only there
 ) -> torch.Tensor:
     """Full-prompt forward, no cache: f32 logits [b, s, vocab], or
-    [b, 1, vocab] when ``unembed_positions`` is given. The slice's plain
-    oracle — it reaches no kernel."""
+    [b, 1, vocab] when ``unembed_positions`` is given. The port's plain
+    oracle — it reaches no kernel (int8 weights run W8A8, as the JAX
+    prefill branch does)."""
     x = _embed_tokens(params, cfg, tokens)
     for i in range(cfg.n_layers):
         x, _k, _v = _layer_body(cfg, x, _layer(params, i), positions)
@@ -255,7 +287,8 @@ def _append_forward(params, cfg, tokens, cache: KVCache, cursors, n_new):
     """Shared write-then-attend chunk append: write the chunk's K/V rows at
     each row's cursor, attend over all resident keys + the chunk's causal
     triangle, return the final hidden states [b, c, d] and the (k, v)
-    stacks, which are ``cache``'s own tensors updated in place."""
+    stacks, which are ``cache``'s own tensors updated in place. The chunk's
+    own rows are written unquantized; int8 weights run W8A8."""
     b, c = tokens.shape
     positions = cursors.long()[:, None] + torch.arange(c, device=tokens.device)[None, :]
     x = _embed_tokens(params, cfg, tokens)
@@ -263,16 +296,16 @@ def _append_forward(params, cfg, tokens, cache: KVCache, cursors, n_new):
         lp = _layer(params, i)
         kc, vc = cache.k[i], cache.v[i]  # [b, capacity, hkv, hd]
         h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-        q, k_new, v_new = _qkv(cfg, h, lp, positions)
+        q, k_new, v_new = _qkv(cfg, h, lp, positions, qmm_a8)
         _write_chunk_rows(kc, k_new, cursors, n_new)
         _write_chunk_rows(vc, v_new, cursors, n_new)
         attn = chunk_prefill_attention(
             q.contiguous(), kc, vc, cursors.to(torch.int32),
             logit_cap=cfg.attn_logit_cap, window=cfg.sliding_window,
         )
-        x = _attn_out(cfg, x, attn, lp)
+        x = _attn_out(cfg, x, attn, lp, qmm_a8)
         h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-        x = x + _mlp(cfg, h, lp)
+        x = x + _mlp(cfg, h, lp, qmm_a8)
     return x, (cache.k, cache.v)
 
 
@@ -312,6 +345,7 @@ def decode_chunk_paged(
     n_steps: int,
     sample_fn,  # (logits [b, vocab] f32, temps [b], generator) -> tokens [b]
     block: int,
+    scales: torch.Tensor | None = None,  # [2, L, NB, B, hkv] f32 (int8 pool)
 ) -> tuple[torch.Tensor, torch.Tensor, KVCache]:
     """``n_steps`` fused decode steps against the BLOCK-PAGED pool.
 
@@ -324,6 +358,11 @@ def decode_chunk_paged(
     only; write indices derive from the DEVICE lengths. The pool tensors
     and ``pool.length`` are updated IN PLACE (the JAX program donates and
     rebuilds them; writing in place saves a copy of the whole pool).
+
+    An int8 pool passes its ``scales``: each layer's attention reads
+    ``scales[0, i]`` / ``scales[1, i]``, the buffer rows stay in the model
+    dtype, and they are quantized at the chunk-end scatter (scales updated
+    in place). int8 weights run weight-only products (``qmm``).
 
     Returns (tokens [n_steps, b] int32, last [b] int32, pool)."""
     from ..kvcache.paged import scatter_rows
@@ -345,16 +384,18 @@ def decode_chunk_paged(
         for i in range(L):
             lp = _layer(params, i)
             h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-            q, k_new, v_new = _qkv(cfg, h, lp, positions)
+            q, k_new, v_new = _qkv(cfg, h, lp, positions, qmm)
             kb[i, :, k_i] = k_new[:, 0]
             vb[i, :, k_i] = v_new[:, 0]
             attn = paged_chunk_decode_attention(
                 q, pool.k[i], pool.v[i], tables, kb[i], vb[i], lengths, k_i,
                 logit_cap=cfg.attn_logit_cap, window=cfg.sliding_window,
+                k_scales=None if scales is None else scales[0, i],
+                v_scales=None if scales is None else scales[1, i],
             )
-            x = _attn_out(cfg, x, attn, lp)
+            x = _attn_out(cfg, x, attn, lp, qmm)
             h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-            x = x + _mlp(cfg, h, lp)
+            x = x + _mlp(cfg, h, lp, qmm)
         logits = _unembed_last(params, cfg, x)
         tok = sample_fn(logits, temps, generator).to(torch.int32)
         out.append(tok)
@@ -364,7 +405,7 @@ def decode_chunk_paged(
     cap = tables.shape[1] * block
     pos = lengths[:, None].long() + torch.arange(K, device=dev)[None, :]
     valid = active[:, None] & (pos < cap)
-    scatter_rows(pool.k, pool.v, tables, kb, vb, pos, valid)
+    scatter_rows(pool.k, pool.v, tables, kb, vb, pos, valid, scales=scales)
     new_len = torch.where(active, torch.clamp(lengths + K, max=cap), lengths)
     lengths.copy_(new_len.to(lengths.dtype))
     return torch.stack(out), tok, pool

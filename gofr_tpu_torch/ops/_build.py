@@ -2,7 +2,10 @@
 
 Each source in ``gofr_tpu_torch/csrc`` is compiled by ``nvcc`` for Hopper
 (``sm_90a``) into its own shared library with a plain C interface and
-loaded with ``ctypes`` — no PyTorch headers, so a build takes seconds.
+loaded with ``ctypes`` — no PyTorch headers, so a build takes seconds. A
+source may export several kernels' entry points (``paged_decode.cu``
+exports the bf16/f32 and the int8 paged-decode kernels); they share its
+library.
 Libraries land in ``build/kernels/`` at the root of the checkout (listed in
 ``.gitignore``), named by a hash of the sources and flags: a changed source
 rebuilds, an unchanged one is reused. The build happens at first use (the
@@ -32,7 +35,7 @@ NVCC_FLAGS = (
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# library name -> (source file, exported C function, its argument types)
+# kernel name -> (source file, exported C function, its argument types)
 KERNELS = {
     "flash_attention": (
         "flash_attention.cu", "gofr_flash_attention",
@@ -45,6 +48,13 @@ KERNELS = {
         # q, k_pool, v_pool, tables, lo, hi, o, m, l | dtype, b, hq, hkv,
         # d, n_blocks, block, table_width | scale, logit_cap | stream
         [_P] * 9 + [_I] * 8 + [_F] * 2 + [_P],
+    ),
+    "paged_decode_int8": (
+        "paged_decode.cu", "gofr_paged_decode_partials_int8",
+        # q, k_pool, v_pool, k_scales, v_scales, tables, lo, hi, o, m, l |
+        # dtype (of q), b, hq, hkv, d, n_blocks, block, table_width |
+        # scale, logit_cap | stream
+        [_P] * 11 + [_I] * 8 + [_F] * 2 + [_P],
     ),
 }
 
@@ -60,44 +70,50 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``name``'s library lives for the current sources and flags."""
+    """Where kernel ``name``'s library lives for the current sources and
+    flags (one library per source file)."""
     src = KERNELS[name][0]
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     h.update((CSRC / src).read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.read_bytes())
-    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"{Path(src).stem}-{h.hexdigest()[:16]}.so"
 
 
 def build(names=None) -> dict[str, dict]:
-    """Compile every named kernel library that is missing, one ``nvcc``
-    per source, all started together. Returns {name: {"seconds",
-    "cached", "ptxas"}} (ptxas is the compiler's register/shared-memory
-    report). Raises on any failed compile, with nvcc's output."""
+    """Compile every library the named kernels need that is missing, one
+    ``nvcc`` per source, all started together. Returns {source stem:
+    {"seconds", "cached", "ptxas"}} (ptxas is the compiler's
+    register/shared-memory report). Raises on any failed compile, with
+    nvcc's output."""
     names = list(KERNELS) if names is None else list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     started: dict[str, tuple] = {}
     report: dict[str, dict] = {}
     t0 = time.perf_counter()
     for name in names:
+        src = KERNELS[name][0]
+        lib = Path(src).stem
+        if lib in started or lib in report:
+            continue  # another kernel of the same source
         out = library_path(name)
         if out.exists():
-            report[name] = {"seconds": 0.0, "cached": True, "ptxas": ""}
+            report[lib] = {"seconds": 0.0, "cached": True, "ptxas": ""}
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / KERNELS[name][0])]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)]
         proc = subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         )
-        started[name] = (proc, tmp, out)
+        started[lib] = (proc, tmp, out)
     failures = []
-    for name, (proc, tmp, out) in started.items():
+    for lib, (proc, tmp, out) in started.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            failures.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
+            failures.append(f"{lib}: nvcc exited {proc.returncode}\n{log}")
             continue
         os.replace(tmp, out)
-        report[name] = {
+        report[lib] = {
             "seconds": time.perf_counter() - t0, "cached": False, "ptxas": log,
         }
     if failures:

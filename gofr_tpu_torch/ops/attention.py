@@ -15,11 +15,14 @@ Two halves:
   ``NEG_INF`` instead of ``-inf``, dots on values of the cache's stored
   dtype with float32 accumulation.
 - Two kernel wrappers, ``flash_attention`` and ``paged_decode_partials``,
-  each replacing one Pallas TPU kernel with a CUDA C++ kernel for Hopper
-  (``gofr_tpu_torch/csrc``). Each has its plain PyTorch version beside
-  it. A wrapper runs the plain version for a tensor on the CPU; for a
-  tensor on a CUDA device it launches its kernel or raises. Each wrapper
-  counts its launches in a ``launches`` attribute.
+  replacing the Pallas TPU kernels with CUDA C++ kernels for Hopper
+  (``gofr_tpu_torch/csrc``): ``paged_decode_partials`` launches one
+  kernel for bf16/f32 pools and another for int8 pools with float32
+  scales (the Pallas kernel's ``quantized=True`` variant). Each has its
+  plain PyTorch version beside it. A wrapper runs the plain version for a
+  tensor on the CPU; for a tensor on a CUDA device it launches its kernel
+  or raises. Each wrapper counts its kernels' launches in ``launches``
+  attributes.
 
 float32 upcasts in the plain dots: JAX's ``preferred_element_type=f32``
 accumulates products of bf16 values in f32. The product of two bf16
@@ -181,18 +184,23 @@ def chunk_prefill_attention(
     )
 
 
-def paged_gather(k_pool, v_pool, tables):
+def paged_gather(k_pool, v_pool, tables, *, k_scales=None, v_scales=None, dtype=None):
     """[NB, B, hkv, d] pools -> dense [b, MB*B, hkv, d] views through
     [b, MB] block tables (clipped, like the JAX gather). Stale table
-    entries gather stale blocks — callers mask by position."""
+    entries gather stale blocks — callers mask by position. With
+    ``k_scales``/``v_scales`` ([NB, B, hkv], int8 pools) the rows are
+    dequantized in ``dtype``."""
     idx = tables.long().clamp(0, k_pool.shape[0] - 1)
 
-    def take(pool):
+    def take(pool, sc):
         g = pool[idx]  # [b, MB, B, hkv, d]
         b, MB, B, hkv, d = g.shape
-        return g.reshape(b, MB * B, hkv, d)
+        g = g.reshape(b, MB * B, hkv, d)
+        if sc is not None:
+            g = g.to(dtype) * sc[idx].reshape(b, MB * B, hkv)[..., None].to(dtype)
+        return g
 
-    return take(k_pool), take(v_pool)
+    return take(k_pool, k_scales), take(v_pool, v_scales)
 
 
 def paged_chunk_decode_attention(
@@ -208,13 +216,16 @@ def paged_chunk_decode_attention(
     scale: float | None = None,
     logit_cap: float = 0.0,
     window: int = 0,
+    k_scales: torch.Tensor | None = None,  # [NB, B, hkv] f32 (int8 pool)
+    v_scales: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """chunk_decode_attention reading the MAIN region through a block
     table: ``paged_decode_partials`` returns online-softmax partials for
     pool rows [lo, lengths), and they are merged here with the dense
     chunk-buffer region (positions lengths .. lengths + step) by one
     rescale — plain torch, as the merge is XLA outside the kernel in the
-    JAX package."""
+    JAX package. An int8 pool passes its scales; the buffer region stays
+    in the model dtype."""
     b, sq, hq, d = q.shape
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     hi = lengths.to(torch.int32)
@@ -224,7 +235,7 @@ def paged_chunk_decode_attention(
         lo = torch.zeros_like(hi)
     o_m, m_m, l_m = paged_decode_partials(
         q[:, 0].contiguous(), k_pool, v_pool, tables, lo, hi,
-        scale=scale, logit_cap=logit_cap,
+        scale=scale, logit_cap=logit_cap, k_scales=k_scales, v_scales=v_scales,
     )
     # buffer region: same mask set as chunk_decode_attention's buffer half
     hkv = k_buf.shape[2]
@@ -405,16 +416,21 @@ def flash_attention(
 flash_attention.launches = 0
 
 
-def paged_decode_partials_plain(q, k_pool, v_pool, tables, lo, hi, *, scale, logit_cap=0.0):
-    """Plain PyTorch version of the paged-decode kernel: gather the table
-    rows densely, attend over the valid band [lo, hi), and return the
-    online-softmax partials (o normalized, m running max, l denominator;
-    0 / NEG_INF / 0 for an empty band)."""
+def paged_decode_partials_plain(
+    q, k_pool, v_pool, tables, lo, hi, *, scale, logit_cap=0.0, k_scales=None, v_scales=None,
+):
+    """Plain PyTorch version of the paged-decode kernels: gather the table
+    rows densely (an int8 pool's rows dequantized in float32, each row
+    times its scale, as the Pallas kernel does), attend over the valid
+    band [lo, hi), and return the online-softmax partials (o normalized,
+    m running max, l denominator; 0 / NEG_INF / 0 for an empty band)."""
     b, hq, d = q.shape
     NB, B, hkv, _ = k_pool.shape
     MB = tables.shape[1]
     group = hq // hkv
-    kc, vc = paged_gather(k_pool, v_pool, tables)  # [b, MB*B, hkv, d]
+    kc, vc = paged_gather(
+        k_pool, v_pool, tables, k_scales=k_scales, v_scales=v_scales, dtype=torch.float32
+    )  # [b, MB*B, hkv, d]
     qg = (q.float() * scale).reshape(b, hkv, group, d)
     s = torch.einsum("bhgd,bshd->bhgs", qg, kc.float())
     if logit_cap > 0.0:
@@ -441,23 +457,34 @@ def paged_decode_partials(
     *,
     scale: float,
     logit_cap: float = 0.0,
+    k_scales: torch.Tensor | None = None,  # [NB, B, hkv] f32 (int8 pools)
+    v_scales: torch.Tensor | None = None,
 ):
     """Paged-attention decode over the valid band [lo, hi), reading K/V
     blocks through the block table (replaces the Pallas
     ``_paged_decode_kernel`` / ``_paged_decode_partials`` of
-    gofr_tpu/ops/attention.py, unquantized). Returns
+    gofr_tpu/ops/attention.py, both variants). Returns
     (o [b, hq, d] f32 normalized, m [b, hq] f32, l [b, hq] f32).
 
+    Pools of q's dtype take no scales. int8 pools take ``k_scales`` and
+    ``v_scales``, one float32 per (block, row, KV head); each row is
+    dequantized in float32 after the read.
+
     CPU tensors run ``paged_decode_partials_plain``; CUDA tensors launch
-    csrc/paged_decode.cu or raise."""
+    csrc/paged_decode.cu (``gofr_paged_decode_partials``, or
+    ``gofr_paged_decode_partials_int8`` with scales) or raise."""
     b, hq, d = q.shape
     NB, B, hkv, _ = k_pool.shape
     MB = tables.shape[1]
     if hq % hkv:
         raise ValueError(f"q heads {hq} not a multiple of kv heads {hkv}")
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError("paged_decode_partials: pass both k_scales and v_scales, or neither")
+    quantized = k_scales is not None
     if q.device.type == "cpu":
         return paged_decode_partials_plain(
-            q, k_pool, v_pool, tables, lo, hi, scale=scale, logit_cap=logit_cap
+            q, k_pool, v_pool, tables, lo, hi, scale=scale, logit_cap=logit_cap,
+            k_scales=k_scales, v_scales=v_scales,
         )
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_partials: unsupported device {q.device}")
@@ -465,9 +492,13 @@ def paged_decode_partials(
     _kernel_head_dim(d, "paged_decode_partials")
     if hq // hkv > 16:
         raise ValueError(f"paged_decode_partials: GQA group {hq // hkv} > 16")
+    pool_dtype = torch.int8 if quantized else q.dtype
     _check(q, "q", (b, hq, d), q.dtype, q.device)
-    _check(k_pool, "k_pool", (NB, B, hkv, d), q.dtype, q.device)
-    _check(v_pool, "v_pool", (NB, B, hkv, d), q.dtype, q.device)
+    _check(k_pool, "k_pool", (NB, B, hkv, d), pool_dtype, q.device)
+    _check(v_pool, "v_pool", (NB, B, hkv, d), pool_dtype, q.device)
+    if quantized:
+        _check(k_scales, "k_scales", (NB, B, hkv), torch.float32, q.device)
+        _check(v_scales, "v_scales", (NB, B, hkv), torch.float32, q.device)
     _check(tables, "tables", (b, MB), torch.int32, q.device)
     _check(lo, "lo", (b,), torch.int32, q.device)
     _check(hi, "hi", (b,), torch.int32, q.device)
@@ -477,17 +508,25 @@ def paged_decode_partials(
     l = torch.empty((b, hq), dtype=torch.float32, device=q.device)
     if b == 0:
         return o, m, l
-    fn = _build.function("paged_decode")
-    err = fn(
-        _ptr(q), _ptr(k_pool), _ptr(v_pool), _ptr(tables), _ptr(lo), _ptr(hi),
-        _ptr(o), _ptr(m), _ptr(l),
-        code, b, hq, hkv, d, NB, B, MB,
+    tail = (
+        _ptr(o), _ptr(m), _ptr(l), code, b, hq, hkv, d, NB, B, MB,
         float(scale), float(logit_cap), _stream(q.device),
     )
-    paged_decode_partials.launches += 1
+    if quantized:
+        err = _build.function("paged_decode_int8")(
+            _ptr(q), _ptr(k_pool), _ptr(v_pool), _ptr(k_scales), _ptr(v_scales),
+            _ptr(tables), _ptr(lo), _ptr(hi), *tail,
+        )
+        paged_decode_partials.launches_int8 += 1
+    else:
+        err = _build.function("paged_decode")(
+            _ptr(q), _ptr(k_pool), _ptr(v_pool), _ptr(tables), _ptr(lo), _ptr(hi), *tail,
+        )
+        paged_decode_partials.launches += 1
     if err:
         raise RuntimeError(f"paged_decode_partials kernel launch failed: CUDA error {err}")
     return o, m, l
 
 
-paged_decode_partials.launches = 0
+paged_decode_partials.launches = 0  # bf16/f32 pool kernel
+paged_decode_partials.launches_int8 = 0  # int8 pool kernel

@@ -10,6 +10,7 @@ device every test here skips.
 import pytest
 import torch
 
+from gofr_tpu_torch.kvcache import quantize_rows
 from gofr_tpu_torch.ops import attention as TA
 
 
@@ -68,3 +69,32 @@ class TestKernelsOnCard:
         want = TA.paged_decode_partials_plain(q, kp, vp, tables, lo, hi, scale=0.1, logit_cap=30.0)
         for a, b in zip(got, want):
             torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("d", [128, 16])
+    def test_paged_decode_int8(self, cuda, dtype, d):
+        """int8 pools with f32 row scales; both sides dequantize in f32, so
+        only the summation order (and the kernel's folded K scale) differs."""
+        g = torch.Generator(device=cuda).manual_seed(3)
+        q = torch.randn((5, 8, d), generator=g, device=cuda).to(dtype)
+        kq, ks = quantize_rows(torch.randn((64, 16, 2, d), generator=g, device=cuda))
+        vq, vs = quantize_rows(torch.randn((64, 16, 2, d), generator=g, device=cuda))
+        tables = torch.randperm(64, generator=g, device=cuda)[:40].reshape(5, 8).to(torch.int32)
+        hi = torch.tensor([0, 1, 16, 37, 127], dtype=torch.int32, device=cuda)
+        for lo in (torch.zeros_like(hi), torch.tensor([0, 0, 3, 20, 40], dtype=torch.int32, device=cuda)):
+            kw = dict(scale=0.1, logit_cap=30.0, k_scales=ks, v_scales=vs)
+            before = TA.paged_decode_partials.launches_int8
+            got = TA.paged_decode_partials(q, kq, vq, tables, lo, hi, **kw)
+            want = TA.paged_decode_partials_plain(q, kq, vq, tables, lo, hi, **kw)
+            assert TA.paged_decode_partials.launches_int8 == before + 1
+            for a, b in zip(got, want):
+                torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+    def test_paged_decode_int8_rejects_wrong_pool_dtype(self, cuda):
+        q = torch.zeros((2, 8, 128), device=cuda)
+        pool = torch.zeros((4, 16, 1, 128), device=cuda)  # f32, not int8
+        sc = torch.ones((4, 16, 1), device=cuda)
+        idx = torch.zeros((2,), dtype=torch.int32, device=cuda)
+        tables = torch.zeros((2, 2), dtype=torch.int32, device=cuda)
+        with pytest.raises(TypeError, match="k_pool"):
+            TA.paged_decode_partials(q, pool, pool, tables, idx, idx, scale=0.1, k_scales=sc, v_scales=sc)

@@ -122,8 +122,9 @@ class TestCacheManager:
         assert kv.pool.n_blocks == 4 * 4  # slots x table_width
         assert kv.append_slack == 16
         assert kv.reserve_tokens(10, 8) == 10 + 8 - 1 + 16
-        pool = kv.pool_tensors("cpu")
+        pool, scales = kv.pool_tensors("cpu")
         assert pool.k.shape == (2, 16, 16, 2, 16) and pool.length.shape == (4,)
+        assert pool.k.dtype == cfg.dtype and scales is None
 
     def test_ensure_release_cycle(self):
         cfg = TransformerConfig.tiny()
