@@ -7,7 +7,10 @@ Phases, each raising on failure:
 1. device — require CUDA, print the card's name and power limit, turn TF32
    off for float32 products;
 2. build — compile the CUDA kernels from gofr_tpu_torch/csrc (one nvcc per
-   source, in parallel) into build/kernels;
+   source, in parallel) into build/kernels; print each kernel's registers
+   and spill bytes (a bf16 flash kernel that spills fails) and the count
+   of tensor-core (HMMA) instructions per kernel in the flash library's
+   SASS (a bf16 flash kernel without any fails);
 3. kernels — hold each kernel (flash attention, paged decode over bf16/f32
    pools, paged decode over int8 pools) against its plain PyTorch version
    at the serving path's Gemma-2B shapes, with bfloat16 and float32
@@ -133,9 +136,18 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     report = _build.build()
     for name, r in report.items():
-        regs = [ln.strip() for ln in r["ptxas"].splitlines() if "Used" in ln]
-        print(f"build {name}: {r['seconds']:.2f}s cached={r['cached']} ptxas: {regs[-2:] if regs else '-'}")
+        print(f"build {name}: {r['seconds']:.2f}s cached={r['cached']}")
+        for kern, p in _build.ptxas_kernels(r["ptxas"]).items():
+            print(f"  ptxas {kern}: {p['registers']} registers, {p['spill_bytes']} spill bytes")
+            if "flash_mma_kernel" in kern and p["spill_bytes"]:
+                raise AssertionError(f"{kern} spills {p['spill_bytes']} bytes")
     print(f"build total {time.perf_counter() - t0:.2f}s")
+    # the bf16 flash kernels must run on the tensor cores
+    hmma = _build.sass_hmma(_build.library_path("flash_attention"))
+    print("sass HMMA per kernel in the flash library: " + ", ".join(f"{k} {n}" for k, n in sorted(hmma.items())))
+    mma = {k: n for k, n in hmma.items() if "flash_mma_kernel" in k}
+    if not mma or not all(mma.values()):
+        raise AssertionError(f"bf16 flash kernels without tensor-core instructions: {hmma}")
 
 
 def _flash_work(q, k, off, causal, window):
@@ -407,7 +419,7 @@ def _profile(fn) -> None:
         name = e.key
         group = (
             "paged_decode_kernel" if "paged_decode_kernel" in name
-            else "flash_kernel" if "flash_kernel" in name
+            else "flash kernels" if "flash_" in name and "_kernel" in name
             else "matmul" if any(t in name.lower() for t in ("gemm", "gemv", "xmma", "cutlass", "nvjet"))
             else "other"
         )

@@ -101,6 +101,64 @@ __device__ __forceinline__ float soft_cap(float s, float cap) {
   return cap > 0.f ? cap * tanhf(s / cap) : s;
 }
 
+// --- Tensor-core and asynchronous-copy primitives (PTX, sm_80 and up) ---
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte copy global -> shared that bypasses L1 (cp.async.cg). With
+// valid == false nothing is read and the 16 shared bytes are zero-filled.
+// Both addresses must be 16-byte aligned.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(smem)),
+               "l"(gmem), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most N committed groups of this thread are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four 8x8 b16 matrices from shared memory; lanes 8j..8j+7 give the row
+// addresses of matrix j (16-byte aligned), register j receives it: lane l
+// holds row l / 4, columns 2 (l % 4) and 2 (l % 4) + 1 (with .trans, the
+// transpose: rows 2 (l % 4) and 2 (l % 4) + 1 of column l / 4).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(row)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(row)));
+}
+
+// d += a . b on the tensor cores: a 16x16 bf16 (row-major fragment), b
+// 16x8 bf16 (column-major fragment), d 16x8 f32. With g = lane / 4 and
+// c = 2 (lane % 4): a = {(g, c..c+1), (g+8, c..), (g, c+8..), (g+8, c+8..)},
+// b = {(k c..c+1, n g), (k c+8..c+9, n g)}, d = {(g, c), (g, c+1), (g+8, c),
+// (g+8, c+1)}; each 32-bit register holds two bf16, the lower index in the
+// low half.
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                               uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
 // Opt a kernel into more than 48 KB of dynamic shared memory.
 template <typename K>
 inline cudaError_t allow_smem(K kernel, size_t bytes) {

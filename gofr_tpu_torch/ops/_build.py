@@ -21,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -119,6 +120,38 @@ def build(names=None) -> dict[str, dict]:
     if failures:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failures))
     return report
+
+
+def ptxas_kernels(log: str) -> dict[str, dict]:
+    """{mangled kernel name: {"registers", "spill_bytes"}} from the ptxas
+    report of a build (nvcc -Xptxas=-v)."""
+    out: dict[str, dict] = {}
+    name = None
+    for ln in log.splitlines():
+        if m := re.search(r"Compiling entry function '(\w+)'", ln):
+            name = m.group(1)
+            out[name] = {"registers": None, "spill_bytes": 0}
+        elif name and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)):
+            out[name]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        elif name and (m := re.search(r"Used (\d+) registers", ln)):
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
+def sass_hmma(lib) -> dict[str, int]:
+    """{mangled kernel name: count of tensor-core (HMMA) instructions} in a
+    built library's SASS (cuobjdump -sass)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True, check=True).stdout
+    counts: dict[str, int] = {}
+    name = None
+    for ln in sass.splitlines():
+        if m := re.search(r"Function : (\w+)", ln):
+            name = m.group(1)
+            counts[name] = 0
+        elif name and "HMMA" in ln:
+            counts[name] += 1
+    return counts
 
 
 def function(name: str):

@@ -42,6 +42,69 @@ class TestKernelsOnCard:
         tol = 1e-4 if dtype == torch.float32 else 2e-2
         torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
+    # bf16 runs the tensor-core kernel (GQA-packed 64-row tiles): every
+    # group size (6 does not divide 64), head dim and chunk width, against
+    # the plain version to the bf16 output's rounding
+    @pytest.mark.parametrize("heads", [(8, 1), (8, 2), (8, 8), (6, 1)])
+    @pytest.mark.parametrize("d", [64, 128, 256])
+    @pytest.mark.parametrize("sq", [1, 5, 12, 64, 512])
+    def test_flash_bf16_shapes(self, cuda, heads, d, sq):
+        """sq < 512: chunk queries at per-batch offsets into a 320-row
+        cache; sq = 512: one full causal prompt."""
+        hq, hkv = heads
+        g = torch.Generator(device=cuda).manual_seed(sq * 1000 + d + hq * 10 + hkv)
+        b, sk = (3, 320) if sq < 512 else (1, 512)
+        q = torch.randn((b, sq, hq, d), generator=g, device=cuda).to(torch.bfloat16)
+        k = torch.randn((b, sk, hkv, d), generator=g, device=cuda).to(torch.bfloat16)
+        v = torch.randn((b, sk, hkv, d), generator=g, device=cuda).to(torch.bfloat16)
+        off = None if sq == 512 else torch.tensor([0, 37, 250], dtype=torch.int32, device=cuda)
+        before = TA.flash_attention.launches
+        got = TA.flash_attention(q, k, v, q_offsets=off)
+        want = TA.flash_attention_plain(q, k, v, q_offsets=off)
+        assert TA.flash_attention.launches == before + 1
+        torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+
+    @pytest.mark.parametrize("heads", [(8, 1), (8, 2), (8, 8), (6, 1)])
+    @pytest.mark.parametrize("d", [64, 128, 256])
+    @pytest.mark.parametrize(
+        "kw", [dict(window=100), dict(logit_cap=30.0), dict(causal=False)],
+        ids=["window100", "cap30", "noncausal"],
+    )
+    def test_flash_bf16_options(self, cuda, heads, d, kw):
+        hq, hkv = heads
+        g = torch.Generator(device=cuda).manual_seed(d + hq * 10 + hkv)
+        for sq, offsets in ((64, [0, 37, 250]), (12, [5, 200, 300]), (512, None)):
+            b, sk = (3, 320) if offsets else (1, 512)
+            q = torch.randn((b, sq, hq, d), generator=g, device=cuda).to(torch.bfloat16)
+            k = torch.randn((b, sk, hkv, d), generator=g, device=cuda).to(torch.bfloat16)
+            v = torch.randn((b, sk, hkv, d), generator=g, device=cuda).to(torch.bfloat16)
+            off = None if offsets is None else torch.tensor(offsets, dtype=torch.int32, device=cuda)
+            before = TA.flash_attention.launches
+            got = TA.flash_attention(q, k, v, q_offsets=off, **kw)
+            want = TA.flash_attention_plain(q, k, v, q_offsets=off, **kw)
+            assert TA.flash_attention.launches == before + 1
+            torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+
+    @pytest.mark.parametrize("heads", [(8, 1), (6, 1), (8, 2)])
+    def test_flash_bf16_fully_masked_rows_are_zero(self, cuda, heads):
+        """A window that ends before the cache does leaves rows that see no
+        key: batch 1 (offset 200, window 50, 64 keys) entirely, batch 0
+        (offset 60) from row 53 on, whose window starts at key 64."""
+        hq, hkv = heads
+        g = torch.Generator(device=cuda).manual_seed(5)
+        q = torch.randn((2, 64, hq, 128), generator=g, device=cuda).to(torch.bfloat16)
+        k = torch.randn((2, 64, hkv, 128), generator=g, device=cuda).to(torch.bfloat16)
+        v = torch.randn((2, 64, hkv, 128), generator=g, device=cuda).to(torch.bfloat16)
+        off = torch.tensor([60, 200], dtype=torch.int32, device=cuda)
+        before = TA.flash_attention.launches
+        got = TA.flash_attention(q, k, v, q_offsets=off, window=50)
+        want = TA.flash_attention_plain(q, k, v, q_offsets=off, window=50)
+        assert TA.flash_attention.launches == before + 1
+        assert torch.count_nonzero(got[1]) == 0
+        assert torch.count_nonzero(got[0, 53:]) == 0
+        assert torch.count_nonzero(got[0, :53]) > 0
+        torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+
     @pytest.mark.parametrize("c", [12, 5])
     def test_chunk_prefill_any_width_launches_flash(self, cuda, c):
         """A chunk width that is not a multiple of 8 still runs the kernel."""

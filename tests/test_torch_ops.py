@@ -158,6 +158,25 @@ class TestFlashPlainVsPallas:
         want = JA.flash_attention(*map(jnp.asarray, (q, k, v)), interpret=True, **kw)
         _close(got, want, 1e-4)
 
+    # the GQA groups that the bf16 card kernel packs into 64-row tiles: one
+    # KV head for 8 query heads (Gemma-2B), a group of 6 that does not
+    # divide 64, and no sharing at all
+    @pytest.mark.parametrize("heads", [(8, 1), (6, 1), (8, 8)])
+    def test_offsets_mode_gqa_groups(self, heads):
+        rng = np.random.default_rng(11)
+        hq, hkv = heads
+        b, cap, c, d = 2, 128, 8, 32
+        q, k, v = _rand(rng, b, c, hq, d), _rand(rng, b, cap, hkv, d), _rand(rng, b, cap, hkv, d)
+        offs = np.asarray([3, 77], np.int32)
+        got = TA.flash_attention(
+            *map(torch.from_numpy, (q, k, v)), causal=True, window=40, q_offsets=torch.from_numpy(offs)
+        )
+        want = JA.flash_attention(
+            *map(jnp.asarray, (q, k, v)), causal=True, window=40, q_offsets=jnp.asarray(offs),
+            block_q=c, interpret=True,
+        )
+        _close(got, want, 1e-4)
+
     def test_fully_masked_rows_are_zero(self):
         # query rows past the key range see no key at all -> 0
         rng = np.random.default_rng(9)
