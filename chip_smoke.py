@@ -1,6 +1,6 @@
 """GPU smoke run of the PyTorch/CUDA port (gofr_tpu_torch) on one card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent TREE]
 
 Phases, each raising on failure:
 
@@ -8,15 +8,22 @@ Phases, each raising on failure:
    off for float32 products;
 2. build — compile the CUDA kernels from gofr_tpu_torch/csrc (one nvcc per
    source, in parallel) into build/kernels; print each kernel's registers
-   and spill bytes (a bf16 flash kernel that spills fails) and the count
-   of tensor-core (HMMA) instructions per kernel in the flash library's
-   SASS (a bf16 flash kernel without any fails);
+   and spill bytes (a bf16 flash kernel or a paged-decode kernel that
+   spills fails), the count of tensor-core (HMMA) instructions per kernel
+   in the flash library's SASS (a bf16 flash kernel without any fails),
+   and the paged-decode launch plan at the serving shape (cluster splits,
+   shared memory per CTA; an unsplit launch fails);
 3. kernels — hold each kernel (flash attention, paged decode over bf16/f32
    pools, paged decode over int8 pools) against its plain PyTorch version
    at the serving path's Gemma-2B shapes, with bfloat16 and float32
-   queries, and time the kernel, the plain version, one PyTorch library
-   call where one computes the same function, and the card's bound for
-   the same work;
+   queries, and time the kernel two ways (20 launches back to back from
+   Python with CUDA events, which includes the wrapper's host path, and
+   the same launches under torch.profiler, the kernel's own device time),
+   the plain version, one PyTorch library call where one computes the
+   same function, and the card's bound for the same work. With --parent,
+   another checkout's paged-decode kernels (e.g. the parent commit
+   unpacked by git archive) are built and timed on the same inputs, in
+   turns with this tree's;
 4. engine — serve concurrent Gemma-2B requests (full width and depth,
    random weights from a seeded generator) through the port's LLMEngine
    at its defaults, check every stream, check every served token against
@@ -36,12 +43,15 @@ printing no result, when no GPU is visible.
 
 from __future__ import annotations
 
+import argparse
+import ctypes
 import json
 import math
 import subprocess
 import sys
 import threading
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -114,6 +124,27 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, kernel: str, iters: int = 20) -> float:
+    """Device time of one launch of the kernel whose name contains
+    ``kernel``: the same launches as time_ms, run under torch.profiler, and
+    the kernel's self device time over its launch count. No host time is
+    in it, where time_ms of a short kernel is paced by the host."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and kernel in e.key]
+    count = sum(e.count for e in ev)
+    if count != iters:
+        raise AssertionError(f"profiler saw {count} launches of {kernel!r}, expected {iters}")
+    return sum(e.self_device_time_total for e in ev) / count / 1e3
+
+
 def phase_device() -> dict:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -135,19 +166,36 @@ def phase_device() -> dict:
 def phase_build() -> None:
     t0 = time.perf_counter()
     report = _build.build()
+    spills = []
     for name, r in report.items():
         print(f"build {name}: {r['seconds']:.2f}s cached={r['cached']}")
         for kern, p in _build.ptxas_kernels(r["ptxas"]).items():
             print(f"  ptxas {kern}: {p['registers']} registers, {p['spill_bytes']} spill bytes")
-            if "flash_mma_kernel" in kern and p["spill_bytes"]:
-                raise AssertionError(f"{kern} spills {p['spill_bytes']} bytes")
+            if ("flash_mma_kernel" in kern or "paged_decode_kernel" in kern) and p["spill_bytes"]:
+                spills.append(f"{kern} spills {p['spill_bytes']} bytes")
     print(f"build total {time.perf_counter() - t0:.2f}s")
+    if spills:
+        raise AssertionError("; ".join(spills))
     # the bf16 flash kernels must run on the tensor cores
     hmma = _build.sass_hmma(_build.library_path("flash_attention"))
     print("sass HMMA per kernel in the flash library: " + ", ".join(f"{k} {n}" for k, n in sorted(hmma.items())))
     mma = {k: n for k, n in hmma.items() if "flash_mma_kernel" in k}
     if not mma or not all(mma.values()):
         raise AssertionError(f"bf16 flash kernels without tensor-core instructions: {hmma}")
+    # the paged kernels at the serving shape (32 slots, Gemma-2B's group of
+    # 8 on one KV head, head_dim 256, 16-row blocks, 32 table slots): the
+    # registers of its instantiations (D = 256, group 8) and the launch plan
+    for r in report.values():
+        for kern, p in _build.ptxas_kernels(r["ptxas"]).items():
+            if "paged_decode_kernel" in kern and "Li256ELi8E" in kern:
+                print(f"paged_decode_kernel at the serving shape: {kern}: {p['registers']} registers, "
+                      f"{p['spill_bytes']} spill bytes")
+    for pool in (torch.bfloat16, torch.int8):
+        splits, smem = A.paged_decode_plan(pool, 32, 8, 1, 256, 16, 32)
+        print(f"paged_decode plan, {str(pool)[6:]} pools at the serving shape: {splits} splits "
+              f"({32 * splits} CTAs in clusters of {splits}), {smem} bytes of dynamic shared memory per CTA")
+        if splits <= 1:
+            raise AssertionError(f"paged decode at 32 slots is not split: {splits}")
 
 
 def _flash_work(q, k, off, causal, window):
@@ -177,7 +225,62 @@ def _bound(nbytes, flops, dtype, peaks):
     return max(t_mem, t_ops) * 1e3, ("bytes" if t_mem >= t_ops else "operations")
 
 
-def phase_kernels(dev: dict, seed: int) -> dict:
+def build_parent(tree: str) -> dict:
+    """The paged-decode entry points of another checkout (``tree``, e.g. the
+    parent commit unpacked by git archive), built from its own sources with
+    this build's nvcc flags. The C interface is the same, so both trees'
+    kernels take the same arguments."""
+    src = Path(tree) / "gofr_tpu_torch" / "csrc" / "paged_decode.cu"
+    out = _build.BUILD_DIR / "parent_paged_decode.so"
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out), str(src)], check=True, capture_output=True)
+    print(f"build parent paged_decode from {src}: {time.perf_counter() - t0:.2f}s")
+    lib = ctypes.CDLL(str(out))
+    fns = {}
+    for name in ("paged_decode", "paged_decode_int8"):
+        _src, symbol, argtypes = _build.KERNELS[name]
+        fn = getattr(lib, symbol)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        fns[name] = fn
+    return fns
+
+
+def _time_parent(fn, t: dict, kernel, args, scales: dict) -> None:
+    """Time the parent tree's paged kernel on the same inputs, device-only
+    and back to back, in turns with this tree's (parent, this, parent):
+    adds parent_device_ms (both parent readings), device_ms_again and
+    parent_ms to the timing row ``t``; checks the parent's partials
+    against this tree's kernel."""
+    q, kp, vp, tables, lo, hi = args
+    b, hq, d = q.shape
+    NB, B, hkv, _ = kp.shape
+
+    def call():
+        o = torch.empty((b, hq, d), dtype=torch.float32, device="cuda")
+        m = torch.empty((b, hq), dtype=torch.float32, device="cuda")
+        l = torch.empty((b, hq), dtype=torch.float32, device="cuda")
+        head = (q, kp, vp) + ((scales["k_scales"], scales["v_scales"]) if scales else ()) + (tables, lo, hi)
+        err = fn(*map(A._ptr, head), A._ptr(o), A._ptr(m), A._ptr(l), A._DTYPE_CODES[q.dtype], b, hq, hkv, d,
+                 NB, B, tables.shape[1], 1 / 16, 0.0, A._stream(q.device))
+        if err:
+            raise RuntimeError(f"parent paged kernel launch failed: CUDA error {err}")
+        return o, m, l
+
+    for a, w in zip(call(), kernel()):
+        torch.cuda.synchronize()
+        if not torch.allclose(a, w, rtol=ML_RTOL, atol=F32_ATOL):
+            raise AssertionError("parent and this tree's paged kernels disagree")
+    first = device_ms(call, "paged_decode_kernel")
+    t["device_ms_again"] = device_ms(kernel, "paged_decode_kernel")
+    t["parent_device_ms"] = [first, device_ms(call, "paged_decode_kernel")]
+    t["parent_ms"] = time_ms(call)
+    print(f"  parent tree's kernel, same inputs, in turns: device {t['parent_device_ms'][0]:.4f} / "
+          f"{t['parent_device_ms'][1]:.4f} ms (this tree's again {t['device_ms_again']:.4f} ms), "
+          f"back to back {t['parent_ms']:.4f} ms; ratio {t['device_ms'] / min(t['parent_device_ms']):.3f}")
+
+
+def phase_kernels(dev: dict, seed: int, parent: dict | None = None) -> dict:
     g = torch.Generator(device="cuda").manual_seed(seed)
     peaks = dev["peaks"]
     errs = {"flash_attention": 0.0, "paged_decode_partials": 0.0}
@@ -237,13 +340,14 @@ def phase_kernels(dev: dict, seed: int) -> dict:
 
         t = {
             "ms": time_ms(lambda: A.flash_attention(q, k, v, q_offsets=off)),
+            "device_ms": device_ms(lambda: A.flash_attention(q, k, v, q_offsets=off), "flash_mma_kernel"),
             "plain_ms": time_ms(lambda: A.flash_attention_plain(q, k, v, q_offsets=off)),
             "library_ms": time_ms(library),
             "bound_ms": bound_ms, "bound_by": bound_by,
         }
         timings[f"flash_attention c{c}"] = t
-        print(f"timing flash_attention c={c}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
-              f"sdpa {t['library_ms']:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
+        print(f"timing flash_attention c={c}: kernel {t['ms']:.4f} ms (device {t['device_ms']:.4f} ms), "
+              f"plain {t['plain_ms']:.4f} ms, sdpa {t['library_ms']:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
 
     # full-prompt mode (kernel row 2: the wave scheduler's monolithic
     # prefill, not on the chunked main path): one 512-token prompt
@@ -255,13 +359,15 @@ def phase_kernels(dev: dict, seed: int) -> dict:
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     t = {
         "ms": time_ms(lambda: A.flash_attention(q, k, v)),
+        "device_ms": device_ms(lambda: A.flash_attention(q, k, v), "flash_mma_kernel"),
         "plain_ms": time_ms(lambda: A.flash_attention_plain(q, k, v)),
         "library_ms": time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, scale=1 / 16, enable_gqa=True)),
         "bound_ms": bound_ms, "bound_by": bound_by,
     }
     timings["flash_attention full S512"] = t
-    print(f"timing flash_attention full causal S=512: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+    print(f"timing flash_attention full causal S=512: kernel {t['ms']:.4f} ms (device {t['device_ms']:.4f} ms), "
+          f"plain {t['plain_ms']:.4f} ms, "
           f"sdpa {t['library_ms']:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
 
     # -- kernel 2: paged_decode_partials (32 slots, 1024 blocks of 16 rows)
@@ -305,15 +411,32 @@ def phase_kernels(dev: dict, seed: int) -> dict:
     table_entries = int(((hi + B - 1) // B).sum())
     nbytes = q.numel() * 2 + 2 * rows * 256 * 2 + table_entries * 4 + 2 * nb * 4 + (nb * 8 * 256 + 2 * nb * 8) * 4
     bound_ms, bound_by = _bound(nbytes, 4 * 256 * 8 * rows, torch.bfloat16, peaks)
+    def kernel():
+        return A.paged_decode_partials(q, kp, vp, tables, lo, hi, scale=1 / 16)
+
     t = {
-        "ms": time_ms(lambda: A.paged_decode_partials(q, kp, vp, tables, lo, hi, scale=1 / 16)),
+        "ms": time_ms(kernel),
+        "device_ms": device_ms(kernel, "paged_decode_kernel"),
         "plain_ms": time_ms(lambda: A.paged_decode_partials_plain(q, kp, vp, tables, lo, hi, scale=1 / 16)),
         "library_ms": None,
         "bound_ms": bound_ms, "bound_by": bound_by,
     }
     timings["paged_decode_partials"] = t
-    print(f"timing paged_decode_partials: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
-          f"bound {bound_ms:.5f} ms ({bound_by}), {rows} band rows")
+    print(f"timing paged_decode_partials: kernel {t['ms']:.4f} ms (device {t['device_ms']:.4f} ms), "
+          f"plain {t['plain_ms']:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}), {rows} band rows")
+    if parent:
+        _time_parent(parent["paged_decode"], t, kernel, (q, kp, vp, tables, lo, hi), {})
+    # what a launch costs with no row to read, and per table slot: every
+    # sequence's band k shares of 16-row slots long (8 splits at this shape)
+    splits = A.paged_decode_plan(torch.bfloat16, nb, 8, 1, 256, B, MB)[0]
+    by_slots = {}
+    for k in (0, 1, 2, 4):
+        hi_k = torch.full((nb,), k * splits * B, dtype=torch.int32, device="cuda")
+        by_slots[k] = device_ms(lambda: A.paged_decode_partials(q, kp, vp, tables, lo, hi_k, scale=1 / 16),
+                                "paged_decode_kernel")
+    t["device_ms_by_slots_per_cta"] = by_slots
+    print("paged_decode_partials device ms by table slots per CTA (every band the same length): "
+          + ", ".join(f"{k}: {v:.4f}" for k, v in by_slots.items()))
 
     # -- kernel 3: paged_decode_partials over int8 pools (same shapes; rows
     # made by the port's own quantize_rows). Both sides dequantize in f32,
@@ -360,15 +483,22 @@ def phase_kernels(dev: dict, seed: int) -> dict:
               + (nb * 8 * 256 + 2 * nb * 8) * 4)
     bound_ms, bound_by = _bound(nbytes, 4 * 256 * 8 * rows, torch.float32, peaks)
     kw = dict(scale=1 / 16, k_scales=ks, v_scales=vs)
+    def kernel_int8():
+        return A.paged_decode_partials(q, kq, vq, tables, lo, hi, **kw)
+
     t = {
-        "ms": time_ms(lambda: A.paged_decode_partials(q, kq, vq, tables, lo, hi, **kw)),
+        "ms": time_ms(kernel_int8),
+        "device_ms": device_ms(kernel_int8, "paged_decode_kernel"),
         "plain_ms": time_ms(lambda: A.paged_decode_partials_plain(q, kq, vq, tables, lo, hi, **kw)),
         "library_ms": None,
         "bound_ms": bound_ms, "bound_by": bound_by,
     }
     timings["paged_decode_partials_int8"] = t
-    print(f"timing paged_decode_partials int8: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
-          f"bound {bound_ms:.5f} ms ({bound_by}), {rows} band rows")
+    print(f"timing paged_decode_partials int8: kernel {t['ms']:.4f} ms (device {t['device_ms']:.4f} ms), "
+          f"plain {t['plain_ms']:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}), {rows} band rows")
+    if parent:
+        _time_parent(parent["paged_decode_int8"], t, kernel_int8, (q, kq, vq, tables, lo, hi),
+                     dict(k_scales=ks, v_scales=vs))
     return {"errs": errs, "timings": timings}
 
 
@@ -734,9 +864,14 @@ def phase_engine_int8(dev: dict, seed: int) -> dict:
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description="GPU smoke run of gofr_tpu_torch on one card")
+    ap.add_argument("--parent", metavar="TREE",
+                    help="also build another checkout's paged-decode kernels (e.g. the parent commit from "
+                         "git archive) and time them beside this tree's on the same inputs")
+    args = ap.parse_args()
     dev = phase_device()
     phase_build()
-    kern = phase_kernels(dev, SEED)
+    kern = phase_kernels(dev, SEED, build_parent(args.parent) if args.parent else None)
     eng = phase_engine(dev, SEED)
     eng8 = phase_engine_int8(dev, SEED)
     # name -> (source, replaced Pallas kernel, timing key, engine run whose
@@ -756,7 +891,7 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": run["launches"][name], "max_abs_err": kern["errs"][name],
-            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "ms": t["ms"], "device_ms": t["device_ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         })
     print(dev["smi"])  # name, power limit: nvidia-smi's own line

@@ -115,6 +115,12 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool va
                "l"(gmem), "r"(valid ? 16 : 0)
                : "memory");
 }
+// 4-byte copy global -> shared (cp.async.ca; .cg takes only 16 bytes).
+// Both addresses must be 4-byte aligned.
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(smem)), "l"(gmem)
+               : "memory");
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }

@@ -57,6 +57,14 @@ KERNELS = {
         # scale, logit_cap | stream
         [_P] * 11 + [_I] * 8 + [_F] * 2 + [_P],
     ),
+    # not a kernel: the launch plan (cluster split, shared memory) that
+    # both paged-decode entry points use
+    "paged_decode_plan": (
+        "paged_decode.cu", "gofr_paged_decode_plan",
+        # pool element bytes, b, hq, hkv, d, block, table_width | splits*,
+        # smem_bytes*
+        [_I] * 7 + [ctypes.POINTER(_I)] * 2,
+    ),
 }
 
 _lock = threading.Lock()

@@ -530,3 +530,18 @@ def paged_decode_partials(
 
 paged_decode_partials.launches = 0  # bf16/f32 pool kernel
 paged_decode_partials.launches_int8 = 0  # int8 pool kernel
+
+
+def paged_decode_plan(pool_dtype, b, hq, hkv, d, block, table_width) -> tuple[int, int]:
+    """(splits, shared-memory bytes per CTA) of the paged-decode launch for
+    these shapes on the current CUDA device: the kernel runs a cluster of
+    ``splits`` CTAs per (sequence, KV head), each walking its share of the
+    band's table slots (csrc/paged_decode.cu)."""
+    splits, smem = ctypes.c_int(0), ctypes.c_int(0)
+    elem = torch.empty((), dtype=pool_dtype).element_size()
+    err = _build.function("paged_decode_plan")(
+        elem, b, hq, hkv, d, block, table_width, ctypes.byref(splits), ctypes.byref(smem)
+    )
+    if err:
+        raise RuntimeError(f"paged_decode_plan failed: CUDA error {err}")
+    return splits.value, smem.value

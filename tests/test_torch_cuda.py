@@ -161,3 +161,96 @@ class TestKernelsOnCard:
         tables = torch.zeros((2, 2), dtype=torch.int32, device=cuda)
         with pytest.raises(TypeError, match="k_pool"):
             TA.paged_decode_partials(q, pool, pool, tables, idx, idx, scale=0.1, k_scales=sc, v_scales=sc)
+
+
+def _split_pools(g, cuda, pool, nb, hkv, d):
+    """(k_pool, v_pool, scales kwargs) of `pool` kind: float32, bfloat16,
+    or int8 rows with f32 scales made by the port's quantize_rows."""
+    shape = (nb, 16, hkv, d)
+    if pool == "int8":
+        kq, ks = quantize_rows(torch.randn(shape, generator=g, device=cuda))
+        vq, vs = quantize_rows(torch.randn(shape, generator=g, device=cuda))
+        return kq, vq, dict(k_scales=ks, v_scales=vs)
+    dtype = torch.float32 if pool == "f32" else torch.bfloat16
+    kp = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    vp = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    return kp, vp, {}
+
+
+def _split_bands(splits, MB, b, B=16):
+    """(lo, hi) lists that aim at the cluster split: bands of whole shares
+    (k * splits slots), one row past them, fewer slots than splits (some
+    CTAs empty), windows with lo > 0, empty bands and the full table."""
+    cap = MB * B
+    his = [splits * B, splits * B + 1, 2 * splits * B, 2 * splits * B + 1, cap, cap - 1, 1, B, 3 * B + 5, 0]
+    his = [min(h, cap) for h in his]
+    los = [0] * len(his)
+    his += [cap, cap, splits * B + 1, 2 * B, 100]
+    los += [cap - 40, B * (splits - 1) + 3, splits * B, 2 * B, 37]  # windows; (2B, 2B) is empty at lo > 0
+    while len(his) < b:
+        i = len(his)
+        his.append((37 * i) % (cap + 1))
+        los.append(max(0, his[-1] - (40 if i % 2 else 3 * B)))
+    if b == 1:
+        return [([lo], [hi]) for lo, hi in zip(los, his)]
+    return [(los[:b], his[:b])]
+
+
+@pytest.mark.cuda
+class TestPagedSplitOnCard:
+    """The paged-decode kernel splits each band's table slots over a
+    cluster of CTAs and merges their partials over distributed shared
+    memory: held against the plain version at the split's edges. f32 and
+    int8 pools dequantize to the same f32 values on both sides, and bf16
+    pools read the same bf16 values, so o differs by summation order only
+    (atol 1e-4); m and l to rtol 1e-4, with atol 1e-5 for scores near 0."""
+
+    @pytest.mark.parametrize("pool", ["f32", "bf16", "int8"])
+    @pytest.mark.parametrize("group", [1, 2, 8, 16])
+    @pytest.mark.parametrize("d", [16, 64, 256])
+    def test_split_edges(self, cuda, pool, group, d):
+        hkv = 2 if group == 2 else 1
+        hq = group * hkv
+        g = torch.Generator(device=cuda).manual_seed(d * 100 + group)
+        q_dtype = {"f32": torch.float32, "bf16": torch.bfloat16}.get(
+            pool, torch.bfloat16 if group in (1, 8) else torch.float32
+        )
+        pool_dtype = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}[pool]
+        counter = "launches_int8" if pool == "int8" else "launches"
+        for case, (b, MB) in enumerate([(1, 8), (1, 32), (1, 128), (32, 8), (32, 32), (32, 128)]):
+            splits, _smem = TA.paged_decode_plan(pool_dtype, b, hq, hkv, d, 16, MB)
+            assert 1 <= splits <= min(8, MB)
+            kp, vp, sc = _split_pools(g, cuda, pool, b * MB, hkv, d)
+            tables = torch.randperm(b * MB, generator=g, device=cuda).reshape(b, MB).to(torch.int32)
+            q = torch.randn((b, hq, d), generator=g, device=cuda).to(q_dtype)
+            kw = dict(scale=d ** -0.5, logit_cap=30.0 if case % 2 else 0.0, **sc)
+            for lo_l, hi_l in _split_bands(splits, MB, b):
+                lo = torch.tensor(lo_l, dtype=torch.int32, device=cuda)
+                hi = torch.tensor(hi_l, dtype=torch.int32, device=cuda)
+                before = getattr(TA.paged_decode_partials, counter)
+                o1, m1, l1 = TA.paged_decode_partials(q, kp, vp, tables, lo, hi, **kw)
+                o2, m2, l2 = TA.paged_decode_partials_plain(q, kp, vp, tables, lo, hi, **kw)
+                assert getattr(TA.paged_decode_partials, counter) == before + 1
+                where = f"b={b} MB={MB} splits={splits} lo={lo_l[:4]} hi={hi_l[:4]}"
+                torch.testing.assert_close(o1, o2, atol=1e-4, rtol=0, msg=lambda m: f"o {where}: {m}")
+                torch.testing.assert_close(m1, m2, atol=1e-5, rtol=1e-4, msg=lambda m: f"m {where}: {m}")
+                torch.testing.assert_close(l1, l2, atol=1e-5, rtol=1e-4, msg=lambda m: f"l {where}: {m}")
+
+    @pytest.mark.parametrize("pool", ["f32", "bf16", "int8"])
+    def test_all_empty_batch(self, cuda, pool):
+        """Every band empty (lo >= hi, at 0 and past it): every CTA weighs 0
+        in the merge, and the partials are exactly (0, NEG_INF, 0)."""
+        g = torch.Generator(device=cuda).manual_seed(11)
+        pool_dtype = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}[pool]
+        for b in (1, 32):
+            kp, vp, sc = _split_pools(g, cuda, pool, b * 32, 1, 256)
+            q = torch.randn((b, 8, 256), generator=g, device=cuda).to(
+                torch.float32 if pool == "f32" else torch.bfloat16
+            )
+            tables = torch.randperm(b * 32, generator=g, device=cuda).reshape(b, 32).to(torch.int32)
+            hi = torch.tensor([(53 * i) % 400 for i in range(b)], dtype=torch.int32, device=cuda)
+            assert TA.paged_decode_plan(pool_dtype, b, 8, 1, 256, 16, 32)[0] > 1
+            for lo in (hi, hi + 7):
+                o, m, l = TA.paged_decode_partials(q, kp, vp, tables, lo, hi, scale=1 / 16, **sc)
+                assert torch.count_nonzero(o) == 0
+                assert bool((m == TA.NEG_INF).all()) and torch.count_nonzero(l) == 0
