@@ -34,7 +34,16 @@ Phases, each raising on failure:
    read by the int8 paged-decode kernel; every served token checked
    against the plain forward on the same int8 weights, under a gap
    constant set from this path's measured logit drift;
-6. report — a "kernels" JSON line, then the last line
+6. edge — the port's HTTP server (gofr_tpu_torch.serve) on an ephemeral
+   port, reached at 127.0.0.1, a bf16 engine at its defaults over the same weights:
+   the burst as concurrent POST /generate requests over real sockets
+   (every token through the same replay gate as the engine phase), one
+   OpenAI chat completion plain and then as SSE (the deltas must join to
+   the plain content), and a client that hangs up after the first SSE
+   chunk (the KV pool must show 0 blocks in use within 3 s); both kernels
+   must launch during the phase. Prints an "edge" line: tok/s and the
+   client's time to first byte beside the engine phase's numbers;
+7. report — a "kernels" JSON line, then the last line
    {"ok": true, "device": {...}}.
 
 Imports nothing of JAX and nothing of the JAX package. Exits non-zero,
@@ -45,8 +54,10 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import http.client
 import json
 import math
+import socket
 import subprocess
 import sys
 import threading
@@ -566,13 +577,53 @@ def _profile(fn) -> None:
         print(f"profile kernel {e.self_device_time_total / 1e3:9.2f} ms {e.count:7d}x {e.key[:90]}")
 
 
-def phase_engine(dev: dict, seed: int) -> dict:
+def gemma_weights(seed: int) -> tuple[TransformerConfig, dict]:
+    """Gemma-2B's random bf16 weights, made once from ``seed`` and shared by
+    the engine, int8 and edge phases."""
     cfg = TransformerConfig.gemma_2b()
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(seed), "cuda")
     torch.cuda.synchronize()
     n_params = sum(w.numel() for w in [params["embed"], params["final_norm"], *params["layers"].values()])
     print(f"gemma_2b random weights: {n_params / 1e9:.3f} B params bf16 in {time.perf_counter() - t0:.1f}s")
+    return cfg, params
+
+
+def _replay_gate(params, cfg, prompts, results, gap: float, label: str = "") -> tuple[int, int]:
+    """Every served token against greedy decoding by the plain full-prompt
+    forward on ``params`` (no kernels), teacher-forced on the served
+    stream: token j must be the plain argmax after prompt + served[:j],
+    unless the plain top-2 gap is below ``gap``. Raises on a token that
+    fails; returns (tokens matched, tokens exempt)."""
+    checked = exempt = 0
+    for i, p in enumerate(prompts):
+        seq = p + results[i][:-1]
+        logits = transformer_forward(
+            params, cfg, torch.tensor([seq], device="cuda"), torch.arange(len(seq), device="cuda")[None, :]
+        )[0, len(p) - 1 :]  # [new_tokens, vocab]
+        top2 = torch.topk(logits, 2, dim=-1)
+        gaps = (top2.values[:, 0] - top2.values[:, 1]).tolist()
+        want = top2.indices[:, 0].tolist()
+        n_match = n_exempt = 0
+        for j, served in enumerate(results[i]):
+            if served == want[j]:
+                n_match += 1
+            elif gaps[j] < gap:
+                n_exempt += 1
+            else:
+                raise AssertionError(
+                    f"{label}request {i} (prompt {len(p)}): token {j} served {served} != plain argmax "
+                    f"{want[j]}, gap {gaps[j]:.4f}"
+                )
+        checked += n_match
+        exempt += n_exempt
+        print(f"{label}stream prompt {len(p):3d}: {n_match} of {len(results[i])} tokens equal the plain greedy "
+              f"argmax, {n_exempt} differ within tolerance (top-2 gap < {gap}); smallest gap {min(gaps):.4f}")
+        del logits
+    return checked, exempt
+
+
+def phase_engine(dev: dict, seed: int, cfg: TransformerConfig, params: dict) -> dict:
     eng = LLMEngine(cfg, params, seed=seed)  # defaults: 32 slots, 512, {16, 64}, 256, K=8, B=16
     try:
         # warm-up request: cuBLAS handles and allocator pools, outside the timed run
@@ -605,35 +656,10 @@ def phase_engine(dev: dict, seed: int) -> dict:
         raise AssertionError(f"{len(results)} of {len(prompts)} requests finished")
 
     # every served token against greedy decoding by the plain full-prompt
-    # forward (no kernels), teacher-forced on the served stream: token j
-    # must be the plain argmax after prompt + served[:j]. The first token
-    # comes from prefill (flash kernel), the rest from the decode chunks
-    # (paged kernel, partials merge, chunk-end scatter through the tables).
-    checked = exempt = 0
-    for i, p in enumerate(prompts):
-        seq = p + results[i][:-1]
-        logits = transformer_forward(
-            params, cfg, torch.tensor([seq], device="cuda"), torch.arange(len(seq), device="cuda")[None, :]
-        )[0, len(p) - 1 :]  # [new_tokens, vocab]
-        top2 = torch.topk(logits, 2, dim=-1)
-        gaps = (top2.values[:, 0] - top2.values[:, 1]).tolist()
-        want = top2.indices[:, 0].tolist()
-        n_match = n_exempt = 0
-        for j, served in enumerate(results[i]):
-            if served == want[j]:
-                n_match += 1
-            elif gaps[j] < TOKEN_GAP:
-                n_exempt += 1
-            else:
-                raise AssertionError(
-                    f"request {i} (prompt {plens[i]}): token {j} served {served} != plain argmax {want[j]}, "
-                    f"gap {gaps[j]:.4f}"
-                )
-        checked += n_match
-        exempt += n_exempt
-        print(f"stream prompt {plens[i]:3d}: {n_match} of {len(results[i])} tokens equal the plain greedy argmax, "
-              f"{n_exempt} differ within tolerance (top-2 gap < {TOKEN_GAP}); smallest gap {min(gaps):.4f}")
-        del logits
+    # forward. The first token comes from prefill (flash kernel), the rest
+    # from the decode chunks (paged kernel, partials merge, chunk-end
+    # scatter through the tables).
+    checked, exempt = _replay_gate(params, cfg, prompts, results, TOKEN_GAP)
 
     # logit drift between the served path (64-token chunks through the
     # flash kernel) and the plain forward, on one prompt
@@ -739,13 +765,11 @@ def _int8_path_drift(cfg, qparams, prompt, capacity, steps=8):
     return max(float((s - p).abs().max()) for s, p in zip(served, plain))
 
 
-def phase_engine_int8(dev: dict, seed: int) -> dict:
-    """The engine burst with int8 weights and an int8 KV pool."""
-    cfg = TransformerConfig.gemma_2b()
-    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(seed), "cuda")  # the bf16 phase's weights
+def phase_engine_int8(dev: dict, seed: int, cfg: TransformerConfig, params: dict) -> dict:
+    """The engine burst with int8 weights (the bf16 phase's, quantized at
+    construction) and an int8 KV pool."""
     bf16_bytes = _tensor_bytes(params)
     eng = LLMEngine(cfg, params, seed=seed, kv_int8=True, quantize=True)
-    del params
     qparams = eng.params
     weight_bytes = _tensor_bytes(qparams)
     pool_bytes = _tensor_bytes({"k": eng.pool.k, "v": eng.pool.v, "scales": eng.pool_scales})
@@ -799,32 +823,7 @@ def phase_engine_int8(dev: dict, seed: int) -> dict:
 
     # every served token against the plain forward on the same int8
     # weights, teacher-forced on the served stream
-    checked = exempt = 0
-    for i, p in enumerate(prompts):
-        seq = p + results[i][:-1]
-        logits = transformer_forward(
-            qparams, cfg, torch.tensor([seq], device="cuda"), torch.arange(len(seq), device="cuda")[None, :]
-        )[0, len(p) - 1 :]
-        top2 = torch.topk(logits, 2, dim=-1)
-        gaps = (top2.values[:, 0] - top2.values[:, 1]).tolist()
-        want = top2.indices[:, 0].tolist()
-        n_match = n_exempt = 0
-        for j, served in enumerate(results[i]):
-            if served == want[j]:
-                n_match += 1
-            elif gaps[j] < INT8_TOKEN_GAP:
-                n_exempt += 1
-            else:
-                raise AssertionError(
-                    f"int8 request {i} (prompt {plens[i]}): token {j} served {served} != plain argmax "
-                    f"{want[j]}, gap {gaps[j]:.4f}"
-                )
-        checked += n_match
-        exempt += n_exempt
-        print(f"int8 stream prompt {plens[i]:3d}: {n_match} of {len(results[i])} tokens equal the plain greedy "
-              f"argmax, {n_exempt} differ within tolerance (top-2 gap < {INT8_TOKEN_GAP}); "
-              f"smallest gap {min(gaps):.4f}")
-        del logits
+    checked, exempt = _replay_gate(qparams, cfg, prompts, results, INT8_TOKEN_GAP, label="int8 ")
     if 8 * exempt > total:
         raise AssertionError(f"int8 engine: {exempt} of {total} tokens needed the gap exemption (> 1 in 8)")
 
@@ -863,6 +862,163 @@ def phase_engine_int8(dev: dict, seed: int) -> dict:
     return out
 
 
+def _http(port: int, method: str, path: str, body=None, timeout: float = 600.0):
+    """One request on its own connection -> (status, body bytes, seconds to
+    the response's first byte, seconds to its last)."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        t0 = time.perf_counter()
+        data = None if body is None else json.dumps(body).encode()
+        conn.request(method, path, body=data, headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        t_first = time.perf_counter() - t0
+        raw = resp.read()
+        return resp.status, raw, t_first, time.perf_counter() - t0
+    finally:
+        conn.close()
+
+
+def _sse_events(raw: bytes) -> list:
+    events = [ln[len("data: "):] for ln in raw.decode().split("\n") if ln.startswith("data: ")]
+    if not events or events[-1] != "[DONE]":
+        raise AssertionError(f"SSE stream does not end with [DONE]: {events[-2:]}")
+    return [json.loads(e) for e in events[:-1]]
+
+
+def phase_edge(dev: dict, seed: int, cfg: TransformerConfig, params: dict, engine_out: dict) -> dict:
+    """The port's HTTP server (gofr_tpu_torch.serve) on an ephemeral port,
+    serving Gemma-2B through a bf16 engine at its defaults over the same
+    weights, driven over real sockets: the burst as concurrent POST
+    /generate requests (every token through the replay gate), one OpenAI
+    chat request plain and then SSE, and a client that hangs up mid-stream
+    (its blocks must be free within 3 s)."""
+    from gofr_tpu_torch.config import new_mock_config
+    from gofr_tpu_torch.serve import build_app
+
+    app = build_app(new_mock_config({
+        "HTTP_PORT": "0", "GEMMA_PRESET": "2b", "LLM_SLOTS": "32", "LLM_MAX_SEQ": "512",
+        "REQUEST_TIMEOUT": "600", "LOG_LEVEL": "WARN",
+    }), params=params)
+    thread = app.run_in_background()
+    port = app.http_server.port
+    eng = app.container.tpu().llm("gemma")
+    A.flash_attention.launches = 0
+    A.paged_decode_partials.launches = 0
+    try:
+        status, raw, _, _ = _http(port, "POST", "/generate", {"tokens": [1, 2, 3], "max_new_tokens": 4})
+        if status != 201 or len(json.loads(raw)["data"]["tokens"]) != 4:  # warm-up, outside the timed run
+            raise AssertionError(f"warm-up /generate: {status} {raw[:200]!r}")
+
+        # 1. the burst as concurrent POST /generate requests
+        rng = np.random.default_rng(seed)
+        plens = [5, 16, 17, 63, 64, 65, 200, 440]
+        prompts = [rng.integers(1, cfg.vocab_size, n).tolist() for n in plens]
+        new_tokens = 32
+        answers: dict[int, tuple] = {}
+        errors: list[BaseException] = []
+
+        def client(i):
+            try:
+                answers[i] = _http(port, "POST", "/generate", {"tokens": prompts[i], "max_new_tokens": new_tokens})
+            except BaseException as e:  # surfaced below, after every client joined
+                errors.append(e)
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(len(prompts))]
+        burst_launches0 = (A.flash_attention.launches, A.paged_decode_partials.launches)
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=900)
+        wall = time.perf_counter() - t0
+        burst_launches = {
+            "flash_attention": A.flash_attention.launches - burst_launches0[0],
+            "paged_decode_partials": A.paged_decode_partials.launches - burst_launches0[1],
+        }
+        if errors:
+            raise errors[0]
+        if any(th.is_alive() for th in threads) or len(answers) != len(prompts):
+            raise TimeoutError(f"{len(answers)} of {len(prompts)} HTTP clients finished")
+        results = {}
+        for i, (status, raw, _, _) in sorted(answers.items()):
+            toks = json.loads(raw)["data"]["tokens"] if status == 201 else None
+            if toks is None or len(toks) != new_tokens or any(t < 0 or t >= cfg.vocab_size for t in toks):
+                raise AssertionError(f"edge request {i} (prompt {plens[i]}): {status} {raw[:200]!r}")
+            results[i] = toks
+        total = sum(len(t) for t in results.values())
+        checked, exempt = _replay_gate(params, cfg, prompts, results, TOKEN_GAP, label="edge ")
+
+        # 2. one OpenAI chat request, plain and then SSE, each alone
+        chat = {"model": "gemma", "messages": [{"role": "user", "content": "Say hello to the H100."}],
+                "max_tokens": 24}
+        status, raw, _, _ = _http(port, "POST", "/v1/chat/completions", chat)
+        if status != 200:
+            raise AssertionError(f"chat completion: {status} {raw[:300]!r}")
+        plain = json.loads(raw)
+        finish = plain["choices"][0]["finish_reason"]
+        if not 0 < plain["usage"]["completion_tokens"] <= 24 or finish not in ("length", "stop"):
+            raise AssertionError(f"chat completion: {plain}")
+        status, raw, sse_first, _ = _http(port, "POST", "/v1/chat/completions", {**chat, "stream": True})
+        if status != 200:
+            raise AssertionError(f"chat SSE: {status} {raw[:300]!r}")
+        events = _sse_events(raw)
+        joined = "".join(e["choices"][0]["delta"].get("content", "") for e in events)
+        content = plain["choices"][0]["message"]["content"]
+        if joined != content or events[-1]["choices"][0]["finish_reason"] != finish:
+            raise AssertionError(f"SSE deltas {joined!r} / {events[-1]} differ from the plain answer {content!r}")
+
+        # 3. a client that hangs up after the first SSE chunk
+        disconnects0 = eng.stats()["disconnect_cancels"]
+        body = json.dumps({**chat, "max_tokens": 400, "stream": True}).encode()
+        with socket.create_connection(("127.0.0.1", port), timeout=120) as sock:
+            sock.sendall(b"POST /v1/chat/completions HTTP/1.1\r\nHost: smoke\r\n"
+                         b"Content-Type: application/json\r\n"
+                         + f"Content-Length: {len(body)}\r\n\r\n".encode() + body)
+            got = b""
+            while b"data: " not in got:
+                chunk = sock.recv(4096)
+                if not chunk:
+                    raise AssertionError("server closed the SSE stream before its first chunk")
+                got += chunk
+        t_gone = time.perf_counter()
+        while time.perf_counter() - t_gone < 3.0:
+            st = eng.stats()
+            if st["kvcache"]["blocks_in_use"] == 0 and st["disconnect_cancels"] == disconnects0 + 1:
+                break
+            time.sleep(0.01)
+        freed_s = time.perf_counter() - t_gone
+        st = eng.stats()
+        if st["kvcache"]["blocks_in_use"] or st["disconnect_cancels"] != disconnects0 + 1:
+            raise AssertionError(f"disconnected stream not retired within 3 s: {st}")
+        launches = {"flash_attention": A.flash_attention.launches,
+                    "paged_decode_partials": A.paged_decode_partials.launches}
+    finally:
+        app.shutdown()
+        thread.join(timeout=60)
+    if thread.is_alive():
+        raise AssertionError("edge server did not stop")
+    for name, n in launches.items():
+        if n <= 0 or burst_launches[name] <= 0:
+            raise AssertionError(f"{name} was not launched while the edge served: {launches}, burst {burst_launches}")
+
+    first = sorted(a[2] for a in answers.values())
+    out = {
+        "requests": len(results), "tokens": total, "wall_s": wall, "tok_s": total / wall,
+        "ttft_p50_s": first[len(first) // 2], "ttft_max_s": first[-1], "sse_first_byte_s": sse_first,
+        "disconnect_freed_s": freed_s, "tokens_matched": checked, "tokens_exempt": exempt,
+        "launches": launches, "burst_launches": burst_launches,
+    }
+    print(
+        f"edge gemma_2b over HTTP on {dev['smi']}: {out['requests']} concurrent POST /generate, {total} tokens "
+        f"in {wall:.3f}s = {out['tok_s']:.1f} tok/s; client ttft (first response byte, which carries the whole "
+        f"answer) p50 {out['ttft_p50_s']:.3f}s max {out['ttft_max_s']:.3f}s; engine phase in-process "
+        f"{engine_out['tok_s']:.1f} tok/s, ttft p50 {engine_out['ttft_p50_s']:.3f}s max "
+        f"{engine_out['ttft_max_s']:.3f}s; {checked} tokens matched, {exempt} exempt; SSE first byte "
+        f"{sse_first:.3f}s; disconnect freed in {freed_s:.3f}s; burst launches {burst_launches}, phase {launches}"
+    )
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="GPU smoke run of gofr_tpu_torch on one card")
     ap.add_argument("--parent", metavar="TREE",
@@ -872,8 +1028,11 @@ def main() -> int:
     dev = phase_device()
     phase_build()
     kern = phase_kernels(dev, SEED, build_parent(args.parent) if args.parent else None)
-    eng = phase_engine(dev, SEED)
-    eng8 = phase_engine_int8(dev, SEED)
+    cfg, params = gemma_weights(SEED)
+    eng = phase_engine(dev, SEED, cfg, params)
+    eng8 = phase_engine_int8(dev, SEED, cfg, params)
+    torch.cuda.empty_cache()  # the closed engines' pools
+    phase_edge(dev, SEED, cfg, params, eng)
     # name -> (source, replaced Pallas kernel, timing key, engine run whose
     # launches count)
     sources = {

@@ -1,8 +1,9 @@
 """gofr_tpu_torch — the PyTorch/CUDA port of gofr_tpu's serving path.
 
 The JAX package ``gofr_tpu`` is the reference; this package re-implements
-its serving main path for an NVIDIA H100 (Hopper, ``sm_90a``): the paged-KV
-``LLMEngine`` with chunked prefill and the fused decode chunk. Module names
+its serving main path for an NVIDIA H100 (Hopper, ``sm_90a``): the HTTP and
+OpenAI edge in front of the paged-KV ``LLMEngine`` with chunked prefill and
+the fused decode chunk. Module names
 mirror the JAX package so each counterpart is easy to find:
 
 - ``ops`` — RMSNorm, RoPE, attention (plain PyTorch versions plus the two
@@ -10,7 +11,13 @@ mirror the JAX package so each counterpart is easy to find:
 - ``models.transformer`` — the Gemma-family decoder and its serving entry
   points (``prefill_append``, ``decode_chunk_paged``);
 - ``kvcache`` — the block pool, slot tables and the paged cache manager;
-- ``llm`` — ``GenRequest`` and ``LLMEngine``.
+- ``llm`` — ``GenRequest`` and ``LLMEngine``;
+- the serving edge: ``serve`` (``python -m gofr_tpu_torch.serve``:
+  ``/generate``, ``/stats`` and the OpenAI routes of ``openai_compat``),
+  ``app``, ``handler``, ``context``, ``container``, ``config``,
+  ``logging``, ``http`` (the asyncio HTTP/1.1 server, router, request and
+  responder), ``datasource.gpu`` (``GPURuntime.register_llm``) and
+  ``models.tokenizer`` (``ByteTokenizer``).
 
 The package imports torch and numpy only: nothing of ``jax`` and nothing of
 ``gofr_tpu``. Host-only pieces it needs are copied and trimmed.

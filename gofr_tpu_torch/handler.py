@@ -1,0 +1,100 @@
+"""Handler adaptation: ``handler(ctx) -> result`` to a wire handler
+(counterpart of gofr_tpu/handler.py: ``wrap_handler``,
+``llm_request_kwargs`` and the health and liveness handlers; no debug,
+profile, rollout or flight-recorder routes)."""
+
+from __future__ import annotations
+
+import asyncio
+import hashlib
+import inspect
+import time
+import traceback
+from typing import Any, Callable
+
+from .container import Container
+from .context import Context
+from .http.errors import ErrorPanicRecovery, ErrorRequestTimeout
+from .http.request import Request
+from .http.responder import Response, respond
+from .http.router import WireHandler
+
+
+async def _call_handler(fn: Callable, ctx: Context) -> Any:
+    if inspect.iscoroutinefunction(fn):
+        return await fn(ctx)
+    # a sync handler blocks (an engine wait): run it in the executor, never
+    # on the event loop
+    loop = asyncio.get_running_loop()
+    return await loop.run_in_executor(None, fn, ctx)
+
+
+def wrap_handler(fn: Callable, container: Container, timeout_s: float | None) -> WireHandler:
+    """The wire handler for one user handler: the route's timeout answers
+    408 (and sets ``ctx.deadline``, so the engine retires the abandoned
+    request), an HTTPError answers its own status, and any other exception
+    the masked 500 envelope."""
+
+    async def h(req: Request) -> Response:
+        ctx = Context(req, container)
+        if timeout_s and timeout_s > 0:
+            ctx.deadline = time.perf_counter() + timeout_s
+        try:
+            if timeout_s and timeout_s > 0:
+                result = await asyncio.wait_for(_call_handler(fn, ctx), timeout=timeout_s)
+            else:
+                result = await _call_handler(fn, ctx)
+        except asyncio.TimeoutError:
+            return respond(None, ErrorRequestTimeout(), req.method)
+        except Exception as e:  # noqa: BLE001 - error envelope boundary
+            if getattr(e, "status_code", None) is None:
+                container.logger.error(f"panic recovered: {traceback.format_exc()}")
+                return respond(None, ErrorPanicRecovery(), req.method)
+            return respond(None, e, req.method)
+        return respond(result, None, req.method)
+
+    return h
+
+
+def llm_request_kwargs(ctx: Context) -> dict:
+    """GenRequest identity kwargs from the request edge, as the JAX edge
+    builds them: ``priority`` (X-GoFr-Priority), ``client`` (X-GoFr-Client,
+    else a hash of X-API-KEY, else the first X-Forwarded-For hop, else the
+    peer address without its port), ``session_id`` (X-GoFr-Session) and
+    ``adapter`` (X-GoFr-Adapter; the port's engine refuses a non-empty
+    one). The port's scheduler does not act on the first three yet."""
+
+    def hdr(name: str) -> str:
+        try:
+            return ctx.header(name) or ""
+        except Exception:  # noqa: BLE001 — headerless request shapes
+            return ""
+
+    client = hdr("X-GoFr-Client")
+    if not client:
+        key = hdr("X-API-KEY")
+        if key:
+            client = "key:" + hashlib.sha256(key.encode()).hexdigest()[:12]
+    if not client:
+        fwd = hdr("X-Forwarded-For")
+        if fwd:
+            client = fwd.split(",")[0].strip()
+    if not client:
+        addr = getattr(ctx.request, "remote_addr", "") or ""
+        client = addr.rsplit(":", 1)[0] if addr else ""
+    return {
+        "priority": (hdr("X-GoFr-Priority") or "interactive").lower(),
+        "client": client,
+        "session_id": hdr("X-GoFr-Session"),
+        "adapter": hdr("X-GoFr-Adapter"),
+    }
+
+
+def health_handler(ctx: Context) -> Any:
+    out = ctx.container.health()
+    out["status"] = "UP"
+    return out
+
+
+def live_handler(_ctx: Context) -> Any:
+    return {"status": "UP"}

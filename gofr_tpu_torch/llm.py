@@ -17,6 +17,10 @@ paged KV pool, in the JAX engine's default configuration:
   prompt is pending, K = 8 (or 2 for tail ends);
 - greedy (temperature 0) or top-64 temperature sampling from a
   ``torch.Generator``, with the ``finite_guard`` sentinel;
+- retirement on every scheduler pass (``_expire_deadlines``): a request
+  cancelled by its caller or its edge (a client that hung up), or past
+  its ``deadline``, ends at once whether it waits or holds a slot, and
+  its slot and KV blocks are freed;
 - int8 serving, as the JAX engine's two flags: ``quantize=True`` serves
   int8 weights (``models.quant``; W8A8 prefill, weight-only decode) and
   ``kv_int8=True`` an int8 KV pool with float32 row scales, read by the
@@ -31,7 +35,9 @@ the collector thread — a step's tokens are fetched and emitted before the
 next dispatch — and every feature that is off by default in the JAX
 engine (speculation, grammar, LoRA, prefix cache, sessions, overload
 control and fair queuing, goodput, flight recorder), plus the monolithic
-wave scheduler.
+wave scheduler. ``GenRequest`` carries the edge's identity fields
+(``priority``, ``client``, ``session_id``) so the edge hands them over as
+the JAX edge does, but this FIFO scheduler does not act on them.
 """
 
 from __future__ import annotations
@@ -117,15 +123,35 @@ class GenRequest:
     max_new_tokens: int = 32
     temperature: float = 0.0
     eos_token: int = _EOS_DEFAULT
+    # Identity from the serving edge (``handler.llm_request_kwargs``): the
+    # X-GoFr-Priority class, the fair-queuing client id and the
+    # X-GoFr-Session conversation id. Kept so the edge hands them over as
+    # it does to the JAX engine; this port's FIFO scheduler does not act
+    # on them yet (no priority classes, fair queuing or session tier), so
+    # they change nothing in what is served.
+    priority: str = "interactive"
+    client: str = ""
+    session_id: str = ""
+    # Absolute wall deadline (time.perf_counter timebase). Past it the
+    # engine retires the request even while it holds a slot
+    # (finish_reason "deadline"). Handlers pass ctx.deadline here.
+    deadline: float | None = None
+    # LoRA adapter name: the port has no adapter pool, so submit() refuses
+    # a non-empty name (as the JAX engine does without one).
+    adapter: str = ""
     id: int = field(default_factory=itertools.count().__next__)
 
     def __post_init__(self):
         self.out: queue.Queue = queue.Queue()
         self.cancelled = False
+        # becomes the finish_reason when the engine retires the request:
+        # "cancelled" for a caller's cancel, "disconnect" when the serving
+        # edge found the peer gone
         self.cancel_reason = "cancelled"
         self.emitted = 0
         self.capped = False  # engine reduced max_new_tokens to fit the cache
-        self.finish_reason: str | None = None  # "eos" | "length" | "cancelled" | "error"
+        # "eos" | "length" | "cancelled" | "disconnect" | "deadline" | "error"
+        self.finish_reason: str | None = None
         self.error: str | None = None
         self.submitted_at: float | None = None
         self.first_token_at: float | None = None
@@ -135,16 +161,49 @@ class GenRequest:
         self.slot: int | None = None  # slot index while resident
         self._kv_limit = 0  # worst-case rows (CacheManager.reserve_tokens)
 
+    def _raise_terminal(self) -> None:
+        if self.finish_reason == "error":
+            raise RequestFailed(f"request {self.id} failed: {self.error}")
+
+    def _consumer_gone(self) -> None:
+        """The consuming generator was closed before the stream finished
+        (the edge found the peer gone, or the caller dropped the
+        iterator): cancel, so the engine frees the slot instead of
+        decoding for nobody."""
+        if self.finish_reason is None and not self.cancelled:
+            self.cancel(reason="disconnect")
+
     def stream(self, timeout: float = 60.0) -> Iterator[int]:
         """Yield token ids until the engine signals completion; raises
         RequestFailed when the engine could not serve the request."""
-        while True:
-            item = self.out.get(timeout=timeout)
-            if item is None:
-                if self.finish_reason == "error":
-                    raise RequestFailed(f"request {self.id} failed: {self.error}")
-                return
-            yield from item
+        try:
+            while True:
+                item = self.out.get(timeout=timeout)
+                if item is None:
+                    self._raise_terminal()
+                    return
+                yield from item
+        except GeneratorExit:
+            self._consumer_gone()
+            raise
+
+    async def astream(self, timeout: float = 60.0):
+        """``stream`` for asyncio callers: each wait for the engine runs in
+        the loop's executor, never on the event loop."""
+        import asyncio
+
+        loop = asyncio.get_running_loop()
+        try:
+            while True:
+                item = await loop.run_in_executor(None, lambda: self.out.get(timeout=timeout))
+                if item is None:
+                    self._raise_terminal()
+                    return
+                for t in item:
+                    yield t
+        except GeneratorExit:
+            self._consumer_gone()
+            raise
 
     def cancel(self, reason: str = "cancelled") -> None:
         self.cancel_reason = reason
@@ -233,6 +292,8 @@ class LLMEngine:
         self.steps = 0  # unified steps dispatched
         self.step_tokens = 0  # tokens packed into unified steps
         self.chunks = 0  # decode chunks (fused or pure) dispatched
+        self.deadline_cancels = 0  # requests retired past their deadline
+        self.disconnect_cancels = 0  # requests retired for a vanished consumer
         self._thread = threading.Thread(
             target=self._schedule_loop, name="llm-torch-sched", daemon=True
         )
@@ -242,6 +303,10 @@ class LLMEngine:
     def submit(self, req: GenRequest) -> GenRequest:
         if self._stop:
             raise EngineStoppedError(f"engine stopped ({self.error or 'closed'})")
+        if req.adapter:
+            raise ValueError(
+                f"request names adapter {req.adapter!r} but this engine has no adapter pool"
+            )
         plen = len(req.prompt_tokens)
         if plen == 0:
             raise ValueError("empty prompt")
@@ -285,6 +350,8 @@ class LLMEngine:
                 "steps": self.steps,
                 "step_tokens": self.step_tokens,
                 "chunks": self.chunks,
+                "deadline_cancels": self.deadline_cancels,
+                "disconnect_cancels": self.disconnect_cancels,
                 "chunk_shapes": self.chunk_shapes,
                 "kvcache": self.kv.stats(),
                 "error": self.error,
@@ -308,6 +375,8 @@ class LLMEngine:
         try:
             with torch.no_grad():
                 while not self._stop:
+                    self._drain_submits()
+                    self._expire_deadlines(time.perf_counter())
                     self._admit()
                     if self._prefilling and self._dispatch_step():
                         continue
@@ -342,28 +411,58 @@ class LLMEngine:
         r.out.put(None)
         with self._lock:
             self.finished += 1
+            self.deadline_cancels += reason == "deadline"
+            self.disconnect_cancels += reason == "disconnect"
         slot = r.slot
         if slot is not None and self._slot_req[slot] is r:
             self._slot_req[slot] = None
             self.kv.release_slot(slot, r)
             self._kv_hi[slot] = 0
 
-    def _admit(self) -> None:
-        """Drain the submit queue and give waiting requests free slots,
-        FIFO. A request the pool cannot reserve blocks for stays at the
-        head of the queue."""
+    def _drain_submits(self) -> None:
         while True:
             try:
                 self._waiting.append(self._admit_q.get_nowait())
             except queue.Empty:
-                break
+                return
+
+    def _expire_deadlines(self, now: float) -> None:
+        """Retire every request, waiting or slotted, that was cancelled or
+        whose deadline has passed (JAX ``LLMEngine._expire_deadlines``).
+        Without it a cancelled occupant of an idle engine kept its slot
+        and blocks: only a later dispatch's ``_emit_to`` would finish it.
+        The port fetches every step before the next dispatch, so no
+        device work is in flight here and a retired slot is free at once.
+        Runs once per scheduler pass: O(slots + waiting), no device work."""
+
+        def reason(r: GenRequest) -> str | None:
+            if r.cancelled:
+                return r.cancel_reason
+            if r.deadline is not None and now > r.deadline:
+                return "deadline"
+            return None
+
+        retired = False
+        for r in self._slot_req:
+            if r is not None and (why := reason(r)) is not None:
+                self._finish(r, why)  # frees the slot and its blocks
+                retired = True
+        kept: deque[GenRequest] = deque()
+        for r in self._waiting:
+            if (why := reason(r)) is not None:
+                self._finish(r, why)
+            else:
+                kept.append(r)
+        self._waiting = kept
+        if retired:
+            self._prefilling = deque(r for r in self._prefilling if r.finish_reason is None)
+
+    def _admit(self) -> None:
+        """Give waiting requests free slots, FIFO. A request the pool
+        cannot reserve blocks for stays at the head of the queue."""
         free = [i for i, r in enumerate(self._slot_req) if r is None]
         while self._waiting and free:
             r = self._waiting[0]
-            if r.cancelled:
-                self._waiting.popleft()
-                self._finish(r, r.cancel_reason)
-                continue
             plen = len(r.prompt_tokens)
             if not self.kv.admit_reserve(plen, r.max_new_tokens):
                 break

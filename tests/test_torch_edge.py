@@ -1,0 +1,285 @@
+"""The port's serving edge (gofr_tpu_torch.serve: /generate, the OpenAI
+routes, the well-known routes) against the JAX app over real sockets on
+the CPU: the same tiny weights, the same engine kwargs and the same
+requests must give the same answers, ids and timestamps excepted. The JAX
+side serves the grpc-gemma example's own /generate handler."""
+
+import http.client
+import importlib.util
+import json
+import pathlib
+import socket
+import time
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import gofr_tpu
+from gofr_tpu.config import new_mock_config as jax_mock_config
+from gofr_tpu.models import transformer as JT
+from gofr_tpu.models.tokenizer import ByteTokenizer as JByteTokenizer
+from gofr_tpu.openai_compat import register_openai_routes as jax_openai_routes
+from gofr_tpu_torch import serve
+from gofr_tpu_torch.config import new_mock_config
+from gofr_tpu_torch.models import transformer as TT
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+SLOTS, MAX_SEQ = 4, 256
+COMMON = {"HTTP_PORT": "0", "REQUEST_TIMEOUT": "30", "LOG_LEVEL": "ERROR"}
+PORT_CONFIG = {**COMMON, "GEMMA_PRESET": "tiny", "TORCH_DEVICE": "cpu",
+               "LLM_SLOTS": str(SLOTS), "LLM_MAX_SEQ": str(MAX_SEQ)}
+
+
+def _example_module():
+    """examples/grpc-gemma/main.py, loaded without running build_app (its
+    gRPC half needs grpcio): the JAX side's /generate handler."""
+    spec = importlib.util.spec_from_file_location("grpc_gemma_main", ROOT / "examples/grpc-gemma/main.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.fixture(scope="module")
+def weights():
+    jcfg = JT.TransformerConfig.tiny()  # vocabulary 512: byte-tokenizable
+    jp = JT.init_params(jax.random.PRNGKey(0), jcfg)
+    # untied random head: the tied tiny model repeats its input token
+    jp = dict(jp, unembed=jax.random.normal(
+        jax.random.PRNGKey(9), (jcfg.vocab_size, jcfg.d_model), jnp.float32
+    ))
+    tp = TT.params_from_jax(jax.tree.map(np.asarray, jp), TT.TransformerConfig.tiny(), device="cpu")
+    return jcfg, jp, tp
+
+
+@pytest.fixture(scope="module")
+def apps(weights):
+    jcfg, jp, tp = weights
+    example = _example_module()
+    japp = gofr_tpu.new(config=jax_mock_config({
+        **COMMON, "METRICS_PORT": "0", "TRACE_EXPORTER": "none",
+    }))
+    japp.container.tpu().register_llm(
+        "gemma", jcfg, jp, warmup=False, kv_paged=True,
+        slots=SLOTS, max_seq_len=MAX_SEQ, prefill_buckets=(16, 64, 128),
+    )
+    japp.post("/generate", example.generate)
+    japp.get("/stats", example.engine_stats)
+    jax_openai_routes(japp, model="gemma", tokenizer=JByteTokenizer(jcfg.vocab_size))
+    papp = serve.build_app(new_mock_config(PORT_CONFIG), params=tp)
+    threads = [japp.run_in_background(), papp.run_in_background()]
+    yield japp, papp
+    for app, th in zip((japp, papp), threads):
+        app.shutdown()
+        th.join(timeout=10)
+        assert not th.is_alive()
+
+
+def _call(app, method, path, body=None, headers=None):
+    conn = http.client.HTTPConnection("127.0.0.1", app.http_server.port, timeout=120)
+    try:
+        data = None if body is None else json.dumps(body).encode()
+        conn.request(method, path, body=data, headers={"Content-Type": "application/json", **(headers or {})})
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+def _both(apps, method, path, body=None):
+    (s1, b1), (s2, b2) = (_call(a, method, path, body) for a in apps)
+    return (s1, b1), (s2, b2)
+
+
+def _strip(obj):
+    """Drop the per-answer id and timestamp."""
+    return {k: v for k, v in obj.items() if k not in ("id", "created")}
+
+
+def _engine(app):
+    return app.container.tpu().llm("gemma")
+
+
+def _wait(pred, seconds):
+    t0 = time.perf_counter()
+    while not pred() and time.perf_counter() - t0 < seconds:
+        time.sleep(0.01)
+    return pred()
+
+
+def _prompt(seed, n):
+    return np.random.default_rng(seed).integers(1, 512, n).tolist()
+
+
+def test_generate_greedy_same_answer(apps):
+    for seed, n in ((1, 5), (2, 19), (3, 70)):
+        body = {"tokens": _prompt(seed, n), "max_new_tokens": 12}
+        (js, jb), (ps, pb) = _both(apps, "POST", "/generate", body)
+        assert (js, ps) == (201, 201)
+        assert pb == jb
+        assert len(json.loads(pb)["data"]["tokens"]) == 12
+
+
+def test_generate_concurrent_same_answers(apps):
+    """More requests than slots at once: prefill rows share steps with
+    other requests' decode, on both sides."""
+    import concurrent.futures
+
+    bodies = [{"tokens": _prompt(10 + i, 3 + 7 * i), "max_new_tokens": 9} for i in range(6)]
+    with concurrent.futures.ThreadPoolExecutor(12) as ex:
+        futs = [[ex.submit(_call, app, "POST", "/generate", b) for b in bodies] for app in apps]
+        jax_out, port_out = ([f.result(timeout=120) for f in fs] for fs in futs)
+    assert port_out == jax_out
+
+
+def test_chat_completion_plain(apps):
+    body = {"model": "gemma", "messages": [{"role": "user", "content": "hello"}], "max_tokens": 8}
+    (js, jb), (ps, pb) = _both(apps, "POST", "/v1/chat/completions", body)
+    assert js == ps == 200
+    j, p = json.loads(jb), json.loads(pb)
+    assert _strip(p) == _strip(j)
+    assert p["usage"]["completion_tokens"] == 8 and p["choices"][0]["finish_reason"] == "length"
+
+
+def _sse_events(raw: bytes) -> list:
+    events = [ln[len("data: "):] for ln in raw.decode().split("\n") if ln.startswith("data: ")]
+    assert events[-1] == "[DONE]"
+    return [_strip(json.loads(e)) for e in events[:-1]] + ["[DONE]"]
+
+
+def test_chat_completion_sse(apps):
+    body = {"messages": [{"role": "system", "content": "be brief"}, {"role": "user", "content": "hi"}],
+            "max_tokens": 10, "stream": True}
+    (js, jb), (ps, pb) = _both(apps, "POST", "/v1/chat/completions", body)
+    assert js == ps == 200
+    jev, pev = _sse_events(jb), _sse_events(pb)
+    assert pev == jev
+    assert pev[-2]["choices"][0]["finish_reason"] == "length"
+
+
+@pytest.mark.parametrize("inp", [["hello", "world"], "one string", [1, 2, 3], [[5, 6], [7]]])
+def test_embeddings(apps, inp):
+    (js, jb), (ps, pb) = _both(apps, "POST", "/v1/embeddings", {"input": inp})
+    assert js == ps == 200
+    j, p = json.loads(jb), json.loads(pb)
+    je = np.array([d["embedding"] for d in j["data"]])
+    pe = np.array([d["embedding"] for d in p["data"]])
+    np.testing.assert_allclose(pe, je, atol=1e-6, rtol=0)
+    for d in (*j["data"], *p["data"]):
+        d.pop("embedding")
+    assert p == j
+
+
+def test_models(apps):
+    (js, jb), (ps, pb) = _both(apps, "GET", "/v1/models")
+    assert js == ps == 200 and pb == jb
+
+
+@pytest.mark.parametrize("body", [
+    {"messages": []},
+    {"messages": "not a list"},
+    {"messages": [{"role": "user", "content": "x"}], "n": 2},
+    {"model": "nope", "messages": [{"role": "user", "content": "x"}]},
+    {"messages": [{"role": "user", "content": "x" * 300}]},  # no decode room
+    [1, 2],
+])
+def test_chat_errors_same_envelope(apps, body):
+    (js, jb), (ps, pb) = _both(apps, "POST", "/v1/chat/completions", body)
+    assert ps == js and ps in (400, 404)
+    assert pb == jb
+
+
+@pytest.mark.parametrize("method,path", [
+    ("GET", "/.well-known/alive"),
+    ("GET", "/no/such/route"),
+    ("DELETE", "/generate"),
+    ("GET", "/v1/chat/completions"),
+    ("OPTIONS", "/v1/models"),
+])
+def test_well_known_and_routing_same(apps, method, path):
+    (js, jb), (ps, pb) = _both(apps, method, path)
+    assert (ps, pb) == (js, jb)
+
+
+def test_health_same_shape(apps):
+    (js, jb), (ps, pb) = _both(apps, "GET", "/.well-known/health")
+    assert js == ps == 200
+    j, p = json.loads(jb)["data"], json.loads(pb)["data"]
+    assert p["status"] == j["status"] == "UP"
+    for d in (j, p):
+        d["app"]["details"].pop("uptime_s")
+    assert p["app"] == j["app"]
+    # the engines' own counters differ; the datasource block's shape does not
+    assert p["tpu"]["status"] == j["tpu"]["status"] == "UP"
+    assert set(p["tpu"]["details"]) == set(j["tpu"]["details"])
+    assert p["tpu"]["details"]["platform"] == j["tpu"]["details"]["platform"] == "cpu"
+
+
+def test_sse_disconnect_frees_blocks(apps):
+    """A client that hangs up after the first chunk: the server's abort
+    closes the generator, the request ends with "disconnect" and the
+    engine frees its blocks with no other traffic."""
+    app = apps[1]
+    eng = _engine(app)
+    before = eng.stats()["disconnect_cancels"]
+    body = json.dumps({"messages": [{"role": "user", "content": "go"}], "max_tokens": 200,
+                       "stream": True}).encode()
+    sock = socket.create_connection(("127.0.0.1", app.http_server.port), timeout=30)
+    try:
+        sock.sendall(b"POST /v1/chat/completions HTTP/1.1\r\nHost: x\r\nContent-Type: application/json\r\n"
+                     + f"Content-Length: {len(body)}\r\n\r\n".encode() + body)
+        got = b""
+        while b"data: " not in got:
+            chunk = sock.recv(4096)
+            assert chunk, "server closed before the first chunk"
+            got += chunk
+    finally:
+        sock.close()
+    assert _wait(lambda: eng.stats()["disconnect_cancels"] == before + 1, 3.0)
+    assert _wait(lambda: eng.stats()["kvcache"]["blocks_in_use"] == 0, 3.0)
+
+
+def test_handler_timeout_408_frees_the_slot(weights):
+    _jcfg, _jp, tp = weights
+    app = serve.build_app(new_mock_config({**PORT_CONFIG, "REQUEST_TIMEOUT": "0.3", "LLM_SLOTS": "1",
+                                           "LLM_MAX_SEQ": "512"}), params=tp)
+    th = app.run_in_background()
+    try:
+        eng = _engine(app)
+        status, body = _call(app, "POST", "/generate", {"tokens": [5, 9, 2], "max_new_tokens": 400})
+        assert status == 408 and json.loads(body) == {"error": {"message": "request timed out"}}
+        assert _wait(lambda: eng.stats()["deadline_cancels"] == 1, 3.0)
+        assert _wait(lambda: eng.stats()["kvcache"]["blocks_in_use"] == 0, 3.0)
+        # the one slot serves the next request
+        status, body = _call(app, "POST", "/generate", {"tokens": [1, 2], "max_new_tokens": 4})
+        assert status == 201 and len(json.loads(body)["data"]["tokens"]) == 4
+    finally:
+        app.shutdown()
+        th.join(timeout=10)
+    assert not th.is_alive()
+
+
+def test_register_llm_refuses_unported(weights):
+    _jcfg, _jp, tp = weights
+    from gofr_tpu_torch.datasource.gpu import GPURuntime
+
+    cfg = TT.TransformerConfig.tiny()
+    rt = GPURuntime(new_mock_config({"TORCH_DEVICE": "cpu"}))
+    for kw in ({"speculative": True}, {"replicas": 2}, {"lora_slots": 2}, {"kv_paged": False}):
+        with pytest.raises(NotImplementedError, match=next(iter(kw))):
+            rt.register_llm("m", cfg, tp, **kw)
+    for knob, value in (("TPU_LLM_SPEC", "1"), ("TPU_LLM_SESSION_MB", "64"), ("TPU_LLM_PREFIX_CACHE_MB", "8")):
+        with pytest.raises(NotImplementedError, match=knob):
+            GPURuntime(new_mock_config({knob: value})).register_llm("m", cfg, tp, device="cpu")
+    if not torch.cuda.is_available():  # unset TORCH_DEVICE means cuda, never a quiet CPU run
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            GPURuntime(new_mock_config({})).register_llm("m", cfg, tp)
+    # TPU_LLM_KV_INT8 is read as the JAX runtime reads it
+    eng = GPURuntime(new_mock_config({"TORCH_DEVICE": "cpu", "TPU_LLM_KV_INT8": "1"})).register_llm(
+        "m", cfg, tp, slots=2, max_seq_len=64)
+    try:
+        assert eng.stats()["kvcache"]["int8"] is True and eng.device.type == "cpu"
+    finally:
+        eng.close()

@@ -4,6 +4,7 @@ decode sharing steps, plus the port's import guard."""
 
 import ast
 import pathlib
+import time
 
 import jax
 import jax.numpy as jnp
@@ -14,7 +15,7 @@ import torch
 from gofr_tpu.llm import GenRequest as JRequest
 from gofr_tpu.llm import LLMEngine as JEngine
 from gofr_tpu.models import transformer as JT
-from gofr_tpu_torch.llm import GenRequest, LLMEngine, finite_guard
+from gofr_tpu_torch.llm import GenRequest, LLMEngine, RequestFailed, finite_guard
 from gofr_tpu_torch.models import transformer as TT
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -154,3 +155,143 @@ def test_port_imports_nothing_of_jax():
                 if top in ("jax", "jaxlib", "gofr_tpu"):
                     bad.append(f"{f.relative_to(ROOT)}: {name}")
     assert not bad, bad
+
+
+# -- retirement of cancelled and expired requests (JAX _expire_deadlines) --
+
+def _cancel_once_emitted(eng, req_box, n):
+    """Wrap ``eng._admit`` (called once per scheduler pass in both engines)
+    to cancel the boxed request between two dispatches, once it has
+    emitted ``n`` tokens."""
+    admit = eng._admit
+
+    def wedge(*a, **kw):
+        r = req_box.get("r")
+        if r is not None and not r.cancelled and r.emitted >= n:
+            r.cancel()
+        return admit(*a, **kw)
+
+    eng._admit = wedge
+    return admit
+
+
+def _end_after_cancel(req):
+    """-> (tokens, seconds from the cancel to the end of the stream). The
+    clock starts at the cancel, so a first dispatch's compile is not in it."""
+    t0 = time.perf_counter()
+    while not req.cancelled and time.perf_counter() - t0 < 60:
+        time.sleep(0.001)
+    assert req.cancelled
+    t0 = time.perf_counter()
+    out = req.tokens(timeout=3.0)
+    return out, time.perf_counter() - t0
+
+
+def test_lone_cancelled_decode_is_retired(weights):
+    """A lone greedy request cancelled mid-decode, with nothing else to
+    dispatch, ends with "cancelled" and frees its blocks; the JAX engine
+    ends the same input the same way."""
+    jcfg, jp, tcfg, tp = weights
+    kw = dict(slots=4, max_seq_len=256, prefill_buckets=(8, 16))
+    (prompt,) = _prompts(21, (12,))
+    outs = {}
+    for name, eng in (
+        ("jax", JEngine(jcfg, jp, warmup=False, kv_paged=True, **kw)),
+        ("port", LLMEngine(tcfg, tp, device="cpu", **kw)),
+    ):
+        box: dict = {}
+        try:
+            _cancel_once_emitted(eng, box, 9)
+            Req = JRequest if name == "jax" else GenRequest
+            box["r"] = r = eng.submit(Req(prompt, max_new_tokens=200))
+            toks, took = _end_after_cancel(r)
+            assert took < 3.0 and r.finish_reason == "cancelled", (name, r.finish_reason)
+            assert 9 <= len(toks) < 200
+            deadline = time.perf_counter() + 3.0
+            while eng.stats()["kvcache"]["blocks_in_use"] and time.perf_counter() < deadline:
+                time.sleep(0.01)
+            assert eng.stats()["kvcache"]["blocks_in_use"] == 0, name
+            outs[name] = toks
+        finally:
+            eng.close()
+    short, long_ = sorted(outs.values(), key=len)
+    assert long_[: len(short)] == short  # greedy: the same stream, cut at the cancel
+
+
+def test_deadline_retires_slotted_request(weights):
+    jcfg, jp, tcfg, tp = weights
+    with LLMEngine(tcfg, tp, device="cpu", slots=1, max_seq_len=512, prefill_buckets=(8,)) as eng:
+        req = eng.submit(GenRequest([5, 9, 2], max_new_tokens=400))
+        t0 = time.perf_counter()
+        while req.emitted == 0 and time.perf_counter() - t0 < 30:
+            time.sleep(0.001)
+        # armed only now, once a token exists: the sweep reads the attribute
+        req.deadline = time.perf_counter()
+        toks = req.tokens(timeout=30)
+        assert req.finish_reason == "deadline"
+        assert 0 < len(toks) < 400
+        assert eng.stats()["deadline_cancels"] == 1
+        assert eng.stats()["kvcache"]["blocks_in_use"] == 0
+        # the one slot is free again and serves the next request
+        ref = JEngine(jcfg, jp, warmup=False, kv_paged=True, slots=1, max_seq_len=64, prefill_buckets=(8,))
+        try:
+            want = ref.generate([1, 2], max_new_tokens=4)
+        finally:
+            ref.close()
+        assert eng.generate([1, 2], max_new_tokens=4) == want
+
+
+def test_queued_past_deadline_never_takes_a_slot(engines):
+    _ref, port = engines
+    before = port.stats()
+    req = port.submit(GenRequest([5, 9, 2], max_new_tokens=4, deadline=time.perf_counter() - 0.01))
+    assert req.tokens(timeout=10) == []
+    assert req.finish_reason == "deadline" and req.slot is None
+    after = port.stats()
+    assert after["steps"] == before["steps"] and after["deadline_cancels"] == before["deadline_cancels"] + 1
+
+
+def test_identity_fields_change_nothing(engines):
+    """priority, client and session_id ride the request (the edge sets
+    them) but the FIFO scheduler serves the same tokens; an adapter name
+    is refused, as by the JAX engine without an adapter pool."""
+    ref, port = engines
+    (prompt,) = _prompts(22, (9,))
+    want = ref.generate(prompt, max_new_tokens=8)
+    got = port.generate(prompt, max_new_tokens=8, priority="batch", client="c1", session_id="s1")
+    assert got == want
+    with pytest.raises(ValueError, match="adapter"):
+        port.submit(GenRequest(prompt, adapter="tenant-a"))
+
+
+def test_stream_close_cancels_as_disconnect(engines):
+    _ref, port = engines
+    (prompt,) = _prompts(23, (9,))
+    req = port.submit(GenRequest(prompt, max_new_tokens=40))
+    it = req.stream(timeout=30)
+    next(it)
+    before = port.stats()["disconnect_cancels"]
+    it.close()  # the consumer goes away mid-stream
+    t0 = time.perf_counter()
+    while req.finish_reason is None and time.perf_counter() - t0 < 3:
+        time.sleep(0.005)
+    assert req.finish_reason == "disconnect"
+    assert port.stats()["disconnect_cancels"] == before + 1
+
+
+def test_astream_flattens_and_raises_on_error(engines):
+    import asyncio
+
+    ref, port = engines
+    (prompt,) = _prompts(24, (7,))
+    want = ref.generate(prompt, max_new_tokens=11)
+
+    async def collect(r):
+        return [t async for t in r.astream(timeout=30)]
+
+    assert asyncio.run(collect(port.submit(GenRequest(prompt, max_new_tokens=11)))) == want
+    failed = GenRequest(prompt)
+    failed.error, failed.finish_reason = "boom", "error"
+    failed.out.put(None)
+    with pytest.raises(RequestFailed):
+        asyncio.run(collect(failed))
