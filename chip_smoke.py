@@ -24,24 +24,35 @@ Phases, each raising on failure:
    another checkout's paged-decode kernels (e.g. the parent commit
    unpacked by git archive) are built and timed on the same inputs, in
    turns with this tree's;
-4. engine — serve concurrent Gemma-2B requests (full width and depth,
-   random weights from a seeded generator) through the port's LLMEngine
-   at its defaults, check every stream, check every served token against
-   greedy decoding by the plain full-prompt forward, and check that both
-   kernels launched during this phase;
-5. int8 engine — the same burst through LLMEngine(kv_int8=True,
-   quantize=True) on the same weights: int8 weights and an int8 KV pool
-   read by the int8 paged-decode kernel; every served token checked
-   against the plain forward on the same int8 weights, under a gap
-   constant set from this path's measured logit drift;
+4. engine — the port's LLMEngine at its defaults over Gemma-2B (full
+   width and depth, random weights from a seeded generator): lookahead
+   3 and every program family captured as a CUDA graph at construction.
+   Prints the families, warmup_s and torch.cuda.memory_reserved before
+   and after the capture; holds every family's replay against its eager
+   program on a cloned random state at temperature 0 (tokens, pool bytes,
+   lengths, tail, active mask and temperatures bitwise equal; launches per
+   replay equal to the captured count) and checks that two replays at a
+   high temperature draw differently. Then serves a burst of concurrent
+   requests three times at lookahead 3 and once at lookahead 1, checks
+   every stream and every served token against greedy decoding by the
+   plain full-prompt forward, prints the median and spread of tok/s and
+   TTFT, checks that both kernels launched in every burst, and profiles
+   one more burst (idle share; whether the profiler names the kernels
+   inside graph replays);
+5. int8 engine — the same through LLMEngine(kv_int8=True, quantize=True)
+   on the same weights: int8 weights and an int8 KV pool read by the
+   int8 paged-decode kernel; every served token checked against the
+   plain forward on the same int8 weights, under a gap constant set from
+   this path's measured logit drift;
 6. edge — the port's HTTP server (gofr_tpu_torch.serve) on an ephemeral
-   port, reached at 127.0.0.1, a bf16 engine at its defaults over the same weights:
-   the burst as concurrent POST /generate requests over real sockets
-   (every token through the same replay gate as the engine phase), one
-   OpenAI chat completion plain and then as SSE (the deltas must join to
-   the plain content), and a client that hangs up after the first SSE
-   chunk (the KV pool must show 0 blocks in use within 3 s); both kernels
-   must launch during the phase. Prints an "edge" line: tok/s and the
+   port, reached at 127.0.0.1, a bf16 engine at its defaults (graphs,
+   lookahead 3) over the same weights, its warmup printed: the burst as
+   concurrent POST /generate requests over real sockets (every token
+   through the same replay gate as the engine phase), one OpenAI chat
+   completion plain and then as SSE (the deltas must join to the plain
+   content), and a client that hangs up after the first SSE chunk (the
+   KV pool must show 0 blocks in use within 3 s); both kernels must
+   launch during the phase. Prints an "edge" line: tok/s and the
    client's time to first byte beside the engine phase's numbers;
 7. report — a "kernels" JSON line, then the last line
    {"ok": true, "device": {...}}.
@@ -58,6 +69,7 @@ import http.client
 import json
 import math
 import socket
+import statistics
 import subprocess
 import sys
 import threading
@@ -513,6 +525,115 @@ def phase_kernels(dev: dict, seed: int, parent: dict | None = None) -> dict:
     return {"errs": errs, "timings": timings}
 
 
+def _engine_state(eng) -> dict:
+    """Every tensor the engine's programs write: the pool's K/V rows (and
+    an int8 pool's scales), lengths, tail, active mask and temperatures."""
+    state = {"k": eng.pool.k, "v": eng.pool.v, "length": eng.pool.length, "tail": eng._tail,
+             "active": eng._active, "temps": eng._temps}
+    if eng.pool_scales is not None:
+        state["scales"] = eng.pool_scales
+    return state
+
+
+def _snapshot(eng) -> dict:
+    return {k: v.clone() for k, v in _engine_state(eng).items()}
+
+
+def _restore(eng, snap: dict) -> None:
+    for k, v in _engine_state(eng).items():
+        v.copy_(snap[k])
+
+
+def _bytes_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return torch.equal(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+
+
+def _family_inputs(eng, name: str, g: torch.Generator, temperature: float):
+    """Random live state for family ``name`` (written into the engine) and
+    the inputs of one dispatch: every slot active and live on private
+    blocks with room for the step, prefill rows (the last lane padding
+    when the width allows) at their slots' lengths, alternate rows
+    finishing their prompt."""
+    cfg, slots, K = eng.cfg, eng.slots, eng.decode_chunk
+    cap, MB, NB = eng.kv.capacity, eng.kv.table_width, eng.kv.pool.n_blocks
+    dev = eng.device
+    if eng.pool_scales is None:
+        eng.pool.k.copy_(torch.randn(eng.pool.k.shape, generator=g, device=dev).to(eng.pool.k.dtype))
+        eng.pool.v.copy_(torch.randn(eng.pool.v.shape, generator=g, device=dev).to(eng.pool.v.dtype))
+    else:
+        for t in (eng.pool.k, eng.pool.v):
+            t.copy_(torch.randint(-127, 128, t.shape, generator=g, device=dev, dtype=torch.int8))
+        eng.pool_scales.copy_(torch.rand(eng.pool_scales.shape, generator=g, device=dev) * 0.02 + 1e-3)
+    step = eng._programs[name][1]
+    shape = step[0] if step else 0
+    lengths = torch.randint(1, cap - shape - 2 * K, (slots,), generator=g, device=dev, dtype=torch.int32)
+    eng.pool.length.copy_(lengths)
+    eng._tail.copy_(torch.randint(0, cfg.vocab_size, (slots,), generator=g, device=dev, dtype=torch.int32))
+    eng._active.fill_(True)
+    eng._temps.fill_(temperature)
+    tables = torch.randperm(NB, generator=g, device=dev)[: slots * MB].reshape(slots, MB).int().cpu().numpy()
+    live = np.ones((slots,), bool)
+    if step is None:
+        return tables, live, None, None
+    nb = step[1]
+    rows = nb - 1 if nb > 1 else 1
+    lens = lengths.cpu().numpy()
+    pack = np.zeros((nb, shape + 3), np.int32)
+    meta = np.zeros((2, nb), np.int32)
+    meta[0, :] = slots
+    toks = torch.randint(1, cfg.vocab_size, (nb, shape), generator=g, device=dev).cpu().numpy()
+    for j in range(rows):
+        n = shape - j
+        pack[j, :n] = toks[j, :n]
+        pack[j, shape], pack[j, shape + 1] = lens[j], n
+        pack[j, shape + 2] = np.float32(temperature).view(np.int32)
+        meta[0, j], meta[1, j] = j, j % 2
+    return tables, live, meta, pack
+
+
+def check_family(eng, name: str, seed: int, temperature: float = 0.0, replays: int = 1) -> dict:
+    """Family ``name`` of a CUDA engine (captured at its warmup, or here)
+    against its eager program on a random live state: one eager call, then
+    ``replays`` replays, each from the same cloned state on identical
+    inputs. Returns whether the first replay's tokens and its pool bytes,
+    lengths, tail, active mask and temperatures are bitwise the eager
+    call's (the test at temperature 0; above it the draws differ by
+    design), whether the first two replays' tokens differ (fresh draws),
+    and the kernel launches the replays counted beside the family's
+    captured count. Runs with the engine idle, holding its lock, and puts
+    its state back."""
+    g = torch.Generator(device=eng.device).manual_seed(seed)
+    with eng._lock, torch.no_grad(), torch.cuda.stream(eng._stream):
+        eng._ensure_family(name)
+        fam = eng.families[name]
+        orig = _snapshot(eng)
+        inputs = _family_inputs(eng, name, g, temperature)
+        s0 = _snapshot(eng)
+        eng._in.write(*inputs)
+        eager = eng._programs[name][0]().clone()
+        s_eager = _snapshot(eng)
+        before = {k: getattr(*A._counter(k)) for k in fam.launches}
+        draws, s_replay = [], None
+        for _ in range(replays):
+            _restore(eng, s0)
+            eng._in.write(*inputs)
+            draws.append(eng._launch(name).clone())
+            if s_replay is None:
+                s_replay = _snapshot(eng)
+        eng._stream.synchronize()
+        state_equal = {k: _bytes_equal(s_eager[k], s_replay[k]) for k in s0}
+        out = {
+            "eager_equal": torch.equal(eager, draws[0]) and all(state_equal.values()),
+            "state_equal": state_equal,
+            "draws_differ": len(draws) > 1 and not torch.equal(draws[0], draws[1]),
+            "launches": {k: getattr(*A._counter(k)) - before[k] for k in fam.launches},
+            "captured": dict(fam.launches),
+        }
+        _restore(eng, orig)
+        eng._stream.synchronize()
+    return out
+
+
 def _serve(eng, prompts, new_tokens):
     """Submit every prompt from its own client thread at once; returns
     ({i: tokens}, {i: request}, wall seconds)."""
@@ -542,9 +663,10 @@ def _serve(eng, prompts, new_tokens):
     return results, reqs, wall
 
 
-def _profile(fn) -> None:
-    """Run fn under torch.profiler and print the device's busy share and
-    the kernels that took the most device time."""
+def _profile(fn, label: str = "") -> dict:
+    """Run fn under torch.profiler and print the device's busy and idle
+    share and the kernels that took the most device time. Returns the
+    idle share and {group: (device ms, launches)}."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -567,14 +689,19 @@ def _profile(fn) -> None:
         g = groups.setdefault(group, [0.0, 0])
         g[0] += e.self_device_time_total
         g[1] += e.count
-    print(f"profile (engine traffic again, under the profiler): wall {wall_us / 1e3:.1f} ms, "
-          f"device busy {busy_us / 1e3:.1f} ms ({100 * busy_us / wall_us:.1f}%), "
-          f"idle {100 * (1 - busy_us / wall_us):.1f}%")
+    idle = 1 - busy_us / wall_us
+    print(f"{label}profile (engine traffic again, under the profiler): wall {wall_us / 1e3:.1f} ms, "
+          f"device busy {busy_us / 1e3:.1f} ms ({100 * busy_us / wall_us:.1f}%), idle {100 * idle:.1f}%")
     for group, (us, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
-        print(f"profile group {group:20s} {us / 1e3:9.2f} ms device  {n:7d} launches  "
-              f"{100 * us / busy_us:5.1f}% of busy")
+        print(f"{label}profile group {group:20s} {us / 1e3:9.2f} ms device  {n:7d} launches  "
+              f"{100 * us / max(busy_us, 1e-9):5.1f}% of busy")
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:8]:
-        print(f"profile kernel {e.self_device_time_total / 1e3:9.2f} ms {e.count:7d}x {e.key[:90]}")
+        print(f"{label}profile kernel {e.self_device_time_total / 1e3:9.2f} ms {e.count:7d}x {e.key[:90]}")
+    named = "paged_decode_kernel" in groups and "flash kernels" in groups
+    print(f"{label}profile: the profiler {'names' if named else 'does NOT name'} the hand-written kernels "
+          f"inside CUDA graph replays (groups seen: {sorted(groups)})")
+    return {"idle": idle, "wall_ms": wall_us / 1e3, "busy_ms": busy_us / 1e3,
+            "groups": {k: (v[0] / 1e3, v[1]) for k, v in groups.items()}}
 
 
 def gemma_weights(seed: int) -> tuple[TransformerConfig, dict]:
@@ -589,7 +716,7 @@ def gemma_weights(seed: int) -> tuple[TransformerConfig, dict]:
     return cfg, params
 
 
-def _replay_gate(params, cfg, prompts, results, gap: float, label: str = "") -> tuple[int, int]:
+def _replay_gate(params, cfg, prompts, results, gap: float, label: str = "", verbose: bool = True) -> tuple[int, int]:
     """Every served token against greedy decoding by the plain full-prompt
     forward on ``params`` (no kernels), teacher-forced on the served
     stream: token j must be the plain argmax after prompt + served[:j],
@@ -617,49 +744,124 @@ def _replay_gate(params, cfg, prompts, results, gap: float, label: str = "") -> 
                 )
         checked += n_match
         exempt += n_exempt
-        print(f"{label}stream prompt {len(p):3d}: {n_match} of {len(results[i])} tokens equal the plain greedy "
-              f"argmax, {n_exempt} differ within tolerance (top-2 gap < {gap}); smallest gap {min(gaps):.4f}")
+        if verbose:
+            print(f"{label}stream prompt {len(p):3d}: {n_match} of {len(results[i])} tokens equal the plain greedy "
+                  f"argmax, {n_exempt} differ within tolerance (top-2 gap < {gap}); smallest gap {min(gaps):.4f}")
         del logits
     return checked, exempt
 
 
-def phase_engine(dev: dict, seed: int, cfg: TransformerConfig, params: dict) -> dict:
-    eng = LLMEngine(cfg, params, seed=seed)  # defaults: 32 slots, 512, {16, 64}, 256, K=8, B=16
-    try:
-        # warm-up request: cuBLAS handles and allocator pools, outside the timed run
-        eng.generate([1, 2, 3], max_new_tokens=4)
-        rng = np.random.default_rng(seed)
-        plens = [5, 16, 17, 63, 64, 65, 200, 440]
-        prompts = [rng.integers(1, cfg.vocab_size, n).tolist() for n in plens]
-        new_tokens = 32
-        A.flash_attention.launches = 0
-        A.paged_decode_partials.launches = 0
-        A.paged_decode_partials.launches_int8 = 0
+def _warm_report(label: str, eng) -> dict:
+    """Print an engine's captured graph families, warmup_s and the memory
+    the capture reserved; fail unless every family was captured."""
+    before, after = eng.warmup_reserved
+    names = list(eng.families)
+    print(f"{label}warmup: {len(names)} CUDA graphs captured in {eng.warmup_s:.3f} s (warmup_s): "
+          f"{', '.join(names)}; torch.cuda.memory_reserved {before} -> {after} bytes (+{after - before})")
+    if sorted(names) != sorted(eng._programs) or eng.stats()["warmup_s"] != eng.warmup_s:
+        raise AssertionError(f"{label}warmup captured {names}, programs {list(eng._programs)}")
+    return {"families": names, "warmup_s": eng.warmup_s, "reserved_before": before, "reserved_after": after}
+
+
+def _check_families(label: str, eng, seed: int) -> None:
+    """Every captured family against its eager program (check_family), at
+    temperature 0; then two replays each of the 8-step chunk and the
+    widest step at a high temperature, which must draw differently."""
+    for i, name in enumerate(eng.families):
+        r = check_family(eng, name, seed + i)
+        print(f"{label}replay vs eager {name}: tokens and state bitwise "
+              f"{'equal' if r['eager_equal'] else 'DIFFERENT ' + str(r['state_equal'])}; launches per replay "
+              f"{r['launches']} (captured {r['captured']})")
+        if not r["eager_equal"]:
+            raise AssertionError(f"{label}{name}: replay differs from the eager program: {r['state_equal']}")
+        if r["launches"] != r["captured"] or not r["captured"].get(
+            "paged_decode_partials_int8" if eng.pool_scales is not None else "paged_decode_partials"
+        ):
+            raise AssertionError(f"{label}{name}: launches {r['launches']}, captured {r['captured']}")
+        if name.startswith("llm.step") and not r["captured"].get("flash_attention"):
+            raise AssertionError(f"{label}{name} holds no flash launch: {r['captured']}")
+    for name in (f"llm.decode_chunk{eng.decode_chunk}", eng._step_name(eng.chunk_shapes[-1], eng.admit_cap)):
+        r = check_family(eng, name, seed + 100, temperature=1000.0, replays=2)
+        print(f"{label}sampled replays {name} at temperature 1000: two replays from one state "
+              f"{'draw different tokens' if r['draws_differ'] else 'REPEAT THEIR DRAWS'}; launches {r['launches']}")
+        if not r["draws_differ"] or r["launches"] != {k: 2 * n for k, n in r["captured"].items()}:
+            raise AssertionError(f"{label}{name}: sampled replays {r}")
+
+
+def _bursts(label: str, eng, prompts, new_tokens: int, counters: tuple) -> list[dict]:
+    """The burst three times at the engine's lookahead, then once at
+    lookahead 1 on the same engine (the scheduler reads ``lookahead`` on
+    every pass), each with the kernel counters zeroed just before it.
+    Prints each, then the median and spread of tok/s and TTFT."""
+    runs = []
+    depth = eng.lookahead
+    for la in (depth, depth, depth, 1):
+        eng.lookahead = la
+        for name in counters:
+            fn, attr = A._counter(name)
+            setattr(fn, attr, 0)
+        st0 = eng.stats()
         results, reqs, wall = _serve(eng, prompts, new_tokens)
-        launches = {
-            "flash_attention": A.flash_attention.launches,
-            "paged_decode_partials": A.paged_decode_partials.launches,
-        }
+        st = eng.stats()
+        launches = {name: getattr(*A._counter(name)) for name in counters}
+        ttfts = sorted(reqs[i].first_token_at - reqs[i].submitted_at for i in reqs)
+        total = sum(len(t) for t in results.values())
+        run = {"lookahead": la, "results": results, "wall_s": wall, "tokens": total, "tok_s": total / wall,
+               "ttft_p50_s": ttfts[len(ttfts) // 2], "ttft_max_s": ttfts[-1], "launches": launches,
+               "chunks": st["chunks"] - st0["chunks"], "steps": st["steps"] - st0["steps"]}
+        runs.append(run)
+        print(f"{label}burst {len(runs)} at lookahead {la}: {total} tokens in {wall:.3f}s = {run['tok_s']:.1f} tok/s; "
+              f"ttft p50 {run['ttft_p50_s']:.3f}s max {run['ttft_max_s']:.3f}s; {run['chunks']} programs "
+              f"({run['steps']} unified steps); "
+              f"launches {launches}")
+    eng.lookahead = depth
+    for key in ("tok_s", "ttft_p50_s", "ttft_max_s"):
+        vals = [r[key] for r in runs[:3]]
+        print(f"{label}bursts at lookahead {depth}, {key}: median {statistics.median(vals):.4f}, "
+              f"min {min(vals):.4f}, max {max(vals):.4f}, spread {max(vals) - min(vals):.4f}; "
+              f"at lookahead 1: {runs[3][key]:.4f}")
+    for r in runs:
+        toks = r["results"]
+        if len(toks) != len(prompts) or any(
+            len(t) != new_tokens or any(x < 0 or x >= eng.cfg.vocab_size for x in t) for t in toks.values()
+        ):
+            raise AssertionError(f"{label}burst at lookahead {r['lookahead']}: bad streams {toks}")
+    return runs
+
+
+def _burst_prompts(cfg, seed: int) -> tuple[list, list]:
+    rng = np.random.default_rng(seed)
+    plens = [5, 16, 17, 63, 64, 65, 200, 440]
+    return plens, [rng.integers(1, cfg.vocab_size, n).tolist() for n in plens]
+
+
+def phase_engine(dev: dict, seed: int, cfg: TransformerConfig, params: dict) -> dict:
+    eng = LLMEngine(cfg, params, seed=seed)  # defaults: 32 slots, 512, {16, 64}, 256, K=8, B=16, lookahead 3, graphs
+    try:
+        warm = _warm_report("", eng)
+        _check_families("", eng, seed)
+        # warm-up request: allocator pools and the collector, outside the timed runs
+        eng.generate([1, 2, 3], max_new_tokens=4)
+        plens, prompts = _burst_prompts(cfg, seed)
+        new_tokens = 32
+        runs = _bursts("", eng, prompts, new_tokens, ("flash_attention", "paged_decode_partials"))
         stats = eng.stats()
         # the same traffic once more under torch.profiler: where the device
         # time goes (the profiler slows the host, so this pass is not timed)
-        _profile(lambda: _serve(eng, prompts, new_tokens))
+        prof = _profile(lambda: _serve(eng, prompts, new_tokens))
     finally:
         eng.close()
 
-    total = 0
-    for i, toks in sorted(results.items()):
-        if len(toks) != new_tokens or any(t < 0 or t >= cfg.vocab_size for t in toks):
-            raise AssertionError(f"request {i} (prompt {plens[i]}): bad stream {toks}")
-        total += len(toks)
-    if len(results) != len(prompts):
-        raise AssertionError(f"{len(results)} of {len(prompts)} requests finished")
-
-    # every served token against greedy decoding by the plain full-prompt
-    # forward. The first token comes from prefill (flash kernel), the rest
-    # from the decode chunks (paged kernel, partials merge, chunk-end
-    # scatter through the tables).
-    checked, exempt = _replay_gate(params, cfg, prompts, results, TOKEN_GAP)
+    # every served token of every burst against greedy decoding by the
+    # plain full-prompt forward. The first token comes from prefill (flash
+    # kernel), the rest from the decode chunks (paged kernel, partials
+    # merge, chunk-end scatter through the tables).
+    checked = exempt = 0
+    for i, r in enumerate(runs):
+        c, e = _replay_gate(params, cfg, prompts, r["results"], TOKEN_GAP,
+                            label=f"burst {i + 1} (lookahead {r['lookahead']}) ", verbose=i == 0)
+        print(f"burst {i + 1} (lookahead {r['lookahead']}): {c} tokens equal the plain greedy argmax, {e} exempt")
+        checked, exempt = checked + c, exempt + e
 
     # logit drift between the served path (64-token chunks through the
     # flash kernel) and the plain forward, on one prompt
@@ -688,19 +890,25 @@ def phase_engine(dev: dict, seed: int, cfg: TransformerConfig, params: dict) -> 
     if not math.isfinite(drift) or drift >= TOKEN_GAP:
         raise AssertionError(f"served-path logits drift {drift} >= {TOKEN_GAP}")
 
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"{name} was not launched while the engine served")
-    ttfts = sorted(reqs[i].first_token_at - reqs[i].submitted_at for i in reqs)
+    launches = runs[0]["launches"]
+    for r in runs:
+        for name, n in r["launches"].items():
+            if n <= 0:
+                raise AssertionError(f"{name} was not launched in a burst at lookahead {r['lookahead']}")
+    first = runs[0]
     out = {
-        "requests": len(results), "tokens": total, "wall_s": wall, "tok_s": total / wall,
-        "ttft_p50_s": ttfts[len(ttfts) // 2], "ttft_max_s": ttfts[-1], "launches": launches,
-        "steps": stats["steps"] - 1, "tokens_matched": checked, "tokens_exempt": exempt,
+        "requests": len(first["results"]), "tokens": first["tokens"], "wall_s": first["wall_s"],
+        "tok_s": statistics.median(r["tok_s"] for r in runs[:3]),
+        "ttft_p50_s": statistics.median(r["ttft_p50_s"] for r in runs[:3]),
+        "ttft_max_s": statistics.median(r["ttft_max_s"] for r in runs[:3]),
+        "launches": launches, "steps": stats["steps"], "tokens_matched": checked, "tokens_exempt": exempt,
+        "warmup": warm, "profile": prof, "runs": [{k: v for k, v in r.items() if k != "results"} for r in runs],
     }
     print(
-        f"engine gemma_2b on {dev['smi']}: {out['requests']} requests, {total} tokens in {wall:.3f}s "
-        f"= {out['tok_s']:.1f} tok/s; ttft p50 {out['ttft_p50_s']:.3f}s max {out['ttft_max_s']:.3f}s; "
-        f"launches {launches}"
+        f"engine gemma_2b on {dev['smi']}: {out['requests']} requests x 32 tokens, 3 bursts at lookahead 3: "
+        f"median {out['tok_s']:.1f} tok/s; ttft p50 {out['ttft_p50_s']:.3f}s max {out['ttft_max_s']:.3f}s "
+        f"(medians); lookahead 1: {runs[3]['tok_s']:.1f} tok/s; idle {100 * prof['idle']:.1f}% of a profiled "
+        f"burst; launches in burst 1 {launches}"
     )
     return out
 
@@ -766,7 +974,7 @@ def _int8_path_drift(cfg, qparams, prompt, capacity, steps=8):
 
 
 def phase_engine_int8(dev: dict, seed: int, cfg: TransformerConfig, params: dict) -> dict:
-    """The engine burst with int8 weights (the bf16 phase's, quantized at
+    """The engine bursts with int8 weights (the bf16 phase's, quantized at
     construction) and an int8 KV pool."""
     bf16_bytes = _tensor_bytes(params)
     eng = LLMEngine(cfg, params, seed=seed, kv_int8=True, quantize=True)
@@ -775,44 +983,29 @@ def phase_engine_int8(dev: dict, seed: int, cfg: TransformerConfig, params: dict
     pool_bytes = _tensor_bytes({"k": eng.pool.k, "v": eng.pool.v, "scales": eng.pool_scales})
     print(f"int8 engine: weights {weight_bytes} bytes (bf16 {bf16_bytes}); KV pool {pool_bytes} bytes "
           f"(int8 rows + f32 scales, {eng.kv.pool.n_blocks} blocks of {eng.kv.block_bytes} bytes)")
+    counters = ("flash_attention", "paged_decode_partials", "paged_decode_partials_int8")
     try:
-        eng.generate([1, 2, 3], max_new_tokens=4)  # warm-up, outside the timed run
-        rng = np.random.default_rng(seed)
-        plens = [5, 16, 17, 63, 64, 65, 200, 440]
-        prompts = [rng.integers(1, cfg.vocab_size, n).tolist() for n in plens]
+        warm = _warm_report("int8 ", eng)
+        _check_families("int8 ", eng, seed)
+        eng.generate([1, 2, 3], max_new_tokens=4)  # warm-up, outside the timed runs
+        plens, prompts = _burst_prompts(cfg, seed)
         new_tokens = 32
-        A.flash_attention.launches = 0
-        A.paged_decode_partials.launches = 0
-        A.paged_decode_partials.launches_int8 = 0
-        chunks0 = eng.stats()["chunks"]
-        results, reqs, wall = _serve(eng, prompts, new_tokens)
-        launches = {
-            "flash_attention": A.flash_attention.launches,
-            "paged_decode_partials": A.paged_decode_partials.launches,
-            "paged_decode_partials_int8": A.paged_decode_partials.launches_int8,
-        }
+        runs = _bursts("int8 ", eng, prompts, new_tokens, counters)
         stats = eng.stats()
-        _profile(lambda: _serve(eng, prompts, new_tokens))
+        prof = _profile(lambda: _serve(eng, prompts, new_tokens), label="int8 ")
     finally:
         eng.close()
-    chunks = stats["chunks"] - chunks0
-    print(f"int8 engine launches {launches} over {chunks} decode chunks "
-          f"({launches['paged_decode_partials_int8'] / max(chunks, 1):.1f} int8 launches per chunk; "
-          f"{cfg.n_layers * 8} per 8-step chunk)")
-    if launches["paged_decode_partials_int8"] <= 0 or launches["paged_decode_partials_int8"] % cfg.n_layers:
-        raise AssertionError(f"int8 kernel launches {launches['paged_decode_partials_int8']}: not whole decode steps")
-    if launches["paged_decode_partials"] or launches["flash_attention"] <= 0:
-        raise AssertionError(f"int8 engine launched the wrong kernels: {launches}")
+    for r in runs:
+        launches = r["launches"]
+        print(f"int8 burst at lookahead {r['lookahead']}: launches {launches} over {r['chunks']} programs "
+              f"({launches['paged_decode_partials_int8'] / max(r['chunks'], 1):.1f} int8 launches per program; "
+              f"{cfg.n_layers * 8} per 8-step chunk)")
+        if launches["paged_decode_partials_int8"] <= 0 or launches["paged_decode_partials_int8"] % cfg.n_layers:
+            raise AssertionError(f"int8 kernel launches {launches['paged_decode_partials_int8']}: not whole decode steps")
+        if launches["paged_decode_partials"] or launches["flash_attention"] <= 0:
+            raise AssertionError(f"int8 engine launched the wrong kernels: {launches}")
     if not stats["quantized"] or not stats["kvcache"]["int8"]:
         raise AssertionError(f"int8 engine stats: {stats}")
-
-    total = 0
-    for i, toks in sorted(results.items()):
-        if len(toks) != new_tokens or any(t < 0 or t >= cfg.vocab_size for t in toks):
-            raise AssertionError(f"int8 request {i} (prompt {plens[i]}): bad stream {toks}")
-        total += len(toks)
-    if len(results) != len(prompts):
-        raise AssertionError(f"int8 engine: {len(results)} of {len(prompts)} requests finished")
 
     drift = _int8_path_drift(cfg, qparams, prompts[6], eng.kv.capacity)
     print(f"int8 logit drift, served int8 path (int8 KV round trip between chunks, int8 kernel decode, "
@@ -821,11 +1014,17 @@ def phase_engine_int8(dev: dict, seed: int, cfg: TransformerConfig, params: dict
     if not math.isfinite(drift) or 2 * drift > INT8_TOKEN_GAP:
         raise AssertionError(f"int8 path logit drift {drift}: INT8_TOKEN_GAP {INT8_TOKEN_GAP} is under twice it")
 
-    # every served token against the plain forward on the same int8
-    # weights, teacher-forced on the served stream
-    checked, exempt = _replay_gate(qparams, cfg, prompts, results, INT8_TOKEN_GAP, label="int8 ")
-    if 8 * exempt > total:
-        raise AssertionError(f"int8 engine: {exempt} of {total} tokens needed the gap exemption (> 1 in 8)")
+    # every served token of every burst against the plain forward on the
+    # same int8 weights, teacher-forced on the served stream
+    checked = exempt = 0
+    for i, r in enumerate(runs):
+        c, e = _replay_gate(qparams, cfg, prompts, r["results"], INT8_TOKEN_GAP,
+                            label=f"int8 burst {i + 1} (lookahead {r['lookahead']}) ", verbose=i == 0)
+        print(f"int8 burst {i + 1} (lookahead {r['lookahead']}): {c} tokens equal the plain greedy argmax, "
+              f"{e} exempt")
+        if 8 * e > r["tokens"]:
+            raise AssertionError(f"int8 engine: {e} of {r['tokens']} tokens needed the gap exemption (> 1 in 8)")
+        checked, exempt = checked + c, exempt + e
 
     # eager weight-only products dequantize the int8 weight per call: its
     # cost at the decode shape (32 rows), on the widest layer weight and
@@ -847,17 +1046,20 @@ def phase_engine_int8(dev: dict, seed: int, cfg: TransformerConfig, params: dict
           f"{str(cfg.dtype)[6:]} copy {cost['bf16_w_gate_ms']:.4f} ms; unembed {list(emb.q.shape)} int8 "
           f"{cost['unembed_int8_ms']:.4f} ms vs a {str(cfg.dtype)[6:]} copy {cost['unembed_bf16_ms']:.4f} ms")
 
-    ttfts = sorted(reqs[i].first_token_at - reqs[i].submitted_at for i in reqs)
+    first = runs[0]
     out = {
-        "requests": len(results), "tokens": total, "wall_s": wall, "tok_s": total / wall,
-        "ttft_p50_s": ttfts[len(ttfts) // 2], "ttft_max_s": ttfts[-1], "launches": launches,
-        "tokens_matched": checked, "tokens_exempt": exempt, "drift": drift,
-        "weight_bytes": weight_bytes, "pool_bytes": pool_bytes, **cost,
+        "requests": len(first["results"]), "tokens": first["tokens"], "wall_s": first["wall_s"],
+        "tok_s": statistics.median(r["tok_s"] for r in runs[:3]),
+        "ttft_p50_s": statistics.median(r["ttft_p50_s"] for r in runs[:3]),
+        "ttft_max_s": statistics.median(r["ttft_max_s"] for r in runs[:3]),
+        "launches": first["launches"], "tokens_matched": checked, "tokens_exempt": exempt, "drift": drift,
+        "weight_bytes": weight_bytes, "pool_bytes": pool_bytes, "warmup": warm, "profile": prof, **cost,
     }
     print(
-        f"int8 engine gemma_2b (kv_int8, quantize) on {dev['smi']}: {out['requests']} requests, {total} tokens "
-        f"in {wall:.3f}s = {out['tok_s']:.1f} tok/s; ttft p50 {out['ttft_p50_s']:.3f}s max "
-        f"{out['ttft_max_s']:.3f}s; {checked} tokens matched, {exempt} exempt; launches {launches}"
+        f"int8 engine gemma_2b (kv_int8, quantize) on {dev['smi']}: 3 bursts at lookahead 3: median "
+        f"{out['tok_s']:.1f} tok/s; ttft p50 {out['ttft_p50_s']:.3f}s max {out['ttft_max_s']:.3f}s (medians); "
+        f"lookahead 1: {runs[3]['tok_s']:.1f} tok/s; idle {100 * prof['idle']:.1f}%; {checked} tokens matched, "
+        f"{exempt} exempt; launches in burst 1 {first['launches']}"
     )
     return out
 
@@ -902,6 +1104,7 @@ def phase_edge(dev: dict, seed: int, cfg: TransformerConfig, params: dict, engin
     thread = app.run_in_background()
     port = app.http_server.port
     eng = app.container.tpu().llm("gemma")
+    warm = _warm_report("edge ", eng)
     A.flash_attention.launches = 0
     A.paged_decode_partials.launches = 0
     try:
@@ -1006,7 +1209,7 @@ def phase_edge(dev: dict, seed: int, cfg: TransformerConfig, params: dict, engin
         "requests": len(results), "tokens": total, "wall_s": wall, "tok_s": total / wall,
         "ttft_p50_s": first[len(first) // 2], "ttft_max_s": first[-1], "sse_first_byte_s": sse_first,
         "disconnect_freed_s": freed_s, "tokens_matched": checked, "tokens_exempt": exempt,
-        "launches": launches, "burst_launches": burst_launches,
+        "launches": launches, "burst_launches": burst_launches, "warmup": warm,
     }
     print(
         f"edge gemma_2b over HTTP on {dev['smi']}: {out['requests']} concurrent POST /generate, {total} tokens "

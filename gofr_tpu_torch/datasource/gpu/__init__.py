@@ -9,11 +9,11 @@ the config sets ``TORCH_DEVICE=cpu``; without a GPU it raises.
 
 Only what the port's engine has is accepted: the kwargs ``slots``,
 ``max_seq_len``, ``prefill_buckets``, ``quantize``, ``kv_int8``, ``seed``,
-``device`` and ``kv_paged=True`` (the port's one layout), and the config
-knob ``TPU_LLM_KV_INT8`` (read as the JAX runtime reads it). Any other
-kwarg, and any of the JAX runtime's engine knobs set to ask for a feature
-the port lacks (speculation, replicas, meshes, LoRA, sessions, a prefix
-cache, ...), raises ``NotImplementedError`` naming it; none is ignored.
+``device``, ``lookahead``, ``warmup`` and ``kv_paged=True`` (the port's
+one layout), and the config knob ``TPU_LLM_KV_INT8`` (read as the JAX
+runtime reads it). Any other kwarg, and any of the JAX runtime's engine
+knobs set to ask for a feature the port lacks (speculation, replicas,
+meshes, LoRA, sessions, a prefix cache, ...), raises ``NotImplementedError`` naming it; none is ignored.
 The JAX package's plain-model registry (``register_model`` and its
 dynamic batcher) is not ported.
 """
@@ -31,7 +31,9 @@ from .. import STATUS_DOWN, STATUS_UP, health
 
 __all__ = ["GPURuntime"]
 
-_ENGINE_KWARGS = ("slots", "max_seq_len", "prefill_buckets", "quantize", "kv_int8", "seed", "device")
+_ENGINE_KWARGS = (
+    "slots", "max_seq_len", "prefill_buckets", "quantize", "kv_int8", "seed", "device", "lookahead", "warmup",
+)
 
 # The JAX runtime's engine knobs that select a feature this port lacks,
 # each with the values that ask for nothing more than the port does.

@@ -163,19 +163,34 @@ def scatter_rows(pool_k, pool_v, tables, rows_k, rows_v, positions, valid, *, sc
     lanes, and targets outside the pool, write nothing. With ``scales``
     (the int8 pool's [2, L, NB, B, h] float32 tensor) the rows are
     quantized first and their scales written in place beside them.
-    Returns (pool_k, pool_v)."""
+    Returns (pool_k, pool_v).
+
+    Every lane takes part in one fixed-shape write, with no host sync, so
+    the function can be captured in a CUDA graph. A dropped lane (the JAX
+    ``mode="drop"``) repeats the first kept lane: the same target and the
+    same row, so duplicate targets only ever write equal bytes, and a
+    dropped lane never lands on a row of its own. When no lane is kept,
+    every lane rewrites pool row 0 with what it already holds."""
     L, NB, B, h, d = pool_k.shape
     positions = positions.long()
     bi = (positions // B).clamp(0, tables.shape[1] - 1)
     blk = torch.gather(tables.long(), 1, bi)  # [S, W]
     flat = blk * B + positions % B
-    keep = valid & (flat >= 0) & (flat < NB * B)
-    s_idx, w_idx = keep.nonzero(as_tuple=True)
-    idx = flat[s_idx, w_idx]
+    keep = (valid & (flat >= 0) & (flat < NB * B)).reshape(-1)
+    flat = flat.reshape(-1)
+    first = keep.int().argmax()  # the first kept lane (0 when none is)
+    any_kept = keep.any()
+    src = torch.where(keep, torch.arange(keep.shape[0], device=keep.device), first)
+    idx = torch.where(any_kept, flat[src], 0)
+
+    def write(dst, rows):
+        """dst [L, NB*B, ...] <- rows [L, S*W, ...] of the kept lanes."""
+        dst.index_copy_(1, idx, torch.where(any_kept, rows[:, src], dst[:, :1]))
+
     for c, (pool, rows) in enumerate(((pool_k, rows_k), (pool_v, rows_v))):
-        rows = rows[:, s_idx, w_idx]
+        rows = rows.reshape(L, -1, h, d)
         if scales is not None:
             rows, sc = quantize_rows(rows)
-            scales[c].view(L, NB * B, h).index_copy_(1, idx, sc)
-        pool.view(L, NB * B, h, d).index_copy_(1, idx, rows.to(pool.dtype))
+            write(scales[c].view(L, NB * B, h), sc)
+        write(pool.view(L, NB * B, h, d), rows.to(pool.dtype))
     return pool_k, pool_v

@@ -222,8 +222,15 @@ def _embed_tokens(params: dict, cfg: TransformerConfig, tokens: torch.Tensor) ->
         x = emb[tokens.long()].to(cfg.dtype)
     if not cfg.scale_embed:
         return x
-    scale = torch.sqrt(torch.tensor(float(cfg.d_model), dtype=torch.float32)).to(cfg.dtype)
-    return x * scale.to(x.device)
+    return x * _embed_scale(cfg)
+
+
+def _embed_scale(cfg: TransformerConfig) -> float:
+    """sqrt(d_model) in f32, rounded to the model dtype, as a Python float:
+    a multiply by it runs in the same f32 arithmetic as one by a 0-d
+    tensor, and needs no host-to-device copy (a CUDA graph captures it)."""
+    scale = torch.sqrt(torch.tensor([float(cfg.d_model)], dtype=torch.float32)).to(cfg.dtype)
+    return float(scale.double().numpy()[0])  # a host tensor: no device sync
 
 
 def _unembed(params: dict, cfg: TransformerConfig, x: torch.Tensor) -> torch.Tensor:
@@ -372,7 +379,8 @@ def decode_chunk_paged(
     K = n_steps
     dev = tokens.device
     # the chunk buffer is written in place at step k_i (JAX:
-    # dynamic_update_slice into a carried buffer)
+    # dynamic_update_slice into a carried buffer); fresh each call, so a
+    # captured chunk keeps it in its graph's private memory pool
     kb = torch.zeros((L, b, K, hkv, hd), dtype=cfg.dtype, device=dev)
     vb = torch.zeros((L, b, K, hkv, hd), dtype=cfg.dtype, device=dev)
     lengths = pool.length

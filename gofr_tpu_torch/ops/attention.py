@@ -22,7 +22,10 @@ Two halves:
   plain PyTorch version beside it. A wrapper runs the plain version for a
   tensor on the CPU; for a tensor on a CUDA device it launches its kernel
   or raises. Each wrapper counts its kernels' launches in ``launches``
-  attributes.
+  attributes. A launch recorded into a CUDA graph runs nothing then: it
+  goes to the tally of ``capture_launches``, and each replay of the
+  graph adds that tally (``add_launches``), so the counters stay true
+  launches on the card.
 
 float32 upcasts in the plain dots: JAX's ``preferred_element_type=f32``
 accumulates products of bf16 values in f32. The product of two bf16
@@ -32,8 +35,10 @@ f32 product gives the same function up to summation order.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
+import threading
 
 import torch
 
@@ -314,6 +319,50 @@ def _stream(device: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
+def _counter(name: str):
+    """(function, attribute) that holds kernel ``name``'s launch count."""
+    return {
+        "flash_attention": (flash_attention, "launches"),
+        "paged_decode_partials": (paged_decode_partials, "launches"),
+        "paged_decode_partials_int8": (paged_decode_partials, "launches_int8"),
+    }[name]
+
+
+_capture = threading.local()  # .tally: launches recorded by this thread's capture
+
+
+def _count_launch(name: str) -> None:
+    """One launch of kernel ``name`` on the current stream. While that
+    stream captures a CUDA graph nothing runs: the launch goes to the
+    capture's tally instead of the counter."""
+    if torch.cuda.is_current_stream_capturing():
+        tally = getattr(_capture, "tally", None)
+        if tally is None:
+            raise RuntimeError(f"{name} captured into a CUDA graph outside capture_launches()")
+        tally[name] = tally.get(name, 0) + 1
+        return
+    fn, attr = _counter(name)
+    setattr(fn, attr, getattr(fn, attr) + 1)
+
+
+@contextlib.contextmanager
+def capture_launches():
+    """Wrap a CUDA graph capture: yields {kernel name: launches recorded
+    into the graph}, which ``add_launches`` adds on every replay."""
+    _capture.tally = {}
+    try:
+        yield _capture.tally
+    finally:
+        _capture.tally = None
+
+
+def add_launches(tally: dict) -> None:
+    """Count the launches of one replay of a captured graph."""
+    for name, n in tally.items():
+        fn, attr = _counter(name)
+        setattr(fn, attr, getattr(fn, attr) + n)
+
+
 def flash_attention_plain(
     q, k, v, *, causal=True, scale=None, logit_cap=0.0, window=0, q_offsets=None,
 ):
@@ -407,7 +456,7 @@ def flash_attention(
         code, b, sq, sk, hq, hkv, d, int(causal), int(window),
         float(scale), float(logit_cap), _stream(q.device),
     )
-    flash_attention.launches += 1
+    _count_launch("flash_attention")
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
     return out
@@ -517,12 +566,12 @@ def paged_decode_partials(
             _ptr(q), _ptr(k_pool), _ptr(v_pool), _ptr(k_scales), _ptr(v_scales),
             _ptr(tables), _ptr(lo), _ptr(hi), *tail,
         )
-        paged_decode_partials.launches_int8 += 1
+        _count_launch("paged_decode_partials_int8")
     else:
         err = _build.function("paged_decode")(
             _ptr(q), _ptr(k_pool), _ptr(v_pool), _ptr(tables), _ptr(lo), _ptr(hi), *tail,
         )
-        paged_decode_partials.launches += 1
+        _count_launch("paged_decode_partials")
     if err:
         raise RuntimeError(f"paged_decode_partials kernel launch failed: CUDA error {err}")
     return o, m, l

@@ -1,5 +1,6 @@
-"""gofr_tpu_torch's CUDA kernels against their plain PyTorch versions, on
-the card. Imports nothing of JAX, so it runs on the GPU machine:
+"""gofr_tpu_torch's CUDA kernels against their plain PyTorch versions, and
+the engine's CUDA graphs against its eager programs, on the card. Imports
+nothing of JAX, so it runs on the GPU machine:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
@@ -7,10 +8,14 @@ the card. Imports nothing of JAX, so it runs on the GPU machine:
 device every test here skips.
 """
 
+import dataclasses
+
 import pytest
 import torch
 
 from gofr_tpu_torch.kvcache import quantize_rows
+from gofr_tpu_torch.llm import LLMEngine
+from gofr_tpu_torch.models import TransformerConfig, init_params
 from gofr_tpu_torch.ops import attention as TA
 
 
@@ -254,3 +259,67 @@ class TestPagedSplitOnCard:
                 o, m, l = TA.paged_decode_partials(q, kp, vp, tables, lo, hi, scale=1 / 16, **sc)
                 assert torch.count_nonzero(o) == 0
                 assert bool((m == TA.NEG_INF).all()) and torch.count_nonzero(l) == 0
+
+
+def _tiny_engine(cuda, mode, **kw):
+    """A tiny engine on the card: f32 (the FMA flash kernel), bf16 at
+    head_dim 64 (the tensor-core flash kernel), or int8 weights and KV
+    at widths cuBLASLt's int8 product takes (it refuses 17 rows at
+    d_model 64)."""
+    cfg = TransformerConfig.tiny()
+    if mode == "bf16":
+        cfg = dataclasses.replace(cfg, head_dim=64, dtype=torch.bfloat16)
+    if mode == "int8":
+        cfg = dataclasses.replace(
+            cfg, d_model=512, n_heads=8, n_kv_heads=2, head_dim=64, d_ff=1024, dtype=torch.bfloat16
+        )
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+    int8 = mode == "int8"
+    return LLMEngine(cfg, params, device=cuda, slots=4, max_seq_len=64, prefill_buckets=(8, 16),
+                     kv_int8=int8, quantize=int8, **kw)
+
+
+@pytest.mark.cuda
+class TestGraphsOnCard:
+    """The engine's program families as CUDA graphs at tiny size: every
+    replay bitwise equal to the eager program on the same state and
+    inputs, kernel counters that count each replay's launches, fresh
+    draws per replay, and the same tokens with the families captured at
+    warmup or at their first dispatch."""
+
+    @pytest.mark.parametrize("mode", ["f32", "bf16", "int8"])
+    def test_replays_equal_eager_and_count_launches(self, cuda, mode):
+        from chip_smoke import check_family
+
+        eng = _tiny_engine(cuda, mode)
+        try:
+            # chunk shapes {8, 16} x widths {1, 2, 4}, and K in {8, 2}
+            assert sorted(eng.families) == sorted(
+                [f"llm.step_p{s}_d8.w{w}" for s in (8, 16) for w in (1, 2, 4)]
+                + ["llm.decode_chunk8", "llm.decode_chunk2"]
+            )
+            assert eng.stats()["warmup_s"] > 0
+            paged = "paged_decode_partials_int8" if mode == "int8" else "paged_decode_partials"
+            for i, name in enumerate(eng.families):
+                r = check_family(eng, name, seed=i, replays=3)
+                assert r["eager_equal"], (name, r["state_equal"])
+                assert r["launches"] == {k: 3 * n for k, n in r["captured"].items()}, name
+                k = 2 if name == "llm.decode_chunk2" else 8
+                assert r["captured"][paged] == k * eng.cfg.n_layers, (name, r["captured"])
+                assert r["captured"].get("flash_attention", 0) == (eng.cfg.n_layers if "step" in name else 0)
+            for name in ("llm.decode_chunk8", "llm.step_p16_d8.w4"):
+                assert check_family(eng, name, seed=50, temperature=1000.0, replays=2)["draws_differ"], name
+        finally:
+            eng.close()
+
+    def test_lazy_capture_serves_the_same_tokens(self, cuda):
+        warm = _tiny_engine(cuda, "f32")
+        lazy = _tiny_engine(cuda, "f32", warmup=False, lookahead=1)
+        try:
+            assert not lazy.families and lazy.stats()["warmup_s"] is None
+            for prompt in ([1, 2, 3], list(range(5, 25))):
+                assert lazy.generate(prompt, max_new_tokens=19) == warm.generate(prompt, max_new_tokens=19)
+            assert lazy.families  # captured at their first dispatch
+        finally:
+            warm.close()
+            lazy.close()

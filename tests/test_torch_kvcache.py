@@ -62,6 +62,47 @@ class TestDeviceHelpers:
         np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))
         np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
 
+    @pytest.mark.parametrize("int8", [False, True])
+    @pytest.mark.parametrize("kept", ["none", "some"])
+    def test_scatter_rows_dropped_lanes_on_kept_targets(self, int8, kept):
+        """The fixed-shape write against the JAX ``mode="drop"`` scatter:
+        slot 1 shares slot 0's table, so each of its dropped lanes aims at
+        the row a kept lane of slot 0 writes; slot 2's first lanes aim
+        past the pool (a stale table entry) and are dropped though valid,
+        its last lanes past the table (the block index clamps). int8 rows
+        are quantized and their scales written beside them."""
+        rng = np.random.default_rng(5)
+        L, NB, W, MB, hkv, hd = 2, 8, 4, 2, 2, 4
+        if int8:
+            pk = rng.integers(-127, 128, (L, NB, B, hkv, hd)).astype(np.int8)
+            pv = rng.integers(-127, 128, (L, NB, B, hkv, hd)).astype(np.int8)
+            sc = rng.random((2, L, NB, B, hkv)).astype(np.float32)
+        else:
+            pk, pv = _pools(rng, L=L, NB=NB)
+            sc = None
+        tables = np.asarray([[3, 5], [3, 5], [NB + 2, 1]], np.int32)
+        pos = np.asarray([[1, 2, 3, 4], [1, 2, 3, 4], [0, 1, 9, 10]], np.int32)
+        valid = np.zeros((3, W), bool)
+        valid[2, :2] = True  # past the pool: dropped all the same
+        if kept == "some":
+            valid[0] = True
+            valid[2, 2:] = True  # past the table: the block index clamps
+        rows_k = rng.normal(size=(L, 3, W, hkv, hd)).astype(np.float32)
+        rows_v = rng.normal(size=(L, 3, W, hkv, hd)).astype(np.float32)
+        tk, tv = torch.from_numpy(pk.copy()), torch.from_numpy(pv.copy())
+        ts = None if sc is None else torch.from_numpy(sc.copy())
+        scatter_rows(tk, tv, *map(torch.from_numpy, (tables, rows_k, rows_v, pos, valid)), scales=ts)
+        jk, jv, js = j_scatter_rows(
+            *map(jnp.asarray, (pk, pv, tables, rows_k, rows_v, pos, valid)),
+            scales=None if sc is None else jnp.asarray(sc),
+        )
+        np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))
+        np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+        if int8:
+            np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+        if kept == "none":  # nothing written at all
+            np.testing.assert_array_equal(tk.numpy(), pk)
+
     def test_scatter_all_dropped_is_noop(self):
         rng = np.random.default_rng(4)
         pk, pv = _pools(rng)

@@ -253,3 +253,19 @@ class TestWrappers:
                 qd, pool, pool, torch.empty((2, 3), dtype=torch.int32, device="meta"),
                 idx, idx, scale=0.25,
             )
+
+    def test_replays_add_their_captured_launches(self):
+        """A captured graph's tally (``capture_launches``) is what each
+        replay adds to the counters (``add_launches``); the tally is
+        scoped to its capture."""
+        counters = ("flash_attention", "paged_decode_partials", "paged_decode_partials_int8")
+        before = {name: getattr(*TA._counter(name)) for name in counters}
+        with TA.capture_launches() as tally:
+            tally.update(flash_attention=18, paged_decode_partials=144)
+        assert TA._capture.tally is None
+        for _ in range(3):
+            TA.add_launches(tally)
+        after = {name: getattr(*TA._counter(name)) for name in counters}
+        assert {k: after[k] - before[k] for k in counters} == {
+            "flash_attention": 54, "paged_decode_partials": 432, "paged_decode_partials_int8": 0,
+        }
