@@ -54,8 +54,24 @@ Phases, each raising on failure:
    KV pool must show 0 blocks in use within 3 s); both kernels must
    launch during the phase. Prints an "edge" line: tok/s and the
    client's time to first byte beside the engine phase's numbers;
-7. report — a "kernels" JSON line, then the last line
-   {"ok": true, "device": {...}}.
+7. prefix — the prefix cache and the session tier at the same full
+   width: LLMEngine(prefix_cache_mb=64, session_mb=64, host_cache_mb=256),
+   its 15 families (kv_seed and the hit programs too) held bitwise
+   against their eager programs; a chat service's traffic on one seeded
+   320-token system prompt S: burst A (S + 8 suffixes of 16-64 tokens:
+   8 misses), B (S + 8 new suffixes: 8 block-partial hits), C (B's
+   prompts again: 8 exact hits, no unified step), then 4 conversations
+   (turn 1, publish, all 4 spilled to host memory, turn 2 restores).
+   Exact counters, no leaked pin once idle, every token through the
+   replay gate, both kernels launched in the phase; prints tok/s, TTFT,
+   unified steps, prompt tokens packed and blocks shared per burst, and
+   the spill and restore times;
+8. prefix int8 — four requests through a partial/exact pair on an int8
+   KV pool (tail copies move the f32 scales; the int8 kernel decodes
+   over shared blocks);
+9. report — a "kernels" JSON line (launches on the engine phase's main
+   path, and in the prefix phases as "prefix_launches"), then the last
+   line {"ok": true, "device": {...}}.
 
 Imports nothing of JAX and nothing of the JAX package. Exits non-zero,
 printing no result, when no GPU is visible.
@@ -550,10 +566,13 @@ def _bytes_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
 
 def _family_inputs(eng, name: str, g: torch.Generator, temperature: float):
     """Random live state for family ``name`` (written into the engine) and
-    the inputs of one dispatch: every slot active and live on private
-    blocks with room for the step, prefill rows (the last lane padding
-    when the width allows) at their slots' lengths, alternate rows
-    finishing their prompt."""
+    a function that stages the inputs of one dispatch. Step and chunk:
+    every slot active and live on private blocks with room for the step,
+    prefill rows (the last lane padding when the width allows) at their
+    slots' lengths, alternate rows finishing their prompt. kv_seed: block
+    copies between distinct random blocks and length writes to distinct
+    slots, two lanes padding. Hit: random staged logits, first tokens for
+    distinct slots, the last lane padding when the width allows."""
     cfg, slots, K = eng.cfg, eng.slots, eng.decode_chunk
     cap, MB, NB = eng.kv.capacity, eng.kv.table_width, eng.kv.pool.n_blocks
     dev = eng.device
@@ -564,18 +583,38 @@ def _family_inputs(eng, name: str, g: torch.Generator, temperature: float):
         for t in (eng.pool.k, eng.pool.v):
             t.copy_(torch.randint(-127, 128, t.shape, generator=g, device=dev, dtype=torch.int8))
         eng.pool_scales.copy_(torch.rand(eng.pool_scales.shape, generator=g, device=dev) * 0.02 + 1e-3)
-    step = eng._programs[name][1]
-    shape = step[0] if step else 0
+    _fn, kind, arg = eng._programs[name]
+    shape = arg[0] if kind == "step" else 0
     lengths = torch.randint(1, cap - shape - 2 * K, (slots,), generator=g, device=dev, dtype=torch.int32)
     eng.pool.length.copy_(lengths)
     eng._tail.copy_(torch.randint(0, cfg.vocab_size, (slots,), generator=g, device=dev, dtype=torch.int32))
     eng._active.fill_(True)
     eng._temps.fill_(temperature)
+    M = eng.admit_cap
+    if kind in ("seed", "hit"):
+        seed = eng._inert_seed()
+        perm_b = torch.randperm(NB, generator=g, device=dev).cpu().numpy()
+        perm_s = torch.randperm(slots, generator=g, device=dev).cpu().numpy()
+        if kind == "seed":
+            seed[0] = perm_b[:M]
+            seed[1, : M - 2] = perm_b[M : 2 * M - 2]
+            seed[2, : M - 2] = perm_s[: M - 2]
+            seed[3] = torch.randint(1, cap, (M,), generator=g, device=dev).cpu().numpy()
+        else:
+            nb = arg
+            eng._active.fill_(False)  # the program's writes must show
+            eng._temps.fill_(0.5)
+            eng._hit_logits.copy_(torch.randn(eng._hit_logits.shape, generator=g, device=dev) * 4)
+            rows = nb - 1 if nb > 1 else 1
+            seed[4, :rows] = perm_s[:rows]
+            seed[5, :rows] = np.arange(rows)
+            seed[6, :rows] = np.float32(temperature).view(np.int32)
+        return lambda: eng._in.write_seed(seed)
     tables = torch.randperm(NB, generator=g, device=dev)[: slots * MB].reshape(slots, MB).int().cpu().numpy()
     live = np.ones((slots,), bool)
-    if step is None:
-        return tables, live, None, None
-    nb = step[1]
+    if kind == "chunk":
+        return lambda: eng._in.write(tables, live)
+    nb = arg[1]
     rows = nb - 1 if nb > 1 else 1
     lens = lengths.cpu().numpy()
     pack = np.zeros((nb, shape + 3), np.int32)
@@ -588,44 +627,51 @@ def _family_inputs(eng, name: str, g: torch.Generator, temperature: float):
         pack[j, shape], pack[j, shape + 1] = lens[j], n
         pack[j, shape + 2] = np.float32(temperature).view(np.int32)
         meta[0, j], meta[1, j] = j, j % 2
-    return tables, live, meta, pack
+    return lambda: eng._in.write(tables, live, meta, pack)
+
+
+def _outputs(out) -> tuple:
+    """A program's output(s) as a tuple of clones: a step of a sharing
+    engine returns (tokens, logits)."""
+    return tuple(t.clone() for t in (out if isinstance(out, tuple) else (out,)))
 
 
 def check_family(eng, name: str, seed: int, temperature: float = 0.0, replays: int = 1) -> dict:
     """Family ``name`` of a CUDA engine (captured at its warmup, or here)
     against its eager program on a random live state: one eager call, then
     ``replays`` replays, each from the same cloned state on identical
-    inputs. Returns whether the first replay's tokens and its pool bytes,
-    lengths, tail, active mask and temperatures are bitwise the eager
-    call's (the test at temperature 0; above it the draws differ by
-    design), whether the first two replays' tokens differ (fresh draws),
-    and the kernel launches the replays counted beside the family's
-    captured count. Runs with the engine idle, holding its lock, and puts
-    its state back."""
+    inputs. Returns whether the first replay's outputs (tokens, and a
+    sharing step's logits) and its pool bytes, lengths, tail, active mask
+    and temperatures are bitwise the eager call's (the test at temperature
+    0; above it the draws differ by design), whether the first two
+    replays' tokens differ (fresh draws), and the kernel launches the
+    replays counted beside the family's captured count. Runs with the
+    engine idle, holding its lock, and puts its state back."""
     g = torch.Generator(device=eng.device).manual_seed(seed)
     with eng._lock, torch.no_grad(), torch.cuda.stream(eng._stream):
         eng._ensure_family(name)
         fam = eng.families[name]
         orig = _snapshot(eng)
-        inputs = _family_inputs(eng, name, g, temperature)
+        stage = _family_inputs(eng, name, g, temperature)
         s0 = _snapshot(eng)
-        eng._in.write(*inputs)
-        eager = eng._programs[name][0]().clone()
+        stage()
+        eager = _outputs(eng._programs[name][0]())
         s_eager = _snapshot(eng)
         before = {k: getattr(*A._counter(k)) for k in fam.launches}
         draws, s_replay = [], None
         for _ in range(replays):
             _restore(eng, s0)
-            eng._in.write(*inputs)
-            draws.append(eng._launch(name).clone())
+            stage()
+            draws.append(_outputs(eng._launch(name)))
             if s_replay is None:
                 s_replay = _snapshot(eng)
         eng._stream.synchronize()
         state_equal = {k: _bytes_equal(s_eager[k], s_replay[k]) for k in s0}
+        state_equal["outputs"] = all(_bytes_equal(a, b) for a, b in zip(eager, draws[0]))
         out = {
-            "eager_equal": torch.equal(eager, draws[0]) and all(state_equal.values()),
+            "eager_equal": all(state_equal.values()),
             "state_equal": state_equal,
-            "draws_differ": len(draws) > 1 and not torch.equal(draws[0], draws[1]),
+            "draws_differ": len(draws) > 1 and not torch.equal(draws[0][0], draws[1][0]),
             "launches": {k: getattr(*A._counter(k)) - before[k] for k in fam.launches},
             "captured": dict(fam.launches),
         }
@@ -765,22 +811,28 @@ def _warm_report(label: str, eng) -> dict:
 
 def _check_families(label: str, eng, seed: int) -> None:
     """Every captured family against its eager program (check_family), at
-    temperature 0; then two replays each of the 8-step chunk and the
-    widest step at a high temperature, which must draw differently."""
+    temperature 0; then two replays each of the 8-step chunk, the widest
+    step (and the widest hit program of a sharing engine) at a high
+    temperature, which must draw differently. Step and chunk families hold
+    the paged-decode kernel (steps the flash kernel too); kv_seed and the
+    hit programs hold no kernel."""
     for i, name in enumerate(eng.families):
         r = check_family(eng, name, seed + i)
-        print(f"{label}replay vs eager {name}: tokens and state bitwise "
+        kind = eng._programs[name][1]
+        print(f"{label}replay vs eager {name}: outputs and state bitwise "
               f"{'equal' if r['eager_equal'] else 'DIFFERENT ' + str(r['state_equal'])}; launches per replay "
               f"{r['launches']} (captured {r['captured']})")
         if not r["eager_equal"]:
             raise AssertionError(f"{label}{name}: replay differs from the eager program: {r['state_equal']}")
-        if r["launches"] != r["captured"] or not r["captured"].get(
-            "paged_decode_partials_int8" if eng.pool_scales is not None else "paged_decode_partials"
-        ):
+        paged = "paged_decode_partials_int8" if eng.pool_scales is not None else "paged_decode_partials"
+        if r["launches"] != r["captured"] or bool(r["captured"].get(paged)) != (kind in ("step", "chunk")):
             raise AssertionError(f"{label}{name}: launches {r['launches']}, captured {r['captured']}")
-        if name.startswith("llm.step") and not r["captured"].get("flash_attention"):
-            raise AssertionError(f"{label}{name} holds no flash launch: {r['captured']}")
-    for name in (f"llm.decode_chunk{eng.decode_chunk}", eng._step_name(eng.chunk_shapes[-1], eng.admit_cap)):
+        if bool(r["captured"].get("flash_attention")) != (kind == "step"):
+            raise AssertionError(f"{label}{name} ({kind}): flash launches {r['captured']}")
+    sampled = [f"llm.decode_chunk{eng.decode_chunk}", eng._step_name(eng.chunk_shapes[-1], eng.admit_cap)]
+    if eng.kv.share:
+        sampled.append(f"llm.hit_first.w{eng.admit_cap}")
+    for name in sampled:
         r = check_family(eng, name, seed + 100, temperature=1000.0, replays=2)
         print(f"{label}sampled replays {name} at temperature 1000: two replays from one state "
               f"{'draw different tokens' if r['draws_differ'] else 'REPEAT THEIR DRAWS'}; launches {r['launches']}")
@@ -1064,6 +1116,264 @@ def phase_engine_int8(dev: dict, seed: int, cfg: TransformerConfig, params: dict
     return out
 
 
+# The prefix phase's traffic: a chat service whose requests share one
+# seeded system prompt of 320 tokens (20 blocks), with user suffixes of
+# these lengths, 32 new tokens each, 8 at a time.
+PREFIX_SYSTEM = 320
+PREFIX_SUFFIXES = (16, 23, 31, 40, 47, 55, 60, 64)
+SESSION_SUFFIXES = (16, 24, 32, 40)
+
+
+def _submit_together(eng, reqs) -> None:
+    """Submit every request before the scheduler drains its queue, so one
+    admission pass sees them all."""
+    eng._drain_submits = lambda: None
+    try:
+        for r in reqs:
+            eng.submit(r)
+    finally:
+        del eng._drain_submits
+    eng._kick.set()
+
+
+def _idle(eng, label: str, timeout: float = 60.0) -> dict:
+    """Wait until no request holds a slot, nothing is in flight and no
+    session turn awaits its publish; then every block in use must be one
+    the radix (and through it the sessions) holds: a leaked pin or
+    promise fails. Returns the KV stats."""
+    t0 = time.perf_counter()
+    while True:
+        with eng._lock:
+            busy = eng._inflight or eng._processing is not None or eng._session_pub or any(eng._slot_req)
+            st = eng.stats()["kvcache"]
+            held = eng.kv.held_blocks()
+        if not busy and st["reserved"] == 0 and st["blocks_in_use"] == held:
+            return st
+        if time.perf_counter() - t0 > timeout:
+            raise AssertionError(f"{label}not idle, or a pin leaked: blocks_in_use {st['blocks_in_use']}, "
+                                 f"held by the radix {held}, reserved {st['reserved']}")
+        time.sleep(0.005)
+
+
+def _prefix_burst(eng, label: str, prompts, new_tokens: int, session_ids=None) -> dict:
+    """Serve ``prompts`` submitted together; wall time to the last stream's
+    end, TTFT from each request's own timestamps, the unified steps and
+    prompt tokens packed, the radix counters' change, and the most blocks
+    shared at once (sampled every 2 ms)."""
+    st0 = eng.stats()
+    reqs = [GenRequest(p, max_new_tokens=new_tokens, session_id=session_ids[i] if session_ids else "")
+            for i, p in enumerate(prompts)]
+    t0 = time.perf_counter()
+    _submit_together(eng, reqs)
+    shared = 0
+    while any(r.finish_reason is None for r in reqs):
+        shared = max(shared, eng.stats()["kvcache"]["blocks_shared"])
+        if time.perf_counter() - t0 > 600:
+            raise TimeoutError(f"{label}burst did not finish")
+        time.sleep(0.002)
+    wall = time.perf_counter() - t0
+    results = {i: r.tokens(timeout=60) for i, r in enumerate(reqs)}
+    st = eng.stats()
+    if any(len(t) != new_tokens or any(x < 0 or x >= eng.cfg.vocab_size for x in t) for t in results.values()):
+        raise AssertionError(f"{label}bad streams {results}")
+    ttfts = sorted(r.first_token_at - r.submitted_at for r in reqs)
+    p0, p1 = st0["kvcache"]["prefix"], st["kvcache"]["prefix"]
+    total = sum(len(t) for t in results.values())
+    run = {
+        "results": results, "wall_s": wall, "tokens": total, "tok_s": total / wall,
+        "ttft_p50_s": ttfts[len(ttfts) // 2], "ttft_max_s": ttfts[-1], "ttfts": ttfts,
+        "steps": st["steps"] - st0["steps"], "prefill_tokens": st["prefill_tokens"] - st0["prefill_tokens"],
+        "blocks_shared_max": shared, **{k: p1[k] - p0[k] for k in ("hits", "partial_hits", "misses")},
+    }
+    print(f"{label}: {len(prompts)} requests, {total} tokens in {wall:.3f}s = {run['tok_s']:.1f} tok/s; ttft p50 "
+          f"{run['ttft_p50_s']:.4f}s max {run['ttft_max_s']:.4f}s; {run['steps']} unified steps, "
+          f"{run['prefill_tokens']} prompt tokens packed; radix hits {run['hits']} partial {run['partial_hits']} "
+          f"misses {run['misses']}; blocks_shared up to {shared}")
+    return run
+
+
+def _prefix_engine_checks(label: str, eng, seed: int) -> tuple[dict, dict]:
+    """Warmup report, the pool's size against the unshared pool, and every
+    family (kv_seed and the hit programs included) against its eager
+    program."""
+    warm = _warm_report(label, eng)
+    kv = eng.stats()["kvcache"]
+    unshared = eng.slots * eng.kv.table_width
+    print(f"{label}pool: {kv['pool_blocks']} blocks of {kv['block_bytes']} bytes ({unshared} for the slots + "
+          f"{kv['pool_blocks'] - unshared} for the retention and session budgets); radix capacity "
+          f"{kv['prefix']['capacity_bytes']} bytes; sessions {kv['sessions'] and kv['sessions']['device_budget_bytes']}")
+    _check_families(label, eng, seed)
+    return warm, kv
+
+
+def phase_prefix(dev: dict, seed: int, cfg: TransformerConfig, params: dict) -> dict:
+    """The prefix cache and the session tier at Gemma-2B's full width: the
+    engine at its defaults with prefix_cache_mb=64, session_mb=64,
+    host_cache_mb=256. Burst A (S + 8 suffixes: 8 misses, S published),
+    burst B (S + 8 new suffixes: 8 block-partial hits sharing 320 tokens),
+    burst C (B's prompts again: 8 exact hits, no unified step), then 4
+    conversations: turn 1, publish, a forced spill of all 4 to host
+    memory, and turn 2 (turn 1 + its 32 tokens + 16 new ones: 4
+    restores). Every served token through the replay gate; both kernels
+    must launch in the phase's replays; no pin may leak."""
+    rng = np.random.default_rng(seed + 8)
+
+    def toks(n):
+        return rng.integers(1, cfg.vocab_size, n).tolist()
+
+    system = toks(PREFIX_SYSTEM)
+    a_prompts = [system + toks(n) for n in PREFIX_SUFFIXES]
+    b_prompts = [system + toks(n) for n in PREFIX_SUFFIXES]
+    turn1 = [system + toks(n) for n in SESSION_SUFFIXES]
+    turn2_new = [toks(16) for _ in SESSION_SUFFIXES]
+    sids = [f"conv-{i}" for i in range(len(SESSION_SUFFIXES))]
+    new_tokens = 32
+    counters = ("flash_attention", "paged_decode_partials")
+    eng = LLMEngine(cfg, params, seed=seed, prefix_cache_mb=64, session_mb=64, host_cache_mb=256)
+    times = {"spill": [], "restore": []}
+    spill, restore = eng._kv_spill, eng._kv_restore_blocks
+
+    def timed_spill(sid):
+        t0 = time.perf_counter()
+        spill(sid)  # gathers on the engine stream and waits for the copies
+        times["spill"].append(time.perf_counter() - t0)
+
+    def timed_restore(*a):
+        t0 = time.perf_counter()
+        restore(*a)
+        eng._stream.synchronize()  # measurement only: the engine does not wait
+        times["restore"].append(time.perf_counter() - t0)
+
+    eng._kv_spill, eng._kv_restore_blocks = timed_spill, timed_restore
+    try:
+        warm, kv0 = _prefix_engine_checks("prefix ", eng, seed)
+        eng.generate([1, 2, 3], max_new_tokens=4)  # warm-up, outside the timed runs
+        _idle(eng, "prefix warm-up ")
+        for name in counters:
+            fn, attr = A._counter(name)
+            setattr(fn, attr, 0)
+        runs = {}
+        for key, prompts in (("A", a_prompts), ("B", b_prompts), ("C", b_prompts)):
+            runs[key] = _prefix_burst(eng, f"prefix burst {key}", prompts, new_tokens)
+            kv = _idle(eng, f"prefix burst {key} ")
+            print(f"prefix burst {key} idle: blocks_in_use {kv['blocks_in_use']} = blocks the radix holds "
+                  f"{eng.kv.held_blocks()}; radix {kv['prefix']}")
+        ses0 = eng.stats()["kvcache"]["sessions"]
+        runs["turn1"] = _prefix_burst(eng, "sessions turn 1", turn1, new_tokens, sids)
+        if not _wait_for(lambda: eng.kv.sessions.stats()["publishes"] == ses0["publishes"] + 4, 30):
+            raise AssertionError(f"session turn 1 not published: {eng.kv.sessions.stats()}")
+        _idle(eng, "sessions turn 1 ")
+        eng.kv.sessions.device_budget = 1  # force the spill, as tests/test_sessions.py does
+        eng._kick.set()
+        if not _wait_for(lambda: eng.kv.sessions.stats()["spilled"] == 4, 30):
+            raise AssertionError(f"sessions not spilled: {eng.kv.sessions.stats()}")
+        spilled = eng.kv.sessions.stats()["offload"]
+        eng.kv.sessions.device_budget = 64 << 20
+        turn2 = [turn1[i] + runs["turn1"]["results"][i] + turn2_new[i] for i in range(len(turn1))]
+        runs["turn2"] = _prefix_burst(eng, "sessions turn 2", turn2, new_tokens, sids)
+        if not _wait_for(lambda: eng.kv.sessions.stats()["publishes"] == ses0["publishes"] + 12, 30):
+            raise AssertionError(f"session turn 2 not published: {eng.kv.sessions.stats()}")
+        kv = _idle(eng, "sessions turn 2 ")
+        launches = {name: getattr(*A._counter(name)) for name in counters}
+        ses = kv["sessions"]
+    finally:
+        eng.close()
+
+    want = {"A": (0, 0, 8), "B": (0, 8, 0), "C": (8, 0, 0)}
+    for key, (h, ph, m) in want.items():
+        r = runs[key]
+        if (r["hits"], r["partial_hits"], r["misses"]) != (h, ph, m):
+            raise AssertionError(f"prefix burst {key}: hits/partial/misses {r['hits'], r['partial_hits'], r['misses']}"
+                                 f", expected {(h, ph, m)}")
+    if runs["B"]["prefill_tokens"] != sum(PREFIX_SUFFIXES) or runs["C"]["steps"] or runs["C"]["prefill_tokens"]:
+        raise AssertionError(f"prefill work: B packed {runs['B']['prefill_tokens']} prompt tokens (expected "
+                             f"{sum(PREFIX_SUFFIXES)}), C ran {runs['C']['steps']} unified steps")
+    restores = ses["offload"]["restores"] - ses0["offload"]["restores"]
+    if restores != 4 or runs["turn2"]["partial_hits"] < 4 or spilled["spills"] - ses0["offload"]["spills"] != 4:
+        raise AssertionError(f"sessions: restores {restores}, turn 2 partial hits {runs['turn2']['partial_hits']}, "
+                             f"offload {spilled}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"{name} was not launched in the prefix phase: {launches}")
+    same = sum(x == y for i in runs["B"]["results"] for x, y in zip(runs["B"]["results"][i], runs["C"]["results"][i]))
+    print(f"prefix burst C (exact hits) vs burst B (the same prompts as partial hits): {same} of "
+          f"{runs['B']['tokens']} tokens equal")
+
+    checked = exempt = 0
+    for key, prompts in (("A", a_prompts), ("B", b_prompts), ("C", b_prompts), ("turn1", turn1), ("turn2", turn2)):
+        c, e = _replay_gate(params, cfg, prompts, runs[key]["results"], TOKEN_GAP, label=f"prefix {key} ",
+                            verbose=False)
+        print(f"prefix {key}: {c} tokens equal the plain greedy argmax, {e} exempt (top-2 gap < {TOKEN_GAP})")
+        checked, exempt = checked + c, exempt + e
+    spill_ms = [1e3 * t for t in times["spill"]]
+    restore_ms = [1e3 * t for t in times["restore"]]
+    spilled_bytes = spilled["spilled_bytes"]
+    before, after = eng.warmup_reserved
+    out = {
+        "runs": {k: {x: v for x, v in r.items() if x != "results"} for k, r in runs.items()},
+        "launches": launches, "tokens_matched": checked, "tokens_exempt": exempt, "c_equal_b": same,
+        "spilled_bytes": spilled_bytes, "spill_ms": spill_ms, "restore_ms": restore_ms,
+        "warmup": warm, "pool_blocks": kv0["pool_blocks"], "reserved_growth": after - before,
+    }
+    print(f"prefix sessions: 4 spilled, {spilled_bytes} bytes to host, spill ms per session "
+          f"{', '.join(f'{t:.2f}' for t in spill_ms)}; restore ms per session "
+          f"{', '.join(f'{t:.2f}' for t in restore_ms)}; turn-2 ttft p50 {runs['turn2']['ttft_p50_s']:.4f}s "
+          f"(turn 1 {runs['turn1']['ttft_p50_s']:.4f}s)")
+    print(f"prefix engine gemma_2b on {dev['smi']}: warmup_s {warm['warmup_s']:.3f} for {len(warm['families'])} "
+          f"families; memory_reserved growth {after - before} bytes; bursts A/B/C tok/s "
+          f"{runs['A']['tok_s']:.1f}/{runs['B']['tok_s']:.1f}/{runs['C']['tok_s']:.1f}, ttft p50 "
+          f"{runs['A']['ttft_p50_s']:.4f}/{runs['B']['ttft_p50_s']:.4f}/{runs['C']['ttft_p50_s']:.4f}s, unified steps "
+          f"{runs['A']['steps']}/{runs['B']['steps']}/{runs['C']['steps']}, prompt tokens packed "
+          f"{runs['A']['prefill_tokens']}/{runs['B']['prefill_tokens']}/{runs['C']['prefill_tokens']}; "
+          f"{checked} tokens matched, {exempt} exempt; phase launches {launches}")
+    return out
+
+
+def phase_prefix_int8(dev: dict, seed: int, cfg: TransformerConfig, params: dict) -> dict:
+    """Four requests through a partial/exact pair on an int8 KV pool
+    (kv_int8=True, prefix_cache_mb=64): the exact hits' tail copies move
+    the int8 rows with their f32 scales, and the int8 paged kernel decodes
+    over shared blocks. Tokens through the replay gate with the int8
+    phase's gap (at most 1 in 8 exempt)."""
+    rng = np.random.default_rng(seed + 9)
+    system = rng.integers(1, cfg.vocab_size, PREFIX_SYSTEM).tolist()
+    prompts = [system + rng.integers(1, cfg.vocab_size, n).tolist() for n in PREFIX_SUFFIXES[1::2]]
+    eng = LLMEngine(cfg, params, seed=seed, kv_int8=True, prefix_cache_mb=64)
+    try:
+        warm, _kv = _prefix_engine_checks("prefix int8 ", eng, seed)
+        eng.generate(system, max_new_tokens=4)  # publishes S
+        _idle(eng, "prefix int8 warm-up ")
+        fn, attr = A._counter("paged_decode_partials_int8")
+        setattr(fn, attr, 0)
+        runs = {key: _prefix_burst(eng, f"prefix int8 burst {key}", prompts, 32) for key in ("B", "C")}
+        _idle(eng, "prefix int8 ")
+        launches = getattr(fn, attr)
+    finally:
+        eng.close()
+    if (runs["B"]["partial_hits"], runs["C"]["hits"], runs["C"]["steps"]) != (4, 4, 0) or launches <= 0:
+        raise AssertionError(f"prefix int8: {runs['B']['partial_hits']} partial, {runs['C']['hits']} exact hits, "
+                             f"{runs['C']['steps']} steps in C; {launches} int8 kernel launches")
+    exempt = 0
+    for key in ("B", "C"):
+        c, e = _replay_gate(params, cfg, prompts, runs[key]["results"], INT8_TOKEN_GAP, label=f"prefix int8 {key} ",
+                            verbose=False)
+        print(f"prefix int8 {key}: {c} tokens equal the plain greedy argmax, {e} exempt (gap < {INT8_TOKEN_GAP})")
+        if 8 * e > runs[key]["tokens"]:
+            raise AssertionError(f"prefix int8 {key}: {e} of {runs[key]['tokens']} tokens needed the exemption")
+        exempt += e
+    return {"launches": launches, "warmup": warm, "exempt": exempt,
+            "runs": {k: {x: v for x, v in r.items() if x != "results"} for k, r in runs.items()}}
+
+
+def _wait_for(pred, seconds: float) -> bool:
+    t0 = time.perf_counter()
+    while not pred():
+        if time.perf_counter() - t0 > seconds:
+            return False
+        time.sleep(0.005)
+    return True
+
+
 def _http(port: int, method: str, path: str, body=None, timeout: float = 600.0):
     """One request on its own connection -> (status, body bytes, seconds to
     the response's first byte, seconds to its last)."""
@@ -1236,23 +1546,28 @@ def main() -> int:
     eng8 = phase_engine_int8(dev, SEED, cfg, params)
     torch.cuda.empty_cache()  # the closed engines' pools
     phase_edge(dev, SEED, cfg, params, eng)
+    torch.cuda.empty_cache()
+    pre = phase_prefix(dev, SEED, cfg, params)
+    torch.cuda.empty_cache()
+    pre8 = phase_prefix_int8(dev, SEED, cfg, params)
     # name -> (source, replaced Pallas kernel, timing key, engine run whose
     # launches count)
     sources = {
         "flash_attention": ("gofr_tpu_torch/csrc/flash_attention.cu", "gofr_tpu/ops/attention.py:101",
-                            "flash_attention c64", eng),
+                            "flash_attention c64", eng, pre["launches"]["flash_attention"]),
         "paged_decode_partials": ("gofr_tpu_torch/csrc/paged_decode.cu", "gofr_tpu/ops/attention.py:661",
-                                  "paged_decode_partials", eng),
+                                  "paged_decode_partials", eng, pre["launches"]["paged_decode_partials"]),
         "paged_decode_partials_int8": ("gofr_tpu_torch/csrc/paged_decode.cu",
                                        "gofr_tpu/ops/attention.py:661 (quantized=True)",
-                                       "paged_decode_partials_int8", eng8),
+                                       "paged_decode_partials_int8", eng8, pre8["launches"]),
     }
     kernels = []
-    for name, (src, replaces, tkey, run) in sources.items():
+    for name, (src, replaces, tkey, run, prefix_launches) in sources.items():
         t = kern["timings"][tkey]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": run["launches"][name], "max_abs_err": kern["errs"][name],
+            "launches": run["launches"][name], "prefix_launches": prefix_launches,
+            "max_abs_err": kern["errs"][name],
             "ms": t["ms"], "device_ms": t["device_ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         })

@@ -9,11 +9,15 @@ the config sets ``TORCH_DEVICE=cpu``; without a GPU it raises.
 
 Only what the port's engine has is accepted: the kwargs ``slots``,
 ``max_seq_len``, ``prefill_buckets``, ``quantize``, ``kv_int8``, ``seed``,
-``device``, ``lookahead``, ``warmup`` and ``kv_paged=True`` (the port's
-one layout), and the config knob ``TPU_LLM_KV_INT8`` (read as the JAX
-runtime reads it). Any other kwarg, and any of the JAX runtime's engine
-knobs set to ask for a feature the port lacks (speculation, replicas,
-meshes, LoRA, sessions, a prefix cache, ...), raises ``NotImplementedError`` naming it; none is ignored.
+``device``, ``lookahead``, ``warmup``, ``prefix_cache_mb``,
+``session_mb``, ``host_cache_mb`` and ``kv_paged=True`` (the port's one
+layout), and the config knobs ``TPU_LLM_KV_INT8``,
+``TPU_LLM_PREFIX_CACHE_MB``, ``TPU_LLM_SESSION_MB`` and
+``TPU_LLM_HOST_CACHE_MB`` (read as the JAX runtime reads them: defaults
+for the kwargs a caller leaves out). Any other kwarg, and any of the JAX
+runtime's engine knobs set to ask for a feature the port lacks
+(speculation, replicas, meshes, LoRA, ...), raises
+``NotImplementedError`` naming it; none is ignored.
 The JAX package's plain-model registry (``register_model`` and its
 dynamic batcher) is not ported.
 """
@@ -33,20 +37,18 @@ __all__ = ["GPURuntime"]
 
 _ENGINE_KWARGS = (
     "slots", "max_seq_len", "prefill_buckets", "quantize", "kv_int8", "seed", "device", "lookahead", "warmup",
+    "prefix_cache_mb", "session_mb", "host_cache_mb",
 )
 
 # The JAX runtime's engine knobs that select a feature this port lacks,
 # each with the values that ask for nothing more than the port does.
 _UNPORTED_KNOBS = {
-    "TPU_LLM_PREFIX_CACHE_MB": ("0",),
     "TPU_LLM_STEP_TOKEN_BUDGET": (str(STEP_TOKEN_BUDGET),),
     "TPU_LLM_PREFILL_CHUNK": (str(PREFILL_CHUNK),),
     "TPU_LLM_SPEC": ("0",),
     "TPU_LLM_SPEC_DRAFT": (),
     "TPU_LLM_KV_PAGED": ("1",),
     "TPU_LLM_KV_BLOCK": (str(KV_BLOCK),),
-    "TPU_LLM_SESSION_MB": ("0",),
-    "TPU_LLM_HOST_CACHE_MB": ("0",),
     "TPU_LLM_STEP_WATCHDOG_S": ("0",),
     "TPU_LLM_NUMERIC_CHECK": ("1",),
     "TPU_LLM_CONSTRAINED": ("0",),
@@ -75,6 +77,9 @@ class GPURuntime:
         get = (lambda k: config.get_or_default(k, "")) if config is not None else (lambda k: "")
         self.default_device = get("TORCH_DEVICE") or None  # None: cuda
         self.default_llm_kv_int8 = get("TPU_LLM_KV_INT8")
+        self.default_llm_prefix_cache_mb = float(get("TPU_LLM_PREFIX_CACHE_MB") or 0.0)
+        self.default_llm_session_mb = get("TPU_LLM_SESSION_MB")
+        self.default_llm_host_cache_mb = get("TPU_LLM_HOST_CACHE_MB")
         self._knobs = {k: get(k) for k in _UNPORTED_KNOBS}
         self._llms: dict[str, LLMEngine] = {}
         self._lock = threading.Lock()
@@ -99,6 +104,11 @@ class GPURuntime:
                 raise NotImplementedError(f"{knob}={v}: not ported")
         if self.default_llm_kv_int8 != "":
             engine_kw.setdefault("kv_int8", self.default_llm_kv_int8 != "0")
+        engine_kw.setdefault("prefix_cache_mb", self.default_llm_prefix_cache_mb)
+        if self.default_llm_session_mb != "":
+            engine_kw.setdefault("session_mb", float(self.default_llm_session_mb))
+        if self.default_llm_host_cache_mb != "":
+            engine_kw.setdefault("host_cache_mb", float(self.default_llm_host_cache_mb))
         engine_kw.setdefault("device", self.default_device)
         engine = LLMEngine(cfg, params, **engine_kw)
         with self._lock:

@@ -1,26 +1,37 @@
-"""KV memory manager (counterpart of gofr_tpu/kvcache, paged layout only).
+"""KV memory manager (counterpart of gofr_tpu/kvcache, paged layout).
 
 The JAX package's CacheManager picks between a paged pool, a rolling ring
-and a dense slab, and adds a radix prefix index and sessions. The port
-keeps the serving default — the paged pool, bf16/f32 or int8 rows — with
+and a dense slab. The port keeps the serving default — the paged pool,
+bf16/f32 or int8 rows — with its radix prefix index and session tier, and
 the same sizing rules:
 
 - ``table_width = ceil(max_seq_len / block)`` entries per slot table;
 - ``capacity = table_width * block`` logical rows per slot;
 - ``pool_blocks = slots * table_width`` (every slot fully grown, no
-  sharing);
+  sharing) plus the blocks of the retention budget (``prefix_cache_mb``)
+  and of the session budget (``session_mb``);
 - one ``append_slack`` term (the widest append one device program can
   make) in every admission reservation.
 
-Host tables grow as each cursor advances (``ensure``) and return their
-blocks on ``release_slot``; the device pool tensors are
-[L, n_blocks, block, hkv, hd] (plus [2, L, n_blocks, block, hkv] float32
-scales for an int8 pool) and belong to the engine.
+Sharing is on when either budget is above 0: admission consults the radix
+tree (``lookup_seed``), a slot's table points at shared full prefix
+blocks in place (``attach_seed``), and finished prompts and session turns
+are published into it (``publish_plan`` / ``publish_commit``). Host
+tables grow as each cursor advances (``ensure``) and return their blocks
+on ``release_slot``; the device pool tensors are [L, n_blocks, block,
+hkv, hd] (plus [2, L, n_blocks, block, hkv] float32 scales for an int8
+pool) and belong to the engine, which performs every device copy.
+
+Threading: the scheduler thread mutates; the collector releases slots;
+``stats()`` readers may come from anywhere. Every mutation of the pool,
+the tables, the radix and the sessions happens under ``_lock``.
 """
 
 from __future__ import annotations
 
 import threading
+import time
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
@@ -28,23 +39,39 @@ import torch
 from .paged import (
     BlockPool,
     PoolExhausted,
+    RadixTree,
     SlotTable,
+    copy_blocks,
     dequantize_rows,
+    gather_blocks_host,
     gather_slots,
     quantize_rows,
     scatter_rows,
 )
+from .sessions import HostOffload, SessionStore
 
 __all__ = [
-    "BlockPool", "CacheManager", "PoolExhausted", "SlotTable", "dequantize_rows",
-    "gather_slots", "quantize_rows", "scatter_rows",
+    "BlockPool", "CacheManager", "PoolExhausted", "RadixTree", "SeedPlan", "SlotTable", "copy_blocks",
+    "dequantize_rows", "gather_blocks_host", "gather_slots", "quantize_rows", "scatter_rows",
 ]
+
+_MB = 1024 * 1024
+
+
+class SeedPlan(NamedTuple):
+    """Admission-time radix consult result."""
+
+    blocks: list  # shared full prefix blocks, in table order
+    shared: int  # tokens covered by `blocks` (block-aligned)
+    exact: bool  # an end record with logits matched the WHOLE prompt
+    tail_src: int  # end record's copied tail block (-1 = none)
+    tail_len: int  # valid rows in the tail block
+    logits: Any  # stored last-token logits (exact hits skip prefill)
 
 
 class CacheManager:
-    """Paged KV bookkeeping for one engine. Mutated only by the engine's
-    scheduler thread; the lock keeps concurrent ``stats()`` readers
-    consistent."""
+    """Paged KV bookkeeping for one engine: pool, slot tables, and (when a
+    retention or session budget is set) the radix tree and sessions."""
 
     def __init__(
         self,
@@ -56,6 +83,9 @@ class CacheManager:
         append_widths: tuple = (),
         block: int = 16,
         kv_int8: bool = False,
+        prefix_cache_mb: float = 0.0,
+        session_mb: float = 0.0,
+        host_cache_mb: float = 256.0,
     ):
         self.cfg = cfg
         self.slots = slots
@@ -69,11 +99,24 @@ class CacheManager:
         rows = 2 * cfg.n_layers * self.block * cfg.n_kv_heads
         # an int8 row carries one float32 scale per (row, KV head)
         self.block_bytes = rows * cfg.head_dim * itemsize + (rows * 4 if self.int8 else 0)
-        # worst case with zero sharing: every slot fully grown
-        self.pool = BlockPool(slots * self.table_width, self.block, self.block_bytes)
+        retain_bytes = int(prefix_cache_mb * _MB)
+        session_bytes = int(session_mb * _MB)
+        # worst case with zero sharing (every slot fully grown), plus the
+        # retained-prefix and session budgets
+        n_blocks = (
+            slots * self.table_width + -(-retain_bytes // self.block_bytes) + -(-session_bytes // self.block_bytes)
+        )
+        self.pool = BlockPool(n_blocks, self.block, self.block_bytes)
         self._slot_tables = [SlotTable(self.table_width) for _ in range(slots)]
         self._tables_np = np.zeros((slots, self.table_width), np.int32)
         self.tables_dirty = True
+        # sharing is on with a retention budget OR when the session tier
+        # wants the radix as its index
+        self.share = retain_bytes > 0 or session_bytes > 0
+        self.radix = RadixTree(self.pool, self.block, retain_bytes) if self.share else None
+        self.sessions = (
+            SessionStore(session_bytes, HostOffload(int(host_cache_mb * _MB))) if session_bytes > 0 else None
+        )
         self._lock = threading.Lock()
 
     def pool_tensors(self, device):
@@ -104,30 +147,113 @@ class CacheManager:
         ONE append-slack term, clamped to the logical capacity."""
         return min(prompt_len + max_new - 1 + self.append_slack, self.capacity)
 
-    def reserve_need(self, prompt_len: int, max_new: int) -> int:
-        return self.blocks_for(self.reserve_tokens(prompt_len, max_new))
-
-    def admit_reserve(self, prompt_len: int, max_new: int) -> bool:
-        """Promise pool blocks for a request's worst case. False = the
-        pool cannot host it yet; the engine keeps it queued."""
+    # -- admission ---------------------------------------------------------
+    def lookup_seed(self, prompt_tokens) -> SeedPlan | None:
+        """Radix consult for one prompt. An exact end record WITH logits
+        gives an exact plan (prefill skipped); otherwise the longest
+        block-aligned shared prefix, clamped to (n - 1) // block * block so
+        at least one prompt token still runs through prefill (session end
+        records keep rows, not logits, and take this path). The plan's
+        blocks (and tail source) are pinned: ``attach_seed`` adopts the
+        pins, every other path calls ``release_plan``."""
+        if self.radix is None:
+            return None
         with self._lock:
-            return self.pool.reserve(self.reserve_need(prompt_len, max_new))
+            m = self.radix.lookup(prompt_tokens)
+            n = len(prompt_tokens)
+            if m.end is not None and m.end.logits is not None:
+                plan = SeedPlan(
+                    blocks=m.blocks, shared=m.shared, exact=True,
+                    tail_src=m.end.tail_block if m.end.tail_block is not None else -1,
+                    tail_len=m.end.tail_len, logits=m.end.logits,
+                )
+            else:
+                shared = min(m.shared, ((n - 1) // self.block) * self.block)
+                if shared <= 0:
+                    return None
+                plan = SeedPlan(
+                    blocks=m.blocks[: shared // self.block], shared=shared,
+                    exact=False, tail_src=-1, tail_len=0, logits=None,
+                )
+            self.pool.incref(plan.blocks)
+            if plan.tail_src >= 0:
+                self.pool.incref([plan.tail_src])
+            return plan
+
+    def release_plan(self, plan: SeedPlan | None) -> None:
+        """Drop an unconsumed seed plan's pins (blocked, stranded or failed
+        admissions)."""
+        if plan is None:
+            return
+        with self._lock:
+            self.pool.decref(plan.blocks)
+            if plan.tail_src >= 0:
+                self.pool.decref([plan.tail_src])
+
+    def reserve_need(self, prompt_len: int, max_new: int, plan: SeedPlan | None = None) -> int:
+        """Blocks a request still needs beyond its seed plan's shared
+        prefix (an exact hit's tail copy is the first non-shared block)."""
+        need = self.blocks_for(self.reserve_tokens(prompt_len, max_new))
+        return max(0, need - (len(plan.blocks) if plan is not None else 0))
+
+    def unreserve(self, n: int) -> None:
+        """Return an unconsumed admission promise (a stranded request put
+        back in the queue)."""
+        if n > 0:
+            with self._lock:
+                self.pool.unreserve(n)
+
+    def admit_reserve(self, prompt_len: int, max_new: int, plan: SeedPlan | None = None) -> bool:
+        """Promise pool blocks for a request's worst case (minus what a
+        seed plan shares), evicting retained radix leaves if it must.
+        False = the pool cannot host it yet; the engine keeps it queued."""
+        need = self.reserve_need(prompt_len, max_new, plan)
+        with self._lock:
+            if self.pool.available() < need and self.radix is not None:
+                self.radix.evict_for(need - self.pool.available())
+            return self.pool.reserve(need)
+
+    def attach_seed(self, slot: int, plan: SeedPlan | None, owner, prompt_len: int, max_new: int) -> dict:
+        """Bind a slot to a newly admitted request: release the previous
+        occupant's blocks, point the table at the plan's shared blocks
+        (adopting the plan's pins) and move the admission promise onto the
+        slot. Returns the device work the engine must dispatch: ``copies``
+        (src, dst) block pairs — an exact hit's tail is shared by COPY —
+        and ``seed_len``, the slot's rows once seeded."""
+        with self._lock:
+            st = self._slot_tables[slot]
+            self._release_slot_locked(slot)
+            st.owner = owner
+            st.reserved = self.reserve_need(prompt_len, max_new, plan)
+            copies: list[tuple[int, int]] = []
+            seed_len = 0
+            if plan is not None:
+                n = len(plan.blocks)
+                st.rows[:n] = np.asarray(plan.blocks, np.int32)
+                st.shared = st.hi = n
+                seed_len = plan.shared
+                if plan.exact and plan.tail_src >= 0:
+                    dst = self.pool.alloc(1, reserved=True)[0]
+                    st.reserved -= 1
+                    st.rows[n] = dst
+                    st.hi = n + 1
+                    copies.append((plan.tail_src, dst))
+                    seed_len = plan.shared + plan.tail_len
+                    # the copy the engine dispatches next is ordered on the
+                    # stream before any later owner's write to the source
+                    self.pool.decref([plan.tail_src])
+            self.tables_dirty = True
+            return {"copies": copies, "seed_len": seed_len}
 
     def attach(self, slot: int, owner, prompt_len: int, max_new: int) -> None:
-        """Bind a slot to a newly admitted request: release the previous
-        occupant's blocks and move the admission promise onto the slot."""
-        with self._lock:
-            self._release_slot_locked(slot)
-            st = self._slot_tables[slot]
-            st.owner = owner
-            st.reserved = self.reserve_need(prompt_len, max_new)
-            self.tables_dirty = True
+        """``attach_seed`` for a request with no seed plan (a miss)."""
+        self.attach_seed(slot, None, owner, prompt_len, max_new)
 
     def ensure(self, slot: int, upto_tokens: int) -> bool:
-        """Materialize table entries so rows [0, upto_tokens) are
-        writable — blocks are allocated as the cursor advances, drawn
-        from the slot's reservation first. Returns True when the table
-        changed."""
+        """Materialize table entries so rows [0, upto_tokens) are writable
+        or shared — blocks are allocated as the cursor advances, drawn from
+        the slot's reservation first, then from free headroom (evicting
+        retained prefixes if it must). Returns True when the table changed."""
         upto = min(int(upto_tokens), self.capacity)
         need = self.blocks_for(upto)
         with self._lock:
@@ -140,8 +266,11 @@ class CacheManager:
             if take_r:
                 fresh += self.pool.alloc(take_r, reserved=True)
                 st.reserved -= take_r
-            if n - take_r:
-                fresh += self.pool.alloc(n - take_r)
+            extra = n - take_r
+            if extra:
+                if self.pool.available() < extra and self.radix is not None:
+                    self.radix.evict_for(extra - self.pool.available())
+                fresh += self.pool.alloc(extra)
             st.rows[st.hi : need] = np.asarray(fresh, np.int32)
             st.hi = need
             self.tables_dirty = True
@@ -153,8 +282,7 @@ class CacheManager:
             self.pool.decref(st.blocks())
         if st.reserved:
             self.pool.unreserve(st.reserved)
-        st.hi = 0
-        st.reserved = 0
+        st.hi = st.shared = st.reserved = 0
         st.owner = None
 
     def release_slot(self, slot: int, owner=None) -> None:
@@ -180,6 +308,165 @@ class CacheManager:
             self.tables_dirty = False
             return self._tables_np.copy()
 
+    # -- publishing (radix + sessions) ------------------------------------
+    def publish_plan(self, slot: int, tokens, *, want_tail: bool) -> dict | None:
+        """Plan publishing a slot's first ``len(tokens)`` rows: the full
+        blocks are shared in place; the sub-block tail (when wanted) is
+        COPIED into a fresh radix-owned block. None when sharing is off or
+        no tail block can be had even after eviction."""
+        if self.radix is None:
+            return None
+        n = len(tokens)
+        full = n - n % self.block
+        with self._lock:
+            st = self._slot_tables[slot]
+            if self.blocks_for(n) > st.hi:
+                return None  # rows not resident
+            blocks = [int(b) for b in st.rows[: full // self.block]]
+            tail_src = tail_dst = -1
+            tail_len = n - full
+            if want_tail and tail_len > 0:
+                if self.pool.available() < 1:
+                    self.radix.evict_for(1)
+                if self.pool.available() < 1:
+                    return None
+                tail_src = int(st.rows[full // self.block])
+                tail_dst = self.pool.alloc(1)[0]
+            return {
+                "slot": slot, "blocks": blocks, "tail_src": tail_src,
+                "tail_dst": tail_dst, "tail_len": tail_len if want_tail else 0,
+            }
+
+    def publish_commit(self, plan: dict, tokens, logits=None, logits_nbytes: int = 0,
+                       session_id: str | None = None) -> None:
+        """Insert the published sequence into the radix (dedup against
+        existing paths) and, for a session turn, pin the leaf to it."""
+        session = bool(session_id) and self.sessions is not None
+        with self._lock:
+            node, key = self.radix.insert(
+                list(tokens), plan["blocks"],
+                tail_block=plan["tail_dst"] if plan["tail_dst"] >= 0 else None,
+                tail_len=plan["tail_len"], logits=logits, logits_nbytes=logits_nbytes, pin=session,
+            )
+            if session:
+                nblocks = len(plan["blocks"]) + (1 if plan["tail_dst"] >= 0 else 0)
+                self.sessions.publish(session_id, tokens, node, key, nblocks * self.block_bytes, self.radix)
+
+    # -- session spill / restore ------------------------------------------
+    def session_path(self, sid: str) -> dict | None:
+        """The device blocks a resident session's pinned leaf covers (root
+        to leaf) and its end record's tail: what a spill fetches."""
+        if self.sessions is None:
+            return None
+        with self._lock:
+            s = self.sessions.get(sid)
+            if s is None or s.state != "resident" or s.node is None:
+                return None
+            chain, node = [], s.node
+            while node is not None and node.parent is not None:
+                chain.append(node)
+                node = node.parent
+            blocks = [b for n in reversed(chain) for b in n.blocks]
+            end = s.node.ends.get(s.end_key)
+            tail = end.tail_block if end is not None and end.tail_block is not None else -1
+            return {"tokens": list(s.tokens), "blocks": blocks, "tail": tail,
+                    "tail_len": end.tail_len if end is not None else 0}
+
+    def spill_commit(self, sid: str, payload: dict, nbytes: int) -> None:
+        """After the engine fetched a session's blocks to host: unpin, store
+        the payload in the host tier (LRU under its budget; the ids it
+        expires are forgotten), and evict the session's now-exclusive leaf
+        chain so its device blocks free. Nodes still pinned or shared stay."""
+        with self._lock:
+            s = self.sessions.get(sid)
+            node = s.node if s is not None else None
+            self.sessions.mark_spilled(sid, self.radix)
+            for dropped in self.sessions.offload.store(sid, payload, nbytes):
+                self.sessions.forget(dropped, self.radix)
+            while node is not None and node.parent is not None and not node.children and node.refs == 0:
+                parent = node.parent
+                self.radix._evict_node(node)
+                node = parent
+
+    def restore_fetch(self, sid: str) -> dict | None:
+        """Pop a spilled session's host payload; a spilled session whose
+        payload is gone is forgotten (its next turn is a clean miss)."""
+        if self.sessions is None:
+            return None
+        with self._lock:
+            s = self.sessions.get(sid)
+            if s is None or s.state != "spilled":
+                return None
+            payload = self.sessions.offload.fetch(sid)
+            if payload is None:
+                self.sessions.forget(sid, self.radix)
+            return payload
+
+    def session_forget(self, sid: str) -> None:
+        """Drop a session entirely (its payload is consumed and its blocks
+        cannot be allocated)."""
+        if self.sessions is None:
+            return
+        with self._lock:
+            self.sessions.forget(sid, self.radix)
+
+    def alloc_restore(self, n: int) -> list[int] | None:
+        with self._lock:
+            if self.pool.available() < n and self.radix is not None:
+                self.radix.evict_for(n - self.pool.available())
+            if self.pool.available() < n:
+                return None
+            return self.pool.alloc(n)
+
+    def restore_commit(self, sid: str, tokens, blocks: list[int], tail_block: int, tail_len: int) -> None:
+        """Re-insert a restored session into the radix and pin it again.
+        insert() takes its own references (deduplicating against prefixes
+        that grew meanwhile); the allocation's references drop here, and
+        the tail block is adopted by the end record as it stands."""
+        with self._lock:
+            node, key = self.radix.insert(
+                list(tokens), blocks, tail_block=tail_block if tail_block >= 0 else None, tail_len=tail_len,
+                pin=True,
+            )
+            self.pool.decref(blocks)
+            nbytes = (len(blocks) + (1 if tail_block >= 0 else 0)) * self.block_bytes
+            self.sessions.publish(sid, tokens, node, key, nbytes, self.radix)
+
+    def spill_candidates(self, exclude=None):
+        if self.sessions is None:
+            return []
+        with self._lock:
+            return self.sessions.spill_candidates(exclude)
+
+    def session_touch(self, sid: str) -> str:
+        """Record a turn arriving for ``sid``; returns the session's state
+        ("off" | "new" | "resident" | "spilled")."""
+        if self.sessions is None:
+            return "off"
+        with self._lock:
+            s = self.sessions.get(sid)
+            if s is None:
+                return "new"
+            s.last_use = time.monotonic()
+            if s.state == "resident":
+                self.sessions.resumes += 1
+            return s.state
+
+    # -- observability -----------------------------------------------------
+    def held_blocks(self) -> int:
+        """Blocks the radix and the sessions hold: what ``blocks_in_use``
+        must equal once no slot holds any (no pin leaked)."""
+        with self._lock:
+            if self.radix is None:
+                return 0
+            held, stack = set(), [self.radix.root]  # the root holds sub-block prompts' end records
+            while stack:
+                n = stack.pop()
+                stack.extend(n.children.values())
+                held.update(n.blocks)
+                held.update(e.tail_block for e in n.ends.values() if e.tail_block is not None)
+            return len(held)
+
     def stats(self) -> dict:
         with self._lock:
             return {
@@ -189,6 +476,11 @@ class CacheManager:
                 "block_bytes": self.block_bytes,
                 "pool_blocks": self.pool.n_blocks,
                 "blocks_in_use": self.pool.blocks_in_use(),
+                "blocks_shared": self.pool.blocks_shared(),
                 "reserved": self.pool.reserved,
+                "cow_copies": self.pool.cow_copies,
+                "slot_bytes": self.pool.bytes_in_use(),
                 "capacity": self.capacity,
+                "prefix": self.radix.stats() if self.radix is not None else None,
+                "sessions": self.sessions.stats() if self.sessions is not None else None,
             }

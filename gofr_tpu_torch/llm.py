@@ -45,19 +45,36 @@ configuration:
 - int8 serving, as the JAX engine's two flags: ``quantize=True`` serves
   int8 weights (``models.quant``; W8A8 prefill, weight-only decode) and
   ``kv_int8=True`` an int8 KV pool with float32 row scales, read by the
-  int8 paged-decode kernel. Either works alone.
+  int8 paged-decode kernel. Either works alone;
+- prefix reuse, off by default as in the JAX engine: ``prefix_cache_mb``
+  > 0 (or ``session_mb`` > 0) turns on the radix tree over the paged pool
+  (``kvcache``). Admission (``_admit``) consults it for every request it
+  pulls: an exact hit (a published prompt with stored last-token logits)
+  skips prefill — its first token is sampled from the stored logits
+  (``llm.hit_first.w{nb}``, fused with the JAX ``llm.admit_update``) and
+  ``llm.kv_seed`` copies its sub-block tail into a private block and sets
+  its length; a block-partial hit points its table at the shared full
+  blocks and starts ``prefill_pos`` there; a miss starts at 0. Every
+  unified step then returns its rows' last-token logits too, and each
+  prompt is published right after the step that finishes it;
+- sessions: ``session_mb`` > 0 keeps an ``X-GoFr-Session`` conversation
+  (prompt + emitted tokens) published and pinned between turns, spills
+  the coldest to host memory (``host_cache_mb``) past the device budget,
+  and restores a spilled one before its next turn's radix consult
+  (``_session_prepare``; the restore's host-to-device copy is eager, on
+  the engine stream). A finished turn keeps its blocks until the next
+  scheduler pass has published it (``_kv_session_flush``, ``_kv_sweep``).
 
 The pack/meta layouts of the JAX programs are kept: pack [nb, S+3] int32
 = tokens | cursor | n_new | temperature bits; meta [2, nb] int32 = slot
 (``slots`` for inert padding lanes) | finish flag.
 
-Left out of this slice (queued in ROADMAP.md): every feature that is off
-by default in the JAX engine (speculation, grammar, LoRA, prefix cache,
-sessions, overload control and fair queuing, goodput, flight recorder),
-plus the monolithic wave scheduler. ``GenRequest`` carries the edge's
-identity fields (``priority``, ``client``, ``session_id``) so the edge
-hands them over as the JAX edge does, but this FIFO scheduler does not
-act on them.
+Left out of this slice (queued in ROADMAP.md): every other feature that is
+off by default in the JAX engine (speculation, grammar, LoRA, overload
+control and fair queuing, goodput, flight recorder, KV handoff), plus the
+monolithic wave scheduler. ``GenRequest`` carries the edge's ``priority``
+and ``client`` so the edge hands them over as the JAX edge does, but this
+FIFO scheduler does not act on them.
 """
 
 from __future__ import annotations
@@ -76,7 +93,7 @@ import numpy as np
 import torch
 
 from . import resolve_device
-from .kvcache import CacheManager, gather_slots, scatter_rows
+from .kvcache import CacheManager, copy_blocks, gather_blocks_host, gather_slots, scatter_rows
 from .models.quant import QTensor, is_quantized, quantize_params
 from .models.transformer import decode_chunk_paged, prefill_append
 from .ops.attention import add_launches, capture_launches
@@ -151,10 +168,9 @@ class GenRequest:
     eos_token: int = _EOS_DEFAULT
     # Identity from the serving edge (``handler.llm_request_kwargs``): the
     # X-GoFr-Priority class, the fair-queuing client id and the
-    # X-GoFr-Session conversation id. Kept so the edge hands them over as
-    # it does to the JAX engine; this port's FIFO scheduler does not act
-    # on them yet (no priority classes, fair queuing or session tier), so
-    # they change nothing in what is served.
+    # X-GoFr-Session conversation id. The FIFO scheduler does not act on
+    # the first two (no priority classes or fair queuing); the session id
+    # selects the session tier when the engine has one (``session_mb``).
     priority: str = "interactive"
     client: str = ""
     session_id: str = ""
@@ -186,6 +202,11 @@ class GenRequest:
         self.prefill_done = False  # all prompt tokens resident; decoding
         self.slot: int | None = None  # slot index while resident
         self._kv_limit = 0  # worst-case rows (CacheManager.reserve_tokens)
+        self.history: list[int] = []  # emitted tokens (a session turn's publish)
+        self.prefix_hit = False  # admitted through a radix hit (exact or partial)
+        self._kv_resv = 0  # admission block promise not yet bound to a slot
+        self._kv_plan = None  # pinned seed plan not yet attached to a slot
+        self._session_published = False  # end-of-turn radix publish done
 
     def _raise_terminal(self) -> None:
         if self.finish_reason == "error":
@@ -252,17 +273,21 @@ class _Inputs:
     address, which every captured graph reads: tables [slots, MB] | live
     [slots] | meta [2, admit_cap] | pack [admit_cap, S_max + 3] (a step
     of nb rows and shape S uses the first 2 nb and nb (S + 3) elements of
-    the last two). ``write`` fills it from a ring of ``depth`` pinned host
-    buffers with one async copy; each buffer is rewritten only after the
-    event recorded behind its last copy, so a later dispatch never
-    overwrites pinned memory a queued copy has not read yet."""
+    the last two) | seed [7, admit_cap] (srcs | dsts | slot_idx | lens of
+    ``llm.kv_seed``, then the hit programs' meta: slot | row | temperature
+    bits). ``write`` and ``write_seed`` fill it from a ring of ``depth``
+    pinned host buffers with one async copy of their own region; each
+    buffer is rewritten only after the event recorded behind its last
+    copy, so a later dispatch never overwrites pinned memory a queued copy
+    has not read yet."""
 
     def __init__(self, device, slots: int, table_width: int, admit_cap: int, max_shape: int, depth: int):
-        self.slots, self.table_width = slots, table_width
+        self.slots, self.table_width, self.admit_cap = slots, table_width, admit_cap
         self.o_live = slots * table_width
         self.o_meta = self.o_live + slots
         self.o_pack = self.o_meta + 2 * admit_cap
-        size = self.o_pack + admit_cap * (max_shape + 3)
+        self.o_seed = self.o_pack + admit_cap * (max_shape + 3)
+        size = self.o_seed + 7 * admit_cap
         self.dev = torch.zeros(size, dtype=torch.int32, device=device)
         cuda = device.type == "cuda"
         self.host = [torch.zeros(size, dtype=torch.int32, pin_memory=cuda) for _ in range(depth if cuda else 1)]
@@ -281,14 +306,33 @@ class _Inputs:
     def pack(self, shape: int, nb: int) -> torch.Tensor:
         return self.dev[self.o_pack : self.o_pack + nb * (shape + 3)].view(nb, shape + 3)
 
-    def write(self, tables: np.ndarray, live: np.ndarray, meta=None, pack=None) -> None:
-        """Stage one dispatch's inputs (meta and pack for a unified step)
-        and enqueue their copy on the current stream."""
+    def seed(self) -> torch.Tensor:
+        """[7, admit_cap]: srcs | dsts | slot_idx | lens | hit meta [3]."""
+        return self.dev[self.o_seed :].view(7, self.admit_cap)
+
+    def _buffer(self) -> tuple[int, np.ndarray]:
         j = self._next
         self._next = (j + 1) % len(self.host)
         if self.events[j] is not None:
             self.events[j].synchronize()  # the copy that last read this buffer has run
-        h = self.host[j].numpy()
+        return j, self.host[j].numpy()
+
+    def _copy(self, j: int, lo: int, hi: int) -> None:
+        self.dev[lo:hi].copy_(self.host[j][lo:hi], non_blocking=True)
+        if self.events[j] is not None:
+            self.events[j].record()
+
+    def write_seed(self, seed: np.ndarray) -> None:
+        """Stage the [7, admit_cap] inputs of ``llm.kv_seed`` and the hit
+        programs and enqueue their copy on the current stream."""
+        j, h = self._buffer()
+        h[self.o_seed :] = seed.reshape(-1)
+        self._copy(j, self.o_seed, h.size)
+
+    def write(self, tables: np.ndarray, live: np.ndarray, meta=None, pack=None) -> None:
+        """Stage one dispatch's inputs (meta and pack for a unified step)
+        and enqueue their copy on the current stream."""
+        j, h = self._buffer()
         h[: self.o_live] = tables.reshape(-1)
         h[self.o_live : self.o_meta] = live
         end = self.o_meta
@@ -296,9 +340,7 @@ class _Inputs:
             h[self.o_meta : self.o_meta + meta.size] = meta.reshape(-1)
             end = self.o_pack + pack.size
             h[self.o_pack : end] = pack.reshape(-1)
-        self.dev[:end].copy_(self.host[j][:end], non_blocking=True)
-        if self.events[j] is not None:
-            self.events[j].record()
+        self._copy(j, 0, end)
 
 
 class _Fetch:
@@ -332,7 +374,7 @@ class _Family:
     and the kernel launches one replay makes (``ops.attention``)."""
 
     graph: object  # torch.cuda.CUDAGraph
-    out: torch.Tensor
+    out: object  # a tensor, or (tokens, logits) for a step when sharing is on
     launches: dict
 
 
@@ -348,7 +390,10 @@ class LLMEngine:
     they already are; ``kv_int8=True`` stores the KV pool as int8 rows
     with float32 scales. ``lookahead`` bounds the programs in flight;
     ``warmup=True`` captures every program family as a CUDA graph in the
-    constructor (on a CUDA device; a capture that fails raises)."""
+    constructor (on a CUDA device; a capture that fails raises).
+    ``prefix_cache_mb`` > 0 retains published prompts in the radix tree
+    under that byte budget; ``session_mb`` > 0 adds the session tier with
+    that device budget, spilling to ``host_cache_mb`` of host memory."""
 
     def __init__(
         self,
@@ -364,6 +409,9 @@ class LLMEngine:
         kv_int8: bool = False,
         lookahead: int = 3,
         warmup: bool = True,
+        prefix_cache_mb: float = 0.0,
+        session_mb: float = 0.0,
+        host_cache_mb: float = 256.0,
     ):
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -386,7 +434,8 @@ class LLMEngine:
         self.chunk_shapes = tuple(sorted(shapes)) or (min(PREFILL_CHUNK, max_seq_len),)
         self.kv = CacheManager(
             cfg, slots, max_seq_len, DECODE_CHUNK, append_widths=self.chunk_shapes, block=KV_BLOCK,
-            kv_int8=kv_int8,
+            kv_int8=kv_int8, prefix_cache_mb=prefix_cache_mb, session_mb=session_mb,
+            host_cache_mb=host_cache_mb,
         )
         dev = self.device
         # device-resident state, written IN PLACE by the programs: the
@@ -403,16 +452,27 @@ class LLMEngine:
         self._in = _Inputs(
             dev, slots, self.kv.table_width, self.admit_cap, self.chunk_shapes[-1], self.lookahead + 1
         )
+        # exact hits' stored logits, staged by a device copy before the hit
+        # program's replay reads them (sharing only)
+        self._hit_logits = (
+            torch.zeros((self.admit_cap, cfg.vocab_size), dtype=torch.float32, device=dev)
+            if self.kv.share else None
+        )
         # program families, by the JAX compile family's name (+ the wave
-        # width of a step): name -> (eager program, step (shape, nb) or None)
+        # width of a step or a hit): name -> (eager program, kind, arg)
+        # with kind "step" (arg (shape, nb)), "chunk" (k), "seed" or "hit" (nb)
         self._programs: dict[str, tuple] = {}
         for shape in self.chunk_shapes:
             for nb in self._wave_widths():
                 self._programs[self._step_name(shape, nb)] = (
-                    functools.partial(self._step_program, shape, nb), (shape, nb)
+                    functools.partial(self._step_program, shape, nb), "step", (shape, nb)
                 )
         for k in sorted({self.decode_chunk, self._chunk_short}, reverse=True):
-            self._programs[f"llm.decode_chunk{k}"] = (functools.partial(self._chunk_program, k), None)
+            self._programs[f"llm.decode_chunk{k}"] = (functools.partial(self._chunk_program, k), "chunk", k)
+        if self.kv.share:
+            self._programs["llm.kv_seed"] = (self._seed_program, "seed", None)
+            for nb in self._wave_widths():
+                self._programs[f"llm.hit_first.w{nb}"] = (functools.partial(self._hit_program, nb), "hit", nb)
         self.families: dict[str, _Family] = {}  # captured (CUDA only)
         self.warmup_s: float | None = None
         # torch.cuda.memory_reserved() before and after the warmup capture
@@ -427,7 +487,8 @@ class LLMEngine:
         self._work_cv = threading.Condition(self._lock)  # _inflight appended
         self._kick = threading.Event()  # scheduler wake: submit / entry emitted
         # dispatched programs, oldest first: ("step", fetch, finishes, nb,
-        # snapshot, K) or ("chunk", fetch, snapshot, k)
+        # snapshot, K), ("chunk", fetch, snapshot, k), or ("prefill", fetch,
+        # [(slot, req), ...], nb) for a group of exact hits (first tokens only)
         self._inflight: deque[tuple] = deque()
         self._processing: tuple | None = None  # entry popped, not yet emitted
         self._jumped = False  # prefill-priority ration (one per chunk)
@@ -437,6 +498,11 @@ class LLMEngine:
         self.finished = 0
         self.steps = 0  # unified steps dispatched
         self.step_tokens = 0  # tokens packed into unified steps
+        self.prefill_tokens = 0  # prompt tokens packed into unified steps
+        # session turns finished (eos/length) awaiting their publish, and
+        # restores whose host-to-device copies may still be in flight
+        self._session_pub: deque[tuple[int, GenRequest]] = deque()
+        self._restoring: list[tuple] = []
         self.chunks = 0  # decode chunks (fused or pure) dispatched
         self.deadline_cancels = 0  # requests retired past their deadline
         self.disconnect_cancels = 0  # requests retired for a vanished consumer
@@ -505,6 +571,7 @@ class LLMEngine:
                 "finished": self.finished,
                 "steps": self.steps,
                 "step_tokens": self.step_tokens,
+                "prefill_tokens": self.prefill_tokens,
                 "chunks": self.chunks,
                 "inflight_chunks": sum(1 for e in self._inflight if e[0] == "chunk"),
                 "deadline_cancels": self.deadline_cancels,
@@ -543,9 +610,19 @@ class LLMEngine:
                 while not self._stop:
                     self._drain_submits()
                     self._expire_deadlines(time.perf_counter())
+                    if self.kv.share:
+                        # paged-pool housekeeping, in dependency order:
+                        # publish finished session turns (needs their
+                        # blocks), return retired slots' blocks, spill cold
+                        # sessions past their device budget
+                        self._kv_session_flush()
+                        self._kv_sweep()
+                        self._kv_session_spill()
                     admitted = self._admit()
                     with self._lock:
-                        depth = len(self._inflight) + (self._processing is not None)
+                        # decode programs in flight (hit groups carry none)
+                        entries = list(self._inflight) + [e for e in (self._processing,) if e is not None]
+                        depth = sum(1 for e in entries if e[0] != "prefill")
                         needed = self._needed_steps()
                         prefilling = bool(self._prefilling)
                     stepped = False
@@ -595,16 +672,17 @@ class LLMEngine:
                     self._finish(r, reason)
 
     def _finish(self, r: GenRequest, reason: str) -> None:
-        """Terminal bookkeeping: end the stream, and return the slot and
-        its blocks when ``r`` still owns them. That is safe with ``r``'s
+        """Terminal bookkeeping: return the slot and its blocks when ``r``
+        still owns them, then end the stream. That is safe with ``r``'s
         programs still in flight: they run before any program dispatched
         later (one stream), so a new owner's writes to a reused block land
         after theirs, and a new owner reads only rows it wrote. The tables
         they read are rewritten only by a later dispatch's copy, which
-        runs after them."""
+        runs after them. With sharing on, a session turn that ended by eos
+        or length keeps its blocks until the scheduler has published it
+        (``_kv_session_flush``; ``_kv_sweep`` frees them after)."""
         with self._lock:
             r.finish_reason = reason
-            r.out.put(None)
             self.finished += 1
             self.deadline_cancels += reason == "deadline"
             self.disconnect_cancels += reason == "disconnect"
@@ -612,8 +690,12 @@ class LLMEngine:
             if slot is not None and self._slot_req[slot] is r:
                 self._slot_req[slot] = None
             if slot is not None and self.kv.slot_owner(slot) is r:
-                self.kv.release_slot(slot, r)
-                self._kv_hi[slot] = 0
+                if self.kv.share and r.session_id and reason in ("eos", "length"):
+                    self._session_pub.append((slot, r))
+                else:
+                    self.kv.release_slot(slot, r)
+                    self._kv_hi[slot] = 0
+            r.out.put(None)
 
     def _drain_submits(self) -> None:
         while True:
@@ -661,6 +743,12 @@ class LLMEngine:
         if self._processing is not None:
             entries.append(self._processing)
         for e in entries:
+            if e[0] == "prefill":
+                # a hit group carries each request's first token
+                for slot, r in e[2]:
+                    if r is self._slot_req[slot]:
+                        steps[slot] = steps.get(slot, 0) + 1
+                continue
             if e[0] == "step":
                 # each finishing row carries its first token, and the
                 # fused decode part k tokens per snapshot slot
@@ -687,36 +775,269 @@ class LLMEngine:
         ]
 
     def _admit(self) -> bool:
-        """Give waiting requests free (or virtually free) slots, FIFO. A
-        request the pool cannot reserve blocks for stays at the head of
-        the queue. Returns whether any request was admitted."""
-        with self._lock:
+        """Give waiting requests free (or virtually free) slots (JAX
+        ``_admit_chunked``): pull as many as there are such slots, FIFO;
+        for each, touch its session (restoring a spilled one), consult the
+        radix and reserve its blocks net of the shared prefix. A request
+        the pool cannot host goes back to the head of the queue, in order,
+        while the others go ahead. Exact hits are dispatched at once
+        (``_admit_exact_hits``); partial hits start their prefill cursor at
+        the shared prefix; misses at 0. Every path releases the plans'
+        pins. Returns whether any request was admitted."""
+        with self._work_cv:
             free = self._free_slots()
-            admitted = False
-            while self._waiting and free:
-                r = self._waiting[0]
-                plen = len(r.prompt_tokens)
-                if not self.kv.admit_reserve(plen, r.max_new_tokens):
-                    break
-                self._waiting.popleft()
-                slot = free.pop(0)
-                old = self._slot_req[slot]
-                if old is not None and old.cancelled and old.finish_reason is None:
-                    # cancelled after this pass's sweep: it may have no
-                    # program in flight left to end its stream (JAX
-                    # ``_assign_slot``)
-                    self._finish(old, old.cancel_reason)
-                self._slot_req[slot] = r
-                r.slot = slot
-                r.prefill_pos = 0
-                r.prefill_done = False
-                # releases a virtually free predecessor's blocks (see _finish)
-                self.kv.attach(slot, r, plen, r.max_new_tokens)
-                r._kv_limit = self.kv.reserve_tokens(plen, r.max_new_tokens)
-                self._kv_hi[slot] = 0
-                self._prefilling.append(r)
-                admitted = True
-            return admitted
+            if not self._waiting or not free:
+                return False
+            pulled = [self._waiting.popleft() for _ in range(min(len(free), len(self._waiting)))]
+            hits: list[GenRequest] = []
+            partials: list[GenRequest] = []
+            rest: list[GenRequest] = []
+            try:
+                blocked: list[GenRequest] = []
+                for r in pulled:
+                    if r.session_id:
+                        self._session_prepare(r.session_id)
+                    plan = self.kv.lookup_seed(r.prompt_tokens) if self.kv.share else None
+                    r._kv_plan = plan
+                    plen = len(r.prompt_tokens)
+                    if not self.kv.admit_reserve(plen, r.max_new_tokens, plan):
+                        self._kv_release_plan(r)
+                        blocked.append(r)
+                        continue
+                    r._kv_resv = self.kv.reserve_need(plen, r.max_new_tokens, plan)
+                    (rest if plan is None else hits if plan.exact else partials).append(r)
+                self._waiting.extendleft(reversed(blocked))
+                try:
+                    self._admit_exact_hits(hits, free)
+                    for r in partials:
+                        # pure table bookkeeping: the slot's table points at
+                        # the shared blocks in place, and the first chunk's
+                        # pack carries the cursor
+                        plan = r._kv_plan
+                        self._assign_slot(r, free.pop(0))
+                        self._kv_attach(r, r.slot, plan)
+                        r.prefix_hit = True
+                        r.prefill_pos = plan.shared
+                        self._prefilling.append(r)
+                finally:
+                    for r in hits + partials:
+                        self._kv_release_plan(r)
+                for r in rest:
+                    self._assign_slot(r, free.pop(0))
+                    self._kv_attach(r, r.slot, None)
+                    self._prefilling.append(r)
+            except BaseException:
+                self._requeue_stranded(pulled)
+                raise
+            return bool(hits or partials or rest)
+
+    def _assign_slot(self, r: GenRequest, slot: int) -> None:
+        """Make ``r`` the slot's occupant. Lock held."""
+        old = self._slot_req[slot]
+        if old is not None and old.cancelled and old.finish_reason is None:
+            # cancelled after this pass's sweep: it may have no program in
+            # flight left to end its stream (JAX ``_assign_slot``)
+            self._finish(old, old.cancel_reason)
+        self._slot_req[slot] = r
+        r.slot = slot
+        r.prefill_pos = 0
+        r.prefill_done = False
+
+    def _kv_attach(self, r: GenRequest, slot: int, plan) -> dict:
+        """Bind the slot's block table to ``r`` and its seed plan (adopting
+        the plan's pins); releases a virtually free predecessor's blocks
+        (see ``_finish``)."""
+        plen = len(r.prompt_tokens)
+        if plan is None:
+            self.kv.attach(slot, r, plen, r.max_new_tokens)
+            info = {"copies": [], "seed_len": 0}
+        else:
+            info = self.kv.attach_seed(slot, plan, r, plen, r.max_new_tokens)
+        r._kv_limit = self.kv.reserve_tokens(plen, r.max_new_tokens)
+        r._kv_resv = 0  # the admission promise is on the slot's books now
+        r._kv_plan = None
+        self._kv_hi[slot] = info["seed_len"]
+        return info
+
+    def _kv_release_plan(self, r: GenRequest) -> None:
+        """Drop an unconsumed seed plan's pins; idempotent (attach clears
+        the plan)."""
+        plan, r._kv_plan = r._kv_plan, None
+        self.kv.release_plan(plan)
+
+    def _requeue_stranded(self, pulled: list[GenRequest]) -> None:
+        """An admission error strands pulled requests that hold no slot:
+        put them back at the head of the queue (where ``_end_all`` finds
+        them) and hand back their block promises and plan pins. Lock held."""
+        stranded = [
+            r for r in pulled
+            if r.finish_reason is None and (r.slot is None or self._slot_req[r.slot] is not r)
+            and r not in self._waiting
+        ]
+        self._waiting.extendleft(reversed(stranded))
+        for r in stranded:
+            self.kv.unreserve(r._kv_resv)
+            r._kv_resv = 0
+            self._kv_release_plan(r)
+
+    def _admit_exact_hits(self, hits: list[GenRequest], free: list[int]) -> None:
+        """Exact hits (JAX ``_admit_exact_hits_paged``), admit_cap at a
+        time: no prefill runs. Each slot's table points at the shared
+        blocks; ``llm.kv_seed`` copies the stored sub-block tail into the
+        slot's first private block and sets its length; the hit program
+        samples each first token from the stored last-token logits (staged
+        by a device copy) at the request's temperature and activates the
+        slot with it. The group becomes one "prefill" entry that carries
+        only first tokens. Lock held."""
+        M = self.admit_cap
+        for i in range(0, len(hits), M):
+            group = hits[i : i + M]
+            nb = self._wave_width(len(group))
+            seed = self._inert_seed()
+            taken: list[tuple[int, GenRequest]] = []
+            for j, r in enumerate(group):
+                plan = r._kv_plan
+                self._assign_slot(r, free.pop(0))
+                slot = r.slot
+                info = self._kv_attach(r, slot, plan)
+                taken.append((slot, r))
+                r.prefix_hit = True
+                r.prefill_pos = len(r.prompt_tokens)
+                r.prefill_done = True
+                for src, dst in info["copies"]:
+                    seed[0, j], seed[1, j] = src, dst
+                seed[2, j], seed[3, j] = slot, info["seed_len"]
+                seed[4, j], seed[5, j] = slot, j
+                seed[6, j] = np.float32(r.temperature).view(np.int32)
+                self._hit_logits[j].copy_(plan.logits[0])
+            name = f"llm.hit_first.w{nb}"
+            self._ensure_family("llm.kv_seed")
+            self._ensure_family(name)
+            self._in.write_seed(seed)
+            self._launch("llm.kv_seed")
+            fetch = _Fetch(self._launch(name))
+            self._inflight.append(("prefill", fetch, taken, nb))
+            self._work_cv.notify()
+
+    def _inert_seed(self) -> np.ndarray:
+        """[7, admit_cap] seed inputs whose every lane writes nothing:
+        destination blocks and slots out of range."""
+        seed = np.zeros((7, self.admit_cap), np.int32)
+        seed[0:2] = self.kv.pool.n_blocks
+        seed[2] = seed[4] = self.slots
+        return seed
+
+    # -- paged-pool housekeeping (scheduler thread) -------------------------
+    def _kv_publish(self, slot: int, r: GenRequest, logits=None, *, session: bool = False) -> None:
+        """Publish a slot's resident rows into the radix: full blocks
+        shared in place, the sub-block tail copied into a radix-owned block
+        (``llm.kv_seed``), ``logits`` ([1, vocab], a clone the caller made)
+        kept for exact hits. ``session=True`` publishes the conversation
+        (prompt + emitted tokens but the last, whose row is not written)
+        and pins it to the session id. Lock held."""
+        tokens = r.prompt_tokens + (r.history[:-1] if session else [])
+        plan = self.kv.publish_plan(slot, tokens, want_tail=True)
+        if plan is None:
+            return
+        if plan["tail_dst"] >= 0:
+            seed = self._inert_seed()
+            seed[0, 0], seed[1, 0] = plan["tail_src"], plan["tail_dst"]
+            self._ensure_family("llm.kv_seed")
+            self._in.write_seed(seed)
+            self._launch("llm.kv_seed")
+        self.kv.publish_commit(
+            plan, tokens, logits=logits,
+            logits_nbytes=0 if logits is None else logits.numel() * logits.element_size(),
+            session_id=r.session_id if session else None,
+        )
+
+    def _kv_session_flush(self) -> None:
+        """Publish the session turns the collector deferred. Slot ownership
+        is re-checked: a slot reassigned meanwhile skips the publish (the
+        session goes cold, never corrupt)."""
+        with self._work_cv:
+            while self._session_pub:
+                slot, r = self._session_pub.popleft()
+                if self.kv.slot_owner(slot) is r and not r._session_published:
+                    self._kv_publish(slot, r, session=True)
+                r._session_published = True
+
+    def _kv_sweep(self) -> None:
+        """Return retired occupants' blocks to the pool; a finished session
+        turn still awaiting its publish keeps them one more pass."""
+        with self._work_cv:
+            for i in range(self.slots):
+                r = self.kv.slot_owner(i)
+                if not isinstance(r, GenRequest) or r.finish_reason is None:
+                    continue
+                if r.session_id and not r._session_published and r.finish_reason in ("eos", "length"):
+                    continue
+                cur = self._slot_req[i]
+                if cur is None or cur is r:
+                    self.kv.release_slot(i, r)
+                    self._kv_hi[i] = 0
+            if self._restoring:  # drop host payloads whose copies have run
+                self._restoring = [x for x in self._restoring if not x[0].query()]
+
+    def _kv_session_spill(self) -> None:
+        """Spill the coldest sessions past the device budget to host memory
+        (``_kv_spill`` each)."""
+        for s in self.kv.spill_candidates():
+            self._kv_spill(s.id)
+
+    def _kv_spill(self, sid: str) -> None:
+        """Fetch one resident session's blocks to host memory (on the
+        engine stream, complete before the payload is stored) and release
+        its device blocks."""
+        with self._work_cv:
+            path = self.kv.session_path(sid)
+            if path is None:
+                return
+            blocks = path["blocks"] + ([path["tail"]] if path["tail"] >= 0 else [])
+            if not blocks:
+                return
+            k, v, sc = gather_blocks_host(self.pool.k, self.pool.v, blocks, scales=self.pool_scales)
+            payload = {"tokens": path["tokens"], "k": k, "v": v, "sc": sc,
+                       "n_full": len(path["blocks"]), "tail_len": path["tail_len"]}
+            nbytes = sum(t.numel() * t.element_size() for t in (k, v, sc) if t is not None)
+            self.kv.spill_commit(sid, payload, nbytes)
+
+    def _session_prepare(self, sid: str) -> None:
+        """A turn's session touch before its radix consult: a spilled
+        conversation is restored into fresh pool blocks and re-inserted in
+        the radix, so the turn block-shares its whole history. A pool too
+        tight to restore forgets the session (full re-prefill, never an
+        error). Lock held."""
+        if self.kv.session_touch(sid) != "spilled":
+            return
+        payload = self.kv.restore_fetch(sid)
+        if payload is None:
+            return
+        n = int(payload["k"].shape[1])
+        ids = self.kv.alloc_restore(n)
+        if ids is None:
+            self.kv.session_forget(sid)
+            return
+        self._kv_restore_blocks(payload["k"], payload["v"], payload["sc"], ids)
+        n_full = int(payload["n_full"])
+        self.kv.restore_commit(
+            sid, payload["tokens"], ids[:n_full], ids[n_full] if n > n_full else -1, int(payload["tail_len"])
+        )
+
+    def _kv_restore_blocks(self, k, v, sc, ids: list[int]) -> None:
+        """Copy host block payloads into pool blocks ``ids``, eagerly on the
+        engine stream (rare: a cold session's next turn). The pinned
+        sources stay referenced until the copies' event has passed."""
+        dev = self.device
+        idx = torch.tensor(ids, dtype=torch.long).to(dev, non_blocking=True)
+        self.pool.k.index_copy_(1, idx, k.to(dev, non_blocking=True))
+        self.pool.v.index_copy_(1, idx, v.to(dev, non_blocking=True))
+        if sc is not None:
+            self.pool_scales.index_copy_(2, idx, sc.to(dev, non_blocking=True))
+        if dev.type == "cuda":
+            done = torch.cuda.Event()
+            done.record()
+            self._restoring.append((done, k, v, sc))
 
     def _needed_steps(self) -> int:
         """Decode steps the decoding occupants still need beyond those in
@@ -839,13 +1160,22 @@ class LLMEngine:
             name = self._step_name(shape, nb)
             self._ensure_family(name)
             self._in.write(self._host_tables(), live, meta, pack)
-            fetch = _Fetch(self._launch(name))
+            out = self._launch(name)
+            toks, logits = out if self.kv.share else (out, None)
+            fetch = _Fetch(toks)
             # after the rows loop: rows finishing this step decode in it
             snapshot = [r if (r is not None and r.prefill_done) else None for r in self._slot_req]
             self._inflight.append(("step", fetch, finishes, nb, snapshot, K))
             self.steps += 1
             self.step_tokens += prefill_tokens + K * sum(r is not None for r in snapshot)
+            self.prefill_tokens += prefill_tokens
             self.chunks += 1
+            if logits is not None:
+                # publish each finished prompt; its logits row is cloned on
+                # the engine stream before the next replay overwrites the
+                # graph's output
+                for j, slot, r in finishes:
+                    self._kv_publish(slot, r, logits[j : j + 1].clone())
             self._work_cv.notify()
             return True
 
@@ -894,6 +1224,7 @@ class LLMEngine:
                 r.first_token_at = now
             r.out.put(toks)
             r.emitted += len(toks)
+            r.history.extend(toks)
         if finish is None and r.emitted >= r.max_new_tokens:
             finish = "length"
         if finish is not None:
@@ -923,7 +1254,8 @@ class LLMEngine:
                         self._jumped = True
                     else:
                         entry = self._inflight.popleft()
-                        self._jumped = False  # every entry carries a decode part
+                        if entry[0] != "prefill":  # it carries a decode part
+                            self._jumped = False
                     self._processing = entry
                 self._process_entry(entry)
                 self._kick.set()
@@ -933,10 +1265,13 @@ class LLMEngine:
 
     @staticmethod
     def _jump_safe(entry: tuple) -> bool:
-        """May the collector serve this entry ahead of older ones? Only a
-        step with finishing rows whose decode part serves no one else: an
-        active request's earlier tokens may sit in the entries it would
-        pass, and a finishing row is in no older entry."""
+        """May the collector serve this entry ahead of older ones? A hit
+        group always (it carries only fresh requests' first tokens); a
+        step only with finishing rows whose decode part serves no one
+        else: an active request's earlier tokens may sit in the entries it
+        would pass, and a finishing row is in no older entry."""
+        if entry[0] == "prefill":
+            return True
         if entry[0] != "step" or not entry[2]:
             return False
         fin = {r for _j, _s, r in entry[2]}
@@ -944,6 +1279,8 @@ class LLMEngine:
 
     @staticmethod
     def _entry_requests(entry: tuple) -> list[GenRequest]:
+        if entry[0] == "prefill":
+            return [r for _s, r in entry[2]]
         snapshot = entry[4] if entry[0] == "step" else entry[2]
         out = [r for r in snapshot if r is not None]
         if entry[0] == "step":
@@ -957,6 +1294,11 @@ class LLMEngine:
         toks = entry[1].wait()
         now = time.perf_counter()
         with self._lock:
+            if entry[0] == "prefill":
+                for j, (slot, r) in enumerate(entry[2]):
+                    self._emit_to(r, slot, [int(toks[j])], now)
+                self._processing = None
+                return
             if entry[0] == "step":
                 _, _fetch, finishes, nb, snapshot, k = entry
                 for j, slot, r in finishes:
@@ -1006,16 +1348,18 @@ class LLMEngine:
         empty pack — so the warm-up runs PyTorch needs before a capture
         write nothing but the tail, which is restored. A capture failure
         raises: nothing falls back to eager ops."""
-        fn, step = self._programs[name]
+        fn, kind, arg = self._programs[name]
         with torch.no_grad(), torch.cuda.stream(self._stream):
             live = np.zeros((self.slots,), bool)
-            if step is None:
+            if kind == "chunk":
                 self._in.write(self._tables_np, live)
-            else:
-                shape, nb = step
+            elif kind == "step":
+                shape, nb = arg
                 meta = np.zeros((2, nb), np.int32)
                 meta[0, :] = self.slots
                 self._in.write(self._tables_np, live, meta, np.zeros((nb, shape + 3), np.int32))
+            else:
+                self._in.write_seed(self._inert_seed())
             tail = self._tail.clone()
             for _ in range(_WARM_RUNS):
                 fn()
@@ -1028,13 +1372,15 @@ class LLMEngine:
                 out = fn()
         self.families[name] = _Family(graph, out, dict(tally))
 
-    def _step_program(self, shape: int, nb: int) -> torch.Tensor:
+    def _step_program(self, shape: int, nb: int):
         """The unified step (JAX ``llm.step_p{shape}_d{K}``) of ``nb`` rows
         on the staged inputs. Updates the pool (and its int8 scales),
         lengths, tail, active and temps IN PLACE; returns first tokens [nb]
-        then decode tokens [K, slots], flat. An int8 pool's packed slot
-        views are dequantized in the model dtype; the chunk rows are
-        quantized again at the scatter back."""
+        then decode tokens [K, slots], flat — and, when sharing is on, the
+        rows' last-token logits [nb, vocab] beside them (the JAX
+        ``keep_logits``). An int8 pool's packed slot views are dequantized
+        in the model dtype; the chunk rows are quantized again at the
+        scatter back."""
         dev, cfg, slots, sc = self.device, self.cfg, self.slots, self.pool_scales
         cap = self.kv.capacity
         pack_t, meta_t = self._in.pack(shape, nb), self._in.meta(nb)
@@ -1071,7 +1417,8 @@ class LLMEngine:
             block=self.kv.block, scales=sc,
         )
         self._tail.copy_(last)  # the next program reads it at the same address
-        return torch.cat([first, toks.reshape(-1)])
+        out = torch.cat([first, toks.reshape(-1)])
+        return (out, logits) if self.kv.share else out
 
     def _chunk_program(self, k: int) -> torch.Tensor:
         """The pure decode chunk (JAX ``llm.decode_chunk{K}``) on the
@@ -1084,3 +1431,30 @@ class LLMEngine:
         )
         self._tail.copy_(last)
         return toks.reshape(-1)
+
+    def _seed_program(self) -> torch.Tensor:
+        """``llm.kv_seed`` on the staged seed inputs: block-copy srcs ->
+        dsts (an exact hit's or a publish's sub-block tail, with an int8
+        pool's scales; lanes with dst out of range write nothing) and set
+        the lengths of slots slot_idx to lens (out-of-range slots
+        untouched). Returns the lengths."""
+        seed = self._in.seed()
+        copy_blocks(self.pool.k, self.pool.v, seed[0], seed[1], scales=self.pool_scales)
+        _scatter_slots(self.pool.length, seed[2], seed[3])
+        return self.pool.length.clone()
+
+    def _hit_program(self, nb: int) -> torch.Tensor:
+        """``llm.hit_first`` fused with ``llm.admit_update`` for ``nb`` exact
+        hits: sample each first token from the staged stored logits at the
+        request's temperature (greedy reproduces the uncached stream), then
+        write it as the slot's chain tail and activate the slot with its
+        temperature. Hit meta rows: slot (out of range: padding) | row |
+        temperature bits. Returns the first tokens [nb]."""
+        meta = self._in.seed()[4:]
+        slot_idx, rows = meta[0, :nb], meta[1, :nb]
+        req_temps = meta[2, :nb].contiguous().view(torch.float32)
+        first = self._sample(self._hit_logits[:nb], req_temps, self._gen)
+        _scatter_slots(self._tail, slot_idx, first[rows.long().clamp(0, nb - 1)])
+        _scatter_slots(self._active, slot_idx, True)
+        _scatter_slots(self._temps, slot_idx, req_temps)
+        return first

@@ -14,7 +14,9 @@ well-known health and liveness routes.
 Config (process environment, or ``configs/.env``): ``GEMMA_PRESET``
 ``tiny`` (default) or ``2b``; ``GEMMA_INT8=1`` serves int8 weights;
 ``LLM_SLOTS`` (4), ``LLM_MAX_SEQ`` (256); ``TORCH_DEVICE=cpu`` runs on the CPU (default: the GPU,
-raising without one); ``HTTP_PORT`` (8000), ``REQUEST_TIMEOUT`` (5 s).
+raising without one); ``HTTP_PORT`` (8000), ``REQUEST_TIMEOUT`` (5 s);
+``TPU_LLM_PREFIX_CACHE_MB``, ``TPU_LLM_SESSION_MB`` and ``TPU_LLM_HOST_CACHE_MB``
+turn on the prefix cache and the ``X-GoFr-Session`` tier (``GPURuntime``).
 Weights are random, made from a ``torch.Generator`` seeded with 0: loading a
 checkpoint (``GEMMA_CKPT``) is not ported and raises.
 """

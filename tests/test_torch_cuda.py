@@ -323,3 +323,61 @@ class TestGraphsOnCard:
         finally:
             warm.close()
             lazy.close()
+
+
+@pytest.mark.cuda
+class TestPrefixOnCard:
+    """The prefix cache's device work on the card: block copies with an
+    int8 pool's scales, the sharing engine's families (kv_seed and the hit
+    programs included) as CUDA graphs, and its exact and partial hits."""
+
+    def test_copy_blocks_int8_scales_match_the_cpu(self, cuda):
+        from gofr_tpu_torch.kvcache import copy_blocks, gather_blocks_host
+
+        g = torch.Generator().manual_seed(4)
+        L, NB, B, h, d = 3, 12, 16, 2, 64
+        k = torch.randint(-127, 128, (L, NB, B, h, d), generator=g, dtype=torch.int8)
+        v = torch.randint(-127, 128, (L, NB, B, h, d), generator=g, dtype=torch.int8)
+        sc = torch.rand((2, L, NB, B, h), generator=g)
+        srcs = torch.tensor([2, 9, 4, 0, 7], dtype=torch.int32)
+        dsts = torch.tensor([5, NB, 11, 3, NB + 2], dtype=torch.int32)  # two pad lanes
+        dk, dv, dsc = k.to(cuda), v.to(cuda), sc.to(cuda)
+        copy_blocks(dk, dv, srcs.to(cuda), dsts.to(cuda), scales=dsc)
+        copy_blocks(k, v, srcs, dsts, scales=sc)
+        torch.cuda.synchronize()
+        assert torch.equal(dk.cpu(), k) and torch.equal(dv.cpu(), v) and torch.equal(dsc.cpu(), sc)
+        assert torch.equal(sc[:, :, 11], sc[:, :, 4]) and torch.equal(k[:, 5], k[:, 2])
+        hk, hv, hs = gather_blocks_host(dk, dv, [11, 5, 0], scales=dsc)
+        assert hk.is_pinned() and torch.equal(hk, k[:, [11, 5, 0]]) and torch.equal(hs, sc[:, :, [11, 5, 0]])
+        assert torch.equal(hv, v[:, [11, 5, 0]])
+
+    @pytest.mark.parametrize("mode", ["f32", "int8"])
+    def test_sharing_families_replay_equal_eager(self, cuda, mode):
+        from chip_smoke import check_family
+
+        eng = _tiny_engine(cuda, mode, prefix_cache_mb=1.0, session_mb=1.0)
+        try:
+            assert sorted(eng.families) == sorted(eng._programs) and "llm.kv_seed" in eng.families
+            assert {f"llm.hit_first.w{w}" for w in (1, 2, 4)} <= set(eng.families)
+            for i, name in enumerate(eng.families):
+                r = check_family(eng, name, seed=i, replays=2)
+                assert r["eager_equal"], (name, r["state_equal"])
+                kind = eng._programs[name][1]
+                assert (kind in ("seed", "hit")) == (not any(r["captured"].values())), (name, r["captured"])
+            assert check_family(eng, "llm.hit_first.w4", seed=60, temperature=1000.0, replays=2)["draws_differ"]
+        finally:
+            eng.close()
+
+    def test_exact_and_partial_hits_serve_the_unshared_tokens(self, cuda):
+        plain = _tiny_engine(cuda, "f32")
+        shared = _tiny_engine(cuda, "f32", prefix_cache_mb=1.0)
+        try:
+            base = list(range(5, 45))
+            sib = base[:20] + list(range(100, 110))
+            for p in (base, base, sib):
+                assert shared.generate(p, max_new_tokens=12) == plain.generate(p, max_new_tokens=12)
+            st = shared.stats()["kvcache"]["prefix"]
+            assert st["hits"] == 1 and st["partial_hits"] == 1 and st["misses"] == 1
+        finally:
+            plain.close()
+            shared.close()

@@ -270,9 +270,21 @@ def test_register_llm_refuses_unported(weights):
     for kw in ({"speculative": True}, {"replicas": 2}, {"lora_slots": 2}, {"kv_paged": False}):
         with pytest.raises(NotImplementedError, match=next(iter(kw))):
             rt.register_llm("m", cfg, tp, **kw)
-    for knob, value in (("TPU_LLM_SPEC", "1"), ("TPU_LLM_SESSION_MB", "64"), ("TPU_LLM_PREFIX_CACHE_MB", "8")):
-        with pytest.raises(NotImplementedError, match=knob):
-            GPURuntime(new_mock_config({knob: value})).register_llm("m", cfg, tp, device="cpu")
+    with pytest.raises(NotImplementedError, match="TPU_LLM_SPEC"):
+        GPURuntime(new_mock_config({"TPU_LLM_SPEC": "1"})).register_llm("m", cfg, tp, device="cpu")
+    # the prefix cache and the session tier are ported: their knobs build an
+    # engine with a radix (and, for sessions, a host tier of TPU_LLM_HOST_CACHE_MB)
+    for knob, value in (("TPU_LLM_SESSION_MB", "64"), ("TPU_LLM_PREFIX_CACHE_MB", "8")):
+        eng = GPURuntime(new_mock_config({knob: value, "TPU_LLM_HOST_CACHE_MB": "32"})).register_llm(
+            "m", cfg, tp, device="cpu", slots=2, max_seq_len=64)
+        try:
+            kv = eng.stats()["kvcache"]
+            assert eng.kv.radix is not None and kv["prefix"] is not None
+            assert (kv["sessions"] is not None) == (knob == "TPU_LLM_SESSION_MB")
+            if kv["sessions"] is not None:
+                assert kv["sessions"]["offload"]["budget_bytes"] == 32 << 20
+        finally:
+            eng.close()
     if not torch.cuda.is_available():  # unset TORCH_DEVICE means cuda, never a quiet CPU run
         with pytest.raises(RuntimeError, match="device='cpu'"):
             GPURuntime(new_mock_config({})).register_llm("m", cfg, tp)
