@@ -69,9 +69,23 @@ Phases, each raising on failure:
 8. prefix int8 — four requests through a partial/exact pair on an int8
    KV pool (tail copies move the f32 scales; the int8 kernel decodes
    over shared blocks);
-9. report — a "kernels" JSON line (launches on the engine phase's main
-   path, and in the prefix phases as "prefix_launches"), then the last
-   line {"ok": true, "device": {...}}.
+9. spec — speculative decoding at the same full width:
+   LLMEngine(speculative=True, spec_draft=4), its 11 families (the verify
+   program llm.step_v5 too) held bitwise against their eager programs;
+   extraction traffic (8 seeded passages of 32-240 tokens, each followed
+   by its first 16 tokens again, 64 new tokens, all at once) served with
+   the n-gram drafter (a), an oracle drafter proposing (a)'s tokens (b),
+   an adversary proposing them + 1 (c), and on a spec-off engine (d).
+   Every token through the replay gate, (a)-(c) leaving (d)'s streams
+   only at near-ties, (b) accepting >= 90%, (c) none and backing off to
+   plain chunks, the flash kernel once per layer in every verify; prints
+   tok/s, TTFT, verifies, plain chunks, unified steps, acceptance and
+   tokens per verify lane per burst. Then spec int8 (kv_int8=True, 4
+   requests, the oracle drafter);
+10. report — a "kernels" JSON line (launches on the engine phase's main
+   path, in the prefix phases as "prefix_launches" and in the spec
+   phases as "spec_launches"), then the last line
+   {"ok": true, "device": {...}}.
 
 Imports nothing of JAX and nothing of the JAX package. Exits non-zero,
 printing no result, when no GPU is visible.
@@ -330,6 +344,9 @@ def phase_kernels(dev: dict, seed: int, parent: dict | None = None) -> dict:
 
     # -- kernel 1: flash_attention (Gemma-2B: 8 q heads, 1 kv head, hd 256)
     cap = 512
+    # the verify program's attention (llm.step_v5): 32 slots, W = 5 queries
+    # each at a decode-time cursor
+    verify_offs = [(37 * i) % 500 + 2 for i in range(32)]
     flash_cases = [
         # (name, nb, c, offsets or None, causal, window, cap)
         ("offsets c16", 8, 16, [0, 37, 16, 200, 300, 480, 496, 5], True, 0, 0.0),
@@ -340,6 +357,7 @@ def phase_kernels(dev: dict, seed: int, parent: dict | None = None) -> dict:
         ("window 128 full S512", 2, 512, None, True, 128, 0.0),
         ("logit cap 50 offsets c16", 8, 16, [0, 37, 16, 200, 300, 480, 496, 5], True, 0, 50.0),
         ("offsets c12 (not 8-aligned)", 8, 12, [0, 37, 16, 200, 300, 480, 500, 5], True, 0, 0.0),
+        ("verify c5, 32 slots", 32, 5, verify_offs, True, 0, 0.0),
     ]
     for dtype in (torch.bfloat16, torch.float32):
         for name, nb, c, offs, causal, window, lcap in flash_cases:
@@ -361,11 +379,15 @@ def phase_kernels(dev: dict, seed: int, parent: dict | None = None) -> dict:
                 raise AssertionError(f"flash_attention disagrees with its plain version: {name} {dtype}")
             errs["flash_attention"] = max(errs["flash_attention"], err)
 
-    # timing at the serving step's shapes (bf16)
-    for c, offs in ((16, [0, 37, 16, 200, 300, 480, 496, 5]), (64, [0, 37, 64, 100, 255, 400, 448, 1])):
-        q = rnd(8, c, 8, 256, dtype=torch.bfloat16)
-        k = rnd(8, cap, 1, 256, dtype=torch.bfloat16)
-        v = rnd(8, cap, 1, 256, dtype=torch.bfloat16)
+    # timing at the serving step's shapes and the verify's (bf16)
+    for key, nb, c, offs in (
+        ("c16", 8, 16, [0, 37, 16, 200, 300, 480, 496, 5]),
+        ("c64", 8, 64, [0, 37, 64, 100, 255, 400, 448, 1]),
+        ("verify c5", 32, 5, verify_offs),
+    ):
+        q = rnd(nb, c, 8, 256, dtype=torch.bfloat16)
+        k = rnd(nb, cap, 1, 256, dtype=torch.bfloat16)
+        v = rnd(nb, cap, 1, 256, dtype=torch.bfloat16)
         off = torch.tensor(offs, dtype=torch.int32, device="cuda")
         nbytes, flops, mask = _flash_work(q, k, off, True, 0)
         bound_ms, bound_by = _bound(nbytes, flops, torch.bfloat16, peaks)
@@ -384,8 +406,8 @@ def phase_kernels(dev: dict, seed: int, parent: dict | None = None) -> dict:
             "library_ms": time_ms(library),
             "bound_ms": bound_ms, "bound_by": bound_by,
         }
-        timings[f"flash_attention c{c}"] = t
-        print(f"timing flash_attention c={c}: kernel {t['ms']:.4f} ms (device {t['device_ms']:.4f} ms), "
+        timings[f"flash_attention {key}"] = t
+        print(f"timing flash_attention {key} q {list(q.shape)}: kernel {t['ms']:.4f} ms (device {t['device_ms']:.4f} ms), "
               f"plain {t['plain_ms']:.4f} ms, sdpa {t['library_ms']:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
 
     # full-prompt mode (kernel row 2: the wave scheduler's monolithic
@@ -572,7 +594,9 @@ def _family_inputs(eng, name: str, g: torch.Generator, temperature: float):
     slots' lengths, alternate rows finishing their prompt. kv_seed: block
     copies between distinct random blocks and length writes to distinct
     slots, two lanes padding. Hit: random staged logits, first tokens for
-    distinct slots, the last lane padding when the width allows."""
+    distinct slots, the last lane padding when the width allows. Verify:
+    every slot active on private blocks, all but the last selected, with
+    random drafts of lengths 0..Kd."""
     cfg, slots, K = eng.cfg, eng.slots, eng.decode_chunk
     cap, MB, NB = eng.kv.capacity, eng.kv.table_width, eng.kv.pool.n_blocks
     dev = eng.device
@@ -614,6 +638,13 @@ def _family_inputs(eng, name: str, g: torch.Generator, temperature: float):
     live = np.ones((slots,), bool)
     if kind == "chunk":
         return lambda: eng._in.write(tables, live)
+    if kind == "verify":
+        Kd = arg - 1
+        vpack = np.zeros((slots, Kd + 2), np.int32)
+        vpack[:, :Kd] = torch.randint(1, cfg.vocab_size, (slots, Kd), generator=g, device=dev).cpu().numpy()
+        vpack[:, Kd] = np.arange(slots) % (Kd + 1)
+        vpack[: slots - 1, Kd + 1] = 1
+        return lambda: eng._in.write(tables, live, verify=vpack)
     nb = arg[1]
     rows = nb - 1 if nb > 1 else 1
     lens = lengths.cpu().numpy()
@@ -678,6 +709,31 @@ def check_family(eng, name: str, seed: int, temperature: float = 0.0, replays: i
         _restore(eng, orig)
         eng._stream.synchronize()
     return out
+
+
+def program_ms(eng, name: str, seed: int, iters: int = 10) -> float:
+    """Mean device time of one replay of family ``name`` (CUDA events
+    around each replay alone), each from the same random live state and
+    inputs as check_family's; the engine idle, its state put back."""
+    g = torch.Generator(device=eng.device).manual_seed(seed)
+    times = []
+    with eng._lock, torch.no_grad(), torch.cuda.stream(eng._stream):
+        eng._ensure_family(name)
+        orig = _snapshot(eng)
+        stage = _family_inputs(eng, name, g, 0.0)
+        s0 = _snapshot(eng)
+        for _ in range(iters + 1):
+            _restore(eng, s0)
+            stage()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            eng._launch(name)
+            end.record()
+            times.append((start, end))
+        eng._stream.synchronize()
+        _restore(eng, orig)
+        eng._stream.synchronize()
+    return sum(a.elapsed_time(b) for a, b in times[1:]) / iters
 
 
 def _serve(eng, prompts, new_tokens):
@@ -813,9 +869,10 @@ def _check_families(label: str, eng, seed: int) -> None:
     """Every captured family against its eager program (check_family), at
     temperature 0; then two replays each of the 8-step chunk, the widest
     step (and the widest hit program of a sharing engine) at a high
-    temperature, which must draw differently. Step and chunk families hold
-    the paged-decode kernel (steps the flash kernel too); kv_seed and the
-    hit programs hold no kernel."""
+    temperature, which must draw differently (and the verify's of a
+    speculating engine). Step and chunk families hold the paged-decode
+    kernel, steps and the verify the flash kernel; kv_seed and the hit
+    programs hold no kernel."""
     for i, name in enumerate(eng.families):
         r = check_family(eng, name, seed + i)
         kind = eng._programs[name][1]
@@ -827,11 +884,13 @@ def _check_families(label: str, eng, seed: int) -> None:
         paged = "paged_decode_partials_int8" if eng.pool_scales is not None else "paged_decode_partials"
         if r["launches"] != r["captured"] or bool(r["captured"].get(paged)) != (kind in ("step", "chunk")):
             raise AssertionError(f"{label}{name}: launches {r['launches']}, captured {r['captured']}")
-        if bool(r["captured"].get("flash_attention")) != (kind == "step"):
+        if bool(r["captured"].get("flash_attention")) != (kind in ("step", "verify")):
             raise AssertionError(f"{label}{name} ({kind}): flash launches {r['captured']}")
     sampled = [f"llm.decode_chunk{eng.decode_chunk}", eng._step_name(eng.chunk_shapes[-1], eng.admit_cap)]
     if eng.kv.share:
         sampled.append(f"llm.hit_first.w{eng.admit_cap}")
+    if eng.speculative:
+        sampled.append(f"llm.step_v{eng.spec_draft + 1}")
     for name in sampled:
         r = check_family(eng, name, seed + 100, temperature=1000.0, replays=2)
         print(f"{label}sampled replays {name} at temperature 1000: two replays from one state "
@@ -1365,6 +1424,217 @@ def phase_prefix_int8(dev: dict, seed: int, cfg: TransformerConfig, params: dict
             "runs": {k: {x: v for x, v in r.items() if x != "results"} for k, r in runs.items()}}
 
 
+# The spec phase's traffic: extraction-style requests whose output copies
+# their input, the case the n-gram drafter exists for. Each prompt is a
+# seeded passage of one of these lengths followed by the passage's first
+# 16 tokens again, so the drafter finds its trailing n-gram; 64 new tokens.
+SPEC_PASSAGES = (32, 48, 64, 96, 128, 160, 200, 240)
+SPEC_NEW_TOKENS = 64
+
+
+class _StreamDrafter:
+    """Proposes, for each prompt, the continuation a served burst gave it
+    (an oracle), each token shifted by ``shift`` mod the vocabulary (shift
+    1: an adversary whose every draft is rejected)."""
+
+    def __init__(self, prompts, served, vocab: int, shift: int = 0):
+        self.by_head = {tuple(p[:8]): (len(p), served[i]) for i, p in enumerate(prompts)}
+        self.vocab, self.shift = vocab, shift
+
+    def draft(self, tokens: list[int], k: int) -> list[int]:
+        plen, served = self.by_head[tuple(tokens[:8])]
+        pos = len(tokens) - plen
+        return [(t + self.shift) % self.vocab for t in served[pos : pos + k]] if k > 0 else []
+
+
+def _spec_burst(eng, label: str, prompts, counters: tuple) -> dict:
+    """One burst of the spec phase (every prompt from its own client at
+    once), with the kernel counters zeroed just before it: tok/s, TTFT,
+    verify programs, plain chunks, unified steps, proposals, acceptance,
+    tokens per verify lane and launches."""
+    lanes = [0, 0]  # verify lanes processed, tokens they carried
+    process = eng._process_verify_entry
+
+    def count(entry, toks, now):
+        S, W = eng.slots, entry[3]["W"]
+        lanes[0] += len(entry[2])
+        lanes[1] += sum(int(toks[S * W + slot]) + 1 for slot, _r in entry[2])
+        return process(entry, toks, now)
+
+    eng._process_verify_entry = count
+    for name in counters:
+        fn, attr = A._counter(name)
+        setattr(fn, attr, 0)
+    st0 = eng.stats()
+    try:
+        results, reqs, wall = _serve(eng, prompts, SPEC_NEW_TOKENS)
+    finally:
+        del eng._process_verify_entry
+    st = eng.stats()
+    sp0, sp = st0["spec"], st["spec"]
+    ttfts = sorted(reqs[i].first_token_at - reqs[i].submitted_at for i in reqs)
+    total = sum(len(t) for t in results.values())
+    run = {
+        "results": results, "wall_s": wall, "tokens": total, "tok_s": total / wall,
+        "ttft_p50_s": ttfts[len(ttfts) // 2], "ttft_max_s": ttfts[-1],
+        "verifies": sp["steps"] - sp0["steps"], "steps": st["steps"] - st0["steps"],
+        "plain_chunks": (st["chunks"] - st0["chunks"]) - (st["steps"] - st0["steps"]),
+        "proposed": sp["proposed"] - sp0["proposed"], "accepted": sp["accepted"] - sp0["accepted"],
+        "lanes": lanes[0], "tokens_per_lane": lanes[1] / lanes[0] if lanes[0] else None,
+        "launches": {name: getattr(*A._counter(name)) for name in counters},
+    }
+    run["accept_rate"] = run["accepted"] / run["proposed"] if run["proposed"] else None
+    if any(len(t) != SPEC_NEW_TOKENS or any(x < 0 or x >= eng.cfg.vocab_size for x in t) for t in results.values()):
+        raise AssertionError(f"{label}bad streams {results}")
+    rate = "n/a" if run["accept_rate"] is None else f"{run['accept_rate']:.3f}"
+    per_lane = "n/a" if run["tokens_per_lane"] is None else f"{run['tokens_per_lane']:.3f}"
+    print(f"{label}: {total} tokens in {wall:.3f}s = {run['tok_s']:.1f} tok/s; ttft p50 {run['ttft_p50_s']:.4f}s max "
+          f"{run['ttft_max_s']:.4f}s; {run['verifies']} verify programs ({run['lanes']} lanes), "
+          f"{run['plain_chunks']} plain chunks, {run['steps']} unified steps; proposed {run['proposed']}, accepted "
+          f"{run['accepted']} (rate {rate}); {per_lane} tokens per verify lane; launches {run['launches']}")
+    return run
+
+
+def _divergence_at_near_ties(params, cfg, prompts, got, want, gap: float, label: str) -> int:
+    """Where a stream of ``got`` leaves the one ``want`` served for the same
+    prompt, it must do so at a near-tie: the plain forward's top-2 gap
+    after the common prefix below ``gap`` (the replay gate's exemption).
+    Returns the streams that differ."""
+    differ = 0
+    for i, p in enumerate(prompts):
+        j = next((j for j, (x, y) in enumerate(zip(got[i], want[i])) if x != y), None)
+        if j is None:
+            continue
+        differ += 1
+        seq = p + want[i][:j]
+        logits = transformer_forward(
+            params, cfg, torch.tensor([seq], device="cuda"), torch.arange(len(seq), device="cuda")[None, :],
+            unembed_positions=torch.tensor([len(seq) - 1], device="cuda"),
+        )[0, 0]
+        top2 = torch.topk(logits, 2).values
+        g = float(top2[0] - top2[1])
+        print(f"{label}request {i} (prompt {len(p)}) leaves the spec-off stream at token {j}: top-2 gap {g:.4f}")
+        if g >= gap:
+            raise AssertionError(f"{label}request {i} differs from spec-off at token {j}, gap {g:.4f} >= {gap}")
+    return differ
+
+
+def phase_spec(dev: dict, seed: int, cfg: TransformerConfig, params: dict) -> dict:
+    """Speculative decoding at Gemma-2B's full width: the engine at its
+    defaults with speculative=True, spec_draft=4 (11 families: the default 10
+    and llm.step_v5, each held bitwise against its eager program), serving
+    SPEC_PASSAGES' extraction prompts four times: (a) the n-gram drafter,
+    (b) an oracle proposing (a)'s tokens, (c) an adversary proposing them
+    + 1 (every draft rejected: the engine backs off to plain chunks), and
+    (d) a spec-off engine of the same config, built after the spec engine
+    is closed. Gates: every token through the replay gate; (a)-(c) leave
+    (d)'s streams only at near-ties; (b) accepts >= 90% of its proposals;
+    (c) accepts none and runs plain chunks; the flash kernel launches once
+    per layer in every verify and unified step; no block in use once
+    idle. Then ``spec int8``: 4 requests with the oracle on kv_int8=True."""
+    rng = np.random.default_rng(seed + 10)
+    passages = [rng.integers(1, cfg.vocab_size, n).tolist() for n in SPEC_PASSAGES]
+    prompts = [p + p[:16] for p in passages]
+    counters = ("flash_attention", "paged_decode_partials")
+    eng = LLMEngine(cfg, params, seed=seed, speculative=True, spec_draft=4)
+    try:
+        warm = _warm_report("spec ", eng)
+        if "llm.step_v5" not in eng._programs or len(eng._programs) != 11:
+            raise AssertionError(f"spec engine families {list(eng._programs)}")
+        _check_families("spec ", eng, seed)
+        prog_ms = {name: program_ms(eng, name, seed) for name in ("llm.step_v5", "llm.decode_chunk8")}
+        print(f"spec program device time, one replay on a random state of all 32 slots (CUDA events, mean of 10): "
+              f"llm.step_v5 {prog_ms['llm.step_v5']:.3f} ms, llm.decode_chunk8 {prog_ms['llm.decode_chunk8']:.3f} ms "
+              f"({prog_ms['llm.decode_chunk8'] / 8:.3f} ms a decode step)")
+        eng.generate([1, 2, 3], max_new_tokens=4)  # warm-up, outside the timed runs
+        runs = {"a": _spec_burst(eng, "spec burst a (n-gram drafter)", prompts, counters)}
+        served = runs["a"]["results"]
+        eng.drafter = _StreamDrafter(prompts, served, cfg.vocab_size)
+        runs["b"] = _spec_burst(eng, "spec burst b (oracle drafter)", prompts, counters)
+        eng.drafter = _StreamDrafter(prompts, served, cfg.vocab_size, shift=1)
+        runs["c"] = _spec_burst(eng, "spec burst c (adversarial drafter)", prompts, counters)
+        idle = _idle(eng, "spec ")
+    finally:
+        eng.close()
+    torch.cuda.empty_cache()
+    off = LLMEngine(cfg, params, seed=seed)
+    try:
+        _warm_report("spec-off ", off)
+        off.generate([1, 2, 3], max_new_tokens=4)
+        runs["d"] = _spec_burst(off, "spec burst d (spec off)", prompts, counters)
+    finally:
+        off.close()
+    if idle["blocks_in_use"]:
+        raise AssertionError(f"spec engine idle with {idle['blocks_in_use']} blocks in use")
+
+    want = runs["d"]["results"]
+    checked = exempt = 0
+    for key, r in runs.items():
+        c, e = _replay_gate(params, cfg, prompts, r["results"], TOKEN_GAP, label=f"spec {key} ", verbose=False)
+        differ = 0 if key == "d" else _divergence_at_near_ties(params, cfg, prompts, r["results"], want, TOKEN_GAP,
+                                                                 f"spec {key} ")
+        same = sum(x == y for i in want for x, y in zip(r["results"][i], want[i]))
+        print(f"spec {key}: {c} tokens equal the plain greedy argmax, {e} exempt (top-2 gap < {TOKEN_GAP}); "
+              f"{same} of {r['tokens']} tokens equal burst d's, {differ} streams differ")
+        checked, exempt = checked + c, exempt + e
+        n_flash = cfg.n_layers * (r["verifies"] + r["steps"])
+        if r["launches"]["flash_attention"] != n_flash:
+            raise AssertionError(f"spec {key}: {r['launches']['flash_attention']} flash launches, expected {n_flash} "
+                                 f"(one per layer in {r['verifies']} verifies and {r['steps']} unified steps)")
+    b, c = runs["b"], runs["c"]
+    if not b["proposed"] or b["accepted"] < 0.9 * b["proposed"]:
+        raise AssertionError(f"oracle burst accepted {b['accepted']} of {b['proposed']} proposals (< 90%)")
+    if c["accepted"] or not c["proposed"] or c["plain_chunks"] <= 0:
+        raise AssertionError(f"adversarial burst: accepted {c['accepted']} of {c['proposed']}, "
+                             f"{c['plain_chunks']} plain chunks")
+    if not runs["a"]["verifies"] or runs["d"]["verifies"]:
+        raise AssertionError(f"verifies: burst a {runs['a']['verifies']}, spec-off burst d {runs['d']['verifies']}")
+    for r in (runs["a"], b):
+        if r["launches"]["flash_attention"] <= 0 or r["launches"]["paged_decode_partials"] <= 0:
+            raise AssertionError(f"spec burst launches {r['launches']}")
+
+    # spec int8: 4 requests, the oracle from burst d, an int8 KV pool
+    p8 = prompts[::2]
+    eng8 = LLMEngine(cfg, params, seed=seed, speculative=True, spec_draft=4, kv_int8=True)
+    try:
+        _warm_report("spec int8 ", eng8)
+        # the int8 and prefix int8 phases held the step and chunk families
+        # on int8 pools; here the verify
+        r = check_family(eng8, "llm.step_v5", seed)
+        print(f"spec int8 replay vs eager llm.step_v5: outputs and state bitwise "
+              f"{'equal' if r['eager_equal'] else 'DIFFERENT ' + str(r['state_equal'])}; launches per replay "
+              f"{r['launches']} (captured {r['captured']})")
+        if not r["eager_equal"] or r["launches"] != r["captured"] or not r["captured"].get("flash_attention"):
+            raise AssertionError(f"spec int8 llm.step_v5: {r}")
+        eng8.generate([1, 2, 3], max_new_tokens=4)
+        eng8.drafter = _StreamDrafter(p8, [want[i] for i in range(0, len(prompts), 2)], cfg.vocab_size)
+        r8 = _spec_burst(eng8, "spec int8 burst (oracle drafter)", p8,
+                         ("flash_attention", "paged_decode_partials", "paged_decode_partials_int8"))
+        _idle(eng8, "spec int8 ")
+    finally:
+        eng8.close()
+    c8, e8 = _replay_gate(params, cfg, p8, r8["results"], INT8_TOKEN_GAP, label="spec int8 ", verbose=False)
+    print(f"spec int8: {c8} tokens equal the plain greedy argmax, {e8} exempt (gap < {INT8_TOKEN_GAP})")
+    if 8 * e8 > r8["tokens"]:
+        raise AssertionError(f"spec int8: {e8} of {r8['tokens']} tokens needed the exemption (> 1 in 8)")
+    if r8["launches"]["paged_decode_partials_int8"] <= 0 or r8["launches"]["paged_decode_partials"] or not r8["verifies"]:
+        raise AssertionError(f"spec int8: launches {r8['launches']}, {r8['verifies']} verifies")
+
+    launches = {name: sum(r["launches"][name] for k, r in runs.items() if k != "d") for name in counters}
+    launches["paged_decode_partials_int8"] = r8["launches"]["paged_decode_partials_int8"]
+    before, after = warm["reserved_before"], warm["reserved_after"]
+    print(f"spec engine gemma_2b on {dev['smi']}: warmup_s {warm['warmup_s']:.3f} for {len(warm['families'])} "
+          f"families; memory_reserved growth {after - before} bytes; bursts a/b/c/d tok/s "
+          + "/".join(f"{runs[k]['tok_s']:.1f}" for k in "abcd") + "; ttft p50 "
+          + "/".join(f"{runs[k]['ttft_p50_s']:.4f}" for k in "abcd") + "s; accept rate a/b/c "
+          + "/".join("n/a" if runs[k]["accept_rate"] is None else f"{runs[k]['accept_rate']:.3f}" for k in "abc")
+          + f"; {checked} tokens matched, {exempt} exempt; spec launches {launches}")
+    return {"runs": {k: {x: v for x, v in r.items() if x != "results"} for k, r in runs.items()},
+            "int8": {x: v for x, v in r8.items() if x != "results"}, "launches": launches, "warmup": warm,
+            "program_ms": prog_ms,
+            "tokens_matched": checked, "tokens_exempt": exempt}
+
+
 def _wait_for(pred, seconds: float) -> bool:
     t0 = time.perf_counter()
     while not pred():
@@ -1539,19 +1809,27 @@ def main() -> int:
                          "git archive) and time them beside this tree's on the same inputs")
     args = ap.parse_args()
     dev = phase_device()
-    phase_build()
-    kern = phase_kernels(dev, SEED, build_parent(args.parent) if args.parent else None)
+    seconds = {}
+
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        seconds[name] = time.perf_counter() - t0
+        torch.cuda.empty_cache()  # a closed engine's pool
+        return out
+
+    timed("build", phase_build)
+    kern = timed("kernels", phase_kernels, dev, SEED, build_parent(args.parent) if args.parent else None)
     cfg, params = gemma_weights(SEED)
-    eng = phase_engine(dev, SEED, cfg, params)
-    eng8 = phase_engine_int8(dev, SEED, cfg, params)
-    torch.cuda.empty_cache()  # the closed engines' pools
-    phase_edge(dev, SEED, cfg, params, eng)
-    torch.cuda.empty_cache()
-    pre = phase_prefix(dev, SEED, cfg, params)
-    torch.cuda.empty_cache()
-    pre8 = phase_prefix_int8(dev, SEED, cfg, params)
+    eng = timed("engine", phase_engine, dev, SEED, cfg, params)
+    eng8 = timed("int8", phase_engine_int8, dev, SEED, cfg, params)
+    timed("edge", phase_edge, dev, SEED, cfg, params, eng)
+    pre = timed("prefix", phase_prefix, dev, SEED, cfg, params)
+    pre8 = timed("prefix int8", phase_prefix_int8, dev, SEED, cfg, params)
+    spec = timed("spec", phase_spec, dev, SEED, cfg, params)
+    print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     # name -> (source, replaced Pallas kernel, timing key, engine run whose
-    # launches count)
+    # launches count, prefix phases' launches)
     sources = {
         "flash_attention": ("gofr_tpu_torch/csrc/flash_attention.cu", "gofr_tpu/ops/attention.py:101",
                             "flash_attention c64", eng, pre["launches"]["flash_attention"]),
@@ -1567,6 +1845,7 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": run["launches"][name], "prefix_launches": prefix_launches,
+            "spec_launches": spec["launches"][name],
             "max_abs_err": kern["errs"][name],
             "ms": t["ms"], "device_ms": t["device_ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],

@@ -9,8 +9,11 @@ mirror the JAX package so each counterpart is easy to find:
 - ``ops`` — RMSNorm, RoPE, attention (plain PyTorch versions plus the two
   hand-written CUDA kernels that replace the Pallas kernels);
 - ``models.transformer`` — the Gemma-family decoder and its serving entry
-  points (``prefill_append``, ``decode_chunk_paged``);
-- ``kvcache`` — the block pool, slot tables and the paged cache manager;
+  points (``prefill_append``, ``decode_chunk_paged``, ``verify_chunk``);
+- ``kvcache`` — the block pool, slot tables and the paged cache manager
+  with its radix prefix index and session tier;
+- ``spec`` — the n-gram drafter and acceptance policy of speculative
+  decoding (``models.transformer.verify_chunk`` scores the drafts);
 - ``llm`` — ``GenRequest`` and ``LLMEngine``;
 - the serving edge: ``serve`` (``python -m gofr_tpu_torch.serve``:
   ``/generate``, ``/stats`` and the OpenAI routes of ``openai_compat``),

@@ -10,14 +10,14 @@ the config sets ``TORCH_DEVICE=cpu``; without a GPU it raises.
 Only what the port's engine has is accepted: the kwargs ``slots``,
 ``max_seq_len``, ``prefill_buckets``, ``quantize``, ``kv_int8``, ``seed``,
 ``device``, ``lookahead``, ``warmup``, ``prefix_cache_mb``,
-``session_mb``, ``host_cache_mb`` and ``kv_paged=True`` (the port's one
-layout), and the config knobs ``TPU_LLM_KV_INT8``,
-``TPU_LLM_PREFIX_CACHE_MB``, ``TPU_LLM_SESSION_MB`` and
-``TPU_LLM_HOST_CACHE_MB`` (read as the JAX runtime reads them: defaults
-for the kwargs a caller leaves out). Any other kwarg, and any of the JAX
-runtime's engine knobs set to ask for a feature the port lacks
-(speculation, replicas, meshes, LoRA, ...), raises
-``NotImplementedError`` naming it; none is ignored.
+``session_mb``, ``host_cache_mb``, ``speculative``, ``spec_draft`` and
+``kv_paged=True`` (the port's one layout), and the config knobs
+``TPU_LLM_KV_INT8``, ``TPU_LLM_PREFIX_CACHE_MB``, ``TPU_LLM_SESSION_MB``,
+``TPU_LLM_HOST_CACHE_MB``, ``TPU_LLM_SPEC`` and ``TPU_LLM_SPEC_DRAFT``
+(read as the JAX runtime reads them: defaults for the kwargs a caller
+leaves out). Any other kwarg, and any of the JAX runtime's engine knobs
+set to ask for a feature the port lacks (grammars, replicas, meshes,
+LoRA, ...), raises ``NotImplementedError`` naming it; none is ignored.
 The JAX package's plain-model registry (``register_model`` and its
 dynamic batcher) is not ported.
 """
@@ -37,7 +37,7 @@ __all__ = ["GPURuntime"]
 
 _ENGINE_KWARGS = (
     "slots", "max_seq_len", "prefill_buckets", "quantize", "kv_int8", "seed", "device", "lookahead", "warmup",
-    "prefix_cache_mb", "session_mb", "host_cache_mb",
+    "prefix_cache_mb", "session_mb", "host_cache_mb", "speculative", "spec_draft",
 )
 
 # The JAX runtime's engine knobs that select a feature this port lacks,
@@ -45,8 +45,6 @@ _ENGINE_KWARGS = (
 _UNPORTED_KNOBS = {
     "TPU_LLM_STEP_TOKEN_BUDGET": (str(STEP_TOKEN_BUDGET),),
     "TPU_LLM_PREFILL_CHUNK": (str(PREFILL_CHUNK),),
-    "TPU_LLM_SPEC": ("0",),
-    "TPU_LLM_SPEC_DRAFT": (),
     "TPU_LLM_KV_PAGED": ("1",),
     "TPU_LLM_KV_BLOCK": (str(KV_BLOCK),),
     "TPU_LLM_STEP_WATCHDOG_S": ("0",),
@@ -80,6 +78,8 @@ class GPURuntime:
         self.default_llm_prefix_cache_mb = float(get("TPU_LLM_PREFIX_CACHE_MB") or 0.0)
         self.default_llm_session_mb = get("TPU_LLM_SESSION_MB")
         self.default_llm_host_cache_mb = get("TPU_LLM_HOST_CACHE_MB")
+        self.default_llm_spec = get("TPU_LLM_SPEC")
+        self.default_llm_spec_draft = get("TPU_LLM_SPEC_DRAFT")
         self._knobs = {k: get(k) for k in _UNPORTED_KNOBS}
         self._llms: dict[str, LLMEngine] = {}
         self._lock = threading.Lock()
@@ -109,6 +109,10 @@ class GPURuntime:
             engine_kw.setdefault("session_mb", float(self.default_llm_session_mb))
         if self.default_llm_host_cache_mb != "":
             engine_kw.setdefault("host_cache_mb", float(self.default_llm_host_cache_mb))
+        if self.default_llm_spec != "":
+            engine_kw.setdefault("speculative", self.default_llm_spec != "0")
+        if self.default_llm_spec_draft != "":
+            engine_kw.setdefault("spec_draft", int(self.default_llm_spec_draft))
         engine_kw.setdefault("device", self.default_device)
         engine = LLMEngine(cfg, params, **engine_kw)
         with self._lock:

@@ -63,15 +63,28 @@ configuration:
   and restores a spilled one before its next turn's radix consult
   (``_session_prepare``; the restore's host-to-device copy is eager, on
   the engine stream). A finished turn keeps its blocks until the next
-  scheduler pass has published it (``_kv_session_flush``, ``_kv_sweep``).
+  scheduler pass has published it (``_kv_session_flush``, ``_kv_sweep``);
+- speculative decoding, off by default as in the JAX engine:
+  ``speculative=True`` (or ``TPU_LLM_SPEC=1``) drafts up to
+  ``spec_draft`` tokens per decoding slot with the host n-gram drafter
+  (``spec``) over the request's optimistic stream, and one all-slot
+  verify program (JAX ``llm.step_v{W}``, W = spec_draft + 1, a captured
+  graph like the others) appends tail + draft through ``verify_chunk``,
+  samples every position, accepts the longest agreeing prefix on the
+  device and rolls each slot's length back past rejected rows. Verifies
+  pipeline to the lookahead depth; each counts one guaranteed token per
+  lane in ``_inflight_steps``. A clean-pipe attempt whose lanes drafted
+  nothing buys 16 plain chunks; chunks and verifies never interleave
+  (``_spec_regime``). Greedy spec-on streams equal spec-off's.
 
 The pack/meta layouts of the JAX programs are kept: pack [nb, S+3] int32
 = tokens | cursor | n_new | temperature bits; meta [2, nb] int32 = slot
 (``slots`` for inert padding lanes) | finish flag.
 
 Left out of this slice (queued in ROADMAP.md): every other feature that is
-off by default in the JAX engine (speculation, grammar, LoRA, overload
-control and fair queuing, goodput, flight recorder, KV handoff), plus the
+off by default in the JAX engine (grammar-constrained decoding and its
+verify variant, LoRA, overload control and fair queuing, goodput, flight
+recorder, KV handoff, the speculation metrics series), plus the
 monolithic wave scheduler. ``GenRequest`` carries the edge's ``priority``
 and ``client`` so the edge hands them over as the JAX edge does, but this
 FIFO scheduler does not act on them.
@@ -82,6 +95,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import itertools
+import os
 import queue
 import threading
 import time
@@ -95,8 +109,9 @@ import torch
 from . import resolve_device
 from .kvcache import CacheManager, copy_blocks, gather_blocks_host, gather_slots, scatter_rows
 from .models.quant import QTensor, is_quantized, quantize_params
-from .models.transformer import decode_chunk_paged, prefill_append
+from .models.transformer import decode_chunk_paged, prefill_append, verify_chunk
 from .ops.attention import add_launches, capture_launches
+from .spec import SPEC_DRAFT_DEFAULT, SPEC_EMA_ALPHA, NGramDrafter, draft_len
 
 _EOS_DEFAULT = -1  # no EOS cut by default (random-weight models)
 
@@ -207,6 +222,15 @@ class GenRequest:
         self._kv_resv = 0  # admission block promise not yet bound to a slot
         self._kv_plan = None  # pinned seed plan not yet attached to a slot
         self._session_published = False  # end-of-turn radix publish done
+        # speculative decoding (engine-maintained): the acceptance EMA that
+        # sizes the draft (optimistic until the first verify measures it),
+        # the plain-lane streak that paces a backed-off request's probe,
+        # the predicted spans of verifies in flight (the optimistic stream
+        # the next draft extends) and the count of those verifies
+        self._spec_ema = 1.0
+        self._spec_plain = 0
+        self._spec_pending: list[int] = []
+        self._spec_inflight = 0
 
     def _raise_terminal(self) -> None:
         if self.finish_reason == "error":
@@ -271,9 +295,11 @@ def _to_device(tree, device: torch.device):
 class _Inputs:
     """The programs' host inputs in ONE int32 device buffer at a fixed
     address, which every captured graph reads: tables [slots, MB] | live
-    [slots] | meta [2, admit_cap] | pack [admit_cap, S_max + 3] (a step
-    of nb rows and shape S uses the first 2 nb and nb (S + 3) elements of
-    the last two) | seed [7, admit_cap] (srcs | dsts | slot_idx | lens of
+    [slots] | verify pack [slots, ver_width] (draft tokens | n_draft |
+    selected, of ``llm.step_v{W}``; empty with speculation off) | meta
+    [2, admit_cap] | pack [admit_cap, S_max + 3] (a step of nb rows and
+    shape S uses the first 2 nb and nb (S + 3) elements of the last two)
+    | seed [7, admit_cap] (srcs | dsts | slot_idx | lens of
     ``llm.kv_seed``, then the hit programs' meta: slot | row | temperature
     bits). ``write`` and ``write_seed`` fill it from a ring of ``depth``
     pinned host buffers with one async copy of their own region; each
@@ -281,10 +307,14 @@ class _Inputs:
     copy, so a later dispatch never overwrites pinned memory a queued copy
     has not read yet."""
 
-    def __init__(self, device, slots: int, table_width: int, admit_cap: int, max_shape: int, depth: int):
+    def __init__(
+        self, device, slots: int, table_width: int, admit_cap: int, max_shape: int, depth: int, ver_width: int = 0
+    ):
         self.slots, self.table_width, self.admit_cap = slots, table_width, admit_cap
+        self.ver_width = ver_width
         self.o_live = slots * table_width
-        self.o_meta = self.o_live + slots
+        self.o_ver = self.o_live + slots
+        self.o_meta = self.o_ver + slots * ver_width
         self.o_pack = self.o_meta + 2 * admit_cap
         self.o_seed = self.o_pack + admit_cap * (max_shape + 3)
         size = self.o_seed + 7 * admit_cap
@@ -298,7 +328,11 @@ class _Inputs:
         return self.dev[: self.o_live].view(self.slots, self.table_width)
 
     def live(self) -> torch.Tensor:
-        return self.dev[self.o_live : self.o_meta] != 0
+        return self.dev[self.o_live : self.o_ver] != 0
+
+    def verify(self) -> torch.Tensor:
+        """[slots, ver_width]: draft tokens | n_draft | selected."""
+        return self.dev[self.o_ver : self.o_meta].view(self.slots, self.ver_width)
 
     def meta(self, nb: int) -> torch.Tensor:
         return self.dev[self.o_meta : self.o_meta + 2 * nb].view(2, nb)
@@ -329,13 +363,17 @@ class _Inputs:
         h[self.o_seed :] = seed.reshape(-1)
         self._copy(j, self.o_seed, h.size)
 
-    def write(self, tables: np.ndarray, live: np.ndarray, meta=None, pack=None) -> None:
-        """Stage one dispatch's inputs (meta and pack for a unified step)
-        and enqueue their copy on the current stream."""
+    def write(self, tables: np.ndarray, live: np.ndarray, meta=None, pack=None, verify=None) -> None:
+        """Stage one dispatch's inputs (meta and pack for a unified step,
+        the verify pack for a verify) and enqueue their copy on the
+        current stream."""
         j, h = self._buffer()
         h[: self.o_live] = tables.reshape(-1)
-        h[self.o_live : self.o_meta] = live
-        end = self.o_meta
+        h[self.o_live : self.o_ver] = live
+        end = self.o_ver
+        if verify is not None:
+            h[self.o_ver : self.o_meta] = verify.reshape(-1)
+            end = self.o_meta
         if meta is not None:
             h[self.o_meta : self.o_meta + meta.size] = meta.reshape(-1)
             end = self.o_pack + pack.size
@@ -393,7 +431,14 @@ class LLMEngine:
     constructor (on a CUDA device; a capture that fails raises).
     ``prefix_cache_mb`` > 0 retains published prompts in the radix tree
     under that byte budget; ``session_mb`` > 0 adds the session tier with
-    that device budget, spilling to ``host_cache_mb`` of host memory."""
+    that device budget, spilling to ``host_cache_mb`` of host memory.
+    ``speculative=True`` decodes through n-gram drafts verified by
+    ``llm.step_v{spec_draft + 1}``; ``None`` reads ``TPU_LLM_SPEC`` (and
+    ``spec_draft=None`` ``TPU_LLM_SPEC_DRAFT``), as the JAX engine does."""
+
+    # plain decode chunks bought by one clean-pipe verify attempt whose
+    # lanes drafted nothing (speculative mode); then speculation re-probes
+    _SPEC_REPROBE_CHUNKS = 16
 
     def __init__(
         self,
@@ -412,6 +457,8 @@ class LLMEngine:
         prefix_cache_mb: float = 0.0,
         session_mb: float = 0.0,
         host_cache_mb: float = 256.0,
+        speculative: bool | None = None,
+        spec_draft: int | None = None,
     ):
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -432,8 +479,20 @@ class LLMEngine:
         shapes = {min(b, PREFILL_CHUNK) for b in self.prefill_buckets}
         shapes.discard(0)
         self.chunk_shapes = tuple(sorted(shapes)) or (min(PREFILL_CHUNK, max_seq_len),)
+        # speculative decoding, off by default (JAX llm.py:763-790): the
+        # verify writes spec_draft + 1 rows past a slot's length, which
+        # submit()'s decode room keeps inside 2 * decode_chunk rows of slack
+        if speculative is None:
+            speculative = os.environ.get("TPU_LLM_SPEC", "0") not in ("", "0")
+        self.speculative = bool(speculative)
+        if spec_draft is None:
+            spec_draft = int(os.environ.get("TPU_LLM_SPEC_DRAFT", "") or 0)
+        self.spec_draft = (
+            max(1, min(int(spec_draft or SPEC_DRAFT_DEFAULT), 2 * DECODE_CHUNK)) if self.speculative else 0
+        )
+        widths = self.chunk_shapes + ((self.spec_draft + 1,) if self.speculative else ())
         self.kv = CacheManager(
-            cfg, slots, max_seq_len, DECODE_CHUNK, append_widths=self.chunk_shapes, block=KV_BLOCK,
+            cfg, slots, max_seq_len, DECODE_CHUNK, append_widths=widths, block=KV_BLOCK,
             kv_int8=kv_int8, prefix_cache_mb=prefix_cache_mb, session_mb=session_mb,
             host_cache_mb=host_cache_mb,
         )
@@ -450,7 +509,8 @@ class LLMEngine:
         self._gen = torch.Generator(device=dev).manual_seed(seed)
         self._tables_np = np.zeros((slots, self.kv.table_width), np.int32)
         self._in = _Inputs(
-            dev, slots, self.kv.table_width, self.admit_cap, self.chunk_shapes[-1], self.lookahead + 1
+            dev, slots, self.kv.table_width, self.admit_cap, self.chunk_shapes[-1], self.lookahead + 1,
+            ver_width=self.spec_draft + 2 if self.speculative else 0,
         )
         # exact hits' stored logits, staged by a device copy before the hit
         # program's replay reads them (sharing only)
@@ -460,7 +520,8 @@ class LLMEngine:
         )
         # program families, by the JAX compile family's name (+ the wave
         # width of a step or a hit): name -> (eager program, kind, arg)
-        # with kind "step" (arg (shape, nb)), "chunk" (k), "seed" or "hit" (nb)
+        # with kind "step" (arg (shape, nb)), "chunk" (k), "seed", "hit"
+        # (nb) or "verify" (W)
         self._programs: dict[str, tuple] = {}
         for shape in self.chunk_shapes:
             for nb in self._wave_widths():
@@ -473,6 +534,13 @@ class LLMEngine:
             self._programs["llm.kv_seed"] = (self._seed_program, "seed", None)
             for nb in self._wave_widths():
                 self._programs[f"llm.hit_first.w{nb}"] = (functools.partial(self._hit_program, nb), "hit", nb)
+        # the drafter is an attribute so a caller (or a test) may swap it;
+        # with speculation off nothing of it exists
+        self.drafter = None
+        if self.speculative:
+            self.drafter = NGramDrafter()
+            W = self.spec_draft + 1
+            self._programs[f"llm.step_v{W}"] = (self._verify_program, "verify", W)
         self.families: dict[str, _Family] = {}  # captured (CUDA only)
         self.warmup_s: float | None = None
         # torch.cuda.memory_reserved() before and after the warmup capture
@@ -487,8 +555,9 @@ class LLMEngine:
         self._work_cv = threading.Condition(self._lock)  # _inflight appended
         self._kick = threading.Event()  # scheduler wake: submit / entry emitted
         # dispatched programs, oldest first: ("step", fetch, finishes, nb,
-        # snapshot, K), ("chunk", fetch, snapshot, k), or ("prefill", fetch,
-        # [(slot, req), ...], nb) for a group of exact hits (first tokens only)
+        # snapshot, K), ("chunk", fetch, snapshot, k), ("prefill", fetch,
+        # [(slot, req), ...], nb) for a group of exact hits (first tokens
+        # only), or ("verify", fetch, [(slot, req), ...], info) for a verify
         self._inflight: deque[tuple] = deque()
         self._processing: tuple | None = None  # entry popped, not yet emitted
         self._jumped = False  # prefill-priority ration (one per chunk)
@@ -506,6 +575,12 @@ class LLMEngine:
         self.chunks = 0  # decode chunks (fused or pure) dispatched
         self.deadline_cancels = 0  # requests retired past their deadline
         self.disconnect_cancels = 0  # requests retired for a vanished consumer
+        self.spec_steps = 0  # verify programs dispatched
+        self.spec_proposed = 0  # draft tokens proposed
+        self.spec_accepted = 0  # draft tokens accepted
+        self.spec_plain = 0  # verify lanes run with no draft (plain decode)
+        self._spec_hold = 0  # plain chunks left before the next verify attempt
+        self._spec_rr = 0  # where the next budget-cut verify scan starts
         if dev.type == "cuda":
             self._stream = torch.cuda.Stream(dev)  # every program, copy and capture
             self._graph_pool = torch.cuda.graph_pool_handle()  # shared by the families
@@ -577,6 +652,7 @@ class LLMEngine:
                 "deadline_cancels": self.deadline_cancels,
                 "disconnect_cancels": self.disconnect_cancels,
                 "chunk_shapes": self.chunk_shapes,
+                "spec": self._spec_summary(),
                 "kvcache": self.kv.stats(),
                 "warmup_s": self.warmup_s,
                 "error": self.error,
@@ -625,6 +701,8 @@ class LLMEngine:
                         depth = sum(1 for e in entries if e[0] != "prefill")
                         needed = self._needed_steps()
                         prefilling = bool(self._prefilling)
+                        if self.speculative and not any(r is not None and r.prefill_done for r in self._slot_req):
+                            self._spec_hold = 0  # no slot decodes: see _spec_regime
                     stepped = False
                     if prefilling and depth < self.lookahead:
                         # one unified step per pass; the loop comes
@@ -633,15 +711,53 @@ class LLMEngine:
                         if stepped:
                             depth += 1
                             needed = max(0, needed - self.decode_chunk)
-                    want = min(-(-needed // self.decode_chunk), self.lookahead - depth)
-                    for _ in range(max(0, want)):
-                        needed = max(0, needed - self._dispatch_chunk(needed))
-                    if not admitted and not stepped and want <= 0:
+                    did_v, chunk_ok = False, True
+                    if self.speculative:
+                        did_v, chunk_ok = self._spec_regime(stepped, depth)
+                    want = 0
+                    if chunk_ok:
+                        want = min(-(-needed // self.decode_chunk), self.lookahead - depth)
+                        for _ in range(max(0, want)):
+                            needed = max(0, needed - self._dispatch_chunk(needed))
+                            if self.speculative:
+                                self._spec_hold -= 1
+                    if not admitted and not stepped and not did_v and want <= 0:
                         self._kick.wait(timeout=0.005)
                         self._kick.clear()
         except Exception as e:  # noqa: BLE001 — a dead engine must end every stream
             self._fail(e)
             raise
+
+    def _spec_regime(self, stepped: bool, depth: int) -> tuple[bool, bool]:
+        """The speculative regime's policy for one scheduler pass (JAX
+        ``_schedule_loop``): decode advances through verify programs, up
+        to the lookahead depth, whenever anything drafts. A clean-pipe
+        attempt whose eligible lanes drafted nothing buys a burst of
+        ``_SPEC_REPROBE_CHUNKS`` plain chunks (``_spec_hold``); when it is
+        spent the pipe drains and speculation probes again. Chunks and
+        verifies never interleave: a chunk advances every device-active
+        slot from the device tail and would double-advance a verify's
+        slots. Returns (a verify was dispatched, chunks may dispatch).
+
+        One repair against the reference: the burst ends with the slots
+        that bought it, so a scheduler pass that starts with no slot
+        decoding drops what is left of it (``_schedule_loop``). The JAX
+        engine keeps it: an idle pass (its attempt finds no lane) or a
+        last token (no room to draft) buys a burst that only chunks
+        spend, and the next requests decode their first 16 chunks without
+        speculating."""
+        with self._lock:
+            kinds = {e[0] for e in self._inflight}
+            if self._processing is not None:
+                kinds.add(self._processing[0])
+        ver_fly = "verify" in kinds
+        dec_fly = bool(kinds - {"prefill"})
+        did_v = False
+        if not stepped and depth < self.lookahead and self._spec_hold <= 0:
+            did_v = self._dispatch_verify()
+            if not did_v and not dec_fly:
+                self._spec_hold = self._SPEC_REPROBE_CHUNKS
+        return did_v, not ver_fly and not did_v and self._spec_hold > 0
 
     def _fail(self, e: BaseException) -> None:
         self.error = f"{type(e).__name__}: {e}"
@@ -743,8 +859,11 @@ class LLMEngine:
         if self._processing is not None:
             entries.append(self._processing)
         for e in entries:
-            if e[0] == "prefill":
-                # a hit group carries each request's first token
+            if e[0] in ("prefill", "verify"):
+                # a hit group carries each request's first token; a
+                # verify's yield depends on the data (1 to W tokens), so
+                # it counts its guaranteed ONE: more could virtually free
+                # a slot on tokens that never arrive
                 for slot, r in e[2]:
                     if r is self._slot_req[slot]:
                         steps[slot] = steps.get(slot, 0) + 1
@@ -1202,6 +1321,116 @@ class LLMEngine:
             self._work_cv.notify()
             return k
 
+    def _spec_drafts(self, r: GenRequest, kcap: int) -> tuple[list[int], list[int]]:
+        """(draft, predicted emitted span) for one decoding slot (JAX
+        ``_spec_drafts``, unconstrained): the draft length follows the
+        request's acceptance EMA (``spec.draft_len``: a backed-off request
+        runs a plain lane, with a 1-token probe every SPEC_PROBE_EVERY),
+        capped at what the request can still emit and at ``kcap``. ONE
+        drafter call for k + 1 tokens over the OPTIMISTIC stream (prompt +
+        history + the predicted spans of verifies in flight): the first k
+        are the draft, the overhang predicts the bonus token. A
+        misprediction only mis-aims later drafts (they are rejected),
+        never the emitted stream. Lock held."""
+        kmax = min(self.spec_draft, r.max_new_tokens - r.emitted - len(r._spec_pending) - 1, kcap)
+        k = draft_len(r._spec_ema, kmax, r._spec_plain)
+        stream = r.prompt_tokens + r.history + r._spec_pending
+        d_full = self.drafter.draft(stream, k + 1) if k > 0 else []
+        d = d_full[:k]
+        if not d:
+            r._spec_plain += 1
+            return [], [stream[-1]]
+        return d, d + (d_full[k : k + 1] or d[-1:])
+
+    def _dispatch_verify(self) -> bool:
+        """One verify program (JAX ``_dispatch_verify``, paged and
+        unconstrained): every decoding slot whose in-flight coverage is
+        verify-only gets its draft packed into one all-slot
+        ``llm.step_v{W}``; a lane whose drafter proposed nothing rides as
+        a draft-0 plain lane, so speculation never splits the batch.
+        Verifies pipeline to the lookahead depth: the program chains tail
+        and length from device state, so a verify dispatched before its
+        predecessor's fetch is an exact continuation; only its drafts
+        (aimed by the optimistic stream) can go stale. Selected lanes
+        charge W tokens each against ``step_token_budget`` (floored at
+        one lane); the scan starts at ``_spec_rr``, where the last
+        budget-cut scan stopped, so no slot starves.
+
+        Each lane's rows stay inside the blocks its request reserved: the
+        device length is at most prompt + emitted - 1 (the tail token is
+        not written yet) plus the rows of the lane's verifies in flight,
+        and the draft is cut so that this verify's rows fit under
+        ``_kv_limit`` (a row past a table's materialized entries would
+        land in a stale block). With sharing on they land at or above the
+        length, in the slot's PRIVATE blocks (published full blocks lie
+        below every cursor).
+
+        Returns False when no lane was eligible or nothing was drafted
+        anywhere (plain chunks then do better)."""
+        Kd = self.spec_draft
+        W = Kd + 1
+        with self._work_cv:
+            steps = self._inflight_steps()
+            # per slot of the current owner: verifies in flight and the
+            # rows they may write
+            ver_cover: dict[int, int] = {}
+            fly_rows: dict[int, int] = {}
+            for e in list(self._inflight) + [e for e in (self._processing,) if e is not None]:
+                if e[0] != "verify":
+                    continue
+                for slot, r in e[2]:
+                    if r is self._slot_req[slot]:
+                        ver_cover[slot] = ver_cover.get(slot, 0) + 1
+                        fly_rows[slot] = fly_rows.get(slot, 0) + e[3]["n_draft"][slot] + 1
+            budget = self.step_token_budget or self.slots * W
+            pack = np.zeros((self.slots, Kd + 2), np.int32)
+            sel: list[tuple[int, GenRequest]] = []
+            n_draft: dict[int, int] = {}
+            pred: dict[int, list[int]] = {}
+            rows: dict[int, int] = {}
+            start = self._spec_rr % self.slots
+            cut = None
+            for slot in [*range(start, self.slots), *range(start)]:
+                r = self._slot_req[slot]
+                if (
+                    r is None or not r.prefill_done or r.cancelled or r.finish_reason is not None
+                    or steps.get(slot, 0) != ver_cover.get(slot, 0)
+                    or r.emitted + len(r._spec_pending) >= r.max_new_tokens
+                ):
+                    continue
+                dev_hi = len(r.prompt_tokens) + r.emitted - 1 + fly_rows.get(slot, 0)
+                room = (r._kv_limit or self.kv.capacity) - dev_hi
+                if room < 1:
+                    continue  # its verifies in flight may fill the reservation
+                if sel and (len(sel) + 1) * W > budget:
+                    cut = slot
+                    break
+                d, p = self._spec_drafts(r, room - 1)
+                pack[slot, : len(d)] = d
+                pack[slot, Kd] = len(d)
+                pack[slot, Kd + 1] = 1
+                sel.append((slot, r))
+                n_draft[slot], pred[slot], rows[slot] = len(d), p, dev_hi + len(d) + 1
+            proposed = sum(n_draft.values())
+            if not proposed:
+                return False
+            if cut is not None:
+                self._spec_rr = cut
+            for slot, r in sel:
+                r._spec_pending = r._spec_pending + pred[slot]
+                r._spec_inflight += 1
+                self.spec_plain += not n_draft[slot]
+                self._grow(slot, r, rows[slot])
+            name = f"llm.step_v{W}"
+            self._ensure_family(name)
+            self._in.write(self._host_tables(), np.zeros((self.slots,), bool), verify=pack)
+            fetch = _Fetch(self._launch(name))
+            self._inflight.append(("verify", fetch, sel, {"W": W, "n_draft": n_draft, "pred": pred}))
+            self.spec_steps += 1
+            self.spec_proposed += proposed
+            self._work_cv.notify()
+            return True
+
     def _emit_to(self, r: GenRequest, slot: int, toks: list[int], now: float) -> None:
         """Append a request's next tokens, honoring max_new/eos/cancel and
         the -1 non-finite sentinel. Tokens after a finish are dropped.
@@ -1279,7 +1508,7 @@ class LLMEngine:
 
     @staticmethod
     def _entry_requests(entry: tuple) -> list[GenRequest]:
-        if entry[0] == "prefill":
+        if entry[0] in ("prefill", "verify"):
             return [r for _s, r in entry[2]]
         snapshot = entry[4] if entry[0] == "step" else entry[2]
         out = [r for r in snapshot if r is not None]
@@ -1293,6 +1522,9 @@ class LLMEngine:
         ``_processing`` in the same lock acquisition as the emits."""
         toks = entry[1].wait()
         now = time.perf_counter()
+        if entry[0] == "verify":
+            self._process_verify_entry(entry, toks, now)
+            return
         with self._lock:
             if entry[0] == "prefill":
                 for j, (slot, r) in enumerate(entry[2]):
@@ -1311,6 +1543,50 @@ class LLMEngine:
                 if r is not None:
                     self._emit_to(r, slot, cols[:, slot].tolist(), now)
             self._processing = None
+
+    def _process_verify_entry(self, entry: tuple, toks: np.ndarray, now: float) -> None:
+        """Emit one verify's tokens (JAX ``_process_verify_entry``, its
+        emit core): per selected slot, the accepted draft tokens plus the
+        bonus token, ``ys[slot, :acc + 1]``, as ONE push through
+        ``_emit_to`` (max_new, eos and cancel truncation; a retired
+        request's tokens are dropped). Updates the acceptance EMA that
+        sizes the next draft and reconciles the optimistic stream: an
+        exact prediction pops its span, any misprediction clears it (later
+        verifies in flight still emit valid tokens; their drafts were only
+        mis-aimed)."""
+        _, _fetch, sel, info = entry
+        S, W = self.slots, info["W"]
+        ys, acc = toks[: S * W].reshape(S, W), toks[S * W :]
+        with self._lock:
+            for slot, r in sel:
+                a = int(acc[slot])
+                out = ys[slot, : a + 1].tolist()
+                self.spec_accepted += a
+                nd = info["n_draft"][slot]
+                if nd:
+                    r._spec_ema = (1 - SPEC_EMA_ALPHA) * r._spec_ema + SPEC_EMA_ALPHA * (a / nd)
+                    r._spec_plain = 0
+                p = info["pred"][slot]
+                if out == p and r._spec_pending[: len(p)] == p:
+                    r._spec_pending = r._spec_pending[len(p) :]
+                else:
+                    r._spec_pending = []
+                r._spec_inflight = max(0, r._spec_inflight - 1)
+                self._emit_to(r, slot, out, now)
+            self._processing = None
+
+    def _spec_summary(self) -> dict:
+        """Speculation counters (JAX ``_spec_summary``'s keys); the
+        constrained split stays at zero until grammar-constrained decoding
+        is ported."""
+        rate = round(self.spec_accepted / self.spec_proposed, 3) if self.spec_proposed else None
+        return {
+            "enabled": self.speculative, "draft": self.spec_draft, "steps": self.spec_steps,
+            "proposed": self.spec_proposed, "accepted": self.spec_accepted, "plain_lanes": self.spec_plain,
+            "accept_rate": rate,
+            "constrained": {"proposed": 0, "accepted": 0, "accept_rate": None},
+            "unconstrained": {"proposed": self.spec_proposed, "accepted": self.spec_accepted, "accept_rate": rate},
+        }
 
     # -- device programs ------------------------------------------------------
     def _launch(self, name: str) -> torch.Tensor:
@@ -1358,6 +1634,8 @@ class LLMEngine:
                 meta = np.zeros((2, nb), np.int32)
                 meta[0, :] = self.slots
                 self._in.write(self._tables_np, live, meta, np.zeros((nb, shape + 3), np.int32))
+            elif kind == "verify":  # no lane selected
+                self._in.write(self._tables_np, live, verify=np.zeros((self.slots, arg + 1), np.int32))
             else:
                 self._in.write_seed(self._inert_seed())
             tail = self._tail.clone()
@@ -1458,3 +1736,36 @@ class LLMEngine:
         _scatter_slots(self._active, slot_idx, True)
         _scatter_slots(self._temps, slot_idx, req_temps)
         return first
+
+    def _verify_program(self) -> torch.Tensor:
+        """``llm.step_v{W}`` (JAX ``_verify_paged``) on the staged verify
+        pack: each selected slot appends its tail token and draft (n_draft
+        + 1 rows) through ``verify_chunk`` on the dense all-slot view (an
+        int8 pool dequantized in the model dtype), the rows go back
+        through the tables (quantized again for an int8 pool), every
+        position is sampled, the longest prefix agreeing with the draft is
+        accepted ON DEVICE, and the slot's length and tail advance to the
+        accepted state IN PLACE. Rejected rows stay above the length,
+        masked until the next append overwrites them. Returns ys [slots,
+        W] then acc [slots], flat int32."""
+        Kd, cfg, sc = self.spec_draft, self.cfg, self.pool_scales
+        vp, tables, length = self._in.verify(), self._in.tables(), self.pool.length
+        drafts, n_draft, sel = vp[:, :Kd], vp[:, Kd], vp[:, Kd + 1] == 1
+        n_in = torch.where(sel, n_draft + 1, 0)
+        toks = torch.cat([self._tail[:, None], drafts], dim=1)
+        dense = gather_slots(
+            self.pool.k, self.pool.v, tables, length,
+            scales=None if sc is None else (sc[0], sc[1]), dtype=cfg.dtype,
+        )
+        logits, nd = verify_chunk(self.params, cfg, toks, dense, length, n_in)
+        j = torch.arange(Kd + 1, device=self.device)[None, :]
+        pos = length[:, None].long() + j
+        valid = (j < n_in[:, None]) & (pos < self.kv.capacity)
+        scatter_rows(self.pool.k, self.pool.v, tables, _rows_at(nd.k, pos), _rows_at(nd.v, pos), pos, valid, scales=sc)
+        ys = torch.stack([self._sample(logits[:, i], self._temps, self._gen) for i in range(Kd + 1)], dim=1)
+        agree = (ys[:, :Kd] == drafts) & (j[:, :Kd] < n_draft[:, None])
+        acc = torch.cumprod(agree.to(torch.int32), dim=1).sum(dim=1).to(torch.int32)
+        bonus = ys.gather(1, acc[:, None].long())[:, 0]
+        length.copy_(torch.where(sel, length + acc + 1, length))
+        self._tail.copy_(torch.where(sel, bonus, self._tail))
+        return torch.cat([ys.reshape(-1), acc])

@@ -10,6 +10,7 @@ from .transformer import (
     params_from_jax,
     prefill_append,
     transformer_forward,
+    verify_chunk,
 )
 
 __all__ = [
@@ -27,4 +28,5 @@ __all__ = [
     "quantize",
     "quantize_params",
     "transformer_forward",
+    "verify_chunk",
 ]

@@ -20,9 +20,11 @@ package, prefill chunks and the full-prompt forward run W8A8 products
 tensors take a plain ``x @ w`` either way.
 
 Serving entry points: ``prefill_append`` (one chunked-prefill append into
-a gathered per-slot view, write-then-attend through ``flash_attention``)
-and ``decode_chunk_paged`` (fused decode steps reading the paged pool,
-bf16/f32 or int8, through ``paged_decode_partials``).
+a gathered per-slot view, write-then-attend through ``flash_attention``),
+``verify_chunk`` (the same append, every position unembedded: a
+speculative draft's scores) and ``decode_chunk_paged`` (fused decode steps
+reading the paged pool, bf16/f32 or int8, through
+``paged_decode_partials``). W8A8 products for int8 weights in both appends.
 ``transformer_forward`` is the plain oracle: dense causal attention
 through ``mha_reference``, no kernels.
 """
@@ -335,6 +337,28 @@ def prefill_append(
     last = torch.clamp(n_new.long() - 1, 0, c - 1)
     x_last = torch.gather(x, 1, last[:, None, None].expand(-1, 1, x.shape[-1]))
     logits = _unembed_last(params, cfg, x_last)
+    return logits, KVCache(k=ks, v=vs, length=(cursors + n_new).to(torch.int32))
+
+
+@torch.no_grad()
+def verify_chunk(
+    params: dict,
+    cfg: TransformerConfig,
+    tokens: torch.Tensor,  # [b, c] — last accepted token | draft tokens
+    cache: KVCache,  # [L, b, capacity, hkv, hd] slot rows (gathered)
+    cursors: torch.Tensor,  # [b] int32 — tokens already resident
+    n_new: torch.Tensor,  # [b] int32 — valid tokens (1 + drafts; <= c)
+) -> tuple[torch.Tensor, KVCache]:
+    """Score every position of a speculative draft in ONE forward pass:
+    the same write-then-attend chunk append as ``prefill_append``, so
+    position i sees exactly the keys a sequential decode of
+    tokens[:i + 1] would, but ALL c positions are unembedded. Rows the
+    engine rejects sit above its rolled-back cursor, causally masked
+    until the next append overwrites them. Returns (per-position logits
+    [b, c, vocab] f32, the cache written in place with length = cursors
+    + n_new); positions >= n_new carry garbage logits."""
+    x, (ks, vs) = _append_forward(params, cfg, tokens, cache, cursors, n_new)
+    logits = _unembed(params, cfg, rms_norm(x, params["final_norm"], cfg.norm_eps))
     return logits, KVCache(k=ks, v=vs, length=(cursors + n_new).to(torch.int32))
 
 

@@ -16,7 +16,8 @@ Config (process environment, or ``configs/.env``): ``GEMMA_PRESET``
 ``LLM_SLOTS`` (4), ``LLM_MAX_SEQ`` (256); ``TORCH_DEVICE=cpu`` runs on the CPU (default: the GPU,
 raising without one); ``HTTP_PORT`` (8000), ``REQUEST_TIMEOUT`` (5 s);
 ``TPU_LLM_PREFIX_CACHE_MB``, ``TPU_LLM_SESSION_MB`` and ``TPU_LLM_HOST_CACHE_MB``
-turn on the prefix cache and the ``X-GoFr-Session`` tier (``GPURuntime``).
+turn on the prefix cache and the ``X-GoFr-Session`` tier, ``TPU_LLM_SPEC=1``
+(with ``TPU_LLM_SPEC_DRAFT``) speculative decoding (``GPURuntime``).
 Weights are random, made from a ``torch.Generator`` seeded with 0: loading a
 checkpoint (``GEMMA_CKPT``) is not ported and raises.
 """

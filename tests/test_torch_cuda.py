@@ -110,6 +110,25 @@ class TestKernelsOnCard:
         assert torch.count_nonzero(got[0, :53]) > 0
         torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
 
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("c", [1, 5, 17])
+    def test_flash_verify_widths(self, cuda, dtype, c):
+        """The verify program's chunk widths (W = draft + 1: 5 at the
+        default draft, 17 at its clamp) at Gemma-2B's heads, q_offsets at
+        decode-time cursors, one of them near the end of the cache."""
+        g = torch.Generator(device=cuda).manual_seed(c)
+        b, sk = 6, 256
+        q = torch.randn((b, c, 8, 256), generator=g, device=cuda).to(dtype)
+        k = torch.randn((b, sk, 1, 256), generator=g, device=cuda).to(dtype)
+        v = torch.randn((b, sk, 1, 256), generator=g, device=cuda).to(dtype)
+        off = torch.tensor([0, 3, 16, 77, 200, sk - c], dtype=torch.int32, device=cuda)
+        before = TA.flash_attention.launches
+        got = TA.flash_attention(q, k, v, q_offsets=off)
+        want = TA.flash_attention_plain(q, k, v, q_offsets=off)
+        assert TA.flash_attention.launches == before + 1
+        tol = 1e-4 if dtype == torch.float32 else 2e-2
+        torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
     @pytest.mark.parametrize("c", [12, 5])
     def test_chunk_prefill_any_width_launches_flash(self, cuda, c):
         """A chunk width that is not a multiple of 8 still runs the kernel."""
@@ -311,6 +330,48 @@ class TestGraphsOnCard:
                 assert check_family(eng, name, seed=50, temperature=1000.0, replays=2)["draws_differ"], name
         finally:
             eng.close()
+
+    @pytest.mark.parametrize("mode", ["f32", "bf16", "int8"])
+    def test_verify_family_replays_equal_eager(self, cuda, mode):
+        """``llm.step_v5`` of a speculating engine: 11 families (the 10
+        above plus the verify), each replay bitwise its eager program on a
+        random state and pack, the flash kernel once per layer per replay
+        and no paged kernel; fresh draws at a high temperature."""
+        from chip_smoke import check_family
+
+        eng = _tiny_engine(cuda, mode, speculative=True)
+        try:
+            assert sorted(eng.families) == sorted(
+                [f"llm.step_p{s}_d8.w{w}" for s in (8, 16) for w in (1, 2, 4)]
+                + ["llm.decode_chunk8", "llm.decode_chunk2", "llm.step_v5"]
+            )
+            r = check_family(eng, "llm.step_v5", seed=7, replays=3)
+            assert r["eager_equal"], r["state_equal"]
+            assert r["launches"] == {k: 3 * n for k, n in r["captured"].items()}
+            assert r["captured"].get("flash_attention") == eng.cfg.n_layers
+            assert not any(n for k, n in r["captured"].items() if k.startswith("paged_decode"))
+            assert check_family(eng, "llm.step_v5", seed=8, temperature=1000.0, replays=2)["draws_differ"]
+        finally:
+            eng.close()
+
+    def test_spec_engine_serves_the_spec_off_tokens(self, cuda):
+        """Greedy tokens with every verify on the card, whatever its
+        drafts: a drafter that always proposes the last token repeated."""
+
+        class RepeatDrafter:
+            def draft(self, tokens, k):
+                return [tokens[-1]] * k if k > 0 else []
+
+        plain = _tiny_engine(cuda, "f32")
+        spec = _tiny_engine(cuda, "f32", speculative=True)
+        spec.drafter = RepeatDrafter()
+        try:
+            for prompt in (([5, 6, 7, 8] * 8)[:20], list(range(5, 25))):
+                assert spec.generate(prompt, max_new_tokens=30) == plain.generate(prompt, max_new_tokens=30)
+            assert spec.stats()["spec"]["steps"] > 0
+        finally:
+            plain.close()
+            spec.close()
 
     def test_lazy_capture_serves_the_same_tokens(self, cuda):
         warm = _tiny_engine(cuda, "f32")

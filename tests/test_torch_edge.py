@@ -267,11 +267,11 @@ def test_register_llm_refuses_unported(weights):
 
     cfg = TT.TransformerConfig.tiny()
     rt = GPURuntime(new_mock_config({"TORCH_DEVICE": "cpu"}))
-    for kw in ({"speculative": True}, {"replicas": 2}, {"lora_slots": 2}, {"kv_paged": False}):
+    for kw in ({"mesh": object()}, {"replicas": 2}, {"lora_slots": 2}, {"kv_paged": False}):
         with pytest.raises(NotImplementedError, match=next(iter(kw))):
             rt.register_llm("m", cfg, tp, **kw)
-    with pytest.raises(NotImplementedError, match="TPU_LLM_SPEC"):
-        GPURuntime(new_mock_config({"TPU_LLM_SPEC": "1"})).register_llm("m", cfg, tp, device="cpu")
+    with pytest.raises(NotImplementedError, match="TPU_LLM_CONSTRAINED"):
+        GPURuntime(new_mock_config({"TPU_LLM_CONSTRAINED": "1"})).register_llm("m", cfg, tp, device="cpu")
     # the prefix cache and the session tier are ported: their knobs build an
     # engine with a radix (and, for sessions, a host tier of TPU_LLM_HOST_CACHE_MB)
     for knob, value in (("TPU_LLM_SESSION_MB", "64"), ("TPU_LLM_PREFIX_CACHE_MB", "8")):
@@ -295,3 +295,55 @@ def test_register_llm_refuses_unported(weights):
         assert eng.stats()["kvcache"]["int8"] is True and eng.device.type == "cpu"
     finally:
         eng.close()
+
+
+def test_register_llm_builds_a_spec_engine(weights):
+    """Speculation is ported: the kwargs and the TPU_LLM_SPEC /
+    TPU_LLM_SPEC_DRAFT knobs (defaults for kwargs left out, as the JAX
+    runtime reads them) build a speculating engine."""
+    _jcfg, _jp, tp = weights
+    from gofr_tpu_torch.datasource.gpu import GPURuntime
+
+    cfg = TT.TransformerConfig.tiny()
+    cases = (
+        ({}, {"speculative": True}, 4),
+        ({"TPU_LLM_SPEC": "1", "TPU_LLM_SPEC_DRAFT": "2"}, {}, 2),
+        ({"TPU_LLM_SPEC": "1", "TPU_LLM_SPEC_DRAFT": "2"}, {"spec_draft": 3}, 3),
+        ({"TPU_LLM_SPEC": "0"}, {}, 0),
+    )
+    for knobs, kw, draft in cases:
+        eng = GPURuntime(new_mock_config({"TORCH_DEVICE": "cpu", **knobs})).register_llm(
+            "m", cfg, tp, slots=2, max_seq_len=64, **kw)
+        try:
+            st = eng.stats()["spec"]
+            assert st["enabled"] is (draft > 0) and st["draft"] == draft
+            assert (f"llm.step_v{draft + 1}" in eng._programs) is (draft > 0)
+        finally:
+            eng.close()
+
+
+def test_generate_with_spec_same_answer(weights):
+    """/generate with TPU_LLM_SPEC=1 on both apps: the port's speculating
+    engine answers what the JAX app's does."""
+    jcfg, jp, tp = weights
+    example = _example_module()
+    japp = gofr_tpu.new(config=jax_mock_config({
+        **COMMON, "METRICS_PORT": "0", "TRACE_EXPORTER": "none", "TPU_LLM_SPEC": "1",
+    }))
+    japp.container.tpu().register_llm(
+        "gemma", jcfg, jp, warmup=False, kv_paged=True,
+        slots=SLOTS, max_seq_len=MAX_SEQ, prefill_buckets=(16, 64, 128),
+    )
+    japp.post("/generate", example.generate)
+    papp = serve.build_app(new_mock_config({**PORT_CONFIG, "TPU_LLM_SPEC": "1"}), params=tp)
+    threads = [japp.run_in_background(), papp.run_in_background()]
+    try:
+        for tokens in (([5, 6, 7, 8] * 8)[:20], _prompt(4, 11)):
+            (js, jb), (ps, pb) = _both((japp, papp), "POST", "/generate", {"tokens": tokens, "max_new_tokens": 24})
+            assert (js, ps) == (201, 201) and pb == jb
+        st = _engine(papp).stats()["spec"]
+        assert _engine(japp).stats()["spec"]["enabled"] and st["enabled"] and st["steps"] > 0
+    finally:
+        for app, th in zip((japp, papp), threads):
+            app.shutdown()
+            th.join(timeout=10)
