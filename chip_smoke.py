@@ -82,9 +82,27 @@ Phases, each raising on failure:
    tok/s, TTFT, verifies, plain chunks, unified steps, acceptance and
    tokens per verify lane per burst. Then spec int8 (kv_int8=True, 4
    requests, the oracle drafter);
-10. report — a "kernels" JSON line (launches on the engine phase's main
-   path, in the prefix phases as "prefix_launches" and in the spec
-   phases as "spec_launches"), then the last line
+10. structured — grammar-constrained decoding at the same full width: a
+   JSON schema (string, integer, enum and bounded-array fields) and a
+   regex compiled against the ByteTokenizer's 256,000-id vocabulary
+   (compile ms, states, table bytes); the engine at its defaults (no
+   constrained family at warmup) serves 8 seeded prompts with no grammar,
+   then with 4 of them constrained (the first constrained request
+   captures the constrained families: seconds and memory printed), again
+   (timed), and at temperature 0.9. Gates: every constrained output ends
+   on eos and is valid; every constrained token is the argmax of the
+   plain forward over the tokens its grammar admits (near-ties exempt);
+   the unconstrained streams equal the grammar-free run's; every
+   constrained family's replay is bitwise its eager program; no block or
+   grammar reference held once idle. Prints tok/s and TTFT against the
+   grammar-free burst and the device time of llm.decode_chunk8g beside
+   llm.decode_chunk8. Then a speculating engine on the greedy burst (the
+   spec-off tokens, near-ties exempt; constrained and unconstrained
+   acceptance) and an int8 KV engine with 2 constrained requests;
+11. report — a "kernels" JSON line (launches on the engine phase's main
+   path, in the prefix phases as "prefix_launches", in the spec phases as
+   "spec_launches" and in the structured phase as
+   "structured_launches"), then the last line
    {"ok": true, "device": {...}}.
 
 Imports nothing of JAX and nothing of the JAX package. Exits non-zero,
@@ -98,6 +116,7 @@ import ctypes
 import http.client
 import json
 import math
+import re
 import socket
 import statistics
 import subprocess
@@ -109,6 +128,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from gofr_tpu_torch import llm as TL
 from gofr_tpu_torch.kvcache import gather_slots, quantize_rows, scatter_rows
 from gofr_tpu_torch.llm import KV_BLOCK, GenRequest, LLMEngine
 from gofr_tpu_torch.models import (
@@ -122,8 +142,10 @@ from gofr_tpu_torch.models import (
     transformer_forward,
 )
 from gofr_tpu_torch.models import transformer as T
+from gofr_tpu_torch.models.tokenizer import ByteTokenizer
 from gofr_tpu_torch.ops import _build
 from gofr_tpu_torch.ops import attention as A
+from gofr_tpu_torch.structured import compile_json_schema, compile_regex, vocab_from_tokenizer
 
 SEED = 0  # inputs, weights and prompts are all made from it
 
@@ -177,11 +199,12 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, kernel: str, iters: int = 20) -> float:
+def device_ms(fn, kernel: str | None, iters: int = 20) -> float:
     """Device time of one launch of the kernel whose name contains
     ``kernel``: the same launches as time_ms, run under torch.profiler, and
     the kernel's self device time over its launch count. No host time is
-    in it, where time_ms of a short kernel is paced by the host."""
+    in it, where time_ms of a short kernel is paced by the host. With
+    ``kernel`` None: the device time of every kernel one fn() launches."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -191,7 +214,9 @@ def device_ms(fn, kernel: str, iters: int = 20) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and kernel in e.key]
+    ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and (kernel is None or kernel in e.key)]
+    if kernel is None:
+        return sum(e.self_device_time_total for e in ev) / iters / 1e3
     count = sum(e.count for e in ev)
     if count != iters:
         raise AssertionError(f"profiler saw {count} launches of {kernel!r}, expected {iters}")
@@ -567,7 +592,7 @@ def _engine_state(eng) -> dict:
     """Every tensor the engine's programs write: the pool's K/V rows (and
     an int8 pool's scales), lengths, tail, active mask and temperatures."""
     state = {"k": eng.pool.k, "v": eng.pool.v, "length": eng.pool.length, "tail": eng._tail,
-             "active": eng._active, "temps": eng._temps}
+             "active": eng._active, "temps": eng._temps, "gstate": eng._gstate}
     if eng.pool_scales is not None:
         state["scales"] = eng.pool_scales
     return state
@@ -596,7 +621,10 @@ def _family_inputs(eng, name: str, g: torch.Generator, temperature: float):
     slots, two lanes padding. Hit: random staged logits, first tokens for
     distinct slots, the last lane padding when the width allows. Verify:
     every slot active on private blocks, all but the last selected, with
-    random drafts of lengths 0..Kd."""
+    random drafts of lengths 0..Kd. A constrained family (``...g``) also
+    gets random grammar ids (a resident grammar or -1) and DFA states
+    below each grammar's terminal row, the step's rows the ids and states
+    of their slots; it needs a resident grammar."""
     cfg, slots, K = eng.cfg, eng.slots, eng.decode_chunk
     cap, MB, NB = eng.kv.capacity, eng.kv.table_width, eng.kv.pool.n_blocks
     dev = eng.device
@@ -607,7 +635,15 @@ def _family_inputs(eng, name: str, g: torch.Generator, temperature: float):
         for t in (eng.pool.k, eng.pool.v):
             t.copy_(torch.randint(-127, 128, t.shape, generator=g, device=dev, dtype=torch.int8))
         eng.pool_scales.copy_(torch.rand(eng.pool_scales.shape, generator=g, device=dev) * 0.02 + 1e-3)
-    _fn, kind, arg = eng._programs[name]
+    _fn, kind, arg = eng._program(name)
+    gids = None
+    if name in eng._programs_g:
+        resident = [i for i, gr in enumerate(eng._grammars) if gr is not None]
+        pick = torch.randint(0, len(resident) + 1, (slots,), generator=g, device=dev).cpu().tolist()
+        gids = np.array([resident[p] if p < len(resident) else -1 for p in pick], np.int32)
+        states = [int(torch.randint(0, max(1, eng._grammars[i].n_states - 1), (1,), generator=g, device=dev))
+                  if i >= 0 else 0 for i in gids]
+        eng._gstate.copy_(torch.tensor(states, dtype=torch.int32, device=dev))
     shape = arg[0] if kind == "step" else 0
     lengths = torch.randint(1, cap - shape - 2 * K, (slots,), generator=g, device=dev, dtype=torch.int32)
     eng.pool.length.copy_(lengths)
@@ -637,20 +673,21 @@ def _family_inputs(eng, name: str, g: torch.Generator, temperature: float):
     tables = torch.randperm(NB, generator=g, device=dev)[: slots * MB].reshape(slots, MB).int().cpu().numpy()
     live = np.ones((slots,), bool)
     if kind == "chunk":
-        return lambda: eng._in.write(tables, live)
+        return lambda: eng._in.write(tables, live, gids=gids)
     if kind == "verify":
         Kd = arg - 1
         vpack = np.zeros((slots, Kd + 2), np.int32)
         vpack[:, :Kd] = torch.randint(1, cfg.vocab_size, (slots, Kd), generator=g, device=dev).cpu().numpy()
         vpack[:, Kd] = np.arange(slots) % (Kd + 1)
         vpack[: slots - 1, Kd + 1] = 1
-        return lambda: eng._in.write(tables, live, verify=vpack)
+        return lambda: eng._in.write(tables, live, verify=vpack, gids=gids)
     nb = arg[1]
     rows = nb - 1 if nb > 1 else 1
     lens = lengths.cpu().numpy()
     pack = np.zeros((nb, shape + 3), np.int32)
-    meta = np.zeros((2, nb), np.int32)
+    meta = np.zeros((2 if gids is None else 4, nb), np.int32)
     meta[0, :] = slots
+    meta[2:] = -1
     toks = torch.randint(1, cfg.vocab_size, (nb, shape), generator=g, device=dev).cpu().numpy()
     for j in range(rows):
         n = shape - j
@@ -658,7 +695,9 @@ def _family_inputs(eng, name: str, g: torch.Generator, temperature: float):
         pack[j, shape], pack[j, shape + 1] = lens[j], n
         pack[j, shape + 2] = np.float32(temperature).view(np.int32)
         meta[0, j], meta[1, j] = j, j % 2
-    return lambda: eng._in.write(tables, live, meta, pack)
+        if gids is not None:
+            meta[2, j], meta[3, j] = gids[j], 0 if gids[j] < 0 else states[j]
+    return lambda: eng._in.write(tables, live, meta, pack, gids=gids)
 
 
 def _outputs(out) -> tuple:
@@ -686,7 +725,7 @@ def check_family(eng, name: str, seed: int, temperature: float = 0.0, replays: i
         stage = _family_inputs(eng, name, g, temperature)
         s0 = _snapshot(eng)
         stage()
-        eager = _outputs(eng._programs[name][0]())
+        eager = _outputs(eng._program(name)[0]())
         s_eager = _snapshot(eng)
         before = {k: getattr(*A._counter(k)) for k in fam.launches}
         draws, s_replay = [], None
@@ -875,7 +914,7 @@ def _check_families(label: str, eng, seed: int) -> None:
     programs hold no kernel."""
     for i, name in enumerate(eng.families):
         r = check_family(eng, name, seed + i)
-        kind = eng._programs[name][1]
+        kind = eng._program(name)[1]
         print(f"{label}replay vs eager {name}: outputs and state bitwise "
               f"{'equal' if r['eager_equal'] else 'DIFFERENT ' + str(r['state_equal'])}; launches per replay "
               f"{r['launches']} (captured {r['captured']})")
@@ -1495,10 +1534,11 @@ def _spec_burst(eng, label: str, prompts, counters: tuple) -> dict:
     return run
 
 
-def _divergence_at_near_ties(params, cfg, prompts, got, want, gap: float, label: str) -> int:
+def _divergence_at_near_ties(params, cfg, prompts, got, want, gap: float, label: str, grammars=None) -> int:
     """Where a stream of ``got`` leaves the one ``want`` served for the same
     prompt, it must do so at a near-tie: the plain forward's top-2 gap
-    after the common prefix below ``gap`` (the replay gate's exemption).
+    after the common prefix below ``gap`` (the replay gate's exemption),
+    among the tokens its grammar admits there when ``grammars[i]`` is one.
     Returns the streams that differ."""
     differ = 0
     for i, p in enumerate(prompts):
@@ -1511,6 +1551,10 @@ def _divergence_at_near_ties(params, cfg, prompts, got, want, gap: float, label:
             params, cfg, torch.tensor([seq], device="cuda"), torch.arange(len(seq), device="cuda")[None, :],
             unembed_positions=torch.tensor([len(seq) - 1], device="cuda"),
         )[0, 0]
+        gr = grammars[i] if grammars else None
+        if gr is not None:
+            allowed = torch.from_numpy(gr.allowed(gr.advance_all(gr.start, want[i][:j]))).to("cuda")
+            logits = logits.masked_fill(~allowed, float("-inf"))
         top2 = torch.topk(logits, 2).values
         g = float(top2[0] - top2[1])
         print(f"{label}request {i} (prompt {len(p)}) leaves the spec-off stream at token {j}: top-2 gap {g:.4f}")
@@ -1633,6 +1677,325 @@ def phase_spec(dev: dict, seed: int, cfg: TransformerConfig, params: dict) -> di
             "int8": {x: v for x, v in r8.items() if x != "results"}, "launches": launches, "warmup": warm,
             "program_ms": prog_ms,
             "tokens_matched": checked, "tokens_exempt": exempt}
+
+
+# The structured phase's traffic: an API whose clients ask for JSON under
+# a schema (string, integer, enum and bounded-array fields) or for an id
+# matching a regex, beside clients asking for free text. Eight seeded
+# prompts of these lengths, all at once: even indices constrained
+# (schema, regex, schema, regex), odd ones not. STRUCT_NEW_TOKENS covers
+# the schema's longest document (127 bytes, each one token of the byte
+# vocabulary) and its eos, so every constrained request can close.
+STRUCT_SCHEMA = {
+    "type": "object",
+    "properties": {
+        "name": {"type": "string", "maxLength": 8},
+        "age": {"type": "integer"},
+        "color": {"enum": ["red", "green", "blue"]},
+        "tags": {"type": "array", "items": {"enum": ["x", "y", "z"]}, "maxItems": 3},
+    },
+}
+STRUCT_REGEX = r"[A-Z][a-z]{2,9}-\d{3}"
+STRUCT_PROMPTS = (24, 40, 56, 72, 88, 104, 120, 136)
+STRUCT_NEW_TOKENS = 128
+
+
+def _schema_valid(obj, schema: dict) -> bool:
+    """``obj`` under the subset of JSON schema STRUCT_SCHEMA uses (the
+    card's machine has no jsonschema package): object with every property
+    (none required means all, as the compiler emits them), string with
+    maxLength, integer, enum, array with items and maxItems."""
+    if "enum" in schema:
+        return obj in schema["enum"]
+    t = schema["type"]
+    if t == "object":
+        props = schema["properties"]
+        return isinstance(obj, dict) and set(obj) == set(props) and all(
+            _schema_valid(obj[k], s) for k, s in props.items())
+    if t == "array":
+        return isinstance(obj, list) and len(obj) <= schema.get("maxItems", len(obj)) and all(
+            _schema_valid(x, schema["items"]) for x in obj)
+    if t == "string":
+        return isinstance(obj, str) and len(obj) <= schema.get("maxLength", len(obj))
+    if t == "integer":
+        return isinstance(obj, int) and not isinstance(obj, bool)
+    raise ValueError(f"schema type {t!r} outside the checked subset")
+
+
+def _struct_valid(kind: str, text: str) -> bool:
+    if kind == "regex":
+        return re.fullmatch(STRUCT_REGEX, text) is not None
+    try:
+        return _schema_valid(json.loads(text), STRUCT_SCHEMA)
+    except ValueError:
+        return False
+
+
+def _struct_burst(eng, label: str, prompts, grammars, counters: tuple, temperature: float = 0.0) -> dict:
+    """Serve ``prompts`` submitted together (``grammars[i]`` None: free
+    text) with the kernel counters zeroed just before: wall time to the
+    last stream's end, tok/s, TTFT from each request's own timestamps,
+    programs and launches."""
+    for name in counters:
+        fn, attr = A._counter(name)
+        setattr(fn, attr, 0)
+    st0 = eng.stats()
+    reqs = [GenRequest(p, max_new_tokens=STRUCT_NEW_TOKENS, temperature=temperature, grammar=g)
+            for p, g in zip(prompts, grammars)]
+    t0 = time.perf_counter()
+    _submit_together(eng, reqs)
+    results = {i: r.tokens(timeout=600) for i, r in enumerate(reqs)}
+    wall = time.perf_counter() - t0
+    st = eng.stats()
+    ttfts = sorted(r.first_token_at - r.submitted_at for r in reqs)
+    total = sum(len(t) for t in results.values())
+    run = {
+        "results": results, "reqs": reqs, "wall_s": wall, "tokens": total, "tok_s": total / wall,
+        "ttft_p50_s": ttfts[len(ttfts) // 2], "ttft_max_s": ttfts[-1],
+        "programs": st["chunks"] - st0["chunks"], "steps": st["steps"] - st0["steps"],
+        "launches": {name: getattr(*A._counter(name)) for name in counters},
+    }
+    print(f"{label}: {len(prompts)} requests ({sum(g is not None for g in grammars)} constrained) at temperature "
+          f"{temperature}, {total} tokens in {wall:.3f}s = {run['tok_s']:.1f} tok/s; ttft p50 "
+          f"{run['ttft_p50_s']:.4f}s max {run['ttft_max_s']:.4f}s; {run['programs']} programs ({run['steps']} "
+          f"unified steps); launches {run['launches']}")
+    return run
+
+
+def _struct_outputs(label: str, run: dict, kinds, tok) -> None:
+    """Gate (a): every constrained stream ends on eos and its text is valid
+    under its schema or regex."""
+    for i, kind in enumerate(kinds):
+        if kind is None:
+            continue
+        r, toks = run["reqs"][i], run["results"][i]
+        text = tok.decode(toks)
+        if r.finish_reason != "eos" or toks[-1] != tok.eos_id or not _struct_valid(kind, text):
+            raise AssertionError(f"{label}request {i} ({kind}): finish {r.finish_reason}, text {text!r}")
+        print(f"{label}request {i} ({kind}, {len(toks)} tokens): {text!r}")
+
+
+def _masked_replay_gate(params, cfg, prompts, results, grammars, gap: float, label: str) -> tuple[int, int]:
+    """Gate (b): every constrained token against the argmax, over the
+    tokens its grammar admits at its DFA state, of the plain full-prompt
+    forward on ``params`` (no kernels), teacher-forced on the served
+    stream, unless the top-2 gap among the admitted tokens is below
+    ``gap``. Returns (tokens matched, tokens exempt)."""
+    checked = exempt = 0
+    for i, (p, g) in enumerate(zip(prompts, grammars)):
+        if g is None:
+            continue
+        toks = results[i]
+        seq = p + toks[:-1]
+        logits = transformer_forward(
+            params, cfg, torch.tensor([seq], device="cuda"), torch.arange(len(seq), device="cuda")[None, :]
+        )[0, len(p) - 1 :]
+        s = g.start
+        for j, t in enumerate(toks):
+            allowed = torch.from_numpy(g.allowed(s)).to("cuda")
+            top = torch.topk(logits[j].masked_fill(~allowed, float("-inf")), 2)
+            want, gap_j = int(top.indices[0]), float(top.values[0] - top.values[1])
+            if t == want:
+                checked += 1
+            elif gap_j < gap:
+                exempt += 1
+            else:
+                raise AssertionError(f"{label}request {i}: token {j} served {t} != masked plain argmax {want}, "
+                                     f"admitted top-2 gap {gap_j:.4f}")
+            s = g.advance(s, t)
+        del logits
+    return checked, exempt
+
+
+def phase_structured(dev: dict, seed: int, cfg: TransformerConfig, params: dict) -> dict:
+    """Grammar-constrained decoding at Gemma-2B's full width: STRUCT_SCHEMA
+    and STRUCT_REGEX compiled against the ByteTokenizer's 256,000-id
+    vocabulary (compile ms, states, table bytes), then the engine at its
+    defaults (constrained decoding on, no constrained family captured at
+    warmup): the 8 prompts with no grammar (the reference), the burst with
+    4 constrained (its first constrained request captures the constrained
+    families), the burst again (timed), and at temperature 0.9. Gates:
+    (a) every constrained output ends on eos and is valid; (b) every
+    constrained token is the masked argmax of the plain forward,
+    teacher-forced (near-ties exempt); (c) the unconstrained streams equal
+    the grammar-free run's; (d) every constrained family's replay is
+    bitwise its eager program on a cloned random state with grammar ids
+    and DFA states set; (e) once idle, no block in use and no grammar
+    reference held. Then a speculating engine on the greedy burst (its
+    tokens those of the spec-off engine, near-ties exempt) and an int8 KV
+    engine with 2 constrained requests."""
+    tok = ByteTokenizer(cfg.vocab_size)
+    vocab = vocab_from_tokenizer(tok)
+    t0 = time.perf_counter()
+    g_schema = compile_json_schema(STRUCT_SCHEMA, vocab, tok.eos_id)
+    t1 = time.perf_counter()
+    g_regex = compile_regex(STRUCT_REGEX, vocab, tok.eos_id)
+    t2 = time.perf_counter()
+    compile_ms = {"schema": (t1 - t0) * 1e3, "regex": (t2 - t1) * 1e3}
+    for kind, g in (("schema", g_schema), ("regex", g_regex)):
+        print(f"structured grammar {kind}: {g.n_states} states over {g.vocab_size} tokens, table "
+              f"{g.table.nbytes} bytes, compiled in {compile_ms[kind]:.1f} ms (host, one CPU core)")
+    rng = np.random.default_rng(seed + 20)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist() for n in STRUCT_PROMPTS]
+    kinds = ["schema" if i % 4 == 0 else "regex" if i % 4 == 2 else None for i in range(len(prompts))]
+    grammars = [g_schema if k == "schema" else g_regex if k == "regex" else None for k in kinds]
+    plain = [None] * len(prompts)
+    counters = ("flash_attention", "paged_decode_partials", "paged_decode_partials_int8")
+    launches = dict.fromkeys(counters, 0)
+
+    def tally(run):
+        for k, n in run["launches"].items():
+            launches[k] += n
+
+    eng = LLMEngine(cfg, params, seed=seed)
+    try:
+        warm = _warm_report("structured ", eng)
+        if any(n in eng.families for n in eng._programs_g) or eng.g_captures:
+            raise AssertionError(f"structured: a constrained family was captured at warmup: {list(eng.families)}")
+        eng.generate([1, 2, 3], max_new_tokens=4)
+        ref = _struct_burst(eng, "structured burst N (no grammar)", prompts, plain, counters)
+        if eng._gtab is not None or eng.g_captures:
+            raise AssertionError("structured: an engine that saw no grammar made a grammar table or captured")
+        tally(ref)
+        first = _struct_burst(eng, "structured burst C1 (4 constrained; first use captures)", prompts, grammars,
+                              counters)
+        tally(first)
+        before, after = eng.g_reserved
+        print(f"structured capture: {len(eng._programs_g)} constrained families captured at the first constrained "
+              f"request in {eng.g_capture_s:.3f} s; memory_reserved {before} -> {after} bytes (+{after - before}); "
+              f"table {tuple(eng._gtab.shape)} int32 = {eng._gtab.numel() * 4} bytes; captures {eng.g_captures}")
+        run = _struct_burst(eng, "structured burst C2 (4 constrained)", prompts, grammars, counters)
+        tally(run)
+        if run["results"] != first["results"]:
+            raise AssertionError("structured: the greedy burst served other tokens the second time")
+        for label, r in (("structured C1 ", first), ("structured C2 ", run)):
+            _struct_outputs(label, r, kinds, tok)
+        checked, exempt = _masked_replay_gate(params, cfg, prompts, run["results"], grammars, TOKEN_GAP,
+                                              "structured ")
+        for i, k in enumerate(kinds):
+            if k is None and run["results"][i] != ref["results"][i]:
+                raise AssertionError(f"structured: unconstrained request {i} differs from the grammar-free run")
+        print(f"structured gates: (a) 4 constrained outputs valid in C1 and C2; (b) {checked} constrained tokens "
+              f"equal the masked plain argmax, {exempt} exempt (admitted top-2 gap < {TOKEN_GAP}); (c) the 4 "
+              f"unconstrained streams equal the grammar-free run's")
+        for i, name in enumerate(eng._programs_g):
+            r = check_family(eng, name, seed + 200 + i)
+            kind = eng._program(name)[1]
+            print(f"structured replay vs eager {name}: outputs and state bitwise "
+                  f"{'equal' if r['eager_equal'] else 'DIFFERENT ' + str(r['state_equal'])}; launches per "
+                  f"replay {r['launches']} (captured {r['captured']})")
+            if not r["eager_equal"] or r["launches"] != r["captured"]:
+                raise AssertionError(f"structured {name}: {r}")
+            if bool(r["captured"].get("paged_decode_partials")) != (kind in ("step", "chunk")) or bool(
+                    r["captured"].get("flash_attention")) != (kind in ("step", "verify")):
+                raise AssertionError(f"structured {name} ({kind}): launches {r['captured']}")
+        # the two chunks in turns (plain, constrained, constrained, plain)
+        order = ("llm.decode_chunk8", "llm.decode_chunk8g", "llm.decode_chunk8g", "llm.decode_chunk8")
+        reads = [(name, program_ms(eng, name, seed)) for name in order]
+        prog_ms = {name: statistics.mean(t for n, t in reads if n == name) for name in order[:2]}
+        print(f"structured program device time, one replay on a random state of all 32 slots (CUDA events, mean "
+              f"of 10, two runs each in turns): llm.decode_chunk8g {prog_ms['llm.decode_chunk8g']:.3f} ms, "
+              f"llm.decode_chunk8 {prog_ms['llm.decode_chunk8']:.3f} ms (runs {[round(t, 3) for _n, t in reads]}; "
+              f"difference {prog_ms['llm.decode_chunk8g'] - prog_ms['llm.decode_chunk8']:.3f} ms a chunk)")
+        # one sampling site alone, every lane constrained: the mask and
+        # advance's device time beside the plain sampler's, and the bound
+        # of its added work (the logits and the gathered table rows read)
+        V, S = cfg.vocab_size, eng.slots
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        lg = torch.randn((S, V), generator=gen, device="cuda") * 4
+        temps = torch.zeros((S,), device="cuda")
+        gids = torch.zeros((S,), dtype=torch.int32, device="cuda")
+        gst = torch.randint(0, g_schema.n_states - 1, (S,), generator=gen, device="cuda", dtype=torch.int32)
+        site = {"plain": device_ms(lambda: LLMEngine._sample(lg, temps, gen), None),
+                "masked": device_ms(lambda: TL._g_sample(lg, temps, gen, eng._gtab, gids, gst), None)}
+        site["mask_bound"] = 2 * S * V * 4 / dev["peaks"][0] * 1e3
+        print(f"structured sampling site [{S}, {V}] (torch.profiler, device time of every kernel, mean of 20): "
+              f"plain {site['plain']:.4f} ms, masked {site['masked']:.4f} ms (mask and advance "
+              f"{site['masked'] - site['plain']:.4f} ms a site, {8 * (site['masked'] - site['plain']):.4f} ms for "
+              f"the 8 sites of a chunk; bound of the added reads {site['mask_bound']:.4f} ms, bytes)")
+        sampled = _struct_burst(eng, "structured burst S (temperature 0.9)", prompts, grammars, counters, 0.9)
+        tally(sampled)
+        _struct_outputs("structured S ", sampled, kinds, tok)
+        idle = _idle(eng, "structured ")
+        if idle["blocks_in_use"] or any(eng._g_refs):
+            raise AssertionError(f"structured: idle with {idle['blocks_in_use']} blocks, grammar refs {eng._g_refs}")
+        print(f"structured gate (e): idle with 0 blocks in use, grammar refs {eng._g_refs}; "
+              f"stats {eng.stats()['constrained']}")
+        capture = {"s": eng.g_capture_s, "reserved_before": before, "reserved_after": after}
+    finally:
+        eng.close()
+    torch.cuda.empty_cache()
+
+    def warm_constrained(e) -> float:
+        """A constrained warm-up request outside the timed burst: its
+        engine captures the constrained families there. Returns the
+        capture's seconds."""
+        e.generate([1, 2, 3], max_new_tokens=4)
+        warm = [GenRequest([1, 2, 3], max_new_tokens=STRUCT_NEW_TOKENS, grammar=g) for g in (g_schema, g_regex)]
+        _submit_together(e, warm)  # both grammars in one table sync: one capture
+        for r in warm:
+            r.tokens(timeout=600)
+        if e.g_captures != 1:
+            raise AssertionError(f"structured warm-up captured the constrained families {e.g_captures} times")
+        return e.g_capture_s
+
+    spec = LLMEngine(cfg, params, seed=seed, speculative=True, spec_draft=4)
+    try:
+        spec_capture = warm_constrained(spec)
+        sp0 = spec.stats()["spec"]
+        sr = _struct_burst(spec, "structured spec burst (greedy)", prompts, grammars, counters)
+        tally(sr)
+        sp1 = spec.stats()["spec"]
+        sp = {"steps": sp1["steps"] - sp0["steps"]}
+        for split in ("constrained", "unconstrained"):
+            prop, acc = (sp1[split][x] - sp0[split][x] for x in ("proposed", "accepted"))
+            sp[split] = {"proposed": prop, "accepted": acc, "accept_rate": round(acc / prop, 3) if prop else None}
+        _idle(spec, "structured spec ")
+    finally:
+        spec.close()
+    _struct_outputs("structured spec ", sr, kinds, tok)
+    differ = _divergence_at_near_ties(params, cfg, prompts, sr["results"], run["results"], TOKEN_GAP,
+                                      "structured spec ", grammars)
+    rates = {k: sp[k]["accept_rate"] for k in ("constrained", "unconstrained")}
+    print(f"structured spec: {len(spec._programs_g)} constrained families captured in {spec_capture:.3f} s at "
+          f"the warm-up request; {sp['steps']} verifies; constrained proposed {sp['constrained']['proposed']} accepted "
+          f"{sp['constrained']['accepted']} (rate {rates['constrained']}); unconstrained proposed "
+          f"{sp['unconstrained']['proposed']} accepted {sp['unconstrained']['accepted']} (rate "
+          f"{rates['unconstrained']}); {differ} streams differ from spec off")
+    if not sp["steps"] or not sp["constrained"]["proposed"]:
+        raise AssertionError(f"structured spec: no constrained verify ran: {sp}")
+    torch.cuda.empty_cache()
+
+    p8, g8, k8 = prompts[:4:2], grammars[:4:2], kinds[:4:2]
+    eng8 = LLMEngine(cfg, params, seed=seed, kv_int8=True)
+    try:
+        int8_capture = warm_constrained(eng8)
+        r8 = _struct_burst(eng8, "structured int8 burst (kv_int8, 2 constrained)", p8, g8, counters)
+        tally(r8)
+        _idle(eng8, "structured int8 ")
+    finally:
+        eng8.close()
+    _struct_outputs("structured int8 ", r8, k8, tok)
+    c8, e8 = _masked_replay_gate(params, cfg, p8, r8["results"], g8, INT8_TOKEN_GAP, "structured int8 ")
+    print(f"structured int8: {c8} constrained tokens equal the masked plain argmax, {e8} exempt "
+          f"(gap < {INT8_TOKEN_GAP}); constrained families captured in {int8_capture:.3f} s at the warm-up request")
+    if 8 * e8 > r8["tokens"] or not r8["launches"]["paged_decode_partials_int8"] or r8["launches"][
+            "paged_decode_partials"]:
+        raise AssertionError(f"structured int8: {e8} of {r8['tokens']} exempt; launches {r8['launches']}")
+    for name in ("flash_attention", "paged_decode_partials"):
+        if not run["launches"][name]:
+            raise AssertionError(f"structured: {name} was not launched in the constrained burst: {run['launches']}")
+    print(f"structured engine gemma_2b on {dev['smi']}: greedy burst {run['tok_s']:.1f} tok/s constrained "
+          f"(C2) against {ref['tok_s']:.1f} tok/s with no grammar; ttft p50 {run['ttft_p50_s']:.4f}s max "
+          f"{run['ttft_max_s']:.4f}s (no grammar {ref['ttft_p50_s']:.4f}s / {ref['ttft_max_s']:.4f}s); C1 with "
+          f"the capture {first['tok_s']:.1f} tok/s, ttft max {first['ttft_max_s']:.4f}s; capture "
+          f"{capture['s']:.3f} s, +{capture['reserved_after'] - capture['reserved_before']} bytes; "
+          f"phase launches {launches}")
+    strip = lambda r: {k: v for k, v in r.items() if k not in ("results", "reqs")}  # noqa: E731
+    return {"launches": launches, "compile_ms": compile_ms, "capture": capture, "program_ms": prog_ms, "site": site,
+            "warmup": warm, "runs": {"N": strip(ref), "C1": strip(first), "C2": strip(run), "S": strip(sampled),
+                                     "spec": strip(sr), "int8": strip(r8)},
+            "spec": sp, "tokens_matched": checked, "tokens_exempt": exempt}
 
 
 def _wait_for(pred, seconds: float) -> bool:
@@ -1827,6 +2190,7 @@ def main() -> int:
     pre = timed("prefix", phase_prefix, dev, SEED, cfg, params)
     pre8 = timed("prefix int8", phase_prefix_int8, dev, SEED, cfg, params)
     spec = timed("spec", phase_spec, dev, SEED, cfg, params)
+    structured = timed("structured", phase_structured, dev, SEED, cfg, params)
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     # name -> (source, replaced Pallas kernel, timing key, engine run whose
     # launches count, prefix phases' launches)
@@ -1845,7 +2209,7 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": run["launches"][name], "prefix_launches": prefix_launches,
-            "spec_launches": spec["launches"][name],
+            "spec_launches": spec["launches"][name], "structured_launches": structured["launches"][name],
             "max_abs_err": kern["errs"][name],
             "ms": t["ms"], "device_ms": t["device_ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],

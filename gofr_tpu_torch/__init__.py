@@ -14,6 +14,8 @@ mirror the JAX package so each counterpart is easy to find:
   with its radix prefix index and session tier;
 - ``spec`` — the n-gram drafter and acceptance policy of speculative
   decoding (``models.transformer.verify_chunk`` scores the drafts);
+- ``structured`` — the JSON-schema / regex -> token-DFA compiler of
+  grammar-constrained decoding (host numpy; the engine masks on the card);
 - ``llm`` — ``GenRequest`` and ``LLMEngine``;
 - the serving edge: ``serve`` (``python -m gofr_tpu_torch.serve``:
   ``/generate``, ``/stats`` and the OpenAI routes of ``openai_compat``),

@@ -10,14 +10,16 @@ the config sets ``TORCH_DEVICE=cpu``; without a GPU it raises.
 Only what the port's engine has is accepted: the kwargs ``slots``,
 ``max_seq_len``, ``prefill_buckets``, ``quantize``, ``kv_int8``, ``seed``,
 ``device``, ``lookahead``, ``warmup``, ``prefix_cache_mb``,
-``session_mb``, ``host_cache_mb``, ``speculative``, ``spec_draft`` and
-``kv_paged=True`` (the port's one layout), and the config knobs
-``TPU_LLM_KV_INT8``, ``TPU_LLM_PREFIX_CACHE_MB``, ``TPU_LLM_SESSION_MB``,
-``TPU_LLM_HOST_CACHE_MB``, ``TPU_LLM_SPEC`` and ``TPU_LLM_SPEC_DRAFT``
-(read as the JAX runtime reads them: defaults for the kwargs a caller
-leaves out). Any other kwarg, and any of the JAX runtime's engine knobs
-set to ask for a feature the port lacks (grammars, replicas, meshes,
-LoRA, ...), raises ``NotImplementedError`` naming it; none is ignored.
+``session_mb``, ``host_cache_mb``, ``speculative``, ``spec_draft``,
+``constrained``, ``constrained_grammars`` and ``kv_paged=True`` (the
+port's one layout), and the config knobs ``TPU_LLM_KV_INT8``,
+``TPU_LLM_PREFIX_CACHE_MB``, ``TPU_LLM_SESSION_MB``,
+``TPU_LLM_HOST_CACHE_MB``, ``TPU_LLM_SPEC``, ``TPU_LLM_SPEC_DRAFT``,
+``TPU_LLM_CONSTRAINED`` and ``TPU_LLM_CONSTRAINED_GRAMMARS`` (read as the
+JAX runtime reads them: defaults for the kwargs a caller leaves out).
+Any other kwarg, and any of the JAX runtime's engine knobs set to ask for
+a feature the port lacks (replicas, meshes, LoRA, ...), raises
+``NotImplementedError`` naming it; none is ignored.
 The JAX package's plain-model registry (``register_model`` and its
 dynamic batcher) is not ported.
 """
@@ -37,7 +39,8 @@ __all__ = ["GPURuntime"]
 
 _ENGINE_KWARGS = (
     "slots", "max_seq_len", "prefill_buckets", "quantize", "kv_int8", "seed", "device", "lookahead", "warmup",
-    "prefix_cache_mb", "session_mb", "host_cache_mb", "speculative", "spec_draft",
+    "prefix_cache_mb", "session_mb", "host_cache_mb", "speculative", "spec_draft", "constrained",
+    "constrained_grammars",
 )
 
 # The JAX runtime's engine knobs that select a feature this port lacks,
@@ -49,8 +52,6 @@ _UNPORTED_KNOBS = {
     "TPU_LLM_KV_BLOCK": (str(KV_BLOCK),),
     "TPU_LLM_STEP_WATCHDOG_S": ("0",),
     "TPU_LLM_NUMERIC_CHECK": ("1",),
-    "TPU_LLM_CONSTRAINED": ("0",),
-    "TPU_LLM_CONSTRAINED_GRAMMARS": (),
     "TPU_LLM_LORA_SLOTS": ("0",),
     "TPU_LLM_LORA_RANK_MAX": (),
     "TPU_LLM_FLIGHT_RECORDS": ("0",),
@@ -80,6 +81,8 @@ class GPURuntime:
         self.default_llm_host_cache_mb = get("TPU_LLM_HOST_CACHE_MB")
         self.default_llm_spec = get("TPU_LLM_SPEC")
         self.default_llm_spec_draft = get("TPU_LLM_SPEC_DRAFT")
+        self.default_llm_constrained = get("TPU_LLM_CONSTRAINED")
+        self.default_llm_constrained_grammars = get("TPU_LLM_CONSTRAINED_GRAMMARS")
         self._knobs = {k: get(k) for k in _UNPORTED_KNOBS}
         self._llms: dict[str, LLMEngine] = {}
         self._lock = threading.Lock()
@@ -113,6 +116,10 @@ class GPURuntime:
             engine_kw.setdefault("speculative", self.default_llm_spec != "0")
         if self.default_llm_spec_draft != "":
             engine_kw.setdefault("spec_draft", int(self.default_llm_spec_draft))
+        if self.default_llm_constrained != "":
+            engine_kw.setdefault("constrained", self.default_llm_constrained != "0")
+        if self.default_llm_constrained_grammars != "":
+            engine_kw.setdefault("constrained_grammars", int(self.default_llm_constrained_grammars))
         engine_kw.setdefault("device", self.default_device)
         engine = LLMEngine(cfg, params, **engine_kw)
         with self._lock:

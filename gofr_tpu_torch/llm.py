@@ -75,19 +75,36 @@ configuration:
   pipeline to the lookahead depth; each counts one guaranteed token per
   lane in ``_inflight_steps``. A clean-pipe attempt whose lanes drafted
   nothing buys 16 plain chunks; chunks and verifies never interleave
-  (``_spec_regime``). Greedy spec-on streams equal spec-off's.
+  (``_spec_regime``). Greedy spec-on streams equal spec-off's;
+- grammar-constrained decoding, on by default as in the JAX engine
+  (``constrained=None`` reads ``TPU_LLM_CONSTRAINED``, default "1") and
+  engaged per request: a ``GenRequest.grammar`` (a ``structured``
+  ``TokenGrammar``) masks every sampled token to what its DFA state
+  admits. The resident grammars live in one padded device table
+  [G, Smax, vocab] (``_register_grammar``, ``_g_sync``) and each slot's
+  DFA state in a device vector chained like the tail (``_gstate``). While
+  any resident request is constrained, every dispatch runs the
+  constrained twin of its program (``llm.step_p{S}_d{K}g.w{nb}``,
+  ``llm.decode_chunk{K}g``, ``llm.step_v{W}g``; per-slot grammar ids in
+  the staged inputs, -1 for an unconstrained lane, whose logits are left
+  untouched). Those families are captured at the first constrained
+  request, never at warmup, and again when the table's padding grows
+  (``_g_prepare``). A constrained request is always a full prefill (no
+  radix lookup); its speculative drafts are filtered and extended through
+  the grammar (``_spec_drafts``).
 
 The pack/meta layouts of the JAX programs are kept: pack [nb, S+3] int32
 = tokens | cursor | n_new | temperature bits; meta [2, nb] int32 = slot
-(``slots`` for inert padding lanes) | finish flag.
+(``slots`` for inert padding lanes) | finish flag, and [4, nb] in a
+constrained step: + grammar id (-1: none) | start DFA state.
 
-Left out of this slice (queued in ROADMAP.md): every other feature that is
-off by default in the JAX engine (grammar-constrained decoding and its
-verify variant, LoRA, overload control and fair queuing, goodput, flight
-recorder, KV handoff, the speculation metrics series), plus the
-monolithic wave scheduler. ``GenRequest`` carries the edge's ``priority``
-and ``client`` so the edge hands them over as the JAX edge does, but this
-FIFO scheduler does not act on them.
+Left out of this slice (queued in ROADMAP.md): LoRA, overload control
+and fair queuing, goodput, flight recorder, KV handoff, preemption and
+its continuation re-seeding, the metrics series of speculation and
+constrained decoding (the port has no metrics manager), the contiguous
+KV layout and the monolithic wave scheduler. ``GenRequest`` carries
+the edge's ``priority`` and ``client`` so the edge hands them over as the
+JAX edge does, but this FIFO scheduler does not act on them.
 """
 
 from __future__ import annotations
@@ -101,7 +118,7 @@ import threading
 import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Iterator
+from typing import Any, Iterator
 
 import numpy as np
 import torch
@@ -125,6 +142,21 @@ KV_BLOCK = 16  # tokens per KV pool block
 
 class EngineStoppedError(RuntimeError):
     """submit() on a closed engine."""
+
+
+class EngineOverloaded(RuntimeError):
+    """submit() found no capacity for the request (JAX
+    ``EngineOverloaded``; the port raises it when every resident-grammar
+    slot holds live requests). The edge answers 429 with ``retry_after``
+    seconds in a Retry-After header."""
+
+    status_code = 429
+    retry_after: float | None = None
+
+    def __init__(self, message: str = "", retry_after: float | None = None):
+        super().__init__(message)
+        if retry_after is not None:
+            self.retry_after = max(0.1, float(retry_after))
 
 
 class RequestFailed(RuntimeError):
@@ -151,6 +183,41 @@ def _sample_raw(logits: torch.Tensor, temps: torch.Tensor, generator, topk: int 
     local = (topv / temps.clamp(min=1e-4)[:, None] + gumbel).argmax(dim=-1)
     sampled = topi.gather(1, local[:, None])[:, 0]
     return torch.where(temps > 0.0, sampled, greedy).to(torch.int32)
+
+
+# Grammar-constrained sampling (JAX ``_g_rows``/``_g_mask``/``_g_sample``).
+# gtab [G, Smax, V] int32 is the resident-grammar transition table (entry
+# < 0: token not admitted in that state); gid [B] selects each lane's
+# grammar (-1: unconstrained) and gstate [B] its DFA state. The mask is a
+# large negative, not -inf (an all-masked padding row stays NaN-free), and
+# the watchdog runs on the RAW logits (a grammar mask is not a numerical
+# fault). Unconstrained lanes keep their logits untouched (a select, not a
+# +0 bias): that is what keeps them token-identical to the plain programs.
+_G_NEG = -1e30
+
+
+def _g_rows(gtab: torch.Tensor, gid: torch.Tensor, gstate: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """([B, V] next state per token, or < 0; [B] lanes the grammar
+    constrains)."""
+    G, Smax = gtab.shape[0], gtab.shape[1]
+    rows = gtab[gid.clamp(0, G - 1).long(), gstate.clamp(0, Smax - 1).long()]
+    on = (gid >= 0) & (gstate >= 0) & (gstate < Smax)
+    return rows, on
+
+
+def _g_mask(logits: torch.Tensor, rows: torch.Tensor, on: torch.Tensor) -> torch.Tensor:
+    return torch.where(on[:, None] & (rows < 0), _G_NEG, logits)
+
+
+def _g_sample(logits, temps, generator, gtab, gid, gstate) -> tuple[torch.Tensor, torch.Tensor]:
+    """One masked sample and DFA advance per lane: the stateful sampler
+    the constrained programs thread through decode chunks
+    (``decode_chunk_paged(sample_state=...)``). The mask comes before
+    ``_sample_raw``'s top-64, so a constrained draw is always admitted."""
+    rows, on = _g_rows(gtab, gid, gstate)
+    out = finite_guard(logits, _sample_raw(_g_mask(logits, rows, on), temps, generator))
+    nxt = rows.gather(1, out.clamp(min=0).long()[:, None])[:, 0]
+    return out, torch.where(on, nxt, gstate)
 
 
 def _scatter_slots(vec: torch.Tensor, idx: torch.Tensor, values) -> None:
@@ -196,6 +263,12 @@ class GenRequest:
     # LoRA adapter name: the port has no adapter pool, so submit() refuses
     # a non-empty name (as the JAX engine does without one).
     adapter: str = ""
+    # Grammar-constrained decoding (``structured``): a compiled
+    # TokenGrammar. Every sampled token is masked to what the grammar's
+    # current DFA state admits, so the output is valid by construction;
+    # the per-slot state advances inside the device programs. eos_token
+    # is taken from the grammar when unset. None = unconstrained.
+    grammar: Any = None
     id: int = field(default_factory=itertools.count().__next__)
 
     def __post_init__(self):
@@ -231,6 +304,12 @@ class GenRequest:
         self._spec_plain = 0
         self._spec_pending: list[int] = []
         self._spec_inflight = 0
+        # grammar-constrained decoding (engine-maintained): the resident
+        # grammar table slot (-1 while unconstrained) and the HOST mirror
+        # of the DFA state after every emitted token (the drafter's
+        # filter; the start state of the request's first-token mask)
+        self._g_id = -1
+        self._g_state = 0
 
     def _raise_terminal(self) -> None:
         if self.finish_reason == "error":
@@ -295,17 +374,18 @@ def _to_device(tree, device: torch.device):
 class _Inputs:
     """The programs' host inputs in ONE int32 device buffer at a fixed
     address, which every captured graph reads: tables [slots, MB] | live
-    [slots] | verify pack [slots, ver_width] (draft tokens | n_draft |
-    selected, of ``llm.step_v{W}``; empty with speculation off) | meta
-    [2, admit_cap] | pack [admit_cap, S_max + 3] (a step of nb rows and
-    shape S uses the first 2 nb and nb (S + 3) elements of the last two)
-    | seed [7, admit_cap] (srcs | dsts | slot_idx | lens of
-    ``llm.kv_seed``, then the hit programs' meta: slot | row | temperature
-    bits). ``write`` and ``write_seed`` fill it from a ring of ``depth``
-    pinned host buffers with one async copy of their own region; each
-    buffer is rewritten only after the event recorded behind its last
-    copy, so a later dispatch never overwrites pinned memory a queued copy
-    has not read yet."""
+    [slots] | gids [slots] (each slot's grammar id, -1 unconstrained; read
+    by the constrained families only) | verify pack [slots, ver_width]
+    (draft tokens | n_draft | selected, of ``llm.step_v{W}``; empty with
+    speculation off) | meta [4, admit_cap] | pack [admit_cap, S_max + 3]
+    (a step of nb rows and shape S uses the first 2 nb, or 4 nb for a
+    constrained step, and nb (S + 3) elements of the last two) | seed [7,
+    admit_cap] (srcs | dsts | slot_idx | lens of ``llm.kv_seed``, then the
+    hit programs' meta: slot | row | temperature bits). ``write`` and
+    ``write_seed`` fill it from a ring of ``depth`` pinned host buffers
+    with one async copy of their own region; each buffer is rewritten only
+    after the event recorded behind its last copy, so a later dispatch
+    never overwrites pinned memory a queued copy has not read yet."""
 
     def __init__(
         self, device, slots: int, table_width: int, admit_cap: int, max_shape: int, depth: int, ver_width: int = 0
@@ -313,9 +393,10 @@ class _Inputs:
         self.slots, self.table_width, self.admit_cap = slots, table_width, admit_cap
         self.ver_width = ver_width
         self.o_live = slots * table_width
-        self.o_ver = self.o_live + slots
+        self.o_gids = self.o_live + slots
+        self.o_ver = self.o_gids + slots
         self.o_meta = self.o_ver + slots * ver_width
-        self.o_pack = self.o_meta + 2 * admit_cap
+        self.o_pack = self.o_meta + 4 * admit_cap
         self.o_seed = self.o_pack + admit_cap * (max_shape + 3)
         size = self.o_seed + 7 * admit_cap
         self.dev = torch.zeros(size, dtype=torch.int32, device=device)
@@ -328,14 +409,17 @@ class _Inputs:
         return self.dev[: self.o_live].view(self.slots, self.table_width)
 
     def live(self) -> torch.Tensor:
-        return self.dev[self.o_live : self.o_ver] != 0
+        return self.dev[self.o_live : self.o_gids] != 0
+
+    def gids(self) -> torch.Tensor:
+        return self.dev[self.o_gids : self.o_ver]
 
     def verify(self) -> torch.Tensor:
         """[slots, ver_width]: draft tokens | n_draft | selected."""
         return self.dev[self.o_ver : self.o_meta].view(self.slots, self.ver_width)
 
-    def meta(self, nb: int) -> torch.Tensor:
-        return self.dev[self.o_meta : self.o_meta + 2 * nb].view(2, nb)
+    def meta(self, nb: int, rows: int = 2) -> torch.Tensor:
+        return self.dev[self.o_meta : self.o_meta + rows * nb].view(rows, nb)
 
     def pack(self, shape: int, nb: int) -> torch.Tensor:
         return self.dev[self.o_pack : self.o_pack + nb * (shape + 3)].view(nb, shape + 3)
@@ -363,13 +447,15 @@ class _Inputs:
         h[self.o_seed :] = seed.reshape(-1)
         self._copy(j, self.o_seed, h.size)
 
-    def write(self, tables: np.ndarray, live: np.ndarray, meta=None, pack=None, verify=None) -> None:
+    def write(self, tables: np.ndarray, live: np.ndarray, meta=None, pack=None, verify=None, gids=None) -> None:
         """Stage one dispatch's inputs (meta and pack for a unified step,
-        the verify pack for a verify) and enqueue their copy on the
-        current stream."""
+        the verify pack for a verify, the grammar ids for a constrained
+        program) and enqueue their copy on the current stream."""
         j, h = self._buffer()
         h[: self.o_live] = tables.reshape(-1)
-        h[self.o_live : self.o_ver] = live
+        h[self.o_live : self.o_gids] = live
+        if gids is not None:
+            h[self.o_gids : self.o_ver] = gids
         end = self.o_ver
         if verify is not None:
             h[self.o_ver : self.o_meta] = verify.reshape(-1)
@@ -434,7 +520,11 @@ class LLMEngine:
     that device budget, spilling to ``host_cache_mb`` of host memory.
     ``speculative=True`` decodes through n-gram drafts verified by
     ``llm.step_v{spec_draft + 1}``; ``None`` reads ``TPU_LLM_SPEC`` (and
-    ``spec_draft=None`` ``TPU_LLM_SPEC_DRAFT``), as the JAX engine does."""
+    ``spec_draft=None`` ``TPU_LLM_SPEC_DRAFT``), as the JAX engine does.
+    ``constrained`` admits requests with a grammar (``None`` reads
+    ``TPU_LLM_CONSTRAINED``, on unless "0"), with up to
+    ``constrained_grammars`` distinct grammars resident (``None`` reads
+    ``TPU_LLM_CONSTRAINED_GRAMMARS``, default 8)."""
 
     # plain decode chunks bought by one clean-pipe verify attempt whose
     # lanes drafted nothing (speculative mode); then speculation re-probes
@@ -459,6 +549,8 @@ class LLMEngine:
         host_cache_mb: float = 256.0,
         speculative: bool | None = None,
         spec_draft: int | None = None,
+        constrained: bool | None = None,
+        constrained_grammars: int | None = None,
     ):
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -506,6 +598,32 @@ class LLMEngine:
         self._tail = torch.zeros((slots,), dtype=torch.int32, device=dev)
         self._active = torch.zeros((slots,), dtype=torch.bool, device=dev)
         self._temps = torch.zeros((slots,), dtype=torch.float32, device=dev)
+        # grammar-constrained decoding (JAX llm.py:2336-2362): each slot's
+        # DFA state on the device, chained like the tail; the resident
+        # grammars and their reference counts on the host; the padded
+        # [G, Smax, vocab] transition table on the device, made at the
+        # first registration (``_g_sync``)
+        if constrained is None:
+            constrained = os.environ.get("TPU_LLM_CONSTRAINED", "1") != "0"
+        self.constrained = bool(constrained)
+        if constrained_grammars is None:
+            constrained_grammars = int(os.environ.get("TPU_LLM_CONSTRAINED_GRAMMARS", "8") or 8)
+        self._g_cap = max(1, int(constrained_grammars))
+        self._grammars: list[Any] = []  # resident TokenGrammars (index = gid)
+        self._g_refs: list[int] = []  # live requests holding each gid
+        self._g_dirty: set[int] = set()  # gids whose device rows are stale
+        self._gtab: torch.Tensor | None = None
+        self._g_uploads: list[tuple] = []  # (event, pinned rows) of copies in flight
+        self._gstate = torch.zeros((slots,), dtype=torch.int32, device=dev)
+        self.constrained_requests = 0  # lifetime constrained submissions
+        self.spec_proposed_c = 0  # drafts proposed for constrained lanes
+        self.spec_accepted_c = 0  # drafts accepted for constrained lanes
+        # the constrained families' captures (CUDA): how many times the set
+        # was captured (again after the table's padding grew), the seconds
+        # and the memory_reserved before/after of the first
+        self.g_captures = 0
+        self.g_capture_s: float | None = None
+        self.g_reserved: tuple[int, int] | None = None
         self._gen = torch.Generator(device=dev).manual_seed(seed)
         self._tables_np = np.zeros((slots, self.kv.table_width), np.int32)
         self._in = _Inputs(
@@ -541,6 +659,13 @@ class LLMEngine:
             self.drafter = NGramDrafter()
             W = self.spec_draft + 1
             self._programs[f"llm.step_v{W}"] = (self._verify_program, "verify", W)
+        # the constrained twins of the step, chunk and verify families,
+        # captured at the first constrained request (``_g_prepare``)
+        self._programs_g: dict[str, tuple] = {}
+        if self.constrained:
+            for name, (fn, kind, arg) in self._programs.items():
+                if kind in ("step", "chunk", "verify"):
+                    self._programs_g[self._g_name(name)] = (functools.partial(fn, g=True), kind, arg)
         self.families: dict[str, _Family] = {}  # captured (CUDA only)
         self.warmup_s: float | None = None
         # torch.cuda.memory_reserved() before and after the warmup capture
@@ -624,6 +749,25 @@ class LLMEngine:
         need = self.kv.reserve_need(plen, req.max_new_tokens)
         if need > self.kv.pool.n_blocks:
             raise ValueError(f"request needs {need} KV blocks, pool holds {self.kv.pool.n_blocks}")
+        if req.grammar is not None:  # JAX llm.py:2479-2497
+            if not self.constrained:
+                raise ValueError(
+                    "grammar-constrained decoding requires TPU_LLM_CONSTRAINED=1 "
+                    "(this engine was built with constrained=False)"
+                )
+            g = req.grammar
+            if req.eos_token < 0:
+                # the grammar's completion transition IS the eos: without
+                # it the stream would run past the closed value
+                req.eos_token = g.eos_id
+            elif req.eos_token != g.eos_id:
+                raise ValueError(
+                    f"request eos_token {req.eos_token} != grammar eos {g.eos_id} (the grammar closes the stream)"
+                )
+            with self._lock:
+                req._g_id = self._register_grammar(g)
+                self._g_refs[req._g_id] += 1
+                self.constrained_requests += 1
         req.submitted_at = time.perf_counter()
         with self._lock:
             self.submitted += 1
@@ -653,6 +797,7 @@ class LLMEngine:
                 "disconnect_cancels": self.disconnect_cancels,
                 "chunk_shapes": self.chunk_shapes,
                 "spec": self._spec_summary(),
+                "constrained": self._constrained_summary(),
                 "kvcache": self.kv.stats(),
                 "warmup_s": self.warmup_s,
                 "error": self.error,
@@ -695,6 +840,8 @@ class LLMEngine:
                         self._kv_sweep()
                         self._kv_session_spill()
                     admitted = self._admit()
+                    if self.constrained:
+                        self._g_prepare()
                     with self._lock:
                         # decode programs in flight (hit groups carry none)
                         entries = list(self._inflight) + [e for e in (self._processing,) if e is not None]
@@ -802,6 +949,11 @@ class LLMEngine:
             self.finished += 1
             self.deadline_cancels += reason == "deadline"
             self.disconnect_cancels += reason == "disconnect"
+            if 0 <= r._g_id < len(self._g_refs):
+                # the resident grammar becomes evictable once no live
+                # request holds it
+                self._g_refs[r._g_id] = max(0, self._g_refs[r._g_id] - 1)
+                r._g_id = -1
             slot = r.slot
             if slot is not None and self._slot_req[slot] is r:
                 self._slot_req[slot] = None
@@ -916,7 +1068,10 @@ class LLMEngine:
                 for r in pulled:
                     if r.session_id:
                         self._session_prepare(r.session_id)
-                    plan = self.kv.lookup_seed(r.prompt_tokens) if self.kv.share else None
+                    # a constrained request forces a radix miss (JAX
+                    # llm.py:5168-5176): an exact hit admits through the
+                    # hit program, which the grammar mask does not ride
+                    plan = self.kv.lookup_seed(r.prompt_tokens) if self.kv.share and r.grammar is None else None
                     r._kv_plan = plan
                     plen = len(r.prompt_tokens)
                     if not self.kv.admit_reserve(plen, r.max_new_tokens, plan):
@@ -1187,6 +1342,14 @@ class LLMEngine:
     def _step_name(self, shape: int, nb: int) -> str:
         return f"llm.step_p{shape}_d{self.decode_chunk}.w{nb}"
 
+    @staticmethod
+    def _g_name(name: str) -> str:
+        """The constrained twin's family name (JAX's ``g`` suffix, before
+        a step's width): ``llm.step_p16_d8.w4`` -> ``llm.step_p16_d8g.w4``,
+        ``llm.decode_chunk8`` -> ``llm.decode_chunk8g``."""
+        base, dot, width = name.partition(".w")
+        return f"{base}g{dot}{width}"
+
     def _host_tables(self) -> np.ndarray:
         t = self.kv.take_tables()
         if t is not None:
@@ -1243,9 +1406,15 @@ class LLMEngine:
                 return False
 
             nb = self._wave_width(len(rows))
+            # the constrained twin while any resident request has a grammar
+            # (JAX llm.py:5977-5981): one family per dispatch keeps the
+            # device DFA chain coherent; unconstrained lanes are untouched
+            use_g = self._grammar_live()
             pack = np.zeros((nb, shape + 3), np.int32)
-            meta = np.zeros((2, nb), np.int32)
+            meta = np.zeros((4 if use_g else 2, nb), np.int32)
             meta[0, :] = self.slots  # padding lanes: inert (their writes drop)
+            if use_g:
+                meta[2, :] = -1  # padding and unconstrained rows: no grammar
             finishes: list[tuple[int, int, GenRequest]] = []
             prefill_tokens = 0
             for j, (r, n) in enumerate(rows):
@@ -1257,6 +1426,11 @@ class LLMEngine:
                 meta[0, j] = r.slot
                 done = pos + n >= len(r.prompt_tokens)
                 meta[1, j] = 1 if done else 0
+                if use_g and r._g_id >= 0 and r._g_state >= 0:
+                    # the first token's mask and the slot's device state
+                    # start at the host mirror's state (0 for a fresh
+                    # request; JAX llm.py:5945-5952)
+                    meta[2, j], meta[3, j] = r._g_id, r._g_state
                 r.prefill_pos = pos + n
                 # blocks for the appended rows (+ the fused decode chunk
                 # when this row activates)
@@ -1277,8 +1451,10 @@ class LLMEngine:
                     self._grow(i, r, self._kv_hi[i] + K)
                 live[i] = True
             name = self._step_name(shape, nb)
+            if use_g:
+                name = self._g_name(name)
             self._ensure_family(name)
-            self._in.write(self._host_tables(), live, meta, pack)
+            self._stage(use_g, self._host_tables(), live, meta, pack)
             out = self._launch(name)
             toks, logits = out if self.kv.share else (out, None)
             fetch = _Fetch(toks)
@@ -1312,9 +1488,10 @@ class LLMEngine:
                     continue  # satisfied lane: must not advance past its blocks
                 live[i] = True
                 self._grow(i, r, self._kv_hi[i] + k)
-            name = f"llm.decode_chunk{k}"
+            use_g = self._grammar_live()  # JAX llm.py:5782-5786
+            name = f"llm.decode_chunk{k}" + ("g" if use_g else "")
             self._ensure_family(name)
-            self._in.write(self._host_tables(), live)
+            self._stage(use_g, self._host_tables(), live)
             fetch = _Fetch(self._launch(name))
             self._inflight.append(("chunk", fetch, snapshot, k))
             self.chunks += 1
@@ -1323,24 +1500,56 @@ class LLMEngine:
 
     def _spec_drafts(self, r: GenRequest, kcap: int) -> tuple[list[int], list[int]]:
         """(draft, predicted emitted span) for one decoding slot (JAX
-        ``_spec_drafts``, unconstrained): the draft length follows the
-        request's acceptance EMA (``spec.draft_len``: a backed-off request
-        runs a plain lane, with a 1-token probe every SPEC_PROBE_EVERY),
-        capped at what the request can still emit and at ``kcap``. ONE
-        drafter call for k + 1 tokens over the OPTIMISTIC stream (prompt +
-        history + the predicted spans of verifies in flight): the first k
-        are the draft, the overhang predicts the bonus token. A
-        misprediction only mis-aims later drafts (they are rejected),
-        never the emitted stream. Lock held."""
+        ``_spec_drafts``): the draft length follows the request's
+        acceptance EMA (``spec.draft_len``: a backed-off request runs a
+        plain lane, with a 1-token probe every SPEC_PROBE_EVERY), capped at
+        what the request can still emit and at ``kcap``. ONE drafter call
+        for k + 1 tokens over the OPTIMISTIC stream (prompt + history + the
+        predicted spans of verifies in flight): the first k are the draft,
+        the overhang predicts the bonus token. A misprediction only
+        mis-aims later drafts (they are rejected), never the emitted
+        stream. A constrained request's draft goes through its grammar
+        (``_g_draft``). Lock held."""
         kmax = min(self.spec_draft, r.max_new_tokens - r.emitted - len(r._spec_pending) - 1, kcap)
         k = draft_len(r._spec_ema, kmax, r._spec_plain)
         stream = r.prompt_tokens + r.history + r._spec_pending
         d_full = self.drafter.draft(stream, k + 1) if k > 0 else []
         d = d_full[:k]
+        bonus = d_full[k : k + 1] or d[-1:]
+        if r.grammar is not None and k > 0:
+            d, bonus = self._g_draft(r, d, d_full, k)
         if not d:
             r._spec_plain += 1
             return [], [stream[-1]]
-        return d, d + (d_full[k : k + 1] or d[-1:])
+        return d, d + bonus
+
+    @staticmethod
+    def _g_draft(r: GenRequest, d: list[int], d_full: list[int], k: int) -> tuple[list[int], list[int]]:
+        """A constrained request's (draft, bonus prediction) on its host
+        DFA mirror advanced over the spans in flight (JAX llm.py:6149-6199):
+        FILTER the draft at its first token the grammar refuses (a certain
+        rejection), FAST-FORWARD it through runs where the grammar admits
+        exactly one token (a certain acceptance, even where the drafter
+        proposed nothing), and aim the bonus at a forced token when the
+        state after the draft admits only one."""
+        g = r.grammar
+        st = g.advance_all(r._g_state, r._spec_pending)
+        if st < 0:
+            return [], []
+        d = g.filter_draft(st, d)
+        s = g.advance_all(st, d)
+        while len(d) < k and s >= 0:
+            forced = np.flatnonzero(g.allowed(s))
+            if len(forced) != 1:
+                break
+            d.append(int(forced[0]))
+            s = g.advance(s, int(forced[0]))
+        g_bonus: list[int] = []
+        if d and s >= 0:
+            forced = np.flatnonzero(g.allowed(s))
+            if len(forced) == 1:
+                g_bonus = [int(forced[0])]
+        return d, g_bonus or ((d_full[k : k + 1] if len(d) == k else d[-1:]) or d[-1:])
 
     def _dispatch_verify(self) -> bool:
         """One verify program (JAX ``_dispatch_verify``, paged and
@@ -1421,13 +1630,21 @@ class LLMEngine:
                 r._spec_inflight += 1
                 self.spec_plain += not n_draft[slot]
                 self._grow(slot, r, rows[slot])
-            name = f"llm.step_v{W}"
+            # the constrained split of the acceptance counters (JAX
+            # llm.py:6297-6304), and the constrained twin while a grammar
+            # is resident
+            gset = {slot for slot, r in sel if r.grammar is not None}
+            use_g = self._grammar_live()
+            name = f"llm.step_v{W}" + ("g" if use_g else "")
             self._ensure_family(name)
-            self._in.write(self._host_tables(), np.zeros((self.slots,), bool), verify=pack)
+            self._stage(use_g, self._host_tables(), np.zeros((self.slots,), bool), verify=pack)
             fetch = _Fetch(self._launch(name))
-            self._inflight.append(("verify", fetch, sel, {"W": W, "n_draft": n_draft, "pred": pred}))
+            self._inflight.append(
+                ("verify", fetch, sel, {"W": W, "n_draft": n_draft, "pred": pred, "gset": gset})
+            )
             self.spec_steps += 1
             self.spec_proposed += proposed
+            self.spec_proposed_c += sum(n_draft[slot] for slot in gset)
             self._work_cv.notify()
             return True
 
@@ -1454,6 +1671,9 @@ class LLMEngine:
             r.out.put(toks)
             r.emitted += len(toks)
             r.history.extend(toks)
+            if r.grammar is not None:
+                # the host DFA mirror (JAX llm.py:5714-5721)
+                r._g_state = r.grammar.advance_all(r._g_state, toks)
         if finish is None and r.emitted >= r.max_new_tokens:
             finish = "length"
         if finish is not None:
@@ -1562,6 +1782,8 @@ class LLMEngine:
                 a = int(acc[slot])
                 out = ys[slot, : a + 1].tolist()
                 self.spec_accepted += a
+                if slot in info["gset"]:
+                    self.spec_accepted_c += a
                 nd = info["n_draft"][slot]
                 if nd:
                     r._spec_ema = (1 - SPEC_EMA_ALPHA) * r._spec_ema + SPEC_EMA_ALPHA * (a / nd)
@@ -1576,17 +1798,187 @@ class LLMEngine:
             self._processing = None
 
     def _spec_summary(self) -> dict:
-        """Speculation counters (JAX ``_spec_summary``'s keys); the
-        constrained split stays at zero until grammar-constrained decoding
-        is ported."""
-        rate = round(self.spec_accepted / self.spec_proposed, 3) if self.spec_proposed else None
+        """Speculation counters (JAX ``_spec_summary``'s keys), split
+        between constrained and unconstrained lanes."""
+
+        def rate(acc: int, prop: int):
+            return round(acc / prop, 3) if prop else None
+
+        prop_u = self.spec_proposed - self.spec_proposed_c
+        acc_u = self.spec_accepted - self.spec_accepted_c
         return {
             "enabled": self.speculative, "draft": self.spec_draft, "steps": self.spec_steps,
             "proposed": self.spec_proposed, "accepted": self.spec_accepted, "plain_lanes": self.spec_plain,
-            "accept_rate": rate,
-            "constrained": {"proposed": 0, "accepted": 0, "accept_rate": None},
-            "unconstrained": {"proposed": self.spec_proposed, "accepted": self.spec_accepted, "accept_rate": rate},
+            "accept_rate": rate(self.spec_accepted, self.spec_proposed),
+            "constrained": {"proposed": self.spec_proposed_c, "accepted": self.spec_accepted_c,
+                            "accept_rate": rate(self.spec_accepted_c, self.spec_proposed_c)},
+            "unconstrained": {"proposed": prop_u, "accepted": acc_u, "accept_rate": rate(acc_u, prop_u)},
         }
+
+    # -- grammar-constrained decoding ---------------------------------------
+    def _constrained_summary(self) -> dict:
+        """JAX ``_constrained_summary``."""
+        return {
+            "enabled": self.constrained,
+            "requests": self.constrained_requests,
+            "grammars_resident": sum(1 for g in self._grammars if g is not None),
+            "grammar_cap": self._g_cap,
+            "states": [g.n_states if g is not None else 0 for g in self._grammars],
+        }
+
+    def _register_grammar(self, g) -> int:
+        """The resident-grammar table slot for one TokenGrammar (JAX
+        ``_register_grammar``): a repeated grammar dedups by key; a full
+        table evicts a zero-ref entry; a table whose every slot holds live
+        requests refuses the submit (``EngineOverloaded``: capacity, not a
+        client error). The device rows follow at the scheduler's next pass
+        (``_g_sync``). Lock held."""
+        vocab = getattr(g, "vocab_size", None)
+        if vocab != self.cfg.vocab_size:
+            raise ValueError(
+                f"grammar compiled for vocab {vocab}, model vocab is {self.cfg.vocab_size} — "
+                "compile against this model's tokenizer"
+            )
+        for i, og in enumerate(self._grammars):
+            if og is not None and og.key == g.key:
+                return i
+        gid = None
+        if len(self._grammars) < self._g_cap:
+            self._grammars.append(None)
+            self._g_refs.append(0)
+            gid = len(self._grammars) - 1
+        else:
+            gid = next((i for i, n in enumerate(self._g_refs) if n == 0), None)
+        if gid is None:
+            raise EngineOverloaded(
+                f"all {self._g_cap} resident grammar slots hold live requests "
+                "(raise TPU_LLM_CONSTRAINED_GRAMMARS)",
+                retry_after=1.0,
+            )
+        self._grammars[gid] = g
+        self._g_refs[gid] = 0
+        self._g_dirty.add(gid)
+        return gid
+
+    def _g_padded(self) -> tuple[int, int]:
+        """The device table's (G, Smax): the resident grammars' count and
+        largest state count padded to powers of two, Smax at least 32 (JAX
+        ``_rebuild_grammar_table``), never below the current table's (the
+        captured families keep reading it while it is big enough; padding
+        rows admit nothing and no live lane reaches them). Lock held."""
+        G = 1 << max(0, len(self._grammars) - 1).bit_length()
+        smax = max(g.n_states for g in self._grammars if g is not None)
+        S = max(32, 1 << max(0, smax - 1).bit_length())
+        if self._gtab is not None:
+            G, S = max(G, self._gtab.shape[0]), max(S, self._gtab.shape[1])
+        return G, S
+
+    def _g_sync(self) -> None:
+        """Write the grammars registered since the last pass into the device
+        table (scheduler thread, on the engine stream, before the pass's
+        dispatches). While the padded shape holds, a grammar's rows are
+        written in place, ordered after the programs in flight. When it
+        grows, the pipeline drains first if constrained graphs exist (they
+        read the old table's address): then a new table is made with every
+        grammar, and those families are dropped (``_g_prepare`` captures
+        them again)."""
+        drained = False
+        while True:
+            with self._lock:
+                if not self._g_dirty:
+                    return
+                G, S = self._g_padded()
+                grow = self._gtab is None or (G, S) != tuple(self._gtab.shape[:2])
+                if not grow or drained or not any(n in self.families for n in self._programs_g):
+                    dirty, self._g_dirty = self._g_dirty, set()
+                    if grow:
+                        for name in self._programs_g:
+                            self.families.pop(name, None)
+                        self._gtab = torch.full(
+                            (G, S, self.cfg.vocab_size), -1, dtype=torch.int32, device=self.device
+                        )
+                        dirty = {i for i, g in enumerate(self._grammars) if g is not None}
+                    for gid in sorted(dirty):
+                        self._g_write(gid)
+                    return
+            self._drain()  # outside the lock; then look again
+            drained = True
+
+    def _g_write(self, gid: int) -> None:
+        """Copy one grammar's rows into the device table, padding states
+        admitting nothing; from pinned memory kept until its copy has run
+        on CUDA. Lock held."""
+        table = self._grammars[gid].table
+        n = table.shape[0]
+        rows = torch.from_numpy(table)
+        if self.device.type == "cuda":
+            self._g_uploads = [u for u in self._g_uploads if not u[0].query()]
+            rows = rows.pin_memory()
+            self._gtab[gid, :n].copy_(rows, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+            self._g_uploads.append((done, rows))
+        else:
+            self._gtab[gid, :n].copy_(rows)
+        self._gtab[gid, n:].fill_(-1)
+
+    def _drain(self) -> None:
+        """Wait until no program is in flight (scheduler thread: nothing is
+        dispatched meanwhile)."""
+        with self._work_cv:
+            while (self._inflight or self._processing is not None) and not self._stop:
+                self._work_cv.wait(timeout=0.005)
+
+    def _g_prepare(self) -> None:
+        """Before a pass's dispatches (JAX ``_ensure_c_ops``, lazy by
+        design): sync the device table, and on CUDA, while a constrained
+        request is resident, capture the constrained families not yet
+        captured. No family is captured at warmup, so an engine that never
+        sees a grammar captures nothing more; the capture (eager warm-up
+        runs on inert inputs, then the graph) waits for the pipeline to
+        drain. Records the first capture's seconds and memory."""
+        self._g_sync()
+        if self.device.type != "cuda":
+            return
+        with self._lock:
+            missing = [n for n in self._programs_g if n not in self.families] if self._grammar_live() else []
+        if not missing:
+            return
+        self._drain()
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()  # as each capture does (see _warm)
+        before = torch.cuda.memory_reserved(self.device)
+        for name in missing:
+            self._capture(name)
+        torch.cuda.synchronize(self.device)
+        if self.g_capture_s is None:
+            self.g_capture_s = time.perf_counter() - t0
+            self.g_reserved = (before, torch.cuda.memory_reserved(self.device))
+        self.g_captures += 1
+
+    def _grammar_live(self) -> bool:
+        """Any resident request constrained? True routes EVERY dispatch
+        through the constrained families (JAX ``_grammar_live``). Lock
+        held."""
+        return any(r is not None and r.grammar is not None for r in self._slot_req) or any(
+            r.grammar is not None for r in self._prefilling
+        )
+
+    def _stage(self, use_g: bool, *args, **kw) -> None:
+        """Stage one dispatch's inputs (``_Inputs.write``), with the
+        per-slot grammar ids when a constrained program reads them."""
+        if use_g:
+            kw["gids"] = self._gids_np()
+        self._in.write(*args, **kw)
+
+    def _gids_np(self) -> np.ndarray:
+        """Per-slot grammar ids for one dispatch, -1 for an unconstrained
+        lane (JAX ``_gids_np``). Lock held."""
+        gids = np.full((self.slots,), -1, np.int32)
+        for i, r in enumerate(self._slot_req):
+            if r is not None and r.grammar is not None and r._g_id >= 0:
+                gids[i] = r._g_id
+        return gids
 
     # -- device programs ------------------------------------------------------
     def _launch(self, name: str) -> torch.Tensor:
@@ -1594,11 +1986,15 @@ class LLMEngine:
         CPU, as one replay of its captured graph on CUDA. Returns its
         output (a replay's is the graph's static buffer)."""
         if self.device.type == "cpu":
-            return self._programs[name][0]()
+            return self._program(name)[0]()
         fam = self.families[name]
         fam.graph.replay()
         add_launches(fam.launches)
         return fam.out
+
+    def _program(self, name: str) -> tuple:
+        """(eager program, kind, arg) of family ``name``, constrained or not."""
+        return self._programs[name] if name in self._programs else self._programs_g[name]
 
     def _ensure_family(self, name: str) -> None:
         """Capture family ``name`` unless it is (CUDA only)."""
@@ -1623,19 +2019,25 @@ class LLMEngine:
         inputs are inert — zero live mask, padding lanes at ``slots``, an
         empty pack — so the warm-up runs PyTorch needs before a capture
         write nothing but the tail, which is restored. A capture failure
-        raises: nothing falls back to eager ops."""
-        fn, kind, arg = self._programs[name]
+        raises: nothing falls back to eager ops. A constrained family's
+        inputs also name no grammar (gids and meta rows -1)."""
+        fn, kind, arg = self._program(name)
+        g = name in self._programs_g
+        gids = np.full((self.slots,), -1, np.int32) if g else None
         with torch.no_grad(), torch.cuda.stream(self._stream):
             live = np.zeros((self.slots,), bool)
             if kind == "chunk":
-                self._in.write(self._tables_np, live)
+                self._in.write(self._tables_np, live, gids=gids)
             elif kind == "step":
                 shape, nb = arg
-                meta = np.zeros((2, nb), np.int32)
+                meta = np.zeros((4 if g else 2, nb), np.int32)
                 meta[0, :] = self.slots
-                self._in.write(self._tables_np, live, meta, np.zeros((nb, shape + 3), np.int32))
+                meta[2:] = -1
+                self._in.write(self._tables_np, live, meta, np.zeros((nb, shape + 3), np.int32), gids=gids)
             elif kind == "verify":  # no lane selected
-                self._in.write(self._tables_np, live, verify=np.zeros((self.slots, arg + 1), np.int32))
+                self._in.write(
+                    self._tables_np, live, verify=np.zeros((self.slots, arg + 1), np.int32), gids=gids
+                )
             else:
                 self._in.write_seed(self._inert_seed())
             tail = self._tail.clone()
@@ -1650,7 +2052,7 @@ class LLMEngine:
                 out = fn()
         self.families[name] = _Family(graph, out, dict(tally))
 
-    def _step_program(self, shape: int, nb: int):
+    def _step_program(self, shape: int, nb: int, g: bool = False):
         """The unified step (JAX ``llm.step_p{shape}_d{K}``) of ``nb`` rows
         on the staged inputs. Updates the pool (and its int8 scales),
         lengths, tail, active and temps IN PLACE; returns first tokens [nb]
@@ -1658,10 +2060,17 @@ class LLMEngine:
         rows' last-token logits [nb, vocab] beside them (the JAX
         ``keep_logits``). An int8 pool's packed slot views are dequantized
         in the model dtype; the chunk rows are quantized again at the
-        scatter back."""
+        scatter back.
+
+        ``g=True`` is the constrained twin (JAX ``_make_paged_step_op_c``):
+        meta rows 2-3 carry each row's grammar id and start state; a
+        finishing row's first token is masked there and seeds its slot's
+        DFA state, and the decode part samples through ``_g_sample`` from
+        the slot states, which advance in place. The kept logits stay the
+        raw ones."""
         dev, cfg, slots, sc = self.device, self.cfg, self.slots, self.pool_scales
         cap = self.kv.capacity
-        pack_t, meta_t = self._in.pack(shape, nb), self._in.meta(nb)
+        pack_t, meta_t = self._in.pack(shape, nb), self._in.meta(nb, 4 if g else 2)
         tables = self._in.tables()
         tokens = pack_t[:, :shape]
         cursors = pack_t[:, shape].contiguous()
@@ -1682,33 +2091,51 @@ class LLMEngine:
             _rows_at(sub2.k, pos_a), _rows_at(sub2.v, pos_a), pos_a, valid_a, scales=sc,
         )
         _scatter_slots(self.pool.length, slot_idx, cursors + n_new)
-        first = self._sample(logits, req_temps, self._gen)
+        if g:
+            rows_g, on_r = _g_rows(self._gtab, meta_t[2], meta_t[3])
+            on_r = on_r & (finish == 1)
+            first = finite_guard(logits, _sample_raw(_g_mask(logits, rows_g, on_r), req_temps, self._gen))
+            st1 = rows_g.gather(1, first.clamp(min=0).long()[:, None])[:, 0]
+        else:
+            first = self._sample(logits, req_temps, self._gen)
         fin_slot = torch.where(finish == 1, slot_idx, slots)
         mid_slot = torch.where(finish == 1, slots, slot_idx)
         _scatter_slots(self._active, mid_slot, False)
         _scatter_slots(self._tail, fin_slot, first)
         _scatter_slots(self._active, fin_slot, True)
         _scatter_slots(self._temps, fin_slot, req_temps)
-        toks, last, _ = decode_chunk_paged(
-            self.params, cfg, self._tail, self.pool, tables, self._active & self._in.live(),
-            self._temps, self._gen, n_steps=self.decode_chunk, sample_fn=self._sample,
-            block=self.kv.block, scales=sc,
-        )
-        self._tail.copy_(last)  # the next program reads it at the same address
+        if g:
+            _scatter_slots(self._gstate, fin_slot, torch.where(on_r, st1, 0))
+        toks = self._decode_chunk(self.decode_chunk, g)
         out = torch.cat([first, toks.reshape(-1)])
         return (out, logits) if self.kv.share else out
 
-    def _chunk_program(self, k: int) -> torch.Tensor:
-        """The pure decode chunk (JAX ``llm.decode_chunk{K}``) on the
-        staged inputs: returns tokens [k, slots], flat; the pool, lengths
-        and tail advance in place."""
-        toks, last, _ = decode_chunk_paged(
+    def _decode_chunk(self, k: int, g: bool) -> torch.Tensor:
+        """``k`` fused decode steps for the live active slots from the
+        device tail (the decode part of a step, and the chunk program):
+        returns tokens [k, slots] and advances the tail — and with ``g``
+        the slots' DFA states, sampling through ``_g_sample`` with the
+        staged grammar ids — in place."""
+        sample_fn, state = self._sample, None
+        if g:
+            gtab, gids = self._gtab, self._in.gids()
+            sample_fn, state = (lambda lg, tp, gen, st: _g_sample(lg, tp, gen, gtab, gids, st)), self._gstate
+        out = decode_chunk_paged(
             self.params, self.cfg, self._tail, self.pool, self._in.tables(),
             self._active & self._in.live(), self._temps, self._gen, n_steps=k,
-            sample_fn=self._sample, block=self.kv.block, scales=self.pool_scales,
+            sample_fn=sample_fn, block=self.kv.block, scales=self.pool_scales, sample_state=state,
         )
-        self._tail.copy_(last)
-        return toks.reshape(-1)
+        self._tail.copy_(out[1])  # the next program reads it at the same address
+        if g:
+            self._gstate.copy_(out[3])
+        return out[0]
+
+    def _chunk_program(self, k: int, g: bool = False) -> torch.Tensor:
+        """The pure decode chunk (JAX ``llm.decode_chunk{K}``, or with
+        ``g`` its constrained twin ``llm.decode_chunk{K}g``) on the staged
+        inputs: returns tokens [k, slots], flat; the pool, lengths and tail
+        (and the DFA states) advance in place."""
+        return self._decode_chunk(k, g).reshape(-1)
 
     def _seed_program(self) -> torch.Tensor:
         """``llm.kv_seed`` on the staged seed inputs: block-copy srcs ->
@@ -1737,7 +2164,7 @@ class LLMEngine:
         _scatter_slots(self._temps, slot_idx, req_temps)
         return first
 
-    def _verify_program(self) -> torch.Tensor:
+    def _verify_program(self, g: bool = False) -> torch.Tensor:
         """``llm.step_v{W}`` (JAX ``_verify_paged``) on the staged verify
         pack: each selected slot appends its tail token and draft (n_draft
         + 1 rows) through ``verify_chunk`` on the dense all-slot view (an
@@ -1747,7 +2174,12 @@ class LLMEngine:
         accepted ON DEVICE, and the slot's length and tail advance to the
         accepted state IN PLACE. Rejected rows stay above the length,
         masked until the next append overwrites them. Returns ys [slots,
-        W] then acc [slots], flat int32."""
+        W] then acc [slots], flat int32.
+
+        ``g=True`` is ``llm.step_v{W}g`` (JAX ``_make_paged_verify_op_c``):
+        position i is masked at the DFA state after the first i draft
+        tokens, and a selected slot's state advances to the accepted
+        state plus the bonus token."""
         Kd, cfg, sc = self.spec_draft, self.cfg, self.pool_scales
         vp, tables, length = self._in.verify(), self._in.tables(), self.pool.length
         drafts, n_draft, sel = vp[:, :Kd], vp[:, Kd], vp[:, Kd + 1] == 1
@@ -1762,10 +2194,28 @@ class LLMEngine:
         pos = length[:, None].long() + j
         valid = (j < n_in[:, None]) & (pos < self.kv.capacity)
         scatter_rows(self.pool.k, self.pool.v, tables, _rows_at(nd.k, pos), _rows_at(nd.v, pos), pos, valid, scales=sc)
-        ys = torch.stack([self._sample(logits[:, i], self._temps, self._gen) for i in range(Kd + 1)], dim=1)
+        if g:
+            gtab, gids = self._gtab, self._in.gids()
+            st, states, ys_list = self._gstate, [self._gstate], []
+            for i in range(Kd + 1):
+                rows, on = _g_rows(gtab, gids, st)
+                ys_list.append(finite_guard(
+                    logits[:, i], _sample_raw(_g_mask(logits[:, i], rows, on), self._temps, self._gen)
+                ))
+                if i < Kd:
+                    st = torch.where(on, rows.gather(1, drafts[:, i].clamp(min=0).long()[:, None])[:, 0], st)
+                    states.append(st)
+            ys = torch.stack(ys_list, dim=1)
+        else:
+            ys = torch.stack([self._sample(logits[:, i], self._temps, self._gen) for i in range(Kd + 1)], dim=1)
         agree = (ys[:, :Kd] == drafts) & (j[:, :Kd] < n_draft[:, None])
         acc = torch.cumprod(agree.to(torch.int32), dim=1).sum(dim=1).to(torch.int32)
         bonus = ys.gather(1, acc[:, None].long())[:, 0]
+        if g:
+            st_acc = torch.stack(states, dim=1).gather(1, acc[:, None].long())[:, 0]
+            rows_a, on_a = _g_rows(gtab, gids, st_acc)
+            nxt = rows_a.gather(1, bonus.clamp(min=0).long()[:, None])[:, 0]
+            self._gstate.copy_(torch.where(sel & on_a, nxt, self._gstate))
         length.copy_(torch.where(sel, length + acc + 1, length))
         self._tail.copy_(torch.where(sel, bonus, self._tail))
         return torch.cat([ys.reshape(-1), acc])

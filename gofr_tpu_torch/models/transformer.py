@@ -377,7 +377,8 @@ def decode_chunk_paged(
     sample_fn,  # (logits [b, vocab] f32, temps [b], generator) -> tokens [b]
     block: int,
     scales: torch.Tensor | None = None,  # [2, L, NB, B, hkv] f32 (int8 pool)
-) -> tuple[torch.Tensor, torch.Tensor, KVCache]:
+    sample_state=None,  # stateful sampler's carried state (see below)
+) -> tuple:
     """``n_steps`` fused decode steps against the BLOCK-PAGED pool.
 
     The pool is read-only inside the chunk: each step writes its new K/V
@@ -395,7 +396,13 @@ def decode_chunk_paged(
     dtype, and they are quantized at the chunk-end scatter (scales updated
     in place). int8 weights run weight-only products (``qmm``).
 
-    Returns (tokens [n_steps, b] int32, last [b] int32, pool)."""
+    With ``sample_state`` (any value, e.g. the per-slot grammar DFA
+    states) the sampler is STATEFUL: ``sample_fn(logits, temps,
+    generator, state) -> (tokens, state)``, the state threaded from step
+    to step (JAX ``sample_state``).
+
+    Returns (tokens [n_steps, b] int32, last [b] int32, pool) [+ the final
+    sample state when one was passed]."""
     from ..kvcache.paged import scatter_rows
 
     L, b = cfg.n_layers, tokens.shape[0]
@@ -409,6 +416,7 @@ def decode_chunk_paged(
     vb = torch.zeros((L, b, K, hkv, hd), dtype=cfg.dtype, device=dev)
     lengths = pool.length
     tok = tokens
+    sstate = sample_state
     out = []
     for k_i in range(K):
         positions = (lengths.long() + k_i)[:, None]  # [b, 1]
@@ -429,7 +437,11 @@ def decode_chunk_paged(
             h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
             x = x + _mlp(cfg, h, lp, qmm)
         logits = _unembed_last(params, cfg, x)
-        tok = sample_fn(logits, temps, generator).to(torch.int32)
+        if sample_state is None:
+            tok = sample_fn(logits, temps, generator).to(torch.int32)
+        else:
+            tok, sstate = sample_fn(logits, temps, generator, sstate)
+            tok = tok.to(torch.int32)
         out.append(tok)
 
     # merge: the chunk's K rows scatter through the table at positions
@@ -440,4 +452,5 @@ def decode_chunk_paged(
     scatter_rows(pool.k, pool.v, tables, kb, vb, pos, valid, scales=scales)
     new_len = torch.where(active, torch.clamp(lengths + K, max=cap), lengths)
     lengths.copy_(new_len.to(lengths.dtype))
-    return torch.stack(out), tok, pool
+    out = (torch.stack(out), tok, pool)
+    return out if sample_state is None else out + (sstate,)

@@ -8,12 +8,19 @@
   lists;
 - ``GET /v1/models`` — the registered models.
 
+``response_format`` ``{"type": "json_schema", "json_schema": {"schema":
+...}}`` or ``{"type": "regex", "regex": "..."}`` compiles (once per
+schema, through ``structured.grammar_cache``) against the model's
+tokenizer vocabulary into a token grammar that constrains the request's
+decoding: the content is valid under it by construction.
+
 Errors answer the OpenAI envelope ``{"error": {"message", "type",
-"code"}}``: 400 for a bad body or a prompt that leaves no decode room, 404
-for an unknown model, 503 when the engine has stopped. Left out: a
-``response_format`` of ``json_schema`` or ``regex`` answers 400
-(structured decoding is not ported), adapter model ids (no LoRA pool) and
-the usage object's chip-time fields.
+"code"}}``: 400 for a bad body, a prompt that leaves no decode room or a
+``response_format`` that cannot be compiled (``json_object`` among them,
+as in the JAX edge), 404 for an unknown model, 429 with Retry-After when
+every resident-grammar slot holds live requests, 503 when the engine has
+stopped. Left out: adapter model ids (no LoRA pool) and the usage
+object's chip-time fields.
 
 Tokenization: a tokenizer passed in, else the byte-level tokenizer when
 the model's vocabulary admits it (>= 258 ids), else text routes answer
@@ -34,7 +41,7 @@ import numpy as np
 import torch
 
 from .http.responder import Response, StreamingResponse, to_json_bytes
-from .llm import EngineStoppedError, GenRequest
+from .llm import EngineOverloaded, EngineStoppedError, GenRequest
 from .models.quant import QTensor
 
 __all__ = ["register_openai_routes", "chat_prompt"]
@@ -92,7 +99,7 @@ def register_openai_routes(
     max_tokens_cap = int(cfg.get_or_default("GOFR_OPENAI_MAX_TOKENS", "512"))
     stream_timeout = float(cfg.get_or_default("GOFR_OPENAI_STREAM_TIMEOUT_S", "120"))
     # per-model caches; the embedding matrix is fetched to the host once
-    state: dict[str, Any] = {"tok": {}, "embed": None}
+    state: dict[str, Any] = {"tok": {}, "vocab": {}, "embed": None}
 
     def _handle(ctx, name: str = ""):
         """The request's ``model`` field -> (served name, engine). An
@@ -124,17 +131,45 @@ def register_openai_routes(
             return state["tok"][name]
         return None
 
-    def _check_format(response_format) -> None:
+    def _grammar(name: str, tok, response_format):
+        """The request's token grammar, or None (JAX ``_grammar``)."""
         if not response_format:
-            return
+            return None
         ftype = response_format.get("type")
         if ftype in (None, "text"):
-            return
-        if ftype in ("json_schema", "regex"):
+            return None
+        if ftype not in ("json_schema", "regex"):
             raise _OpenAIReject(_openai_error(
-                400, f"response_format type {ftype!r}: structured decoding is not ported to this engine",
+                400,
+                f"response_format type {ftype!r} unsupported; use "
+                "'json_schema' or 'regex' (a full free-form 'json_object' "
+                "grammar needs a pushdown automaton, not a DFA)",
             ))
-        raise _OpenAIReject(_openai_error(400, f"response_format type {ftype!r} unsupported"))
+        if ftype == "regex":
+            pattern = response_format.get("regex") or response_format.get("pattern")
+            if not isinstance(pattern, str) or not pattern:
+                raise _OpenAIReject(_openai_error(400, "response_format.regex missing (pattern string)"))
+            schema = None
+        else:
+            spec = response_format.get("json_schema") or {}
+            schema = spec.get("schema", spec if "properties" in spec else None)
+            if schema is None:
+                raise _OpenAIReject(_openai_error(400, "response_format.json_schema.schema missing"))
+        if tok is None:
+            raise _OpenAIReject(_openai_error(400, f"{ftype} needs a tokenizer on this deployment"))
+        from .structured import JsonSchemaError, grammar_cache, vocab_from_tokenizer
+
+        if name not in state["vocab"]:
+            state["vocab"][name] = vocab_from_tokenizer(tok)
+        eos = getattr(tok, "eos_id", None)
+        if eos is None:
+            raise _OpenAIReject(_openai_error(400, "tokenizer exposes no eos; cannot close a grammar"))
+        try:
+            if ftype == "regex":
+                return grammar_cache.get_regex(pattern, state["vocab"][name], int(eos))
+            return grammar_cache.get(schema, state["vocab"][name], int(eos))
+        except JsonSchemaError as e:
+            raise _OpenAIReject(_openai_error(400, str(e))) from e
 
     def _gen_kwargs(ctx, body) -> dict:
         from .handler import llm_request_kwargs
@@ -145,13 +180,13 @@ def register_openai_routes(
             kw["client"] = str(user)
         return kw
 
-    def _submit(ctx, engine, body, tok):
+    def _submit(ctx, name, engine, body, tok):
         messages = body.get("messages")
         if not isinstance(messages, list) or not messages:
             raise _OpenAIReject(_openai_error(400, "messages must be a non-empty list"))
         if body.get("n", 1) not in (1, None):
             raise _OpenAIReject(_openai_error(400, "n > 1 unsupported"))
-        _check_format(body.get("response_format"))
+        grammar = _grammar(name, tok, body.get("response_format"))
         if tok is None:
             raise _OpenAIReject(_openai_error(
                 400,
@@ -166,15 +201,21 @@ def register_openai_routes(
             or min(64, max_tokens_cap)
         )
         max_new = max(1, min(max_new, max_tokens_cap))
+        eos = grammar.eos_id if grammar is not None else (tok.eos_id if tok.eos_id is not None else -1)
         req = GenRequest(
             toks,
             max_new_tokens=max_new,
             temperature=float(body.get("temperature") or 0.0),
-            eos_token=tok.eos_id if tok.eos_id is not None else -1,
+            eos_token=eos,
+            grammar=grammar,
             **_gen_kwargs(ctx, body),
         )
         try:
             return engine.submit(req), len(toks)
+        except EngineOverloaded as e:
+            raise _OpenAIReject(_openai_error(
+                429, str(e), etype="rate_limit_error", retry_after=e.retry_after,
+            )) from e
         except EngineStoppedError as e:
             raise _OpenAIReject(_openai_error(503, str(e), etype="service_unavailable")) from e
         except ValueError as e:
@@ -195,7 +236,7 @@ def register_openai_routes(
             return _openai_error(404, str(e), etype="not_found_error")
         tok = _tokenizer(name, engine)
         try:
-            req, n_prompt = _submit(ctx, engine, body, tok)
+            req, n_prompt = _submit(ctx, name, engine, body, tok)
         except _OpenAIReject as e:
             return e.resp
         base = {"id": f"chatcmpl-{uuid.uuid4().hex[:16]}", "created": int(time.time()), "model": name}

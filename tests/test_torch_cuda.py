@@ -354,6 +354,48 @@ class TestGraphsOnCard:
         finally:
             eng.close()
 
+    @pytest.mark.parametrize("mode", ["f32", "bf16", "int8"])
+    def test_constrained_families_replay_equal_eager_and_recapture(self, cuda, mode):
+        """No constrained family at warmup; the first constrained request
+        captures them all (the verify's twin too), each replay bitwise its
+        eager program with grammar ids and DFA states set. A grammar past
+        the table's padding grows it and captures them again; one within
+        it is written in place, with no capture."""
+        import re
+
+        from chip_smoke import check_family
+        from gofr_tpu_torch.llm import GenRequest
+        from gofr_tpu_torch.models.tokenizer import ByteTokenizer
+        from gofr_tpu_torch.structured import compile_json_schema, compile_regex, vocab_from_tokenizer
+
+        eng = _tiny_engine(cuda, mode, speculative=True)
+        try:
+            main = sorted(eng.families)
+            assert eng._programs_g and not set(eng._programs_g) & set(main) and eng.g_captures == 0
+            tok = ByteTokenizer(eng.cfg.vocab_size)
+            vocab = vocab_from_tokenizer(tok)
+
+            def serve(grammar, pattern, new_tokens=40):
+                r = eng.submit(GenRequest([1, 2, 3], max_new_tokens=new_tokens, grammar=grammar))
+                text = tok.decode(r.tokens(timeout=300))
+                assert r.finish_reason == "eos" and re.fullmatch(pattern, text), text
+                return tuple(eng._gtab.shape[:2]), eng.g_captures
+
+            assert serve(compile_json_schema({"type": "boolean"}, vocab, tok.eos_id), "true|false") == ((1, 32), 1)
+            assert sorted(eng.families) == sorted(main + list(eng._programs_g))
+            for i, name in enumerate(eng._programs_g):
+                r = check_family(eng, name, seed=i, replays=2)
+                assert r["eager_equal"], (name, r["state_equal"])
+                assert r["launches"] == {k: 2 * n for k, n in r["captured"].items()}, name
+            assert serve(compile_json_schema({"type": "null"}, vocab, tok.eos_id), "null") == ((2, 32), 2)
+            assert serve(compile_regex("[ab]{33,36}", vocab, tok.eos_id), "[ab]{33,36}") == ((4, 64), 3)
+            for i, name in enumerate(eng._programs_g):
+                assert check_family(eng, name, seed=20 + i)["eager_equal"], name
+            # within the padding: written in place, nothing captured
+            assert serve(compile_json_schema({"enum": ["yes", "no"]}, vocab, tok.eos_id), '"yes"|"no"') == ((4, 64), 3)
+        finally:
+            eng.close()
+
     def test_spec_engine_serves_the_spec_off_tokens(self, cuda):
         """Greedy tokens with every verify on the card, whatever its
         drafts: a drafter that always proposes the last token repeated."""

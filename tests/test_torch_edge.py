@@ -270,8 +270,19 @@ def test_register_llm_refuses_unported(weights):
     for kw in ({"mesh": object()}, {"replicas": 2}, {"lora_slots": 2}, {"kv_paged": False}):
         with pytest.raises(NotImplementedError, match=next(iter(kw))):
             rt.register_llm("m", cfg, tp, **kw)
-    with pytest.raises(NotImplementedError, match="TPU_LLM_CONSTRAINED"):
-        GPURuntime(new_mock_config({"TPU_LLM_CONSTRAINED": "1"})).register_llm("m", cfg, tp, device="cpu")
+    # grammar-constrained decoding is ported: its knobs build an engine
+    # that admits grammars (or refuses them with "0"); knobs of features
+    # still unported keep refusing
+    for value, on in (("1", True), ("0", False)):
+        eng = GPURuntime(new_mock_config({"TPU_LLM_CONSTRAINED": value, "TPU_LLM_CONSTRAINED_GRAMMARS": "3"})
+                         ).register_llm("m", cfg, tp, device="cpu", slots=2, max_seq_len=64)
+        try:
+            assert eng.constrained is on and eng._g_cap == 3 and bool(eng._programs_g) is on
+        finally:
+            eng.close()
+    for knob in ("TPU_LLM_LORA_SLOTS", "TPU_LLM_TP", "TPU_LLM_DISAGG"):
+        with pytest.raises(NotImplementedError, match=knob):
+            GPURuntime(new_mock_config({knob: "2"})).register_llm("m", cfg, tp, device="cpu")
     # the prefix cache and the session tier are ported: their knobs build an
     # engine with a radix (and, for sessions, a host tier of TPU_LLM_HOST_CACHE_MB)
     for knob, value in (("TPU_LLM_SESSION_MB", "64"), ("TPU_LLM_PREFIX_CACHE_MB", "8")):
