@@ -39,12 +39,26 @@ Phases, each raising on failure:
    TTFT, checks that both kernels launched in every burst, and profiles
    one more burst (idle share; whether the profiler names the kernels
    inside graph replays);
-5. int8 engine — the same through LLMEngine(kv_int8=True, quantize=True)
+5. overload — overload control on the engine phase's engine (preemption
+   and the fair-queuing ledger toggled at runtime, no second warmup): a
+   batch job (the burst's prompts five times, longest first, 256 new
+   tokens) holding every slot with a backlog, and 4 interactive requests
+   arriving once its first wave has 8 tokens out each, with preemption on
+   and then off (interactive TTFT, preemptions: at least 1 on, 0 off, the
+   batch job's wall); a heavy client's flood of 96 requests and a light
+   client's 8, with the ledger and without (light TTFT and finishing
+   positions); the predicted wait at each submit over the measured queue
+   wait; a max_queue reject and a predicted-wait shed (each a finite
+   retry_after, the accepted requests served). Every token of the
+   preempted, interactive and light streams through the replay gate; no
+   family captured in the phase, nothing held once idle, both kernels
+   launched;
+6. int8 engine — the same through LLMEngine(kv_int8=True, quantize=True)
    on the same weights: int8 weights and an int8 KV pool read by the
    int8 paged-decode kernel; every served token checked against the
    plain forward on the same int8 weights, under a gap constant set from
    this path's measured logit drift;
-6. edge — the port's HTTP server (gofr_tpu_torch.serve) on an ephemeral
+7. edge — the port's HTTP server (gofr_tpu_torch.serve) on an ephemeral
    port, reached at 127.0.0.1, a bf16 engine at its defaults (graphs,
    lookahead 3) over the same weights, its warmup printed: the burst as
    concurrent POST /generate requests over real sockets (every token
@@ -54,7 +68,7 @@ Phases, each raising on failure:
    KV pool must show 0 blocks in use within 3 s); both kernels must
    launch during the phase. Prints an "edge" line: tok/s and the
    client's time to first byte beside the engine phase's numbers;
-7. prefix — the prefix cache and the session tier at the same full
+8. prefix — the prefix cache and the session tier at the same full
    width: LLMEngine(prefix_cache_mb=64, session_mb=64, host_cache_mb=256),
    its 15 families (kv_seed and the hit programs too) held bitwise
    against their eager programs; a chat service's traffic on one seeded
@@ -66,10 +80,10 @@ Phases, each raising on failure:
    replay gate, both kernels launched in the phase; prints tok/s, TTFT,
    unified steps, prompt tokens packed and blocks shared per burst, and
    the spill and restore times;
-8. prefix int8 — four requests through a partial/exact pair on an int8
+9. prefix int8 — four requests through a partial/exact pair on an int8
    KV pool (tail copies move the f32 scales; the int8 kernel decodes
    over shared blocks);
-9. spec — speculative decoding at the same full width:
+10. spec — speculative decoding at the same full width:
    LLMEngine(speculative=True, spec_draft=4), its 11 families (the verify
    program llm.step_v5 too) held bitwise against their eager programs;
    extraction traffic (8 seeded passages of 32-240 tokens, each followed
@@ -82,7 +96,7 @@ Phases, each raising on failure:
    tok/s, TTFT, verifies, plain chunks, unified steps, acceptance and
    tokens per verify lane per burst. Then spec int8 (kv_int8=True, 4
    requests, the oracle drafter);
-10. structured — grammar-constrained decoding at the same full width: a
+11. structured — grammar-constrained decoding at the same full width: a
    JSON schema (string, integer, enum and bounded-array fields) and a
    regex compiled against the ByteTokenizer's 256,000-id vocabulary
    (compile ms, states, table bytes); the engine at its defaults (no
@@ -99,10 +113,10 @@ Phases, each raising on failure:
    llm.decode_chunk8. Then a speculating engine on the greedy burst (the
    spec-off tokens, near-ties exempt; constrained and unconstrained
    acceptance) and an int8 KV engine with 2 constrained requests;
-11. report — a "kernels" JSON line (launches on the engine phase's main
+12. report — a "kernels" JSON line (launches on the engine phase's main
    path, in the prefix phases as "prefix_launches", in the spec phases as
-   "spec_launches" and in the structured phase as
-   "structured_launches"), then the last line
+   "spec_launches", in the structured phase as "structured_launches" and
+   in the overload phase as "overload_launches"), then the last line
    {"ok": true, "device": {...}}.
 
 Imports nothing of JAX and nothing of the JAX package. Exits non-zero,
@@ -204,23 +218,40 @@ def device_ms(fn, kernel: str | None, iters: int = 20) -> float:
     ``kernel``: the same launches as time_ms, run under torch.profiler, and
     the kernel's self device time over its launch count. No host time is
     in it, where time_ms of a short kernel is paced by the host. With
-    ``kernel`` None: the device time of every kernel one fn() launches."""
+    ``kernel`` None: the device time of every kernel one fn() launches.
+    A trace that lost the kernel's records (the profiler has returned
+    none for a whole window on the card) is taken again, up to 3 times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and (kernel is None or kernel in e.key)]
-    if kernel is None:
-        return sum(e.self_device_time_total for e in ev) / iters / 1e3
-    count = sum(e.count for e in ev)
-    if count != iters:
-        raise AssertionError(f"profiler saw {count} launches of {kernel!r}, expected {iters}")
-    return sum(e.self_device_time_total for e in ev) / count / 1e3
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and (kernel is None or kernel in e.key)]
+        if kernel is None:
+            return sum(e.self_device_time_total for e in ev) / iters / 1e3
+        count = sum(e.count for e in ev)
+        if count == iters:
+            return sum(e.self_device_time_total for e in ev) / count / 1e3
+        print(f"device_ms: profiler trace {attempt + 1} saw {count} launches of {kernel!r}, expected {iters}")
+    raise AssertionError(f"profiler saw {count} launches of {kernel!r}, expected {iters}, in 3 traces")
+
+
+def _zero_launches(names) -> None:
+    """Set the launch counters of kernels ``names`` to 0."""
+    for name in names:
+        fn, attr = A._counter(name)
+        setattr(fn, attr, 0)
+
+
+def _launches(names) -> dict:
+    """{kernel name: launches counted since its last zeroing}."""
+    return {name: getattr(*A._counter(name)) for name in names}
 
 
 def phase_device() -> dict:
@@ -947,13 +978,11 @@ def _bursts(label: str, eng, prompts, new_tokens: int, counters: tuple) -> list[
     depth = eng.lookahead
     for la in (depth, depth, depth, 1):
         eng.lookahead = la
-        for name in counters:
-            fn, attr = A._counter(name)
-            setattr(fn, attr, 0)
+        _zero_launches(counters)
         st0 = eng.stats()
         results, reqs, wall = _serve(eng, prompts, new_tokens)
         st = eng.stats()
-        launches = {name: getattr(*A._counter(name)) for name in counters}
+        launches = _launches(counters)
         ttfts = sorted(reqs[i].first_token_at - reqs[i].submitted_at for i in reqs)
         total = sum(len(t) for t in results.values())
         run = {"lookahead": la, "results": results, "wall_s": wall, "tokens": total, "tok_s": total / wall,
@@ -985,7 +1014,9 @@ def _burst_prompts(cfg, seed: int) -> tuple[list, list]:
     return plens, [rng.integers(1, cfg.vocab_size, n).tolist() for n in plens]
 
 
-def phase_engine(dev: dict, seed: int, cfg: TransformerConfig, params: dict) -> dict:
+def phase_engine(dev: dict, seed: int, cfg: TransformerConfig, params: dict) -> tuple[dict, LLMEngine]:
+    """The engine phase; returns its readings and the engine, still open,
+    for the overload phase (which closes it)."""
     eng = LLMEngine(cfg, params, seed=seed)  # defaults: 32 slots, 512, {16, 64}, 256, K=8, B=16, lookahead 3, graphs
     try:
         warm = _warm_report("", eng)
@@ -999,8 +1030,9 @@ def phase_engine(dev: dict, seed: int, cfg: TransformerConfig, params: dict) -> 
         # the same traffic once more under torch.profiler: where the device
         # time goes (the profiler slows the host, so this pass is not timed)
         prof = _profile(lambda: _serve(eng, prompts, new_tokens))
-    finally:
+    except BaseException:
         eng.close()
+        raise
 
     # every served token of every burst against greedy decoding by the
     # plain full-prompt forward. The first token comes from prefill (flash
@@ -1060,6 +1092,251 @@ def phase_engine(dev: dict, seed: int, cfg: TransformerConfig, params: dict) -> 
         f"(medians); lookahead 1: {runs[3]['tok_s']:.1f} tok/s; idle {100 * prof['idle']:.1f}% of a profiled "
         f"burst; launches in burst 1 {launches}"
     )
+    return out, eng
+
+
+OVERLOAD_BATCH_NEW = 256  # a batch job's answers: long enough that no slot is near its end (virtually free) at the arrivals
+OVERLOAD_INTER = (24, 48, 96, 160)  # interactive prompts arriving under full batch occupancy
+OVERLOAD_INTER_NEW = 32
+FLOOD_HEAVY, FLOOD_LIGHT, FLOOD_NEW = 96, 8, 32
+
+
+def _consume(reqs) -> callable:
+    """One consumer thread per request; returns join(), which gives
+    ({i: tokens}, {i: perf_counter when the stream ended})."""
+    toks: dict[int, list[int]] = {}
+    ends: dict[int, float] = {}
+    errors: list[BaseException] = []
+
+    def read(i, r):
+        try:
+            toks[i] = r.tokens(timeout=600)
+            ends[i] = time.perf_counter()
+        except BaseException as e:  # surfaced by join()
+            errors.append(e)
+
+    threads = [threading.Thread(target=read, args=(i, r)) for i, r in enumerate(reqs)]
+    for th in threads:
+        th.start()
+
+    def join():
+        for th in threads:
+            th.join(timeout=600)
+        if errors:
+            raise errors[0]
+        if any(th.is_alive() for th in threads):
+            raise TimeoutError("overload consumers did not finish")
+        return toks, ends
+
+    return join
+
+
+def _wait_until(pred, seconds: float, what: str) -> None:
+    if not _wait_for(pred, seconds):
+        raise TimeoutError(f"overload: timed out waiting for {what}")
+
+
+def _overload_preempt_run(eng, label: str, batch_prompts, inter_prompts) -> dict:
+    """A batch job (priority batch, client "batch-job") holding every slot,
+    with a backlog, then 4 interactive requests arriving once each request
+    of the first wave has 8 tokens out (or has ended): their TTFT, the
+    preemptions, the batch job's wall time."""
+    p0 = eng.preemptions
+    t0 = time.perf_counter()
+    batch = [eng.submit(GenRequest(p, max_new_tokens=OVERLOAD_BATCH_NEW, priority="batch", client="batch-job"))
+             for p in batch_prompts]
+    join_b = _consume(batch)
+    wave = batch[: eng.slots]
+    _wait_until(lambda: all(r.emitted >= 8 or r.finish_reason is not None for r in wave), 300,
+                "the batch job's first wave to stream 8 tokens")
+    inter = [eng.submit(GenRequest(p, max_new_tokens=OVERLOAD_INTER_NEW, client="web")) for p in inter_prompts]
+    itoks, _ = _consume(inter)()
+    btoks, bends = join_b()
+    for i, r in enumerate(batch):
+        if r.finish_reason != "length" or len(btoks[i]) != r.max_new_tokens:
+            raise AssertionError(f"{label}batch request {i}: {r.finish_reason}, {len(btoks[i])} tokens")
+    if any(len(t) != OVERLOAD_INTER_NEW for t in itoks.values()):
+        raise AssertionError(f"{label}interactive streams {itoks}")
+    ttfts = sorted(r.first_token_at - r.submitted_at for r in inter)
+    run = {
+        "preemptions": eng.preemptions - p0, "preempted": [i for i, r in enumerate(batch) if r.preempted],
+        "ttft_p50_s": ttfts[len(ttfts) // 2], "ttft_max_s": ttfts[-1], "ttfts": ttfts,
+        "batch_wall_s": max(bends.values()) - t0, "batch": btoks, "inter": itoks,
+    }
+    print(f"{label}preemption {'on' if eng.preemption else 'off'}: {len(batch)} batch requests x "
+          f"{OVERLOAD_BATCH_NEW} new tokens, 4 interactive x {OVERLOAD_INTER_NEW} arriving at full batch occupancy: "
+          f"interactive ttft p50 {run['ttft_p50_s']:.4f}s max {run['ttft_max_s']:.4f}s; preemptions "
+          f"{run['preemptions']} (requests {run['preempted']}); batch job wall {run['batch_wall_s']:.3f}s")
+    return run
+
+
+def _overload_flood(eng, label: str, heavy_prompts, light_prompts) -> dict:
+    """A heavy client's flood (FLOOD_HEAVY requests); once its first wave
+    decodes, a light client's FLOOD_LIGHT requests. Light TTFT and
+    finishing positions; each request's predicted wait at submit beside
+    its measured queue wait (admitted_at - submitted_at)."""
+    preds, reqs = [], []
+    for p in heavy_prompts:
+        preds.append(eng.predicted_wait_s())
+        reqs.append(eng.submit(GenRequest(p, max_new_tokens=FLOOD_NEW, client="heavy")))
+    join_h = _consume(reqs)
+    _wait_until(lambda: sum(r.emitted > 0 for r in reqs) >= eng.slots, 300, "the heavy flood's first wave")
+    light = []
+    for p in light_prompts:
+        preds.append(eng.predicted_wait_s())
+        light.append(eng.submit(GenRequest(p, max_new_tokens=FLOOD_NEW, client="light")))
+    ltoks, lends = _consume(light)()
+    htoks, hends = join_h()
+    if any(len(t) != FLOOD_NEW for t in [*htoks.values(), *ltoks.values()]):
+        raise AssertionError(f"{label}flood streams of the wrong length")
+    allr = reqs + light
+    ends = [hends[i] for i in range(len(reqs))] + [lends[i] for i in range(len(light))]
+    order = sorted(range(len(allr)), key=lambda i: ends[i])
+    positions = sorted(order.index(len(reqs) + j) + 1 for j in range(len(light)))
+    ttfts = sorted(r.first_token_at - r.submitted_at for r in light)
+    waits = [r.admitted_at - r.submitted_at for r in allr]
+    ratios = sorted(p / w for p, w in zip(preds, waits) if p is not None and w >= 1e-3)
+    run = {"light_ttft_p50_s": ttfts[len(ttfts) // 2], "light_ttft_max_s": ttfts[-1],
+           "light_positions": positions, "waits": waits, "preds": preds, "ratios": ratios,
+           "light": ltoks, "light_prompts": light_prompts}
+    print(f"{label}ledger {'on' if eng.ledger is not None else 'off'}: {len(reqs)} heavy + {len(light)} light "
+          f"requests x {FLOOD_NEW} new tokens: light ttft p50 {run['light_ttft_p50_s']:.4f}s max "
+          f"{run['light_ttft_max_s']:.4f}s; light finishing positions {positions} of {len(allr)}; "
+          f"measured queue wait median {statistics.median(waits):.4f}s max {max(waits):.4f}s")
+    return run
+
+
+def phase_overload(dev: dict, seed: int, cfg: TransformerConfig, params: dict, eng) -> dict:
+    """Overload control on the engine phase's bf16 engine (its defaults: 32
+    slots, lookahead 3, graphs at warmup; preemption and the ledger toggled
+    at runtime, no second warmup). Preemption on, then off: a batch job
+    holding every slot and 4 interactive arrivals (interactive TTFT, the
+    preemptions, the batch wall; every token of the preempted and the
+    interactive streams through the replay gate). Fair share with the
+    ledger, then without: a heavy flood and a light client. The predicted
+    wait at each submit over the measured queue wait. Then a max_queue
+    reject and a predicted-wait shed, each with a finite Retry-After, the
+    requests they accepted served. No family is captured in the phase;
+    nothing is held once idle."""
+    # the int8 kernel is counted too, though the bf16 engine does not run it:
+    # its overload_launches is then a 0 this phase measured
+    path = ("flash_attention", "paged_decode_partials")
+    names = path + ("paged_decode_partials_int8",)
+    fams, captures = sorted(eng.families), eng.g_captures
+    ledger = eng.ledger
+    rng = np.random.default_rng(seed + 11)
+    _plens, burst = _burst_prompts(cfg, seed)
+    # longest first: the long prompts' prefill runs while short ones would
+    # otherwise have ended; a backlog of one more set keeps every slot busy
+    batch_prompts = sorted(burst * 5, key=len, reverse=True)
+    inter_prompts = [rng.integers(1, cfg.vocab_size, n).tolist() for n in OVERLOAD_INTER]
+    heavy = [rng.integers(1, cfg.vocab_size, int(n)).tolist() for n in rng.integers(16, 65, FLOOD_HEAVY)]
+    light = [rng.integers(1, cfg.vocab_size, int(n)).tolist() for n in rng.integers(16, 65, FLOOD_LIGHT)]
+    _zero_launches(names)
+    try:
+        runs = {}
+        for on in (True, False):
+            eng.preemption = on
+            runs[on] = _overload_preempt_run(eng, "overload ", batch_prompts, inter_prompts)
+            _idle(eng, "overload ")
+        if runs[True]["preemptions"] < 1 or runs[False]["preemptions"] != 0:
+            raise AssertionError(f"overload: preemptions {runs[True]['preemptions']} with preemption on, "
+                                 f"{runs[False]['preemptions']} off")
+        floods = {}
+        for led in (ledger, None):
+            eng.ledger = led
+            floods[led is not None] = _overload_flood(eng, "overload ", heavy, light)
+            _idle(eng, "overload ")
+        eng.ledger = ledger
+        ratios = floods[True]["ratios"] + floods[False]["ratios"]
+        n_pred = sum(p is not None for f in floods.values() for p in f["preds"])
+        preds = [p for f in floods.values() for p in f["preds"] if p is not None]
+        waits = [w for f in floods.values() for w in f["waits"]]
+        print(f"overload predicted wait at submit over measured queue wait, {len(ratios)} flood requests that "
+              f"waited >= 1 ms ({n_pred} with a prediction): median {statistics.median(ratios):.3f}, "
+              f"min {min(ratios):.3f}, max {max(ratios):.3f}; predicted median {statistics.median(preds):.4f}s, "
+              f"measured median {statistics.median(waits):.4f}s; throughput EMA {eng.throughput_tok_s():.1f} tok/s")
+        # the queue-full reject: the 9th request while 8 wait
+        eng.max_queue = 8
+        eng._drain_submits = lambda: None  # they stay queued until the reject
+        accepted = []
+        try:
+            for p in light + heavy[:1]:
+                accepted.append(eng.submit(GenRequest(p, max_new_tokens=8, client="q")))
+            raise AssertionError("overload: max_queue=8 accepted a 9th waiting request")
+        except TL.EngineOverloaded as e:
+            full = (len(accepted), e.retry_after)
+        finally:
+            del eng._drain_submits
+            eng.max_queue = None
+            eng._kick.set()
+        # the predicted-wait shed, from an idle engine, below the flood's
+        # measured wait
+        for r in accepted:
+            if len(r.tokens(timeout=600)) != r.max_new_tokens:
+                raise AssertionError("overload: a request max_queue accepted was not served whole")
+        _idle(eng, "overload ")
+        threshold = max(0.05, 0.5 * statistics.median(floods[True]["waits"]))
+        eng.overload.shed_wait_s = threshold
+        shed, accepted = None, []
+        try:
+            for p in heavy:
+                try:
+                    accepted.append(eng.submit(GenRequest(p, max_new_tokens=FLOOD_NEW, client="heavy")))
+                except TL.EngineOverloaded as e:
+                    shed = (len(accepted), e.retry_after, eng.predicted_wait_s())
+                    break
+        finally:
+            eng.overload.shed_wait_s = 0.0
+        for r in accepted:
+            if len(r.tokens(timeout=600)) != r.max_new_tokens:
+                raise AssertionError("overload: a request the predicted-wait gate accepted was not served whole")
+        if shed is None:
+            raise AssertionError(f"overload: no predicted-wait shed at {threshold:.3f}s over {len(heavy)} submits")
+        for what, ra in (("max_queue", full[1]), ("predicted wait", shed[1])):
+            if ra is None or not math.isfinite(ra) or ra <= 0:
+                raise AssertionError(f"overload: the {what} reject carries retry_after {ra}")
+        print(f"overload shed: max_queue=8 refused the {full[0] + 1}th waiting request, retry_after {full[1]:.3f}s; "
+              f"shed_predicted_wait_s={threshold:.4f} refused after {shed[0]} accepted submits, predicted wait "
+              f"{shed[2]:.3f}s, retry_after {shed[1]:.3f}s; the accepted requests served; stats "
+              f"rejected {eng.rejected}, sheds_predicted {eng.sheds_predicted}")
+        _idle(eng, "overload ")
+        launches = _launches(names)
+    finally:
+        eng.preemption, eng.ledger, eng.max_queue, eng.overload.shed_wait_s = True, ledger, None, 0.0
+    if sorted(eng.families) != fams or eng.g_captures != captures:
+        raise AssertionError(f"overload: families captured in the phase: {sorted(set(eng.families) - set(fams))}")
+    if any(launches[n] <= 0 for n in path):
+        raise AssertionError(f"overload: a kernel was not launched in the phase: {launches}")
+    # every token of the preempted batch streams and of the interactive and
+    # light requests against the plain forward
+    on = runs[True]
+    pre = on["preempted"]
+    checked = exempt = 0
+    for label, prompts, toks in (
+        ("overload preempted ", [batch_prompts[i] for i in pre], {k: on["batch"][i] for k, i in enumerate(pre)}),
+        ("overload interactive ", inter_prompts, on["inter"]),
+        ("overload light ", light, floods[True]["light"]),
+    ):
+        c, e = _replay_gate(params, cfg, prompts, toks, TOKEN_GAP, label=label, verbose=False)
+        checked, exempt = checked + c, exempt + e
+    off = runs[False]
+    out = {
+        "preempt_on": {k: on[k] for k in ("preemptions", "ttft_p50_s", "ttft_max_s", "batch_wall_s")},
+        "preempt_off": {k: off[k] for k in ("preemptions", "ttft_p50_s", "ttft_max_s", "batch_wall_s")},
+        "light_on": {k: floods[True][k] for k in ("light_ttft_p50_s", "light_ttft_max_s", "light_positions")},
+        "light_off": {k: floods[False][k] for k in ("light_ttft_p50_s", "light_ttft_max_s", "light_positions")},
+        "pred_over_measured": (statistics.median(ratios), min(ratios), max(ratios)),
+        "launches": launches, "tokens_matched": checked, "tokens_exempt": exempt,
+    }
+    print(f"overload gemma_2b on {dev['smi']}: interactive ttft p50/max preemption on {on['ttft_p50_s']:.4f}/"
+          f"{on['ttft_max_s']:.4f}s ({on['preemptions']} preemptions), off {off['ttft_p50_s']:.4f}/"
+          f"{off['ttft_max_s']:.4f}s; batch wall on {on['batch_wall_s']:.3f}s off {off['batch_wall_s']:.3f}s; "
+          f"light ttft p50/max ledger on {floods[True]['light_ttft_p50_s']:.4f}/{floods[True]['light_ttft_max_s']:.4f}s "
+          f"positions {floods[True]['light_positions']}, off {floods[False]['light_ttft_p50_s']:.4f}/"
+          f"{floods[False]['light_ttft_max_s']:.4f}s positions {floods[False]['light_positions']}; predicted/measured "
+          f"wait median {out['pred_over_measured'][0]:.3f}; {checked} tokens matched, {exempt} exempt; "
+          f"launches in the phase {launches}")
     return out
 
 
@@ -1347,9 +1624,7 @@ def phase_prefix(dev: dict, seed: int, cfg: TransformerConfig, params: dict) -> 
         warm, kv0 = _prefix_engine_checks("prefix ", eng, seed)
         eng.generate([1, 2, 3], max_new_tokens=4)  # warm-up, outside the timed runs
         _idle(eng, "prefix warm-up ")
-        for name in counters:
-            fn, attr = A._counter(name)
-            setattr(fn, attr, 0)
+        _zero_launches(counters)
         runs = {}
         for key, prompts in (("A", a_prompts), ("B", b_prompts), ("C", b_prompts)):
             runs[key] = _prefix_burst(eng, f"prefix burst {key}", prompts, new_tokens)
@@ -1372,7 +1647,7 @@ def phase_prefix(dev: dict, seed: int, cfg: TransformerConfig, params: dict) -> 
         if not _wait_for(lambda: eng.kv.sessions.stats()["publishes"] == ses0["publishes"] + 12, 30):
             raise AssertionError(f"session turn 2 not published: {eng.kv.sessions.stats()}")
         kv = _idle(eng, "sessions turn 2 ")
-        launches = {name: getattr(*A._counter(name)) for name in counters}
+        launches = _launches(counters)
         ses = kv["sessions"]
     finally:
         eng.close()
@@ -1441,11 +1716,10 @@ def phase_prefix_int8(dev: dict, seed: int, cfg: TransformerConfig, params: dict
         warm, _kv = _prefix_engine_checks("prefix int8 ", eng, seed)
         eng.generate(system, max_new_tokens=4)  # publishes S
         _idle(eng, "prefix int8 warm-up ")
-        fn, attr = A._counter("paged_decode_partials_int8")
-        setattr(fn, attr, 0)
+        _zero_launches(("paged_decode_partials_int8",))
         runs = {key: _prefix_burst(eng, f"prefix int8 burst {key}", prompts, 32) for key in ("B", "C")}
         _idle(eng, "prefix int8 ")
-        launches = getattr(fn, attr)
+        launches = _launches(("paged_decode_partials_int8",))["paged_decode_partials_int8"]
     finally:
         eng.close()
     if (runs["B"]["partial_hits"], runs["C"]["hits"], runs["C"]["steps"]) != (4, 4, 0) or launches <= 0:
@@ -1501,9 +1775,7 @@ def _spec_burst(eng, label: str, prompts, counters: tuple) -> dict:
         return process(entry, toks, now)
 
     eng._process_verify_entry = count
-    for name in counters:
-        fn, attr = A._counter(name)
-        setattr(fn, attr, 0)
+    _zero_launches(counters)
     st0 = eng.stats()
     try:
         results, reqs, wall = _serve(eng, prompts, SPEC_NEW_TOKENS)
@@ -1520,7 +1792,7 @@ def _spec_burst(eng, label: str, prompts, counters: tuple) -> dict:
         "plain_chunks": (st["chunks"] - st0["chunks"]) - (st["steps"] - st0["steps"]),
         "proposed": sp["proposed"] - sp0["proposed"], "accepted": sp["accepted"] - sp0["accepted"],
         "lanes": lanes[0], "tokens_per_lane": lanes[1] / lanes[0] if lanes[0] else None,
-        "launches": {name: getattr(*A._counter(name)) for name in counters},
+        "launches": _launches(counters),
     }
     run["accept_rate"] = run["accepted"] / run["proposed"] if run["proposed"] else None
     if any(len(t) != SPEC_NEW_TOKENS or any(x < 0 or x >= eng.cfg.vocab_size for x in t) for t in results.values()):
@@ -1736,9 +2008,7 @@ def _struct_burst(eng, label: str, prompts, grammars, counters: tuple, temperatu
     text) with the kernel counters zeroed just before: wall time to the
     last stream's end, tok/s, TTFT from each request's own timestamps,
     programs and launches."""
-    for name in counters:
-        fn, attr = A._counter(name)
-        setattr(fn, attr, 0)
+    _zero_launches(counters)
     st0 = eng.stats()
     reqs = [GenRequest(p, max_new_tokens=STRUCT_NEW_TOKENS, temperature=temperature, grammar=g)
             for p, g in zip(prompts, grammars)]
@@ -1753,7 +2023,7 @@ def _struct_burst(eng, label: str, prompts, grammars, counters: tuple, temperatu
         "results": results, "reqs": reqs, "wall_s": wall, "tokens": total, "tok_s": total / wall,
         "ttft_p50_s": ttfts[len(ttfts) // 2], "ttft_max_s": ttfts[-1],
         "programs": st["chunks"] - st0["chunks"], "steps": st["steps"] - st0["steps"],
-        "launches": {name: getattr(*A._counter(name)) for name in counters},
+        "launches": _launches(counters),
     }
     print(f"{label}: {len(prompts)} requests ({sum(g is not None for g in grammars)} constrained) at temperature "
           f"{temperature}, {total} tokens in {wall:.3f}s = {run['tok_s']:.1f} tok/s; ttft p50 "
@@ -2184,7 +2454,12 @@ def main() -> int:
     timed("build", phase_build)
     kern = timed("kernels", phase_kernels, dev, SEED, build_parent(args.parent) if args.parent else None)
     cfg, params = gemma_weights(SEED)
-    eng = timed("engine", phase_engine, dev, SEED, cfg, params)
+    eng, engine = timed("engine", phase_engine, dev, SEED, cfg, params)
+    try:
+        ovl = timed("overload", phase_overload, dev, SEED, cfg, params, engine)
+    finally:
+        engine.close()
+        torch.cuda.empty_cache()
     eng8 = timed("int8", phase_engine_int8, dev, SEED, cfg, params)
     timed("edge", phase_edge, dev, SEED, cfg, params, eng)
     pre = timed("prefix", phase_prefix, dev, SEED, cfg, params)
@@ -2210,6 +2485,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": run["launches"][name], "prefix_launches": prefix_launches,
             "spec_launches": spec["launches"][name], "structured_launches": structured["launches"][name],
+            "overload_launches": ovl["launches"][name],
             "max_abs_err": kern["errs"][name],
             "ms": t["ms"], "device_ms": t["device_ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],

@@ -16,6 +16,8 @@ mirror the JAX package so each counterpart is easy to find:
   decoding (``models.transformer.verify_chunk`` scores the drafts);
 - ``structured`` — the JSON-schema / regex -> token-DFA compiler of
   grammar-constrained decoding (host numpy; the engine masks on the card);
+- ``resilience`` — overload control's fair-queuing ledger and
+  brownout/shed controller;
 - ``llm`` — ``GenRequest`` and ``LLMEngine``;
 - the serving edge: ``serve`` (``python -m gofr_tpu_torch.serve``:
   ``/generate``, ``/stats`` and the OpenAI routes of ``openai_compat``),

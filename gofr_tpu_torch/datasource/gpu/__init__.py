@@ -11,12 +11,18 @@ Only what the port's engine has is accepted: the kwargs ``slots``,
 ``max_seq_len``, ``prefill_buckets``, ``quantize``, ``kv_int8``, ``seed``,
 ``device``, ``lookahead``, ``warmup``, ``prefix_cache_mb``,
 ``session_mb``, ``host_cache_mb``, ``speculative``, ``spec_draft``,
-``constrained``, ``constrained_grammars`` and ``kv_paged=True`` (the
-port's one layout), and the config knobs ``TPU_LLM_KV_INT8``,
-``TPU_LLM_PREFIX_CACHE_MB``, ``TPU_LLM_SESSION_MB``,
+``constrained``, ``constrained_grammars``, the overload kwargs
+``max_queue``, ``ttft_deadline_ms``, ``fair_queuing``, ``fair_weights``,
+``fair_ledger``, ``preemption``, ``shed_predicted_wait_s``,
+``brownout_wait_s``, ``brownout_max_new`` and ``brownout_hold_s``, and
+``kv_paged=True`` (the port's one layout), and the config knobs
+``TPU_LLM_KV_INT8``, ``TPU_LLM_PREFIX_CACHE_MB``, ``TPU_LLM_SESSION_MB``,
 ``TPU_LLM_HOST_CACHE_MB``, ``TPU_LLM_SPEC``, ``TPU_LLM_SPEC_DRAFT``,
-``TPU_LLM_CONSTRAINED`` and ``TPU_LLM_CONSTRAINED_GRAMMARS`` (read as the
-JAX runtime reads them: defaults for the kwargs a caller leaves out).
+``TPU_LLM_CONSTRAINED``, ``TPU_LLM_CONSTRAINED_GRAMMARS``,
+``TPU_LLM_FAIR``, ``TPU_LLM_PREEMPT``, ``TPU_LLM_SHED_WAIT_S``,
+``TPU_LLM_BROWNOUT_WAIT_S``, ``TPU_LLM_BROWNOUT_MAX_NEW`` and
+``TPU_LLM_BROWNOUT_HOLD_S`` (defaults for the kwargs a caller leaves
+out, with the JAX engine's meanings).
 Any other kwarg, and any of the JAX runtime's engine knobs set to ask for
 a feature the port lacks (replicas, meshes, LoRA, ...), raises
 ``NotImplementedError`` naming it; none is ignored.
@@ -40,8 +46,19 @@ __all__ = ["GPURuntime"]
 _ENGINE_KWARGS = (
     "slots", "max_seq_len", "prefill_buckets", "quantize", "kv_int8", "seed", "device", "lookahead", "warmup",
     "prefix_cache_mb", "session_mb", "host_cache_mb", "speculative", "spec_draft", "constrained",
-    "constrained_grammars",
+    "constrained_grammars", "max_queue", "ttft_deadline_ms", "fair_queuing", "fair_weights", "fair_ledger",
+    "preemption", "shed_predicted_wait_s", "brownout_wait_s", "brownout_max_new", "brownout_hold_s",
 )
+
+# Overload-control knobs: config key -> (engine kwarg, parser of the value)
+_OVERLOAD_KNOBS = {
+    "TPU_LLM_FAIR": ("fair_queuing", lambda v: v != "0"),
+    "TPU_LLM_PREEMPT": ("preemption", lambda v: v != "0"),
+    "TPU_LLM_SHED_WAIT_S": ("shed_predicted_wait_s", float),
+    "TPU_LLM_BROWNOUT_WAIT_S": ("brownout_wait_s", float),
+    "TPU_LLM_BROWNOUT_MAX_NEW": ("brownout_max_new", int),
+    "TPU_LLM_BROWNOUT_HOLD_S": ("brownout_hold_s", float),
+}
 
 # The JAX runtime's engine knobs that select a feature this port lacks,
 # each with the values that ask for nothing more than the port does.
@@ -64,6 +81,8 @@ _UNPORTED_KNOBS = {
     "TPU_LLM_DISAGG": ("0",),
     "TPU_LLM_DISAGG_PREFILL_REPLICAS": (),
     "TPU_LLM_KV_HANDOFF_TIMEOUT_S": (),
+    # the JAX engine's per-tenant token-rate quota (goodput.QuotaGate)
+    "TPU_LLM_TENANT_QUOTA_TOK_S": (),
 }
 
 
@@ -84,6 +103,7 @@ class GPURuntime:
         self.default_llm_constrained = get("TPU_LLM_CONSTRAINED")
         self.default_llm_constrained_grammars = get("TPU_LLM_CONSTRAINED_GRAMMARS")
         self._knobs = {k: get(k) for k in _UNPORTED_KNOBS}
+        self._overload_knobs = {k: get(k) for k in _OVERLOAD_KNOBS}
         self._llms: dict[str, LLMEngine] = {}
         self._lock = threading.Lock()
 
@@ -120,6 +140,10 @@ class GPURuntime:
             engine_kw.setdefault("constrained", self.default_llm_constrained != "0")
         if self.default_llm_constrained_grammars != "":
             engine_kw.setdefault("constrained_grammars", int(self.default_llm_constrained_grammars))
+        for knob, v in self._overload_knobs.items():
+            if v != "":
+                kwarg, parse = _OVERLOAD_KNOBS[knob]
+                engine_kw.setdefault(kwarg, parse(v))
         engine_kw.setdefault("device", self.default_device)
         engine = LLMEngine(cfg, params, **engine_kw)
         with self._lock:

@@ -62,8 +62,10 @@ def llm_request_kwargs(ctx: Context) -> dict:
     else a hash of X-API-KEY, else the first X-Forwarded-For hop, else the
     peer address without its port), ``session_id`` (X-GoFr-Session) and
     ``adapter`` (X-GoFr-Adapter; the port's engine refuses a non-empty
-    one). The port's scheduler does not act on the first two; the session
-    id selects the engine's session tier when it has one (``session_mb``)."""
+    one). The engine orders its queue by the priority class and the
+    client's fair-share counter, preempts batch requests for interactive
+    ones and clamps batch requests under brownout; the session id selects
+    the engine's session tier when it has one (``session_mb``)."""
 
     def hdr(name: str) -> str:
         try:

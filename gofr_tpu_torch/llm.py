@@ -91,20 +91,35 @@ configuration:
   request, never at warmup, and again when the table's padding grows
   (``_g_prepare``). A constrained request is always a full prefill (no
   radix lookup); its speculative drafts are filtered and extended through
-  the grammar (``_spec_drafts``).
+  the grammar (``_spec_drafts``);
+- overload control, on by default as in the JAX engine
+  (``resilience``): the waiting queue is ordered by (priority class,
+  the client's weighted served-token counter in a ``FairLedger``, arrival
+  order at the scheduler: the drain order, where JAX uses the request id)
+  each pass (``_order_waiting``; ``fair_queuing=False`` keeps class
+  then FIFO); an interactive request that finds no free slot takes one
+  back from a batch-class occupant (``_preempt_for_waiting``,
+  ``_preempt``: the victim is scrubbed from every program in flight, its
+  emitted tokens fold into its prompt and it re-queues as a continuation
+  that re-prefills through the unified step and resumes its stream);
+  ``max_queue`` and a predicted-wait threshold refuse a submit with
+  ``EngineOverloaded`` and a Retry-After, ``ttft_deadline_ms`` sheds a
+  request still waiting past it (finish reason "shed"), and brownout
+  clamps batch-class ``max_new_tokens`` under sustained pressure
+  (``OverloadController``). The wait is priced as outstanding tokens
+  (``load_tokens``) over the measured throughput (``_observe_tput``).
 
 The pack/meta layouts of the JAX programs are kept: pack [nb, S+3] int32
 = tokens | cursor | n_new | temperature bits; meta [2, nb] int32 = slot
 (``slots`` for inert padding lanes) | finish flag, and [4, nb] in a
 constrained step: + grammar id (-1: none) | start DFA state.
 
-Left out of this slice (queued in ROADMAP.md): LoRA, overload control
-and fair queuing, goodput, flight recorder, KV handoff, preemption and
-its continuation re-seeding, the metrics series of speculation and
-constrained decoding (the port has no metrics manager), the contiguous
-KV layout and the monolithic wave scheduler. ``GenRequest`` carries
-the edge's ``priority`` and ``client`` so the edge hands them over as the
-JAX edge does, but this FIFO scheduler does not act on them.
+Left out of this slice (queued in ROADMAP.md): LoRA, goodput and the
+tenant quota gate, flight recorder, KV handoff, the replica fleet (and
+with it the router's retry budget and a fleet-shared ledger), the
+metrics series of speculation, constrained decoding and overload (the
+port has no metrics manager), the contiguous KV layout and the
+monolithic wave scheduler.
 """
 
 from __future__ import annotations
@@ -128,6 +143,7 @@ from .kvcache import CacheManager, copy_blocks, gather_blocks_host, gather_slots
 from .models.quant import QTensor, is_quantized, quantize_params
 from .models.transformer import decode_chunk_paged, prefill_append, verify_chunk
 from .ops.attention import add_launches, capture_launches
+from .resilience import FairLedger, OverloadController
 from .spec import SPEC_DRAFT_DEFAULT, SPEC_EMA_ALPHA, NGramDrafter, draft_len
 
 _EOS_DEFAULT = -1  # no EOS cut by default (random-weight models)
@@ -146,9 +162,10 @@ class EngineStoppedError(RuntimeError):
 
 class EngineOverloaded(RuntimeError):
     """submit() found no capacity for the request (JAX
-    ``EngineOverloaded``; the port raises it when every resident-grammar
-    slot holds live requests). The edge answers 429 with ``retry_after``
-    seconds in a Retry-After header."""
+    ``EngineOverloaded``): the waiting queue is at ``max_queue``, the
+    predicted queue wait is past the shed threshold, or every
+    resident-grammar slot holds live requests. The edge answers 429 with
+    ``retry_after`` seconds in a Retry-After header."""
 
     status_code = 429
     retry_after: float | None = None
@@ -249,10 +266,11 @@ class GenRequest:
     temperature: float = 0.0
     eos_token: int = _EOS_DEFAULT
     # Identity from the serving edge (``handler.llm_request_kwargs``): the
-    # X-GoFr-Priority class, the fair-queuing client id and the
-    # X-GoFr-Session conversation id. The FIFO scheduler does not act on
-    # the first two (no priority classes or fair queuing); the session id
-    # selects the session tier when the engine has one (``session_mb``).
+    # X-GoFr-Priority class ("batch" or "interactive", normalized by
+    # submit(): batch requests wait behind interactive ones, may be
+    # preempted for them and are clamped under brownout), the
+    # fair-queuing client id (the ledger bills its served tokens) and the
+    # X-GoFr-Session conversation id (the session tier, ``session_mb``).
     priority: str = "interactive"
     client: str = ""
     session_id: str = ""
@@ -280,11 +298,22 @@ class GenRequest:
         self.cancel_reason = "cancelled"
         self.emitted = 0
         self.capped = False  # engine reduced max_new_tokens to fit the cache
-        # "eos" | "length" | "cancelled" | "disconnect" | "deadline" | "error"
+        # "eos" | "length" | "cancelled" | "disconnect" | "deadline" |
+        # "shed" | "error"
         self.finish_reason: str | None = None
         self.error: str | None = None
-        self.submitted_at: float | None = None
+        self.submitted_at: float | None = None  # a continuation restamps it
+        self.admitted_at: float | None = None  # slot assigned (last admission)
         self.first_token_at: float | None = None
+        # overload control (engine-maintained): brownout clamped
+        # max_new_tokens; times a batch slot was taken back; the tokens
+        # of outstanding work this request adds to load_tokens(); whether
+        # its prompt was billed to the ledger (once a lifetime)
+        self.browned = False
+        self.preempted = 0
+        self._load_acct = 0
+        self._prompt_billed = False
+        self._seq = 0  # arrival order at the scheduler (a continuation keeps its own)
         # chunked-prefill scheduler state (engine-maintained)
         self.prefill_pos = 0  # prompt tokens already appended to slot KV
         self.prefill_done = False  # all prompt tokens resident; decoding
@@ -470,11 +499,15 @@ class _Inputs:
 class _Fetch:
     """A program's tokens on their way to the host: a pinned copy behind
     an event on CUDA (enqueued right after the replay, before the next
-    replay overwrites the graph's output), the tensor itself on the CPU."""
+    replay overwrites the graph's output), the tensor itself on the CPU.
+    ``t0`` is the dispatch time and ``work`` the tokens the program serves
+    (prefill rows + decode tokens; a verify's are counted at its fetch),
+    which price the throughput EMA (``LLMEngine._observe_tput``)."""
 
-    __slots__ = ("host", "event")
+    __slots__ = ("host", "event", "t0", "work")
 
-    def __init__(self, out: torch.Tensor):
+    def __init__(self, out: torch.Tensor, work: int = 0, t0: float | None = None):
+        self.t0, self.work = time.perf_counter() if t0 is None else t0, work
         if out.device.type == "cpu":
             self.host, self.event = out, None
             return
@@ -524,11 +557,25 @@ class LLMEngine:
     ``constrained`` admits requests with a grammar (``None`` reads
     ``TPU_LLM_CONSTRAINED``, on unless "0"), with up to
     ``constrained_grammars`` distinct grammars resident (``None`` reads
-    ``TPU_LLM_CONSTRAINED_GRAMMARS``, default 8)."""
+    ``TPU_LLM_CONSTRAINED_GRAMMARS``, default 8).
+
+    Overload control (JAX llm.py:792-858; each ``None`` reads its knob):
+    ``max_queue`` bounds the waiting requests and ``ttft_deadline_ms``
+    sheds one still waiting past it; ``fair_queuing`` (``TPU_LLM_FAIR``,
+    on unless "0") orders the queue through a ``FairLedger`` (built from
+    ``fair_weights``, or ``fair_ledger`` when given); ``preemption``
+    (``TPU_LLM_PREEMPT``, on unless "0") takes batch slots back for
+    interactive work; ``shed_predicted_wait_s`` (``TPU_LLM_SHED_WAIT_S``)
+    refuses submits past that predicted wait, and ``brownout_wait_s``,
+    ``brownout_max_new`` and ``brownout_hold_s``
+    (``TPU_LLM_BROWNOUT_WAIT_S``, ``_MAX_NEW``, ``_HOLD_S``, default 2 s)
+    clamp batch requests first. ``max_queue``, ``ttft_deadline``,
+    ``ledger`` and ``preemption`` may be changed at runtime."""
 
     # plain decode chunks bought by one clean-pipe verify attempt whose
     # lanes drafted nothing (speculative mode); then speculation re-probes
     _SPEC_REPROBE_CHUNKS = 16
+    _PREEMPT_CAP = 2  # preemptions per batch request; then it keeps its slot
 
     def __init__(
         self,
@@ -551,6 +598,16 @@ class LLMEngine:
         spec_draft: int | None = None,
         constrained: bool | None = None,
         constrained_grammars: int | None = None,
+        max_queue: int | None = None,
+        ttft_deadline_ms: float | None = None,
+        fair_queuing: bool | None = None,
+        fair_weights: dict[str, float] | None = None,
+        fair_ledger: FairLedger | None = None,
+        preemption: bool | None = None,
+        shed_predicted_wait_s: float | None = None,
+        brownout_wait_s: float | None = None,
+        brownout_max_new: int | None = None,
+        brownout_hold_s: float | None = None,
     ):
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -706,6 +763,10 @@ class LLMEngine:
         self.spec_plain = 0  # verify lanes run with no draft (plain decode)
         self._spec_hold = 0  # plain chunks left before the next verify attempt
         self._spec_rr = 0  # where the next budget-cut verify scan starts
+        self._init_overload(
+            max_queue, ttft_deadline_ms, fair_queuing, fair_weights, fair_ledger, preemption,
+            shed_predicted_wait_s, brownout_wait_s, brownout_max_new, brownout_hold_s,
+        )
         if dev.type == "cuda":
             self._stream = torch.cuda.Stream(dev)  # every program, copy and capture
             self._graph_pool = torch.cuda.graph_pool_handle()  # shared by the families
@@ -723,6 +784,12 @@ class LLMEngine:
 
     # -- public API -------------------------------------------------------
     def submit(self, req: GenRequest) -> GenRequest:
+        """Queue ``req`` (JAX ``submit``): validate it, then the overload
+        gates in the JAX order — the predicted-wait shed, the brownout
+        clamp of a batch request's REMAINING tokens, the ``max_queue``
+        reject (each ``EngineOverloaded`` with a Retry-After) — and only
+        then take references (a grammar's table slot), so a refused submit
+        leaks nothing."""
         if self._stop:
             raise EngineStoppedError(f"engine stopped ({self.error or 'closed'})")
         if req.adapter:
@@ -736,17 +803,18 @@ class LLMEngine:
             raise ValueError(f"prompt of {plen} tokens exceeds max_seq_len {self.max_seq_len}")
         # cap max_new_tokens so a slot's rows stay inside its capacity: a
         # request's length may overshoot by one decode chunk, and the
-        # end-of-chunk merge needs another chunk of slack
+        # end-of-chunk merge needs another chunk of slack. Only the
+        # REMAINING tokens need room (a continuation arrives with emitted > 0)
         room = self.max_seq_len - plen - 2 * self.decode_chunk
         if room < 1:
             raise ValueError(
                 f"prompt of {plen} tokens leaves no decode room at max_seq_len "
                 f"{self.max_seq_len} (chunk {self.decode_chunk})"
             )
-        if req.max_new_tokens > room:
-            req.max_new_tokens = room
+        if req.max_new_tokens - req.emitted > room:
+            req.max_new_tokens = room + req.emitted
             req.capped = True
-        need = self.kv.reserve_need(plen, req.max_new_tokens)
+        need = self.kv.reserve_need(plen, req.max_new_tokens - req.emitted)
         if need > self.kv.pool.n_blocks:
             raise ValueError(f"request needs {need} KV blocks, pool holds {self.kv.pool.n_blocks}")
         if req.grammar is not None:  # JAX llm.py:2479-2497
@@ -764,13 +832,44 @@ class LLMEngine:
                 raise ValueError(
                     f"request eos_token {req.eos_token} != grammar eos {g.eos_id} (the grammar closes the stream)"
                 )
+        # anything but the literal "batch" is interactive: a typo in the
+        # header degrades to the latency-safe class (JAX llm.py:2503)
+        req.priority = "batch" if req.priority == "batch" else "interactive"
+        wait_s = self.predicted_wait_s()
+        self.overload.observe(wait_s)
+        shed_after = self.overload.should_shed(wait_s)
+        if shed_after is not None:
+            self.sheds_predicted += 1
+            raise EngineOverloaded(
+                f"predicted queue wait {wait_s:.1f}s exceeds shed threshold {self.overload.shed_wait_s:.1f}s",
+                retry_after=shed_after,
+            )
+        clamp = self.overload.clamp(req.max_new_tokens - req.emitted, req.priority) + req.emitted
+        if clamp < req.max_new_tokens:
+            req.max_new_tokens = clamp
+            req.browned = True
+            self.brownout_clamped += 1
+        if self.max_queue is not None:
+            depth = self._admit_q.qsize() + len(self._waiting)
+            if depth >= self.max_queue:
+                self.rejected += 1
+                raise EngineOverloaded(
+                    f"admission queue full ({depth} >= {self.max_queue})",
+                    retry_after=wait_s if wait_s else 1.0,
+                )
+        if req.grammar is not None:
             with self._lock:
-                req._g_id = self._register_grammar(g)
+                req._g_id = self._register_grammar(req.grammar)
                 self._g_refs[req._g_id] += 1
                 self.constrained_requests += 1
+        if self.ledger is not None:
+            # the new-arrival lift, before the request becomes orderable
+            self.ledger.touch(req.client)
         req.submitted_at = time.perf_counter()
         with self._lock:
             self.submitted += 1
+            req._load_acct = plen + max(0, req.max_new_tokens - req.emitted)
+            self._load_tokens += req._load_acct
         self._admit_q.put(req)
         if self._stop:  # stopped between the check above and the put
             self._end_all("error" if self.error else "cancelled")
@@ -795,6 +894,16 @@ class LLMEngine:
                 "inflight_chunks": sum(1 for e in self._inflight if e[0] == "chunk"),
                 "deadline_cancels": self.deadline_cancels,
                 "disconnect_cancels": self.disconnect_cancels,
+                # overload control, under the JAX engine's keys
+                "load_tokens": self.load_tokens(),
+                "rejected": self.rejected,
+                "shed": self.shed,
+                "preemptions": self.preemptions,
+                "sheds_predicted": self.sheds_predicted,
+                "brownout_clamped": self.brownout_clamped,
+                "predicted_wait_s": self.predicted_wait_s(),
+                "overload": self.overload.snapshot(),
+                "fairness": self.ledger.snapshot() if self.ledger is not None else None,
                 "chunk_shapes": self.chunk_shapes,
                 "spec": self._spec_summary(),
                 "constrained": self._constrained_summary(),
@@ -813,6 +922,10 @@ class LLMEngine:
             self._work_cv.notify_all()
         self._collector.join(timeout=timeout)
         self._end_all("cancelled")
+        if self.ledger is not None:
+            # a closed engine must not pin a shared ledger's new-arrival
+            # floor with a stale waiting-client set
+            self.ledger.set_active(self._shard, set())
         if self.device.type == "cuda":
             self._stream.synchronize()
             self.families.clear()  # the graphs and their memory pool
@@ -831,6 +944,10 @@ class LLMEngine:
                 while not self._stop:
                     self._drain_submits()
                     self._expire_deadlines(time.perf_counter())
+                    self._order_waiting()
+                    # a pressure sample every pass, so brownout can let go
+                    # while no submit arrives
+                    self.overload.observe(self.predicted_wait_s())
                     if self.kv.share:
                         # paged-pool housekeeping, in dependency order:
                         # publish finished session turns (needs their
@@ -947,6 +1064,8 @@ class LLMEngine:
         with self._lock:
             r.finish_reason = reason
             self.finished += 1
+            self._load_tokens -= r._load_acct  # the residue a cut leaves
+            r._load_acct = 0
             self.deadline_cancels += reason == "deadline"
             self.disconnect_cancels += reason == "disconnect"
             if 0 <= r._g_id < len(self._g_refs):
@@ -966,20 +1085,31 @@ class LLMEngine:
             r.out.put(None)
 
     def _drain_submits(self) -> None:
+        """Move submitted requests to the waiting queue, stamping their
+        arrival order (``_order_waiting``'s last key)."""
         while True:
             try:
-                self._waiting.append(self._admit_q.get_nowait())
+                r = self._admit_q.get_nowait()
             except queue.Empty:
                 return
+            self._arrivals += 1
+            r._seq = self._arrivals
+            self._waiting.append(r)
 
     def _expire_deadlines(self, now: float) -> None:
         """Retire every request, waiting or slotted, that was cancelled or
         whose deadline has passed (JAX ``LLMEngine._expire_deadlines``):
         its stream ends at once and its slot is free for the next
         admission; tokens of its programs still in flight are dropped.
-        Runs once per scheduler pass: O(slots + waiting), no device work."""
+        A waiting request past ``ttft_deadline_ms`` is shed first (finish
+        reason "shed", JAX llm.py:4075-4091): its first token can no longer
+        arrive in time, so it takes no slot. Runs once per scheduler pass:
+        O(slots + waiting), no device work."""
+        ttft = self.ttft_deadline
 
-        def reason(r: GenRequest) -> str | None:
+        def reason(r: GenRequest, waiting: bool = False) -> str | None:
+            if waiting and ttft is not None and r.submitted_at is not None and now - r.submitted_at > ttft:
+                return "shed"
             if r.cancelled:
                 return r.cancel_reason
             if r.deadline is not None and now > r.deadline:
@@ -994,7 +1124,8 @@ class LLMEngine:
                     retired = True
             kept: deque[GenRequest] = deque()
             for r in self._waiting:
-                if (why := reason(r)) is not None:
+                if (why := reason(r, waiting=True)) is not None:
+                    self.shed += why == "shed"
                     self._finish(r, why)
                 else:
                     kept.append(r)
@@ -1017,7 +1148,7 @@ class LLMEngine:
                 # it counts its guaranteed ONE: more could virtually free
                 # a slot on tokens that never arrive
                 for slot, r in e[2]:
-                    if r is self._slot_req[slot]:
+                    if r is not None and r is self._slot_req[slot]:
                         steps[slot] = steps.get(slot, 0) + 1
                 continue
             if e[0] == "step":
@@ -1047,9 +1178,13 @@ class LLMEngine:
 
     def _admit(self) -> bool:
         """Give waiting requests free (or virtually free) slots (JAX
-        ``_admit_chunked``): pull as many as there are such slots, FIFO;
-        for each, touch its session (restoring a spilled one), consult the
-        radix and reserve its blocks net of the shared prefix. A request
+        ``_admit_chunked``): first take batch slots back for interactive
+        requests that find none (``_preempt_for_waiting``), then pull as
+        many requests as there are such slots in the queue's order
+        (``_order_waiting``); for each, touch its session (restoring a
+        spilled one), consult the radix and reserve its blocks net of the
+        shared prefix (and of the tokens a continuation already streamed,
+        which its prompt now holds). A request
         the pool cannot host goes back to the head of the queue, in order,
         while the others go ahead. Exact hits are dispatched at once
         (``_admit_exact_hits``); partial hits start their prefill cursor at
@@ -1057,6 +1192,8 @@ class LLMEngine:
         pins. Returns whether any request was admitted."""
         with self._work_cv:
             free = self._free_slots()
+            if self._waiting:
+                free = self._preempt_for_waiting(free)
             if not self._waiting or not free:
                 return False
             pulled = [self._waiting.popleft() for _ in range(min(len(free), len(self._waiting)))]
@@ -1073,12 +1210,12 @@ class LLMEngine:
                     # hit program, which the grammar mask does not ride
                     plan = self.kv.lookup_seed(r.prompt_tokens) if self.kv.share and r.grammar is None else None
                     r._kv_plan = plan
-                    plen = len(r.prompt_tokens)
-                    if not self.kv.admit_reserve(plen, r.max_new_tokens, plan):
+                    plen, new = len(r.prompt_tokens), r.max_new_tokens - r.emitted
+                    if not self.kv.admit_reserve(plen, new, plan):
                         self._kv_release_plan(r)
                         blocked.append(r)
                         continue
-                    r._kv_resv = self.kv.reserve_need(plen, r.max_new_tokens, plan)
+                    r._kv_resv = self.kv.reserve_need(plen, new, plan)
                     (rest if plan is None else hits if plan.exact else partials).append(r)
                 self._waiting.extendleft(reversed(blocked))
                 try:
@@ -1092,6 +1229,7 @@ class LLMEngine:
                         self._kv_attach(r, r.slot, plan)
                         r.prefix_hit = True
                         r.prefill_pos = plan.shared
+                        self._load_credit(r, plan.shared)
                         self._prefilling.append(r)
                 finally:
                     for r in hits + partials:
@@ -1106,7 +1244,10 @@ class LLMEngine:
             return bool(hits or partials or rest)
 
     def _assign_slot(self, r: GenRequest, slot: int) -> None:
-        """Make ``r`` the slot's occupant. Lock held."""
+        """Make ``r`` the slot's occupant and close its queue wait (JAX
+        ``_assign_slot`` + ``_observe_admission``): the ledger bills its
+        prompt once a lifetime (a continuation's re-prefill is the
+        engine's choice, not the client's). Lock held."""
         old = self._slot_req[slot]
         if old is not None and old.cancelled and old.finish_reason is None:
             # cancelled after this pass's sweep: it may have no program in
@@ -1116,18 +1257,22 @@ class LLMEngine:
         r.slot = slot
         r.prefill_pos = 0
         r.prefill_done = False
+        r.admitted_at = time.perf_counter()
+        if self.ledger is not None and not r._prompt_billed:
+            r._prompt_billed = True
+            self.ledger.charge(r.client, len(r.prompt_tokens))
 
     def _kv_attach(self, r: GenRequest, slot: int, plan) -> dict:
         """Bind the slot's block table to ``r`` and its seed plan (adopting
         the plan's pins); releases a virtually free predecessor's blocks
         (see ``_finish``)."""
-        plen = len(r.prompt_tokens)
+        plen, new = len(r.prompt_tokens), r.max_new_tokens - r.emitted
         if plan is None:
-            self.kv.attach(slot, r, plen, r.max_new_tokens)
+            self.kv.attach(slot, r, plen, new)
             info = {"copies": [], "seed_len": 0}
         else:
-            info = self.kv.attach_seed(slot, plan, r, plen, r.max_new_tokens)
-        r._kv_limit = self.kv.reserve_tokens(plen, r.max_new_tokens)
+            info = self.kv.attach_seed(slot, plan, r, plen, new)
+        r._kv_limit = self.kv.reserve_tokens(plen, new)
         r._kv_resv = 0  # the admission promise is on the slot's books now
         r._kv_plan = None
         self._kv_hi[slot] = info["seed_len"]
@@ -1178,6 +1323,7 @@ class LLMEngine:
                 r.prefix_hit = True
                 r.prefill_pos = len(r.prompt_tokens)
                 r.prefill_done = True
+                self._load_credit(r, len(r.prompt_tokens))
                 for src, dst in info["copies"]:
                     seed[0, j], seed[1, j] = src, dst
                 seed[2, j], seed[3, j] = slot, info["seed_len"]
@@ -1200,6 +1346,187 @@ class LLMEngine:
         seed[0:2] = self.kv.pool.n_blocks
         seed[2] = seed[4] = self.slots
         return seed
+
+    # -- overload control (JAX llm.py:792-858, 3456-3505, 4130-4307) ---------
+    def _init_overload(
+        self, max_queue, ttft_deadline_ms, fair_queuing, fair_weights, fair_ledger, preemption,
+        shed_predicted_wait_s, brownout_wait_s, brownout_max_new, brownout_hold_s,
+    ) -> None:
+        """The overload kwargs with the JAX engine's env fallbacks and
+        defaults; fair queuing and preemption are on unless their knob is
+        "0", shedding and brownout off unless configured."""
+        env = os.environ.get
+        self.max_queue = max_queue
+        self.ttft_deadline = ttft_deadline_ms / 1000.0 if ttft_deadline_ms else None
+        if fair_queuing is None:
+            fair_queuing = env("TPU_LLM_FAIR", "1") != "0"
+        self.ledger = (fair_ledger if fair_ledger is not None else FairLedger(fair_weights)) if fair_queuing else None
+        if preemption is None:
+            preemption = env("TPU_LLM_PREEMPT", "1") != "0"
+        self.preemption = bool(preemption)
+        if shed_predicted_wait_s is None:
+            shed_predicted_wait_s = float(env("TPU_LLM_SHED_WAIT_S", "0") or 0.0)
+        if brownout_wait_s is None:
+            brownout_wait_s = float(env("TPU_LLM_BROWNOUT_WAIT_S", "0") or 0.0)
+        if brownout_max_new is None:
+            brownout_max_new = int(env("TPU_LLM_BROWNOUT_MAX_NEW", "0") or 0)
+        if brownout_hold_s is None:
+            brownout_hold_s = float(env("TPU_LLM_BROWNOUT_HOLD_S", "2.0") or 0.0)
+        self.overload = OverloadController(
+            shed_wait_s=shed_predicted_wait_s, brownout_wait_s=brownout_wait_s,
+            brownout_max_new=brownout_max_new, brownout_hold_s=brownout_hold_s,
+        )
+        self._shard = f"llm-torch-{id(self):x}"  # this engine's waiting set in the ledger
+        self.rejected = 0  # max_queue rejects
+        self.shed = 0  # waiting requests shed past ttft_deadline_ms
+        self.sheds_predicted = 0  # predicted-wait rejects
+        self.brownout_clamped = 0  # batch requests clamped under brownout
+        self.preemptions = 0  # batch slots taken back for interactive work
+        self._load_tokens = 0  # outstanding-work estimate (load_tokens)
+        self._arrivals = 0  # requests drained from the submit queue
+        self._tput_ema: float | None = None  # measured tokens/s (EMA)
+
+    def load_tokens(self) -> int:
+        """The device work still owed to every live request, in tokens:
+        submit adds prompt + remaining decode, prefill chunks, radix hits
+        and emitted tokens credit it back, a finish flushes the residue."""
+        return max(0, self._load_tokens)
+
+    def predicted_wait_s(self) -> float | None:
+        """Predicted queue wait of a new request: ``load_tokens`` over the
+        measured throughput; None until the first program has been
+        measured (no pressure: a cold engine never sheds). At lookahead 3
+        the measured windows overlap, so the throughput reads low and the
+        wait high, as in the JAX engine."""
+        tput = self._tput_ema
+        if not tput or tput <= 1e-9:
+            return None
+        return self.load_tokens() / tput
+
+    def throughput_tok_s(self) -> float | None:
+        """Measured serving throughput (the EMA; None before the first
+        program)."""
+        return self._tput_ema
+
+    def _observe_tput(self, tokens: int, dt: float) -> None:
+        """Fold one program's tokens over its dispatch-to-fetch seconds
+        into the throughput EMA."""
+        if tokens <= 0 or dt <= 0:
+            return
+        rate = tokens / dt
+        ema = self._tput_ema
+        self._tput_ema = rate if ema is None else 0.8 * ema + 0.2 * rate
+
+    def _load_credit(self, r: GenRequest, n: int) -> None:
+        """Retire ``n`` tokens of ``r``'s outstanding work (at most what it
+        still owes). Lock held."""
+        n = min(n, r._load_acct)
+        if n > 0:
+            r._load_acct -= n
+            self._load_tokens -= n
+
+    def _order_waiting(self) -> None:
+        """Order the waiting queue (JAX ``_order_waiting``): interactive
+        first, then the least weighted-served client (the ledger's
+        counter), then arrival order at the scheduler. Also refreshes the ledger's
+        waiting-client set, which anchors the new-arrival floor. With
+        fair queuing off: class, then FIFO.
+
+        Arrival order is the order the scheduler drained the submits in
+        (``_seq``); the JAX engine breaks the tie by ``GenRequest.id``,
+        the order the requests were made. The two agree when a caller
+        submits requests in the order it makes them; concurrent clients
+        make and submit in different orders, and the arrival order keeps
+        one client's traffic in the FIFO order the port served before
+        overload control (ROADMAP queue 3 item 9). ``GenRequest.id`` stays
+        as the last key for requests that reach ``_waiting`` without the
+        drain, which stamps no ``_seq`` (they all share 0)."""
+        led = self.ledger
+        with self._lock:
+            clients = {r.client for r in self._waiting}
+            if led is not None:
+                led.set_active(self._shard, clients)
+            if len(self._waiting) < 2:
+                return
+            counters = led.counters_for(clients) if led is not None else {}
+            self._waiting = deque(sorted(
+                self._waiting, key=lambda r: (r.priority == "batch", counters.get(r.client, 0.0), r._seq, r.id)
+            ))
+
+    def _preempt_for_waiting(self, free: list[int]) -> list[int]:
+        """When waiting interactive requests outnumber the free slots, take
+        slots back from batch-class occupants, the most recently admitted
+        first (the least progress to redo), at most ``_PREEMPT_CAP`` times
+        a request (JAX ``_preempt_for_waiting``). An occupant whose slot is
+        already free (virtually: its programs in flight cover its
+        remaining tokens) is no victim: its slot is counted in ``free``.
+        Returns the free slots again. Lock held."""
+        if not self.preemption:
+            return free
+        want = sum(1 for r in self._waiting if r.priority != "batch" and r.finish_reason is None) - len(free)
+        if want <= 0:
+            return free
+        victims = [
+            r for i, r in enumerate(self._slot_req)
+            if r is not None and i not in free and r.priority == "batch" and not r.cancelled
+            and r.finish_reason is None and r.preempted < self._PREEMPT_CAP
+        ]
+        if not victims:
+            return free
+        victims.sort(key=lambda r: r.admitted_at or 0.0, reverse=True)
+        for r in victims[:want]:
+            self._preempt(r)
+        return self._free_slots()
+
+    def _preempt(self, r: GenRequest) -> None:
+        """Take ``r``'s slot back now (JAX ``_preempt``) without ending its
+        stream. The slot and its blocks are free at once (shared prefix
+        blocks are decref'd): ``r``'s programs in flight still write them,
+        but they run before any later owner's on the one engine stream
+        (the argument of ``_finish``), and no later dispatch has ``r``'s
+        lane live. ``r`` is scrubbed from every program in flight, so none
+        of their tokens reach it; its emitted tokens fold into its prompt
+        and it re-queues as a continuation that re-prefills through the
+        unified step and resumes where its stream stands, with its grammar
+        reference and DFA state (the step starts a constrained row at
+        ``_g_state``). The tokens computed but not emitted are computed
+        again. Lock held, scheduler thread."""
+        slot = r.slot
+        if slot is not None and self._slot_req[slot] is r:
+            self._slot_req[slot] = None
+            if self.kv.slot_owner(slot) is r:
+                self.kv.release_slot(slot, r)
+                self._kv_hi[slot] = 0
+        r.slot = None
+        for e in list(self._inflight) + [e for e in (self._processing,) if e is not None]:
+            if e[0] == "prefill":  # blank: the collector indexes tokens by row
+                e[2][:] = [(s, None if x is r else x) for s, x in e[2]]
+            elif e[0] == "verify":
+                e[2][:] = [(s, x) for s, x in e[2] if x is not r]
+            else:
+                if e[0] == "step":
+                    e[2][:] = [f for f in e[2] if f[2] is not r]
+                snapshot = e[4] if e[0] == "step" else e[2]
+                for i, x in enumerate(snapshot):
+                    if x is r:
+                        snapshot[i] = None
+        if r in self._prefilling:
+            self._prefilling.remove(r)
+        r.prompt_tokens = list(r.prompt_tokens) + r.history
+        r.history = []
+        r.prefill_pos = 0
+        r.prefill_done = False
+        r._spec_pending = []
+        r._spec_inflight = 0
+        r.preempted += 1
+        r.submitted_at = time.perf_counter()  # a fresh queue wait
+        self._load_tokens -= r._load_acct
+        r._load_acct = len(r.prompt_tokens) + max(0, r.max_new_tokens - r.emitted)
+        self._load_tokens += r._load_acct
+        self._waiting.append(r)
+        if self.ledger is not None:
+            self.ledger.touch(r.client)
+        self.preemptions += 1
 
     # -- paged-pool housekeeping (scheduler thread) -------------------------
     def _kv_publish(self, slot: int, r: GenRequest, logits=None, *, session: bool = False) -> None:
@@ -1432,6 +1759,7 @@ class LLMEngine:
                     # request; JAX llm.py:5945-5952)
                     meta[2, j], meta[3, j] = r._g_id, r._g_state
                 r.prefill_pos = pos + n
+                self._load_credit(r, n)
                 # blocks for the appended rows (+ the fused decode chunk
                 # when this row activates)
                 self._grow(r.slot, r, pos + n + (K if done else 0))
@@ -1455,14 +1783,16 @@ class LLMEngine:
                 name = self._g_name(name)
             self._ensure_family(name)
             self._stage(use_g, self._host_tables(), live, meta, pack)
+            t0 = time.perf_counter()
             out = self._launch(name)
             toks, logits = out if self.kv.share else (out, None)
-            fetch = _Fetch(toks)
             # after the rows loop: rows finishing this step decode in it
             snapshot = [r if (r is not None and r.prefill_done) else None for r in self._slot_req]
+            work = prefill_tokens + K * sum(r is not None for r in snapshot)
+            fetch = _Fetch(toks, work, t0)
             self._inflight.append(("step", fetch, finishes, nb, snapshot, K))
             self.steps += 1
-            self.step_tokens += prefill_tokens + K * sum(r is not None for r in snapshot)
+            self.step_tokens += work
             self.prefill_tokens += prefill_tokens
             self.chunks += 1
             if logits is not None:
@@ -1492,7 +1822,8 @@ class LLMEngine:
             name = f"llm.decode_chunk{k}" + ("g" if use_g else "")
             self._ensure_family(name)
             self._stage(use_g, self._host_tables(), live)
-            fetch = _Fetch(self._launch(name))
+            t0 = time.perf_counter()
+            fetch = _Fetch(self._launch(name), k * sum(r is not None for r in snapshot), t0)
             self._inflight.append(("chunk", fetch, snapshot, k))
             self.chunks += 1
             self._work_cv.notify()
@@ -1566,7 +1897,7 @@ class LLMEngine:
         budget-cut scan stopped, so no slot starves.
 
         Each lane's rows stay inside the blocks its request reserved: the
-        device length is at most prompt + emitted - 1 (the tail token is
+        device length is at most prompt + history - 1 (the tail token is
         not written yet) plus the rows of the lane's verifies in flight,
         and the draft is cut so that this verify's rows fit under
         ``_kv_limit`` (a row past a table's materialized entries would
@@ -1607,7 +1938,9 @@ class LLMEngine:
                     or r.emitted + len(r._spec_pending) >= r.max_new_tokens
                 ):
                     continue
-                dev_hi = len(r.prompt_tokens) + r.emitted - 1 + fly_rows.get(slot, 0)
+                # (history: the tokens emitted since the prompt last
+                # absorbed them, at a preemption)
+                dev_hi = len(r.prompt_tokens) + len(r.history) - 1 + fly_rows.get(slot, 0)
                 room = (r._kv_limit or self.kv.capacity) - dev_hi
                 if room < 1:
                     continue  # its verifies in flight may fill the reservation
@@ -1638,7 +1971,8 @@ class LLMEngine:
             name = f"llm.step_v{W}" + ("g" if use_g else "")
             self._ensure_family(name)
             self._stage(use_g, self._host_tables(), np.zeros((self.slots,), bool), verify=pack)
-            fetch = _Fetch(self._launch(name))
+            t0 = time.perf_counter()
+            fetch = _Fetch(self._launch(name), t0=t0)
             self._inflight.append(
                 ("verify", fetch, sel, {"W": W, "n_draft": n_draft, "pred": pred, "gset": gset})
             )
@@ -1674,6 +2008,9 @@ class LLMEngine:
             if r.grammar is not None:
                 # the host DFA mirror (JAX llm.py:5714-5721)
                 r._g_state = r.grammar.advance_all(r._g_state, toks)
+            self._load_credit(r, len(toks))
+            if self.ledger is not None:
+                self.ledger.charge(r.client, len(toks))
         if finish is None and r.emitted >= r.max_new_tokens:
             finish = "length"
         if finish is not None:
@@ -1729,7 +2066,7 @@ class LLMEngine:
     @staticmethod
     def _entry_requests(entry: tuple) -> list[GenRequest]:
         if entry[0] in ("prefill", "verify"):
-            return [r for _s, r in entry[2]]
+            return [r for _s, r in entry[2] if r is not None]
         snapshot = entry[4] if entry[0] == "step" else entry[2]
         out = [r for r in snapshot if r is not None]
         if entry[0] == "step":
@@ -1740,15 +2077,18 @@ class LLMEngine:
         """Wait for one program's tokens (outside the lock: the card runs
         the next program meanwhile) and emit them; the entry leaves
         ``_processing`` in the same lock acquisition as the emits."""
-        toks = entry[1].wait()
+        fetch = entry[1]
+        toks = fetch.wait()
         now = time.perf_counter()
         if entry[0] == "verify":
             self._process_verify_entry(entry, toks, now)
             return
+        self._observe_tput(fetch.work, now - fetch.t0)
         with self._lock:
             if entry[0] == "prefill":
                 for j, (slot, r) in enumerate(entry[2]):
-                    self._emit_to(r, slot, [int(toks[j])], now)
+                    if r is not None:  # None: preempted (the row is kept)
+                        self._emit_to(r, slot, [int(toks[j])], now)
                 self._processing = None
                 return
             if entry[0] == "step":
@@ -1774,10 +2114,11 @@ class LLMEngine:
         exact prediction pops its span, any misprediction clears it (later
         verifies in flight still emit valid tokens; their drafts were only
         mis-aimed)."""
-        _, _fetch, sel, info = entry
+        _, fetch, sel, info = entry
         S, W = self.slots, info["W"]
         ys, acc = toks[: S * W].reshape(S, W), toks[S * W :]
         with self._lock:
+            self._observe_tput(sum(int(acc[slot]) + 1 for slot, _r in sel), now - fetch.t0)
             for slot, r in sel:
                 a = int(acc[slot])
                 out = ys[slot, : a + 1].tolist()

@@ -17,7 +17,11 @@ Config (process environment, or ``configs/.env``): ``GEMMA_PRESET``
 raising without one); ``HTTP_PORT`` (8000), ``REQUEST_TIMEOUT`` (5 s);
 ``TPU_LLM_PREFIX_CACHE_MB``, ``TPU_LLM_SESSION_MB`` and ``TPU_LLM_HOST_CACHE_MB``
 turn on the prefix cache and the ``X-GoFr-Session`` tier, ``TPU_LLM_SPEC=1``
-(with ``TPU_LLM_SPEC_DRAFT``) speculative decoding (``GPURuntime``).
+(with ``TPU_LLM_SPEC_DRAFT``) speculative decoding, and ``TPU_LLM_FAIR``,
+``TPU_LLM_PREEMPT``, ``TPU_LLM_SHED_WAIT_S`` and ``TPU_LLM_BROWNOUT_*``
+tune overload control (``GPURuntime``). ``X-GoFr-Priority: batch`` and
+``X-GoFr-Client`` reach the engine's queue order and preemption; an
+overloaded engine answers 429 with a Retry-After header.
 Weights are random, made from a ``torch.Generator`` seeded with 0: loading a
 checkpoint (``GEMMA_CKPT``) is not ported and raises.
 """

@@ -9,6 +9,7 @@ import importlib.util
 import json
 import pathlib
 import socket
+import threading
 import time
 
 import jax
@@ -358,3 +359,143 @@ def test_generate_with_spec_same_answer(weights):
         for app, th in zip((japp, papp), threads):
             app.shutdown()
             th.join(timeout=10)
+
+
+# -- overload control at the edge ---------------------------------------------
+
+def _call_h(app, method, path, body=None, headers=None):
+    """_call, with the response headers."""
+    conn = http.client.HTTPConnection("127.0.0.1", app.http_server.port, timeout=120)
+    try:
+        conn.request(method, path, body=json.dumps(body).encode(),
+                     headers={"Content-Type": "application/json", **(headers or {})})
+        resp = conn.getresponse()
+        return resp.status, dict(resp.getheaders()), resp.read()
+    finally:
+        conn.close()
+
+
+def _raw_engine(app):
+    """The engine itself (the JAX runtime hands out a ModelHandle)."""
+    h = _engine(app)
+    return getattr(h, "engine", h)
+
+
+OVERLOAD_BODIES = {
+    "/generate": {"tokens": [5, 9, 2], "max_new_tokens": 8},
+    "/v1/chat/completions": {"model": "gemma", "messages": [{"role": "user", "content": "hi"}], "max_tokens": 8},
+}
+
+
+@pytest.mark.parametrize("path", sorted(OVERLOAD_BODIES))
+@pytest.mark.parametrize("cause", ["max_queue", "predicted_wait"])
+def test_overload_answers_429_with_retry_after(apps, path, cause):
+    """A full queue and a predicted-wait shed answer 429 with a Retry-After
+    header on both apps; the port's carries its predicted wait past the
+    threshold (10 s - 1 s). Once the pressure is gone the queued request
+    is served. (The JAX runtime's engine is a replica fleet, whose own
+    admission serves the queued request meanwhile: its wait is not pinned.)"""
+    answers, queued = [], []
+    for app in apps:
+        eng = _raw_engine(app)
+        eng._admit = lambda: False  # the queue only grows
+        try:
+            if cause == "max_queue":
+                eng.max_queue = 0
+            else:
+                queued.append(eng.submit(type(eng).submit.__globals__["GenRequest"]([1, 2, 3], max_new_tokens=17)))
+                eng._tput_ema = eng.load_tokens() / 10.0  # a 10 s predicted wait
+                eng.overload.shed_wait_s = 1.0
+            status, headers, body = _call_h(app, "POST", path, OVERLOAD_BODIES[path])
+            answers.append((status, headers.get("Retry-After")))
+        finally:
+            eng.max_queue = None
+            eng.overload.shed_wait_s = 0.0
+            eng._tput_ema = None
+            del eng._admit
+    (js, jra), (ps, pra) = answers
+    assert js == ps == 429 and int(jra) >= 1, answers
+    assert pra == ("9" if cause == "predicted_wait" else "1"), answers
+    for r in queued:
+        assert len(r.tokens(timeout=60)) == 17
+
+
+def test_priority_and_client_headers_reach_ledger_and_preemption(apps):
+    """X-GoFr-Priority: batch and X-GoFr-Client ride /generate into the
+    engine: four batch requests from "bulk" fill the port's four slots, an
+    interactive one from "web" takes a slot back, and every batch answer
+    still equals the JAX app's; the ledger billed both clients."""
+    import concurrent.futures
+
+    japp, papp = apps
+    eng = _raw_engine(papp)
+    # long enough that no slot is near its end (virtually free) when the
+    # interactive request arrives
+    bodies = [{"tokens": _prompt(40 + i, 9 + 5 * i), "max_new_tokens": 128} for i in range(SLOTS)]
+    want = [json.loads(_call(japp, "POST", "/generate", b)[1])["data"]["tokens"] for b in bodies]
+    before = eng.preemptions
+    process = eng._process_entry
+    go = threading.Event()
+    go.set()
+
+    def slow(entry):
+        go.wait(timeout=10)
+        time.sleep(0.01)
+        return process(entry)
+
+    eng._process_entry = slow
+    try:
+        batch = {"X-GoFr-Priority": "batch", "X-GoFr-Client": "bulk"}
+        with concurrent.futures.ThreadPoolExecutor(SLOTS + 1) as ex:
+            futs = [ex.submit(_call_h, papp, "POST", "/generate", b, batch) for b in bodies]
+            assert _wait(lambda: sum(r is not None and r.emitted > 0 for r in eng._slot_req) == SLOTS, 30)
+            go.clear()  # the batch requests stay mid-stream while the interactive one arrives
+            inter = ex.submit(_call_h, papp, "POST", "/generate", {"tokens": [3, 1, 4], "max_new_tokens": 4},
+                              {"X-GoFr-Client": "web"})
+            assert _wait(lambda: eng.preemptions > before, 10)
+            go.set()
+            status, _h, body = inter.result(timeout=60)
+            assert status == 201 and len(json.loads(body)["data"]["tokens"]) == 4
+            got = [f.result(timeout=60) for f in futs]
+    finally:
+        go.set()
+        del eng._process_entry
+    assert [s for s, _h, _b in got] == [201] * SLOTS
+    assert [json.loads(b)["data"]["tokens"] for _s, _h, b in got] == want
+    counters = eng.stats()["fairness"]["counters"]
+    assert counters["bulk"] > counters["web"] > 0
+
+
+def test_register_llm_overload_kwargs_and_knobs(weights):
+    """register_llm takes the overload kwargs; TPU_LLM_FAIR, _PREEMPT,
+    _SHED_WAIT_S and _BROWNOUT_* set the engine's defaults (a kwarg wins);
+    TPU_LLM_TENANT_QUOTA_TOK_S (the JAX engine's quota gate) is refused by
+    name."""
+    _jcfg, _jp, tp = weights
+    from gofr_tpu_torch.datasource.gpu import GPURuntime
+    from gofr_tpu_torch.resilience import FairLedger
+
+    cfg = TT.TransformerConfig.tiny()
+    shared = FairLedger({"paid": 4.0})
+    knobs = {"TORCH_DEVICE": "cpu", "TPU_LLM_FAIR": "0", "TPU_LLM_PREEMPT": "0", "TPU_LLM_SHED_WAIT_S": "5",
+             "TPU_LLM_BROWNOUT_WAIT_S": "2", "TPU_LLM_BROWNOUT_MAX_NEW": "16", "TPU_LLM_BROWNOUT_HOLD_S": "0.5"}
+    cases = (
+        ({"TORCH_DEVICE": "cpu"}, {}, (True, True, 0.0, 0.0, 0, 2.0, None, None)),
+        (knobs, {}, (False, False, 5.0, 2.0, 16, 0.5, None, None)),
+        (knobs, {"fair_ledger": shared, "fair_queuing": True, "preemption": True, "max_queue": 8,
+                 "ttft_deadline_ms": 250, "brownout_max_new": 4}, (True, True, 5.0, 2.0, 4, 0.5, 8, 0.25)),
+    )
+    for config, kw, want in cases:
+        eng = GPURuntime(new_mock_config(config)).register_llm("m", cfg, tp, slots=2, max_seq_len=64, **kw)
+        try:
+            o = eng.overload
+            got = (eng.ledger is not None, eng.preemption, o.shed_wait_s, o.brownout_wait_s, o.brownout_max_new,
+                   o.brownout_hold_s, eng.max_queue, eng.ttft_deadline)
+            assert got == want, (config, kw)
+            if "fair_ledger" in kw:
+                assert eng.ledger is shared
+        finally:
+            eng.close()
+    with pytest.raises(NotImplementedError, match="TPU_LLM_TENANT_QUOTA_TOK_S"):
+        GPURuntime(new_mock_config({"TORCH_DEVICE": "cpu", "TPU_LLM_TENANT_QUOTA_TOK_S": "acme=100"})).register_llm(
+            "m", cfg, tp, slots=2, max_seq_len=64)

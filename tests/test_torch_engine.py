@@ -141,6 +141,9 @@ def test_port_imports_nothing_of_jax():
     """gofr_tpu_torch and chip_smoke.py import neither jax nor gofr_tpu."""
     files = sorted((ROOT / "gofr_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 5
+    # every subpackage is walked, the copied host modules too
+    for sub in ("resilience", "structured", "spec", "kvcache", "datasource/gpu"):
+        assert any(f.parent == ROOT / "gofr_tpu_torch" / sub for f in files), sub
     bad = []
     for f in files:
         for node in ast.walk(ast.parse(f.read_text(), filename=str(f))):
@@ -253,8 +256,9 @@ def test_queued_past_deadline_never_takes_a_slot(engines):
 
 def test_identity_fields_change_nothing(engines):
     """priority, client and session_id ride the request (the edge sets
-    them) but the FIFO scheduler serves the same tokens; an adapter name
-    is refused, as by the JAX engine without an adapter pool."""
+    them); a lone request of the batch class, from a named client, is
+    served the same tokens; an adapter name is refused, as by the JAX
+    engine without an adapter pool."""
     ref, port = engines
     (prompt,) = _prompts(22, (9,))
     want = ref.generate(prompt, max_new_tokens=8)
