@@ -23,7 +23,12 @@ Phases, each raising on failure:
    same function, and the card's bound for the same work. With --parent,
    another checkout's paged-decode kernels (e.g. the parent commit
    unpacked by git archive) are built and timed on the same inputs, in
-   turns with this tree's;
+   turns with this tree's. Then the same for the families of phase 12 at
+   their head shapes (flash q_offsets and paged decode for Llama-3-8B,
+   Mistral-7B, Qwen2-7B and Gemma-7B, int8 paged decode for Llama-3-8B,
+   Mistral's window at ~4,200 tokens), with each model's paged-decode
+   launch plan; timed here, before any engine has run (afterwards the
+   profiler kept only a few of a timing's kernel records at some shapes);
 4. engine — the port's LLMEngine at its defaults over Gemma-2B (full
    width and depth, random weights from a seeded generator): lookahead
    3 and every program family captured as a CUDA graph at construction.
@@ -113,10 +118,29 @@ Phases, each raising on failure:
    llm.decode_chunk8. Then a speculating engine on the greedy burst (the
    spec-off tokens, near-ties exempt; constrained and unconstrained
    acceptance) and an int8 KV engine with 2 constrained requests;
-12. report — a "kernels" JSON line (launches on the engine phase's main
+12. families — the JAX package's other dense presets at their published
+   widths and depths, random weights from the seed (untied heads where
+   the family publishes one), one model at a time, each freed before the
+   next: Llama-3-8B, Mistral-7B, Qwen2-7B (q/k/v bias, a GQA group of 7)
+   and Gemma-7B (16 KV heads at head_dim 256). For each: an engine at the
+   defaults (warmup, every family's replay bitwise its
+   eager program), the burst (three times at lookahead 3 and once at 1
+   for Llama-3-8B, once for the others) plus one profiled, every token
+   through the replay gate, its logit drift. Llama-3-8B also with
+   kv_int8=True, quantize=True (the int8 gate). Mistral-7B also its
+   window at full width: an engine of 4 slots at max_seq_len 4608
+   serving 4 prompts of 4,160-4,400 tokens (every decode band starting
+   above 0, read back from the pool's lengths). Then a 2-layer
+   Llama-3-8B-shaped bf16 HF checkpoint (two shards and an index, ~3 GB)
+   written to a temporary directory by this script, loaded into cuda by
+   load_llama_checkpoint, every leaf held bitwise against its source,
+   and the directory removed. Both kernels (and the int8 one for the
+   int8 engine) must launch in every model's burst;
+13. report — a "kernels" JSON line (launches on the engine phase's main
    path, in the prefix phases as "prefix_launches", in the spec phases as
-   "spec_launches", in the structured phase as "structured_launches" and
-   in the overload phase as "overload_launches"), then the last line
+   "spec_launches", in the structured phase as "structured_launches", in
+   the overload phase as "overload_launches" and in the families phase's
+   first burst of each engine as "families_launches"), then the last line
    {"ok": true, "device": {...}}.
 
 Imports nothing of JAX and nothing of the JAX package. Exits non-zero,
@@ -127,14 +151,19 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import dataclasses
+import gc
 import http.client
 import json
 import math
+import os
 import re
+import shutil
 import socket
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -156,6 +185,7 @@ from gofr_tpu_torch.models import (
     transformer_forward,
 )
 from gofr_tpu_torch.models import transformer as T
+from gofr_tpu_torch.models.checkpoint import load_llama_checkpoint, validate_params
 from gofr_tpu_torch.models.tokenizer import ByteTokenizer
 from gofr_tpu_torch.ops import _build
 from gofr_tpu_torch.ops import attention as A
@@ -639,7 +669,12 @@ def _restore(eng, snap: dict) -> None:
 
 
 def _bytes_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
-    return torch.equal(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+    """Bitwise equality, compared 256 MiB at a time (a Gemma-7B pool is
+    3.75 GB a tensor: one comparison would allocate as much again)."""
+    a, b = a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8)
+    step = 1 << 28
+    return a.numel() == b.numel() and all(torch.equal(a[i : i + step], b[i : i + step])
+                                          for i in range(0, a.numel(), step))
 
 
 def _family_inputs(eng, name: str, g: torch.Generator, temperature: float):
@@ -888,12 +923,15 @@ def gemma_weights(seed: int) -> tuple[TransformerConfig, dict]:
     return cfg, params
 
 
-def _replay_gate(params, cfg, prompts, results, gap: float, label: str = "", verbose: bool = True) -> tuple[int, int]:
+def _replay_gate(params, cfg, prompts, results, gap: float, label: str = "", verbose: bool = True,
+                 stats: dict | None = None) -> tuple[int, int]:
     """Every served token against greedy decoding by the plain full-prompt
     forward on ``params`` (no kernels), teacher-forced on the served
     stream: token j must be the plain argmax after prompt + served[:j],
     unless the plain top-2 gap is below ``gap``. Raises on a token that
-    fails; returns (tokens matched, tokens exempt)."""
+    fails; returns (tokens matched, tokens exempt). With ``stats``, adds
+    the count of served positions whose plain top-2 gap is below
+    TOKEN_GAP ("near") and the gap of every exempt token ("exempt_gaps")."""
     checked = exempt = 0
     for i, p in enumerate(prompts):
         seq = p + results[i][:-1]
@@ -905,10 +943,14 @@ def _replay_gate(params, cfg, prompts, results, gap: float, label: str = "", ver
         want = top2.indices[:, 0].tolist()
         n_match = n_exempt = 0
         for j, served in enumerate(results[i]):
+            if stats is not None:
+                stats["near"] = stats.get("near", 0) + (gaps[j] < TOKEN_GAP)
             if served == want[j]:
                 n_match += 1
             elif gaps[j] < gap:
                 n_exempt += 1
+                if stats is not None:
+                    stats.setdefault("exempt_gaps", []).append(gaps[j])
             else:
                 raise AssertionError(
                     f"{label}request {i} (prompt {len(p)}): token {j} served {served} != plain argmax "
@@ -969,14 +1011,39 @@ def _check_families(label: str, eng, seed: int) -> None:
             raise AssertionError(f"{label}{name}: sampled replays {r}")
 
 
-def _bursts(label: str, eng, prompts, new_tokens: int, counters: tuple) -> list[dict]:
+def _chunked_drift(params, cfg, prompt, capacity: int) -> float:
+    """The largest |served - plain| last-position logit: ``prompt`` prefilled
+    in 64-token chunks through prefill_append (the flash kernel) against
+    the plain full-prompt forward."""
+    k0 = torch.zeros((cfg.n_layers, 1, capacity, cfg.n_kv_heads, cfg.head_dim), dtype=cfg.dtype, device="cuda")
+    view = KVCache(k=k0, v=k0.clone(), length=torch.zeros(1, dtype=torch.int32, device="cuda"))
+    cur = 0
+    for c0 in range(0, len(prompt), 64):
+        chunk = prompt[c0 : c0 + 64]
+        toks = torch.zeros((1, 64), dtype=torch.long, device="cuda")
+        toks[0, : len(chunk)] = torch.tensor(chunk, device="cuda")
+        logits_c, view = prefill_append(
+            params, cfg, toks, view,
+            torch.tensor([cur], dtype=torch.int32, device="cuda"),
+            torch.tensor([len(chunk)], dtype=torch.int32, device="cuda"),
+        )
+        cur += len(chunk)
+    plain = transformer_forward(
+        params, cfg, torch.tensor([prompt], device="cuda"), torch.arange(len(prompt), device="cuda")[None, :],
+        unembed_positions=torch.tensor([len(prompt) - 1], device="cuda"),
+    )[0, 0]
+    return float((logits_c[0] - plain).abs().max())
+
+
+def _bursts(label: str, eng, prompts, new_tokens: int, counters: tuple, lookaheads=None) -> list[dict]:
     """The burst three times at the engine's lookahead, then once at
     lookahead 1 on the same engine (the scheduler reads ``lookahead`` on
-    every pass), each with the kernel counters zeroed just before it.
-    Prints each, then the median and spread of tok/s and TTFT."""
+    every pass), or once at each of ``lookaheads``, each with the kernel
+    counters zeroed just before it. Prints each, then (for the default
+    four) the median and spread of tok/s and TTFT."""
     runs = []
     depth = eng.lookahead
-    for la in (depth, depth, depth, 1):
+    for la in lookaheads or (depth, depth, depth, 1):
         eng.lookahead = la
         _zero_launches(counters)
         st0 = eng.stats()
@@ -994,7 +1061,7 @@ def _bursts(label: str, eng, prompts, new_tokens: int, counters: tuple) -> list[
               f"({run['steps']} unified steps); "
               f"launches {launches}")
     eng.lookahead = depth
-    for key in ("tok_s", "ttft_p50_s", "ttft_max_s"):
+    for key in ("tok_s", "ttft_p50_s", "ttft_max_s") if lookaheads is None else ():
         vals = [r[key] for r in runs[:3]]
         print(f"{label}bursts at lookahead {depth}, {key}: median {statistics.median(vals):.4f}, "
               f"min {min(vals):.4f}, max {max(vals):.4f}, spread {max(vals) - min(vals):.4f}; "
@@ -1048,26 +1115,7 @@ def phase_engine(dev: dict, seed: int, cfg: TransformerConfig, params: dict) -> 
     # logit drift between the served path (64-token chunks through the
     # flash kernel) and the plain forward, on one prompt
     p = prompts[6]
-    k0 = torch.zeros(
-        (cfg.n_layers, 1, eng.kv.capacity, cfg.n_kv_heads, cfg.head_dim), dtype=cfg.dtype, device="cuda"
-    )
-    view = KVCache(k=k0, v=k0.clone(), length=torch.zeros(1, dtype=torch.int32, device="cuda"))
-    cur = 0
-    for c0 in range(0, len(p), 64):
-        chunk = p[c0 : c0 + 64]
-        toks = torch.zeros((1, 64), dtype=torch.long, device="cuda")
-        toks[0, : len(chunk)] = torch.tensor(chunk, device="cuda")
-        logits_c, view = prefill_append(
-            params, cfg, toks, view,
-            torch.tensor([cur], dtype=torch.int32, device="cuda"),
-            torch.tensor([len(chunk)], dtype=torch.int32, device="cuda"),
-        )
-        cur += len(chunk)
-    plain = transformer_forward(
-        params, cfg, torch.tensor([p], device="cuda"), torch.arange(len(p), device="cuda")[None, :],
-        unembed_positions=torch.tensor([len(p) - 1], device="cuda"),
-    )[0, 0]
-    drift = float((logits_c[0] - plain).abs().max())
+    drift = _chunked_drift(params, cfg, p, eng.kv.capacity)
     print(f"logit drift, served chunked path vs plain forward (prompt {len(p)}): max_abs {drift:.4f}")
     if not math.isfinite(drift) or drift >= TOKEN_GAP:
         raise AssertionError(f"served-path logits drift {drift} >= {TOKEN_GAP}")
@@ -2435,6 +2483,375 @@ def phase_edge(dev: dict, seed: int, cfg: TransformerConfig, params: dict, engin
     return out
 
 
+# The families phase: the JAX package's other dense presets at their
+# published widths and depths, random weights from the seed (the untied
+# families with a random lm_head, as they are published), one model at a
+# time on the card.
+FAMILY_MODELS = ("llama3_8b", "mistral_7b", "qwen2_7b", "gemma_7b")
+FAMILY_UNTIED = ("llama3_8b", "mistral_7b", "qwen2_7b")
+WINDOW_SLOTS, WINDOW_SEQ, WINDOW_NEW = 4, 4608, 64  # Mistral's windowed engine
+WINDOW_PROMPTS = (4160, 4240, 4320, 4400)  # every decode band starts above 0
+KERNEL_COUNTERS = ("flash_attention", "paged_decode_partials", "paged_decode_partials_int8")
+
+
+def family_weights(name: str, seed: int) -> tuple[TransformerConfig, dict]:
+    cfg = getattr(TransformerConfig, name)()
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    t0 = time.perf_counter()
+    params = init_params(cfg, g, "cuda")
+    if name in FAMILY_UNTIED:
+        head = torch.randn((cfg.vocab_size, cfg.d_model), generator=g, device="cuda") / math.sqrt(cfg.d_model)
+        params["unembed"] = head.to(cfg.dtype)
+        del head
+    torch.cuda.synchronize()
+    nbytes = _tensor_bytes(params)
+    print(f"families {name}: {nbytes / 2e9:.3f} B params bf16 ({nbytes} bytes, "
+          f"{'untied' if 'unembed' in params else 'tied'}) in {time.perf_counter() - t0:.1f}s")
+    return cfg, params
+
+
+def _family_kernels(dev: dict, name: str, cfg: TransformerConfig, seed: int) -> None:
+    """Each kernel of the path against its plain version at this model's
+    (hq, hkv, hd), then timed as the kernels phase times it: flash
+    q_offsets at q [8, 64, hq, hd] against k/v [8, 512, hkv, hd]; paged
+    decode at q [32, hq, hd] through [32, 32] tables over 1024 16-row
+    blocks (over int8 pools too for llama3_8b); for mistral_7b also its
+    window at full width: a 64-query chunk at offsets ~4,200 against
+    [4, 4608] keys, and the band [hi - 4096, hi) through [4, 288] tables.
+    Prints each row; raises on a disagreement."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    peaks = dev["peaks"]
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    scale = hd ** -0.5
+
+    def rnd(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+    def flash_case(label, b, c, sk, offs, window):
+        q, k, v = rnd(b, c, hq, hd), rnd(b, sk, hkv, hd), rnd(b, sk, hkv, hd)
+        off = torch.tensor(offs, dtype=torch.int32, device="cuda")
+        kw = dict(q_offsets=off, window=window)
+        got = A.flash_attention(q, k, v, **kw)
+        want = A.flash_attention_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        if not torch.allclose(got.float(), want.float(), atol=BF16_ATOL, rtol=BF16_RTOL):
+            raise AssertionError(f"families {label}: flash_attention disagrees with its plain version ({err:.3e})")
+        nbytes, flops, mask = _flash_work(q, k, off, True, window)
+        bound_ms, bound_by = _bound(nbytes, flops, torch.bfloat16, peaks)
+        qt, kt, vt, amask = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), mask[:, None]
+        t = {
+            "ms": time_ms(lambda: A.flash_attention(q, k, v, **kw)),
+            "device_ms": device_ms(lambda: A.flash_attention(q, k, v, **kw), "flash_mma_kernel"),
+            "plain_ms": time_ms(lambda: A.flash_attention_plain(q, k, v, **kw)),
+            "library_ms": time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=amask, scale=scale, enable_gqa=True)),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+        }
+        print(f"families timing {label} q {list(q.shape)} k/v {list(k.shape)}: max_abs_err {err:.3e} ok; kernel "
+              f"{t['ms']:.4f} ms (device {t['device_ms']:.4f} ms), plain {t['plain_ms']:.4f} ms, sdpa "
+              f"{t['library_ms']:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
+
+    def paged_case(label, b, MB, lengths, band, int8=False):
+        NB, B = b * MB, 16
+        q = rnd(b, hq, hd)
+        if int8:
+            kp, ks = quantize_rows(rnd(NB, B, hkv, hd, dtype=torch.float32))
+            vp, vs = quantize_rows(rnd(NB, B, hkv, hd, dtype=torch.float32))
+            sc = dict(k_scales=ks, v_scales=vs)
+        else:
+            kp, vp, sc = rnd(NB, B, hkv, hd), rnd(NB, B, hkv, hd), {}
+        tables = torch.randperm(NB, generator=g, device="cuda")[: b * MB].reshape(b, MB).to(torch.int32)
+        hi = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+        lo = torch.clamp(hi - band, min=0).to(torch.int32) if band else torch.zeros_like(hi)
+        kw = dict(scale=scale, **sc)
+        o1, m1, l1 = A.paged_decode_partials(q, kp, vp, tables, lo, hi, **kw)
+        o2, m2, l2 = A.paged_decode_partials_plain(q, kp, vp, tables, lo, hi, **kw)
+        torch.cuda.synchronize()
+        err = (o1 - o2).abs().max().item()
+        if not (err <= F32_ATOL and torch.allclose(m1, m2, rtol=ML_RTOL, atol=0.0)
+                and torch.allclose(l1, l2, rtol=ML_RTOL, atol=0.0)):
+            raise AssertionError(f"families {label}: paged_decode_partials disagrees with its plain version ({err:.3e})")
+        rows_n = int((hi - lo).sum())
+        slots = int(((hi + B - 1) // B - lo // B).clamp(min=0).sum())
+        elem = 1 if int8 else 2
+        nbytes = (q.numel() * 2 + 2 * rows_n * hkv * hd * elem + (2 * rows_n * hkv * 4 if int8 else 0)
+                  + slots * 4 + 2 * b * 4 + (b * hq * hd + 2 * b * hq) * 4)
+        bound_ms, bound_by = _bound(nbytes, 4 * hd * hq * rows_n, torch.float32 if int8 else torch.bfloat16, peaks)
+        t = {
+            "ms": time_ms(lambda: A.paged_decode_partials(q, kp, vp, tables, lo, hi, **kw)),
+            "device_ms": device_ms(lambda: A.paged_decode_partials(q, kp, vp, tables, lo, hi, **kw),
+                                   "paged_decode_kernel"),
+            "plain_ms": time_ms(lambda: A.paged_decode_partials_plain(q, kp, vp, tables, lo, hi, **kw)),
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+        }
+        print(f"families timing {label} q {list(q.shape)} pools {list(kp.shape)} {str(kp.dtype)[6:]} tables "
+              f"{list(tables.shape)}, {rows_n} band rows: o max_abs_err {err:.3e} ok; kernel {t['ms']:.4f} ms "
+              f"(device {t['device_ms']:.4f} ms), plain {t['plain_ms']:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
+
+    for pool in (torch.bfloat16, torch.int8):
+        splits, smem = A.paged_decode_plan(pool, 32, hq, hkv, hd, 16, 32)
+        print(f"families {name}: paged_decode plan, {str(pool)[6:]} pools, 32 slots, {hq}/{hkv} heads (group "
+              f"{hq // hkv}), head_dim {hd}: {splits} splits ({32 * hkv * splits} CTAs), {smem} bytes of shared "
+              f"memory per CTA")
+    lengths = [0, 1, 16, 511, 17, 33, 64, 100] + [(37 * i) % 500 + 2 for i in range(24)]
+    flash_case(f"{name} flash c64", 8, 64, 512, [0, 37, 64, 100, 255, 400, 448, 1], 0)
+    paged_case(f"{name} paged", 32, 32, lengths, 0)
+    if name == "llama3_8b":
+        paged_case(f"{name} paged int8", 32, 32, lengths, 0, int8=True)
+    if cfg.sliding_window:
+        w = cfg.sliding_window
+        flash_case(f"{name} flash window", 4, 64, WINDOW_SEQ, [4100, 4200, 4300, 4500], w)
+        paged_case(f"{name} paged window", 4, WINDOW_SEQ // 16, [4200, 4400, 4500, 4608], w)
+
+
+def _family_engine(dev: dict, label: str, cfg, params, seed: int, lookaheads, gap: float, profile: bool = False,
+                   **kw) -> dict:
+    """One engine over a family's weights at the engine defaults (plus
+    ``kw``): its warmup and families checked, the burst at each of
+    ``lookaheads`` (and one more profiled when asked: the profiler's
+    host-side pass over ~500,000 kernel records takes about a minute),
+    every token through the replay gate
+    (against the engine's own params: int8 when it quantized them; at most
+    1 in 8 exempt at the int8 gap)."""
+    clock = {}
+    t0 = time.perf_counter()
+    eng = LLMEngine(cfg, params, seed=seed, **kw)
+    try:
+        warm = _warm_report(f"{label} ", eng)
+        clock["engine"] = time.perf_counter() - t0
+        _check_families(f"{label} ", eng, seed)
+        clock["families"] = time.perf_counter() - t0 - sum(clock.values())
+        eng.generate([1, 2, 3], max_new_tokens=4)
+        _plens, prompts = _burst_prompts(cfg, seed)
+        runs = _bursts(f"{label} ", eng, prompts, 32, KERNEL_COUNTERS, lookaheads)
+        clock["bursts"] = time.perf_counter() - t0 - sum(clock.values())
+        prof = _profile(lambda: _serve(eng, prompts, 32), label=f"{label} ") if profile else {"idle": None, "groups": {}}
+        clock["profile"] = time.perf_counter() - t0 - sum(clock.values())
+        gate_params = eng.params
+        drift = (_int8_path_drift(cfg, gate_params, prompts[6], eng.kv.capacity) if eng.pool_scales is not None
+                 else _chunked_drift(gate_params, cfg, prompts[6], eng.kv.capacity))
+    finally:
+        eng.close()
+        del eng
+        gc.collect()
+    checked = exempt = 0
+    stats: dict = {}
+    for i, r in enumerate(runs):
+        st: dict = {}
+        c, e = _replay_gate(gate_params, cfg, prompts, r["results"], gap,
+                            label=f"{label} burst {i + 1} (lookahead {r['lookahead']}) ", verbose=False, stats=st)
+        # at the int8 gap, at most 1 token in 8 may need more than the bf16
+        # gap: positions whose plain top-2 gap is below TOKEN_GAP are exempt
+        # at the bf16 gate already, and an untied random model has many
+        wide = sum(x >= TOKEN_GAP for x in st.get("exempt_gaps", []))
+        if gap == INT8_TOKEN_GAP and 8 * wide > r["tokens"]:
+            raise AssertionError(f"{label}: {wide} of {r['tokens']} tokens needed the int8 gap exemption (> 1 in 8)")
+        checked, exempt = checked + c, exempt + e
+        stats["near"] = stats.get("near", 0) + st.get("near", 0)
+        stats["wide"] = stats.get("wide", 0) + wide
+    del gate_params
+    clock["gate"] = time.perf_counter() - t0 - sum(clock.values())
+    first = runs[0]
+    out = {
+        "tok_s": [r["tok_s"] for r in runs], "ttft_p50_s": [r["ttft_p50_s"] for r in runs],
+        "ttft_max_s": [r["ttft_max_s"] for r in runs], "programs": [r["chunks"] for r in runs],
+        "steps": [r["steps"] for r in runs], "launches": first["launches"], "warmup_s": warm["warmup_s"],
+        "reserved_growth": warm["reserved_after"] - warm["reserved_before"], "idle": prof["idle"],
+        "groups": prof["groups"], "tokens_matched": checked, "tokens_exempt": exempt, "drift": drift,
+        "near_ties": stats["near"], "exempt_past_bf16_gap": stats["wide"], "seconds": clock,
+    }
+    idle = "not measured" if prof["idle"] is None else f"{100 * prof['idle']:.1f}%"
+    print(f"families {label} on {dev['smi']}: tok/s {', '.join(f'{x:.1f}' for x in out['tok_s'])} (lookahead "
+          f"{', '.join(str(r['lookahead']) for r in runs)}); ttft p50 {first['ttft_p50_s']:.3f}s max "
+          f"{first['ttft_max_s']:.3f}s; programs {out['programs']} (unified steps {out['steps']}); warmup_s "
+          f"{warm['warmup_s']:.3f}; memory_reserved +{out['reserved_growth']}; idle {idle}; "
+          f"logit drift {drift:.4f}; {checked} tokens matched, {exempt} exempt (gap {gap}; {stats['wide']} with "
+          f"a gap >= {TOKEN_GAP}; {stats['near']} of {checked + exempt} positions have a plain top-2 gap < "
+          f"{TOKEN_GAP}); launches in burst 1 {first['launches']}; seconds "
+          + ", ".join(f"{k} {v:.1f}" for k, v in clock.items()))
+    return out
+
+
+def _family_window(dev: dict, cfg, params, seed: int) -> dict:
+    """Mistral-7B's window at full width: an engine of 4 slots at
+    max_seq_len 4608 serves 4 prompts of 4,160-4,400 tokens, 64 new tokens
+    each, so every prefill chunk past position 4096 cuts its keys by the
+    window and every decode band starts above 0 (read back from the
+    pool's lengths); every token through the replay gate against the
+    plain forward with the window mask."""
+    label = "mistral_7b window"
+    w = cfg.sliding_window
+    t0 = time.perf_counter()
+    eng = LLMEngine(cfg, params, seed=seed, slots=WINDOW_SLOTS, max_seq_len=WINDOW_SEQ)
+    try:
+        warm = _warm_report(f"{label} ", eng)
+        _check_families(f"{label} ", eng, seed)
+        rng = np.random.default_rng(seed + 7)
+        prompts = [rng.integers(1, cfg.vocab_size, n).tolist() for n in WINDOW_PROMPTS]
+        torch.cuda.reset_peak_memory_stats()
+        _zero_launches(KERNEL_COUNTERS)
+        st0 = eng.stats()
+        results, reqs, wall = _serve(eng, prompts, WINDOW_NEW)
+        launches = _launches(KERNEL_COUNTERS)
+        st = eng.stats()
+        lengths = eng.pool.length.cpu().tolist()
+        peak = torch.cuda.max_memory_reserved()
+    finally:
+        eng.close()
+        del eng
+        gc.collect()
+    ends = sorted(len(p) + WINDOW_NEW for p in prompts)
+    served = sorted(x for x in lengths if x > 0)
+    # the last decode step of a request reads the band [hi - w + 1, hi) with
+    # hi its final length minus one: above 0 when the length passes w
+    if served != ends or min(served) <= w:
+        raise AssertionError(f"{label}: pool lengths {lengths}, expected {ends} past the window {w}")
+    t_served = time.perf_counter() - t0
+    checked, exempt = _replay_gate(params, cfg, prompts, results, TOKEN_GAP, label=f"{label} ", verbose=False)
+    t_gate = time.perf_counter() - t0 - t_served
+    ttfts = sorted(reqs[i].first_token_at - reqs[i].submitted_at for i in reqs)
+    total = sum(len(t) for t in results.values())
+    out = {"tok_s": total / wall, "ttft_p50_s": ttfts[len(ttfts) // 2], "ttft_max_s": ttfts[-1],
+           "steps": st["steps"] - st0["steps"], "programs": st["chunks"] - st0["chunks"], "launches": launches,
+           "warmup_s": warm["warmup_s"], "reserved_growth": warm["reserved_after"] - warm["reserved_before"],
+           "peak_reserved": peak, "min_lo": min(served) - w, "tokens_matched": checked, "tokens_exempt": exempt}
+    print(f"families {label} on {dev['smi']}: {len(prompts)} prompts of {list(WINDOW_PROMPTS)} tokens x "
+          f"{WINDOW_NEW}: {out['tok_s']:.1f} tok/s, ttft p50 {out['ttft_p50_s']:.3f}s max {out['ttft_max_s']:.3f}s; "
+          f"{out['programs']} programs ({out['steps']} unified steps); final lengths {lengths}: the last decode "
+          f"bands start at {min(served) - w} or later (> 0); warmup_s {warm['warmup_s']:.3f}; memory_reserved "
+          f"+{out['reserved_growth']} at warmup, peak {peak} in the burst; {checked} tokens matched, {exempt} "
+          f"exempt; launches {launches}; seconds: engine and burst {t_served:.1f}, gate {t_gate:.1f}")
+    return out
+
+
+def _write_safetensors(path: str, tensors: dict) -> None:
+    """The safetensors format, written here: an 8-byte little-endian header
+    length, the JSON header (padded to 8 bytes), the raw tensor bytes."""
+    names = {torch.bfloat16: "BF16", torch.float32: "F32"}
+    header, off = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": names[t.dtype], "shape": list(t.shape), "data_offsets": [off, off + n]}
+        off += n
+    blob = json.dumps(header).encode()
+    blob += b" " * (-len(blob) % 8)
+    with open(path, "wb") as f:
+        f.write(len(blob).to_bytes(8, "little"))
+        f.write(blob)
+        for t in tensors.values():
+            f.write(memoryview(t.contiguous().cpu().view(torch.uint8).numpy().reshape(-1)))
+
+
+def _checkpoint_round_trip(dev: dict, seed: int) -> dict:
+    """A 2-layer Llama-3-8B-shaped HF checkpoint in bf16 (untied lm_head;
+    two shards and model.safetensors.index.json; ~3 GB) written to a
+    temporary directory, loaded with load_llama_checkpoint into cuda, every
+    leaf held bitwise against its source tensor; the directory deleted."""
+    cfg = dataclasses.replace(TransformerConfig.llama3_8b(), n_layers=2)
+    d, hd, hq, hkv, ff, V = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff, cfg.vocab_size
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def r(*shape):
+        return (torch.randn(shape, generator=g, device="cuda") * 0.02).to(torch.bfloat16)
+
+    src = {"model.embed_tokens.weight": r(V, d)}
+    for i in range(cfg.n_layers):
+        p = f"model.layers.{i}."
+        src.update({
+            p + "self_attn.q_proj.weight": r(hq * hd, d), p + "self_attn.k_proj.weight": r(hkv * hd, d),
+            p + "self_attn.v_proj.weight": r(hkv * hd, d), p + "self_attn.o_proj.weight": r(d, hq * hd),
+            p + "mlp.gate_proj.weight": r(ff, d), p + "mlp.up_proj.weight": r(ff, d),
+            p + "mlp.down_proj.weight": r(d, ff),
+            p + "input_layernorm.weight": 1 + r(d), p + "post_attention_layernorm.weight": 1 + r(d),
+        })
+    src["model.norm.weight"] = 1 + r(d)
+    src["lm_head.weight"] = r(V, d)
+    total = sum(t.numel() * t.element_size() for t in src.values())
+    names = list(src)
+    shards = {"model-00001-of-00002.safetensors": names[: len(names) // 2],
+              "model-00002-of-00002.safetensors": names[len(names) // 2 :]}
+    tmp = tempfile.mkdtemp(prefix="gofr_ckpt_")
+    try:
+        t0 = time.perf_counter()
+        for fname, keys in shards.items():
+            _write_safetensors(os.path.join(tmp, fname), {k: src[k] for k in keys})
+        with open(os.path.join(tmp, "model.safetensors.index.json"), "w") as f:
+            json.dump({"metadata": {"total_size": total},
+                       "weight_map": {k: fn for fn, ks in shards.items() for k in ks}}, f)
+        write_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params = load_llama_checkpoint(tmp, cfg, device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    validate_params(params, cfg)
+
+    def bits(t):
+        return t.contiguous().view(torch.int16)
+
+    def norm(t):  # HF's scale minus 1, rounded to bf16 as the loader stores it
+        return (t.float() - 1.0).to(torch.bfloat16)
+
+    want = {"embed": src["model.embed_tokens.weight"], "unembed": src["lm_head.weight"],
+            "final_norm": norm(src["model.norm.weight"])}
+    lay = params["layers"]
+    got = {"embed": params["embed"], "unembed": params["unembed"], "final_norm": params["final_norm"]}
+    for i in range(cfg.n_layers):
+        p = f"model.layers.{i}."
+        for leaf, hf in (("wq", "self_attn.q_proj"), ("wo", "self_attn.o_proj"), ("w_gate", "mlp.gate_proj"),
+                         ("w_up", "mlp.up_proj"), ("w_down", "mlp.down_proj")):
+            got[f"{leaf}[{i}]"], want[f"{leaf}[{i}]"] = lay[leaf][i], src[p + hf + ".weight"].T
+        kv = lay["wkv"][i].view(d, hkv, 2, hd)
+        for j, hf in enumerate(("self_attn.k_proj", "self_attn.v_proj")):
+            got[f"wkv[{i}][{hf}]"] = kv[:, :, j]
+            want[f"wkv[{i}][{hf}]"] = src[p + hf + ".weight"].T.reshape(d, hkv, hd)
+        for leaf, hf in (("attn_norm", "input_layernorm"), ("mlp_norm", "post_attention_layernorm")):
+            got[f"{leaf}[{i}]"], want[f"{leaf}[{i}]"] = lay[leaf][i], norm(src[p + hf + ".weight"])
+    bad = [k for k in want if got[k].dtype != torch.bfloat16 or not torch.equal(bits(got[k]), bits(want[k]))]
+    if bad:
+        raise AssertionError(f"checkpoint round trip: leaves differ from their source: {bad}")
+    print(f"families checkpoint: 2-layer llama3_8b-shaped bf16 HF checkpoint, {len(src)} tensors in 2 shards + "
+          f"index, {total} bytes: written in {write_s:.2f}s, loaded into cuda in {load_s:.3f}s "
+          f"({total / load_s / 1e9:.2f} GB/s); {len(want)} leaves bitwise equal to their sources; directory removed")
+    return {"bytes": total, "load_s": load_s, "gb_s": total / load_s / 1e9, "leaves": len(want)}
+
+
+def phase_families(dev: dict, seed: int) -> dict:
+    """The families phase (see the module docstring): for each model its
+    engines; weights, engines and graphs freed before the next model (the
+    kernels at its shapes ran in the kernels phase). Returns each engine
+    run's readings and its kernel launches by run label."""
+    out = {"runs": {}, "launches": {}}
+    for name in FAMILY_MODELS:
+        t0 = time.perf_counter()
+        cfg, params = family_weights(name, seed)
+        la = (3, 3, 3, 1) if name == "llama3_8b" else (3,)
+        out["runs"][name] = _family_engine(dev, name, cfg, params, seed, la, TOKEN_GAP, profile=name == "llama3_8b")
+        if name == "llama3_8b":
+            out["runs"][f"{name} int8"] = _family_engine(
+                dev, f"{name} int8", cfg, params, seed, (3,), INT8_TOKEN_GAP, kv_int8=True, quantize=True,
+            )
+        if cfg.sliding_window:
+            out["runs"]["mistral_7b window"] = _family_window(dev, cfg, params, seed)
+        del params
+        gc.collect()  # a closed engine sits in reference cycles until collected
+        torch.cuda.empty_cache()
+        print(f"families {name}: {time.perf_counter() - t0:.1f}s; memory_reserved {torch.cuda.memory_reserved()} "
+              f"after freeing it")
+    for label, run in out["runs"].items():
+        n = run["launches"]
+        int8 = label.endswith("int8")
+        out["launches"][label] = n
+        if n["flash_attention"] <= 0 or (n["paged_decode_partials_int8"] if int8 else n["paged_decode_partials"]) <= 0 \
+                or (n["paged_decode_partials"] if int8 else n["paged_decode_partials_int8"]):
+            raise AssertionError(f"families {label}: kernel launches {n}")
+    out["checkpoint"] = _checkpoint_round_trip(dev, seed)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="GPU smoke run of gofr_tpu_torch on one card")
     ap.add_argument("--parent", metavar="TREE",
@@ -2448,24 +2865,31 @@ def main() -> int:
         t0 = time.perf_counter()
         out = fn(*a)
         seconds[name] = time.perf_counter() - t0
-        torch.cuda.empty_cache()  # a closed engine's pool
+        gc.collect()  # a closed engine's pool, held by reference cycles until collected
+        torch.cuda.empty_cache()
         return out
 
     timed("build", phase_build)
     kern = timed("kernels", phase_kernels, dev, SEED, build_parent(args.parent) if args.parent else None)
+    # the families' shapes too, before any engine has run (after one had, the
+    # profiler kept only a few of a timing's kernel records at some shapes)
+    for name in FAMILY_MODELS:
+        timed(f"kernels {name}", _family_kernels, dev, name, getattr(TransformerConfig, name)(), SEED)
     cfg, params = gemma_weights(SEED)
     eng, engine = timed("engine", phase_engine, dev, SEED, cfg, params)
     try:
         ovl = timed("overload", phase_overload, dev, SEED, cfg, params, engine)
     finally:
         engine.close()
-        torch.cuda.empty_cache()
+    del engine  # its pool and graphs go at the next phase's collection
     eng8 = timed("int8", phase_engine_int8, dev, SEED, cfg, params)
     timed("edge", phase_edge, dev, SEED, cfg, params, eng)
     pre = timed("prefix", phase_prefix, dev, SEED, cfg, params)
     pre8 = timed("prefix int8", phase_prefix_int8, dev, SEED, cfg, params)
     spec = timed("spec", phase_spec, dev, SEED, cfg, params)
     structured = timed("structured", phase_structured, dev, SEED, cfg, params)
+    del params  # Gemma-2B's weights; the families phase loads one model at a time
+    families = timed("families", phase_families, dev, SEED)
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     # name -> (source, replaced Pallas kernel, timing key, engine run whose
     # launches count, prefix phases' launches)
@@ -2486,6 +2910,7 @@ def main() -> int:
             "launches": run["launches"][name], "prefix_launches": prefix_launches,
             "spec_launches": spec["launches"][name], "structured_launches": structured["launches"][name],
             "overload_launches": ovl["launches"][name],
+            "families_launches": {label: n[name] for label, n in families["launches"].items()},
             "max_abs_err": kern["errs"][name],
             "ms": t["ms"], "device_ms": t["device_ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],

@@ -15,7 +15,10 @@ Only what the port's engine has is accepted: the kwargs ``slots``,
 ``max_queue``, ``ttft_deadline_ms``, ``fair_queuing``, ``fair_weights``,
 ``fair_ledger``, ``preemption``, ``shed_predicted_wait_s``,
 ``brownout_wait_s``, ``brownout_max_new`` and ``brownout_hold_s``, and
-``kv_paged=True`` (the port's one layout), and the config knobs
+``kv_paged=True`` or ``"auto"`` (the port's one layout: a windowed model,
+which the JAX ``"auto"`` serves from its rolling ring when window + slack
+< max_seq_len, is served paged here, with the same masks and tokens at
+O(max_seq_len) slot memory; ``kv_paged=False`` raises), and the config knobs
 ``TPU_LLM_KV_INT8``, ``TPU_LLM_PREFIX_CACHE_MB``, ``TPU_LLM_SESSION_MB``,
 ``TPU_LLM_HOST_CACHE_MB``, ``TPU_LLM_SPEC``, ``TPU_LLM_SPEC_DRAFT``,
 ``TPU_LLM_CONSTRAINED``, ``TPU_LLM_CONSTRAINED_GRAMMARS``,
@@ -146,6 +149,14 @@ class GPURuntime:
                 engine_kw.setdefault(kwarg, parse(v))
         engine_kw.setdefault("device", self.default_device)
         engine = LLMEngine(cfg, params, **engine_kw)
+        window = getattr(cfg, "sliding_window", 0)
+        if window and window + max(engine.chunk_shapes + (engine.decode_chunk,)) < engine.max_seq_len \
+                and self.logger is not None:
+            # the JAX engine's kv_paged="auto" keeps its rolling ring here
+            # (O(window) slot memory); the port serves paged, with the same
+            # masks and tokens, at O(max_seq_len)
+            self.logger.info(f"LLM {name!r}: sliding window {window} served from the paged KV pool "
+                             f"(O(max_seq_len) slot memory; the rolling ring is not ported)")
         with self._lock:
             old = self._llms.get(name)
             self._llms[name] = engine

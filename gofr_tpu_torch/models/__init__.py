@@ -1,5 +1,5 @@
-"""gofr_tpu_torch.models — counterpart of gofr_tpu.models (transformer and
-int8 weight quantization)."""
+"""gofr_tpu_torch.models — counterpart of gofr_tpu.models (transformer, int8
+weight quantization; ``checkpoint`` and ``tokenizer`` load from disk)."""
 
 from .quant import QTensor, init_params_quantized, is_quantized, qmm, qmm_a8, quantize, quantize_params
 from .transformer import (
@@ -7,6 +7,7 @@ from .transformer import (
     TransformerConfig,
     decode_chunk_paged,
     init_params,
+    param_specs,
     params_from_jax,
     prefill_append,
     transformer_forward,
@@ -21,6 +22,7 @@ __all__ = [
     "init_params",
     "init_params_quantized",
     "is_quantized",
+    "param_specs",
     "params_from_jax",
     "prefill_append",
     "qmm",

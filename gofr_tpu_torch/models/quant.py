@@ -102,8 +102,9 @@ _QUANT_KEYS = ("wq", "wkv", "wo", "w_gate", "w_up", "w_down")
 
 def quantize_params(params: dict, dtype=torch.bfloat16) -> dict:
     """Quantize the matmul weights and the embedding (and an untied
-    ``unembed``); norms stay as they are. Already quantized params are
-    returned unchanged."""
+    ``unembed``); norms and the q/k/v bias leaves stay as they are (the
+    bias add stays in ``transformer._qkv``; ``qmm``/``qmm_a8`` add none).
+    Already quantized params are returned unchanged."""
     if is_quantized(params):
         return params
     out = {
@@ -125,7 +126,8 @@ def init_params_quantized(
     default), for models whose bf16 tree would not fit: int8 weights
     uniform in [-127, 127] with per-channel scales 1 / (73 sqrt(fan_in)),
     so the dequantized std is about 1 / sqrt(fan_in) (uniform int8 has
-    std ~73); norms zero."""
+    std ~73); norms zero, and a qkv-bias config's bias leaves zero and
+    unquantized (JAX ``init_params_quantized``)."""
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
@@ -141,10 +143,13 @@ def init_params_quantized(
     def zeros(shape):
         return torch.zeros(shape, dtype=dtype, device=dev)
 
+    # q/k/v bias leaves stay unquantized, zero as in the JAX initializer
+    bias = {"bq": zeros((L, hq * hd)), "bkv": zeros((L, 2 * hkv * hd))} if cfg.qkv_bias else {}
     return {
         "embed": qw((cfg.vocab_size, d), d),
         "final_norm": zeros((d,)),
         "layers": {
+            **bias,
             "attn_norm": zeros((L, d)),
             "wq": qw((L, d, hq * hd), d),
             "wkv": qw((L, d, 2 * hkv * hd), d),

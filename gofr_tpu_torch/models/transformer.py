@@ -1,5 +1,7 @@
-"""Gemma-family decoder-only transformer (counterpart of
-gofr_tpu/models/transformer.py).
+"""Decoder-only transformer of the Gemma, Llama, Mistral and Qwen2
+families (counterpart of gofr_tpu/models/transformer.py; presets
+``gemma_2b``, ``gemma_7b``, ``llama3_8b``, ``mistral_7b``, ``qwen2_7b``
+and the tiny CI twins, field for field the JAX ones).
 
 Parameters are a plain dictionary of tensors with the JAX package's
 layout: ``embed`` [vocab, d], ``final_norm`` [d] and ``layers`` holding
@@ -12,7 +14,10 @@ variance, embeddings scaled by sqrt(d_model) computed in f32 and cast to
 the model dtype before the multiply, GeGLU with the tanh-approximate GELU
 (``jax.nn.gelu``'s default), split-halves RoPE, GQA, optional soft-caps,
 tied embeddings (an ``unembed`` leaf wins when present), logits rounded
-to the model dtype by the unembed product and returned as f32.
+to the model dtype by the unembed product and returned as f32; SwiGLU
+(``act="silu"``) and no embedding scale for the Llama-shaped families,
+a sliding window (Mistral) in every attention mask, and a bias on the
+q/k/v projections (Qwen2, ``qkv_bias``) added in ``_qkv``.
 
 Weights may be int8 (``models.quant.QTensor`` leaves): as in the JAX
 package, prefill chunks and the full-prompt forward run W8A8 products
@@ -64,12 +69,73 @@ class TransformerConfig:
     final_logit_cap: float = 0.0
     act: str = "gelu"  # MLP gate activation: "gelu" (Gemma) | "silu" (Llama)
     scale_embed: bool = True  # multiply embeddings by sqrt(d_model) (Gemma)
-    sliding_window: int = 0  # local attention window; 0 = global
+    sliding_window: int = 0  # Mistral-style local attention window; 0 = global
+    qkv_bias: bool = False  # Qwen2-style bias on the q/k/v projections
     dtype: torch.dtype = torch.bfloat16
 
     @staticmethod
     def gemma_2b() -> "TransformerConfig":
         return TransformerConfig()
+
+    @staticmethod
+    def gemma_7b() -> "TransformerConfig":
+        """Gemma-7B: multi-head attention (16 query and 16 KV heads) at
+        head_dim 256, tied embeddings."""
+        return TransformerConfig(d_model=3072, n_layers=28, n_heads=16, n_kv_heads=16, d_ff=24_576)
+
+    @staticmethod
+    def llama3_8b() -> "TransformerConfig":
+        """Llama-3-8B: SwiGLU MLP, GQA 32/8, untied lm_head (the loader adds
+        an ``unembed`` leaf), plain RMSNorm (the loader stores HF's scale
+        minus 1 so the shared (1 + scale) norm is exact), no embedding
+        scaling, rope theta 500k."""
+        return TransformerConfig(
+            vocab_size=128_256, d_model=4096, n_layers=32, n_heads=32,
+            n_kv_heads=8, head_dim=128, d_ff=14_336, rope_theta=500_000.0,
+            norm_eps=1e-5, act="silu", scale_embed=False,
+        )
+
+    @staticmethod
+    def mistral_7b() -> "TransformerConfig":
+        """Mistral-7B-v0.1: Llama-shaped (SwiGLU, GQA 32/8, untied head, no
+        embed scaling) plus a 4096-token sliding attention window."""
+        return TransformerConfig(
+            vocab_size=32_000, d_model=4096, n_layers=32, n_heads=32,
+            n_kv_heads=8, head_dim=128, d_ff=14_336, rope_theta=10_000.0,
+            norm_eps=1e-5, act="silu", scale_embed=False,
+            sliding_window=4096,
+        )
+
+    @staticmethod
+    def tiny_mistral(vocab_size: int = 512) -> "TransformerConfig":
+        """CI-sized Mistral-style config: window 8, so sequences past 8
+        tokens exercise the band mask."""
+        return TransformerConfig(
+            vocab_size=vocab_size, d_model=64, n_layers=2, n_heads=4,
+            n_kv_heads=2, head_dim=16, d_ff=128, rope_theta=10_000.0,
+            norm_eps=1e-5, act="silu", scale_embed=False,
+            sliding_window=8, dtype=torch.float32,
+        )
+
+    @staticmethod
+    def qwen2_7b() -> "TransformerConfig":
+        """Qwen2-7B: Llama-shaped (SwiGLU, GQA 28/4, a group of 7, untied
+        head, no embed scaling) plus bias on the q/k/v projections."""
+        return TransformerConfig(
+            vocab_size=152_064, d_model=3584, n_layers=28, n_heads=28,
+            n_kv_heads=4, head_dim=128, d_ff=18_944, rope_theta=1_000_000.0,
+            norm_eps=1e-6, act="silu", scale_embed=False, qkv_bias=True,
+        )
+
+    @staticmethod
+    def tiny_qwen2(vocab_size: int = 512) -> "TransformerConfig":
+        """CI-sized Qwen2-style config (silu, qkv bias, no embed scale)."""
+        return TransformerConfig(
+            vocab_size=vocab_size, d_model=64, n_layers=2, n_heads=4,
+            n_kv_heads=2, head_dim=16, d_ff=128, rope_theta=1_000_000.0,
+            norm_eps=1e-6, act="silu", scale_embed=False, qkv_bias=True,
+            dtype=torch.float32,
+        )
 
     @staticmethod
     def tiny_llama(vocab_size: int = 512) -> "TransformerConfig":
@@ -99,38 +165,51 @@ class KVCache(NamedTuple):
     length: torch.Tensor  # [b] int32
 
 
-def init_params(cfg: TransformerConfig, generator: torch.Generator | None = None, device=None) -> dict:
-    """Random weights from ``generator`` (same shapes and scaling as the
-    JAX init: normal / sqrt(fan_in), norms zero), made on ``device``
-    (``cuda`` by default). The generator must live on that device."""
-    dev = resolve_device(device)
-    if generator is None:
-        generator = torch.Generator(device=dev).manual_seed(0)
+def param_specs(cfg: TransformerConfig) -> dict:
+    """The parameter tree's leaves as (shape, fan_in): normal / sqrt(fan_in)
+    weights, or zeros where fan_in is None (the norms). ``init_params``
+    draws them in this order; ``checkpoint.validate_params`` reads the
+    shapes, so the two cannot drift apart. A qkv-bias config adds ``bq``
+    [L, hq * hd] and ``bkv`` [L, 2 * hkv * hd] (random, as in JAX, so the
+    bias add is load-bearing in tests), drawn last."""
     d, hd, hq, hkv, ff, L = (
         cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff, cfg.n_layers,
     )
+    layers = {
+        "attn_norm": ((L, d), None),
+        "wq": ((L, d, hq * hd), d),
+        "wkv": ((L, d, 2 * hkv * hd), d),
+        "wo": ((L, hq * hd, d), hq * hd),
+        "mlp_norm": ((L, d), None),
+        "w_gate": ((L, d, ff), d),
+        "w_up": ((L, d, ff), d),
+        "w_down": ((L, ff, d), ff),
+    }
+    if cfg.qkv_bias:
+        layers["bq"] = ((L, hq * hd), d)
+        layers["bkv"] = ((L, 2 * hkv * hd), d)
+    return {"embed": ((cfg.vocab_size, d), d), "final_norm": ((d,), None), "layers": layers}
 
-    def w(shape, fan_in):
+
+def init_params(cfg: TransformerConfig, generator: torch.Generator | None = None, device=None) -> dict:
+    """Random weights from ``generator`` (same shapes and scaling as the
+    JAX init: normal / sqrt(fan_in), norms zero; ``param_specs``), made on
+    ``device`` (``cuda`` by default). The generator must live on that
+    device."""
+    dev = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+
+    def make(spec):
+        if isinstance(spec, dict):
+            return {key: make(val) for key, val in spec.items()}
+        shape, fan_in = spec
+        if fan_in is None:
+            return torch.zeros(shape, dtype=cfg.dtype, device=dev)
         t = torch.randn(shape, generator=generator, device=dev, dtype=torch.float32)
         return (t / math.sqrt(fan_in)).to(cfg.dtype)
 
-    def zeros(shape):
-        return torch.zeros(shape, dtype=cfg.dtype, device=dev)
-
-    return {
-        "embed": w((cfg.vocab_size, d), d),
-        "final_norm": zeros((d,)),
-        "layers": {
-            "attn_norm": zeros((L, d)),
-            "wq": w((L, d, hq * hd), d),
-            "wkv": w((L, d, 2 * hkv * hd), d),
-            "wo": w((L, hq * hd, d), hq * hd),
-            "mlp_norm": zeros((L, d)),
-            "w_gate": w((L, d, ff), d),
-            "w_up": w((L, d, ff), d),
-            "w_down": w((L, ff, d), ff),
-        },
-    }
+    return make(param_specs(cfg))
 
 
 def params_from_jax(np_tree: dict, cfg: TransformerConfig, device=None) -> dict:
@@ -183,10 +262,17 @@ def _mlp(cfg: TransformerConfig, h: torch.Tensor, lp: dict, mm) -> torch.Tensor:
 
 
 def _qkv(cfg: TransformerConfig, h: torch.Tensor, lp: dict, positions: torch.Tensor, mm):
-    """Projections + RoPE: q [b, s, hq, hd], k/v [b, s, hkv, hd]."""
+    """Projections (+ the q/k/v bias) + RoPE: q [b, s, hq, hd], k/v [b, s,
+    hkv, hd]. The one bias site: every program (the full-prompt forward,
+    both chunk appends, the decode chunk) projects through here."""
     b, s, _ = h.shape
-    q = mm(h, lp["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
-    kv = mm(h, lp["wkv"]).reshape(b, s, cfg.n_kv_heads, 2, cfg.head_dim)
+    q = mm(h, lp["wq"])
+    kv = mm(h, lp["wkv"])
+    if cfg.qkv_bias:  # Qwen2: the bias rides the flat output, before the reshape
+        q = q + lp["bq"].to(q.dtype)
+        kv = kv + lp["bkv"].to(kv.dtype)
+    q = q.reshape(b, s, cfg.n_heads, cfg.head_dim)
+    kv = kv.reshape(b, s, cfg.n_kv_heads, 2, cfg.head_dim)
     k, v = kv[:, :, :, 0], kv[:, :, :, 1]
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)

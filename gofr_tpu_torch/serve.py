@@ -1,20 +1,30 @@
-"""HTTP serving of Gemma through the port (counterpart of the HTTP half of
-examples/grpc-gemma/main.py).
+"""HTTP serving of the Gemma, Llama and Mistral presets through the port
+(counterpart of the HTTP half of examples/grpc-gemma/main.py).
 
     python -m gofr_tpu_torch.serve
 
 Routes: ``POST /generate`` (body ``{"tokens": [...]}`` or ``{"prompt":
-"..."}``, byte-tokenized; plus ``max_new_tokens``, ``temperature``,
-``eos_token``; answers 201 ``{"data": {"tokens": [...]}}``, with ``text``
-for a prompt), ``GET /stats`` (the engine's counters), and the OpenAI
-routes ``/v1/chat/completions`` (plain and SSE), ``/v1/embeddings`` and
-``/v1/models`` through ``ByteTokenizer(cfg.vocab_size)``, beside the
-well-known health and liveness routes.
+"..."}``; plus ``max_new_tokens``, ``temperature``, ``eos_token``; answers
+201 ``{"data": {"tokens": [...]}}``, with ``text`` for a prompt or
+whenever an HF tokenizer is loaded), ``GET /stats`` (the engine's
+counters), and the OpenAI routes ``/v1/chat/completions`` (plain and
+SSE), ``/v1/embeddings`` and ``/v1/models``, beside the well-known health
+and liveness routes.
 
 Config (process environment, or ``configs/.env``): ``GEMMA_PRESET``
-``tiny`` (default) or ``2b``; ``GEMMA_INT8=1`` serves int8 weights;
-``LLM_SLOTS`` (4), ``LLM_MAX_SEQ`` (256); ``TORCH_DEVICE=cpu`` runs on the CPU (default: the GPU,
-raising without one); ``HTTP_PORT`` (8000), ``REQUEST_TIMEOUT`` (5 s);
+``tiny`` (default), ``2b``, ``7b``, ``llama3-8b``, ``tiny-llama``,
+``mistral-7b`` or ``tiny-mistral`` (the JAX example's names; a windowed
+preset is served from the paged pool, ROADMAP queue 3 item 11);
+``GEMMA_CKPT`` loads an HF safetensors checkpoint (a file, a directory
+of shards, or one with ``model.safetensors.index.json``) through the
+Llama mapper for the ``llama*``/``mistral*`` presets and the Gemma mapper
+otherwise, then ``validate_params`` (without it the weights are random,
+from a ``torch.Generator`` seeded with 0); the tokenizer comes from
+``GEMMA_TOKENIZER``, else from the ``tokenizer.json`` of a checkpoint
+directory (a missing file logs a warning and keeps the id-only API);
+``GEMMA_INT8=1`` serves int8 weights; ``LLM_SLOTS`` (4), ``LLM_MAX_SEQ``
+(256); ``TORCH_DEVICE=cpu`` runs on the CPU (default: the GPU, raising
+without one); ``HTTP_PORT`` (8000), ``REQUEST_TIMEOUT`` (5 s);
 ``TPU_LLM_PREFIX_CACHE_MB``, ``TPU_LLM_SESSION_MB`` and ``TPU_LLM_HOST_CACHE_MB``
 turn on the prefix cache and the ``X-GoFr-Session`` tier, ``TPU_LLM_SPEC=1``
 (with ``TPU_LLM_SPEC_DRAFT``) speculative decoding, and ``TPU_LLM_FAIR``,
@@ -22,42 +32,83 @@ turn on the prefix cache and the ``X-GoFr-Session`` tier, ``TPU_LLM_SPEC=1``
 tune overload control (``GPURuntime``). ``X-GoFr-Priority: batch`` and
 ``X-GoFr-Client`` reach the engine's queue order and preemption; an
 overloaded engine answers 429 with a Retry-After header.
-Weights are random, made from a ``torch.Generator`` seeded with 0: loading a
-checkpoint (``GEMMA_CKPT``) is not ported and raises.
+
+Text: a ``prompt`` is encoded by the loaded tokenizer (eos = its eos, or
+none); with no tokenizer, by ``ByteTokenizer`` when the vocabulary has
+258 ids or more, else the request answers 400. The OpenAI routes use the
+same tokenizer.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
 from .app import App, new
 from .config import Config
 from .handler import llm_request_kwargs
-from .http.errors import ErrorInvalidParam
+from .http.errors import ErrorInvalidParam, HTTPError
 from .models import TransformerConfig, init_params
-from .models.tokenizer import ByteTokenizer
+from .models.checkpoint import load_gemma_checkpoint, load_llama_checkpoint, validate_params
+from .models.tokenizer import ByteTokenizer, load_tokenizer
 from .openai_compat import register_openai_routes
 
-PRESETS = {"tiny": TransformerConfig.tiny, "2b": TransformerConfig.gemma_2b}
+PRESETS = {
+    "tiny": TransformerConfig.tiny,
+    "2b": TransformerConfig.gemma_2b,
+    "7b": TransformerConfig.gemma_7b,
+    "llama3-8b": TransformerConfig.llama3_8b,
+    "tiny-llama": TransformerConfig.tiny_llama,
+    "mistral-7b": TransformerConfig.mistral_7b,
+    "tiny-mistral": TransformerConfig.tiny_mistral,
+}
 MODEL = "gemma"
 
 
-def build_engine(app: App, params: dict | None = None) -> TransformerConfig:
-    """Register the ``gemma`` engine on ``app``: random weights from seed 0
-    unless ``params`` are given (they must match the preset)."""
+class NoTokenizer(HTTPError):
+    """A text prompt on a deployment with no tokenizer for it."""
+
+    status_code = 400
+
+
+def _tokenizer(app: App, ckpt: str):
+    """The HF tokenizer from ``GEMMA_TOKENIZER``, or from a checkpoint
+    directory's tokenizer.json; None (id-only API) when there is none."""
+    path = app.config.get_or_default("GEMMA_TOKENIZER", "") or (ckpt if os.path.isdir(ckpt) else "")
+    if not path:
+        return None
+    try:
+        tok = load_tokenizer(path)
+    except FileNotFoundError:
+        app.logger.warn(f"no tokenizer.json under {path}; id-only API")
+        return None
+    app.logger.info(f"tokenizer loaded ({tok.vocab_size} pieces)")
+    return tok
+
+
+def build_engine(app: App, params: dict | None = None) -> tuple[TransformerConfig, object]:
+    """Register the ``gemma`` engine on ``app``: ``params`` when given (they
+    must match the preset), else the ``GEMMA_CKPT`` checkpoint, else random
+    weights from seed 0. Returns (config, HF tokenizer or None)."""
     cfg_ = app.config
     preset = cfg_.get_or_default("GEMMA_PRESET", "tiny")
     if preset not in PRESETS:
         raise ValueError(f"GEMMA_PRESET={preset!r}: one of {sorted(PRESETS)}")
-    if cfg_.get("GEMMA_CKPT"):
-        raise NotImplementedError("GEMMA_CKPT: checkpoint loading is not ported; the port serves random weights")
     cfg = PRESETS[preset]()
     rt = app.container.tpu()
-    if params is None:
-        app.logger.warn("serving randomly initialized weights")
+    ckpt = cfg_.get_or_default("GEMMA_CKPT", "")
+    if params is None and ckpt:
+        app.logger.info(f"loading weights from {ckpt}")
+        loader = load_llama_checkpoint if ("llama" in preset or "mistral" in preset) else load_gemma_checkpoint
+        params = loader(ckpt, cfg, device=rt.device)
+        validate_params(params, cfg)
+    elif params is None:
+        app.logger.warn("GEMMA_CKPT not set: serving randomly initialized weights")
         dev = rt.device
         gen = torch.Generator(device=dev).manual_seed(0)
         params = init_params(cfg, gen, dev)
+    tok = _tokenizer(app, ckpt)
     rt.register_llm(
         MODEL, cfg, params,
         slots=cfg_.get_int("LLM_SLOTS", 4),
@@ -65,19 +116,22 @@ def build_engine(app: App, params: dict | None = None) -> TransformerConfig:
         prefill_buckets=(16, 64, 128),
         quantize=cfg_.get_bool("GEMMA_INT8"),
     )
-    return cfg
+    return cfg, tok
 
 
 def build_app(config: Config | None = None, params: dict | None = None) -> App:
     app = new(config=config)
-    cfg = build_engine(app, params)
-    tok = ByteTokenizer(cfg.vocab_size)
+    cfg, hf_tok = build_engine(app, params)
+    tok = hf_tok if hf_tok is not None else ByteTokenizer(cfg.vocab_size) if cfg.vocab_size >= 258 else None
 
     def request_tokens(body) -> tuple[list[int], int]:
         if not isinstance(body, dict):
             raise ErrorInvalidParam("body")
         if "prompt" in body:
-            return tok.encode(str(body["prompt"])), tok.eos_id
+            if tok is None:
+                raise NoTokenizer("no tokenizer configured; send 'tokens'")
+            eos = tok.eos_id if tok.eos_id is not None else -1
+            return tok.encode(str(body["prompt"])), eos
         return list(body["tokens"]), int(body.get("eos_token", -1))
 
     def generate(ctx):
@@ -92,7 +146,7 @@ def build_app(config: Config | None = None, params: dict | None = None) -> App:
             **llm_request_kwargs(ctx),
         )
         resp = {"tokens": out}
-        if "prompt" in body:
+        if "prompt" in body or hf_tok is not None:
             resp["text"] = tok.decode(out)
         return resp
 

@@ -280,6 +280,81 @@ class TestPagedSplitOnCard:
                 assert bool((m == TA.NEG_INF).all()) and torch.count_nonzero(l) == 0
 
 
+# the head shapes of the families beside Gemma-2B: Qwen2-7B's group of 7
+# (hq 28 on hkv 4, head_dim 128; the paged kernel pads the group to 8) and
+# Gemma-7B's multi-head attention (16 query and 16 KV heads at head_dim 256)
+FAMILY_HEADS = [(28, 4, 128), (16, 16, 256)]
+
+
+@pytest.mark.cuda
+class TestFamilyShapesOnCard:
+    """Both kernels at the families' head shapes against their plain
+    versions, at reduced batch and length (chip_smoke.py's families phase
+    runs the full ones): f32 to summation order, bf16 to the bf16 output's
+    rounding; paged o to atol 1e-4, m and l to rtol 1e-4 (atol 1e-5 near
+    0), as TestPagedSplitOnCard."""
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("heads", FAMILY_HEADS)
+    @pytest.mark.parametrize("window", [0, 100])
+    def test_flash_q_offsets(self, cuda, dtype, heads, window):
+        hq, hkv, d = heads
+        g = torch.Generator(device=cuda).manual_seed(hq + d + window)
+        q = torch.randn((3, 64, hq, d), generator=g, device=cuda).to(dtype)
+        k = torch.randn((3, 320, hkv, d), generator=g, device=cuda).to(dtype)
+        v = torch.randn((3, 320, hkv, d), generator=g, device=cuda).to(dtype)
+        off = torch.tensor([0, 37, 250], dtype=torch.int32, device=cuda)
+        before = TA.flash_attention.launches
+        got = TA.flash_attention(q, k, v, q_offsets=off, window=window)
+        want = TA.flash_attention_plain(q, k, v, q_offsets=off, window=window)
+        assert TA.flash_attention.launches == before + 1
+        tol = 1e-4 if dtype == torch.float32 else 2e-2
+        torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+    @pytest.mark.parametrize("pool", ["f32", "bf16", "int8"])
+    @pytest.mark.parametrize("heads", FAMILY_HEADS)
+    def test_paged_decode(self, cuda, pool, heads):
+        """32 sequences (Qwen2's padding row of the group of 7 must read no
+        q and write no o, and stay out of the merge), full bands and bands
+        with lo > 0, both entry points."""
+        hq, hkv, d = heads
+        g = torch.Generator(device=cuda).manual_seed(hq * d)
+        b, MB = 32, 8
+        kp, vp, sc = _split_pools(g, cuda, pool, b * MB, hkv, d)
+        q = torch.randn((b, hq, d), generator=g, device=cuda).to(
+            torch.float32 if pool == "f32" else torch.bfloat16
+        )
+        tables = torch.randperm(b * MB, generator=g, device=cuda).reshape(b, MB).to(torch.int32)
+        hi = torch.tensor([(37 * i) % (MB * 16 + 1) for i in range(b)], dtype=torch.int32, device=cuda)
+        counter = "launches_int8" if pool == "int8" else "launches"
+        for lo in (torch.zeros_like(hi), torch.clamp(hi - 40, min=0).to(torch.int32)):
+            before = getattr(TA.paged_decode_partials, counter)
+            o1, m1, l1 = TA.paged_decode_partials(q, kp, vp, tables, lo, hi, scale=d ** -0.5, **sc)
+            o2, m2, l2 = TA.paged_decode_partials_plain(q, kp, vp, tables, lo, hi, scale=d ** -0.5, **sc)
+            assert getattr(TA.paged_decode_partials, counter) == before + 1
+            torch.testing.assert_close(o1, o2, atol=1e-4, rtol=0)
+            torch.testing.assert_close(m1, m2, atol=1e-5, rtol=1e-4)
+            torch.testing.assert_close(l1, l2, atol=1e-5, rtol=1e-4)
+
+    @pytest.mark.parametrize("pool", ["bf16", "int8"])
+    def test_paged_band_above_zero_over_a_wide_table(self, cuda, pool):
+        """Mistral's decode band [hi - window, hi) past the window: 36 table
+        slots of 16 rows, lo > 0 on every sequence (hq 32 on hkv 8, head_dim
+        128, window 400)."""
+        g = torch.Generator(device=cuda).manual_seed(36)
+        b, MB, hq, hkv, d = 4, 36, 32, 8, 128
+        kp, vp, sc = _split_pools(g, cuda, pool, b * MB, hkv, d)
+        q = torch.randn((b, hq, d), generator=g, device=cuda).to(torch.bfloat16)
+        tables = torch.randperm(b * MB, generator=g, device=cuda).reshape(b, MB).to(torch.int32)
+        hi = torch.tensor([450, 517, 560, 576], dtype=torch.int32, device=cuda)
+        lo = (hi - 400).to(torch.int32)
+        o1, m1, l1 = TA.paged_decode_partials(q, kp, vp, tables, lo, hi, scale=d ** -0.5, **sc)
+        o2, m2, l2 = TA.paged_decode_partials_plain(q, kp, vp, tables, lo, hi, scale=d ** -0.5, **sc)
+        torch.testing.assert_close(o1, o2, atol=1e-4, rtol=0)
+        torch.testing.assert_close(m1, m2, atol=1e-5, rtol=1e-4)
+        torch.testing.assert_close(l1, l2, atol=1e-5, rtol=1e-4)
+
+
 def _tiny_engine(cuda, mode, **kw):
     """A tiny engine on the card: f32 (the FMA flash kernel), bf16 at
     head_dim 64 (the tensor-core flash kernel), or int8 weights and KV
