@@ -63,7 +63,30 @@ Phases, each raising on failure:
    int8 paged-decode kernel; every served token checked against the
    plain forward on the same int8 weights, under a gap constant set from
    this path's measured logit drift;
-7. edge — the port's HTTP server (gofr_tpu_torch.serve) on an ephemeral
+7. lora — multi-tenant LoRA at the same full width: the engine at its
+   defaults plus lora_slots=4, lora_rank=8 (the engine phase's families,
+   no more); four seeded adapters (A rank 8 and B rank 4 on all six
+   targets, C rank 8 on attention only, F rank 4, left idle) loaded after warmup
+   (table bytes, load ms; families, memory_reserved and every table's
+   address unchanged); every family's replay bitwise its eager program
+   with mixed adapter ids live; the burst with its lanes cycling base / A /
+   B / C three times at lookahead 3 and once at 1; every token through
+   the replay gate, base lanes against the plain forward and adapted
+   lanes against the plain forward with their adapter's delta, A's also
+   against merge_adapter's weights; adapted tokens that leave the base's
+   argmax counted (A and B must move some); nothing held once idle,
+   no prefix hit.
+   The device ms of llm.decode_chunk8 and the widest step against the
+   engine phase's, and the delta's two forms (served: each table read
+   once; the JAX form: per-row gathered copies). Then a hot-load mid-burst:
+   a new version of A loaded into the full pool (the idle F evicted) and
+   published while A's requests are in flight: those finish on the old
+   gid (gated against the old A), two later ones get the new version
+   (gated against it), nothing captured, memory_reserved unchanged. Then
+   kv_int8=True, quantize=True with the pool: 4 requests of 16 tokens, 2
+   under A, through the int8 gate. Flash and both paged kernels must
+   launch ("lora_launches");
+8. edge — the port's HTTP server (gofr_tpu_torch.serve) on an ephemeral
    port, reached at 127.0.0.1, a bf16 engine at its defaults (graphs,
    lookahead 3) over the same weights, its warmup printed: the burst as
    concurrent POST /generate requests over real sockets (every token
@@ -73,7 +96,7 @@ Phases, each raising on failure:
    KV pool must show 0 blocks in use within 3 s); both kernels must
    launch during the phase. Prints an "edge" line: tok/s and the
    client's time to first byte beside the engine phase's numbers;
-8. prefix — the prefix cache and the session tier at the same full
+9. prefix — the prefix cache and the session tier at the same full
    width: LLMEngine(prefix_cache_mb=64, session_mb=64, host_cache_mb=256),
    its 15 families (kv_seed and the hit programs too) held bitwise
    against their eager programs; a chat service's traffic on one seeded
@@ -85,10 +108,10 @@ Phases, each raising on failure:
    replay gate, both kernels launched in the phase; prints tok/s, TTFT,
    unified steps, prompt tokens packed and blocks shared per burst, and
    the spill and restore times;
-9. prefix int8 — four requests through a partial/exact pair on an int8
+10. prefix int8 — four requests through a partial/exact pair on an int8
    KV pool (tail copies move the f32 scales; the int8 kernel decodes
    over shared blocks);
-10. spec — speculative decoding at the same full width:
+11. spec — speculative decoding at the same full width:
    LLMEngine(speculative=True, spec_draft=4), its 11 families (the verify
    program llm.step_v5 too) held bitwise against their eager programs;
    extraction traffic (8 seeded passages of 32-240 tokens, each followed
@@ -101,7 +124,7 @@ Phases, each raising on failure:
    tok/s, TTFT, verifies, plain chunks, unified steps, acceptance and
    tokens per verify lane per burst. Then spec int8 (kv_int8=True, 4
    requests, the oracle drafter);
-11. structured — grammar-constrained decoding at the same full width: a
+12. structured — grammar-constrained decoding at the same full width: a
    JSON schema (string, integer, enum and bounded-array fields) and a
    regex compiled against the ByteTokenizer's 256,000-id vocabulary
    (compile ms, states, table bytes); the engine at its defaults (no
@@ -118,7 +141,7 @@ Phases, each raising on failure:
    llm.decode_chunk8. Then a speculating engine on the greedy burst (the
    spec-off tokens, near-ties exempt; constrained and unconstrained
    acceptance) and an int8 KV engine with 2 constrained requests;
-12. families — the JAX package's other dense presets at their published
+13. families — the JAX package's other dense presets at their published
    widths and depths, random weights from the seed (untied heads where
    the family publishes one), one model at a time, each freed before the
    next: Llama-3-8B, Mistral-7B, Qwen2-7B (q/k/v bias, a GQA group of 7)
@@ -136,10 +159,11 @@ Phases, each raising on failure:
    load_llama_checkpoint, every leaf held bitwise against its source,
    and the directory removed. Both kernels (and the int8 one for the
    int8 engine) must launch in every model's burst;
-13. report — a "kernels" JSON line (launches on the engine phase's main
+14. report — a "kernels" JSON line (launches on the engine phase's main
    path, in the prefix phases as "prefix_launches", in the spec phases as
    "spec_launches", in the structured phase as "structured_launches", in
-   the overload phase as "overload_launches" and in the families phase's
+   the overload phase as "overload_launches", in the lora phase as
+   "lora_launches" and in the families phase's
    first burst of each engine as "families_launches"), then the last line
    {"ok": true, "device": {...}}.
 
@@ -174,6 +198,7 @@ import torch
 from gofr_tpu_torch import llm as TL
 from gofr_tpu_torch.kvcache import gather_slots, quantize_rows, scatter_rows
 from gofr_tpu_torch.llm import KV_BLOCK, GenRequest, LLMEngine
+from gofr_tpu_torch.lora import init_adapter, merge_adapter, target_dims, validate_adapter, zero_tables
 from gofr_tpu_torch.models import (
     KVCache,
     QTensor,
@@ -690,7 +715,8 @@ def _family_inputs(eng, name: str, g: torch.Generator, temperature: float):
     random drafts of lengths 0..Kd. A constrained family (``...g``) also
     gets random grammar ids (a resident grammar or -1) and DFA states
     below each grammar's terminal row, the step's rows the ids and states
-    of their slots; it needs a resident grammar."""
+    of their slots; it needs a resident grammar. A LoRA engine's slots get
+    random adapter ids in [0, lora_slots] (mixed ids live)."""
     cfg, slots, K = eng.cfg, eng.slots, eng.decode_chunk
     cap, MB, NB = eng.kv.capacity, eng.kv.table_width, eng.kv.pool.n_blocks
     dev = eng.device
@@ -710,6 +736,9 @@ def _family_inputs(eng, name: str, g: torch.Generator, temperature: float):
         states = [int(torch.randint(0, max(1, eng._grammars[i].n_states - 1), (1,), generator=g, device=dev))
                   if i >= 0 else 0 for i in gids]
         eng._gstate.copy_(torch.tensor(states, dtype=torch.int32, device=dev))
+    aids = None
+    if eng.lora_slots:
+        aids = torch.randint(0, eng.lora_slots + 1, (slots,), generator=g, device=dev, dtype=torch.int32).cpu().numpy()
     shape = arg[0] if kind == "step" else 0
     lengths = torch.randint(1, cap - shape - 2 * K, (slots,), generator=g, device=dev, dtype=torch.int32)
     eng.pool.length.copy_(lengths)
@@ -739,14 +768,14 @@ def _family_inputs(eng, name: str, g: torch.Generator, temperature: float):
     tables = torch.randperm(NB, generator=g, device=dev)[: slots * MB].reshape(slots, MB).int().cpu().numpy()
     live = np.ones((slots,), bool)
     if kind == "chunk":
-        return lambda: eng._in.write(tables, live, gids=gids)
+        return lambda: eng._in.write(tables, live, gids=gids, aids=aids)
     if kind == "verify":
         Kd = arg - 1
         vpack = np.zeros((slots, Kd + 2), np.int32)
         vpack[:, :Kd] = torch.randint(1, cfg.vocab_size, (slots, Kd), generator=g, device=dev).cpu().numpy()
         vpack[:, Kd] = np.arange(slots) % (Kd + 1)
         vpack[: slots - 1, Kd + 1] = 1
-        return lambda: eng._in.write(tables, live, verify=vpack, gids=gids)
+        return lambda: eng._in.write(tables, live, verify=vpack, gids=gids, aids=aids)
     nb = arg[1]
     rows = nb - 1 if nb > 1 else 1
     lens = lengths.cpu().numpy()
@@ -763,7 +792,7 @@ def _family_inputs(eng, name: str, g: torch.Generator, temperature: float):
         meta[0, j], meta[1, j] = j, j % 2
         if gids is not None:
             meta[2, j], meta[3, j] = gids[j], 0 if gids[j] < 0 else states[j]
-    return lambda: eng._in.write(tables, live, meta, pack, gids=gids)
+    return lambda: eng._in.write(tables, live, meta, pack, gids=gids, aids=aids)
 
 
 def _outputs(out) -> tuple:
@@ -841,8 +870,9 @@ def program_ms(eng, name: str, seed: int, iters: int = 10) -> float:
     return sum(a.elapsed_time(b) for a, b in times[1:]) / iters
 
 
-def _serve(eng, prompts, new_tokens):
-    """Submit every prompt from its own client thread at once; returns
+def _serve(eng, prompts, new_tokens, adapters=None):
+    """Submit every prompt from its own client thread at once (prompt i
+    under LoRA adapter ``adapters[i]`` when given, "" the base); returns
     ({i: tokens}, {i: request}, wall seconds)."""
     results: dict[int, list[int]] = {}
     reqs: dict[int, GenRequest] = {}
@@ -850,7 +880,8 @@ def _serve(eng, prompts, new_tokens):
 
     def client(i):
         try:
-            r = eng.submit(GenRequest(prompts[i], max_new_tokens=new_tokens))
+            r = eng.submit(GenRequest(prompts[i], max_new_tokens=new_tokens,
+                                      adapter=adapters[i] if adapters else ""))
             reqs[i] = r
             results[i] = r.tokens(timeout=600)
         except BaseException as e:  # surfaced below, after every client joined
@@ -924,19 +955,23 @@ def gemma_weights(seed: int) -> tuple[TransformerConfig, dict]:
 
 
 def _replay_gate(params, cfg, prompts, results, gap: float, label: str = "", verbose: bool = True,
-                 stats: dict | None = None) -> tuple[int, int]:
+                 stats: dict | None = None, aid: int | None = None) -> tuple[int, int]:
     """Every served token against greedy decoding by the plain full-prompt
     forward on ``params`` (no kernels), teacher-forced on the served
     stream: token j must be the plain argmax after prompt + served[:j],
     unless the plain top-2 gap is below ``gap``. Raises on a token that
     fails; returns (tokens matched, tokens exempt). With ``stats``, adds
     the count of served positions whose plain top-2 gap is below
-    TOKEN_GAP ("near") and the gap of every exempt token ("exempt_gaps")."""
+    TOKEN_GAP ("near") and the gap of every exempt token ("exempt_gaps").
+    ``aid``: the forward adds the delta of LoRA gid ``aid`` of ``params``'
+    tables."""
     checked = exempt = 0
+    aids = None if aid is None else torch.tensor([aid], device="cuda")
     for i, p in enumerate(prompts):
         seq = p + results[i][:-1]
         logits = transformer_forward(
-            params, cfg, torch.tensor([seq], device="cuda"), torch.arange(len(seq), device="cuda")[None, :]
+            params, cfg, torch.tensor([seq], device="cuda"), torch.arange(len(seq), device="cuda")[None, :],
+            aids=aids,
         )[0, len(p) - 1 :]  # [new_tokens, vocab]
         top2 = torch.topk(logits, 2, dim=-1)
         gaps = (top2.values[:, 0] - top2.values[:, 1]).tolist()
@@ -1035,7 +1070,8 @@ def _chunked_drift(params, cfg, prompt, capacity: int) -> float:
     return float((logits_c[0] - plain).abs().max())
 
 
-def _bursts(label: str, eng, prompts, new_tokens: int, counters: tuple, lookaheads=None) -> list[dict]:
+def _bursts(label: str, eng, prompts, new_tokens: int, counters: tuple, lookaheads=None,
+            adapters=None) -> list[dict]:
     """The burst three times at the engine's lookahead, then once at
     lookahead 1 on the same engine (the scheduler reads ``lookahead`` on
     every pass), or once at each of ``lookaheads``, each with the kernel
@@ -1047,7 +1083,7 @@ def _bursts(label: str, eng, prompts, new_tokens: int, counters: tuple, lookahea
         eng.lookahead = la
         _zero_launches(counters)
         st0 = eng.stats()
-        results, reqs, wall = _serve(eng, prompts, new_tokens)
+        results, reqs, wall = _serve(eng, prompts, new_tokens, adapters)
         st = eng.stats()
         launches = _launches(counters)
         ttfts = sorted(reqs[i].first_token_at - reqs[i].submitted_at for i in reqs)
@@ -1055,6 +1091,7 @@ def _bursts(label: str, eng, prompts, new_tokens: int, counters: tuple, lookahea
         run = {"lookahead": la, "results": results, "wall_s": wall, "tokens": total, "tok_s": total / wall,
                "ttft_p50_s": ttfts[len(ttfts) // 2], "ttft_max_s": ttfts[-1], "launches": launches,
                "chunks": st["chunks"] - st0["chunks"], "steps": st["steps"] - st0["steps"]}
+        run["reqs"] = reqs
         runs.append(run)
         print(f"{label}burst {len(runs)} at lookahead {la}: {total} tokens in {wall:.3f}s = {run['tok_s']:.1f} tok/s; "
               f"ttft p50 {run['ttft_p50_s']:.3f}s max {run['ttft_max_s']:.3f}s; {run['chunks']} programs "
@@ -1094,6 +1131,11 @@ def phase_engine(dev: dict, seed: int, cfg: TransformerConfig, params: dict) -> 
         new_tokens = 32
         runs = _bursts("", eng, prompts, new_tokens, ("flash_attention", "paged_decode_partials"))
         stats = eng.stats()
+        # device ms of the chunk and the widest step (the lora phase's
+        # engine runs the same programs with the adapter deltas)
+        step = eng._step_name(eng.chunk_shapes[-1], eng.admit_cap)
+        prog = {name: program_ms(eng, name, seed) for name in ("llm.decode_chunk8", step)}
+        print("program device ms (one replay): " + ", ".join(f"{k} {v:.3f}" for k, v in prog.items()))
         # the same traffic once more under torch.profiler: where the device
         # time goes (the profiler slows the host, so this pass is not timed)
         prof = _profile(lambda: _serve(eng, prompts, new_tokens))
@@ -1132,7 +1174,8 @@ def phase_engine(dev: dict, seed: int, cfg: TransformerConfig, params: dict) -> 
         "ttft_p50_s": statistics.median(r["ttft_p50_s"] for r in runs[:3]),
         "ttft_max_s": statistics.median(r["ttft_max_s"] for r in runs[:3]),
         "launches": launches, "steps": stats["steps"], "tokens_matched": checked, "tokens_exempt": exempt,
-        "warmup": warm, "profile": prof, "runs": [{k: v for k, v in r.items() if k != "results"} for r in runs],
+        "warmup": warm, "profile": prof, "program_ms": prog,
+        "runs": [{k: v for k, v in r.items() if k not in ("results", "reqs")} for r in runs],
     }
     print(
         f"engine gemma_2b on {dev['smi']}: {out['requests']} requests x 32 tokens, 3 bursts at lookahead 3: "
@@ -1537,6 +1580,293 @@ def phase_engine_int8(dev: dict, seed: int, cfg: TransformerConfig, params: dict
         f"{exempt} exempt; launches in burst 1 {first['launches']}"
     )
     return out
+
+
+# The lora phase: a pool of 4 adapters of rank up to 8 over the engine's
+# defaults. The random tied Gemma-2B predicts with top-2 gaps of 4.6-9
+# logits: adapters at scale 0.5 moved no greedy token off the base's, and
+# at 1.25-2.0 (each delta up to ~4x a base projection's output) the served
+# path's logits drifted 0.37-1.43 from the plain forward's, past the
+# gate's 0.25; at 1.0, 0.17-0.20 (on an H100; PERF.md). The phase
+# checks that the adapters on all six targets move tokens (a gate that
+# adapted and base streams pass alike would not tell them apart); the
+# attention-only one moved none at 1.0 and drifted past the gate at 1.5,
+# so its count is printed, not required
+LORA_SLOTS, LORA_RANK, LORA_SCALE = 4, 8, 1.0
+LORA_LANES = ("", "A", "B", "C") * 2  # the burst's lanes: base / A / B / C
+
+
+def _adapter_params(params: dict, cfg, adapter: dict, rank: int = LORA_RANK) -> dict:
+    """``params`` plus LoRA tables of one gid (1) holding ``adapter``: the
+    plain forward with aids [1] adds exactly its delta (the gate's
+    reference, independent of the engine's tables)."""
+    tabs = zero_tables(cfg, 1, rank, "cuda")
+    for name, (a, b) in validate_adapter(cfg, adapter, rank_max=rank).items():
+        tabs[f"lora_{name}_a"][:, 1, :, : a.shape[2]] = torch.from_numpy(a).cuda()
+        tabs[f"lora_{name}_b"][:, 1, : a.shape[2], :] = torch.from_numpy(b).cuda()
+    return {**params, "layers": {**params["layers"], **tabs}}
+
+
+def _lora_delta_gather(h, lp, name, aids):
+    """The JAX form of the delta (gofr_tpu/models/transformer.py:296-313):
+    each row's (A, B) pair gathered into [rows, d_in, r] and [rows, r,
+    d_out] float32 copies, then two batched products."""
+    ag = lp["lora_" + name + "_a"][aids.long()]
+    bg = lp["lora_" + name + "_b"][aids.long()]
+    return torch.bmm(torch.bmm(h.float(), ag), bg)
+
+
+def _delta_forms(eng, cfg, seed: int) -> dict:
+    """The device time of every layer's six deltas (one decode step of 32
+    rows; one prefill chunk of 8 x 64 rows) in the served form (the G
+    tables side by side, each read once) and in the JAX form (per-row
+    gathered copies, batched products), on the engine's tables with mixed
+    ids, and the bytes each moves."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    layers = [T._layer(eng.params, i) for i in range(cfg.n_layers)]
+    dims = target_dims(cfg)
+    G, r, L = eng.lora_slots + 1, eng.lora_rank, cfg.n_layers
+    io = sum(d_in + d_out for d_in, d_out in dims.values())
+    out = {}
+    for label, rows, s in (("decode step", 32, 1), ("prefill chunk", 8, 64)):
+        aids = torch.randint(0, G, (rows,), generator=g, device="cuda")
+        sel = T.lora_select(eng.params, aids)
+        hs = {n: torch.randn((rows, s, d), generator=g, device="cuda").to(cfg.dtype) for n, (d, _) in dims.items()}
+        err = max(float((T._lora_delta(hs[n], layers[0], n, sel) - _lora_delta_gather(hs[n], layers[0], n, aids))
+                        .abs().max()) for n in dims)
+        served = device_ms(lambda: [T._lora_delta(hs[n], lp, n, sel) for lp in layers for n in dims], None, iters=5)
+        jax_form = device_ms(lambda: [_lora_delta_gather(hs[n], lp, n, aids) for lp in layers for n in dims], None,
+                             iters=5)
+        # table bytes read once; the JAX form writes and reads a copy of each
+        # row's pair besides
+        served_bytes = L * G * io * r * 4
+        jax_bytes = L * rows * io * r * 4 * 3
+        out[label] = {"served_ms": served, "jax_form_ms": jax_form, "max_abs_err": err,
+                      "served_bytes": served_bytes, "jax_form_bytes": jax_bytes}
+        print(f"lora delta form, {label} ({rows} x {s} rows, {L} layers x {len(dims)} targets, G {G}, rank {r}): "
+              f"served (the G tables side by side) {served:.4f} ms device, {served_bytes} table bytes; JAX form "
+              f"(per-row gathered copies) {jax_form:.4f} ms device, ~{jax_bytes} bytes; the two agree to "
+              f"{err:.2e}")
+        if not math.isfinite(err) or err > 1e-3:
+            raise AssertionError(f"lora delta forms disagree: {err}")
+    return out
+
+
+def _lora_idle(eng, label: str) -> None:
+    """Idle (``_idle``: every block in use held by the radix) with no
+    adapter reference held and no zombie gid."""
+    _idle(eng, label)
+    snap = eng.adapters()
+    if any(e["refs"] for e in snap["resident"].values()) or snap["zombies"]:
+        raise AssertionError(f"{label}adapter references held once idle: {snap}")
+
+
+def _lora_gate(label: str, params, cfg, prompts, results: dict, lanes, ads: dict, gap: float) -> tuple[int, int]:
+    """Every served token of ``results`` through the replay gate: base lanes
+    against the plain forward without an adapter, each adapted lane against
+    the plain forward with its adapter's delta (``ads[name]``)."""
+    checked = exempt = 0
+    for name in sorted(set(lanes)):
+        idx = [i for i in results if lanes[i] == name]
+        ref = params if not name else _adapter_params(params, cfg, ads[name])
+        c, e = _replay_gate(ref, cfg, [prompts[i] for i in idx], {j: results[i] for j, i in enumerate(idx)}, gap,
+                            label=f"{label}lane {name or 'base'} ", verbose=False, aid=1 if name else None)
+        checked, exempt = checked + c, exempt + e
+        del ref
+    return checked, exempt
+
+
+def _lora_hot_load(eng, prompts, ads: dict) -> dict:
+    """The burst again (64 new tokens), and while A's lanes are in flight
+    (each has its first token out): a new version of A ("A@v2") loaded into the full
+    pool, which evicts the idle adapter F, and published over the busy
+    name A. A's requests in flight keep their old gid (a zombie until they
+    drain); two requests submitted after the publish get the new one.
+    Nothing is captured and memory_reserved does not move."""
+    torch.cuda.synchronize()
+    fam0, res0 = dict(eng.families), torch.cuda.memory_reserved()
+    reqs = [eng.submit(GenRequest(p, max_new_tokens=64, adapter=a)) for p, a in zip(prompts, LORA_LANES)]
+    join = _consume(reqs)
+    a_lanes = [i for i, a in enumerate(LORA_LANES) if a == "A"]
+    _wait_until(lambda: all(reqs[i].emitted for i in a_lanes), 120, "A's first tokens")
+    old = eng.adapters()["resident"]["A"]["gid"]
+    t0 = time.perf_counter()
+    gid = eng.load_adapter("A@v2", ads["A2"], version="v2")
+    t1 = time.perf_counter()
+    prev = eng.publish_adapter("A@v2", "A")
+    t2 = time.perf_counter()
+    torch.cuda.synchronize()
+    swap_ms = (time.perf_counter() - t0) * 1e3
+    snap = eng.adapters()
+    held = [reqs[i]._aid for i in a_lanes]  # a retired request's goes back to 0
+    late = [eng.submit(GenRequest(prompts[i], max_new_tokens=32, adapter="A")) for i in (0, 5)]
+    late_aids = [r._aid for r in late]
+    in_flight = sum(reqs[i].finish_reason is None for i in a_lanes)
+    toks, _ends = join()
+    late_toks = [r.tokens(timeout=600) for r in late]
+    torch.cuda.synchronize()
+    print(f"lora hot-load mid-burst: A@v2 loaded ({(t1 - t0) * 1e3:.1f} ms) and published "
+          f"({(t2 - t1) * 1e3:.1f} ms), {swap_ms:.1f} ms to the copies' end, while {in_flight} of "
+          f"{len(a_lanes)} A requests were in flight; gid {old} -> {gid}; zombies {snap['zombies']}; evictions "
+          f"{snap['evictions']} (resident {sorted(snap['resident'])}); families {len(fam0)} -> {len(eng.families)}; "
+          f"memory_reserved {res0} -> {torch.cuda.memory_reserved()}")
+    if prev != old or snap["zombies"] != [old] or "F" in snap["resident"] or snap["evictions"] != 1:
+        raise AssertionError(f"lora hot-load: old gid {old}, publish returned {prev}, pool {snap}")
+    if any(a not in (old, 0) for a in held) or old not in held or any(a != gid for a in late_aids):
+        raise AssertionError("lora hot-load: a request in flight moved to the new gid, or a late one did not")
+    if eng.families != fam0 or torch.cuda.memory_reserved() != res0:
+        raise AssertionError("lora hot-load captured a program or reserved memory")
+    return {"results": toks, "late": late_toks, "swap_ms": swap_ms, "in_flight": in_flight, "old_gid": old,
+            "new_gid": gid}
+
+
+def _lora_int8(dev: dict, seed: int, cfg, params: dict, adapter: dict) -> dict:
+    """kv_int8=True, quantize=True with the pool: 4 requests of 16 new
+    tokens, two under adapter A, every token through the int8 gate (the
+    plain forward on the same int8 weights, with A's delta on its lanes)."""
+    counters = ("flash_attention", "paged_decode_partials", "paged_decode_partials_int8")
+    eng = LLMEngine(cfg, params, seed=seed, kv_int8=True, quantize=True, lora_slots=LORA_SLOTS, lora_rank=LORA_RANK)
+    try:
+        _warm_report("lora int8 ", eng)
+        eng.load_adapter("A", adapter)
+        eng.generate([1, 2, 3], max_new_tokens=4)
+        _plens, prompts = _burst_prompts(cfg, seed)
+        prompts, lanes = prompts[:4], ("", "A", "", "A")
+        _zero_launches(counters)
+        results, _reqs, wall = _serve(eng, prompts, 16, lanes)
+        launches = _launches(counters)
+        _lora_idle(eng, "lora int8 ")
+        qparams = {**eng.params, "layers": {k: v for k, v in eng.params["layers"].items() if not k.startswith("lora_")}}
+    finally:
+        eng.close()
+    checked, exempt = _lora_gate("lora int8 ", qparams, cfg, prompts, results, lanes, {"A": adapter}, INT8_TOKEN_GAP)
+    total = sum(len(t) for t in results.values())
+    print(f"lora int8 (kv_int8, quantize, adapter A on 2 of 4 lanes) on {dev['smi']}: {total} tokens in "
+          f"{wall:.3f}s = {total / wall:.1f} tok/s; {checked} tokens equal the plain greedy argmax, {exempt} exempt "
+          f"(gap {INT8_TOKEN_GAP}); launches {launches}")
+    if 8 * exempt > total:
+        raise AssertionError(f"lora int8: {exempt} of {total} tokens needed the gap exemption (> 1 in 8)")
+    if launches["paged_decode_partials_int8"] <= 0 or launches["paged_decode_partials"] or \
+            launches["flash_attention"] <= 0:
+        raise AssertionError(f"lora int8 engine launched the wrong kernels: {launches}")
+    return {"launches": launches, "tokens": total, "tok_s": total / wall, "matched": checked, "exempt": exempt}
+
+
+def phase_lora(dev: dict, seed: int, cfg: TransformerConfig, params: dict, main: dict) -> dict:
+    """The lora phase (see the module docstring): returns its readings and
+    the kernel launches of its first burst (flash, bf16 paged) and of its
+    int8 run (int8 paged)."""
+    g = torch.Generator(device="cuda").manual_seed(seed + 13)
+    attn = ("wq", "wkv", "wo")
+    ads = {"A": init_adapter(g, cfg, 8, scale=LORA_SCALE), "B": init_adapter(g, cfg, 4, scale=LORA_SCALE),
+           "C": init_adapter(g, cfg, 8, scale=LORA_SCALE, targets=attn),
+           "F": init_adapter(g, cfg, 4, scale=LORA_SCALE), "A2": init_adapter(g, cfg, 8, scale=LORA_SCALE)}
+    # adapters arrive from host memory (a checkpoint), as load_adapter takes them
+    ads = {k: {t: {"a": p["a"].cpu().numpy(), "b": p["b"].cpu().numpy()} for t, p in ad.items()}
+           for k, ad in ads.items()}
+    counters = ("flash_attention", "paged_decode_partials", "paged_decode_partials_int8")
+    gid_bytes = cfg.n_layers * sum(d_in + d_out for d_in, d_out in target_dims(cfg).values()) * LORA_RANK * 4
+    eng = LLMEngine(cfg, params, seed=seed, lora_slots=LORA_SLOTS, lora_rank=LORA_RANK)
+    try:
+        warm = _warm_report("lora ", eng)
+        if sorted(warm["families"]) != sorted(main["warmup"]["families"]):
+            raise AssertionError(f"lora engine families {warm['families']} != {main['warmup']['families']}")
+        torch.cuda.synchronize()
+        fam0, res0 = dict(eng.families), torch.cuda.memory_reserved()
+        ptr0 = {k: v.data_ptr() for k, v in eng.params["layers"].items() if k.startswith("lora_")}
+        load_ms = {}
+        for name in ("A", "B", "C", "F"):
+            t0 = time.perf_counter()
+            eng.load_adapter(name, ads[name])
+            torch.cuda.synchronize()
+            load_ms[name] = (time.perf_counter() - t0) * 1e3
+        res1 = torch.cuda.memory_reserved()
+        print(f"lora tables: {gid_bytes} bytes a gid (f32, rank {LORA_RANK}, {cfg.n_layers} layers x "
+              f"{len(target_dims(cfg))} targets), {LORA_SLOTS + 1} gids on the card; load_adapter after warmup, ms: "
+              + ", ".join(f"{k} {v:.1f}" for k, v in load_ms.items())
+              + f"; families {len(fam0)} -> {len(eng.families)}; memory_reserved {res0} -> {res1}")
+        if eng.families != fam0 or res1 != res0 or \
+                ptr0 != {k: v.data_ptr() for k, v in eng.params["layers"].items() if k.startswith("lora_")}:
+            raise AssertionError("lora: a load after warmup captured, reserved memory or moved a table")
+        _check_families("lora ", eng, seed)  # mixed adapter ids live, on loaded tables
+        eng.generate([1, 2, 3], max_new_tokens=4)
+        _plens, prompts = _burst_prompts(cfg, seed)
+        runs = _bursts("lora ", eng, prompts, 32, counters, adapters=LORA_LANES)
+        _lora_idle(eng, "lora ")
+        step = eng._step_name(eng.chunk_shapes[-1], eng.admit_cap)
+        prog = {name: program_ms(eng, name, seed) for name in ("llm.decode_chunk8", step)}
+        for name, ms in prog.items():
+            base_ms = main["program_ms"][name]
+            print(f"lora program {name}: {ms:.3f} ms device with adapters (mixed ids) vs {base_ms:.3f} ms without "
+                  f"(the engine phase's engine); the deltas take {100 * (ms - base_ms) / ms:.1f}% on {dev['smi']}")
+        forms = _delta_forms(eng, cfg, seed)
+        hot = _lora_hot_load(eng, prompts, ads)
+        _lora_idle(eng, "lora hot-load ")
+    finally:
+        eng.close()
+
+    checked = exempt = 0
+    for i, r in enumerate(runs):
+        c, e = _lora_gate(f"lora burst {i + 1} ", params, cfg, prompts, r["results"], LORA_LANES, ads, TOKEN_GAP)
+        print(f"lora burst {i + 1} (lookahead {r['lookahead']}): {c} tokens equal the plain greedy argmax of "
+              f"their lane (base, or base + the lane's adapter), {e} exempt")
+        if any(q.prefix_hit for q in r["reqs"].values()):
+            raise AssertionError("lora: a request took a prefix hit")
+        checked, exempt = checked + c, exempt + e
+    first = runs[0]
+    moved = _lora_moved(params, cfg, prompts, first["results"])
+    # adapter A against the merged weights W + A B (computed in f32, rounded
+    # to the weights' dtype) under the same gap rule
+    a_lanes = [i for i, a in enumerate(LORA_LANES) if a == "A"]
+    merged = merge_adapter(params, cfg, ads["A"])
+    mc, me = _replay_gate(merged, cfg, [prompts[i] for i in a_lanes],
+                          {j: first["results"][i] for j, i in enumerate(a_lanes)}, TOKEN_GAP,
+                          label="lora merged A ", verbose=False)
+    del merged
+    print(f"lora adapter A against merge_adapter's weights (burst 1): {mc} tokens equal, {me} exempt")
+    # the hot-load burst: A's requests in flight against the old A, the
+    # requests after the publish against the new version, the rest as above
+    hc, he = _lora_gate("lora hot-load ", params, cfg, prompts, hot["results"], LORA_LANES, ads, TOKEN_GAP)
+    lc, le = _lora_gate("lora hot-load late ", params, cfg, [prompts[0], prompts[5]],
+                        dict(enumerate(hot["late"])), ("A2", "A2"), ads, TOKEN_GAP)
+    print(f"lora hot-load: {hc} tokens of the burst (A's in flight against the old A) and {lc} of the 2 later "
+          f"requests (against A@v2) equal their plain greedy argmax; {he + le} exempt")
+    int8 = _lora_int8(dev, seed, cfg, params, ads["A"])
+
+    tok_s = statistics.median(r["tok_s"] for r in runs[:3])
+    ttft = statistics.median(r["ttft_p50_s"] for r in runs[:3])
+    print(f"lora engine gemma_2b (lora_slots {LORA_SLOTS}, rank {LORA_RANK}; lanes base/A/B/C) on {dev['smi']}: "
+          f"3 bursts at lookahead 3: median {tok_s:.1f} tok/s (engine phase {main['tok_s']:.1f}); ttft p50 "
+          f"{ttft:.3f}s (engine phase {main['ttft_p50_s']:.3f}s); lookahead 1: {runs[3]['tok_s']:.1f} tok/s; "
+          f"{checked} tokens matched, {exempt} exempt; adapted tokens off the base's argmax {moved}")
+    launches = {"flash_attention": first["launches"]["flash_attention"],
+                "paged_decode_partials": first["launches"]["paged_decode_partials"],
+                "paged_decode_partials_int8": int8["launches"]["paged_decode_partials_int8"]}
+    if any(n <= 0 for n in launches.values()) or first["launches"]["paged_decode_partials_int8"]:
+        raise AssertionError(f"lora launches {launches} (burst 1 {first['launches']})")
+    return {"launches": launches, "tok_s": tok_s, "ttft_p50_s": ttft, "lookahead1_tok_s": runs[3]["tok_s"],
+            "load_ms": load_ms, "gid_bytes": gid_bytes, "program_ms": prog, "delta_forms": forms,
+            "matched": checked, "exempt": exempt, "moved": moved, "merged": (mc, me), "int8": int8,
+            "hot": {k: v for k, v in hot.items() if k not in ("results", "late")}}
+
+
+def _lora_moved(params, cfg, prompts, results: dict) -> dict:
+    """Per adapter: the served tokens of its lanes that are not the base
+    model's greedy argmax (teacher-forced, no adapter). Raises when the
+    lanes of an adapter on all six targets (A, B) never leave the base's
+    argmax: the gate could not tell them from base lanes."""
+    moved: dict[str, int] = {}
+    for i, name in enumerate(LORA_LANES):
+        if not name:
+            continue
+        seq = prompts[i] + results[i][:-1]
+        logits = transformer_forward(
+            params, cfg, torch.tensor([seq], device="cuda"), torch.arange(len(seq), device="cuda")[None, :]
+        )[0, len(prompts[i]) - 1 :]
+        moved[name] = moved.get(name, 0) + sum(int(a) != b for a, b in zip(logits.argmax(-1).tolist(), results[i]))
+    if not (moved["A"] and moved["B"]):
+        raise AssertionError(f"lora: an adapter's lanes served the base's argmax at every position: {moved}")
+    return moved
 
 
 # The prefix phase's traffic: a chat service whose requests share one
@@ -2883,6 +3213,7 @@ def main() -> int:
         engine.close()
     del engine  # its pool and graphs go at the next phase's collection
     eng8 = timed("int8", phase_engine_int8, dev, SEED, cfg, params)
+    lora = timed("lora", phase_lora, dev, SEED, cfg, params, eng)
     timed("edge", phase_edge, dev, SEED, cfg, params, eng)
     pre = timed("prefix", phase_prefix, dev, SEED, cfg, params)
     pre8 = timed("prefix int8", phase_prefix_int8, dev, SEED, cfg, params)
@@ -2909,7 +3240,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": run["launches"][name], "prefix_launches": prefix_launches,
             "spec_launches": spec["launches"][name], "structured_launches": structured["launches"][name],
-            "overload_launches": ovl["launches"][name],
+            "overload_launches": ovl["launches"][name], "lora_launches": lora["launches"][name],
             "families_launches": {label: n[name] for label, n in families["launches"].items()},
             "max_abs_err": kern["errs"][name],
             "ms": t["ms"], "device_ms": t["device_ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],

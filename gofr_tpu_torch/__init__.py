@@ -18,12 +18,16 @@ mirror the JAX package so each counterpart is easy to find:
   grammar-constrained decoding (host numpy; the engine masks on the card);
 - ``resilience`` — overload control's fair-queuing ledger and
   brownout/shed controller;
+- ``lora`` — the multi-tenant LoRA adapter pool's host bookkeeping and
+  adapter validation (the engine holds the tables on the card);
 - ``llm`` — ``GenRequest`` and ``LLMEngine``;
 - the serving edge: ``serve`` (``python -m gofr_tpu_torch.serve``:
   ``/generate``, ``/stats`` and the OpenAI routes of ``openai_compat``),
   ``app``, ``handler``, ``context``, ``container``, ``config``,
   ``logging``, ``http`` (the asyncio HTTP/1.1 server, router, request and
-  responder), ``datasource.gpu`` (``GPURuntime.register_llm``) and
+  responder), ``grpcx`` (JSON over gRPC: serve's ``Gemma/Generate`` and
+  ``Gemma/Stream``; imported only when a gRPC route is registered),
+  ``datasource.gpu`` (``GPURuntime.register_llm``) and
   ``models.tokenizer`` (``ByteTokenizer``).
 
 The package imports torch and numpy only: nothing of ``jax`` and nothing of

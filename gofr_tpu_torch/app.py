@@ -1,4 +1,4 @@
-"""App: the composition root (counterpart of gofr_tpu/app.py, HTTP only).
+"""App: the composition root (counterpart of gofr_tpu/app.py: HTTP and gRPC).
 
 ``new(config)`` builds the App: config (``EnvConfig`` over ``./configs``
 unless one is passed), the container and its logger, the router behind
@@ -10,10 +10,18 @@ serves until SIGINT or SIGTERM; ``run_in_background()`` serves from a
 daemon thread and returns once the socket listens; ``shutdown()`` stops
 the server and closes the registered engines.
 
+gRPC: ``grpc_unary`` / ``grpc_server_stream`` register framework-native
+JSON-over-gRPC methods with the same ``handler(ctx)`` shape as the HTTP
+routes, ``register_service`` a generated-proto servicer; the first
+registration builds a ``grpcx.GRPCServer`` on ``GRPC_PORT`` (default 9000;
+0 binds an ephemeral port, read back from ``app.grpc_server.port``), which
+starts and stops with the HTTP server. ``grpcx`` (and with it ``grpc``) is
+imported only then.
+
 Always registered: ``/.well-known/health``, ``/.well-known/alive``, the
 404 catch-all, 405 for a known path under another method, and the CORS
-preflight. Left out of the port: the metrics server, gRPC, cron, pub/sub,
-auth, static files, swagger and the graceful drain.
+preflight. Left out of the port: the metrics server, cron, pub/sub, auth,
+static files, swagger and the graceful drain.
 """
 
 from __future__ import annotations
@@ -42,6 +50,9 @@ class App:
         self.router.use(logging_middleware(self.logger))
         self.router.use(cors_middleware())
         self.http_server = AsyncHTTPServer(self.router.dispatch, self.http_port, logger=self.logger)
+        self.grpc_port = self.config.get_int("GRPC_PORT", 9000)
+        self.grpc_server = None  # built at the first gRPC registration
+        self._grpc_registered = False
         self._shutdown_event: asyncio.Event | None = None
         self._loop: asyncio.AbstractEventLoop | None = None
 
@@ -57,6 +68,30 @@ class App:
     def post(self, path: str, handler: Callable) -> None:
         self._add("POST", path, handler)
 
+    # -- gRPC (JAX app.py:252-276) ------------------------------------------
+    def _ensure_grpc(self):
+        from .grpcx import GRPCServer
+
+        if self.grpc_server is None:
+            self.grpc_server = GRPCServer(self.container, self.grpc_port)
+        return self.grpc_server
+
+    def register_service(self, add_servicer_fn, servicer) -> None:
+        """add_servicer_fn: generated add_XServicer_to_server(servicer, server)."""
+        self._ensure_grpc().register(add_servicer_fn, servicer)
+        self._grpc_registered = True
+
+    def grpc_unary(self, service: str, method: str, handler: Callable) -> None:
+        """Framework-native RPC: handler(ctx) -> result, JSON over gRPC."""
+        self._ensure_grpc().add_unary(service, method, handler)
+        self._grpc_registered = True
+
+    def grpc_server_stream(self, service: str, method: str, handler: Callable) -> None:
+        """handler(ctx) -> iterator of chunks (sync generator, async
+        generator, or a coroutine returning an iterable): e.g. tokens."""
+        self._ensure_grpc().add_server_stream(service, method, handler)
+        self._grpc_registered = True
+
     def _register_well_known(self) -> None:
         self.get("/.well-known/health", health_handler)
         self.get("/.well-known/alive", live_handler)
@@ -68,10 +103,15 @@ class App:
         self._register_well_known()
         self.router.build()
         await self.http_server.start()
+        if self._grpc_registered and self.grpc_server is not None:
+            self.grpc_server.start()
+            self.logger.info(f"gRPC server listening on :{self.grpc_server.port}")
         try:
             await self._shutdown_event.wait()
         finally:
             await self.http_server.shutdown()
+            if self.grpc_server is not None:
+                self.grpc_server.shutdown()
             self.container.close()
             self.logger.info("Server shutdown complete")
 
@@ -95,12 +135,15 @@ class App:
         asyncio.run(main())
 
     def run_in_background(self) -> threading.Thread:
-        """Serve from a daemon thread; returns once the socket listens."""
+        """Serve from a daemon thread; returns once the sockets listen."""
         started = threading.Event()
 
         async def main():
             task = asyncio.ensure_future(self.serve())
-            while self.http_server._server is None and not task.done():
+            while not task.done() and (
+                self.http_server._server is None
+                or (self._grpc_registered and not self.grpc_server._started)
+            ):
                 await asyncio.sleep(0.005)
             started.set()
             await task

@@ -14,7 +14,8 @@ Only what the port's engine has is accepted: the kwargs ``slots``,
 ``constrained``, ``constrained_grammars``, the overload kwargs
 ``max_queue``, ``ttft_deadline_ms``, ``fair_queuing``, ``fair_weights``,
 ``fair_ledger``, ``preemption``, ``shed_predicted_wait_s``,
-``brownout_wait_s``, ``brownout_max_new`` and ``brownout_hold_s``, and
+``brownout_wait_s``, ``brownout_max_new`` and ``brownout_hold_s``, the
+LoRA pool's ``lora_slots`` and ``lora_rank``, and
 ``kv_paged=True`` or ``"auto"`` (the port's one layout: a windowed model,
 which the JAX ``"auto"`` serves from its rolling ring when window + slack
 < max_seq_len, is served paged here, with the same masks and tokens at
@@ -23,11 +24,12 @@ O(max_seq_len) slot memory; ``kv_paged=False`` raises), and the config knobs
 ``TPU_LLM_HOST_CACHE_MB``, ``TPU_LLM_SPEC``, ``TPU_LLM_SPEC_DRAFT``,
 ``TPU_LLM_CONSTRAINED``, ``TPU_LLM_CONSTRAINED_GRAMMARS``,
 ``TPU_LLM_FAIR``, ``TPU_LLM_PREEMPT``, ``TPU_LLM_SHED_WAIT_S``,
-``TPU_LLM_BROWNOUT_WAIT_S``, ``TPU_LLM_BROWNOUT_MAX_NEW`` and
-``TPU_LLM_BROWNOUT_HOLD_S`` (defaults for the kwargs a caller leaves
-out, with the JAX engine's meanings).
+``TPU_LLM_BROWNOUT_WAIT_S``, ``TPU_LLM_BROWNOUT_MAX_NEW``,
+``TPU_LLM_BROWNOUT_HOLD_S``, ``TPU_LLM_LORA_SLOTS`` and
+``TPU_LLM_LORA_RANK_MAX`` (defaults for the kwargs a caller leaves out,
+with the JAX engine's meanings).
 Any other kwarg, and any of the JAX runtime's engine knobs set to ask for
-a feature the port lacks (replicas, meshes, LoRA, ...), raises
+a feature the port lacks (replicas, meshes, ...), raises
 ``NotImplementedError`` naming it; none is ignored.
 The JAX package's plain-model registry (``register_model`` and its
 dynamic batcher) is not ported.
@@ -51,9 +53,11 @@ _ENGINE_KWARGS = (
     "prefix_cache_mb", "session_mb", "host_cache_mb", "speculative", "spec_draft", "constrained",
     "constrained_grammars", "max_queue", "ttft_deadline_ms", "fair_queuing", "fair_weights", "fair_ledger",
     "preemption", "shed_predicted_wait_s", "brownout_wait_s", "brownout_max_new", "brownout_hold_s",
+    "lora_slots", "lora_rank",
 )
 
-# Overload-control knobs: config key -> (engine kwarg, parser of the value)
+# Overload-control and LoRA knobs: config key -> (engine kwarg, parser of
+# the value)
 _OVERLOAD_KNOBS = {
     "TPU_LLM_FAIR": ("fair_queuing", lambda v: v != "0"),
     "TPU_LLM_PREEMPT": ("preemption", lambda v: v != "0"),
@@ -61,6 +65,8 @@ _OVERLOAD_KNOBS = {
     "TPU_LLM_BROWNOUT_WAIT_S": ("brownout_wait_s", float),
     "TPU_LLM_BROWNOUT_MAX_NEW": ("brownout_max_new", int),
     "TPU_LLM_BROWNOUT_HOLD_S": ("brownout_hold_s", float),
+    "TPU_LLM_LORA_SLOTS": ("lora_slots", int),
+    "TPU_LLM_LORA_RANK_MAX": ("lora_rank", int),
 }
 
 # The JAX runtime's engine knobs that select a feature this port lacks,
@@ -72,8 +78,6 @@ _UNPORTED_KNOBS = {
     "TPU_LLM_KV_BLOCK": (str(KV_BLOCK),),
     "TPU_LLM_STEP_WATCHDOG_S": ("0",),
     "TPU_LLM_NUMERIC_CHECK": ("1",),
-    "TPU_LLM_LORA_SLOTS": ("0",),
-    "TPU_LLM_LORA_RANK_MAX": (),
     "TPU_LLM_FLIGHT_RECORDS": ("0",),
     "TPU_LLM_FLIGHT_REDACT": (),
     "GOFR_BLACKBOX_DIR": (),

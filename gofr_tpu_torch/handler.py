@@ -61,8 +61,9 @@ def llm_request_kwargs(ctx: Context) -> dict:
     builds them: ``priority`` (X-GoFr-Priority), ``client`` (X-GoFr-Client,
     else a hash of X-API-KEY, else the first X-Forwarded-For hop, else the
     peer address without its port), ``session_id`` (X-GoFr-Session) and
-    ``adapter`` (X-GoFr-Adapter; the port's engine refuses a non-empty
-    one). The engine orders its queue by the priority class and the
+    ``adapter`` (X-GoFr-Adapter: a LoRA adapter loaded on the engine; 404
+    when none of that name is resident). Over gRPC the same names arrive
+    as metadata (lowercase) through ``ctx.header``. The engine orders its queue by the priority class and the
     client's fair-share counter, preempts batch requests for interactive
     ones and clamps batch requests under brownout; the session id selects
     the engine's session tier when it has one (``session_mb``)."""

@@ -107,14 +107,30 @@ configuration:
   request still waiting past it (finish reason "shed"), and brownout
   clamps batch-class ``max_new_tokens`` under sustained pressure
   (``OverloadController``). The wait is priced as outstanding tokens
-  (``load_tokens``) over the measured throughput (``_observe_tput``).
+  (``load_tokens``) over the measured throughput (``_observe_tput``);
+- multi-tenant LoRA, off by default as in the JAX engine: ``lora_slots``
+  > 0 (or ``TPU_LLM_LORA_SLOTS``) adds stacked float32 adapter tables
+  for that many adapters of rank up to ``lora_rank``
+  (``TPU_LLM_LORA_RANK_MAX``, default 8) to every layer's params
+  (``lora``), allocated once on the device. ``load_adapter`` writes an
+  adapter's rows into a free gid in place, on the engine stream, so a
+  hot-load captures nothing; ``publish_adapter`` repoints a name at a
+  staged gid while requests in flight finish on the old one, and
+  ``evict_adapter`` unbinds a name (``AdapterPool``: LRU eviction of idle
+  adapters, refcounts, zombies). A request names its adapter
+  (``GenRequest.adapter``); submit pins the gid (``_aid``) and retirement
+  releases it. Each dispatch stages the slots' adapter ids beside the
+  other inputs (``_Inputs``), and every program family adds each row's
+  delta (``models.transformer._lora_mm``; gid 0 adds exact zeros, so base
+  lanes are token-identical to an engine without adapters). Adapted
+  requests never take a prefix hit and never publish to the radix tree.
 
 The pack/meta layouts of the JAX programs are kept: pack [nb, S+3] int32
 = tokens | cursor | n_new | temperature bits; meta [2, nb] int32 = slot
 (``slots`` for inert padding lanes) | finish flag, and [4, nb] in a
 constrained step: + grammar id (-1: none) | start DFA state.
 
-Left out of this slice (queued in ROADMAP.md): LoRA, goodput and the
+Left out of this slice (queued in ROADMAP.md): MoE, goodput and the
 tenant quota gate, flight recorder, KV handoff, the replica fleet (and
 with it the router's retry budget and a fleet-shared ledger), the
 metrics series of speculation, constrained decoding and overload (the
@@ -140,6 +156,7 @@ import torch
 
 from . import resolve_device
 from .kvcache import CacheManager, copy_blocks, gather_blocks_host, gather_slots, scatter_rows
+from .lora import AdapterPool, target_dims, validate_adapter, zero_tables
 from .models.quant import QTensor, is_quantized, quantize_params
 from .models.transformer import decode_chunk_paged, prefill_append, verify_chunk
 from .ops.attention import add_launches, capture_launches
@@ -174,6 +191,23 @@ class EngineOverloaded(RuntimeError):
         super().__init__(message)
         if retry_after is not None:
             self.retry_after = max(0.1, float(retry_after))
+
+
+class UnknownAdapterError(KeyError):
+    """Raised by submit() when ``req.adapter`` names no resident adapter
+    (JAX ``UnknownAdapterError``): 404 at the edge. A KeyError subclass so
+    registry-shaped callers that probe with ``except KeyError`` keep
+    working."""
+
+    status_code = 404
+
+    def __init__(self, name: str, resident=()):
+        super().__init__(name)
+        self.adapter = name
+        self.resident = sorted(resident)
+
+    def __str__(self) -> str:
+        return f"unknown adapter {self.adapter!r}; resident: {self.resident or 'none'}"
 
 
 class RequestFailed(RuntimeError):
@@ -278,8 +312,10 @@ class GenRequest:
     # engine retires the request even while it holds a slot
     # (finish_reason "deadline"). Handlers pass ctx.deadline here.
     deadline: float | None = None
-    # LoRA adapter name: the port has no adapter pool, so submit() refuses
-    # a non-empty name (as the JAX engine does without one).
+    # Multi-tenant LoRA adapter name: the resident adapter whose delta this
+    # request decodes under ("" = the base model). The edge maps
+    # model=<adapter> and X-GoFr-Adapter here; an engine without an
+    # adapter pool (lora_slots=0) refuses a non-empty name.
     adapter: str = ""
     # Grammar-constrained decoding (``structured``): a compiled
     # TokenGrammar. Every sampled token is masked to what the grammar's
@@ -339,6 +375,11 @@ class GenRequest:
         # filter; the start state of the request's first-token mask)
         self._g_id = -1
         self._g_state = 0
+        # multi-tenant LoRA (engine-maintained): the adapter pool gid this
+        # request decodes under and holds a reference to (taken at submit,
+        # kept through a preemption's continuation, dropped at retirement,
+        # which sets it back to 0, the base)
+        self._aid = 0
 
     def _raise_terminal(self) -> None:
         if self.finish_reason == "error":
@@ -404,7 +445,8 @@ class _Inputs:
     """The programs' host inputs in ONE int32 device buffer at a fixed
     address, which every captured graph reads: tables [slots, MB] | live
     [slots] | gids [slots] (each slot's grammar id, -1 unconstrained; read
-    by the constrained families only) | verify pack [slots, ver_width]
+    by the constrained families only) | aids [slots] (each slot's LoRA
+    adapter gid, 0 the base; a LoRA engine's only) | verify pack [slots, ver_width]
     (draft tokens | n_draft | selected, of ``llm.step_v{W}``; empty with
     speculation off) | meta [4, admit_cap] | pack [admit_cap, S_max + 3]
     (a step of nb rows and shape S uses the first 2 nb, or 4 nb for a
@@ -417,13 +459,15 @@ class _Inputs:
     never overwrites pinned memory a queued copy has not read yet."""
 
     def __init__(
-        self, device, slots: int, table_width: int, admit_cap: int, max_shape: int, depth: int, ver_width: int = 0
+        self, device, slots: int, table_width: int, admit_cap: int, max_shape: int, depth: int, ver_width: int = 0,
+        lora: bool = False,
     ):
         self.slots, self.table_width, self.admit_cap = slots, table_width, admit_cap
         self.ver_width = ver_width
         self.o_live = slots * table_width
         self.o_gids = self.o_live + slots
-        self.o_ver = self.o_gids + slots
+        self.o_aids = self.o_gids + slots
+        self.o_ver = self.o_aids + (slots if lora else 0)
         self.o_meta = self.o_ver + slots * ver_width
         self.o_pack = self.o_meta + 4 * admit_cap
         self.o_seed = self.o_pack + admit_cap * (max_shape + 3)
@@ -441,7 +485,10 @@ class _Inputs:
         return self.dev[self.o_live : self.o_gids] != 0
 
     def gids(self) -> torch.Tensor:
-        return self.dev[self.o_gids : self.o_ver]
+        return self.dev[self.o_gids : self.o_aids]
+
+    def aids(self) -> torch.Tensor:
+        return self.dev[self.o_aids : self.o_ver]
 
     def verify(self) -> torch.Tensor:
         """[slots, ver_width]: draft tokens | n_draft | selected."""
@@ -476,15 +523,20 @@ class _Inputs:
         h[self.o_seed :] = seed.reshape(-1)
         self._copy(j, self.o_seed, h.size)
 
-    def write(self, tables: np.ndarray, live: np.ndarray, meta=None, pack=None, verify=None, gids=None) -> None:
+    def write(
+        self, tables: np.ndarray, live: np.ndarray, meta=None, pack=None, verify=None, gids=None, aids=None
+    ) -> None:
         """Stage one dispatch's inputs (meta and pack for a unified step,
         the verify pack for a verify, the grammar ids for a constrained
-        program) and enqueue their copy on the current stream."""
+        program, the slots' adapter ids on a LoRA engine) and enqueue their
+        copy on the current stream."""
         j, h = self._buffer()
         h[: self.o_live] = tables.reshape(-1)
         h[self.o_live : self.o_gids] = live
         if gids is not None:
-            h[self.o_gids : self.o_ver] = gids
+            h[self.o_gids : self.o_aids] = gids
+        if aids is not None:
+            h[self.o_aids : self.o_ver] = aids
         end = self.o_ver
         if verify is not None:
             h[self.o_ver : self.o_meta] = verify.reshape(-1)
@@ -570,7 +622,12 @@ class LLMEngine:
     ``brownout_max_new`` and ``brownout_hold_s``
     (``TPU_LLM_BROWNOUT_WAIT_S``, ``_MAX_NEW``, ``_HOLD_S``, default 2 s)
     clamp batch requests first. ``max_queue``, ``ttft_deadline``,
-    ``ledger`` and ``preemption`` may be changed at runtime."""
+    ``ledger`` and ``preemption`` may be changed at runtime.
+
+    ``lora_slots`` > 0 (``None`` reads ``TPU_LLM_LORA_SLOTS``, default 0)
+    adds an adapter pool of that many gids of rank up to ``lora_rank``
+    (``None`` reads ``TPU_LLM_LORA_RANK_MAX``, default 8); with 0 the
+    engine captures exactly the programs it does without the feature."""
 
     # plain decode chunks bought by one clean-pipe verify attempt whose
     # lanes drafted nothing (speculative mode); then speculation re-probes
@@ -608,6 +665,8 @@ class LLMEngine:
         brownout_wait_s: float | None = None,
         brownout_max_new: int | None = None,
         brownout_hold_s: float | None = None,
+        lora_slots: int | None = None,
+        lora_rank: int | None = None,
     ):
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -615,6 +674,26 @@ class LLMEngine:
         if quantize and not is_quantized(self.params):
             self.params = quantize_params(self.params, cfg.dtype)
         self.quantized = bool(quantize)
+        # multi-tenant LoRA (JAX llm.py:1150-1197): zero float32 tables for
+        # lora_slots + 1 gids (gid 0: the identity) inside params["layers"],
+        # added after quantization (the tables stay float32), allocated
+        # once: every load writes a gid's rows in place, so the captured
+        # programs keep reading the same addresses
+        if lora_slots is None:
+            lora_slots = int(os.environ.get("TPU_LLM_LORA_SLOTS", "0") or 0)
+        if lora_rank is None:
+            lora_rank = int(os.environ.get("TPU_LLM_LORA_RANK_MAX", "8") or 8)
+        self.lora_slots = max(0, int(lora_slots))
+        self.lora_rank = max(1, int(lora_rank))
+        self.adapter_requests = 0  # lifetime adapter-attributed submissions
+        # one gid's rows in pinned host memory (made at the first load on
+        # CUDA, reused), and the event behind the last load's copies
+        self._lora_host: dict[str, torch.Tensor] | None = None
+        self._lora_done = None
+        if self.lora_slots:
+            tables = zero_tables(cfg, self.lora_slots, self.lora_rank, self.device)
+            self.params = {**self.params, "layers": {**self.params["layers"], **tables}}
+            self._lora_pool = AdapterPool(self.lora_slots)
         self.slots = slots
         self.max_seq_len = max_seq_len
         self.prefill_buckets = tuple(sorted(b for b in prefill_buckets if b <= max_seq_len))
@@ -685,7 +764,7 @@ class LLMEngine:
         self._tables_np = np.zeros((slots, self.kv.table_width), np.int32)
         self._in = _Inputs(
             dev, slots, self.kv.table_width, self.admit_cap, self.chunk_shapes[-1], self.lookahead + 1,
-            ver_width=self.spec_draft + 2 if self.speculative else 0,
+            ver_width=self.spec_draft + 2 if self.speculative else 0, lora=bool(self.lora_slots),
         )
         # exact hits' stored logits, staged by a device copy before the hit
         # program's replay reads them (sharing only)
@@ -734,6 +813,9 @@ class LLMEngine:
         self._waiting: deque[GenRequest] = deque()
         self._prefilling: deque[GenRequest] = deque()
         self._lock = threading.RLock()
+        # held by a capture outside the lock (``_g_prepare``) and by an
+        # adapter load, whose copies must not land in a graph being captured
+        self._capture_lock = threading.Lock()
         self._work_cv = threading.Condition(self._lock)  # _inflight appended
         self._kick = threading.Event()  # scheduler wake: submit / entry emitted
         # dispatched programs, oldest first: ("step", fetch, finishes, nb,
@@ -788,13 +870,15 @@ class LLMEngine:
         gates in the JAX order — the predicted-wait shed, the brownout
         clamp of a batch request's REMAINING tokens, the ``max_queue``
         reject (each ``EngineOverloaded`` with a Retry-After) — and only
-        then take references (a grammar's table slot), so a refused submit
-        leaks nothing."""
+        then take references (the adapter's gid, a grammar's table slot), so
+        a refused submit leaks nothing. An adapted request with no client
+        bills the adapter's pseudo-client ``adapter:<name>``."""
         if self._stop:
             raise EngineStoppedError(f"engine stopped ({self.error or 'closed'})")
-        if req.adapter:
+        if req.adapter and not self.lora_slots:
             raise ValueError(
-                f"request names adapter {req.adapter!r} but this engine has no adapter pool"
+                f"request names adapter {req.adapter!r} but this engine has no adapter pool "
+                "(lora_slots=0; set TPU_LLM_LORA_SLOTS)"
             )
         plen = len(req.prompt_tokens)
         if plen == 0:
@@ -857,9 +941,24 @@ class LLMEngine:
                     f"admission queue full ({depth} >= {self.max_queue})",
                     retry_after=wait_s if wait_s else 1.0,
                 )
+        if req.adapter:  # JAX llm.py:2589-2621
+            with self._lock:
+                try:
+                    req._aid = self._lora_pool.acquire(req.adapter)
+                except KeyError:
+                    raise UnknownAdapterError(req.adapter, self._lora_pool.resident()) from None
+                self.adapter_requests += 1
+            if not req.client:
+                req.client = f"adapter:{req.adapter}"
+        else:
+            req._aid = 0
         if req.grammar is not None:
             with self._lock:
-                req._g_id = self._register_grammar(req.grammar)
+                try:
+                    req._g_id = self._register_grammar(req.grammar)
+                except BaseException:
+                    self._lora_release(req)
+                    raise
                 self._g_refs[req._g_id] += 1
                 self.constrained_requests += 1
         if self.ledger is not None:
@@ -907,6 +1006,10 @@ class LLMEngine:
                 "chunk_shapes": self.chunk_shapes,
                 "spec": self._spec_summary(),
                 "constrained": self._constrained_summary(),
+                "adapters": {
+                    **self.adapters(), "requests": self.adapter_requests,
+                    "rank_max": self.lora_rank if self.lora_slots else 0,
+                },
                 "kvcache": self.kv.stats(),
                 "warmup_s": self.warmup_s,
                 "error": self.error,
@@ -1077,11 +1180,15 @@ class LLMEngine:
             if slot is not None and self._slot_req[slot] is r:
                 self._slot_req[slot] = None
             if slot is not None and self.kv.slot_owner(slot) is r:
-                if self.kv.share and r.session_id and reason in ("eos", "length"):
+                if self.kv.share and r.session_id and r._aid == 0 and reason in ("eos", "length"):
                     self._session_pub.append((slot, r))
                 else:
                     self.kv.release_slot(slot, r)
                     self._kv_hi[slot] = 0
+            # the adapter's gid becomes evictable (or a zombie drains);
+            # programs in flight that name it run before any later load's
+            # rows on the engine stream
+            self._lora_release(r)
             r.out.put(None)
 
     def _drain_submits(self) -> None:
@@ -1207,8 +1314,13 @@ class LLMEngine:
                         self._session_prepare(r.session_id)
                     # a constrained request forces a radix miss (JAX
                     # llm.py:5168-5176): an exact hit admits through the
-                    # hit program, which the grammar mask does not ride
-                    plan = self.kv.lookup_seed(r.prompt_tokens) if self.kv.share and r.grammar is None else None
+                    # hit program, which the grammar mask does not ride.
+                    # So does an adapted one: shared blocks hold K/V
+                    # computed under the base wq/wkv, not its deltas
+                    plan = (
+                        self.kv.lookup_seed(r.prompt_tokens)
+                        if self.kv.share and r.grammar is None and r._aid == 0 else None
+                    )
                     r._kv_plan = plan
                     plen, new = len(r.prompt_tokens), r.max_new_tokens - r.emitted
                     if not self.kv.admit_reserve(plen, new, plan):
@@ -1489,8 +1601,8 @@ class LLMEngine:
         and it re-queues as a continuation that re-prefills through the
         unified step and resumes where its stream stands, with its grammar
         reference and DFA state (the step starts a constrained row at
-        ``_g_state``). The tokens computed but not emitted are computed
-        again. Lock held, scheduler thread."""
+        ``_g_state``) and its adapter's gid. The tokens computed but not
+        emitted are computed again. Lock held, scheduler thread."""
         slot = r.slot
         if slot is not None and self._slot_req[slot] is r:
             self._slot_req[slot] = None
@@ -1535,7 +1647,12 @@ class LLMEngine:
         (``llm.kv_seed``), ``logits`` ([1, vocab], a clone the caller made)
         kept for exact hits. ``session=True`` publishes the conversation
         (prompt + emitted tokens but the last, whose row is not written)
-        and pins it to the session id. Lock held."""
+        and pins it to the session id. An adapted request publishes nothing:
+        its rows were computed under its adapter's deltas, and sharing them
+        would seed other tenants (or the base) with them (JAX llm.py:4784).
+        Lock held."""
+        if r._aid != 0:
+            return
         tokens = r.prompt_tokens + (r.history[:-1] if session else [])
         plan = self.kv.publish_plan(slot, tokens, want_tail=True)
         if plan is None:
@@ -2289,8 +2406,9 @@ class LLMEngine:
         t0 = time.perf_counter()
         torch.cuda.empty_cache()  # as each capture does (see _warm)
         before = torch.cuda.memory_reserved(self.device)
-        for name in missing:
-            self._capture(name)
+        with self._capture_lock:
+            for name in missing:
+                self._capture(name)
         torch.cuda.synchronize(self.device)
         if self.g_capture_s is None:
             self.g_capture_s = time.perf_counter() - t0
@@ -2307,10 +2425,139 @@ class LLMEngine:
 
     def _stage(self, use_g: bool, *args, **kw) -> None:
         """Stage one dispatch's inputs (``_Inputs.write``), with the
-        per-slot grammar ids when a constrained program reads them."""
+        per-slot grammar ids when a constrained program reads them and the
+        per-slot adapter ids on a LoRA engine."""
         if use_g:
             kw["gids"] = self._gids_np()
+        if self.lora_slots:
+            kw["aids"] = self._aids_np()
         self._in.write(*args, **kw)
+
+    def _aids_np(self) -> np.ndarray:
+        """Per-slot adapter gids for one dispatch: each occupant's ``_aid``,
+        0 (the base) for an empty slot. Staged with every dispatch, so a
+        program in flight keeps the ids of its own dispatch. Lock held."""
+        aids = np.zeros((self.slots,), np.int32)
+        for i, r in enumerate(self._slot_req):
+            if r is not None:
+                aids[i] = r._aid
+        return aids
+
+    # -- multi-tenant LoRA (JAX llm.py:3284-3420) ----------------------------
+    def _require_lora(self) -> None:
+        if not self.lora_slots:
+            raise ValueError(
+                "engine has no adapter pool (lora_slots=0; set "
+                "TPU_LLM_LORA_SLOTS or pass lora_slots=)"
+            )
+
+    def _lora_release(self, r: GenRequest) -> None:
+        """Drop ``r``'s reference to its adapter's gid, once. Lock held."""
+        if r._aid:
+            self._lora_pool.release(r._aid)
+            r._aid = 0
+
+    def _lora_rows(self, canon: dict) -> list[tuple[torch.Tensor, torch.Tensor]]:
+        """(device table, host rows) for every table of one adapter, padded
+        to the pool's rank: [L, d_in, r_max] for A, [L, r_max, d_out] for
+        B, zeros for the targets the adapter leaves out (so nothing of a
+        gid's previous tenant survives). On CUDA the host rows are the
+        engine's pinned buffers, made at the first load and reused once
+        the last load's copies have run. Loads hold the capture lock, one
+        at a time."""
+        cuda = self.device.type == "cuda"
+        layers = self.params["layers"]
+        if cuda and self._lora_host is None:
+            self._lora_host = {
+                k: torch.empty((t.shape[0],) + tuple(t.shape[2:]), dtype=torch.float32, pin_memory=True)
+                for k, t in layers.items() if k.startswith("lora_")
+            }
+        if self._lora_done is not None:
+            self._lora_done.synchronize()
+        out = []
+        for name in target_dims(self.cfg):
+            pair = canon.get(name)
+            for i, key in enumerate((f"lora_{name}_a", f"lora_{name}_b")):
+                tab = layers[key]
+                rows = self._lora_host[key] if cuda else torch.empty((tab.shape[0],) + tuple(tab.shape[2:]))
+                rows.zero_()
+                if pair is not None:
+                    r = pair[0].shape[2]
+                    (rows[:, :, :r] if i == 0 else rows[:, :r]).copy_(torch.from_numpy(pair[i]))
+                out.append((tab, rows))
+        return out
+
+    def _lora_stage(self, gid: int, rows: list[tuple[torch.Tensor, torch.Tensor]]) -> None:
+        """Write one adapter's rows into table row ``gid`` IN PLACE (JAX
+        ``_lora_stage`` swaps the params dict; the captured programs here
+        hold the tables' addresses): one copy per layer and table, each into
+        a contiguous [d_in, r] or [r, d_out] block, enqueued on the engine
+        stream. Called under the lock that binds the gid, so every dispatch
+        that can name it is enqueued after these copies, and every program
+        in flight that still names the gid for an earlier tenant runs
+        before them. No device memory is allocated."""
+        cuda = self.device.type == "cuda"
+        with torch.cuda.stream(self._stream) if cuda else contextlib.nullcontext():
+            for tab, src in rows:
+                for layer in range(tab.shape[0]):
+                    tab[layer, gid].copy_(src[layer], non_blocking=cuda)
+            if cuda:
+                self._lora_done = torch.cuda.Event()
+                self._lora_done.record()
+
+    def load_adapter(
+        self, name: str, adapter: dict, *, version: str = "v1",
+        alpha: float | None = None, fair_weight: float | None = None,
+    ) -> int:
+        """Validate ``adapter`` against the base config (``lora``:
+        {target: {"a", "b"}} host arrays), bind ``name`` to a pool gid
+        (LRU-evicting an idle resident when full; ``AdapterPoolFull`` when
+        every gid is busy) and write its rows into the device tables in
+        place. Callable while serving: nothing is captured and no device
+        memory is allocated. Returns the gid. ``fair_weight`` sets the
+        FairLedger weight of the adapter's pseudo-client
+        (``adapter:<name>``)."""
+        self._require_lora()
+        canon = validate_adapter(self.cfg, adapter, rank_max=self.lora_rank, alpha=alpha)
+        rank = max((a.shape[2] for a, _ in canon.values()), default=0)
+        with self._capture_lock:
+            rows = self._lora_rows(canon)
+            with self._lock:
+                gid = self._lora_pool.allocate(name, version=version, rank=rank)
+                try:
+                    self._lora_stage(gid, rows)
+                except BaseException:
+                    self._lora_pool.remove(name)
+                    raise
+        if fair_weight is not None and self.ledger is not None:
+            self.ledger.set_weight(f"adapter:{name}", fair_weight)
+        return gid
+
+    def publish_adapter(self, staging: str, name: str) -> int | None:
+        """Atomically repoint ``name`` at the gid staged under ``staging``
+        (the hot-load commit). Requests in flight keep decoding on the OLD
+        gid until they drain (a zombie); new submits resolve to the new
+        one. Returns the previous gid, or None for a first load."""
+        self._require_lora()
+        with self._lock:
+            return self._lora_pool.publish(staging, name)
+
+    def evict_adapter(self, name: str) -> int:
+        """Unbind ``name``. Its gid frees at once when idle, else drains as
+        a zombie while its requests finish; the rows are not zeroed (no
+        lane points at them; the next load overwrites them whole)."""
+        self._require_lora()
+        with self._lock:
+            return self._lora_pool.remove(name)
+
+    def adapters(self) -> dict:
+        """Pool snapshot: resident adapters (gid / version / rank / refs),
+        zombie gids, lifetime evictions and swaps; empty-shaped without a
+        pool."""
+        if not self.lora_slots:
+            return {"slots": 0, "resident": {}, "zombies": [], "evictions": 0, "swaps": 0}
+        with self._lock:
+            return self._lora_pool.snapshot()
 
     def _gids_np(self) -> np.ndarray:
         """Per-slot grammar ids for one dispatch, -1 for an unconstrained
@@ -2361,23 +2608,27 @@ class LLMEngine:
         empty pack — so the warm-up runs PyTorch needs before a capture
         write nothing but the tail, which is restored. A capture failure
         raises: nothing falls back to eager ops. A constrained family's
-        inputs also name no grammar (gids and meta rows -1)."""
+        inputs also name no grammar (gids and meta rows -1), a LoRA
+        engine's no adapter (aids 0)."""
         fn, kind, arg = self._program(name)
         g = name in self._programs_g
         gids = np.full((self.slots,), -1, np.int32) if g else None
+        aids = np.zeros((self.slots,), np.int32) if self.lora_slots else None
         with torch.no_grad(), torch.cuda.stream(self._stream):
             live = np.zeros((self.slots,), bool)
             if kind == "chunk":
-                self._in.write(self._tables_np, live, gids=gids)
+                self._in.write(self._tables_np, live, gids=gids, aids=aids)
             elif kind == "step":
                 shape, nb = arg
                 meta = np.zeros((4 if g else 2, nb), np.int32)
                 meta[0, :] = self.slots
                 meta[2:] = -1
-                self._in.write(self._tables_np, live, meta, np.zeros((nb, shape + 3), np.int32), gids=gids)
+                self._in.write(
+                    self._tables_np, live, meta, np.zeros((nb, shape + 3), np.int32), gids=gids, aids=aids
+                )
             elif kind == "verify":  # no lane selected
                 self._in.write(
-                    self._tables_np, live, verify=np.zeros((self.slots, arg + 1), np.int32), gids=gids
+                    self._tables_np, live, verify=np.zeros((self.slots, arg + 1), np.int32), gids=gids, aids=aids
                 )
             else:
                 self._in.write_seed(self._inert_seed())
@@ -2408,7 +2659,10 @@ class LLMEngine:
         finishing row's first token is masked there and seeds its slot's
         DFA state, and the decode part samples through ``_g_sample`` from
         the slot states, which advance in place. The kept logits stay the
-        raw ones."""
+        raw ones.
+
+        On a LoRA engine every prefill row and decode lane adds its
+        adapter's delta, selected by the staged per-slot ids."""
         dev, cfg, slots, sc = self.device, self.cfg, self.slots, self.pool_scales
         cap = self.kv.capacity
         pack_t, meta_t = self._in.pack(shape, nb), self._in.meta(nb, 4 if g else 2)
@@ -2418,12 +2672,15 @@ class LLMEngine:
         n_new = pack_t[:, shape + 1].contiguous()
         req_temps = pack_t[:, shape + 2].contiguous().view(torch.float32)
         slot_idx, finish = meta_t[0], meta_t[1]
-        tsub = tables[slot_idx.clamp(0, slots - 1).long()]
+        row_slot = slot_idx.clamp(0, slots - 1).long()  # padding lanes (slot_idx = slots) clamp
+        tsub = tables[row_slot]
         sub = gather_slots(
             self.pool.k, self.pool.v, tsub, cursors,
             scales=None if sc is None else (sc[0], sc[1]), dtype=cfg.dtype,
         )
-        logits, sub2 = prefill_append(self.params, cfg, tokens, sub, cursors, n_new)
+        # each packed row's adapter: its slot's staged id (JAX llm.py:1417)
+        aids = self._in.aids()[row_slot] if self.lora_slots else None
+        logits, sub2 = prefill_append(self.params, cfg, tokens, sub, cursors, n_new, aids=aids)
         ar = torch.arange(shape, device=dev)[None, :]
         pos_a = cursors[:, None].long() + ar
         valid_a = (ar < n_new[:, None]) & (pos_a < cap)
@@ -2465,6 +2722,7 @@ class LLMEngine:
             self.params, self.cfg, self._tail, self.pool, self._in.tables(),
             self._active & self._in.live(), self._temps, self._gen, n_steps=k,
             sample_fn=sample_fn, block=self.kv.block, scales=self.pool_scales, sample_state=state,
+            aids=self._in.aids() if self.lora_slots else None,
         )
         self._tail.copy_(out[1])  # the next program reads it at the same address
         if g:
@@ -2530,7 +2788,8 @@ class LLMEngine:
             self.pool.k, self.pool.v, tables, length,
             scales=None if sc is None else (sc[0], sc[1]), dtype=cfg.dtype,
         )
-        logits, nd = verify_chunk(self.params, cfg, toks, dense, length, n_in)
+        aids = self._in.aids() if self.lora_slots else None
+        logits, nd = verify_chunk(self.params, cfg, toks, dense, length, n_in, aids=aids)
         j = torch.arange(Kd + 1, device=self.device)[None, :]
         pos = length[:, None].long() + j
         valid = (j < n_in[:, None]) & (pos < self.kv.capacity)

@@ -19,6 +19,14 @@ to the model dtype by the unembed product and returned as f32; SwiGLU
 a sliding window (Mistral) in every attention mask, and a bias on the
 q/k/v projections (Qwen2, ``qkv_bias``) added in ``_qkv``.
 
+Multi-tenant LoRA (``lora``): a layer that carries stacked adapter tables
+``lora_<name>_a`` [G, d_in, r] / ``lora_<name>_b`` [G, r, d_out] (sliced
+from [L, G, ...]) adds a per-row delta (h @ A[gid]) @ B[gid] to each of
+its six projections, computed in float32 and added in the output dtype
+(``_lora_mm``). Every entry point takes ``aids`` [b], the rows' adapter
+ids (gid 0: the all-zero identity); without tables or ``aids`` no op is
+added.
+
 Weights may be int8 (``models.quant.QTensor`` leaves): as in the JAX
 package, prefill chunks and the full-prompt forward run W8A8 products
 (``qmm_a8``) and the decode chunk weight-only ones (``qmm``); plain
@@ -218,23 +226,27 @@ def params_from_jax(np_tree: dict, cfg: TransformerConfig, device=None) -> dict:
     and layouts. Plain leaves become ``cfg.dtype``; bfloat16 arrays pass
     through float32, which is exact. A quantized tree's ``QTensor(q, s)``
     leaves (any NamedTuple with fields ``q`` and ``s``) become the port's
-    ``QTensor``: ``q`` stays int8, ``s`` goes to ``cfg.dtype``."""
+    ``QTensor``: ``q`` stays int8, ``s`` goes to ``cfg.dtype``. A LoRA
+    engine's tree keeps its adapter tables (``lora_*`` leaves) in float32
+    and its per-slot adapter ids (``aids``) in int32."""
     import numpy as np
 
     dev = resolve_device(device)
 
-    def real(a):
-        return torch.from_numpy(np.array(a, dtype=np.float32)).to(device=dev, dtype=cfg.dtype)
+    def real(a, dtype=cfg.dtype):
+        return torch.from_numpy(np.array(a, dtype=np.float32)).to(device=dev, dtype=dtype)
 
-    def conv(a):
+    def conv(a, key=""):
         if isinstance(a, dict):
-            return {key: conv(val) for key, val in a.items()}
+            return {k: conv(val, k) for k, val in a.items()}
         if getattr(a, "_fields", None) == ("q", "s"):
             q = np.asarray(a.q)
             if q.dtype != np.int8:
                 raise TypeError(f"quantized leaf has q of dtype {q.dtype}, expected int8")
             return QTensor(q=torch.from_numpy(q.copy()).to(dev), s=real(a.s))
-        return real(a)
+        if key == "aids":
+            return torch.from_numpy(np.array(a, dtype=np.int32)).to(dev)
+        return real(a, torch.float32 if key.startswith("lora_") else cfg.dtype)
 
     return conv(np_tree)
 
@@ -255,19 +267,70 @@ def _act(cfg: TransformerConfig, x: torch.Tensor) -> torch.Tensor:
     raise ValueError(f"unknown activation {cfg.act!r}; expected 'gelu' or 'silu'")
 
 
-def _mlp(cfg: TransformerConfig, h: torch.Tensor, lp: dict, mm) -> torch.Tensor:
+def lora_select(params: dict, aids: torch.Tensor | None) -> torch.Tensor | None:
+    """The rows' adapter selector: one-hot [b, G] float32 of ``aids`` [b]
+    over the G gids of the layers' LoRA tables, or None when ``params``
+    carries no tables or no ``aids`` were passed (no op is added then).
+    Made once per program and read by every ``_lora_mm`` in it; an id
+    outside [0, G) selects nothing, as gid 0 does."""
+    if aids is None:
+        return None
+    a = next((w for k, w in params["layers"].items() if k.startswith("lora_") and k.endswith("_a")), None)
+    if a is None:
+        return None
+    G = a.shape[1]
+    return (aids.long()[:, None] == torch.arange(G, device=aids.device)[None, :]).float()
+
+
+def _lora_delta(h: torch.Tensor, lp: dict, name: str, sel: torch.Tensor | None) -> torch.Tensor | None:
+    """Per-row batched LoRA delta (h @ A[gid]) @ B[gid] in float32 [b, s,
+    d_out], or None when this layer carries no tables or ``sel`` is None
+    (JAX ``_lora_delta``). ``sel`` is ``lora_select``'s one-hot [b, G].
+
+    The JAX form gathers each row's pair (``take(a, aids)``: a [rows,
+    d_in, r] and a [rows, r, d_out] copy a call) and runs two batched
+    products. Here the G tables stand side by side: one product [N, d_in]
+    @ [d_in, G r] (A's [G, d_in, r] rows laid out so, one copy), each row
+    keeps its own gid's columns (the others multiplied by exact zeros),
+    and one product [N, G r] @ [G r, d_out] (B as it lies) adds the chosen
+    pair's delta and zeros. Batched products with r = 8 output columns
+    and a long contraction run on one CTA a batch and were 8x slower on
+    an H100 (PERF.md)."""
+    a = lp.get("lora_" + name + "_a")
+    if a is None or sel is None:
+        return None
+    b = lp["lora_" + name + "_b"]
+    G, d_in, r = a.shape
+    rows, s = h.shape[0], h.shape[1]
+    t = h.reshape(-1, d_in).float() @ a.permute(1, 0, 2).reshape(d_in, G * r)
+    t = (t.view(rows, s, G, r) * sel[:, None, :, None]).view(rows * s, G * r)
+    return (t @ b.reshape(G * r, -1)).view(rows, s, -1)
+
+
+def _lora_mm(mm, h: torch.Tensor, lp: dict, name: str, sel: torch.Tensor | None) -> torch.Tensor:
+    """Base projection ``mm(h, lp[name])`` plus the optional per-row
+    adapter delta, added in the product's dtype (JAX ``_lora_mm``)."""
+    out = mm(h, lp[name])
+    d = _lora_delta(h, lp, name, sel)
+    return out if d is None else out + d.to(out.dtype)
+
+
+def _mlp(cfg: TransformerConfig, h: torch.Tensor, lp: dict, mm, sel=None) -> torch.Tensor:
     """Dense gated MLP; the caller adds the residual. ``mm`` is the
-    product (``qmm`` or ``qmm_a8``)."""
-    return mm(_act(cfg, mm(h, lp["w_gate"])) * mm(h, lp["w_up"]), lp["w_down"])
+    product (``qmm`` or ``qmm_a8``); ``sel`` the LoRA selector."""
+    g = _lora_mm(mm, h, lp, "w_gate", sel)
+    u = _lora_mm(mm, h, lp, "w_up", sel)
+    return _lora_mm(mm, _act(cfg, g) * u, lp, "w_down", sel)
 
 
-def _qkv(cfg: TransformerConfig, h: torch.Tensor, lp: dict, positions: torch.Tensor, mm):
-    """Projections (+ the q/k/v bias) + RoPE: q [b, s, hq, hd], k/v [b, s,
-    hkv, hd]. The one bias site: every program (the full-prompt forward,
-    both chunk appends, the decode chunk) projects through here."""
+def _qkv(cfg: TransformerConfig, h: torch.Tensor, lp: dict, positions: torch.Tensor, mm, sel=None):
+    """Projections (+ LoRA deltas, + the q/k/v bias) + RoPE: q [b, s, hq,
+    hd], k/v [b, s, hkv, hd]. The one bias site: every program (the
+    full-prompt forward, both chunk appends, the decode chunk) projects
+    through here."""
     b, s, _ = h.shape
-    q = mm(h, lp["wq"])
-    kv = mm(h, lp["wkv"])
+    q = _lora_mm(mm, h, lp, "wq", sel)
+    kv = _lora_mm(mm, h, lp, "wkv", sel)
     if cfg.qkv_bias:  # Qwen2: the bias rides the flat output, before the reshape
         q = q + lp["bq"].to(q.dtype)
         kv = kv + lp["bkv"].to(kv.dtype)
@@ -279,23 +342,23 @@ def _qkv(cfg: TransformerConfig, h: torch.Tensor, lp: dict, positions: torch.Ten
     return q, k, v.contiguous()
 
 
-def _attn_out(cfg, x, attn, lp, mm):
+def _attn_out(cfg, x, attn, lp, mm, sel=None):
     b, s = attn.shape[:2]
-    return x + mm(attn.reshape(b, s, cfg.n_heads * cfg.head_dim), lp["wo"]).to(x.dtype)
+    return x + _lora_mm(mm, attn.reshape(b, s, cfg.n_heads * cfg.head_dim), lp, "wo", sel).to(x.dtype)
 
 
-def _layer_body(cfg: TransformerConfig, x: torch.Tensor, lp: dict, positions: torch.Tensor):
+def _layer_body(cfg: TransformerConfig, x: torch.Tensor, lp: dict, positions: torch.Tensor, sel=None):
     """One decoder layer on a full prompt (the JAX prefill branch, W8A8
     for int8 weights): returns (x, k, v). Dense causal attention via
     mha_reference."""
     h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-    q, k, v = _qkv(cfg, h, lp, positions, qmm_a8)
+    q, k, v = _qkv(cfg, h, lp, positions, qmm_a8, sel)
     attn = mha_reference(
         q, k, v, causal=True, logit_cap=cfg.attn_logit_cap, window=cfg.sliding_window,
     )
-    x = _attn_out(cfg, x, attn, lp, qmm_a8)
+    x = _attn_out(cfg, x, attn, lp, qmm_a8, sel)
     h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-    return x + _mlp(cfg, h, lp, qmm_a8), k, v
+    return x + _mlp(cfg, h, lp, qmm_a8, sel), k, v
 
 
 def _embed_tokens(params: dict, cfg: TransformerConfig, tokens: torch.Tensor) -> torch.Tensor:
@@ -348,14 +411,16 @@ def transformer_forward(
     positions: torch.Tensor,  # [b, s] int
     *,
     unembed_positions: torch.Tensor | None = None,  # [b] -> logits only there
+    aids: torch.Tensor | None = None,  # [b] per-row adapter ids (LoRA)
 ) -> torch.Tensor:
     """Full-prompt forward, no cache: f32 logits [b, s, vocab], or
     [b, 1, vocab] when ``unembed_positions`` is given. The port's plain
     oracle — it reaches no kernel (int8 weights run W8A8, as the JAX
     prefill branch does)."""
+    sel = lora_select(params, aids)
     x = _embed_tokens(params, cfg, tokens)
     for i in range(cfg.n_layers):
-        x, _k, _v = _layer_body(cfg, x, _layer(params, i), positions)
+        x, _k, _v = _layer_body(cfg, x, _layer(params, i), positions, sel)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if unembed_positions is not None:
         idx = unembed_positions.long()[:, None, None].expand(-1, 1, x.shape[-1])
@@ -378,29 +443,32 @@ def _write_chunk_rows(cache_l, rows, cursors, n_new) -> None:
     torch.where(sel[..., None, None], src.to(cache_l.dtype), cache_l, out=cache_l)
 
 
-def _append_forward(params, cfg, tokens, cache: KVCache, cursors, n_new):
+def _append_forward(params, cfg, tokens, cache: KVCache, cursors, n_new, aids=None):
     """Shared write-then-attend chunk append: write the chunk's K/V rows at
     each row's cursor, attend over all resident keys + the chunk's causal
     triangle, return the final hidden states [b, c, d] and the (k, v)
     stacks, which are ``cache``'s own tensors updated in place. The chunk's
-    own rows are written unquantized; int8 weights run W8A8."""
+    own rows are written unquantized; int8 weights run W8A8. ``aids`` [b]:
+    each packed row's adapter id (explicit, as in JAX: a unified step's
+    rows are not the slots)."""
     b, c = tokens.shape
     positions = cursors.long()[:, None] + torch.arange(c, device=tokens.device)[None, :]
+    sel = lora_select(params, aids)
     x = _embed_tokens(params, cfg, tokens)
     for i in range(cfg.n_layers):
         lp = _layer(params, i)
         kc, vc = cache.k[i], cache.v[i]  # [b, capacity, hkv, hd]
         h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-        q, k_new, v_new = _qkv(cfg, h, lp, positions, qmm_a8)
+        q, k_new, v_new = _qkv(cfg, h, lp, positions, qmm_a8, sel)
         _write_chunk_rows(kc, k_new, cursors, n_new)
         _write_chunk_rows(vc, v_new, cursors, n_new)
         attn = chunk_prefill_attention(
             q.contiguous(), kc, vc, cursors.to(torch.int32),
             logit_cap=cfg.attn_logit_cap, window=cfg.sliding_window,
         )
-        x = _attn_out(cfg, x, attn, lp, qmm_a8)
+        x = _attn_out(cfg, x, attn, lp, qmm_a8, sel)
         h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-        x = x + _mlp(cfg, h, lp, qmm_a8)
+        x = x + _mlp(cfg, h, lp, qmm_a8, sel)
     return x, (cache.k, cache.v)
 
 
@@ -412,6 +480,7 @@ def prefill_append(
     cache: KVCache,  # [L, b, capacity, hkv, hd] slot rows (gathered)
     cursors: torch.Tensor,  # [b] int32 — prompt tokens already resident
     n_new: torch.Tensor,  # [b] int32 — valid tokens in this chunk (<= c)
+    aids: torch.Tensor | None = None,  # [b] per-row adapter ids (LoRA)
 ) -> tuple[torch.Tensor, KVCache]:
     """Append one prefill chunk into a per-slot KV view (the chunked-prefill
     half of the engine's unified step). Rows i >= n_new write nothing.
@@ -419,7 +488,7 @@ def prefill_append(
     k/v written in place and length = cursors + n_new). Rows with
     n_new == 0 return garbage logits."""
     b, c = tokens.shape
-    x, (ks, vs) = _append_forward(params, cfg, tokens, cache, cursors, n_new)
+    x, (ks, vs) = _append_forward(params, cfg, tokens, cache, cursors, n_new, aids)
     last = torch.clamp(n_new.long() - 1, 0, c - 1)
     x_last = torch.gather(x, 1, last[:, None, None].expand(-1, 1, x.shape[-1]))
     logits = _unembed_last(params, cfg, x_last)
@@ -434,6 +503,7 @@ def verify_chunk(
     cache: KVCache,  # [L, b, capacity, hkv, hd] slot rows (gathered)
     cursors: torch.Tensor,  # [b] int32 — tokens already resident
     n_new: torch.Tensor,  # [b] int32 — valid tokens (1 + drafts; <= c)
+    aids: torch.Tensor | None = None,  # [b] per-row adapter ids (LoRA)
 ) -> tuple[torch.Tensor, KVCache]:
     """Score every position of a speculative draft in ONE forward pass:
     the same write-then-attend chunk append as ``prefill_append``, so
@@ -443,7 +513,7 @@ def verify_chunk(
     until the next append overwrites them. Returns (per-position logits
     [b, c, vocab] f32, the cache written in place with length = cursors
     + n_new); positions >= n_new carry garbage logits."""
-    x, (ks, vs) = _append_forward(params, cfg, tokens, cache, cursors, n_new)
+    x, (ks, vs) = _append_forward(params, cfg, tokens, cache, cursors, n_new, aids)
     logits = _unembed(params, cfg, rms_norm(x, params["final_norm"], cfg.norm_eps))
     return logits, KVCache(k=ks, v=vs, length=(cursors + n_new).to(torch.int32))
 
@@ -464,6 +534,7 @@ def decode_chunk_paged(
     block: int,
     scales: torch.Tensor | None = None,  # [2, L, NB, B, hkv] f32 (int8 pool)
     sample_state=None,  # stateful sampler's carried state (see below)
+    aids: torch.Tensor | None = None,  # [b] per-slot adapter ids (LoRA)
 ) -> tuple:
     """``n_steps`` fused decode steps against the BLOCK-PAGED pool.
 
@@ -487,6 +558,8 @@ def decode_chunk_paged(
     generator, state) -> (tokens, state)``, the state threaded from step
     to step (JAX ``sample_state``).
 
+    ``aids`` selects each slot's LoRA adapter (JAX reads ``params["aids"]``).
+
     Returns (tokens [n_steps, b] int32, last [b] int32, pool) [+ the final
     sample state when one was passed]."""
     from ..kvcache.paged import scatter_rows
@@ -503,6 +576,7 @@ def decode_chunk_paged(
     lengths = pool.length
     tok = tokens
     sstate = sample_state
+    sel = lora_select(params, aids)
     out = []
     for k_i in range(K):
         positions = (lengths.long() + k_i)[:, None]  # [b, 1]
@@ -510,7 +584,7 @@ def decode_chunk_paged(
         for i in range(L):
             lp = _layer(params, i)
             h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-            q, k_new, v_new = _qkv(cfg, h, lp, positions, qmm)
+            q, k_new, v_new = _qkv(cfg, h, lp, positions, qmm, sel)
             kb[i, :, k_i] = k_new[:, 0]
             vb[i, :, k_i] = v_new[:, 0]
             attn = paged_chunk_decode_attention(
@@ -519,9 +593,9 @@ def decode_chunk_paged(
                 k_scales=None if scales is None else scales[0, i],
                 v_scales=None if scales is None else scales[1, i],
             )
-            x = _attn_out(cfg, x, attn, lp, qmm)
+            x = _attn_out(cfg, x, attn, lp, qmm, sel)
             h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-            x = x + _mlp(cfg, h, lp, qmm)
+            x = x + _mlp(cfg, h, lp, qmm, sel)
         logits = _unembed_last(params, cfg, x)
         if sample_state is None:
             tok = sample_fn(logits, temps, generator).to(torch.int32)

@@ -6,7 +6,12 @@
 - ``POST /v1/embeddings`` — mean-pooled rows of the model's embedding
   matrix, L2-normalized; accepts a string, a list of strings, or token-id
   lists;
-- ``GET /v1/models`` — the registered models.
+- ``GET /v1/models`` — the registered models, each LoRA adapter resident
+  on one listed beside it (``parent``: its base).
+
+A request selects a LoRA adapter by ``model=<adapter>`` (routed to the
+base model that holds it) or by the ``X-GoFr-Adapter`` header, which wins
+when both are given; answers echo the adapter's name as ``model``.
 
 ``response_format`` ``{"type": "json_schema", "json_schema": {"schema":
 ...}}`` or ``{"type": "regex", "regex": "..."}`` compiles (once per
@@ -17,10 +22,10 @@ decoding: the content is valid under it by construction.
 Errors answer the OpenAI envelope ``{"error": {"message", "type",
 "code"}}``: 400 for a bad body, a prompt that leaves no decode room or a
 ``response_format`` that cannot be compiled (``json_object`` among them,
-as in the JAX edge), 404 for an unknown model, 429 with Retry-After when
-every resident-grammar slot holds live requests, 503 when the engine has
-stopped. Left out: adapter model ids (no LoRA pool) and the usage
-object's chip-time fields.
+as in the JAX edge), 404 for an unknown model or adapter, 429 with
+Retry-After when every resident-grammar slot holds live requests, 503
+when the engine has stopped. Left out: the usage object's chip-time
+fields.
 
 Tokenization: a tokenizer passed in, else the byte-level tokenizer when
 the model's vocabulary admits it (>= 258 ids), else text routes answer
@@ -41,7 +46,7 @@ import numpy as np
 import torch
 
 from .http.responder import Response, StreamingResponse, to_json_bytes
-from .llm import EngineOverloaded, EngineStoppedError, GenRequest
+from .llm import EngineOverloaded, EngineStoppedError, GenRequest, UnknownAdapterError
 from .models.quant import QTensor
 
 __all__ = ["register_openai_routes", "chat_prompt"]
@@ -101,21 +106,32 @@ def register_openai_routes(
     # per-model caches; the embedding matrix is fetched to the host once
     state: dict[str, Any] = {"tok": {}, "vocab": {}, "embed": None}
 
+    def _adapter_names(engine) -> list[str]:
+        """Resident LoRA adapter names on this engine (JAX
+        ``_adapter_names``)."""
+        return sorted(engine.adapters().get("resident", {}))
+
     def _handle(ctx, name: str = ""):
-        """The request's ``model`` field -> (served name, engine). An
-        unknown non-empty name raises KeyError (the OpenAI 404)."""
+        """The request's ``model`` field -> (served name, engine, adapter).
+        An adapter name routes to the base engine that holds it, with the
+        adapter selected; an unknown non-empty name raises KeyError (the
+        OpenAI 404) instead of serving base weights to a tenant that asked
+        for its fine-tune."""
         llms = ctx.container.tpu()._llms
         want = name or default_model
         if want and want in llms:
-            return want, llms[want]
+            return want, llms[want], ""
         if want:
+            for base_name, engine in llms.items():
+                if want in _adapter_names(engine):
+                    return base_name, engine, want
             raise KeyError(
                 f"model {want!r} not found; registered: "
                 f"{sorted(llms) or 'none'}"
             )
         if llms:
             first = next(iter(llms))
-            return first, llms[first]
+            return first, llms[first], ""
         raise KeyError("no LLM registered")
 
     def _tokenizer(name: str, engine):
@@ -171,16 +187,20 @@ def register_openai_routes(
         except JsonSchemaError as e:
             raise _OpenAIReject(_openai_error(400, str(e))) from e
 
-    def _gen_kwargs(ctx, body) -> dict:
+    def _gen_kwargs(ctx, body, adapter: str = "") -> dict:
         from .handler import llm_request_kwargs
 
         kw = llm_request_kwargs(ctx)
         user = body.get("user")
         if user and not kw.get("client"):
             kw["client"] = str(user)
+        # the adapter the model name resolved to; an explicit
+        # X-GoFr-Adapter header (already in kw) wins
+        if adapter and not kw.get("adapter"):
+            kw["adapter"] = adapter
         return kw
 
-    def _submit(ctx, name, engine, body, tok):
+    def _submit(ctx, name, engine, body, tok, adapter: str = ""):
         messages = body.get("messages")
         if not isinstance(messages, list) or not messages:
             raise _OpenAIReject(_openai_error(400, "messages must be a non-empty list"))
@@ -208,7 +228,7 @@ def register_openai_routes(
             temperature=float(body.get("temperature") or 0.0),
             eos_token=eos,
             grammar=grammar,
-            **_gen_kwargs(ctx, body),
+            **_gen_kwargs(ctx, body, adapter),
         )
         try:
             return engine.submit(req), len(toks)
@@ -218,6 +238,8 @@ def register_openai_routes(
             )) from e
         except EngineStoppedError as e:
             raise _OpenAIReject(_openai_error(503, str(e), etype="service_unavailable")) from e
+        except UnknownAdapterError as e:
+            raise _OpenAIReject(_openai_error(404, str(e), etype="not_found_error")) from e
         except ValueError as e:
             raise _OpenAIReject(_openai_error(400, str(e))) from e
 
@@ -231,15 +253,17 @@ def register_openai_routes(
         if not isinstance(body, dict):
             return _openai_error(400, "body must be a JSON object")
         try:
-            name, engine = _handle(ctx, str(body.get("model") or ""))
+            name, engine, adapter = _handle(ctx, str(body.get("model") or ""))
         except KeyError as e:
             return _openai_error(404, str(e), etype="not_found_error")
         tok = _tokenizer(name, engine)
         try:
-            req, n_prompt = _submit(ctx, name, engine, body, tok)
+            req, n_prompt = _submit(ctx, name, engine, body, tok, adapter)
         except _OpenAIReject as e:
             return e.resp
-        base = {"id": f"chatcmpl-{uuid.uuid4().hex[:16]}", "created": int(time.time()), "model": name}
+        # answers echo the model the client selected: the adapter's name
+        # when the request routed through a tenant's fine-tune
+        base = {"id": f"chatcmpl-{uuid.uuid4().hex[:16]}", "created": int(time.time()), "model": adapter or name}
         eos_id = req.eos_token
 
         if body.get("stream"):
@@ -315,7 +339,7 @@ def register_openai_routes(
         if not isinstance(body, dict):
             return _openai_error(400, "body must be a JSON object")
         try:
-            name, engine = _handle(ctx, str(body.get("model") or ""))
+            name, engine, _adapter = _handle(ctx, str(body.get("model") or ""))
         except KeyError as e:
             return _openai_error(404, str(e), etype="not_found_error")
         raw = body.get("input")
@@ -354,10 +378,16 @@ def register_openai_routes(
         }))
 
     def list_models(ctx):
+        llms = ctx.container.tpu()._llms
         data = [
             {"id": name, "object": "model", "created": 0, "owned_by": "gofr_tpu"}
-            for name in ctx.container.tpu()._llms
+            for name in llms
         ]
+        # every resident adapter lists beside its base, as OpenAI lists
+        # fine-tunes: ``parent`` names the base model
+        for name, engine in llms.items():
+            for aname in _adapter_names(engine):
+                data.append({"id": aname, "object": "model", "created": 0, "owned_by": "gofr_tpu", "parent": name})
         return Response(200, [("Content-Type", "application/json")], to_json_bytes({
             "object": "list",
             "data": data,

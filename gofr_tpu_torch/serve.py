@@ -1,7 +1,18 @@
-"""HTTP serving of the Gemma, Llama and Mistral presets through the port
-(counterpart of the HTTP half of examples/grpc-gemma/main.py).
+"""HTTP and gRPC serving of the Gemma, Llama and Mistral presets through
+the port (counterpart of examples/grpc-gemma/main.py).
 
     python -m gofr_tpu_torch.serve
+
+gRPC (JSON over gRPC, ``grpcx``): ``Gemma/Generate`` (unary, the same
+handler as ``POST /generate``, answering its ``data``) and ``Gemma/Stream``
+(server-streaming, one ``{"token": id}`` chunk per token, with ``text``
+when a tokenizer is loaded) on ``GRPC_PORT`` (default 9000), registered
+when ``grpc`` (grpcio) imports; without it the app logs one line and
+serves HTTP alone, unless ``GRPC_PORT`` is set, which then raises. gRPC
+metadata reaches the handlers through ``ctx.header``: ``x-gofr-priority``,
+``x-gofr-client``, ``x-gofr-session`` and ``x-gofr-adapter`` work as the
+HTTP headers do; an overloaded engine answers RESOURCE_EXHAUSTED with a
+``retry-after`` trailer.
 
 Routes: ``POST /generate`` (body ``{"tokens": [...]}`` or ``{"prompt":
 "..."}``; plus ``max_new_tokens``, ``temperature``, ``eos_token``; answers
@@ -29,9 +40,12 @@ without one); ``HTTP_PORT`` (8000), ``REQUEST_TIMEOUT`` (5 s);
 turn on the prefix cache and the ``X-GoFr-Session`` tier, ``TPU_LLM_SPEC=1``
 (with ``TPU_LLM_SPEC_DRAFT``) speculative decoding, and ``TPU_LLM_FAIR``,
 ``TPU_LLM_PREEMPT``, ``TPU_LLM_SHED_WAIT_S`` and ``TPU_LLM_BROWNOUT_*``
-tune overload control (``GPURuntime``). ``X-GoFr-Priority: batch`` and
-``X-GoFr-Client`` reach the engine's queue order and preemption; an
-overloaded engine answers 429 with a Retry-After header.
+tune overload control, and ``TPU_LLM_LORA_SLOTS`` (with
+``TPU_LLM_LORA_RANK_MAX``) gives the engine a LoRA adapter pool
+(``GPURuntime``). ``X-GoFr-Priority: batch`` and ``X-GoFr-Client`` reach
+the engine's queue order and preemption; an overloaded engine answers 429
+with a Retry-After header. ``X-GoFr-Adapter`` (or ``model=<adapter>`` on
+the OpenAI routes) selects a loaded adapter; an unknown one answers 404.
 
 Text: a ``prompt`` is encoded by the loaded tokenizer (eos = its eos, or
 none); with no tokenizer, by ``ByteTokenizer`` when the vocabulary has
@@ -49,6 +63,7 @@ from .app import App, new
 from .config import Config
 from .handler import llm_request_kwargs
 from .http.errors import ErrorInvalidParam, HTTPError
+from .llm import GenRequest
 from .models import TransformerConfig, init_params
 from .models.checkpoint import load_gemma_checkpoint, load_llama_checkpoint, validate_params
 from .models.tokenizer import ByteTokenizer, load_tokenizer
@@ -121,6 +136,7 @@ def build_engine(app: App, params: dict | None = None) -> tuple[TransformerConfi
 
 def build_app(config: Config | None = None, params: dict | None = None) -> App:
     app = new(config=config)
+    grpc_on = _grpc_available(app)  # before the engine: a refusal leaks nothing
     cfg, hf_tok = build_engine(app, params)
     tok = hf_tok if hf_tok is not None else ByteTokenizer(cfg.vocab_size) if cfg.vocab_size >= 258 else None
 
@@ -150,13 +166,50 @@ def build_app(config: Config | None = None, params: dict | None = None) -> App:
             resp["text"] = tok.decode(out)
         return resp
 
+    async def stream(ctx):
+        """Gemma/Stream: one chunk per token. No deadline, unlike generate:
+        REQUEST_TIMEOUT bounds obtaining this generator, never the stream."""
+        body = ctx.bind()
+        toks, eos = request_tokens(body)
+        req = ctx.tpu().llm(MODEL).submit(GenRequest(
+            toks, max_new_tokens=int(body.get("max_new_tokens", 16)),
+            temperature=float(body.get("temperature", 0.0)), eos_token=eos,
+            **llm_request_kwargs(ctx),
+        ))
+        emitted: list[int] = []
+        async for t in req.astream():
+            chunk = {"token": t}
+            if hf_tok is not None:
+                # incremental text: all tokens so far minus the prefix
+                prev = hf_tok.decode(emitted)
+                emitted.append(t)
+                chunk["text"] = hf_tok.decode(emitted)[len(prev):]
+            yield chunk
+
     def engine_stats(ctx):
         return ctx.tpu().llm(MODEL).stats()
 
+    if grpc_on:
+        app.grpc_unary("Gemma", "Generate", generate)
+        app.grpc_server_stream("Gemma", "Stream", stream)
     app.post("/generate", generate)
     app.get("/stats", engine_stats)
     register_openai_routes(app, model=MODEL, tokenizer=tok)
     return app
+
+
+def _grpc_available(app: App) -> bool:
+    """Whether the gRPC routes can be served: ``grpc`` imports. Without it
+    the app logs that gRPC is off and serves HTTP alone; a ``GRPC_PORT``
+    set explicitly asks for gRPC, so its absence then raises."""
+    try:
+        import grpc  # noqa: F401
+    except ImportError as e:
+        if app.config.get("GRPC_PORT"):
+            raise RuntimeError(f"GRPC_PORT is set but grpc (grpcio) cannot be imported: {e}") from e
+        app.logger.info("gRPC off: grpc (grpcio) is not installed; serving HTTP only")
+        return False
+    return True
 
 
 def main() -> None:

@@ -559,3 +559,74 @@ class TestPrefixOnCard:
         finally:
             plain.close()
             shared.close()
+
+
+@pytest.mark.cuda
+class TestLoraOnCard:
+    """A LoRA engine's captured programs on the card: every family's replay
+    bitwise its eager program with mixed adapter ids live (the step's
+    prefill rows gather their slots' ids; padding lanes clamp), the same
+    families as without the pool, and a hot-load that writes a gid's rows
+    in place: the graphs keep reading the same table addresses, nothing is
+    captured, and the adapter's tokens come out."""
+
+    @staticmethod
+    def _adapters(cfg, cuda):
+        from gofr_tpu_torch.lora import init_adapter
+
+        g = torch.Generator(device=cuda).manual_seed(3)
+        return (init_adapter(g, cfg, 8, scale=0.5), init_adapter(g, cfg, 4, scale=0.5),
+                init_adapter(g, cfg, 8, scale=0.5, targets=("wq", "wkv", "wo")))
+
+    @pytest.mark.parametrize("mode", ["f32", "bf16", "int8"])
+    def test_families_replay_equal_eager_with_mixed_aids(self, cuda, mode):
+        from chip_smoke import check_family
+
+        plain = _tiny_engine(cuda, mode, speculative=True)
+        names = sorted(plain.families)
+        plain.close()
+        eng = _tiny_engine(cuda, mode, speculative=True, lora_slots=3)
+        try:
+            assert sorted(eng.families) == names
+            for i, ad in enumerate(self._adapters(eng.cfg, cuda)):
+                eng.load_adapter(f"t{i}", ad)
+            for i, name in enumerate(eng.families):
+                r = check_family(eng, name, seed=i, replays=2)
+                assert r["eager_equal"], (name, r["state_equal"])
+                assert r["launches"] == {k: 2 * n for k, n in r["captured"].items()}, name
+        finally:
+            eng.close()
+
+    def test_hot_load_in_place_keeps_graph_addresses(self, cuda):
+        """Loads, an eviction and a publish after warmup: the tables keep
+        their addresses, the families and memory_reserved are unchanged, and
+        the adapted tokens equal those of an engine that loaded the same
+        adapter before capturing anything."""
+        from gofr_tpu_torch.llm import GenRequest
+
+        eng = _tiny_engine(cuda, "f32", lora_slots=2)
+        lazy = _tiny_engine(cuda, "f32", lora_slots=2, warmup=False, lookahead=1)
+        try:
+            a, b, c = self._adapters(eng.cfg, cuda)
+            ptrs = {k: v.data_ptr() for k, v in eng.params["layers"].items() if k.startswith("lora_")}
+            fams = dict(eng.families)
+            torch.cuda.synchronize()
+            reserved = torch.cuda.memory_reserved()
+            eng.load_adapter("a", a)
+            eng.load_adapter("b", b)
+            eng.load_adapter("c", c)  # evicts the LRU idle adapter "a"
+            eng.load_adapter("b@v2", a, version="v2")  # evicts "b"... then publish over it
+            assert sorted(eng.adapters()["resident"]) == ["b@v2", "c"]
+            eng.publish_adapter("b@v2", "b")
+            torch.cuda.synchronize()
+            assert {k: v.data_ptr() for k, v in eng.params["layers"].items() if k.startswith("lora_")} == ptrs
+            assert eng.families == fams and torch.cuda.memory_reserved() == reserved
+            lazy.load_adapter("b", a)
+            lazy.load_adapter("c", c)
+            for prompt, name in (([1, 2, 3], "b"), (list(range(5, 25)), "c"), (list(range(5, 25)), "")):
+                want = lazy.submit(GenRequest(prompt, max_new_tokens=19, adapter=name)).tokens(timeout=300)
+                assert eng.submit(GenRequest(prompt, max_new_tokens=19, adapter=name)).tokens(timeout=300) == want
+            assert eng.families == fams
+        finally:
+            eng.close()
+            lazy.close()

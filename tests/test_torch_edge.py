@@ -268,7 +268,7 @@ def test_register_llm_refuses_unported(weights):
 
     cfg = TT.TransformerConfig.tiny()
     rt = GPURuntime(new_mock_config({"TORCH_DEVICE": "cpu"}))
-    for kw in ({"mesh": object()}, {"replicas": 2}, {"lora_slots": 2}, {"kv_paged": False}):
+    for kw in ({"mesh": object()}, {"replicas": 2}, {"tp_overlap": True}, {"kv_paged": False}):
         with pytest.raises(NotImplementedError, match=next(iter(kw))):
             rt.register_llm("m", cfg, tp, **kw)
     # grammar-constrained decoding is ported: its knobs build an engine
@@ -281,9 +281,21 @@ def test_register_llm_refuses_unported(weights):
             assert eng.constrained is on and eng._g_cap == 3 and bool(eng._programs_g) is on
         finally:
             eng.close()
-    for knob in ("TPU_LLM_LORA_SLOTS", "TPU_LLM_TP", "TPU_LLM_DISAGG"):
+    for knob in ("TPU_LLM_FLIGHT_RECORDS", "TPU_LLM_TP", "TPU_LLM_DISAGG"):
         with pytest.raises(NotImplementedError, match=knob):
             GPURuntime(new_mock_config({knob: "2"})).register_llm("m", cfg, tp, device="cpu")
+    # the LoRA pool is ported: its kwargs and knobs (defaults for kwargs
+    # left out) build an engine with an adapter pool
+    for knobs, kw, slots, rank in (({"TPU_LLM_LORA_SLOTS": "3", "TPU_LLM_LORA_RANK_MAX": "4"}, {}, 3, 4),
+                                   ({"TPU_LLM_LORA_SLOTS": "3"}, {"lora_slots": 2}, 2, 8)):
+        eng = GPURuntime(new_mock_config(knobs)).register_llm("m", cfg, tp, device="cpu", slots=2,
+                                                               max_seq_len=64, **kw)
+        try:
+            st = eng.stats()["adapters"]
+            assert (st["slots"], st["rank_max"]) == (slots, rank)
+            assert eng.params["layers"]["lora_wq_a"].shape == (cfg.n_layers, slots + 1, cfg.d_model, rank)
+        finally:
+            eng.close()
     # the prefix cache and the session tier are ported: their knobs build an
     # engine with a radix (and, for sessions, a host tier of TPU_LLM_HOST_CACHE_MB)
     for knob, value in (("TPU_LLM_SESSION_MB", "64"), ("TPU_LLM_PREFIX_CACHE_MB", "8")):
@@ -393,18 +405,28 @@ def test_overload_answers_429_with_retry_after(apps, path, cause):
     """A full queue and a predicted-wait shed answer 429 with a Retry-After
     header on both apps; the port's carries its predicted wait past the
     threshold (10 s - 1 s). Once the pressure is gone the queued request
-    is served. (The JAX runtime's engine is a replica fleet, whose own
-    admission serves the queued request meanwhile: its wait is not pinned.)"""
+    is served.
+
+    The pressure is staged so that no engine thread can move it: the
+    collector's throughput EMA (``_observe_tput``) is frozen, else a
+    program still in flight rewrites the staged ``_tput_ema``; and the JAX
+    engine, which serves its queued request meanwhile whatever ``_admit``
+    is (load 20 -> 0 and the EMA rewritten within 0.5 s on the CPU), is
+    priced on the load it had when the pressure was staged."""
     answers, queued = [], []
     for app in apps:
         eng = _raw_engine(app)
         eng._admit = lambda: False  # the queue only grows
+        eng._observe_tput = lambda tokens, dt: None
         try:
             if cause == "max_queue":
                 eng.max_queue = 0
             else:
                 queued.append(eng.submit(type(eng).submit.__globals__["GenRequest"]([1, 2, 3], max_new_tokens=17)))
-                eng._tput_ema = eng.load_tokens() / 10.0  # a 10 s predicted wait
+                load = eng.load_tokens()
+                if app is apps[0]:
+                    eng.load_tokens = lambda: load
+                eng._tput_ema = load / 10.0  # a 10 s predicted wait
                 eng.overload.shed_wait_s = 1.0
             status, headers, body = _call_h(app, "POST", path, OVERLOAD_BODIES[path])
             answers.append((status, headers.get("Retry-After")))
@@ -412,7 +434,8 @@ def test_overload_answers_429_with_retry_after(apps, path, cause):
             eng.max_queue = None
             eng.overload.shed_wait_s = 0.0
             eng._tput_ema = None
-            del eng._admit
+            eng.__dict__.pop("load_tokens", None)
+            del eng._admit, eng._observe_tput
     (js, jra), (ps, pra) = answers
     assert js == ps == 429 and int(jra) >= 1, answers
     assert pra == ("9" if cause == "predicted_wait" else "1"), answers
@@ -499,3 +522,92 @@ def test_register_llm_overload_kwargs_and_knobs(weights):
     with pytest.raises(NotImplementedError, match="TPU_LLM_TENANT_QUOTA_TOK_S"):
         GPURuntime(new_mock_config({"TORCH_DEVICE": "cpu", "TPU_LLM_TENANT_QUOTA_TOK_S": "acme=100"})).register_llm(
             "m", cfg, tp, slots=2, max_seq_len=64)
+
+
+# -- LoRA adapters at the edge: X-GoFr-Adapter, model=<adapter>, /v1/models ----
+
+
+@pytest.fixture(scope="module")
+def lora_apps(weights):
+    """Both apps over engines with a LoRA pool of 2 and the same adapter
+    ("tenant", drawn by gofr_tpu.lora.init_adapter) loaded."""
+    from gofr_tpu import lora as JL
+
+    jcfg, jp, tp = weights
+    adapter = jax.tree.map(np.asarray, JL.init_adapter(jax.random.PRNGKey(7), jcfg, rank=4, scale=1.0))
+    example = _example_module()
+    japp = gofr_tpu.new(config=jax_mock_config({**COMMON, "METRICS_PORT": "0", "TRACE_EXPORTER": "none"}))
+    japp.container.tpu().register_llm(
+        "gemma", jcfg, jp, warmup=False, kv_paged=True, lora_slots=2,
+        slots=SLOTS, max_seq_len=MAX_SEQ, prefill_buckets=(16, 64, 128),
+    )
+    japp.post("/generate", example.generate)
+    jax_openai_routes(japp, model="gemma", tokenizer=JByteTokenizer(jcfg.vocab_size))
+    papp = serve.build_app(new_mock_config({**PORT_CONFIG, "TPU_LLM_LORA_SLOTS": "2"}), params=tp)
+    for app in (japp, papp):
+        _raw_engine(app).load_adapter("tenant", adapter)
+    threads = [japp.run_in_background(), papp.run_in_background()]
+    yield japp, papp
+    for app, th in zip((japp, papp), threads):
+        app.shutdown()
+        th.join(timeout=10)
+        assert not th.is_alive()
+
+
+CHAT = {"messages": [{"role": "user", "content": "hello"}], "max_tokens": 8}
+
+
+def _answers(apps, method, path, body=None, headers=None):
+    out = []
+    for app in apps:
+        status, raw = _call(app, method, path, body, headers)
+        out.append((status, json.loads(raw)))
+    return out
+
+
+@pytest.mark.parametrize("path", ["/generate", "/v1/chat/completions"])
+def test_adapter_header_same_answers(lora_apps, path):
+    """X-GoFr-Adapter selects the adapter on both apps: the same tokens,
+    which differ from the base's."""
+    body = {"tokens": _prompt(31, 9), "max_new_tokens": 10} if path == "/generate" else {"model": "gemma", **CHAT}
+    (js, j), (ps, p) = _answers(lora_apps, "POST", path, body, {"X-GoFr-Adapter": "tenant"})
+    (_bs, jb), (_pbs, pb) = _answers(lora_apps, "POST", path, body)
+    assert js == ps in (200, 201) and _strip(p) == _strip(j)
+    assert _strip(pb) == _strip(jb) and _strip(p) != _strip(pb)
+    if path == "/v1/chat/completions":
+        assert p["model"] == "gemma"  # selected by header: the model field named the base
+
+
+def test_adapter_model_name_same_answers(lora_apps):
+    """model=<adapter> routes to its base with the adapter selected, and
+    the answer echoes the adapter's name, plain and as SSE; the explicit
+    header wins over the model name."""
+    (js, j), (ps, p) = _answers(lora_apps, "POST", "/v1/chat/completions", {"model": "tenant", **CHAT})
+    assert js == ps == 200 and _strip(p) == _strip(j) and p["model"] == "tenant"
+    (_s, by_header) = _answers(lora_apps, "POST", "/v1/chat/completions", {"model": "gemma", **CHAT},
+                               {"X-GoFr-Adapter": "tenant"})[1]
+    assert by_header["choices"] == p["choices"]
+    (js, jb), (ps, pb) = _both(lora_apps, "POST", "/v1/chat/completions", {"model": "tenant", **CHAT, "stream": True})
+    assert js == ps == 200 and _sse_events(pb) == _sse_events(jb)
+    assert _sse_events(pb)[0]["model"] == "tenant"
+
+
+def test_models_list_adapters_beside_base(lora_apps):
+    (js, j), (ps, p) = _answers(lora_apps, "GET", "/v1/models")
+    assert js == ps == 200 and p == j
+    assert [(m["id"], m.get("parent")) for m in p["data"]] == [("gemma", None), ("tenant", "gemma")]
+
+
+@pytest.mark.parametrize("how", ["generate_header", "chat_header", "chat_model"])
+def test_unknown_adapter_same_status(lora_apps, how):
+    """An adapter nobody loaded answers 404 on both apps."""
+    if how == "generate_header":
+        args = ("/generate", {"tokens": [1, 2, 3], "max_new_tokens": 4}, {"X-GoFr-Adapter": "ghost"})
+    elif how == "chat_header":
+        args = ("/v1/chat/completions", CHAT, {"X-GoFr-Adapter": "ghost"})
+    else:
+        args = ("/v1/chat/completions", {"model": "ghost", **CHAT}, None)
+    (js, j), (ps, p) = _answers(lora_apps, "POST", *args)
+    assert js == ps == 404, (j, p)
+    if how != "generate_header":
+        assert p == j

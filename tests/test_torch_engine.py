@@ -4,6 +4,7 @@ decode sharing steps, plus the port's import guard."""
 
 import ast
 import pathlib
+import threading
 import time
 
 import jax
@@ -142,8 +143,9 @@ def test_port_imports_nothing_of_jax():
     files = sorted((ROOT / "gofr_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 5
     # every subpackage is walked, the copied host modules too
-    for sub in ("resilience", "structured", "spec", "kvcache", "datasource/gpu"):
+    for sub in ("resilience", "structured", "spec", "kvcache", "datasource/gpu", "lora"):
         assert any(f.parent == ROOT / "gofr_tpu_torch" / sub for f in files), sub
+    assert ROOT / "gofr_tpu_torch" / "grpcx.py" in files
     bad = []
     for f in files:
         for node in ast.walk(ast.parse(f.read_text(), filename=str(f))):
@@ -269,16 +271,35 @@ def test_identity_fields_change_nothing(engines):
 
 
 def test_stream_close_cancels_as_disconnect(engines):
+    """Closing the stream mid-way retires the request as "disconnect".
+    The collector is held once the first tokens are out, so the request
+    cannot end by length before the close reaches the engine (a test
+    thread descheduled for a second on a loaded CPU let the engine emit
+    all 39 tokens first)."""
     _ref, port = engines
     (prompt,) = _prompts(23, (9,))
-    req = port.submit(GenRequest(prompt, max_new_tokens=40))
-    it = req.stream(timeout=30)
-    next(it)
-    before = port.stats()["disconnect_cancels"]
-    it.close()  # the consumer goes away mid-stream
-    t0 = time.perf_counter()
-    while req.finish_reason is None and time.perf_counter() - t0 < 3:
-        time.sleep(0.005)
+    req = GenRequest(prompt, max_new_tokens=40)
+    hold = threading.Event()
+    process = port._process_entry
+
+    def held(entry):
+        if req.emitted:  # the first tokens are out: hold every later program
+            hold.wait(timeout=30)
+        process(entry)
+
+    port._process_entry = held
+    try:
+        port.submit(req)
+        it = req.stream(timeout=30)
+        next(it)
+        before = port.stats()["disconnect_cancels"]
+        it.close()  # the consumer goes away mid-stream
+        t0 = time.perf_counter()
+        while req.finish_reason is None and time.perf_counter() - t0 < 3:
+            time.sleep(0.005)
+    finally:
+        hold.set()
+        del port._process_entry
     assert req.finish_reason == "disconnect"
     assert port.stats()["disconnect_cancels"] == before + 1
 
