@@ -1,6 +1,6 @@
 """GPU smoke run of the PyTorch/CUDA port (gofr_tpu_torch) on one card.
 
-    python3 chip_smoke.py [--parent TREE]
+    python3 chip_smoke.py [--parent TREE] [--only families|moe]
 
 Phases, each raising on failure:
 
@@ -142,14 +142,15 @@ Phases, each raising on failure:
    spec-off tokens, near-ties exempt; constrained and unconstrained
    acceptance) and an int8 KV engine with 2 constrained requests;
 13. families — the JAX package's other dense presets at their published
-   widths and depths, random weights from the seed (untied heads where
+   widths and half their published depths (16 of 32 layers, 14 of 28),
+   random weights from the seed (untied heads where
    the family publishes one), one model at a time, each freed before the
    next: Llama-3-8B, Mistral-7B, Qwen2-7B (q/k/v bias, a GQA group of 7)
    and Gemma-7B (16 KV heads at head_dim 256). For each: an engine at the
    defaults (warmup, every family's replay bitwise its
-   eager program), the burst (three times at lookahead 3 and once at 1
-   for Llama-3-8B, once for the others) plus one profiled, every token
-   through the replay gate, its logit drift. Llama-3-8B also with
+   eager program), the burst once at lookahead 3, every token through
+   the replay gate, its logit drift (the moe phase profiles the large
+   model's burst). Llama-3-8B also with
    kv_int8=True, quantize=True (the int8 gate). Mistral-7B also its
    window at full width: an engine of 4 slots at max_seq_len 4608
    serving 4 prompts of 4,160-4,400 tokens (every decode band starting
@@ -159,12 +160,36 @@ Phases, each raising on failure:
    load_llama_checkpoint, every leaf held bitwise against its source,
    and the directory removed. Both kernels (and the int8 one for the
    int8 engine) must launch in every model's burst;
-14. report — a "kernels" JSON line (launches on the engine phase's main
+14. moe — mixture-of-experts serving at Mixtral-8x7B's widths
+   (mistralai/Mixtral-8x7B-v0.1: d 4096, 32/8 heads at head_dim 128,
+   8 experts of d_ff 14,336, top 2, vocab 32,000, rope theta 1e6, no
+   window) at 16 of its 32 layers (the bf16 weights of all 32 do not fit
+   the card), under the JAX package's routing (top-2 of a full softmax
+   not renormalised, capacity factor 1.25), random bf16 weights from the
+   seed, untied head; the config's fields checked against constants
+   here. An engine at the defaults: its families held bitwise against
+   their eager programs, the burst three times at lookahead 3 and once
+   at 1, the device ms of llm.decode_chunk8 and the widest step, one
+   profiled burst; flash and the bf16 paged kernel must launch in every
+   burst. A gate engine on the same weights at capacity 4.0 (C = T:
+   nothing drops, so the plain forward of one prompt routes as the
+   served programs do): one burst, every token through the replay gate,
+   recording the rows entering every layer's MoE FFN. On those rows: the
+   share of (row, slot) pairs past capacity 1.25 at decode T = 32 and
+   prefill T = 256 in every layer, and at layer 0 the served moe_ffn
+   (moe_mlp, the programs' call) against its plain form (2e-2), its time
+   against the plain form's and the bound. Then the tree quantized (matrix by matrix) and the bf16
+   one freed, and an int8 engine (quantize, kv_int8) at capacity 4.0,
+   its families captured by a first pass of the 4 requests of 16 tokens,
+   the second pass timed and through the int8 gate, the int8 paged
+   kernel launched, one layer's dequantization of its int8 stacks timed;
+15. report — a "kernels" JSON line (launches on the engine phase's main
    path, in the prefix phases as "prefix_launches", in the spec phases as
    "spec_launches", in the structured phase as "structured_launches", in
    the overload phase as "overload_launches", in the lora phase as
    "lora_launches" and in the families phase's
-   first burst of each engine as "families_launches"), then the last line
+   first burst of each engine as "families_launches", in the moe phase's
+   first burst and its int8 run as "moe_launches"), then the last line
    {"ok": true, "device": {...}}.
 
 Imports nothing of JAX and nothing of the JAX package. Exits non-zero,
@@ -207,8 +232,10 @@ from gofr_tpu_torch.models import (
     init_params,
     prefill_append,
     qmm,
+    quantize_params,
     transformer_forward,
 )
+from gofr_tpu_torch.models import moe as TM
 from gofr_tpu_torch.models import transformer as T
 from gofr_tpu_torch.models.checkpoint import load_llama_checkpoint, validate_params
 from gofr_tpu_torch.models.tokenizer import ByteTokenizer
@@ -2814,10 +2841,12 @@ def phase_edge(dev: dict, seed: int, cfg: TransformerConfig, params: dict, engin
 
 
 # The families phase: the JAX package's other dense presets at their
-# published widths and depths, random weights from the seed (the untied
+# published widths and half their published depths (the moe phase's time
+# came out of this phase's), random weights from the seed (the untied
 # families with a random lm_head, as they are published), one model at a
 # time on the card.
 FAMILY_MODELS = ("llama3_8b", "mistral_7b", "qwen2_7b", "gemma_7b")
+FAMILY_LAYERS = {"llama3_8b": 16, "mistral_7b": 16, "qwen2_7b": 14, "gemma_7b": 14}
 FAMILY_UNTIED = ("llama3_8b", "mistral_7b", "qwen2_7b")
 WINDOW_SLOTS, WINDOW_SEQ, WINDOW_NEW = 4, 4608, 64  # Mistral's windowed engine
 WINDOW_PROMPTS = (4160, 4240, 4320, 4400)  # every decode band starts above 0
@@ -2825,7 +2854,7 @@ KERNEL_COUNTERS = ("flash_attention", "paged_decode_partials", "paged_decode_par
 
 
 def family_weights(name: str, seed: int) -> tuple[TransformerConfig, dict]:
-    cfg = getattr(TransformerConfig, name)()
+    cfg = dataclasses.replace(getattr(TransformerConfig, name)(), n_layers=FAMILY_LAYERS[name])
     g = torch.Generator(device="cuda").manual_seed(seed)
     t0 = time.perf_counter()
     params = init_params(cfg, g, "cuda")
@@ -2835,7 +2864,7 @@ def family_weights(name: str, seed: int) -> tuple[TransformerConfig, dict]:
         del head
     torch.cuda.synchronize()
     nbytes = _tensor_bytes(params)
-    print(f"families {name}: {nbytes / 2e9:.3f} B params bf16 ({nbytes} bytes, "
+    print(f"families {name} ({cfg.n_layers} layers): {nbytes / 2e9:.3f} B params bf16 ({nbytes} bytes, "
           f"{'untied' if 'unembed' in params else 'tied'}) in {time.perf_counter() - t0:.1f}s")
     return cfg, params
 
@@ -2935,13 +2964,10 @@ def _family_kernels(dev: dict, name: str, cfg: TransformerConfig, seed: int) -> 
         paged_case(f"{name} paged window", 4, WINDOW_SEQ // 16, [4200, 4400, 4500, 4608], w)
 
 
-def _family_engine(dev: dict, label: str, cfg, params, seed: int, lookaheads, gap: float, profile: bool = False,
-                   **kw) -> dict:
+def _family_engine(dev: dict, label: str, cfg, params, seed: int, lookaheads, gap: float, **kw) -> dict:
     """One engine over a family's weights at the engine defaults (plus
     ``kw``): its warmup and families checked, the burst at each of
-    ``lookaheads`` (and one more profiled when asked: the profiler's
-    host-side pass over ~500,000 kernel records takes about a minute),
-    every token through the replay gate
+    ``lookaheads``, every token through the replay gate
     (against the engine's own params: int8 when it quantized them; at most
     1 in 8 exempt at the int8 gap)."""
     clock = {}
@@ -2956,8 +2982,6 @@ def _family_engine(dev: dict, label: str, cfg, params, seed: int, lookaheads, ga
         _plens, prompts = _burst_prompts(cfg, seed)
         runs = _bursts(f"{label} ", eng, prompts, 32, KERNEL_COUNTERS, lookaheads)
         clock["bursts"] = time.perf_counter() - t0 - sum(clock.values())
-        prof = _profile(lambda: _serve(eng, prompts, 32), label=f"{label} ") if profile else {"idle": None, "groups": {}}
-        clock["profile"] = time.perf_counter() - t0 - sum(clock.values())
         gate_params = eng.params
         drift = (_int8_path_drift(cfg, gate_params, prompts[6], eng.kv.capacity) if eng.pool_scales is not None
                  else _chunked_drift(gate_params, cfg, prompts[6], eng.kv.capacity))
@@ -2987,15 +3011,13 @@ def _family_engine(dev: dict, label: str, cfg, params, seed: int, lookaheads, ga
         "tok_s": [r["tok_s"] for r in runs], "ttft_p50_s": [r["ttft_p50_s"] for r in runs],
         "ttft_max_s": [r["ttft_max_s"] for r in runs], "programs": [r["chunks"] for r in runs],
         "steps": [r["steps"] for r in runs], "launches": first["launches"], "warmup_s": warm["warmup_s"],
-        "reserved_growth": warm["reserved_after"] - warm["reserved_before"], "idle": prof["idle"],
-        "groups": prof["groups"], "tokens_matched": checked, "tokens_exempt": exempt, "drift": drift,
+        "reserved_growth": warm["reserved_after"] - warm["reserved_before"], "tokens_matched": checked, "tokens_exempt": exempt, "drift": drift,
         "near_ties": stats["near"], "exempt_past_bf16_gap": stats["wide"], "seconds": clock,
     }
-    idle = "not measured" if prof["idle"] is None else f"{100 * prof['idle']:.1f}%"
     print(f"families {label} on {dev['smi']}: tok/s {', '.join(f'{x:.1f}' for x in out['tok_s'])} (lookahead "
           f"{', '.join(str(r['lookahead']) for r in runs)}); ttft p50 {first['ttft_p50_s']:.3f}s max "
           f"{first['ttft_max_s']:.3f}s; programs {out['programs']} (unified steps {out['steps']}); warmup_s "
-          f"{warm['warmup_s']:.3f}; memory_reserved +{out['reserved_growth']}; idle {idle}; "
+          f"{warm['warmup_s']:.3f}; memory_reserved +{out['reserved_growth']}; "
           f"logit drift {drift:.4f}; {checked} tokens matched, {exempt} exempt (gap {gap}; {stats['wide']} with "
           f"a gap >= {TOKEN_GAP}; {stats['near']} of {checked + exempt} positions have a plain top-2 gap < "
           f"{TOKEN_GAP}); launches in burst 1 {first['launches']}; seconds "
@@ -3158,8 +3180,7 @@ def phase_families(dev: dict, seed: int) -> dict:
     for name in FAMILY_MODELS:
         t0 = time.perf_counter()
         cfg, params = family_weights(name, seed)
-        la = (3, 3, 3, 1) if name == "llama3_8b" else (3,)
-        out["runs"][name] = _family_engine(dev, name, cfg, params, seed, la, TOKEN_GAP, profile=name == "llama3_8b")
+        out["runs"][name] = _family_engine(dev, name, cfg, params, seed, (3,), TOKEN_GAP)
         if name == "llama3_8b":
             out["runs"][f"{name} int8"] = _family_engine(
                 dev, f"{name} int8", cfg, params, seed, (3,), INT8_TOKEN_GAP, kv_int8=True, quantize=True,
@@ -3182,11 +3203,270 @@ def phase_families(dev: dict, seed: int) -> dict:
     return out
 
 
+# The moe phase: Mixtral-8x7B's widths (mistralai/Mixtral-8x7B-v0.1's
+# config.json: 8 local experts, 2 per token, rope theta 1e6, no sliding
+# window; Mistral-7B's attention and a 14,336-wide expert MLP) at 16 of
+# its 32 layers: the bf16 weights of all 32 (~93 GB) do not fit the
+# card's 80 GB. The routing is the JAX package's (top-2 of a full softmax,
+# not renormalised; capacity factor 1.25, drops past it), not Mixtral's.
+MOE_LAYERS = 16
+MOE_FIELDS = {
+    "vocab_size": 32_000, "d_model": 4096, "n_layers": MOE_LAYERS, "n_heads": 32, "n_kv_heads": 8,
+    "head_dim": 128, "d_ff": 14_336, "rope_theta": 1e6, "norm_eps": 1e-5, "act": "silu",
+    "scale_embed": False, "sliding_window": 0, "qkv_bias": False, "n_experts": 8, "moe_top_k": 2,
+    "moe_capacity": 1.25, "dtype": torch.bfloat16,
+}
+# The plain forward of one prompt routes other rows than the served
+# programs, so at a capacity that drops it drops other pairs: the replay
+# gate runs on an engine at n_experts / moe_top_k, where C = T and nothing
+# drops in either
+MOE_GATE_CAPACITY = 4.0
+MOE_INT8_REQUESTS, MOE_INT8_NEW = 4, 16
+
+
+def moe_config() -> TransformerConfig:
+    return dataclasses.replace(TransformerConfig.mistral_7b(), sliding_window=0, rope_theta=1e6, n_experts=8,
+                               moe_top_k=2, n_layers=MOE_LAYERS)
+
+
+def moe_weights(seed: int) -> tuple[TransformerConfig, dict]:
+    """The config, checked field by field against MOE_FIELDS, and its
+    random bf16 weights with an untied head, drawn from ``seed`` on the
+    card."""
+    cfg = moe_config()
+    got = {f: getattr(cfg, f) for f in MOE_FIELDS}
+    if got != MOE_FIELDS:
+        raise AssertionError(f"moe config {got} != {MOE_FIELDS}")
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    t0 = time.perf_counter()
+    params = init_params(cfg, g, "cuda")
+    head = torch.randn((cfg.vocab_size, cfg.d_model), generator=g, device="cuda") / math.sqrt(cfg.d_model)
+    params["unembed"] = head.to(cfg.dtype)
+    del head
+    torch.cuda.synchronize()
+    lay = params["layers"]
+    n = sum(t.numel() for t in (params["embed"], params["unembed"], params["final_norm"], *lay.values()))
+    experts = sum(lay[k].numel() for k in ("w_gate", "w_up", "w_down"))
+    nbytes = _tensor_bytes(params)
+    print(f"moe weights: Mixtral-8x7B widths at {cfg.n_layers} of 32 layers ({cfg.n_experts} experts, top "
+          f"{cfg.moe_top_k}, capacity {cfg.moe_capacity}): {n / 1e9:.3f} B params ({experts / 1e9:.3f} B in "
+          f"expert stacks), {nbytes} bytes bf16, drawn in {time.perf_counter() - t0:.1f}s; config fields "
+          f"equal the script's constants")
+    return cfg, params
+
+
+def _moe_gate(params, cfg, prompts, results, gap: float, label: str) -> tuple[int, int, int, list]:
+    """_replay_gate, recording the rows that enter each layer's MoE FFN in
+    the plain forwards (the served streams' own hidden states). Returns
+    (matched, exempt, exempt with a gap >= TOKEN_GAP, [layer][stream] rows)."""
+    rec = []
+    served = T.moe_mlp
+
+    def recording(x, *a, **kw):
+        rec.append(x)
+        return served(x, *a, **kw)
+
+    st: dict = {}
+    T.moe_mlp = recording
+    try:
+        c, e = _replay_gate(params, cfg, prompts, results, gap, label=label, verbose=False, stats=st)
+    finally:
+        T.moe_mlp = served
+    L = cfg.n_layers
+    rows = [[rec[i * L + layer] for i in range(len(prompts))] for layer in range(L)]
+    return c, e, sum(x >= TOKEN_GAP for x in st.get("exempt_gaps", [])), rows
+
+
+def _moe_ffn_cases(dev: dict, cfg, params, rows, prompts) -> dict:
+    """The MoE FFN alone at decode T = 32 (4 served positions of each of
+    the 8 streams) and prefill T = 256 (the first 256 rows of the 440-token
+    prompt): the share of (row, slot) pairs past capacity at every layer,
+    and at layer 0 the served form against the plain form (2e-2), its time
+    from Python (CUDA events) and on the device (profiler, every kernel of
+    one call), the plain form's time, and the bound: the touched experts'
+    bytes read once, the rows and router read, y written, against the kept
+    pairs' products."""
+    E, k, d, ff = cfg.n_experts, cfg.moe_top_k, cfg.d_model, cfg.d_ff
+    lay = params["layers"]
+    picks = {
+        "decode T=32": lambda layer: torch.stack([rows[layer][i][len(p) + j] for i, p in enumerate(prompts)
+                                                  for j in (0, 8, 16, 24)]),
+        "prefill T=256": lambda layer: rows[layer][7][:256],
+    }
+    out = {}
+    for label, pick in picks.items():
+        shares = []
+        for layer in range(cfg.n_layers):
+            keep = TM.moe_route(pick(layer), lay["w_router"][layer], E, k, cfg.moe_capacity)[4]
+            shares.append(float((~keep).float().mean()))
+        x = pick(0).contiguous()
+        lp = T._layer(params, 0)
+        args = (x, lp["w_router"], lp["w_gate"], lp["w_up"], lp["w_down"])
+        kw = dict(n_experts=E, top_k=k, capacity_factor=cfg.moe_capacity, act=cfg.act)
+        got = TM.moe_mlp(*args, **kw)
+        want, _ = TM.moe_ffn_plain(*args, **kw)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        if got.shape != x.shape or not torch.isfinite(got).all() or not torch.allclose(
+                got.float(), want.float(), atol=BF16_ATOL, rtol=BF16_RTOL):
+            raise AssertionError(f"moe ffn {label}: served form disagrees with the plain form ({err:.3e})")
+        _p, _tp, top_e, _sp, keep, C = TM.moe_route(x, lp["w_router"], E, k, cfg.moe_capacity)
+        touched = int(torch.unique(top_e[keep]).numel())
+        nbytes = touched * 3 * d * ff * 2 + 2 * x.numel() * 2 + d * E * 2
+        flops = 2 * int(keep.sum()) * 3 * d * ff + 2 * x.shape[0] * d * E
+        bound_ms, bound_by = _bound(nbytes, flops, torch.bfloat16, dev["peaks"])
+        t = {"ms": time_ms(lambda: TM.moe_mlp(*args, **kw)), "device_ms": device_ms(lambda: TM.moe_mlp(*args, **kw),
+             None, iters=10), "plain_ms": time_ms(lambda: TM.moe_ffn_plain(*args, **kw), iters=5, warmup=1),
+             "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err, "capacity": C,
+             "experts_touched": touched, "drop_share_mean": statistics.mean(shares),
+             "drop_share_max": max(shares), "drop_share_layer0": shares[0]}
+        out[label] = t
+        print(f"moe ffn {label} layer 0 on {dev['smi']}: served {t['ms']:.4f} ms (device {t['device_ms']:.4f} ms), "
+              f"plain (f32 copies of the stacks) {t['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
+              f"{touched} experts touched, C {C}); served vs plain max_abs_err {err:.3e} ok; pairs past capacity "
+              f"{100 * shares[0]:.2f}% at layer 0, mean {100 * t['drop_share_mean']:.2f}% max "
+              f"{100 * t['drop_share_max']:.2f}% over {cfg.n_layers} layers")
+    return out
+
+
+def phase_moe(dev: dict, seed: int) -> dict:
+    """The moe phase (see the module docstring). Returns its readings and
+    the kernel launches of the default engine's first burst ("engine") and
+    of the int8 run ("int8")."""
+    clock: dict = {}
+    t0 = time.perf_counter()
+
+    def tick(name):
+        clock[name] = time.perf_counter() - t0 - sum(clock.values())
+
+    cfg, params = moe_weights(seed)
+    tick("weights")
+    out: dict = {"launches": {}}
+    plens, prompts = _burst_prompts(cfg, seed)
+    eng = LLMEngine(cfg, params, seed=seed)  # the defaults, capacity 1.25
+    try:
+        warm = _warm_report("moe ", eng)
+        tick("engine")
+        _check_families("moe ", eng, seed)
+        tick("families")
+        eng.generate([1, 2, 3], max_new_tokens=4)
+        runs = _bursts("moe ", eng, prompts, 32, KERNEL_COUNTERS)
+        tick("bursts")
+        step = eng._step_name(eng.chunk_shapes[-1], eng.admit_cap)
+        prog = {name: program_ms(eng, name, seed) for name in ("llm.decode_chunk8", step)}
+        print("moe program device ms (one replay): " + ", ".join(f"{k} {v:.3f}" for k, v in prog.items()))
+        prof = _profile(lambda: _serve(eng, prompts, 32), label="moe ")
+        tick("profile")
+    finally:
+        eng.close()
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    for r in runs:
+        n = r["launches"]
+        if n["flash_attention"] <= 0 or n["paged_decode_partials"] <= 0 or n["paged_decode_partials_int8"]:
+            raise AssertionError(f"moe burst at lookahead {r['lookahead']}: kernel launches {n}")
+    out["launches"]["engine"] = runs[0]["launches"]
+
+    # the gate engine: the same weights at capacity 4.0, every token of one
+    # burst through the replay gate
+    cfg4 = dataclasses.replace(cfg, moe_capacity=MOE_GATE_CAPACITY)
+    eng = LLMEngine(cfg4, params, seed=seed)
+    try:
+        warm4 = _warm_report("moe gate ", eng)
+        eng.generate([1, 2, 3], max_new_tokens=4)
+        (gate_run,) = _bursts("moe gate ", eng, prompts, 32, KERNEL_COUNTERS, lookaheads=(3,))
+    finally:
+        eng.close()
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    tick("gate engine")
+    checked, exempt, wide, rows = _moe_gate(params, cfg4, prompts, gate_run["results"], TOKEN_GAP, "moe gate ")
+    tick("gate")
+    ffn = _moe_ffn_cases(dev, cfg, params, rows, prompts)
+    del rows
+    tick("ffn")
+
+    # int8: the bf16 tree quantized (matrix by matrix), then freed
+    qparams = quantize_params(params, cfg.dtype)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    qbytes = _tensor_bytes(qparams)
+    tick("quantize")
+    # no warmup (capturing all 10 families took 31 s): the first pass
+    # captures the families these requests dispatch, the second is timed
+    eng = LLMEngine(cfg4, qparams, seed=seed, quantize=True, kv_int8=True, warmup=False)
+    try:
+        eng.generate([1, 2, 3], max_new_tokens=4)
+        capture8, run8 = _bursts("moe int8 ", eng, prompts[:MOE_INT8_REQUESTS], MOE_INT8_NEW, KERNEL_COUNTERS,
+                                 lookaheads=(3, 3))
+        families8 = sorted(eng.families)
+    finally:
+        eng.close()
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    c8, e8, wide8, _rows8 = _moe_gate(qparams, cfg4, prompts[:MOE_INT8_REQUESTS], run8["results"],
+                                      INT8_TOKEN_GAP, "moe int8 gate ")
+    del _rows8
+    if 8 * wide8 > run8["tokens"]:
+        raise AssertionError(f"moe int8: {wide8} of {run8['tokens']} tokens needed the int8 gap exemption (> 1 in 8)")
+    n8 = run8["launches"]
+    if n8["flash_attention"] <= 0 or n8["paged_decode_partials_int8"] <= 0 or n8["paged_decode_partials"]:
+        raise AssertionError(f"moe int8: kernel launches {n8}")
+    out["launches"]["int8"] = n8
+    qlp = T._layer(qparams, 0)
+    stacks = [qlp[k] for k in ("w_gate", "w_up", "w_down")]
+    x8 = torch.randn((32, cfg.d_model), generator=torch.Generator(device="cuda").manual_seed(seed),
+                     device="cuda").to(cfg.dtype)
+    deq_ms = time_ms(lambda: [TM._deq(w, cfg.dtype) for w in stacks], iters=10)
+    ffn8_ms = time_ms(lambda: TM.moe_mlp(x8, qlp["w_router"], *stacks, n_experts=cfg.n_experts, top_k=cfg.moe_top_k,
+                                         capacity_factor=cfg.moe_capacity, act=cfg.act), iters=10)
+    del qparams, qlp, stacks
+    gc.collect()
+    torch.cuda.empty_cache()
+    tick("int8")
+
+    first = runs[0]
+    out.update({
+        "tok_s": [r["tok_s"] for r in runs], "ttft_p50_s": [r["ttft_p50_s"] for r in runs],
+        "ttft_max_s": [r["ttft_max_s"] for r in runs], "programs": [r["chunks"] for r in runs],
+        "steps": [r["steps"] for r in runs], "warmup_s": warm["warmup_s"],
+        "reserved_growth": warm["reserved_after"] - warm["reserved_before"], "idle": prof["idle"],
+        "program_ms": prog, "gate_tok_s": gate_run["tok_s"], "gate_warmup_s": warm4["warmup_s"],
+        "tokens_matched": checked, "tokens_exempt": exempt, "ffn": ffn, "int8_bytes": qbytes,
+        "int8_tok_s": run8["tok_s"], "int8_capture_pass_s": capture8["wall_s"], "int8_matched": c8,
+        "int8_exempt": e8,
+        "dequant_ms": deq_ms, "int8_ffn_ms": ffn8_ms, "seconds": clock,
+    })
+    print(f"moe int8 on {dev['smi']}: weights {qbytes} bytes; {MOE_INT8_REQUESTS} requests x {MOE_INT8_NEW} tokens "
+          f"{run8['tok_s']:.1f} tok/s (capacity {MOE_GATE_CAPACITY}; the first pass, capturing {len(families8)} "
+          f"families {families8}, {capture8['wall_s']:.1f}s); {c8} tokens matched, {e8} exempt (gap "
+          f"{INT8_TOKEN_GAP}; {wide8} with a gap >= {TOKEN_GAP}); layer 0 dequant of the three stacks "
+          f"{deq_ms:.4f} ms, int8 ffn at T=32 {ffn8_ms:.4f} ms; launches {n8}")
+    med = statistics.median
+    print(f"moe mixtral_8x7b_l16 on {dev['smi']}: tok/s {', '.join(f'{x:.1f}' for x in out['tok_s'])} (lookahead "
+          f"3, 3, 3, 1; median {med(out['tok_s'][:3]):.1f}); ttft p50 {med(out['ttft_p50_s'][:3]):.3f}s max "
+          f"{med(out['ttft_max_s'][:3]):.3f}s (medians); programs {out['programs']} (unified steps {out['steps']}); "
+          f"warmup_s {warm['warmup_s']:.3f}; memory_reserved +{out['reserved_growth']}; idle "
+          f"{100 * prof['idle']:.1f}%; llm.decode_chunk8 {prog['llm.decode_chunk8']:.3f} ms, {step} "
+          f"{prog[step]:.3f} ms device; gate engine (capacity {MOE_GATE_CAPACITY}) {gate_run['tok_s']:.1f} tok/s, "
+          f"{checked} tokens matched, {exempt} exempt (gap {TOKEN_GAP}); launches in burst 1 {first['launches']}; "
+          f"seconds " + ", ".join(f"{k} {v:.1f}" for k, v in clock.items()))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="GPU smoke run of gofr_tpu_torch on one card")
     ap.add_argument("--parent", metavar="TREE",
                     help="also build another checkout's paged-decode kernels (e.g. the parent commit from "
                          "git archive) and time them beside this tree's on the same inputs")
+    ap.add_argument("--only", choices=("families", "moe"),
+                    help="build the kernels and run this one phase, which makes its own weights (prints no "
+                         "kernels line and no result)")
     args = ap.parse_args()
     dev = phase_device()
     seconds = {}
@@ -3200,6 +3480,10 @@ def main() -> int:
         return out
 
     timed("build", phase_build)
+    if args.only:
+        timed(args.only, {"families": phase_families, "moe": phase_moe}[args.only], dev, SEED)
+        print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
+        return 0
     kern = timed("kernels", phase_kernels, dev, SEED, build_parent(args.parent) if args.parent else None)
     # the families' shapes too, before any engine has run (after one had, the
     # profiler kept only a few of a timing's kernel records at some shapes)
@@ -3221,6 +3505,7 @@ def main() -> int:
     structured = timed("structured", phase_structured, dev, SEED, cfg, params)
     del params  # Gemma-2B's weights; the families phase loads one model at a time
     families = timed("families", phase_families, dev, SEED)
+    moe = timed("moe", phase_moe, dev, SEED)
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     # name -> (source, replaced Pallas kernel, timing key, engine run whose
     # launches count, prefix phases' launches)
@@ -3242,6 +3527,7 @@ def main() -> int:
             "spec_launches": spec["launches"][name], "structured_launches": structured["launches"][name],
             "overload_launches": ovl["launches"][name], "lora_launches": lora["launches"][name],
             "families_launches": {label: n[name] for label, n in families["launches"].items()},
+            "moe_launches": {label: n[name] for label, n in moe["launches"].items()},
             "max_abs_err": kern["errs"][name],
             "ms": t["ms"], "device_ms": t["device_ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],

@@ -122,7 +122,12 @@ class GPURuntime:
 
     def register_llm(self, name: str, cfg, params, **engine_kw) -> LLMEngine:
         """Build an ``LLMEngine`` over ``params`` and register it as
-        ``name`` (replacing and closing an earlier one)."""
+        ``name`` (replacing and closing an earlier one). A config with
+        ``n_experts`` > 0 serves its mixture-of-experts FFN through the
+        same engine, every expert on the one card: expert parallelism
+        (the JAX runtime's sharding of the expert stacks under
+        ``TPU_LLM_TP``) is not ported, and a ``TPU_LLM_TP`` degree above
+        1 stays refused."""
         if engine_kw.pop("kv_paged", True) is False:
             raise NotImplementedError("kv_paged=False: the port serves the paged KV pool only")
         unknown = sorted(set(engine_kw) - set(_ENGINE_KWARGS))

@@ -130,7 +130,12 @@ The pack/meta layouts of the JAX programs are kept: pack [nb, S+3] int32
 (``slots`` for inert padding lanes) | finish flag, and [4, nb] in a
 constrained step: + grammar id (-1: none) | start DFA state.
 
-Left out of this slice (queued in ROADMAP.md): MoE, goodput and the
+Mixture-of-experts configs (``n_experts`` > 0) serve through the same
+programs: every one routes its whole row count, idle slots and padding
+lanes included, through ``models.moe.moe_mlp``, which has no host
+synchronisation and is captured with the rest (``stats()["moe_experts"]``).
+
+Left out of this slice (queued in ROADMAP.md): goodput and the
 tenant quota gate, flight recorder, KV handoff, the replica fleet (and
 with it the router's retry budget and a fleet-shared ledger), the
 metrics series of speculation, constrained decoding and overload (the
@@ -984,6 +989,7 @@ class LLMEngine:
                 "scheduler": "chunked",
                 "slots": self.slots,
                 "quantized": self.quantized,
+                "moe_experts": self.cfg.n_experts,
                 "submitted": self.submitted,
                 "finished": self.finished,
                 "steps": self.steps,

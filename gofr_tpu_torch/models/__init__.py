@@ -1,5 +1,6 @@
-"""gofr_tpu_torch.models — counterpart of gofr_tpu.models (transformer, int8
-weight quantization; ``checkpoint`` and ``tokenizer`` load from disk)."""
+"""gofr_tpu_torch.models — counterpart of gofr_tpu.models (transformer, the
+mixture-of-experts FFN in ``moe``, int8 weight quantization;
+``checkpoint`` and ``tokenizer`` load from disk)."""
 
 from .quant import QTensor, init_params_quantized, is_quantized, qmm, qmm_a8, quantize, quantize_params
 from .transformer import (

@@ -246,6 +246,10 @@ def llama_params_from_hf(tensors: Mapping, cfg, device=None) -> dict:
 
 
 def _params_from_hf(tensors: Mapping, cfg, norm_offset: float, allow_untied: bool = False, device=None) -> dict:
+    if getattr(cfg, "n_experts", 0) > 0:
+        raise NotImplementedError(
+            "mixture-of-experts checkpoints have no mapper (dense Gemma/Llama trees only, as in the JAX package)"
+        )
     dev = resolve_device(device)
     d, hd, hkv, L = cfg.d_model, cfg.head_dim, cfg.n_kv_heads, cfg.n_layers
 

@@ -21,6 +21,7 @@ dictionary has the same keys as a plain one.
 
 from __future__ import annotations
 
+import itertools
 import math
 from typing import NamedTuple
 
@@ -55,15 +56,30 @@ class QTensor(NamedTuple):
         return self.s.dtype
 
 
-def quantize(w: torch.Tensor, dtype=torch.bfloat16) -> QTensor:
-    """Symmetric int8 per last-axis channel. The amax runs over axis -2
-    only (the contraction axis), so stacked [L, in, out] weights get
-    [L, 1, out] scales; an all-zero channel gets scale 1."""
+def _quantize_matrix(w: torch.Tensor, dtype) -> QTensor:
     wf = w.float()
     amax = wf.abs().amax(dim=-2, keepdim=True)
     scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
     q = torch.round(wf / scale).clamp(-127, 127).to(torch.int8)
     return QTensor(q=q, s=scale.to(dtype))
+
+
+def quantize(w: torch.Tensor, dtype=torch.bfloat16) -> QTensor:
+    """Symmetric int8 per last-axis channel. The amax runs over axis -2
+    only (the contraction axis), so stacked [L, in, out] weights get
+    [L, 1, out] scales and [L, E, in, out] expert stacks [L, E, 1, out];
+    an all-zero channel gets scale 1. A stack is quantized one [in, out]
+    matrix at a time (each matrix's scales are its own, so the result is
+    the same), so its float32 copy never exists whole: a 16-layer
+    Mixtral-width expert stack would be 30 GB."""
+    lead = tuple(w.shape[:-2])
+    if not lead:
+        return _quantize_matrix(w, dtype)
+    q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
+    s = torch.empty(lead + (1, w.shape[-1]), dtype=dtype, device=w.device)
+    for idx in itertools.product(*map(range, lead)):
+        q[idx], s[idx] = _quantize_matrix(w[idx], dtype)
+    return QTensor(q=q, s=s)
 
 
 def qmm(x: torch.Tensor, w) -> torch.Tensor:
@@ -102,7 +118,8 @@ _QUANT_KEYS = ("wq", "wkv", "wo", "w_gate", "w_up", "w_down")
 
 def quantize_params(params: dict, dtype=torch.bfloat16) -> dict:
     """Quantize the matmul weights and the embedding (and an untied
-    ``unembed``); norms and the q/k/v bias leaves stay as they are (the
+    ``unembed``); an MoE tree's expert stacks too, its router not; norms
+    and the q/k/v bias leaves stay as they are (the
     bias add stays in ``transformer._qkv``; ``qmm``/``qmm_a8`` add none).
     Already quantized params are returned unchanged."""
     if is_quantized(params):
@@ -127,7 +144,13 @@ def init_params_quantized(
     uniform in [-127, 127] with per-channel scales 1 / (73 sqrt(fan_in)),
     so the dequantized std is about 1 / sqrt(fan_in) (uniform int8 has
     std ~73); norms zero, and a qkv-bias config's bias leaves zero and
-    unquantized (JAX ``init_params_quantized``)."""
+    unquantized (JAX ``init_params_quantized``). A mixture-of-experts
+    config is refused: this tree has the dense MLP leaves (the JAX
+    initializer draws them for it too); quantize ``init_params``' tree
+    instead."""
+    if getattr(cfg, "n_experts", 0) > 0:
+        raise NotImplementedError("init_params_quantized draws dense MLP leaves; for an MoE config use "
+                                  "quantize_params(init_params(cfg))")
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)

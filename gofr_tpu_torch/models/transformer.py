@@ -1,7 +1,8 @@
 """Decoder-only transformer of the Gemma, Llama, Mistral and Qwen2
-families (counterpart of gofr_tpu/models/transformer.py; presets
-``gemma_2b``, ``gemma_7b``, ``llama3_8b``, ``mistral_7b``, ``qwen2_7b``
-and the tiny CI twins, field for field the JAX ones).
+families and its mixture-of-experts variant (counterpart of
+gofr_tpu/models/transformer.py; presets ``gemma_2b``, ``gemma_7b``,
+``llama3_8b``, ``mistral_7b``, ``qwen2_7b``, the tiny CI twins and
+``tiny_moe``, field for field the JAX ones).
 
 Parameters are a plain dictionary of tensors with the JAX package's
 layout: ``embed`` [vocab, d], ``final_norm`` [d] and ``layers`` holding
@@ -18,6 +19,15 @@ to the model dtype by the unembed product and returned as f32; SwiGLU
 (``act="silu"``) and no embedding scale for the Llama-shaped families,
 a sliding window (Mistral) in every attention mask, and a bias on the
 q/k/v projections (Qwen2, ``qkv_bias``) added in ``_qkv``.
+
+Mixture of experts (``n_experts`` > 0): each layer carries a router
+``w_router`` [L, d, E] and expert stacks ``w_gate`` / ``w_up`` [L, E, d,
+ff] and ``w_down`` [L, E, ff, d] in place of the dense MLP, and ``_mlp``,
+the one MLP site of every program, routes each call's rows through
+``models.moe.moe_mlp`` (top ``moe_top_k`` of E, capacity factor
+``moe_capacity`` over the call's whole row count, padding included).
+LoRA adapts the attention projections only there (``lora.target_dims``
+skips the 4-D stacks).
 
 Multi-tenant LoRA (``lora``): a layer that carries stacked adapter tables
 ``lora_<name>_a`` [G, d_in, r] / ``lora_<name>_b`` [G, r, d_out] (sliced
@@ -45,6 +55,7 @@ through ``mha_reference``, no kernels.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
 from typing import NamedTuple
 
@@ -59,6 +70,7 @@ from ..ops import (
     paged_chunk_decode_attention,
     rms_norm,
 )
+from .moe import moe_mlp
 from .quant import QTensor, qmm, qmm_a8
 
 
@@ -79,6 +91,11 @@ class TransformerConfig:
     scale_embed: bool = True  # multiply embeddings by sqrt(d_model) (Gemma)
     sliding_window: int = 0  # Mistral-style local attention window; 0 = global
     qkv_bias: bool = False  # Qwen2-style bias on the q/k/v projections
+    # mixture of experts (0 = dense): routed top-k over n_experts expert
+    # MLPs in every layer (models.moe); attention is unchanged
+    n_experts: int = 0
+    moe_top_k: int = 2
+    moe_capacity: float = 1.25
     dtype: torch.dtype = torch.bfloat16
 
     @staticmethod
@@ -162,6 +179,16 @@ class TransformerConfig:
             n_kv_heads=2, head_dim=16, d_ff=128, dtype=torch.float32,
         )
 
+    @staticmethod
+    def tiny_moe(vocab_size: int = 512) -> "TransformerConfig":
+        """CI-sized sparse config: 4 experts, top-2 routing (GeGLU, embed
+        scaling, float32, as ``tiny``)."""
+        return TransformerConfig(
+            vocab_size=vocab_size, d_model=64, n_layers=2, n_heads=4,
+            n_kv_heads=2, head_dim=16, d_ff=128, dtype=torch.float32,
+            n_experts=4, moe_top_k=2,
+        )
+
 
 class KVCache(NamedTuple):
     """K/V with a per-sequence length. Slot views are [L, b, capacity,
@@ -179,19 +206,29 @@ def param_specs(cfg: TransformerConfig) -> dict:
     draws them in this order; ``checkpoint.validate_params`` reads the
     shapes, so the two cannot drift apart. A qkv-bias config adds ``bq``
     [L, hq * hd] and ``bkv`` [L, 2 * hkv * hd] (random, as in JAX, so the
-    bias add is load-bearing in tests), drawn last."""
+    bias add is load-bearing in tests), drawn last. An MoE config has
+    ``w_router`` [L, d, E] and [L, E, ...] expert stacks in place of the
+    dense MLP leaves (JAX ``init_params``)."""
     d, hd, hq, hkv, ff, L = (
         cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff, cfg.n_layers,
     )
+    E = cfg.n_experts
+    if E > 0:
+        mlp = {
+            "w_router": ((L, d, E), d),
+            "w_gate": ((L, E, d, ff), d),
+            "w_up": ((L, E, d, ff), d),
+            "w_down": ((L, E, ff, d), ff),
+        }
+    else:
+        mlp = {"w_gate": ((L, d, ff), d), "w_up": ((L, d, ff), d), "w_down": ((L, ff, d), ff)}
     layers = {
         "attn_norm": ((L, d), None),
         "wq": ((L, d, hq * hd), d),
         "wkv": ((L, d, 2 * hkv * hd), d),
         "wo": ((L, hq * hd, d), hq * hd),
         "mlp_norm": ((L, d), None),
-        "w_gate": ((L, d, ff), d),
-        "w_up": ((L, d, ff), d),
-        "w_down": ((L, ff, d), ff),
+        **mlp,
     }
     if cfg.qkv_bias:
         layers["bq"] = ((L, hq * hd), d)
@@ -203,10 +240,16 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator | None = None
     """Random weights from ``generator`` (same shapes and scaling as the
     JAX init: normal / sqrt(fan_in), norms zero; ``param_specs``), made on
     ``device`` (``cuda`` by default). The generator must live on that
-    device."""
+    device. An expert stack (4-D) is drawn one [d_in, d_out] matrix at a
+    time, so its float32 draw never exists whole (a 16-layer
+    Mixtral-width ``w_gate`` would be 30 GB)."""
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
+
+    def draw(shape, fan_in):
+        t = torch.randn(shape, generator=generator, device=dev, dtype=torch.float32)
+        return (t / math.sqrt(fan_in)).to(cfg.dtype)
 
     def make(spec):
         if isinstance(spec, dict):
@@ -214,8 +257,12 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator | None = None
         shape, fan_in = spec
         if fan_in is None:
             return torch.zeros(shape, dtype=cfg.dtype, device=dev)
-        t = torch.randn(shape, generator=generator, device=dev, dtype=torch.float32)
-        return (t / math.sqrt(fan_in)).to(cfg.dtype)
+        if len(shape) < 4:
+            return draw(shape, fan_in)
+        out = torch.empty(shape, dtype=cfg.dtype, device=dev)
+        for idx in itertools.product(*map(range, shape[:-2])):
+            out[idx] = draw(shape[-2:], fan_in)
+        return out
 
     return make(param_specs(cfg))
 
@@ -226,7 +273,9 @@ def params_from_jax(np_tree: dict, cfg: TransformerConfig, device=None) -> dict:
     and layouts. Plain leaves become ``cfg.dtype``; bfloat16 arrays pass
     through float32, which is exact. A quantized tree's ``QTensor(q, s)``
     leaves (any NamedTuple with fields ``q`` and ``s``) become the port's
-    ``QTensor``: ``q`` stays int8, ``s`` goes to ``cfg.dtype``. A LoRA
+    ``QTensor``: ``q`` stays int8, ``s`` goes to ``cfg.dtype`` (an MoE
+    tree's expert stacks keep their [L, E, 1, out] scales; its router is
+    never quantized). A LoRA
     engine's tree keeps its adapter tables (``lora_*`` leaves) in float32
     and its per-slot adapter ids (``aids``) in int32."""
     import numpy as np
@@ -316,8 +365,18 @@ def _lora_mm(mm, h: torch.Tensor, lp: dict, name: str, sel: torch.Tensor | None)
 
 
 def _mlp(cfg: TransformerConfig, h: torch.Tensor, lp: dict, mm, sel=None) -> torch.Tensor:
-    """Dense gated MLP; the caller adds the residual. ``mm`` is the
-    product (``qmm`` or ``qmm_a8``); ``sel`` the LoRA selector."""
+    """Dense gated MLP, or the routed mixture when the layer carries a
+    router (JAX ``_mlp_block``); the caller adds the residual. ``mm`` is
+    the dense product (``qmm`` or ``qmm_a8``); ``sel`` the LoRA selector.
+    The mixture ignores both: its rows, all b * s of them, route as one
+    call of ``moe.moe_mlp`` (``moe_ffn`` without the auxiliary loss)."""
+    if "w_router" in lp:
+        b, s, d = h.shape
+        y = moe_mlp(
+            h.reshape(b * s, d), lp["w_router"], lp["w_gate"], lp["w_up"], lp["w_down"],
+            n_experts=cfg.n_experts, top_k=cfg.moe_top_k, capacity_factor=cfg.moe_capacity, act=cfg.act,
+        )
+        return y.reshape(b, s, d).to(h.dtype)
     g = _lora_mm(mm, h, lp, "w_gate", sel)
     u = _lora_mm(mm, h, lp, "w_up", sel)
     return _lora_mm(mm, _act(cfg, g) * u, lp, "w_down", sel)

@@ -630,3 +630,68 @@ class TestLoraOnCard:
         finally:
             eng.close()
             lazy.close()
+
+
+@pytest.mark.cuda
+class TestMoEOnCard:
+    """The mixture-of-experts FFN on the card: captured in a CUDA graph, a
+    replay is bitwise its eager call (float32, bfloat16 and int8 stacks)
+    and follows new inputs written in place; the served form agrees with
+    the plain one; a tiny_moe engine's families replay bitwise their eager
+    programs."""
+
+    @pytest.mark.parametrize("mode", ["f32", "bf16", "int8"])
+    def test_moe_ffn_graph_replay_bitwise(self, cuda, mode):
+        from gofr_tpu_torch.models import moe as TM
+        from gofr_tpu_torch.models.quant import quantize
+
+        g = torch.Generator(device=cuda).manual_seed(0)
+        T, d, ff, E = 32, 256, 512, 8
+        dt = torch.float32 if mode == "f32" else torch.bfloat16
+
+        def r(*shape, fan_in=1):
+            return torch.randn(shape, generator=g, device=cuda) / fan_in**0.5
+
+        wr = r(d, E, fan_in=d)
+        ws = [r(E, d, ff, fan_in=d), r(E, d, ff, fan_in=d), r(E, ff, d, fan_in=ff)]
+        ws = [quantize(w, dt) for w in ws] if mode == "int8" else [w.to(dt) for w in ws]
+        kw = dict(n_experts=E, top_k=2, capacity_factor=1.25, act="silu")
+        x = r(T, d).to(dt)
+        static = x.clone()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            TM.moe_ffn(static, wr, *ws, **kw)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out, aux = TM.moe_ffn(static, wr, *ws, **kw)
+        for _ in range(2):  # a second input, written in place, routes differently
+            want, want_aux = TM.moe_ffn(x, wr, *ws, **kw)
+            static.copy_(x)
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(out, want) and torch.equal(aux, want_aux)
+            plain, _ = TM.moe_ffn_plain(x, wr, *ws, **kw)
+            tol = 1e-4 if mode == "f32" else 2e-2
+            torch.testing.assert_close(out.float(), plain.float(), atol=tol, rtol=tol)
+            x = r(T, d).to(dt)
+
+    @pytest.mark.parametrize("mode", ["f32", "bf16"])
+    def test_engine_families_replay_equal_eager(self, cuda, mode):
+        from chip_smoke import check_family
+
+        cfg = TransformerConfig.tiny_moe()
+        if mode == "bf16":
+            cfg = dataclasses.replace(cfg, head_dim=64, dtype=torch.bfloat16)
+        params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+        eng = LLMEngine(cfg, params, device=cuda, slots=4, max_seq_len=64, prefill_buckets=(8, 16),
+                        speculative=True)
+        try:
+            assert eng.stats()["moe_experts"] == 4 and len(eng.families) == 9
+            for i, name in enumerate(eng.families):
+                r = check_family(eng, name, seed=i, replays=2)
+                assert r["eager_equal"], (name, r["state_equal"])
+                assert r["launches"] == {k: 2 * n for k, n in r["captured"].items()}, name
+        finally:
+            eng.close()

@@ -34,7 +34,7 @@ CONFIGS = {
     "tiny_group7": lambda M: dataclasses.replace(M.TransformerConfig.tiny_qwen2(), n_heads=7, n_kv_heads=1),
 }
 PRESETS = ["gemma_2b", "gemma_7b", "llama3_8b", "mistral_7b", "qwen2_7b",
-           "tiny", "tiny_llama", "tiny_mistral", "tiny_qwen2"]
+           "tiny", "tiny_llama", "tiny_mistral", "tiny_qwen2", "tiny_moe"]
 DTYPES = {jnp.bfloat16: torch.bfloat16, jnp.float32: torch.float32}
 
 
@@ -71,12 +71,9 @@ def test_preset_matches_jax_field_for_field(preset):
         want = getattr(jcfg, f.name)
         got = getattr(tcfg, f.name)
         assert got == (DTYPES[want] if f.name == "dtype" else want), f.name
-    # the port's config has every JAX field but the MoE ones, which these
-    # dense presets leave off
-    assert {f.name for f in dataclasses.fields(jcfg)} - {f.name for f in dataclasses.fields(tcfg)} == {
-        "n_experts", "moe_top_k", "moe_capacity"
-    }
-    assert jcfg.n_experts == 0
+    # the port's config has every JAX field, in the JAX order
+    assert [f.name for f in dataclasses.fields(jcfg)] == [f.name for f in dataclasses.fields(tcfg)]
+    assert (jcfg.n_experts > 0) == (preset == "tiny_moe")
 
 
 def test_init_params_bias_leaves(pair):
