@@ -1,6 +1,6 @@
 """GPU smoke run of the PyTorch/CUDA port (gofr_tpu_torch) on one card.
 
-    python3 chip_smoke.py [--parent TREE] [--only families|moe]
+    python3 chip_smoke.py [--parent TREE] [--only families|moe|contiguous]
 
 Phases, each raising on failure:
 
@@ -149,11 +149,10 @@ Phases, each raising on failure:
    and Gemma-7B (16 KV heads at head_dim 256). For each: an engine at the
    defaults (warmup, every family's replay bitwise its
    eager program), the burst once at lookahead 3, every token through
-   the replay gate, its logit drift (the moe phase profiles the large
-   model's burst). Llama-3-8B also with
+   the replay gate, its logit drift. Llama-3-8B also with
    kv_int8=True, quantize=True (the int8 gate). Mistral-7B also its
-   window at full width: an engine of 4 slots at max_seq_len 4608
-   serving 4 prompts of 4,160-4,400 tokens (every decode band starting
+   window at full width on the paged pool (kv_paged=True): an engine of 4
+   slots at max_seq_len 4608 serving 4 prompts of 4,160-4,400 tokens (every decode band starting
    above 0, read back from the pool's lengths). Then a 2-layer
    Llama-3-8B-shaped bf16 HF checkpoint (two shards and an index, ~3 GB)
    written to a temporary directory by this script, loaded into cuda by
@@ -169,9 +168,9 @@ Phases, each raising on failure:
    seed, untied head; the config's fields checked against constants
    here. An engine at the defaults: its families held bitwise against
    their eager programs, the burst three times at lookahead 3 and once
-   at 1, the device ms of llm.decode_chunk8 and the widest step, one
-   profiled burst; flash and the bf16 paged kernel must launch in every
-   burst. A gate engine on the same weights at capacity 4.0 (C = T:
+   at 1 (the card's busy and idle time from CUDA events around every
+   replay), the device ms of llm.decode_chunk8 and the widest step; flash
+   and the bf16 paged kernel must launch in every burst. A gate engine on the same weights at capacity 4.0 (C = T:
    nothing drops, so the plain forward of one prompt routes as the
    served programs do): one burst, every token through the replay gate,
    recording the rows entering every layer's MoE FFN. On those rows: the
@@ -183,13 +182,35 @@ Phases, each raising on failure:
    its families captured by a first pass of the 4 requests of 16 tokens,
    the second pass timed and through the int8 gate, the int8 paged
    kernel launched, one layer's dequantization of its int8 stacks timed;
-15. report — a "kernels" JSON line (launches on the engine phase's main
+15. contiguous — the contiguous KV layouts. The dense slab: Gemma-2B at
+   the engine phase's defaults plus kv_paged=False (layout, capacity 512
+   and slot bytes from the CacheManager; warmup, families and memory;
+   every family's replay bitwise its eager program), the burst once at
+   lookahead 3 and once at 1 (busy and idle share from CUDA events around
+   every replay), every token through the replay gate; flash must launch
+   and no paged kernel.
+   The rolling ring: Mistral-7B at full width and 16 of its 32 layers
+   (bf16, seeded random weights, untied head), kv_paged left at its
+   default, 8 slots at max_seq_len 32,768, speculative=True: the ring of
+   4,160 rows a slot (the 32-layer deployment's bytes beside what the
+   paged pool would take at these settings and at 32 slots, computed,
+   not allocated), every family's replay bitwise (llm.step_v5 too), 4
+   prompts of 4,300-6,000 tokens x 64 new tokens (every ring wraps
+   during prefill; the lengths read back past the capacity), the device
+   ms of llm.decode_chunk8 and the widest step, the burst's busy and
+   idle time from CUDA events around every replay, the plain decode
+   attention's time at the chunk's shapes and its share of the chunk and
+   of the burst, every token through the replay gate against the plain
+   forward with the window mask; no kernel launches on the ring (its
+   attention is plain, as the JAX reference's einsums are);
+16. report — a "kernels" JSON line (launches on the engine phase's main
    path, in the prefix phases as "prefix_launches", in the spec phases as
    "spec_launches", in the structured phase as "structured_launches", in
    the overload phase as "overload_launches", in the lora phase as
    "lora_launches" and in the families phase's
    first burst of each engine as "families_launches", in the moe phase's
-   first burst and its int8 run as "moe_launches"), then the last line
+   first burst and its int8 run as "moe_launches", in the contiguous
+   phase's bursts as "contiguous_launches"), then the last line
    {"ok": true, "device": {...}}.
 
 Imports nothing of JAX and nothing of the JAX package. Exits non-zero,
@@ -199,6 +220,7 @@ printing no result, when no GPU is visible.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import dataclasses
 import gc
@@ -221,7 +243,7 @@ import numpy as np
 import torch
 
 from gofr_tpu_torch import llm as TL
-from gofr_tpu_torch.kvcache import gather_slots, quantize_rows, scatter_rows
+from gofr_tpu_torch.kvcache import CacheManager, gather_slots, quantize_rows, scatter_rows
 from gofr_tpu_torch.llm import KV_BLOCK, GenRequest, LLMEngine
 from gofr_tpu_torch.lora import init_adapter, merge_adapter, target_dims, validate_adapter, zero_tables
 from gofr_tpu_torch.models import (
@@ -702,9 +724,10 @@ def phase_kernels(dev: dict, seed: int, parent: dict | None = None) -> dict:
 
 
 def _engine_state(eng) -> dict:
-    """Every tensor the engine's programs write: the pool's K/V rows (and
-    an int8 pool's scales), lengths, tail, active mask and temperatures."""
-    state = {"k": eng.pool.k, "v": eng.pool.v, "length": eng.pool.length, "tail": eng._tail,
+    """Every tensor the engine's programs write: the K/V rows of the pool
+    (and an int8 pool's scales) or of the contiguous slab or ring,
+    lengths, tail, active mask and temperatures."""
+    state = {"k": eng.cache.k, "v": eng.cache.v, "length": eng.cache.length, "tail": eng._tail,
              "active": eng._active, "temps": eng._temps, "gstate": eng._gstate}
     if eng.pool_scales is not None:
         state["scales"] = eng.pool_scales
@@ -743,13 +766,16 @@ def _family_inputs(eng, name: str, g: torch.Generator, temperature: float):
     gets random grammar ids (a resident grammar or -1) and DFA states
     below each grammar's terminal row, the step's rows the ids and states
     of their slots; it needs a resident grammar. A LoRA engine's slots get
-    random adapter ids in [0, lora_slots] (mixed ids live)."""
+    random adapter ids in [0, lora_slots] (mixed ids live). A contiguous
+    engine has no tables; on a ring the lengths run past the capacity
+    (absolute, up to max_seq_len), so the rows wrap."""
     cfg, slots, K = eng.cfg, eng.slots, eng.decode_chunk
-    cap, MB, NB = eng.kv.capacity, eng.kv.table_width, eng.kv.pool.n_blocks
+    cap, MB = eng.kv.capacity, eng.kv.table_width
     dev = eng.device
     if eng.pool_scales is None:
-        eng.pool.k.copy_(torch.randn(eng.pool.k.shape, generator=g, device=dev).to(eng.pool.k.dtype))
-        eng.pool.v.copy_(torch.randn(eng.pool.v.shape, generator=g, device=dev).to(eng.pool.v.dtype))
+        for t in (eng.cache.k, eng.cache.v):
+            for layer in t:  # a layer at a time: a float32 draw of a whole ring would double it
+                layer.copy_(torch.randn(layer.shape, generator=g, device=dev).to(t.dtype))
     else:
         for t in (eng.pool.k, eng.pool.v):
             t.copy_(torch.randint(-127, 128, t.shape, generator=g, device=dev, dtype=torch.int8))
@@ -767,13 +793,15 @@ def _family_inputs(eng, name: str, g: torch.Generator, temperature: float):
     if eng.lora_slots:
         aids = torch.randint(0, eng.lora_slots + 1, (slots,), generator=g, device=dev, dtype=torch.int32).cpu().numpy()
     shape = arg[0] if kind == "step" else 0
-    lengths = torch.randint(1, cap - shape - 2 * K, (slots,), generator=g, device=dev, dtype=torch.int32)
-    eng.pool.length.copy_(lengths)
+    top = eng.max_seq_len if eng.kv.rolling else cap
+    lengths = torch.randint(1, top - shape - 2 * K, (slots,), generator=g, device=dev, dtype=torch.int32)
+    eng.cache.length.copy_(lengths)
     eng._tail.copy_(torch.randint(0, cfg.vocab_size, (slots,), generator=g, device=dev, dtype=torch.int32))
     eng._active.fill_(True)
     eng._temps.fill_(temperature)
     M = eng.admit_cap
     if kind in ("seed", "hit"):
+        NB = eng.kv.pool.n_blocks
         seed = eng._inert_seed()
         perm_b = torch.randperm(NB, generator=g, device=dev).cpu().numpy()
         perm_s = torch.randperm(slots, generator=g, device=dev).cpu().numpy()
@@ -792,7 +820,10 @@ def _family_inputs(eng, name: str, g: torch.Generator, temperature: float):
             seed[5, :rows] = np.arange(rows)
             seed[6, :rows] = np.float32(temperature).view(np.int32)
         return lambda: eng._in.write_seed(seed)
-    tables = torch.randperm(NB, generator=g, device=dev)[: slots * MB].reshape(slots, MB).int().cpu().numpy()
+    tables = (
+        torch.randperm(eng.kv.pool.n_blocks, generator=g, device=dev)[: slots * MB].reshape(slots, MB).int().cpu().numpy()
+        if eng.kv.paged else np.zeros((slots, 0), np.int32)
+    )
     live = np.ones((slots,), bool)
     if kind == "chunk":
         return lambda: eng._in.write(tables, live, gids=gids, aids=aids)
@@ -1044,9 +1075,11 @@ def _check_families(label: str, eng, seed: int) -> None:
     temperature 0; then two replays each of the 8-step chunk, the widest
     step (and the widest hit program of a sharing engine) at a high
     temperature, which must draw differently (and the verify's of a
-    speculating engine). Step and chunk families hold the paged-decode
-    kernel, steps and the verify the flash kernel; kv_seed and the hit
-    programs hold no kernel."""
+    speculating engine). On the paged pool step and chunk families hold
+    the paged-decode kernel, and steps and the verify the flash kernel;
+    kv_seed and the hit programs hold no kernel. A contiguous engine's
+    programs hold no paged kernel, and on a ring no flash kernel either
+    (plain attention, as in JAX)."""
     for i, name in enumerate(eng.families):
         r = check_family(eng, name, seed + i)
         kind = eng._program(name)[1]
@@ -1056,9 +1089,11 @@ def _check_families(label: str, eng, seed: int) -> None:
         if not r["eager_equal"]:
             raise AssertionError(f"{label}{name}: replay differs from the eager program: {r['state_equal']}")
         paged = "paged_decode_partials_int8" if eng.pool_scales is not None else "paged_decode_partials"
-        if r["launches"] != r["captured"] or bool(r["captured"].get(paged)) != (kind in ("step", "chunk")):
+        if r["launches"] != r["captured"] or bool(r["captured"].get(paged)) != (
+            eng.kv.paged and kind in ("step", "chunk")
+        ):
             raise AssertionError(f"{label}{name}: launches {r['launches']}, captured {r['captured']}")
-        if bool(r["captured"].get("flash_attention")) != (kind in ("step", "verify")):
+        if bool(r["captured"].get("flash_attention")) != (kind in ("step", "verify") and not eng.kv.rolling):
             raise AssertionError(f"{label}{name} ({kind}): flash launches {r['captured']}")
     sampled = [f"llm.decode_chunk{eng.decode_chunk}", eng._step_name(eng.chunk_shapes[-1], eng.admit_cap)]
     if eng.kv.share:
@@ -3035,7 +3070,9 @@ def _family_window(dev: dict, cfg, params, seed: int) -> dict:
     label = "mistral_7b window"
     w = cfg.sliding_window
     t0 = time.perf_counter()
-    eng = LLMEngine(cfg, params, seed=seed, slots=WINDOW_SLOTS, max_seq_len=WINDOW_SEQ)
+    # the paged pool: "auto" would give this windowed model the ring
+    # (4096 + 64 < 4608), which the contiguous phase drives
+    eng = LLMEngine(cfg, params, seed=seed, slots=WINDOW_SLOTS, max_seq_len=WINDOW_SEQ, kv_paged=True)
     try:
         warm = _warm_report(f"{label} ", eng)
         _check_families(f"{label} ", eng, seed)
@@ -3350,13 +3387,18 @@ def phase_moe(dev: dict, seed: int) -> dict:
         _check_families("moe ", eng, seed)
         tick("families")
         eng.generate([1, 2, 3], max_new_tokens=4)
-        runs = _bursts("moe ", eng, prompts, 32, KERNEL_COUNTERS)
+        # the bursts' busy time from CUDA events around every replay, in
+        # place of a profiled extra burst (PR 15: 40-48 s of the script,
+        # most of it reading the records back)
+        with _replay_clock(eng) as replays:
+            runs = _bursts("moe ", eng, prompts, 32, KERNEL_COUNTERS)
+        torch.cuda.synchronize()
+        busy_ms = sum(s.elapsed_time(e) for _k, s, e in replays)
+        prof = {"idle": 1 - busy_ms / (1e3 * sum(r["wall_s"] for r in runs))}
         tick("bursts")
         step = eng._step_name(eng.chunk_shapes[-1], eng.admit_cap)
         prog = {name: program_ms(eng, name, seed) for name in ("llm.decode_chunk8", step)}
         print("moe program device ms (one replay): " + ", ".join(f"{k} {v:.3f}" for k, v in prog.items()))
-        prof = _profile(lambda: _serve(eng, prompts, 32), label="moe ")
-        tick("profile")
     finally:
         eng.close()
         del eng
@@ -3452,10 +3494,273 @@ def phase_moe(dev: dict, seed: int) -> dict:
           f"3, 3, 3, 1; median {med(out['tok_s'][:3]):.1f}); ttft p50 {med(out['ttft_p50_s'][:3]):.3f}s max "
           f"{med(out['ttft_max_s'][:3]):.3f}s (medians); programs {out['programs']} (unified steps {out['steps']}); "
           f"warmup_s {warm['warmup_s']:.3f}; memory_reserved +{out['reserved_growth']}; idle "
-          f"{100 * prof['idle']:.1f}%; llm.decode_chunk8 {prog['llm.decode_chunk8']:.3f} ms, {step} "
+          f"{100 * prof['idle']:.1f}% of the bursts (CUDA events around every replay); llm.decode_chunk8 {prog['llm.decode_chunk8']:.3f} ms, {step} "
           f"{prog[step]:.3f} ms device; gate engine (capacity {MOE_GATE_CAPACITY}) {gate_run['tok_s']:.1f} tok/s, "
           f"{checked} tokens matched, {exempt} exempt (gap {TOKEN_GAP}); launches in burst 1 {first['launches']}; "
           f"seconds " + ", ".join(f"{k} {v:.1f}" for k, v in clock.items()))
+    return out
+
+
+# The contiguous phase: the JAX package's two contiguous KV layouts. The
+# dense slab at Gemma-2B's defaults (kv_paged=False), and the rolling ring
+# that kv_paged="auto" gives a windowed model: Mistral-7B
+# (mistralai/Mistral-7B-v0.1's config.json: max_position_embeddings
+# 32,768, sliding_window 4096) at full width, 8 slots at max_seq_len
+# 32,768, a ring of 4096 + 64 rows a slot. Prompts of 4,300-6,000 tokens
+# wrap every ring during prefill. The ring runs 16 of the 32 layers: its
+# plain decode attention upcasts every ring row to float32 in every step,
+# so on an H100 80GB HBM3 at 700 W a program took ~0.36 s at 32 layers and
+# one burst over half a minute (PERF.md, PR 15); the script's time limit
+# took the cut.
+RING_SLOTS, RING_SEQ, RING_NEW, RING_LAYERS = 8, 32768, 64, 16
+RING_PROMPTS = (4300, 4900, 5500, 6000)
+
+
+def _contiguous_launches(label: str, launches: dict, flash: bool) -> None:
+    """A contiguous engine launches no paged kernel; flash on the slab
+    (every unified step) and not on the ring (plain masks, as in JAX)."""
+    if launches["paged_decode_partials"] or launches["paged_decode_partials_int8"] or (
+        (launches["flash_attention"] > 0) != flash
+    ):
+        raise AssertionError(f"{label}kernel launches {launches}")
+
+
+def _pool_bytes(kv) -> int:
+    """Bytes a paged CacheManager's pool would take (its blocks x block
+    bytes): host bookkeeping, nothing allocated on the card."""
+    return kv.pool.n_blocks * kv.block_bytes
+
+
+def _decode_attention_ms(eng, seed: int, iters: int = 20) -> float:
+    """Device ms of the plain contiguous decode attention of ONE layer at
+    one step of the engine's decode chunk (q [slots, 1, hq, hd] against
+    the cache's [slots, capacity, hkv, hd] and an 8-row buffer, the
+    engine's ring and window), captured as a CUDA graph, as the chunk
+    runs it, and replayed ``iters`` times between CUDA events (timed
+    eagerly it also paid the caching allocator: on an H100 80GB HBM3 at
+    700 W, 1.2-2.0 ms against a 150 ms chunk of 128 such calls, PERF.md)."""
+    cfg, S, C, K = eng.cfg, eng.slots, eng.kv.capacity, eng.decode_chunk
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((S, 1, cfg.n_heads, cfg.head_dim), generator=g, device="cuda").to(cfg.dtype)
+    kb = torch.randn((S, K, cfg.n_kv_heads, cfg.head_dim), generator=g, device="cuda").to(cfg.dtype)
+    lengths = torch.randint(C, eng.max_seq_len - 2 * K, (S,), generator=g, device="cuda", dtype=torch.int32)
+    k, v = eng.cache.k[0], eng.cache.v[0]
+
+    def call():
+        return A.chunk_decode_attention(q, k, v, kb, kb, lengths, K - 1, logit_cap=cfg.attn_logit_cap,
+                                        window=cfg.sliding_window, ring=eng.kv.ring)
+
+    call()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        call()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+@contextlib.contextmanager
+def _replay_clock(eng):
+    """Time every program replay the engine dispatches meanwhile: CUDA
+    events around each on the engine stream (one stream: the replays run
+    one after another, so their sum is the card's busy time), with the
+    decode steps each carries (a unified step and llm.decode_chunk8 8,
+    llm.decode_chunk2 2, a verify none). Yields [(steps, start, end)];
+    read the events after a synchronize. A profile of a whole ring burst
+    (millions of kernel records) took minutes to read back."""
+    steps_of = {"llm.decode_chunk2": 2, f"llm.step_v{eng.spec_draft + 1}": 0}
+    replays = []
+    launch = eng._launch
+
+    def timed(name):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = launch(name)
+        end.record()
+        replays.append((steps_of.get(name, eng.decode_chunk), start, end))
+        return out
+
+    eng._launch = timed
+    try:
+        yield replays
+    finally:
+        del eng._launch  # the method again
+
+
+def _clocked_bursts(label: str, eng, prompts, new_tokens: int, lookaheads) -> list[dict]:
+    """``_bursts`` once at each of ``lookaheads``, each run with its busy
+    ms, idle share (1 - busy / wall) and decode steps from
+    ``_replay_clock``."""
+    runs = []
+    for la in lookaheads:
+        with _replay_clock(eng) as replays:
+            (run,) = _bursts(label, eng, prompts, new_tokens, KERNEL_COUNTERS, lookaheads=(la,))
+        torch.cuda.synchronize()
+        run["busy_ms"] = sum(s.elapsed_time(e) for _k, s, e in replays)
+        run["idle"] = 1 - run["busy_ms"] / (1e3 * run["wall_s"])
+        run["decode_steps"] = sum(k for k, _s, _e in replays)
+        runs.append(run)
+    return runs
+
+
+def _contiguous_dense(dev: dict, seed: int) -> dict:
+    """Gemma-2B on the dense slab (see the module docstring)."""
+    label = "contiguous dense "
+    cfg, params = gemma_weights(seed)
+    eng = LLMEngine(cfg, params, seed=seed, kv_paged=False)
+    try:
+        kv = eng.stats()["kvcache"]
+        print(f"{label}kvcache {kv}")
+        if (kv["layout"], kv["capacity"], kv["slot_bytes"]) != ("dense", 512, 301_989_888) or eng.pool is not None:
+            raise AssertionError(f"{label}layout {kv}")
+        warm = _warm_report(label, eng)
+        _check_families(label, eng, seed)
+        eng.generate([1, 2, 3], max_new_tokens=4)
+        _plens, prompts = _burst_prompts(cfg, seed)
+        runs = _clocked_bursts(label, eng, prompts, 32, (3, 1))
+    finally:
+        eng.close()
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    checked = exempt = 0
+    for i, r in enumerate(runs):
+        _contiguous_launches(f"{label}burst {i + 1} ", r["launches"], flash=True)
+        c, e = _replay_gate(params, cfg, prompts, r["results"], TOKEN_GAP,
+                            label=f"{label}burst {i + 1} (lookahead {r['lookahead']}) ", verbose=False)
+        checked, exempt = checked + c, exempt + e
+    del params
+    out = {"tok_s": [r["tok_s"] for r in runs], "ttft_p50_s": [r["ttft_p50_s"] for r in runs],
+           "ttft_max_s": [r["ttft_max_s"] for r in runs], "programs": [r["chunks"] for r in runs],
+           "steps": [r["steps"] for r in runs], "launches": runs[0]["launches"], "warmup_s": warm["warmup_s"],
+           "reserved_growth": warm["reserved_after"] - warm["reserved_before"], "idle": [r["idle"] for r in runs],
+           "busy_ms": [r["busy_ms"] for r in runs], "tokens_matched": checked, "tokens_exempt": exempt}
+    print(f"contiguous dense gemma_2b on {dev['smi']}: tok/s {out['tok_s'][0]:.1f} at lookahead 3, "
+          f"{out['tok_s'][1]:.1f} at 1; ttft p50 {out['ttft_p50_s'][0]:.3f}s max {out['ttft_max_s'][0]:.3f}s; "
+          f"programs {out['programs']} (unified steps {out['steps']}); busy {out['busy_ms'][0]:.1f} ms of "
+          f"{1e3 * runs[0]['wall_s']:.1f} ms wall, idle {100 * out['idle'][0]:.1f}% at lookahead 3 "
+          f"({100 * out['idle'][1]:.1f}% at 1; CUDA events around every replay); warmup_s {warm['warmup_s']:.3f}, "
+          f"memory_reserved +{out['reserved_growth']}; "
+          f"{checked} tokens matched, {exempt} exempt (gap {TOKEN_GAP}); launches {out['launches']}")
+    return out
+
+
+def ring_weights(seed: int) -> tuple[TransformerConfig, dict]:
+    """Mistral-7B at full width and RING_LAYERS layers, random bf16
+    weights from the seed, with a random untied head."""
+    cfg = dataclasses.replace(TransformerConfig.mistral_7b(), n_layers=RING_LAYERS)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    t0 = time.perf_counter()
+    params = init_params(cfg, g, "cuda")
+    head = torch.randn((cfg.vocab_size, cfg.d_model), generator=g, device="cuda") / math.sqrt(cfg.d_model)
+    params["unembed"] = head.to(cfg.dtype)
+    del head
+    torch.cuda.synchronize()
+    print(f"contiguous ring mistral_7b ({cfg.n_layers} of 32 layers): {_tensor_bytes(params)} bytes of bf16 "
+          f"weights in {time.perf_counter() - t0:.1f}s", flush=True)
+    return cfg, params
+
+
+def _contiguous_ring(dev: dict, seed: int) -> dict:
+    """Mistral-7B on its rolling ring (see the module docstring). The
+    burst's device busy time is the sum of CUDA-event times around every
+    program replay it dispatched (one stream: they run one after
+    another), its idle share 1 - busy / wall; the plain decode
+    attention's share of the burst is its time a layer a step at the
+    chunk's shapes (a graph replay between CUDA events), times the
+    burst's layer-steps, over that busy time."""
+    label = "contiguous ring "
+    clock: dict = {}
+    t0 = time.perf_counter()
+
+    def tick(name):
+        clock[name] = time.perf_counter() - t0 - sum(clock.values())
+        print(f"{label}{name} done in {clock[name]:.1f}s", flush=True)
+
+    # the deployment's sizes at all 32 layers, from the CacheManager
+    # arithmetic (host bookkeeping, nothing allocated)
+    full = TransformerConfig.mistral_7b()
+    kv32 = CacheManager(full, RING_SLOTS, RING_SEQ, TL.DECODE_CHUNK, append_widths=(16, 64, 5), paged="auto")
+    planned, planned32 = (_pool_bytes(CacheManager(full, n, RING_SEQ, TL.DECODE_CHUNK, block=KV_BLOCK))
+                          for n in (RING_SLOTS, 32))
+    print(f"{label}at 32 layers: {kv32.stats()}; the paged pool would take {planned} bytes ({RING_SLOTS} slots x "
+          f"{RING_SEQ // KV_BLOCK} blocks), {planned32} at 32 slots")
+    if (kv32.rolling, kv32.capacity, kv32.slot_bytes, planned, planned32) != (
+        True, 4160, 4_362_076_160, 34_359_738_368, 137_438_953_472
+    ):
+        raise AssertionError(f"{label}sizes {kv32.stats()}, planned pool {planned} / {planned32}")
+    cfg, params = ring_weights(seed)
+    tick("weights")
+    eng = LLMEngine(cfg, params, seed=seed, slots=RING_SLOTS, max_seq_len=RING_SEQ, speculative=True)
+    try:
+        kv = eng.stats()["kvcache"]
+        ring_bytes = _tensor_bytes({"k": eng.cache.k, "v": eng.cache.v})
+        print(f"{label}kvcache {kv}; ring tensors {ring_bytes} bytes")
+        if (kv["layout"], kv["capacity"], ring_bytes) != ("rolling", 4160, kv["slot_bytes"]) or eng.pool is not None:
+            raise AssertionError(f"{label}layout {kv}, ring tensors {ring_bytes} bytes")
+        warm = _warm_report(label, eng)
+        tick("engine")
+        _check_families(label, eng, seed)
+        tick("families")
+        rng = np.random.default_rng(seed + 15)
+        prompts = [rng.integers(1, cfg.vocab_size, n).tolist() for n in RING_PROMPTS]
+        (run,) = _clocked_bursts(label, eng, prompts, RING_NEW, (3,))
+        lengths = eng.cache.length.cpu().tolist()
+        verifies = eng.stats()["spec"]["steps"]
+        tick("burst")
+        step = eng._step_name(eng.chunk_shapes[-1], eng.admit_cap)
+        prog = {name: program_ms(eng, name, seed) for name in ("llm.decode_chunk8", step)}
+        attn = _decode_attention_ms(eng, seed)
+        tick("programs")
+    finally:
+        eng.close()
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    _contiguous_launches(label, run["launches"], flash=False)
+    # a slot's length is absolute: past the ring's 4160 rows, and at least
+    # its prompt + the tokens it decoded (a retired slot keeps advancing,
+    # as in JAX, until its next prompt)
+    short = {i: lengths[r.slot] for i, r in run["reqs"].items() if lengths[r.slot] < len(prompts[i]) + RING_NEW - 1}
+    if short or min(lengths[r.slot] for r in run["reqs"].values()) <= 4160:
+        raise AssertionError(f"{label}lengths {lengths}: {short} short of prompt + {RING_NEW - 1}, or within 4160")
+    checked, exempt = _replay_gate(params, cfg, prompts, run["results"], TOKEN_GAP, label=label, verbose=False)
+    tick("gate")
+    del params
+    busy_ms, idle = run["busy_ms"], run["idle"]
+    out = {"tok_s": run["tok_s"], "ttft_p50_s": run["ttft_p50_s"], "ttft_max_s": run["ttft_max_s"],
+           "programs": run["chunks"], "steps": run["steps"], "verifies": verifies, "launches": run["launches"],
+           "lengths": lengths, "warmup_s": warm["warmup_s"],
+           "reserved_growth": warm["reserved_after"] - warm["reserved_before"], "program_ms": prog,
+           "busy_ms": busy_ms, "idle": idle, "decode_attention_layer_ms": attn,
+           "decode_attention_chunk_share": attn * cfg.n_layers * TL.DECODE_CHUNK / prog["llm.decode_chunk8"],
+           "decode_attention_burst_share": attn * cfg.n_layers * run["decode_steps"] / busy_ms,
+           "tokens_matched": checked, "tokens_exempt": exempt, "seconds": clock}
+    print(f"contiguous ring mistral_7b ({cfg.n_layers} of 32 layers) on {dev['smi']}: {len(prompts)} prompts of "
+          f"{list(RING_PROMPTS)} tokens x {RING_NEW}: {out['tok_s']:.1f} tok/s, ttft p50 {out['ttft_p50_s']:.3f}s max "
+          f"{out['ttft_max_s']:.3f}s; {out['programs']} programs ({out['steps']} unified steps, "
+          f"{run['decode_steps']} decode steps), {verifies} verifies; final lengths {lengths} (ring "
+          f"4160); device ms llm.decode_chunk8 {prog['llm.decode_chunk8']:.3f}, {step} {prog[step]:.3f}; busy "
+          f"{busy_ms:.1f} ms of {1e3 * run['wall_s']:.1f} ms wall (idle {100 * idle:.1f}%, CUDA events around "
+          f"every replay); plain decode attention {attn:.4f} ms a layer a step: "
+          f"{100 * out['decode_attention_chunk_share']:.1f}% of llm.decode_chunk8, "
+          f"{100 * out['decode_attention_burst_share']:.1f}% of the burst's busy time; warmup_s "
+          f"{warm['warmup_s']:.3f}, memory_reserved +{out['reserved_growth']}; {checked} tokens matched, {exempt} "
+          f"exempt; launches {run['launches']}; seconds " + ", ".join(f"{k} {v:.1f}" for k, v in clock.items()))
+    return out
+
+
+def phase_contiguous(dev: dict, seed: int) -> dict:
+    """The contiguous phase (see the module docstring). Returns each run's
+    readings and its kernel launches by label."""
+    out = {"dense": _contiguous_dense(dev, seed), "ring": _contiguous_ring(dev, seed)}
+    out["launches"] = {label: run["launches"] for label, run in out.items()}
     return out
 
 
@@ -3464,7 +3769,7 @@ def main() -> int:
     ap.add_argument("--parent", metavar="TREE",
                     help="also build another checkout's paged-decode kernels (e.g. the parent commit from "
                          "git archive) and time them beside this tree's on the same inputs")
-    ap.add_argument("--only", choices=("families", "moe"),
+    ap.add_argument("--only", choices=("families", "moe", "contiguous"),
                     help="build the kernels and run this one phase, which makes its own weights (prints no "
                          "kernels line and no result)")
     args = ap.parse_args()
@@ -3481,7 +3786,8 @@ def main() -> int:
 
     timed("build", phase_build)
     if args.only:
-        timed(args.only, {"families": phase_families, "moe": phase_moe}[args.only], dev, SEED)
+        timed(args.only, {"families": phase_families, "moe": phase_moe, "contiguous": phase_contiguous}[args.only],
+              dev, SEED)
         print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
         return 0
     kern = timed("kernels", phase_kernels, dev, SEED, build_parent(args.parent) if args.parent else None)
@@ -3506,6 +3812,7 @@ def main() -> int:
     del params  # Gemma-2B's weights; the families phase loads one model at a time
     families = timed("families", phase_families, dev, SEED)
     moe = timed("moe", phase_moe, dev, SEED)
+    contiguous = timed("contiguous", phase_contiguous, dev, SEED)
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     # name -> (source, replaced Pallas kernel, timing key, engine run whose
     # launches count, prefix phases' launches)
@@ -3528,6 +3835,7 @@ def main() -> int:
             "overload_launches": ovl["launches"][name], "lora_launches": lora["launches"][name],
             "families_launches": {label: n[name] for label, n in families["launches"].items()},
             "moe_launches": {label: n[name] for label, n in moe["launches"].items()},
+            "contiguous_launches": {label: n[name] for label, n in contiguous["launches"].items()},
             "max_abs_err": kern["errs"][name],
             "ms": t["ms"], "device_ms": t["device_ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],

@@ -15,12 +15,14 @@ Only what the port's engine has is accepted: the kwargs ``slots``,
 ``max_queue``, ``ttft_deadline_ms``, ``fair_queuing``, ``fair_weights``,
 ``fair_ledger``, ``preemption``, ``shed_predicted_wait_s``,
 ``brownout_wait_s``, ``brownout_max_new`` and ``brownout_hold_s``, the
-LoRA pool's ``lora_slots`` and ``lora_rank``, and
-``kv_paged=True`` or ``"auto"`` (the port's one layout: a windowed model,
-which the JAX ``"auto"`` serves from its rolling ring when window + slack
-< max_seq_len, is served paged here, with the same masks and tokens at
-O(max_seq_len) slot memory; ``kv_paged=False`` raises), and the config knobs
-``TPU_LLM_KV_INT8``, ``TPU_LLM_PREFIX_CACHE_MB``, ``TPU_LLM_SESSION_MB``,
+LoRA pool's ``lora_slots`` and ``lora_rank``, the KV layout's
+``kv_paged`` (``True``, ``False`` or ``"auto"``: the paged pool, or the
+contiguous layouts, the rolling ring for a windowed model where window +
+slack < max_seq_len and the dense slab otherwise; ``"auto"`` takes the
+ring where it engages and no session tier is asked for) and ``kv_window``
+(0 forces the dense slab), and the config knobs ``TPU_LLM_KV_PAGED`` ("0"
+means ``kv_paged=False``, anything else ``"auto"``, as in the JAX
+runtime), ``TPU_LLM_KV_INT8``, ``TPU_LLM_PREFIX_CACHE_MB``, ``TPU_LLM_SESSION_MB``,
 ``TPU_LLM_HOST_CACHE_MB``, ``TPU_LLM_SPEC``, ``TPU_LLM_SPEC_DRAFT``,
 ``TPU_LLM_CONSTRAINED``, ``TPU_LLM_CONSTRAINED_GRAMMARS``,
 ``TPU_LLM_FAIR``, ``TPU_LLM_PREEMPT``, ``TPU_LLM_SHED_WAIT_S``,
@@ -53,7 +55,7 @@ _ENGINE_KWARGS = (
     "prefix_cache_mb", "session_mb", "host_cache_mb", "speculative", "spec_draft", "constrained",
     "constrained_grammars", "max_queue", "ttft_deadline_ms", "fair_queuing", "fair_weights", "fair_ledger",
     "preemption", "shed_predicted_wait_s", "brownout_wait_s", "brownout_max_new", "brownout_hold_s",
-    "lora_slots", "lora_rank",
+    "lora_slots", "lora_rank", "kv_paged", "kv_window",
 )
 
 # Overload-control and LoRA knobs: config key -> (engine kwarg, parser of
@@ -74,7 +76,6 @@ _OVERLOAD_KNOBS = {
 _UNPORTED_KNOBS = {
     "TPU_LLM_STEP_TOKEN_BUDGET": (str(STEP_TOKEN_BUDGET),),
     "TPU_LLM_PREFILL_CHUNK": (str(PREFILL_CHUNK),),
-    "TPU_LLM_KV_PAGED": ("1",),
     "TPU_LLM_KV_BLOCK": (str(KV_BLOCK),),
     "TPU_LLM_STEP_WATCHDOG_S": ("0",),
     "TPU_LLM_NUMERIC_CHECK": ("1",),
@@ -101,6 +102,7 @@ class GPURuntime:
         self.logger = logger
         get = (lambda k: config.get_or_default(k, "")) if config is not None else (lambda k: "")
         self.default_device = get("TORCH_DEVICE") or None  # None: cuda
+        self.default_llm_kv_paged = get("TPU_LLM_KV_PAGED")
         self.default_llm_kv_int8 = get("TPU_LLM_KV_INT8")
         self.default_llm_prefix_cache_mb = float(get("TPU_LLM_PREFIX_CACHE_MB") or 0.0)
         self.default_llm_session_mb = get("TPU_LLM_SESSION_MB")
@@ -127,9 +129,10 @@ class GPURuntime:
         same engine, every expert on the one card: expert parallelism
         (the JAX runtime's sharding of the expert stacks under
         ``TPU_LLM_TP``) is not ported, and a ``TPU_LLM_TP`` degree above
-        1 stays refused."""
-        if engine_kw.pop("kv_paged", True) is False:
-            raise NotImplementedError("kv_paged=False: the port serves the paged KV pool only")
+        1 stays refused. ``kv_paged`` / ``TPU_LLM_KV_PAGED`` pick the KV
+        layout (the engine's ``kv_paged``); the contiguous layouts take no
+        ``prefix_cache_mb`` (the whole-row prefix cache is not ported) and
+        ignore ``kv_int8`` (``kvcache`` logs it)."""
         unknown = sorted(set(engine_kw) - set(_ENGINE_KWARGS))
         if unknown:
             raise NotImplementedError(f"register_llm: not ported: {', '.join(unknown)}")
@@ -137,6 +140,9 @@ class GPURuntime:
             v = self._knobs[knob]
             if v != "" and v not in fine:
                 raise NotImplementedError(f"{knob}={v}: not ported")
+        if self.default_llm_kv_paged != "":
+            # "1" means "auto", as the process-wide knob does
+            engine_kw.setdefault("kv_paged", False if self.default_llm_kv_paged == "0" else "auto")
         if self.default_llm_kv_int8 != "":
             engine_kw.setdefault("kv_int8", self.default_llm_kv_int8 != "0")
         engine_kw.setdefault("prefix_cache_mb", self.default_llm_prefix_cache_mb)
@@ -158,21 +164,15 @@ class GPURuntime:
                 engine_kw.setdefault(kwarg, parse(v))
         engine_kw.setdefault("device", self.default_device)
         engine = LLMEngine(cfg, params, **engine_kw)
-        window = getattr(cfg, "sliding_window", 0)
-        if window and window + max(engine.chunk_shapes + (engine.decode_chunk,)) < engine.max_seq_len \
-                and self.logger is not None:
-            # the JAX engine's kv_paged="auto" keeps its rolling ring here
-            # (O(window) slot memory); the port serves paged, with the same
-            # masks and tokens, at O(max_seq_len)
-            self.logger.info(f"LLM {name!r}: sliding window {window} served from the paged KV pool "
-                             f"(O(max_seq_len) slot memory; the rolling ring is not ported)")
         with self._lock:
             old = self._llms.get(name)
             self._llms[name] = engine
         if old is not None:
             old.close()
         if self.logger is not None:
-            self.logger.info(f"LLM {name!r} registered on {engine.device} ({cfg.n_layers} layers, d_model {cfg.d_model})")
+            kv = engine.kv.stats()
+            self.logger.info(f"LLM {name!r} registered on {engine.device} ({cfg.n_layers} layers, d_model {cfg.d_model}; "
+                             f"KV {kv['layout']}, capacity {kv['capacity']})")
         return engine
 
     def llm(self, name: str) -> LLMEngine:

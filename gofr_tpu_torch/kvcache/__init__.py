@@ -1,9 +1,21 @@
-"""KV memory manager (counterpart of gofr_tpu/kvcache, paged layout).
+"""KV memory manager (counterpart of gofr_tpu/kvcache).
 
-The JAX package's CacheManager picks between a paged pool, a rolling ring
-and a dense slab. The port keeps the serving default — the paged pool,
-bf16/f32 or int8 rows — with its radix prefix index and session tier, and
-the same sizing rules:
+``CacheManager`` picks the engine's KV layout as the JAX one does:
+
+- **paged** (the serving default for global-attention models): one pool
+  of ``block``-row blocks, bf16/f32 or int8 rows, read and written through
+  per-slot block tables, with its radix prefix index and session tier;
+- **contiguous** (``paged=False``, or ``"auto"`` on a windowed model):
+  the ROLLING ring [L, slots, window + append_slack, hkv, hd] when the
+  model has a sliding window and window + slack < max_seq_len (a slot
+  costs O(window) rows, not O(max_seq_len)), else the dense slab [L,
+  slots, max_seq_len, hkv, hd]. Rows are stored in the model dtype (no
+  int8), with no pool, radix tree or sessions; the JAX package's
+  whole-row ``PrefixCache`` over this layout is not ported.
+
+``paged="auto"`` (``paged_default()``, from ``TPU_LLM_KV_PAGED``) is
+contiguous exactly when the ring engages and no session tier is asked
+for. The paged sizing rules:
 
 - ``table_width = ceil(max_seq_len / block)`` entries per slot table;
 - ``capacity = table_width * block`` logical rows per slot;
@@ -11,7 +23,7 @@ the same sizing rules:
   sharing) plus the blocks of the retention budget (``prefix_cache_mb``)
   and of the session budget (``session_mb``);
 - one ``append_slack`` term (the widest append one device program can
-  make) in every admission reservation.
+  make) in every admission reservation, and in the ring's capacity.
 
 Sharing is on when either budget is above 0: admission consults the radix
 tree (``lookup_seed``), a slot's table points at shared full prefix
@@ -29,6 +41,8 @@ the tables, the radix and the sessions happens under ``_lock``.
 
 from __future__ import annotations
 
+import logging
+import os
 import threading
 import time
 from typing import Any, NamedTuple
@@ -51,7 +65,7 @@ from .paged import (
 from .sessions import HostOffload, SessionStore
 
 __all__ = [
-    "BlockPool", "CacheManager", "PoolExhausted", "RadixTree", "SeedPlan", "SlotTable", "copy_blocks",
+    "BlockPool", "CacheManager", "paged_default", "PoolExhausted", "RadixTree", "SeedPlan", "SlotTable", "copy_blocks",
     "dequantize_rows", "gather_blocks_host", "gather_slots", "quantize_rows", "scatter_rows",
 ]
 
@@ -69,9 +83,31 @@ class SeedPlan(NamedTuple):
     logits: Any  # stored last-token logits (exact hits skip prefill)
 
 
+def paged_default():
+    """The engine's default layout: ``"auto"`` unless ``TPU_LLM_KV_PAGED``
+    is "0", which asks for the contiguous layouts (JAX
+    ``paged_default``). ``"auto"`` resolves per model in CacheManager:
+    paged for global-attention models, the rolling ring for a windowed
+    model where it engages (the paged pool reclaims no block behind the
+    window, so paging there would trade the ring's O(window) slot bound
+    for O(max_seq_len)); ``paged=True`` pages a windowed model anyway."""
+    return "auto" if os.environ.get("TPU_LLM_KV_PAGED", "1") != "0" else False
+
+
 class CacheManager:
-    """Paged KV bookkeeping for one engine: pool, slot tables, and (when a
-    retention or session budget is set) the radix tree and sessions."""
+    """KV bookkeeping for one engine. Paged: pool, slot tables and (with a
+    retention or session budget) the radix tree and sessions. Contiguous
+    (``paged=False``, or ``"auto"`` where the ring engages and
+    ``session_mb`` is 0): the slab's geometry only, ``rolling``,
+    ``capacity`` (window + append_slack when rolling, else max_seq_len),
+    ``ring`` (the capacity when rolling, else 0), ``slot_bytes`` and
+    ``init_cache``.
+
+    ``window=None`` adopts ``cfg.sliding_window``; ``window=0`` forces the
+    dense slab on a windowed model (the JAX rolling-vs-dense lever); any
+    other value must equal the config's window. ``append_widths``: every
+    width one program can append (chunk shapes, the verify width); their
+    max with ``decode_chunk`` is the one slack term both layouts budget."""
 
     def __init__(
         self,
@@ -80,7 +116,9 @@ class CacheManager:
         max_seq_len: int,
         decode_chunk: int,
         *,
+        window: int | None = None,
         append_widths: tuple = (),
+        paged=True,
         block: int = 16,
         kv_int8: bool = False,
         prefix_cache_mb: float = 0.0,
@@ -90,15 +128,49 @@ class CacheManager:
         self.cfg = cfg
         self.slots = slots
         self.max_seq_len = max_seq_len
+        w = cfg.sliding_window if window is None else window
+        if w and w != cfg.sliding_window:
+            raise ValueError(
+                f"kv window {w} must match cfg.sliding_window {cfg.sliding_window} (attention masks use the config)"
+            )
+        self.window = int(w or 0)
         self.append_slack = max(tuple(int(x) for x in append_widths) + (int(decode_chunk),))
+        would_roll = 0 < self.window and self.window + self.append_slack < max_seq_len
+        if paged == "auto":
+            # the ring keeps its O(window) slot bound unless the session
+            # tier, which only the paged pool provides, is asked for
+            paged = not would_roll or session_mb > 0
+        self.paged = bool(paged)
+        itemsize = torch.empty((), dtype=cfg.dtype).element_size()
+        self._lock = threading.Lock()
+        if not self.paged:
+            if prefix_cache_mb > 0:
+                raise NotImplementedError(
+                    "prefix_cache_mb > 0 on the contiguous KV layout: the whole-row PrefixCache is not "
+                    "ported (ROADMAP queue 1 ID 8); use kv_paged=True for the radix prefix cache"
+                )
+            if kv_int8:
+                logging.getLogger(__name__).warning(
+                    "kv_int8 ignored: the contiguous KV layout stores rows in the model dtype"
+                )
+            self.rolling = would_roll
+            self.capacity = self.window + self.append_slack if self.rolling else max_seq_len
+            self.ring = self.capacity if self.rolling else 0  # 0: the dense slab
+            self.slot_bytes = 2 * cfg.n_layers * slots * self.capacity * cfg.n_kv_heads * cfg.head_dim * itemsize
+            self.block = self.table_width = 0
+            self.int8 = self.share = False
+            self.pool = self.radix = self.sessions = None
+            return
+        self.rolling = False
+        self.ring = 0
         self.block = int(block)
         self.table_width = -(-max_seq_len // self.block)
         self.capacity = self.table_width * self.block
         self.int8 = bool(kv_int8)
-        itemsize = 1 if self.int8 else torch.empty((), dtype=cfg.dtype).element_size()
+        kv_itemsize = 1 if self.int8 else itemsize
         rows = 2 * cfg.n_layers * self.block * cfg.n_kv_heads
         # an int8 row carries one float32 scale per (row, KV head)
-        self.block_bytes = rows * cfg.head_dim * itemsize + (rows * 4 if self.int8 else 0)
+        self.block_bytes = rows * cfg.head_dim * kv_itemsize + (rows * 4 if self.int8 else 0)
         retain_bytes = int(prefix_cache_mb * _MB)
         session_bytes = int(session_mb * _MB)
         # worst case with zero sharing (every slot fully grown), plus the
@@ -117,7 +189,20 @@ class CacheManager:
         self.sessions = (
             SessionStore(session_bytes, HostOffload(int(host_cache_mb * _MB))) if session_bytes > 0 else None
         )
-        self._lock = threading.Lock()
+
+    def init_cache(self, rows: int, device):
+        """A zeroed contiguous cache of ``rows`` slots at the planned
+        capacity: k/v [L, rows, capacity, hkv, hd] in the model dtype and
+        lengths [rows] (JAX ``init_cache``). The engine owns it."""
+        from ..models.transformer import KVCache
+
+        cfg = self.cfg
+        shape = (cfg.n_layers, rows, self.capacity, cfg.n_kv_heads, cfg.head_dim)
+        return KVCache(
+            k=torch.zeros(shape, dtype=cfg.dtype, device=device),
+            v=torch.zeros(shape, dtype=cfg.dtype, device=device),
+            length=torch.zeros((rows,), dtype=torch.int32, device=device),
+        )
 
     def pool_tensors(self, device):
         """Zeroed device pool [L, n_blocks, block, hkv, hd] (int8 when
@@ -299,9 +384,10 @@ class CacheManager:
         return self._slot_tables[slot].owner
 
     def take_tables(self) -> np.ndarray | None:
-        """The [slots, table_width] host mirror when it changed, else None."""
+        """The [slots, table_width] host mirror when it changed, else None
+        (always None on the contiguous layout)."""
         with self._lock:
-            if not self.tables_dirty:
+            if not self.paged or not self.tables_dirty:
                 return None
             for s, st in enumerate(self._slot_tables):
                 self._tables_np[s] = st.rows
@@ -468,9 +554,20 @@ class CacheManager:
             return len(held)
 
     def stats(self) -> dict:
+        if not self.paged:
+            return {
+                "layout": "rolling" if self.rolling else "dense",
+                "capacity": self.capacity,
+                "window": self.window,
+                "slot_bytes": self.slot_bytes,
+                "int8": False,
+                "prefix": None,
+                "sessions": None,
+            }
         with self._lock:
             return {
                 "layout": "paged",
+                "window": self.window,
                 "block": self.block,
                 "int8": self.int8,
                 "block_bytes": self.block_bytes,

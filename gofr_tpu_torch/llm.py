@@ -1,8 +1,23 @@
 """LLM serving engine (counterpart of gofr_tpu/llm.py, main path only).
 
 ``LLMEngine`` serves ``GenRequest``s from a scheduler thread and a
-collector thread over the paged KV pool, in the JAX engine's default
-configuration:
+collector thread over the KV layout ``kvcache.CacheManager`` resolves, in
+the JAX engine's default configuration:
+
+- the KV layout (``kv_paged``; ``None`` reads ``TPU_LLM_KV_PAGED``,
+  "auto" unless "0", as ``paged_default``): the paged pool for a
+  global-attention model, the ROLLING ring [L, slots, window + slack,
+  hkv, hd] for a windowed model whose window + slack < max_seq_len (no
+  session tier asked for), and with ``kv_paged=False`` the contiguous
+  layouts: that ring, or the dense slab [L, slots, max_seq_len, hkv, hd]
+  (``kv_window=0`` forces the slab on a windowed model). A contiguous
+  engine runs the same program families under the same names on
+  ``self.cache``: its step gathers the packed rows' slots, appends
+  through ``prefill_append(ring=)`` (flash on the slab, plain ring masks
+  on the ring) and writes the appended rows back; its decode is
+  ``decode_chunk`` (plain attention, as the JAX einsum) with the device
+  ``active`` flags and no paged ``live`` mask; its verify runs on the
+  cache in place. It has no blocks, tables, radix, sessions or int8 KV;
 
 - chunked prefill: prompts advance through unified device steps of
   {16, 64}-token chunks (the prefill buckets capped at PREFILL_CHUNK)
@@ -139,8 +154,8 @@ Left out of this slice (queued in ROADMAP.md): goodput and the
 tenant quota gate, flight recorder, KV handoff, the replica fleet (and
 with it the router's retry budget and a fleet-shared ledger), the
 metrics series of speculation, constrained decoding and overload (the
-port has no metrics manager), the contiguous KV layout and the
-monolithic wave scheduler.
+port has no metrics manager), the monolithic wave scheduler with the
+contiguous layout's whole-row prefix cache.
 """
 
 from __future__ import annotations
@@ -160,10 +175,10 @@ import numpy as np
 import torch
 
 from . import resolve_device
-from .kvcache import CacheManager, copy_blocks, gather_blocks_host, gather_slots, scatter_rows
+from .kvcache import CacheManager, copy_blocks, gather_blocks_host, gather_slots, paged_default, scatter_rows
 from .lora import AdapterPool, target_dims, validate_adapter, zero_tables
 from .models.quant import QTensor, is_quantized, quantize_params
-from .models.transformer import decode_chunk_paged, prefill_append, verify_chunk
+from .models.transformer import KVCache, _write_chunk_rows, decode_chunk, decode_chunk_paged, prefill_append, verify_chunk
 from .ops.attention import add_launches, capture_launches
 from .resilience import FairLedger, OverloadController
 from .spec import SPEC_DRAFT_DEFAULT, SPEC_EMA_ALPHA, NGramDrafter, draft_len
@@ -296,6 +311,26 @@ def _rows_at(stack: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     L, S, C, h, d = stack.shape
     idx = pos.long().clamp(0, C - 1)[None, :, :, None, None].expand(L, S, pos.shape[1], h, d)
     return torch.gather(stack, 2, idx)
+
+
+def _put_appended(stack: torch.Tensor, sub: torch.Tensor, slot_idx, cursors, n_new, c: int, ring: int) -> None:
+    """Write back the rows a unified step appended into its gathered slot
+    views ``sub`` [L, nb, C, h, d]: packed row j's rows i < n_new[j] (of
+    the step's ``c``) into slot slot_idx[j] of the contiguous ``stack`` [L,
+    S, C, h, d], IN PLACE, through ``_write_chunk_rows`` (at cursors + i,
+    mod ``ring`` on a ring). The JAX step writes the gathered rows back
+    whole; they differ from the slab only in these rows, so writing just
+    these computes the same slab, at c rows a slot instead of C. A slot in
+    no packed row appends nothing, and an inert padding lane (slot_idx =
+    S) matches no slot."""
+    L, S, C = stack.shape[:3]
+    hit = slot_idx.long()[:, None] == torch.arange(S, device=stack.device)[None, :]  # [nb, S]
+    lane = hit.int().argmax(dim=0)  # each slot's packed row (any, where none)
+    pos = cursors.long()[lane][:, None] + torch.arange(c, device=stack.device)[None, :]
+    rows = _rows_at(sub[:, lane], torch.remainder(pos, C))  # [L, S, c, h, d]
+    n = torch.where(hit.any(dim=0), n_new[lane], 0)
+    for i in range(L):
+        _write_chunk_rows(stack[i], rows[i], cursors[lane], n, ring)
 
 
 @dataclass(eq=False)  # identity semantics: requests are handles
@@ -596,9 +631,20 @@ _WARM_RUNS = 2  # eager runs on the capture stream before a capture
 
 
 class LLMEngine:
-    """Paged-KV serving engine with chunked prefill and fused decode
-    chunks. Runs on ``cuda`` unless ``device="cpu"`` is passed (the CPU
-    runs every kernel's plain version); raises without a GPU otherwise.
+    """Serving engine with chunked prefill and fused decode chunks. Runs on
+    ``cuda`` unless ``device="cpu"`` is passed (the CPU runs every
+    kernel's plain version); raises without a GPU otherwise.
+
+    ``kv_paged`` (``None`` reads ``TPU_LLM_KV_PAGED``: "auto" unless "0")
+    picks the KV layout as the JAX engine does: ``True`` the paged pool,
+    ``False`` the contiguous layouts (the rolling ring for a windowed
+    model where window + slack < max_seq_len, else the dense slab),
+    ``"auto"`` the ring where it engages and ``session_mb`` is 0, else
+    paged. ``kv_window=0`` forces the dense slab on a windowed model; any
+    other value must equal the config's window. A contiguous engine holds
+    its slab or ring in ``self.cache`` (``self.pool`` is None); it serves
+    no prefix cache (``prefix_cache_mb`` > 0 raises) and no sessions, and
+    ignores ``kv_int8``.
 
     ``quantize=True`` quantizes the params to int8 at construction unless
     they already are; ``kv_int8=True`` stores the KV pool as int8 rows
@@ -672,6 +718,8 @@ class LLMEngine:
         brownout_hold_s: float | None = None,
         lora_slots: int | None = None,
         lora_rank: int | None = None,
+        kv_paged=None,
+        kv_window: int | None = None,
     ):
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -725,17 +773,25 @@ class LLMEngine:
         )
         widths = self.chunk_shapes + ((self.spec_draft + 1,) if self.speculative else ())
         self.kv = CacheManager(
-            cfg, slots, max_seq_len, DECODE_CHUNK, append_widths=widths, block=KV_BLOCK,
+            cfg, slots, max_seq_len, DECODE_CHUNK, window=kv_window, append_widths=widths,
+            paged=paged_default() if kv_paged is None else kv_paged, block=KV_BLOCK,
             kv_int8=kv_int8, prefix_cache_mb=prefix_cache_mb, session_mb=session_mb,
             host_cache_mb=host_cache_mb,
         )
         dev = self.device
-        # device-resident state, written IN PLACE by the programs: the
-        # paged pool (+ per-slot lengths, and the int8 pool's scales), the
-        # chain tail, active mask and temperatures. active is never cleared
-        # on retire: the live mask keeps a retired slot from advancing or
-        # writing.
-        self.pool, self.pool_scales = self.kv.pool_tensors(dev)
+        # device-resident state, written IN PLACE by the programs: the KV
+        # cache (+ per-slot lengths; the paged pool, with an int8 pool's
+        # scales, or the contiguous slab or ring), the chain tail, active
+        # mask and temperatures. active is never cleared on retire: on the
+        # paged pool the live mask keeps a retired slot from advancing or
+        # writing; a contiguous slot advances until its next prompt's
+        # first step clears it, as in JAX (its rows are masked)
+        if self.kv.paged:
+            self.pool, self.pool_scales = self.kv.pool_tensors(dev)
+            self.cache = self.pool
+        else:
+            self.pool = self.pool_scales = None
+            self.cache = self.kv.init_cache(slots, dev)
         self._tail = torch.zeros((slots,), dtype=torch.int32, device=dev)
         self._active = torch.zeros((slots,), dtype=torch.bool, device=dev)
         self._temps = torch.zeros((slots,), dtype=torch.float32, device=dev)
@@ -903,9 +959,10 @@ class LLMEngine:
         if req.max_new_tokens - req.emitted > room:
             req.max_new_tokens = room + req.emitted
             req.capped = True
-        need = self.kv.reserve_need(plen, req.max_new_tokens - req.emitted)
-        if need > self.kv.pool.n_blocks:
-            raise ValueError(f"request needs {need} KV blocks, pool holds {self.kv.pool.n_blocks}")
+        if self.kv.paged:  # a contiguous slot holds its whole capacity
+            need = self.kv.reserve_need(plen, req.max_new_tokens - req.emitted)
+            if need > self.kv.pool.n_blocks:
+                raise ValueError(f"request needs {need} KV blocks, pool holds {self.kv.pool.n_blocks}")
         if req.grammar is not None:  # JAX llm.py:2479-2497
             if not self.constrained:
                 raise ValueError(
@@ -1010,6 +1067,7 @@ class LLMEngine:
                 "overload": self.overload.snapshot(),
                 "fairness": self.ledger.snapshot() if self.ledger is not None else None,
                 "chunk_shapes": self.chunk_shapes,
+                "kv_paged": self.kv.paged,
                 "spec": self._spec_summary(),
                 "constrained": self._constrained_summary(),
                 "adapters": {
@@ -1185,7 +1243,7 @@ class LLMEngine:
             slot = r.slot
             if slot is not None and self._slot_req[slot] is r:
                 self._slot_req[slot] = None
-            if slot is not None and self.kv.slot_owner(slot) is r:
+            if slot is not None and self.kv.paged and self.kv.slot_owner(slot) is r:
                 if self.kv.share and r.session_id and r._aid == 0 and reason in ("eos", "length"):
                     self._session_pub.append((slot, r))
                 else:
@@ -1329,6 +1387,9 @@ class LLMEngine:
                     )
                     r._kv_plan = plan
                     plen, new = len(r.prompt_tokens), r.max_new_tokens - r.emitted
+                    if not self.kv.paged:  # a contiguous slot holds its whole capacity
+                        rest.append(r)
+                        continue
                     if not self.kv.admit_reserve(plen, new, plan):
                         self._kv_release_plan(r)
                         blocked.append(r)
@@ -1383,8 +1444,13 @@ class LLMEngine:
     def _kv_attach(self, r: GenRequest, slot: int, plan) -> dict:
         """Bind the slot's block table to ``r`` and its seed plan (adopting
         the plan's pins); releases a virtually free predecessor's blocks
-        (see ``_finish``)."""
+        (see ``_finish``). A contiguous slot has no table: its rows are
+        bounded by max_seq_len (the ring's lengths are absolute)."""
         plen, new = len(r.prompt_tokens), r.max_new_tokens - r.emitted
+        if not self.kv.paged:
+            r._kv_limit = self.max_seq_len
+            r._kv_resv = 0
+            return {"copies": [], "seed_len": 0}
         if plan is None:
             self.kv.attach(slot, r, plen, new)
             info = {"copies": [], "seed_len": 0}
@@ -1612,7 +1678,7 @@ class LLMEngine:
         slot = r.slot
         if slot is not None and self._slot_req[slot] is r:
             self._slot_req[slot] = None
-            if self.kv.slot_owner(slot) is r:
+            if self.kv.paged and self.kv.slot_owner(slot) is r:
                 self.kv.release_slot(slot, r)
                 self._kv_hi[slot] = 0
         r.slot = None
@@ -1808,7 +1874,10 @@ class LLMEngine:
 
     def _grow(self, slot: int, r: GenRequest, hi: int) -> None:
         """Raise a slot's block watermark to ``hi`` rows (bounded by the
-        request's worst case) and materialize the blocks."""
+        request's worst case) and materialize the blocks (paged only: a
+        contiguous slot holds its rows from the start)."""
+        if not self.kv.paged:
+            return
         self._kv_hi[slot] = min(max(self._kv_hi[slot], hi), r._kv_limit or self.kv.capacity)
         self.kv.ensure(slot, self._kv_hi[slot])
 
@@ -2615,7 +2684,10 @@ class LLMEngine:
         write nothing but the tail, which is restored. A capture failure
         raises: nothing falls back to eager ops. A constrained family's
         inputs also name no grammar (gids and meta rows -1), a LoRA
-        engine's no adapter (aids 0)."""
+        engine's no adapter (aids 0). A contiguous decode advances its
+        active slots with no live mask, so the lengths are restored too:
+        the merge rows the warm-up runs wrote sit at or above each length
+        (outside every window on a ring), as the next real merge's do."""
         fn, kind, arg = self._program(name)
         g = name in self._programs_g
         gids = np.full((self.slots,), -1, np.int32) if g else None
@@ -2638,10 +2710,11 @@ class LLMEngine:
                 )
             else:
                 self._in.write_seed(self._inert_seed())
-            tail = self._tail.clone()
+            tail, length = self._tail.clone(), self.cache.length.clone()
             for _ in range(_WARM_RUNS):
                 fn()
             self._tail.copy_(tail)
+            self.cache.length.copy_(length)
             graph = torch.cuda.CUDAGraph()
             graph.register_generator_state(self._gen)  # each replay draws fresh uniforms
             with capture_launches() as tally, torch.cuda.graph(
@@ -2668,33 +2741,44 @@ class LLMEngine:
         raw ones.
 
         On a LoRA engine every prefill row and decode lane adds its
-        adapter's delta, selected by the staged per-slot ids."""
+        adapter's delta, selected by the staged per-slot ids.
+
+        On a contiguous engine (JAX ``_make_step_op``) the packed rows'
+        slots are gathered from the slab or ring, the append runs with
+        ``ring=`` and only the appended rows go back (``_put_appended``);
+        the decode part is ``decode_chunk``."""
         dev, cfg, slots, sc = self.device, self.cfg, self.slots, self.pool_scales
         cap = self.kv.capacity
         pack_t, meta_t = self._in.pack(shape, nb), self._in.meta(nb, 4 if g else 2)
-        tables = self._in.tables()
         tokens = pack_t[:, :shape]
         cursors = pack_t[:, shape].contiguous()
         n_new = pack_t[:, shape + 1].contiguous()
         req_temps = pack_t[:, shape + 2].contiguous().view(torch.float32)
         slot_idx, finish = meta_t[0], meta_t[1]
         row_slot = slot_idx.clamp(0, slots - 1).long()  # padding lanes (slot_idx = slots) clamp
-        tsub = tables[row_slot]
-        sub = gather_slots(
-            self.pool.k, self.pool.v, tsub, cursors,
-            scales=None if sc is None else (sc[0], sc[1]), dtype=cfg.dtype,
-        )
         # each packed row's adapter: its slot's staged id (JAX llm.py:1417)
         aids = self._in.aids()[row_slot] if self.lora_slots else None
-        logits, sub2 = prefill_append(self.params, cfg, tokens, sub, cursors, n_new, aids=aids)
-        ar = torch.arange(shape, device=dev)[None, :]
-        pos_a = cursors[:, None].long() + ar
-        valid_a = (ar < n_new[:, None]) & (pos_a < cap)
-        scatter_rows(
-            self.pool.k, self.pool.v, tsub,
-            _rows_at(sub2.k, pos_a), _rows_at(sub2.v, pos_a), pos_a, valid_a, scales=sc,
-        )
-        _scatter_slots(self.pool.length, slot_idx, cursors + n_new)
+        if self.kv.paged:
+            tsub = self._in.tables()[row_slot]
+            sub = gather_slots(
+                self.pool.k, self.pool.v, tsub, cursors,
+                scales=None if sc is None else (sc[0], sc[1]), dtype=cfg.dtype,
+            )
+            logits, sub2 = prefill_append(self.params, cfg, tokens, sub, cursors, n_new, aids=aids)
+            ar = torch.arange(shape, device=dev)[None, :]
+            pos_a = cursors[:, None].long() + ar
+            valid_a = (ar < n_new[:, None]) & (pos_a < cap)
+            scatter_rows(
+                self.pool.k, self.pool.v, tsub,
+                _rows_at(sub2.k, pos_a), _rows_at(sub2.v, pos_a), pos_a, valid_a, scales=sc,
+            )
+        else:
+            ring, c = self.kv.ring, self.cache
+            sub = KVCache(k=c.k[:, row_slot], v=c.v[:, row_slot], length=cursors)
+            logits, sub2 = prefill_append(self.params, cfg, tokens, sub, cursors, n_new, aids=aids, ring=ring)
+            _put_appended(c.k, sub2.k, slot_idx, cursors, n_new, shape, ring)
+            _put_appended(c.v, sub2.v, slot_idx, cursors, n_new, shape, ring)
+        _scatter_slots(self.cache.length, slot_idx, cursors + n_new)
         if g:
             rows_g, on_r = _g_rows(self._gtab, meta_t[2], meta_t[3])
             on_r = on_r & (finish == 1)
@@ -2703,6 +2787,10 @@ class LLMEngine:
         else:
             first = self._sample(logits, req_temps, self._gen)
         fin_slot = torch.where(finish == 1, slot_idx, slots)
+        # a mid-prefill row clears its slot's active flag, which may still
+        # be set by the slot's previous occupant: on a ring the decode
+        # merge would otherwise advance the length between two appends
+        # and wrap over this prompt's in-window rows (JAX llm.py:1445)
         mid_slot = torch.where(finish == 1, slots, slot_idx)
         _scatter_slots(self._active, mid_slot, False)
         _scatter_slots(self._tail, fin_slot, first)
@@ -2719,17 +2807,25 @@ class LLMEngine:
         device tail (the decode part of a step, and the chunk program):
         returns tokens [k, slots] and advances the tail — and with ``g``
         the slots' DFA states, sampling through ``_g_sample`` with the
-        staged grammar ids — in place."""
+        staged grammar ids — in place. A contiguous engine decodes every
+        active slot (no live mask: JAX llm.py:1753) through
+        ``decode_chunk``."""
         sample_fn, state = self._sample, None
         if g:
             gtab, gids = self._gtab, self._in.gids()
             sample_fn, state = (lambda lg, tp, gen, st: _g_sample(lg, tp, gen, gtab, gids, st)), self._gstate
-        out = decode_chunk_paged(
-            self.params, self.cfg, self._tail, self.pool, self._in.tables(),
-            self._active & self._in.live(), self._temps, self._gen, n_steps=k,
-            sample_fn=sample_fn, block=self.kv.block, scales=self.pool_scales, sample_state=state,
-            aids=self._in.aids() if self.lora_slots else None,
-        )
+        aids = self._in.aids() if self.lora_slots else None
+        if self.kv.paged:
+            out = decode_chunk_paged(
+                self.params, self.cfg, self._tail, self.pool, self._in.tables(),
+                self._active & self._in.live(), self._temps, self._gen, n_steps=k,
+                sample_fn=sample_fn, block=self.kv.block, scales=self.pool_scales, sample_state=state, aids=aids,
+            )
+        else:
+            out = decode_chunk(
+                self.params, self.cfg, self._tail, self.cache, self._active, self._temps, self._gen,
+                n_steps=k, sample_fn=sample_fn, ring=self.kv.ring, sample_state=state, aids=aids,
+            )
         self._tail.copy_(out[1])  # the next program reads it at the same address
         if g:
             self._gstate.copy_(out[3])
@@ -2784,22 +2880,33 @@ class LLMEngine:
         ``g=True`` is ``llm.step_v{W}g`` (JAX ``_make_paged_verify_op_c``):
         position i is masked at the DFA state after the first i draft
         tokens, and a selected slot's state advances to the accepted
-        state plus the bonus token."""
+        state plus the bonus token.
+
+        A contiguous engine (JAX ``_verify``) appends on its slab or ring
+        in place (``ring=``): the rejected rows stay above the length, on a
+        ring one lap behind their position and outside every window
+        (``chunk_prefill_attention``'s rollback contract)."""
         Kd, cfg, sc = self.spec_draft, self.cfg, self.pool_scales
-        vp, tables, length = self._in.verify(), self._in.tables(), self.pool.length
+        vp, length = self._in.verify(), self.cache.length
         drafts, n_draft, sel = vp[:, :Kd], vp[:, Kd], vp[:, Kd + 1] == 1
         n_in = torch.where(sel, n_draft + 1, 0)
         toks = torch.cat([self._tail[:, None], drafts], dim=1)
-        dense = gather_slots(
-            self.pool.k, self.pool.v, tables, length,
-            scales=None if sc is None else (sc[0], sc[1]), dtype=cfg.dtype,
-        )
         aids = self._in.aids() if self.lora_slots else None
-        logits, nd = verify_chunk(self.params, cfg, toks, dense, length, n_in, aids=aids)
         j = torch.arange(Kd + 1, device=self.device)[None, :]
-        pos = length[:, None].long() + j
-        valid = (j < n_in[:, None]) & (pos < self.kv.capacity)
-        scatter_rows(self.pool.k, self.pool.v, tables, _rows_at(nd.k, pos), _rows_at(nd.v, pos), pos, valid, scales=sc)
+        if self.kv.paged:
+            tables = self._in.tables()
+            dense = gather_slots(
+                self.pool.k, self.pool.v, tables, length,
+                scales=None if sc is None else (sc[0], sc[1]), dtype=cfg.dtype,
+            )
+            logits, nd = verify_chunk(self.params, cfg, toks, dense, length, n_in, aids=aids)
+            pos = length[:, None].long() + j
+            valid = (j < n_in[:, None]) & (pos < self.kv.capacity)
+            scatter_rows(
+                self.pool.k, self.pool.v, tables, _rows_at(nd.k, pos), _rows_at(nd.v, pos), pos, valid, scales=sc,
+            )
+        else:
+            logits, _ = verify_chunk(self.params, cfg, toks, self.cache, length, n_in, aids=aids, ring=self.kv.ring)
         if g:
             gtab, gids = self._gtab, self._in.gids()
             st, states, ys_list = self._gstate, [self._gstate], []

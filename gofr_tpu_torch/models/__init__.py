@@ -6,6 +6,7 @@ from .quant import QTensor, init_params_quantized, is_quantized, qmm, qmm_a8, qu
 from .transformer import (
     KVCache,
     TransformerConfig,
+    decode_chunk,
     decode_chunk_paged,
     init_params,
     param_specs,
@@ -19,6 +20,7 @@ __all__ = [
     "KVCache",
     "QTensor",
     "TransformerConfig",
+    "decode_chunk",
     "decode_chunk_paged",
     "init_params",
     "init_params_quantized",

@@ -43,11 +43,13 @@ package, prefill chunks and the full-prompt forward run W8A8 products
 tensors take a plain ``x @ w`` either way.
 
 Serving entry points: ``prefill_append`` (one chunked-prefill append into
-a gathered per-slot view, write-then-attend through ``flash_attention``),
-``verify_chunk`` (the same append, every position unembedded: a
-speculative draft's scores) and ``decode_chunk_paged`` (fused decode steps
-reading the paged pool, bf16/f32 or int8, through
-``paged_decode_partials``). W8A8 products for int8 weights in both appends.
+a gathered per-slot view, write-then-attend through ``flash_attention``,
+or on a rolling ring through the plain ring masks), ``verify_chunk`` (the
+same append, every position unembedded: a speculative draft's scores),
+``decode_chunk_paged`` (fused decode steps reading the paged pool,
+bf16/f32 or int8, through ``paged_decode_partials``) and ``decode_chunk``
+(the same steps over a contiguous dense slab or rolling ring, plain
+attention as in JAX). W8A8 products for int8 weights in both appends.
 ``transformer_forward`` is the plain oracle: dense causal attention
 through ``mha_reference``, no kernels.
 """
@@ -65,6 +67,7 @@ import torch.nn.functional as F
 from .. import resolve_device
 from ..ops import (
     apply_rope,
+    chunk_decode_attention,
     chunk_prefill_attention,
     mha_reference,
     paged_chunk_decode_attention,
@@ -487,29 +490,39 @@ def transformer_forward(
     return _unembed(params, cfg, x)
 
 
-def _write_chunk_rows(cache_l, rows, cursors, n_new) -> None:
-    """cache_l[b, cursors[b] + i] = rows[b, i] for i < n_new[b], IN PLACE
-    (the JAX code's masked scatter; the gathered slot view is a private
-    tensor, so writing it saves a copy). Lanes i >= n_new and positions
-    past the capacity write nothing. Computed as a gather + select over
-    the whole view, which needs no host sync."""
+def _write_chunk_rows(cache_l, rows, cursors, n_new, ring: int = 0) -> None:
+    """cache_l[b, p] = rows[b, i] for i < n_new[b], IN PLACE, at p =
+    cursors[b] + i (dense: a row past the capacity writes nothing) or
+    (cursors[b] + i) mod ring (the rolling ring): the JAX code's masked
+    scatter, whose lanes i >= n_new drop. Only the chunk's c rows a
+    sequence are touched, by one ``index_copy_`` with no host sync: within
+    a sequence the targets (cursors + i) mod capacity are distinct
+    (c <= capacity), and a lane that writes nothing puts back the row it
+    read."""
     b, cap, hkv, hd = cache_l.shape
     c = rows.shape[1]
-    p = torch.arange(cap, device=cache_l.device)[None, :]
-    j = p - cursors.long()[:, None]  # chunk row landing at position p
-    sel = (j >= 0) & (j < n_new.long()[:, None])
-    src = torch.gather(rows, 1, j.clamp(0, c - 1)[..., None, None].expand(b, cap, hkv, hd))
-    torch.where(sel[..., None, None], src.to(cache_l.dtype), cache_l, out=cache_l)
+    if c > cap:
+        raise ValueError(f"a chunk of {c} rows does not fit a cache of {cap} rows")
+    i = torch.arange(c, device=cache_l.device)[None, :]
+    pos = cursors.long()[:, None] + i
+    sel = i < n_new.long()[:, None]
+    if ring <= 0:
+        sel = sel & (pos < cap)
+    flat = (torch.arange(b, device=cache_l.device)[:, None] * cap + torch.remainder(pos, cap)).reshape(-1)
+    view = cache_l.view(b * cap, hkv, hd)
+    src = rows.reshape(b * c, hkv, hd).to(cache_l.dtype)
+    view.index_copy_(0, flat, torch.where(sel.reshape(-1, 1, 1), src, view[flat]))
 
 
-def _append_forward(params, cfg, tokens, cache: KVCache, cursors, n_new, aids=None):
+def _append_forward(params, cfg, tokens, cache: KVCache, cursors, n_new, aids=None, ring: int = 0):
     """Shared write-then-attend chunk append: write the chunk's K/V rows at
-    each row's cursor, attend over all resident keys + the chunk's causal
-    triangle, return the final hidden states [b, c, d] and the (k, v)
-    stacks, which are ``cache``'s own tensors updated in place. The chunk's
-    own rows are written unquantized; int8 weights run W8A8. ``aids`` [b]:
-    each packed row's adapter id (explicit, as in JAX: a unified step's
-    rows are not the slots)."""
+    each row's cursor (mod ``ring`` on a rolling ring), attend over all
+    resident keys + the chunk's causal triangle, return the final hidden
+    states [b, c, d] and the (k, v) stacks, which are ``cache``'s own
+    tensors updated in place. The chunk's own rows are written
+    unquantized; int8 weights run W8A8. ``aids`` [b]: each packed row's
+    adapter id (explicit, as in JAX: a unified step's rows are not the
+    slots)."""
     b, c = tokens.shape
     positions = cursors.long()[:, None] + torch.arange(c, device=tokens.device)[None, :]
     sel = lora_select(params, aids)
@@ -519,11 +532,11 @@ def _append_forward(params, cfg, tokens, cache: KVCache, cursors, n_new, aids=No
         kc, vc = cache.k[i], cache.v[i]  # [b, capacity, hkv, hd]
         h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
         q, k_new, v_new = _qkv(cfg, h, lp, positions, qmm_a8, sel)
-        _write_chunk_rows(kc, k_new, cursors, n_new)
-        _write_chunk_rows(vc, v_new, cursors, n_new)
+        _write_chunk_rows(kc, k_new, cursors, n_new, ring)
+        _write_chunk_rows(vc, v_new, cursors, n_new, ring)
         attn = chunk_prefill_attention(
             q.contiguous(), kc, vc, cursors.to(torch.int32),
-            logit_cap=cfg.attn_logit_cap, window=cfg.sliding_window,
+            logit_cap=cfg.attn_logit_cap, window=cfg.sliding_window, ring=ring,
         )
         x = _attn_out(cfg, x, attn, lp, qmm_a8, sel)
         h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
@@ -540,14 +553,17 @@ def prefill_append(
     cursors: torch.Tensor,  # [b] int32 — prompt tokens already resident
     n_new: torch.Tensor,  # [b] int32 — valid tokens in this chunk (<= c)
     aids: torch.Tensor | None = None,  # [b] per-row adapter ids (LoRA)
+    *,
+    ring: int = 0,  # >0: the cache is a rolling ring of this capacity
 ) -> tuple[torch.Tensor, KVCache]:
     """Append one prefill chunk into a per-slot KV view (the chunked-prefill
-    half of the engine's unified step). Rows i >= n_new write nothing.
-    Returns (last-valid-token logits [b, vocab] f32, the cache with its
-    k/v written in place and length = cursors + n_new). Rows with
-    n_new == 0 return garbage logits."""
+    half of the engine's unified step). Rows i >= n_new write nothing; on
+    a rolling ring chunk row i lands at (cursor + i) mod ring. Returns
+    (last-valid-token logits [b, vocab] f32, the cache with its k/v
+    written in place and length = cursors + n_new). Rows with n_new == 0
+    return garbage logits."""
     b, c = tokens.shape
-    x, (ks, vs) = _append_forward(params, cfg, tokens, cache, cursors, n_new, aids)
+    x, (ks, vs) = _append_forward(params, cfg, tokens, cache, cursors, n_new, aids, ring)
     last = torch.clamp(n_new.long() - 1, 0, c - 1)
     x_last = torch.gather(x, 1, last[:, None, None].expand(-1, 1, x.shape[-1]))
     logits = _unembed_last(params, cfg, x_last)
@@ -563,18 +579,127 @@ def verify_chunk(
     cursors: torch.Tensor,  # [b] int32 — tokens already resident
     n_new: torch.Tensor,  # [b] int32 — valid tokens (1 + drafts; <= c)
     aids: torch.Tensor | None = None,  # [b] per-row adapter ids (LoRA)
+    *,
+    ring: int = 0,  # >0: the cache is a rolling ring of this capacity
 ) -> tuple[torch.Tensor, KVCache]:
     """Score every position of a speculative draft in ONE forward pass:
     the same write-then-attend chunk append as ``prefill_append``, so
     position i sees exactly the keys a sequential decode of
     tokens[:i + 1] would, but ALL c positions are unembedded. Rows the
     engine rejects sit above its rolled-back cursor, causally masked
-    until the next append overwrites them. Returns (per-position logits
-    [b, c, vocab] f32, the cache written in place with length = cursors
-    + n_new); positions >= n_new carry garbage logits."""
-    x, (ks, vs) = _append_forward(params, cfg, tokens, cache, cursors, n_new, aids)
+    until the next append overwrites them (on a ring they read one lap
+    behind, outside every window). Returns (per-position logits [b, c,
+    vocab] f32, the cache written in place with length = cursors +
+    n_new); positions >= n_new carry garbage logits."""
+    x, (ks, vs) = _append_forward(params, cfg, tokens, cache, cursors, n_new, aids, ring)
     logits = _unembed(params, cfg, rms_norm(x, params["final_norm"], cfg.norm_eps))
     return logits, KVCache(k=ks, v=vs, length=(cursors + n_new).to(torch.int32))
+
+
+def _decode_steps(params, cfg, tokens, lengths, temps, generator, n_steps, sample_fn, sample_state, aids, attend):
+    """The fused steps of a decode chunk, shared by both layouts: each step
+    embeds the last tokens at positions lengths + step, writes its K/V at
+    the UNIFORM position ``step`` of a fresh [L, b, n_steps, hkv, hd]
+    buffer (JAX: dynamic_update_slice into a carried buffer; fresh each
+    call, so a captured chunk keeps it in its graph's private memory
+    pool), attends through ``attend(layer, q, kb_l, vb_l, step)`` and
+    samples (statefully with ``sample_state``). Returns (tokens [n_steps,
+    b] int32, last [b] int32, kb, vb, final sample state)."""
+    L, b = cfg.n_layers, tokens.shape[0]
+    hkv, hd = cfg.n_kv_heads, cfg.head_dim
+    kb = torch.zeros((L, b, n_steps, hkv, hd), dtype=cfg.dtype, device=tokens.device)
+    vb = torch.zeros((L, b, n_steps, hkv, hd), dtype=cfg.dtype, device=tokens.device)
+    tok, sstate = tokens, sample_state
+    sel = lora_select(params, aids)
+    out = []
+    for k_i in range(n_steps):
+        positions = (lengths.long() + k_i)[:, None]  # [b, 1]
+        x = _embed_tokens(params, cfg, tok[:, None])
+        for i in range(L):
+            lp = _layer(params, i)
+            h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+            q, k_new, v_new = _qkv(cfg, h, lp, positions, qmm, sel)
+            kb[i, :, k_i] = k_new[:, 0]
+            vb[i, :, k_i] = v_new[:, 0]
+            attn = attend(i, q, kb[i], vb[i], k_i)
+            x = _attn_out(cfg, x, attn, lp, qmm, sel)
+            h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
+            x = x + _mlp(cfg, h, lp, qmm, sel)
+        logits = _unembed_last(params, cfg, x)
+        if sample_state is None:
+            tok = sample_fn(logits, temps, generator).to(torch.int32)
+        else:
+            tok, sstate = sample_fn(logits, temps, generator, sstate)
+            tok = tok.to(torch.int32)
+        out.append(tok)
+    return torch.stack(out), tok, kb, vb, sstate
+
+
+@torch.no_grad()
+def decode_chunk(
+    params: dict,
+    cfg: TransformerConfig,
+    tokens: torch.Tensor,  # [b] last sampled token per sequence
+    cache: KVCache,  # k/v [L, b, capacity, hkv, hd] slot slab or ring; length [b] int32
+    active: torch.Tensor,  # [b] bool — only active slots advance their length
+    temps: torch.Tensor,  # [b] f32 sampling temperatures
+    generator: torch.Generator | None,
+    *,
+    n_steps: int,
+    sample_fn,  # (logits [b, vocab] f32, temps [b], generator) -> tokens [b]
+    ring: int = 0,  # >0: the cache is a rolling ring of this capacity
+    sample_state=None,  # stateful sampler's carried state (as decode_chunk_paged)
+    aids: torch.Tensor | None = None,  # [b] per-slot adapter ids (LoRA)
+) -> tuple:
+    """``n_steps`` fused decode steps against a CONTIGUOUS per-slot cache
+    (JAX ``decode_chunk``): the dense slab [L, b, max_seq_len, hkv, hd],
+    or with ``ring`` > 0 the rolling ring [L, b, window + slack, hkv, hd].
+
+    The cache is read-only inside the chunk: each step writes its K/V at
+    the uniform position ``step`` of the chunk buffer, and attention spans
+    cache and buffer with one joint softmax (``chunk_decode_attention``,
+    plain PyTorch as the JAX einsums are). The buffer merges ONCE at chunk
+    end, for every slot (an inactive slot's rows are garbage its length
+    never covers, and a free slot is rewritten by its next prompt):
+
+    - dense: at [min(length, capacity - K), + K), lengths of active slots
+      advancing to min(length + K, capacity);
+    - ring: at (length + i) mod ring, overwriting exactly the K oldest
+      rows, which ring >= window + K keeps outside every later window;
+      lengths stay ABSOLUTE, so RoPE and the window masks stay exact.
+
+    The cache tensors and ``cache.length`` are written IN PLACE. No host
+    synchronisation, so a CUDA graph captures it. ``sample_state`` and
+    ``aids`` as ``decode_chunk_paged``. Returns (tokens [n_steps, b]
+    int32, last [b] int32, cache) [+ the final sample state when one was
+    passed]."""
+    L, b = cfg.n_layers, tokens.shape[0]
+    hkv, hd = cfg.n_kv_heads, cfg.head_dim
+    K, C = n_steps, cache.k.shape[2]
+    lengths = cache.length
+
+    def attend(i, q, kb_l, vb_l, k_i):
+        return chunk_decode_attention(
+            q, cache.k[i], cache.v[i], kb_l, vb_l, lengths, k_i,
+            logit_cap=cfg.attn_logit_cap, window=cfg.sliding_window, ring=ring,
+        )
+
+    toks, last, kb, vb, sstate = _decode_steps(
+        params, cfg, tokens, lengths, temps, generator, K, sample_fn, sample_state, aids, attend,
+    )
+    ar = torch.arange(K, device=tokens.device)[None, :]
+    if ring > 0:
+        rows = torch.remainder(lengths.long()[:, None] + ar, ring)
+        new_len = torch.where(active, lengths + K, lengths)
+    else:
+        rows = torch.clamp(lengths.long(), max=C - K)[:, None] + ar
+        new_len = torch.where(active, torch.clamp(lengths + K, max=C), lengths)
+    flat = (torch.arange(b, device=tokens.device)[:, None] * C + rows).reshape(-1)  # distinct: K <= C
+    for stack, buf in ((cache.k, kb), (cache.v, vb)):
+        stack.view(L, b * C, hkv, hd).index_copy_(1, flat, buf.reshape(L, b * K, hkv, hd).to(stack.dtype))
+    lengths.copy_(new_len.to(lengths.dtype))
+    out = (toks, last, cache)
+    return out if sample_state is None else out + (sstate,)
 
 
 @torch.no_grad()
@@ -623,46 +748,21 @@ def decode_chunk_paged(
     sample state when one was passed]."""
     from ..kvcache.paged import scatter_rows
 
-    L, b = cfg.n_layers, tokens.shape[0]
-    hkv, hd = cfg.n_kv_heads, cfg.head_dim
     K = n_steps
     dev = tokens.device
-    # the chunk buffer is written in place at step k_i (JAX:
-    # dynamic_update_slice into a carried buffer); fresh each call, so a
-    # captured chunk keeps it in its graph's private memory pool
-    kb = torch.zeros((L, b, K, hkv, hd), dtype=cfg.dtype, device=dev)
-    vb = torch.zeros((L, b, K, hkv, hd), dtype=cfg.dtype, device=dev)
     lengths = pool.length
-    tok = tokens
-    sstate = sample_state
-    sel = lora_select(params, aids)
-    out = []
-    for k_i in range(K):
-        positions = (lengths.long() + k_i)[:, None]  # [b, 1]
-        x = _embed_tokens(params, cfg, tok[:, None])
-        for i in range(L):
-            lp = _layer(params, i)
-            h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-            q, k_new, v_new = _qkv(cfg, h, lp, positions, qmm, sel)
-            kb[i, :, k_i] = k_new[:, 0]
-            vb[i, :, k_i] = v_new[:, 0]
-            attn = paged_chunk_decode_attention(
-                q, pool.k[i], pool.v[i], tables, kb[i], vb[i], lengths, k_i,
-                logit_cap=cfg.attn_logit_cap, window=cfg.sliding_window,
-                k_scales=None if scales is None else scales[0, i],
-                v_scales=None if scales is None else scales[1, i],
-            )
-            x = _attn_out(cfg, x, attn, lp, qmm, sel)
-            h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-            x = x + _mlp(cfg, h, lp, qmm, sel)
-        logits = _unembed_last(params, cfg, x)
-        if sample_state is None:
-            tok = sample_fn(logits, temps, generator).to(torch.int32)
-        else:
-            tok, sstate = sample_fn(logits, temps, generator, sstate)
-            tok = tok.to(torch.int32)
-        out.append(tok)
 
+    def attend(i, q, kb_l, vb_l, k_i):
+        return paged_chunk_decode_attention(
+            q, pool.k[i], pool.v[i], tables, kb_l, vb_l, lengths, k_i,
+            logit_cap=cfg.attn_logit_cap, window=cfg.sliding_window,
+            k_scales=None if scales is None else scales[0, i],
+            v_scales=None if scales is None else scales[1, i],
+        )
+
+    toks, last, kb, vb, sstate = _decode_steps(
+        params, cfg, tokens, lengths, temps, generator, K, sample_fn, sample_state, aids, attend,
+    )
     # merge: the chunk's K rows scatter through the table at positions
     # [length, length + K) — private blocks by the engine's construction
     cap = tables.shape[1] * block
@@ -671,5 +771,5 @@ def decode_chunk_paged(
     scatter_rows(pool.k, pool.v, tables, kb, vb, pos, valid, scales=scales)
     new_len = torch.where(active, torch.clamp(lengths + K, max=cap), lengths)
     lengths.copy_(new_len.to(lengths.dtype))
-    out = (torch.stack(out), tok, pool)
+    out = (toks, last, pool)
     return out if sample_state is None else out + (sstate,)

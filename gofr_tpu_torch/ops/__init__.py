@@ -16,6 +16,7 @@ from .attention import (
     paged_decode_partials,
     paged_decode_partials_plain,
     paged_gather,
+    ring_positions,
 )
 from .norms import rms_norm
 from .rope import apply_rope, rope_frequencies
@@ -31,6 +32,7 @@ __all__ = [
     "paged_decode_partials",
     "paged_decode_partials_plain",
     "paged_gather",
+    "ring_positions",
     "rms_norm",
     "apply_rope",
     "rope_frequencies",

@@ -8,9 +8,13 @@ h // (n_heads // n_kv_heads).
 Two halves:
 
 - Plain PyTorch functions ported from the JAX reference path
-  (``mha_reference``, ``chunk_decode_attention``, ``paged_gather``, and
-  the partials merge of ``paged_chunk_decode_attention``;
-  ``chunk_prefill_attention`` sends every chunk to the flash wrapper).
+  (``mha_reference``, ``ring_positions``, ``chunk_decode_attention``,
+  ``paged_gather``, the partials merge of
+  ``paged_chunk_decode_attention``, and the rolling-ring branch of
+  ``chunk_prefill_attention``, whose dense branch sends every chunk to the
+  flash wrapper). The contiguous decode attention and the ring branches
+  are XLA einsums outside any Pallas kernel in the JAX package, so they
+  are plain PyTorch here too: the reference's own path, not a fallback.
   They keep the JAX conventions:
   ``NEG_INF`` instead of ``-inf``, dots on values of the cache's stored
   dtype with float32 accumulation.
@@ -106,6 +110,29 @@ def mha_reference(
     return out.reshape(b, hq, sq, d).permute(0, 2, 1, 3).to(q.dtype)
 
 
+def ring_positions(lengths: torch.Tensor, capacity: int) -> torch.Tensor:
+    """Absolute position held by each row of a window-bounded ROLLING
+    (ring) KV cache of ``capacity`` C, which stores position p at row
+    p mod C: row j holds the LAST position congruent to j written so far,
+
+        p(j) = t-1 - ((t-1-j) mod C)    for t = lengths tokens written.
+
+    p(j) < 0 marks a never-written row, the whole cache at t == 0
+    included. Returns [b, capacity] int32 (JAX ``ring_positions``)."""
+    j = torch.arange(capacity, dtype=torch.int32, device=lengths.device)
+    t1 = lengths[:, None].to(torch.int32) - 1  # [b, 1]
+    return t1 - torch.remainder(t1 - j[None, :], capacity)
+
+
+def _ring_check(ring: int, window: int, width: int = 0) -> None:
+    """A ring of capacity ``ring`` serves a window only while every
+    in-window position is resident: 0 < window <= ring - width (JAX's
+    ValueError, word for word)."""
+    if window <= 0 or ring - width < window:
+        bound = f"ring - chunk ({ring - width})" if width else "ring"
+        raise ValueError(f"ring cache (capacity {ring}) requires 0 < window <= {bound}, got window {window}")
+
+
 def chunk_decode_attention(
     q: torch.Tensor,  # [b, 1, hq, d]
     k_cache: torch.Tensor,  # [b, max_len, hkv, d] — read-only inside a chunk
@@ -118,10 +145,18 @@ def chunk_decode_attention(
     scale: float | None = None,
     logit_cap: float = 0.0,
     window: int = 0,
+    ring: int = 0,  # >0: the main cache is a rolling ring of this capacity
 ) -> torch.Tensor:
     """Decode attention over main cache + chunk buffer with one joint
     softmax: main positions masked to < lengths, buffer positions to
-    <= step (dense layout; the JAX function's ring option is not ported)."""
+    <= step. With ``ring`` > 0 the main cache is a rolling ring (row =
+    absolute position mod ring): its rows are masked by their
+    reconstructed positions (``ring_positions``), valid when ever written
+    and inside the query's window; the buffer's masks do not change.
+
+    Plain PyTorch, as the JAX function is an XLA einsum: the cache is
+    upcast to float32 for the products (``_f32_einsum``), where the JAX
+    einsum reads it at its stored dtype with f32 accumulation."""
     b, sq, hq, d = q.shape
     hkv = k_cache.shape[2]
     group = hq // hkv
@@ -135,11 +170,18 @@ def chunk_decode_attention(
     if logit_cap > 0.0:
         s_main = logit_cap * torch.tanh(s_main / logit_cap)
         s_buf = logit_cap * torch.tanh(s_buf / logit_cap)
-    ar = torch.arange(max_len, device=dev)[None, :]
-    main_mask = ar < lengths[:, None]
-    if window > 0:
-        # query's absolute position is lengths + step
-        main_mask = main_mask & (ar > lengths[:, None] + step - window)
+    if ring > 0:
+        _ring_check(ring, window)
+        # the query sits at lengths + step; ring row j holds pos(j) <=
+        # lengths - 1 (causality is implied)
+        pos = ring_positions(lengths, max_len)
+        main_mask = (pos >= 0) & (pos > lengths[:, None] + step - window)
+    else:
+        ar = torch.arange(max_len, device=dev)[None, :]
+        main_mask = ar < lengths[:, None]
+        if window > 0:
+            # query's absolute position is lengths + step
+            main_mask = main_mask & (ar > lengths[:, None] + step - window)
     ac = torch.arange(chunk, device=dev)[None, :]
     buf_mask = ac <= step
     if window > 0:
@@ -170,23 +212,52 @@ def chunk_prefill_attention(
     scale: float | None = None,
     logit_cap: float = 0.0,
     window: int = 0,
+    ring: int = 0,  # >0: the cache is a rolling ring of this capacity
 ) -> torch.Tensor:
-    """Chunked-prefill attention (dense layout): query i of row b sits at
-    absolute position cursors[b] + i and attends every cache row p with
+    """Chunked-prefill attention: query i of row b sits at absolute
+    position cursors[b] + i and attends every cache row p with
     p <= cursors[b] + i (and p > cursors[b] + i - window when windowed).
     The chunk's rows are written before this call (write-then-attend).
 
-    Every chunk width goes through ``flash_attention`` in its q_offsets
-    mode. The JAX package keeps widths that are not a multiple of 8 on
-    an einsum path, because a Pallas query block needs an 8-row tile; the
-    CUDA kernel guards its rows and takes any width. The JAX reference
-    path scales q in f32 and casts back to q.dtype before the dot, while
-    the flash kernel keeps q * scale in f32: for power-of-two head dims
-    the scale is a power of two, so both give the same values."""
-    return flash_attention(
-        q, k_cache, v_cache, causal=True, scale=scale,
-        logit_cap=logit_cap, window=window, q_offsets=cursors,
-    )
+    Dense layout: every chunk width goes through ``flash_attention`` in
+    its q_offsets mode. The JAX package keeps widths that are not a
+    multiple of 8 on an einsum path, because a Pallas query block needs an
+    8-row tile; the CUDA kernel guards its rows and takes any width. The
+    JAX reference path scales q in f32 and casts back to q.dtype before
+    the dot, while the flash kernel keeps q * scale in f32: for
+    power-of-two head dims the scale is a power of two, so both give the
+    same values.
+
+    ``ring`` > 0: the cache is a rolling ring; each row's position comes
+    from ``ring_positions`` at the post-chunk length cursors + c (never
+    written rows read negative) and the same causal and window masks
+    apply. It requires 0 < window <= ring - c, so that an append never
+    overwrites a row inside any query's window. A rejected speculative
+    row reads one lap behind its true position, outside every window
+    while capacity >= window + c (the JAX rollback contract). Plain
+    PyTorch with float32 accumulation: the JAX ring branch is an XLA
+    einsum, not a kernel."""
+    if ring <= 0:
+        return flash_attention(
+            q, k_cache, v_cache, causal=True, scale=scale,
+            logit_cap=logit_cap, window=window, q_offsets=cursors,
+        )
+    b, c, hq, d = q.shape
+    hkv = k_cache.shape[2]
+    group = hq // hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    _ring_check(ring, window, c)
+    qpos = cursors.to(torch.int32)[:, None] + torch.arange(c, dtype=torch.int32, device=q.device)[None, :]
+    pos = ring_positions(cursors.to(torch.int32) + c, k_cache.shape[1])[:, None, :]  # [b, 1, capacity]
+    mask = (pos >= 0) & (pos <= qpos[:, :, None]) & (pos > qpos[:, :, None] - window)
+    qg = (q.float() * scale).to(q.dtype).reshape(b, c, hkv, group, d)
+    s = _f32_einsum("bqhgd,bkhd->bhgqk", qg, k_cache)  # [b, hkv, group, c, capacity]
+    if logit_cap > 0.0:
+        s = logit_cap * torch.tanh(s / logit_cap)
+    s = torch.where(mask[:, None, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1).to(v_cache.dtype)
+    out = _f32_einsum("bhgqk,bkhd->bqhgd", p, v_cache)
+    return out.reshape(b, c, hq, d).to(q.dtype)
 
 
 def paged_gather(k_pool, v_pool, tables, *, k_scales=None, v_scales=None, dtype=None):

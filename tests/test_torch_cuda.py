@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from gofr_tpu_torch.kvcache import quantize_rows
-from gofr_tpu_torch.llm import LLMEngine
+from gofr_tpu_torch.llm import GenRequest, LLMEngine
 from gofr_tpu_torch.models import TransformerConfig, init_params
 from gofr_tpu_torch.ops import attention as TA
 
@@ -695,3 +695,64 @@ class TestMoEOnCard:
                 assert r["launches"] == {k: 2 * n for k, n in r["captured"].items()}, name
         finally:
             eng.close()
+
+
+def _contiguous_engine(cuda, layout, mode, **kw):
+    """A tiny contiguous engine on the card: tiny_mistral on its rolling
+    ring (window 8, 8 + 16 rows a slot) or tiny on the dense slab, in f32
+    or bf16 at head_dim 64 (the tensor-core flash kernel on the slab)."""
+    cfg = TransformerConfig.tiny_mistral() if layout == "ring" else TransformerConfig.tiny()
+    if mode == "bf16":
+        cfg = dataclasses.replace(cfg, head_dim=64, dtype=torch.bfloat16)
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+    return LLMEngine(cfg, params, device=cuda, slots=4, max_seq_len=64, prefill_buckets=(8, 16), kv_paged=False, **kw)
+
+
+@pytest.mark.cuda
+class TestContiguousOnCard:
+    """The contiguous KV layouts' program families as CUDA graphs: every
+    replay bitwise its eager program on a random state (a ring's lengths
+    past its capacity), flash once per layer in each step and verify on
+    the slab, no kernel on the ring, no paged kernel on either; fresh
+    draws at a high temperature; greedy tokens equal to the paged
+    engine's."""
+
+    @pytest.mark.parametrize("mode", ["f32", "bf16"])
+    @pytest.mark.parametrize("layout", ["dense", "ring"])
+    def test_families_replay_equal_eager(self, cuda, layout, mode):
+        from chip_smoke import check_family
+
+        eng = _contiguous_engine(cuda, layout, mode, speculative=True)
+        try:
+            assert eng.stats()["kvcache"]["layout"] == ("rolling" if layout == "ring" else "dense")
+            assert sorted(eng.families) == sorted(
+                [f"llm.step_p{s}_d8.w{w}" for s in (8, 16) for w in (1, 2, 4)]
+                + ["llm.decode_chunk8", "llm.decode_chunk2", "llm.step_v5"]
+            )
+            for i, name in enumerate(eng.families):
+                r = check_family(eng, name, seed=i, replays=2)
+                assert r["eager_equal"], (name, r["state_equal"])
+                assert r["launches"] == {k: 2 * n for k, n in r["captured"].items()}, name
+                assert not any(n for k, n in r["captured"].items() if k.startswith("paged_decode")), name
+                flash = eng.cfg.n_layers if layout == "dense" and "step" in name else 0
+                assert r["captured"].get("flash_attention", 0) == flash, (name, r["captured"])
+            for name in ("llm.decode_chunk8", "llm.step_p16_d8.w4", "llm.step_v5"):
+                assert check_family(eng, name, seed=50, temperature=1000.0, replays=2)["draws_differ"], name
+        finally:
+            eng.close()
+
+    @pytest.mark.parametrize("layout", ["dense", "ring"])
+    def test_serves_the_paged_tokens(self, cuda, layout):
+        """f32 greedy streams past the ring's capacity, contiguous against
+        the paged pool on the same weights, at lookahead 3."""
+        cont = _contiguous_engine(cuda, layout, "f32")
+        paged = LLMEngine(cont.cfg, cont.params, device=cuda, slots=4, max_seq_len=64, prefill_buckets=(8, 16),
+                          kv_paged=True)
+        try:
+            prompts = [list(range(5, 25)), [3, 1, 4, 1, 5, 9, 2, 6], list(range(40, 73))]
+            want = [paged.generate(p, max_new_tokens=24) for p in prompts]
+            reqs = [cont.submit(GenRequest(p, max_new_tokens=24)) for p in prompts]
+            assert [r.tokens(timeout=300) for r in reqs] == want
+        finally:
+            cont.close()
+            paged.close()

@@ -268,9 +268,12 @@ def test_register_llm_refuses_unported(weights):
 
     cfg = TT.TransformerConfig.tiny()
     rt = GPURuntime(new_mock_config({"TORCH_DEVICE": "cpu"}))
-    for kw in ({"mesh": object()}, {"replicas": 2}, {"tp_overlap": True}, {"kv_paged": False}):
+    for kw in ({"mesh": object()}, {"replicas": 2}, {"tp_overlap": True}):
         with pytest.raises(NotImplementedError, match=next(iter(kw))):
             rt.register_llm("m", cfg, tp, **kw)
+    # the contiguous layouts are ported; their whole-row prefix cache is not
+    with pytest.raises(NotImplementedError, match="PrefixCache"):
+        rt.register_llm("m", cfg, tp, kv_paged=False, prefix_cache_mb=1)
     # grammar-constrained decoding is ported: its knobs build an engine
     # that admits grammars (or refuses them with "0"); knobs of features
     # still unported keep refusing

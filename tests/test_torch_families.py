@@ -217,10 +217,12 @@ def _same_streams(ref, port, prompts, new_tokens):
 def test_engine_greedy_identity(pair):
     """One at a time, then more requests than slots at once (prefill rows
     sharing unified steps with decode chunks, then pure decode chunks);
-    the prompts of 17-40 tokens run past tiny_mistral's window of 8."""
+    the prompts of 17-40 tokens run past tiny_mistral's window of 8. Both
+    engines on the paged pool (kv_paged=True: "auto" would give
+    tiny_mistral the rolling ring, held in test_torch_contiguous.py)."""
     _name, jcfg, jp, tcfg, tp = pair
     ref = JEngine(jcfg, jp, warmup=False, kv_paged=True, **ENGINE_KW)
-    port = LLMEngine(tcfg, tp, device="cpu", **ENGINE_KW)
+    port = LLMEngine(tcfg, tp, device="cpu", kv_paged=True, **ENGINE_KW)
     try:
         for p in _prompts(7, (3, 17, 33)):
             (want,) = _same_streams(ref, port, [p], [8])
@@ -264,23 +266,33 @@ def test_qwen2_engine_int8_and_spec_identity(mode):
 
 
 def test_windowed_model_served_paged_not_on_a_ring():
-    """ROADMAP queue 3 item 11: register_llm(kv_paged="auto") on a windowed
-    config whose window + slack < max_seq_len. The JAX engine serves it
-    from its rolling ring (O(window) slot memory); the port serves it from
-    the paged pool at O(max_seq_len), with the same tokens. kv_paged=False
-    still raises."""
+    """ROADMAP queue 3 item 11, fixed: register_llm on a windowed config
+    whose window + slack < max_seq_len resolves kv_paged as the JAX
+    runtime does. "auto" (the default, and TPU_LLM_KV_PAGED=1) serves it
+    from the rolling ring at O(window) slot memory, token-identical to the
+    JAX engine's ring; kv_paged=True serves it paged, not on a ring, at
+    O(max_seq_len), with the same tokens; TPU_LLM_KV_PAGED=0 is
+    kv_paged=False, the ring too."""
     jcfg, jp, tcfg, tp = _pair("tiny_mistral")
     ref = JEngine(jcfg, jp, warmup=False, **ENGINE_KW)  # kv_paged "auto"
     rt = GPURuntime(MapConfig({"TORCH_DEVICE": "cpu"}))
     port = rt.register_llm("m", tcfg, tp, kv_paged="auto", **ENGINE_KW)
     try:
-        assert not ref.kv.paged  # the ring engaged: 8 + 16 < 64
-        assert port.kv.capacity == ENGINE_KW["max_seq_len"]
-        assert port.stats()["kvcache"]["layout"] == "paged"
+        assert not ref.kv.paged and ref.kv.rolling  # the ring engaged: 8 + 16 < 64
+        kv = port.stats()["kvcache"]
+        assert (kv["layout"], kv["capacity"]) == ("rolling", ref.kv.capacity) == ("rolling", 8 + 16)
+        assert port.cache.k.shape[2] == kv["capacity"] and port.pool is None
         prompts = _prompts(21, (30, 41, 12))
-        _same_streams(ref, port, prompts, [12, 12, 12])
-        with pytest.raises(NotImplementedError, match="kv_paged=False"):
-            rt.register_llm("n", tcfg, tp, kv_paged=False, **ENGINE_KW)
+        want = _same_streams(ref, port, prompts, [12, 12, 12])
+        paged = rt.register_llm("n", tcfg, tp, kv_paged=True, **ENGINE_KW)
+        assert paged.kv.capacity == ENGINE_KW["max_seq_len"]
+        assert paged.stats()["kvcache"]["layout"] == "paged"
+        assert [paged.generate(p, max_new_tokens=12) for p in prompts] == want
+        knob = GPURuntime(MapConfig({"TORCH_DEVICE": "cpu", "TPU_LLM_KV_PAGED": "0"}))
+        try:
+            assert knob.register_llm("o", tcfg, tp, **ENGINE_KW).stats()["kvcache"]["layout"] == "rolling"
+        finally:
+            knob.close()
     finally:
         ref.close()
         rt.close()
