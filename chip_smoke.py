@@ -1,6 +1,6 @@
 """GPU smoke run of the PyTorch/CUDA port (gofr_tpu_torch) on one card.
 
-    python3 chip_smoke.py [--parent TREE] [--only families|moe|contiguous]
+    python3 chip_smoke.py [--parent TREE] [--only families|moe|contiguous|wave]
 
 Phases, each raising on failure:
 
@@ -28,7 +28,11 @@ Phases, each raising on failure:
    Mistral-7B, Qwen2-7B and Gemma-7B, int8 paged decode for Llama-3-8B,
    Mistral's window at ~4,200 tokens), with each model's paged-decode
    launch plan; timed here, before any engine has run (afterwards the
-   profiler kept only a few of a timing's kernel records at some shapes);
+   profiler kept only a few of a timing's kernel records at some shapes).
+   Flash in its full-prompt mode (kernel row 2, the wave's prefill) is
+   held and timed apart at the wave's served shapes: full waves of the
+   128 and 512 buckets at Gemma-2B's heads, one Mistral-7B prompt at the
+   8,192 bucket with its 4096 band (counted in flash_attention_prompt);
 4. engine — the port's LLMEngine at its defaults over Gemma-2B (full
    width and depth, random weights from a seeded generator): lookahead
    3 and every program family captured as a CUDA graph at construction.
@@ -203,15 +207,38 @@ Phases, each raising on failure:
    of the burst, every token through the replay gate against the plain
    forward with the window mask; no kernel launches on the ring (its
    attention is plain, as the JAX reference's einsums are);
-16. report — a "kernels" JSON line (launches on the engine phase's main
+16. wave — the monolithic wave scheduler (step_token_budget=0) and the
+   whole-row prefix cache of the contiguous layouts, after the structured
+   phase: Gemma-2B at the defaults plus step_token_budget=0 (the pool
+   under "auto"; warmup of every llm.prefill_b{bucket}.w{nb} graph, each
+   the prefill fused with the insert and the first tokens; every family
+   bitwise its eager program, the lazy max_seq_len bucket's too), the
+   burst at lookahead 3 and 1 (waves by width, busy and idle time from
+   CUDA events), every token through the replay gate; flash launches in
+   its full-prompt mode only (no unified step) and the paged kernel; an
+   int8 burst (kv_int8, quantize) through the int8 gate and the int8
+   kernel. Then the slab, chunked, with prefix_cache_mb=256: the burst as
+   8 misses, again as 8 exact hits (no unified step, the misses' tokens),
+   a 256-token prefix alone and 8 prompts extending it (8 partial hits),
+   TTFT per round. Mistral-7B's ring (full width, 8 of 32 layers, 2
+   slots, max_seq_len 32,768, prefix_cache_mb=1024, chunked): a
+   6,000-token prompt as a miss, then as an exact hit (TTFT of each, the
+   entry's bytes, the same tokens). Mistral-7B at 4 layers, 2 slots,
+   max_seq_len 8,192, step_token_budget=0: prompts of 4,300 and 6,000
+   tokens in a wave at the 8,192 bucket (flash over the 4096 band, then
+   ring_pack; lengths past the ring's 4,104 rows), every token through
+   the replay gate with the window mask ("wave_launches");
+17. report — a "kernels" JSON line (launches on the engine phase's main
    path, in the prefix phases as "prefix_launches", in the spec phases as
    "spec_launches", in the structured phase as "structured_launches", in
    the overload phase as "overload_launches", in the lora phase as
    "lora_launches" and in the families phase's
    first burst of each engine as "families_launches", in the moe phase's
    first burst and its int8 run as "moe_launches", in the contiguous
-   phase's bursts as "contiguous_launches"), then the last line
-   {"ok": true, "device": {...}}.
+   phase's bursts as "contiguous_launches", in the wave phase's as
+   "wave_launches"; flash_attention_prompt is the flash kernel's
+   full-prompt mode, row 2, whose main path is the wave's burst), then
+   the last line {"ok": true, "device": {...}}.
 
 Imports nothing of JAX and nothing of the JAX package. Exits non-zero,
 printing no result, when no GPU is visible.
@@ -493,6 +520,71 @@ def _time_parent(fn, t: dict, kernel, args, scales: dict) -> None:
           f"back to back {t['parent_ms']:.4f} ms; ratio {t['device_ms'] / min(t['parent_device_ms']):.3f}")
 
 
+# kernel row 2 (flash in its full-prompt mode) at the wave's served shapes:
+# (key, b, s, hq, hkv, d, window) — full waves of Gemma-2B's 128 and 512
+# buckets, and one Mistral-7B prompt at the 8,192 bucket with its 4096 band
+PROMPT_FLASH_CASES = (
+    ("wave b128 w8", 8, 128, 8, 1, 256, 0),
+    ("wave b512 w8", 8, 512, 8, 1, 256, 0),
+    ("mistral band b8192", 1, 8192, 32, 8, 128, 4096),
+)
+
+
+def _prompt_flash_cases(rnd, peaks, timings: dict) -> float:
+    """Flash in its full-prompt mode (null offsets, causal, the window as
+    the band) at PROMPT_FLASH_CASES, bf16: held against its plain version
+    (BF16_ATOL/RTOL), then timed as the other rows are (CUDA events over 20
+    launches from Python, the kernel's device time under torch.profiler,
+    the plain version, SDPA on the same inputs: is_causal, or the band as a
+    boolean mask, and the bytes/operations bound for the pairs the band
+    keeps). The launches must count in flash_attention_prompt. Returns the
+    largest absolute error."""
+    worst = 0.0
+    for key, b, sq, hq, hkv, d, window in PROMPT_FLASH_CASES:
+        q = rnd(b, sq, hq, d, dtype=torch.bfloat16)
+        k = rnd(b, sq, hkv, d, dtype=torch.bfloat16)
+        v = rnd(b, sq, hkv, d, dtype=torch.bfloat16)
+        before = A.flash_attention.launches_prompt
+        got = A.flash_attention(q, k, v, window=window)
+        if A.flash_attention.launches_prompt != before + 1:
+            raise AssertionError(f"flash_attention {key}: the full-prompt launch was not counted")
+        want = A.flash_attention_plain(q, k, v, window=window)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        ok = torch.allclose(got.float(), want.float(), atol=BF16_ATOL, rtol=BF16_RTOL)
+        print(f"flash_attention prompt mode {key:20s} q {list(q.shape)} max_abs_err {err:.3e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"flash_attention (full-prompt mode) disagrees with its plain version: {key}")
+        worst = max(worst, err)
+        del got, want
+        nbytes, flops, mask = _flash_work(q, k, None, True, window)
+        bound_ms, bound_by = _bound(nbytes, flops, torch.bfloat16, peaks)
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        band = mask[:1, None] if window else None  # [1, 1, sq, sk], True = attend
+
+        def library():
+            if band is None:
+                return torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True, scale=d ** -0.5,
+                                                                        enable_gqa=True)
+            return torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=band, scale=d ** -0.5,
+                                                                    enable_gqa=True)
+
+        t = {
+            "ms": time_ms(lambda: A.flash_attention(q, k, v, window=window)),
+            "device_ms": device_ms(lambda: A.flash_attention(q, k, v, window=window), "flash_mma_kernel"),
+            "plain_ms": time_ms(lambda: A.flash_attention_plain(q, k, v, window=window), iters=3, warmup=1),
+            "library_ms": time_ms(library),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+        }
+        timings[f"flash_attention prompt {key}"] = t
+        print(f"timing flash_attention prompt mode {key} q {list(q.shape)} k/v {list(k.shape)} window {window}: kernel "
+              f"{t['ms']:.4f} ms (device {t['device_ms']:.4f} ms), plain {t['plain_ms']:.4f} ms, sdpa "
+              f"{t['library_ms']:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
+        del q, k, v, mask, band
+        torch.cuda.empty_cache()
+    return worst
+
+
 def phase_kernels(dev: dict, seed: int, parent: dict | None = None) -> dict:
     g = torch.Generator(device="cuda").manual_seed(seed)
     peaks = dev["peaks"]
@@ -590,6 +682,7 @@ def phase_kernels(dev: dict, seed: int, parent: dict | None = None) -> dict:
     print(f"timing flash_attention full causal S=512: kernel {t['ms']:.4f} ms (device {t['device_ms']:.4f} ms), "
           f"plain {t['plain_ms']:.4f} ms, "
           f"sdpa {t['library_ms']:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
+    errs["flash_attention_prompt"] = _prompt_flash_cases(rnd, peaks, timings)
 
     # -- kernel 2: paged_decode_partials (32 slots, 1024 blocks of 16 rows)
     NB, B, MB, nb = 1024, 16, 32, 32
@@ -801,7 +894,7 @@ def _family_inputs(eng, name: str, g: torch.Generator, temperature: float):
     eng._temps.fill_(temperature)
     M = eng.admit_cap
     if kind in ("seed", "hit"):
-        NB = eng.kv.pool.n_blocks
+        NB = eng.kv.pool.n_blocks if eng.kv.paged else 2 * M
         seed = eng._inert_seed()
         perm_b = torch.randperm(NB, generator=g, device=dev).cpu().numpy()
         perm_s = torch.randperm(slots, generator=g, device=dev).cpu().numpy()
@@ -827,6 +920,23 @@ def _family_inputs(eng, name: str, g: torch.Generator, temperature: float):
     live = np.ones((slots,), bool)
     if kind == "chunk":
         return lambda: eng._in.write(tables, live, gids=gids, aids=aids)
+    if kind == "prefill":
+        bucket, nb = arg
+        rows = nb - 1 if nb > 1 else 1
+        eng._active.fill_(False)  # the program's writes must show
+        perm_s = torch.randperm(slots, generator=g, device=dev).cpu().numpy()
+        lens = torch.randint(1, bucket + 1, (rows,), generator=g, device=dev).cpu().numpy()
+        toks = torch.randint(1, cfg.vocab_size, (nb, bucket), generator=g, device=dev).cpu().numpy()
+        pack = np.zeros((nb, bucket + 3), np.int32)
+        pack[:, bucket + 1] = 1
+        meta = np.zeros((2, nb), np.int32)
+        for j in range(rows):
+            pack[j, : lens[j]] = toks[j, : lens[j]]
+            pack[j, bucket + 1] = lens[j]
+            pack[j, bucket + 2] = np.float32(temperature).view(np.int32)
+            meta[0, j], meta[1, j] = perm_s[j], j
+        meta[:, rows:] = meta[:, :1]  # pad lanes repeat lane 0, as a wave's do
+        return lambda: eng._in.write(tables, np.zeros((slots,), bool), meta, pack)
     if kind == "verify":
         Kd = arg - 1
         vpack = np.zeros((slots, Kd + 2), np.int32)
@@ -854,9 +964,12 @@ def _family_inputs(eng, name: str, g: torch.Generator, temperature: float):
 
 
 def _outputs(out) -> tuple:
-    """A program's output(s) as a tuple of clones: a step of a sharing
-    engine returns (tokens, logits)."""
-    return tuple(t.clone() for t in (out if isinstance(out, tuple) else (out,)))
+    """A program's output(s) as a flat tuple of clones: a step of a sharing
+    engine returns (tokens, logits), a wave's prefill (tokens, logits or
+    None, (k, v) rows or None)."""
+    if isinstance(out, (tuple, list)):
+        return tuple(t for x in out for t in _outputs(x))
+    return () if out is None else (out.clone(),)
 
 
 def check_family(eng, name: str, seed: int, temperature: float = 0.0, replays: int = 1) -> dict:
@@ -1065,22 +1178,24 @@ def _warm_report(label: str, eng) -> dict:
     names = list(eng.families)
     print(f"{label}warmup: {len(names)} CUDA graphs captured in {eng.warmup_s:.3f} s (warmup_s): "
           f"{', '.join(names)}; torch.cuda.memory_reserved {before} -> {after} bytes (+{after - before})")
-    if sorted(names) != sorted(eng._programs) or eng.stats()["warmup_s"] != eng.warmup_s:
+    if sorted(names) != sorted(set(eng._programs) - eng._lazy) or eng.stats()["warmup_s"] != eng.warmup_s:
         raise AssertionError(f"{label}warmup captured {names}, programs {list(eng._programs)}")
     return {"families": names, "warmup_s": eng.warmup_s, "reserved_before": before, "reserved_after": after}
 
 
-def _check_families(label: str, eng, seed: int) -> None:
-    """Every captured family against its eager program (check_family), at
+def _check_families(label: str, eng, seed: int, extra=()) -> None:
+    """Every captured family (and the lazy ones named in ``extra``, which
+    this captures) against its eager program (check_family), at
     temperature 0; then two replays each of the 8-step chunk, the widest
-    step (and the widest hit program of a sharing engine) at a high
-    temperature, which must draw differently (and the verify's of a
-    speculating engine). On the paged pool step and chunk families hold
-    the paged-decode kernel, and steps and the verify the flash kernel;
-    kv_seed and the hit programs hold no kernel. A contiguous engine's
-    programs hold no paged kernel, and on a ring no flash kernel either
-    (plain attention, as in JAX)."""
-    for i, name in enumerate(eng.families):
+    step or wave prefill (and the widest hit program of an engine with a
+    prefix index) at a high temperature, which must draw differently (and
+    the verify's of a speculating engine). On the paged pool step and
+    chunk families hold the paged-decode kernel, and steps and the verify
+    the flash kernel in its q_offsets mode; a wave's prefill holds flash in
+    its full-prompt mode on every layout; kv_seed and the hit programs hold
+    no kernel. A contiguous engine's programs hold no paged kernel, and on
+    a ring no q_offsets flash either (plain attention, as in JAX)."""
+    for i, name in enumerate(list(eng.families) + [n for n in extra if n not in eng.families]):
         r = check_family(eng, name, seed + i)
         kind = eng._program(name)[1]
         print(f"{label}replay vs eager {name}: outputs and state bitwise "
@@ -1093,10 +1208,14 @@ def _check_families(label: str, eng, seed: int) -> None:
             eng.kv.paged and kind in ("step", "chunk")
         ):
             raise AssertionError(f"{label}{name}: launches {r['launches']}, captured {r['captured']}")
-        if bool(r["captured"].get("flash_attention")) != (kind in ("step", "verify") and not eng.kv.rolling):
+        flash = kind == "prefill" or (kind in ("step", "verify") and not eng.kv.rolling)
+        prompt = r["captured"].get("flash_attention", 0) if kind == "prefill" else 0
+        if bool(r["captured"].get("flash_attention")) != flash or r["captured"].get("flash_attention_prompt", 0) != prompt:
             raise AssertionError(f"{label}{name} ({kind}): flash launches {r['captured']}")
-    sampled = [f"llm.decode_chunk{eng.decode_chunk}", eng._step_name(eng.chunk_shapes[-1], eng.admit_cap)]
-    if eng.kv.share:
+    widest = (eng._step_name(eng.chunk_shapes[-1], eng.admit_cap) if eng.chunked
+              else eng._prefill_name(eng.prefill_buckets[-1], eng.admit_cap))
+    sampled = [f"llm.decode_chunk{eng.decode_chunk}", widest]
+    if eng._keep_logits:
         sampled.append(f"llm.hit_first.w{eng.admit_cap}")
     if eng.speculative:
         sampled.append(f"llm.step_v{eng.spec_draft + 1}")
@@ -1371,10 +1490,11 @@ def phase_overload(dev: dict, seed: int, cfg: TransformerConfig, params: dict, e
     reject and a predicted-wait shed, each with a finite Retry-After, the
     requests they accepted served. No family is captured in the phase;
     nothing is held once idle."""
-    # the int8 kernel is counted too, though the bf16 engine does not run it:
-    # its overload_launches is then a 0 this phase measured
+    # every kernel is counted, though the bf16 engine runs neither the int8
+    # kernel nor flash's full-prompt mode: their overload_launches are then
+    # 0s this phase measured
     path = ("flash_attention", "paged_decode_partials")
-    names = path + ("paged_decode_partials_int8",)
+    names = KERNEL_COUNTERS
     fams, captures = sorted(eng.families), eng.g_captures
     ledger = eng.ledger
     rng = np.random.default_rng(seed + 11)
@@ -1563,7 +1683,7 @@ def phase_engine_int8(dev: dict, seed: int, cfg: TransformerConfig, params: dict
     pool_bytes = _tensor_bytes({"k": eng.pool.k, "v": eng.pool.v, "scales": eng.pool_scales})
     print(f"int8 engine: weights {weight_bytes} bytes (bf16 {bf16_bytes}); KV pool {pool_bytes} bytes "
           f"(int8 rows + f32 scales, {eng.kv.pool.n_blocks} blocks of {eng.kv.block_bytes} bytes)")
-    counters = ("flash_attention", "paged_decode_partials", "paged_decode_partials_int8")
+    counters = KERNEL_COUNTERS
     try:
         warm = _warm_report("int8 ", eng)
         _check_families("int8 ", eng, seed)
@@ -1656,6 +1776,7 @@ def phase_engine_int8(dev: dict, seed: int, cfg: TransformerConfig, params: dict
 # so its count is printed, not required
 LORA_SLOTS, LORA_RANK, LORA_SCALE = 4, 8, 1.0
 LORA_LANES = ("", "A", "B", "C") * 2  # the burst's lanes: base / A / B / C
+LORA_HOT_A_NEW = 192  # new tokens of A's lanes in the hot-load burst
 
 
 def _adapter_params(params: dict, cfg, adapter: dict, rank: int = LORA_RANK) -> dict:
@@ -1739,7 +1860,7 @@ def _lora_gate(label: str, params, cfg, prompts, results: dict, lanes, ads: dict
 
 
 def _lora_hot_load(eng, prompts, ads: dict) -> dict:
-    """The burst again (64 new tokens), and while A's lanes are in flight
+    """The burst again (64 new tokens, A's lanes LORA_HOT_A_NEW), and while A's lanes are in flight
     (each has its first token out): a new version of A ("A@v2") loaded into the full
     pool, which evicts the idle adapter F, and published over the busy
     name A. A's requests in flight keep their old gid (a zombie until they
@@ -1747,7 +1868,11 @@ def _lora_hot_load(eng, prompts, ads: dict) -> dict:
     Nothing is captured and memory_reserved does not move."""
     torch.cuda.synchronize()
     fam0, res0 = dict(eng.families), torch.cuda.memory_reserved()
-    reqs = [eng.submit(GenRequest(p, max_new_tokens=64, adapter=a)) for p, a in zip(prompts, LORA_LANES)]
+    # A's lanes decode LORA_HOT_A_NEW tokens, so they are still in flight
+    # after the load: with 64, a lane whose first token came last could
+    # finish while the load waited for the engine lock (~330 ms)
+    reqs = [eng.submit(GenRequest(p, max_new_tokens=LORA_HOT_A_NEW if a == "A" else 64, adapter=a))
+            for p, a in zip(prompts, LORA_LANES)]
     join = _consume(reqs)
     a_lanes = [i for i, a in enumerate(LORA_LANES) if a == "A"]
     _wait_until(lambda: all(reqs[i].emitted for i in a_lanes), 120, "A's first tokens")
@@ -1786,7 +1911,7 @@ def _lora_int8(dev: dict, seed: int, cfg, params: dict, adapter: dict) -> dict:
     """kv_int8=True, quantize=True with the pool: 4 requests of 16 new
     tokens, two under adapter A, every token through the int8 gate (the
     plain forward on the same int8 weights, with A's delta on its lanes)."""
-    counters = ("flash_attention", "paged_decode_partials", "paged_decode_partials_int8")
+    counters = KERNEL_COUNTERS
     eng = LLMEngine(cfg, params, seed=seed, kv_int8=True, quantize=True, lora_slots=LORA_SLOTS, lora_rank=LORA_RANK)
     try:
         _warm_report("lora int8 ", eng)
@@ -1826,7 +1951,7 @@ def phase_lora(dev: dict, seed: int, cfg: TransformerConfig, params: dict, main:
     # adapters arrive from host memory (a checkpoint), as load_adapter takes them
     ads = {k: {t: {"a": p["a"].cpu().numpy(), "b": p["b"].cpu().numpy()} for t, p in ad.items()}
            for k, ad in ads.items()}
-    counters = ("flash_attention", "paged_decode_partials", "paged_decode_partials_int8")
+    counters = KERNEL_COUNTERS
     gid_bytes = cfg.n_layers * sum(d_in + d_out for d_in, d_out in target_dims(cfg).values()) * LORA_RANK * 4
     eng = LLMEngine(cfg, params, seed=seed, lora_slots=LORA_SLOTS, lora_rank=LORA_RANK)
     try:
@@ -1901,10 +2026,9 @@ def phase_lora(dev: dict, seed: int, cfg: TransformerConfig, params: dict, main:
           f"3 bursts at lookahead 3: median {tok_s:.1f} tok/s (engine phase {main['tok_s']:.1f}); ttft p50 "
           f"{ttft:.3f}s (engine phase {main['ttft_p50_s']:.3f}s); lookahead 1: {runs[3]['tok_s']:.1f} tok/s; "
           f"{checked} tokens matched, {exempt} exempt; adapted tokens off the base's argmax {moved}")
-    launches = {"flash_attention": first["launches"]["flash_attention"],
-                "paged_decode_partials": first["launches"]["paged_decode_partials"],
-                "paged_decode_partials_int8": int8["launches"]["paged_decode_partials_int8"]}
-    if any(n <= 0 for n in launches.values()) or first["launches"]["paged_decode_partials_int8"]:
+    launches = {**first["launches"], "paged_decode_partials_int8": int8["launches"]["paged_decode_partials_int8"]}
+    if any(launches[n] <= 0 for n in ("flash_attention", "paged_decode_partials", "paged_decode_partials_int8")) or \
+            first["launches"]["paged_decode_partials_int8"]:
         raise AssertionError(f"lora launches {launches} (burst 1 {first['launches']})")
     return {"launches": launches, "tok_s": tok_s, "ttft_p50_s": ttft, "lookahead1_tok_s": runs[3]["tok_s"],
             "load_ms": load_ms, "gid_bytes": gid_bytes, "program_ms": prog, "delta_forms": forms,
@@ -2043,7 +2167,7 @@ def phase_prefix(dev: dict, seed: int, cfg: TransformerConfig, params: dict) -> 
     turn2_new = [toks(16) for _ in SESSION_SUFFIXES]
     sids = [f"conv-{i}" for i in range(len(SESSION_SUFFIXES))]
     new_tokens = 32
-    counters = ("flash_attention", "paged_decode_partials")
+    counters = KERNEL_COUNTERS
     eng = LLMEngine(cfg, params, seed=seed, prefix_cache_mb=64, session_mb=64, host_cache_mb=256)
     times = {"spill": [], "restore": []}
     spill, restore = eng._kv_spill, eng._kv_restore_blocks
@@ -2105,8 +2229,8 @@ def phase_prefix(dev: dict, seed: int, cfg: TransformerConfig, params: dict) -> 
     if restores != 4 or runs["turn2"]["partial_hits"] < 4 or spilled["spills"] - ses0["offload"]["spills"] != 4:
         raise AssertionError(f"sessions: restores {restores}, turn 2 partial hits {runs['turn2']['partial_hits']}, "
                              f"offload {spilled}")
-    for name, n in launches.items():
-        if n <= 0:
+    for name in ("flash_attention", "paged_decode_partials"):
+        if launches[name] <= 0:
             raise AssertionError(f"{name} was not launched in the prefix phase: {launches}")
     same = sum(x == y for i in runs["B"]["results"] for x, y in zip(runs["B"]["results"][i], runs["C"]["results"][i]))
     print(f"prefix burst C (exact hits) vs burst B (the same prompts as partial hits): {same} of "
@@ -2291,7 +2415,7 @@ def phase_spec(dev: dict, seed: int, cfg: TransformerConfig, params: dict) -> di
     rng = np.random.default_rng(seed + 10)
     passages = [rng.integers(1, cfg.vocab_size, n).tolist() for n in SPEC_PASSAGES]
     prompts = [p + p[:16] for p in passages]
-    counters = ("flash_attention", "paged_decode_partials")
+    counters = KERNEL_COUNTERS
     eng = LLMEngine(cfg, params, seed=seed, speculative=True, spec_draft=4)
     try:
         warm = _warm_report("spec ", eng)
@@ -2364,8 +2488,7 @@ def phase_spec(dev: dict, seed: int, cfg: TransformerConfig, params: dict) -> di
             raise AssertionError(f"spec int8 llm.step_v5: {r}")
         eng8.generate([1, 2, 3], max_new_tokens=4)
         eng8.drafter = _StreamDrafter(p8, [want[i] for i in range(0, len(prompts), 2)], cfg.vocab_size)
-        r8 = _spec_burst(eng8, "spec int8 burst (oracle drafter)", p8,
-                         ("flash_attention", "paged_decode_partials", "paged_decode_partials_int8"))
+        r8 = _spec_burst(eng8, "spec int8 burst (oracle drafter)", p8, counters)
         _idle(eng8, "spec int8 ")
     finally:
         eng8.close()
@@ -2550,7 +2673,7 @@ def phase_structured(dev: dict, seed: int, cfg: TransformerConfig, params: dict)
     kinds = ["schema" if i % 4 == 0 else "regex" if i % 4 == 2 else None for i in range(len(prompts))]
     grammars = [g_schema if k == "schema" else g_regex if k == "regex" else None for k in kinds]
     plain = [None] * len(prompts)
-    counters = ("flash_attention", "paged_decode_partials", "paged_decode_partials_int8")
+    counters = KERNEL_COUNTERS
     launches = dict.fromkeys(counters, 0)
 
     def tally(run):
@@ -2885,7 +3008,7 @@ FAMILY_LAYERS = {"llama3_8b": 16, "mistral_7b": 16, "qwen2_7b": 14, "gemma_7b": 
 FAMILY_UNTIED = ("llama3_8b", "mistral_7b", "qwen2_7b")
 WINDOW_SLOTS, WINDOW_SEQ, WINDOW_NEW = 4, 4608, 64  # Mistral's windowed engine
 WINDOW_PROMPTS = (4160, 4240, 4320, 4400)  # every decode band starts above 0
-KERNEL_COUNTERS = ("flash_attention", "paged_decode_partials", "paged_decode_partials_int8")
+KERNEL_COUNTERS = ("flash_attention", "flash_attention_prompt", "paged_decode_partials", "paged_decode_partials_int8")
 
 
 def family_weights(name: str, seed: int) -> tuple[TransformerConfig, dict]:
@@ -3763,13 +3886,314 @@ def phase_contiguous(dev: dict, seed: int) -> dict:
     out["launches"] = {label: run["launches"] for label, run in out.items()}
     return out
 
+# -- the wave scheduler and the whole-row prefix cache -------------------------
+
+WAVE_PREFIX_MB = 256  # the slab's PrefixCache budget
+WAVE_SHARED = 256  # the shared prefix of the slab's partial-hit round
+WAVE_HIT_LAYERS, WAVE_HIT_SLOTS, WAVE_HIT_SEQ, WAVE_HIT_MB, WAVE_HIT_PROMPT = 8, 2, 32768, 1024, 6000
+WAVE_RING_LAYERS, WAVE_RING_SLOTS, WAVE_RING_SEQ, WAVE_RING_PROMPTS, WAVE_RING_NEW = 4, 2, 8192, (4300, 6000), 64
+
+
+def _wave_launches(label: str, launches: dict, paged: str | None) -> None:
+    """A wave engine's burst: flash in its full-prompt mode (the prefill),
+    never in its q_offsets mode (no unified step, no verify), and the
+    paged kernel ``paged`` (None: no paged kernel, the contiguous
+    layouts)."""
+    offsets = launches["flash_attention"] - launches["flash_attention_prompt"]
+    ok = launches["flash_attention_prompt"] > 0 and offsets == 0
+    for name in ("paged_decode_partials", "paged_decode_partials_int8"):
+        ok = ok and (launches[name] > 0) == (name == paged)
+    if not ok:
+        raise AssertionError(f"{label}kernel launches {launches}")
+
+
+def _wave_stats(eng, st0: dict | None = None) -> dict:
+    st = eng.stats()
+    waves = dict(st["prefill_waves"])
+    if st0 is not None:
+        waves = {w: n - st0["prefill_waves"].get(w, 0) for w, n in waves.items() if n - st0["prefill_waves"].get(w, 0)}
+    return {"waves": waves, "wave_reqs": st["wave_reqs"] - (st0["wave_reqs"] if st0 else 0)}
+
+
+def _wave_gemma(dev: dict, seed: int, cfg, params) -> dict:
+    """Gemma-2B at the engine defaults plus step_token_budget=0 (the pool,
+    under "auto"): warmup, every family bitwise (the lazy max_seq_len
+    bucket's too), the burst at lookahead 3 and 1 with its waves, every
+    token through the replay gate; then an int8 engine's burst."""
+    label = "wave "
+    eng = LLMEngine(cfg, params, seed=seed, step_token_budget=0)
+    try:
+        st = eng.stats()
+        print(f"{label}scheduler {st['scheduler']}, step_token_budget {st['step_token_budget']}, layout "
+              f"{st['kvcache']['layout']}, admit_cap {eng.admit_cap}, buckets {eng.prefill_buckets} + lazy "
+              f"{eng.max_seq_len}")
+        if st["scheduler"] != "wave" or not eng.kv.paged or any(n.startswith("llm.step_p") for n in eng._programs):
+            raise AssertionError(f"{label}not a paged wave engine: {st['scheduler']}, {list(eng._programs)}")
+        warm = _warm_report(label, eng)
+        _check_families(label, eng, seed, extra=sorted(eng._lazy))
+        eng.generate([1, 2, 3], max_new_tokens=4)
+        _plens, prompts = _burst_prompts(cfg, seed)
+        runs = []
+        for la in (3, 1):
+            st0 = eng.stats()
+            (run,) = _clocked_bursts(label, eng, prompts, 32, (la,))
+            run.update(_wave_stats(eng, st0))
+            print(f"{label}burst at lookahead {la}: waves by width {run['waves']}, {run['wave_reqs']} requests "
+                  f"in waves, busy {run['busy_ms']:.1f} ms, idle {100 * run['idle']:.1f}% (CUDA events)")
+            runs.append(run)
+    finally:
+        eng.close()
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    checked = exempt = 0
+    for i, r in enumerate(runs):
+        _wave_launches(f"{label}burst {i + 1} ", r["launches"], "paged_decode_partials")
+        c, e = _replay_gate(params, cfg, prompts, r["results"], TOKEN_GAP,
+                            label=f"{label}burst {i + 1} (lookahead {r['lookahead']}) ", verbose=i == 0)
+        checked, exempt = checked + c, exempt + e
+    # int8 weights and KV under the wave: the insert quantizes each row; its
+    # families are captured at their first dispatch (warmup=False)
+    qparams = quantize_params(params, cfg.dtype)
+    eng = LLMEngine(cfg, qparams, seed=seed, step_token_budget=0, kv_int8=True, quantize=True, warmup=False)
+    try:
+        eng.generate([1, 2, 3], max_new_tokens=4)
+        (run8,) = _bursts(f"{label}int8 ", eng, prompts, 32, KERNEL_COUNTERS, lookaheads=(3,))
+        run8.update(_wave_stats(eng))
+    finally:
+        eng.close()
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    _wave_launches(f"{label}int8 ", run8["launches"], "paged_decode_partials_int8")
+    c8, e8 = _replay_gate(qparams, cfg, prompts, run8["results"], INT8_TOKEN_GAP, label=f"{label}int8 ",
+                          verbose=False)
+    if 8 * e8 > run8["tokens"]:
+        raise AssertionError(f"{label}int8: {e8} of {run8['tokens']} tokens needed the int8 gap")
+    del qparams
+    out = {"tok_s": [r["tok_s"] for r in runs], "ttft_p50_s": [r["ttft_p50_s"] for r in runs],
+           "ttft_max_s": [r["ttft_max_s"] for r in runs], "waves": [r["waves"] for r in runs],
+           "programs": [r["chunks"] for r in runs], "busy_ms": [r["busy_ms"] for r in runs],
+           "idle": [r["idle"] for r in runs], "launches": runs[0]["launches"], "warmup_s": warm["warmup_s"],
+           "reserved_growth": warm["reserved_after"] - warm["reserved_before"], "tokens_matched": checked,
+           "tokens_exempt": exempt, "int8": {"tok_s": run8["tok_s"], "ttft_p50_s": run8["ttft_p50_s"],
+                                              "launches": run8["launches"], "waves": run8["waves"],
+                                              "matched": c8, "exempt": e8}}
+    print(f"wave gemma_2b on {dev['smi']}: tok/s {out['tok_s'][0]:.1f} at lookahead 3, {out['tok_s'][1]:.1f} at 1; "
+          f"ttft p50 {out['ttft_p50_s'][0]:.3f}s max {out['ttft_max_s'][0]:.3f}s (lookahead 1: "
+          f"{out['ttft_p50_s'][1]:.3f}s / {out['ttft_max_s'][1]:.3f}s); waves {out['waves'][0]}; programs "
+          f"{out['programs']}; busy {out['busy_ms'][0]:.1f} ms, idle {100 * out['idle'][0]:.1f}%; warmup_s "
+          f"{warm['warmup_s']:.3f}, memory_reserved +{out['reserved_growth']}; {checked} tokens matched, {exempt} "
+          f"exempt; launches {out['launches']}; int8: {run8['tok_s']:.1f} tok/s, ttft p50 {run8['ttft_p50_s']:.3f}s, "
+          f"{c8} matched, {e8} exempt, launches {run8['launches']}")
+    return out
+
+
+def _timed_serve(eng, prompts, new_tokens: int) -> dict:
+    """``_serve`` plus the TTFT of each request and the wave/step counts."""
+    st0 = eng.stats()
+    results, reqs, wall = _serve(eng, prompts, new_tokens)
+    st = eng.stats()
+    ttfts = sorted(r.first_token_at - r.submitted_at for r in reqs.values())
+    admits = sorted(r.admitted_at - r.submitted_at for r in reqs.values())
+    total = sum(len(t) for t in results.values())
+    return {"results": results, "reqs": reqs, "wall_s": wall, "tok_s": total / wall,
+            "ttft_p50_s": ttfts[len(ttfts) // 2], "ttft_max_s": ttfts[-1], "steps": st["steps"] - st0["steps"],
+            "admit_p50_s": admits[len(admits) // 2]}
+
+
+def _wave_slab_prefix(dev: dict, seed: int, cfg, params) -> dict:
+    """The whole-row prefix cache on the dense slab, chunked: the burst as
+    misses, again as exact hits (the miss round's tokens), then the shared
+    prefix alone and 8 prompts that extend it (partial hits)."""
+    label = "wave slab prefix "
+    eng = LLMEngine(cfg, params, seed=seed, kv_paged=False, prefix_cache_mb=WAVE_PREFIX_MB)
+    rounds = {}
+    try:
+        kv = eng.stats()["kvcache"]
+        if (kv["layout"], kv["prefix"]["capacity_bytes"]) != ("dense", WAVE_PREFIX_MB << 20):
+            raise AssertionError(f"{label}kvcache {kv}")
+        warm = _warm_report(label, eng)
+        _check_families(label, eng, seed)
+        eng.generate([1, 2, 3], max_new_tokens=4)  # warm-up, outside the rounds
+        _plens, prompts = _burst_prompts(cfg, seed)
+        rng = np.random.default_rng(seed + 16)
+        shared = rng.integers(1, cfg.vocab_size, WAVE_SHARED).tolist()
+        tails = [shared + rng.integers(1, cfg.vocab_size, 16 + 6 * i).tolist() for i in range(8)]
+        for name, batch in (("miss", prompts), ("exact", prompts), ("shared", [shared]), ("partial", tails)):
+            st0 = eng.stats()["kvcache"]["prefix"]
+            _zero_launches(KERNEL_COUNTERS)
+            run = _timed_serve(eng, batch, 32)
+            run["launches"] = _launches(KERNEL_COUNTERS)
+            st = eng.stats()["kvcache"]["prefix"]
+            run["prefix"] = {k: st[k] - st0[k] for k in ("hits", "partial_hits", "misses", "stores")}
+            rounds[name] = run
+            print(f"{label}round {name}: {len(batch)} requests, {run['tok_s']:.1f} tok/s, ttft p50 "
+                  f"{run['ttft_p50_s']:.3f}s max {run['ttft_max_s']:.3f}s (admitted after {run['admit_p50_s']:.3f}s "
+                  f"p50), {run['steps']} unified steps, prefix "
+                  f"{run['prefix']}, resident {st['resident_bytes']} bytes in {st['entries']} entries; launches "
+                  f"{run['launches']}")
+        pinned = eng.kv.prefix.pinned()
+    finally:
+        eng.close()
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    # a partial hit counts its whole-prompt probe's miss too (JAX lookup_longest)
+    want = {"miss": (0, 0, 8), "exact": (8, 0, 0), "shared": (0, 0, 1), "partial": (0, 8, 8)}
+    got = {n: (r["prefix"]["hits"], r["prefix"]["partial_hits"], r["prefix"]["misses"]) for n, r in rounds.items()}
+    if got != want or pinned or rounds["exact"]["steps"]:
+        raise AssertionError(f"{label}(hits, partials, misses) {got}, want {want}; pinned {pinned}; exact round "
+                             f"steps {rounds['exact']['steps']}")
+    if rounds["exact"]["results"] != rounds["miss"]["results"]:
+        raise AssertionError(f"{label}exact hits served other tokens than the misses")
+    checked = exempt = 0
+    for name, batch in (("miss", prompts), ("partial", tails)):
+        c, e = _replay_gate(params, cfg, batch, rounds[name]["results"], TOKEN_GAP, label=f"{label}{name} ",
+                            verbose=False)
+        checked, exempt = checked + c, exempt + e
+    out = {name: {k: r[k] for k in ("tok_s", "ttft_p50_s", "ttft_max_s", "steps", "prefix", "launches")}
+           for name, r in rounds.items()}
+    out.update(warmup_s=warm["warmup_s"], tokens_matched=checked, tokens_exempt=exempt)
+    print(f"wave slab prefix gemma_2b on {dev['smi']}: ttft p50 miss {out['miss']['ttft_p50_s']:.3f}s, exact "
+          f"{out['exact']['ttft_p50_s']:.3f}s, partial {out['partial']['ttft_p50_s']:.3f}s; exact tokens equal the "
+          f"misses'; {checked} tokens matched, {exempt} exempt")
+    return out
+
+
+def mistral_weights(seed: int, layers: int, label: str) -> tuple[TransformerConfig, dict]:
+    """Mistral-7B at full width and ``layers`` layers, random bf16 weights
+    from the seed, with a random untied head."""
+    cfg = dataclasses.replace(TransformerConfig.mistral_7b(), n_layers=layers)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    t0 = time.perf_counter()
+    params = init_params(cfg, g, "cuda")
+    head = torch.randn((cfg.vocab_size, cfg.d_model), generator=g, device="cuda") / math.sqrt(cfg.d_model)
+    params["unembed"] = head.to(cfg.dtype)
+    del head
+    torch.cuda.synchronize()
+    print(f"{label}mistral_7b ({cfg.n_layers} of 32 layers): {_tensor_bytes(params)} bytes of bf16 weights in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    return cfg, params
+
+
+def _wave_ring_hit(dev: dict, seed: int) -> dict:
+    """Mistral-7B's ring with the whole-row prefix cache, chunked: one long
+    prompt as a miss, then again as an exact hit (the whole ring stored)."""
+    label = "wave ring hit "
+    cfg, params = mistral_weights(seed, WAVE_HIT_LAYERS, label)
+    eng = LLMEngine(cfg, params, seed=seed, slots=WAVE_HIT_SLOTS, max_seq_len=WAVE_HIT_SEQ, prefix_cache_mb=WAVE_HIT_MB)
+    try:
+        kv = eng.stats()["kvcache"]
+        print(f"{label}kvcache {kv}")
+        if (kv["layout"], kv["capacity"]) != ("rolling", 4160) or kv["prefix"] is None:
+            raise AssertionError(f"{label}kvcache {kv}")
+        warm = _warm_report(label, eng)
+        _check_families(label, eng, seed)
+        eng.generate([1, 2, 3], max_new_tokens=4)  # warm-up, outside the timed pair
+        prompt = np.random.default_rng(seed + 17).integers(1, cfg.vocab_size, WAVE_HIT_PROMPT).tolist()
+        runs = {}
+        for name in ("miss", "exact"):
+            _zero_launches(KERNEL_COUNTERS)
+            runs[name] = _timed_serve(eng, [prompt], 32)
+            runs[name]["launches"] = _launches(KERNEL_COUNTERS)
+            print(f"{label}{name}: ttft {runs[name]['ttft_p50_s']:.3f}s (admitted after "
+                  f"{runs[name]['admit_p50_s']:.3f}s), {runs[name]['steps']} unified steps, "
+                  f"launches {runs[name]['launches']}")
+        pre = eng.stats()["kvcache"]["prefix"]
+        entry = eng.kv.prefix._entries[eng.kv.prefix.key_for(prompt)]
+        entry_bytes, entry_rows = entry.nbytes, entry.k.shape[2]
+    finally:
+        eng.close()
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    want_bytes = 2 * cfg.n_layers * 4160 * cfg.n_kv_heads * cfg.head_dim * 2 + 4 * cfg.vocab_size
+    if (pre["hits"], pre["misses"], entry_rows, entry_bytes) != (1, 2, 4160, want_bytes) or runs["exact"]["steps"]:
+        raise AssertionError(f"{label}prefix {pre}, entry {entry_rows} rows {entry_bytes} bytes, exact steps "
+                             f"{runs['exact']['steps']}")
+    if runs["exact"]["results"] != runs["miss"]["results"]:
+        raise AssertionError(f"{label}the exact hit served other tokens than the miss")
+    checked, exempt = _replay_gate(params, cfg, [prompt], runs["miss"]["results"], TOKEN_GAP, label=label,
+                                   verbose=False)
+    del params
+    out = {"ttft_miss_s": runs["miss"]["ttft_p50_s"], "ttft_exact_s": runs["exact"]["ttft_p50_s"],
+           "entry_bytes": entry_bytes, "steps_miss": runs["miss"]["steps"], "warmup_s": warm["warmup_s"],
+           "launches": runs["miss"]["launches"], "tokens_matched": checked, "tokens_exempt": exempt}
+    print(f"wave ring hit mistral_7b ({cfg.n_layers} of 32 layers) on {dev['smi']}: a {WAVE_HIT_PROMPT}-token prompt, "
+          f"ttft miss {out['ttft_miss_s']:.3f}s ({out['steps_miss']} unified steps), exact hit "
+          f"{out['ttft_exact_s']:.3f}s, same tokens; entry {entry_bytes} bytes ({entry_rows} ring rows); {checked} "
+          f"tokens matched, {exempt} exempt")
+    return out
+
+
+def _wave_ring(dev: dict, seed: int) -> dict:
+    """Mistral-7B's ring under the wave: two long prompts in one wave at the
+    8,192 bucket (full-prompt flash over the 4096 band, then ring_pack)."""
+    label = "wave ring "
+    cfg, params = mistral_weights(seed, WAVE_RING_LAYERS, label)
+    eng = LLMEngine(cfg, params, seed=seed, slots=WAVE_RING_SLOTS, max_seq_len=WAVE_RING_SEQ, step_token_budget=0)
+    try:
+        kv = eng.stats()["kvcache"]
+        print(f"{label}kvcache {kv}")
+        if (kv["layout"], kv["capacity"]) != ("rolling", 4104):
+            raise AssertionError(f"{label}kvcache {kv}")
+        warm = _warm_report(label, eng)
+        _check_families(label, eng, seed, extra=sorted(eng._lazy))
+        rng = np.random.default_rng(seed + 18)
+        prompts = [rng.integers(1, cfg.vocab_size, n).tolist() for n in WAVE_RING_PROMPTS]
+        st0 = eng.stats()
+        (run,) = _clocked_bursts(label, eng, prompts, WAVE_RING_NEW, (3,))
+        run.update(_wave_stats(eng, st0))
+        lengths = eng.cache.length.cpu().tolist()
+    finally:
+        eng.close()
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    _wave_launches(label, run["launches"], None)
+    if run["wave_reqs"] != 2 or min(lengths) <= 4104:
+        raise AssertionError(f"{label}waves {run['waves']}, lengths {lengths}")
+    checked, exempt = _replay_gate(params, cfg, prompts, run["results"], TOKEN_GAP, label=label, verbose=False)
+    del params
+    out = {"tok_s": run["tok_s"], "ttft_p50_s": run["ttft_p50_s"], "ttft_max_s": run["ttft_max_s"],
+           "waves": run["waves"], "lengths": lengths, "busy_ms": run["busy_ms"], "idle": run["idle"],
+           "warmup_s": warm["warmup_s"], "launches": run["launches"], "tokens_matched": checked,
+           "tokens_exempt": exempt}
+    print(f"wave ring mistral_7b ({cfg.n_layers} of 32 layers) on {dev['smi']}: prompts {list(WAVE_RING_PROMPTS)} x "
+          f"{WAVE_RING_NEW} in waves {run['waves']}: {run['tok_s']:.1f} tok/s, ttft p50 {run['ttft_p50_s']:.3f}s max "
+          f"{run['ttft_max_s']:.3f}s; lengths {lengths} (ring 4104); busy {run['busy_ms']:.1f} ms, idle "
+          f"{100 * run['idle']:.1f}%; {checked} tokens matched, {exempt} exempt; launches {run['launches']}")
+    return out
+
+
+def phase_wave(dev: dict, seed: int, cfg=None, params=None) -> dict:
+    """The wave phase (see the module docstring). Returns each run's
+    readings and its kernel launches by label."""
+    if params is None:
+        cfg, params = gemma_weights(seed)
+    clock: dict = {}
+    out = {}
+    for name, fn, args in (("gemma", _wave_gemma, (cfg, params)), ("slab prefix", _wave_slab_prefix, (cfg, params)),
+                           ("ring hit", _wave_ring_hit, ()), ("ring", _wave_ring, ())):
+        t0 = time.perf_counter()
+        out[name] = fn(dev, seed, *args)
+        clock[name] = time.perf_counter() - t0
+    print("wave seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in clock.items()))
+    out["launches"] = {
+        "gemma": out["gemma"]["launches"], "gemma int8": out["gemma"]["int8"]["launches"],
+        "slab prefix": out["slab prefix"]["miss"]["launches"], "ring hit": out["ring hit"]["launches"],
+        "ring": out["ring"]["launches"],
+    }
+    return out
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description="GPU smoke run of gofr_tpu_torch on one card")
     ap.add_argument("--parent", metavar="TREE",
                     help="also build another checkout's paged-decode kernels (e.g. the parent commit from "
                          "git archive) and time them beside this tree's on the same inputs")
-    ap.add_argument("--only", choices=("families", "moe", "contiguous"),
+    ap.add_argument("--only", choices=("families", "moe", "contiguous", "wave"),
                     help="build the kernels and run this one phase, which makes its own weights (prints no "
                          "kernels line and no result)")
     args = ap.parse_args()
@@ -3786,8 +4210,8 @@ def main() -> int:
 
     timed("build", phase_build)
     if args.only:
-        timed(args.only, {"families": phase_families, "moe": phase_moe, "contiguous": phase_contiguous}[args.only],
-              dev, SEED)
+        timed(args.only, {"families": phase_families, "moe": phase_moe, "contiguous": phase_contiguous,
+                          "wave": phase_wave}[args.only], dev, SEED)
         print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
         return 0
     kern = timed("kernels", phase_kernels, dev, SEED, build_parent(args.parent) if args.parent else None)
@@ -3809,16 +4233,22 @@ def main() -> int:
     pre8 = timed("prefix int8", phase_prefix_int8, dev, SEED, cfg, params)
     spec = timed("spec", phase_spec, dev, SEED, cfg, params)
     structured = timed("structured", phase_structured, dev, SEED, cfg, params)
+    wave = timed("wave", phase_wave, dev, SEED, cfg, params)
     del params  # Gemma-2B's weights; the families phase loads one model at a time
     families = timed("families", phase_families, dev, SEED)
     moe = timed("moe", phase_moe, dev, SEED)
     contiguous = timed("contiguous", phase_contiguous, dev, SEED)
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     # name -> (source, replaced Pallas kernel, timing key, engine run whose
-    # launches count, prefix phases' launches)
+    # launches count, prefix phases' launches). flash_attention_prompt is
+    # the same kernel in its full-prompt mode (row 2), counted apart; its
+    # main path is the wave's burst
     sources = {
         "flash_attention": ("gofr_tpu_torch/csrc/flash_attention.cu", "gofr_tpu/ops/attention.py:101",
                             "flash_attention c64", eng, pre["launches"]["flash_attention"]),
+        "flash_attention_prompt": ("gofr_tpu_torch/csrc/flash_attention.cu",
+                                   "gofr_tpu/ops/attention.py:254-282 (:309)", "flash_attention prompt wave b128 w8",
+                                   wave["gemma"], pre["launches"]["flash_attention_prompt"]),
         "paged_decode_partials": ("gofr_tpu_torch/csrc/paged_decode.cu", "gofr_tpu/ops/attention.py:661",
                                   "paged_decode_partials", eng, pre["launches"]["paged_decode_partials"]),
         "paged_decode_partials_int8": ("gofr_tpu_torch/csrc/paged_decode.cu",
@@ -3836,6 +4266,7 @@ def main() -> int:
             "families_launches": {label: n[name] for label, n in families["launches"].items()},
             "moe_launches": {label: n[name] for label, n in moe["launches"].items()},
             "contiguous_launches": {label: n[name] for label, n in contiguous["launches"].items()},
+            "wave_launches": {label: n[name] for label, n in wave["launches"].items()},
             "max_abs_err": kern["errs"][name],
             "ms": t["ms"], "device_ms": t["device_ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],

@@ -10,7 +10,9 @@ the config sets ``TORCH_DEVICE=cpu``; without a GPU it raises.
 Only what the port's engine has is accepted: the kwargs ``slots``,
 ``max_seq_len``, ``prefill_buckets``, ``quantize``, ``kv_int8``, ``seed``,
 ``device``, ``lookahead``, ``warmup``, ``prefix_cache_mb``,
-``session_mb``, ``host_cache_mb``, ``speculative``, ``spec_draft``,
+``session_mb``, ``host_cache_mb``, ``kv_pool_blocks``, the scheduler's
+``step_token_budget`` (256, the chunked scheduler, or 0, the wave),
+``admit_cap`` and ``admit_delay_ms``, ``speculative``, ``spec_draft``,
 ``constrained``, ``constrained_grammars``, the overload kwargs
 ``max_queue``, ``ttft_deadline_ms``, ``fair_queuing``, ``fair_weights``,
 ``fair_ledger``, ``preemption``, ``shed_predicted_wait_s``,
@@ -22,14 +24,20 @@ slack < max_seq_len and the dense slab otherwise; ``"auto"`` takes the
 ring where it engages and no session tier is asked for) and ``kv_window``
 (0 forces the dense slab), and the config knobs ``TPU_LLM_KV_PAGED`` ("0"
 means ``kv_paged=False``, anything else ``"auto"``, as in the JAX
-runtime), ``TPU_LLM_KV_INT8``, ``TPU_LLM_PREFIX_CACHE_MB``, ``TPU_LLM_SESSION_MB``,
+runtime), ``TPU_LLM_STEP_TOKEN_BUDGET`` ("0" or "256"),
+``TPU_LLM_KV_INT8``, ``TPU_LLM_PREFIX_CACHE_MB``, ``TPU_LLM_SESSION_MB``,
 ``TPU_LLM_HOST_CACHE_MB``, ``TPU_LLM_SPEC``, ``TPU_LLM_SPEC_DRAFT``,
 ``TPU_LLM_CONSTRAINED``, ``TPU_LLM_CONSTRAINED_GRAMMARS``,
 ``TPU_LLM_FAIR``, ``TPU_LLM_PREEMPT``, ``TPU_LLM_SHED_WAIT_S``,
 ``TPU_LLM_BROWNOUT_WAIT_S``, ``TPU_LLM_BROWNOUT_MAX_NEW``,
 ``TPU_LLM_BROWNOUT_HOLD_S``, ``TPU_LLM_LORA_SLOTS`` and
 ``TPU_LLM_LORA_RANK_MAX`` (defaults for the kwargs a caller leaves out,
-with the JAX engine's meanings).
+with the JAX engine's meanings). As in the JAX runtime,
+``TPU_LLM_KV_POOL_BLOCKS`` has no config mapping: the process env reaches
+the engine's ``CacheManager``, which reads it (with ``TPU_LLM_KV_INT8``,
+``TPU_LLM_SESSION_MB`` and ``TPU_LLM_HOST_CACHE_MB``) for a kwarg left
+None. Other step budgets, ``TPU_LLM_PREFILL_CHUNK`` and ``TPU_LLM_KV_BLOCK``
+away from their defaults stay refused (ROADMAP queue 1 ID 19).
 Any other kwarg, and any of the JAX runtime's engine knobs set to ask for
 a feature the port lacks (replicas, meshes, ...), raises
 ``NotImplementedError`` naming it; none is ignored.
@@ -55,7 +63,8 @@ _ENGINE_KWARGS = (
     "prefix_cache_mb", "session_mb", "host_cache_mb", "speculative", "spec_draft", "constrained",
     "constrained_grammars", "max_queue", "ttft_deadline_ms", "fair_queuing", "fair_weights", "fair_ledger",
     "preemption", "shed_predicted_wait_s", "brownout_wait_s", "brownout_max_new", "brownout_hold_s",
-    "lora_slots", "lora_rank", "kv_paged", "kv_window",
+    "lora_slots", "lora_rank", "kv_paged", "kv_window", "kv_pool_blocks", "step_token_budget", "admit_cap",
+    "admit_delay_ms",
 )
 
 # Overload-control and LoRA knobs: config key -> (engine kwarg, parser of
@@ -72,9 +81,11 @@ _OVERLOAD_KNOBS = {
 }
 
 # The JAX runtime's engine knobs that select a feature this port lacks,
-# each with the values that ask for nothing more than the port does.
+# each with the values that ask for nothing more than the port does (the
+# shape knobs' other values: ROADMAP queue 1 ID 19).
+_SHAPE_KNOBS = ("TPU_LLM_STEP_TOKEN_BUDGET", "TPU_LLM_PREFILL_CHUNK", "TPU_LLM_KV_BLOCK")
 _UNPORTED_KNOBS = {
-    "TPU_LLM_STEP_TOKEN_BUDGET": (str(STEP_TOKEN_BUDGET),),
+    "TPU_LLM_STEP_TOKEN_BUDGET": ("0", str(STEP_TOKEN_BUDGET)),
     "TPU_LLM_PREFILL_CHUNK": (str(PREFILL_CHUNK),),
     "TPU_LLM_KV_BLOCK": (str(KV_BLOCK),),
     "TPU_LLM_STEP_WATCHDOG_S": ("0",),
@@ -130,16 +141,20 @@ class GPURuntime:
         (the JAX runtime's sharding of the expert stacks under
         ``TPU_LLM_TP``) is not ported, and a ``TPU_LLM_TP`` degree above
         1 stays refused. ``kv_paged`` / ``TPU_LLM_KV_PAGED`` pick the KV
-        layout (the engine's ``kv_paged``); the contiguous layouts take no
-        ``prefix_cache_mb`` (the whole-row prefix cache is not ported) and
-        ignore ``kv_int8`` (``kvcache`` logs it)."""
+        layout (the engine's ``kv_paged``); the contiguous layouts serve
+        ``prefix_cache_mb`` through the whole-row prefix cache and ignore
+        ``kv_int8`` (``kvcache`` logs it). ``step_token_budget`` /
+        ``TPU_LLM_STEP_TOKEN_BUDGET`` 0 builds the wave scheduler."""
         unknown = sorted(set(engine_kw) - set(_ENGINE_KWARGS))
         if unknown:
             raise NotImplementedError(f"register_llm: not ported: {', '.join(unknown)}")
         for knob, fine in _UNPORTED_KNOBS.items():
             v = self._knobs[knob]
             if v != "" and v not in fine:
-                raise NotImplementedError(f"{knob}={v}: not ported")
+                why = " (ROADMAP queue 1 ID 19)" if knob in _SHAPE_KNOBS else ""
+                raise NotImplementedError(f"{knob}={v}: not ported{why}")
+        if self._knobs["TPU_LLM_STEP_TOKEN_BUDGET"] != "":
+            engine_kw.setdefault("step_token_budget", int(self._knobs["TPU_LLM_STEP_TOKEN_BUDGET"]))
         if self.default_llm_kv_paged != "":
             # "1" means "auto", as the process-wide knob does
             engine_kw.setdefault("kv_paged", False if self.default_llm_kv_paged == "0" else "auto")

@@ -10,8 +10,14 @@
   model has a sliding window and window + slack < max_seq_len (a slot
   costs O(window) rows, not O(max_seq_len)), else the dense slab [L,
   slots, max_seq_len, hkv, hd]. Rows are stored in the model dtype (no
-  int8), with no pool, radix tree or sessions; the JAX package's
-  whole-row ``PrefixCache`` over this layout is not ported.
+  int8), with no pool, radix tree or sessions. Prefix reuse there is the
+  whole-row ``PrefixCache`` (``prefix_cache_mb`` > 0): a finished
+  prompt's slot rows and last-token logits, cloned, refcounted and
+  LRU-evicted under a byte budget.
+
+The wave scheduler (``step_token_budget=0``) prefills whole prompts into a
+bucket-wide cache; ``pack_prefill`` makes it a slot's layout (``ring_pack``
+on the ring).
 
 ``paged="auto"`` (``paged_default()``, from ``TPU_LLM_KV_PAGED``) is
 contiguous exactly when the ring engages and no session tier is asked
@@ -21,7 +27,8 @@ for. The paged sizing rules:
 - ``capacity = table_width * block`` logical rows per slot;
 - ``pool_blocks = slots * table_width`` (every slot fully grown, no
   sharing) plus the blocks of the retention budget (``prefix_cache_mb``)
-  and of the session budget (``session_mb``);
+  and of the session budget (``session_mb``), unless ``pool_blocks``
+  (``TPU_LLM_KV_POOL_BLOCKS``) names a count;
 - one ``append_slack`` term (the widest append one device program can
   make) in every admission reservation, and in the ring's capacity.
 
@@ -34,6 +41,12 @@ on ``release_slot``; the device pool tensors are [L, n_blocks, block,
 hkv, hd] (plus [2, L, n_blocks, block, hkv] float32 scales for an int8
 pool) and belong to the engine, which performs every device copy.
 
+Each knob left None reads the JAX engine's env fallback with its default
+and parsing: ``session_mb`` ``TPU_LLM_SESSION_MB`` (0; read before
+``"auto"`` resolves), ``kv_int8`` ``TPU_LLM_KV_INT8`` (off unless set and
+not "0"), ``host_cache_mb`` ``TPU_LLM_HOST_CACHE_MB`` (256) and
+``pool_blocks`` ``TPU_LLM_KV_POOL_BLOCKS`` (0: the worst case above).
+
 Threading: the scheduler thread mutates; the collector releases slots;
 ``stats()`` readers may come from anywhere. Every mutation of the pool,
 the tables, the radix and the sessions happens under ``_lock``.
@@ -45,6 +58,7 @@ import logging
 import os
 import threading
 import time
+from collections import Counter, OrderedDict
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -65,11 +79,179 @@ from .paged import (
 from .sessions import HostOffload, SessionStore
 
 __all__ = [
-    "BlockPool", "CacheManager", "paged_default", "PoolExhausted", "RadixTree", "SeedPlan", "SlotTable", "copy_blocks",
-    "dequantize_rows", "gather_blocks_host", "gather_slots", "quantize_rows", "scatter_rows",
+    "BlockPool", "CacheManager", "paged_default", "PoolExhausted", "PrefixCache", "RadixTree", "SeedPlan",
+    "SlotTable", "copy_blocks", "dequantize_rows", "gather_blocks_host", "gather_slots", "quantize_rows",
+    "ring_pack", "scatter_rows",
 ]
 
 _MB = 1024 * 1024
+
+
+def ring_pack(cache, capacity: int):
+    """A position-indexed prefill cache [L, b, s, hkv, hd] re-laid as a
+    ring of ``capacity`` rows (JAX ``ring_pack``): row j holds the newest
+    prompt position congruent to j mod capacity (``ring_positions``), so
+    the newest ``capacity`` rows survive; rows never written are zeroed.
+    One gather per k and v; lengths stay absolute."""
+    from ..models.transformer import KVCache
+    from ..ops.attention import ring_positions
+
+    L, b, s, h, d = cache.k.shape
+    pos = ring_positions(cache.length, capacity)  # [b, C]
+    valid = (pos >= 0)[None, :, :, None, None]
+    idx = pos.long().clamp(0, s - 1)[None, :, :, None, None].expand(L, b, capacity, h, d)
+
+    def take(a):
+        return torch.where(valid, torch.gather(a, 2, idx), torch.zeros((), dtype=a.dtype, device=a.device))
+
+    return KVCache(k=take(cache.k), v=take(cache.v), length=cache.length)
+
+
+class _Entry:
+    """One retained prompt: its slot rows k/v [L, 1, rows, hkv, hd] and
+    last-token logits [1, vocab] f32, each a private copy."""
+
+    __slots__ = ("key", "k", "v", "length", "logits", "nbytes", "refs")
+
+    def __init__(self, key, k, v, length, logits, nbytes):
+        self.key = key
+        self.k = k
+        self.v = v
+        self.length = length  # absolute prompt length
+        self.logits = logits
+        self.nbytes = nbytes
+        self.refs = 0
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+class PrefixCache:
+    """Prompt -> retained slot rows, refcounted, LRU-evicted under a byte
+    budget (JAX ``PrefixCache``, the contiguous layouts' prefix index).
+
+    A lookup PINS its entry (refs += 1) until the engine releases it, so
+    eviction never frees rows an admission is about to insert. Eviction
+    is strict LRU over unpinned entries whenever resident bytes exceed the
+    budget; an entry larger than the whole budget is refused. Bytes count
+    as in JAX (k, v and logits), so one budget evicts the same entries.
+
+    ``put`` CLONES the rows and the logits row it is given: the engine
+    passes views of its slab (a reused slot would rewrite them) or of a
+    graph's static output (the next replay would). The clone is enqueued
+    on the caller's stream, after the program that wrote them. A hit's
+    rows go straight into its slot (the engine's ``_insert_rows``), so
+    JAX's ``assemble`` into a capacity-wide wave has no counterpart.
+
+    Thread-safe: the scheduler mutates while stats() readers come from
+    anywhere."""
+
+    def __init__(self, capacity_bytes: int):
+        self.capacity_bytes = int(capacity_bytes)
+        self._entries: OrderedDict[bytes, _Entry] = OrderedDict()
+        self._lengths: Counter[int] = Counter()  # distinct stored lengths, refcounted
+        self._lock = threading.Lock()
+        self.hits = 0
+        self.misses = 0
+        self.partial_hits = 0
+        self.evictions = 0
+        self.stores = 0
+        self.resident_bytes = 0
+
+    @staticmethod
+    def key_for(tokens) -> bytes:
+        """Exact-content key: the int32 bytes of the token sequence."""
+        return np.asarray(tokens, np.int32).tobytes()
+
+    def lookup(self, key: bytes) -> _Entry | None:
+        """Hit: move to MRU, pin, return the entry. Miss: count, None."""
+        with self._lock:
+            e = self._entries.get(key)
+            if e is None:
+                self.misses += 1
+                return None
+            self._entries.move_to_end(key)
+            e.refs += 1
+            self.hits += 1
+            return e
+
+    def lookup_longest(self, tokens, *, allow_partial: bool = True) -> tuple[_Entry | None, bool]:
+        """(entry, exact) for the longest stored prompt that prefixes
+        ``tokens``: an exact hit skips prefill; a partial hit's rows seed
+        the slot and its prefill cursor starts at ``entry.length``.
+        ``allow_partial=False`` probes the whole prompt only (a ring's rows
+        are laid out for the entry's own length and serve no shorter one).
+        The key of tokens[:n] is key[:4n], so one probe per distinct
+        stored length, longest first; partial hits have their own counter."""
+        key = self.key_for(tokens)
+        e = self.lookup(key)
+        if e is not None:
+            return e, True
+        if not allow_partial:
+            return None, False
+        n = len(key) // 4
+        with self._lock:
+            for length in sorted((ln for ln in self._lengths if ln < n), reverse=True):
+                e = self._entries.get(key[: 4 * length])
+                if e is None:
+                    continue
+                self._entries.move_to_end(e.key)
+                e.refs += 1
+                self.partial_hits += 1
+                return e, False
+        return None, False
+
+    def release(self, entry: _Entry) -> None:
+        with self._lock:
+            entry.refs -= 1
+
+    def put(self, key: bytes, k, v, length: int, logits) -> bool:
+        """Retain a private copy of a prompt's rows and logits; False when
+        skipped (duplicate key, or larger than the whole budget)."""
+        nbytes = _nbytes(k) + _nbytes(v) + _nbytes(logits)
+        with self._lock:
+            if key in self._entries or nbytes > self.capacity_bytes:
+                return False
+            self._entries[key] = _Entry(key, k.clone(), v.clone(), int(length), logits.clone(), nbytes)
+            self._lengths[int(length)] += 1
+            self.resident_bytes += nbytes
+            self.stores += 1
+            while self.resident_bytes > self.capacity_bytes:
+                victim = next((ky for ky, e in self._entries.items() if e.refs == 0), None)
+                if victim is None:  # everything pinned: over budget until released
+                    break
+                ve = self._entries.pop(victim)
+                self.resident_bytes -= ve.nbytes
+                self._lengths[ve.length] -= 1
+                if not self._lengths[ve.length]:
+                    del self._lengths[ve.length]
+                self.evictions += 1
+        return True
+
+    def clear(self) -> None:
+        with self._lock:
+            self._entries.clear()
+            self._lengths.clear()
+            self.resident_bytes = 0
+
+    def pinned(self) -> int:
+        """Entries some admission still pins (0 once the engine is idle)."""
+        with self._lock:
+            return sum(1 for e in self._entries.values() if e.refs)
+
+    def stats(self) -> dict:
+        with self._lock:
+            return {
+                "hits": self.hits,
+                "misses": self.misses,
+                "partial_hits": self.partial_hits,
+                "evictions": self.evictions,
+                "stores": self.stores,
+                "entries": len(self._entries),
+                "resident_bytes": self.resident_bytes,
+                "capacity_bytes": self.capacity_bytes,
+            }
 
 
 class SeedPlan(NamedTuple):
@@ -100,14 +282,17 @@ class CacheManager:
     (``paged=False``, or ``"auto"`` where the ring engages and
     ``session_mb`` is 0): the slab's geometry only, ``rolling``,
     ``capacity`` (window + append_slack when rolling, else max_seq_len),
-    ``ring`` (the capacity when rolling, else 0), ``slot_bytes`` and
-    ``init_cache``.
+    ``ring`` (the capacity when rolling, else 0), ``slot_bytes``,
+    ``init_cache`` and, with ``prefix_cache_mb`` > 0, the whole-row
+    ``prefix`` (a ``PrefixCache``; None otherwise and on the paged layout).
 
     ``window=None`` adopts ``cfg.sliding_window``; ``window=0`` forces the
     dense slab on a windowed model (the JAX rolling-vs-dense lever); any
     other value must equal the config's window. ``append_widths``: every
     width one program can append (chunk shapes, the verify width); their
-    max with ``decode_chunk`` is the one slack term both layouts budget."""
+    max with ``decode_chunk`` is the one slack term both layouts budget.
+    ``kv_int8``, ``session_mb``, ``host_cache_mb`` and ``pool_blocks`` left
+    None read their env fallbacks (the module docstring)."""
 
     def __init__(
         self,
@@ -120,10 +305,11 @@ class CacheManager:
         append_widths: tuple = (),
         paged=True,
         block: int = 16,
-        kv_int8: bool = False,
+        pool_blocks: int | None = None,
+        kv_int8: bool | None = None,
         prefix_cache_mb: float = 0.0,
-        session_mb: float = 0.0,
-        host_cache_mb: float = 256.0,
+        session_mb: float | None = None,
+        host_cache_mb: float | None = None,
     ):
         self.cfg = cfg
         self.slots = slots
@@ -136,6 +322,15 @@ class CacheManager:
         self.window = int(w or 0)
         self.append_slack = max(tuple(int(x) for x in append_widths) + (int(decode_chunk),))
         would_roll = 0 < self.window and self.window + self.append_slack < max_seq_len
+        env = os.environ.get
+        if session_mb is None:  # read before "auto" resolves, as in JAX
+            session_mb = float(env("TPU_LLM_SESSION_MB", "0") or 0.0)
+        if kv_int8 is None:
+            kv_int8 = env("TPU_LLM_KV_INT8", "0") not in ("", "0")
+        if host_cache_mb is None:
+            host_cache_mb = float(env("TPU_LLM_HOST_CACHE_MB", "256") or 0.0)
+        if pool_blocks is None:
+            pool_blocks = int(env("TPU_LLM_KV_POOL_BLOCKS", "0"))
         if paged == "auto":
             # the ring keeps its O(window) slot bound unless the session
             # tier, which only the paged pool provides, is asked for
@@ -144,11 +339,6 @@ class CacheManager:
         itemsize = torch.empty((), dtype=cfg.dtype).element_size()
         self._lock = threading.Lock()
         if not self.paged:
-            if prefix_cache_mb > 0:
-                raise NotImplementedError(
-                    "prefix_cache_mb > 0 on the contiguous KV layout: the whole-row PrefixCache is not "
-                    "ported (ROADMAP queue 1 ID 8); use kv_paged=True for the radix prefix cache"
-                )
             if kv_int8:
                 logging.getLogger(__name__).warning(
                     "kv_int8 ignored: the contiguous KV layout stores rows in the model dtype"
@@ -160,7 +350,9 @@ class CacheManager:
             self.block = self.table_width = 0
             self.int8 = self.share = False
             self.pool = self.radix = self.sessions = None
+            self.prefix = PrefixCache(int(prefix_cache_mb * _MB)) if prefix_cache_mb > 0 else None
             return
+        self.prefix = None  # the radix tree is the paged layout's prefix index
         self.rolling = False
         self.ring = 0
         self.block = int(block)
@@ -174,8 +366,8 @@ class CacheManager:
         retain_bytes = int(prefix_cache_mb * _MB)
         session_bytes = int(session_mb * _MB)
         # worst case with zero sharing (every slot fully grown), plus the
-        # retained-prefix and session budgets
-        n_blocks = (
+        # retained-prefix and session budgets, unless a count is named
+        n_blocks = int(pool_blocks) or (
             slots * self.table_width + -(-retain_bytes // self.block_bytes) + -(-session_bytes // self.block_bytes)
         )
         self.pool = BlockPool(n_blocks, self.block, self.block_bytes)
@@ -203,6 +395,11 @@ class CacheManager:
             v=torch.zeros(shape, dtype=cfg.dtype, device=device),
             length=torch.zeros((rows,), dtype=torch.int32, device=device),
         )
+
+    def pack_prefill(self, cache):
+        """A freshly prefilled cache in the slot layout: ring-packed on the
+        ring, as it stands otherwise."""
+        return ring_pack(cache, self.capacity) if self.rolling else cache
 
     def pool_tensors(self, device):
         """Zeroed device pool [L, n_blocks, block, hkv, hd] (int8 when
@@ -233,14 +430,16 @@ class CacheManager:
         return min(prompt_len + max_new - 1 + self.append_slack, self.capacity)
 
     # -- admission ---------------------------------------------------------
-    def lookup_seed(self, prompt_tokens) -> SeedPlan | None:
+    def lookup_seed(self, prompt_tokens, *, allow_partial: bool = True) -> SeedPlan | None:
         """Radix consult for one prompt. An exact end record WITH logits
         gives an exact plan (prefill skipped); otherwise the longest
         block-aligned shared prefix, clamped to (n - 1) // block * block so
         at least one prompt token still runs through prefill (session end
-        records keep rows, not logits, and take this path). The plan's
-        blocks (and tail source) are pinned: ``attach_seed`` adopts the
-        pins, every other path calls ``release_plan``."""
+        records keep rows, not logits, and take this path).
+        ``allow_partial=False`` returns exact plans only (the wave has no
+        mid-prompt append). The plan's blocks (and tail source) are
+        pinned: ``attach_seed`` adopts the pins, every other path calls
+        ``release_plan``."""
         if self.radix is None:
             return None
         with self._lock:
@@ -254,7 +453,7 @@ class CacheManager:
                 )
             else:
                 shared = min(m.shared, ((n - 1) // self.block) * self.block)
-                if shared <= 0:
+                if shared <= 0 or not allow_partial:
                     return None
                 plan = SeedPlan(
                     blocks=m.blocks[: shared // self.block], shared=shared,
@@ -561,7 +760,7 @@ class CacheManager:
                 "window": self.window,
                 "slot_bytes": self.slot_bytes,
                 "int8": False,
-                "prefix": None,
+                "prefix": self.prefix.stats() if self.prefix is not None else None,
                 "sessions": None,
             }
         with self._lock:

@@ -18,12 +18,26 @@ the JAX engine's default configuration:
   ``decode_chunk`` (plain attention, as the JAX einsum) with the device
   ``active`` flags and no paged ``live`` mask; its verify runs on the
   cache in place. It has no blocks, tables, radix, sessions or int8 KV;
+  its prefix reuse is the whole-row ``PrefixCache`` (below);
 
-- chunked prefill: prompts advance through unified device steps of
-  {16, 64}-token chunks (the prefill buckets capped at PREFILL_CHUNK)
-  under a STEP_TOKEN_BUDGET of 256 tokens, the active slots' decode
-  chunk charged first, prefill rows packed up to ADMIT_CAP with a FIFO
-  head-of-line rule (``_dispatch_step``);
+- the scheduler (``step_token_budget``; ``None`` reads
+  ``TPU_LLM_STEP_TOKEN_BUDGET``): 256, chunked prefill, the default:
+  prompts advance through unified device steps of {16, 64}-token chunks
+  (the prefill buckets capped at PREFILL_CHUNK) under a budget of 256
+  tokens, the active slots' decode chunk charged first, prefill rows
+  packed up to ``admit_cap`` with a FIFO head-of-line rule
+  (``_dispatch_step``). 0, the monolithic WAVE (JAX ``_admit_wave``):
+  whole prompts, grouped by prefill bucket (a prompt past the last one
+  takes max_seq_len), up to ``admit_cap`` a wave at power-of-two widths,
+  prefilled by one ``llm.prefill_b{bucket}.w{nb}`` program each
+  (``_prefill_program``: ``models.transformer.prefill``, whose attention
+  is flash in its full-prompt mode, the ring's ``ring_pack``, the insert
+  into the slots, the first tokens), with the fill hold of
+  ``admit_delay_ms`` while arrivals are fast; decode chunks run by
+  demand, speculative verifies ride as on the chunked scheduler, and
+  grammars and adapters are refused (``constrained`` and ``lora_slots``
+  are forced off, as in JAX). Other budgets raise (ROADMAP queue 1 ID
+  19);
 - the unified step program (JAX ``llm.step_p{S}_d{K}``): gather the
   packed rows' slot views through the block tables, run
   ``prefill_append``, scatter the chunk rows back into the pool, sample
@@ -61,6 +75,15 @@ the JAX engine's default configuration:
   int8 weights (``models.quant``; W8A8 prefill, weight-only decode) and
   ``kv_int8=True`` an int8 KV pool with float32 row scales, read by the
   int8 paged-decode kernel. Either works alone;
+- the whole-row prefix cache of the contiguous layouts: ``prefix_cache_mb``
+  > 0 keeps each finished base prompt's slot rows (trimmed to the rows it
+  wrote, the whole ring when rolling) and last-token logits in a
+  ``kvcache.PrefixCache``. The chunked admission takes an exact hit
+  (the hit program over the stored logits, the rows copied into the
+  slot: ``_insert_rows``) or, on the slab, the longest stored prefix as a
+  partial hit whose cursor starts at its length; the wave takes exact
+  hits. Unified steps then return their rows' logits, and each prompt is
+  stored right after the step (or wave) that finishes it;
 - prefix reuse, off by default as in the JAX engine: ``prefix_cache_mb``
   > 0 (or ``session_mb`` > 0) turns on the radix tree over the paged pool
   (``kvcache``). Admission (``_admit``) consults it for every request it
@@ -154,8 +177,8 @@ Left out of this slice (queued in ROADMAP.md): goodput and the
 tenant quota gate, flight recorder, KV handoff, the replica fleet (and
 with it the router's retry budget and a fleet-shared ledger), the
 metrics series of speculation, constrained decoding and overload (the
-port has no metrics manager), the monolithic wave scheduler with the
-contiguous layout's whole-row prefix cache.
+port has no metrics manager), the shape knobs (``decode_chunk``,
+``prefill_chunk``, other step budgets, ``kv_block``: ID 19).
 """
 
 from __future__ import annotations
@@ -178,7 +201,15 @@ from . import resolve_device
 from .kvcache import CacheManager, copy_blocks, gather_blocks_host, gather_slots, paged_default, scatter_rows
 from .lora import AdapterPool, target_dims, validate_adapter, zero_tables
 from .models.quant import QTensor, is_quantized, quantize_params
-from .models.transformer import KVCache, _write_chunk_rows, decode_chunk, decode_chunk_paged, prefill_append, verify_chunk
+from .models.transformer import (
+    KVCache,
+    _write_chunk_rows,
+    decode_chunk,
+    decode_chunk_paged,
+    prefill,
+    prefill_append,
+    verify_chunk,
+)
 from .ops.attention import add_launches, capture_launches
 from .resilience import FairLedger, OverloadController
 from .spec import SPEC_DRAFT_DEFAULT, SPEC_EMA_ALPHA, NGramDrafter, draft_len
@@ -189,8 +220,9 @@ _EOS_DEFAULT = -1  # no EOS cut by default (random-weight models)
 DECODE_CHUNK = 8  # fused decode steps per chunk
 PREFILL_CHUNK = 64  # widest prefill chunk shape
 STEP_TOKEN_BUDGET = 256  # tokens one unified step may carry
-ADMIT_CAP = 8  # prefill rows per unified step
+ADMIT_CAP = 8  # prefill rows per unified step (or per wave)
 KV_BLOCK = 16  # tokens per KV pool block
+ADMIT_DELAY_MS = 40.0  # the wave's fill hold
 
 
 class EngineStoppedError(RuntimeError):
@@ -333,6 +365,19 @@ def _put_appended(stack: torch.Tensor, sub: torch.Tensor, slot_idx, cursors, n_n
         _write_chunk_rows(stack[i], rows[i], cursors[lane], n, ring)
 
 
+def _insert_slots(stack: torch.Tensor, rows: torch.Tensor, slot_idx: torch.Tensor) -> None:
+    """stack[:, slot_idx[j], :W] = rows[:, j] IN PLACE for the contiguous
+    ``stack`` [L, S, C, h, d] and a wave's rows [L, nb, W, h, d], W <= C
+    (JAX ``llm.insert_many``): one ``index_copy_`` with no host sync and
+    no read of the stack. Every lane must name a slot (a wave's pad lanes
+    repeat lane 0, with equal rows); an out-of-range slot is clamped to
+    S - 1 only so that no index faults."""
+    L, S, C, h, d = stack.shape
+    nb, W = rows.shape[1], rows.shape[2]
+    flat = (slot_idx.long().clamp(0, S - 1)[:, None] * C + torch.arange(W, device=stack.device)[None, :]).reshape(-1)
+    stack.view(L, S * C, h, d).index_copy_(1, flat, rows.reshape(L, nb * W, h, d).to(stack.dtype))
+
+
 @dataclass(eq=False)  # identity semantics: requests are handles
 class GenRequest:
     prompt_tokens: list[int]
@@ -374,6 +419,7 @@ class GenRequest:
         self.cancel_reason = "cancelled"
         self.emitted = 0
         self.capped = False  # engine reduced max_new_tokens to fit the cache
+        self._rows_hi = 0  # highest slot row its prefill wrote (the prefix store's trim)
         # "eos" | "length" | "cancelled" | "disconnect" | "deadline" |
         # "shed" | "error"
         self.finish_reason: str | None = None
@@ -399,6 +445,7 @@ class GenRequest:
         self.prefix_hit = False  # admitted through a radix hit (exact or partial)
         self._kv_resv = 0  # admission block promise not yet bound to a slot
         self._kv_plan = None  # pinned seed plan not yet attached to a slot
+        self._prefix_entry = None  # pinned whole-row PrefixCache entry (contiguous layouts)
         self._session_published = False  # end-of-turn radix publish done
         # speculative decoding (engine-maintained): the acceptance EMA that
         # sizes the draft (optimistic until the first verify measures it),
@@ -642,9 +689,19 @@ class LLMEngine:
     ``"auto"`` the ring where it engages and ``session_mb`` is 0, else
     paged. ``kv_window=0`` forces the dense slab on a windowed model; any
     other value must equal the config's window. A contiguous engine holds
-    its slab or ring in ``self.cache`` (``self.pool`` is None); it serves
-    no prefix cache (``prefix_cache_mb`` > 0 raises) and no sessions, and
+    its slab or ring in ``self.cache`` (``self.pool`` is None); its prefix
+    cache is the whole-row ``PrefixCache``, it has no sessions, and it
     ignores ``kv_int8``.
+
+    ``step_token_budget`` (``None`` reads ``TPU_LLM_STEP_TOKEN_BUDGET``,
+    default 256) picks the scheduler: 256 chunked, 0 the wave; other
+    values raise. ``admit_cap`` bounds the prefill rows of a step or a
+    wave, ``admit_delay_ms`` the wave's fill hold. ``kv_pool_blocks``
+    sizes the paged pool (``None`` reads ``TPU_LLM_KV_POOL_BLOCKS``; 0 the
+    worst case); ``kv_int8``, ``session_mb`` and ``host_cache_mb`` left
+    None read ``TPU_LLM_KV_INT8``, ``TPU_LLM_SESSION_MB`` and
+    ``TPU_LLM_HOST_CACHE_MB`` (``kvcache.CacheManager``).
+    ``TPU_LLM_KV_BLOCK`` other than 16 raises (ID 19).
 
     ``quantize=True`` quantizes the params to int8 at construction unless
     they already are; ``kv_int8=True`` stores the KV pool as int8 rows
@@ -696,12 +753,16 @@ class LLMEngine:
         seed: int = 0,
         device=None,
         quantize: bool = False,
-        kv_int8: bool = False,
+        kv_int8: bool | None = None,
         lookahead: int = 3,
         warmup: bool = True,
         prefix_cache_mb: float = 0.0,
-        session_mb: float = 0.0,
-        host_cache_mb: float = 256.0,
+        session_mb: float | None = None,
+        host_cache_mb: float | None = None,
+        kv_pool_blocks: int | None = None,
+        step_token_budget: int | None = None,
+        admit_cap: int = ADMIT_CAP,
+        admit_delay_ms: float = ADMIT_DELAY_MS,
         speculative: bool | None = None,
         spec_draft: int | None = None,
         constrained: bool | None = None,
@@ -723,6 +784,25 @@ class LLMEngine:
     ):
         self.device = resolve_device(device)
         self.cfg = cfg
+        # the scheduler (JAX llm.py:749-757): a budget > 0 packs prompts
+        # into unified steps of chunks; 0 is the monolithic wave. Only the
+        # default budget and 0 are ported, and only 16-row KV blocks
+        # (ROADMAP queue 1 ID 19)
+        if step_token_budget is None:
+            step_token_budget = int(os.environ.get("TPU_LLM_STEP_TOKEN_BUDGET", str(STEP_TOKEN_BUDGET)))
+        step_token_budget = max(0, int(step_token_budget))
+        if step_token_budget not in (0, STEP_TOKEN_BUDGET):
+            raise NotImplementedError(
+                f"step_token_budget {step_token_budget} (TPU_LLM_STEP_TOKEN_BUDGET): only 0, the wave scheduler, "
+                f"and {STEP_TOKEN_BUDGET} are ported (ROADMAP queue 1 ID 19)"
+            )
+        kv_block = os.environ.get("TPU_LLM_KV_BLOCK", "")
+        if kv_block not in ("", str(KV_BLOCK)):
+            raise NotImplementedError(
+                f"TPU_LLM_KV_BLOCK={kv_block}: only {KV_BLOCK}-row KV blocks are ported (ROADMAP queue 1 ID 19)"
+            )
+        self.step_token_budget = step_token_budget
+        self.chunked = step_token_budget > 0
         self.params = _to_device(params, self.device)
         if quantize and not is_quantized(self.params):
             self.params = quantize_params(self.params, cfg.dtype)
@@ -736,7 +816,9 @@ class LLMEngine:
             lora_slots = int(os.environ.get("TPU_LLM_LORA_SLOTS", "0") or 0)
         if lora_rank is None:
             lora_rank = int(os.environ.get("TPU_LLM_LORA_RANK_MAX", "8") or 8)
-        self.lora_slots = max(0, int(lora_slots))
+        # chunked scheduler only, as in JAX: the wave's packed prefill rows
+        # are not the slots, so no adapter id rides them
+        self.lora_slots = max(0, int(lora_slots)) if self.chunked else 0
         self.lora_rank = max(1, int(lora_rank))
         self.adapter_requests = 0  # lifetime adapter-attributed submissions
         # one gid's rows in pinned host memory (made at the first load on
@@ -753,8 +835,8 @@ class LLMEngine:
         self.decode_chunk = DECODE_CHUNK
         self._chunk_short = max(1, DECODE_CHUNK // 4)
         self.lookahead = max(1, int(lookahead))
-        self.admit_cap = min(ADMIT_CAP, slots)
-        self.step_token_budget = STEP_TOKEN_BUDGET
+        self.admit_cap = min(int(admit_cap), slots)
+        self.admit_delay = admit_delay_ms / 1000.0
         # the prefill buckets survive as the chunk shapes, capped at the
         # widest chunk, so short prompts keep their tight shapes
         shapes = {min(b, PREFILL_CHUNK) for b in self.prefill_buckets}
@@ -771,13 +853,18 @@ class LLMEngine:
         self.spec_draft = (
             max(1, min(int(spec_draft or SPEC_DRAFT_DEFAULT), 2 * DECODE_CHUNK)) if self.speculative else 0
         )
-        widths = self.chunk_shapes + ((self.spec_draft + 1,) if self.speculative else ())
+        # every width one program appends (JAX llm.py:1081-1085): the
+        # wave appends decode chunks (and verifies) only
+        widths = (self.chunk_shapes if self.chunked else ()) + ((self.spec_draft + 1,) if self.speculative else ())
         self.kv = CacheManager(
             cfg, slots, max_seq_len, DECODE_CHUNK, window=kv_window, append_widths=widths,
-            paged=paged_default() if kv_paged is None else kv_paged, block=KV_BLOCK,
+            paged=paged_default() if kv_paged is None else kv_paged, block=KV_BLOCK, pool_blocks=kv_pool_blocks,
             kv_int8=kv_int8, prefix_cache_mb=prefix_cache_mb, session_mb=session_mb,
             host_cache_mb=host_cache_mb,
         )
+        # the last-token logits ride the prefill programs whenever a prefix
+        # index can serve exact hits from them (JAX keep_logits)
+        self._keep_logits = self.kv.share or self.kv.prefix is not None
         dev = self.device
         # device-resident state, written IN PLACE by the programs: the KV
         # cache (+ per-slot lengths; the paged pool, with an int8 pool's
@@ -802,7 +889,9 @@ class LLMEngine:
         # first registration (``_g_sync``)
         if constrained is None:
             constrained = os.environ.get("TPU_LLM_CONSTRAINED", "1") != "0"
-        self.constrained = bool(constrained)
+        # chunked scheduler only, as in JAX: the wave samples first tokens
+        # in programs the grammar mask does not ride
+        self.constrained = bool(constrained) and self.chunked
         if constrained_grammars is None:
             constrained_grammars = int(os.environ.get("TPU_LLM_CONSTRAINED_GRAMMARS", "8") or 8)
         self._g_cap = max(1, int(constrained_grammars))
@@ -823,30 +912,50 @@ class LLMEngine:
         self.g_reserved: tuple[int, int] | None = None
         self._gen = torch.Generator(device=dev).manual_seed(seed)
         self._tables_np = np.zeros((slots, self.kv.table_width), np.int32)
+        # the wave stages whole prompts: a pack row is a step row of the
+        # prompt's bucket (the widest is max_seq_len)
         self._in = _Inputs(
-            dev, slots, self.kv.table_width, self.admit_cap, self.chunk_shapes[-1], self.lookahead + 1,
+            dev, slots, self.kv.table_width, self.admit_cap,
+            self.chunk_shapes[-1] if self.chunked else max_seq_len, self.lookahead + 1,
             ver_width=self.spec_draft + 2 if self.speculative else 0, lora=bool(self.lora_slots),
         )
         # exact hits' stored logits, staged by a device copy before the hit
-        # program's replay reads them (sharing only)
+        # program's replay reads them (with a prefix index only)
         self._hit_logits = (
             torch.zeros((self.admit_cap, cfg.vocab_size), dtype=torch.float32, device=dev)
-            if self.kv.share else None
+            if self._keep_logits else None
         )
         # program families, by the JAX compile family's name (+ the wave
-        # width of a step or a hit): name -> (eager program, kind, arg)
-        # with kind "step" (arg (shape, nb)), "chunk" (k), "seed", "hit"
-        # (nb) or "verify" (W)
+        # width of a step, a prefill or a hit): name -> (eager program,
+        # kind, arg) with kind "step" (arg (shape, nb)), "prefill" ((bucket,
+        # nb)), "chunk" (k), "seed", "hit" (nb) or "verify" (W). Families
+        # in _lazy are captured at their first dispatch, not at warmup
         self._programs: dict[str, tuple] = {}
-        for shape in self.chunk_shapes:
-            for nb in self._wave_widths():
-                self._programs[self._step_name(shape, nb)] = (
-                    functools.partial(self._step_program, shape, nb), "step", (shape, nb)
-                )
+        self._lazy: set[str] = set()
+        self._warming = False  # _capture's eager warm-up runs are under way
+        if self.chunked:
+            for shape in self.chunk_shapes:
+                for nb in self._wave_widths():
+                    self._programs[self._step_name(shape, nb)] = (
+                        functools.partial(self._step_program, shape, nb), "step", (shape, nb)
+                    )
+        else:
+            # one prefill per (bucket, width), as JAX's _warm enumerates;
+            # a prompt past the last bucket takes max_seq_len, whose family
+            # (as JAX's executable) is made at its first use
+            for bucket in self.prefill_buckets + (max_seq_len,):
+                for nb in self._wave_widths():
+                    name = self._prefill_name(bucket, nb)
+                    self._programs[name] = (
+                        functools.partial(self._prefill_program, bucket, nb), "prefill", (bucket, nb)
+                    )
+                    if bucket not in self.prefill_buckets:
+                        self._lazy.add(name)
         for k in sorted({self.decode_chunk, self._chunk_short}, reverse=True):
             self._programs[f"llm.decode_chunk{k}"] = (functools.partial(self._chunk_program, k), "chunk", k)
         if self.kv.share:
             self._programs["llm.kv_seed"] = (self._seed_program, "seed", None)
+        if self._keep_logits:
             for nb in self._wave_widths():
                 self._programs[f"llm.hit_first.w{nb}"] = (functools.partial(self._hit_program, nb), "hit", nb)
         # the drafter is an attribute so a caller (or a test) may swap it;
@@ -891,8 +1000,12 @@ class LLMEngine:
         self.submitted = 0
         self.finished = 0
         self.steps = 0  # unified steps dispatched
+        self.waves: dict[int, int] = {}  # prefill waves dispatched, by width
+        self.wave_reqs = 0  # requests admitted through waves
+        self._last_submit_t: float | None = None
+        self._ema_gap: float | None = None  # inter-arrival EMA (the wave's fill hold)
         self.step_tokens = 0  # tokens packed into unified steps
-        self.prefill_tokens = 0  # prompt tokens packed into unified steps
+        self.prefill_tokens = 0  # prompt tokens prefilled (packed into unified steps, or waves)
         # session turns finished (eos/length) awaiting their publish, and
         # restores whose host-to-device copies may still be in flight
         self._session_pub: deque[tuple[int, GenRequest]] = deque()
@@ -960,14 +1073,19 @@ class LLMEngine:
             req.max_new_tokens = room + req.emitted
             req.capped = True
         if self.kv.paged:  # a contiguous slot holds its whole capacity
+            # a worst case past the WHOLE pool could never be admitted:
+            # refuse it now (pool pressure queues the ones that fit later)
             need = self.kv.reserve_need(plen, req.max_new_tokens - req.emitted)
             if need > self.kv.pool.n_blocks:
-                raise ValueError(f"request needs {need} KV blocks, pool holds {self.kv.pool.n_blocks}")
+                raise ValueError(
+                    f"request needs {need} KV blocks, pool holds {self.kv.pool.n_blocks} "
+                    "(raise kv_pool_blocks / TPU_LLM_KV_POOL_BLOCKS)"
+                )
         if req.grammar is not None:  # JAX llm.py:2479-2497
             if not self.constrained:
                 raise ValueError(
-                    "grammar-constrained decoding requires TPU_LLM_CONSTRAINED=1 "
-                    "(this engine was built with constrained=False)"
+                    "grammar-constrained decoding requires the chunked scheduler (step_token_budget > 0) "
+                    "and TPU_LLM_CONSTRAINED=1"
                 )
             g = req.grammar
             if req.eos_token < 0:
@@ -1026,11 +1144,17 @@ class LLMEngine:
         if self.ledger is not None:
             # the new-arrival lift, before the request becomes orderable
             self.ledger.touch(req.client)
-        req.submitted_at = time.perf_counter()
+        req.submitted_at = now = time.perf_counter()
         with self._lock:
             self.submitted += 1
             req._load_acct = plen + max(0, req.max_new_tokens - req.emitted)
             self._load_tokens += req._load_acct
+            # the arrival-rate estimate the wave's fill hold reads (JAX
+            # llm.py:2700-2708)
+            last, self._last_submit_t = self._last_submit_t, now
+            if last is not None:
+                gap = min(max(now - last, 0.0), 1.0)
+                self._ema_gap = gap if self._ema_gap is None else 0.8 * self._ema_gap + 0.2 * gap
         self._admit_q.put(req)
         if self._stop:  # stopped between the check above and the put
             self._end_all("error" if self.error else "cancelled")
@@ -1043,7 +1167,10 @@ class LLMEngine:
     def stats(self) -> dict:
         with self._lock:
             return {
-                "scheduler": "chunked",
+                "scheduler": "chunked" if self.chunked else "wave",
+                "step_token_budget": self.step_token_budget,
+                "prefill_waves": dict(sorted(self.waves.items())),
+                "wave_reqs": self.wave_reqs,
                 "slots": self.slots,
                 "quantized": self.quantized,
                 "moe_experts": self.cfg.n_experts,
@@ -1348,19 +1475,29 @@ class LLMEngine:
         ]
 
     def _admit(self) -> bool:
+        """Admission, once per scheduler pass (JAX ``_admit``): the
+        chunked scheduler's immediate slot assignment, or the wave's
+        batched whole-prompt prefill."""
+        return self._admit_chunked() if self.chunked else self._admit_wave()
+
+    def _admit_chunked(self) -> bool:
         """Give waiting requests free (or virtually free) slots (JAX
         ``_admit_chunked``): first take batch slots back for interactive
         requests that find none (``_preempt_for_waiting``), then pull as
         many requests as there are such slots in the queue's order
-        (``_order_waiting``); for each, touch its session (restoring a
-        spilled one), consult the radix and reserve its blocks net of the
-        shared prefix (and of the tokens a continuation already streamed,
-        which its prompt now holds). A request
-        the pool cannot host goes back to the head of the queue, in order,
-        while the others go ahead. Exact hits are dispatched at once
+        (``_order_waiting``). On the paged pool, for each: touch its
+        session (restoring a spilled one), consult the radix and reserve
+        its blocks net of the shared prefix (and of the tokens a
+        continuation already streamed, which its prompt now holds); a
+        request the pool cannot host goes back to the head of the queue,
+        in order, while the others go ahead. On the contiguous layouts
+        with a prefix cache, ``lookup_longest`` (partial hits on the slab
+        only: a ring entry is laid out for its own length). Constrained and
+        adapted requests skip the lookup. Exact hits are dispatched at once
         (``_admit_exact_hits``); partial hits start their prefill cursor at
-        the shared prefix; misses at 0. Every path releases the plans'
-        pins. Returns whether any request was admitted."""
+        the shared prefix (a contiguous one after its entry's rows are
+        inserted); misses at 0. Every path releases the pins. Returns
+        whether any request was admitted."""
         with self._work_cv:
             free = self._free_slots()
             if self._waiting:
@@ -1376,39 +1513,41 @@ class LLMEngine:
                 for r in pulled:
                     if r.session_id:
                         self._session_prepare(r.session_id)
-                    # a constrained request forces a radix miss (JAX
-                    # llm.py:5168-5176): an exact hit admits through the
-                    # hit program, which the grammar mask does not ride.
-                    # So does an adapted one: shared blocks hold K/V
-                    # computed under the base wq/wkv, not its deltas
-                    plan = (
-                        self.kv.lookup_seed(r.prompt_tokens)
-                        if self.kv.share and r.grammar is None and r._aid == 0 else None
-                    )
-                    r._kv_plan = plan
-                    plen, new = len(r.prompt_tokens), r.max_new_tokens - r.emitted
+                    # a constrained request forces a miss (JAX
+                    # llm.py:5168-5176, 5201-5205): an exact hit admits
+                    # through the hit program, which the grammar mask does
+                    # not ride. So does an adapted one: stored rows hold
+                    # K/V computed under the base wq/wkv, not its deltas
+                    base = r.grammar is None and r._aid == 0
                     if not self.kv.paged:  # a contiguous slot holds its whole capacity
-                        rest.append(r)
+                        e, exact = None, False
+                        if self.kv.prefix is not None and base:
+                            e, exact = self.kv.prefix.lookup_longest(
+                                r.prompt_tokens, allow_partial=not self.kv.rolling
+                            )
+                        r._prefix_entry = e
+                        (rest if e is None else hits if exact else partials).append(r)
                         continue
-                    if not self.kv.admit_reserve(plen, new, plan):
-                        self._kv_release_plan(r)
+                    plan = self.kv.lookup_seed(r.prompt_tokens) if self.kv.share and base else None
+                    if not self._kv_reserve(r, plan):
                         blocked.append(r)
                         continue
-                    r._kv_resv = self.kv.reserve_need(plen, new, plan)
                     (rest if plan is None else hits if plan.exact else partials).append(r)
                 self._waiting.extendleft(reversed(blocked))
                 try:
                     self._admit_exact_hits(hits, free)
                     for r in partials:
-                        # pure table bookkeeping: the slot's table points at
-                        # the shared blocks in place, and the first chunk's
-                        # pack carries the cursor
-                        plan = r._kv_plan
+                        plan, e = r._kv_plan, r._prefix_entry
                         self._assign_slot(r, free.pop(0))
                         self._kv_attach(r, r.slot, plan)
+                        if e is not None:
+                            # the entry's rows seed the slot; the prompt's
+                            # chunks from its length on run through steps
+                            self._insert_rows(r.slot, e)
+                        shared = plan.shared if plan is not None else e.length
                         r.prefix_hit = True
-                        r.prefill_pos = plan.shared
-                        self._load_credit(r, plan.shared)
+                        r.prefill_pos = r._rows_hi = shared
+                        self._load_credit(r, shared)
                         self._prefilling.append(r)
                 finally:
                     for r in hits + partials:
@@ -1421,6 +1560,133 @@ class LLMEngine:
                 self._requeue_stranded(pulled)
                 raise
             return bool(hits or partials or rest)
+
+    def _admit_wave(self) -> bool:
+        """The wave scheduler's admission (JAX ``_admit_wave``): after the
+        preemption of batch slots for interactive requests, pull waiting
+        requests into (virtually) free slots and prefill each whole prompt
+        in one program per bucket (``_admit_waves``). While anything
+        decodes and requests arrive fast enough to fill a wave of 4 or
+        more within ``admit_delay`` (the inter-arrival EMA), a partial
+        wave whose oldest request is younger than that waits for the rest;
+        an idle engine admits at once. Exact prefix hits skip prefill:
+        on the pool the radix's exact end records (no partial: the wave
+        has no mid-prompt append), with the block reservation that queues
+        what the pool cannot host yet, and no session restore; on the
+        contiguous layouts ``PrefixCache.lookup``. Every pin is released,
+        and an escaping error puts the pulled requests that hold no slot
+        back at the head of the queue. Returns whether any was admitted."""
+        with self._work_cv:
+            free = self._free_slots()
+            busy = any(r is not None for r in self._slot_req) or bool(self._inflight) or self._processing is not None
+            if self._waiting:
+                free = self._preempt_for_waiting(free)
+            if not self._waiting or not free:
+                return False
+            gap = self._ema_gap
+            goal = min(self.admit_cap, int(self.admit_delay / gap if gap and gap > 0 else 0.0))
+            head = self._waiting[0]
+            if (
+                self.admit_delay > 0 and busy and goal >= 4 and len(self._waiting) < min(goal, len(free))
+                and head.submitted_at is not None and time.perf_counter() - head.submitted_at < self.admit_delay
+            ):
+                return False
+            pulled = [self._waiting.popleft() for _ in range(min(len(free), len(self._waiting)))]
+            hits: list[GenRequest] = []
+            misses: list[GenRequest] = []
+            try:
+                blocked: list[GenRequest] = []
+                for r in pulled:
+                    if not self.kv.paged:
+                        e = None
+                        if self.kv.prefix is not None:
+                            e = self.kv.prefix.lookup(self.kv.prefix.key_for(r.prompt_tokens))
+                        r._prefix_entry = e
+                        (misses if e is None else hits).append(r)
+                        continue
+                    plan = self.kv.lookup_seed(r.prompt_tokens, allow_partial=False) if self.kv.share else None
+                    if not self._kv_reserve(r, plan):
+                        blocked.append(r)
+                        continue
+                    (misses if plan is None else hits).append(r)
+                self._waiting.extendleft(reversed(blocked))
+                try:
+                    self._admit_exact_hits(hits, free)
+                finally:
+                    for r in hits:
+                        self._kv_release_plan(r)
+                self._admit_waves(misses, free)
+            except BaseException:
+                self._requeue_stranded(pulled)
+                raise
+            return bool(hits or misses)
+
+    def _admit_waves(self, misses: list[GenRequest], free: list[int]) -> None:
+        """Prefill the misses (JAX ``_admit_waves``): grouped by bucket
+        (``_bucket_for``), admit_cap at a time, one ``llm.prefill`` program
+        a wave (``_dispatch_wave``). Lock held."""
+        by_bucket: dict[int, list[GenRequest]] = {}
+        for r in misses:
+            by_bucket.setdefault(self._bucket_for(len(r.prompt_tokens)), []).append(r)
+        for bucket, reqs in by_bucket.items():
+            for i in range(0, len(reqs), self.admit_cap):
+                self._dispatch_wave(bucket, reqs[i : i + self.admit_cap], free)
+
+    def _dispatch_wave(self, bucket: int, reqs: list[GenRequest], free: list[int]) -> None:
+        """One prefill wave (JAX ``_admit_waves``' body and ``_slot_in``):
+        the requests take slots (on the pool, their tables and the blocks
+        of their prompt rows), one pack of right-padded prompts is staged
+        (a step pack: tokens | cursor 0 | length | temperature bits; pad
+        rows are one token long, and pad lanes of the meta repeat lane 0),
+        and ``llm.prefill_b{bucket}.w{nb}`` prefills them, writes their rows
+        into their slots, samples the first tokens and activates the slots.
+        The group becomes one "prefill" entry. With a prefix index each
+        fresh row is then stored: on the contiguous layouts its rows
+        trimmed to the bucket (``PrefixCache.put`` clones them from the
+        program's output), on the pool published into the radix from the
+        slot's blocks, after the insert. Lock held."""
+        nb = self._wave_width(len(reqs))
+        pack = np.zeros((nb, bucket + 3), np.int32)
+        pack[:, bucket + 1] = 1  # pad rows: one token, discarded
+        meta = np.zeros((2, nb), np.int32)
+        taken: list[tuple[int, GenRequest]] = []
+        prompt_tokens = 0
+        for j, r in enumerate(reqs):
+            n = len(r.prompt_tokens)
+            pack[j, :n] = r.prompt_tokens
+            pack[j, bucket + 1] = n
+            pack[j, bucket + 2] = np.float32(r.temperature).view(np.int32)
+            self._assign_slot(r, free.pop(0))
+            slot = r.slot
+            self._kv_attach(r, slot, None)
+            self._grow(slot, r, n)  # the blocks the insert writes (pool only)
+            taken.append((slot, r))
+            r.prefill_pos = r._rows_hi = n
+            r.prefill_done = True
+            self._load_credit(r, n)
+            meta[0, j], meta[1, j] = slot, j
+            prompt_tokens += n
+        meta[:, len(reqs) :] = meta[:, :1]
+        name = self._prefill_name(bucket, nb)
+        self._ensure_family(name)
+        self._stage(False, self._host_tables(), np.zeros((self.slots,), bool), meta, pack)
+        t0 = time.perf_counter()
+        first, logits, rows = self._launch(name)
+        self._inflight.append(("prefill", _Fetch(first, prompt_tokens, t0), taken, nb))
+        self.waves[nb] = self.waves.get(nb, 0) + 1
+        self.wave_reqs += len(reqs)
+        self.prefill_tokens += prompt_tokens
+        if self.kv.prefix is not None:
+            keep = min(bucket, self.kv.capacity)
+            for j, r in enumerate(reqs):
+                self.kv.prefix.put(
+                    self.kv.prefix.key_for(r.prompt_tokens), rows[0][:, j : j + 1, :keep],
+                    rows[1][:, j : j + 1, :keep], len(r.prompt_tokens), logits[j : j + 1],
+                )
+        elif logits is not None:  # the pool's radix
+            for j, (slot, r) in enumerate(taken):
+                self._kv_publish(slot, r, logits[j : j + 1].clone())
+        self._work_cv.notify()
 
     def _assign_slot(self, r: GenRequest, slot: int) -> None:
         """Make ``r`` the slot's occupant and close its queue wait (JAX
@@ -1462,11 +1728,43 @@ class LLMEngine:
         self._kv_hi[slot] = info["seed_len"]
         return info
 
+    def _kv_reserve(self, r: GenRequest, plan) -> bool:
+        """Hold ``plan`` on ``r`` and promise the pool blocks of its worst
+        case net of the plan's shared prefix (and of the tokens a
+        continuation already streamed). False, with the plan's pins
+        dropped, when the pool cannot host it yet. Lock held."""
+        r._kv_plan = plan
+        plen, new = len(r.prompt_tokens), r.max_new_tokens - r.emitted
+        if not self.kv.admit_reserve(plen, new, plan):
+            self._kv_release_plan(r)
+            return False
+        r._kv_resv = self.kv.reserve_need(plen, new, plan)
+        return True
+
     def _kv_release_plan(self, r: GenRequest) -> None:
-        """Drop an unconsumed seed plan's pins; idempotent (attach clears
-        the plan)."""
+        """Drop an unconsumed seed plan's pins, or a prefix entry's pin;
+        idempotent (attach clears the plan)."""
         plan, r._kv_plan = r._kv_plan, None
         self.kv.release_plan(plan)
+        e, r._prefix_entry = r._prefix_entry, None
+        if e is not None:
+            self.kv.prefix.release(e)
+
+    def _insert_rows(self, slot: int, e) -> None:
+        """Seed a contiguous slot with a prefix entry's rows and length (JAX
+        ``assemble`` + ``llm.insert_many`` for one entry): two strided
+        copies into the slab or ring and one length write, eager on the
+        engine stream, so they run after every program dispatched before
+        and before any dispatched after. The slot's rows past the entry's
+        stay as they are, beyond its length and never read (JAX's insert
+        zero-pads them; a captured insert would need a staging input of
+        [L, admit_cap, capacity, hkv, hd]). Lock held."""
+        n = e.k.shape[2]
+        self.cache.k[:, slot, :n].copy_(e.k[:, 0])
+        self.cache.v[:, slot, :n].copy_(e.v[:, 0])
+        # fill_, not item assignment: that copies a host scalar and waits
+        # for the stream, here behind every program in flight
+        self.cache.length[slot : slot + 1].fill_(e.length)
 
     def _requeue_stranded(self, pulled: list[GenRequest]) -> None:
         """An admission error strands pulled requests that hold no slot:
@@ -1484,14 +1782,16 @@ class LLMEngine:
             self._kv_release_plan(r)
 
     def _admit_exact_hits(self, hits: list[GenRequest], free: list[int]) -> None:
-        """Exact hits (JAX ``_admit_exact_hits_paged``), admit_cap at a
-        time: no prefill runs. Each slot's table points at the shared
-        blocks; ``llm.kv_seed`` copies the stored sub-block tail into the
-        slot's first private block and sets its length; the hit program
-        samples each first token from the stored last-token logits (staged
-        by a device copy) at the request's temperature and activates the
-        slot with it. The group becomes one "prefill" entry that carries
-        only first tokens. Lock held."""
+        """Exact hits (JAX ``_admit_exact_hits`` and its paged twin, both
+        schedulers), admit_cap at a time: no prefill runs. On the pool each
+        slot's table points at the shared blocks and ``llm.kv_seed`` copies
+        the stored sub-block tail into the slot's first private block and
+        sets its length; on the contiguous layouts the entry's rows are
+        inserted (``_insert_rows``). The hit program samples each first
+        token from the stored last-token logits (staged by a device copy)
+        at the request's temperature and activates the slot with it. The
+        group becomes one "prefill" entry that carries only first tokens.
+        The caller releases the pins. Lock held."""
         M = self.admit_cap
         for i in range(0, len(hits), M):
             group = hits[i : i + M]
@@ -1499,26 +1799,30 @@ class LLMEngine:
             seed = self._inert_seed()
             taken: list[tuple[int, GenRequest]] = []
             for j, r in enumerate(group):
-                plan = r._kv_plan
+                plan, e = r._kv_plan, r._prefix_entry
                 self._assign_slot(r, free.pop(0))
                 slot = r.slot
                 info = self._kv_attach(r, slot, plan)
                 taken.append((slot, r))
                 r.prefix_hit = True
-                r.prefill_pos = len(r.prompt_tokens)
+                r.prefill_pos = r._rows_hi = len(r.prompt_tokens)
                 r.prefill_done = True
                 self._load_credit(r, len(r.prompt_tokens))
+                if e is not None:
+                    self._insert_rows(slot, e)
                 for src, dst in info["copies"]:
                     seed[0, j], seed[1, j] = src, dst
                 seed[2, j], seed[3, j] = slot, info["seed_len"]
                 seed[4, j], seed[5, j] = slot, j
                 seed[6, j] = np.float32(r.temperature).view(np.int32)
-                self._hit_logits[j].copy_(plan.logits[0])
+                self._hit_logits[j].copy_((e.logits if e is not None else plan.logits)[0])
             name = f"llm.hit_first.w{nb}"
-            self._ensure_family("llm.kv_seed")
-            self._ensure_family(name)
+            if self.kv.paged:
+                self._ensure_family("llm.kv_seed")
+            self._ensure_family(name)  # a capture stages inputs of its own: before ours
             self._in.write_seed(seed)
-            self._launch("llm.kv_seed")
+            if self.kv.paged:
+                self._launch("llm.kv_seed")
             fetch = _Fetch(self._launch(name))
             self._inflight.append(("prefill", fetch, taken, nb))
             self._work_cv.notify()
@@ -1527,7 +1831,7 @@ class LLMEngine:
         """[7, admit_cap] seed inputs whose every lane writes nothing:
         destination blocks and slots out of range."""
         seed = np.zeros((7, self.admit_cap), np.int32)
-        seed[0:2] = self.kv.pool.n_blocks
+        seed[0:2] = self.kv.pool.n_blocks if self.kv.paged else 0
         seed[2] = seed[4] = self.slots
         return seed
 
@@ -1698,7 +2002,7 @@ class LLMEngine:
             self._prefilling.remove(r)
         r.prompt_tokens = list(r.prompt_tokens) + r.history
         r.history = []
-        r.prefill_pos = 0
+        r.prefill_pos = r._rows_hi = 0
         r.prefill_done = False
         r._spec_pending = []
         r._spec_inflight = 0
@@ -1847,8 +2151,21 @@ class LLMEngine:
                 return s
         return self.chunk_shapes[-1]
 
+    def _bucket_for(self, n: int) -> int:
+        """A wave's prompt width: the smallest prefill bucket that holds n
+        tokens, else max_seq_len (JAX ``_bucket_for``)."""
+        for b in self.prefill_buckets:
+            if n <= b:
+                return b
+        return self.max_seq_len
+
+    @staticmethod
+    def _prefill_name(bucket: int, nb: int) -> str:
+        return f"llm.prefill_b{bucket}.w{nb}"
+
     def _wave_width(self, n: int) -> int:
-        """Step batch dim: next power of two, capped at admit_cap."""
+        """Step, wave or hit batch dim: next power of two, capped at
+        admit_cap."""
         return min(self.admit_cap, 1 << max(0, n - 1).bit_length())
 
     def _wave_widths(self) -> list[int]:
@@ -1951,6 +2268,7 @@ class LLMEngine:
                     # request; JAX llm.py:5945-5952)
                     meta[2, j], meta[3, j] = r._g_id, r._g_state
                 r.prefill_pos = pos + n
+                r._rows_hi = max(r._rows_hi, pos + n)
                 self._load_credit(r, n)
                 # blocks for the appended rows (+ the fused decode chunk
                 # when this row activates)
@@ -1977,7 +2295,7 @@ class LLMEngine:
             self._stage(use_g, self._host_tables(), live, meta, pack)
             t0 = time.perf_counter()
             out = self._launch(name)
-            toks, logits = out if self.kv.share else (out, None)
+            toks, logits = out if self._keep_logits else (out, None)
             # after the rows loop: rows finishing this step decode in it
             snapshot = [r if (r is not None and r.prefill_done) else None for r in self._slot_req]
             work = prefill_tokens + K * sum(r is not None for r in snapshot)
@@ -1988,11 +2306,22 @@ class LLMEngine:
             self.prefill_tokens += prefill_tokens
             self.chunks += 1
             if logits is not None:
-                # publish each finished prompt; its logits row is cloned on
-                # the engine stream before the next replay overwrites the
-                # graph's output
+                # store each finished prompt: its logits row (and on the
+                # contiguous layouts its slot rows) cloned on the engine
+                # stream before the next replay overwrites the graph's
+                # output (JAX llm.py:6058-6077). The pool publishes into the
+                # radix; the contiguous layouts keep the whole ring when
+                # rolling, else the rows the prompt wrote. Adapted rows are
+                # never stored (_kv_publish skips them too)
                 for j, slot, r in finishes:
-                    self._kv_publish(slot, r, logits[j : j + 1].clone())
+                    if self.kv.paged:
+                        self._kv_publish(slot, r, logits[j : j + 1].clone())
+                    elif r._aid == 0:
+                        keep = self.kv.capacity if self.kv.rolling else min(r._rows_hi, self.kv.capacity)
+                        self.kv.prefix.put(
+                            self.kv.prefix.key_for(r.prompt_tokens), self.cache.k[:, slot : slot + 1, :keep],
+                            self.cache.v[:, slot : slot + 1, :keep], len(r.prompt_tokens), logits[j : j + 1],
+                        )
             self._work_cv.notify()
             return True
 
@@ -2671,7 +3000,8 @@ class LLMEngine:
         torch.cuda.empty_cache()  # as each capture does: "before" holds no cached blocks either
         before = torch.cuda.memory_reserved(self.device)
         for name in self._programs:
-            self._capture(name)
+            if name not in self._lazy:
+                self._capture(name)
         torch.cuda.synchronize(self.device)
         self.warmup_s = time.perf_counter() - t0
         self.warmup_reserved = (before, torch.cuda.memory_reserved(self.device))
@@ -2687,7 +3017,10 @@ class LLMEngine:
         engine's no adapter (aids 0). A contiguous decode advances its
         active slots with no live mask, so the lengths are restored too:
         the merge rows the warm-up runs wrote sit at or above each length
-        (outside every window on a ring), as the next real merge's do."""
+        (outside every window on a ring), as the next real merge's do. A
+        contiguous wave's prefill inserts no rows while ``_warming``; its
+        graph inserts every lane, as each lane of a served wave names a
+        slot."""
         fn, kind, arg = self._program(name)
         g = name in self._programs_g
         gids = np.full((self.slots,), -1, np.int32) if g else None
@@ -2704,6 +3037,13 @@ class LLMEngine:
                 self._in.write(
                     self._tables_np, live, meta, np.zeros((nb, shape + 3), np.int32), gids=gids, aids=aids
                 )
+            elif kind == "prefill":  # one-token pad rows into no slot
+                bucket, nb = arg
+                meta = np.zeros((2, nb), np.int32)
+                meta[0, :] = self.slots
+                pack = np.zeros((nb, bucket + 3), np.int32)
+                pack[:, bucket + 1] = 1
+                self._in.write(self._tables_np, live, meta, pack)
             elif kind == "verify":  # no lane selected
                 self._in.write(
                     self._tables_np, live, verify=np.zeros((self.slots, arg + 1), np.int32), gids=gids, aids=aids
@@ -2711,8 +3051,12 @@ class LLMEngine:
             else:
                 self._in.write_seed(self._inert_seed())
             tail, length = self._tail.clone(), self.cache.length.clone()
-            for _ in range(_WARM_RUNS):
-                fn()
+            self._warming = True
+            try:
+                for _ in range(_WARM_RUNS):
+                    fn()
+            finally:
+                self._warming = False
             self._tail.copy_(tail)
             self.cache.length.copy_(length)
             graph = torch.cuda.CUDAGraph()
@@ -2800,7 +3144,51 @@ class LLMEngine:
             _scatter_slots(self._gstate, fin_slot, torch.where(on_r, st1, 0))
         toks = self._decode_chunk(self.decode_chunk, g)
         out = torch.cat([first, toks.reshape(-1)])
-        return (out, logits) if self.kv.share else out
+        return (out, logits) if self._keep_logits else out
+
+    def _prefill_program(self, bucket: int, nb: int):
+        """``llm.prefill`` fused with JAX's ``llm.insert_many`` and
+        ``llm.admit_update``: one wave of ``nb`` right-padded prompts of
+        width ``bucket`` on the staged inputs (pack [nb, bucket + 3]:
+        tokens | 0 | length | temperature bits; meta [2, nb]: slot | row,
+        pad lanes repeating lane 0, or every lane's slot out of range for
+        an inert capture). Runs ``prefill`` (flash in its full-prompt
+        mode), ring-packs the rows on the ring (``pack_prefill``), writes
+        each row's prompt into its slot (the pool: through the slot's table,
+        quantized for an int8 pool, rows past the length dropped; the slab
+        or ring: its first ``bucket`` or ring rows), sets the lengths,
+        samples the first tokens and makes them the slots' tails, active,
+        at the rows' temperatures, IN PLACE. Returns (first tokens [nb],
+        last-token logits [nb, vocab] or None without a prefix index, the
+        wave's (k, v) rows [L, nb, W, hkv, hd] on the contiguous layouts
+        with a prefix cache, else None).
+
+        The prefill's cache is built bucket-wide and its rows go straight
+        into the slots, so the capacity-wide scratch JAX's separate insert
+        program takes never exists on the pool and the slab."""
+        cfg, slots = self.cfg, self.slots
+        pack_t, meta_t = self._in.pack(bucket, nb), self._in.meta(nb)
+        lengths = pack_t[:, bucket + 1].contiguous()
+        temps = pack_t[:, bucket + 2].contiguous().view(torch.float32)
+        slot_idx, rows = meta_t[0], meta_t[1].long().clamp(0, nb - 1)
+        logits, new = prefill(self.params, cfg, pack_t[:, :bucket], lengths, bucket)
+        new = self.kv.pack_prefill(new)
+        nk, nv, lens = new.k[:, rows], new.v[:, rows], lengths[rows]
+        W = nk.shape[2]
+        if self.kv.paged:
+            pos = torch.arange(W, device=self.device)[None, :].expand(nb, W)
+            valid = (pos < lens.clamp(max=self.kv.capacity)[:, None]) & (slot_idx < slots)[:, None]
+            tsub = self._in.tables()[slot_idx.clamp(0, slots - 1).long()]
+            scatter_rows(self.pool.k, self.pool.v, tsub, nk, nv, pos, valid, scales=self.pool_scales)
+        elif not self._warming:  # an inert capture's warm-up runs name no slot
+            _insert_slots(self.cache.k, nk, slot_idx)
+            _insert_slots(self.cache.v, nv, slot_idx)
+        _scatter_slots(self.cache.length, slot_idx, lens)
+        first = self._sample(logits, temps, self._gen)
+        _scatter_slots(self._tail, slot_idx, first[rows])
+        _scatter_slots(self._active, slot_idx, True)
+        _scatter_slots(self._temps, slot_idx, temps[rows])
+        return first, (logits if self._keep_logits else None), ((new.k, new.v) if self.kv.prefix is not None else None)
 
     def _decode_chunk(self, k: int, g: bool) -> torch.Tensor:
         """``k`` fused decode steps for the live active slots from the

@@ -11,6 +11,7 @@ from .transformer import (
     init_params,
     param_specs,
     params_from_jax,
+    prefill,
     prefill_append,
     transformer_forward,
     verify_chunk,
@@ -27,6 +28,7 @@ __all__ = [
     "is_quantized",
     "param_specs",
     "params_from_jax",
+    "prefill",
     "prefill_append",
     "qmm",
     "qmm_a8",

@@ -42,7 +42,9 @@ package, prefill chunks and the full-prompt forward run W8A8 products
 (``qmm_a8``) and the decode chunk weight-only ones (``qmm``); plain
 tensors take a plain ``x @ w`` either way.
 
-Serving entry points: ``prefill_append`` (one chunked-prefill append into
+Serving entry points: ``prefill`` (whole right-padded prompts in one
+pass, the wave scheduler's program: flash in its full-prompt mode, the
+model's window as the band), ``prefill_append`` (one chunked-prefill append into
 a gathered per-slot view, write-then-attend through ``flash_attention``,
 or on a rolling ring through the plain ring masks), ``verify_chunk`` (the
 same append, every position unembedded: a speculative draft's scores),
@@ -69,6 +71,7 @@ from ..ops import (
     apply_rope,
     chunk_decode_attention,
     chunk_prefill_attention,
+    flash_attention,
     mha_reference,
     paged_chunk_decode_attention,
     rms_norm,
@@ -488,6 +491,54 @@ def transformer_forward(
         idx = unembed_positions.long()[:, None, None].expand(-1, 1, x.shape[-1])
         x = torch.gather(x, 1, idx)
     return _unembed(params, cfg, x)
+
+
+@torch.no_grad()
+def prefill(
+    params: dict,
+    cfg: TransformerConfig,
+    tokens: torch.Tensor,  # [b, s] right-padded prompts
+    lengths: torch.Tensor,  # [b] int — real tokens of each row
+    max_cache_len: int,
+) -> tuple[torch.Tensor, KVCache]:
+    """Whole prompts in one pass (JAX ``prefill``, the wave scheduler's
+    program): last-token f32 logits [b, vocab] and a KVCache [L, b,
+    max_cache_len, hkv, hd] in the model dtype holding rows [0, s) at their
+    positions (zeros beyond) with length = ``lengths``.
+
+    Attention is ``flash_attention`` in its full-prompt mode (null
+    offsets, ``causal``, the model's window as the band): kernel row 2 on
+    a CUDA tensor, its plain version on the CPU. The pad rows sit after
+    each prompt's real rows, so causal masking alone hides them from every
+    real query and no kv_mask is needed (in JAX one would force the
+    reference path); the cache's length masks them later. int8 weights
+    run W8A8 (``qmm_a8``), as the JAX prefill branch does."""
+    b, s = tokens.shape
+    if s > max_cache_len:
+        raise ValueError(f"prompt width {s} exceeds max_cache_len {max_cache_len}")
+    dev = tokens.device
+    positions = torch.arange(s, device=dev)[None, :].expand(b, s)
+    shape = (cfg.n_layers, b, max_cache_len, cfg.n_kv_heads, cfg.head_dim)
+    ck = torch.zeros(shape, dtype=cfg.dtype, device=dev)
+    cv = torch.zeros(shape, dtype=cfg.dtype, device=dev)
+    x = _embed_tokens(params, cfg, tokens)
+    for i in range(cfg.n_layers):
+        lp = _layer(params, i)
+        h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+        q, k, v = _qkv(cfg, h, lp, positions, qmm_a8)
+        ck[i, :, :s] = k
+        cv[i, :, :s] = v
+        attn = flash_attention(
+            q.contiguous(), k.contiguous(), v, causal=True,
+            logit_cap=cfg.attn_logit_cap, window=cfg.sliding_window,
+        )
+        x = _attn_out(cfg, x, attn, lp, qmm_a8)
+        h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
+        x = x + _mlp(cfg, h, lp, qmm_a8)
+    last = (lengths.long() - 1).clamp(0, s - 1)
+    x_last = torch.gather(x, 1, last[:, None, None].expand(-1, 1, x.shape[-1]))
+    logits = _unembed_last(params, cfg, x_last)
+    return logits, KVCache(k=ck, v=cv, length=lengths.to(torch.int32))
 
 
 def _write_chunk_rows(cache_l, rows, cursors, n_new, ring: int = 0) -> None:

@@ -394,6 +394,7 @@ def _counter(name: str):
     """(function, attribute) that holds kernel ``name``'s launch count."""
     return {
         "flash_attention": (flash_attention, "launches"),
+        "flash_attention_prompt": (flash_attention, "launches_prompt"),
         "paged_decode_partials": (paged_decode_partials, "launches"),
         "paged_decode_partials_int8": (paged_decode_partials, "launches_int8"),
     }[name]
@@ -497,7 +498,9 @@ def flash_attention(
 
     CPU tensors run ``flash_attention_plain``; CUDA tensors launch
     csrc/flash_attention.cu (float32 or bfloat16, head_dim in
-    KERNEL_HEAD_DIMS, contiguous) or raise."""
+    KERNEL_HEAD_DIMS, contiguous) or raise. ``launches`` counts every
+    launch; ``launches_prompt`` the full-prompt mode's alone (no
+    offsets), so the two modes' launches can be told apart."""
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     if hq % hkv:
@@ -528,12 +531,15 @@ def flash_attention(
         float(scale), float(logit_cap), _stream(q.device),
     )
     _count_launch("flash_attention")
+    if q_offsets is None:
+        _count_launch("flash_attention_prompt")
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
     return out
 
 
-flash_attention.launches = 0
+flash_attention.launches = 0  # both modes
+flash_attention.launches_prompt = 0  # full-prompt mode (no q_offsets)
 
 
 def paged_decode_partials_plain(

@@ -311,8 +311,12 @@ def test_cache_manager_window_override_and_refusals():
         JCacheManager(jcfg, 2, 64, 8, window=4)
     with pytest.raises(ValueError, match="sliding_window"):
         CacheManager(tcfg, 2, 64, 8, window=4, paged=False)
-    with pytest.raises(NotImplementedError, match="PrefixCache"):
-        CacheManager(tcfg, 2, 64, 8, paged=False, prefix_cache_mb=1.0)
+    # the whole-row prefix cache is built on the contiguous layouts, as the
+    # JAX manager builds it (it raised before it was ported)
+    j = JCacheManager(jcfg, 2, 64, 8, prefix_cache_mb=1.0)
+    t = CacheManager(tcfg, 2, 64, 8, paged=False, prefix_cache_mb=1.0)
+    assert t.prefix is not None and t.stats()["prefix"] == j.stats()["prefix"]
+    assert t.stats()["prefix"]["capacity_bytes"] == 1 << 20
     # int8 KV is the paged pool's only: the contiguous layout stores the model dtype
     assert not CacheManager(tcfg, 2, 64, 8, paged=False, kv_int8=True).int8
 

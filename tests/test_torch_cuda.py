@@ -756,3 +756,117 @@ class TestContiguousOnCard:
         finally:
             cont.close()
             paged.close()
+
+    @pytest.mark.parametrize("layout", ["dense", "ring"])
+    def test_hit_insert_issues_no_host_sync(self, cuda, layout):
+        """Seeding a slot from a stored prefix (``_insert_rows``, run by
+        every exact and partial hit) is only enqueued on the engine
+        stream: under torch's sync debug mode it raises nothing. A host
+        sync there holds the hit's admission behind every program in
+        flight. The slot then holds the entry's rows and length."""
+        eng = _contiguous_engine(cuda, layout, "f32", prefix_cache_mb=1)
+        try:
+            prompt = list(range(5, 25))
+            eng.generate(prompt, max_new_tokens=4)
+            e, exact = eng.kv.prefix.lookup_longest(prompt, allow_partial=False)
+            assert e is not None and exact
+            slot, n = eng.slots - 1, e.k.shape[2]
+            with eng._lock, torch.cuda.stream(eng._stream):
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    eng._insert_rows(slot, e)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                eng._stream.synchronize()
+                assert torch.equal(eng.cache.k[:, slot, :n], e.k[:, 0])
+                assert torch.equal(eng.cache.v[:, slot, :n], e.v[:, 0])
+                assert int(eng.cache.length[slot]) == e.length == len(prompt)
+            eng.kv.prefix.release(e)
+        finally:
+            eng.close()
+
+
+def _wave_engine(cuda, layout, mode, **kw):
+    """A tiny wave engine (step_token_budget=0) on the card: tiny on the
+    pool or the slab, tiny_mistral on its ring (8 + 8 rows a slot), f32
+    or bf16 at head_dim 64 (the tensor-core flash kernel)."""
+    cfg = TransformerConfig.tiny_mistral() if layout == "ring" else TransformerConfig.tiny()
+    if mode == "bf16":
+        cfg = dataclasses.replace(cfg, head_dim=64, dtype=torch.bfloat16)
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+    return LLMEngine(cfg, params, device=cuda, slots=4, max_seq_len=64, prefill_buckets=(8, 16),
+                     kv_paged=layout == "pool", step_token_budget=0, **kw)
+
+
+@pytest.mark.cuda
+class TestWaveOnCard:
+    """The wave scheduler's whole-prompt prefill on the card: ``prefill``
+    (flash in its full-prompt mode, counted apart) against the plain
+    forward; every wave family's replay bitwise its eager program with its
+    launches; greedy tokens equal to the chunked scheduler's."""
+
+    @pytest.mark.parametrize("mode", ["f32", "bf16"])
+    @pytest.mark.parametrize("name", ["tiny", "tiny_mistral"])
+    def test_prefill_matches_the_plain_forward(self, cuda, mode, name):
+        from gofr_tpu_torch.models import transformer_forward
+        from gofr_tpu_torch.models.transformer import prefill
+
+        cfg = getattr(TransformerConfig, name)()
+        if mode == "bf16":
+            cfg = dataclasses.replace(cfg, head_dim=64, dtype=torch.bfloat16)
+        params = init_params(cfg, torch.Generator(device=cuda).manual_seed(1), cuda)
+        g = torch.Generator(device=cuda).manual_seed(2)
+        toks = torch.randint(1, cfg.vocab_size, (3, 40), generator=g, device=cuda)
+        lens = torch.tensor([40, 17, 3], dtype=torch.int32, device=cuda)
+        before = (TA.flash_attention.launches, TA.flash_attention.launches_prompt)
+        logits, cache = prefill(params, cfg, toks, lens, 48)
+        assert (TA.flash_attention.launches, TA.flash_attention.launches_prompt) == (
+            before[0] + cfg.n_layers, before[1] + cfg.n_layers)
+        tol = 1e-3 if mode == "f32" else 0.15
+        for i, n in enumerate(lens.tolist()):
+            want = transformer_forward(params, cfg, toks[i : i + 1, :n], torch.arange(n, device=cuda)[None, :],
+                                       unembed_positions=torch.tensor([n - 1], device=cuda))[0, 0]
+            torch.testing.assert_close(logits[i], want, atol=tol, rtol=tol)
+        assert cache.k.shape == (cfg.n_layers, 3, 48, cfg.n_kv_heads, cfg.head_dim)
+        assert not cache.k[:, :, 40:].any() and cache.length.tolist() == [40, 17, 3]
+
+    @pytest.mark.parametrize("mode", ["f32", "bf16"])
+    @pytest.mark.parametrize("layout", ["pool", "slab", "ring"])
+    def test_wave_families_replay_equal_eager(self, cuda, layout, mode):
+        from chip_smoke import check_family
+
+        eng = _wave_engine(cuda, layout, mode, prefix_cache_mb=1)
+        try:
+            waves = [f"llm.prefill_b{b}.w{w}" for b in (8, 16, 64) for w in (1, 2, 4)]
+            assert eng._lazy == {n for n in waves if "_b64." in n}
+            assert not any(n.startswith("llm.step_p") for n in eng.families)
+            for i, name in enumerate(sorted(eng._programs)):
+                r = check_family(eng, name, seed=i, replays=2)
+                assert r["eager_equal"], (name, r["state_equal"])
+                assert r["launches"] == {k: 2 * n for k, n in r["captured"].items()}, name
+                flash = eng.cfg.n_layers if name in waves else 0
+                assert r["captured"].get("flash_attention", 0) == flash, (name, r["captured"])
+                assert r["captured"].get("flash_attention_prompt", 0) == flash, (name, r["captured"])
+            for name in ("llm.decode_chunk8", "llm.prefill_b16.w4", "llm.hit_first.w4"):
+                assert check_family(eng, name, seed=50, temperature=1000.0, replays=2)["draws_differ"], name
+        finally:
+            eng.close()
+
+    @pytest.mark.parametrize("layout", ["pool", "slab", "ring"])
+    def test_wave_serves_the_chunked_tokens(self, cuda, layout):
+        """f32 greedy streams (buckets 8, 16 and the lazy 64), the wave
+        against the chunked scheduler on the same weights, then again as
+        exact prefix hits."""
+        wave = _wave_engine(cuda, layout, "f32", prefix_cache_mb=1)
+        chunked = LLMEngine(wave.cfg, wave.params, device=cuda, slots=4, max_seq_len=64, prefill_buckets=(8, 16),
+                            kv_paged=layout == "pool")
+        try:
+            prompts = [list(range(5, 25)), [3, 1, 4, 1, 5, 9, 2, 6], list(range(40, 73)), [7, 7, 8]]
+            want = [chunked.generate(p, max_new_tokens=20) for p in prompts]
+            for _round in range(2):
+                reqs = [wave.submit(GenRequest(p, max_new_tokens=20)) for p in prompts]
+                assert [r.tokens(timeout=300) for r in reqs] == want
+            assert wave.stats()["kvcache"]["prefix"]["hits"] == 4
+        finally:
+            wave.close()
+            chunked.close()

@@ -271,9 +271,24 @@ def test_register_llm_refuses_unported(weights):
     for kw in ({"mesh": object()}, {"replicas": 2}, {"tp_overlap": True}):
         with pytest.raises(NotImplementedError, match=next(iter(kw))):
             rt.register_llm("m", cfg, tp, **kw)
-    # the contiguous layouts are ported; their whole-row prefix cache is not
-    with pytest.raises(NotImplementedError, match="PrefixCache"):
-        rt.register_llm("m", cfg, tp, kv_paged=False, prefix_cache_mb=1)
+    # the contiguous layouts and their whole-row prefix cache are ported
+    # (the prefix cache raised before)
+    eng = rt.register_llm("m", cfg, tp, kv_paged=False, prefix_cache_mb=1, slots=2, max_seq_len=64)
+    try:
+        assert eng.kv.prefix is not None and eng.stats()["kvcache"]["prefix"]["capacity_bytes"] == 1 << 20
+    finally:
+        eng.close()
+    # the wave scheduler is ported: TPU_LLM_STEP_TOKEN_BUDGET=0 builds it;
+    # other budgets and KV blocks but 16 stay refused (ROADMAP ID 19)
+    eng = GPURuntime(new_mock_config({"TORCH_DEVICE": "cpu", "TPU_LLM_STEP_TOKEN_BUDGET": "0"})).register_llm(
+        "m", cfg, tp, slots=2, max_seq_len=64)
+    try:
+        assert eng.stats()["scheduler"] == "wave" and not eng.chunked and not eng.constrained
+    finally:
+        eng.close()
+    for knob, value in (("TPU_LLM_STEP_TOKEN_BUDGET", "128"), ("TPU_LLM_KV_BLOCK", "8")):
+        with pytest.raises(NotImplementedError, match=f"{knob}.*ID 19"):
+            GPURuntime(new_mock_config({"TORCH_DEVICE": "cpu", knob: value})).register_llm("m", cfg, tp)
     # grammar-constrained decoding is ported: its knobs build an engine
     # that admits grammars (or refuses them with "0"); knobs of features
     # still unported keep refusing

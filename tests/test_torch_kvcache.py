@@ -1,6 +1,8 @@
 """gofr_tpu_torch.kvcache against gofr_tpu.kvcache (CPU, byte identity for
 the device helpers; behaviour for the host bookkeeping)."""
 
+import time
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -187,3 +189,160 @@ class TestCacheManager:
         kv = CacheManager(cfg, 1, 64, 8, block=16)  # 1 slot: a 4-block pool
         assert kv.admit_reserve(40, 8)  # 40 + 8 - 1 + 8 = 55 rows -> 4 blocks
         assert not kv.admit_reserve(3, 8)
+
+
+# -- the JAX env fallbacks (ROADMAP queue 3 item 16) ---------------------------
+
+_ENV_KNOBS = ("TPU_LLM_KV_POOL_BLOCKS", "TPU_LLM_KV_INT8", "TPU_LLM_SESSION_MB", "TPU_LLM_HOST_CACHE_MB",
+              "TPU_LLM_KV_BLOCK")
+_TINY_KW = dict(slots=4, max_seq_len=64, prefill_buckets=(8, 16))
+
+
+@pytest.fixture(scope="module")
+def engine_weights():
+    import jax
+
+    from gofr_tpu.models import transformer as JT
+
+    jcfg = JT.TransformerConfig.tiny()
+    jp = JT.init_params(jax.random.PRNGKey(0), jcfg)
+    jp = dict(jp, unembed=jax.random.normal(jax.random.PRNGKey(100), (jcfg.vocab_size, jcfg.d_model), jnp.float32))
+    from gofr_tpu_torch.models.transformer import params_from_jax
+
+    tcfg = TransformerConfig.tiny()
+    return jcfg, jp, tcfg, params_from_jax(jax.tree.map(np.asarray, jp), tcfg, device="cpu")
+
+
+def _env_engines(w, monkeypatch, env: dict, **kw):
+    """(JAX engine, port engine) built under ``env`` with the knobs' kwargs
+    left None, at the port's fixed shapes."""
+    from gofr_tpu.llm import LLMEngine as JEngine
+    from gofr_tpu_torch.llm import LLMEngine
+
+    for k in _ENV_KNOBS:
+        monkeypatch.delenv(k, raising=False)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    jcfg, jp, tcfg, tp = w
+    ref = JEngine(jcfg, jp, warmup=False, decode_chunk=8, prefill_chunk=64, step_token_budget=256, **_TINY_KW, **kw)
+    port = LLMEngine(tcfg, tp, device="cpu", **_TINY_KW, **kw)
+    return ref, port
+
+
+def _kv_view(kv):
+    sessions = kv.sessions
+    return {
+        "paged": kv.paged, "pool_blocks": kv.pool.n_blocks if kv.paged else None, "int8": kv.int8,
+        "block": kv.block, "sessions": sessions is not None,
+        "host_budget": sessions.offload.stats()["budget_bytes"] if sessions is not None else None,
+    }
+
+
+class TestEnvFallbacks:
+    """Each KV knob the JAX CacheManager reads when its kwarg is None gives
+    the port's engine the same pool, int8 and session store."""
+
+    @pytest.mark.parametrize("env", [
+        {"TPU_LLM_KV_POOL_BLOCKS": "8"},
+        {"TPU_LLM_KV_INT8": "1"},
+        {"TPU_LLM_SESSION_MB": "1"},
+        {"TPU_LLM_SESSION_MB": "1", "TPU_LLM_HOST_CACHE_MB": "32"},
+        {"TPU_LLM_KV_POOL_BLOCKS": "0", "TPU_LLM_KV_INT8": "0"},
+    ], ids=["pool_blocks", "int8", "session", "host_cache", "defaults"])
+    def test_engine_knobs_match_jax(self, engine_weights, monkeypatch, env):
+        ref, port = _env_engines(engine_weights, monkeypatch, env)
+        try:
+            assert _kv_view(port.kv) == _kv_view(ref.kv)
+            assert port.stats()["kvcache"]["pool_blocks"] == ref.stats()["kvcache"]["pool_blocks"]
+        finally:
+            ref.close()
+            port.close()
+
+    def test_kv_block_other_than_16_is_refused(self, engine_weights, monkeypatch):
+        """JAX builds 32 blocks of 8; the port refuses until ID 19."""
+        from gofr_tpu.llm import LLMEngine as JEngine
+        from gofr_tpu_torch.llm import LLMEngine
+
+        monkeypatch.setenv("TPU_LLM_KV_BLOCK", "8")
+        jcfg, jp, tcfg, tp = engine_weights
+        ref = JEngine(jcfg, jp, warmup=False, **_TINY_KW)
+        try:
+            assert (ref.kv.block, ref.kv.pool.n_blocks) == (8, 32)
+        finally:
+            ref.close()
+        with pytest.raises(NotImplementedError, match="TPU_LLM_KV_BLOCK=8.*ID 19"):
+            LLMEngine(tcfg, tp, device="cpu", **_TINY_KW)
+        monkeypatch.setenv("TPU_LLM_KV_BLOCK", "16")
+        LLMEngine(tcfg, tp, device="cpu", **_TINY_KW).close()
+
+    def test_kwargs_win_over_the_env(self, engine_weights, monkeypatch):
+        ref, port = _env_engines(engine_weights, monkeypatch, {"TPU_LLM_KV_POOL_BLOCKS": "8", "TPU_LLM_KV_INT8": "1"},
+                                 kv_pool_blocks=12, kv_int8=False)
+        try:
+            assert _kv_view(port.kv) == _kv_view(ref.kv)
+            assert (port.kv.pool.n_blocks, port.kv.int8) == (12, False)
+        finally:
+            ref.close()
+            port.close()
+
+    def test_oversized_request_is_refused_as_jax_does(self, engine_weights, monkeypatch):
+        """A worst case past the whole pool could never be admitted: both
+        engines refuse it at submit, naming the knob."""
+        from gofr_tpu.llm import GenRequest as JRequest
+        from gofr_tpu_torch.llm import GenRequest
+
+        ref, port = _env_engines(engine_weights, monkeypatch, {"TPU_LLM_KV_POOL_BLOCKS": "2"})
+        try:
+            prompt = list(range(1, 31))
+            for eng, R in ((ref, JRequest), (port, GenRequest)):
+                with pytest.raises(ValueError, match="pool holds 2 .*TPU_LLM_KV_POOL_BLOCKS"):
+                    eng.submit(R(prompt, max_new_tokens=16))
+        finally:
+            ref.close()
+            port.close()
+
+    @pytest.mark.parametrize("lookahead", [1, 3])
+    def test_pool_pressure_token_identical(self, engine_weights, monkeypatch, lookahead):
+        """A pool of 8 blocks holds two of these requests' worst cases, so
+        the others wait in the queue (admit_reserve): the greedy streams
+        still equal JAX's, and nothing is held once idle."""
+        from gofr_tpu.llm import GenRequest as JRequest
+        from gofr_tpu_torch.llm import GenRequest
+
+        ref, port = _env_engines(engine_weights, monkeypatch, {"TPU_LLM_KV_POOL_BLOCKS": "8"}, lookahead=lookahead)
+        try:
+            assert port.kv.pool.n_blocks == ref.kv.pool.n_blocks == 8
+            rng = np.random.default_rng(31)
+            prompts = [rng.integers(1, 512, n).tolist() for n in (10, 12, 9, 14, 11, 6)]
+            jr = [ref.submit(JRequest(p, max_new_tokens=10)) for p in prompts]
+            tr = [port.submit(GenRequest(p, max_new_tokens=10)) for p in prompts]
+            for a, b in zip(jr, tr):
+                assert b.tokens(timeout=120) == a.tokens(timeout=120)
+            t0 = time.perf_counter()
+            while port.stats()["kvcache"]["blocks_in_use"] or port.stats()["kvcache"]["reserved"]:
+                assert time.perf_counter() - t0 < 10
+                time.sleep(0.01)
+        finally:
+            ref.close()
+            port.close()
+
+    def test_register_llm_passes_kv_pool_blocks(self, engine_weights, monkeypatch):
+        """The runtime has no config mapping for the pool size (nor has
+        JAX's): the kwarg passes through, and the process env reaches the
+        engine's CacheManager."""
+        from gofr_tpu_torch.datasource.gpu import GPURuntime
+        from gofr_tpu_torch.config import new_mock_config
+
+        _jcfg, _jp, tcfg, tp = engine_weights
+        rt = GPURuntime(new_mock_config({"TORCH_DEVICE": "cpu"}))
+        eng = rt.register_llm("m", tcfg, tp, kv_pool_blocks=10, **_TINY_KW)
+        try:
+            assert eng.kv.pool.n_blocks == 10
+        finally:
+            eng.close()
+        monkeypatch.setenv("TPU_LLM_KV_POOL_BLOCKS", "9")
+        eng = rt.register_llm("m", tcfg, tp, **_TINY_KW)
+        try:
+            assert eng.kv.pool.n_blocks == 9
+        finally:
+            rt.close()
