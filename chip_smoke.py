@@ -1,6 +1,6 @@
 """GPU smoke run of the PyTorch/CUDA port (gofr_tpu_torch) on one card.
 
-    python3 chip_smoke.py [--parent TREE] [--only families|moe|contiguous|wave]
+    python3 chip_smoke.py [--parent TREE] [--only families|moe|contiguous|wave|knobs|mnist]
 
 Phases, each raising on failure:
 
@@ -146,7 +146,8 @@ Phases, each raising on failure:
    spec-off tokens, near-ties exempt; constrained and unconstrained
    acceptance) and an int8 KV engine with 2 constrained requests;
 13. families — the JAX package's other dense presets at their published
-   widths and half their published depths (16 of 32 layers, 14 of 28),
+   widths and a quarter of their published depths (8 of 32 layers, 7 of
+   28; half until the knobs and mnist phases needed the time),
    random weights from the seed (untied heads where
    the family publishes one), one model at a time, each freed before the
    next: Llama-3-8B, Mistral-7B, Qwen2-7B (q/k/v bias, a GQA group of 7)
@@ -166,8 +167,8 @@ Phases, each raising on failure:
 14. moe — mixture-of-experts serving at Mixtral-8x7B's widths
    (mistralai/Mixtral-8x7B-v0.1: d 4096, 32/8 heads at head_dim 128,
    8 experts of d_ff 14,336, top 2, vocab 32,000, rope theta 1e6, no
-   window) at 16 of its 32 layers (the bf16 weights of all 32 do not fit
-   the card), under the JAX package's routing (top-2 of a full softmax
+   window) at 8 of its 32 layers (the bf16 weights of all 32 do not fit
+   the card; 16 until the knobs and mnist phases needed the time), under the JAX package's routing (top-2 of a full softmax
    not renormalised, capacity factor 1.25), random bf16 weights from the
    seed, untied head; the config's fields checked against constants
    here. An engine at the defaults: its families held bitwise against
@@ -193,8 +194,9 @@ Phases, each raising on failure:
    lookahead 3 and once at 1 (busy and idle share from CUDA events around
    every replay), every token through the replay gate; flash must launch
    and no paged kernel.
-   The rolling ring: Mistral-7B at full width and 16 of its 32 layers
-   (bf16, seeded random weights, untied head), kv_paged left at its
+   The rolling ring: Mistral-7B at full width and 8 of its 32 layers
+   (16 until the knobs and mnist phases needed the time; bf16, seeded
+   random weights, untied head), kv_paged left at its
    default, 8 slots at max_seq_len 32,768, speculative=True: the ring of
    4,160 rows a slot (the 32-layer deployment's bytes beside what the
    paged pool would take at these settings and at 32 slots, computed,
@@ -228,7 +230,34 @@ Phases, each raising on failure:
    tokens in a wave at the 8,192 bucket (flash over the 4096 band, then
    ring_pack; lengths past the ring's 4,104 rows), every token through
    the replay gate with the window mask ("wave_launches");
-17. report — a "kernels" JSON line (launches on the engine phase's main
+17. knobs — the engine's shape knobs on Gemma-2B at full width and
+   depth (bf16, the same weights): a wide deployment (decode_chunk=16,
+   prefill_chunk=128, step_token_budget=512, kv_block=32) and a narrow
+   one (decode_chunk=4, prefill_chunk=32, step_token_budget=128,
+   kv_block=8, kv_int8=True: the int8 paged kernel at 8-row blocks), then
+   the wave (step_token_budget=0) at decode_chunk=16, kv_block=32. Each:
+   its geometry (chunk shapes, short chunk, block, table width, capacity,
+   append slack, block bytes) against the knobs' JAX meanings, the
+   paged-decode launch plan, warmup (families, warmup_s, memory), every
+   family's replay bitwise its eager program (the lazy ones too), the
+   burst once at lookahead 3 with the kernels' launches by shape (summing
+   to the counters), every token through the replay gate (the int8 gap
+   on the int8 pool, at most 1 in 8); flash (in its full-prompt mode only
+   on the wave) and the pool's paged kernel must launch ("knobs_launches").
+   The kernels phase holds and times rows 3-4 at 8- and 32-row blocks
+   (Gemma-2B's and Llama-3-8B's heads) and row 1 at chunk widths 32, 128
+   and 256 and the verify width 33;
+18. mnist — the plain-model path: gofr_tpu_torch.serve_mnist's app over
+   the MLP at its published widths (784 -> (512, 256) -> 10, bf16, random
+   weights from the seed), registered through GPURuntime.register_model
+   (warmed at every power-of-two bucket to 64); 2,000 single-example
+   requests from 64 concurrent clients through infer_async, then 200
+   over HTTP POST /infer; requests/s, p50/p99 latency, the batcher's
+   waves by width, every answer against the float32 plain forward of
+   its image (MNIST_ATOL), GET /model listing the model. No kernel of the
+   port runs here: the MLP's products are cuBLAS calls, as JAX's are XLA
+   dots outside any Pallas kernel;
+19. report — a "kernels" JSON line (launches on the engine phase's main
    path, in the prefix phases as "prefix_launches", in the spec phases as
    "spec_launches", in the structured phase as "structured_launches", in
    the overload phase as "overload_launches", in the lora phase as
@@ -236,7 +265,8 @@ Phases, each raising on failure:
    first burst of each engine as "families_launches", in the moe phase's
    first burst and its int8 run as "moe_launches", in the contiguous
    phase's bursts as "contiguous_launches", in the wave phase's as
-   "wave_launches"; flash_attention_prompt is the flash kernel's
+   "wave_launches", in the knobs phase's as "knobs_launches";
+   flash_attention_prompt is the flash kernel's
    full-prompt mode, row 2, whose main path is the wave's burst), then
    the last line {"ok": true, "device": {...}}.
 
@@ -247,6 +277,8 @@ printing no result, when no GPU is visible.
 from __future__ import annotations
 
 import argparse
+import asyncio
+import concurrent.futures
 import contextlib
 import ctypes
 import dataclasses
@@ -271,7 +303,7 @@ import torch
 
 from gofr_tpu_torch import llm as TL
 from gofr_tpu_torch.kvcache import CacheManager, gather_slots, quantize_rows, scatter_rows
-from gofr_tpu_torch.llm import KV_BLOCK, GenRequest, LLMEngine
+from gofr_tpu_torch.llm import GenRequest, LLMEngine
 from gofr_tpu_torch.lora import init_adapter, merge_adapter, target_dims, validate_adapter, zero_tables
 from gofr_tpu_torch.models import (
     KVCache,
@@ -599,6 +631,11 @@ def phase_kernels(dev: dict, seed: int, parent: dict | None = None) -> dict:
     # the verify program's attention (llm.step_v5): 32 slots, W = 5 queries
     # each at a decode-time cursor
     verify_offs = [(37 * i) % 500 + 2 for i in range(32)]
+    # the shape knobs' widths: prefill chunks of 32, 128 and 256 rows, and
+    # the verify of decode_chunk=16's draft cap (32 + 1)
+    verify33_offs = [(37 * i) % 470 + 2 for i in range(32)]
+    knob_offs = {32: [0, 37, 32, 200, 300, 480, 448, 5], 128: [0, 37, 128, 200, 300, 384, 256, 1],
+                 256: [0, 37, 128, 200, 256, 100, 64, 1]}
     flash_cases = [
         # (name, nb, c, offsets or None, causal, window, cap)
         ("offsets c16", 8, 16, [0, 37, 16, 200, 300, 480, 496, 5], True, 0, 0.0),
@@ -610,6 +647,8 @@ def phase_kernels(dev: dict, seed: int, parent: dict | None = None) -> dict:
         ("logit cap 50 offsets c16", 8, 16, [0, 37, 16, 200, 300, 480, 496, 5], True, 0, 50.0),
         ("offsets c12 (not 8-aligned)", 8, 12, [0, 37, 16, 200, 300, 480, 500, 5], True, 0, 0.0),
         ("verify c5, 32 slots", 32, 5, verify_offs, True, 0, 0.0),
+        *((f"offsets c{c} (prefill_chunk)", 8, c, offs, True, 0, 0.0) for c, offs in knob_offs.items()),
+        ("verify c33, 32 slots (decode_chunk 16)", 32, 33, verify33_offs, True, 0, 0.0),
     ]
     for dtype in (torch.bfloat16, torch.float32):
         for name, nb, c, offs, causal, window, lcap in flash_cases:
@@ -626,7 +665,7 @@ def phase_kernels(dev: dict, seed: int, parent: dict | None = None) -> dict:
                 ok = err <= F32_ATOL
             else:
                 ok = torch.allclose(got.float(), want.float(), atol=BF16_ATOL, rtol=BF16_RTOL)
-            print(f"flash_attention {str(dtype)[6:]:8s} {name:28s} max_abs_err {err:.3e} {'ok' if ok else 'FAIL'}")
+            print(f"flash_attention {str(dtype)[6:]:8s} {name:40s} max_abs_err {err:.3e} {'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"flash_attention disagrees with its plain version: {name} {dtype}")
             errs["flash_attention"] = max(errs["flash_attention"], err)
@@ -636,6 +675,8 @@ def phase_kernels(dev: dict, seed: int, parent: dict | None = None) -> dict:
         ("c16", 8, 16, [0, 37, 16, 200, 300, 480, 496, 5]),
         ("c64", 8, 64, [0, 37, 64, 100, 255, 400, 448, 1]),
         ("verify c5", 32, 5, verify_offs),
+        *((f"c{c}", 8, c, offs) for c, offs in knob_offs.items()),
+        ("verify c33", 32, 33, verify33_offs),
     ):
         q = rnd(nb, c, 8, 256, dtype=torch.bfloat16)
         k = rnd(nb, cap, 1, 256, dtype=torch.bfloat16)
@@ -813,7 +854,90 @@ def phase_kernels(dev: dict, seed: int, parent: dict | None = None) -> dict:
     if parent:
         _time_parent(parent["paged_decode_int8"], t, kernel_int8, (q, kq, vq, tables, lo, hi),
                      dict(k_scales=ks, v_scales=vs))
+    _paged_block_cases(rnd, g, peaks, lengths, errs, timings)
     return {"errs": errs, "timings": timings}
+
+
+# Rows 3-4 at the shape knobs' KV blocks: (model, hq, hkv, head_dim) at
+# 32 sequences, max_seq_len 512 (table width 512 / B), the same 6002 band
+# rows as the B = 16 case
+PAGED_BLOCKS = (8, 32)
+PAGED_BLOCK_HEADS = (("gemma_2b", 8, 1, 256), ("llama3_8b", 32, 8, 128))
+
+
+def _paged_block_cases(rnd, g, peaks, lengths, errs: dict, timings: dict) -> None:
+    """Both paged-decode entry points at B = 8 and 32 rows a block: the
+    launch plan (splits, shared memory per CTA) printed; f32, bf16 and
+    int8 pools held against the plain version on full bands, bands with
+    lo > 0 and a logit cap (o to F32_ATOL, m and l to ML_RTOL, as at
+    B = 16); bf16 and int8 pools timed at the 6002 band rows (CUDA
+    events, device time, plain version, bound; no library call)."""
+    nb = len(lengths)
+    hi = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    rows = int(hi.sum())
+    for model, hq, hkv, d in PAGED_BLOCK_HEADS:
+        for B in PAGED_BLOCKS:
+            MB = 512 // B
+            NB = nb * MB
+            for pool in (torch.bfloat16, torch.int8):
+                splits, smem = A.paged_decode_plan(pool, nb, hq, hkv, d, B, MB)
+                print(f"paged_decode plan {model} B{B}, {str(pool)[6:]} pools [{NB}, {B}, {hkv}, {d}], tables "
+                      f"[{nb}, {MB}]: {splits} splits, {smem} bytes of dynamic shared memory per CTA")
+            tables = torch.randperm(NB, generator=g, device="cuda")[: nb * MB].reshape(nb, MB).to(torch.int32)
+            kq, ks = quantize_rows(rnd(NB, B, hkv, d, dtype=torch.float32))
+            vq, vs = quantize_rows(rnd(NB, B, hkv, d, dtype=torch.float32))
+            pools = {"f32": (rnd(NB, B, hkv, d, dtype=torch.float32), rnd(NB, B, hkv, d, dtype=torch.float32), {}),
+                     "bf16": (rnd(NB, B, hkv, d, dtype=torch.bfloat16), rnd(NB, B, hkv, d, dtype=torch.bfloat16), {}),
+                     "int8": (kq, vq, dict(k_scales=ks, v_scales=vs))}
+            scale = d ** -0.5
+            for pool, (kp, vp, sc) in pools.items():
+                name = "paged_decode_partials_int8" if pool == "int8" else "paged_decode_partials"
+                q = rnd(nb, hq, d, dtype=torch.float32 if pool == "f32" else torch.bfloat16)
+                for band, lo, lcap in (
+                    ("full band", torch.zeros_like(hi), 0.0),
+                    ("window band lo>0", torch.clamp(hi - 40, min=0).to(torch.int32), 0.0),
+                    ("logit cap 30", torch.zeros_like(hi), 30.0),
+                ):
+                    before = _launches((name,))[name]
+                    o1, m1, l1 = A.paged_decode_partials(q, kp, vp, tables, lo, hi, scale=scale, logit_cap=lcap, **sc)
+                    o2, m2, l2 = A.paged_decode_partials_plain(q, kp, vp, tables, lo, hi, scale=scale,
+                                                               logit_cap=lcap, **sc)
+                    torch.cuda.synchronize()
+                    err = (o1 - o2).abs().max().item()
+                    ok = (_launches((name,))[name] == before + 1 and err <= F32_ATOL
+                          and torch.allclose(m1, m2, rtol=ML_RTOL, atol=1e-5)
+                          and torch.allclose(l1, l2, rtol=ML_RTOL, atol=1e-5))
+                    print(f"{name} {model} B{B} {pool:4s} pools {band:16s} o max_abs_err {err:.3e} "
+                          f"{'ok' if ok else 'FAIL'}")
+                    if not ok:
+                        raise AssertionError(f"{name} at B={B} ({model}, {pool}, {band}) disagrees with its plain "
+                                             f"version or was not launched")
+                    errs[name] = max(errs[name], err)
+                if pool == "f32":
+                    continue
+                lo = torch.zeros_like(hi)
+                table_entries = int(((hi + B - 1) // B).sum())
+                kv_bytes = 2 * rows * hkv * d * kp.element_size() + (2 * rows * hkv * 4 if sc else 0)
+                nbytes = (q.numel() * 2 + kv_bytes + table_entries * 4 + 2 * nb * 4 + (nb * hq * d + 2 * nb * hq) * 4)
+                bound_ms, bound_by = _bound(nbytes, 4 * d * hq * rows, torch.float32 if sc else torch.bfloat16, peaks)
+
+                def kernel():
+                    return A.paged_decode_partials(q, kp, vp, tables, lo, hi, scale=scale, **sc)
+
+                t = {
+                    "ms": time_ms(kernel),
+                    "device_ms": device_ms(kernel, "paged_decode_kernel"),
+                    "plain_ms": time_ms(lambda: A.paged_decode_partials_plain(q, kp, vp, tables, lo, hi, scale=scale,
+                                                                              **sc)),
+                    "library_ms": None,
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                }
+                timings[f"{name} {model} B{B}"] = t
+                print(f"timing {name} {model} B{B}: q {list(q.shape)}, pools {list(kp.shape)}, tables [{nb}, {MB}]: "
+                      f"kernel {t['ms']:.4f} ms (device {t['device_ms']:.4f} ms), plain {t['plain_ms']:.4f} ms, "
+                      f"bound {bound_ms:.5f} ms ({bound_by}), {rows} band rows")
+            del pools, kq, vq, ks, vs
+            torch.cuda.empty_cache()
 
 
 def _engine_state(eng) -> dict:
@@ -1621,16 +1745,16 @@ def _tensor_bytes(tree) -> int:
     return tree.numel() * tree.element_size()
 
 
-def _int8_path_drift(cfg, qparams, prompt, capacity, steps=8):
+def _int8_path_drift(cfg, qparams, prompt, capacity, block, steps=8):
     """Logit drift of the int8 serving path against the plain forward on
     the same int8 weights: the prompt is prefilled in 64-token chunks
-    through an int8 pool (each chunk's view gathered and dequantized, its
+    through an int8 pool of ``block``-row blocks (each chunk's view gathered and dequantized, its
     rows quantized again at the scatter, as the engine's unified step
     does), then ``steps`` greedy decode steps run through the int8 kernel.
     Returns the largest |served - plain| logit over the prefill's last
     position and every decode step."""
-    L, MB = cfg.n_layers, capacity // KV_BLOCK
-    shape = (L, MB, KV_BLOCK, cfg.n_kv_heads, cfg.head_dim)
+    L, MB = cfg.n_layers, capacity // block
+    shape = (L, MB, block, cfg.n_kv_heads, cfg.head_dim)
     pool = KVCache(
         k=torch.zeros(shape, dtype=torch.int8, device="cuda"),
         v=torch.zeros(shape, dtype=torch.int8, device="cuda"),
@@ -1664,7 +1788,7 @@ def _int8_path_drift(cfg, qparams, prompt, capacity, steps=8):
     first = logits_c.argmax(dim=-1).to(torch.int32)
     toks, _last, _ = decode_chunk_paged(
         qparams, cfg, first, pool, tables, torch.ones(1, dtype=torch.bool, device="cuda"),
-        torch.zeros(1, device="cuda"), None, n_steps=steps, sample_fn=capture, block=KV_BLOCK, scales=scales,
+        torch.zeros(1, device="cuda"), None, n_steps=steps, sample_fn=capture, block=block, scales=scales,
     )
     seq = prompt + [int(first[0])] + toks[:-1, 0].tolist()
     plain = transformer_forward(
@@ -1707,7 +1831,7 @@ def phase_engine_int8(dev: dict, seed: int, cfg: TransformerConfig, params: dict
     if not stats["quantized"] or not stats["kvcache"]["int8"]:
         raise AssertionError(f"int8 engine stats: {stats}")
 
-    drift = _int8_path_drift(cfg, qparams, prompts[6], eng.kv.capacity)
+    drift = _int8_path_drift(cfg, qparams, prompts[6], eng.kv.capacity, eng.kv.block)
     print(f"int8 logit drift, served int8 path (int8 KV round trip between chunks, int8 kernel decode, "
           f"weight-only decode products) vs plain forward on the int8 weights (prompt {len(prompts[6])}, "
           f"prefill + 8 decode steps): max_abs {drift:.4f} on {dev['smi']}; gap constant {INT8_TOKEN_GAP}")
@@ -2999,12 +3123,13 @@ def phase_edge(dev: dict, seed: int, cfg: TransformerConfig, params: dict, engin
 
 
 # The families phase: the JAX package's other dense presets at their
-# published widths and half their published depths (the moe phase's time
-# came out of this phase's), random weights from the seed (the untied
+# published widths and a quarter of their published depths (half until
+# the knobs and mnist phases took their time; the moe phase's came out of
+# this phase's before), random weights from the seed (the untied
 # families with a random lm_head, as they are published), one model at a
 # time on the card.
 FAMILY_MODELS = ("llama3_8b", "mistral_7b", "qwen2_7b", "gemma_7b")
-FAMILY_LAYERS = {"llama3_8b": 16, "mistral_7b": 16, "qwen2_7b": 14, "gemma_7b": 14}
+FAMILY_LAYERS = {"llama3_8b": 8, "mistral_7b": 8, "qwen2_7b": 7, "gemma_7b": 7}
 FAMILY_UNTIED = ("llama3_8b", "mistral_7b", "qwen2_7b")
 WINDOW_SLOTS, WINDOW_SEQ, WINDOW_NEW = 4, 4608, 64  # Mistral's windowed engine
 WINDOW_PROMPTS = (4160, 4240, 4320, 4400)  # every decode band starts above 0
@@ -3141,7 +3266,7 @@ def _family_engine(dev: dict, label: str, cfg, params, seed: int, lookaheads, ga
         runs = _bursts(f"{label} ", eng, prompts, 32, KERNEL_COUNTERS, lookaheads)
         clock["bursts"] = time.perf_counter() - t0 - sum(clock.values())
         gate_params = eng.params
-        drift = (_int8_path_drift(cfg, gate_params, prompts[6], eng.kv.capacity) if eng.pool_scales is not None
+        drift = (_int8_path_drift(cfg, gate_params, prompts[6], eng.kv.capacity, eng.kv.block) if eng.pool_scales is not None
                  else _chunked_drift(gate_params, cfg, prompts[6], eng.kv.capacity))
     finally:
         eng.close()
@@ -3365,11 +3490,12 @@ def phase_families(dev: dict, seed: int) -> dict:
 
 # The moe phase: Mixtral-8x7B's widths (mistralai/Mixtral-8x7B-v0.1's
 # config.json: 8 local experts, 2 per token, rope theta 1e6, no sliding
-# window; Mistral-7B's attention and a 14,336-wide expert MLP) at 16 of
+# window; Mistral-7B's attention and a 14,336-wide expert MLP) at 8 of
 # its 32 layers: the bf16 weights of all 32 (~93 GB) do not fit the
-# card's 80 GB. The routing is the JAX package's (top-2 of a full softmax,
+# card's 80 GB, and 16 (~47 GB) ran until the knobs and mnist phases took
+# their time. The routing is the JAX package's (top-2 of a full softmax,
 # not renormalised; capacity factor 1.25, drops past it), not Mixtral's.
-MOE_LAYERS = 16
+MOE_LAYERS = 8
 MOE_FIELDS = {
     "vocab_size": 32_000, "d_model": 4096, "n_layers": MOE_LAYERS, "n_heads": 32, "n_kv_heads": 8,
     "head_dim": 128, "d_ff": 14_336, "rope_theta": 1e6, "norm_eps": 1e-5, "act": "silu",
@@ -3613,7 +3739,7 @@ def phase_moe(dev: dict, seed: int) -> dict:
           f"{INT8_TOKEN_GAP}; {wide8} with a gap >= {TOKEN_GAP}); layer 0 dequant of the three stacks "
           f"{deq_ms:.4f} ms, int8 ffn at T=32 {ffn8_ms:.4f} ms; launches {n8}")
     med = statistics.median
-    print(f"moe mixtral_8x7b_l16 on {dev['smi']}: tok/s {', '.join(f'{x:.1f}' for x in out['tok_s'])} (lookahead "
+    print(f"moe mixtral_8x7b_l{MOE_LAYERS} on {dev['smi']}: tok/s {', '.join(f'{x:.1f}' for x in out['tok_s'])} (lookahead "
           f"3, 3, 3, 1; median {med(out['tok_s'][:3]):.1f}); ttft p50 {med(out['ttft_p50_s'][:3]):.3f}s max "
           f"{med(out['ttft_max_s'][:3]):.3f}s (medians); programs {out['programs']} (unified steps {out['steps']}); "
           f"warmup_s {warm['warmup_s']:.3f}; memory_reserved +{out['reserved_growth']}; idle "
@@ -3635,7 +3761,7 @@ def phase_moe(dev: dict, seed: int) -> dict:
 # so on an H100 80GB HBM3 at 700 W a program took ~0.36 s at 32 layers and
 # one burst over half a minute (PERF.md, PR 15); the script's time limit
 # took the cut.
-RING_SLOTS, RING_SEQ, RING_NEW, RING_LAYERS = 8, 32768, 64, 16
+RING_SLOTS, RING_SEQ, RING_NEW, RING_LAYERS = 8, 32768, 64, 8
 RING_PROMPTS = (4300, 4900, 5500, 6000)
 
 
@@ -3693,11 +3819,11 @@ def _replay_clock(eng):
     """Time every program replay the engine dispatches meanwhile: CUDA
     events around each on the engine stream (one stream: the replays run
     one after another, so their sum is the card's busy time), with the
-    decode steps each carries (a unified step and llm.decode_chunk8 8,
-    llm.decode_chunk2 2, a verify none). Yields [(steps, start, end)];
+    decode steps each carries (a unified step and llm.decode_chunk{K} K,
+    the short chunk K // 4, a verify none). Yields [(steps, start, end)];
     read the events after a synchronize. A profile of a whole ring burst
     (millions of kernel records) took minutes to read back."""
-    steps_of = {"llm.decode_chunk2": 2, f"llm.step_v{eng.spec_draft + 1}": 0}
+    steps_of = {f"llm.decode_chunk{eng._chunk_short}": eng._chunk_short, f"llm.step_v{eng.spec_draft + 1}": 0}
     replays = []
     launch = eng._launch
 
@@ -3709,11 +3835,15 @@ def _replay_clock(eng):
         replays.append((steps_of.get(name, eng.decode_chunk), start, end))
         return out
 
+    outer = eng.__dict__.get("_launch")  # another wrapper's, when nested
     eng._launch = timed
     try:
         yield replays
     finally:
-        del eng._launch  # the method again
+        if outer is None:
+            del eng._launch  # the method again
+        else:
+            eng._launch = outer
 
 
 def _clocked_bursts(label: str, eng, prompts, new_tokens: int, lookaheads) -> list[dict]:
@@ -3807,13 +3937,14 @@ def _contiguous_ring(dev: dict, seed: int) -> dict:
         print(f"{label}{name} done in {clock[name]:.1f}s", flush=True)
 
     # the deployment's sizes at all 32 layers, from the CacheManager
-    # arithmetic (host bookkeeping, nothing allocated)
+    # arithmetic (host bookkeeping, nothing allocated), at the engine's
+    # default decode chunk and KV block
     full = TransformerConfig.mistral_7b()
     kv32 = CacheManager(full, RING_SLOTS, RING_SEQ, TL.DECODE_CHUNK, append_widths=(16, 64, 5), paged="auto")
-    planned, planned32 = (_pool_bytes(CacheManager(full, n, RING_SEQ, TL.DECODE_CHUNK, block=KV_BLOCK))
+    planned, planned32 = (_pool_bytes(CacheManager(full, n, RING_SEQ, TL.DECODE_CHUNK, block=TL.KV_BLOCK))
                           for n in (RING_SLOTS, 32))
     print(f"{label}at 32 layers: {kv32.stats()}; the paged pool would take {planned} bytes ({RING_SLOTS} slots x "
-          f"{RING_SEQ // KV_BLOCK} blocks), {planned32} at 32 slots")
+          f"{RING_SEQ // TL.KV_BLOCK} blocks), {planned32} at 32 slots")
     if (kv32.rolling, kv32.capacity, kv32.slot_bytes, planned, planned32) != (
         True, 4160, 4_362_076_160, 34_359_738_368, 137_438_953_472
     ):
@@ -3862,7 +3993,7 @@ def _contiguous_ring(dev: dict, seed: int) -> dict:
            "lengths": lengths, "warmup_s": warm["warmup_s"],
            "reserved_growth": warm["reserved_after"] - warm["reserved_before"], "program_ms": prog,
            "busy_ms": busy_ms, "idle": idle, "decode_attention_layer_ms": attn,
-           "decode_attention_chunk_share": attn * cfg.n_layers * TL.DECODE_CHUNK / prog["llm.decode_chunk8"],
+           "decode_attention_chunk_share": attn * cfg.n_layers * 8 / prog["llm.decode_chunk8"],
            "decode_attention_burst_share": attn * cfg.n_layers * run["decode_steps"] / busy_ms,
            "tokens_matched": checked, "tokens_exempt": exempt, "seconds": clock}
     print(f"contiguous ring mistral_7b ({cfg.n_layers} of 32 layers) on {dev['smi']}: {len(prompts)} prompts of "
@@ -4188,12 +4319,254 @@ def phase_wave(dev: dict, seed: int, cfg=None, params=None) -> dict:
     return out
 
 
+# The shape knobs' two deployments (JAX LLMEngine kwargs / TPU_LLM_* knobs)
+KNOB_ENGINES = (
+    ("wide", dict(decode_chunk=16, prefill_chunk=128, step_token_budget=512, kv_block=32)),
+    ("narrow", dict(decode_chunk=4, prefill_chunk=32, step_token_budget=128, kv_block=8, kv_int8=True)),
+)
+KNOB_WAVE = dict(decode_chunk=16, step_token_budget=0, kv_block=32)
+
+
+@contextlib.contextmanager
+def _replay_names(eng):
+    """Count the engine's program replays by family name meanwhile."""
+    counts: dict[str, int] = {}
+    launch = eng._launch
+
+    def counted(name):
+        counts[name] = counts.get(name, 0) + 1
+        return launch(name)
+
+    outer = eng.__dict__.get("_launch")  # another wrapper's, when nested
+    eng._launch = counted
+    try:
+        yield counts
+    finally:
+        if outer is None:
+            del eng._launch  # the method again
+        else:
+            eng._launch = outer
+
+
+def _launches_by_shape(eng, counts: dict) -> dict:
+    """{"kernel q/pool shape (family kind)": launches} from replays by family
+    and each family's captured launches: a step's flash is q [nb, S, hq,
+    d] on its packed rows' slot views, a verify's q [slots, W, hq, d], a
+    wave prefill's q [nb, bucket, hq, d] (full-prompt mode); the paged
+    kernel reads q [slots, hq, d] from [NB, B, hkv, d] pools in every step
+    and chunk."""
+    cfg, out = eng.cfg, {}
+    for name, n in sorted(counts.items()):
+        kind, arg = eng._program(name)[1:]
+        for kern, per in eng.families[name].launches.items():
+            if kern.startswith("paged"):
+                key = (f"{kern} q [{eng.slots}, {cfg.n_heads}, {cfg.head_dim}] pools [{eng.kv.pool.n_blocks}, "
+                       f"{eng.kv.block}, {cfg.n_kv_heads}, {cfg.head_dim}] ({kind})")
+            elif kern == "flash_attention_prompt":
+                continue  # the prefill's flash_attention key below counts them
+            else:
+                (c, nb) = (arg, eng.slots) if kind == "verify" else arg
+                mode = " prompt" if kind == "prefill" else ""
+                key = f"{kern}{mode} q [{nb}, {c}, {cfg.n_heads}, {cfg.head_dim}] ({kind})"
+            out[key] = out.get(key, 0) + n * per
+    return out
+
+
+def _knob_engine(dev: dict, seed: int, cfg, params, label: str, kw: dict, prompts) -> dict:
+    """One shape-knob deployment of Gemma-2B: its geometry and launch plan
+    printed beside the JAX meaning of each knob, warmup (every family
+    captured), every family's replay bitwise its eager program (the lazy
+    ones too), one burst at lookahead 3 with its launches by shape, every
+    served token through the replay gate (TOKEN_GAP bf16, INT8_TOKEN_GAP on
+    an int8 pool, at most 1 token in 8)."""
+    eng = LLMEngine(cfg, params, seed=seed, **kw)
+    try:
+        st, kv = eng.stats(), eng.kv
+        K, P = kw["decode_chunk"], kw.get("prefill_chunk", TL.PREFILL_CHUNK)
+        want = {"decode_chunk": K, "chunk_short": max(1, K // 4), "chunk_shapes": tuple(sorted(
+                    {min(b, P) for b in eng.prefill_buckets})) if eng.chunked else eng.chunk_shapes,
+                "block": kw["kv_block"], "table_width": -(-eng.max_seq_len // kw["kv_block"]),
+                "budget": kw["step_token_budget"]}
+        got = {"decode_chunk": eng.decode_chunk, "chunk_short": eng._chunk_short, "chunk_shapes": eng.chunk_shapes,
+               "block": kv.block, "table_width": kv.table_width, "budget": eng.step_token_budget}
+        pool_dtype = torch.int8 if kv.int8 else cfg.dtype
+        splits, smem = A.paged_decode_plan(pool_dtype, eng.slots, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                                           kv.block, kv.table_width)
+        print(f"{label}knobs {kw}: scheduler {st['scheduler']}, chunk shapes {eng.chunk_shapes}, short chunk "
+              f"{eng._chunk_short}, KV {kv.stats()['layout']} block {kv.block} x {kv.pool.n_blocks} blocks (table "
+              f"width {kv.table_width}, capacity {kv.capacity}, append slack {kv.append_slack}, {kv.block_bytes} "
+              f"bytes a block, int8 {kv.int8}); paged-decode plan {splits} splits, {smem} bytes of shared memory "
+              f"per CTA; programs {sorted(eng._programs)}")
+        if got != want:
+            raise AssertionError(f"{label}engine shapes {got}, expected {want}")
+        warm = _warm_report(label, eng)
+        _check_families(label, eng, seed, extra=sorted(eng._lazy))
+        eng.generate([1, 2, 3], max_new_tokens=4)
+        with _replay_names(eng) as counts:
+            if eng.chunked:
+                (run,) = _bursts(label, eng, prompts, 32, KERNEL_COUNTERS, lookaheads=(3,))
+            else:
+                st0 = eng.stats()
+                (run,) = _clocked_bursts(label, eng, prompts, 32, (3,))
+                run.update(_wave_stats(eng, st0))
+        by_shape = _launches_by_shape(eng, counts)
+    finally:
+        eng.close()
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"{label}replays by family {counts}; launches by shape {by_shape}")
+    for kern in ("flash_attention", "paged_decode_partials", "paged_decode_partials_int8"):
+        if sum(n for k, n in by_shape.items() if k.split(" ")[0] == kern) != run["launches"][kern]:
+            raise AssertionError(f"{label}{kern}: launches by shape {by_shape} do not sum to {run['launches']}")
+    paged = "paged_decode_partials_int8" if kw.get("kv_int8") else "paged_decode_partials"
+    if kw["step_token_budget"]:
+        if run["launches"]["flash_attention"] <= 0 or run["launches"][paged] <= 0 or run["launches"][
+                "flash_attention_prompt"]:
+            raise AssertionError(f"{label}kernel launches {run['launches']}")
+    else:
+        _wave_launches(label, run["launches"], paged)
+    gap = INT8_TOKEN_GAP if kw.get("kv_int8") else TOKEN_GAP
+    c, e = _replay_gate(params, cfg, prompts, run["results"], gap, label=label, verbose=False)
+    if kw.get("kv_int8") and 8 * e > run["tokens"]:
+        raise AssertionError(f"{label}{e} of {run['tokens']} tokens needed the int8 gap")
+    out = {"tok_s": run["tok_s"], "ttft_p50_s": run["ttft_p50_s"], "ttft_max_s": run["ttft_max_s"],
+           "programs": run["chunks"], "steps": run["steps"], "families": len(warm["families"]),
+           "warmup_s": warm["warmup_s"], "reserved_growth": warm["reserved_after"] - warm["reserved_before"],
+           "launches": run["launches"], "by_shape": by_shape, "matched": c, "exempt": e, "splits": splits,
+           "smem": smem, "waves": run.get("waves"), "idle": run.get("idle")}
+    waves = "" if out["waves"] is None else f", waves {out['waves']}, idle {100 * out['idle']:.1f}%"
+    print(f"{label}gemma_2b on {dev['smi']}: {out['tok_s']:.1f} tok/s at lookahead 3; ttft p50 "
+          f"{out['ttft_p50_s']:.3f}s max {out['ttft_max_s']:.3f}s; {out['programs']} programs ({out['steps']} unified "
+          f"steps{waves}); "
+          f"{out['families']} families captured in {out['warmup_s']:.3f} s (warmup_s), memory_reserved "
+          f"+{out['reserved_growth']}; {c} tokens matched, {e} exempt (gap {gap}); launches {run['launches']}")
+    return out
+
+
+def phase_knobs(dev: dict, seed: int, cfg=None, params=None) -> dict:
+    """The engine's shape knobs on Gemma-2B at full width and depth (see
+    the module docstring). Returns each engine's readings and its kernel
+    launches by label."""
+    if params is None:
+        cfg, params = gemma_weights(seed)
+    _plens, prompts = _burst_prompts(cfg, seed)
+    out, clock = {}, {}
+    for name, kw in KNOB_ENGINES + (("wave b32", KNOB_WAVE),):
+        t0 = time.perf_counter()
+        out[name] = _knob_engine(dev, seed, cfg, params, f"knobs {name} ", kw, prompts)
+        clock[name] = time.perf_counter() - t0
+    print("knobs seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in clock.items()))
+    out["launches"] = {name: out[name]["launches"] for name in list(out)}
+    return out
+
+
+MNIST_REQUESTS, MNIST_CLIENTS, MNIST_HTTP = 2000, 64, 200
+MNIST_ATOL = 0.1  # bf16 weights and activations against the f32 plain forward (three layers)
+
+
+def phase_mnist(dev: dict, seed: int) -> dict:
+    """The plain-model path (see the module docstring): the MNIST app over
+    the MLP at its published widths (784 -> 512 -> 256 -> 10, bf16, random
+    weights from the seed), 2,000 single-example requests from 64
+    concurrent clients through infer_async, then 200 over HTTP POST
+    /infer; requests/s, p50/p99 latency, the waves by width, and every
+    answer against the float32 plain forward of its own image."""
+    from gofr_tpu_torch import serve_mnist
+    from gofr_tpu_torch.config import new_mock_config
+    from gofr_tpu_torch.models.mlp import MLPConfig, mlp_forward, mlp_init
+
+    label = "mnist "
+    cfg = MLPConfig()
+    params = mlp_init(torch.Generator().manual_seed(seed), cfg, "cuda")
+    images = np.random.default_rng(seed).standard_normal((MNIST_REQUESTS, cfg.in_dim)).astype(np.float32)
+    with torch.inference_mode():
+        plain = mlp_forward({k: v.float() for k, v in params.items()}, torch.from_numpy(images).cuda()).cpu().numpy()
+    t0 = time.perf_counter()
+    app = serve_mnist.build_app(new_mock_config({"HTTP_PORT": "0", "REQUEST_TIMEOUT": "30", "LOG_LEVEL": "ERROR"}),
+                                params=params)
+    register_s = time.perf_counter() - t0
+    th = app.run_in_background()
+    rt = app.container.tpu()
+    batcher = rt.model(serve_mnist.MODEL).batcher
+    try:
+        outs: list = [None] * MNIST_REQUESTS
+        lat: list[float] = []
+
+        async def client(idx):
+            for i in idx:
+                t = time.perf_counter()
+                outs[i] = await rt.infer_async(serve_mnist.MODEL, images[i])
+                lat.append(time.perf_counter() - t)
+
+        async def burst():
+            await asyncio.gather(*(client(range(c, MNIST_REQUESTS, MNIST_CLIENTS)) for c in range(MNIST_CLIENTS)))
+
+        batcher.widths.clear()
+        t0 = time.perf_counter()
+        asyncio.run(burst())
+        wall = time.perf_counter() - t0
+        widths = dict(sorted(batcher.widths.items()))
+        got = np.stack(outs)
+        err = float(np.abs(got - plain).max())
+        lat.sort()
+        run = {"requests_s": MNIST_REQUESTS / wall, "p50_ms": 1e3 * lat[len(lat) // 2],
+               "p99_ms": 1e3 * lat[int(0.99 * len(lat))], "widths": widths, "max_abs_err": err}
+        print(f"{label}infer_async: {MNIST_REQUESTS} requests from {MNIST_CLIENTS} clients in {wall:.3f}s = "
+              f"{run['requests_s']:.1f} requests/s; latency p50 {run['p50_ms']:.3f} ms p99 {run['p99_ms']:.3f} ms; "
+              f"waves by requests {widths}; max_abs_err vs the f32 plain forward {err:.4e}")
+        if got.shape != (MNIST_REQUESTS, cfg.out_dim) or not np.isfinite(got).all() or err > MNIST_ATOL:
+            raise AssertionError(f"{label}outputs {got.shape}, max_abs_err {err}")
+        if sum(n * k for n, k in widths.items()) != MNIST_REQUESTS or max(widths) > batcher.max_batch:
+            raise AssertionError(f"{label}waves {widths}")
+        # over HTTP: the example's route and envelope
+        port = app.http_server.port
+        http_lat: list[float] = []
+        answers: dict[int, dict] = {}
+
+        def post(i):
+            status, raw, _first, seconds = _http(port, "POST", "/infer", {"image": images[i].tolist()}, timeout=60)
+            http_lat.append(seconds)
+            if status != 201:
+                raise AssertionError(f"{label}POST /infer answered {status}: {raw[:200]}")
+            answers[i] = json.loads(raw)["data"]
+
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(MNIST_CLIENTS) as ex:
+            list(ex.map(post, range(MNIST_HTTP)))
+        http_wall = time.perf_counter() - t0
+        http_lat.sort()
+        http_err = max(float(np.abs(np.asarray(answers[i]["logits"]) - plain[i]).max()) for i in answers)
+        agree = sum(answers[i]["digit"] == int(np.argmax(plain[i])) for i in answers)
+        status, raw, _first, _s = _http(port, "GET", "/model")
+        info = json.loads(raw)
+        models = info["data"]["details"]["models"] if status == 200 else {}
+        run["http"] = {"requests_s": MNIST_HTTP / http_wall, "p50_ms": 1e3 * http_lat[len(http_lat) // 2],
+                       "p99_ms": 1e3 * http_lat[int(0.99 * len(http_lat))], "max_abs_err": http_err,
+                       "digits_agree": agree}
+        print(f"{label}HTTP POST /infer: {MNIST_HTTP} requests from {MNIST_CLIENTS} clients in {http_wall:.3f}s = "
+              f"{run['http']['requests_s']:.1f} requests/s; latency p50 {run['http']['p50_ms']:.3f} ms p99 "
+              f"{run['http']['p99_ms']:.3f} ms; max_abs_err {http_err:.4e}; digits equal to the f32 plain argmax "
+              f"{agree} of {MNIST_HTTP}; GET /model {status} {models}")
+        if http_err > MNIST_ATOL or serve_mnist.MODEL not in models:
+            raise AssertionError(f"{label}HTTP answers: max_abs_err {http_err}, /model {status} {info}")
+    finally:
+        app.shutdown()
+        th.join(timeout=30)
+    if th.is_alive():
+        raise AssertionError(f"{label}the app did not stop")
+    print(f"mnist mlp on {dev['smi']}: registered and warmed (buckets 1-64) in {register_s:.3f}s; "
+          f"{run['requests_s']:.1f} requests/s, p50 {run['p50_ms']:.3f} ms, p99 {run['p99_ms']:.3f} ms through "
+          f"infer_async; HTTP {run['http']['requests_s']:.1f} requests/s, p50 {run['http']['p50_ms']:.3f} ms")
+    return run
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="GPU smoke run of gofr_tpu_torch on one card")
     ap.add_argument("--parent", metavar="TREE",
                     help="also build another checkout's paged-decode kernels (e.g. the parent commit from "
                          "git archive) and time them beside this tree's on the same inputs")
-    ap.add_argument("--only", choices=("families", "moe", "contiguous", "wave"),
+    ap.add_argument("--only", choices=("families", "moe", "contiguous", "wave", "knobs", "mnist"),
                     help="build the kernels and run this one phase, which makes its own weights (prints no "
                          "kernels line and no result)")
     args = ap.parse_args()
@@ -4211,7 +4584,7 @@ def main() -> int:
     timed("build", phase_build)
     if args.only:
         timed(args.only, {"families": phase_families, "moe": phase_moe, "contiguous": phase_contiguous,
-                          "wave": phase_wave}[args.only], dev, SEED)
+                          "wave": phase_wave, "knobs": phase_knobs, "mnist": phase_mnist}[args.only], dev, SEED)
         print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
         return 0
     kern = timed("kernels", phase_kernels, dev, SEED, build_parent(args.parent) if args.parent else None)
@@ -4234,10 +4607,12 @@ def main() -> int:
     spec = timed("spec", phase_spec, dev, SEED, cfg, params)
     structured = timed("structured", phase_structured, dev, SEED, cfg, params)
     wave = timed("wave", phase_wave, dev, SEED, cfg, params)
+    knobs = timed("knobs", phase_knobs, dev, SEED, cfg, params)
     del params  # Gemma-2B's weights; the families phase loads one model at a time
     families = timed("families", phase_families, dev, SEED)
     moe = timed("moe", phase_moe, dev, SEED)
     contiguous = timed("contiguous", phase_contiguous, dev, SEED)
+    timed("mnist", phase_mnist, dev, SEED)
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     # name -> (source, replaced Pallas kernel, timing key, engine run whose
     # launches count, prefix phases' launches). flash_attention_prompt is
@@ -4267,6 +4642,7 @@ def main() -> int:
             "moe_launches": {label: n[name] for label, n in moe["launches"].items()},
             "contiguous_launches": {label: n[name] for label, n in contiguous["launches"].items()},
             "wave_launches": {label: n[name] for label, n in wave["launches"].items()},
+            "knobs_launches": {label: n[name] for label, n in knobs["launches"].items()},
             "max_abs_err": kern["errs"][name],
             "ms": t["ms"], "device_ms": t["device_ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],

@@ -10,6 +10,7 @@ mirror the JAX package so each counterpart is easy to find:
   hand-written CUDA kernels that replace the Pallas kernels);
 - ``models.transformer`` — the Gemma-family decoder and its serving entry
   points (``prefill_append``, ``decode_chunk_paged``, ``verify_chunk``);
+  ``models.mlp`` the MNIST-class MLP of the plain-model path;
 - ``kvcache`` — the block pool, slot tables and the paged cache manager
   with its radix prefix index and session tier;
 - ``spec`` — the n-gram drafter and acceptance policy of speculative
@@ -27,8 +28,10 @@ mirror the JAX package so each counterpart is easy to find:
   ``logging``, ``http`` (the asyncio HTTP/1.1 server, router, request and
   responder), ``grpcx`` (JSON over gRPC: serve's ``Gemma/Generate`` and
   ``Gemma/Stream``; imported only when a gRPC route is registered),
-  ``datasource.gpu`` (``GPURuntime.register_llm``) and
-  ``models.tokenizer`` (``ByteTokenizer``).
+  ``datasource.gpu`` (``GPURuntime.register_llm``, and
+  ``register_model`` with its dynamic ``Batcher``), ``serve_mnist`` (the
+  MNIST app: ``POST /infer``, ``GET /model``) and ``models.tokenizer``
+  (``ByteTokenizer``).
 
 The package imports torch and numpy only: nothing of ``jax`` and nothing of
 ``gofr_tpu``. Host-only pieces it needs are copied and trimmed.

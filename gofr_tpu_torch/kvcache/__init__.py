@@ -42,7 +42,8 @@ hkv, hd] (plus [2, L, n_blocks, block, hkv] float32 scales for an int8
 pool) and belong to the engine, which performs every device copy.
 
 Each knob left None reads the JAX engine's env fallback with its default
-and parsing: ``session_mb`` ``TPU_LLM_SESSION_MB`` (0; read before
+and parsing: ``block`` ``TPU_LLM_KV_BLOCK`` (16, the paged layout
+only), ``session_mb`` ``TPU_LLM_SESSION_MB`` (0; read before
 ``"auto"`` resolves), ``kv_int8`` ``TPU_LLM_KV_INT8`` (off unless set and
 not "0"), ``host_cache_mb`` ``TPU_LLM_HOST_CACHE_MB`` (256) and
 ``pool_blocks`` ``TPU_LLM_KV_POOL_BLOCKS`` (0: the worst case above).
@@ -304,7 +305,7 @@ class CacheManager:
         window: int | None = None,
         append_widths: tuple = (),
         paged=True,
-        block: int = 16,
+        block: int | None = None,
         pool_blocks: int | None = None,
         kv_int8: bool | None = None,
         prefix_cache_mb: float = 0.0,
@@ -355,7 +356,7 @@ class CacheManager:
         self.prefix = None  # the radix tree is the paged layout's prefix index
         self.rolling = False
         self.ring = 0
-        self.block = int(block)
+        self.block = int(block if block is not None else env("TPU_LLM_KV_BLOCK", "16"))
         self.table_width = -(-max_seq_len // self.block)
         self.capacity = self.table_width * self.block
         self.int8 = bool(kv_int8)

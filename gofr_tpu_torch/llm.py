@@ -21,10 +21,11 @@ the JAX engine's default configuration:
   its prefix reuse is the whole-row ``PrefixCache`` (below);
 
 - the scheduler (``step_token_budget``; ``None`` reads
-  ``TPU_LLM_STEP_TOKEN_BUDGET``): 256, chunked prefill, the default:
-  prompts advance through unified device steps of {16, 64}-token chunks
-  (the prefill buckets capped at PREFILL_CHUNK) under a budget of 256
-  tokens, the active slots' decode chunk charged first, prefill rows
+  ``TPU_LLM_STEP_TOKEN_BUDGET``, default 256): any budget above 0 is
+  chunked prefill: prompts advance through unified device steps of
+  chunks (the prefill buckets capped at ``prefill_chunk``; ``None`` reads
+  ``TPU_LLM_PREFILL_CHUNK``, default 64: {16, 64}) under that many
+  tokens a step, the active slots' decode chunk charged first, prefill rows
   packed up to ``admit_cap`` with a FIFO head-of-line rule
   (``_dispatch_step``). 0, the monolithic WAVE (JAX ``_admit_wave``):
   whole prompts, grouped by prefill bucket (a prompt past the last one
@@ -36,15 +37,15 @@ the JAX engine's default configuration:
   ``admit_delay_ms`` while arrivals are fast; decode chunks run by
   demand, speculative verifies ride as on the chunked scheduler, and
   grammars and adapters are refused (``constrained`` and ``lora_slots``
-  are forced off, as in JAX). Other budgets raise (ROADMAP queue 1 ID
-  19);
+  are forced off, as in JAX);
 - the unified step program (JAX ``llm.step_p{S}_d{K}``): gather the
   packed rows' slot views through the block tables, run
   ``prefill_append``, scatter the chunk rows back into the pool, sample
   first tokens for rows whose prompt completed, activate them, then run
   one fused ``decode_chunk_paged`` for every live slot;
 - the pure decode chunk program (JAX ``llm.decode_chunk{K}``) when no
-  prompt is pending, K = 8 (or 2 for tail ends);
+  prompt is pending, K = ``decode_chunk`` (default 8; or K // 4 for tail
+  ends);
 - ``warmup=True``: on a CUDA device every program family (each chunk
   shape x wave width of the step, each K of the chunk) is captured at
   construction as one CUDA graph, all in one graph memory pool; every
@@ -177,8 +178,15 @@ Left out of this slice (queued in ROADMAP.md): goodput and the
 tenant quota gate, flight recorder, KV handoff, the replica fleet (and
 with it the router's retry budget and a fleet-shared ledger), the
 metrics series of speculation, constrained decoding and overload (the
-port has no metrics manager), the shape knobs (``decode_chunk``,
-``prefill_chunk``, other step budgets, ``kv_block``: ID 19).
+port has no metrics manager).
+
+The shape knobs (JAX llm.py:637-644, :675-676) are the JAX engine's:
+``decode_chunk`` (K: the fused steps of a chunk, the step's decode part,
+the short chunk K // 4, the draft cap 2 K and the decode room of 2 K
+rows), ``prefill_chunk``, ``step_token_budget`` and ``kv_block`` (the
+pool's rows a block; ``None`` reads ``TPU_LLM_KV_BLOCK``, default 16,
+in ``kvcache.CacheManager``). ``DECODE_CHUNK``, ``PREFILL_CHUNK``,
+``STEP_TOKEN_BUDGET`` and ``KV_BLOCK`` are their defaults only.
 """
 
 from __future__ import annotations
@@ -694,14 +702,17 @@ class LLMEngine:
     ignores ``kv_int8``.
 
     ``step_token_budget`` (``None`` reads ``TPU_LLM_STEP_TOKEN_BUDGET``,
-    default 256) picks the scheduler: 256 chunked, 0 the wave; other
-    values raise. ``admit_cap`` bounds the prefill rows of a step or a
-    wave, ``admit_delay_ms`` the wave's fill hold. ``kv_pool_blocks``
+    default 256) picks the scheduler: above 0 chunked, under that many
+    tokens a unified step, 0 the wave. ``prefill_chunk`` (``None`` reads
+    ``TPU_LLM_PREFILL_CHUNK``, default 64) caps the chunk shapes,
+    ``decode_chunk`` (8) sets the fused steps of a decode chunk and
+    ``kv_block`` (``None`` reads ``TPU_LLM_KV_BLOCK``, default 16) the
+    paged pool's rows a block. ``admit_cap`` bounds the prefill rows of a
+    step or a wave, ``admit_delay_ms`` the wave's fill hold. ``kv_pool_blocks``
     sizes the paged pool (``None`` reads ``TPU_LLM_KV_POOL_BLOCKS``; 0 the
     worst case); ``kv_int8``, ``session_mb`` and ``host_cache_mb`` left
     None read ``TPU_LLM_KV_INT8``, ``TPU_LLM_SESSION_MB`` and
     ``TPU_LLM_HOST_CACHE_MB`` (``kvcache.CacheManager``).
-    ``TPU_LLM_KV_BLOCK`` other than 16 raises (ID 19).
 
     ``quantize=True`` quantizes the params to int8 at construction unless
     they already are; ``kv_int8=True`` stores the KV pool as int8 rows
@@ -760,6 +771,9 @@ class LLMEngine:
         session_mb: float | None = None,
         host_cache_mb: float | None = None,
         kv_pool_blocks: int | None = None,
+        kv_block: int | None = None,
+        decode_chunk: int = DECODE_CHUNK,
+        prefill_chunk: int | None = None,
         step_token_budget: int | None = None,
         admit_cap: int = ADMIT_CAP,
         admit_delay_ms: float = ADMIT_DELAY_MS,
@@ -785,22 +799,14 @@ class LLMEngine:
         self.device = resolve_device(device)
         self.cfg = cfg
         # the scheduler (JAX llm.py:749-757): a budget > 0 packs prompts
-        # into unified steps of chunks; 0 is the monolithic wave. Only the
-        # default budget and 0 are ported, and only 16-row KV blocks
-        # (ROADMAP queue 1 ID 19)
+        # into unified steps of chunks no wider than prefill_chunk; 0 is
+        # the monolithic wave
         if step_token_budget is None:
             step_token_budget = int(os.environ.get("TPU_LLM_STEP_TOKEN_BUDGET", str(STEP_TOKEN_BUDGET)))
+        if prefill_chunk is None:
+            prefill_chunk = int(os.environ.get("TPU_LLM_PREFILL_CHUNK", str(PREFILL_CHUNK)))
+        self.prefill_chunk = max(1, int(prefill_chunk))
         step_token_budget = max(0, int(step_token_budget))
-        if step_token_budget not in (0, STEP_TOKEN_BUDGET):
-            raise NotImplementedError(
-                f"step_token_budget {step_token_budget} (TPU_LLM_STEP_TOKEN_BUDGET): only 0, the wave scheduler, "
-                f"and {STEP_TOKEN_BUDGET} are ported (ROADMAP queue 1 ID 19)"
-            )
-        kv_block = os.environ.get("TPU_LLM_KV_BLOCK", "")
-        if kv_block not in ("", str(KV_BLOCK)):
-            raise NotImplementedError(
-                f"TPU_LLM_KV_BLOCK={kv_block}: only {KV_BLOCK}-row KV blocks are ported (ROADMAP queue 1 ID 19)"
-            )
         self.step_token_budget = step_token_budget
         self.chunked = step_token_budget > 0
         self.params = _to_device(params, self.device)
@@ -832,16 +838,16 @@ class LLMEngine:
         self.slots = slots
         self.max_seq_len = max_seq_len
         self.prefill_buckets = tuple(sorted(b for b in prefill_buckets if b <= max_seq_len))
-        self.decode_chunk = DECODE_CHUNK
-        self._chunk_short = max(1, DECODE_CHUNK // 4)
+        self.decode_chunk = int(decode_chunk)
+        self._chunk_short = max(1, self.decode_chunk // 4)
         self.lookahead = max(1, int(lookahead))
         self.admit_cap = min(int(admit_cap), slots)
         self.admit_delay = admit_delay_ms / 1000.0
         # the prefill buckets survive as the chunk shapes, capped at the
         # widest chunk, so short prompts keep their tight shapes
-        shapes = {min(b, PREFILL_CHUNK) for b in self.prefill_buckets}
+        shapes = {min(b, self.prefill_chunk) for b in self.prefill_buckets}
         shapes.discard(0)
-        self.chunk_shapes = tuple(sorted(shapes)) or (min(PREFILL_CHUNK, max_seq_len),)
+        self.chunk_shapes = tuple(sorted(shapes)) or (min(self.prefill_chunk, max_seq_len),)
         # speculative decoding, off by default (JAX llm.py:763-790): the
         # verify writes spec_draft + 1 rows past a slot's length, which
         # submit()'s decode room keeps inside 2 * decode_chunk rows of slack
@@ -851,14 +857,14 @@ class LLMEngine:
         if spec_draft is None:
             spec_draft = int(os.environ.get("TPU_LLM_SPEC_DRAFT", "") or 0)
         self.spec_draft = (
-            max(1, min(int(spec_draft or SPEC_DRAFT_DEFAULT), 2 * DECODE_CHUNK)) if self.speculative else 0
+            max(1, min(int(spec_draft or SPEC_DRAFT_DEFAULT), 2 * self.decode_chunk)) if self.speculative else 0
         )
         # every width one program appends (JAX llm.py:1081-1085): the
         # wave appends decode chunks (and verifies) only
         widths = (self.chunk_shapes if self.chunked else ()) + ((self.spec_draft + 1,) if self.speculative else ())
         self.kv = CacheManager(
-            cfg, slots, max_seq_len, DECODE_CHUNK, window=kv_window, append_widths=widths,
-            paged=paged_default() if kv_paged is None else kv_paged, block=KV_BLOCK, pool_blocks=kv_pool_blocks,
+            cfg, slots, max_seq_len, self.decode_chunk, window=kv_window, append_widths=widths,
+            paged=paged_default() if kv_paged is None else kv_paged, block=kv_block, pool_blocks=kv_pool_blocks,
             kv_int8=kv_int8, prefix_cache_mb=prefix_cache_mb, session_mb=session_mb,
             host_cache_mb=host_cache_mb,
         )
@@ -1169,6 +1175,8 @@ class LLMEngine:
             return {
                 "scheduler": "chunked" if self.chunked else "wave",
                 "step_token_budget": self.step_token_budget,
+                "decode_chunk": self.decode_chunk,
+                "prefill_chunk": self.prefill_chunk,
                 "prefill_waves": dict(sorted(self.waves.items())),
                 "wave_reqs": self.wave_reqs,
                 "slots": self.slots,

@@ -1,7 +1,9 @@
 """gofr_tpu_torch.models — counterpart of gofr_tpu.models (transformer, the
-mixture-of-experts FFN in ``moe``, int8 weight quantization;
+MNIST-class MLP in ``mlp``, the mixture-of-experts FFN in ``moe``, int8
+weight quantization;
 ``checkpoint`` and ``tokenizer`` load from disk)."""
 
+from .mlp import MLPConfig, mlp_forward, mlp_init, mlp_params_from_jax
 from .quant import QTensor, init_params_quantized, is_quantized, qmm, qmm_a8, quantize, quantize_params
 from .transformer import (
     KVCache,
@@ -19,6 +21,7 @@ from .transformer import (
 
 __all__ = [
     "KVCache",
+    "MLPConfig",
     "QTensor",
     "TransformerConfig",
     "decode_chunk",
@@ -26,6 +29,9 @@ __all__ = [
     "init_params",
     "init_params_quantized",
     "is_quantized",
+    "mlp_forward",
+    "mlp_init",
+    "mlp_params_from_jax",
     "param_specs",
     "params_from_jax",
     "prefill",

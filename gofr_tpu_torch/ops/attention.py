@@ -41,6 +41,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import math
 import threading
 
@@ -598,7 +599,10 @@ def paged_decode_partials(
 
     CPU tensors run ``paged_decode_partials_plain``; CUDA tensors launch
     csrc/paged_decode.cu (``gofr_paged_decode_partials``, or
-    ``gofr_paged_decode_partials_int8`` with scales) or raise."""
+    ``gofr_paged_decode_partials_int8`` with scales) or raise: any block
+    size B launches whose ring of table slots fits the card's shared
+    memory per CTA (8, 16 and 32 rows at every head dim and pool type of
+    the presets); a larger one raises ValueError naming the limit."""
     b, hq, d = q.shape
     NB, B, hkv, _ = k_pool.shape
     MB = tables.shape[1]
@@ -619,6 +623,7 @@ def paged_decode_partials(
     if hq // hkv > 16:
         raise ValueError(f"paged_decode_partials: GQA group {hq // hkv} > 16")
     pool_dtype = torch.int8 if quantized else q.dtype
+    _paged_fits(pool_dtype, b, hq, hkv, d, B, MB, q.device.index)
     _check(q, "q", (b, hq, d), q.dtype, q.device)
     _check(k_pool, "k_pool", (NB, B, hkv, d), pool_dtype, q.device)
     _check(v_pool, "v_pool", (NB, B, hkv, d), pool_dtype, q.device)
@@ -656,6 +661,21 @@ def paged_decode_partials(
 
 paged_decode_partials.launches = 0  # bf16/f32 pool kernel
 paged_decode_partials.launches_int8 = 0  # int8 pool kernel
+
+
+@functools.lru_cache(maxsize=256)
+def _paged_fits(pool_dtype, b, hq, hkv, d, block, table_width, device_index) -> None:
+    """Raise, naming the limit, when the paged-decode launch at these shapes
+    needs more dynamic shared memory per CTA than the card grants one
+    block (its ring of table slots grows with the KV block's rows and the
+    head dim; the scores and probabilities with the rows and the group)."""
+    _splits, smem = paged_decode_plan(pool_dtype, b, hq, hkv, d, block, table_width)
+    limit = torch.cuda.get_device_properties(device_index or 0).shared_memory_per_block_optin
+    if smem > limit:
+        raise ValueError(
+            f"paged_decode_partials: {block}-row KV blocks of {str(pool_dtype)[6:]} at head_dim {d} and GQA group "
+            f"{hq // hkv} need {smem} bytes of shared memory per CTA, over this card's limit of {limit}"
+        )
 
 
 def paged_decode_plan(pool_dtype, b, hq, hkv, d, block, table_width) -> tuple[int, int]:

@@ -36,6 +36,8 @@ directory (a missing file logs a warning and keeps the id-only API);
 ``GEMMA_INT8=1`` serves int8 weights; ``LLM_SLOTS`` (4), ``LLM_MAX_SEQ``
 (256); ``TORCH_DEVICE=cpu`` runs on the CPU (default: the GPU, raising
 without one); ``HTTP_PORT`` (8000), ``REQUEST_TIMEOUT`` (5 s);
+``TPU_LLM_STEP_TOKEN_BUDGET`` (0: the wave scheduler), ``TPU_LLM_PREFILL_CHUNK``
+and ``TPU_LLM_KV_BLOCK`` set the engine's shape knobs;
 ``TPU_LLM_PREFIX_CACHE_MB``, ``TPU_LLM_SESSION_MB`` and ``TPU_LLM_HOST_CACHE_MB``
 turn on the prefix cache and the ``X-GoFr-Session`` tier, ``TPU_LLM_SPEC=1``
 (with ``TPU_LLM_SPEC_DRAFT``) speculative decoding, and ``TPU_LLM_FAIR``,

@@ -870,3 +870,123 @@ class TestWaveOnCard:
         finally:
             wave.close()
             chunked.close()
+
+
+# The shape knobs' KV blocks and chunk widths (chip_smoke.py's kernels and
+# knobs phases run them at full size): Gemma-2B's heads (8 on 1 at 256)
+# and Llama-3-8B's (32 on 8 at 128)
+KNOB_HEADS = [(8, 1, 256), (32, 8, 128)]
+
+
+def _knob_pools(g, cuda, pool, nb, B, hkv, d):
+    """`pool` kind pools [nb, B, hkv, d] (as _split_pools, any block)."""
+    shape = (nb, B, hkv, d)
+    if pool == "int8":
+        kq, ks = quantize_rows(torch.randn(shape, generator=g, device=cuda))
+        vq, vs = quantize_rows(torch.randn(shape, generator=g, device=cuda))
+        return kq, vq, dict(k_scales=ks, v_scales=vs)
+    dtype = torch.float32 if pool == "f32" else torch.bfloat16
+    return (torch.randn(shape, generator=g, device=cuda).to(dtype),
+            torch.randn(shape, generator=g, device=cuda).to(dtype), {})
+
+
+@pytest.mark.cuda
+class TestKnobsOnCard:
+    """Kernel rows 3-4 at 8- and 32-row KV blocks and row 1 at the prefill
+    chunk widths 32, 128 and 256 and the verify width 33, against their
+    plain versions (paged o to atol 1e-4, m and l to rtol 1e-4 with atol
+    1e-5 near 0; flash f32 1e-4, bf16 2e-2); a block past the card's
+    shared memory raises naming the limit; engines at other knobs replay
+    every family bitwise and serve the default engine's greedy tokens."""
+
+    @pytest.mark.parametrize("pool", ["f32", "bf16", "int8"])
+    @pytest.mark.parametrize("heads", KNOB_HEADS)
+    @pytest.mark.parametrize("B", [8, 32])
+    def test_paged_decode_blocks(self, cuda, pool, heads, B):
+        hq, hkv, d = heads
+        g = torch.Generator(device=cuda).manual_seed(B * 1000 + hq)
+        b, MB = 32, 512 // B
+        pool_dtype = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}[pool]
+        splits, smem = TA.paged_decode_plan(pool_dtype, b, hq, hkv, d, B, MB)
+        assert 1 <= splits <= min(8, MB)
+        assert smem <= torch.cuda.get_device_properties(cuda).shared_memory_per_block_optin
+        kp, vp, sc = _knob_pools(g, cuda, pool, b * MB, B, hkv, d)
+        q = torch.randn((b, hq, d), generator=g, device=cuda).to(torch.float32 if pool == "f32" else torch.bfloat16)
+        tables = torch.randperm(b * MB, generator=g, device=cuda).reshape(b, MB).to(torch.int32)
+        hi = torch.tensor([0, 1, B - 1, B, B + 1, 511, 512] + [(37 * i) % 513 for i in range(b - 7)],
+                          dtype=torch.int32, device=cuda)
+        counter = "launches_int8" if pool == "int8" else "launches"
+        for lo, cap in ((torch.zeros_like(hi), 0.0), (torch.clamp(hi - 40, min=0).to(torch.int32), 30.0)):
+            before = getattr(TA.paged_decode_partials, counter)
+            o1, m1, l1 = TA.paged_decode_partials(q, kp, vp, tables, lo, hi, scale=d ** -0.5, logit_cap=cap, **sc)
+            o2, m2, l2 = TA.paged_decode_partials_plain(q, kp, vp, tables, lo, hi, scale=d ** -0.5, logit_cap=cap,
+                                                        **sc)
+            assert getattr(TA.paged_decode_partials, counter) == before + 1
+            torch.testing.assert_close(o1, o2, atol=1e-4, rtol=0)
+            torch.testing.assert_close(m1, m2, atol=1e-5, rtol=1e-4)
+            torch.testing.assert_close(l1, l2, atol=1e-5, rtol=1e-4)
+
+    def test_block_past_the_shared_memory_limit_raises(self, cuda):
+        """f32 pools at head_dim 256 in 64-row blocks need ~400 KB of ring
+        a CTA: the wrapper refuses, naming the bytes and the limit."""
+        q = torch.zeros((2, 8, 256), device=cuda)
+        pool = torch.zeros((4, 64, 1, 256), device=cuda)
+        idx = torch.zeros((2,), dtype=torch.int32, device=cuda)
+        tables = torch.zeros((2, 2), dtype=torch.int32, device=cuda)
+        limit = torch.cuda.get_device_properties(cuda).shared_memory_per_block_optin
+        with pytest.raises(ValueError, match=f"64-row KV blocks.*over this card's limit of {limit}"):
+            TA.paged_decode_partials(q, pool, pool, tables, idx, idx, scale=0.1)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("c", [32, 128, 256, 33])
+    def test_flash_knob_widths(self, cuda, dtype, c):
+        """q [b, c, 8, 256] against 512 cached rows at offsets reaching the
+        cache's end (c = 33: 32 decode-time cursors of the verify)."""
+        g = torch.Generator(device=cuda).manual_seed(c)
+        b = 32 if c == 33 else 4
+        q = torch.randn((b, c, 8, 256), generator=g, device=cuda).to(dtype)
+        k = torch.randn((b, 512, 1, 256), generator=g, device=cuda).to(dtype)
+        v = torch.randn((b, 512, 1, 256), generator=g, device=cuda).to(dtype)
+        offs = [(37 * i) % (512 - c) for i in range(b - 1)] + [512 - c]
+        off = torch.tensor(offs, dtype=torch.int32, device=cuda)
+        before = TA.flash_attention.launches
+        got = TA.flash_attention(q, k, v, q_offsets=off)
+        want = TA.flash_attention_plain(q, k, v, q_offsets=off)
+        assert TA.flash_attention.launches == before + 1
+        tol = 1e-4 if dtype == torch.float32 else 2e-2
+        torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+    @pytest.mark.parametrize("mode", ["f32", "bf16", "int8"])
+    @pytest.mark.parametrize("knobs", [(16, 32, 64, 32), (4, 8, 24, 8), (8, 16, 0, 32)],
+                             ids=["K16-P32-S64-B32", "K4-P8-S24-B8", "wave-K8-B32"])
+    def test_knob_engine_families_replay_equal_eager(self, cuda, mode, knobs):
+        from chip_smoke import check_family
+
+        K, P, S, B = knobs
+        eng = _tiny_engine(cuda, mode, decode_chunk=K, prefill_chunk=P, step_token_budget=S, kv_block=B)
+        try:
+            assert eng.kv.block == B and eng.decode_chunk == K and eng.kv.table_width == -(-64 // B)
+            assert f"llm.decode_chunk{K}" in eng.families and f"llm.decode_chunk{max(1, K // 4)}" in eng.families
+            for i, name in enumerate(sorted(eng._programs)):
+                r = check_family(eng, name, seed=i, replays=2)
+                assert r["eager_equal"], (name, r["state_equal"])
+                assert r["launches"] == {k: 2 * n for k, n in r["captured"].items()}, name
+        finally:
+            eng.close()
+
+    @pytest.mark.parametrize("knobs", [(16, 32, 64, 32), (4, 8, 24, 8), (2, 4, 4, 8)])
+    def test_knob_engine_serves_the_default_tokens(self, cuda, knobs):
+        """f32 greedy streams at other knobs equal the default engine's on
+        the same weights (the chunkings and blocks move rounding only)."""
+        K, P, S, B = knobs
+        base = _tiny_engine(cuda, "f32")
+        eng = LLMEngine(base.cfg, base.params, device=cuda, slots=4, max_seq_len=64, prefill_buckets=(8, 16),
+                        decode_chunk=K, prefill_chunk=P, step_token_budget=S, kv_block=B)
+        try:
+            prompts = [list(range(5, 25)), [3, 1, 4, 1, 5, 9, 2, 6], [7, 7, 8]]
+            want = [base.generate(p, max_new_tokens=12) for p in prompts]
+            reqs = [eng.submit(GenRequest(p, max_new_tokens=12)) for p in prompts]
+            assert [r.tokens(timeout=300) for r in reqs] == want
+        finally:
+            base.close()
+            eng.close()

@@ -242,7 +242,25 @@ def test_sse_disconnect_frees_blocks(apps):
     assert _wait(lambda: eng.stats()["kvcache"]["blocks_in_use"] == 0, 3.0)
 
 
-def test_handler_timeout_408_frees_the_slot(weights):
+@pytest.fixture
+def one_torch_thread():
+    """torch's CPU ops on one intra-op thread for one test. Under a loaded
+    CPU (the suite's pytest-xdist workers), an 8-thread pool spends most of
+    its time in its barriers: a 4-token generate of the tiny model took
+    ~6 s with 10 busy processes on 8 cores, against 0.03-0.07 s on one
+    thread, which a 0.3 s handler timeout cannot absorb."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_handler_timeout_408_frees_the_slot(weights, one_torch_thread):
+    """A 400-token request past the 0.3 s handler timeout answers 408; the
+    engine retires it by its deadline and frees its blocks; the one slot
+    then serves the next request within that timeout. The waits are for
+    the events asserted, bounded generously: a loaded CPU delays the
+    scheduler pass that retires the request, not its outcome."""
     _jcfg, _jp, tp = weights
     app = serve.build_app(new_mock_config({**PORT_CONFIG, "REQUEST_TIMEOUT": "0.3", "LLM_SLOTS": "1",
                                            "LLM_MAX_SEQ": "512"}), params=tp)
@@ -251,8 +269,8 @@ def test_handler_timeout_408_frees_the_slot(weights):
         eng = _engine(app)
         status, body = _call(app, "POST", "/generate", {"tokens": [5, 9, 2], "max_new_tokens": 400})
         assert status == 408 and json.loads(body) == {"error": {"message": "request timed out"}}
-        assert _wait(lambda: eng.stats()["deadline_cancels"] == 1, 3.0)
-        assert _wait(lambda: eng.stats()["kvcache"]["blocks_in_use"] == 0, 3.0)
+        assert _wait(lambda: eng.stats()["deadline_cancels"] == 1, 60.0)
+        assert _wait(lambda: eng.stats()["kvcache"]["blocks_in_use"] == 0, 60.0)
         # the one slot serves the next request
         status, body = _call(app, "POST", "/generate", {"tokens": [1, 2], "max_new_tokens": 4})
         assert status == 201 and len(json.loads(body)["data"]["tokens"]) == 4
@@ -279,16 +297,34 @@ def test_register_llm_refuses_unported(weights):
     finally:
         eng.close()
     # the wave scheduler is ported: TPU_LLM_STEP_TOKEN_BUDGET=0 builds it;
-    # other budgets and KV blocks but 16 stay refused (ROADMAP ID 19)
+    # since ROADMAP ID 19 the other budgets, TPU_LLM_PREFILL_CHUNK and
+    # TPU_LLM_KV_BLOCK (refused before) build what the JAX runtime builds,
+    # and a kwarg wins over its knob (setdefault)
     eng = GPURuntime(new_mock_config({"TORCH_DEVICE": "cpu", "TPU_LLM_STEP_TOKEN_BUDGET": "0"})).register_llm(
         "m", cfg, tp, slots=2, max_seq_len=64)
     try:
         assert eng.stats()["scheduler"] == "wave" and not eng.chunked and not eng.constrained
     finally:
         eng.close()
-    for knob, value in (("TPU_LLM_STEP_TOKEN_BUDGET", "128"), ("TPU_LLM_KV_BLOCK", "8")):
-        with pytest.raises(NotImplementedError, match=f"{knob}.*ID 19"):
-            GPURuntime(new_mock_config({"TORCH_DEVICE": "cpu", knob: value})).register_llm("m", cfg, tp)
+    from gofr_tpu.datasource.tpu import TPURuntime
+
+    jcfg = weights[0]
+    knobs = {"TPU_LLM_STEP_TOKEN_BUDGET": "128", "TPU_LLM_KV_BLOCK": "8", "TPU_LLM_PREFILL_CHUNK": "8"}
+    for kw in ({}, {"kv_block": 32, "prefill_chunk": 16}):
+        jrt = TPURuntime(jax_mock_config(knobs))
+        try:
+            ref = jrt.register_llm("m", jcfg, weights[1], warmup=False, slots=2, max_seq_len=64, **kw).engine
+            eng = GPURuntime(new_mock_config({"TORCH_DEVICE": "cpu", **knobs})).register_llm(
+                "m", cfg, tp, slots=2, max_seq_len=64, **kw)
+            try:
+                got = (eng.step_token_budget, eng.prefill_chunk, eng.chunk_shapes, eng.kv.block, eng.kv.table_width)
+                assert got == (ref.step_token_budget, ref.prefill_chunk, ref.chunk_shapes, ref.kv.block,
+                               ref.kv.table_width)
+                assert got[:2] == (128, kw.get("prefill_chunk", 8)) and got[3] == kw.get("kv_block", 8)
+            finally:
+                eng.close()
+        finally:
+            jrt.close()
     # grammar-constrained decoding is ported: its knobs build an engine
     # that admits grammars (or refuses them with "0"); knobs of features
     # still unported keep refusing

@@ -259,21 +259,20 @@ class TestEnvFallbacks:
             port.close()
 
     def test_kv_block_other_than_16_is_refused(self, engine_weights, monkeypatch):
-        """JAX builds 32 blocks of 8; the port refuses until ID 19."""
-        from gofr_tpu.llm import LLMEngine as JEngine
-        from gofr_tpu_torch.llm import LLMEngine
-
-        monkeypatch.setenv("TPU_LLM_KV_BLOCK", "8")
-        jcfg, jp, tcfg, tp = engine_weights
-        ref = JEngine(jcfg, jp, warmup=False, **_TINY_KW)
-        try:
-            assert (ref.kv.block, ref.kv.pool.n_blocks) == (8, 32)
-        finally:
-            ref.close()
-        with pytest.raises(NotImplementedError, match="TPU_LLM_KV_BLOCK=8.*ID 19"):
-            LLMEngine(tcfg, tp, device="cpu", **_TINY_KW)
-        monkeypatch.setenv("TPU_LLM_KV_BLOCK", "16")
-        LLMEngine(tcfg, tp, device="cpu", **_TINY_KW).close()
+        """Refused until ROADMAP ID 19; now the opposite: JAX builds 32
+        blocks of 8 and so does the port (table width, capacity, block
+        bytes and pool blocks equal), and 16 builds its 16 blocks."""
+        for block, n_blocks in (("8", 32), ("16", 16)):
+            ref, port = _env_engines(engine_weights, monkeypatch, {"TPU_LLM_KV_BLOCK": block})
+            try:
+                assert (ref.kv.block, ref.kv.pool.n_blocks) == (int(block), n_blocks)
+                assert _kv_view(port.kv) == _kv_view(ref.kv)
+                for attr in ("table_width", "capacity", "block_bytes", "append_slack"):
+                    assert getattr(port.kv, attr) == getattr(ref.kv, attr), attr
+                assert tuple(port.pool.k.shape[1:3]) == (n_blocks, int(block))
+            finally:
+                ref.close()
+                port.close()
 
     def test_kwargs_win_over_the_env(self, engine_weights, monkeypatch):
         ref, port = _env_engines(engine_weights, monkeypatch, {"TPU_LLM_KV_POOL_BLOCKS": "8", "TPU_LLM_KV_INT8": "1"},

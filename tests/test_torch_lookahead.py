@@ -4,6 +4,7 @@ untied-head weights (CPU): greedy token identity at lookahead 1 and 3,
 eos, cancel and deadline retirement with programs in flight, admission
 into a virtually free slot, and the capture-safe slot writes."""
 
+import threading
 import time
 
 import jax
@@ -397,10 +398,23 @@ def test_cancelled_occupant_displaced_with_nothing_in_flight_ends(weights, ref):
                 ra.cancel()
 
         port._expire_deadlines = sweep_then_cancel
+        # once ra has 9 tokens out, its next entry waits for b's submit: a
+        # test thread descheduled on a loaded CPU must not let ra finish
+        # by length before b arrives
+        b_submitted = threading.Event()
+        process = port._process_entry
+
+        def held(entry):
+            if ra.emitted >= 9:
+                b_submitted.wait(10)
+            return process(entry)
+
+        port._process_entry = held
         port.submit(ra)
         while ra.emitted < 9:
             time.sleep(0.001)
         rb = port.submit(GenRequest(b, max_new_tokens=5))
+        b_submitted.set()
         out = ra.tokens(timeout=10)
         assert ra.finish_reason == "cancelled" and 9 <= len(out) < 40
         _ended_once(ra)

@@ -206,18 +206,21 @@ def test_wave_refuses_grammars_and_adapters(models):
 @pytest.mark.parametrize("value,ok", [("0", True), ("256", True), ("128", False), ("1", False)])
 def test_step_token_budget_knob(models, monkeypatch, value, ok):
     """TPU_LLM_STEP_TOKEN_BUDGET when the kwarg is None: 0 builds the
-    wave, 256 the chunked scheduler, other budgets raise (ID 19)."""
-    _jcfg, _jp, tcfg, tp = models["tiny"]
+    wave, any other budget the chunked scheduler under it, as JAX does
+    (``ok`` marked the budgets accepted before ROADMAP ID 19; 128 and 1
+    raised then and build JAX's engine now)."""
+    jcfg, jp, tcfg, tp = models["tiny"]
     monkeypatch.setenv("TPU_LLM_STEP_TOKEN_BUDGET", value)
-    if not ok:
-        with pytest.raises(NotImplementedError, match="ID 19"):
-            LLMEngine(tcfg, tp, device="cpu", **ENGINE_KW)
-        return
+    ref = JEngine(jcfg, jp, warmup=False, **ENGINE_KW)
     eng = LLMEngine(tcfg, tp, device="cpu", **ENGINE_KW)
     try:
-        assert eng.step_token_budget == int(value) and eng.chunked == (value != "0")
-        assert eng.stats()["scheduler"] == ("chunked" if eng.chunked else "wave")
+        assert eng.step_token_budget == ref.step_token_budget == int(value) and eng.chunked == (value != "0")
+        assert eng.stats()["scheduler"] == ref.stats()["scheduler"] == ("chunked" if eng.chunked else "wave")
+        assert eng.chunk_shapes == ref.chunk_shapes
+        if not ok:  # a budget under one chunk still makes progress (floored at one chunk)
+            _same_streams(ref, eng, _prompts(4, (3, 20, 11)), [6, 5, 7])
     finally:
+        ref.close()
         eng.close()
 
 
