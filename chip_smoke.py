@@ -1,6 +1,6 @@
 """GPU smoke run of the PyTorch/CUDA port (gofr_tpu_torch) on one card.
 
-    python3 chip_smoke.py [--parent TREE] [--only families|moe|contiguous|wave|knobs|mnist]
+    python3 chip_smoke.py [--parent TREE] [--only families|moe|contiguous|wave|knobs|mnist|fleet]
 
 Phases, each raising on failure:
 
@@ -146,8 +146,9 @@ Phases, each raising on failure:
    spec-off tokens, near-ties exempt; constrained and unconstrained
    acceptance) and an int8 KV engine with 2 constrained requests;
 13. families — the JAX package's other dense presets at their published
-   widths and a quarter of their published depths (8 of 32 layers, 7 of
-   28; half until the knobs and mnist phases needed the time),
+   widths and 4 of their published layers (of 32 or 28; half their
+   depths until the knobs and mnist phases needed the time, a quarter
+   until the fleet phase did),
    random weights from the seed (untied heads where
    the family publishes one), one model at a time, each freed before the
    next: Llama-3-8B, Mistral-7B, Qwen2-7B (q/k/v bias, a GQA group of 7)
@@ -167,8 +168,9 @@ Phases, each raising on failure:
 14. moe — mixture-of-experts serving at Mixtral-8x7B's widths
    (mistralai/Mixtral-8x7B-v0.1: d 4096, 32/8 heads at head_dim 128,
    8 experts of d_ff 14,336, top 2, vocab 32,000, rope theta 1e6, no
-   window) at 8 of its 32 layers (the bf16 weights of all 32 do not fit
-   the card; 16 until the knobs and mnist phases needed the time), under the JAX package's routing (top-2 of a full softmax
+   window) at 4 of its 32 layers (the bf16 weights of all 32 do not fit
+   the card; 16 until the knobs and mnist phases needed the time, 8
+   until the fleet phase did), under the JAX package's routing (top-2 of a full softmax
    not renormalised, capacity factor 1.25), random bf16 weights from the
    seed, untied head; the config's fields checked against constants
    here. An engine at the defaults: its families held bitwise against
@@ -194,8 +196,9 @@ Phases, each raising on failure:
    lookahead 3 and once at 1 (busy and idle share from CUDA events around
    every replay), every token through the replay gate; flash must launch
    and no paged kernel.
-   The rolling ring: Mistral-7B at full width and 8 of its 32 layers
-   (16 until the knobs and mnist phases needed the time; bf16, seeded
+   The rolling ring: Mistral-7B at full width and 4 of its 32 layers
+   (16 until the knobs and mnist phases needed the time, 8 until the
+   fleet phase did; bf16, seeded
    random weights, untied head), kv_paged left at its
    default, 8 slots at max_seq_len 32,768, speculative=True: the ring of
    4,160 rows a slot (the 32-layer deployment's bytes beside what the
@@ -230,8 +233,9 @@ Phases, each raising on failure:
    tokens in a wave at the 8,192 bucket (flash over the 4096 band, then
    ring_pack; lengths past the ring's 4,104 rows), every token through
    the replay gate with the window mask ("wave_launches");
-17. knobs — the engine's shape knobs on Gemma-2B at full width and
-   depth (bf16, the same weights): a wide deployment (decode_chunk=16,
+17. knobs — the engine's shape knobs on Gemma-2B at full width and 9
+   of its 18 layers (bf16, the same weights' first 9; all 18 until the
+   fleet phase needed the time): a wide deployment (decode_chunk=16,
    prefill_chunk=128, step_token_budget=512, kv_block=32) and a narrow
    one (decode_chunk=4, prefill_chunk=32, step_token_budget=128,
    kv_block=8, kv_int8=True: the int8 paged kernel at 8-row blocks), then
@@ -247,7 +251,28 @@ Phases, each raising on failure:
    The kernels phase holds and times rows 3-4 at 8- and 32-row blocks
    (Gemma-2B's and Llama-3-8B's heads) and row 1 at chunk widths 32, 128
    and 256 and the verify width 33;
-18. mnist — the plain-model path: gofr_tpu_torch.serve_mnist's app over
+18. fleet — the replica fleet and its recovery, after the knobs phase:
+   gofr_tpu_torch.serve's app with LLM_REPLICAS=2 (GPURuntime.register_llm
+   builds a ReplicatedLLMEngine: two Gemma-2B replicas at the engine
+   defaults, each with its own weight copy and graphs, on the one card)
+   and TPU_LLM_STEP_WATCHDOG_S=3; each replica's warmup and the memory
+   after the build. The burst through the fleet (tok/s beside the engine
+   phase's, every token through the replay gate; "fleet_launches"). Then
+   4 streams of 96 tokens pinned to r0 (their unfaulted streams served
+   first), replica_kill once each has a token: every
+   stream fails over to r1 and must equal the unfaulted burst's or leave
+   it only at a near-tie, and pass the gate; the supervisor rebuilds r0
+   behind the canary while r1 serves up to 3 bursts (each gated), and r0 then
+   takes traffic again. Then a hung fetch on r1 (step_latency past the
+   watchdog) and non-finite logits on r0 (nan_logits): the same failover
+   and rebuild, each death's reason checked; memory_reserved after each
+   death and rebuild within one replica's footprint of the first build.
+   Over HTTP: a 96-token /generate whose replica is killed mid-stream
+   answers 201 with the unfaulted tokens (or a near-tie divergence), the
+   card then refuses the rebuild (device_sick) until the slot parks and
+   health reads "degraded"; POST /.well-known/debug/drain turns health to
+   503, liveness stays 200, and the server closes;
+19. mnist — the plain-model path: gofr_tpu_torch.serve_mnist's app over
    the MLP at its published widths (784 -> (512, 256) -> 10, bf16, random
    weights from the seed), registered through GPURuntime.register_model
    (warmed at every power-of-two bucket to 64); 2,000 single-example
@@ -257,7 +282,7 @@ Phases, each raising on failure:
    its image (MNIST_ATOL), GET /model listing the model. No kernel of the
    port runs here: the MLP's products are cuBLAS calls, as JAX's are XLA
    dots outside any Pallas kernel;
-19. report — a "kernels" JSON line (launches on the engine phase's main
+20. report — a "kernels" JSON line (launches on the engine phase's main
    path, in the prefix phases as "prefix_launches", in the spec phases as
    "spec_launches", in the structured phase as "structured_launches", in
    the overload phase as "overload_launches", in the lora phase as
@@ -265,7 +290,8 @@ Phases, each raising on failure:
    first burst of each engine as "families_launches", in the moe phase's
    first burst and its int8 run as "moe_launches", in the contiguous
    phase's bursts as "contiguous_launches", in the wave phase's as
-   "wave_launches", in the knobs phase's as "knobs_launches";
+   "wave_launches", in the knobs phase's as "knobs_launches", in the
+   fleet phase's unfaulted burst as "fleet_launches";
    flash_attention_prompt is the flash kernel's
    full-prompt mode, row 2, whose main path is the wave's burst), then
    the last line {"ok": true, "device": {...}}.
@@ -3123,13 +3149,13 @@ def phase_edge(dev: dict, seed: int, cfg: TransformerConfig, params: dict, engin
 
 
 # The families phase: the JAX package's other dense presets at their
-# published widths and a quarter of their published depths (half until
-# the knobs and mnist phases took their time; the moe phase's came out of
-# this phase's before), random weights from the seed (the untied
+# published widths and 4 of their published layers (half their depths
+# until the knobs and mnist phases took their time, a quarter until the
+# fleet phase took its; the moe phase's came out of this phase's before), random weights from the seed (the untied
 # families with a random lm_head, as they are published), one model at a
 # time on the card.
 FAMILY_MODELS = ("llama3_8b", "mistral_7b", "qwen2_7b", "gemma_7b")
-FAMILY_LAYERS = {"llama3_8b": 8, "mistral_7b": 8, "qwen2_7b": 7, "gemma_7b": 7}
+FAMILY_LAYERS = {"llama3_8b": 4, "mistral_7b": 4, "qwen2_7b": 4, "gemma_7b": 4}
 FAMILY_UNTIED = ("llama3_8b", "mistral_7b", "qwen2_7b")
 WINDOW_SLOTS, WINDOW_SEQ, WINDOW_NEW = 4, 4608, 64  # Mistral's windowed engine
 WINDOW_PROMPTS = (4160, 4240, 4320, 4400)  # every decode band starts above 0
@@ -3490,12 +3516,12 @@ def phase_families(dev: dict, seed: int) -> dict:
 
 # The moe phase: Mixtral-8x7B's widths (mistralai/Mixtral-8x7B-v0.1's
 # config.json: 8 local experts, 2 per token, rope theta 1e6, no sliding
-# window; Mistral-7B's attention and a 14,336-wide expert MLP) at 8 of
+# window; Mistral-7B's attention and a 14,336-wide expert MLP) at 4 of
 # its 32 layers: the bf16 weights of all 32 (~93 GB) do not fit the
-# card's 80 GB, and 16 (~47 GB) ran until the knobs and mnist phases took
-# their time. The routing is the JAX package's (top-2 of a full softmax,
+# card's 80 GB, 16 (~47 GB) ran until the knobs and mnist phases took
+# their time, and 8 until the fleet phase took its. The routing is the JAX package's (top-2 of a full softmax,
 # not renormalised; capacity factor 1.25, drops past it), not Mixtral's.
-MOE_LAYERS = 8
+MOE_LAYERS = 4
 MOE_FIELDS = {
     "vocab_size": 32_000, "d_model": 4096, "n_layers": MOE_LAYERS, "n_heads": 32, "n_kv_heads": 8,
     "head_dim": 128, "d_ff": 14_336, "rope_theta": 1e6, "norm_eps": 1e-5, "act": "silu",
@@ -3756,12 +3782,13 @@ def phase_moe(dev: dict, seed: int) -> dict:
 # (mistralai/Mistral-7B-v0.1's config.json: max_position_embeddings
 # 32,768, sliding_window 4096) at full width, 8 slots at max_seq_len
 # 32,768, a ring of 4096 + 64 rows a slot. Prompts of 4,300-6,000 tokens
-# wrap every ring during prefill. The ring runs 16 of the 32 layers: its
-# plain decode attention upcasts every ring row to float32 in every step,
-# so on an H100 80GB HBM3 at 700 W a program took ~0.36 s at 32 layers and
-# one burst over half a minute (PERF.md, PR 15); the script's time limit
-# took the cut.
-RING_SLOTS, RING_SEQ, RING_NEW, RING_LAYERS = 8, 32768, 64, 8
+# wrap every ring during prefill. The ring runs 4 of the 32 layers (16
+# until the knobs phase, 8 until the fleet phase): its plain decode
+# attention upcasts every ring row to float32 in every step, so on an H100
+# 80GB HBM3 at 700 W a program took ~0.36 s at 32 layers and one burst
+# over half a minute (PERF.md, the contiguous layouts); the time limit
+# took the cuts.
+RING_SLOTS, RING_SEQ, RING_NEW, RING_LAYERS = 8, 32768, 64, 4
 RING_PROMPTS = (4300, 4900, 5500, 6000)
 
 
@@ -4444,12 +4471,18 @@ def _knob_engine(dev: dict, seed: int, cfg, params, label: str, kw: dict, prompt
     return out
 
 
+KNOB_LAYERS = 9  # of Gemma-2B's 18 (all 18 until the fleet phase took its time)
+
+
 def phase_knobs(dev: dict, seed: int, cfg=None, params=None) -> dict:
-    """The engine's shape knobs on Gemma-2B at full width and depth (see
-    the module docstring). Returns each engine's readings and its kernel
-    launches by label."""
+    """The engine's shape knobs on Gemma-2B at full width and half its
+    depth (see the module docstring): the first KNOB_LAYERS layers of the
+    same weights, views of them. Returns each engine's readings and its
+    kernel launches by label."""
     if params is None:
         cfg, params = gemma_weights(seed)
+    cfg = dataclasses.replace(cfg, n_layers=KNOB_LAYERS)
+    params = {**params, "layers": {k: v[:KNOB_LAYERS] for k, v in params["layers"].items()}}
     _plens, prompts = _burst_prompts(cfg, seed)
     out, clock = {}, {}
     for name, kw in KNOB_ENGINES + (("wave b32", KNOB_WAVE),):
@@ -4561,12 +4594,262 @@ def phase_mnist(dev: dict, seed: int) -> dict:
     return run
 
 
+FLEET_WATCHDOG_S = 3.0  # the fleet's step watchdog: far above a step's ~0.1 s, under the phase's budget
+FLEET_PINNED = 4  # requests pinned to the replica that is killed
+FLEET_PINNED_NEW = 96  # their new tokens: every stream is mid-decode at the fault
+FLEET_REBUILD_BURSTS = 3  # survivor bursts served while a replica is rebuilt
+
+
+def _fleet_memory(label: str) -> int:
+    """memory_reserved once collected (a dead replica's tensors go with its
+    engine object) and the allocator's cache emptied."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    m = torch.cuda.memory_reserved()
+    print(f"fleet memory {label}: torch.cuda.memory_reserved {m} bytes")
+    return m
+
+
+def _fleet_pinned(eng, prompts, new_tokens: int, arm, want: dict, params, cfg, label: str) -> dict:
+    """Submit ``prompts`` to replica ``eng`` directly, ``arm()`` once each
+    has its first token, and collect the streams, which fail over: each
+    must equal the unfaulted stream ``want[i]`` or leave it only at a near
+    tie, and pass the replay gate. Returns the readings."""
+    reqs = [eng.submit(GenRequest(p, max_new_tokens=new_tokens)) for p in prompts]
+    _wait_until(lambda: all(r.emitted > 0 for r in reqs), 120, f"{label}first tokens")
+    t0 = time.perf_counter()
+    arm()
+    _wait_until(lambda: not eng.alive(), 60, f"{label}the replica's death")
+    t_dead = time.perf_counter() - t0
+    got = {i: r.tokens(timeout=600) for i, r in enumerate(reqs)}
+    t_done = time.perf_counter() - t0
+    bad = [i for i, r in enumerate(reqs) if r.finish_reason != "length" or len(got[i]) != new_tokens]
+    if bad:
+        raise AssertionError(f"{label}streams {bad} did not finish: {[reqs[i].finish_reason for i in bad]}")
+    if not all(r.deaths == 1 and r.retries == 1 for r in reqs):
+        raise AssertionError(f"{label}deaths/retries {[(r.deaths, r.retries) for r in reqs]}")
+    equal = sum(got[i] == want[i] for i in got)
+    differ = _divergence_at_near_ties(params, cfg, prompts, got, want, TOKEN_GAP, label)
+    checked, exempt = _replay_gate(params, cfg, prompts, got, TOKEN_GAP, label=label, verbose=False)
+    print(f"{label}{eng.label} died ({eng.died_reason}) {t_dead:.3f}s after the arm; {len(reqs)} streams failed over "
+          f"and ended {t_done:.3f}s after it; {equal} of {len(reqs)} equal the unfaulted streams, {differ} leave "
+          f"them at a near-tie; replay gate {checked} matched, {exempt} exempt")
+    return {"died_reason": eng.died_reason, "death_s": t_dead, "done_s": t_done, "equal": equal, "differ": differ,
+            "matched": checked, "exempt": exempt}
+
+
+def _fleet_rebuilt(rep, i: int, corpse, label: str, busy=None) -> dict:
+    """Wait for the supervisor to route a rebuilt slot ``i`` and report it.
+    With ``busy``, the survivors serve (``busy()``) until then, at least
+    once, and on the card at least one such burst must end while the
+    rebuild (a capture beside the survivor's replays) is still under way."""
+    served = overlapped = 0
+    t0 = time.perf_counter()
+
+    def rebuilt() -> bool:
+        return rep.engines[i] is not corpse and rep.engines[i].alive()
+
+    while not rebuilt() or (busy is not None and not served):
+        if time.perf_counter() - t0 > 180:
+            raise TimeoutError(f"{label}no rebuild of replica {i} in 180 s")
+        if busy is None or served >= FLEET_REBUILD_BURSTS:
+            time.sleep(0.05)  # a capture beside live bursts takes ~2x longer (PERF.md)
+            continue
+        busy()
+        served += 1
+        overlapped += not rebuilt()
+    if busy is not None and not overlapped and rep.device.type == "cuda":
+        raise AssertionError(f"{label}no survivor burst ended while replica {i} was rebuilt")
+    sup = rep.supervisor
+    print(f"{label}replica {i} rebuilt and routed back by the supervisor in {sup.rebuild_s[-1]:.3f} s "
+          f"(build + warmup + canary; restarts {sup.restarts}, canary rejects {sup.canary_rejects}); "
+          f"its warmup_s {rep.engines[i].warmup_s}; {served} survivor burst(s), {overlapped} ended during the rebuild")
+    return {"rebuild_s": sup.rebuild_s[-1], "warmup_s": rep.engines[i].warmup_s, "bursts_during": overlapped}
+
+
+def phase_fleet(dev: dict, seed: int, cfg=None, params=None, main: dict | None = None) -> dict:
+    """The replica fleet and its recovery (see the module docstring).
+    Returns its readings and the launches of its unfaulted burst."""
+    if params is None:
+        cfg, params = gemma_weights(seed)
+    from gofr_tpu_torch.config import new_mock_config
+    from gofr_tpu_torch.resilience import default_injector, device_key
+    from gofr_tpu_torch.serve import build_app
+
+    inj = default_injector()
+    # a fast supervisor; the device ledger quarantines the card at the
+    # phase's fifth failure (four injected deaths, then a refused rebuild),
+    # not at its third death: one card hosts every replica here
+    knobs = {"TPU_LLM_SUPERVISOR_INTERVAL_S": "0.05", "TPU_LLM_RESTART_BACKOFF_S": "0.1",
+             "TPU_LLM_DEVICE_QUARANTINE_FAILURES": "5"}
+    env0 = {k: os.environ.get(k) for k in knobs}
+    os.environ.update(knobs)
+    out: dict = {}
+    mem0 = _fleet_memory("before the fleet")
+    app = build_app(new_mock_config({
+        "HTTP_PORT": "0", "GEMMA_PRESET": "2b", "LLM_SLOTS": "32", "LLM_MAX_SEQ": "512", "LLM_REPLICAS": "2",
+        "TPU_LLM_STEP_WATCHDOG_S": str(FLEET_WATCHDOG_S), "REQUEST_TIMEOUT": "600", "LOG_LEVEL": "WARN",
+    }), params=params)
+    thread = app.run_in_background()
+    port = app.http_server.port
+    try:
+        rep = app.container.tpu().llm("gemma")
+        if type(rep).__name__ != "ReplicatedLLMEngine" or len(rep.engines) != 2:
+            raise AssertionError(f"register_llm(replicas=2) built {type(rep).__name__}")
+        out["warmup"] = [_warm_report(f"fleet r{i} ", e) for i, e in enumerate(rep.engines)]
+        mem1 = _fleet_memory("after building 2 replicas")
+        lead = rep.engines[0]
+        graphs = lead.warmup_reserved[1] - lead.warmup_reserved[0]
+        footprint = _tensor_bytes(lead.params) + _pool_bytes(lead.kv) + graphs
+        print(f"fleet: one replica's footprint {footprint} bytes (weights copy {_tensor_bytes(lead.params)}, KV pool "
+              f"{_pool_bytes(lead.kv)}, graphs {graphs}); the build added {mem1 - mem0}")
+        del lead
+        rep.generate([1, 2, 3], max_new_tokens=4)  # warm-up request, outside the timed run
+        plens, prompts = _burst_prompts(cfg, seed)
+        new_tokens = 32
+
+        # 1. the main burst through the fleet, every token through the gate
+        _zero_launches(KERNEL_COUNTERS)
+        want, reqs, wall = _serve(rep, prompts, new_tokens)
+        out["launches"] = _launches(KERNEL_COUNTERS)
+        if any(out["launches"][k] <= 0 for k in ("flash_attention", "paged_decode_partials")):
+            raise AssertionError(f"fleet burst launches {out['launches']}")
+        total = sum(len(t) for t in want.values())
+        ttfts = sorted(r.first_token_at - r.submitted_at for r in reqs.values())
+        checked, exempt = _replay_gate(params, cfg, prompts, want, TOKEN_GAP, label="fleet ", verbose=False)
+        out["tok_s"] = total / wall
+        print(f"fleet burst on {dev['smi']}: 2 replicas, {total} tokens in {wall:.3f}s = {out['tok_s']:.1f} tok/s "
+              f"(one engine, engine phase: {main['tok_s'] if main else float('nan'):.1f}); ttft p50 {ttfts[len(ttfts) // 2]:.3f}s; "
+              f"requests per replica {[e.submitted for e in rep.engines]}; replay gate {checked} matched, "
+              f"{exempt} exempt; launches {out['launches']}")
+
+        # 2. replica_kill mid-decode on r0 under 4 pinned streams; the
+        # supervisor rebuilds r0 behind the canary while r1 serves bursts
+        sub = prompts[:FLEET_PINNED]
+        long_want, _r, _w = _serve(rep, sub, FLEET_PINNED_NEW)  # their unfaulted streams
+        corpse = rep.engines[0]
+        out["kill"] = _fleet_pinned(corpse, sub, FLEET_PINNED_NEW, lambda: inj.arm("replica_kill", label="/r0"),
+                                    long_want, params, cfg, "fleet kill ")
+        if rep.failovers < FLEET_PINNED:
+            raise AssertionError(f"fleet: {rep.failovers} failovers")
+
+        def busy():
+            res, _r, w = _serve(rep, prompts, new_tokens)
+            c, e = _replay_gate(params, cfg, prompts, res, TOKEN_GAP, label="fleet survivor ", verbose=False)
+            print(f"fleet survivor burst during the rebuild: {sum(map(len, res.values())) / w:.1f} tok/s, "
+                  f"gate {c} matched, {e} exempt")
+            return c
+
+        out["kill"].update(_fleet_rebuilt(rep, 0, corpse, "fleet kill ", busy=busy))
+        del corpse
+        out["mem_after"] = [_fleet_memory("after death 1 and its rebuild")]
+        before = rep.engines[0].submitted
+        res, _r, _w = _serve(rep, prompts[:4], new_tokens)
+        _replay_gate(params, cfg, prompts[:4], res, TOKEN_GAP, label="fleet back ", verbose=False)
+        if rep.engines[0].submitted <= before:
+            raise AssertionError("fleet: the rebuilt r0 took no traffic")
+        print(f"fleet: the rebuilt r0 took {rep.engines[0].submitted - before} of 4 requests")
+
+        # 3. a hung fetch on r1 past the step watchdog
+        corpse = rep.engines[1]
+        out["watchdog"] = _fleet_pinned(
+            corpse, sub[:2], FLEET_PINNED_NEW,
+            lambda: inj.arm("step_latency", label="/r1", delay=FLEET_WATCHDOG_S + 2.0),
+            long_want, params, cfg, "fleet watchdog ",
+        )
+        if not out["watchdog"]["died_reason"].startswith("step watchdog"):
+            raise AssertionError(f"fleet watchdog: {out['watchdog']['died_reason']}")
+        out["watchdog"].update(_fleet_rebuilt(rep, 1, corpse, "fleet watchdog "))
+        del corpse
+        out["mem_after"].append(_fleet_memory("after death 2 and its rebuild"))
+
+        # 4. non-finite logits on r0: the numerical watchdog
+        corpse = rep.engines[0]
+        out["numerical"] = _fleet_pinned(
+            corpse, sub[:2], FLEET_PINNED_NEW, lambda: inj.arm("nan_logits", label="/r0"),
+            long_want, params, cfg, "fleet numerical ",
+        )
+        if not out["numerical"]["died_reason"].startswith("numerical watchdog: non-finite logits"):
+            raise AssertionError(f"fleet numerical: {out['numerical']['died_reason']}")
+        out["numerical"].update(_fleet_rebuilt(rep, 0, corpse, "fleet numerical "))
+        del corpse
+        out["mem_after"].append(_fleet_memory("after death 3 and its rebuild"))
+        for m in out["mem_after"]:
+            if m - mem1 > footprint:
+                raise AssertionError(f"fleet: memory_reserved {m} grew past one replica ({footprint}) over {mem1}")
+
+        # 5. over HTTP: a long /generate whose replica is killed mid-stream;
+        # the card then refuses its rebuild (device_sick), so the slot parks
+        long_prompt, long_new = prompts[6], 96  # 200 + 96 tokens: inside max_seq_len 512 with the decode room
+        ref = rep.generate(long_prompt, max_new_tokens=long_new)
+        answer: dict = {}
+        th = threading.Thread(target=lambda: answer.update(
+            r=_http(port, "POST", "/generate", {"tokens": long_prompt, "max_new_tokens": long_new})))
+        th.start()
+
+        def serving():
+            for e in rep.engines:
+                if any(r is not None and r.emitted > 0 for r in list(e._slot_req)):
+                    return e
+            return None
+
+        _wait_until(lambda: serving() is not None, 120, "fleet http: the long request's first tokens")
+        victim = serving()
+        card = device_key(rep.device)
+        inj.arm("device_sick", label=card, count=-1)
+        inj.arm("replica_kill", label=victim.label[-3:])
+        th.join(timeout=600)
+        status, raw, _, _ = answer["r"]
+        toks = json.loads(raw)["data"]["tokens"] if status == 201 else None
+        if toks is None or len(toks) != long_new:
+            raise AssertionError(f"fleet http: {status} {raw[:200]!r}")
+        differ = _divergence_at_near_ties(params, cfg, [long_prompt], {0: toks}, {0: ref}, TOKEN_GAP, "fleet http ")
+        _replay_gate(params, cfg, [long_prompt], {0: toks}, TOKEN_GAP, label="fleet http ", verbose=False)
+        print(f"fleet http: {victim.label} died ({victim.died_reason}) under a {long_new}-token /generate: 201 with "
+              f"{long_new} tokens, {'equal to' if toks == ref else 'leaving at a near-tie'} the unfaulted stream "
+              f"({differ} differ)")
+        out["http_equal"] = toks == ref
+        del victim
+        _wait_until(lambda: rep.supervisor.parked_count() == 1, 120, "fleet http: the parked slot")
+        status, raw, _, _ = _http(port, "GET", "/.well-known/health")
+        health = json.loads(raw)["data"]["status"] if status == 200 else None
+        if health != "degraded":
+            raise AssertionError(f"fleet health with a parked slot: {status} {raw[:200]!r}")
+        print(f"fleet: device_sick refused {rep.supervisor.restart_failures} rebuild(s); {card} "
+              f"{rep.health.state(card)}; slot parked; health {health}")
+
+        # 6. the drain: health 503, liveness 200, the server closes
+        status, raw, _, _ = _http(port, "POST", "/.well-known/debug/drain", {})
+        if status != 201 or not json.loads(raw)["data"]["draining"]:
+            raise AssertionError(f"fleet drain: {status} {raw[:200]!r}")
+        t0 = time.perf_counter()
+        h503 = _http(port, "GET", "/.well-known/health")[0]
+        alive = _http(port, "GET", "/.well-known/alive")[0]
+        thread.join(timeout=120)
+        if h503 != 503 or alive != 200 or thread.is_alive():
+            raise AssertionError(f"fleet drain: health {h503}, alive {alive}, server running {thread.is_alive()}")
+        print(f"fleet drain: health 503, liveness 200, server closed {time.perf_counter() - t0:.3f}s after the drain; "
+              f"failovers {rep.failovers}, failover errors {rep.failover_errors}, restarts {rep.supervisor.restarts}")
+        out["failovers"] = rep.failovers
+    finally:
+        inj.disarm()
+        app.shutdown()
+        thread.join(timeout=120)
+        for k, v in env0.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    out["mem_closed"] = _fleet_memory("after the fleet closed")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="GPU smoke run of gofr_tpu_torch on one card")
     ap.add_argument("--parent", metavar="TREE",
                     help="also build another checkout's paged-decode kernels (e.g. the parent commit from "
                          "git archive) and time them beside this tree's on the same inputs")
-    ap.add_argument("--only", choices=("families", "moe", "contiguous", "wave", "knobs", "mnist"),
+    ap.add_argument("--only", choices=("families", "moe", "contiguous", "wave", "knobs", "mnist", "fleet"),
                     help="build the kernels and run this one phase, which makes its own weights (prints no "
                          "kernels line and no result)")
     args = ap.parse_args()
@@ -4584,7 +4867,8 @@ def main() -> int:
     timed("build", phase_build)
     if args.only:
         timed(args.only, {"families": phase_families, "moe": phase_moe, "contiguous": phase_contiguous,
-                          "wave": phase_wave, "knobs": phase_knobs, "mnist": phase_mnist}[args.only], dev, SEED)
+                          "wave": phase_wave, "knobs": phase_knobs, "mnist": phase_mnist,
+                          "fleet": phase_fleet}[args.only], dev, SEED)
         print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
         return 0
     kern = timed("kernels", phase_kernels, dev, SEED, build_parent(args.parent) if args.parent else None)
@@ -4608,6 +4892,7 @@ def main() -> int:
     structured = timed("structured", phase_structured, dev, SEED, cfg, params)
     wave = timed("wave", phase_wave, dev, SEED, cfg, params)
     knobs = timed("knobs", phase_knobs, dev, SEED, cfg, params)
+    fleet = timed("fleet", phase_fleet, dev, SEED, cfg, params, eng)
     del params  # Gemma-2B's weights; the families phase loads one model at a time
     families = timed("families", phase_families, dev, SEED)
     moe = timed("moe", phase_moe, dev, SEED)
@@ -4643,6 +4928,7 @@ def main() -> int:
             "contiguous_launches": {label: n[name] for label, n in contiguous["launches"].items()},
             "wave_launches": {label: n[name] for label, n in wave["launches"].items()},
             "knobs_launches": {label: n[name] for label, n in knobs["launches"].items()},
+            "fleet_launches": fleet["launches"][name],
             "max_abs_err": kern["errs"][name],
             "ms": t["ms"], "device_ms": t["device_ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],

@@ -17,11 +17,13 @@ mirror the JAX package so each counterpart is easy to find:
   decoding (``models.transformer.verify_chunk`` scores the drafts);
 - ``structured`` — the JSON-schema / regex -> token-DFA compiler of
   grammar-constrained decoding (host numpy; the engine masks on the card);
-- ``resilience`` — overload control's fair-queuing ledger and
-  brownout/shed controller;
+- ``resilience`` — overload control's fair-queuing ledger, brownout/shed
+  controller and retry budget, the fault injector, the step watchdog,
+  the device-health ledger and canary gate, and the replica supervisor;
 - ``lora`` — the multi-tenant LoRA adapter pool's host bookkeeping and
   adapter validation (the engine holds the tables on the card);
-- ``llm`` — ``GenRequest`` and ``LLMEngine``;
+- ``llm`` — ``GenRequest``, ``LLMEngine`` (with its recovery paths) and
+  ``ReplicatedLLMEngine`` (the replica fleet with failover);
 - the serving edge: ``serve`` (``python -m gofr_tpu_torch.serve``:
   ``/generate``, ``/stats`` and the OpenAI routes of ``openai_compat``),
   ``app``, ``handler``, ``context``, ``container``, ``config``,

@@ -6,9 +6,18 @@ the request-log and CORS middleware, and the asyncio HTTP server on
 ``HTTP_PORT`` (default 8000; 0 binds an ephemeral port, read back from
 ``app.http_server.port``). Handlers registered with ``get`` / ``post`` run
 under ``REQUEST_TIMEOUT`` seconds (default 5; 408 past it). ``run()``
-serves until SIGINT or SIGTERM; ``run_in_background()`` serves from a
-daemon thread and returns once the socket listens; ``shutdown()`` stops
-the server and closes the registered engines.
+serves until SIGINT (at once) or SIGTERM (the graceful drain);
+``run_in_background()`` serves from a daemon thread and returns once the
+socket listens; ``shutdown()`` stops the server and closes the registered
+engines.
+
+The graceful drain (``begin_drain``, ``POST /.well-known/debug/drain``,
+SIGTERM; JAX app.py:427-470): health answers 503 with a Retry-After at
+once (liveness stays 200), the engines close admission
+(``EngineDraining``: 503) and finish the work in flight, and the server
+stops once they are drained or ``GOFR_DRAIN_DEADLINE_S`` (30) has passed,
+after a grace of at least 0.5 s. The route answers loopback callers only
+unless ``GOFR_DRAIN_REMOTE=1``.
 
 gRPC: ``grpc_unary`` / ``grpc_server_stream`` register framework-native
 JSON-over-gRPC methods with the same ``handler(ctx)`` shape as the HTTP
@@ -19,9 +28,9 @@ starts and stops with the HTTP server. ``grpcx`` (and with it ``grpc``) is
 imported only then.
 
 Always registered: ``/.well-known/health``, ``/.well-known/alive``, the
-404 catch-all, 405 for a known path under another method, and the CORS
-preflight. Left out of the port: the metrics server, cron, pub/sub, auth,
-static files, swagger and the graceful drain.
+404 catch-all, 405 for a known path under another method, the CORS
+preflight and the drain route. Left out of the port: the metrics server,
+cron, pub/sub, auth, static files and swagger.
 """
 
 from __future__ import annotations
@@ -29,11 +38,12 @@ from __future__ import annotations
 import asyncio
 import signal
 import threading
+import time
 from typing import Callable
 
 from .config import Config, EnvConfig
 from .container import Container
-from .handler import health_handler, live_handler, wrap_handler
+from .handler import _require_loopback, health_handler, live_handler, wrap_handler
 from .http.middleware import cors_middleware, logging_middleware
 from .http.router import Router
 from .http.server import AsyncHTTPServer
@@ -55,6 +65,10 @@ class App:
         self._grpc_registered = False
         self._shutdown_event: asyncio.Event | None = None
         self._loop: asyncio.AbstractEventLoop | None = None
+        # the drain flag lives on the container, where the health handler reads it
+        self._draining = False
+        self.container.draining = False
+        self.drain_deadline_s = self.config.get_float("GOFR_DRAIN_DEADLINE_S", 30.0)
 
     def _add(self, method: str, path: str, handler: Callable, timeout_s: float | None = None) -> None:
         self.router.add(
@@ -95,6 +109,53 @@ class App:
     def _register_well_known(self) -> None:
         self.get("/.well-known/health", health_handler)
         self.get("/.well-known/alive", live_handler)
+        self.post("/.well-known/debug/drain", self._drain_handler)
+
+    # -- the graceful drain (JAX app.py:427-510) -------------------------------
+    def _drain_handler(self, ctx) -> dict:
+        """POST /.well-known/debug/drain: begin the drain (idempotent).
+        Loopback-only unless GOFR_DRAIN_REMOTE=1: it takes the instance
+        out of rotation and closes it."""
+        _require_loopback(ctx, "GOFR_DRAIN_REMOTE")
+        started = self.begin_drain()
+        return {"draining": True, "started": started, "deadline_s": self.drain_deadline_s}
+
+    def begin_drain(self, deadline_s: float | None = None) -> bool:
+        """Readiness down, engine admission closed, then a waiter thread
+        stops the server once the engines are drained or the deadline has
+        passed. False when a drain is already running. Safe from any
+        thread."""
+        if self._draining:
+            return False
+        self._draining = True
+        self.container.draining = True
+        deadline_s = deadline_s if deadline_s is not None else self.drain_deadline_s
+        self.logger.info(f"drain: readiness down, admission closed; finishing in-flight work (deadline {deadline_s:.0f}s)")
+        rt = self.container.tpu_runtime  # never build the runtime here
+        if rt is not None:
+            try:
+                rt.drain()
+            except Exception as e:  # noqa: BLE001 — the drain must reach the shutdown
+                self.logger.error(f"drain: engine drain failed: {e!r}")
+        threading.Thread(target=self._drain_then_stop, args=(deadline_s,), name="app-drain", daemon=True).start()
+        return True
+
+    def _drain_then_stop(self, deadline_s: float) -> None:
+        # a grace floor: the drain's own response and one readiness probe
+        # at 503 go out before the listener closes
+        time.sleep(min(0.5, deadline_s))
+        t0 = time.monotonic()
+        while time.monotonic() - t0 < deadline_s:
+            rt = self.container.tpu_runtime
+            try:
+                if rt is None or rt.drained():
+                    break
+            except Exception:  # noqa: BLE001 — a sick engine must not wedge the exit
+                break
+            time.sleep(0.05)
+        else:
+            self.logger.warn(f"drain: deadline {deadline_s:.0f}s elapsed with work still in flight; shutting down anyway")
+        self.shutdown()
 
     async def serve(self) -> None:
         """Start the server and block until shutdown()."""
@@ -116,18 +177,22 @@ class App:
             self.logger.info("Server shutdown complete")
 
     def shutdown(self) -> None:
-        """Stop serving (safe from any thread)."""
-        if self._loop is not None and self._shutdown_event is not None:
-            self._loop.call_soon_threadsafe(self._shutdown_event.set)
+        """Stop serving (safe from any thread, and after the server stopped)."""
+        if self._loop is not None and self._shutdown_event is not None and not self._loop.is_closed():
+            try:
+                self._loop.call_soon_threadsafe(self._shutdown_event.set)
+            except RuntimeError:  # the loop closed meanwhile: nothing left to stop
+                pass
 
     def run(self) -> None:
-        """Blocking entry point; SIGINT and SIGTERM stop the server."""
+        """Blocking entry point; SIGINT stops the server, SIGTERM (a rolling
+        deploy) runs the graceful drain."""
 
         async def main():
             loop = asyncio.get_running_loop()
-            for sig in (signal.SIGINT, signal.SIGTERM):
+            for sig, handler in ((signal.SIGINT, self.shutdown), (signal.SIGTERM, self.begin_drain)):
                 try:
-                    loop.add_signal_handler(sig, self.shutdown)
+                    loop.add_signal_handler(sig, handler)
                 except (NotImplementedError, RuntimeError):
                     pass
             await self.serve()

@@ -14,7 +14,9 @@ there) and returns a tensor, or a tuple, list or dict of them; each caller
 gets its own row as numpy.
 
 ``register_llm(name, cfg, params, **engine_kw)`` builds the port's
-``LLMEngine`` and registers it under ``name``; ``llm(name)`` returns it.
+``LLMEngine`` (or, with ``replicas`` > 1 or ``devices``, a
+``ReplicatedLLMEngine``) and registers it under ``name``; ``llm(name)``
+returns it. ``drain`` / ``drained`` serve the app's graceful drain.
 The engine runs on ``cuda`` unless the caller passes ``device="cpu"`` or
 the config sets ``TORCH_DEVICE=cpu``; without a GPU it raises.
 
@@ -29,7 +31,12 @@ Only what the port's engine has is accepted: the kwargs ``slots``,
 ``max_queue``, ``ttft_deadline_ms``, ``fair_queuing``, ``fair_weights``,
 ``fair_ledger``, ``preemption``, ``shed_predicted_wait_s``,
 ``brownout_wait_s``, ``brownout_max_new`` and ``brownout_hold_s``, the
-LoRA pool's ``lora_slots`` and ``lora_rank``, the KV layout's
+LoRA pool's ``lora_slots`` and ``lora_rank``, the recovery kwargs
+``fault_injector``, ``step_watchdog_s``, ``numeric_check`` and
+``version``, the fleet's ``replicas``, ``devices``, ``router``,
+``supervise``, ``failover_retries``, ``fleet_max_queue_tokens``,
+``retry_budget_per_s``, ``retry_budget_burst``, ``poison_deaths``,
+``canary`` and ``health_ledger``, the KV layout's
 ``kv_paged`` (``True``, ``False`` or ``"auto"``: the paged pool, or the
 contiguous layouts, the rolling ring for a windowed model where window +
 slack < max_seq_len and the dense slab otherwise; ``"auto"`` takes the
@@ -43,14 +50,15 @@ runtime), the shape knobs ``TPU_LLM_STEP_TOKEN_BUDGET`` (0 the wave),
 ``TPU_LLM_CONSTRAINED``, ``TPU_LLM_CONSTRAINED_GRAMMARS``,
 ``TPU_LLM_FAIR``, ``TPU_LLM_PREEMPT``, ``TPU_LLM_SHED_WAIT_S``,
 ``TPU_LLM_BROWNOUT_WAIT_S``, ``TPU_LLM_BROWNOUT_MAX_NEW``,
-``TPU_LLM_BROWNOUT_HOLD_S``, ``TPU_LLM_LORA_SLOTS`` and
-``TPU_LLM_LORA_RANK_MAX`` (defaults for the kwargs a caller leaves out,
+``TPU_LLM_BROWNOUT_HOLD_S``, ``TPU_LLM_LORA_SLOTS``,
+``TPU_LLM_LORA_RANK_MAX``, ``TPU_LLM_STEP_WATCHDOG_S`` and
+``TPU_LLM_NUMERIC_CHECK`` (defaults for the kwargs a caller leaves out,
 with the JAX engine's meanings). As in the JAX runtime,
 ``TPU_LLM_KV_POOL_BLOCKS`` has no config mapping: the process env reaches
 the engine's ``CacheManager``, which reads it (with ``TPU_LLM_KV_INT8``,
 ``TPU_LLM_SESSION_MB`` and ``TPU_LLM_HOST_CACHE_MB``) for a kwarg left
 None. Any other kwarg, and any of the JAX runtime's engine knobs set to
-ask for a feature the port lacks (replicas, meshes, ...), raises
+ask for a feature the port lacks (meshes, ...), raises
 ``NotImplementedError`` naming it; none is ignored.
 """
 
@@ -69,7 +77,7 @@ import numpy as np
 import torch
 
 from ... import resolve_device
-from ...llm import LLMEngine
+from ...llm import LLMEngine, ReplicatedLLMEngine
 from .. import STATUS_DOWN, STATUS_UP, health
 
 __all__ = ["Batcher", "GPURuntime"]
@@ -303,6 +311,10 @@ _ENGINE_KWARGS = (
     "preemption", "shed_predicted_wait_s", "brownout_wait_s", "brownout_max_new", "brownout_hold_s",
     "lora_slots", "lora_rank", "kv_paged", "kv_window", "kv_pool_blocks", "step_token_budget", "admit_cap",
     "admit_delay_ms", "decode_chunk", "prefill_chunk", "kv_block",
+    # recovery (every engine) and the replica fleet
+    "fault_injector", "step_watchdog_s", "numeric_check", "version", "replicas", "devices", "router", "supervise",
+    "failover_retries", "fleet_max_queue_tokens", "retry_budget_per_s", "retry_budget_burst", "poison_deaths",
+    "canary", "health_ledger",
 )
 
 # Overload-control, LoRA and shape knobs: config key -> (engine kwarg, parser of
@@ -320,13 +332,14 @@ _MAPPED_KNOBS = {
     "TPU_LLM_STEP_TOKEN_BUDGET": ("step_token_budget", int),
     "TPU_LLM_PREFILL_CHUNK": ("prefill_chunk", int),
     "TPU_LLM_KV_BLOCK": ("kv_block", int),
+    # the watchdogs (JAX datasource/tpu/__init__.py:555-564)
+    "TPU_LLM_STEP_WATCHDOG_S": ("step_watchdog_s", float),
+    "TPU_LLM_NUMERIC_CHECK": ("numeric_check", lambda v: v != "0"),
 }
 
 # The JAX runtime's engine knobs that select a feature this port lacks,
 # each with the values that ask for nothing more than the port does.
 _UNPORTED_KNOBS = {
-    "TPU_LLM_STEP_WATCHDOG_S": ("0",),
-    "TPU_LLM_NUMERIC_CHECK": ("1",),
     "TPU_LLM_FLIGHT_RECORDS": ("0",),
     "TPU_LLM_FLIGHT_REDACT": (),
     "GOFR_BLACKBOX_DIR": (),
@@ -365,7 +378,7 @@ class GPURuntime:
         self.default_max_delay_ms = float(get("TPU_BATCH_MAX_DELAY_MS") or 2)
         self.default_max_inflight = int(get("TPU_BATCH_MAX_INFLIGHT") or 8)
         self._models: dict[str, _Model] = {}
-        self._llms: dict[str, LLMEngine] = {}
+        self._llms: dict[str, LLMEngine | ReplicatedLLMEngine] = {}
         self._lock = threading.Lock()
 
     @property
@@ -460,7 +473,7 @@ class GPURuntime:
         return self.model(name).batcher.submit(example_args).result(timeout=timeout)
 
     # -- LLM engines ----------------------------------------------------------
-    def register_llm(self, name: str, cfg, params, **engine_kw) -> LLMEngine:
+    def register_llm(self, name: str, cfg, params, **engine_kw) -> LLMEngine | ReplicatedLLMEngine:
         """Build an ``LLMEngine`` over ``params`` and register it as
         ``name`` (replacing and closing an earlier one). A config with
         ``n_experts`` > 0 serves its mixture-of-experts FFN through the
@@ -471,7 +484,12 @@ class GPURuntime:
         layout (the engine's ``kv_paged``); the contiguous layouts serve
         ``prefix_cache_mb`` through the whole-row prefix cache and ignore
         ``kv_int8`` (``kvcache`` logs it). ``step_token_budget`` /
-        ``TPU_LLM_STEP_TOKEN_BUDGET`` 0 builds the wave scheduler."""
+        ``TPU_LLM_STEP_TOKEN_BUDGET`` 0 builds the wave scheduler.
+        ``replicas`` > 1 (or ``devices``) builds a ``ReplicatedLLMEngine``
+        (the JAX runtime's fleet; the replicas may share one card), whose
+        fleet kwargs (``router``, ``supervise``, ``failover_retries``, ...)
+        pass through; ``meshes`` stays refused. ``TPU_LLM_STEP_WATCHDOG_S``
+        and ``TPU_LLM_NUMERIC_CHECK`` set the watchdogs."""
         unknown = sorted(set(engine_kw) - set(_ENGINE_KWARGS))
         if unknown:
             raise NotImplementedError(f"register_llm: not ported: {', '.join(unknown)}")
@@ -502,19 +520,26 @@ class GPURuntime:
                 kwarg, parse = _MAPPED_KNOBS[knob]
                 engine_kw.setdefault(kwarg, parse(v))
         engine_kw.setdefault("device", self.default_device)
-        engine = LLMEngine(cfg, params, **engine_kw)
+        engine_kw.setdefault("kv_label", name)
+        replicas = engine_kw.pop("replicas", None)
+        if (replicas or 1) > 1 or "devices" in engine_kw:
+            engine = ReplicatedLLMEngine(cfg, params, replicas=replicas, logger=self.logger, **engine_kw)
+        else:
+            engine = LLMEngine(cfg, params, logger=self.logger, **engine_kw)
         with self._lock:
             old = self._llms.get(name)
             self._llms[name] = engine
         if old is not None:
             old.close()
         if self.logger is not None:
-            kv = engine.kv.stats()
-            self.logger.info(f"LLM {name!r} registered on {engine.device} ({cfg.n_layers} layers, d_model {cfg.d_model}; "
-                             f"KV {kv['layout']}, capacity {kv['capacity']})")
+            lead = engine.engines[0] if isinstance(engine, ReplicatedLLMEngine) else engine
+            kv = lead.kv.stats()
+            n = len(engine.engines) if isinstance(engine, ReplicatedLLMEngine) else 1
+            self.logger.info(f"LLM {name!r} registered on {engine.device} ({n} replica(s), {cfg.n_layers} layers, "
+                             f"d_model {cfg.d_model}; KV {kv['layout']}, capacity {kv['capacity']})")
         return engine
 
-    def llm(self, name: str) -> LLMEngine:
+    def llm(self, name: str) -> LLMEngine | ReplicatedLLMEngine:
         try:
             return self._llms[name]
         except KeyError:
@@ -542,6 +567,27 @@ class GPURuntime:
             return health(STATUS_UP, **details)
         except Exception as e:  # noqa: BLE001 - health must answer
             return health(STATUS_DOWN, error=str(e))
+
+    def drain(self) -> None:
+        """Close admission on every registered LLM engine or fleet (submit
+        -> ``EngineDraining``, 503) while their work in flight finishes; the
+        plain models serve until ``close``."""
+        for eng in list(self._llms.values()):
+            eng.drain()
+
+    def drained(self) -> bool:
+        """True once no LLM engine holds queued or in-flight work."""
+        return all(eng.drained() for eng in list(self._llms.values()))
+
+    def degraded(self) -> bool:
+        """A fleet runs short: a replica slot is parked (no usable device)
+        or has failed for good (the JAX health's gauges, read here from
+        the supervisors)."""
+        for eng in list(self._llms.values()):
+            sup = getattr(eng, "supervisor", None)
+            if sup is not None and (sup.parked_count() or sup.failed_count()):
+                return True
+        return False
 
     def close(self) -> None:
         with self._lock:

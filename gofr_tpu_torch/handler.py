@@ -1,7 +1,8 @@
 """Handler adaptation: ``handler(ctx) -> result`` to a wire handler
 (counterpart of gofr_tpu/handler.py: ``wrap_handler``,
-``llm_request_kwargs`` and the health and liveness handlers; no debug,
-profile, rollout or flight-recorder routes)."""
+``llm_request_kwargs``, the health and liveness handlers and the
+loopback guard of the drain route; no debug, profile, rollout or
+flight-recorder routes)."""
 
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ from typing import Any, Callable
 
 from .container import Container
 from .context import Context
-from .http.errors import ErrorPanicRecovery, ErrorRequestTimeout
+from .http.errors import ErrorPanicRecovery, ErrorRequestTimeout, ErrorServiceUnavailable, HTTPError
 from .http.request import Request
 from .http.responder import Response, respond
 from .http.router import WireHandler
@@ -95,9 +96,30 @@ def llm_request_kwargs(ctx: Context) -> dict:
 
 
 def health_handler(ctx: Context) -> Any:
+    """Aggregated health and a serving status: "degraded" (still 200) while
+    a fleet runs short a replica slot (parked or failed for good), else
+    "UP". A draining app answers 503 with a Retry-After (readiness down the
+    moment a rolling deploy begins); liveness stays 200."""
+    if getattr(ctx.container, "draining", False):
+        raise ErrorServiceUnavailable("draining", retry_after=5.0)
     out = ctx.container.health()
-    out["status"] = "UP"
+    rt = ctx.container.tpu_runtime
+    out["status"] = "degraded" if rt is not None and rt.degraded() else "UP"
     return out
+
+
+def _require_loopback(ctx: Context, opt_in_key: str) -> None:
+    """Mutating admin routes answer loopback callers only (403 otherwise)
+    unless the config sets ``opt_in_key``=1."""
+    host = (getattr(ctx.request, "remote_addr", "") or "").rsplit(":", 1)[0]
+    if host in ("127.0.0.1", "::1", "[::1]", "localhost", ""):
+        return
+    cfg = ctx.container.config
+    if cfg is not None and cfg.get_or_default(opt_in_key, "0") == "1":
+        return
+    err = HTTPError(f"this route is loopback-only (set {opt_in_key}=1)")
+    err.status_code = 403
+    raise err
 
 
 def live_handler(_ctx: Context) -> Any:

@@ -174,11 +174,29 @@ programs: every one routes its whole row count, idle slots and padding
 lanes included, through ``models.moe.moe_mlp``, which has no host
 synchronisation and is captured with the rest (``stats()["moe_experts"]``).
 
-Left out of this slice (queued in ROADMAP.md): goodput and the
-tenant quota gate, flight recorder, KV handoff, the replica fleet (and
-with it the router's retry budget and a fleet-shared ledger), the
-metrics series of speculation, constrained decoding and overload (the
-port has no metrics manager).
+Recovery, as in the JAX engine (``resilience``): a scheduler pass that
+raises is recovered in place (``_recover_all``: every slotted and
+in-flight request ends "cancelled", the device state resets, the engine
+serves on); a fetch that raises loses its program's tokens
+(``_close_unreachable``). ``_FETCH_FAIL_LIMIT`` failures in a row on
+either thread (a sticky CUDA error fails every one) end in ``_die``, the
+terminal path: the engine stops (``alive()`` false, ``submit`` raises
+``EngineStoppedError``), hands every recoverable request to
+``failover_hook`` when a ``ReplicatedLLMEngine`` set one, and ends every
+other stream "cancelled". The numerical watchdog (``numeric_check``, on
+unless ``TPU_LLM_NUMERIC_CHECK=0``) dies on a fetched -1 sentinel; the
+step watchdog (``step_watchdog_s`` / ``TPU_LLM_STEP_WATCHDOG_S`` > 0) dies
+on a dispatch or fetch in flight past its threshold. ``drain()`` closes
+admission (``EngineDraining``) while the work in flight finishes. The
+fault seams of ``resilience.faults`` sit where the JAX engine's do.
+``ReplicatedLLMEngine`` serves N replicas behind a router with in-flight
+failover, poison quarantine, the device-health ledger, the supervisor
+and the canary gate (several replicas may share one device).
+
+Left out of this slice (queued in ROADMAP.md): goodput and the tenant
+quota gate, the flight recorder (``_die`` takes no incident bundle),
+rollouts and the versions registry, KV handoff, and the metrics series
+(the port has no metrics manager, so ``_die`` zeroes no gauge).
 
 The shape knobs (JAX llm.py:637-644, :675-676) are the JAX engine's:
 ``decode_chunk`` (K: the fused steps of a chunk, the step's decode part,
@@ -198,7 +216,7 @@ import os
 import queue
 import threading
 import time
-from collections import deque
+from collections import OrderedDict, deque
 from dataclasses import dataclass, field
 from typing import Any, Iterator
 
@@ -219,7 +237,23 @@ from .models.transformer import (
     verify_chunk,
 )
 from .ops.attention import add_launches, capture_launches
-from .resilience import FairLedger, OverloadController
+from .resilience import (
+    DeviceHealthLedger,
+    FairLedger,
+    FaultInjector,
+    Heartbeat,
+    InjectedFault,
+    OverloadController,
+    ReplicaSupervisor,
+    RetryBudget,
+    StepWatchdog,
+    canary_check,
+    default_injector,
+    device_key,
+    spec_device_key,
+)
+from .resilience.faults import sleep_for
+from .resilience.health import CANARY_MAX_NEW, CANARY_PROMPT
 from .spec import SPEC_DRAFT_DEFAULT, SPEC_EMA_ALPHA, NGramDrafter, draft_len
 
 _EOS_DEFAULT = -1  # no EOS cut by default (random-weight models)
@@ -253,6 +287,24 @@ class EngineOverloaded(RuntimeError):
             self.retry_after = max(0.1, float(retry_after))
 
 
+class EngineDraining(RuntimeError):
+    """submit() while the engine drains (JAX ``EngineDraining``): admission
+    is closed, the work in flight runs to completion. 503 with a
+    Retry-After; retryable inside a fleet (another replica may accept)."""
+
+    status_code = 503
+    retry_after: float | None = 5.0
+
+
+class PoisonedRequestError(RuntimeError):
+    """Raised by GenRequest.stream()/tokens() when the fleet refused the
+    request further failover (JAX ``PoisonedRequestError``): it was in
+    flight across ``poison_deaths`` replica deaths, so its payload is the
+    prime suspect. 500; the caller must not retry it."""
+
+    status_code = 500
+
+
 class UnknownAdapterError(KeyError):
     """Raised by submit() when ``req.adapter`` names no resident adapter
     (JAX ``UnknownAdapterError``): 404 at the edge. A KeyError subclass so
@@ -271,14 +323,16 @@ class UnknownAdapterError(KeyError):
 
 
 class RequestFailed(RuntimeError):
-    """Raised by GenRequest.stream()/tokens() when the engine could not
-    serve the request (a device error, or non-finite logits)."""
+    """Raised by GenRequest.stream()/tokens() when a request ends "error":
+    the fleet could not place its failover continuation (no live replica,
+    or its retries spent)."""
 
 
 def finite_guard(logits: torch.Tensor, toks: torch.Tensor) -> torch.Tensor:
     """Numerical-watchdog sentinel: replace each sampled token whose
-    logits row holds NaN/Inf with -1, an id no sampler produces; the
-    engine turns it into a failed request instead of streaming garbage."""
+    logits row holds NaN/Inf with -1, an id no sampler produces; with
+    ``numeric_check`` on the collector turns it into the engine's death
+    instead of streaming garbage."""
     ok = torch.isfinite(logits).all(dim=-1)
     return torch.where(ok, toks, torch.full_like(toks, -1))
 
@@ -416,6 +470,9 @@ class GenRequest:
     # the per-slot state advances inside the device programs. eos_token
     # is taken from the grammar when unset. None = unconstrained.
     grammar: Any = None
+    # Poison-payload marker of the fault injector: a tagged ``device_step``
+    # spec kills the replica serving a request with the same tag.
+    tag: str = ""
     id: int = field(default_factory=itertools.count().__next__)
 
     def __post_init__(self):
@@ -429,12 +486,24 @@ class GenRequest:
         self.capped = False  # engine reduced max_new_tokens to fit the cache
         self._rows_hi = 0  # highest slot row its prefill wrote (the prefix store's trim)
         # "eos" | "length" | "cancelled" | "disconnect" | "deadline" |
-        # "shed" | "error"
+        # "shed" | "error" | "poison" ("failover" marks, for a moment, a
+        # request rescued off a dying replica, so its drain skips it)
         self.finish_reason: str | None = None
         self.error: str | None = None
         self.submitted_at: float | None = None  # a continuation restamps it
         self.admitted_at: float | None = None  # slot assigned (last admission)
         self.first_token_at: float | None = None
+        # failover (engine- and fleet-maintained): the version label of the
+        # engine that last accepted the request (a continuation that has
+        # emitted tokens stays on it); the re-dispatches consumed; the
+        # replica deaths it was in flight for (slotted, prefilling or in a
+        # program: queued bystanders are not implicated), which the fleet's
+        # poison quarantine counts; prompt positions below _replay_pos were
+        # computed once already (a continuation's re-prefill)
+        self.engine_version: str | None = None
+        self.retries = 0
+        self.deaths = 0
+        self._replay_pos = 0
         # overload control (engine-maintained): brownout clamped
         # max_new_tokens; times a batch slot was taken back; the tokens
         # of outstanding work this request adds to load_tokens(); whether
@@ -477,6 +546,11 @@ class GenRequest:
         self._aid = 0
 
     def _raise_terminal(self) -> None:
+        if self.finish_reason == "poison":
+            raise PoisonedRequestError(
+                f"request {self.id} implicated in {self.deaths} replica deaths; failover refused "
+                "(do not retry this payload)"
+            )
         if self.finish_reason == "error":
             raise RequestFailed(f"request {self.id} failed: {self.error}")
 
@@ -490,7 +564,8 @@ class GenRequest:
 
     def stream(self, timeout: float = 60.0) -> Iterator[int]:
         """Yield token ids until the engine signals completion; raises
-        RequestFailed when the engine could not serve the request."""
+        RequestFailed for a request that ended "error" and
+        PoisonedRequestError for one refused as poison."""
         try:
             while True:
                 item = self.out.get(timeout=timeout)
@@ -684,6 +759,11 @@ class _Family:
 
 _WARM_RUNS = 2  # eager runs on the capture stream before a capture
 
+# Dead engines whose stream had not passed their death's event (None: never
+# reached, the lock was wedged): kept referenced, so their device memory is
+# not handed out while programs may still write it (``LLMEngine._release_device``).
+_UNRELEASED: list[tuple] = []
+
 
 class LLMEngine:
     """Serving engine with chunked prefill and fused decode chunks. Runs on
@@ -746,7 +826,17 @@ class LLMEngine:
     ``lora_slots`` > 0 (``None`` reads ``TPU_LLM_LORA_SLOTS``, default 0)
     adds an adapter pool of that many gids of rank up to ``lora_rank``
     (``None`` reads ``TPU_LLM_LORA_RANK_MAX``, default 8); with 0 the
-    engine captures exactly the programs it does without the feature."""
+    engine captures exactly the programs it does without the feature.
+
+    Recovery (JAX llm.py:860-890): ``fault_injector`` (the process default
+    of ``resilience.faults``, armed from ``TPU_LLM_FAULTS``, unless given),
+    ``step_watchdog_s`` (``TPU_LLM_STEP_WATCHDOG_S``, 0 off) and
+    ``numeric_check`` (``TPU_LLM_NUMERIC_CHECK``, on unless "0");
+    ``kv_label`` names the engine in logs and fault labels (a fleet's
+    replicas are ``<label>/r<i>``), ``version`` is its model-version
+    label, ``logger`` receives its recovery messages."""
+
+    _FETCH_FAIL_LIMIT = 3  # failures in a row on one thread before _die
 
     # plain decode chunks bought by one clean-pipe verify attempt whose
     # lanes drafted nothing (speculative mode); then speculation re-probes
@@ -795,6 +885,12 @@ class LLMEngine:
         lora_rank: int | None = None,
         kv_paged=None,
         kv_window: int | None = None,
+        fault_injector: FaultInjector | None = None,
+        step_watchdog_s: float | None = None,
+        numeric_check: bool | None = None,
+        kv_label: str = "llm",
+        version: str = "v1",
+        logger=None,
     ):
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -1002,7 +1098,6 @@ class LLMEngine:
         self._processing: tuple | None = None  # entry popped, not yet emitted
         self._jumped = False  # prefill-priority ration (one per chunk)
         self._stop = False
-        self.error: str | None = None
         self.submitted = 0
         self.finished = 0
         self.steps = 0  # unified steps dispatched
@@ -1029,6 +1124,7 @@ class LLMEngine:
             max_queue, ttft_deadline_ms, fair_queuing, fair_weights, fair_ledger, preemption,
             shed_predicted_wait_s, brownout_wait_s, brownout_max_new, brownout_hold_s,
         )
+        self._init_resilience(fault_injector, step_watchdog_s, numeric_check, kv_label, version, logger)
         if dev.type == "cuda":
             self._stream = torch.cuda.Stream(dev)  # every program, copy and capture
             self._graph_pool = torch.cuda.graph_pool_handle()  # shared by the families
@@ -1043,6 +1139,9 @@ class LLMEngine:
         )
         self._thread.start()
         self._collector.start()
+        if self.step_watchdog_s > 0:
+            # after the warmup: beats wrap serving only, never a capture
+            self.watchdog = StepWatchdog(self, self.step_watchdog_s)
 
     # -- public API -------------------------------------------------------
     def submit(self, req: GenRequest) -> GenRequest:
@@ -1054,7 +1153,9 @@ class LLMEngine:
         a refused submit leaks nothing. An adapted request with no client
         bills the adapter's pseudo-client ``adapter:<name>``."""
         if self._stop:
-            raise EngineStoppedError(f"engine stopped ({self.error or 'closed'})")
+            raise EngineStoppedError(f"engine stopped ({self.died_reason or 'closed'})")
+        if self._draining:
+            raise EngineDraining("engine draining (rolling deploy)")
         if req.adapter and not self.lora_slots:
             raise ValueError(
                 f"request names adapter {req.adapter!r} but this engine has no adapter pool "
@@ -1106,6 +1207,11 @@ class LLMEngine:
         # header degrades to the latency-safe class (JAX llm.py:2503)
         req.priority = "batch" if req.priority == "batch" else "interactive"
         wait_s = self.predicted_wait_s()
+        spec = self.faults.take("overload_pressure", self.label)
+        if spec is not None:
+            # chaos seam: this submit sees ``delay`` seconds of predicted wait
+            self._count_fault("overload_pressure")
+            wait_s = spec.delay if spec.delay > 0 else 3600.0
         self.overload.observe(wait_s)
         shed_after = self.overload.should_shed(wait_s)
         if shed_after is not None:
@@ -1151,6 +1257,11 @@ class LLMEngine:
             # the new-arrival lift, before the request becomes orderable
             self.ledger.touch(req.client)
         req.submitted_at = now = time.perf_counter()
+        # a continuation that has emitted tokens stays on this version
+        req.engine_version = self.version
+        # a failover continuation's spec state belongs to its old replica
+        req._spec_pending = []
+        req._spec_inflight = 0
         with self._lock:
             self.submitted += 1
             req._load_acct = plen + max(0, req.max_new_tokens - req.emitted)
@@ -1162,8 +1273,10 @@ class LLMEngine:
                 gap = min(max(now - last, 0.0), 1.0)
                 self._ema_gap = gap if self._ema_gap is None else 0.8 * self._ema_gap + 0.2 * gap
         self._admit_q.put(req)
-        if self._stop:  # stopped between the check above and the put
-            self._end_all("error" if self.error else "cancelled")
+        if self._stop:
+            # stopped between the check above and the put: the one-shot
+            # drain may have run already (JAX llm.py:2719-2724)
+            self._drain_pending()
         self._kick.set()
         return req
 
@@ -1180,6 +1293,9 @@ class LLMEngine:
                 "prefill_waves": dict(sorted(self.waves.items())),
                 "wave_reqs": self.wave_reqs,
                 "slots": self.slots,
+                "active": sum(r is not None for r in self._slot_req),
+                "waiting": self._admit_q.qsize() + len(self._waiting),
+                "max_seq_len": self.max_seq_len,
                 "quantized": self.quantized,
                 "moe_experts": self.cfg.n_experts,
                 "submitted": self.submitted,
@@ -1211,24 +1327,47 @@ class LLMEngine:
                 },
                 "kvcache": self.kv.stats(),
                 "warmup_s": self.warmup_s,
-                "error": self.error,
+                # recovery (JAX stats' keys)
+                "version": self.version,
+                "alive": self.alive(),
+                "draining": self._draining,
+                "error": self.died_reason,
+                "numeric_check": self.numeric_check,
+                "numerical_trips": self.numerical_trips,
+                "watchdog_trips": self.watchdog.trips if self.watchdog is not None else 0,
             }
+
+    def debug_state(self) -> dict:
+        """The engine's recovery state (a subset of JAX ``debug_state``)."""
+        return {
+            "label": self.label, "version": self.version, "alive": self.alive(), "draining": self._draining,
+            "died": self._died, "died_reason": self.died_reason, "load": self.load(),
+            "load_tokens": self.load_tokens(), "step_watchdog_s": self.step_watchdog_s,
+            "numeric_check": self.numeric_check, "faults": self.faults.snapshot(),
+        }
 
     def close(self, timeout: float = 30.0) -> None:
         """Stop the scheduler, let the collector emit what is in flight,
-        and end every unfinished stream."""
+        and end every unfinished stream. A dead engine's memory is left to
+        its ``_die`` (a wedged stream is never waited on)."""
         self._stop = True
         self._kick.set()
         self._thread.join(timeout=timeout)
         with self._work_cv:
             self._work_cv.notify_all()
         self._collector.join(timeout=timeout)
-        self._end_all("cancelled")
+        if self.watchdog is not None:
+            self.watchdog.join(timeout=timeout)
+        if not self._died:  # _die drained already, or found the lock wedged
+            # every unfinished stream ends "cancelled": slotted and in
+            # flight, then waiting and queued
+            self._recover_all()
+            self._drain_pending()
         if self.ledger is not None:
             # a closed engine must not pin a shared ledger's new-arrival
             # floor with a stale waiting-client set
             self.ledger.set_active(self._shard, set())
-        if self.device.type == "cuda":
+        if self.device.type == "cuda" and not self._died:
             self._stream.synchronize()
             self.families.clear()  # the graphs and their memory pool
 
@@ -1240,59 +1379,87 @@ class LLMEngine:
 
     # -- scheduler ------------------------------------------------------------
     def _schedule_loop(self) -> None:
+        """The scheduler thread (JAX ``_schedule_loop``): the terminal
+        chaos seams, then one pass at a time under per-iteration recovery
+        (``_recover_all``; ``_FETCH_FAIL_LIMIT`` failing passes in a row
+        with no program launched between them end in ``_die``). A thread
+        that leaves the loop while the engine runs dies loudly."""
         try:
             on_card = torch.cuda.stream(self._stream) if self.device.type == "cuda" else contextlib.nullcontext()
             with torch.no_grad(), on_card:
                 while not self._stop:
-                    self._drain_submits()
-                    self._expire_deadlines(time.perf_counter())
-                    self._order_waiting()
-                    # a pressure sample every pass, so brownout can let go
-                    # while no submit arrives
-                    self.overload.observe(self.predicted_wait_s())
-                    if self.kv.share:
-                        # paged-pool housekeeping, in dependency order:
-                        # publish finished session turns (needs their
-                        # blocks), return retired slots' blocks, spill cold
-                        # sessions past their device budget
-                        self._kv_session_flush()
-                        self._kv_sweep()
-                        self._kv_session_spill()
-                    admitted = self._admit()
-                    if self.constrained:
-                        self._g_prepare()
-                    with self._lock:
-                        # decode programs in flight (hit groups carry none)
-                        entries = list(self._inflight) + [e for e in (self._processing,) if e is not None]
-                        depth = sum(1 for e in entries if e[0] != "prefill")
-                        needed = self._needed_steps()
-                        prefilling = bool(self._prefilling)
-                        if self.speculative and not any(r is not None and r.prefill_done for r in self._slot_req):
-                            self._spec_hold = 0  # no slot decodes: see _spec_regime
-                    stepped = False
-                    if prefilling and depth < self.lookahead:
-                        # one unified step per pass; the loop comes
-                        # straight back for the next
-                        stepped = self._dispatch_step()
-                        if stepped:
-                            depth += 1
-                            needed = max(0, needed - self.decode_chunk)
-                    did_v, chunk_ok = False, True
-                    if self.speculative:
-                        did_v, chunk_ok = self._spec_regime(stepped, depth)
-                    want = 0
-                    if chunk_ok:
-                        want = min(-(-needed // self.decode_chunk), self.lookahead - depth)
-                        for _ in range(max(0, want)):
-                            needed = max(0, needed - self._dispatch_chunk(needed))
-                            if self.speculative:
-                                self._spec_hold -= 1
-                    if not admitted and not stepped and not did_v and want <= 0:
-                        self._kick.wait(timeout=0.005)
-                        self._kick.clear()
-        except Exception as e:  # noqa: BLE001 — a dead engine must end every stream
-            self._fail(e)
-            raise
+                    if self.faults.take("replica_kill", self.label) is not None:
+                        self._count_fault("replica_kill")
+                        self._die("fault injection: replica_kill")
+                        break
+                    if self._poison_fault():
+                        break
+                    try:
+                        self._schedule_pass()
+                    except Exception as e:  # noqa: BLE001 — the engine must not die silently
+                        if self._stop:
+                            break
+                        self._sched_fail_streak += 1
+                        why = f"{type(e).__name__}: {e}"
+                        if self.logger is not None:
+                            self.logger.error(f"LLM engine step failed: {e!r}")
+                        if self._sched_fail_streak >= self._FETCH_FAIL_LIMIT:
+                            self._die(f"scheduler failed {self._sched_fail_streak} passes in a row: {why}")
+                            break
+                        self._recover_all()
+                        time.sleep(0.1)
+        finally:
+            if not self._stop:
+                self._die("scheduler thread exited unexpectedly")
+
+    def _schedule_pass(self) -> None:
+        """One scheduler pass: retire, order, admit, dispatch."""
+        self._drain_submits()
+        self._expire_deadlines(time.perf_counter())
+        self._order_waiting()
+        # a pressure sample every pass, so brownout can let go
+        # while no submit arrives
+        self.overload.observe(self.predicted_wait_s())
+        if self.kv.share:
+            # paged-pool housekeeping, in dependency order:
+            # publish finished session turns (needs their
+            # blocks), return retired slots' blocks, spill cold
+            # sessions past their device budget
+            self._kv_session_flush()
+            self._kv_sweep()
+            self._kv_session_spill()
+        admitted = self._admit()
+        if self.constrained:
+            self._g_prepare()
+        with self._lock:
+            # decode programs in flight (hit groups carry none)
+            entries = list(self._inflight) + [e for e in (self._processing,) if e is not None]
+            depth = sum(1 for e in entries if e[0] != "prefill")
+            needed = self._needed_steps()
+            prefilling = bool(self._prefilling)
+            if self.speculative and not any(r is not None and r.prefill_done for r in self._slot_req):
+                self._spec_hold = 0  # no slot decodes: see _spec_regime
+        stepped = False
+        if prefilling and depth < self.lookahead:
+            # one unified step per pass; the loop comes
+            # straight back for the next
+            stepped = self._dispatch_step()
+            if stepped:
+                depth += 1
+                needed = max(0, needed - self.decode_chunk)
+        did_v, chunk_ok = False, True
+        if self.speculative:
+            did_v, chunk_ok = self._spec_regime(stepped, depth)
+        want = 0
+        if chunk_ok:
+            want = min(-(-needed // self.decode_chunk), self.lookahead - depth)
+            for _ in range(max(0, want)):
+                needed = max(0, needed - self._dispatch_chunk(needed))
+                if self.speculative:
+                    self._spec_hold -= 1
+        if not admitted and not stepped and not did_v and want <= 0:
+            self._kick.wait(timeout=0.005)
+            self._kick.clear()
 
     def _spec_regime(self, stepped: bool, depth: int) -> tuple[bool, bool]:
         """The speculative regime's policy for one scheduler pass (JAX
@@ -1325,33 +1492,308 @@ class LLMEngine:
                 self._spec_hold = self._SPEC_REPROBE_CHUNKS
         return did_v, not ver_fly and not did_v and self._spec_hold > 0
 
-    def _fail(self, e: BaseException) -> None:
-        self.error = f"{type(e).__name__}: {e}"
-        self._stop = True
-        self._end_all("error")
-        with self._work_cv:
-            self._work_cv.notify_all()
+    # -- recovery (JAX llm.py:860-890, 3505-3650, 6992-7330) -----------------
+    def _init_resilience(self, fault_injector, step_watchdog_s, numeric_check, kv_label, version, logger) -> None:
+        """The recovery kwargs with the JAX engine's env fallbacks."""
+        self.faults = fault_injector if fault_injector is not None else default_injector()
+        self.label = kv_label
+        self.version = str(version)
+        self.logger = logger
+        # the scheduler's device section and the collector's fetch, which
+        # the step watchdog samples
+        self._hb_dispatch = Heartbeat()
+        self._hb_fetch = Heartbeat()
+        if step_watchdog_s is None:
+            step_watchdog_s = float(os.environ.get("TPU_LLM_STEP_WATCHDOG_S", "0") or 0.0)
+        self.step_watchdog_s = max(0.0, float(step_watchdog_s))
+        self.watchdog: StepWatchdog | None = None  # started after the threads
+        if numeric_check is None:
+            numeric_check = os.environ.get("TPU_LLM_NUMERIC_CHECK", "1") != "0"
+        self.numeric_check = bool(numeric_check)
+        self.numerical_trips = 0
+        self._draining = False
+        self._died = False  # _die ran: idempotence, and no emission after it
+        self._die_guard = threading.Lock()
+        self.died_reason: str | None = None
+        # ReplicatedLLMEngine sets it: _die hands it the recoverable requests
+        self.failover_hook = None
+        self._sched_fail_streak = 0  # failing passes with no launch between them
+        self._fetch_fail_streak = 0  # failing fetches in a row
 
-    def _end_all(self, reason: str) -> None:
-        """End every unfinished stream: waiting, slotted, prefilling and
-        carried by an in-flight program; the in-flight programs' tokens
-        are dropped. Each stream ends once."""
+    def load(self) -> int:
+        """The router's tie-break: occupants plus queued requests
+        (lock-free; a torn read costs a stale unit)."""
+        return sum(r is not None for r in self._slot_req) + self._admit_q.qsize() + len(self._waiting)
+
+    def alive(self) -> bool:
+        """Serving: neither ``close`` nor ``_die`` has begun and both threads run."""
+        return not self._stop and self._thread.is_alive() and self._collector.is_alive()
+
+    def accepting(self) -> bool:
+        """Alive and taking new work (a draining engine is not)."""
+        return self.alive() and not self._draining
+
+    def drain(self) -> None:
+        """Close admission (``submit`` raises ``EngineDraining``, 503) while
+        every queued and slotted request runs to completion."""
+        self._draining = True
+        self._kick.set()
+
+    def undrain(self) -> None:
+        """Reopen admission after a drain that was called off."""
+        self._draining = False
+        self._kick.set()
+
+    def drained(self) -> bool:
+        """True once nothing is queued, slotted or in flight; a dead
+        engine is drained (its lock may be held by a wedged call)."""
+        if self._died:
+            return True
         with self._lock:
-            pending = list(self._waiting) + list(self._prefilling)
-            pending += [r for r in self._slot_req if r is not None]
-            entries = list(self._inflight) + ([self._processing] if self._processing is not None else [])
-            for e in entries:
-                pending += self._entry_requests(e)
+            return self.load() == 0 and not self._inflight and self._processing is None
+
+    def _fault(self, point: str) -> None:
+        """Raise-kind seam: ``InjectedFault`` when ``point`` is armed for
+        this engine's label."""
+        spec = self.faults.take(point, self.label)
+        if spec is None:
+            return
+        self._count_fault(point)
+        raise InjectedFault(spec.message)
+
+    def _fault_latency(self) -> None:
+        """Sleep-kind seam (inside the fetch heartbeat, outside the lock):
+        a wedged transfer, as the host sees one."""
+        spec = self.faults.take("step_latency", self.label)
+        if spec is None:
+            return
+        self._count_fault("step_latency")
+        sleep_for(spec)
+
+    def _count_fault(self, point: str) -> None:
+        if self.logger is not None:
+            self.logger.warn(f"fault injection: {point} fired on {self.label}")
+
+    def _poison_fault(self) -> bool:
+        """Poison-payload seam (each scheduler pass): a ``device_step`` spec
+        armed with a tag kills the engine when a resident request carries
+        that tag. One dict lookup while nothing tagged is armed."""
+        if not self.faults.has_tagged("device_step"):
+            return False
+        with self._lock:
+            resident = [r for r in self._slot_req if r is not None] + list(self._prefilling)
+        for r in resident:
+            if r.tag and self.faults.take("device_step", self.label, tag=r.tag):
+                self._count_fault("device_step")
+                self._die(f"poison payload: device_step fired for tagged request (tag={r.tag!r})")
+                return True
+        return False
+
+    def _numeric_trip(self, where: str) -> None:
+        """Non-finite logits reached a fetched token array: the engine dies
+        with a classifiable reason, and a fleet fails its requests over."""
+        self.numerical_trips += 1
+        self._die(f"numerical watchdog: non-finite logits ({where})")
+
+    def _numeric_check_fetch(self, arr: np.ndarray, cols: list[int], where: str) -> tuple[np.ndarray, bool]:
+        """The collector's sentinel scan over one fetched array's lanes of
+        live requests ``cols`` (last axis), before any emission; also the
+        ``nan_logits`` seam, which writes -1 over the first live lane.
+        Returns (array, tripped); after a trip the caller emits nothing."""
+        if not cols:
+            return arr, False
+        if self.faults.take("nan_logits", self.label) is not None:
+            self._count_fault("nan_logits")
+            arr = np.array(arr)
+            arr[..., cols[0]] = -1
+        if self.numeric_check and bool((arr[..., cols] == -1).any()):
+            self._numeric_trip(where)
+            return arr, True
+        return arr, False
+
+    def _die(self, why: str, lock_timeout: float | None = None) -> None:
+        """Terminal failure (JAX ``_die``): mark the engine dead, hand every
+        recoverable request to ``failover_hook`` when one is set, end every
+        other stream "cancelled", then free the device state once the
+        engine stream has run what was queued on it. Idempotent.
+
+        ``lock_timeout`` (the watchdog's) bounds the wait for the lock a
+        hung call may hold: without the lock the engine is only marked dead
+        and its memory is kept; with it, the stream is never waited on, and
+        the memory is kept until an event recorded behind the stream's last
+        program has passed (``_release_device``). No dispatch follows:
+        ``_launch`` refuses once the engine stops. The JAX ``_die``'s first
+        step, the flight recorder's incident bundle, and its zeroing of the
+        metrics gauges come with those modules (ROADMAP ID 9, ID 10)."""
+        with self._die_guard:
+            if self._died:
+                return
+            self._died = True
+        self._stop = True
+        self.died_reason = why
+        if self.logger is not None:
+            self.logger.error(f"LLM engine {self.label} died: {why}")
+        acquired = self._lock.acquire() if lock_timeout is None else self._lock.acquire(timeout=lock_timeout)
+        rescued: list[GenRequest] = []
+        done = None
+        if acquired:
+            try:
+                if self.failover_hook is not None:
+                    rescued = self._extract_recoverable()
+                try:
+                    self._recover_all()
+                except Exception:  # noqa: BLE001 — dying must not re-raise
+                    pass
+                self._drain_pending()
+                if self.device.type == "cuda":
+                    done = torch.cuda.Event()
+                    done.record(self._stream)
+            finally:
+                self._lock.release()
+        elif self.logger is not None:
+            self.logger.error("LLM engine lock wedged while dying; marked dead without drain")
+        if self.ledger is not None:
+            self.ledger.set_active(self._shard, set())
+        self._kick.set()
+        if acquired:
+            with self._work_cv:
+                self._work_cv.notify_all()
+        if rescued:
+            # outside the lock: the hook submits into other engines; before
+            # the release, which may wait for this engine's stream
+            try:
+                self.failover_hook(rescued)
+            except Exception as e:  # noqa: BLE001 — a rescue must end every stream
+                if self.logger is not None:
+                    self.logger.error(f"failover hook failed: {e!r}")
+                for r in rescued:
+                    if r.finish_reason == "failover":
+                        r.finish_reason = "error"
+                        r.out.put(None)
+        self._release_device(done, wait=acquired and lock_timeout is None)
+
+    def _release_device(self, done, wait: bool) -> None:
+        """Free a dead engine's graphs once its stream has passed ``done``;
+        its other tensors go with the engine object. ``wait`` synchronizes
+        on the event; otherwise a stream still running (or never reached:
+        ``done`` None) keeps the engine referenced in ``_UNRELEASED``, and
+        each later death or close lets go of those whose event has passed."""
+        if self.device.type != "cuda":
+            return
+        _UNRELEASED[:] = [(e, x) for e, x in _UNRELEASED if e is None or not e.query()]
+        if done is not None and (wait or done.query()):
+            done.synchronize()
+            self.families.clear()
+        else:
+            _UNRELEASED.append((done, self))
+
+    def _extract_recoverable(self) -> list[GenRequest]:
+        """Every request a live replica could finish — slotted,
+        prefilling, carried by a program in flight, waiting or still in the
+        submit queue — marked "failover" (the die paths walk past it), in
+        submit order. Those in flight at the death count one more death.
+        Lock held."""
+        rescued: dict[int, GenRequest] = {}
+        inflight_ids: set[int] = set()
+
+        def take(r: GenRequest | None, inflight: bool = False) -> None:
+            if r is not None and r.finish_reason is None and not r.cancelled:
+                rescued[r.id] = r
+                if inflight:
+                    inflight_ids.add(r.id)
+
+        for r in self._slot_req:
+            take(r, inflight=True)
+        for e in list(self._inflight) + [e for e in (self._processing,) if e is not None]:
+            for r in self._entry_requests(e):
+                take(r, inflight=True)
+        for r in self._prefilling:
+            take(r, inflight=True)
+        for r in self._waiting:
+            take(r)
+        while True:
+            try:
+                r = self._admit_q.get_nowait()
+            except queue.Empty:
+                break
+            if r.finish_reason is None and not r.cancelled:
+                take(r)
+            elif r.finish_reason is None:
+                self._finish(r, r.cancel_reason)
+        self._waiting = deque(r for r in self._waiting if r.id not in rescued)
+        out = [rescued[i] for i in sorted(rescued)]
+        for r in out:
+            r.finish_reason = "failover"
+            if r.id in inflight_ids:
+                r.deaths += 1
+        return out
+
+    def _recover_all(self) -> None:
+        """Full-stop recovery in one critical section (JAX ``_recover_all``
+        with ``_abort_all``): end every request in a program in flight or
+        in a slot "cancelled" (the slots and their blocks are free), drop
+        the programs in flight (their tokens are never fetched) and reset
+        the slots' device state behind them on the engine stream. Waiting
+        requests stay queued."""
+        with self._lock:
+            entries = list(self._inflight) + [e for e in (self._processing,) if e is not None]
+            orphans = [r for e in entries for r in self._entry_requests(e)]
+            orphans += [r for r in self._slot_req if r is not None]
             self._inflight.clear()
+            self._processing = None
+            self._prefilling.clear()
+            self._fetch_fail_streak = 0
+            for r in orphans:
+                if r.finish_reason is None:
+                    self._finish(r, "cancelled")
+            self._slot_req[:] = [None] * self.slots
+            on_card = torch.cuda.stream(self._stream) if self.device.type == "cuda" else contextlib.nullcontext()
+            with on_card:
+                self._tail.zero_()
+                self._active.fill_(False)
+                self._temps.zero_()
+
+    def _drain_pending(self) -> None:
+        """End every waiting or queued request "cancelled" (``_die``)."""
+        with self._lock:
+            waiting, self._waiting = list(self._waiting), deque()
             while True:
                 try:
-                    pending.append(self._admit_q.get_nowait())
+                    waiting.append(self._admit_q.get_nowait())
                 except queue.Empty:
                     break
-            for r in pending:
+            for r in waiting:
                 if r.finish_reason is None:
-                    r.error = self.error
-                    self._finish(r, reason)
+                    self._finish(r, "cancelled")
+
+    def _close_unreachable(self, failed: tuple) -> None:
+        """A failed fetch loses its program's tokens (JAX
+        ``_close_unreachable``): a request it carried that holds no slot
+        (virtually freed) and whose surviving programs in flight cannot
+        finish it would never end — end those "cancelled". Slotted ones get
+        make-up chunks, with a gap in their stream where the lost tokens
+        were."""
+        with self._lock:
+            self._processing = None
+            lost = set(self._entry_requests(failed)) - {r for r in self._slot_req if r is not None}
+            if not lost:
+                return
+            cover: dict = {}
+            for e in self._inflight:
+                if e[0] in ("prefill", "verify"):  # one token each (a verify's guaranteed one)
+                    for r in self._entry_requests(e):
+                        cover[r] = cover.get(r, 0) + 1
+                    continue
+                fin = {r for _j, _s, r in e[2]} if e[0] == "step" else set()
+                k = e[5] if e[0] == "step" else e[3]
+                for r in fin:
+                    cover[r] = cover.get(r, 0) + k + 1
+                for r in e[4] if e[0] == "step" else e[2]:
+                    if r is not None and r not in fin:
+                        cover[r] = cover.get(r, 0) + k
+            for r in lost:
+                if r.finish_reason is None and r.emitted + cover.get(r, 0) < r.max_new_tokens:
+                    self._finish(r, "cancelled")
 
     def _finish(self, r: GenRequest, reason: str) -> None:
         """Terminal bookkeeping: return the slot and its blocks when ``r``
@@ -1512,6 +1954,7 @@ class LLMEngine:
                 free = self._preempt_for_waiting(free)
             if not self._waiting or not free:
                 return False
+            self._fault("admission_oom")  # chaos seam: nothing pulled yet
             pulled = [self._waiting.popleft() for _ in range(min(len(free), len(self._waiting)))]
             hits: list[GenRequest] = []
             partials: list[GenRequest] = []
@@ -1599,6 +2042,7 @@ class LLMEngine:
                 and head.submitted_at is not None and time.perf_counter() - head.submitted_at < self.admit_delay
             ):
                 return False
+            self._fault("admission_oom")  # chaos seam: nothing pulled yet
             pulled = [self._waiting.popleft() for _ in range(min(len(free), len(self._waiting)))]
             hits: list[GenRequest] = []
             misses: list[GenRequest] = []
@@ -1776,7 +2220,7 @@ class LLMEngine:
 
     def _requeue_stranded(self, pulled: list[GenRequest]) -> None:
         """An admission error strands pulled requests that hold no slot:
-        put them back at the head of the queue (where ``_end_all`` finds
+        put them back at the head of the queue (where ``_drain_pending`` finds
         them) and hand back their block promises and plan pins. Lock held."""
         stranded = [
             r for r in pulled
@@ -2217,6 +2661,7 @@ class LLMEngine:
         remains, floored at one chunk. Returns False when every queued
         prefill row turned out stale (cancelled)."""
         K = self.decode_chunk
+        self._fault("device_step")  # before any cursor moves
         with self._work_cv:
             active_n = sum(1 for r in self._slot_req if r is not None and r.prefill_done)
             rows: list[tuple[GenRequest, int]] = []
@@ -2338,6 +2783,7 @@ class LLMEngine:
         only when even it covers the whole remaining demand. Returns the
         chunk's length."""
         k = self._chunk_short if needed <= self._chunk_short else self.decode_chunk
+        self._fault("device_step")
         with self._work_cv:
             snapshot = [r if (r is not None and r.prefill_done) else None for r in self._slot_req]
             steps = self._inflight_steps()
@@ -2438,6 +2884,7 @@ class LLMEngine:
         anywhere (plain chunks then do better)."""
         Kd = self.spec_draft
         W = Kd + 1
+        self._fault("device_step")
         with self._work_cv:
             steps = self._inflight_steps()
             # per slot of the current owner: verifies in flight and the
@@ -2512,19 +2959,21 @@ class LLMEngine:
             return True
 
     def _emit_to(self, r: GenRequest, slot: int, toks: list[int], now: float) -> None:
-        """Append a request's next tokens, honoring max_new/eos/cancel and
-        the -1 non-finite sentinel. Tokens after a finish are dropped.
-        Lock held."""
+        """Append a request's next tokens, honoring max_new/eos/cancel.
+        Tokens after a finish are dropped; the -1 sentinel reaches here
+        only with ``numeric_check`` off (``_numeric_check_fetch``), and
+        streams as it is, as in the JAX engine. Lock held."""
         if r.finish_reason is not None:
+            return
+        if self._died:
+            # a dead engine never emits: its requests are rescued (under
+            # this lock) or ended, and a late emission would race the
+            # continuation's stream on another replica
             return
         finish = None
         if r.cancelled:
             toks, finish = [], r.cancel_reason
         toks = toks[: r.max_new_tokens - r.emitted]
-        if -1 in toks:
-            toks = toks[: toks.index(-1)]
-            r.error = "non-finite logits"
-            finish = "error"
         if r.eos_token >= 0 and r.eos_token in toks:
             toks = toks[: toks.index(r.eos_token) + 1]
             finish = "eos"
@@ -2547,6 +2996,10 @@ class LLMEngine:
 
     # -- collector --------------------------------------------------------
     def _collect_loop(self) -> None:
+        """The collector thread (JAX ``_collect_loop``): each fetch inside
+        the fetch heartbeat (the ``step_latency`` seam too). A fetch that
+        raises loses its entry's tokens (``_close_unreachable``);
+        ``_FETCH_FAIL_LIMIT`` in a row end in ``_die``."""
         try:
             while True:
                 with self._work_cv:
@@ -2572,11 +3025,27 @@ class LLMEngine:
                         if entry[0] != "prefill":  # it carries a decode part
                             self._jumped = False
                     self._processing = entry
-                self._process_entry(entry)
+                try:
+                    with self._hb_fetch.beat(f"fetch:{entry[0]}"):
+                        self._fault_latency()
+                        self._process_entry(entry)
+                    self._fetch_fail_streak = 0
+                except Exception as e:  # noqa: BLE001
+                    if self.logger is not None:
+                        self.logger.error(f"LLM engine fetch failed: {e!r}")
+                    self._fetch_fail_streak += 1
+                    if self._fetch_fail_streak >= self._FETCH_FAIL_LIMIT:
+                        self._die(f"collector failed {self._fetch_fail_streak} fetches in a row: {type(e).__name__}: {e}")
+                        return
+                    self._close_unreachable(entry)
+                finally:
+                    with self._lock:
+                        if self._processing is entry:
+                            self._processing = None
                 self._kick.set()
-        except Exception as e:  # noqa: BLE001 — a dead engine must end every stream
-            self._fail(e)
-            raise
+        finally:
+            if not self._stop:
+                self._die("collector thread exited unexpectedly")
 
     @staticmethod
     def _jump_safe(entry: tuple) -> bool:
@@ -2608,6 +3077,35 @@ class LLMEngine:
         ``_processing`` in the same lock acquisition as the emits."""
         fetch = entry[1]
         toks = fetch.wait()
+        # the numerical watchdog, outside the lock (_die takes it) and
+        # before any emission, on the lanes of live requests
+        if entry[0] == "prefill":
+            toks, tripped = self._numeric_check_fetch(
+                toks, [j for j, (_s, r) in enumerate(entry[2]) if r is not None], "prefill first token"
+            )
+        elif entry[0] == "verify":
+            S, W = self.slots, entry[3]["W"]
+            ys, tripped = self._numeric_check_fetch(
+                toks[: S * W].reshape(S, W).T, [slot for slot, _r in entry[2]], "spec verify"
+            )
+            toks = np.concatenate([ys.T.reshape(-1), toks[S * W :]])
+        else:
+            tripped = False
+            snapshot = entry[4] if entry[0] == "step" else entry[2]
+            if entry[0] == "step" and entry[2]:
+                nb = entry[3]
+                first, tripped = self._numeric_check_fetch(toks[:nb], [j for j, _s, _r in entry[2]], "step first token")
+                toks = np.concatenate([first, toks[nb:]])
+            if not tripped:
+                off = entry[3] if entry[0] == "step" else 0
+                k = entry[5] if entry[0] == "step" else entry[3]
+                cols, tripped = self._numeric_check_fetch(
+                    toks[off:].reshape(k, self.slots), [s for s, r in enumerate(snapshot) if r is not None],
+                    "step decode" if entry[0] == "step" else "decode chunk",
+                )
+                toks = np.concatenate([toks[:off], cols.reshape(-1)])
+        if tripped:
+            return
         now = time.perf_counter()
         if entry[0] == "verify":
             self._process_verify_entry(entry, toks, now)
@@ -2983,14 +3481,23 @@ class LLMEngine:
     # -- device programs ------------------------------------------------------
     def _launch(self, name: str) -> torch.Tensor:
         """Run program family ``name`` on the staged inputs: eagerly on the
-        CPU, as one replay of its captured graph on CUDA. Returns its
-        output (a replay's is the graph's static buffer)."""
-        if self.device.type == "cpu":
-            return self._program(name)[0]()
-        fam = self.families[name]
-        fam.graph.replay()
-        add_launches(fam.launches)
-        return fam.out
+        CPU, as one replay of its captured graph on CUDA, inside the
+        dispatch heartbeat. Returns its output (a replay's is the graph's
+        static buffer). A stopped engine launches nothing (its memory may
+        be on its way out): it raises ``EngineStoppedError``. A launch
+        ends the scheduler's failure streak."""
+        if self._stop:
+            raise EngineStoppedError(f"engine stopped ({self.died_reason or 'closed'})")
+        with self._hb_dispatch.beat(f"dispatch:{name}"):
+            if self.device.type == "cpu":
+                out = self._program(name)[0]()
+            else:
+                fam = self.families[name]
+                fam.graph.replay()
+                add_launches(fam.launches)
+                out = fam.out
+        self._sched_fail_streak = 0
+        return out
 
     def _program(self, name: str) -> tuple:
         """(eager program, kind, arg) of family ``name``, constrained or not."""
@@ -3328,3 +3835,563 @@ class LLMEngine:
         length.copy_(torch.where(sel, length + acc + 1, length))
         self._tail.copy_(torch.where(sel, bonus, self._tail))
         return torch.cat([ys.reshape(-1), acc])
+
+
+def _own_copy(tree, device: torch.device):
+    """A copy of a params tree on ``device`` that shares no storage with
+    ``tree`` (a replica must never read another replica's tensors)."""
+    if isinstance(tree, dict):
+        return {k: _own_copy(v, device) for k, v in tree.items()}
+    if isinstance(tree, QTensor):
+        return QTensor(tree.q.to(device, copy=True), tree.s.to(device, copy=True))
+    return torch.as_tensor(tree).to(device, copy=True)
+
+
+class ReplicatedLLMEngine:
+    """N ``LLMEngine`` replicas behind a per-request router (JAX
+    ``ReplicatedLLMEngine``, llm.py:7336-8624, without rollouts and
+    meshes): each replica holds its own weight copy, KV and threads.
+
+    Routing: "least_loaded" by queued tokens (``load_tokens``, then
+    ``load``), or "round_robin"; a session's next turn prefers the replica
+    that holds it. One ``FairLedger`` serves every replica;
+    ``fleet_max_queue_tokens`` (``TPU_LLM_FLEET_MAX_QUEUE_TOKENS``, 0 off)
+    refuses a submit past the summed queued tokens (batch class at
+    ``TPU_LLM_FLEET_BATCH_FACTOR`` of it) with a Retry-After; router
+    retries draw from a ``RetryBudget`` (``TPU_LLM_RETRY_BUDGET_PER_S``,
+    ``_BURST``). A dying replica's recoverable requests fail over to a
+    live one (``_failover``): each continuation's prompt takes the tokens
+    already streamed, so a greedy stream resumes token for token; up to
+    ``failover_retries`` (``TPU_LLM_FAILOVER_RETRIES``, 2) times, and a
+    request in flight across ``poison_deaths`` (``TPU_LLM_POISON_DEATHS``,
+    2; 0 off) deaths ends "poison". ``supervise`` rebuilds dead replicas
+    (``resilience.ReplicaSupervisor``) behind the canary gate
+    (``TPU_LLM_CANARY``, on), billing each death to the device ledger.
+
+    Placement: one replica per entry of ``devices`` (default: ``replicas``
+    of the engine's device, ``cuda`` unless ``device="cpu"`` is passed).
+    Unlike the JAX fleet, ``devices`` may repeat a device: each replica
+    has a home SEAT (device key, ordinal), occupancy is counted per seat,
+    and the health unit stays the device, so a quarantined card parks
+    every dead slot on it while its live replicas serve on. On distinct
+    devices the policy is the JAX fleet's: a rebuild lands home, else on
+    an alternate device, else parks.
+
+    ``version`` is each slot's model-version label: a continuation that
+    has streamed tokens fails over only to a replica of its version."""
+
+    def __init__(
+        self,
+        cfg,
+        params,
+        *,
+        replicas: int | None = None,
+        devices: list | None = None,
+        router: str = "least_loaded",
+        logger=None,
+        supervise: bool = True,
+        version: str = "v1",
+        failover_retries: int | None = None,
+        fleet_max_queue_tokens: int | None = None,
+        retry_budget_per_s: float | None = None,
+        retry_budget_burst: float | None = None,
+        poison_deaths: int | None = None,
+        canary: bool | None = None,
+        health_ledger: DeviceHealthLedger | None = None,
+        **engine_kw,
+    ):
+        if "meshes" in engine_kw:
+            raise NotImplementedError("ReplicatedLLMEngine: meshes (tensor-parallel replicas) are not ported")
+        if router not in ("least_loaded", "round_robin"):
+            raise ValueError(f"unknown router {router!r}")
+        env = os.environ.get
+        self.router = router
+        self._rr = itertools.count()
+        dev = engine_kw.pop("device", None)
+        if devices is None:
+            devices = [resolve_device(dev)] * (replicas or 1)
+        else:
+            devices = [resolve_device(d) for d in devices]
+            if replicas is not None and len(devices) < replicas:
+                raise ValueError(f"need {replicas} devices for {replicas} replicas, have {len(devices)}")
+        if not devices:
+            raise ValueError("no replicas configured")
+        self.cfg = cfg
+        self.params = params  # the rebuilds' source; each replica copies it
+        self.logger = logger
+        self.label = engine_kw.pop("kv_label", "llm")
+        engine_kw.pop("version", None)
+        self.version = str(version)
+        self._slot_versions = [self.version] * len(devices)
+        self._specs = [{"device": d} for d in devices]
+        self._device_keys = [device_key(d) for d in devices]  # home devices
+        self._current_keys = list(self._device_keys)  # where each slot runs now
+        seen: dict[str, int] = {}
+        self._seats = []  # home seats: (device key, ordinal among the slots on it)
+        for k in self._device_keys:
+            self._seats.append((k, seen.get(k, 0)))
+            seen[k] = seen.get(k, 0) + 1
+        self._home_count = seen
+        self._current_seats = list(self._seats)
+        # every device a rebuild may use: the platform's devices
+        if devices[0].type == "cuda":
+            pool = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+        else:
+            pool = [torch.device("cpu")]
+        self._device_pool = [({"device": d}, device_key(d)) for d in pool]
+        self._session_affinity: OrderedDict[str, int] = OrderedDict()
+        self._session_affinity_cap = 65536
+        if failover_retries is None:
+            failover_retries = int(env("TPU_LLM_FAILOVER_RETRIES", "2"))
+        self.failover_retries = max(0, failover_retries)
+        self.failovers = 0
+        self.failover_errors = 0
+        self._draining = False
+        # one fair ledger for every replica (and every rebuild)
+        fq = engine_kw.get("fair_queuing")
+        if fq is None:
+            fq = env("TPU_LLM_FAIR", "1") != "0"
+        if fq:
+            weights = engine_kw.pop("fair_weights", None)
+            if engine_kw.get("fair_ledger") is None:
+                engine_kw["fair_ledger"] = FairLedger(weights)
+            elif weights:
+                for c, w in weights.items():
+                    engine_kw["fair_ledger"].set_weight(c, w)
+        self.ledger = engine_kw.get("fair_ledger")
+        if fleet_max_queue_tokens is None:
+            fleet_max_queue_tokens = int(env("TPU_LLM_FLEET_MAX_QUEUE_TOKENS", "0") or 0)
+        self.fleet_max_queue_tokens = max(0, int(fleet_max_queue_tokens))
+        self.fleet_batch_factor = min(1.0, max(0.0, float(env("TPU_LLM_FLEET_BATCH_FACTOR", "0.8") or 0.8)))
+        self.fleet_rejected = 0
+        if retry_budget_per_s is None:
+            retry_budget_per_s = float(env("TPU_LLM_RETRY_BUDGET_PER_S", "1.0") or 0.0)
+        if retry_budget_burst is None:
+            retry_budget_burst = float(env("TPU_LLM_RETRY_BUDGET_BURST", "10") or 0.0)
+        self.retry_budget = RetryBudget(retry_budget_per_s, retry_budget_burst)
+        self.retry_budget_exhausted = 0
+        self.health = health_ledger if health_ledger is not None else DeviceHealthLedger(logger=logger)
+        if poison_deaths is None:
+            poison_deaths = int(env("TPU_LLM_POISON_DEATHS", "2") or 0)
+        self.poison_deaths = max(0, int(poison_deaths))
+        self.poisoned = 0
+        if canary is None:
+            canary = env("TPU_LLM_CANARY", "1") != "0"
+        self._canary_enabled = bool(canary)
+        self._canary_ref: dict[str, list[int]] = {}  # a healthy replica's probe tokens, per version
+        self._adapters_host: dict[str, dict] = {}  # re-staged on every rebuild
+        self._engine_kw = engine_kw
+        # one at a time: on one card a capture syncs the device, and the
+        # first build's failure must close what came up
+        self.engines: list[LLMEngine] = []
+        try:
+            for i in range(len(devices)):
+                self.engines.append(self._build_replica(i))
+        except BaseException:
+            for e in self.engines:
+                e.close()
+            raise
+        self.supervisor: ReplicaSupervisor | None = None
+        if supervise:
+            self.supervisor = ReplicaSupervisor(
+                self, interval_s=float(env("TPU_LLM_SUPERVISOR_INTERVAL_S", "0.5")),
+                backoff_s=float(env("TPU_LLM_RESTART_BACKOFF_S", "1.0")),
+                backoff_max_s=float(env("TPU_LLM_RESTART_BACKOFF_MAX_S", "30")),
+            )
+
+    # -- replicas: build, place, gate ---------------------------------------
+    def _build_replica(self, i: int, spec: dict | None = None) -> LLMEngine:
+        """Build (and warm) slot ``i`` on its home seat or on ``spec``'s
+        (the supervisor's placement), with its own weight copy, the
+        failover hook, and the fleet's adapters re-staged. The
+        ``device_sick`` seam refuses a build on a matching device key."""
+        spec = dict(self._specs[i]) if spec is None else dict(spec)
+        spec.pop("seat", None)
+        key = spec_device_key(spec)
+        inj = self._engine_kw.get("fault_injector") or default_injector()
+        if inj.take("device_sick", key) is not None:
+            if self.logger is not None:
+                self.logger.warn(f"fault injection: device_sick fired on {key}")
+            raise InjectedFault(f"device_sick: build refused on {key}")
+        dev = resolve_device(spec["device"])
+        eng = LLMEngine(
+            self.cfg, _own_copy(self.params, dev), logger=self.logger, kv_label=f"{self.label}/r{i}",
+            version=self._slot_versions[i], device=dev, **self._engine_kw,
+        )
+        eng.failover_hook = self._failover
+        if eng.lora_slots:
+            for name, rec in list(self._adapters_host.items()):
+                try:
+                    eng.load_adapter(name, rec["adapter"], version=rec["version"], alpha=rec["alpha"],
+                                     fair_weight=rec["fair_weight"])
+                except Exception as ex:  # noqa: BLE001
+                    if self.logger is not None:
+                        self.logger.warn(f"adapter {name!r} re-stage failed on rebuilt replica: {ex}")
+        return eng
+
+    def _spec_for_rebuild(self, i: int) -> tuple[dict, str] | None:
+        """Placement for rebuilding slot ``i`` (JAX ``_spec_for_rebuild``,
+        by seat): its home seat when the home device is usable (healthy,
+        or on probation behind the canary) and no other live replica sits
+        there; else the first free seat of another usable device; None
+        (park) when there is none."""
+        hkey, hseat = self._device_keys[i], self._seats[i]
+        used = {self._current_seats[j] for j, e in enumerate(self.engines) if j != i and e.alive()}
+        if self.health.usable(hkey) and hseat not in used:
+            return dict(self._specs[i], seat=hseat), hkey
+        for spec, k in self._device_pool:
+            if k == hkey or not self.health.usable(k):
+                continue
+            for n in range(max(1, self._home_count.get(k, 0))):
+                if (k, n) not in used:
+                    return dict(spec, seat=(k, n)), k
+        return None
+
+    def _settle(self, i: int, replacement: LLMEngine, spec: dict, key: str) -> None:
+        """Route to a gated replacement in slot ``i`` (the supervisor's swap)."""
+        self.engines[i] = replacement  # one item assignment: routers see the old or the new
+        self._current_keys[i] = key
+        self._current_seats[i] = spec.get("seat", (key, 0))
+
+    def _canary_check(self, replacement: LLMEngine) -> tuple[bool, str]:
+        """The canary gate: the fixed greedy probe, token-compared with a
+        healthy same-version replica's (cached per version), else judged
+        complete and in-vocabulary; a candidate's own passing tokens seed
+        the reference only when no same-version peer exists."""
+        if not self._canary_enabled:
+            return True, "disabled"
+        v = replacement.version
+        ref = self._canary_ref.get(v)
+        has_peer = False
+        if ref is None:
+            for e in self.engines:
+                if e is replacement or not e.accepting() or e.version != v:
+                    continue
+                has_peer = True
+                try:
+                    ref = e.generate(list(CANARY_PROMPT), max_new_tokens=CANARY_MAX_NEW, temperature=0.0, eos_token=-1)
+                    if len(ref) == CANARY_MAX_NEW:
+                        self._canary_ref[v] = ref
+                        break
+                    ref = None
+                except Exception:  # noqa: BLE001 — a sick reference is no reference
+                    ref = None
+        ok, detail, toks = canary_check(replacement, ref)
+        if ok and ref is None and not has_peer:
+            self._canary_ref[v] = toks
+        return ok, detail
+
+    # -- adapters (fan-out) ----------------------------------------------------
+    def load_adapter(self, name: str, adapter: dict, *, version: str = "v1", alpha: float | None = None,
+                     fair_weight: float | None = None) -> int:
+        """Load ``adapter`` on every live replica and keep it for rebuilds;
+        returns the replicas that took it (raises when none did)."""
+        errs: list[Exception] = []
+        done = 0
+        for e in self.engines:
+            if not e.alive():
+                continue
+            try:
+                e.load_adapter(name, adapter, version=version, alpha=alpha, fair_weight=fair_weight)
+                done += 1
+            except Exception as ex:  # noqa: BLE001
+                errs.append(ex)
+        if not done:
+            raise errs[0] if errs else EngineStoppedError("all replicas dead")
+        self._adapters_host[name] = {"adapter": adapter, "version": str(version), "alpha": alpha,
+                                     "fair_weight": fair_weight}
+        return done
+
+    def publish_adapter(self, staging: str, name: str) -> int:
+        """Commit a staged hot-load on every live replica; returns how many."""
+        done = 0
+        for e in self.engines:
+            if not e.alive():
+                continue
+            try:
+                e.publish_adapter(staging, name)
+                done += 1
+            except Exception:  # noqa: BLE001 — a replica without the staging name
+                pass
+        rec = self._adapters_host.pop(staging, None)
+        if rec is not None:
+            self._adapters_host[name] = rec
+        return done
+
+    def evict_adapter(self, name: str) -> int:
+        """Retire ``name`` on every live replica; returns how many held it."""
+        self._adapters_host.pop(name, None)
+        done = 0
+        for e in self.engines:
+            if not e.alive():
+                continue
+            try:
+                e.evict_adapter(name)
+                done += 1
+            except KeyError:
+                pass
+        return done
+
+    def adapters(self) -> dict:
+        """The first live replica's pool snapshot plus the fleet's names."""
+        lead = next((e for e in self.engines if e.alive()), None)
+        snap = lead.adapters() if lead is not None else {
+            "slots": 0, "resident": {}, "zombies": [], "evictions": 0, "swaps": 0,
+        }
+        return {**snap, "registered": sorted(self._adapters_host)}
+
+    # -- routing ---------------------------------------------------------------
+    def _pick(self, exclude=frozenset(), version: str | None = None) -> LLMEngine:
+        """A replica that accepts work (alive, not draining), not in
+        ``exclude``, of ``version`` when given."""
+        live = [
+            e for e in self.engines
+            if e.accepting() and id(e) not in exclude and (version is None or e.version == version)
+        ]
+        if not live:
+            if any(e.alive() for e in self.engines if version is None or e.version == version):
+                raise EngineDraining("all replicas draining")
+            raise EngineStoppedError(
+                "all replicas dead" if version is None else f"no live replica serves model version {version!r}"
+            )
+        if self.router == "round_robin" or len(live) == 1:
+            return live[next(self._rr) % len(live)]
+        return min(live, key=lambda e: (e.load_tokens(), e.load()))
+
+    def submit(self, req: GenRequest) -> GenRequest:
+        """Route ``req`` (JAX ``ReplicatedLLMEngine.submit``): the fleet's
+        queued-token cap (``EngineOverloaded``), a fast 404 for an adapter
+        no replica holds, session affinity, then the pick; a replica that
+        stopped or began draining between the pick and its submit is
+        retried elsewhere (``EngineStoppedError``, ``EngineDraining``,
+        ``UnknownAdapterError`` are retryable; ``EngineOverloaded`` is not),
+        each retry drawing from the retry budget."""
+        if self.fleet_max_queue_tokens > 0:
+            queued = sum(e.load_tokens() for e in self.engines if e.accepting())
+            cap = self.fleet_max_queue_tokens
+            if req.priority == "batch":
+                cap = int(cap * self.fleet_batch_factor)
+            if queued >= cap:
+                self.fleet_rejected += 1
+                raise EngineOverloaded(
+                    f"fleet queue full ({queued} >= {cap} queued tokens"
+                    + (" at batch-class headroom)" if cap < self.fleet_max_queue_tokens else ")"),
+                    retry_after=self._fleet_retry_after(queued),
+                )
+        if req.adapter and req.adapter not in self._adapters_host:
+            if not any(req.adapter in e.adapters()["resident"] for e in self.engines if e.alive()):
+                raise UnknownAdapterError(req.adapter, self._adapters_host)
+        prefer = None
+        sid = req.session_id
+        if sid:
+            eid = self._session_affinity.get(sid)
+            if eid is not None:
+                prefer = next((e for e in self.engines if id(e) == eid), None)
+                if prefer is not None and not prefer.accepting():
+                    prefer = None
+        tried: set[int] = set()
+        first_err: Exception | None = None
+        for attempt in range(2 * len(self.engines) + 2):
+            if attempt > 0 and not self.retry_budget.take():
+                self.retry_budget_exhausted += 1
+                raise first_err
+            eng = prefer if prefer is not None and id(prefer) not in tried else self._pick(exclude=tried)
+            try:
+                out = eng.submit(req)
+            except (EngineStoppedError, EngineDraining, UnknownAdapterError) as e:
+                first_err = first_err or e
+                tried.add(id(eng))
+                continue
+            if sid:
+                self._session_affinity.pop(sid, None)
+                self._session_affinity[sid] = id(eng)
+                while len(self._session_affinity) > self._session_affinity_cap:
+                    self._session_affinity.popitem(last=False)
+            return out
+        raise first_err or EngineStoppedError("all replicas dead")
+
+    def _fleet_retry_after(self, queued_tokens: int) -> float:
+        """The backlog past the cap at the fleet's pooled throughput (1 s
+        without a measurement)."""
+        tput = self.throughput_tok_s()
+        if tput is None:
+            return 1.0
+        excess = max(0, queued_tokens - self.fleet_max_queue_tokens)
+        return max(0.5, excess / tput) if excess else 1.0
+
+    # -- in-flight failover ------------------------------------------------------
+    def _failover(self, reqs: list[GenRequest]) -> None:
+        """A dying replica's rescued requests (JAX ``_failover``): each
+        re-dispatched to a live replica as a continuation whose prompt
+        holds the tokens already streamed, so the consumer's stream
+        resumes where it stood. A request in flight for ``poison_deaths``
+        deaths ends "poison"; one whose retries or budget are spent, or
+        that finds no live replica (of its version, once it has streamed),
+        ends "error". An overloaded survivor is waited for, up to 5 s for
+        the whole batch."""
+        batch_deadline = time.perf_counter() + 5.0
+        for r in reqs:
+            if self.poison_deaths and r.deaths >= self.poison_deaths:
+                self.poisoned += 1
+                if self.logger is not None:
+                    self.logger.error(f"poison quarantine: request {r.id} implicated in {r.deaths} replica deaths; "
+                                      "failover refused")
+                r.finish_reason = "poison"
+                r.out.put(None)
+                continue
+            r.retries += 1
+            placed = False
+            budget_ok = True
+            if r.retries <= self.failover_retries:
+                budget_ok = self.retry_budget.take()
+                if not budget_ok:
+                    self.retry_budget_exhausted += 1
+            if budget_ok and r.retries <= self.failover_retries:
+                replay_to = r.prefill_pos
+                if r.history:
+                    r.prompt_tokens = list(r.prompt_tokens) + r.history
+                    r.history = []
+                    replay_to = len(r.prompt_tokens)
+                r._replay_pos = max(r._replay_pos, replay_to)
+                # the engine-owned state starts over; the stream carries on
+                r.finish_reason = None
+                r.prefill_pos = r._rows_hi = 0
+                r.prefill_done = False
+                r.slot = None
+                r._load_acct = 0
+                r._kv_limit = r._kv_resv = 0
+                r._kv_plan = r._prefix_entry = None
+                r._g_id = -1
+                r._aid = 0
+                pin = r.engine_version if r.emitted > 0 else None
+                tried: set[int] = set()
+                first_try = True
+                while first_try or time.perf_counter() < batch_deadline:
+                    first_try = False
+                    try:
+                        eng = self._pick(exclude=tried, version=pin)
+                    except (EngineStoppedError, EngineDraining):
+                        break
+                    try:
+                        eng.submit(r)
+                        placed = True
+                        break
+                    except (EngineStoppedError, EngineDraining):
+                        tried.add(id(eng))
+                    except EngineOverloaded:
+                        time.sleep(0.05)
+                    except ValueError:
+                        break  # the continuation no longer fits the cache
+            if placed:
+                self.failovers += 1
+                if self.logger is not None:
+                    self.logger.warn(f"failover: request {r.id} re-dispatched (retry {r.retries}/{self.failover_retries})")
+            else:
+                self.failover_errors += 1
+                r.error = "failover found no live replica (or its retries were spent)"
+                r.finish_reason = "error"
+                r.out.put(None)
+
+    # -- the engine's surface ------------------------------------------------------
+    @property
+    def device(self) -> torch.device:
+        return self.engines[0].device
+
+    def generate(self, prompt_tokens: list[int], **kw) -> list[int]:
+        return self.submit(GenRequest(prompt_tokens, **kw)).tokens()
+
+    def load(self) -> int:
+        return sum(e.load() for e in self.engines)
+
+    def load_tokens(self) -> int:
+        return sum(e.load_tokens() for e in self.engines)
+
+    def throughput_tok_s(self) -> float | None:
+        """Pooled measured throughput of the live replicas."""
+        tput = sum(e.throughput_tok_s() or 0.0 for e in self.engines if e.alive())
+        return tput if tput > 1e-9 else None
+
+    def predicted_wait_s(self) -> float | None:
+        tput = self.throughput_tok_s()
+        return None if tput is None else self.load_tokens() / tput
+
+    def stats(self) -> dict:
+        per = [e.stats() for e in self.engines]
+        sup = self.supervisor
+        return {
+            "replicas": len(per),
+            "replicas_alive": sum(e.alive() for e in self.engines),
+            "router": self.router,
+            "draining": self._draining,
+            "version": self.version,
+            "failovers": self.failovers,
+            "failover_errors": self.failover_errors,
+            "restarts": sup.restarts if sup else 0,
+            "poisoned": self.poisoned,
+            "devices_quarantined": self.health.quarantined_count(),
+            "replicas_parked": sup.parked_count() if sup else 0,
+            "replicas_failed": sup.failed_count() if sup else 0,
+            "preemptions": sum(s["preemptions"] for s in per),
+            "sheds_predicted": sum(s["sheds_predicted"] for s in per),
+            "disconnect_cancels": sum(s["disconnect_cancels"] for s in per),
+            "fleet_rejected": self.fleet_rejected,
+            "fleet_max_queue_tokens": self.fleet_max_queue_tokens,
+            "retry_budget_remaining": round(self.retry_budget.remaining(), 2),
+            "retry_budget_exhausted": self.retry_budget_exhausted,
+            "fairness": self.ledger.snapshot() if self.ledger is not None else None,
+            "adapters": self.adapters(),
+            "slots": sum(s["slots"] for s in per),
+            "active": sum(s["active"] for s in per),
+            "waiting": sum(s["waiting"] for s in per),
+            "max_seq_len": per[0]["max_seq_len"],
+            "decode_chunk": per[0]["decode_chunk"],
+            "load_tokens": self.load_tokens(),
+            "per_replica": per,
+        }
+
+    def debug_state(self) -> dict:
+        return {
+            "router": self.router,
+            "replicas": len(self.engines),
+            "replicas_alive": sum(e.alive() for e in self.engines),
+            "draining": self._draining,
+            "version": self.version,
+            "slot_versions": list(self._slot_versions),
+            "failovers": self.failovers,
+            "failover_errors": self.failover_errors,
+            "failover_retries": self.failover_retries,
+            "fleet_rejected": self.fleet_rejected,
+            "fleet_max_queue_tokens": self.fleet_max_queue_tokens,
+            "retry_budget": {
+                "remaining": round(self.retry_budget.remaining(), 2), "rate_per_s": self.retry_budget.rate,
+                "burst": self.retry_budget.burst, "exhausted": self.retry_budget_exhausted,
+            },
+            "fairness": self.ledger.snapshot() if self.ledger is not None else None,
+            "supervisor": self.supervisor.snapshot() if self.supervisor is not None else None,
+            "health": self.health.snapshot(),
+            "devices": {"home": list(self._device_keys), "current": list(self._current_keys),
+                        "seats": [list(s) for s in self._current_seats]},
+            "poison_deaths": self.poison_deaths,
+            "poisoned": self.poisoned,
+            "canary": self._canary_enabled,
+            "per_replica": [e.debug_state() for e in self.engines],
+        }
+
+    def drain(self) -> None:
+        """Fleet drain: no rebuild from now on, admission closed on every
+        live replica, the work in flight finishes."""
+        self._draining = True
+        for e in self.engines:
+            if e.alive():
+                e.drain()
+
+    def drained(self) -> bool:
+        # aliveness first: a watchdog-killed replica's lock may be wedged
+        return all(not e.alive() or e.drained() for e in self.engines)
+
+    def close(self) -> None:
+        self._draining = True  # a rebuild racing the close must not be routed
+        if self.supervisor is not None:
+            self.supervisor.close()
+        for e in self.engines:
+            e.close()

@@ -46,7 +46,7 @@ import numpy as np
 import torch
 
 from .http.responder import Response, StreamingResponse, to_json_bytes
-from .llm import EngineOverloaded, EngineStoppedError, GenRequest, UnknownAdapterError
+from .llm import EngineDraining, EngineOverloaded, EngineStoppedError, GenRequest, UnknownAdapterError
 from .models.quant import QTensor
 
 __all__ = ["register_openai_routes", "chat_prompt"]
@@ -235,6 +235,10 @@ def register_openai_routes(
         except EngineOverloaded as e:
             raise _OpenAIReject(_openai_error(
                 429, str(e), etype="rate_limit_error", retry_after=e.retry_after,
+            )) from e
+        except EngineDraining as e:
+            raise _OpenAIReject(_openai_error(
+                503, str(e), etype="service_unavailable", retry_after=e.retry_after,
             )) from e
         except EngineStoppedError as e:
             raise _OpenAIReject(_openai_error(503, str(e), etype="service_unavailable")) from e

@@ -1,6 +1,31 @@
 """Resilience pieces of the port (counterpart of gofr_tpu/resilience):
-overload control's fair-queuing ledger and brownout/shed controller."""
+overload control's fair-queuing ledger, brownout/shed controller and the
+fleet's retry budget; fault injection (``faults``), the step watchdog
+(``watchdog``), the device-health ledger and canary gate (``health``) and
+the replica supervisor (``supervisor``). In-flight failover, poison
+quarantine, the numerical watchdog and the graceful drain live in
+``gofr_tpu_torch.llm`` and ``gofr_tpu_torch.app``: they are the engine's
+and the app's lifecycle."""
 
-from .overload import FairLedger, OverloadController
+from .faults import FAULT_POINTS, FaultInjector, InjectedFault, default_injector
+from .health import DeviceHealthLedger, canary_check, device_key, spec_device_key
+from .overload import FairLedger, OverloadController, RetryBudget
+from .supervisor import ReplicaSupervisor
+from .watchdog import Heartbeat, StepWatchdog
 
-__all__ = ["FairLedger", "OverloadController"]
+__all__ = [
+    "FAULT_POINTS",
+    "DeviceHealthLedger",
+    "FairLedger",
+    "FaultInjector",
+    "Heartbeat",
+    "InjectedFault",
+    "OverloadController",
+    "ReplicaSupervisor",
+    "RetryBudget",
+    "StepWatchdog",
+    "canary_check",
+    "default_injector",
+    "device_key",
+    "spec_device_key",
+]

@@ -16,10 +16,9 @@ scheduler:
   with a computed Retry-After. Degrade, then shed, never collapse.
 
 Both take a ``now_fn`` (the controller) or no clock at all (the ledger),
-so tests drive them with faked clocks. Not ported: ``RetryBudget``, the
-router-side token bucket that bounds failover retries — it belongs to
-the replica fleet (``ReplicatedLLMEngine``), which the port does not
-have yet. Plain Python and ``threading``.
+so tests drive them with faked clocks. :class:`RetryBudget` is the replica
+fleet's token bucket that bounds router-side retries (``ReplicatedLLMEngine``).
+Plain Python and ``threading``.
 """
 
 from __future__ import annotations
@@ -28,7 +27,7 @@ import threading
 import time
 from collections import OrderedDict
 
-__all__ = ["FairLedger", "OverloadController"]
+__all__ = ["FairLedger", "OverloadController", "RetryBudget"]
 
 
 class FairLedger:
@@ -178,6 +177,40 @@ class FairLedger:
                 "counters": {c: round(v, 1) for c, v in rows[:32]},
                 "weights": dict(self._weights),
             }
+
+
+class RetryBudget:
+    """Token bucket bounding router-side retries: ``rate`` tokens/s refill
+    up to ``burst``; every retry (a failover re-dispatch, a replica death
+    between pick and submit) must :meth:`take` one. An empty bucket
+    surfaces the original error instead of retrying. ``rate=0`` with
+    ``burst=0`` disables retries."""
+
+    def __init__(self, rate: float = 1.0, burst: float = 10.0, *, now_fn=time.monotonic):
+        self._lock = threading.Lock()
+        self.rate = max(0.0, float(rate))
+        self.burst = max(0.0, float(burst))
+        self._now = now_fn
+        self._tokens = self.burst
+        self._last = self._now()
+
+    def _refill(self, now: float) -> None:
+        if self.rate > 0 and now > self._last:
+            self._tokens = min(self.burst, self._tokens + (now - self._last) * self.rate)
+        self._last = now
+
+    def take(self, n: float = 1.0) -> bool:
+        with self._lock:
+            self._refill(self._now())
+            if self._tokens >= n:
+                self._tokens -= n
+                return True
+            return False
+
+    def remaining(self) -> float:
+        with self._lock:
+            self._refill(self._now())
+            return self._tokens
 
 
 class OverloadController:

@@ -34,7 +34,9 @@ from a ``torch.Generator`` seeded with 0); the tokenizer comes from
 ``GEMMA_TOKENIZER``, else from the ``tokenizer.json`` of a checkpoint
 directory (a missing file logs a warning and keeps the id-only API);
 ``GEMMA_INT8=1`` serves int8 weights; ``LLM_SLOTS`` (4), ``LLM_MAX_SEQ``
-(256); ``TORCH_DEVICE=cpu`` runs on the CPU (default: the GPU, raising
+(256); ``LLM_REPLICAS`` (1; more serves a ``ReplicatedLLMEngine`` of that
+many replicas on the one device, with failover and the supervisor, and
+``TPU_LLM_STEP_WATCHDOG_S`` / ``TPU_LLM_NUMERIC_CHECK`` set the watchdogs); ``TORCH_DEVICE=cpu`` runs on the CPU (default: the GPU, raising
 without one); ``HTTP_PORT`` (8000), ``REQUEST_TIMEOUT`` (5 s);
 ``TPU_LLM_STEP_TOKEN_BUDGET`` (0: the wave scheduler), ``TPU_LLM_PREFILL_CHUNK``
 and ``TPU_LLM_KV_BLOCK`` set the engine's shape knobs;
@@ -132,6 +134,7 @@ def build_engine(app: App, params: dict | None = None) -> tuple[TransformerConfi
         max_seq_len=cfg_.get_int("LLM_MAX_SEQ", 256),
         prefill_buckets=(16, 64, 128),
         quantize=cfg_.get_bool("GEMMA_INT8"),
+        replicas=cfg_.get_int("LLM_REPLICAS", 1),
     )
     return cfg, tok
 

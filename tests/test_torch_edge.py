@@ -286,9 +286,17 @@ def test_register_llm_refuses_unported(weights):
 
     cfg = TT.TransformerConfig.tiny()
     rt = GPURuntime(new_mock_config({"TORCH_DEVICE": "cpu"}))
-    for kw in ({"mesh": object()}, {"replicas": 2}, {"tp_overlap": True}):
+    for kw in ({"mesh": object()}, {"meshes": [object()]}, {"tp_overlap": True}):
         with pytest.raises(NotImplementedError, match=next(iter(kw))):
             rt.register_llm("m", cfg, tp, **kw)
+    # the replica fleet is ported (refused before): replicas=2 builds one,
+    # both replicas on the one device
+    fleet = rt.register_llm("m", cfg, tp, replicas=2, slots=2, max_seq_len=64, warmup=False)
+    try:
+        assert type(fleet).__name__ == "ReplicatedLLMEngine" and len(fleet.engines) == 2
+        assert fleet.debug_state()["devices"]["home"] == ["cpu", "cpu"]
+    finally:
+        fleet.close()
     # the contiguous layouts and their whole-row prefix cache are ported
     # (the prefix cache raised before)
     eng = rt.register_llm("m", cfg, tp, kv_paged=False, prefix_cache_mb=1, slots=2, max_seq_len=64)

@@ -247,13 +247,16 @@ def test_scatter_slots_tensor_values_match_jax():
 
 
 @pytest.mark.parametrize("where", ["scheduler", "collector"])
-@pytest.mark.filterwarnings("ignore::pytest.PytestUnhandledThreadExceptionWarning")  # the thread re-raises
 def test_dead_engine_ends_every_stream(weights, where):
     """A device program that raises (scheduler thread) or a fetch that
-    raises (collector thread) with requests waiting, decoding and in
-    flight: every stream ends once, with the error, and the engine
-    refuses new requests."""
-    from gofr_tpu_torch.llm import EngineStoppedError, RequestFailed
+    raises (collector thread), every time, with requests waiting, decoding
+    and in flight: the per-iteration recovery ends the streams it reaches
+    "cancelled" (as the JAX engine's ``_recover_all`` does), and the third
+    failure in a row ends the engine (``_die``, which the JAX engine
+    reaches only through a dead thread: a fault that never clears must not
+    busy-loop). Every stream ends once, the death names the fault, and the
+    engine refuses new requests."""
+    from gofr_tpu_torch.llm import EngineStoppedError
 
     _jcfg, _jp, tcfg, tp = weights
     port = LLMEngine(tcfg, tp, device="cpu", lookahead=3, **ENGINE_KW)
@@ -281,11 +284,23 @@ def test_dead_engine_ends_every_stream(weights, where):
         port._process_entry = boom
     try:
         reqs = [port.submit(GenRequest(p, max_new_tokens=60)) for p in _prompts(36, (5, 9, 14, 3, 8, 6))]
+        # more work while the engine lives: each failing pass or fetch ends
+        # what it reaches, and the streak grows only while work arrives
+        for p in _prompts(37, (5,) * 6):
+            try:
+                reqs.append(port.submit(GenRequest(p, max_new_tokens=60)))
+            except EngineStoppedError:
+                break
+            t0 = time.perf_counter()
+            while reqs[-1].finish_reason is None and time.perf_counter() - t0 < 10:
+                time.sleep(0.005)
         for r in reqs:
-            with pytest.raises(RequestFailed, match="fault"):
-                r.tokens(timeout=10)
-            assert r.finish_reason == "error"
+            toks = r.tokens(timeout=10)
+            assert len(toks) < 60
+            assert r.finish_reason == "cancelled"
             _ended_once(r)
+        assert not port.alive()
+        assert "fault" in port.died_reason and "in a row" in port.died_reason
         assert "fault" in port.stats()["error"]
         with pytest.raises(EngineStoppedError):
             port.submit(GenRequest([1, 2], max_new_tokens=2))

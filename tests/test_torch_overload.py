@@ -551,34 +551,57 @@ def _serialize_admission(eng, gate: threading.Event) -> None:
     eng._admit = serial
 
 
+def _record_finishes(eng, names: dict) -> list:
+    """The order in which ``eng`` ENDS the requests of ``names`` (request
+    id -> name), recorded where the engine ends a request: the port's
+    ``_finish``, the JAX engine's ``_observe_finish`` (every terminal path
+    of either engine passes there). A consumer thread's wake-up order is
+    the OS's, not the engine's."""
+    order: list[str] = []
+    if isinstance(eng, LLMEngine):
+        finish = eng._finish
+
+        def rec(r, reason):
+            if r.id in names and r.finish_reason is None:
+                order.append(names[r.id])
+            return finish(r, reason)
+
+        eng._finish = rec
+    else:
+        observe = eng._observe_finish
+
+        def rec(r, now, fetch_t=None):
+            if r.id in names:
+                order.append(names[r.id])
+            return observe(r, now, fetch_t=fetch_t)
+
+        eng._observe_finish = rec
+    return order
+
+
 def test_flood_cannot_starve_light_client(weights):
     """Five heavy requests, then two light ones, at slots=1: the light
     client's counter is lowest after the head-of-line heavy request, so
     both light requests finish inside the first four, in the JAX engine's
-    order (FIFO would put them last)."""
+    order (FIFO would put them last). The order is the one in which each
+    engine ends the requests."""
     orders = []
     for eng, R in ((_port(weights), GenRequest), (_jax(weights), JRequest)):
         try:
             gate = threading.Event()
             _serialize_admission(eng, gate)
-            done: list[str] = []
-            lock = threading.Lock()
-            reqs = [(eng.submit(R([7, 3, 5, 2, 9, 4], max_new_tokens=6, client="heavy")), f"h{i}") for i in range(5)]
-            reqs += [(eng.submit(R([6, 1, 8, 2, 4, 3], max_new_tokens=6, client="light")), f"l{i}") for i in range(2)]
-
-            def consume(r, name):
-                r.tokens(timeout=60)
-                with lock:
-                    done.append(name)
-
-            threads = [threading.Thread(target=consume, args=rn) for rn in reqs]
-            for th in threads:
-                th.start()
+            names: dict[int, str] = {}
+            done = _record_finishes(eng, names)
+            reqs = []
+            for client, prompt, n in (("heavy", [7, 3, 5, 2, 9, 4], 5), ("light", [6, 1, 8, 2, 4, 3], 2)):
+                for i in range(n):
+                    r = R(prompt, max_new_tokens=6, client=client)
+                    names[r.id] = f"{client[0]}{i}"
+                    reqs.append(eng.submit(r))
             gate.set()
-            for th in threads:
-                th.join(timeout=60)
-            assert not any(th.is_alive() for th in threads)
-            orders.append(done)
+            for r in reqs:
+                assert len(r.tokens(timeout=60)) == 6
+            orders.append(list(done))
             if isinstance(eng, LLMEngine):
                 _idle(eng)
         finally:
