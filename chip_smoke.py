@@ -1,6 +1,6 @@
 """GPU smoke run of the PyTorch/CUDA port (gofr_tpu_torch) on one card.
 
-    python3 chip_smoke.py [--parent TREE] [--only families|moe|contiguous|wave|knobs|mnist|fleet]
+    python3 chip_smoke.py [--parent TREE] [--only families|moe|contiguous|wave|knobs|mnist|fleet|rollout|disagg]
 
 Phases, each raising on failure:
 
@@ -63,7 +63,7 @@ Phases, each raising on failure:
    family captured in the phase, nothing held once idle, both kernels
    launched;
 6. int8 engine — the same through LLMEngine(kv_int8=True, quantize=True)
-   on the same weights: int8 weights and an int8 KV pool read by the
+   on the same weights' first CUT_LAYERS layers: int8 weights and an int8 KV pool read by the
    int8 paged-decode kernel; every served token checked against the
    plain forward on the same int8 weights, under a gap constant set from
    this path's measured logit drift;
@@ -101,7 +101,7 @@ Phases, each raising on failure:
    launch during the phase. Prints an "edge" line: tok/s and the
    client's time to first byte beside the engine phase's numbers;
 9. prefix — the prefix cache and the session tier at the same full
-   width: LLMEngine(prefix_cache_mb=64, session_mb=64, host_cache_mb=256),
+   width and CUT_LAYERS of 18 layers: LLMEngine(prefix_cache_mb=64, session_mb=64, host_cache_mb=256),
    its 15 families (kv_seed and the hit programs too) held bitwise
    against their eager programs; a chat service's traffic on one seeded
    320-token system prompt S: burst A (S + 8 suffixes of 16-64 tokens:
@@ -113,7 +113,7 @@ Phases, each raising on failure:
    unified steps, prompt tokens packed and blocks shared per burst, and
    the spill and restore times;
 10. prefix int8 — four requests through a partial/exact pair on an int8
-   KV pool (tail copies move the f32 scales; the int8 kernel decodes
+   KV pool (CUT_LAYERS of 18 layers) (tail copies move the f32 scales; the int8 kernel decodes
    over shared blocks);
 11. spec — speculative decoding at the same full width:
    LLMEngine(speculative=True, spec_draft=4), its 11 families (the verify
@@ -214,7 +214,8 @@ Phases, each raising on failure:
    attention is plain, as the JAX reference's einsums are);
 16. wave — the monolithic wave scheduler (step_token_budget=0) and the
    whole-row prefix cache of the contiguous layouts, after the structured
-   phase: Gemma-2B at the defaults plus step_token_budget=0 (the pool
+   phase: Gemma-2B (CUT_LAYERS of 18 layers) at the defaults plus
+   step_token_budget=0 (the pool
    under "auto"; warmup of every llm.prefill_b{bucket}.w{nb} graph, each
    the prefill fused with the insert and the first tokens; every family
    bitwise its eager program, the lazy max_seq_len bucket's too), the
@@ -233,9 +234,9 @@ Phases, each raising on failure:
    tokens in a wave at the 8,192 bucket (flash over the 4096 band, then
    ring_pack; lengths past the ring's 4,104 rows), every token through
    the replay gate with the window mask ("wave_launches");
-17. knobs — the engine's shape knobs on Gemma-2B at full width and 9
-   of its 18 layers (bf16, the same weights' first 9; all 18 until the
-   fleet phase needed the time): a wide deployment (decode_chunk=16,
+17. knobs — the engine's shape knobs on Gemma-2B at full width and
+   KNOB_LAYERS of its 18 layers (bf16, the same weights' first ones; all
+   18 until the fleet phase needed the time): a wide deployment (decode_chunk=16,
    prefill_chunk=128, step_token_budget=512, kv_block=32) and a narrow
    one (decode_chunk=4, prefill_chunk=32, step_token_budget=128,
    kv_block=8, kv_int8=True: the int8 paged kernel at 8-row blocks), then
@@ -253,8 +254,9 @@ Phases, each raising on failure:
    and 256 and the verify width 33;
 18. fleet — the replica fleet and its recovery, after the knobs phase:
    gofr_tpu_torch.serve's app with LLM_REPLICAS=2 (GPURuntime.register_llm
-   builds a ReplicatedLLMEngine: two Gemma-2B replicas at the engine
-   defaults, each with its own weight copy and graphs, on the one card)
+   builds a ReplicatedLLMEngine: two Gemma-2B replicas, FLEET_LAYERS of
+   its 18 layers (the first ones of the shared weights), at the
+   engine defaults, each with its own weight copy and graphs, on the one card)
    and TPU_LLM_STEP_WATCHDOG_S=3; each replica's warmup and the memory
    after the build. The burst through the fleet (tok/s beside the engine
    phase's, every token through the replay gate; "fleet_launches"). Then
@@ -272,7 +274,44 @@ Phases, each raising on failure:
    card then refuses the rebuild (device_sick) until the slot parks and
    health reads "degraded"; POST /.well-known/debug/drain turns health to
    503, liveness stays 200, and the server closes;
-19. mnist — the plain-model path: gofr_tpu_torch.serve_mnist's app over
+19. rollout — zero-downtime rollouts, on a fresh fleet (its own device
+   ledger): gofr_tpu_torch.serve's app with LLM_REPLICAS=2 over a
+   Gemma-2B cut to ROLLOUT_LAYERS of its 18 layers (full width), v1
+   weights from the seed. The v1 burst's streams (gated against the plain
+   v1 forward); a v2 checkpoint (other seeded weights) written in the HF
+   Gemma layout under build/; with the 8-request burst in flight and a
+   client sending bursts, POST /.well-known/debug/rollout: every
+   in-flight stream finishes on v1, equal to its unfaulted stream or
+   leaving it at a near-tie; GET reaches "completed" with versions
+   {"v2": 2}; no client request fails or ends short, and ROLLOUT_GATED
+   streams of each version pass the gate against its plain forward; the v2 burst passes the
+   gate against the plain v2 forward ("rollout_launches": from the v1
+   burst to the v2 burst). A redeploy with rollout_canary_fail armed
+   ends "rolled_back", fully on v2, with no failed request;
+   memory_reserved after each within one replica's footprint of the
+   level before the deploy. (The bare engine's blue-green swap is held by
+   the CPU tests only, for the script's time.) Both versions have an
+   untied random head: a tied random model repeats its input token under
+   any seed;
+20. disagg — register_llm(disagg=True, replicas=2): a prefill replica
+   and a decode replica of Gemma-2B (DISAGG_LAYERS of 18 layers, full
+   width, an untied random head) on the one card. The main burst
+   (handed off device to device) against the colocated engine's streams
+   (equal, or leaving them at a near-tie; every token gated), 8 handoffs
+   ok, no miss, no fallback; the launches per pool from each engine's own
+   replays by family, summing to the counters ("disagg_launches"): the
+   decode pool launches no flash kernel; the K/V bytes moved and the
+   submit-to-decode-admit wall per request. The burst again
+   host-staged (TPU_LLM_KV_HANDOFF_D2D=0): each import's blocks and
+   logits, read back from the decode pool, byte-identical to the d2d
+   import's. Then the 8 handoffs again on 4 threads while the decode
+   engine's stream runs HANDOFF_DELAY_CYCLES behind (every import
+   returns, and its payload is dropped, before that stream reads it):
+   each decode-pool record's logits byte-identical to the prefill
+   pool's record of the same prompt. Then the decode replica killed as a
+   burst starts: every stream ends right through the colocated fallback
+   (fallbacks > 0);
+21. mnist — the plain-model path: gofr_tpu_torch.serve_mnist's app over
    the MLP at its published widths (784 -> (512, 256) -> 10, bf16, random
    weights from the seed), registered through GPURuntime.register_model
    (warmed at every power-of-two bucket to 64); 2,000 single-example
@@ -282,7 +321,7 @@ Phases, each raising on failure:
    its image (MNIST_ATOL), GET /model listing the model. No kernel of the
    port runs here: the MLP's products are cuBLAS calls, as JAX's are XLA
    dots outside any Pallas kernel;
-20. report — a "kernels" JSON line (launches on the engine phase's main
+22. report — a "kernels" JSON line (launches on the engine phase's main
    path, in the prefix phases as "prefix_launches", in the spec phases as
    "spec_launches", in the structured phase as "structured_launches", in
    the overload phase as "overload_launches", in the lora phase as
@@ -291,7 +330,9 @@ Phases, each raising on failure:
    first burst and its int8 run as "moe_launches", in the contiguous
    phase's bursts as "contiguous_launches", in the wave phase's as
    "wave_launches", in the knobs phase's as "knobs_launches", in the
-   fleet phase's unfaulted burst as "fleet_launches";
+   fleet phase's unfaulted burst as "fleet_launches", in the rollout
+   phase as "rollout_launches", in the disagg phase's main burst by pool as
+   "disagg_launches";
    flash_attention_prompt is the flash kernel's
    full-prompt mode, row 2, whose main path is the wave's burst), then
    the last line {"ok": true, "device": {...}}.
@@ -351,6 +392,7 @@ from gofr_tpu_torch.ops import attention as A
 from gofr_tpu_torch.structured import compile_json_schema, compile_regex, vocab_from_tokenizer
 
 SEED = 0  # inputs, weights and prompts are all made from it
+CUT_LAYERS = 9  # the int8, prefix, spec, structured and wave (Gemma) phases' depth (of Gemma-2B's 18, full width)
 
 # Tolerances (kernel vs its plain version on the same inputs).
 # float32: both sides accumulate in f32 and differ only in summation order.
@@ -1275,6 +1317,13 @@ def gemma_weights(seed: int) -> tuple[TransformerConfig, dict]:
     return cfg, params
 
 
+def _first_layers(cfg, params: dict, n: int) -> tuple[TransformerConfig, dict]:
+    """The model cut to its first ``n`` layers at full width: views of the
+    stacked layer tensors, no copy (a phase's depth cut for the script's
+    time)."""
+    return dataclasses.replace(cfg, n_layers=n), {**params, "layers": {k: v[:n] for k, v in params["layers"].items()}}
+
+
 def _replay_gate(params, cfg, prompts, results, gap: float, label: str = "", verbose: bool = True,
                  stats: dict | None = None, aid: int | None = None) -> tuple[int, int]:
     """Every served token against greedy decoding by the plain full-prompt
@@ -1825,7 +1874,9 @@ def _int8_path_drift(cfg, qparams, prompt, capacity, block, steps=8):
 
 def phase_engine_int8(dev: dict, seed: int, cfg: TransformerConfig, params: dict) -> dict:
     """The engine bursts with int8 weights (the bf16 phase's, quantized at
-    construction) and an int8 KV pool."""
+    construction) and an int8 KV pool, at CUT_LAYERS of Gemma-2B's 18
+    layers."""
+    cfg, params = _first_layers(cfg, params, CUT_LAYERS)
     bf16_bytes = _tensor_bytes(params)
     eng = LLMEngine(cfg, params, seed=seed, kv_int8=True, quantize=True)
     qparams = eng.params
@@ -2304,7 +2355,9 @@ def phase_prefix(dev: dict, seed: int, cfg: TransformerConfig, params: dict) -> 
     conversations: turn 1, publish, a forced spill of all 4 to host
     memory, and turn 2 (turn 1 + its 32 tokens + 16 new ones: 4
     restores). Every served token through the replay gate; both kernels
-    must launch in the phase's replays; no pin may leak."""
+    must launch in the phase's replays; no pin may leak. At CUT_LAYERS of
+    Gemma-2B's 18 layers."""
+    cfg, params = _first_layers(cfg, params, CUT_LAYERS)
     rng = np.random.default_rng(seed + 8)
 
     def toks(n):
@@ -2421,7 +2474,9 @@ def phase_prefix_int8(dev: dict, seed: int, cfg: TransformerConfig, params: dict
     (kv_int8=True, prefix_cache_mb=64): the exact hits' tail copies move
     the int8 rows with their f32 scales, and the int8 paged kernel decodes
     over shared blocks. Tokens through the replay gate with the int8
-    phase's gap (at most 1 in 8 exempt)."""
+    phase's gap (at most 1 in 8 exempt). At CUT_LAYERS of Gemma-2B's 18
+    layers."""
+    cfg, params = _first_layers(cfg, params, CUT_LAYERS)
     rng = np.random.default_rng(seed + 9)
     system = rng.integers(1, cfg.vocab_size, PREFIX_SYSTEM).tolist()
     prompts = [system + rng.integers(1, cfg.vocab_size, n).tolist() for n in PREFIX_SUFFIXES[1::2]]
@@ -2561,7 +2616,9 @@ def phase_spec(dev: dict, seed: int, cfg: TransformerConfig, params: dict) -> di
     (d)'s streams only at near-ties; (b) accepts >= 90% of its proposals;
     (c) accepts none and runs plain chunks; the flash kernel launches once
     per layer in every verify and unified step; no block in use once
-    idle. Then ``spec int8``: 4 requests with the oracle on kv_int8=True."""
+    idle. Then ``spec int8``: 4 requests with the oracle on kv_int8=True.
+    At CUT_LAYERS of Gemma-2B's 18 layers."""
+    cfg, params = _first_layers(cfg, params, CUT_LAYERS)
     rng = np.random.default_rng(seed + 10)
     passages = [rng.integers(1, cfg.vocab_size, n).tolist() for n in SPEC_PASSAGES]
     prompts = [p + p[:16] for p in passages]
@@ -2806,7 +2863,9 @@ def phase_structured(dev: dict, seed: int, cfg: TransformerConfig, params: dict)
     and DFA states set; (e) once idle, no block in use and no grammar
     reference held. Then a speculating engine on the greedy burst (its
     tokens those of the spec-off engine, near-ties exempt) and an int8 KV
-    engine with 2 constrained requests."""
+    engine with 2 constrained requests. At CUT_LAYERS of Gemma-2B's 18
+    layers."""
+    cfg, params = _first_layers(cfg, params, CUT_LAYERS)
     tok = ByteTokenizer(cfg.vocab_size)
     vocab = vocab_from_tokenizer(tok)
     t0 = time.perf_counter()
@@ -4330,6 +4389,7 @@ def phase_wave(dev: dict, seed: int, cfg=None, params=None) -> dict:
     readings and its kernel launches by label."""
     if params is None:
         cfg, params = gemma_weights(seed)
+    cfg, params = _first_layers(cfg, params, CUT_LAYERS)
     clock: dict = {}
     out = {}
     for name, fn, args in (("gemma", _wave_gemma, (cfg, params)), ("slab prefix", _wave_slab_prefix, (cfg, params)),
@@ -4471,7 +4531,7 @@ def _knob_engine(dev: dict, seed: int, cfg, params, label: str, kw: dict, prompt
     return out
 
 
-KNOB_LAYERS = 9  # of Gemma-2B's 18 (all 18 until the fleet phase took its time)
+KNOB_LAYERS = 6  # of Gemma-2B's 18 (all 18 until the fleet phase took its time, then 9)
 
 
 def phase_knobs(dev: dict, seed: int, cfg=None, params=None) -> dict:
@@ -4597,6 +4657,7 @@ def phase_mnist(dev: dict, seed: int) -> dict:
 FLEET_WATCHDOG_S = 3.0  # the fleet's step watchdog: far above a step's ~0.1 s, under the phase's budget
 FLEET_PINNED = 4  # requests pinned to the replica that is killed
 FLEET_PINNED_NEW = 96  # their new tokens: every stream is mid-decode at the fault
+FLEET_LAYERS = 6  # of Gemma-2B's 18 (full width), for the script's time
 FLEET_REBUILD_BURSTS = 3  # survivor bursts served while a replica is rebuilt
 
 
@@ -4672,6 +4733,7 @@ def phase_fleet(dev: dict, seed: int, cfg=None, params=None, main: dict | None =
     Returns its readings and the launches of its unfaulted burst."""
     if params is None:
         cfg, params = gemma_weights(seed)
+    cfg, params = _first_layers(cfg, params, FLEET_LAYERS)
     from gofr_tpu_torch.config import new_mock_config
     from gofr_tpu_torch.resilience import default_injector, device_key
     from gofr_tpu_torch.serve import build_app
@@ -4693,9 +4755,9 @@ def phase_fleet(dev: dict, seed: int, cfg=None, params=None, main: dict | None =
     thread = app.run_in_background()
     port = app.http_server.port
     try:
-        rep = app.container.tpu().llm("gemma")
-        if type(rep).__name__ != "ReplicatedLLMEngine" or len(rep.engines) != 2:
-            raise AssertionError(f"register_llm(replicas=2) built {type(rep).__name__}")
+        rep = app.container.tpu().llm("gemma")  # the model's handle: the fleet's surface passes through
+        if type(rep.engine).__name__ != "ReplicatedLLMEngine" or len(rep.engines) != 2:
+            raise AssertionError(f"register_llm(replicas=2) built {type(rep.engine).__name__}")
         out["warmup"] = [_warm_report(f"fleet r{i} ", e) for i, e in enumerate(rep.engines)]
         mem1 = _fleet_memory("after building 2 replicas")
         lead = rep.engines[0]
@@ -4719,7 +4781,7 @@ def phase_fleet(dev: dict, seed: int, cfg=None, params=None, main: dict | None =
         checked, exempt = _replay_gate(params, cfg, prompts, want, TOKEN_GAP, label="fleet ", verbose=False)
         out["tok_s"] = total / wall
         print(f"fleet burst on {dev['smi']}: 2 replicas, {total} tokens in {wall:.3f}s = {out['tok_s']:.1f} tok/s "
-              f"(one engine, engine phase: {main['tok_s'] if main else float('nan'):.1f}); ttft p50 {ttfts[len(ttfts) // 2]:.3f}s; "
+              f"(one 18-layer engine, engine phase: {main['tok_s'] if main else float('nan'):.1f}); ttft p50 {ttfts[len(ttfts) // 2]:.3f}s; "
               f"requests per replica {[e.submitted for e in rep.engines]}; replay gate {checked} matched, "
               f"{exempt} exempt; launches {out['launches']}")
 
@@ -4844,12 +4906,442 @@ def phase_fleet(dev: dict, seed: int, cfg=None, params=None, main: dict | None =
     return out
 
 
+ROLLOUT_LAYERS = 4  # of Gemma-2B's 18, full width: the rollout phase builds 6 engines
+DISAGG_LAYERS = 4  # and the disagg phase 3
+ROLLOUT_BAKE_S = 2.0
+HANDOFF_DELAY_CYCLES = 1_500_000_000  # the decode stream's head start in the disagg phase: ~0.8 s of SM clock
+ROLLOUT_TRAFFIC_NEW = 16  # new tokens of each request the clients send through a shift
+ROLLOUT_GATED = 24  # client streams per version through the replay gate (evenly spaced; all are checked whole)
+
+
+def _rollout_weights(cfg, seed: int) -> dict:
+    """Random weights with an untied random head: a tied random model
+    answers its input token again under any seed, so two versions would
+    serve the same streams. The head's std 1 / sqrt(d) keeps logits near
+    std 1, where one bf16 step is 1/32 or finer: at std 1 (the CPU tests'
+    tiny head) Gemma's width puts them in the hundreds (a step of 1.0), at
+    4 / sqrt(d) near 16-32 (a step of 0.125), and bf16 rounding across the
+    served path's chunkings then moves a top-2 gap past the replay gate's
+    0.25."""
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(seed), "cuda")
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    head = torch.randn(cfg.vocab_size, cfg.d_model, generator=g, device="cuda") / math.sqrt(cfg.d_model)
+    params["unembed"] = head.to(cfg.dtype)
+    return params
+
+
+def _hf_llama_tensors(params: dict, cfg) -> dict:
+    """The port's tree in the HF layout the Llama mapper reads (the inverse
+    of ``llama_params_from_hf``, which also takes an untied
+    ``lm_head.weight``): linear weights as [out, in], K and V split out of
+    ``wkv``, norms stored as HF's scale (ours + 1, float32: exact for the
+    zero norms of ``init_params``)."""
+    d, hd, hkv, lay = cfg.d_model, cfg.head_dim, cfg.n_kv_heads, params["layers"]
+    t = {"model.embed_tokens.weight": params["embed"], "lm_head.weight": params["unembed"],
+         "model.norm.weight": params["final_norm"].float() + 1.0}
+    for i in range(cfg.n_layers):
+        p = f"model.layers.{i}."
+        for leaf, hf in (("wq", "self_attn.q_proj"), ("wo", "self_attn.o_proj"), ("w_gate", "mlp.gate_proj"),
+                         ("w_up", "mlp.up_proj"), ("w_down", "mlp.down_proj")):
+            t[p + hf + ".weight"] = lay[leaf][i].T
+        kv = lay["wkv"][i].view(d, hkv, 2, hd)
+        for j, hf in enumerate(("self_attn.k_proj", "self_attn.v_proj")):
+            t[p + hf + ".weight"] = kv[:, :, j].reshape(d, hkv * hd).T
+        t[p + "input_layernorm.weight"] = lay["attn_norm"][i].float() + 1.0
+        t[p + "post_attention_layernorm.weight"] = lay["mlp_norm"][i].float() + 1.0
+    return t
+
+
+def _rollout_clients(handle, prompts, stop: threading.Event) -> tuple[threading.Thread, dict]:
+    """A client serving ``prompts`` as bursts of ROLLOUT_TRAFFIC_NEW tokens
+    until ``stop``: it counts bursts and failed requests (an exception, or
+    a stream cut short), keeps each stream under the version of the
+    replica that served it, and the highest memory_reserved it saw."""
+    log: dict = {"bursts": 0, "failed": [], "streams": {}, "peak": torch.cuda.memory_reserved()}
+
+    def run():
+        while not stop.is_set():
+            try:
+                res, reqs, _w = _serve(handle, prompts, ROLLOUT_TRAFFIC_NEW)
+            except BaseException as e:  # a failed request: the phase fails on it below
+                log["failed"].append(repr(e))
+                continue
+            for i, r in reqs.items():
+                if r.finish_reason != "length" or len(res[i]) != ROLLOUT_TRAFFIC_NEW:
+                    log["failed"].append(f"request {i}: {r.finish_reason}, {len(res[i])} tokens")
+                log["streams"].setdefault(r.engine_version, []).append((i, res[i]))
+            log["bursts"] += 1
+            log["peak"] = max(log["peak"], torch.cuda.memory_reserved())
+
+    th = threading.Thread(target=run, name="rollout-clients", daemon=True)
+    th.start()
+    return th, log
+
+
+def _rollout_clients_end(th, stop, log: dict, weights: dict, cfg, prompts, label: str) -> None:
+    """Stop the clients; no request may have failed, and ROLLOUT_GATED
+    streams of each version, spread over the run, must pass the replay
+    gate against that version's plain forward."""
+    stop.set()
+    th.join(timeout=600)
+    if log["failed"]:
+        raise AssertionError(f"{label}failed requests: {log['failed'][:5]}")
+    gated = {}
+    for v, streams in sorted(log["streams"].items()):
+        pick = streams[:: max(1, -(-len(streams) // ROLLOUT_GATED))]
+        c, e = _replay_gate(weights[v], cfg, [prompts[i] for i, _t in pick],
+                            {j: t for j, (_i, t) in enumerate(pick)}, TOKEN_GAP, label=f"{label}{v} ", verbose=False)
+        gated[v] = (len(streams), len(pick), c, e)
+    print(f"{label}clients: {log['bursts']} bursts of {len(prompts)} requests, 0 failed; by version (requests, "
+          f"gated, tokens matched, exempt) {gated}; peak memory_reserved {log['peak']} bytes")
+
+
+def _rollout_wait(port: int, label: str, seconds: float = 600.0) -> dict:
+    """GET /.well-known/debug/rollout until the model's rollout is terminal."""
+    t0 = time.perf_counter()
+    while True:
+        status, raw, _, _ = _http(port, "GET", "/.well-known/debug/rollout")
+        if status != 200:
+            raise AssertionError(f"{label}GET rollout: {status} {raw[:200]!r}")
+        view = json.loads(raw)["data"]["models"]["gemma"]
+        if view["rollout"] is not None and view["rollout"]["state"] not in ("idle", "shifting", "baking",
+                                                                            "rolling_back"):
+            return view
+        if time.perf_counter() - t0 > seconds:
+            raise TimeoutError(f"{label}rollout not terminal in {seconds} s: {view['rollout']}")
+        time.sleep(0.2)
+
+
+def phase_rollout(dev: dict, seed: int) -> dict:
+    """Zero-downtime rollouts (see the module docstring). Returns its
+    readings and the launches from the v1 burst to the v2 burst."""
+    from gofr_tpu_torch.config import new_mock_config
+    from gofr_tpu_torch.resilience import default_injector
+    from gofr_tpu_torch.serve import build_app
+
+    cfg = dataclasses.replace(TransformerConfig.gemma_2b(), n_layers=ROLLOUT_LAYERS)
+    weights = {v: _rollout_weights(cfg, seed + k) for v, k in (("v1", 101), ("v2", 103))}
+    torch.cuda.synchronize()
+    inj = default_injector()
+    ckdir = Path("build") / "rollout_ckpt"
+    out: dict = {}
+    mem0 = _fleet_memory("before the rollout fleet")
+    app = build_app(new_mock_config({
+        "HTTP_PORT": "0", "GEMMA_PRESET": "2b", "LLM_SLOTS": "32", "LLM_MAX_SEQ": "512", "LLM_REPLICAS": "2",
+        "REQUEST_TIMEOUT": "600", "LOG_LEVEL": "WARN",
+    }), params=weights["v1"])
+    thread = app.run_in_background()
+    port = app.http_server.port
+    try:
+        h = app.container.tpu().llm("gemma")
+        rep = h.engine
+        if type(h).__name__ != "ModelHandle" or type(rep).__name__ != "ReplicatedLLMEngine" or len(rep.engines) != 2:
+            raise AssertionError(f"rollout: register_llm built {type(h).__name__} over {type(rep).__name__}")
+        mem1 = _fleet_memory(f"rollout: 2 replicas of a {ROLLOUT_LAYERS}-layer Gemma-2B built (a fresh device "
+                             f"ledger: {rep.health.quarantines} quarantines)")
+        lead = rep.engines[0]
+        footprint = _tensor_bytes(lead.params) + _pool_bytes(lead.kv) + (lead.warmup_reserved[1] - lead.warmup_reserved[0])
+        print(f"rollout: one replica's footprint {footprint} bytes (weights {_tensor_bytes(lead.params)}); the "
+              f"build added {mem1 - mem0}; warmup_s {[e.warmup_s for e in rep.engines]}")
+        del lead
+        h.generate([1, 2, 3], max_new_tokens=4)
+        _plens, prompts = _burst_prompts(cfg, seed)
+        new_tokens = 32
+
+        # 1. the v1 burst: the unfaulted streams the in-flight ones are held to
+        _zero_launches(KERNEL_COUNTERS)
+        want, _r, wall = _serve(h, prompts, new_tokens)
+        c, e = _replay_gate(weights["v1"], cfg, prompts, want, TOKEN_GAP, label="rollout v1 ", verbose=False)
+        print(f"rollout v1 burst: {sum(map(len, want.values())) / wall:.1f} tok/s, gate {c} matched, {e} exempt")
+
+        # 2. the v2 checkpoint, written in the HF layout (Llama naming: it
+        # carries the untied head)
+        ckdir.mkdir(parents=True, exist_ok=True)
+        ckpt = ckdir / "model.safetensors"
+        t0 = time.perf_counter()
+        _write_safetensors(str(ckpt), _hf_llama_tensors(weights["v2"], cfg))
+        print(f"rollout: v2 checkpoint {ckpt.stat().st_size} bytes written in {time.perf_counter() - t0:.2f}s")
+        # the written tree leaves the card: the fleet serves what the POST loads
+        written = {k: ({n: x.cpu() for n, x in v.items()} if isinstance(v, dict) else v.cpu())
+                   for k, v in weights.pop("v2").items()}
+
+        # 3. the POST with 8 v1 streams in flight and clients sending traffic
+        reqs = [h.submit(GenRequest(p, max_new_tokens=new_tokens)) for p in prompts]
+        join = _consume(reqs)
+        _wait_until(lambda: all(r.emitted > 0 for r in reqs), 120, "rollout: the burst's first tokens")
+        stop = threading.Event()
+        clients, log = _rollout_clients(h, prompts[:4], stop)
+        mem_pre = _fleet_memory("rollout: before the deploy (v1 retained; 8 streams in flight)")
+        t0 = time.perf_counter()
+        status, raw, _, post_s = _http(port, "POST", "/.well-known/debug/rollout", {
+            "model": "gemma", "checkpoint": str(ckpt), "family": "llama", "bake_s": ROLLOUT_BAKE_S})
+        if status != 201 or json.loads(raw)["data"]["rollout"]["to_version"] != "v2":
+            raise AssertionError(f"rollout POST: {status} {raw[:300]!r}")
+        got, _ends = join()
+        late = [i for i, r in enumerate(reqs) if r.finish_reason != "length" or r.engine_version != "v1"]
+        if late:
+            raise AssertionError(f"rollout: in-flight streams {late} did not finish on v1")
+        equal = sum(got[i] == want[i] for i in got)
+        differ = _divergence_at_near_ties(weights["v1"], cfg, prompts, got, want, TOKEN_GAP, "rollout in-flight ")
+        c_in, e_in = _replay_gate(weights["v1"], cfg, prompts, got, TOKEN_GAP, label="rollout in-flight ",
+                                  verbose=False)
+        view = _rollout_wait(port, "rollout ")
+        shift_s = time.perf_counter() - t0
+        loaded = rep._versions["v2"][1]  # what the POST loaded, and v2's replicas copied
+        flat = lambda t: [t["embed"], t["unembed"], t["final_norm"], *(t["layers"][k] for k in sorted(t["layers"]))]  # noqa: E731
+        bitwise = all(torch.equal(a.cpu(), b) for a, b in zip(flat(loaded), flat(written)))
+        del written
+        weights["v2"] = loaded
+        _rollout_clients_end(clients, stop, log, weights, cfg, prompts[:4], "rollout shift ")
+        # the fleet dropped v1 at the commit; so does the phase (v1 is made
+        # again from its seed for the swap below)
+        v1_gate = weights.pop("v1")
+        snap = view["rollout"]
+        if snap["state"] != "completed" or view["versions"] != {"v2": 2} or rep.version_counts() != {"v2": 2}:
+            raise AssertionError(f"rollout: {snap['state']} {view['versions']} {snap['history']}")
+        print(f"rollout: POST answered 201 in {post_s:.3f}s; {len(reqs)} v1 streams in flight at the POST finished on "
+              f"v1, {equal} equal to the unfaulted v1 burst, {differ} leave it at a near-tie (gate {c_in} matched, "
+              f"{e_in} exempt); GET reached {snap['state']} {shift_s:.1f}s after the POST (bake {ROLLOUT_BAKE_S}s), "
+              f"versions {view['versions']}, retained {sorted(rep._versions)}; the loaded tree bitwise the written "
+              f"one: {bitwise}; history {snap['history']}")
+        del v1_gate
+        mem_done = _fleet_memory("after the completed rollout")
+
+        # 4. v2 serves: every token against the plain v2 forward
+        v2_res, _r, wall = _serve(h, prompts, new_tokens)
+        out["launches"] = _launches(KERNEL_COUNTERS)
+        c, e = _replay_gate(weights["v2"], cfg, prompts, v2_res, TOKEN_GAP, label="rollout v2 ", verbose=False)
+        moved = sum(v2_res[i] != want[i] for i in v2_res)
+        print(f"rollout v2 burst: {sum(map(len, v2_res.values())) / wall:.1f} tok/s, gate {c} matched, {e} exempt; "
+              f"{moved} of {len(prompts)} streams differ from v1's; launches since the v1 burst {out['launches']}")
+        if moved == 0:
+            raise AssertionError("rollout: v2 serves v1's streams")
+
+        # 5. a redeploy whose canary fails: rolled back, fully on v2
+        stop = threading.Event()
+        clients, log = _rollout_clients(h, prompts[:4], stop)
+        mem_pre2 = _fleet_memory("rollout: before the redeploy")
+        inj.arm("rollout_canary_fail", count=1)
+        t0 = time.perf_counter()
+        status, raw, _, _ = _http(port, "POST", "/.well-known/debug/rollout", {
+            "model": "gemma", "checkpoint": str(ckpt), "family": "llama", "version": "v3", "bake_s": 0.5})
+        if status != 201:
+            raise AssertionError(f"rollout canary POST: {status} {raw[:300]!r}")
+        view = _rollout_wait(port, "rollout canary ")
+        back_s = time.perf_counter() - t0
+        _rollout_clients_end(clients, stop, log, weights, cfg, prompts[:4], "rollout canary ")
+        snap = view["rollout"]
+        if (snap["state"], view["versions"], sorted(rep._versions), snap["canary_fails"]) != (
+                "rolled_back", {"v2": 2}, ["v2"], 1):
+            raise AssertionError(f"rollout canary: {snap['state']} {view['versions']} {snap['history']}")
+        print(f"rollout canary: {snap['state']} {back_s:.1f}s after the POST; error {snap['error']!r}; versions "
+              f"{view['versions']}, retained {sorted(rep._versions)}; history {snap['history']}")
+        mem_back = _fleet_memory("after the rollback")
+        for label, m, m0 in (("completed", mem_done, mem_pre), ("rolled back", mem_back, mem_pre2)):
+            if m - m0 > footprint:
+                raise AssertionError(f"rollout: memory_reserved {m} after the {label} rollout is past one replica "
+                                     f"({footprint}) over {m0} before the deploy")
+
+        out.update({"shift_s": shift_s, "rollback_s": back_s, "in_flight_equal": equal, "footprint": footprint,
+                    "mem": {"pre": mem_pre, "completed": mem_done, "pre_redeploy": mem_pre2, "rolled_back": mem_back}})
+    finally:
+        inj.disarm()
+        app.shutdown()
+        thread.join(timeout=120)
+        shutil.rmtree(ckdir, ignore_errors=True)
+    h = rep = weights = None  # the closed fleet's tensors go with it
+    out["mem_closed"] = _fleet_memory("after the rollout fleet closed")
+    return out
+
+
+def _pool_launches(eng, counts: dict) -> dict:
+    """{kernel: launches} of an engine's replays by family (``_replay_names``)."""
+    out: dict = {}
+    for name, n in counts.items():
+        for kern, per in eng.families[name].launches.items():
+            out[kern] = out.get(kern, 0) + n * per
+    return out
+
+
+def phase_disagg(dev: dict, seed: int) -> dict:
+    """Disaggregated prefill/decode serving (see the module docstring).
+    Returns its readings and the main burst's launches per pool."""
+    cfg = dataclasses.replace(TransformerConfig.gemma_2b(), n_layers=DISAGG_LAYERS)
+    params = _rollout_weights(cfg, seed + 105)  # untied: the streams are not the prompt's last token again
+    from gofr_tpu_torch.config import new_mock_config
+    from gofr_tpu_torch.datasource.gpu import GPURuntime
+    from gofr_tpu_torch.resilience import default_injector
+
+    _plens, prompts = _burst_prompts(cfg, seed)
+    new_tokens = 32
+    out: dict = {}
+    mem0 = _fleet_memory("before the disaggregated fleet")
+    ctrl = LLMEngine(cfg, params)
+    try:
+        ctrl.generate([1, 2, 3], max_new_tokens=4)
+        want, _r, wall = _serve(ctrl, prompts, new_tokens)
+    finally:
+        ctrl.close()
+    del ctrl
+    print(f"disagg: the colocated engine's burst {sum(map(len, want.values())) / wall:.1f} tok/s (the reference)")
+    rt = GPURuntime(new_mock_config({}))
+    inj = default_injector()
+    try:
+        h = rt.register_llm("disagg", cfg, params, disagg=True, replicas=2, supervise=False)
+        eng = h.engine
+        peng, deng = eng.prefill.engines[0], eng.decode.engines[0]
+        for e in (peng, deng):
+            _warm_report(f"disagg {e.role} ", e)
+        mem1 = _fleet_memory("disagg: 1 prefill + 1 decode replica built")
+        print(f"disagg: the build added {mem1 - mem0}; handoff d2d {eng.handoff_d2d}, timeout {eng.handoff_timeout_s}s")
+        h.generate([1, 2, 3], max_new_tokens=4)
+        wrote: dict = {}
+        commit = deng.kv.handoff_commit
+
+        def spy(tokens, blocks, tail_block, tail_len, *, logits=None, logits_nbytes=0):
+            # the blocks this import just wrote, read back on the decode stream
+            idx = torch.tensor(blocks + ([tail_block] if tail_block >= 0 else []), device="cuda")
+            wrote.setdefault(tuple(tokens), []).append(
+                (deng.pool.k.index_select(1, idx).clone(), deng.pool.v.index_select(1, idx).clone(), logits.clone()))
+            return commit(tokens, blocks, tail_block, tail_len, logits=logits, logits_nbytes=logits_nbytes)
+
+        deng.kv.handoff_commit = spy
+
+        # 1. the main burst, handed off device to device
+        ok0, n0 = eng.handoffs_ok, len(eng._handoff_window)
+        _zero_launches(KERNEL_COUNTERS)
+        with _replay_names(peng) as pc, _replay_names(deng) as dc:
+            got, _reqs, wall = _serve(h, prompts, new_tokens)
+        total = _launches(KERNEL_COUNTERS)
+        pools = {"prefill": _pool_launches(peng, pc), "decode": _pool_launches(deng, dc)}
+        out["launches"] = {k: {p: pools[p].get(k, 0) for p in pools} for k in KERNEL_COUNTERS}
+        if any(total[k] != pools["prefill"].get(k, 0) + pools["decode"].get(k, 0) for k in KERNEL_COUNTERS):
+            raise AssertionError(f"disagg: launches {total} are not the pools' {pools}")
+        st = h.stats()["handoff"]
+        if (eng.handoffs_ok - ok0, st["miss"], st["fallbacks"]) != (len(prompts), 0, 0):
+            raise AssertionError(f"disagg: handoffs {st}")
+        if pools["decode"].get("flash_attention", 0) or not pools["decode"].get("paged_decode_partials", 0):
+            raise AssertionError(f"disagg: the decode pool's launches {pools['decode']}")
+        equal = sum(got[i] == want[i] for i in got)
+        differ = _divergence_at_near_ties(params, cfg, prompts, got, want, TOKEN_GAP, "disagg ")
+        c, e = _replay_gate(params, cfg, prompts, got, TOKEN_GAP, label="disagg ", verbose=False)
+        walls = list(eng._handoff_window)[n0:]
+        print(f"disagg burst on {dev['smi']}: {sum(map(len, got.values())) / wall:.1f} tok/s; handoffs ok "
+              f"{eng.handoffs_ok - ok0}, miss {st['miss']}, fallbacks {st['fallbacks']}; {equal} of {len(prompts)} "
+              f"streams equal the colocated engine's, {differ} leave them at a near-tie; gate {c} matched, {e} exempt")
+        print(f"disagg launches by pool {pools} (all {total}); decode-pool replays {dict(dc)}; prefill-pool replays "
+              f"{dict(pc)}")
+        print(f"disagg handoff: {eng.handoff_bytes} K/V bytes moved in all; submit-to-decode-admit per request (s) "
+              f"{[round(x, 4) for x in walls]}")
+
+        # 2. the same burst host-staged: the imported blocks byte for byte
+        eng.handoff_d2d = False
+        got2, _r, wall2 = _serve(h, prompts, new_tokens)
+        if eng.handoffs_ok - ok0 != 2 * len(prompts):
+            raise AssertionError(f"disagg host-staged: handoffs {h.stats()['handoff']}")
+        same = 0
+        for p in prompts:
+            rows = wrote.get(tuple(p), [])
+            if len(rows) < 2:
+                raise AssertionError(f"disagg: prompt of {len(p)} imported {len(rows)} times")
+            a, b = rows[-2], rows[-1]
+            if not all(torch.equal(x.view(torch.uint8), y.view(torch.uint8)) for x, y in zip(a, b)):
+                raise AssertionError(f"disagg: the host-staged import of a {len(p)}-token prompt differs from d2d")
+            same += sum(x.numel() * x.element_size() for x in a)
+        differ2 = _divergence_at_near_ties(params, cfg, prompts, got2, got, TOKEN_GAP, "disagg host-staged ")
+        print(f"disagg host-staged: {sum(map(len, got2.values())) / wall2:.1f} tok/s; the {len(prompts)} imports "
+              f"byte-identical to the d2d ones ({same} bytes of K, V and logits); {differ2} streams differ from d2d")
+        eng.handoff_d2d = True
+        deng.kv.handoff_commit = commit
+
+        # 3. concurrent handoffs while the decode stream runs behind: every
+        # import returns, and its payload is dropped, before that stream
+        # reads what the import queued on it, so a payload's memory the
+        # allocator handed out again would carry another prompt's bytes
+        def record_logits(e, p):  # the exact record's row, read on the engine's stream into host memory
+            def work():
+                plan = e.kv.lookup_seed(list(p), allow_partial=False, count=False)
+                try:
+                    exact = plan is not None and plan.exact and plan.logits is not None
+                    return plan.logits.cpu().view(torch.uint8) if exact else None
+                finally:
+                    e.kv.release_plan(plan)
+
+            return e._run_on_scheduler(work)
+
+        def handoff(p):
+            payload = peng.kv_handoff_export(p)
+            return payload is not None and deng.kv_handoff_import(eng._transfer(payload, deng))
+
+        def delay():  # on the decode engine's stream, ahead of the imports
+            torch.cuda._sleep(HANDOFF_DELAY_CYCLES)
+            behind = torch.cuda.Event()
+            behind.record()
+            return behind
+
+        def evict_decode():
+            with deng.kv._lock:
+                return deng.kv.radix.evict_for(deng.kv.pool.n_blocks)
+
+        deng._run_on_scheduler(evict_decode)
+        t0 = time.perf_counter()
+        behind = deng._run_on_scheduler(delay)
+        with concurrent.futures.ThreadPoolExecutor(4) as ex:
+            oks = list(ex.map(handoff, prompts))
+        ahead_s = time.perf_counter() - t0
+        lagged = not behind.query()  # the imports all returned with the decode stream still asleep
+        torch.cuda.synchronize()
+        rows = {e.role: [record_logits(e, p) for p in prompts] for e in (peng, deng)}
+
+        def same(a, b):
+            return a is not None and b is not None and torch.equal(a, b)
+
+        wrong = {i: [j for j, b in enumerate(rows["prefill"]) if same(a, b)]  # whose logits it holds instead
+                 for i, a in enumerate(rows["decode"]) if not same(a, rows["prefill"][i])}
+        if not all(oks) or not lagged or wrong:
+            raise AssertionError(f"disagg concurrent: imports {oks}, decode stream still behind {lagged}; records "
+                                 f"wrong {{prompt: the prompts whose prefill-pool logits it holds}} {wrong}")
+        print(f"disagg concurrent: {len(prompts)} handoffs on 4 threads returned in {ahead_s:.3f} s with the decode "
+              f"stream still behind ({HANDOFF_DELAY_CYCLES} cycles); every decode-pool record's logits "
+              f"byte-identical to its prompt's prefill-pool record")
+
+        # 4. the decode replica killed as a burst starts: every stream falls
+        # back to the prefill pool, colocated
+        def evict_all():  # the prefill pool's records go: its probes prefill again
+            with peng.kv._lock:
+                return peng.kv.radix.evict_for(peng.kv.pool.n_blocks)
+
+        peng._run_on_scheduler(evict_all)
+        fb0, dsub = eng.fallbacks, deng.submitted
+        reqs = [h.submit(GenRequest(p, max_new_tokens=new_tokens)) for p in prompts]
+        inj.arm("replica_kill", label="/decode/r0")
+        join = _consume(reqs)
+        _wait_until(lambda: not deng.alive(), 60, "disagg: the decode replica's death")
+        got3, _ends = join()
+        bad = [i for i, r in enumerate(reqs) if r.finish_reason != "length" or len(got3[i]) != new_tokens]
+        if bad or eng.fallbacks <= fb0:
+            raise AssertionError(f"disagg kill: streams {bad} cut, fallbacks {eng.fallbacks - fb0}")
+        differ3 = _divergence_at_near_ties(params, cfg, prompts, got3, want, TOKEN_GAP, "disagg kill ")
+        c, e = _replay_gate(params, cfg, prompts, got3, TOKEN_GAP, label="disagg kill ", verbose=False)
+        print(f"disagg kill: {deng.label} died ({deng.died_reason}); {len(prompts)} streams ended right, fallbacks "
+              f"{eng.fallbacks - fb0}, decode admissions meanwhile {deng.submitted - dsub}; {differ3} leave the "
+              f"colocated streams at a near-tie; gate {c} matched, {e} exempt")
+        out.update({"equal": equal, "bytes": eng.handoff_bytes, "handoff_s": walls})
+    finally:
+        inj.disarm()
+        rt.close()
+    h = eng = peng = deng = params = None  # the closed pools' tensors go with them
+    out["mem_closed"] = _fleet_memory("after the disaggregated fleet closed")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="GPU smoke run of gofr_tpu_torch on one card")
     ap.add_argument("--parent", metavar="TREE",
                     help="also build another checkout's paged-decode kernels (e.g. the parent commit from "
                          "git archive) and time them beside this tree's on the same inputs")
-    ap.add_argument("--only", choices=("families", "moe", "contiguous", "wave", "knobs", "mnist", "fleet"),
+    ap.add_argument("--only", choices=("families", "moe", "contiguous", "wave", "knobs", "mnist", "fleet", "rollout",
+                                       "disagg"),
                     help="build the kernels and run this one phase, which makes its own weights (prints no "
                          "kernels line and no result)")
     args = ap.parse_args()
@@ -4868,7 +5360,8 @@ def main() -> int:
     if args.only:
         timed(args.only, {"families": phase_families, "moe": phase_moe, "contiguous": phase_contiguous,
                           "wave": phase_wave, "knobs": phase_knobs, "mnist": phase_mnist,
-                          "fleet": phase_fleet}[args.only], dev, SEED)
+                          "fleet": phase_fleet, "rollout": phase_rollout, "disagg": phase_disagg}[args.only], dev,
+              SEED)
         print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
         return 0
     kern = timed("kernels", phase_kernels, dev, SEED, build_parent(args.parent) if args.parent else None)
@@ -4893,6 +5386,8 @@ def main() -> int:
     wave = timed("wave", phase_wave, dev, SEED, cfg, params)
     knobs = timed("knobs", phase_knobs, dev, SEED, cfg, params)
     fleet = timed("fleet", phase_fleet, dev, SEED, cfg, params, eng)
+    rollout = timed("rollout", phase_rollout, dev, SEED)
+    disagg = timed("disagg", phase_disagg, dev, SEED)
     del params  # Gemma-2B's weights; the families phase loads one model at a time
     families = timed("families", phase_families, dev, SEED)
     moe = timed("moe", phase_moe, dev, SEED)
@@ -4929,6 +5424,7 @@ def main() -> int:
             "wave_launches": {label: n[name] for label, n in wave["launches"].items()},
             "knobs_launches": {label: n[name] for label, n in knobs["launches"].items()},
             "fleet_launches": fleet["launches"][name],
+            "rollout_launches": rollout["launches"][name], "disagg_launches": disagg["launches"][name],
             "max_abs_err": kern["errs"][name],
             "ms": t["ms"], "device_ms": t["device_ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],

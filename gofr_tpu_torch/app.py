@@ -29,7 +29,10 @@ imported only then.
 
 Always registered: ``/.well-known/health``, ``/.well-known/alive``, the
 404 catch-all, 405 for a known path under another method, the CORS
-preflight and the drain route. Left out of the port: the metrics server,
+preflight, the drain route and the rollout routes (``GET`` /
+``POST /.well-known/debug/rollout``: a model's versions, and a rollout
+staged from a checkpoint; the POST loopback-only unless
+``GOFR_ROLLOUT_REMOTE=1``). Left out of the port: the metrics server,
 cron, pub/sub, auth, static files and swagger.
 """
 
@@ -43,7 +46,14 @@ from typing import Callable
 
 from .config import Config, EnvConfig
 from .container import Container
-from .handler import _require_loopback, health_handler, live_handler, wrap_handler
+from .handler import (
+    _require_loopback,
+    health_handler,
+    live_handler,
+    rollout_handler,
+    rollout_status_handler,
+    wrap_handler,
+)
 from .http.middleware import cors_middleware, logging_middleware
 from .http.router import Router
 from .http.server import AsyncHTTPServer
@@ -110,6 +120,12 @@ class App:
         self.get("/.well-known/health", health_handler)
         self.get("/.well-known/alive", live_handler)
         self.post("/.well-known/debug/drain", self._drain_handler)
+        # the model lifecycle: GET the versions and rollout view; POST
+        # stages a rollout from a checkpoint path, under its own timeout
+        # (loading a multi-GB checkpoint can outlast REQUEST_TIMEOUT; the
+        # shift itself runs on the controller's thread)
+        self.get("/.well-known/debug/rollout", rollout_status_handler)
+        self._add("POST", "/.well-known/debug/rollout", rollout_handler, timeout_s=max(120.0, self.request_timeout))
 
     # -- the graceful drain (JAX app.py:427-510) -------------------------------
     def _drain_handler(self, ctx) -> dict:

@@ -15,8 +15,12 @@ gets its own row as numpy.
 
 ``register_llm(name, cfg, params, **engine_kw)`` builds the port's
 ``LLMEngine`` (or, with ``replicas`` > 1 or ``devices``, a
-``ReplicatedLLMEngine``) and registers it under ``name``; ``llm(name)``
-returns it. ``drain`` / ``drained`` serve the app's graceful drain.
+``ReplicatedLLMEngine``; with ``disagg=True`` or ``TPU_LLM_DISAGG=1`` a
+``DisaggregatedLLMEngine``) and registers it under ``name`` behind a
+``resilience.rollout.ModelHandle``, which it returns and ``llm(name)``
+resolves: the handle passes the engine's surface through and adds
+``deploy``, ``register_adapter`` and ``rollout_state``. ``drain`` /
+``drained`` serve the app's graceful drain.
 The engine runs on ``cuda`` unless the caller passes ``device="cpu"`` or
 the config sets ``TORCH_DEVICE=cpu``; without a GPU it raises.
 
@@ -36,7 +40,9 @@ LoRA pool's ``lora_slots`` and ``lora_rank``, the recovery kwargs
 ``version``, the fleet's ``replicas``, ``devices``, ``router``,
 ``supervise``, ``failover_retries``, ``fleet_max_queue_tokens``,
 ``retry_budget_per_s``, ``retry_budget_burst``, ``poison_deaths``,
-``canary`` and ``health_ledger``, the KV layout's
+``canary`` and ``health_ledger``, the disaggregated fleet's ``disagg``,
+``prefill_replicas``, ``handoff_timeout_s`` and ``handoff_d2d``, the KV
+layout's
 ``kv_paged`` (``True``, ``False`` or ``"auto"``: the paged pool, or the
 contiguous layouts, the rolling ring for a windowed model where window +
 slack < max_seq_len and the dense slab otherwise; ``"auto"`` takes the
@@ -51,8 +57,10 @@ runtime), the shape knobs ``TPU_LLM_STEP_TOKEN_BUDGET`` (0 the wave),
 ``TPU_LLM_FAIR``, ``TPU_LLM_PREEMPT``, ``TPU_LLM_SHED_WAIT_S``,
 ``TPU_LLM_BROWNOUT_WAIT_S``, ``TPU_LLM_BROWNOUT_MAX_NEW``,
 ``TPU_LLM_BROWNOUT_HOLD_S``, ``TPU_LLM_LORA_SLOTS``,
-``TPU_LLM_LORA_RANK_MAX``, ``TPU_LLM_STEP_WATCHDOG_S`` and
-``TPU_LLM_NUMERIC_CHECK`` (defaults for the kwargs a caller leaves out,
+``TPU_LLM_LORA_RANK_MAX``, ``TPU_LLM_STEP_WATCHDOG_S``,
+``TPU_LLM_NUMERIC_CHECK``, ``TPU_LLM_DISAGG``,
+``TPU_LLM_DISAGG_PREFILL_REPLICAS``, ``TPU_LLM_KV_HANDOFF_TIMEOUT_S`` and
+``TPU_LLM_KV_HANDOFF_D2D`` (defaults for the kwargs a caller leaves out,
 with the JAX engine's meanings). As in the JAX runtime,
 ``TPU_LLM_KV_POOL_BLOCKS`` has no config mapping: the process env reaches
 the engine's ``CacheManager``, which reads it (with ``TPU_LLM_KV_INT8``,
@@ -78,6 +86,7 @@ import torch
 
 from ... import resolve_device
 from ...llm import LLMEngine, ReplicatedLLMEngine
+from ...resilience.rollout import ModelHandle
 from .. import STATUS_DOWN, STATUS_UP, health
 
 __all__ = ["Batcher", "GPURuntime"]
@@ -315,6 +324,8 @@ _ENGINE_KWARGS = (
     "fault_injector", "step_watchdog_s", "numeric_check", "version", "replicas", "devices", "router", "supervise",
     "failover_retries", "fleet_max_queue_tokens", "retry_budget_per_s", "retry_budget_burst", "poison_deaths",
     "canary", "health_ledger",
+    # the disaggregated fleet
+    "disagg", "prefill_replicas", "handoff_timeout_s", "handoff_d2d",
 )
 
 # Overload-control, LoRA and shape knobs: config key -> (engine kwarg, parser of
@@ -335,7 +346,15 @@ _MAPPED_KNOBS = {
     # the watchdogs (JAX datasource/tpu/__init__.py:555-564)
     "TPU_LLM_STEP_WATCHDOG_S": ("step_watchdog_s", float),
     "TPU_LLM_NUMERIC_CHECK": ("numeric_check", lambda v: v != "0"),
+    # the disaggregated fleet (JAX datasource/tpu/__init__.py:673-699)
+    "TPU_LLM_DISAGG": ("disagg", lambda v: v != "0"),
+    "TPU_LLM_DISAGG_PREFILL_REPLICAS": ("prefill_replicas", int),
+    "TPU_LLM_KV_HANDOFF_TIMEOUT_S": ("handoff_timeout_s", float),
+    "TPU_LLM_KV_HANDOFF_D2D": ("handoff_d2d", lambda v: v != "0"),
 }
+
+# the knobs only a disaggregated fleet reads
+_DISAGG_KWARGS = ("prefill_replicas", "handoff_timeout_s", "handoff_d2d")
 
 # The JAX runtime's engine knobs that select a feature this port lacks,
 # each with the values that ask for nothing more than the port does.
@@ -347,9 +366,6 @@ _UNPORTED_KNOBS = {
     "TPU_LLM_ANOMALY": ("0",),
     "TPU_LLM_WIDE_EVENT_SAMPLE": (),
     "TPU_LLM_TP": ("0", "1"),
-    "TPU_LLM_DISAGG": ("0",),
-    "TPU_LLM_DISAGG_PREFILL_REPLICAS": (),
-    "TPU_LLM_KV_HANDOFF_TIMEOUT_S": (),
     # the JAX engine's per-tenant token-rate quota (goodput.QuotaGate)
     "TPU_LLM_TENANT_QUOTA_TOK_S": (),
 }
@@ -378,7 +394,7 @@ class GPURuntime:
         self.default_max_delay_ms = float(get("TPU_BATCH_MAX_DELAY_MS") or 2)
         self.default_max_inflight = int(get("TPU_BATCH_MAX_INFLIGHT") or 8)
         self._models: dict[str, _Model] = {}
-        self._llms: dict[str, LLMEngine | ReplicatedLLMEngine] = {}
+        self._llms: dict[str, ModelHandle] = {}
         self._lock = threading.Lock()
 
     @property
@@ -473,7 +489,7 @@ class GPURuntime:
         return self.model(name).batcher.submit(example_args).result(timeout=timeout)
 
     # -- LLM engines ----------------------------------------------------------
-    def register_llm(self, name: str, cfg, params, **engine_kw) -> LLMEngine | ReplicatedLLMEngine:
+    def register_llm(self, name: str, cfg, params, **engine_kw) -> ModelHandle:
         """Build an ``LLMEngine`` over ``params`` and register it as
         ``name`` (replacing and closing an earlier one). A config with
         ``n_experts`` > 0 serves its mixture-of-experts FFN through the
@@ -489,7 +505,12 @@ class GPURuntime:
         (the JAX runtime's fleet; the replicas may share one card), whose
         fleet kwargs (``router``, ``supervise``, ``failover_retries``, ...)
         pass through; ``meshes`` stays refused. ``TPU_LLM_STEP_WATCHDOG_S``
-        and ``TPU_LLM_NUMERIC_CHECK`` set the watchdogs."""
+        and ``TPU_LLM_NUMERIC_CHECK`` set the watchdogs. ``disagg``
+        (``TPU_LLM_DISAGG``) builds a ``DisaggregatedLLMEngine`` over
+        ``replicas`` (default 2; ``prefill_replicas`` of them prefill). The
+        engine is returned behind a ``ModelHandle``; a bare engine's
+        handle keeps its constructor kwargs, so ``deploy`` builds the
+        staged engine with the same serving shape."""
         unknown = sorted(set(engine_kw) - set(_ENGINE_KWARGS))
         if unknown:
             raise NotImplementedError(f"register_llm: not ported: {', '.join(unknown)}")
@@ -497,6 +518,7 @@ class GPURuntime:
             v = self._knobs[knob]
             if v != "" and v not in fine:
                 raise NotImplementedError(f"{knob}={v}: not ported")
+        explicit = [k for k in _DISAGG_KWARGS if k in engine_kw]
         if self.default_llm_kv_paged != "":
             # "1" means "auto", as the process-wide knob does
             engine_kw.setdefault("kv_paged", False if self.default_llm_kv_paged == "0" else "auto")
@@ -522,24 +544,39 @@ class GPURuntime:
         engine_kw.setdefault("device", self.default_device)
         engine_kw.setdefault("kv_label", name)
         replicas = engine_kw.pop("replicas", None)
-        if (replicas or 1) > 1 or "devices" in engine_kw:
+        disagg = engine_kw.pop("disagg", False)
+        dkw = {k: engine_kw.pop(k) for k in _DISAGG_KWARGS if k in engine_kw}
+        if explicit and not disagg:
+            raise ValueError(f"register_llm: {', '.join(explicit)} apply to a disaggregated fleet only (disagg=True)")
+        build_kw: dict = {}  # a fleet retains its own rebuild inputs
+        if disagg:
+            from ...llm_disagg import DisaggregatedLLMEngine
+
+            engine = DisaggregatedLLMEngine(cfg, params, replicas=replicas, logger=self.logger, **dkw, **engine_kw)
+        elif (replicas or 1) > 1 or "devices" in engine_kw:
             engine = ReplicatedLLMEngine(cfg, params, replicas=replicas, logger=self.logger, **engine_kw)
         else:
             engine = LLMEngine(cfg, params, logger=self.logger, **engine_kw)
+            # a deploy builds the staged engine with this serving shape;
+            # only the weights change
+            build_kw = dict(engine_kw, logger=self.logger)
+            build_kw.pop("version", None)
+        handle = ModelHandle(name, engine, build_kw=build_kw, logger=self.logger)
         with self._lock:
             old = self._llms.get(name)
-            self._llms[name] = engine
+            self._llms[name] = handle
         if old is not None:
             old.close()
         if self.logger is not None:
-            lead = engine.engines[0] if isinstance(engine, ReplicatedLLMEngine) else engine
+            lead = engine.engines[0] if hasattr(engine, "engines") else engine
             kv = lead.kv.stats()
-            n = len(engine.engines) if isinstance(engine, ReplicatedLLMEngine) else 1
-            self.logger.info(f"LLM {name!r} registered on {engine.device} ({n} replica(s), {cfg.n_layers} layers, "
-                             f"d_model {cfg.d_model}; KV {kv['layout']}, capacity {kv['capacity']})")
-        return engine
+            n = len(engine.engines) if hasattr(engine, "engines") else 1
+            kind = "disaggregated, " if disagg else ""
+            self.logger.info(f"LLM {name!r} registered on {engine.device} ({kind}{n} replica(s), {cfg.n_layers} "
+                             f"layers, d_model {cfg.d_model}; KV {kv['layout']}, capacity {kv['capacity']})")
+        return handle
 
-    def llm(self, name: str) -> LLMEngine | ReplicatedLLMEngine:
+    def llm(self, name: str) -> ModelHandle:
         try:
             return self._llms[name]
         except KeyError:

@@ -1,7 +1,7 @@
 """Handler adaptation: ``handler(ctx) -> result`` to a wire handler
 (counterpart of gofr_tpu/handler.py: ``wrap_handler``,
-``llm_request_kwargs``, the health and liveness handlers and the
-loopback guard of the drain route; no debug, profile, rollout or
+``llm_request_kwargs``, the health and liveness handlers, the loopback
+guard of the drain route and the rollout routes; no debug, profile or
 flight-recorder routes)."""
 
 from __future__ import annotations
@@ -124,3 +124,63 @@ def _require_loopback(ctx: Context, opt_in_key: str) -> None:
 
 def live_handler(_ctx: Context) -> Any:
     return {"status": "UP"}
+
+
+def rollout_status_handler(ctx: Context) -> Any:
+    """GET /.well-known/debug/rollout: per registered LLM its active
+    version, live replicas per version and the state of its active (or
+    last) rollout. Read-only; never builds the runtime."""
+    rt = ctx.container.tpu_runtime
+    if rt is None:
+        return {"models": {}, "note": "tpu runtime not initialized"}
+    out = {}
+    for name, handle in list(getattr(rt, "_llms", {}).items()):
+        eng = getattr(handle, "engine", handle)
+        out[name] = {
+            "version": getattr(eng, "version", None),
+            "versions": (
+                eng.version_counts() if hasattr(eng, "version_counts") else {getattr(eng, "version", "v1"): 1}
+            ),
+            "rollout": handle.rollout_state(),
+        }
+    return {"models": out}
+
+
+def rollout_handler(ctx: Context) -> Any:
+    """POST /.well-known/debug/rollout: stage a zero-downtime weight rollout
+    from a checkpoint on disk. Body: ``{"model": <registered LLM>,
+    "checkpoint": <path>, "version": "v2" (optional, derived), "family":
+    "gemma" | "llama" (default gemma), "bake_s" / "shadow_probes"
+    (optional)}``. The checkpoint is loaded (``models.checkpoint.
+    load_checkpoint``) and validated against the model's config before
+    ``deploy``: a bad path or tree is a 400, an unknown model a 404, a
+    second deploy while one is active a 409. Loopback-only unless
+    ``GOFR_ROLLOUT_REMOTE=1``: this route swaps the serving weights."""
+    from .http.errors import ErrorEntityNotFound, ErrorInvalidParam
+    from .models.checkpoint import load_checkpoint, validate_params
+
+    _require_loopback(ctx, "GOFR_ROLLOUT_REMOTE")
+    body = ctx.bind() or {}
+    if not isinstance(body, dict):
+        raise ErrorInvalidParam("body")
+    name = body.get("model")
+    path = body.get("checkpoint")
+    if not name or not isinstance(name, str):
+        raise ErrorInvalidParam("model")
+    if not path or not isinstance(path, str):
+        raise ErrorInvalidParam("checkpoint")
+    rt = ctx.container.tpu_runtime  # never build one: roll what runs
+    handle = (getattr(rt, "_llms", {}) if rt is not None else {}).get(name)
+    if handle is None or not hasattr(handle, "deploy"):
+        raise ErrorEntityNotFound("llm", name)
+    cfg = handle.cfg
+    params = load_checkpoint(path, cfg, str(body.get("family", "gemma")), device=handle.device)
+    validate_params(params, cfg)  # a 400 here; deploy checks again before anything changes
+    kw = {}
+    if body.get("bake_s") is not None:
+        kw["bake_s"] = float(body["bake_s"])
+    if body.get("shadow_probes") is not None:
+        kw["shadow_probes"] = int(body["shadow_probes"])
+    version = body.get("version")
+    snap = handle.deploy(cfg, params, version=str(version) if version else None, **kw)
+    return {"model": name, "rollout": snap}

@@ -22,6 +22,14 @@ class ErrorInvalidParam(HTTPError):
         super().__init__(f"'{len(self.params)}' invalid parameter(s): {', '.join(self.params)}")
 
 
+class ErrorEntityNotFound(HTTPError):
+    status_code = 404
+
+    def __init__(self, name: str = "", value: str = ""):
+        self.name, self.value = name, value
+        super().__init__(f"No entity found with {name}: {value}" if name else "entity not found")
+
+
 class ErrorInvalidRoute(HTTPError):
     status_code = 404
 

@@ -431,20 +431,22 @@ class CacheManager:
         return min(prompt_len + max_new - 1 + self.append_slack, self.capacity)
 
     # -- admission ---------------------------------------------------------
-    def lookup_seed(self, prompt_tokens, *, allow_partial: bool = True) -> SeedPlan | None:
+    def lookup_seed(self, prompt_tokens, *, allow_partial: bool = True, count: bool = True) -> SeedPlan | None:
         """Radix consult for one prompt. An exact end record WITH logits
         gives an exact plan (prefill skipped); otherwise the longest
         block-aligned shared prefix, clamped to (n - 1) // block * block so
         at least one prompt token still runs through prefill (session end
         records keep rows, not logits, and take this path).
         ``allow_partial=False`` returns exact plans only (the wave has no
-        mid-prompt append). The plan's blocks (and tail source) are
-        pinned: ``attach_seed`` adopts the pins, every other path calls
+        mid-prompt append). ``count=False`` leaves the radix's hit
+        counters alone (a KV-handoff export probe is not admission
+        traffic). The plan's blocks (and tail source) are pinned:
+        ``attach_seed`` adopts the pins, every other path calls
         ``release_plan``."""
         if self.radix is None:
             return None
         with self._lock:
-            m = self.radix.lookup(prompt_tokens)
+            m = self.radix.lookup(prompt_tokens, count=count)
             n = len(prompt_tokens)
             if m.end is not None and m.end.logits is not None:
                 plan = SeedPlan(
@@ -703,6 +705,29 @@ class CacheManager:
             if self.pool.available() < n:
                 return None
             return self.pool.alloc(n)
+
+    def release_blocks(self, blocks: list[int]) -> None:
+        """Drop one reference per block: a failed handoff import's
+        allocation, before any table or radix record adopted it."""
+        if blocks:
+            with self._lock:
+                self.pool.decref(blocks)
+
+    def handoff_commit(self, tokens, blocks: list[int], tail_block: int, tail_len: int, *, logits=None,
+                       logits_nbytes: int = 0) -> None:
+        """Adopt KV blocks a peer engine handed over (disaggregated
+        serving, JAX ``CacheManager.handoff_commit``): insert the prompt
+        into the radix WITH its last-token logits, so this engine's next
+        admission of that exact prompt skips prefill. ``insert`` takes its
+        own references (deduplicating against prefixes that grew here
+        meanwhile); the allocation's references drop here, and the tail
+        block is adopted by the end record as it stands."""
+        with self._lock:
+            self.radix.insert(
+                list(tokens), blocks, tail_block=tail_block if tail_block >= 0 else None, tail_len=tail_len,
+                logits=logits, logits_nbytes=logits_nbytes,
+            )
+            self.pool.decref(blocks)
 
     def restore_commit(self, sid: str, tokens, blocks: list[int], tail_block: int, tail_len: int) -> None:
         """Re-insert a restored session into the radix and pin it again.

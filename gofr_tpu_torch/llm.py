@@ -214,6 +214,7 @@ import functools
 import itertools
 import os
 import queue
+import re
 import threading
 import time
 from collections import OrderedDict, deque
@@ -473,6 +474,11 @@ class GenRequest:
     # Poison-payload marker of the fault injector: a tagged ``device_step``
     # spec kills the replica serving a request with the same tag.
     tag: str = ""
+    # Synthetic-traffic marker: canary checks and shadow probes set it. In
+    # JAX the goodput ledger bills such a request's chip time as probe
+    # waste and the quota gate waves it through; both come with the
+    # goodput ledger (ROADMAP ID 9 item 3), so here it is a label.
+    probe: bool = False
     id: int = field(default_factory=itertools.count().__next__)
 
     def __post_init__(self):
@@ -834,7 +840,15 @@ class LLMEngine:
     ``numeric_check`` (``TPU_LLM_NUMERIC_CHECK``, on unless "0");
     ``kv_label`` names the engine in logs and fault labels (a fleet's
     replicas are ``<label>/r<i>``), ``version`` is its model-version
-    label, ``logger`` receives its recovery messages."""
+    label, ``logger`` receives its recovery messages. ``role`` ("prefill",
+    "decode", or "" for a colocated engine) is the engine's pool in a
+    disaggregated fleet (``llm_disagg``); ``stats()`` reports it.
+
+    KV handoff (JAX llm.py:4964-5128): ``kv_handoff_export`` gathers one
+    exact published prompt's pool blocks and logits, ``kv_handoff_import``
+    scatters a peer's into fresh blocks and publishes them as an exact
+    radix record; both run on the scheduler thread (``_run_on_scheduler``),
+    the only one that writes the pool."""
 
     _FETCH_FAIL_LIMIT = 3  # failures in a row on one thread before _die
 
@@ -890,6 +904,7 @@ class LLMEngine:
         numeric_check: bool | None = None,
         kv_label: str = "llm",
         version: str = "v1",
+        role: str = "",
         logger=None,
     ):
         self.device = resolve_device(device)
@@ -1125,6 +1140,15 @@ class LLMEngine:
             shed_predicted_wait_s, brownout_wait_s, brownout_max_new, brownout_hold_s,
         )
         self._init_resilience(fault_injector, step_watchdog_s, numeric_check, kv_label, version, logger)
+        self.role = str(role)
+        # a rollout's inputs, kept as a fleet keeps them: the last 8
+        # accepted prompts (the shadow replay's source) and the registered
+        # adapters' host copies (re-staged into an engine swap's candidate)
+        self._shadow_ring: deque = deque(maxlen=8)
+        self._adapters_host: dict[str, dict] = {}
+        # host work other threads queue for the scheduler thread (the KV
+        # handoff): (fn, box) pairs, run at the top of each pass
+        self._sched_work: deque[tuple] = deque()
         if dev.type == "cuda":
             self._stream = torch.cuda.Stream(dev)  # every program, copy and capture
             self._graph_pool = torch.cuda.graph_pool_handle()  # shared by the families
@@ -1272,6 +1296,7 @@ class LLMEngine:
             if last is not None:
                 gap = min(max(now - last, 0.0), 1.0)
                 self._ema_gap = gap if self._ema_gap is None else 0.8 * self._ema_gap + 0.2 * gap
+        self._shadow_ring.append(tuple(req.prompt_tokens[:32]))
         self._admit_q.put(req)
         if self._stop:
             # stopped between the check above and the put: the one-shot
@@ -1327,8 +1352,10 @@ class LLMEngine:
                 },
                 "kvcache": self.kv.stats(),
                 "warmup_s": self.warmup_s,
-                # recovery (JAX stats' keys)
+                # recovery and the model lifecycle (JAX stats' keys)
                 "version": self.version,
+                "role": self.role,
+                "errored": self.errored,
                 "alive": self.alive(),
                 "draining": self._draining,
                 "error": self.died_reason,
@@ -1340,7 +1367,8 @@ class LLMEngine:
     def debug_state(self) -> dict:
         """The engine's recovery state (a subset of JAX ``debug_state``)."""
         return {
-            "label": self.label, "version": self.version, "alive": self.alive(), "draining": self._draining,
+            "label": self.label, "version": self.version, "role": self.role, "alive": self.alive(),
+            "draining": self._draining, "errored": self.errored,
             "died": self._died, "died_reason": self.died_reason, "load": self.load(),
             "load_tokens": self.load_tokens(), "step_watchdog_s": self.step_watchdog_s,
             "numeric_check": self.numeric_check, "faults": self.faults.snapshot(),
@@ -1351,6 +1379,7 @@ class LLMEngine:
         and end every unfinished stream. A dead engine's memory is left to
         its ``_die`` (a wedged stream is never waited on)."""
         self._stop = True
+        self._fail_sched_work()  # handoff waiters fail fast, not by timeout
         self._kick.set()
         self._thread.join(timeout=timeout)
         with self._work_cv:
@@ -1413,7 +1442,9 @@ class LLMEngine:
                 self._die("scheduler thread exited unexpectedly")
 
     def _schedule_pass(self) -> None:
-        """One scheduler pass: retire, order, admit, dispatch."""
+        """One scheduler pass: queued host work, retire, order, admit,
+        dispatch."""
+        self._run_sched_work()
         self._drain_submits()
         self._expire_deadlines(time.perf_counter())
         self._order_waiting()
@@ -1511,6 +1542,7 @@ class LLMEngine:
             numeric_check = os.environ.get("TPU_LLM_NUMERIC_CHECK", "1") != "0"
         self.numeric_check = bool(numeric_check)
         self.numerical_trips = 0
+        self.errored = 0  # requests finished "error" or "poison": a rollout's bake signal
         self._draining = False
         self._died = False  # _die ran: idempotence, and no emission after it
         self._die_guard = threading.Lock()
@@ -1524,6 +1556,11 @@ class LLMEngine:
         """The router's tie-break: occupants plus queued requests
         (lock-free; a torn read costs a stale unit)."""
         return sum(r is not None for r in self._slot_req) + self._admit_q.qsize() + len(self._waiting)
+
+    def resident_slots(self) -> int:
+        """Occupied slots right now: the decode pool's routing signal in a
+        disaggregated fleet (lock-free, as ``load``)."""
+        return sum(r is not None for r in self._slot_req)
 
     def alive(self) -> bool:
         """Serving: neither ``close`` nor ``_die`` has begun and both threads run."""
@@ -1631,6 +1668,7 @@ class LLMEngine:
             self._died = True
         self._stop = True
         self.died_reason = why
+        self._fail_sched_work()  # a handoff waiting on this engine fails now
         if self.logger is not None:
             self.logger.error(f"LLM engine {self.label} died: {why}")
         acquired = self._lock.acquire() if lock_timeout is None else self._lock.acquire(timeout=lock_timeout)
@@ -1812,6 +1850,7 @@ class LLMEngine:
             r._load_acct = 0
             self.deadline_cancels += reason == "deadline"
             self.disconnect_cancels += reason == "disconnect"
+            self.errored += reason in ("error", "poison")
             if 0 <= r._g_id < len(self._g_refs):
                 # the resident grammar becomes evictable once no live
                 # request holds it
@@ -2584,6 +2623,157 @@ class LLMEngine:
             done = torch.cuda.Event()
             done.record()
             self._restoring.append((done, k, v, sc))
+
+    # -- host work on the scheduler thread (the KV handoff) -----------------
+    def _run_sched_work(self) -> None:
+        """Run the closures other threads queued for the scheduler thread
+        (JAX ``_run_sched_work``). A closure's error lands in its caller's
+        box; it never ends the engine loop."""
+        while self._sched_work:
+            try:
+                fn, box = self._sched_work.popleft()
+            except IndexError:  # raced _fail_sched_work
+                break
+            try:
+                box["result"] = fn()
+            except Exception as e:  # noqa: BLE001 — the caller's error, not the engine's
+                box["error"] = e
+            finally:
+                box["done"].set()
+
+    def _fail_sched_work(self) -> None:
+        """End every queued box with ``EngineStoppedError`` (the engine is
+        dying or closing), so its caller fails at once."""
+        while self._sched_work:
+            try:
+                _fn, box = self._sched_work.popleft()
+            except IndexError:
+                break
+            box["error"] = EngineStoppedError("engine stopped")
+            box["done"].set()
+
+    def _run_on_scheduler(self, fn, timeout: float | None = None):
+        """Run ``fn`` on the scheduler thread and return its result (JAX
+        ``_run_on_scheduler``); ``TimeoutError`` past ``timeout`` (30 s)."""
+        if not self.alive():
+            raise EngineStoppedError("engine stopped")
+        box: dict = {"done": threading.Event(), "result": None, "error": None}
+        self._sched_work.append((fn, box))
+        self._kick.set()
+        if not self.alive():
+            # raced _die/close past the check above: their one-shot drain
+            # may have run before our append, so fail the box ourselves
+            self._fail_sched_work()
+        wait_s = timeout if timeout is not None else 30.0
+        if not box["done"].wait(wait_s):
+            raise TimeoutError(
+                f"scheduler work timed out after {wait_s}s (engine {'alive' if self.alive() else 'dead'})"
+            )
+        if box["error"] is not None:
+            raise box["error"]
+        return box["result"]
+
+    def kv_placement(self) -> torch.device:
+        """Where this engine's pool lives: the target of a device-to-device
+        KV handoff (JAX ``kv_placement``)."""
+        return self.device
+
+    def kv_handoff_export(self, prompt_tokens: list[int], *, timeout: float | None = None) -> dict | None:
+        """Gather one exact published prompt's KV blocks and its stored
+        last-token logits for a prefill-to-decode handoff (JAX
+        ``kv_handoff_export``). Returns the payload ``kv_handoff_import``
+        takes: ``k``, ``v`` [L, n, B, hkv, d] (the full blocks, then the
+        tail's), ``sc`` (an int8 pool's scales [2, L, n, B, hkv], else
+        None), ``n_full``, ``tail_len``, ``logits`` [1, vocab], and
+        ``ready``, an event recorded on this engine's stream behind the
+        gather (None off the card): a consumer on another stream waits on
+        it. None when the prompt is not an exact record with logits
+        (dropped, evicted, sharing off) or the pool is contiguous. The
+        probe counts no hit. Runs on the scheduler thread."""
+        if not self.kv.paged or self.kv.radix is None:
+            return None
+
+        def work():
+            plan = self.kv.lookup_seed(list(prompt_tokens), allow_partial=False, count=False)
+            if plan is None or not plan.exact or plan.logits is None:
+                self.kv.release_plan(plan)
+                return None
+            try:
+                blocks = list(plan.blocks) + ([plan.tail_src] if plan.tail_src >= 0 else [])
+                if not blocks:
+                    return None
+                idx = torch.tensor(blocks, dtype=torch.long).to(self.device, non_blocking=True)
+                payload = {
+                    "tokens": list(prompt_tokens),
+                    "k": self.pool.k.index_select(1, idx),
+                    "v": self.pool.v.index_select(1, idx),
+                    "sc": self.pool_scales.index_select(2, idx) if self.kv.int8 else None,
+                    "n_full": len(plan.blocks),
+                    "tail_len": int(plan.tail_len) if plan.tail_src >= 0 else 0,
+                    "logits": plan.logits.clone(),
+                    "ready": torch.cuda.Event() if self.device.type == "cuda" else None,
+                }
+                if payload["ready"] is not None:
+                    payload["ready"].record()  # on the scheduler thread's current stream: the engine's
+                return payload
+            finally:
+                self.kv.release_plan(plan)
+
+        return self._run_on_scheduler(work, timeout)
+
+    def kv_handoff_import(self, payload: dict, *, timeout: float | None = None) -> bool:
+        """Adopt a peer's exported prompt KV (JAX ``kv_handoff_import``):
+        allocate pool blocks, copy the payload in byte for byte
+        (``_kv_restore_blocks``, after this engine's stream waited on the
+        payload's ``ready`` event), and publish the prompt into the radix
+        WITH its logits, so the next admission of that prompt is an exact
+        hit that skips prefill. The payload's tensors may be this card's
+        (a device copy, recorded on this engine's stream, logits too) or
+        pinned host memory (referenced until the copies' event has
+        passed). False when the pool cannot
+        host it now (the caller submits anyway and the engine
+        re-prefills) or the pool is contiguous. Runs on the scheduler
+        thread."""
+        if not self.kv.paged or self.kv.radix is None:
+            return False
+
+        def work():
+            k, v, sc = (None if payload.get(x) is None else torch.as_tensor(payload[x]) for x in ("k", "v", "sc"))
+            n = int(k.shape[1])
+            ids = self.kv.alloc_restore(n)
+            if ids is None:
+                return False
+            try:
+                logits = payload.get("logits")
+                logits = None if logits is None else torch.as_tensor(logits)
+                if self.device.type == "cuda":
+                    here = torch.cuda.current_stream(self.device)
+                    ready = payload.get("ready")
+                    if ready is not None:
+                        here.wait_event(ready)
+                    # the payload's tensors on this card were made on other
+                    # streams (the exporter's, the copy stream) and the reads
+                    # queued below may run long after the caller drops the
+                    # payload: their memory goes back to the allocator only
+                    # once this stream has read it
+                    for t in (k, v, sc, logits):
+                        if t is not None and t.is_cuda:
+                            t.record_stream(here)
+                self._kv_restore_blocks(k, v, sc, ids)
+                if logits is not None:
+                    # this stream's own copy: the radix keeps it for the hit
+                    logits = logits.to(self.device).clone()
+            except BaseException:
+                self.kv.release_blocks(ids)
+                raise
+            n_full = int(payload["n_full"])
+            self.kv.handoff_commit(
+                payload["tokens"], ids[:n_full], ids[n_full] if n > n_full else -1, int(payload["tail_len"]),
+                logits=logits, logits_nbytes=0 if logits is None else logits.numel() * logits.element_size(),
+            )
+            return True
+
+        return self._run_on_scheduler(work, timeout)
 
     def _needed_steps(self) -> int:
         """Decode steps the decoding occupants still need beyond those in
@@ -3441,6 +3631,8 @@ class LLMEngine:
                     raise
         if fair_weight is not None and self.ledger is not None:
             self.ledger.set_weight(f"adapter:{name}", fair_weight)
+        self._adapters_host[name] = {"adapter": adapter, "version": str(version), "alpha": alpha,
+                                     "fair_weight": fair_weight}
         return gid
 
     def publish_adapter(self, staging: str, name: str) -> int | None:
@@ -3450,13 +3642,18 @@ class LLMEngine:
         one. Returns the previous gid, or None for a first load."""
         self._require_lora()
         with self._lock:
-            return self._lora_pool.publish(staging, name)
+            prev = self._lora_pool.publish(staging, name)
+        rec = self._adapters_host.pop(staging, None)
+        if rec is not None:
+            self._adapters_host[name] = rec
+        return prev
 
     def evict_adapter(self, name: str) -> int:
         """Unbind ``name``. Its gid frees at once when idle, else drains as
         a zombie while its requests finish; the rows are not zeroed (no
         lane points at them; the next load overwrites them whole)."""
         self._require_lora()
+        self._adapters_host.pop(name, None)
         with self._lock:
             return self._lora_pool.remove(name)
 
@@ -3849,8 +4046,8 @@ def _own_copy(tree, device: torch.device):
 
 class ReplicatedLLMEngine:
     """N ``LLMEngine`` replicas behind a per-request router (JAX
-    ``ReplicatedLLMEngine``, llm.py:7336-8624, without rollouts and
-    meshes): each replica holds its own weight copy, KV and threads.
+    ``ReplicatedLLMEngine``, llm.py:7336-8624, without meshes): each
+    replica holds its own weight copy, KV and threads.
 
     Routing: "least_loaded" by queued tokens (``load_tokens``, then
     ``load``), or "round_robin"; a session's next turn prefers the replica
@@ -3877,8 +4074,15 @@ class ReplicatedLLMEngine:
     devices the policy is the JAX fleet's: a rebuild lands home, else on
     an alternate device, else parks.
 
-    ``version`` is each slot's model-version label: a continuation that
-    has streamed tokens fails over only to a replica of its version."""
+    Versions (JAX llm.py:7416-7436, :7818-7923): the fleet retains ``(cfg,
+    params)`` per model version (``_versions``; ``version`` is the active
+    one), each slot's version (``_slot_versions``, mixed only mid-rollout),
+    and a ring of the last 8 accepted prompts (``_shadow_ring``, the
+    shadow replay's source). ``deploy`` stages a version and starts a
+    ``resilience.rollout.RolloutController``, which holds the slots it
+    drains and rebuilds (``_rollout_hold``; the supervisor leaves them
+    alone). A continuation that has streamed tokens fails over only to a
+    replica of its version."""
 
     def __init__(
         self,
@@ -3916,13 +4120,19 @@ class ReplicatedLLMEngine:
                 raise ValueError(f"need {replicas} devices for {replicas} replicas, have {len(devices)}")
         if not devices:
             raise ValueError("no replicas configured")
-        self.cfg = cfg
-        self.params = params  # the rebuilds' source; each replica copies it
         self.logger = logger
         self.label = engine_kw.pop("kv_label", "llm")
         engine_kw.pop("version", None)
         self.version = str(version)
+        # the versions registry: the rebuilds' source per version (each
+        # replica copies its params); what each slot serves now; the slots
+        # the rollout controller owns; the active or last rollout
+        self._versions: dict[str, tuple] = {self.version: (cfg, params)}
         self._slot_versions = [self.version] * len(devices)
+        self._rollout_hold: set[int] = set()
+        self._rollout = None
+        self._rollout_lock = threading.Lock()
+        self._shadow_ring: deque = deque(maxlen=8)
         self._specs = [{"device": d} for d in devices]
         self._device_keys = [device_key(d) for d in devices]  # home devices
         self._current_keys = list(self._device_keys)  # where each slot runs now
@@ -3999,12 +4209,26 @@ class ReplicatedLLMEngine:
                 backoff_max_s=float(env("TPU_LLM_RESTART_BACKOFF_MAX_S", "30")),
             )
 
+    @property
+    def cfg(self):
+        """The active version's config."""
+        return self._versions[self.version][0]
+
+    @property
+    def params(self):
+        """The active version's retained params."""
+        return self._versions[self.version][1]
+
     # -- replicas: build, place, gate ---------------------------------------
-    def _build_replica(self, i: int, spec: dict | None = None) -> LLMEngine:
+    def _build_replica(self, i: int, spec: dict | None = None, version: str | None = None) -> LLMEngine:
         """Build (and warm) slot ``i`` on its home seat or on ``spec``'s
-        (the supervisor's placement), with its own weight copy, the
+        (the supervisor's placement) from ``_versions[version]`` (default:
+        the slot's recorded version; the rollout controller passes the
+        staged or the retained old one), with its own weight copy, the
         failover hook, and the fleet's adapters re-staged. The
         ``device_sick`` seam refuses a build on a matching device key."""
+        version = self._slot_versions[i] if version is None else version
+        cfg, params = self._versions[version]
         spec = dict(self._specs[i]) if spec is None else dict(spec)
         spec.pop("seat", None)
         key = spec_device_key(spec)
@@ -4015,8 +4239,8 @@ class ReplicatedLLMEngine:
             raise InjectedFault(f"device_sick: build refused on {key}")
         dev = resolve_device(spec["device"])
         eng = LLMEngine(
-            self.cfg, _own_copy(self.params, dev), logger=self.logger, kv_label=f"{self.label}/r{i}",
-            version=self._slot_versions[i], device=dev, **self._engine_kw,
+            cfg, _own_copy(params, dev), logger=self.logger, kv_label=f"{self.label}/r{i}", version=version,
+            device=dev, **self._engine_kw,
         )
         eng.failover_hook = self._failover
         if eng.lora_slots:
@@ -4069,7 +4293,8 @@ class ReplicatedLLMEngine:
                     continue
                 has_peer = True
                 try:
-                    ref = e.generate(list(CANARY_PROMPT), max_new_tokens=CANARY_MAX_NEW, temperature=0.0, eos_token=-1)
+                    ref = e.generate(list(CANARY_PROMPT), max_new_tokens=CANARY_MAX_NEW, temperature=0.0, eos_token=-1,
+                                     probe=True)
                     if len(ref) == CANARY_MAX_NEW:
                         self._canary_ref[v] = ref
                         break
@@ -4080,6 +4305,63 @@ class ReplicatedLLMEngine:
         if ok and ref is None and not has_peer:
             self._canary_ref[v] = toks
         return ok, detail
+
+    # -- the model lifecycle (resilience.rollout) -------------------------------
+    def deploy(self, cfg=None, params=None, *, version: str | None = None, bake_s: float | None = None,
+               shadow_probes: int | None = None, drain_timeout_s: float | None = None) -> dict:
+        """Stage a new model version and shift the fleet onto it with zero
+        downtime (JAX ``deploy``): the ``RolloutController`` drains one
+        replica at a time, rebuilds it on the new weights, gates it (canary
+        and shadow replay), routes it, and watches a bake window; any
+        regression rolls every upgraded slot back. ``params`` are validated
+        against ``cfg`` (default: the active config) before anything
+        changes. Returns the rollout's snapshot at once."""
+        from .models.checkpoint import validate_params
+        from .resilience.rollout import RolloutController, RolloutError, RolloutInProgress
+
+        if params is None:
+            raise RolloutError("deploy() needs params (the new weights)")
+        cfg = self.cfg if cfg is None else cfg
+        validate_params(params, cfg)  # the typed 4xx before anything moves
+        with self._rollout_lock:
+            if self._rollout is not None and self._rollout.active():
+                raise RolloutInProgress(
+                    f"rollout to {self._rollout.to_version!r} already in progress (state {self._rollout.state})"
+                )
+            if self._draining:
+                raise EngineDraining("fleet draining; refusing rollout")
+            if version is None:
+                version = self._derive_version()
+            if version in self._versions:
+                raise RolloutError(f"model version {version!r} already exists (known: {sorted(self._versions)})")
+            self._versions[version] = (cfg, params)
+            ctl = RolloutController(self, version, bake_s=bake_s, shadow_probes=shadow_probes,
+                                    drain_timeout_s=drain_timeout_s)
+            self._rollout = ctl
+            ctl.start()
+        return ctl.snapshot()
+
+    def _derive_version(self) -> str:
+        """The next free label of the v<N> sequence."""
+        nums = [int(m.group(1)) for v in self._versions for m in [re.match(r"^v(\d+)$", v)] if m]
+        n = (max(nums) + 1) if nums else (len(self._versions) + 1)
+        while f"v{n}" in self._versions:
+            n += 1
+        return f"v{n}"
+
+    def version_counts(self) -> dict[str, int]:
+        """Live replicas per model version (mixed only mid-rollout). (JAX's
+        ``app_llm_model_version_info`` gauge reads it: ROADMAP ID 10.)"""
+        counts: dict[str, int] = {}
+        for e in self.engines:
+            if e.alive():
+                counts[e.version] = counts.get(e.version, 0) + 1
+        return counts
+
+    def rollout_state(self) -> dict | None:
+        """The active (or last) rollout's snapshot; None before any deploy."""
+        ctl = self._rollout
+        return None if ctl is None else ctl.snapshot()
 
     # -- adapters (fan-out) ----------------------------------------------------
     def load_adapter(self, name: str, adapter: dict, *, version: str = "v1", alpha: float | None = None,
@@ -4207,6 +4489,8 @@ class ReplicatedLLMEngine:
                 self._session_affinity[sid] = id(eng)
                 while len(self._session_affinity) > self._session_affinity_cap:
                     self._session_affinity.popitem(last=False)
+            # the shadow replay's source: a prefix of each accepted prompt
+            self._shadow_ring.append(tuple(req.prompt_tokens[:32]))
             return out
         raise first_err or EngineStoppedError("all replicas dead")
 
@@ -4324,6 +4608,8 @@ class ReplicatedLLMEngine:
             "router": self.router,
             "draining": self._draining,
             "version": self.version,
+            "versions": self.version_counts(),
+            "rollout": self.rollout_state(),
             "failovers": self.failovers,
             "failover_errors": self.failover_errors,
             "restarts": sup.restarts if sup else 0,
@@ -4356,7 +4642,9 @@ class ReplicatedLLMEngine:
             "replicas_alive": sum(e.alive() for e in self.engines),
             "draining": self._draining,
             "version": self.version,
+            "versions_retained": sorted(self._versions),
             "slot_versions": list(self._slot_versions),
+            "rollout": self.rollout_state(),
             "failovers": self.failovers,
             "failover_errors": self.failover_errors,
             "failover_retries": self.failover_retries,
@@ -4391,6 +4679,10 @@ class ReplicatedLLMEngine:
 
     def close(self) -> None:
         self._draining = True  # a rebuild racing the close must not be routed
+        if self._rollout is not None:
+            # a mid-shift controller stops BEFORE the engines close: it
+            # would otherwise rebuild replicas into a closed fleet
+            self._rollout.close()
         if self.supervisor is not None:
             self.supervisor.close()
         for e in self.engines:

@@ -29,9 +29,11 @@ Named failure points (armed per point, optionally per engine label):
 - ``device_sick``    — raise at a replica (re)build on a matching device
                        key ("cuda:0"); count=-1 models a card that fails
                        every rebuild.
-
-The JAX package's two rollout points (``rollout_canary_fail``,
-``rollout_bake_regression``) come with the rollout controller.
+- ``rollout_canary_fail`` — the rollout controller's admission gate
+                       rejects the next candidate as if its canary or
+                       shadow probe diverged (``resilience.rollout``).
+- ``rollout_bake_regression`` — the next bake-window poll of a rollout
+                       sees a regression, whatever the fleet's health.
 
 Arming: ``injector.arm(point, ...)``, or ``TPU_LLM_FAULTS`` for a black-box
 process: a comma list of ``point[=count[:delay_s]][@label]`` entries parsed
@@ -57,6 +59,8 @@ FAULT_POINTS = (
     "overload_pressure",
     "nan_logits",
     "device_sick",
+    "rollout_canary_fail",
+    "rollout_bake_regression",
 )
 
 

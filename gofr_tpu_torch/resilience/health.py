@@ -208,7 +208,8 @@ def canary_check(
     from ..llm import GenRequest
 
     try:
-        req = candidate.submit(GenRequest(list(prompt), max_new_tokens=max_new, temperature=0.0, eos_token=-1))
+        req = candidate.submit(GenRequest(list(prompt), max_new_tokens=max_new, temperature=0.0, eos_token=-1,
+                                             probe=True))
         toks = req.tokens(timeout=timeout)
     except Exception as e:  # noqa: BLE001 — a crashing probe is the verdict
         return False, f"probe crashed: {e!r}", []

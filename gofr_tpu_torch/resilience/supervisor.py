@@ -10,9 +10,11 @@ an alternate; None parks the slot, visibly, until a device is usable
 again), and the replacement enters routing only after
 ``fleet._canary_check`` passes; a passing probe reintegrates a device on
 probation. ``TPU_LLM_RESTART_MAX_ATTEMPTS`` (8; 0 unlimited) consecutive
-failed rebuilds fail the slot for good. A draining fleet never rebuilds.
-The fleet owns construction and placement; the supervisor owns when, and
-the slot state machine.
+failed rebuilds fail the slot for good. A draining fleet never rebuilds,
+and a slot the rollout controller holds (``fleet._rollout_hold``: drained
+and closed on purpose, mid-shift or mid-rollback) is neither rebuilt nor
+billed. The fleet owns construction and placement; the supervisor owns
+when, and the slot state machine.
 """
 
 from __future__ import annotations
@@ -64,7 +66,10 @@ class ReplicaSupervisor:
             return
         now = time.perf_counter()
         health = getattr(fleet, "health", None)
+        hold = getattr(fleet, "_rollout_hold", ())
         for i, eng in enumerate(list(fleet.engines)):
+            if i in hold:
+                continue
             if eng.alive():
                 self._state.pop(i, None)
                 continue
@@ -122,9 +127,11 @@ class ReplicaSupervisor:
                 pass
             self._rebuild_failed(i, st, key, f"canary rejected: {detail}")
             return
-        if self._stop or getattr(fleet, "_draining", False) or fleet.engines[i].alive():
-            # raced a close or a drain, or the slot is live again: the
-            # replacement must neither be routed nor leak
+        if (self._stop or getattr(fleet, "_draining", False) or i in getattr(fleet, "_rollout_hold", ())
+                or fleet.engines[i].alive()):
+            # raced a close or a drain, the rollout controller claimed the
+            # slot, or it is live again: the replacement must neither be
+            # routed nor leak
             replacement.close()
             self._state.pop(i, None)
             return

@@ -59,6 +59,7 @@ same tokenizer.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 
 import torch
@@ -108,13 +109,16 @@ def _tokenizer(app: App, ckpt: str):
 
 def build_engine(app: App, params: dict | None = None) -> tuple[TransformerConfig, object]:
     """Register the ``gemma`` engine on ``app``: ``params`` when given (they
-    must match the preset), else the ``GEMMA_CKPT`` checkpoint, else random
-    weights from seed 0. Returns (config, HF tokenizer or None)."""
+    must match the preset at their own depth, the stacked layer count),
+    else the ``GEMMA_CKPT`` checkpoint, else random weights from seed 0.
+    Returns (config, HF tokenizer or None)."""
     cfg_ = app.config
     preset = cfg_.get_or_default("GEMMA_PRESET", "tiny")
     if preset not in PRESETS:
         raise ValueError(f"GEMMA_PRESET={preset!r}: one of {sorted(PRESETS)}")
     cfg = PRESETS[preset]()
+    if params is not None:  # the preset's widths at the params' own depth
+        cfg = dataclasses.replace(cfg, n_layers=int(next(iter(params["layers"].values())).shape[0]))
     rt = app.container.tpu()
     ckpt = cfg_.get_or_default("GEMMA_CKPT", "")
     if params is None and ckpt:

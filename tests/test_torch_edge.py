@@ -293,7 +293,7 @@ def test_register_llm_refuses_unported(weights):
     # both replicas on the one device
     fleet = rt.register_llm("m", cfg, tp, replicas=2, slots=2, max_seq_len=64, warmup=False)
     try:
-        assert type(fleet).__name__ == "ReplicatedLLMEngine" and len(fleet.engines) == 2
+        assert type(fleet.engine).__name__ == "ReplicatedLLMEngine" and len(fleet.engines) == 2
         assert fleet.debug_state()["devices"]["home"] == ["cpu", "cpu"]
     finally:
         fleet.close()
@@ -343,7 +343,8 @@ def test_register_llm_refuses_unported(weights):
             assert eng.constrained is on and eng._g_cap == 3 and bool(eng._programs_g) is on
         finally:
             eng.close()
-    for knob in ("TPU_LLM_FLIGHT_RECORDS", "TPU_LLM_TP", "TPU_LLM_DISAGG"):
+    # (TPU_LLM_DISAGG is ported: tests/test_torch_disagg.py builds with it)
+    for knob in ("TPU_LLM_FLIGHT_RECORDS", "TPU_LLM_TP", "TPU_LLM_ANOMALY"):
         with pytest.raises(NotImplementedError, match=knob):
             GPURuntime(new_mock_config({knob: "2"})).register_llm("m", cfg, tp, device="cpu")
     # the LoRA pool is ported: its kwargs and knobs (defaults for kwargs

@@ -644,13 +644,14 @@ def test_register_llm_builds_fleet_with_watchdog_knobs(weights):
                                      "TPU_LLM_NUMERIC_CHECK": "0"}))
     try:
         rep = rt.register_llm("m", tcfg, tp, replicas=2, supervise=False, slots=2, max_seq_len=64)
-        assert isinstance(rep, ReplicatedLLMEngine) and rt.llm("m") is rep
+        # register_llm returns the model's handle over the fleet
+        assert isinstance(rep.engine, ReplicatedLLMEngine) and rt.llm("m") is rep
         assert [e.label for e in rep.engines] == ["m/r0", "m/r1"]
         assert all(e.step_watchdog_s == 30.0 and e.watchdog is not None and not e.numeric_check
                    for e in rep.engines)
         assert rt.health_check()["details"]["llms"]["m"]["replicas_alive"] == 2
         one = rt.register_llm("one", tcfg, tp, numeric_check=True, slots=2, max_seq_len=64)
-        assert isinstance(one, LLMEngine) and one.numeric_check and one.step_watchdog_s == 30.0
+        assert isinstance(one.engine, LLMEngine) and one.numeric_check and one.step_watchdog_s == 30.0
         with pytest.raises(NotImplementedError, match="meshes"):
             rt.register_llm("tp", tcfg, tp, meshes=[object()])
     finally:

@@ -83,7 +83,11 @@ def _together(eng, R, prompts, news, **req_kw):
     name = "_drain_and_observe" if isinstance(eng, JEngine) else "_drain_submits"
     setattr(eng, name, lambda *a, **k: None)
     try:
-        reqs = [eng.submit(R(p, max_new_tokens=n, **req_kw)) for p, n in zip(prompts, news)]
+        # one whole scheduler pass after the patch: a pass that looked the
+        # real drain up before it has ended, so none drains a first submit
+        # alone
+        eng._run_on_scheduler(lambda: None)
+        reqs =[eng.submit(R(p, max_new_tokens=n, **req_kw)) for p, n in zip(prompts, news)]
     finally:
         delattr(eng, name)
     return [r.tokens(timeout=120) for r in reqs]
