@@ -1,6 +1,11 @@
 """GPU smoke run of the PyTorch/CUDA port (gofr_tpu_torch) on one card.
 
-    python3 chip_smoke.py [--parent TREE] [--only families|moe|contiguous|wave|knobs|mnist|fleet|rollout|disagg]
+    python3 chip_smoke.py [--parent TREE] [--only observe|families|moe|contiguous|wave|knobs|mnist|fleet|rollout|disagg]
+
+GOFR_BLACKBOX_DIR is set to a fresh temporary directory (removed at the
+end) and GOFR_BLACKBOX_INTERVAL_S to 1 before anything is built, so every
+engine writes its incident bundles there; the goodput ledger, the flight
+recorder and the anomaly detectors are on by default in every engine.
 
 Phases, each raising on failure:
 
@@ -47,7 +52,28 @@ Phases, each raising on failure:
    plain full-prompt forward, prints the median and spread of tok/s and
    TTFT, checks that both kernels launched in every burst, and profiles
    one more burst (idle share; whether the profiler names the kernels
-   inside graph replays);
+   inside graph replays). The engine writes a metrics manager;
+4b. observe — chip-time accounting and the flight recorder on the engine
+   phase's engine (``--only observe``: its own engine at OBSERVE_LAYERS of
+   18 layers, full width): the burst under two tenants, with attributed +
+   idle equal to the ledger's wall within 1% (lifetime and over the
+   burst), the tenants' chip time equal to the attributed total and each
+   tenant's to its requests' ``_chip``, and the host time of the ledger's
+   seams and the finish path; the ledger's busy time beside
+   torch.profiler's device-busy time over one profiled burst (report); a
+   probe billed wholly to probe; a quota of a quarter of "acme"'s metered
+   rate shedding its next submit with the gate's priced Retry-After, a
+   probe from it admitted, the same shed over HTTP as a 429 with
+   Retry-After, admitted again once cleared, GET
+   /.well-known/debug/usage; every burst request's flight record final
+   with its stream, eng.replay of all 8 and POST
+   /.well-known/debug/replay of one, each token-identical or leaving the
+   record at a near-tie; a bundle taken with a burst in flight (its files,
+   in-flight records, HBM in use above the weights; its ms and the
+   burst's tok/s beside an unbundled burst); an anomaly (every fetch held
+   past the factor times the step baseline: app_llm_anomaly{signal="step"}
+   1, one step bundle, cleared by normal steps); the exposition's goodput,
+   quota-shed and bundle series non-zero;
 5. overload — overload control on the engine phase's engine (preemption
    and the fair-queuing ledger toggled at runtime, no second warmup): a
    batch job (the burst's prompts five times, longest first, 256 new
@@ -87,6 +113,9 @@ Phases, each raising on failure:
    published while A's requests are in flight: those finish on the old
    gid (gated against the old A), two later ones get the new version
    (gated against it), nothing captured, memory_reserved unchanged. Then
+   register_adapter(quota=1.0) through a ModelHandle over this engine: the
+   adapter's tenant is shed with the priced Retry-After once its window
+   passes the quota. Then
    kv_int8=True, quantize=True with the pool: 4 requests of 16 tokens, 2
    under A, through the int8 gate. Flash and both paged kernels must
    launch ("lora_launches");
@@ -273,7 +302,14 @@ Phases, each raising on failure:
    answers 201 with the unfaulted tokens (or a near-tie divergence), the
    card then refuses the rebuild (device_sick) until the slot parks and
    health reads "degraded"; POST /.well-known/debug/drain turns health to
-   503, liveness stays 200, and the server closes;
+   503, liveness stays 200, and the server closes. The burst's two
+   tenants are billed by the meter both replicas share (each tenant's
+   requests' _chip); each injected death writes one bundle of its class
+   (engine_death, watchdog, numerical) holding the pinned requests'
+   in-flight records, the hung fetch's while the fetch still hangs, within
+   2 s plus its writes; the quarantine writes a quarantine bundle; GET
+   /.well-known/debug/blackbox lists them newest first and GET
+   /.well-known/debug/usage pools both replicas;
 19. rollout — zero-downtime rollouts, on a fresh fleet (its own device
    ledger): gofr_tpu_torch.serve's app with LLM_REPLICAS=2 over a
    Gemma-2B cut to ROLLOUT_LAYERS of its 18 layers (full width), v1
@@ -287,7 +323,8 @@ Phases, each raising on failure:
    streams of each version pass the gate against its plain forward; the v2 burst passes the
    gate against the plain v2 forward ("rollout_launches": from the v1
    burst to the v2 burst). A redeploy with rollout_canary_fail armed
-   ends "rolled_back", fully on v2, with no failed request;
+   ends "rolled_back", fully on v2, with no failed request and one
+   rollback bundle;
    memory_reserved after each within one replica's footprint of the
    level before the deploy. (The bare engine's blue-green swap is held by
    the CPU tests only, for the script's time.) Both versions have an
@@ -1233,10 +1270,11 @@ def program_ms(eng, name: str, seed: int, iters: int = 10) -> float:
     return sum(a.elapsed_time(b) for a, b in times[1:]) / iters
 
 
-def _serve(eng, prompts, new_tokens, adapters=None):
+def _serve(eng, prompts, new_tokens, adapters=None, clients=None):
     """Submit every prompt from its own client thread at once (prompt i
-    under LoRA adapter ``adapters[i]`` when given, "" the base); returns
-    ({i: tokens}, {i: request}, wall seconds)."""
+    under LoRA adapter ``adapters[i]`` when given, "" the base, as client
+    ``clients[i]`` when given); returns ({i: tokens}, {i: request}, wall
+    seconds)."""
     results: dict[int, list[int]] = {}
     reqs: dict[int, GenRequest] = {}
     errors: list[BaseException] = []
@@ -1244,7 +1282,8 @@ def _serve(eng, prompts, new_tokens, adapters=None):
     def client(i):
         try:
             r = eng.submit(GenRequest(prompts[i], max_new_tokens=new_tokens,
-                                      adapter=adapters[i] if adapters else ""))
+                                      adapter=adapters[i] if adapters else "",
+                                      client=clients[i] if clients else ""))
             reqs[i] = r
             results[i] = r.tokens(timeout=600)
         except BaseException as e:  # surfaced below, after every client joined
@@ -1501,7 +1540,12 @@ def _burst_prompts(cfg, seed: int) -> tuple[list, list]:
 def phase_engine(dev: dict, seed: int, cfg: TransformerConfig, params: dict) -> tuple[dict, LLMEngine]:
     """The engine phase; returns its readings and the engine, still open,
     for the overload phase (which closes it)."""
-    eng = LLMEngine(cfg, params, seed=seed)  # defaults: 32 slots, 512, {16, 64}, 256, K=8, B=16, lookahead 3, graphs
+    from gofr_tpu_torch.metrics import Manager
+
+    # defaults: 32 slots, 512, {16, 64}, 256, K=8, B=16, lookahead 3, graphs;
+    # the goodput ledger, the flight recorder and the anomaly detectors on,
+    # writing a metrics manager as under the runtime
+    eng = LLMEngine(cfg, params, seed=seed, metrics=Manager())
     try:
         warm = _warm_report("", eng)
         _check_families("", eng, seed)
@@ -1517,8 +1561,11 @@ def phase_engine(dev: dict, seed: int, cfg: TransformerConfig, params: dict) -> 
         prog = {name: program_ms(eng, name, seed) for name in ("llm.decode_chunk8", step)}
         print("program device ms (one replay): " + ", ".join(f"{k} {v:.3f}" for k, v in prog.items()))
         # the same traffic once more under torch.profiler: where the device
-        # time goes (the profiler slows the host, so this pass is not timed)
-        prof = _profile(lambda: _serve(eng, prompts, new_tokens))
+        # time goes (the profiler slows the host, so this pass is not timed),
+        # and the goodput ledger's busy time over the same burst
+        busy0 = eng.goodput.snapshot()["attributed_s"]
+        prof = _profile(lambda: (_serve(eng, prompts, new_tokens), _quiet(eng)))
+        prof["ledger_busy_ms"] = (eng.goodput.snapshot()["attributed_s"] - busy0) * 1e3
     except BaseException:
         eng.close()
         raise
@@ -1561,9 +1608,373 @@ def phase_engine(dev: dict, seed: int, cfg: TransformerConfig, params: dict) -> 
         f"engine gemma_2b on {dev['smi']}: {out['requests']} requests x 32 tokens, 3 bursts at lookahead 3: "
         f"median {out['tok_s']:.1f} tok/s; ttft p50 {out['ttft_p50_s']:.3f}s max {out['ttft_max_s']:.3f}s "
         f"(medians); lookahead 1: {runs[3]['tok_s']:.1f} tok/s; idle {100 * prof['idle']:.1f}% of a profiled "
-        f"burst; launches in burst 1 {launches}"
+        f"burst (until no program is in flight); launches in burst 1 {launches}"
     )
     return out, eng
+
+
+OBSERVE_LAYERS = 6  # --only observe: Gemma-2B's first 6 of 18 layers, full width
+OBSERVE_TENANTS = ("acme", "globex")  # the conservation burst's clients, alternating
+
+
+def _metric_lines(text: str, name: str) -> dict:
+    """{label string: value} of one series in a Prometheus exposition."""
+    out = {}
+    for line in text.splitlines():
+        m = re.match(rf"^{name}(\{{[^}}]*\}})? (\S+)$", line)
+        if m:
+            out[m.group(1) or ""] = float(m.group(2))
+    return out
+
+
+def _bundle(path: str | None, label: str) -> dict:
+    """A bundle directory's manifest and flight records; fails unless the
+    path exists and the manifest, written last, is there."""
+    if path is None or not os.path.isdir(path):
+        raise AssertionError(f"{label}no bundle directory ({path!r})")
+    with open(os.path.join(path, "manifest.json")) as f:
+        manifest = json.load(f)
+    with open(os.path.join(path, "flight_records.json")) as f:
+        records = json.load(f)
+    return {"manifest": manifest, "records": records, "files": sorted(os.listdir(path))}
+
+
+def _watch_incidents(eng) -> list:
+    """Record every bundle ``eng`` dumps from now on: its trigger, path,
+    seconds (the whole capture, and the dump's writes alone) and whether a
+    fetch was still in flight when the capture returned."""
+    seen: list = []
+    incident, dump = eng._incident, eng.blackbox.dump
+    writes: list = []
+
+    def timed_dump(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return dump(*a, **kw)
+        finally:
+            writes.append(time.perf_counter() - t0)
+
+    def timed_incident(trigger, **kw):
+        t0 = time.perf_counter()
+        path = incident(trigger, **kw)
+        seen.append({"trigger": trigger, "path": path, "s": time.perf_counter() - t0,
+                     "dump_s": writes[-1] if writes else 0.0,
+                     "fetch_in_flight": eng._hb_fetch.stalled()[0] is not None})
+        return path
+
+    eng._incident = timed_incident
+    eng.blackbox.dump = timed_dump
+    return seen
+
+
+def _quiet(*engines) -> None:
+    """Wait until no program is in flight on ``engines``: a chunk fetched
+    after its lanes' streams ended still bills them its padding."""
+    _wait_until(lambda: all(not e._inflight and e._processing is None for e in engines), 120,
+                "no program in flight")
+
+
+def _gp_delta(g0: dict, g1: dict) -> dict:
+    return {k: g1[k] - g0[k] for k in ("wall_s", "attributed_s", "idle_s")}
+
+
+def _chip_sum(reqs) -> float:
+    return sum(sum(r._chip.values()) for r in reqs)
+
+
+def phase_observe(dev: dict, seed: int, cfg: TransformerConfig, params: dict, eng=None, main=None) -> dict:
+    """Chip-time accounting and the flight recorder on the engine phase's
+    engine (or, alone, an engine of OBSERVE_LAYERS at full width): see the
+    module docstring. Returns its readings and launches."""
+    own = eng is None
+    if own:
+        from gofr_tpu_torch.metrics import Manager
+
+        cfg, params = _first_layers(cfg, params, OBSERVE_LAYERS)
+        eng = LLMEngine(cfg, params, seed=seed, metrics=Manager())
+        _warm_report("observe ", eng)
+        eng.generate([1, 2, 3], max_new_tokens=4)
+    try:
+        return _observe(dev, seed, cfg, params, eng, main)
+    finally:
+        if own:
+            eng.close()
+
+
+def _observe(dev: dict, seed: int, cfg, params, eng, main) -> dict:
+    from gofr_tpu_torch.app import new as new_app
+    from gofr_tpu_torch.config import new_mock_config
+    from gofr_tpu_torch.handler import llm_request_kwargs
+    from gofr_tpu_torch.resilience import default_injector
+    from gofr_tpu_torch.resilience.rollout import ModelHandle
+
+    if not eng.blackbox.enabled() or eng.goodput is None or eng.anomaly is None or eng.metrics is None:
+        raise AssertionError("observe: the engine's ledger, recorder, detectors and metrics must all be on")
+    _zero_launches(KERNEL_COUNTERS)
+    plens, prompts = _burst_prompts(cfg, seed)
+    new_tokens = 32
+    clients = [OBSERVE_TENANTS[i % 2] for i in range(len(prompts))]
+    out: dict = {}
+    laps: dict = {}
+    t_lap = [time.perf_counter()]
+
+    def lap(name):  # the phase's seconds by step
+        t = time.perf_counter()
+        laps[name] = round(t - t_lap[0], 2)
+        t_lap[0] = t
+
+    # 1. conservation on the burst, with the collector's accounting time
+    # (the ledger's seams and the finish path) measured
+    cost = {"observe": [0.0, 0], "finish": [0.0, 0]}
+    seams = {"observe": eng._gp_observe, "finish": eng._observe_finish}
+
+    def timed(key):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return seams[key](*a, **kw)
+            finally:
+                cost[key][0] += time.perf_counter() - t0
+                cost[key][1] += 1
+        return call
+
+    g0, u0 = eng.goodput.snapshot(), eng.usage.snapshot()["tenants"]
+    eng._gp_observe, eng._observe_finish = timed("observe"), timed("finish")
+    try:
+        results, reqs, wall = _serve(eng, prompts, new_tokens, clients=clients)
+        _quiet(eng)
+    finally:
+        del eng._gp_observe, eng._observe_finish
+    g1, u1 = eng.goodput.snapshot(), eng.usage.snapshot()["tenants"]
+    d = _gp_delta(g0, g1)
+    ident = abs(g1["attributed_s"] + g1["idle_s"] - g1["wall_s"])
+    if ident > 0.01 * g1["wall_s"] or abs(d["attributed_s"] + d["idle_s"] - d["wall_s"]) > 0.01 * d["wall_s"]:
+        raise AssertionError(f"observe: attributed + idle != wall: lifetime {g1}, burst {d}")
+    if d["attributed_s"] > 1.01 * wall:  # (its idle includes the gap since the traffic before)
+        raise AssertionError(f"observe: the ledger's busy {d['attributed_s']:.4f}s is longer than the burst {wall:.4f}s")
+    tenants_total = sum(sum(t["cum_chip_s"].values()) for t in u1.values())
+    if abs(tenants_total - g1["attributed_s"]) > 0.01 * g1["attributed_s"]:
+        raise AssertionError(f"observe: tenants' chip {tenants_total} != attributed {g1['attributed_s']}")
+    per_tenant = {}
+    for t in OBSERVE_TENANTS:
+        billed = sum(u1[t]["cum_chip_s"].values()) - sum(u0.get(t, {}).get("cum_chip_s", {}).values())
+        got = _chip_sum(r for i, r in reqs.items() if clients[i] == t)
+        if abs(got - billed) > 1e-5 + 1e-3 * billed:
+            raise AssertionError(f"observe: {t}'s requests hold {got} chip-s, the meter billed {billed}")
+        per_tenant[t] = billed
+    c, e = _replay_gate(params, cfg, prompts, results, TOKEN_GAP, label="observe ", verbose=False)
+    total = sum(len(t) for t in results.values())
+    print(f"observe conservation on {dev['smi']}: burst {total / wall:.1f} tok/s in {wall:.4f}s; ledger over the "
+          f"burst wall {d['wall_s']:.4f}s = attributed {d['attributed_s']:.4f} + idle {d['idle_s']:.4f} (the idle "
+          f"from the traffic before on); busy {100 * d['attributed_s'] / wall:.1f}% of the burst's clock; lifetime "
+          f"|attributed + idle - wall| "
+          f"{ident:.2e}s of {g1['wall_s']:.3f}s; tenants' chip {tenants_total:.6f} = attributed "
+          f"{g1['attributed_s']:.6f}; per tenant {per_tenant} = their requests' _chip; by class "
+          f"{ {k: round(v - g0['by_class'][k], 6) for k, v in g1['by_class'].items()} }; goodput ratio "
+          f"{g1['goodput_ratio']}; gate {c} matched, {e} exempt")
+    print(f"observe collector cost: goodput seams {cost['observe'][1]} calls {1e3 * cost['observe'][0]:.3f} ms "
+          f"({1e6 * cost['observe'][0] / max(1, cost['observe'][1]):.1f} us each), finish path {cost['finish'][1]} "
+          f"calls {1e3 * cost['finish'][0]:.3f} ms, together {100 * (cost['observe'][0] + cost['finish'][0]) / wall:.3f}% "
+          f"of the burst's wall")
+    out.update(conservation=d, burst_wall_s=wall, tenants=per_tenant, cost_ms={k: 1e3 * v[0] for k, v in cost.items()})
+    lap("conservation")
+    if main is not None:
+        runs = main["runs"]
+        print(f"observe main path with the ledger, the recorder and the detectors on ({dev['smi']}): "
+              f"{main['tok_s']:.1f} tok/s median at lookahead 3 (bursts {[round(r['tok_s'], 1) for r in runs[:3]]}), "
+              f"{runs[3]['tok_s']:.1f} at lookahead 1, ttft p50 {main['ttft_p50_s']:.3f}s")
+
+    # 2. the ledger's busy time beside the profiler's device-busy time, over
+    # the engine phase's profiled burst (or one of this phase's own)
+    prof = main["profile"] if main is not None else None
+    if prof is None:
+        busy0 = eng.goodput.snapshot()["attributed_s"]
+        prof = _profile(lambda: (_serve(eng, prompts, new_tokens), _quiet(eng)), label="observe ")
+        prof["ledger_busy_ms"] = (eng.goodput.snapshot()["attributed_s"] - busy0) * 1e3
+    out["ledger_vs_profiler"] = prof["ledger_busy_ms"] / max(prof["busy_ms"], 1e-9)
+    print(f"observe ledger vs profiler{' (the engine phase profiled burst)' if main is not None else ''}: ledger busy "
+          f"{prof['ledger_busy_ms']:.1f} ms (host dispatch->fetch windows), profiler device busy {prof['busy_ms']:.1f} "
+          f"ms of {prof['wall_ms']:.1f} ms: the ledger reads {out['ledger_vs_profiler']:.2f}x the device time")
+    lap("profiler")
+
+    # 3. a probe is billed to probe alone, and meters no tokens
+    r = eng.submit(GenRequest(prompts[0], max_new_tokens=8, probe=True, client="probe-check"))
+    r.tokens(timeout=600)
+    if set(r._chip) != {"probe"} or r._chip["probe"] <= 0 or eng.usage.window("probe-check")[1] != 0:
+        raise AssertionError(f"observe: probe billed {r._chip}, metered {eng.usage.window('probe-check')}")
+    print(f"observe probe: {r._chip['probe'] * 1e3:.3f} ms chip, all probe; 0 tokens metered")
+    lap("probe")
+
+    # 4. the quota: a quarter of acme's metered rate sheds its next submit
+    app = new_app(new_mock_config({"HTTP_PORT": "0", "REQUEST_TIMEOUT": "600", "LOG_LEVEL": "WARN"}))
+    rt = app.container.tpu()
+    rt._llms["gemma"] = ModelHandle("gemma", eng)
+
+    def generate(ctx):
+        body = ctx.bind()
+        return {"tokens": ctx.tpu().llm("gemma").generate(
+            list(body["tokens"]), max_new_tokens=int(body.get("max_new_tokens", 16)), **llm_request_kwargs(ctx))}
+
+    app.post("/generate", generate)
+    thread = app.run_in_background()
+    port = app.http_server.port
+    try:
+        rate = eng.usage.tok_rate("acme")
+        quota = rate / 4
+        eng.set_tenant_quota("acme", quota)
+        p0 = eng.quota.check("acme")
+        try:
+            eng.submit(GenRequest(prompts[1], max_new_tokens=8, client="acme"))
+            raise AssertionError("observe: acme's submit was admitted past its quota")
+        except TL.EngineOverloaded as ex:
+            shed = ex.retry_after
+        p1 = eng.quota.check("acme")
+        if p0 is None or p1 is None or not min(p0, p1) - 1e-9 <= shed <= max(p0, p1) + 1e-9:
+            raise AssertionError(f"observe: shed with retry_after {shed}, the gate prices {p0} .. {p1}")
+        probe = eng.submit(GenRequest(prompts[1], max_new_tokens=8, client="acme", probe=True)).tokens(timeout=600)
+        p2 = eng.quota.check("acme")
+        status, raw, _, _, hdrs = _http(port, "POST", "/generate", {"tokens": prompts[1], "max_new_tokens": 8},
+                                        headers={"X-GoFr-Client": "acme"})
+        p3 = eng.quota.check("acme")
+        retry_hdr = hdrs.get("Retry-After")
+        if status != 429 or retry_hdr is None or int(retry_hdr) not in {max(1, math.ceil(p)) for p in (p2, p3)}:
+            raise AssertionError(f"observe: HTTP over quota {status} Retry-After {retry_hdr}: {raw[:200]!r}")
+        eng.set_tenant_quota("acme", None)
+        status, raw, _, _, _ = _http(port, "POST", "/generate", {"tokens": prompts[1], "max_new_tokens": 8},
+                                      headers={"X-GoFr-Client": "acme"})
+        if status != 201 or len(json.loads(raw)["data"]["tokens"]) != 8:
+            raise AssertionError(f"observe: acme after clearing its quota: {status} {raw[:200]!r}")
+        status, raw, _, _, _ = _http(port, "GET", "/.well-known/debug/usage")
+        usage = json.loads(raw)["data"]["models"]["gemma"] if status == 200 else None
+        if usage is None or "acme" not in usage["tenants"] or usage["window_s"] is None or usage["quota_sheds"] < 2:
+            raise AssertionError(f"observe: GET /.well-known/debug/usage {status} {raw[:300]!r}")
+        print(f"observe quota: acme metered {rate:.1f} tok/s, quota {quota:.1f}: submit shed with retry_after "
+              f"{shed:.3f}s (the gate's price {p0:.3f}..{p1:.3f}); a probe from acme admitted ({len(probe)} tokens); "
+              f"over HTTP 429 with Retry-After {retry_hdr}; cleared: 201; debug/usage acme {usage['tenants']['acme']}, "
+              f"window {usage['window_s']} s, sheds {usage['quota_sheds']}")
+        out["quota"] = {"rate": rate, "quota": quota, "retry_after": shed, "retry_header": int(retry_hdr)}
+        lap("quota")
+
+        # 5. flight records and replay: every burst record final with its
+        # stream; each replay token-identical or leaving at a near-tie
+        match, replays = 0, {}
+        for i, r in reqs.items():
+            rec = eng.flightrec.get(r.id)
+            if rec is None or not rec["final"] or rec["emitted_token_ids"] != results[i] or not rec["chip_ms"]:
+                raise AssertionError(f"observe: request {i}'s record {rec and {k: rec[k] for k in ('final', 'finish_reason')}}")
+            rp = eng.replay(r.id, timeout=600)
+            if "error" in rp or rp["replayed_len"] != len(results[i]):
+                raise AssertionError(f"observe: replay of request {i}: {rp}")
+            replays[i] = rp["replayed_token_ids"]
+            match += rp["match"]
+        differ = _divergence_at_near_ties(params, cfg, prompts, replays, results, TOKEN_GAP, "observe replay ")
+        status, raw, _, _, _ = _http(port, "POST", "/.well-known/debug/replay", {"id": reqs[0].id, "model": "gemma"})
+        rp = json.loads(raw)["data"]["replay"] if status == 201 else None
+        if rp is None or rp["replayed_len"] != len(results[0]):
+            raise AssertionError(f"observe: POST /.well-known/debug/replay {status} {raw[:300]!r}")
+        if not rp["match"]:
+            _divergence_at_near_ties(params, cfg, prompts[:1], {0: rp["replayed_token_ids"]}, {0: results[0]},
+                                     TOKEN_GAP, "observe http replay ")
+        print(f"observe replay: {match} of {len(reqs)} replays token-identical, {differ} leave the recorded stream "
+              f"at a near-tie; POST /.well-known/debug/replay from loopback: match {rp['match']} "
+              f"({rp['replay_ms']} ms)")
+        out["replays"] = {"match": match, "differ": differ, "http_match": rp["match"]}
+        lap("replay")
+    finally:
+        rt._llms.pop("gemma", None)  # the app's shutdown must not close the engine
+        eng.set_tenant_quota("acme", None)
+        app.shutdown()
+        thread.join(timeout=60)
+
+    # 6. a bundle under load, beside an unbundled burst
+    res0, _r, w0 = _serve(eng, prompts, new_tokens)
+    box: dict = {}
+    th = threading.Thread(target=lambda: box.update(run=_serve(eng, prompts, new_tokens)))
+    th.start()
+    _wait_until(lambda: any(r is not None and r.emitted > 0 for r in list(eng._slot_req)), 120,
+                "observe: a burst's first tokens")
+    t0 = time.perf_counter()
+    path = eng._incident("manual_check", reason="chip_smoke: a bundle under load")
+    dump_ms = (time.perf_counter() - t0) * 1e3
+    th.join(timeout=900)
+    res1, _r, w1 = box["run"]
+    b = _bundle(path, "observe ")
+    with open(os.path.join(path, "hbm.json")) as f:
+        hbm = json.load(f)
+    weights = _tensor_bytes(eng.params)
+    inflight = [rec for rec in b["records"] if not rec["final"]]
+    need = {"manifest.json", "debug_state.json", "hbm.json", "config.json", "wide_events.json", "flight_records.json"}
+    if not need <= set(b["files"]) or not inflight or not hbm[0]["bytes_in_use"] or hbm[0]["bytes_in_use"] <= weights:
+        raise AssertionError(f"observe: bundle {b['files']}, {len(inflight)} in-flight records, hbm {hbm}")
+    tok0, tok1 = sum(map(len, res0.values())) / w0, sum(map(len, res1.values())) / w1
+    print(f"observe bundle under load: {path} ({', '.join(b['files'])}) in {dump_ms:.1f} ms; {len(inflight)} "
+          f"in-flight and {len(b['records']) - len(inflight)} final records; hbm in use {hbm[0]['bytes_in_use']} "
+          f"bytes (weights {weights}), peak {hbm[0]['peak_bytes_in_use']}, limit {hbm[0]['bytes_limit']}; burst "
+          f"{tok1:.1f} tok/s with the bundle beside {tok0:.1f} without")
+    out["bundle"] = {"ms": dump_ms, "tok_s": tok1, "tok_s_unbundled": tok0, "inflight": len(inflight)}
+    lap("bundle")
+
+    # 7. an anomaly: step walls held past factor x the baseline for more
+    # than the sustain count flag it, one bundle lands, normal steps clear it
+    an = eng.anomaly
+    for _ in range(12):  # the baseline (an engine of this phase's own has few steps yet)
+        if an.snapshot()["step"]["baseline_samples"] >= an.min_samples:
+            break
+        _serve(eng, prompts, new_tokens)
+    snap = an.snapshot()["step"]
+    if snap["baseline_samples"] < an.min_samples or snap["flagged"]:
+        raise AssertionError(f"observe: no clean step baseline: {snap}")
+    delay = max(0.05, (an.factor + 0.5) * snap["baseline_mean"] / 1e3)
+    watch = _watch_incidents(eng)
+    inj = default_injector()
+    box = {}
+    th = threading.Thread(target=lambda: box.update(run=_serve(eng, prompts, new_tokens)))
+    inj.arm("step_latency", count=-1, label=eng.label, delay=delay)
+    try:
+        th.start()
+        _wait_for(lambda: "step" in an.flagged() or not th.is_alive(), 600)
+        flagged = "step" in an.flagged()
+    finally:
+        inj.disarm("step_latency")
+        th.join(timeout=900)
+    del eng._incident, eng.blackbox.dump
+    text = eng.metrics.render_prometheus()
+    gauge = _metric_lines(text, "app_llm_anomaly")
+    step_on = [v for k, v in gauge.items() if 'signal="step"' in k]
+    bundles = [_bundle(w["path"], "observe anomaly ")["manifest"] for w in watch
+               if w["trigger"] == "anomaly" and w["path"] is not None]
+    steps = [m for m in bundles if m["reason"].startswith("step sustained deviant")]
+    if not flagged or step_on != [1.0] or len(steps) != 1:
+        raise AssertionError(f"observe anomaly: flagged {an.flagged()}, gauge {gauge}, bundles {watch}")
+    for _ in range(3):  # normal steps clear the flag
+        _serve(eng, prompts, new_tokens)
+        if "step" not in an.flagged():
+            break
+    gauge = _metric_lines(eng.metrics.render_prometheus(), "app_llm_anomaly")
+    if "step" in an.flagged() or [v for k, v in gauge.items() if 'signal="step"' in k] != [0.0]:
+        raise AssertionError(f"observe anomaly: not cleared: {an.flagged()} {gauge}")
+    print(f"observe anomaly: step baseline {snap['baseline_mean']:.2f} ms over {snap['baseline_samples']} steps; "
+          f"every fetch held {delay * 1e3:.0f} ms: flagged (factor {an.factor}, sustain {an.sustain}), "
+          f"app_llm_anomaly{{signal=\"step\"}} 1; bundles {[(w['trigger'], round(w['s'] * 1e3, 1)) for w in watch]}; "
+          f"the step's: {steps[0]['reason']!r}; cleared after normal steps (gauge 0)")
+    out["anomaly"] = {"delay_ms": delay * 1e3, "baseline_ms": snap["baseline_mean"],
+                      "bundles": [w["trigger"] for w in watch]}
+    lap("anomaly")
+
+    # 8. the exposition
+    text = eng.metrics.render_prometheus()
+    for name in ("app_llm_goodput_seconds_total", "app_llm_goodput_ratio", "app_llm_quota_sheds_total",
+                 "app_blackbox_bundles_total"):
+        if not any(v > 0 for v in _metric_lines(text, name).values()):
+            raise AssertionError(f"observe: {name} has no non-zero series")
+    print("observe exposition: " + "; ".join(
+        f"{k}{lab} {v:g}" for k in ("app_llm_goodput_ratio", "app_llm_quota_sheds_total", "app_blackbox_bundles_total")
+        for lab, v in _metric_lines(text, k).items()))
+    out["launches"] = _launches(KERNEL_COUNTERS)
+    if any(out["launches"][name] <= 0 for name in ("flash_attention", "paged_decode_partials")):
+        raise AssertionError(f"observe launches {out['launches']}")
+    print(f"observe launches over the phase: {out['launches']}; seconds by step {laps}")
+    return out
 
 
 OVERLOAD_BATCH_NEW = 256  # a batch job's answers: long enough that no slot is near its end (virtually free) at the arrivals
@@ -2140,6 +2551,30 @@ def _lora_int8(dev: dict, seed: int, cfg, params: dict, adapter: dict) -> dict:
     return {"launches": launches, "tokens": total, "tok_s": total / wall, "matched": checked, "exempt": exempt}
 
 
+def _lora_quota(eng, prompts, adapter: dict) -> dict:
+    """``register_adapter(quota=1.0)`` through a ModelHandle over the lora
+    engine: the adapter's first request (208 tokens, past 60 s x 1 tok/s)
+    is served, its next is shed with the gate's priced Retry-After."""
+    from gofr_tpu_torch.resilience.rollout import ModelHandle
+
+    ModelHandle("lora", eng).register_adapter("acme-ft", adapter, quota=1.0)
+    first = eng.generate(prompts[6], max_new_tokens=8, adapter="acme-ft")
+    _quiet(eng)
+    try:
+        eng.submit(GenRequest(prompts[6], max_new_tokens=8, adapter="acme-ft"))
+        raise AssertionError("lora: adapter:acme-ft admitted past its quota")
+    except TL.EngineOverloaded as ex:
+        shed = ex.retry_after
+    price = eng.quota.check("adapter:acme-ft")
+    if price is None or abs(shed - price) > 1.0:
+        raise AssertionError(f"lora: adapter quota shed {shed}, price {price}")
+    eng.set_tenant_quota("adapter:acme-ft", None)
+    print(f"lora adapter quota: register_adapter('acme-ft', quota=1.0): the first request served {len(first)} "
+          f"tokens, the next shed with retry_after {shed:.2f}s (the gate prices {price:.2f}s); tenant window "
+          f"{eng.usage.snapshot()['tenants']['adapter:acme-ft']}")
+    return {"retry_after": shed, "price": price}
+
+
 def phase_lora(dev: dict, seed: int, cfg: TransformerConfig, params: dict, main: dict) -> dict:
     """The lora phase (see the module docstring): returns its readings and
     the kernel launches of its first burst (flash, bf16 paged) and of its
@@ -2190,6 +2625,8 @@ def phase_lora(dev: dict, seed: int, cfg: TransformerConfig, params: dict, main:
         forms = _delta_forms(eng, cfg, seed)
         hot = _lora_hot_load(eng, prompts, ads)
         _lora_idle(eng, "lora hot-load ")
+        quota = _lora_quota(eng, prompts, ads["F"])
+        _lora_idle(eng, "lora quota ")
     finally:
         eng.close()
 
@@ -2234,7 +2671,7 @@ def phase_lora(dev: dict, seed: int, cfg: TransformerConfig, params: dict, main:
     return {"launches": launches, "tok_s": tok_s, "ttft_p50_s": ttft, "lookahead1_tok_s": runs[3]["tok_s"],
             "load_ms": load_ms, "gid_bytes": gid_bytes, "program_ms": prog, "delta_forms": forms,
             "matched": checked, "exempt": exempt, "moved": moved, "merged": (mc, me), "int8": int8,
-            "hot": {k: v for k, v in hot.items() if k not in ("results", "late")}}
+            "hot": {k: v for k, v in hot.items() if k not in ("results", "late")}, "quota": quota}
 
 
 def _lora_moved(params, cfg, prompts, results: dict) -> dict:
@@ -3049,18 +3486,19 @@ def _wait_for(pred, seconds: float) -> bool:
     return True
 
 
-def _http(port: int, method: str, path: str, body=None, timeout: float = 600.0):
-    """One request on its own connection -> (status, body bytes, seconds to
-    the response's first byte, seconds to its last)."""
+def _http(port: int, method: str, path: str, body=None, headers=None, timeout: float = 600.0):
+    """One request on its own connection, with ``headers`` added -> (status,
+    body bytes, seconds to the response's first byte, seconds to its last,
+    response headers)."""
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
     try:
         t0 = time.perf_counter()
         data = None if body is None else json.dumps(body).encode()
-        conn.request(method, path, body=data, headers={"Content-Type": "application/json"})
+        conn.request(method, path, body=data, headers={"Content-Type": "application/json", **(headers or {})})
         resp = conn.getresponse()
         t_first = time.perf_counter() - t0
         raw = resp.read()
-        return resp.status, raw, t_first, time.perf_counter() - t0
+        return resp.status, raw, t_first, time.perf_counter() - t0, dict(resp.getheaders())
     finally:
         conn.close()
 
@@ -3093,7 +3531,7 @@ def phase_edge(dev: dict, seed: int, cfg: TransformerConfig, params: dict, engin
     A.flash_attention.launches = 0
     A.paged_decode_partials.launches = 0
     try:
-        status, raw, _, _ = _http(port, "POST", "/generate", {"tokens": [1, 2, 3], "max_new_tokens": 4})
+        status, raw, _, _, _ = _http(port, "POST", "/generate", {"tokens": [1, 2, 3], "max_new_tokens": 4})
         if status != 201 or len(json.loads(raw)["data"]["tokens"]) != 4:  # warm-up, outside the timed run
             raise AssertionError(f"warm-up /generate: {status} {raw[:200]!r}")
 
@@ -3128,7 +3566,7 @@ def phase_edge(dev: dict, seed: int, cfg: TransformerConfig, params: dict, engin
         if any(th.is_alive() for th in threads) or len(answers) != len(prompts):
             raise TimeoutError(f"{len(answers)} of {len(prompts)} HTTP clients finished")
         results = {}
-        for i, (status, raw, _, _) in sorted(answers.items()):
+        for i, (status, raw, _, _, _) in sorted(answers.items()):
             toks = json.loads(raw)["data"]["tokens"] if status == 201 else None
             if toks is None or len(toks) != new_tokens or any(t < 0 or t >= cfg.vocab_size for t in toks):
                 raise AssertionError(f"edge request {i} (prompt {plens[i]}): {status} {raw[:200]!r}")
@@ -3139,14 +3577,14 @@ def phase_edge(dev: dict, seed: int, cfg: TransformerConfig, params: dict, engin
         # 2. one OpenAI chat request, plain and then SSE, each alone
         chat = {"model": "gemma", "messages": [{"role": "user", "content": "Say hello to the H100."}],
                 "max_tokens": 24}
-        status, raw, _, _ = _http(port, "POST", "/v1/chat/completions", chat)
+        status, raw, _, _, _ = _http(port, "POST", "/v1/chat/completions", chat)
         if status != 200:
             raise AssertionError(f"chat completion: {status} {raw[:300]!r}")
         plain = json.loads(raw)
         finish = plain["choices"][0]["finish_reason"]
         if not 0 < plain["usage"]["completion_tokens"] <= 24 or finish not in ("length", "stop"):
             raise AssertionError(f"chat completion: {plain}")
-        status, raw, sse_first, _ = _http(port, "POST", "/v1/chat/completions", {**chat, "stream": True})
+        status, raw, sse_first, _, _ = _http(port, "POST", "/v1/chat/completions", {**chat, "stream": True})
         if status != 200:
             raise AssertionError(f"chat SSE: {status} {raw[:300]!r}")
         events = _sse_events(raw)
@@ -4618,7 +5056,7 @@ def phase_mnist(dev: dict, seed: int) -> dict:
         answers: dict[int, dict] = {}
 
         def post(i):
-            status, raw, _first, seconds = _http(port, "POST", "/infer", {"image": images[i].tolist()}, timeout=60)
+            status, raw, _first, seconds, _ = _http(port, "POST", "/infer", {"image": images[i].tolist()}, timeout=60)
             http_lat.append(seconds)
             if status != 201:
                 raise AssertionError(f"{label}POST /infer answered {status}: {raw[:200]}")
@@ -4631,7 +5069,7 @@ def phase_mnist(dev: dict, seed: int) -> dict:
         http_lat.sort()
         http_err = max(float(np.abs(np.asarray(answers[i]["logits"]) - plain[i]).max()) for i in answers)
         agree = sum(answers[i]["digit"] == int(np.argmax(plain[i])) for i in answers)
-        status, raw, _first, _s = _http(port, "GET", "/model")
+        status, raw, _first, _s, _ = _http(port, "GET", "/model")
         info = json.loads(raw)
         models = info["data"]["details"]["models"] if status == 200 else {}
         run["http"] = {"requests_s": MNIST_HTTP / http_wall, "p50_ms": 1e3 * http_lat[len(http_lat) // 2],
@@ -4659,6 +5097,7 @@ FLEET_PINNED = 4  # requests pinned to the replica that is killed
 FLEET_PINNED_NEW = 96  # their new tokens: every stream is mid-decode at the fault
 FLEET_LAYERS = 6  # of Gemma-2B's 18 (full width), for the script's time
 FLEET_REBUILD_BURSTS = 3  # survivor bursts served while a replica is rebuilt
+FLEET_TENANTS = ("fleet-a", "fleet-b")  # the fleet burst's clients, alternating
 
 
 def _fleet_memory(label: str) -> int:
@@ -4671,13 +5110,16 @@ def _fleet_memory(label: str) -> int:
     return m
 
 
-def _fleet_pinned(eng, prompts, new_tokens: int, arm, want: dict, params, cfg, label: str) -> dict:
+def _fleet_pinned(eng, prompts, new_tokens: int, arm, want: dict, params, cfg, label: str, trigger: str) -> dict:
     """Submit ``prompts`` to replica ``eng`` directly, ``arm()`` once each
     has its first token, and collect the streams, which fail over: each
     must equal the unfaulted stream ``want[i]`` or leave it only at a near
-    tie, and pass the replay gate. Returns the readings."""
+    tie, and pass the replay gate. The death must write one bundle of class
+    ``trigger`` holding every pinned request's in-flight record. Returns
+    the readings."""
     reqs = [eng.submit(GenRequest(p, max_new_tokens=new_tokens)) for p in prompts]
     _wait_until(lambda: all(r.emitted > 0 for r in reqs), 120, f"{label}first tokens")
+    watch = _watch_incidents(eng)
     t0 = time.perf_counter()
     arm()
     _wait_until(lambda: not eng.alive(), 60, f"{label}the replica's death")
@@ -4692,11 +5134,19 @@ def _fleet_pinned(eng, prompts, new_tokens: int, arm, want: dict, params, cfg, l
     equal = sum(got[i] == want[i] for i in got)
     differ = _divergence_at_near_ties(params, cfg, prompts, got, want, TOKEN_GAP, label)
     checked, exempt = _replay_gate(params, cfg, prompts, got, TOKEN_GAP, label=label, verbose=False)
+    if len(watch) != 1 or watch[0]["trigger"] != trigger:
+        raise AssertionError(f"{label}bundles {watch}, want one {trigger!r}")
+    b = _bundle(watch[0]["path"], label)
+    inflight = {rec["id"] for rec in b["records"] if not rec["final"]}
+    if b["manifest"]["trigger"] != trigger or not {r.id for r in reqs} <= inflight:
+        raise AssertionError(f"{label}bundle {b['manifest']}, in-flight records {sorted(inflight)}")
     print(f"{label}{eng.label} died ({eng.died_reason}) {t_dead:.3f}s after the arm; {len(reqs)} streams failed over "
           f"and ended {t_done:.3f}s after it; {equal} of {len(reqs)} equal the unfaulted streams, {differ} leave "
-          f"them at a near-tie; replay gate {checked} matched, {exempt} exempt")
+          f"them at a near-tie; replay gate {checked} matched, {exempt} exempt; bundle {trigger} "
+          f"{os.path.basename(watch[0]['path'])} in {1e3 * watch[0]['s']:.1f} ms (writes {1e3 * watch[0]['dump_s']:.1f} "
+          f"ms), a fetch still in flight: {watch[0]['fetch_in_flight']}, {len(inflight)} in-flight records")
     return {"died_reason": eng.died_reason, "death_s": t_dead, "done_s": t_done, "equal": equal, "differ": differ,
-            "matched": checked, "exempt": exempt}
+            "matched": checked, "exempt": exempt, "bundle": watch[0]}
 
 
 def _fleet_rebuilt(rep, i: int, corpse, label: str, busy=None) -> dict:
@@ -4770,10 +5220,22 @@ def phase_fleet(dev: dict, seed: int, cfg=None, params=None, main: dict | None =
         plens, prompts = _burst_prompts(cfg, seed)
         new_tokens = 32
 
-        # 1. the main burst through the fleet, every token through the gate
+        # 1. the main burst through the fleet, every token through the gate;
+        # two tenants, billed by the meter the replicas share
         _zero_launches(KERNEL_COUNTERS)
-        want, reqs, wall = _serve(rep, prompts, new_tokens)
+        tenants = [FLEET_TENANTS[i % 2] for i in range(len(prompts))]
+        want, reqs, wall = _serve(rep, prompts, new_tokens, clients=tenants)
         out["launches"] = _launches(KERNEL_COUNTERS)
+        _quiet(*rep.engines)
+        billed = {t: sum(rep.usage.snapshot()["tenants"][t]["cum_chip_s"].values()) for t in FLEET_TENANTS}
+        served_by = {t: {e.label for e in rep.engines for rec in e.flightrec.records() if rec["client"] == t}
+                     for t in FLEET_TENANTS}
+        for t in FLEET_TENANTS:
+            got = _chip_sum(r for r in reqs.values() if r.client == t)
+            if abs(got - billed[t]) > 1e-5 + 1e-3 * billed[t]:
+                raise AssertionError(f"fleet: {t}'s requests hold {got} chip-s, the shared meter billed {billed[t]}")
+        if len(set().union(*served_by.values())) != 2:
+            raise AssertionError(f"fleet: the burst reached {served_by}")
         if any(out["launches"][k] <= 0 for k in ("flash_attention", "paged_decode_partials")):
             raise AssertionError(f"fleet burst launches {out['launches']}")
         total = sum(len(t) for t in want.values())
@@ -4783,7 +5245,8 @@ def phase_fleet(dev: dict, seed: int, cfg=None, params=None, main: dict | None =
         print(f"fleet burst on {dev['smi']}: 2 replicas, {total} tokens in {wall:.3f}s = {out['tok_s']:.1f} tok/s "
               f"(one 18-layer engine, engine phase: {main['tok_s'] if main else float('nan'):.1f}); ttft p50 {ttfts[len(ttfts) // 2]:.3f}s; "
               f"requests per replica {[e.submitted for e in rep.engines]}; replay gate {checked} matched, "
-              f"{exempt} exempt; launches {out['launches']}")
+              f"{exempt} exempt; launches {out['launches']}; the shared meter billed {billed} chip-s, each "
+              f"tenant's requests' _chip summed, served by {served_by}")
 
         # 2. replica_kill mid-decode on r0 under 4 pinned streams; the
         # supervisor rebuilds r0 behind the canary while r1 serves bursts
@@ -4791,7 +5254,7 @@ def phase_fleet(dev: dict, seed: int, cfg=None, params=None, main: dict | None =
         long_want, _r, _w = _serve(rep, sub, FLEET_PINNED_NEW)  # their unfaulted streams
         corpse = rep.engines[0]
         out["kill"] = _fleet_pinned(corpse, sub, FLEET_PINNED_NEW, lambda: inj.arm("replica_kill", label="/r0"),
-                                    long_want, params, cfg, "fleet kill ")
+                                    long_want, params, cfg, "fleet kill ", "engine_death")
         if rep.failovers < FLEET_PINNED:
             raise AssertionError(f"fleet: {rep.failovers} failovers")
 
@@ -4817,10 +5280,13 @@ def phase_fleet(dev: dict, seed: int, cfg=None, params=None, main: dict | None =
         out["watchdog"] = _fleet_pinned(
             corpse, sub[:2], FLEET_PINNED_NEW,
             lambda: inj.arm("step_latency", label="/r1", delay=FLEET_WATCHDOG_S + 2.0),
-            long_want, params, cfg, "fleet watchdog ",
+            long_want, params, cfg, "fleet watchdog ", "watchdog",
         )
         if not out["watchdog"]["died_reason"].startswith("step watchdog"):
             raise AssertionError(f"fleet watchdog: {out['watchdog']['died_reason']}")
+        wb = out["watchdog"]["bundle"]  # taken beside the hung fetch, never behind it
+        if not wb["fetch_in_flight"] or wb["s"] > 2.0 + wb["dump_s"]:
+            raise AssertionError(f"fleet watchdog: the bundle took {wb['s']:.3f}s, fetch in flight {wb['fetch_in_flight']}")
         out["watchdog"].update(_fleet_rebuilt(rep, 1, corpse, "fleet watchdog "))
         del corpse
         out["mem_after"].append(_fleet_memory("after death 2 and its rebuild"))
@@ -4829,7 +5295,7 @@ def phase_fleet(dev: dict, seed: int, cfg=None, params=None, main: dict | None =
         corpse = rep.engines[0]
         out["numerical"] = _fleet_pinned(
             corpse, sub[:2], FLEET_PINNED_NEW, lambda: inj.arm("nan_logits", label="/r0"),
-            long_want, params, cfg, "fleet numerical ",
+            long_want, params, cfg, "fleet numerical ", "numerical",
         )
         if not out["numerical"]["died_reason"].startswith("numerical watchdog: non-finite logits"):
             raise AssertionError(f"fleet numerical: {out['numerical']['died_reason']}")
@@ -4861,7 +5327,7 @@ def phase_fleet(dev: dict, seed: int, cfg=None, params=None, main: dict | None =
         inj.arm("device_sick", label=card, count=-1)
         inj.arm("replica_kill", label=victim.label[-3:])
         th.join(timeout=600)
-        status, raw, _, _ = answer["r"]
+        status, raw, _, _, _ = answer["r"]
         toks = json.loads(raw)["data"]["tokens"] if status == 201 else None
         if toks is None or len(toks) != long_new:
             raise AssertionError(f"fleet http: {status} {raw[:200]!r}")
@@ -4873,15 +5339,37 @@ def phase_fleet(dev: dict, seed: int, cfg=None, params=None, main: dict | None =
         out["http_equal"] = toks == ref
         del victim
         _wait_until(lambda: rep.supervisor.parked_count() == 1, 120, "fleet http: the parked slot")
-        status, raw, _, _ = _http(port, "GET", "/.well-known/health")
+        status, raw, _, _, _ = _http(port, "GET", "/.well-known/health")
         health = json.loads(raw)["data"]["status"] if status == 200 else None
         if health != "degraded":
             raise AssertionError(f"fleet health with a parked slot: {status} {raw[:200]!r}")
         print(f"fleet: device_sick refused {rep.supervisor.restart_failures} rebuild(s); {card} "
               f"{rep.health.state(card)}; slot parked; health {health}")
 
+        # the bundles over HTTP, newest first: every death's class and the
+        # quarantine's; the usage view pools both replicas
+        status, raw, _, _, _ = _http(port, "GET", "/.well-known/debug/blackbox")
+        listing = json.loads(raw)["data"]["bundles"] if status == 200 else None
+        triggers = [m["trigger"] for m in listing or []]
+        ts = [m["ts"] for m in listing or []]
+        if not {"engine_death", "watchdog", "numerical", "quarantine"} <= set(triggers) or ts != sorted(ts, reverse=True):
+            raise AssertionError(f"fleet: GET /.well-known/debug/blackbox {status}: {triggers}")
+        q = next(m for m in listing if m["trigger"] == "quarantine")
+        status, raw, _, _, _ = _http(port, "GET", "/.well-known/debug/usage")
+        view = json.loads(raw)["data"]["models"]["gemma"] if status == 200 else None
+        pooled = view and view["goodput"]
+        if (view is None or view["replicas"] != 2 or abs(pooled["attributed_s"] + pooled["idle_s"] - pooled["wall_s"])
+                > 0.01 * pooled["wall_s"] or any(abs(sum(view["tenants"][t]["cum_chip_s"].values()) - billed[t])
+                                                 > 1e-5 + 1e-3 * billed[t] for t in FLEET_TENANTS)):
+            raise AssertionError(f"fleet: GET /.well-known/debug/usage {status}: {raw[:400]!r}")
+        print(f"fleet blackbox: {len(listing)} bundles newest first, triggers {triggers}; quarantine: "
+              f"{q['reason']!r}; debug/usage: 2 replicas pooled, wall {pooled['wall_s']} s = attributed "
+              f"{pooled['attributed_s']} + idle {pooled['idle_s']}, ratio {pooled['goodput_ratio']}; tenants "
+              f"{ {t: view['tenants'][t]['cum_chip_s'] for t in FLEET_TENANTS} }")
+        out["bundles"] = triggers
+
         # 6. the drain: health 503, liveness 200, the server closes
-        status, raw, _, _ = _http(port, "POST", "/.well-known/debug/drain", {})
+        status, raw, _, _, _ = _http(port, "POST", "/.well-known/debug/drain", {})
         if status != 201 or not json.loads(raw)["data"]["draining"]:
             raise AssertionError(f"fleet drain: {status} {raw[:200]!r}")
         t0 = time.perf_counter()
@@ -5000,7 +5488,7 @@ def _rollout_wait(port: int, label: str, seconds: float = 600.0) -> dict:
     """GET /.well-known/debug/rollout until the model's rollout is terminal."""
     t0 = time.perf_counter()
     while True:
-        status, raw, _, _ = _http(port, "GET", "/.well-known/debug/rollout")
+        status, raw, _, _, _ = _http(port, "GET", "/.well-known/debug/rollout")
         if status != 200:
             raise AssertionError(f"{label}GET rollout: {status} {raw[:200]!r}")
         view = json.loads(raw)["data"]["models"]["gemma"]
@@ -5073,7 +5561,7 @@ def phase_rollout(dev: dict, seed: int) -> dict:
         clients, log = _rollout_clients(h, prompts[:4], stop)
         mem_pre = _fleet_memory("rollout: before the deploy (v1 retained; 8 streams in flight)")
         t0 = time.perf_counter()
-        status, raw, _, post_s = _http(port, "POST", "/.well-known/debug/rollout", {
+        status, raw, _, post_s, _ = _http(port, "POST", "/.well-known/debug/rollout", {
             "model": "gemma", "checkpoint": str(ckpt), "family": "llama", "bake_s": ROLLOUT_BAKE_S})
         if status != 201 or json.loads(raw)["data"]["rollout"]["to_version"] != "v2":
             raise AssertionError(f"rollout POST: {status} {raw[:300]!r}")
@@ -5122,8 +5610,9 @@ def phase_rollout(dev: dict, seed: int) -> dict:
         clients, log = _rollout_clients(h, prompts[:4], stop)
         mem_pre2 = _fleet_memory("rollout: before the redeploy")
         inj.arm("rollout_canary_fail", count=1)
+        t_arm = time.time()
         t0 = time.perf_counter()
-        status, raw, _, _ = _http(port, "POST", "/.well-known/debug/rollout", {
+        status, raw, _, _, _ = _http(port, "POST", "/.well-known/debug/rollout", {
             "model": "gemma", "checkpoint": str(ckpt), "family": "llama", "version": "v3", "bake_s": 0.5})
         if status != 201:
             raise AssertionError(f"rollout canary POST: {status} {raw[:300]!r}")
@@ -5134,8 +5623,13 @@ def phase_rollout(dev: dict, seed: int) -> dict:
         if (snap["state"], view["versions"], sorted(rep._versions), snap["canary_fails"]) != (
                 "rolled_back", {"v2": 2}, ["v2"], 1):
             raise AssertionError(f"rollout canary: {snap['state']} {view['versions']} {snap['history']}")
+        status, raw, _, _, _ = _http(port, "GET", "/.well-known/debug/blackbox")
+        rb = [m for m in json.loads(raw)["data"]["bundles"] if m["trigger"] == "rollback" and m["ts"] >= t_arm]
+        if status != 200 or len(rb) != 1:
+            raise AssertionError(f"rollout canary: rollback bundles {rb} ({status})")
         print(f"rollout canary: {snap['state']} {back_s:.1f}s after the POST; error {snap['error']!r}; versions "
-              f"{view['versions']}, retained {sorted(rep._versions)}; history {snap['history']}")
+              f"{view['versions']}, retained {sorted(rep._versions)}; history {snap['history']}; one rollback bundle "
+              f"{rb[0]['bundle']} ({rb[0]['reason']!r}), {rb[0]['ts'] - t_arm:.2f}s after the arm")
         mem_back = _fleet_memory("after the rollback")
         for label, m, m0 in (("completed", mem_done, mem_pre), ("rolled back", mem_back, mem_pre2)):
             if m - m0 > footprint:
@@ -5340,12 +5834,38 @@ def main() -> int:
     ap.add_argument("--parent", metavar="TREE",
                     help="also build another checkout's paged-decode kernels (e.g. the parent commit from "
                          "git archive) and time them beside this tree's on the same inputs")
-    ap.add_argument("--only", choices=("families", "moe", "contiguous", "wave", "knobs", "mnist", "fleet", "rollout",
-                                       "disagg"),
+    ap.add_argument("--only", choices=("observe", "families", "moe", "contiguous", "wave", "knobs", "mnist", "fleet",
+                                       "rollout", "disagg"),
                     help="build the kernels and run this one phase, which makes its own weights (prints no "
                          "kernels line and no result)")
     args = ap.parse_args()
     dev = phase_device()
+    # every engine built from here on is armed: its deaths, quarantines,
+    # rollbacks and anomalies write bundles here (one a trigger class a
+    # second, not a minute, so each phase's bundles all land)
+    box = tempfile.mkdtemp(prefix="gofr-blackbox-")
+    os.environ["GOFR_BLACKBOX_DIR"] = box
+    os.environ["GOFR_BLACKBOX_INTERVAL_S"] = "1"
+    try:
+        return _main(args, dev)
+    finally:
+        shutil.rmtree(box, ignore_errors=True)
+
+
+def _bundle_counts() -> dict:
+    """{trigger: bundles} in the script's black-box directory."""
+    out: dict = {}
+    for name in os.listdir(os.environ["GOFR_BLACKBOX_DIR"]):
+        try:
+            with open(os.path.join(os.environ["GOFR_BLACKBOX_DIR"], name, "manifest.json")) as f:
+                trigger = json.load(f)["trigger"]
+        except (OSError, ValueError, KeyError):
+            continue
+        out[trigger] = out.get(trigger, 0) + 1
+    return out
+
+
+def _main(args, dev: dict) -> int:
     seconds = {}
 
     def timed(name, fn, *a):
@@ -5358,11 +5878,15 @@ def main() -> int:
 
     timed("build", phase_build)
     if args.only:
-        timed(args.only, {"families": phase_families, "moe": phase_moe, "contiguous": phase_contiguous,
-                          "wave": phase_wave, "knobs": phase_knobs, "mnist": phase_mnist,
-                          "fleet": phase_fleet, "rollout": phase_rollout, "disagg": phase_disagg}[args.only], dev,
-              SEED)
+        if args.only == "observe":
+            timed("observe", phase_observe, dev, SEED, *gemma_weights(SEED))
+        else:
+            timed(args.only, {"families": phase_families, "moe": phase_moe, "contiguous": phase_contiguous,
+                              "wave": phase_wave, "knobs": phase_knobs, "mnist": phase_mnist,
+                              "fleet": phase_fleet, "rollout": phase_rollout, "disagg": phase_disagg}[args.only], dev,
+                  SEED)
         print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
+        print(f"black-box bundles by trigger: {_bundle_counts()}")
         return 0
     kern = timed("kernels", phase_kernels, dev, SEED, build_parent(args.parent) if args.parent else None)
     # the families' shapes too, before any engine has run (after one had, the
@@ -5372,6 +5896,7 @@ def main() -> int:
     cfg, params = gemma_weights(SEED)
     eng, engine = timed("engine", phase_engine, dev, SEED, cfg, params)
     try:
+        obs = timed("observe", phase_observe, dev, SEED, cfg, params, engine, eng)
         ovl = timed("overload", phase_overload, dev, SEED, cfg, params, engine)
     finally:
         engine.close()
@@ -5394,6 +5919,7 @@ def main() -> int:
     contiguous = timed("contiguous", phase_contiguous, dev, SEED)
     timed("mnist", phase_mnist, dev, SEED)
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
+    print(f"script seconds: {sum(seconds.values()):.1f}; black-box bundles by trigger: {_bundle_counts()}")
     # name -> (source, replaced Pallas kernel, timing key, engine run whose
     # launches count, prefix phases' launches). flash_attention_prompt is
     # the same kernel in its full-prompt mode (row 2), counted apart; its
@@ -5417,6 +5943,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": run["launches"][name], "prefix_launches": prefix_launches,
             "spec_launches": spec["launches"][name], "structured_launches": structured["launches"][name],
+            "observe_launches": obs["launches"][name],
             "overload_launches": ovl["launches"][name], "lora_launches": lora["launches"][name],
             "families_launches": {label: n[name] for label, n in families["launches"].items()},
             "moe_launches": {label: n[name] for label, n in moe["launches"].items()},

@@ -29,11 +29,16 @@ imported only then.
 
 Always registered: ``/.well-known/health``, ``/.well-known/alive``, the
 404 catch-all, 405 for a known path under another method, the CORS
-preflight, the drain route and the rollout routes (``GET`` /
+preflight, the drain route, the rollout routes (``GET`` /
 ``POST /.well-known/debug/rollout``: a model's versions, and a rollout
 staged from a checkpoint; the POST loopback-only unless
-``GOFR_ROLLOUT_REMOTE=1``). Left out of the port: the metrics server,
-cron, pub/sub, auth, static files and swagger.
+``GOFR_ROLLOUT_REMOTE=1``), and the flight recorder's and the usage
+meter's (``GET /.well-known/debug/blackbox``: the incident bundles;
+``GET /.well-known/debug/usage``: per-tenant chip time and tokens;
+``POST /.well-known/debug/replay``: re-execute a flight record, under its
+own timeout, loopback-only unless ``GOFR_REPLAY_REMOTE=1``). Left out of
+the port: the metrics server, cron, pub/sub, auth, static files and
+swagger.
 """
 
 from __future__ import annotations
@@ -48,8 +53,11 @@ from .config import Config, EnvConfig
 from .container import Container
 from .handler import (
     _require_loopback,
+    debug_blackbox_handler,
+    debug_usage_handler,
     health_handler,
     live_handler,
+    replay_handler,
     rollout_handler,
     rollout_status_handler,
     wrap_handler,
@@ -126,6 +134,12 @@ class App:
         # shift itself runs on the controller's thread)
         self.get("/.well-known/debug/rollout", rollout_status_handler)
         self._add("POST", "/.well-known/debug/rollout", rollout_handler, timeout_s=max(120.0, self.request_timeout))
+        # the flight recorder and the usage meter (JAX app.py:313-333): the
+        # bundles and the chargeback view read what runs; the replay
+        # re-decodes a recorded request on the card, under its own timeout
+        self.get("/.well-known/debug/blackbox", debug_blackbox_handler)
+        self.get("/.well-known/debug/usage", debug_usage_handler)
+        self._add("POST", "/.well-known/debug/replay", replay_handler, timeout_s=max(120.0, self.request_timeout))
 
     # -- the graceful drain (JAX app.py:427-510) -------------------------------
     def _drain_handler(self, ctx) -> dict:

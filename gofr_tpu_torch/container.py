@@ -1,6 +1,8 @@
 """Container: the dependency hub handed to every handler (counterpart of
-gofr_tpu/container/__init__.py: config, logger and the lazily built
-runtime behind ``tpu()``; no SQL, Redis, Mongo, pub/sub or metrics)."""
+gofr_tpu/container/__init__.py: config, logger, the metrics manager and
+the lazily built runtime behind ``tpu()``; no SQL, Redis, Mongo or
+pub/sub). The manager carries the series the engines' goodput ledger and
+flight recorder write; the metrics server is ROADMAP ID 16."""
 
 from __future__ import annotations
 
@@ -10,6 +12,7 @@ from typing import Any
 
 from . import logging as gl
 from .config import Config
+from .metrics import Manager
 
 # The framework version the health route reports: the JAX package's, whose
 # wire format this edge keeps.
@@ -20,6 +23,7 @@ class Container:
     def __init__(self, config: Config | None = None, logger: gl.Logger | None = None):
         self.config = config
         self.logger: gl.Logger = logger or gl.new_logger()
+        self.metrics_manager = Manager(self.logger)
         self.app_name = "gofr-tpu-app"
         self.app_version = "dev"
         self.tpu_runtime = None
@@ -40,7 +44,7 @@ class Container:
             if self.tpu_runtime is None:
                 from .datasource.gpu import GPURuntime
 
-                self.tpu_runtime = GPURuntime(self.config, self.logger)
+                self.tpu_runtime = GPURuntime(self.config, self.logger, metrics=self.metrics_manager)
             return self.tpu_runtime
 
     def health(self) -> dict[str, Any]:

@@ -41,8 +41,12 @@ LoRA pool's ``lora_slots`` and ``lora_rank``, the recovery kwargs
 ``supervise``, ``failover_retries``, ``fleet_max_queue_tokens``,
 ``retry_budget_per_s``, ``retry_budget_burst``, ``poison_deaths``,
 ``canary`` and ``health_ledger``, the disaggregated fleet's ``disagg``,
-``prefill_replicas``, ``handoff_timeout_s`` and ``handoff_d2d``, the KV
-layout's
+``prefill_replicas``, ``handoff_timeout_s`` and ``handoff_d2d``, the
+accounting and recorder kwargs ``metrics`` (default: the runtime's
+``metrics``, the container's manager), ``goodput``, ``quotas``,
+``usage_meter``, ``usage_window_s``, ``flight_records``, ``flight_redact``,
+``blackbox_dir``, ``blackbox_interval_s``, ``anomaly`` and
+``wide_event_sample``, the KV layout's
 ``kv_paged`` (``True``, ``False`` or ``"auto"``: the paged pool, or the
 contiguous layouts, the rolling ring for a windowed model where window +
 slack < max_seq_len and the dense slab otherwise; ``"auto"`` takes the
@@ -59,9 +63,16 @@ runtime), the shape knobs ``TPU_LLM_STEP_TOKEN_BUDGET`` (0 the wave),
 ``TPU_LLM_BROWNOUT_HOLD_S``, ``TPU_LLM_LORA_SLOTS``,
 ``TPU_LLM_LORA_RANK_MAX``, ``TPU_LLM_STEP_WATCHDOG_S``,
 ``TPU_LLM_NUMERIC_CHECK``, ``TPU_LLM_DISAGG``,
-``TPU_LLM_DISAGG_PREFILL_REPLICAS``, ``TPU_LLM_KV_HANDOFF_TIMEOUT_S`` and
-``TPU_LLM_KV_HANDOFF_D2D`` (defaults for the kwargs a caller leaves out,
-with the JAX engine's meanings). As in the JAX runtime,
+``TPU_LLM_DISAGG_PREFILL_REPLICAS``, ``TPU_LLM_KV_HANDOFF_TIMEOUT_S``,
+``TPU_LLM_KV_HANDOFF_D2D``, ``TPU_LLM_FLIGHT_RECORDS``,
+``TPU_LLM_FLIGHT_REDACT``, ``GOFR_BLACKBOX_DIR``,
+``GOFR_BLACKBOX_INTERVAL_S``, ``TPU_LLM_ANOMALY``,
+``TPU_LLM_WIDE_EVENT_SAMPLE``, ``TPU_LLM_GOODPUT``,
+``TPU_LLM_USAGE_WINDOW_S`` and ``TPU_LLM_TENANT_QUOTA_TOK_S``
+("tenant=tok/s,...") (defaults for the kwargs a caller leaves out, with
+the JAX engine's meanings; the engine also reads each from the process
+env, as do the detectors ``TPU_LLM_ANOMALY_{FACTOR,MIN_SAMPLES,SUSTAIN}``).
+``TPU_LLM_TP`` above 1 stays refused. As in the JAX runtime,
 ``TPU_LLM_KV_POOL_BLOCKS`` has no config mapping: the process env reaches
 the engine's ``CacheManager``, which reads it (with ``TPU_LLM_KV_INT8``,
 ``TPU_LLM_SESSION_MB`` and ``TPU_LLM_HOST_CACHE_MB``) for a kwarg left
@@ -85,6 +96,7 @@ import numpy as np
 import torch
 
 from ... import resolve_device
+from ...goodput import parse_quota_spec
 from ...llm import LLMEngine, ReplicatedLLMEngine
 from ...resilience.rollout import ModelHandle
 from .. import STATUS_DOWN, STATUS_UP, health
@@ -326,6 +338,9 @@ _ENGINE_KWARGS = (
     "canary", "health_ledger",
     # the disaggregated fleet
     "disagg", "prefill_replicas", "handoff_timeout_s", "handoff_d2d",
+    # chip-time accounting and the flight recorder
+    "metrics", "goodput", "quotas", "usage_meter", "usage_window_s", "flight_records", "flight_redact",
+    "blackbox_dir", "blackbox_interval_s", "anomaly", "wide_event_sample",
 )
 
 # Overload-control, LoRA and shape knobs: config key -> (engine kwarg, parser of
@@ -351,6 +366,18 @@ _MAPPED_KNOBS = {
     "TPU_LLM_DISAGG_PREFILL_REPLICAS": ("prefill_replicas", int),
     "TPU_LLM_KV_HANDOFF_TIMEOUT_S": ("handoff_timeout_s", float),
     "TPU_LLM_KV_HANDOFF_D2D": ("handoff_d2d", lambda v: v != "0"),
+    # the flight recorder (JAX datasource/tpu/__init__.py:298-308, :604-632)
+    "TPU_LLM_FLIGHT_RECORDS": ("flight_records", int),
+    "TPU_LLM_FLIGHT_REDACT": ("flight_redact", lambda v: v != "0"),
+    "GOFR_BLACKBOX_DIR": ("blackbox_dir", str),
+    "GOFR_BLACKBOX_INTERVAL_S": ("blackbox_interval_s", float),
+    "TPU_LLM_ANOMALY": ("anomaly", lambda v: v != "0"),
+    "TPU_LLM_WIDE_EVENT_SAMPLE": ("wide_event_sample", int),
+    # the goodput ledger and the quota gate (read by the JAX engine from
+    # the process env; here from the config too)
+    "TPU_LLM_GOODPUT": ("goodput", lambda v: v != "0"),
+    "TPU_LLM_USAGE_WINDOW_S": ("usage_window_s", float),
+    "TPU_LLM_TENANT_QUOTA_TOK_S": ("quotas", parse_quota_spec),
 }
 
 # the knobs only a disaggregated fleet reads
@@ -359,24 +386,17 @@ _DISAGG_KWARGS = ("prefill_replicas", "handoff_timeout_s", "handoff_d2d")
 # The JAX runtime's engine knobs that select a feature this port lacks,
 # each with the values that ask for nothing more than the port does.
 _UNPORTED_KNOBS = {
-    "TPU_LLM_FLIGHT_RECORDS": ("0",),
-    "TPU_LLM_FLIGHT_REDACT": (),
-    "GOFR_BLACKBOX_DIR": (),
-    "GOFR_BLACKBOX_INTERVAL_S": (),
-    "TPU_LLM_ANOMALY": ("0",),
-    "TPU_LLM_WIDE_EVENT_SAMPLE": (),
     "TPU_LLM_TP": ("0", "1"),
-    # the JAX engine's per-tenant token-rate quota (goodput.QuotaGate)
-    "TPU_LLM_TENANT_QUOTA_TOK_S": (),
 }
 
 
 class GPURuntime:
     """``ctx.tpu()`` — built lazily by the Container."""
 
-    def __init__(self, config=None, logger=None):
+    def __init__(self, config=None, logger=None, metrics=None):
         self.config = config
         self.logger = logger
+        self.metrics = metrics  # a metrics.Manager every engine built here writes
         get = (lambda k: config.get_or_default(k, "")) if config is not None else (lambda k: "")
         self.default_device = get("TORCH_DEVICE") or None  # None: cuda
         self.default_llm_kv_paged = get("TPU_LLM_KV_PAGED")
@@ -543,6 +563,8 @@ class GPURuntime:
                 engine_kw.setdefault(kwarg, parse(v))
         engine_kw.setdefault("device", self.default_device)
         engine_kw.setdefault("kv_label", name)
+        if self.metrics is not None:
+            engine_kw.setdefault("metrics", self.metrics)
         replicas = engine_kw.pop("replicas", None)
         disagg = engine_kw.pop("disagg", False)
         dkw = {k: engine_kw.pop(k) for k in _DISAGG_KWARGS if k in engine_kw}

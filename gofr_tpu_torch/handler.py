@@ -1,8 +1,9 @@
 """Handler adaptation: ``handler(ctx) -> result`` to a wire handler
 (counterpart of gofr_tpu/handler.py: ``wrap_handler``,
 ``llm_request_kwargs``, the health and liveness handlers, the loopback
-guard of the drain route and the rollout routes; no debug, profile or
-flight-recorder routes)."""
+guard of the drain route, the rollout routes, and the flight recorder's
+and the usage meter's routes: blackbox listing, usage, replay; no engine
+debug or profile routes)."""
 
 from __future__ import annotations
 
@@ -184,3 +185,93 @@ def rollout_handler(ctx: Context) -> Any:
     version = body.get("version")
     snap = handle.deploy(cfg, params, version=str(version) if version else None, **kw)
     return {"model": name, "rollout": snap}
+
+
+# -- the flight recorder and the usage meter (JAX handler.py:498-600) ----------
+
+
+def debug_blackbox_handler(ctx: Context) -> Any:
+    """GET /.well-known/debug/blackbox: this process's incident view, the
+    completed bundles' manifests (newest first, one per bundle however
+    many replicas share the directory) and each engine's recorder state.
+    Read-only and bounded; never builds the runtime."""
+    rt = ctx.container.tpu_runtime
+    llms = getattr(rt, "_llms", {}) if rt is not None else {}
+    bundles: dict[str, dict] = {}
+    recorders: dict[str, dict] = {}
+    for handle in list(llms.values()):
+        eng = getattr(handle, "engine", handle)
+        for rep in getattr(eng, "engines", None) or [eng]:
+            bb = getattr(rep, "blackbox", None)
+            if bb is None:
+                continue
+            for m in bb.listing():
+                bundles.setdefault(m.get("bundle") or m.get("path", ""), m)
+            fr = getattr(rep, "flightrec", None)
+            an = getattr(rep, "anomaly", None)
+            recorders[rep.label] = {
+                "directory": bb.directory or None,
+                "enabled": bb.enabled(),
+                "last_trigger": bb.last_trigger,
+                "last_ts": bb.last_ts,
+                "rate_limited": bb.rate_limited,
+                "flight_records": len(fr) if fr is not None else 0,
+                "anomaly": an.flagged() if an is not None else [],
+            }
+    out = sorted(bundles.values(), key=lambda m: m.get("ts") or 0, reverse=True)
+    return {"bundles": out, "count": len(out), "recorders": recorders}
+
+
+def debug_usage_handler(ctx: Context) -> Any:
+    """GET /.well-known/debug/usage: per model, the windowed per-tenant
+    usage (chip-seconds by waste class, useful tokens, token rate), the
+    cumulative goodput with its conservation identity and the quota
+    table (``usage_state``). Read-only and bounded (the meter caps its
+    tenants)."""
+    rt = ctx.container.tpu_runtime
+    llms = getattr(rt, "_llms", {}) if rt is not None else {}
+    models: dict[str, dict] = {}
+    for name, handle in list(llms.items()):
+        usage_state = getattr(getattr(handle, "engine", handle), "usage_state", None)
+        if usage_state is not None:
+            models[name] = usage_state()
+    return {"models": models, "count": len(models)}
+
+
+def replay_handler(ctx: Context) -> Any:
+    """POST /.well-known/debug/replay: re-execute a flight record and
+    report the first index where the replay leaves the recorded emission.
+    Body: ``{"id": <record id>, "model": <llm> (optional: every model is
+    searched), "timeout": seconds (optional, 120)}``. Loopback-only unless
+    ``GOFR_REPLAY_REMOTE=1``: a replay decodes real tokens on the serving
+    card."""
+    from .flightrec import find_record
+    from .http.errors import ErrorEntityNotFound, ErrorInvalidParam
+
+    _require_loopback(ctx, "GOFR_REPLAY_REMOTE")
+    body = ctx.bind() or {}
+    if not isinstance(body, dict):
+        raise ErrorInvalidParam("body")
+    try:
+        rid = int(body.get("id"))
+    except (TypeError, ValueError):
+        raise ErrorInvalidParam("id") from None
+    try:
+        timeout = float(body.get("timeout") or 120.0)
+    except (TypeError, ValueError):
+        raise ErrorInvalidParam("timeout") from None
+    rt = ctx.container.tpu_runtime  # never build one: replay what runs
+    llms = getattr(rt, "_llms", {}) if rt is not None else {}
+    name = body.get("model")
+    if name:
+        if name not in llms:
+            raise ErrorEntityNotFound("llm", str(name))
+        targets = {name: llms[name]}
+    else:
+        targets = dict(llms)
+    for model, handle in targets.items():
+        eng = getattr(handle, "engine", handle)
+        rec, _owner = find_record(eng, rid)
+        if rec is not None:
+            return {"model": model, "replay": eng.replay(rid, timeout=timeout)}
+    raise ErrorEntityNotFound("flight_record", str(rid))

@@ -193,10 +193,22 @@ fault seams of ``resilience.faults`` sit where the JAX engine's do.
 failover, poison quarantine, the device-health ledger, the supervisor
 and the canary gate (several replicas may share one device).
 
-Left out of this slice (queued in ROADMAP.md): goodput and the tenant
-quota gate, the flight recorder (``_die`` takes no incident bundle),
-rollouts and the versions registry, KV handoff, and the metrics series
-(the port has no metrics manager, so ``_die`` zeroes no gauge).
+Chip-time accounting and the incident flight recorder, on by default as
+in the JAX engine (JAX llm.py:977-1064): the ``goodput.GoodputLedger``
+attributes every fetched program's dispatch->fetch window to its lanes
+by waste class (``_gp_observe``, from ``_process_entry`` and
+``_process_verify_entry``) into ``GenRequest._chip``, a per-tenant
+``UsageMeter`` and the ``app_llm_goodput_*`` series; the ``QuotaGate``
+refuses a tenant past its token-rate quota at submit
+(``EngineOverloaded`` with the priced Retry-After; probes pass). The
+``flightrec.FlightRecorder`` records every request at submit and
+finalizes it in ``_finish`` with its timings and chip time; ``replay``
+re-executes a record. ``_incident`` dumps a bundle (``BlackboxDumper``,
+armed by ``GOFR_BLACKBOX_DIR``): ``_die``'s first step, a flagged
+``AnomalyDetector`` signal, a fleet's quarantine and a rollback. The
+bundle has no ``traces`` and no ``compiles`` section: the port has no
+tracer and no compile registry until ROADMAP ID 10, which also holds the
+engine's other ``app_llm_*`` series.
 
 The shape knobs (JAX llm.py:637-644, :675-676) are the JAX engine's:
 ``decode_chunk`` (K: the fused steps of a chunk, the step's decode part,
@@ -225,6 +237,17 @@ import numpy as np
 import torch
 
 from . import resolve_device
+from .flightrec import WIDE_EVENTS_KEEP, AnomalyDetector, BlackboxDumper, FlightRecorder, classify_die_reason
+from .goodput import (
+    GoodputLedger,
+    QuotaGate,
+    UsageMeter,
+    goodput_knobs,
+    parse_quota_spec,
+    pool_goodput,
+    prefill_classes,
+    register_goodput_metrics,
+)
 from .kvcache import CacheManager, copy_blocks, gather_blocks_host, gather_slots, paged_default, scatter_rows
 from .lora import AdapterPool, target_dims, validate_adapter, zero_tables
 from .models.quant import QTensor, is_quantized, quantize_params
@@ -474,10 +497,9 @@ class GenRequest:
     # Poison-payload marker of the fault injector: a tagged ``device_step``
     # spec kills the replica serving a request with the same tag.
     tag: str = ""
-    # Synthetic-traffic marker: canary checks and shadow probes set it. In
-    # JAX the goodput ledger bills such a request's chip time as probe
-    # waste and the quota gate waves it through; both come with the
-    # goodput ledger (ROADMAP ID 9 item 3), so here it is a label.
+    # Synthetic-traffic marker: canary checks, shadow probes and replays
+    # set it. The goodput ledger bills its chip time as probe waste and
+    # the quota gate waves it through.
     probe: bool = False
     id: int = field(default_factory=itertools.count().__next__)
 
@@ -550,6 +572,16 @@ class GenRequest:
         # kept through a preemption's continuation, dropped at retirement,
         # which sets it back to 0, the base)
         self._aid = 0
+        # goodput attribution (engine-maintained; JAX llm.py:545-552):
+        # chip-seconds billed to this request by waste class, rolled into
+        # the flight record, the wide event and the OpenAI usage block
+        self._chip: dict[str, float] = {}
+
+    @property
+    def hop(self) -> int:
+        """Re-admissions after the first (preemption continuations and
+        failover re-dispatches): the JAX request's ``hop``."""
+        return self.preempted + self.retries
 
     def _raise_terminal(self) -> None:
         if self.finish_reason == "poison":
@@ -730,12 +762,17 @@ class _Fetch:
     replay overwrites the graph's output), the tensor itself on the CPU.
     ``t0`` is the dispatch time and ``work`` the tokens the program serves
     (prefill rows + decode tokens; a verify's are counted at its fetch),
-    which price the throughput EMA (``LLMEngine._observe_tput``)."""
+    which price the throughput EMA (``LLMEngine._observe_tput``); ``t0``
+    to the fetch is the window the goodput ledger attributes."""
 
-    __slots__ = ("host", "event", "t0", "work")
+    __slots__ = ("host", "event", "t0", "work", "gp")
 
-    def __init__(self, out: torch.Tensor, work: int = 0, t0: float | None = None):
+    def __init__(self, out: torch.Tensor, work: int = 0, t0: float | None = None, gp=None):
         self.t0, self.work = time.perf_counter() if t0 is None else t0, work
+        # what the goodput ledger needs of a step or a wave beyond the
+        # entry: ("step", shape, nb, prefill tokens, [(req, pos, n)]) or
+        # ("wave", bucket)
+        self.gp = gp
         if out.device.type == "cpu":
             self.host, self.event = out, None
             return
@@ -844,6 +881,22 @@ class LLMEngine:
     "decode", or "" for a colocated engine) is the engine's pool in a
     disaggregated fleet (``llm_disagg``); ``stats()`` reports it.
 
+    Chip-time accounting and the flight recorder (JAX llm.py:977-1064;
+    each ``None`` reads its knob): ``goodput`` (``TPU_LLM_GOODPUT``, on
+    unless "0") turns on the ledger, the usage meter (``usage_meter`` when
+    a fleet shares one, else a window of ``usage_window_s``,
+    ``TPU_LLM_USAGE_WINDOW_S``, 60 s) and the quota gate (``quotas`` over
+    ``TPU_LLM_TENANT_QUOTA_TOK_S``, "tenant=tok/s,..."); ``flight_records``
+    (``TPU_LLM_FLIGHT_RECORDS``, 512; 0 off) and ``flight_redact``
+    (``TPU_LLM_FLIGHT_REDACT``) size and redact the record ring;
+    ``blackbox_dir`` (``GOFR_BLACKBOX_DIR``, unset: no bundle) and
+    ``blackbox_interval_s`` (``GOFR_BLACKBOX_INTERVAL_S``, 60) arm the
+    bundles; ``anomaly`` (``TPU_LLM_ANOMALY``, on unless "0") the
+    detectors (``TPU_LLM_ANOMALY_{FACTOR,MIN_SAMPLES,SUSTAIN}``);
+    ``wide_event_sample`` (``TPU_LLM_WIDE_EVENT_SAMPLE``, 1) logs one
+    request line in N (all are kept for bundles). ``metrics`` is a
+    ``metrics.Manager`` the ledger, the dumper and the detectors write.
+
     KV handoff (JAX llm.py:4964-5128): ``kv_handoff_export`` gathers one
     exact published prompt's pool blocks and logits, ``kv_handoff_import``
     scatters a peer's into fresh blocks and publishes them as an exact
@@ -906,8 +959,20 @@ class LLMEngine:
         version: str = "v1",
         role: str = "",
         logger=None,
+        metrics=None,
+        goodput: bool | None = None,
+        quotas: dict[str, float] | None = None,
+        usage_meter: UsageMeter | None = None,
+        usage_window_s: float | None = None,
+        flight_records: int | None = None,
+        flight_redact: bool | None = None,
+        blackbox_dir: str | None = None,
+        blackbox_interval_s: float | None = None,
+        anomaly: bool | None = None,
+        wide_event_sample: int | None = None,
     ):
         self.device = resolve_device(device)
+        self.rng_seed = int(seed)  # the flight records' seed
         self.cfg = cfg
         # the scheduler (JAX llm.py:749-757): a budget > 0 packs prompts
         # into unified steps of chunks no wider than prefill_chunk; 0 is
@@ -1141,6 +1206,10 @@ class LLMEngine:
         )
         self._init_resilience(fault_injector, step_watchdog_s, numeric_check, kv_label, version, logger)
         self.role = str(role)
+        self._init_observability(
+            metrics, goodput, quotas, usage_meter, usage_window_s, flight_records, flight_redact, blackbox_dir,
+            blackbox_interval_s, anomaly, wide_event_sample,
+        )
         # a rollout's inputs, kept as a fleet keeps them: the last 8
         # accepted prompts (the shadow replay's source) and the registered
         # adapters' host copies (re-staged into an engine swap's candidate)
@@ -1230,6 +1299,21 @@ class LLMEngine:
         # anything but the literal "batch" is interactive: a typo in the
         # header degrades to the latency-safe class (JAX llm.py:2503)
         req.priority = "batch" if req.priority == "batch" else "interactive"
+        # the tenant's token-rate quota over its MEASURED usage window (JAX
+        # llm.py:2504-2527), before any reference is taken; probes pass,
+        # so an over-quota tenant cannot block the canary that guards it
+        if self.quota is not None and self.quota.active() and not req.probe:
+            tenant = req.client or (f"adapter:{req.adapter}" if req.adapter else "-")
+            quota_retry = self.quota.check(tenant)
+            if quota_retry is not None:
+                self.quota_sheds += 1
+                if self.metrics is not None:
+                    self.metrics.increment_counter("app_llm_quota_sheds_total", model=self.label, tenant=tenant)
+                raise EngineOverloaded(
+                    f"tenant {tenant!r} over token-rate quota {self.quota.quota_for(tenant):.0f} tok/s "
+                    "(TPU_LLM_TENANT_QUOTA_TOK_S)",
+                    retry_after=quota_retry,
+                )
         wait_s = self.predicted_wait_s()
         spec = self.faults.take("overload_pressure", self.label)
         if spec is not None:
@@ -1297,6 +1381,10 @@ class LLMEngine:
                 gap = min(max(now - last, 0.0), 1.0)
                 self._ema_gap = gap if self._ema_gap is None else 0.8 * self._ema_gap + 0.2 * gap
         self._shadow_ring.append(tuple(req.prompt_tokens[:32]))
+        # the flight record's re-execution inputs, now: an in-flight request
+        # is replayable when the engine dies (JAX llm.py:2717; a failover
+        # continuation records its continuation prompt)
+        self.flightrec.start(req, self)
         self._admit_q.put(req)
         if self._stop:
             # stopped between the check above and the put: the one-shot
@@ -1362,16 +1450,35 @@ class LLMEngine:
                 "numeric_check": self.numeric_check,
                 "numerical_trips": self.numerical_trips,
                 "watchdog_trips": self.watchdog.trips if self.watchdog is not None else 0,
+                # chip-time attribution and the quota gate (JAX stats' keys)
+                "goodput": self.goodput.snapshot() if self.goodput is not None else None,
+                "quota": {**self.quota.snapshot(), "sheds": self.quota_sheds} if self.quota is not None else None,
             }
 
     def debug_state(self) -> dict:
-        """The engine's recovery state (a subset of JAX ``debug_state``)."""
+        """The engine's recovery, accounting and recorder state (a subset of
+        JAX ``debug_state``): host counters only, no device read."""
         return {
             "label": self.label, "version": self.version, "role": self.role, "alive": self.alive(),
             "draining": self._draining, "errored": self.errored,
             "died": self._died, "died_reason": self.died_reason, "load": self.load(),
             "load_tokens": self.load_tokens(), "step_watchdog_s": self.step_watchdog_s,
             "numeric_check": self.numeric_check, "faults": self.faults.snapshot(),
+            "submitted": self.submitted, "finished": self.finished, "rejected": self.rejected, "shed": self.shed,
+            "slot_table": [
+                {"slot": i, "id": r.id, "phase": "decode" if r.prefill_done else "prefill", "emitted": r.emitted,
+                 "max_new_tokens": r.max_new_tokens, "client": r.client}
+                for i, r in enumerate(list(self._slot_req)) if r is not None
+            ],
+            "inflight": [e[0] for e in list(self._inflight)],
+            "waiting_total": self._admit_q.qsize() + len(self._waiting),
+            "goodput": self.goodput.snapshot() if self.goodput is not None else None,
+            "usage": self.usage.snapshot() if self.usage is not None else None,
+            "quota": {**self.quota.snapshot(), "sheds": self.quota_sheds} if self.quota is not None else None,
+            "flight_records": len(self.flightrec),
+            "anomaly": self.anomaly.flagged() if self.anomaly is not None else [],
+            "kvcache": self.kv.stats(),
+            "warmup_s": self.warmup_s,
         }
 
     def close(self, timeout: float = 30.0) -> None:
@@ -1396,6 +1503,13 @@ class LLMEngine:
             # a closed engine must not pin a shared ledger's new-arrival
             # floor with a stale waiting-client set
             self.ledger.set_active(self._shard, set())
+        self._flush_wide_events()
+        # no further bundle, and the record ring goes with the engine (after
+        # a _die the ring stayed for the post-mortem) (JAX llm.py:3671-3692,
+        # :3736-3737)
+        self._zero_gauges()
+        self.blackbox.close()
+        self.flightrec.clear()
         if self.device.type == "cuda" and not self._died:
             self._stream.synchronize()
             self.families.clear()  # the graphs and their memory pool
@@ -1425,6 +1539,7 @@ class LLMEngine:
                         break
                     try:
                         self._schedule_pass()
+                        self._flush_wide_events()
                     except Exception as e:  # noqa: BLE001 — the engine must not die silently
                         if self._stop:
                             break
@@ -1552,6 +1667,332 @@ class LLMEngine:
         self._sched_fail_streak = 0  # failing passes with no launch between them
         self._fetch_fail_streak = 0  # failing fetches in a row
 
+    # -- chip-time accounting and the flight recorder (JAX llm.py:977-1064,
+    # :2983-3140, :5548-5660) ----------------------------------------------
+    def _init_observability(
+        self, metrics, goodput, quotas, usage_meter, usage_window_s, flight_records, flight_redact, blackbox_dir,
+        blackbox_interval_s, anomaly, wide_event_sample,
+    ) -> None:
+        """The ledger, the meter, the quota gate, the recorder, the dumper
+        and the detectors with the JAX engine's defaults and env
+        fallbacks (the recorder, the dumper and the detectors read their
+        own knobs for a None)."""
+        env = os.environ.get
+        self.metrics = metrics
+        if metrics is not None:
+            register_goodput_metrics(metrics)
+        self.flightrec = FlightRecorder(flight_records, redact=flight_redact)
+        self.blackbox = BlackboxDumper(
+            blackbox_dir, min_interval_s=blackbox_interval_s, logger=self.logger, metrics=metrics, label=self.label,
+        )
+        if anomaly is None:
+            anomaly = env("TPU_LLM_ANOMALY", "1") not in ("", "0")
+        self.anomaly = None
+        if anomaly:
+            self.anomaly = AnomalyDetector(
+                metrics, self.label,
+                on_flag=lambda sig, val, mean: self._incident(
+                    "anomaly", reason=f"{sig} sustained deviant: {val:.3f} vs baseline mean {mean:.3f}"
+                ),
+            )
+        # every request's wide event is kept for bundles; the log gets one
+        # in wide_event_sample (incident lines always)
+        if wide_event_sample is None:
+            wide_event_sample = int(env("TPU_LLM_WIDE_EVENT_SAMPLE", "") or 1)
+        self._wide_sample = max(1, int(wide_event_sample))
+        self._wide_seq = 0
+        self._wide_retained: deque = deque(maxlen=WIDE_EVENTS_KEEP)
+        self._wide_events: list[dict] = []  # appended under _lock, logged outside it
+        goodput, usage_window_s = goodput_knobs(goodput, usage_window_s)
+        self.goodput = self.usage = self.quota = None
+        self.quota_sheds = 0
+        if goodput:
+            self.usage = usage_meter if usage_meter is not None else UsageMeter(window_s=usage_window_s)
+            self.goodput = GoodputLedger(
+                metrics=metrics, label=self.label, version_fn=lambda: self.version, usage=self.usage,
+            )
+            q = parse_quota_spec(env("TPU_LLM_TENANT_QUOTA_TOK_S"))
+            for tenant, rate in (quotas or {}).items():
+                try:
+                    q[str(tenant)] = float(rate)
+                except (TypeError, ValueError):
+                    continue
+            self.quota = QuotaGate(q, self.usage)
+
+    def _gp_observe(self, entry: tuple, now: float, acc=None) -> None:
+        """Hand the goodput ledger one fetched program's window and lanes
+        (JAX llm.py:6432-6461, :6526-6544, :6655-6680, :6802-6820), before
+        its tokens are emitted: a lane's useful decode tokens are capped at
+        what its request may still emit, the rest of its lane is padding,
+        and a lane no request owns (a dead slot, a bucket row past the
+        packed prompts, an unselected verify row) is anonymous padding,
+        billed by the ledger to the window's requests. Collector thread,
+        outside the lock (it reads ``emitted``, which only the collector
+        advances)."""
+        kind, fetch = entry[0], entry[1]
+        lanes: list = []
+
+        def decode(snapshot, k):
+            live = 0
+            for r in snapshot:
+                if r is None:
+                    continue
+                live += 1
+                use = min(k, max(0, r.max_new_tokens - r.emitted))
+                cl = {"useful": use}
+                if k - use > 0:
+                    cl["padding"] = k - use
+                lanes.append((r, cl))
+            return k * (len(snapshot) - live)
+
+        if kind == "prefill":
+            # a wave ran [nb, bucket] prompt rows (scrubbed lanes are
+            # padding); an exact-hit group ran one first-token sample a lane
+            bucket = fetch.gp[1] if fetch.gp is not None else None
+            plen_sum = 0
+            for _s, r in entry[2]:
+                if r is None:
+                    continue
+                if bucket is None:
+                    lanes.append((r, {"useful": 1}))
+                    continue
+                plen = len(r.prompt_tokens)
+                lanes.append((r, prefill_classes(r._replay_pos, 0, plen)))
+                plen_sum += plen
+            pad = bucket * max(entry[3], len(entry[2])) - plen_sum if bucket is not None else 0
+        elif kind == "step":
+            # each packed chunk is its row's request's (a continuation's
+            # replayed positions split off); the fused decode chunk ran k
+            # steps over every slot lane
+            _k, shape, nb, prefill_tokens, rows = fetch.gp
+            for r, pos, n in rows:
+                lanes.append((r, prefill_classes(r._replay_pos, pos, n)))
+            pad = shape * nb - prefill_tokens + decode(entry[4], entry[5])
+        elif kind == "chunk":
+            pad = decode(entry[2], entry[3])
+        else:  # verify: accepted span + bonus useful, rejected drafts spec_reject
+            info = entry[3]
+            W = info["W"]
+            for slot, r in entry[2]:
+                a = int(acc[slot])
+                use = min(a + 1, max(0, r.max_new_tokens - r.emitted))
+                cl = {"useful": use}
+                if a + 1 - use > 0:
+                    cl["padding"] = a + 1 - use
+                rej = info["n_draft"].get(slot, 0) - a
+                if rej > 0:
+                    cl["spec_reject"] = rej
+                lanes.append((r, cl))
+            pad = W * (self.slots - len(entry[2]))
+        if pad > 0:
+            lanes.append((None, {"padding": pad}))
+        self.goodput.observe(kind, fetch.t0, now, lanes)
+
+    def _observe_finish(self, r: GenRequest, now: float) -> None:
+        """A request's terminal observability (JAX ``_observe_finish``'s
+        flight-record, anomaly and wide-event part): finalize its record
+        with its phase times and chip time, feed the queue-wait, TTFT and
+        TPOT detectors, and keep its wide event (logged 1-in-N). Lock
+        held."""
+        total = None if r.submitted_at is None else now - r.submitted_at
+        queue_wait = None if r.admitted_at is None or r.submitted_at is None else r.admitted_at - r.submitted_at
+        ttft = None if r.first_token_at is None or r.submitted_at is None else r.first_token_at - r.submitted_at
+        tpot = None
+        if r.first_token_at is not None and r.emitted > 1:
+            tpot = (now - r.first_token_at) / (r.emitted - 1)
+        chip = dict(r._chip)
+
+        def ms(v):
+            return None if v is None else round(v * 1e3, 3)
+
+        self.flightrec.finalize(
+            r, queue_wait_ms=None if queue_wait is None else queue_wait * 1e3,
+            ttft_ms=None if ttft is None else ttft * 1e3, per_token_ms=None if tpot is None else tpot * 1e3,
+            total_ms=None if total is None else total * 1e3, chip={c: ms(v) for c, v in chip.items()} or None,
+        )
+        if self.anomaly is not None:
+            for signal, v in (("queue_wait", queue_wait), ("ttft", ttft), ("tpot", tpot)):
+                if v is not None:
+                    self.anomaly.observe(signal, v * 1e3)
+        ev = {
+            "event": "llm_request", "model": self.label, "model_version": self.version, "id": r.id,
+            "trace_id": "", "journey_id": "", "hop": r.hop, "prompt_tokens": len(r.prompt_tokens),
+            "output_tokens": r.emitted, "finish_reason": r.finish_reason, "queue_wait_ms": ms(queue_wait),
+            "ttft_ms": ms(ttft), "per_token_ms": ms(tpot), "total_ms": ms(total), "prefix_hit": r.prefix_hit,
+            "capped": r.capped, "chip_ms": ms(sum(chip.values())),
+            "chip_breakdown_ms": {c: ms(v) for c, v in chip.items()},
+        }
+        self._wide_retained.append(ev)
+        if self.logger is not None:
+            self._wide_seq += 1
+            forced = r.finish_reason not in ("eos", "length") or r.deaths > 0 or r.hop > 0
+            if self._wide_sample <= 1:
+                self._wide_events.append(ev)
+            elif forced:
+                self._wide_events.append({**ev, "sample": 1})
+            elif self._wide_seq % self._wide_sample == 0:
+                self._wide_events.append({**ev, "sample": self._wide_sample})
+
+    def _flush_wide_events(self) -> None:
+        """Log the queued wide events, outside the lock."""
+        if not self._wide_events:
+            return
+        with self._lock:
+            events, self._wide_events = self._wide_events, []
+        for ev in events:
+            self.logger.info(ev)
+
+    def usage_state(self) -> dict:
+        """Windowed per-tenant usage and the cumulative goodput for
+        ``/.well-known/debug/usage`` (JAX ``usage_state``; a fleet's has the
+        same shape)."""
+        usage = self.usage.snapshot() if self.usage is not None else {"window_s": None, "tenants": {}}
+        return {
+            "replicas": 1,
+            "goodput": self.goodput.snapshot() if self.goodput is not None else None,
+            "quota": self.quota.snapshot() if self.quota is not None else None,
+            "quota_sheds": self.quota_sheds,
+            **usage,
+        }
+
+    def set_tenant_quota(self, tenant: str, tok_s: float | None) -> None:
+        """Set (or clear, with None) a tenant's token-rate quota at runtime
+        (``register_adapter(quota=)`` sets ``adapter:<name>``'s)."""
+        if self.quota is not None:
+            self.quota.set(tenant, tok_s)
+
+    def _inflight_requests(self) -> list[GenRequest]:
+        """Every live request (slotted, in a program in flight,
+        prefilling, waiting), swept WITHOUT the lock: the incident path may
+        run while a hung call holds it, and a torn read (one request too
+        many) beats a bundle stuck behind the hang it documents."""
+        out: list[GenRequest] = []
+        seen: set[int] = set()
+
+        def take(r) -> None:
+            if r is not None and r.id not in seen:
+                seen.add(r.id)
+                out.append(r)
+
+        for r in list(self._slot_req):
+            take(r)
+        entries = list(self._inflight)
+        proc = self._processing
+        if proc is not None:
+            entries.append(proc)
+        for e in entries:
+            try:
+                for r in self._entry_requests(e):
+                    take(r)
+            except Exception:  # noqa: BLE001 — racy sweep, entries may be torn
+                continue
+        for r in list(self._prefilling) + list(self._waiting):
+            take(r)
+        return out
+
+    def _hbm_samples(self) -> list[dict]:
+        """Device memory per visible card from the caching allocator's
+        counters (host-side reads, no synchronization); None fields on
+        the CPU, as JAX's on a backend without memory_stats."""
+        if not torch.cuda.is_available():
+            return [{"device": "cpu", "platform": "cpu", "kind": "cpu", "bytes_in_use": None, "bytes_limit": None,
+                     "peak_bytes_in_use": None}]
+        out = []
+        for d in range(torch.cuda.device_count()):
+            try:
+                st = torch.cuda.memory_stats(d)
+                props = torch.cuda.get_device_properties(d)
+                out.append({
+                    "device": d, "platform": "gpu", "kind": props.name,
+                    "bytes_in_use": st.get("allocated_bytes.all.current"),
+                    "bytes_limit": props.total_memory,
+                    "peak_bytes_in_use": st.get("allocated_bytes.all.peak"),
+                })
+            except Exception:  # noqa: BLE001 — a sick card costs its row, not the bundle
+                out.append({"device": d, "platform": "gpu", "kind": "", "bytes_in_use": None, "bytes_limit": None,
+                            "peak_bytes_in_use": None})
+        return out
+
+    def _config_fingerprint(self) -> dict:
+        """The serving shape plus its content hash: is the replay host
+        configured like the incident host (JAX ``_config_fingerprint``;
+        ``tp_degree`` is 1, tensor parallelism is not ported)."""
+        import hashlib
+        import json
+
+        shape = {
+            "model": self.label, "version": self.version, "role": self.role, "slots": self.slots,
+            "max_seq_len": self.max_seq_len, "decode_chunk": self.decode_chunk, "chunked": self.chunked,
+            "speculative": self.speculative, "spec_draft": self.spec_draft, "constrained": self.constrained,
+            "lora_slots": self.lora_slots, "quantized": self.quantized, "kv_paged": self.kv.paged,
+            "kv_window": self.kv.window, "tp_degree": 1, "flight_records": self.flightrec.capacity,
+            "flight_redact": self.flightrec.redact, "wide_event_sample": self._wide_sample,
+        }
+        shape["sha256"] = hashlib.sha256(json.dumps(shape, sort_keys=True, default=repr).encode()).hexdigest()
+        return shape
+
+    def _incident(self, trigger: str, *, reason: str = "", lock_timeout: float = 2.0) -> str | None:
+        """Dump one black-box bundle (JAX ``_incident``): debug_state, the
+        retained wide events, the HBM samples, the config fingerprint, the
+        detectors' state and the flight records of everything in flight
+        (then the newest 64 final ones). Returns its path, or None when
+        unarmed or rate-limited. Never raises. The bundle's ``traces`` and
+        ``compiles`` sections wait for the port's tracer and compile
+        registry (ROADMAP ID 10), as JAX leaves ``traces`` out without a
+        tracer. Nothing here synchronizes the card: a hung stream or a
+        sticky error costs a section at most."""
+        if not self.blackbox.enabled():
+            return None
+        try:
+            sections: dict[str, Any] = {}
+            # a bounded acquire: the incident may BE a hung call holding
+            # the lock (an RLock: a caller under it re-enters at once)
+            if self._lock.acquire(timeout=lock_timeout):
+                try:
+                    sections["debug_state"] = self.debug_state()
+                finally:
+                    self._lock.release()
+            else:
+                sections["debug_state"] = {"lock_wedged": True, "died": self._died, "died_reason": self.died_reason}
+            sections["wide_events"] = list(self._wide_retained)
+            sections["hbm"] = self._hbm_samples()
+            sections["config"] = self._config_fingerprint()
+            if self.anomaly is not None:
+                sections["anomaly"] = self.anomaly.snapshot()
+            records = self.flightrec.snapshot_inflight(self._inflight_requests())
+            records.extend(self.flightrec.records(limit=64, final=True))
+            return self.blackbox.dump(trigger, reason=reason, sections=sections, records=records)
+        except Exception as e:  # noqa: BLE001 — see docstring
+            if self.logger is not None:
+                self.logger.error(f"black-box bundle capture failed: {e!r}")
+            return None
+
+    def replay(self, record_or_id, *, timeout: float = 120.0) -> dict:
+        """Re-execute a flight record (or a record id) with its version,
+        adapter, grammar and sampling pinned; reports the first index where
+        the replay leaves the recorded emission (``flightrec.replay_record``)."""
+        from .flightrec import replay_record
+
+        rec = record_or_id
+        if not isinstance(rec, dict):
+            rec = self.flightrec.get(int(record_or_id))
+            if rec is None:
+                return {
+                    "id": record_or_id,
+                    "error": f"no flight record with that id (ring holds {len(self.flightrec)} of "
+                             f"{self.flightrec.capacity})",
+                }
+        return replay_record(self, rec, timeout=timeout)
+
+    def _zero_gauges(self) -> None:
+        """close() and _die(): a dead engine must not hold its goodput ratio
+        or an anomaly flag on the exposition (and a restarted one starts
+        on fresh baselines)."""
+        if self.goodput is not None:
+            self.goodput.zero_gauges()
+        if self.anomaly is not None:
+            self.anomaly.zero_gauges()
+
     def load(self) -> int:
         """The router's tie-break: occupants plus queued requests
         (lock-free; a torn read costs a stale unit)."""
@@ -1649,19 +2090,20 @@ class LLMEngine:
         return arr, False
 
     def _die(self, why: str, lock_timeout: float | None = None) -> None:
-        """Terminal failure (JAX ``_die``): mark the engine dead, hand every
-        recoverable request to ``failover_hook`` when one is set, end every
-        other stream "cancelled", then free the device state once the
-        engine stream has run what was queued on it. Idempotent.
+        """Terminal failure (JAX ``_die``): mark the engine dead, dump the
+        incident bundle of its class (``flightrec.classify_die_reason``)
+        before anything moves, hand every recoverable request to
+        ``failover_hook`` when one is set, end every other stream
+        "cancelled", zero the goodput and anomaly gauges, then free the
+        device state once the engine stream has run what was queued on it.
+        Idempotent; the flight-record ring outlives the death.
 
         ``lock_timeout`` (the watchdog's) bounds the wait for the lock a
         hung call may hold: without the lock the engine is only marked dead
         and its memory is kept; with it, the stream is never waited on, and
         the memory is kept until an event recorded behind the stream's last
         program has passed (``_release_device``). No dispatch follows:
-        ``_launch`` refuses once the engine stops. The JAX ``_die``'s first
-        step, the flight recorder's incident bundle, and its zeroing of the
-        metrics gauges come with those modules (ROADMAP ID 9, ID 10)."""
+        ``_launch`` refuses once the engine stops."""
         with self._die_guard:
             if self._died:
                 return
@@ -1671,6 +2113,13 @@ class LLMEngine:
         self._fail_sched_work()  # a handoff waiting on this engine fails now
         if self.logger is not None:
             self.logger.error(f"LLM engine {self.label} died: {why}")
+        # the black-box bundle FIRST, while the corpse is warm: the rescue
+        # and the drain below empty the very state it captures (JAX
+        # llm.py:7018-7030); the reason's prefix classifies the trigger
+        self._incident(
+            classify_die_reason(why), reason=why,
+            lock_timeout=2.0 if lock_timeout is None else min(2.0, lock_timeout),
+        )
         acquired = self._lock.acquire() if lock_timeout is None else self._lock.acquire(timeout=lock_timeout)
         rescued: list[GenRequest] = []
         done = None
@@ -1692,6 +2141,7 @@ class LLMEngine:
             self.logger.error("LLM engine lock wedged while dying; marked dead without drain")
         if self.ledger is not None:
             self.ledger.set_active(self._shard, set())
+        self._zero_gauges()
         self._kick.set()
         if acquired:
             with self._work_cv:
@@ -1869,6 +2319,9 @@ class LLMEngine:
             # programs in flight that name it run before any later load's
             # rows on the engine stream
             self._lora_release(r)
+            # the flight record, the detectors and the wide event, before
+            # the consumer wakes (JAX llm.py:5548-5660)
+            self._observe_finish(r, time.perf_counter())
             r.out.put(None)
 
     def _drain_submits(self) -> None:
@@ -2163,7 +2616,7 @@ class LLMEngine:
         self._stage(False, self._host_tables(), np.zeros((self.slots,), bool), meta, pack)
         t0 = time.perf_counter()
         first, logits, rows = self._launch(name)
-        self._inflight.append(("prefill", _Fetch(first, prompt_tokens, t0), taken, nb))
+        self._inflight.append(("prefill", _Fetch(first, prompt_tokens, t0, gp=("wave", bucket)), taken, nb))
         self.waves[nb] = self.waves.get(nb, 0) + 1
         self.wave_reqs += len(reqs)
         self.prefill_tokens += prompt_tokens
@@ -2491,8 +2944,16 @@ class LLMEngine:
                         snapshot[i] = None
         if r in self._prefilling:
             self._prefilling.remove(r)
-        r.prompt_tokens = list(r.prompt_tokens) + r.history
-        r.history = []
+        # the goodput ledger's replay marker (JAX llm.py:4242-4251): what the
+        # continuation re-prefills below it was computed once already — the
+        # chunks dispatched if nothing streamed yet, else the whole grown
+        # prompt (the streamed tokens re-enter as prompt rows)
+        replay_to = r.prefill_pos
+        if r.history:
+            r.prompt_tokens = list(r.prompt_tokens) + r.history
+            r.history = []
+            replay_to = len(r.prompt_tokens)
+        r._replay_pos = max(r._replay_pos, replay_to)
         r.prefill_pos = r._rows_hi = 0
         r.prefill_done = False
         r._spec_pending = []
@@ -2896,6 +3357,7 @@ class LLMEngine:
                 meta[2, :] = -1  # padding and unconstrained rows: no grammar
             finishes: list[tuple[int, int, GenRequest]] = []
             prefill_tokens = 0
+            spans = [(r, r.prefill_pos, n) for r, n in rows]  # the goodput ledger's rows
             for j, (r, n) in enumerate(rows):
                 pos = r.prefill_pos
                 pack[j, :n] = r.prompt_tokens[pos : pos + n]
@@ -2942,7 +3404,7 @@ class LLMEngine:
             # after the rows loop: rows finishing this step decode in it
             snapshot = [r if (r is not None and r.prefill_done) else None for r in self._slot_req]
             work = prefill_tokens + K * sum(r is not None for r in snapshot)
-            fetch = _Fetch(toks, work, t0)
+            fetch = _Fetch(toks, work, t0, gp=("step", shape, nb, prefill_tokens, spans))
             self._inflight.append(("step", fetch, finishes, nb, snapshot, K))
             self.steps += 1
             self.step_tokens += work
@@ -3232,6 +3694,7 @@ class LLMEngine:
                     with self._lock:
                         if self._processing is entry:
                             self._processing = None
+                self._flush_wide_events()
                 self._kick.set()
         finally:
             if not self._stop:
@@ -3300,6 +3763,10 @@ class LLMEngine:
         if entry[0] == "verify":
             self._process_verify_entry(entry, toks, now)
             return
+        if self.goodput is not None:
+            self._gp_observe(entry, now)
+        if self.anomaly is not None and entry[0] == "step":
+            self.anomaly.observe("step", (now - fetch.t0) * 1e3)  # JAX llm.py:6594
         self._observe_tput(fetch.work, now - fetch.t0)
         with self._lock:
             if entry[0] == "prefill":
@@ -3334,6 +3801,12 @@ class LLMEngine:
         _, fetch, sel, info = entry
         S, W = self.slots, info["W"]
         ys, acc = toks[: S * W].reshape(S, W), toks[S * W :]
+        if self.goodput is not None:
+            self._gp_observe(entry, now, acc)
+        if self.anomaly is not None:  # JAX llm.py:6750-6757
+            self.anomaly.observe("step", (now - fetch.t0) * 1e3)
+            # this verify's acceptance over the drafts it could accept
+            self.anomaly.observe("spec_accept", sum(int(acc[slot]) for slot, _r in sel) / max(1, len(sel) * (W - 1)))
         with self._lock:
             self._observe_tput(sum(int(acc[slot]) + 1 for slot, _r in sel), now - fetch.t0)
             for slot, r in sel:
@@ -4169,6 +4642,13 @@ class ReplicatedLLMEngine:
                 for c, w in weights.items():
                     engine_kw["fair_ledger"].set_weight(c, w)
         self.ledger = engine_kw.get("fair_ledger")
+        # ONE usage meter for every replica and rebuild (JAX
+        # llm.py:7478-7495): a tenant's window and its quota are fleet
+        # totals, whichever replica admitted its requests
+        gp_on, win = goodput_knobs(engine_kw.get("goodput"), engine_kw.get("usage_window_s"))
+        if gp_on and engine_kw.get("usage_meter") is None:
+            engine_kw["usage_meter"] = UsageMeter(window_s=win)
+        self.usage = engine_kw.get("usage_meter")
         if fleet_max_queue_tokens is None:
             fleet_max_queue_tokens = int(env("TPU_LLM_FLEET_MAX_QUEUE_TOKENS", "0") or 0)
         self.fleet_max_queue_tokens = max(0, int(fleet_max_queue_tokens))
@@ -4201,6 +4681,12 @@ class ReplicatedLLMEngine:
             for e in self.engines:
                 e.close()
             raise
+        # a quarantine dumps a bundle from a live replica: the dying
+        # replica's own _die bundle holds its corpse, this one the fleet
+        # around it (JAX llm.py:7597-7602)
+        self.health.on_quarantine = lambda device, why: self.incident(
+            "quarantine", reason=f"device {device} quarantined ({why})"
+        )
         self.supervisor: ReplicaSupervisor | None = None
         if supervise:
             self.supervisor = ReplicaSupervisor(
@@ -4625,6 +5111,8 @@ class ReplicatedLLMEngine:
             "retry_budget_remaining": round(self.retry_budget.remaining(), 2),
             "retry_budget_exhausted": self.retry_budget_exhausted,
             "fairness": self.ledger.snapshot() if self.ledger is not None else None,
+            "goodput": self._merged_goodput(),
+            "quota_sheds": sum(e.quota_sheds for e in self.engines),
             "adapters": self.adapters(),
             "slots": sum(s["slots"] for s in per),
             "active": sum(s["active"] for s in per),
@@ -4662,8 +5150,66 @@ class ReplicatedLLMEngine:
             "poison_deaths": self.poison_deaths,
             "poisoned": self.poisoned,
             "canary": self._canary_enabled,
+            "goodput": self._merged_goodput(),
+            "usage": self.usage.snapshot() if self.usage is not None else None,
             "per_replica": [e.debug_state() for e in self.engines],
         }
+
+    # -- chip-time accounting and the flight recorder (JAX llm.py:8489-8580) --
+    def _merged_goodput(self) -> dict | None:
+        """The replicas' ledgers pooled: sums add, the ratio is recomputed
+        from the pooled sums (never an average of ratios)."""
+        snaps = [e.goodput.snapshot() for e in self.engines if e.goodput is not None]
+        return pool_goodput(snaps) if snaps else None
+
+    def usage_state(self) -> dict:
+        """``LLMEngine.usage_state``'s shape for the fleet: the meter is
+        shared, so each tenant's window is the fleet's total already."""
+        usage = self.usage.snapshot() if self.usage is not None else {"window_s": None, "tenants": {}}
+        lead = self.engines[0] if self.engines else None
+        return {
+            "replicas": len(self.engines),
+            "goodput": self._merged_goodput(),
+            "quota": lead.quota.snapshot() if lead is not None and lead.quota is not None else None,
+            "quota_sheds": sum(e.quota_sheds for e in self.engines),
+            **usage,
+        }
+
+    def set_tenant_quota(self, tenant: str, tok_s: float | None) -> None:
+        """A fleet-total quota (every replica's gate reads the shared
+        meter), kept in the rebuild kwargs so a rebuilt replica enforces it
+        too."""
+        q = self._engine_kw.setdefault("quotas", {})
+        if tok_s is None or tok_s <= 0:
+            q.pop(tenant, None)
+        else:
+            q[tenant] = float(tok_s)
+        for e in self.engines:
+            e.set_tenant_quota(tenant, tok_s)
+
+    def incident(self, trigger: str, *, reason: str = "") -> str | None:
+        """One bundle from the first live replica: fleet-level triggers
+        (quarantine, rollback) need a witness that still holds state."""
+        for e in self.engines:
+            if e.alive():
+                return e._incident(trigger, reason=reason)
+        return None
+
+    def replay(self, record_or_id, *, timeout: float = 120.0) -> dict:
+        """Find the record on any replica (a dead one keeps its ring) and
+        re-execute it on a live replica of the record's version."""
+        from .flightrec import find_record, replay_record
+
+        rec = record_or_id
+        if not isinstance(rec, dict):
+            rec, _owner = find_record(self, int(record_or_id))
+            if rec is None:
+                return {"id": record_or_id, "error": "no flight record with that id on any replica"}
+        want = rec.get("model_version")
+        for e in self.engines:
+            if e.alive() and (not want or e.version == want):
+                return replay_record(e, rec, timeout=timeout)
+        return {"id": rec.get("id"), "error": f"no live replica serves version {want!r} for replay"}
 
     def drain(self) -> None:
         """Fleet drain: no rebuild from now on, admission closed on every

@@ -24,14 +24,16 @@ Errors answer the OpenAI envelope ``{"error": {"message", "type",
 ``response_format`` that cannot be compiled (``json_object`` among them,
 as in the JAX edge), 404 for an unknown model or adapter, 429 with
 Retry-After when every resident-grammar slot holds live requests, 503
-when the engine has stopped. Left out: the usage object's chip-time
-fields.
+when the engine has stopped.
 
 Tokenization: a tokenizer passed in, else the byte-level tokenizer when
 the model's vocabulary admits it (>= 258 ids), else text routes answer
 400. Knobs: ``GOFR_OPENAI_MODEL`` (model when the request names none),
 ``GOFR_OPENAI_MAX_TOKENS`` (default and cap of max_tokens),
-``GOFR_OPENAI_STREAM_TIMEOUT_S``.
+``GOFR_OPENAI_STREAM_TIMEOUT_S``, ``GOFR_OPENAI_USAGE_EXTRA`` ("1": a
+completion's ``usage`` also carries the request's chip time,
+``chip_time_ms``, and its waste breakdown, ``chip_breakdown_ms``, from the
+goodput ledger; off by default, the OpenAI schema byte for byte).
 """
 
 from __future__ import annotations
@@ -103,6 +105,7 @@ def register_openai_routes(
     default_model = model or cfg.get_or_default("GOFR_OPENAI_MODEL", "")
     max_tokens_cap = int(cfg.get_or_default("GOFR_OPENAI_MAX_TOKENS", "512"))
     stream_timeout = float(cfg.get_or_default("GOFR_OPENAI_STREAM_TIMEOUT_S", "120"))
+    usage_extra = cfg.get_or_default("GOFR_OPENAI_USAGE_EXTRA", "0") not in ("", "0")  # JAX :109-113
     # per-model caches; the embedding matrix is fetched to the host once
     state: dict[str, Any] = {"tok": {}, "vocab": {}, "embed": None}
 
@@ -322,6 +325,11 @@ def register_openai_routes(
         loop = asyncio.get_running_loop()
         out = await loop.run_in_executor(None, lambda: req.tokens(timeout=stream_timeout))
         content_ids = [t for t in out if t != eos_id]
+        usage = {"prompt_tokens": n_prompt, "completion_tokens": len(out), "total_tokens": n_prompt + len(out)}
+        if usage_extra:  # JAX :388-396
+            chip = dict(req._chip)
+            usage["chip_time_ms"] = round(sum(chip.values()) * 1e3, 3)
+            usage["chip_breakdown_ms"] = {c: round(v * 1e3, 3) for c, v in chip.items()}
         payload = {
             **base,
             "object": "chat.completion",
@@ -330,11 +338,7 @@ def register_openai_routes(
                 "message": {"role": "assistant", "content": tok.decode(content_ids)},
                 "finish_reason": _finish(req.finish_reason),
             }],
-            "usage": {
-                "prompt_tokens": n_prompt,
-                "completion_tokens": len(out),
-                "total_tokens": n_prompt + len(out),
-            },
+            "usage": usage,
         }
         return Response(200, [("Content-Type", "application/json")], to_json_bytes(payload))
 

@@ -84,6 +84,10 @@ class DeviceHealthLedger:
         self.logger = logger
         self.quarantines = 0  # trips, re-trips included
         self._lock = threading.Lock()
+        # the incident seam (JAX health.py:159-165): ReplicatedLLMEngine
+        # points it at a live replica's bundle dump; called outside the
+        # lock with (device, reason), exceptions swallowed
+        self.on_quarantine = None
         # per device: {"events": [(t, reason)], "state", "until", "cooldown",
         # "trips", "by_reason": {reason: n}}
         self._devices: dict[str, dict] = {}
@@ -138,6 +142,11 @@ class DeviceHealthLedger:
                 f"device {device} quarantined ({reason}: {detail or 'n/a'}; trip {self.quarantines}, "
                 f"cooldown {self._devices[device]['cooldown']:.1f}s)"
             )
+        if tripped and self.on_quarantine is not None:
+            try:
+                self.on_quarantine(device, f"{reason}: {detail or 'n/a'}")
+            except Exception:  # noqa: BLE001 — incident capture is best-effort
+                pass
         return tripped
 
     def probe_ok(self, device: str) -> None:

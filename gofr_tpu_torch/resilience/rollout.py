@@ -24,10 +24,11 @@ copied: the port imports nothing of the JAX package).
 - Typed errors with an HTTP status: a malformed deploy is a 400 at the
   admin route, a concurrent one a 409.
 
-The JAX controller's ``app_llm_rollout*`` and ``app_llm_faults_injected``
-series and its ``rollout.shadow_replay`` span come with the port's metrics
-and tracing (ROADMAP ID 10); the ``rollback`` incident bundle comes with
-the flight recorder (ID 9 item 4). Each seam is marked where it goes.
+A rollback dumps a ``rollback`` incident bundle (``flightrec``) from a
+live replica before it converges. The JAX controller's ``app_llm_rollout*``
+and ``app_llm_faults_injected`` series and its ``rollout.shadow_replay``
+span come with the port's metrics and tracing (ROADMAP ID 10); each seam
+is marked where it goes.
 """
 
 from __future__ import annotations
@@ -396,8 +397,11 @@ class RolloutController(_RolloutBase):
         ends with two versions in routing."""
         fleet = self.fleet
         self._set_state("rolling_back")
-        # JAX takes a "rollback" incident bundle here (the flight
-        # recorder, ROADMAP ID 9 item 4)
+        # the evidence first (JAX rollout.py:526-536): a rollback means the
+        # new version failed in production; capture the fleet before the
+        # converge below rebuilds it away
+        fleet.incident("rollback", reason=f"rolling back {self.to_version} -> {self.from_version}: "
+                                          f"{self.error or 'gate failed'}")
         try:
             for i in range(len(fleet.engines)):
                 if self._stop or fleet._draining:
@@ -620,14 +624,16 @@ class ModelHandle:
         return self._swap.snapshot()
 
     def register_adapter(self, name: str, adapter: dict, *, version: str = "v1", alpha: float | None = None,
-                         fair_weight: float | None = None, shadow_probes: int | None = None) -> dict:
+                         fair_weight: float | None = None, shadow_probes: int | None = None,
+                         quota: float | None = None) -> dict:
         """Canary-gated adapter hot-load: validate and stage ``adapter``
         under ``<name>@<version>``, replay recent real prompts THROUGH the
         staged delta on the live engine, and only then publish it under
         ``name``. A reject evicts the staging row and raises
         ``RolloutError``; the previous binding of ``name`` serves on.
-        ``fair_weight`` sets the tenant's share (``adapter:<name>``). (JAX's
-        ``quota`` comes with the goodput ledger, ROADMAP ID 9 item 3.)"""
+        ``fair_weight`` sets the tenant's share (``adapter:<name>``) and
+        ``quota`` its token-rate ceiling in tok/s (JAX rollout.py:865-929),
+        enforced at admission against the goodput usage meter."""
         eng = self._engine
         staging = f"{name}@{version}"
         probes = _env_int("TPU_LLM_ADAPTER_SHADOW", 2) if shadow_probes is None else max(0, int(shadow_probes))
@@ -644,6 +650,8 @@ class ModelHandle:
             if ledger is not None:
                 ledger.set_weight(f"adapter:{name}", fair_weight)
             eng._adapters_host[name]["fair_weight"] = fair_weight
+        if quota is not None:
+            eng.set_tenant_quota(f"adapter:{name}", float(quota))
         return {"name": name, "version": version, "state": "published"}
 
     def retire_adapter(self, name: str) -> None:

@@ -343,8 +343,25 @@ def test_register_llm_refuses_unported(weights):
             assert eng.constrained is on and eng._g_cap == 3 and bool(eng._programs_g) is on
         finally:
             eng.close()
-    # (TPU_LLM_DISAGG is ported: tests/test_torch_disagg.py builds with it)
-    for knob in ("TPU_LLM_FLIGHT_RECORDS", "TPU_LLM_TP", "TPU_LLM_ANOMALY"):
+    # (TPU_LLM_DISAGG is ported: tests/test_torch_disagg.py builds with it.)
+    # The flight recorder and the anomaly detectors are ported (refused
+    # before): their knobs build what the JAX runtime builds; tensor
+    # parallelism stays refused
+    eng = GPURuntime(new_mock_config({"TPU_LLM_FLIGHT_RECORDS": "2", "TPU_LLM_ANOMALY": "0"})).register_llm(
+        "m", cfg, tp, device="cpu", slots=2, max_seq_len=64)
+    try:
+        assert eng.flightrec.capacity == 2 and eng.anomaly is None
+    finally:
+        eng.close()
+    eng = GPURuntime(new_mock_config({"TPU_LLM_ANOMALY": "2", "TPU_LLM_FLIGHT_REDACT": "1",
+                                      "TPU_LLM_WIDE_EVENT_SAMPLE": "4", "GOFR_BLACKBOX_INTERVAL_S": "7"})
+                     ).register_llm("m", cfg, tp, device="cpu", slots=2, max_seq_len=64)
+    try:
+        assert eng.anomaly is not None and eng.flightrec.redact and eng._wide_sample == 4
+        assert eng.blackbox.min_interval_s == 7.0 and not eng.blackbox.enabled()
+    finally:
+        eng.close()
+    for knob in ("TPU_LLM_TP",):
         with pytest.raises(NotImplementedError, match=knob):
             GPURuntime(new_mock_config({knob: "2"})).register_llm("m", cfg, tp, device="cpu")
     # the LoRA pool is ported: its kwargs and knobs (defaults for kwargs
@@ -555,10 +572,12 @@ def test_priority_and_client_headers_reach_ledger_and_preemption(apps):
 def test_register_llm_overload_kwargs_and_knobs(weights):
     """register_llm takes the overload kwargs; TPU_LLM_FAIR, _PREEMPT,
     _SHED_WAIT_S and _BROWNOUT_* set the engine's defaults (a kwarg wins);
-    TPU_LLM_TENANT_QUOTA_TOK_S (the JAX engine's quota gate) is refused by
-    name."""
+    TPU_LLM_TENANT_QUOTA_TOK_S (the JAX engine's quota gate, refused before
+    it was ported) sets the tenants' quotas, and a tenant past its quota is
+    shed with a priced Retry-After."""
     _jcfg, _jp, tp = weights
     from gofr_tpu_torch.datasource.gpu import GPURuntime
+    from gofr_tpu_torch.llm import EngineOverloaded
     from gofr_tpu_torch.resilience import FairLedger
 
     cfg = TT.TransformerConfig.tiny()
@@ -582,9 +601,17 @@ def test_register_llm_overload_kwargs_and_knobs(weights):
                 assert eng.ledger is shared
         finally:
             eng.close()
-    with pytest.raises(NotImplementedError, match="TPU_LLM_TENANT_QUOTA_TOK_S"):
-        GPURuntime(new_mock_config({"TORCH_DEVICE": "cpu", "TPU_LLM_TENANT_QUOTA_TOK_S": "acme=100"})).register_llm(
-            "m", cfg, tp, slots=2, max_seq_len=64)
+    eng = GPURuntime(new_mock_config({"TORCH_DEVICE": "cpu", "TPU_LLM_TENANT_QUOTA_TOK_S": "acme=0.01,x=y"})
+                     ).register_llm("m", cfg, tp, slots=2, max_seq_len=64)
+    try:
+        assert eng.quota.snapshot() == {"quotas_tok_s": {"acme": 0.01}}
+        assert len(eng.generate([1, 2, 3, 4], max_new_tokens=4, client="acme")) == 4
+        with pytest.raises(EngineOverloaded, match="TPU_LLM_TENANT_QUOTA_TOK_S") as ei:
+            eng.generate([1, 2, 3, 4], max_new_tokens=4, client="acme")
+        assert ei.value.retry_after >= 0.25 and eng.stats()["quota"]["sheds"] == 1
+        assert len(eng.generate([1, 2, 3, 4], max_new_tokens=4, client="other")) == 4
+    finally:
+        eng.close()
 
 
 # -- LoRA adapters at the edge: X-GoFr-Adapter, model=<adapter>, /v1/models ----

@@ -146,6 +146,9 @@ def test_port_imports_nothing_of_jax():
     for sub in ("resilience", "structured", "spec", "kvcache", "datasource/gpu", "lora"):
         assert any(f.parent == ROOT / "gofr_tpu_torch" / sub for f in files), sub
     assert ROOT / "gofr_tpu_torch" / "grpcx.py" in files
+    # the copied accounting and recorder modules are walked too
+    for name in ("metrics.py", "goodput.py", "flightrec.py"):
+        assert ROOT / "gofr_tpu_torch" / name in files, name
     bad = []
     for f in files:
         for node in ast.walk(ast.parse(f.read_text(), filename=str(f))):
