@@ -73,7 +73,24 @@ Phases, each raising on failure:
    burst's tok/s beside an unbundled burst); an anomaly (every fetch held
    past the factor times the step baseline: app_llm_anomaly{signal="step"}
    1, one step bundle, cleared by normal steps); the exposition's goodput,
-   quota-shed and bundle series non-zero;
+   quota-shed and bundle series non-zero. Then device observability, with
+   a tracer (the app's), an SLO tracker and the HBM sampler attached to
+   the engine as the runtime attaches them: the burst traced (one
+   llm.request span a request, its queue_wait / prefill / decode / emit
+   children inside it; app_llm_ttft_seconds counts the burst); a 1 ms
+   TTFT target trips the fast burn once (one slo_fast_burn bundle), a 60 s
+   one nothing; the MFU and roofline windows per phase (each in (0, 1],
+   decode's ratio under 1); the capture registry (one row per captured
+   family, its arg_shapes read off the family's name, their seconds
+   within warmup_s, and over one burst its hits equal to the replays
+   counted on each CUDA graph); one HBM sweep equal to
+   memory_reserved and mem_get_info at the same moment; over HTTP a
+   traceparent's round trip, /debug/traces, /debug/compiles and
+   /debug/engine?serving=1; a 2 s profile capture during a live burst
+   (trace.json names the flash and paged-decode kernels; the streams
+   against the uncaptured burst's, equal or at near-ties); and the main
+   burst three times with the tracer, SLO and a sampler of its own on and
+   three times with all three off (tok/s each);
 5. overload — overload control on the engine phase's engine (preemption
    and the fair-queuing ledger toggled at runtime, no second warmup): a
    batch job (the burst's prompts five times, longest first, 256 new
@@ -426,6 +443,7 @@ from gofr_tpu_torch.models.checkpoint import load_llama_checkpoint, validate_par
 from gofr_tpu_torch.models.tokenizer import ByteTokenizer
 from gofr_tpu_torch.ops import _build
 from gofr_tpu_torch.ops import attention as A
+from gofr_tpu_torch.profiling.mfu import card_peaks
 from gofr_tpu_torch.structured import compile_json_schema, compile_regex, vocab_from_tokenizer
 
 SEED = 0  # inputs, weights and prompts are all made from it
@@ -452,18 +470,9 @@ TOKEN_GAP = 0.25
 # most 1 token in 8 may need it.
 INT8_TOKEN_GAP = 1.0
 
-# Published dense peaks (NVIDIA data sheets) by the name nvidia-smi reports:
-# memory bytes/s, bf16 tensor-core FLOP/s, f32 (non-tensor) FLOP/s.
-CARD_PEAKS = {
-    "H100 80GB HBM3": (3.35e12, 989e12, 67e12),  # H100 SXM
-}
-
-
-def card_peaks(name: str):
-    for key, peaks in CARD_PEAKS.items():
-        if key in name:
-            return key, peaks
-    raise RuntimeError(f"no peak figures for card {name!r}; add its data sheet row to CARD_PEAKS")
+# The card's published dense peaks (memory bytes/s, bf16 tensor-core FLOP/s,
+# f32 FLOP/s) come from the port's one table, profiling.mfu (card_peaks):
+# the kernel bounds here and the engine's MFU read the same figures.
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -1970,10 +1979,317 @@ def _observe(dev: dict, seed: int, cfg, params, eng, main) -> dict:
     print("observe exposition: " + "; ".join(
         f"{k}{lab} {v:g}" for k in ("app_llm_goodput_ratio", "app_llm_quota_sheds_total", "app_blackbox_bundles_total")
         for lab, v in _metric_lines(text, k).items()))
+    lap("exposition")
+
+    # 9-15. device observability: spans, SLO, MFU, the capture registry,
+    # HBM telemetry, profile capture and the cost of observing
+    out["device"] = _observe_device(dev, seed, cfg, params, eng, prompts, new_tokens, lap)
     out["launches"] = _launches(KERNEL_COUNTERS)
     if any(out["launches"][name] <= 0 for name in ("flash_attention", "paged_decode_partials")):
         raise AssertionError(f"observe launches {out['launches']}")
     print(f"observe launches over the phase: {out['launches']}; seconds by step {laps}")
+    return out
+
+
+OBSERVE_PROFILE_NEW = 128  # the profiled burst's answers: it outlasts the 2 s capture window
+
+
+_FAMILY_SIGS = (  # a family's name -> its (kind, width) as the registry records them
+    (r"llm\.step_p(\d+)_d\d+g?\.w(\d+)", "step"),
+    (r"llm\.prefill_b(\d+)\.w(\d+)", "prefill"),
+    (r"llm\.decode_chunk(\d+)g?", "chunk"),
+    (r"llm\.hit_first\.w(\d+)", "hit"),
+    (r"llm\.step_v(\d+)g?", "verify"),
+    (r"llm\.kv_seed", "seed"),
+)
+
+
+def _family_sig(name: str) -> tuple[str, str] | None:
+    """The registry's arg_shapes for family ``name``, read off the name."""
+    for pattern, kind in _FAMILY_SIGS:
+        hit = re.fullmatch(pattern, name)
+        if hit:
+            nums = tuple(int(g) for g in hit.groups())
+            return kind, str(nums if len(nums) > 1 else nums[0] if nums else None)
+    return None
+
+
+def _span_check(ring, reqs, label: str) -> int:
+    """Every request's trace holds one llm.request span whose children lie
+    inside it (1 ms of clock anchoring slack); returns the spans."""
+    n = 0
+    for i, r in reqs.items():
+        spans = ring.query(r.span.trace_id)
+        roots = [s for s in spans if s["name"] == "llm.request"]
+        kids = [s for s in spans if s["parent_id"] == r.span.span_id]
+        if len(roots) != 1 or not kids or {"llm.queue_wait", "llm.prefill", "llm.decode"} - {s["name"] for s in kids}:
+            raise AssertionError(f"{label}request {i}: spans {[(s['name'], s['parent_id']) for s in spans]}")
+        root = roots[0]
+        for s in kids:
+            if not root["start_ns"] - 1_000_000 <= s["start_ns"] <= s["end_ns"] <= root["end_ns"] + 1_000_000:
+                raise AssertionError(f"{label}request {i}: {s['name']} outside llm.request")
+        n += len(spans)
+    return n
+
+
+def _observe_device(dev: dict, seed: int, cfg, params, eng, prompts, new_tokens: int, lap) -> dict:
+    """Device observability on the observe phase's engine: a tracer, an SLO
+    tracker and the HBM sampler attached to it as the runtime attaches
+    them; see the module docstring."""
+    from gofr_tpu_torch.app import new as new_app
+    from gofr_tpu_torch.config import new_mock_config
+    from gofr_tpu_torch.datasource.gpu.telemetry import GPUTelemetry
+    from gofr_tpu_torch.handler import llm_request_kwargs
+    from gofr_tpu_torch.metrics.slo import SLOPolicy, SLOTracker
+    from gofr_tpu_torch.profiling import default_registry
+    from gofr_tpu_torch.resilience.rollout import ModelHandle
+
+    out: dict = {}
+    m = eng.metrics
+    app = new_app(new_mock_config({"HTTP_PORT": "0", "REQUEST_TIMEOUT": "600", "LOG_LEVEL": "WARN",
+                                   "TRACE_RING_SPANS": "262144"}))
+    tracer = app.tracer
+
+    def slo(ttft_ms):
+        t = SLOTracker(SLOPolicy(ttft_ms=ttft_ms), m, eng.label)
+        t.on_fast_burn = lambda: eng._incident("slo_fast_burn", reason=f"error-budget fast burn tripped on {eng.label}")
+        return t
+
+    def ttft_count():
+        return sum(v for k, v in _metric_lines(m.render_prometheus(), "app_llm_ttft_seconds_count").items())
+
+    # the main burst with tracing and the SLO on; the MFU windows read this
+    # phase's bursts only (the anomaly step above held every fetch)
+    for w in (*eng._mfu_windows.values(), *eng._roofline_windows.values(), eng._tok_chip_window):
+        w.clear()
+    eng.tracer, eng.slo = tracer, slo(60_000.0)
+    telemetry = GPUTelemetry(m, [eng.device], interval_s=10.0)
+    n0 = ttft_count()
+    results, reqs, wall = _serve(eng, prompts, new_tokens)
+    _quiet(eng)
+    nspans = _span_check(tracer.ring, reqs, "observe trace ")
+    dn = ttft_count() - n0
+    snap = eng.slo.snapshot()
+    if dn != len(prompts) or snap["total"] != len(prompts) or snap["fast_burn"] or snap["good"] != len(prompts):
+        raise AssertionError(f"observe trace: ttft count +{dn}, slo {snap}")
+    c, e = _replay_gate(params, cfg, prompts, results, TOKEN_GAP, label="observe traced ", verbose=False)
+    print(f"observe trace on {dev['smi']}: {len(reqs)} requests, one llm.request each with queue_wait/prefill/"
+          f"decode/emit children inside it ({nspans} spans); app_llm_ttft_seconds count +{dn}; SLO ttft 60 s: "
+          f"{snap['good']}/{snap['total']} good, burn {snap['burn_rates']}, fast burn {snap['fast_burn']}; "
+          f"burst {sum(map(len, results.values())) / wall:.1f} tok/s; gate {c} matched, {e} exempt")
+    lap("trace")
+
+    # 1 ms TTFT: every request violates, the fast burn trips once, one bundle
+    watch = _watch_incidents(eng)
+    eng.slo = slo(1.0)
+    for _ in range(2):  # 16 judged requests: past the 10 the short window needs
+        _serve(eng, prompts, new_tokens)
+    _quiet(eng)
+    del eng._incident, eng.blackbox.dump
+    snap = eng.slo.snapshot()
+    burns = [w for w in watch if w["trigger"] == "slo_fast_burn"]
+    if not snap["fast_burn"] or snap["good"] != 0 or len(burns) != 1 or burns[0]["path"] is None:
+        raise AssertionError(f"observe slo 1 ms: {snap}, incidents {watch}")
+    b = _bundle(burns[0]["path"], "observe slo ")
+    fast = _metric_lines(m.render_prometheus(), "app_llm_slo_fast_burn")
+    if b["manifest"]["trigger"] != "slo_fast_burn" or fast.get(f'{{model="{eng.label}"}}') != 1.0:
+        raise AssertionError(f"observe slo: bundle {b['manifest']}, gauge {fast}")
+    eng.slo.zero_gauges()
+    eng.slo = slo(60_000.0)
+    print(f"observe slo: ttft target 1 ms: {snap['total']} judged, {snap['good']} good, burn {snap['burn_rates']}, "
+          f"fast burn tripped once: one slo_fast_burn bundle ({', '.join(b['files'])}, "
+          f"{burns[0]['s'] * 1e3:.1f} ms); target 60 s: {eng.slo.snapshot()['fast_burn']}")
+    out["slo"] = {"burn": snap["burn_rates"], "bundles": len(burns)}
+    lap("slo")
+
+    # MFU and the roofline, per phase, over everything this engine served
+    mfu = eng.stats()["mfu"]
+    pre, dec = mfu["prefill"], mfu["decode"]
+    rpre, rdec = mfu["roofline"]["prefill"], mfu["roofline"]["decode"]
+    if not (0 < pre["p50"] <= 1 and 0 < dec["p50"] <= 1 and 0 < rdec["p50"] < 1 and dec["max"] <= 1):
+        raise AssertionError(f"observe mfu: {mfu}")
+    print(f"observe mfu on {dev['smi']} (peaks {mfu['peak_flops_per_chip'] / 1e12:g} TFLOP/s bf16, "
+          f"{mfu['hbm_bw_per_chip'] / 1e12:g} TB/s): prefill p50 {pre['p50']:.4f} max {pre['max']:.4f} "
+          f"({pre['count']} steps), decode p50 {dec['p50']:.4f} max {dec['max']:.4f} ({dec['count']} programs); "
+          f"roofline ratio prefill p50 {rpre['p50']:.3f}, decode p50 {rdec['p50']:.4f} ({mfu['roofline']['bound']}-"
+          f"bound); tokens/s/chip p50 {mfu['tokens_per_second_per_chip']['p50']:.1f}")
+    out["mfu"] = {"prefill_p50": pre["p50"], "decode_p50": dec["p50"], "roofline_prefill_p50": rpre["p50"],
+                  "roofline_decode_p50": rdec["p50"]}
+    lap("mfu")
+
+    # the capture registry: one row per captured family, seconds within warmup
+    rows = default_registry().snapshot(model=eng.label)
+    progs = {p["program"]: p for p in rows["programs"]}
+    cap_s = sum(p["compile_s"] for p in progs.values() if p["measured"] == "capture")
+    warm = rows["warmup"].get(eng.label, {})
+    if set(progs) != set(eng.families) or warm.get("programs") != len(eng.families) or cap_s > eng.warmup_s:
+        raise AssertionError(f"observe compiles: {sorted(progs)} vs families {sorted(eng.families)}, warmup {warm}, "
+                             f"capture {cap_s} > warmup_s {eng.warmup_s}")
+    bad = [p for p in progs.values()
+           if p["compiles"] != 1 or p["measured"] != "capture" or p["backend"] != "cuda"
+           or tuple(p["arg_shapes"]) != _family_sig(p["program"])]
+    if bad:
+        raise AssertionError(f"observe compiles: rows unlike their families: {bad}")
+    # the registry's hits over one burst against the graphs' own replays,
+    # counted on each CUDAGraph by a wrapper outside the engine
+    hits0 = {p: e["hits"] for p, e in progs.items()}
+    replays: dict = {}
+
+    def counted(name, replay):
+        def run(*a, **k):
+            replays[name] = replays.get(name, 0) + 1
+            return replay(*a, **k)
+        return run
+
+    for name, fam in eng.families.items():
+        fam.graph.replay = counted(name, fam.graph.replay)
+    try:
+        _serve(eng, prompts, new_tokens)
+        _quiet(eng)
+    finally:
+        for fam in eng.families.values():
+            del fam.graph.replay  # the class's method again
+    hits = {p["program"]: p["hits"] - hits0[p["program"]]
+            for p in default_registry().snapshot(model=eng.label)["programs"]}
+    hits = {k: v for k, v in hits.items() if v}
+    if not replays or hits != replays:
+        raise AssertionError(f"observe compiles: registry hits over a burst {hits} != graph replays {replays}")
+    slowest = sorted(progs.values(), key=lambda p: -p["compile_s"])[:3]
+    print(f"observe compiles: {len(progs)} captured families (= the engine's {len(eng.families)} graphs), one "
+          f"capture each, arg_shapes = each family's (kind, width); capture seconds sum {cap_s:.3f} <= warmup_s "
+          f"{eng.warmup_s:.3f}; over one burst the registry's hits equal the graphs' own replays "
+          f"({sum(replays.values())} in {len(replays)} families); slowest "
+          f"{[(p['program'], round(p['compile_s'], 3)) for p in slowest]}")
+    out["compiles"] = {"families": len(progs), "capture_s": cap_s, "warmup_s": eng.warmup_s,
+                       "by_family": {k: round(p["compile_s"], 4) for k, p in progs.items()}}
+    lap("compiles")
+
+    # HBM telemetry: one sweep against the allocator and the CUDA runtime, now
+    torch.cuda.synchronize()
+    telemetry.sample_once()
+    reserved, (free, total) = torch.cuda.memory_reserved(eng.device), torch.cuda.mem_get_info(eng.device)
+    # the gauges' own values (the exposition prints 6 significant digits)
+    hbm = {labels["kind"]: v for _n, labels, v in m._instruments["app_tpu_hbm_bytes"].collect()}
+    in_use, limit = hbm.get("in_use"), hbm.get("limit")
+    if in_use != reserved or limit != total:
+        raise AssertionError(f"observe hbm: gauges {hbm}, memory_reserved {reserved}, mem_get_info {free, total}")
+    util = next(v for _n, _l, v in m._instruments["app_tpu_hbm_utilization"].collect())
+    print(f"observe hbm on {dev['smi']}: app_tpu_hbm_bytes in_use {int(in_use)} = memory_reserved, limit "
+          f"{int(limit)} = mem_get_info total (free {free}); utilization {util:.4f}")
+    out["hbm"] = {"in_use": in_use, "limit": limit, "utilization": util}
+    telemetry.close()
+    lap("hbm")
+
+    # over HTTP: a traceparent's round trip, the trace and compiles routes,
+    # and a 2 s profile capture while a long burst is live
+    rt = app.container.tpu()
+    rt._llms["gemma"] = ModelHandle("gemma", eng)
+
+    def generate(ctx):
+        body = ctx.bind()
+        return {"tokens": ctx.tpu().llm("gemma").generate(
+            list(body["tokens"]), max_new_tokens=int(body.get("max_new_tokens", 16)), **llm_request_kwargs(ctx))}
+
+    app.post("/generate", generate)
+    thread = app.run_in_background()
+    port = app.http_server.port
+    try:
+        tid, sid = "4bf92f3577b34da6a3ce929d0e0e4736", "00f067aa0ba902b7"
+        status, raw, _, _, hdrs = _http(port, "POST", "/generate", {"tokens": prompts[0], "max_new_tokens": 8},
+                                        headers={"traceparent": f"00-{tid}-{sid}-01"})
+        spans = {s["span_id"]: s for s in tracer.ring.query(tid)}
+        req_span = next((s for s in spans.values() if s["name"] == "llm.request"), None)
+        http_span = spans.get(req_span["parent_id"]) if req_span else None
+        if status != 201 or hdrs.get("X-Correlation-ID") != tid or http_span is None or http_span["parent_id"] != sid:
+            raise AssertionError(f"observe traceparent: {status} {hdrs} {list(spans.values())}")
+        status, raw, _, _, _ = _http(port, "GET", f"/.well-known/debug/traces?trace_id={tid}")
+        tree = json.loads(raw)["data"] if status == 200 else {}
+        names = sorted(s["name"] for s in tree.get("spans", []))
+        if tree.get("span_count") != len(spans) or "llm.request" not in names or "POST /generate" not in names:
+            raise AssertionError(f"observe debug/traces: {status} {raw[:300]!r}")
+        status, raw, _, _, _ = _http(port, "GET", "/.well-known/debug/compiles")
+        listed = [p for p in json.loads(raw)["data"]["programs"] if p["model"] == eng.label] if status == 200 else []
+        if {p["program"] for p in listed} != set(eng.families):
+            raise AssertionError(f"observe debug/compiles: {status} {sorted(p['program'] for p in listed)}")
+        status, raw, _, _, _ = _http(port, "GET", "/.well-known/debug/engine?serving=1")
+        serving = json.loads(raw)["data"]["serving"] if status == 200 else None
+        if serving is None or "gemma" not in serving["models"]:
+            raise AssertionError(f"observe debug/engine?serving=1: {status} {raw[:300]!r}")
+        print(f"observe traceparent: POST /generate under {tid}/{sid}: llm.request's parent is the HTTP span "
+              f"'{http_span['name']}', whose parent is the caller's span; X-Correlation-ID returned; GET "
+              f"debug/traces?trace_id= {tree['span_count']} spans ({', '.join(names)}); GET debug/compiles lists "
+              f"the {len(listed)} families; debug/engine?serving=1 {serving['models']['gemma']}")
+        lap("http")
+
+        # the same long burst without, then with, a capture in its middle
+        base, _r, wb = _serve(eng, prompts, OBSERVE_PROFILE_NEW)
+        box: dict = {}
+        th = threading.Thread(target=lambda: box.update(run=_serve(eng, prompts, OBSERVE_PROFILE_NEW)))
+        th.start()
+        _wait_until(lambda: any(r is not None and r.emitted > 0 for r in list(eng._slot_req)), 120,
+                    "observe: the profiled burst's first tokens")
+        t0 = time.perf_counter()
+        status, raw, _, _, _ = _http(port, "POST", "/.well-known/debug/profile?seconds=2&download=0")
+        route_s = time.perf_counter() - t0
+        th.join(timeout=900)
+        got, _r, wp = box["run"]
+        res = json.loads(raw)["data"] if status == 201 else None
+        if res is None or res["mode"] != "torch" or "trace.json" not in res["files"]:
+            raise AssertionError(f"observe profile: {status} {raw[:400]!r}")
+        with open(os.path.join(res["dir"], "trace.json")) as f:
+            kernels = {ev.get("name", "") for ev in json.load(f).get("traceEvents", []) if ev.get("cat") == "kernel"}
+        with open(os.path.join(res["dir"], "stages.json")) as f:
+            stages = json.load(f)
+        flash = sorted(k for k in kernels if "flash_" in k and "_kernel" in k)
+        paged = sorted(k for k in kernels if "paged_decode_kernel" in k)
+        if not paged or not flash:
+            raise AssertionError(
+                f"observe profile: the trace names {len(kernels)} kernels, flash {flash}, paged {paged}")
+        differ = _divergence_at_near_ties(params, cfg, prompts, got, base, TOKEN_GAP, "observe profiled ")
+        same = sum(got[i] == base[i] for i in base)
+        print(f"observe profile: POST debug/profile?seconds=2 during a live {len(prompts)} x {OBSERVE_PROFILE_NEW} "
+              f"burst returned in {route_s:.2f} s (route budget {max(60.0, app.request_timeout):.0f} s; window {res['seconds']} s, stages {stages}); "
+              f"{len(kernels)} kernel names in trace.json, flash {flash[:2]}, paged {paged[:2]}; streams: {same} of "
+              f"{len(base)} identical to the uncaptured burst, {differ} leave it at a near-tie; burst "
+              f"{sum(map(len, got.values())) / wp:.1f} tok/s with the capture, {sum(map(len, base.values())) / wb:.1f} "
+              f"without")
+        out["profile"] = {"route_s": route_s, "window_s": res["seconds"], "stages": stages, "kernels": len(kernels),
+                          "same": same, "near_tie": differ}
+        lap("profile")
+    finally:
+        rt._llms.pop("gemma", None)  # the app's shutdown must not close the engine
+        app.shutdown()
+        thread.join(timeout=60)
+
+    # the cost of observing: the main burst at lookahead 3, alternately with
+    # the tracer, the SLO tracker and an HBM sampler (the runtime's default
+    # 10 s interval: a sweep as it starts) on, and with all three off; the
+    # app's own sampler stopped with its runtime above
+    sampler = getattr(rt.telemetry, "_thread", None)
+    if sampler is not None and sampler.is_alive():
+        raise AssertionError("observe cost: the app runtime's HBM sampler still runs")
+    rates: dict = {"on": [], "off": []}
+    for mode in ("on", "off") * 3:
+        sampler = None
+        if mode == "on":
+            eng.tracer, eng.slo = tracer, slo(60_000.0)
+            sampler = GPUTelemetry(m, [eng.device], interval_s=10.0)
+        else:
+            eng.tracer = eng.slo = None
+        try:
+            res_b, _r, w = _serve(eng, prompts, new_tokens)
+            _quiet(eng)
+        finally:
+            if sampler is not None:
+                sampler.close()
+        rates[mode].append(sum(map(len, res_b.values())) / w)
+    eng.tracer = eng.slo = None
+    on, off = statistics.median(rates["on"]), statistics.median(rates["off"])
+    print(f"observe cost on {dev['smi']}: main burst at lookahead 3 with tracer + SLO + HBM sampler on "
+          f"{[round(x, 1) for x in rates['on']]} tok/s (median {on:.1f}), off {[round(x, 1) for x in rates['off']]} "
+          f"(median {off:.1f}): {100 * (off - on) / off:+.2f}% of the off median")
+    out["cost"] = {"on": rates["on"], "off": rates["off"]}
+    lap("cost")
     return out
 
 

@@ -24,6 +24,13 @@ mirror the JAX package so each counterpart is easy to find:
   adapter validation (the engine holds the tables on the card);
 - ``llm`` — ``GenRequest``, ``LLMEngine`` (with its recovery paths) and
   ``ReplicatedLLMEngine`` (the replica fleet with failover);
+- observability: ``metrics`` (the ``Manager`` and its instruments;
+  ``metrics.slo``, the SLO engine), ``tracing`` (spans, W3C trace
+  context, exporters, the span ring), ``profiling`` (the graph-capture
+  registry; ``profiling.mfu``, the cost model and the peak table;
+  ``profiling.capture``, ``torch.profiler`` capture), ``goodput`` and
+  ``flightrec`` (chip-time accounting, the flight recorder) and
+  ``datasource.gpu.telemetry`` (the HBM sampler);
 - the serving edge: ``serve`` (``python -m gofr_tpu_torch.serve``:
   ``/generate``, ``/stats`` and the OpenAI routes of ``openai_compat``),
   ``app``, ``handler``, ``context``, ``container``, ``config``,

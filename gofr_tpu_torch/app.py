@@ -36,9 +36,16 @@ staged from a checkpoint; the POST loopback-only unless
 meter's (``GET /.well-known/debug/blackbox``: the incident bundles;
 ``GET /.well-known/debug/usage``: per-tenant chip time and tokens;
 ``POST /.well-known/debug/replay``: re-execute a flight record, under its
-own timeout, loopback-only unless ``GOFR_REPLAY_REMOTE=1``). Left out of
-the port: the metrics server, cron, pub/sub, auth, static files and
-swagger.
+own timeout, loopback-only unless ``GOFR_REPLAY_REMOTE=1``), and device
+observability's (``GET /.well-known/debug/engine``, with ``?serving=1``
+the router's summary; ``GET /.well-known/debug/compiles``: the capture
+registry; ``GET /.well-known/debug/traces``: the span ring;
+``POST /.well-known/debug/profile``: a ``torch.profiler`` capture under
+its own timeout). The App builds one tracer from the config
+(``tracing.new_tracer``: ``TRACE_EXPORTER``, ``TRACE_RING_SPANS``), opens
+a span per HTTP request and per RPC (parented by an incoming
+``traceparent``) and hands the tracer to every engine. Left out of the
+port: the metrics server, cron, pub/sub, auth, static files and swagger.
 """
 
 from __future__ import annotations
@@ -54,6 +61,10 @@ from .container import Container
 from .handler import (
     _require_loopback,
     debug_blackbox_handler,
+    debug_compiles_handler,
+    debug_engine_handler,
+    debug_profile_handler,
+    debug_traces_handler,
     debug_usage_handler,
     health_handler,
     live_handler,
@@ -62,9 +73,10 @@ from .handler import (
     rollout_status_handler,
     wrap_handler,
 )
-from .http.middleware import cors_middleware, logging_middleware
+from .http.middleware import cors_middleware, logging_middleware, tracer_middleware
 from .http.router import Router
 from .http.server import AsyncHTTPServer
+from .tracing import new_tracer
 
 
 class App:
@@ -72,9 +84,12 @@ class App:
         self.config: Config = config if config is not None else EnvConfig(configs_dir)
         self.container = Container.create(self.config)
         self.logger = self.container.logger
+        self.tracer = new_tracer(self.config, self.logger)
+        self.container.tracer = self.tracer
         self.http_port = self.config.get_int("HTTP_PORT", 8000)
         self.request_timeout = self.config.get_float("REQUEST_TIMEOUT", 5.0)
         self.router = Router()
+        self.router.use(tracer_middleware(self.tracer))  # outermost: the log line carries the trace id
         self.router.use(logging_middleware(self.logger))
         self.router.use(cors_middleware())
         self.http_server = AsyncHTTPServer(self.router.dispatch, self.http_port, logger=self.logger)
@@ -105,7 +120,7 @@ class App:
         from .grpcx import GRPCServer
 
         if self.grpc_server is None:
-            self.grpc_server = GRPCServer(self.container, self.grpc_port)
+            self.grpc_server = GRPCServer(self.container, self.grpc_port, self.tracer)
         return self.grpc_server
 
     def register_service(self, add_servicer_fn, servicer) -> None:
@@ -127,6 +142,14 @@ class App:
     def _register_well_known(self) -> None:
         self.get("/.well-known/health", health_handler)
         self.get("/.well-known/alive", live_handler)
+        # device observability (JAX app.py:286-295); a profile costs its
+        # window (<= 30 s) plus the trace's readback, so its route has its
+        # own budget instead of REQUEST_TIMEOUT
+        self.get("/.well-known/debug/engine", debug_engine_handler)
+        self.get("/.well-known/debug/compiles", debug_compiles_handler)
+        self.get("/.well-known/debug/traces", debug_traces_handler)
+        self._add("POST", "/.well-known/debug/profile", debug_profile_handler,
+                  timeout_s=max(60.0, self.request_timeout))
         self.post("/.well-known/debug/drain", self._drain_handler)
         # the model lifecycle: GET the versions and rollout view; POST
         # stages a rollout from a checkpoint path, under its own timeout
@@ -204,6 +227,7 @@ class App:
             if self.grpc_server is not None:
                 self.grpc_server.shutdown()
             self.container.close()
+            self.tracer.shutdown()
             self.logger.info("Server shutdown complete")
 
     def shutdown(self) -> None:

@@ -1,8 +1,9 @@
 """Container: the dependency hub handed to every handler (counterpart of
 gofr_tpu/container/__init__.py: config, logger, the metrics manager and
 the lazily built runtime behind ``tpu()``; no SQL, Redis, Mongo or
-pub/sub). The manager carries the series the engines' goodput ledger and
-flight recorder write; the metrics server is ROADMAP ID 16."""
+pub/sub). The manager carries the series the runtime and its engines
+write; ``tracer`` (set by the App) is handed to the runtime, which passes
+it to every engine; the metrics server is ROADMAP ID 16."""
 
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ class Container:
         self.app_name = "gofr-tpu-app"
         self.app_version = "dev"
         self.tpu_runtime = None
+        self.tracer = None  # the App's tracing.Tracer
         self.start_time = time.time()
         self._lock = threading.Lock()
 
@@ -44,7 +46,9 @@ class Container:
             if self.tpu_runtime is None:
                 from .datasource.gpu import GPURuntime
 
-                self.tpu_runtime = GPURuntime(self.config, self.logger, metrics=self.metrics_manager)
+                # engines registered before the App set its tracer serve untraced
+                self.tpu_runtime = GPURuntime(self.config, self.logger, metrics=self.metrics_manager,
+                                              tracer=self.tracer)
             return self.tpu_runtime
 
     def health(self) -> dict[str, Any]:

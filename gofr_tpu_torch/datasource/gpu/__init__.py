@@ -69,7 +69,11 @@ runtime), the shape knobs ``TPU_LLM_STEP_TOKEN_BUDGET`` (0 the wave),
 ``GOFR_BLACKBOX_INTERVAL_S``, ``TPU_LLM_ANOMALY``,
 ``TPU_LLM_WIDE_EVENT_SAMPLE``, ``TPU_LLM_GOODPUT``,
 ``TPU_LLM_USAGE_WINDOW_S`` and ``TPU_LLM_TENANT_QUOTA_TOK_S``
-("tenant=tok/s,...") (defaults for the kwargs a caller leaves out, with
+("tenant=tok/s,..."), and the SLO targets ``TPU_LLM_SLO_TTFT_MS``,
+``TPU_LLM_SLO_TPOT_MS`` and ``TPU_LLM_SLO_AVAILABILITY`` (an
+``SLOPolicy`` passed as ``slo=`` when any is set and the caller passes
+none; ``slo_tenants`` adds per-adapter overrides) (defaults for the
+kwargs a caller leaves out, with
 the JAX engine's meanings; the engine also reads each from the process
 env, as do the detectors ``TPU_LLM_ANOMALY_{FACTOR,MIN_SAMPLES,SUSTAIN}``).
 ``TPU_LLM_TP`` above 1 stays refused. As in the JAX runtime,
@@ -78,7 +82,15 @@ the engine's ``CacheManager``, which reads it (with ``TPU_LLM_KV_INT8``,
 ``TPU_LLM_SESSION_MB`` and ``TPU_LLM_HOST_CACHE_MB``) for a kwarg left
 None. Any other kwarg, and any of the JAX runtime's engine knobs set to
 ask for a feature the port lacks (meshes, ...), raises
-``NotImplementedError`` naming it; none is ignored.
+``NotImplementedError`` naming it; none is ignored. Every engine gets the
+runtime's ``tracer`` (the app's) unless the caller passes one.
+
+With a ``metrics`` manager the runtime registers the plain-model series
+(``app_tpu_stats``, ``app_tpu_batch_size``, ``app_tpu_queue_wait``) and
+the capture observatory's, and starts the HBM sampler
+(``telemetry.GPUTelemetry``, every ``TPU_TELEMETRY_INTERVAL_S`` seconds,
+default 10; 0 turns it off), which parks itself on a runtime without a
+CUDA device; ``close`` stops it.
 """
 
 from __future__ import annotations
@@ -98,7 +110,11 @@ import torch
 from ... import resolve_device
 from ...goodput import parse_quota_spec
 from ...llm import LLMEngine, ReplicatedLLMEngine
+from ...metrics import TPU_BUCKETS
+from ...metrics.slo import SLOPolicy
+from ...profiling import default_registry, register_compile_metrics
 from ...resilience.rollout import ModelHandle
+from .telemetry import GPUTelemetry
 from .. import STATUS_DOWN, STATUS_UP, health
 
 __all__ = ["Batcher", "GPURuntime"]
@@ -197,9 +213,11 @@ class Batcher:
         max_inflight: int = 8,
         stream=None,
         logger=None,
+        metrics=None,
     ):
         self.name = name
         self.run_batch = run_batch
+        self.metrics = metrics
         self.max_batch = max_batch
         self.max_delay = max_delay_ms / 1000.0
         self.stream = stream
@@ -268,6 +286,10 @@ class Batcher:
         n = len(batch)
         t0 = time.perf_counter()
         self.widths[n] += 1
+        if self.metrics is not None:
+            self.metrics.record_histogram("app_tpu_batch_size", float(n), model=self.name)
+            for p in batch:
+                self.metrics.record_histogram("app_tpu_queue_wait", t0 - p.enqueued, model=self.name)
         self._inflight.acquire()
         try:
             examples = [p.args for p in batch]
@@ -305,6 +327,8 @@ class Batcher:
                 self._resolve(p, error=e)
         finally:
             self._inflight.release()
+        if self.metrics is not None:
+            self.metrics.record_histogram("app_tpu_stats", time.perf_counter() - t0, model=self.name, op="batch")
         if self.logger is not None:
             self.logger.debug(f"GPU batch model={self.name} n={len(batch)} took "
                               f"{(time.perf_counter() - t0) * 1e3:.2f}ms")
@@ -341,6 +365,8 @@ _ENGINE_KWARGS = (
     # chip-time accounting and the flight recorder
     "metrics", "goodput", "quotas", "usage_meter", "usage_window_s", "flight_records", "flight_redact",
     "blackbox_dir", "blackbox_interval_s", "anomaly", "wide_event_sample",
+    # the SLO engine and tracing
+    "slo", "slo_tenants", "tracer",
 )
 
 # Overload-control, LoRA and shape knobs: config key -> (engine kwarg, parser of
@@ -393,10 +419,11 @@ _UNPORTED_KNOBS = {
 class GPURuntime:
     """``ctx.tpu()`` — built lazily by the Container."""
 
-    def __init__(self, config=None, logger=None, metrics=None):
+    def __init__(self, config=None, logger=None, metrics=None, tracer=None):
         self.config = config
         self.logger = logger
         self.metrics = metrics  # a metrics.Manager every engine built here writes
+        self.tracer = tracer  # a tracing.Tracer every engine built here traces into
         get = (lambda k: config.get_or_default(k, "")) if config is not None else (lambda k: "")
         self.default_device = get("TORCH_DEVICE") or None  # None: cuda
         self.default_llm_kv_paged = get("TPU_LLM_KV_PAGED")
@@ -416,6 +443,30 @@ class GPURuntime:
         self._models: dict[str, _Model] = {}
         self._llms: dict[str, ModelHandle] = {}
         self._lock = threading.Lock()
+        self.telemetry = None
+        if metrics is not None:
+            for name, desc, buckets in (
+                ("app_tpu_stats", "tpu execute time s", TPU_BUCKETS),
+                ("app_tpu_batch_size", "dynamic batch sizes", (1, 2, 4, 8, 16, 32, 64, 128, 256)),
+                ("app_tpu_queue_wait", "batch queue wait s", TPU_BUCKETS),
+            ):
+                if not metrics.has(name):
+                    metrics.new_histogram(name, desc, buckets)
+            register_compile_metrics(metrics)
+            # the HBM sampler over every visible card; a runtime without
+            # one samples nothing and the thread parks (JAX
+            # datasource/tpu/__init__.py:340-347)
+            n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+            devices = [torch.device("cuda", i) for i in range(n)] or [torch.device("cpu")]
+            self.telemetry = GPUTelemetry(
+                metrics, devices, interval_s=float(get("TPU_TELEMETRY_INTERVAL_S") or 10), logger=logger,
+            )
+
+    @property
+    def platform(self) -> str:
+        """"gpu" when engines here run on a card, else "cpu"."""
+        on_cpu = (self.default_device or "").startswith("cpu") or not torch.cuda.is_available()
+        return "cpu" if on_cpu else "gpu"
 
     @property
     def device(self) -> torch.device:
@@ -461,7 +512,7 @@ class GPURuntime:
 
         batcher = Batcher(
             name, run_batch, max_batch=max_batch, max_delay_ms=max_delay_ms,
-            max_inflight=self.default_max_inflight, stream=stream, logger=self.logger,
+            max_inflight=self.default_max_inflight, stream=stream, logger=self.logger, metrics=self.metrics,
         )
         meta = {
             "max_batch": max_batch,
@@ -496,7 +547,11 @@ class GPURuntime:
         dev = self.device
         with _on(m.stream), torch.inference_mode():
             args = _tree_map(lambda a: torch.as_tensor(np.asarray(a)).to(dev), batched_args)
-            return _Readback(m.fn(m.params, *args)).wait()
+            t0 = time.perf_counter()
+            out = _Readback(m.fn(m.params, *args)).wait()
+        if self.metrics is not None:
+            self.metrics.record_histogram("app_tpu_stats", time.perf_counter() - t0, model=name, op="execute")
+        return out
 
     async def infer_async(self, name: str, *example_args) -> Any:
         """One example through the model's batcher; awaitable."""
@@ -565,6 +620,14 @@ class GPURuntime:
         engine_kw.setdefault("kv_label", name)
         if self.metrics is not None:
             engine_kw.setdefault("metrics", self.metrics)
+        engine_kw.setdefault("tracer", self.tracer)
+        # the SLO targets (JAX datasource/tpu/__init__.py:642-650): an
+        # explicit slo= wins, else the config's knobs fleet-wide; no target
+        # anywhere, no SLO engine
+        if "slo" not in engine_kw and self.config is not None:
+            policy = SLOPolicy.from_config(self.config)
+            if policy.active():
+                engine_kw["slo"] = policy
         replicas = engine_kw.pop("replicas", None)
         disagg = engine_kw.pop("disagg", False)
         dkw = {k: engine_kw.pop(k) for k in _DISAGG_KWARGS if k in engine_kw}
@@ -583,7 +646,7 @@ class GPURuntime:
             # only the weights change
             build_kw = dict(engine_kw, logger=self.logger)
             build_kw.pop("version", None)
-        handle = ModelHandle(name, engine, build_kw=build_kw, logger=self.logger)
+        handle = ModelHandle(name, engine, build_kw=build_kw, logger=self.logger, metrics=engine_kw.get("metrics"))
         with self._lock:
             old = self._llms.get(name)
             self._llms[name] = handle
@@ -649,10 +712,13 @@ class GPURuntime:
         return False
 
     def close(self) -> None:
+        if self.telemetry is not None:
+            self.telemetry.close()
         with self._lock:
             models, self._models = list(self._models.values()), {}
             llms, self._llms = list(self._llms.values()), {}
         for m in models:
             m.batcher.close()
+            default_registry().remove_model(m.name)
         for eng in llms:
             eng.close()

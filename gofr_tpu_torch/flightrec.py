@@ -30,10 +30,8 @@ steady-state cost is one dict write at submit and one at each terminal.
 
 Differences from the JAX module: bundle names take a process-wide
 sequence number (JAX counts per dumper, so two engines of one label, a
-replica and its rebuild, wrote into the same directory); the port's
-requests carry no trace span (tracing is ROADMAP ID 10), so ``trace_id``
-and ``journey_id`` are empty and a request's ``phase`` is derived from its
-scheduler state (:func:`request_phase`).
+replica and its rebuild, wrote into the same directory); a request's
+``phase`` is derived from its scheduler state (:func:`request_phase`).
 """
 
 from __future__ import annotations
@@ -220,8 +218,8 @@ class FlightRecorder:
             "hop": req.hop,
             "deaths": req.deaths,
             "retries": req.retries,
-            "journey_id": "",
-            "trace_id": "",
+            "journey_id": req.journey_id or "",
+            "trace_id": req.span.trace_id if req.span is not None else "",
             "finish_reason": None,
             "final": False,
             "redacted": self.redact,
@@ -428,8 +426,8 @@ class BlackboxDumper:
 
     One bundle is a directory ``<label>-<trigger>-<seq>/`` of small
     JSON files (manifest, debug_state, wide events, HBM samples, config
-    fingerprint, anomaly state, flight records; the trace ring and the
-    compile registry come with ROADMAP ID 10) — the
+    fingerprint, anomaly state, flight records, the trace ring and the
+    capture registry) — the
     exact evidence an engineer needs when the process that held it is
     gone. Dumps are rate-limited PER TRIGGER CLASS
     (``GOFR_BLACKBOX_INTERVAL_S``, default 60 s): a crash loop or a

@@ -104,11 +104,13 @@ def _abort_mapped(ctx, e: BaseException) -> bool:
 
 
 class _Interceptor(grpc.ServerInterceptor):
-    """Recovery + logging in one chain link: every behavior runs under
-    panic recovery (INTERNAL) and logs one RPC line."""
+    """Recovery + logging + tracing in one chain link: every behavior runs
+    under panic recovery (INTERNAL), inside a per-RPC span parented by the
+    caller's ``traceparent`` metadata, and logs one RPC line."""
 
-    def __init__(self, container):
+    def __init__(self, container, tracer=None):
         self.container = container
+        self.tracer = tracer
 
     def intercept_service(self, continuation, handler_call_details):
         handler = continuation(handler_call_details)
@@ -142,6 +144,16 @@ class _Interceptor(grpc.ServerInterceptor):
             )
         return handler  # client-streaming passthrough
 
+    def _span(self, method: str, grpc_ctx=None):
+        """The RPC's span (JAX grpcx.py:148-157): W3C trace context rides
+        the metadata, so engine spans join the caller's trace."""
+        if self.tracer is None:
+            return None
+        traceparent = None
+        if grpc_ctx is not None:
+            traceparent = dict(grpc_ctx.invocation_metadata() or []).get("traceparent")
+        return self.tracer.start_span(f"grpc{method}", traceparent=traceparent)
+
     def _log(self, method: str, t0: float, code: str, rpc_id: str) -> None:
         logger = getattr(self.container, "logger", None)
         if logger is not None:
@@ -167,6 +179,7 @@ class _Interceptor(grpc.ServerInterceptor):
     def _observed(self, behavior, request, ctx, method: str):
         t0 = time.perf_counter()
         rpc_id = uuid.uuid4().hex[:16]
+        span = self._span(method, ctx)
         try:
             out = behavior(request, ctx)
             self._log(method, t0, "OK", rpc_id)
@@ -176,10 +189,14 @@ class _Interceptor(grpc.ServerInterceptor):
             raise
         except Exception as e:  # noqa: BLE001 — recovery interceptor
             self._recover(ctx, e, method, t0, rpc_id)
+        finally:
+            if span is not None:
+                span.end()
 
     def _observed_stream(self, behavior, request, ctx, method: str):
         t0 = time.perf_counter()
         rpc_id = uuid.uuid4().hex[:16]
+        span = self._span(method, ctx)
         try:
             yield from behavior(request, ctx)
             self._log(method, t0, "OK", rpc_id)
@@ -188,6 +205,9 @@ class _Interceptor(grpc.ServerInterceptor):
             raise
         except Exception as e:  # noqa: BLE001
             self._recover(ctx, e, method, t0, rpc_id)
+        finally:
+            if span is not None:
+                span.end()
 
 
 def _run_handler(handler: Callable, ctx: Context) -> Any:
@@ -223,12 +243,12 @@ def _iter_stream_handler(handler: Callable, ctx: Context) -> Iterator[Any]:
 
 
 class GRPCServer:
-    def __init__(self, container, port: int, *, max_workers: int = 16):
+    def __init__(self, container, port: int, tracer=None, *, max_workers: int = 16):
         self.container = container
         self.port = port
         self._server = grpc.server(
             futures.ThreadPoolExecutor(max_workers=max_workers),
-            interceptors=[_Interceptor(container)],
+            interceptors=[_Interceptor(container, tracer)],
         )
         self._generic_methods: dict[str, dict[str, Any]] = {}
         self._started = False

@@ -1,13 +1,14 @@
 """Handler adaptation: ``handler(ctx) -> result`` to a wire handler
 (counterpart of gofr_tpu/handler.py: ``wrap_handler``,
 ``llm_request_kwargs``, the health and liveness handlers, the loopback
-guard of the drain route, the rollout routes, and the flight recorder's
-and the usage meter's routes: blackbox listing, usage, replay; no engine
-debug or profile routes)."""
+guard of the drain route, the rollout routes, the engine, capture
+registry, trace ring and profile routes, and the flight recorder's and
+the usage meter's routes: blackbox listing, usage, replay)."""
 
 from __future__ import annotations
 
 import asyncio
+import contextvars
 import hashlib
 import inspect
 import time
@@ -26,9 +27,10 @@ async def _call_handler(fn: Callable, ctx: Context) -> Any:
     if inspect.iscoroutinefunction(fn):
         return await fn(ctx)
     # a sync handler blocks (an engine wait): run it in the executor, never
-    # on the event loop
+    # on the event loop, in a copy of this task's context (the active span)
     loop = asyncio.get_running_loop()
-    return await loop.run_in_executor(None, fn, ctx)
+    cvars = contextvars.copy_context()
+    return await loop.run_in_executor(None, lambda: cvars.run(fn, ctx))
 
 
 def wrap_handler(fn: Callable, container: Container, timeout_s: float | None) -> WireHandler:
@@ -125,6 +127,157 @@ def _require_loopback(ctx: Context, opt_in_key: str) -> None:
 
 def live_handler(_ctx: Context) -> Any:
     return {"status": "UP"}
+
+
+# -- device observability (JAX handler.py:232-401) ------------------------------
+
+
+def debug_engine_handler(ctx: Context) -> Any:
+    """GET /.well-known/debug/engine: every registered engine's
+    ``debug_state`` (slot table, in-flight programs, recent phase
+    percentiles, SLO, MFU, capture rows, KV residency) and the
+    ``serving`` summary; ``?serving=1`` answers the summary alone (the
+    front router's poll). Read-only and bounded; never builds the
+    runtime."""
+    rt = ctx.container.tpu_runtime
+    llms = getattr(rt, "_llms", {}) if rt is not None else {}
+    serving = _serving_summary(ctx.container, llms)
+    if ctx.param("serving") == "1":
+        return {"serving": serving}
+    if rt is None:
+        return {"engines": {}, "note": "tpu runtime not initialized", "serving": serving}
+    return {
+        "platform": getattr(rt, "platform", None),
+        "engines": {name: eng.debug_state() for name, eng in list(llms.items())},
+        "serving": serving,
+    }
+
+
+def _serving_summary(container, llms) -> dict:
+    """The process's compact serving signals (JAX ``_serving_summary``):
+    queued tokens, measured throughput and predicted wait per model, the
+    drain flag, and the degraded-backend signals (the last incident
+    bundle's time, the anomaly-flagged signals)."""
+    total_load = 0
+    total_tput = 0.0
+    models: dict[str, dict] = {}
+    for name, handle in list(llms.items()):
+        eng = getattr(handle, "engine", handle)
+        try:
+            load = int(eng.load_tokens())
+            tput = eng.throughput_tok_s() or 0.0
+            wait = eng.predicted_wait_s()
+        except Exception:  # noqa: BLE001 — a dying engine must not 500 this
+            continue
+        total_load += load
+        total_tput += tput
+        models[name] = {"load_tokens": load, "throughput_tok_s": tput or None, "predicted_wait_s": wait}
+    last_incident_ts = None
+    flagged: set[str] = set()
+    for handle in list(llms.values()):
+        eng = getattr(handle, "engine", handle)
+        for rep in _replicas(eng):
+            bb = getattr(rep, "blackbox", None)
+            if bb is not None and bb.last_ts is not None:
+                last_incident_ts = max(last_incident_ts or 0.0, bb.last_ts)
+            an = getattr(rep, "anomaly", None)
+            if an is not None:
+                flagged.update(an.flagged())
+    return {
+        "draining": bool(getattr(container, "draining", False)),
+        "load_tokens": total_load,
+        "throughput_tok_s": total_tput or None,
+        "predicted_wait_s": total_load / total_tput if total_tput > 1e-9 else None,
+        "last_incident_ts": last_incident_ts,
+        "anomaly": sorted(flagged),
+        "models": models,
+    }
+
+
+def _replicas(eng) -> list:
+    """An engine's serving engines: a fleet's replicas, a disaggregated
+    engine's two pools' replicas, else the engine itself."""
+    if hasattr(eng, "prefill") and hasattr(eng, "decode"):
+        return list(eng.prefill.engines) + list(eng.decode.engines)
+    return list(getattr(eng, "engines", None) or [eng])
+
+
+def debug_compiles_handler(_ctx: Context) -> Any:
+    """GET /.well-known/debug/compiles: the process's capture registry
+    (every captured graph family per engine with its capture seconds and
+    replays, and the engines' warmup records)."""
+    from .profiling import default_registry
+
+    return default_registry().snapshot()
+
+
+def debug_traces_handler(ctx: Context) -> Any:
+    """GET /.well-known/debug/traces: this process's span ring.
+    ``?trace_id=<32 hex>`` returns that trace's spans as stored; without
+    it, the recent trace summaries (``?limit=``, 64) and the ring's
+    occupancy. Read-only and bounded."""
+    tracer = getattr(ctx.container, "tracer", None)
+    ring = getattr(tracer, "ring", None)
+    if ring is None:
+        return {"traces": [], "stats": None, "note": "trace ring disabled (TRACE_RING_SPANS=0)"}
+    tid = (ctx.param("trace_id") or "").strip().lower()
+    if tid:
+        spans = ring.query(tid)
+        return {"trace_id": tid, "span_count": len(spans), "spans": spans}
+    try:
+        limit = int(ctx.param("limit") or 64)
+    except ValueError:
+        limit = 64
+    return {"traces": ring.trace_ids(limit=limit), "stats": ring.stats()}
+
+
+def debug_profile_handler(ctx: Context) -> Any:
+    """POST /.well-known/debug/profile: an on-demand ``torch.profiler``
+    capture. Query params: ``seconds`` (default 2, clamped 0.1..30),
+    ``steps`` (end early once the live engines dispatched that many more
+    decode steps), ``download=0`` (the JSON metadata instead of the zip
+    archive). One capture at a time (409 otherwise). The capture is
+    bounded by the route's own budget less a margin (504 past it), so the
+    route answers even when the profiler does not."""
+    import math
+
+    from .http.errors import ErrorInvalidParam
+    from .http.responder import FileResponse
+    from .profiling.capture import profiler_capture
+
+    try:
+        seconds = float(ctx.param("seconds") or 2.0)
+        if not math.isfinite(seconds):
+            raise ValueError
+    except ValueError:
+        raise ErrorInvalidParam("seconds") from None
+    try:
+        steps = int(ctx.param("steps") or 0)
+    except ValueError:
+        raise ErrorInvalidParam("steps") from None
+    sample_fn = until = None
+    rt = ctx.container.tpu_runtime  # never build one: profile what runs
+    llms = dict(getattr(rt, "_llms", {})) if rt is not None else {}
+    if llms:
+        def sample():  # the host-side view that makes the trace readable
+            return {"t": time.time(), "engines": {n: e.stats() for n, e in llms.items()}}
+
+        sample_fn = sample
+        if steps > 0:
+            replicas = [rep for e in llms.values() for rep in _replicas(getattr(e, "engine", e))]
+
+            def total_steps() -> int:
+                return sum(rep._stat_chunk_steps for rep in replicas)
+
+            start = total_steps()
+            until = lambda: total_steps() - start >= steps  # noqa: E731
+    # the route always has a deadline (app.py registers it with its own
+    # timeout); a second of margin leaves room to answer 504
+    budget = max(1.0, ctx.deadline - time.perf_counter() - 1.0)
+    res = profiler_capture().capture(seconds, budget_s=budget, sample_fn=sample_fn, until=until)
+    if ctx.param("download") == "0":
+        return {k: v for k, v in res.items() if k != "archive"}
+    return FileResponse(res["archive"], "application/zip")
 
 
 def rollout_status_handler(ctx: Context) -> Any:

@@ -15,7 +15,7 @@ _UNPARSED = object()  # json() cache sentinel (a body may be JSON null)
 class Request:
     """Incoming HTTP request handed to handlers through the Context."""
 
-    __slots__ = ("method", "target", "path", "query", "headers", "body", "remote_addr", "_json_cache")
+    __slots__ = ("method", "target", "path", "query", "headers", "body", "remote_addr", "context", "_json_cache")
 
     def __init__(
         self,
@@ -33,6 +33,7 @@ class Request:
         self.headers = headers  # keys lower-cased by the server
         self.body = body
         self.remote_addr = remote_addr
+        self.context: dict[str, Any] = {}  # middleware-populated (the request's span)
         self._json_cache: Any = _UNPARSED
 
     def param(self, key: str) -> str:

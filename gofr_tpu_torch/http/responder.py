@@ -1,8 +1,9 @@
 """Response serialization (counterpart of gofr_tpu/http/responder.py,
-without file and redirect responses): the success envelope
+without redirect responses): the success envelope
 ``{"data": ...}`` (POST answers 201, DELETE 204), the error envelope
-``{"error": {"message": ...}}`` with the status from the error, and
-chunked streaming bodies."""
+``{"error": {"message": ...}}`` with the status from the error, chunked
+streaming bodies and raw file bodies (``FileResponse``: a profile
+archive)."""
 
 from __future__ import annotations
 
@@ -42,6 +43,16 @@ class StreamingResponse:
         self.content_type = content_type
 
 
+class FileResponse:
+    """Bytes with a content type, sent as they are (200)."""
+
+    __slots__ = ("content", "content_type")
+
+    def __init__(self, content: bytes, content_type: str = "application/octet-stream"):
+        self.content = content
+        self.content_type = content_type
+
+
 def _default_json(o: Any) -> Any:
     if dataclasses.is_dataclass(o) and not isinstance(o, type):
         return dataclasses.asdict(o)
@@ -78,6 +89,8 @@ def respond(result: Any, err: BaseException | None, method: str = "GET") -> Resp
         return Response(status, headers, to_json_bytes({"error": {"message": msg}}))
     if isinstance(result, Response):
         return result
+    if isinstance(result, FileResponse):
+        return Response(200, [("Content-Type", result.content_type)], result.content)
     if isinstance(result, StreamingResponse):
         return Response(200, [("Content-Type", result.content_type)], b"", stream=result.chunks)
     status = _METHOD_SUCCESS.get(method, 200)

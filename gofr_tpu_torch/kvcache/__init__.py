@@ -87,6 +87,15 @@ __all__ = [
 
 _MB = 1024 * 1024
 
+# Serializes app_kvcache_* registration across engines (a fleet builds its
+# replicas on parallel threads).
+_METRICS_REG_LOCK = threading.Lock()
+
+
+def _count_event(metrics, model: str, event: str, name: str = "app_kvcache_events") -> None:
+    if metrics is not None:
+        metrics.increment_counter(name, 1.0, model=model, event=event)
+
 
 def ring_pack(cache, capacity: int):
     """A position-indexed prefill cache [L, b, s, hkv, hd] re-laid as a
@@ -148,8 +157,10 @@ class PrefixCache:
     Thread-safe: the scheduler mutates while stats() readers come from
     anywhere."""
 
-    def __init__(self, capacity_bytes: int):
+    def __init__(self, capacity_bytes: int, metrics=None, model: str = "llm"):
         self.capacity_bytes = int(capacity_bytes)
+        self.metrics = metrics
+        self.model = model
         self._entries: OrderedDict[bytes, _Entry] = OrderedDict()
         self._lengths: Counter[int] = Counter()  # distinct stored lengths, refcounted
         self._lock = threading.Lock()
@@ -171,11 +182,12 @@ class PrefixCache:
             e = self._entries.get(key)
             if e is None:
                 self.misses += 1
-                return None
-            self._entries.move_to_end(key)
-            e.refs += 1
-            self.hits += 1
-            return e
+            else:
+                self._entries.move_to_end(key)
+                e.refs += 1
+                self.hits += 1
+        _count_event(self.metrics, self.model, "miss" if e is None else "hit")
+        return e
 
     def lookup_longest(self, tokens, *, allow_partial: bool = True) -> tuple[_Entry | None, bool]:
         """(entry, exact) for the longest stored prompt that prefixes
@@ -200,8 +212,11 @@ class PrefixCache:
                 self._entries.move_to_end(e.key)
                 e.refs += 1
                 self.partial_hits += 1
-                return e, False
-        return None, False
+                break
+            else:
+                return None, False
+        _count_event(self.metrics, self.model, "partial_hit")
+        return e, False
 
     def release(self, entry: _Entry) -> None:
         with self._lock:
@@ -211,6 +226,7 @@ class PrefixCache:
         """Retain a private copy of a prompt's rows and logits; False when
         skipped (duplicate key, or larger than the whole budget)."""
         nbytes = _nbytes(k) + _nbytes(v) + _nbytes(logits)
+        evicted = 0
         with self._lock:
             if key in self._entries or nbytes > self.capacity_bytes:
                 return False
@@ -228,13 +244,25 @@ class PrefixCache:
                 if not self._lengths[ve.length]:
                     del self._lengths[ve.length]
                 self.evictions += 1
+                evicted += 1
+        _count_event(self.metrics, self.model, "store")
+        for _ in range(evicted):
+            _count_event(self.metrics, self.model, "eviction")
+        self._gauge()
         return True
+
+    def _gauge(self) -> None:
+        if self.metrics is not None:
+            self.metrics.set_gauge(
+                "app_kvcache_resident_bytes", float(self.resident_bytes), model=self.model, kind="prefix",
+            )
 
     def clear(self) -> None:
         with self._lock:
             self._entries.clear()
             self._lengths.clear()
             self.resident_bytes = 0
+        self._gauge()
 
     def pinned(self) -> int:
         """Entries some admission still pins (0 once the engine is idle)."""
@@ -311,9 +339,13 @@ class CacheManager:
         prefix_cache_mb: float = 0.0,
         session_mb: float | None = None,
         host_cache_mb: float | None = None,
+        metrics=None,
+        model: str = "llm",
     ):
         self.cfg = cfg
         self.slots = slots
+        self.metrics = metrics
+        self.model = model
         self.max_seq_len = max_seq_len
         w = cfg.sliding_window if window is None else window
         if w and w != cfg.sliding_window:
@@ -351,7 +383,8 @@ class CacheManager:
             self.block = self.table_width = 0
             self.int8 = self.share = False
             self.pool = self.radix = self.sessions = None
-            self.prefix = PrefixCache(int(prefix_cache_mb * _MB)) if prefix_cache_mb > 0 else None
+            self.prefix = PrefixCache(int(prefix_cache_mb * _MB), metrics, model) if prefix_cache_mb > 0 else None
+            self._register_metrics()
             return
         self.prefix = None  # the radix tree is the paged layout's prefix index
         self.rolling = False
@@ -382,6 +415,74 @@ class CacheManager:
         self.sessions = (
             SessionStore(session_bytes, HostOffload(int(host_cache_mb * _MB))) if session_bytes > 0 else None
         )
+        self._register_metrics()
+
+    def _register_metrics(self) -> None:
+        """The ``app_kvcache_*`` series (JAX kvcache/__init__.py:492-535):
+        events and resident bytes on every layout, the pool's block,
+        spill and session series on the paged one."""
+        metrics = self.metrics
+        if metrics is None:
+            return
+        with _METRICS_REG_LOCK:
+            if not metrics.has("app_kvcache_events"):
+                metrics.new_counter("app_kvcache_events", "kv-cache events (event=hit|miss|store|eviction)")
+            if not metrics.has("app_kvcache_resident_bytes"):
+                metrics.new_gauge("app_kvcache_resident_bytes", "resident kv bytes (kind=slots|prefix)")
+            if self.paged:
+                for name, desc in (
+                    ("app_kvcache_blocks_in_use", "KV pool blocks with refcount > 0"),
+                    ("app_kvcache_blocks_shared", "KV pool blocks with refcount > 1 (prefix sharing)"),
+                    ("app_kvcache_spilled_bytes", "session KV bytes spilled to the host tier"),
+                    ("app_kvcache_session_count", "sessions tracked (state=resident|spilled)"),
+                ):
+                    if not metrics.has(name):
+                        metrics.new_gauge(name, desc)
+                if not metrics.has("app_kvcache_session_events"):
+                    metrics.new_counter(
+                        "app_kvcache_session_events",
+                        "session lifecycle events (event=publish|resume|spill|restore|expire)",
+                    )
+        self._update_gauges()
+        if not self.paged:
+            metrics.set_gauge("app_kvcache_resident_bytes", float(self.slot_bytes), model=self.model, kind="slots")
+
+    def _count(self, event: str) -> None:
+        _count_event(self.metrics, self.model, event)
+
+    def _count_session(self, event: str) -> None:
+        _count_event(self.metrics, self.model, event, "app_kvcache_session_events")
+
+    def _update_gauges(self) -> None:
+        """The pool's gauges (JAX ``_update_gauges``): host reads, under the
+        manager's lock at its callers."""
+        m = self.metrics
+        if m is None or not self.paged:
+            return
+        m.set_gauge("app_kvcache_resident_bytes", float(self.pool.bytes_in_use()), model=self.model, kind="slots")
+        if self.radix is not None:
+            m.set_gauge("app_kvcache_resident_bytes", float(self.radix.owned_bytes), model=self.model, kind="prefix")
+        m.set_gauge("app_kvcache_blocks_in_use", float(self.pool.blocks_in_use()), model=self.model)
+        m.set_gauge("app_kvcache_blocks_shared", float(self.pool.blocks_shared()), model=self.model)
+        if self.sessions is not None:
+            st = self.sessions.stats()
+            m.set_gauge("app_kvcache_spilled_bytes", float(st["offload"]["spilled_bytes"]), model=self.model)
+            m.set_gauge("app_kvcache_session_count", float(st["resident"]), model=self.model, state="resident")
+            m.set_gauge("app_kvcache_session_count", float(st["spilled"]), model=self.model, state="spilled")
+
+    def close(self) -> None:
+        """Zero the series of a closed engine's cache: a stale gauge would
+        keep reporting its KV bytes as resident (JAX ``close``)."""
+        m = self.metrics
+        if m is None:
+            return
+        for kind in ("slots", "prefix"):
+            m.set_gauge("app_kvcache_resident_bytes", 0.0, model=self.model, kind=kind)
+        if self.paged:
+            for name in ("app_kvcache_blocks_in_use", "app_kvcache_blocks_shared", "app_kvcache_spilled_bytes"):
+                m.set_gauge(name, 0.0, model=self.model)
+            for state in ("resident", "spilled"):
+                m.set_gauge("app_kvcache_session_count", 0.0, model=self.model, state=state)
 
     def init_cache(self, rows: int, device):
         """A zeroed contiguous cache of ``rows`` slots at the planned
@@ -440,15 +541,18 @@ class CacheManager:
         ``allow_partial=False`` returns exact plans only (the wave has no
         mid-prompt append). ``count=False`` leaves the radix's hit
         counters alone (a KV-handoff export probe is not admission
-        traffic). The plan's blocks (and tail source) are pinned:
+        traffic; the radix's own stats count every lookup, as JAX's do).
+        The plan's blocks (and tail source) are pinned:
         ``attach_seed`` adopts the pins, every other path calls
         ``release_plan``."""
         if self.radix is None:
             return None
         with self._lock:
-            m = self.radix.lookup(prompt_tokens, count=count)
+            m = self.radix.lookup(prompt_tokens)
             n = len(prompt_tokens)
             if m.end is not None and m.end.logits is not None:
+                if count:
+                    self._count("hit")
                 plan = SeedPlan(
                     blocks=m.blocks, shared=m.shared, exact=True,
                     tail_src=m.end.tail_block if m.end.tail_block is not None else -1,
@@ -457,7 +561,11 @@ class CacheManager:
             else:
                 shared = min(m.shared, ((n - 1) // self.block) * self.block)
                 if shared <= 0 or not allow_partial:
+                    if count:
+                        self._count("miss")
                     return None
+                if count:
+                    self._count("partial_hit")
                 plan = SeedPlan(
                     blocks=m.blocks[: shared // self.block], shared=shared,
                     exact=False, tail_src=-1, tail_len=0, logits=None,
@@ -530,6 +638,7 @@ class CacheManager:
                     # stream before any later owner's write to the source
                     self.pool.decref([plan.tail_src])
             self.tables_dirty = True
+            self._update_gauges()
             return {"copies": copies, "seed_len": seed_len}
 
     def attach(self, slot: int, owner, prompt_len: int, max_new: int) -> None:
@@ -561,6 +670,7 @@ class CacheManager:
             st.rows[st.hi : need] = np.asarray(fresh, np.int32)
             st.hi = need
             self.tables_dirty = True
+            self._update_gauges()
             return True
 
     def _release_slot_locked(self, slot: int) -> None:
@@ -581,6 +691,7 @@ class CacheManager:
                 return
             self._release_slot_locked(slot)
             self.tables_dirty = True
+            self._update_gauges()
 
     def slot_owner(self, slot: int):
         return self._slot_tables[slot].owner
@@ -636,9 +747,12 @@ class CacheManager:
                 tail_block=plan["tail_dst"] if plan["tail_dst"] >= 0 else None,
                 tail_len=plan["tail_len"], logits=logits, logits_nbytes=logits_nbytes, pin=session,
             )
+            self._count("store")
             if session:
                 nblocks = len(plan["blocks"]) + (1 if plan["tail_dst"] >= 0 else 0)
                 self.sessions.publish(session_id, tokens, node, key, nblocks * self.block_bytes, self.radix)
+                self._count_session("publish")
+            self._update_gauges()
 
     # -- session spill / restore ------------------------------------------
     def session_path(self, sid: str) -> dict | None:
@@ -671,10 +785,13 @@ class CacheManager:
             self.sessions.mark_spilled(sid, self.radix)
             for dropped in self.sessions.offload.store(sid, payload, nbytes):
                 self.sessions.forget(dropped, self.radix)
+                self._count_session("expire")
             while node is not None and node.parent is not None and not node.children and node.refs == 0:
                 parent = node.parent
                 self.radix._evict_node(node)
                 node = parent
+            self._count_session("spill")
+            self._update_gauges()
 
     def restore_fetch(self, sid: str) -> dict | None:
         """Pop a spilled session's host payload; a spilled session whose
@@ -688,6 +805,7 @@ class CacheManager:
             payload = self.sessions.offload.fetch(sid)
             if payload is None:
                 self.sessions.forget(sid, self.radix)
+                self._count_session("expire")
             return payload
 
     def session_forget(self, sid: str) -> None:
@@ -697,6 +815,8 @@ class CacheManager:
             return
         with self._lock:
             self.sessions.forget(sid, self.radix)
+            self._count_session("expire")
+            self._update_gauges()
 
     def alloc_restore(self, n: int) -> list[int] | None:
         with self._lock:
@@ -712,6 +832,7 @@ class CacheManager:
         if blocks:
             with self._lock:
                 self.pool.decref(blocks)
+                self._update_gauges()
 
     def handoff_commit(self, tokens, blocks: list[int], tail_block: int, tail_len: int, *, logits=None,
                        logits_nbytes: int = 0) -> None:
@@ -728,6 +849,8 @@ class CacheManager:
                 logits=logits, logits_nbytes=logits_nbytes,
             )
             self.pool.decref(blocks)
+            self._count("store")
+            self._update_gauges()
 
     def restore_commit(self, sid: str, tokens, blocks: list[int], tail_block: int, tail_len: int) -> None:
         """Re-insert a restored session into the radix and pin it again.
@@ -742,6 +865,8 @@ class CacheManager:
             self.pool.decref(blocks)
             nbytes = (len(blocks) + (1 if tail_block >= 0 else 0)) * self.block_bytes
             self.sessions.publish(sid, tokens, node, key, nbytes, self.radix)
+            self._count_session("restore")
+            self._update_gauges()
 
     def spill_candidates(self, exclude=None):
         if self.sessions is None:
@@ -761,6 +886,7 @@ class CacheManager:
             s.last_use = time.monotonic()
             if s.state == "resident":
                 self.sessions.resumes += 1
+                self._count_session("resume")
             return s.state
 
     # -- observability -----------------------------------------------------

@@ -233,12 +233,11 @@ class RadixTree:
             g += 1
         return g
 
-    def lookup(self, tokens, *, max_shared: int | None = None, count: bool = True) -> RadixMatch:
+    def lookup(self, tokens, *, max_shared: int | None = None) -> RadixMatch:
         """Longest block-aligned shared prefix of ``tokens``; ``end`` is the
         end record when the FULL sequence (sub-block tail included) was
         published. ``max_shared`` caps the shared prefix. Touches the
-        matched path (LRU) and, with ``count``, counts a hit, partial hit
-        or miss (a KV-handoff export probe is not admission traffic)."""
+        matched path (LRU) and counts a hit, partial hit or miss."""
         B = self.block
         n = len(tokens)
         limit = n if max_shared is None else min(n, max_shared)
@@ -267,10 +266,9 @@ class RadixTree:
             end = node.ends.get(tuple(tokens[full:]))
             if end is not None:
                 end.last_use = now
-        if count:
-            self.hits += end is not None
-            self.partial_hits += end is None and bool(blocks)
-            self.misses += end is None and not blocks
+        self.hits += end is not None
+        self.partial_hits += end is None and bool(blocks)
+        self.misses += end is None and not blocks
         return RadixMatch(blocks=[int(b) for b in blocks], shared=len(blocks) * B, end=end, node=node)
 
     def insert(self, tokens, blocks: list[int], *, tail_block: int | None = None, tail_len: int = 0,

@@ -206,9 +206,28 @@ finalizes it in ``_finish`` with its timings and chip time; ``replay``
 re-executes a record. ``_incident`` dumps a bundle (``BlackboxDumper``,
 armed by ``GOFR_BLACKBOX_DIR``): ``_die``'s first step, a flagged
 ``AnomalyDetector`` signal, a fleet's quarantine and a rollback. The
-bundle has no ``traces`` and no ``compiles`` section: the port has no
-tracer and no compile registry until ROADMAP ID 10, which also holds the
-engine's other ``app_llm_*`` series.
+bundle carries the tracer's recent spans (``traces``) and this engine's
+rows of the capture registry (``compiles``).
+
+Observability (JAX llm.py:143-296, :900-972, :5386-5475): with a
+``metrics`` manager the engine writes the JAX engine's ``app_llm_*``
+series (``_register_phase_metrics``: the phase histograms, the slot and
+queue gauges, the spec, constrained, adapter and MoE series, MFU,
+roofline and tokens per second per chip, the resilience counters);
+``_phases`` keeps exact recent windows of the phase latencies for
+``stats()`` and ``debug_state()``. ``slo`` / ``slo_tenants`` (or the
+``TPU_LLM_SLO_*`` env knobs) arm a ``metrics.slo.SLOTracker`` judging
+every finished request; its fast-burn flip writes a ``slo_fast_burn``
+bundle. MFU divides analytic FLOPs (``profiling.mfu``) by the wall from a
+program's dispatch to its fetch and the card's peak; nothing on the
+scheduler or collector path synchronizes the card for it. A ``tracer``
+(``tracing.Tracer``) gets one detached ``llm.request`` span per request,
+parented by the request's ``traceparent`` or the submitting thread's
+active span, with ``llm.queue_wait``, ``llm.prefill``, ``llm.decode``
+and ``llm.emit`` children and an ``llm.continuation`` span per hop
+(preemption, failover); ``journey_id`` is the first trace's id. Every
+captured graph family is a row of ``profiling.default_registry()``
+(its capture seconds), every replay a hit.
 
 The shape knobs (JAX llm.py:637-644, :675-676) are the JAX engine's:
 ``decode_chunk`` (K: the fused steps of a chunk, the step's decode part,
@@ -250,6 +269,8 @@ from .goodput import (
 )
 from .kvcache import CacheManager, copy_blocks, gather_blocks_host, gather_slots, paged_default, scatter_rows
 from .lora import AdapterPool, target_dims, validate_adapter, zero_tables
+from .metrics import TPU_BUCKETS, RollingWindow, summarize_window
+from .metrics.slo import SLOPolicy, SLOTracker, pool_snapshots
 from .models.quant import QTensor, is_quantized, quantize_params
 from .models.transformer import (
     KVCache,
@@ -261,6 +282,8 @@ from .models.transformer import (
     verify_chunk,
 )
 from .ops.attention import add_launches, capture_launches
+from .profiling import default_registry, register_compile_metrics
+from .profiling import mfu as mfu_mod
 from .resilience import (
     DeviceHealthLedger,
     FairLedger,
@@ -274,11 +297,13 @@ from .resilience import (
     canary_check,
     default_injector,
     device_key,
+    register_resilience_metrics,
     spec_device_key,
 )
 from .resilience.faults import sleep_for
 from .resilience.health import CANARY_MAX_NEW, CANARY_PROMPT
 from .spec import SPEC_DRAFT_DEFAULT, SPEC_EMA_ALPHA, NGramDrafter, draft_len
+from .tracing import current_span, parse_traceparent
 
 _EOS_DEFAULT = -1  # no EOS cut by default (random-weight models)
 
@@ -289,6 +314,97 @@ STEP_TOKEN_BUDGET = 256  # tokens one unified step may carry
 ADMIT_CAP = 8  # prefill rows per unified step (or per wave)
 KV_BLOCK = 16  # tokens per KV pool block
 ADMIT_DELAY_MS = 40.0  # the wave's fill hold
+
+# Serializes app_llm_* registration across engines (a fleet builds its
+# replicas on parallel threads).
+_OBS_REG_LOCK = threading.Lock()
+
+
+def _register_phase_metrics(metrics) -> None:
+    """The engine's instruments (JAX ``_register_phase_metrics``), shared
+    across engines and replicas (series are separated by the model
+    label), under the JAX engine's names, kinds and descriptions, then the
+    capture, resilience and goodput sets."""
+    with _OBS_REG_LOCK:
+        for name, desc in (
+            ("app_llm_queue_wait_seconds", "llm submit->slot admission wait s"),
+            ("app_llm_ttft_seconds", "llm submit->first emitted token s"),
+            ("app_llm_time_per_output_token_seconds",
+             "llm steady-state decode s/token (requests with >1 token)"),
+            ("app_llm_decode_step_seconds",
+             "llm decode dispatch->fetch s/step (chunk=len, wave=pow2 active)"),
+            ("app_llm_step_seconds",
+             "llm unified step dispatch->fetch s (prefill chunks + piggybacked decode)"),
+            ("app_llm_kv_handoff_seconds",
+             "llm disaggregated prefill->decode KV handoff wall s (export + transfer + import)"),
+            ("app_llm_collective_seconds",
+             "llm sharded-serving collective/transfer wall s "
+             "(phase=weight_shard|kv_handoff_gather|kv_handoff_transfer|kv_handoff_scatter)"),
+            ("app_llm_constrained_mask_seconds",
+             "llm grammar mask preparation wall s per constrained submit (dedup hit or table pad + device ship)"),
+        ):
+            if not metrics.has(name):
+                metrics.new_histogram(name, desc, TPU_BUCKETS)
+        if not metrics.has("app_llm_step_tokens"):
+            metrics.new_histogram(
+                "app_llm_step_tokens",
+                "llm tokens packed per unified step (prefill chunk tokens + decode steps x active slots)",
+                (8.0, 16.0, 32.0, 64.0, 128.0, 256.0, 512.0, 1024.0, 2048.0, 4096.0, 8192.0),
+            )
+        if not metrics.has("app_llm_spec_tokens_per_step"):
+            metrics.new_histogram(
+                "app_llm_spec_tokens_per_step",
+                "llm tokens emitted per slot per speculative verify step (accepted draft + 1 bonus; 1 = nothing "
+                "accepted)",
+                (1.0, 2.0, 3.0, 4.0, 5.0, 6.0, 8.0, 12.0, 16.0),
+            )
+        for name, desc in (
+            ("app_llm_kv_handoffs_total", "llm disaggregated KV handoffs (outcome=ok|miss|fallback)"),
+            ("app_llm_spec_proposed_total",
+             "llm speculative draft tokens proposed (n-gram drafter; constrained=0|1 splits grammar-masked lanes)"),
+            ("app_llm_spec_accepted_total",
+             "llm speculative draft tokens accepted by verification (constrained=0|1 splits grammar-masked lanes)"),
+            ("app_llm_constrained_requests_total", "llm grammar-constrained generation requests accepted"),
+            ("app_llm_adapter_requests_total", "llm requests attributed to a LoRA adapter (adapter label names the "
+             "tenant)"),
+            ("app_llm_adapter_swaps_total",
+             "llm adapter hot-load publishes (staged gid repointed at a serving name; old gid drains as a zombie)"),
+            ("app_llm_adapter_evictions_total",
+             "llm idle resident adapters LRU-evicted to make room for a load (pool full)"),
+        ):
+            if not metrics.has(name):
+                metrics.new_counter(name, desc)
+        for name, desc in (
+            ("app_llm_tp_degree", "tensor-parallel degree of each engine's submesh (1 = single-chip)"),
+            ("app_llm_constrained_grammars",
+             "llm resident compiled grammars in the engine's device transition table (zeroed at engine close)"),
+            ("app_llm_adapters_resident",
+             "llm named LoRA adapters resident in the engine's device tables (zeroed at engine close)"),
+            ("app_llm_moe_experts", "llm experts per MoE layer of the served model (0 = dense)"),
+            ("app_llm_slots_in_use", "llm decode slots holding a live request"),
+            ("app_llm_queue_depth", "llm requests waiting for a slot"),
+            ("app_llm_admission_backlog", "llm requests mid-admission (pulled from queue, not yet slotted)"),
+            ("app_llm_step_budget_utilization",
+             "tokens packed into the last unified step / step token budget (can exceed 1: decode always rides "
+             "and a step always carries at least one chunk)"),
+            ("app_llm_mfu", "model FLOPs utilization 0..1 per phase (analytic FLOPs / measured wall / device peak)"),
+            ("app_llm_tokens_per_second_per_chip", "llm decoded tokens per second per chip (last chunk)"),
+            ("app_llm_roofline_ratio",
+             "compute_time/memory_time per phase (>1 compute-bound, <1 HBM-bandwidth-bound)"),
+            ("app_llm_spec_accept_rate",
+             "llm cumulative speculative draft acceptance rate 0..1 (accepted/proposed; zeroed at engine close)"),
+        ):
+            if not metrics.has(name):
+                metrics.new_gauge(name, desc)
+    register_compile_metrics(metrics)  # app_jax_* (graph captures)
+    register_resilience_metrics(metrics)  # app_llm_*_total + drain gauge
+    register_goodput_metrics(metrics)  # app_llm_goodput_* + tenant meters
+
+
+def _pow2_wave(n: int) -> int:
+    """The decode histograms' ``wave`` label: active lanes rounded up to a
+    power of two (0 when none), so the label set stays bounded."""
+    return 1 << max(0, n - 1).bit_length() if n else 0
 
 
 class EngineStoppedError(RuntimeError):
@@ -501,6 +617,10 @@ class GenRequest:
     # set it. The goodput ledger bills its chip time as probe waste and
     # the quota gate waves it through.
     probe: bool = False
+    # W3C traceparent to parent the request's llm.request span under when
+    # the submitting thread carries no active span (infrastructure seams:
+    # the disaggregated journey, a rollout's shadow replay)
+    traceparent: str | None = None
     id: int = field(default_factory=itertools.count().__next__)
 
     def __post_init__(self):
@@ -572,16 +692,20 @@ class GenRequest:
         # kept through a preemption's continuation, dropped at retirement,
         # which sets it back to 0, the base)
         self._aid = 0
+        # tracing (engine-maintained; JAX llm.py:532-544): the detached
+        # llm.request span (an engine with a tracer), the re-admissions
+        # after the first that were traced (preemption continuations and
+        # failover hops), the journey id (the first trace's id, stable
+        # across hops) and the first prefill chunk's dispatch time
+        self.span = None
+        self.hop = 0
+        self.journey_id: str | None = None
+        self._prefill_t0: float | None = None
+        self._fetch_t: float | None = None  # the fetch that emitted its last tokens
         # goodput attribution (engine-maintained; JAX llm.py:545-552):
         # chip-seconds billed to this request by waste class, rolled into
         # the flight record, the wide event and the OpenAI usage block
         self._chip: dict[str, float] = {}
-
-    @property
-    def hop(self) -> int:
-        """Re-admissions after the first (preemption continuations and
-        failover re-dispatches): the JAX request's ``hop``."""
-        return self.preempted + self.retries
 
     def _raise_terminal(self) -> None:
         if self.finish_reason == "poison":
@@ -895,7 +1019,14 @@ class LLMEngine:
     detectors (``TPU_LLM_ANOMALY_{FACTOR,MIN_SAMPLES,SUSTAIN}``);
     ``wide_event_sample`` (``TPU_LLM_WIDE_EVENT_SAMPLE``, 1) logs one
     request line in N (all are kept for bundles). ``metrics`` is a
-    ``metrics.Manager`` the ledger, the dumper and the detectors write.
+    ``metrics.Manager`` the engine's series, the ledger, the dumper and
+    the detectors write.
+
+    Observability (JAX llm.py:900-972): ``slo`` (a ``metrics.slo.
+    SLOPolicy`` or a ``{ttft_ms, tpot_ms, availability}`` dict; None
+    reads ``TPU_LLM_SLO_TTFT_MS``, ``_TPOT_MS`` and ``_AVAILABILITY``)
+    with per-adapter ``slo_tenants`` overrides arms the SLO tracker;
+    ``tracer`` (a ``tracing.Tracer``) traces every request.
 
     KV handoff (JAX llm.py:4964-5128): ``kv_handoff_export`` gathers one
     exact published prompt's pool blocks and logits, ``kv_handoff_import``
@@ -970,6 +1101,9 @@ class LLMEngine:
         blackbox_interval_s: float | None = None,
         anomaly: bool | None = None,
         wide_event_sample: int | None = None,
+        slo=None,
+        slo_tenants: dict | None = None,
+        tracer=None,
     ):
         self.device = resolve_device(device)
         self.rng_seed = int(seed)  # the flight records' seed
@@ -1042,7 +1176,7 @@ class LLMEngine:
             cfg, slots, max_seq_len, self.decode_chunk, window=kv_window, append_widths=widths,
             paged=paged_default() if kv_paged is None else kv_paged, block=kv_block, pool_blocks=kv_pool_blocks,
             kv_int8=kv_int8, prefix_cache_mb=prefix_cache_mb, session_mb=session_mb,
-            host_cache_mb=host_cache_mb,
+            host_cache_mb=host_cache_mb, metrics=metrics, model=kv_label,
         )
         # the last-token logits ride the prefill programs whenever a prefix
         # index can serve exact hits from them (JAX keep_logits)
@@ -1155,6 +1289,8 @@ class LLMEngine:
                 if kind in ("step", "chunk", "verify"):
                     self._programs_g[self._g_name(name)] = (functools.partial(fn, g=True), kind, arg)
         self.families: dict[str, _Family] = {}  # captured (CUDA only)
+        self._ran: set[str] = set()  # families run at least once (CPU: the registry's entries)
+        self._fam_sigs: dict[str, tuple[str, ...]] = {}  # family -> its registry signature
         self.warmup_s: float | None = None
         # torch.cuda.memory_reserved() before and after the warmup capture
         self.warmup_reserved: tuple[int, int] | None = None
@@ -1208,7 +1344,7 @@ class LLMEngine:
         self.role = str(role)
         self._init_observability(
             metrics, goodput, quotas, usage_meter, usage_window_s, flight_records, flight_redact, blackbox_dir,
-            blackbox_interval_s, anomaly, wide_event_sample,
+            blackbox_interval_s, anomaly, wide_event_sample, slo, slo_tenants, tracer,
         )
         # a rollout's inputs, kept as a fleet keeps them: the last 8
         # accepted prompts (the shadow replay's source) and the registered
@@ -1324,6 +1460,8 @@ class LLMEngine:
         shed_after = self.overload.should_shed(wait_s)
         if shed_after is not None:
             self.sheds_predicted += 1
+            if self.metrics is not None:
+                self.metrics.increment_counter("app_llm_sheds_predicted_total", model=self.label)
             raise EngineOverloaded(
                 f"predicted queue wait {wait_s:.1f}s exceeds shed threshold {self.overload.shed_wait_s:.1f}s",
                 retry_after=shed_after,
@@ -1350,9 +1488,12 @@ class LLMEngine:
                 self.adapter_requests += 1
             if not req.client:
                 req.client = f"adapter:{req.adapter}"
+            if self.metrics is not None:
+                self.metrics.increment_counter("app_llm_adapter_requests_total", model=self.label, adapter=req.adapter)
         else:
             req._aid = 0
         if req.grammar is not None:
+            t0g = time.perf_counter()
             with self._lock:
                 try:
                     req._g_id = self._register_grammar(req.grammar)
@@ -1361,6 +1502,11 @@ class LLMEngine:
                     raise
                 self._g_refs[req._g_id] += 1
                 self.constrained_requests += 1
+            if self.metrics is not None:
+                self.metrics.increment_counter("app_llm_constrained_requests_total", model=self.label)
+                self.metrics.record_histogram(
+                    "app_llm_constrained_mask_seconds", time.perf_counter() - t0g, model=self.label,
+                )
         if self.ledger is not None:
             # the new-arrival lift, before the request becomes orderable
             self.ledger.touch(req.client)
@@ -1370,6 +1516,8 @@ class LLMEngine:
         # a failover continuation's spec state belongs to its old replica
         req._spec_pending = []
         req._spec_inflight = 0
+        if self.tracer is not None:
+            self._trace_submit(req, plen)
         with self._lock:
             self.submitted += 1
             req._load_acct = plen + max(0, req.max_new_tokens - req.emitted)
@@ -1392,6 +1540,60 @@ class LLMEngine:
             self._drain_pending()
         self._kick.set()
         return req
+
+    def _trace_submit(self, req: GenRequest, plen: int) -> None:
+        """The request's detached ``llm.request`` span (JAX llm.py:2632-2687),
+        opened on the submitting thread: parented by an explicit
+        ``traceparent``, else by the thread's active span. A failover
+        continuation keeps its open span (same trace, so the journey id is
+        stable) and records an ``llm.continuation`` hop linked to it."""
+        if req.span is None:
+            link = parse_traceparent(req.traceparent)
+            if link is None:
+                parent = current_span()
+                if parent is not None and parent.end_ns == 0:
+                    link = (parent.trace_id, parent.span_id)
+            req.span = self.tracer.start_detached_span(
+                "llm.request", parent=link,
+                attributes={
+                    "llm.model": self.label, "llm.request_id": req.id, "llm.prompt_tokens": plen,
+                    "llm.max_new_tokens": req.max_new_tokens,
+                },
+            )
+            # start at the submit's own clock read, as its queue_wait child
+            # does: the thread may lose the GIL between the two reads
+            req.span.start_ns = time.time_ns() - int((time.perf_counter() - req.submitted_at) * 1e9)
+        elif req.deaths or req.retries or req.preempted:
+            self._trace_hop(req, "failover", {"llm.deaths": req.deaths})
+        if req.journey_id is None:
+            req.journey_id = req.span.trace_id
+
+    def _trace_hop(self, r: GenRequest, kind: str, extra: dict) -> None:
+        """One ``llm.continuation`` span under the request's span, linked to
+        it, and the hop count bumped (a preemption or a failover)."""
+        r.hop += 1
+        t_ns = time.time_ns()
+        self.tracer.record_span(
+            "llm.continuation", trace_id=r.span.trace_id, parent_id=r.span.span_id, start_ns=t_ns, end_ns=t_ns,
+            attributes={
+                "llm.model": self.label, "llm.request_id": r.id, "llm.hop": r.hop, "llm.kind": kind, **extra,
+                "llm.preempted": r.preempted, "llm.emitted": r.emitted,
+            },
+            links=[(r.span.trace_id, r.span.span_id)],
+        )
+
+    def _phase_span(self, r: GenRequest, name: str, t0: float, t1: float, attrs: dict | None = None) -> None:
+        """A retrospective phase span under the request's ``llm.request``
+        span (JAX ``_phase_span``): the perf_counter interval [t0, t1]
+        anchored to a live wall-clock read. No-op for an untraced
+        request."""
+        if r.span is None:
+            return
+        end_ns = time.time_ns() - int((time.perf_counter() - t1) * 1e9)
+        self.tracer.record_span(
+            name, trace_id=r.span.trace_id, parent_id=r.span.span_id, start_ns=end_ns - int((t1 - t0) * 1e9),
+            end_ns=end_ns, attributes=attrs,
+        )
 
     def generate(self, prompt_tokens: list[int], **kw) -> list[int]:
         return self.submit(GenRequest(prompt_tokens, **kw)).tokens()
@@ -1440,6 +1642,10 @@ class LLMEngine:
                 },
                 "kvcache": self.kv.stats(),
                 "warmup_s": self.warmup_s,
+                # recent-window phase latencies, the SLO verdicts and MFU
+                # (JAX stats' keys)
+                "phases": {k: w.summary() for k, w in self._phases.items()},
+                "mfu": self._mfu_summary(),
                 # recovery and the model lifecycle (JAX stats' keys)
                 "version": self.version,
                 "role": self.role,
@@ -1456,9 +1662,39 @@ class LLMEngine:
             }
 
     def debug_state(self) -> dict:
-        """The engine's recovery, accounting and recorder state (a subset of
-        JAX ``debug_state``): host counters only, no device read."""
+        """The engine's live state for ``/.well-known/debug/engine`` and the
+        incident bundles: JAX ``debug_state``'s keys (the serving shape,
+        overload and fairness, spec / constrained / adapter summaries, the
+        waiting head, phase windows, SLO, MFU, capture rows) plus the
+        recovery and recorder state. Host counters only, no device read."""
+        now = time.perf_counter()
+        waiting = [
+            {"id": r.id, "phase": "queued", "prompt_tokens": len(r.prompt_tokens), "prefill_pos": r.prefill_pos,
+             "emitted": r.emitted, "max_new_tokens": r.max_new_tokens,
+             "age_ms": round((now - r.submitted_at) * 1e3, 1) if r.submitted_at is not None else None,
+             "prefix_hit": r.prefix_hit, "trace_id": r.span.trace_id if r.span is not None else ""}
+            for r in list(self._waiting)[:32]
+        ]
         return {
+            "tp_degree": 1, "tp_overlap": False, "scheduler": "chunked" if self.chunked else "wave",
+            "slots": self.slots, "active": sum(r is not None for r in self._slot_req),
+            "max_seq_len": self.max_seq_len, "decode_chunk": self.decode_chunk,
+            "step_token_budget": self.step_token_budget, "chunk_shapes": list(self.chunk_shapes),
+            "prefilling": len(self._prefilling), "waiting": waiting, "admitting": 0,
+            "watchdog": (
+                {"threshold_s": self.step_watchdog_s, "trips": self.watchdog.trips}
+                if self.watchdog is not None else None
+            ),
+            "deadline_cancels": self.deadline_cancels, "disconnect_cancels": self.disconnect_cancels,
+            "preemptions": self.preemptions, "sheds_predicted": self.sheds_predicted,
+            "predicted_wait_s": self.predicted_wait_s(), "overload": self.overload.snapshot(),
+            "fairness": self.ledger.snapshot() if self.ledger is not None else None,
+            "spec": self._spec_summary(), "constrained": self._constrained_summary(),
+            "adapters": {
+                **self.adapters(), "requests": self.adapter_requests,
+                "rank_max": self.lora_rank if self.lora_slots else 0,
+            },
+            "moe_experts": int(self.cfg.n_experts or 0),
             "label": self.label, "version": self.version, "role": self.role, "alive": self.alive(),
             "draining": self._draining, "errored": self.errored,
             "died": self._died, "died_reason": self.died_reason, "load": self.load(),
@@ -1479,6 +1715,12 @@ class LLMEngine:
             "anomaly": self.anomaly.flagged() if self.anomaly is not None else [],
             "kvcache": self.kv.stats(),
             "warmup_s": self.warmup_s,
+            "phases": {k: w.summary() for k, w in self._phases.items()},
+            "slo": self.slo.snapshot() if self.slo is not None else None,
+            "mfu": self._mfu_summary(),
+            # this engine's rows of the capture registry (the process view
+            # is GET /.well-known/debug/compiles)
+            "compiles": self._registry.snapshot(model=self.label)["programs"],
         }
 
     def close(self, timeout: float = 30.0) -> None:
@@ -1508,6 +1750,7 @@ class LLMEngine:
         # a _die the ring stayed for the post-mortem) (JAX llm.py:3671-3692,
         # :3736-3737)
         self._zero_gauges()
+        self.kv.close()
         self.blackbox.close()
         self.flightrec.clear()
         if self.device.type == "cuda" and not self._died:
@@ -1575,6 +1818,8 @@ class LLMEngine:
             self._kv_sweep()
             self._kv_session_spill()
         admitted = self._admit()
+        if self.metrics is not None:
+            self._pass_gauges()
         if self.constrained:
             self._g_prepare()
         with self._lock:
@@ -1606,6 +1851,19 @@ class LLMEngine:
         if not admitted and not stepped and not did_v and want <= 0:
             self._kick.wait(timeout=0.005)
             self._kick.clear()
+
+    def _pass_gauges(self) -> None:
+        """The engine-state gauges, refreshed once per scheduler pass (JAX
+        llm.py:4104-4128): host reads only. Admission runs inside the pass
+        here, so no request is ever mid-admission between passes (the
+        backlog gauge reads 0)."""
+        m, label = self.metrics, self.label
+        m.set_gauge("app_llm_slots_in_use", float(sum(r is not None for r in self._slot_req)), model=label)
+        m.set_gauge("app_llm_queue_depth", float(self._admit_q.qsize() + len(self._waiting)), model=label)
+        m.set_gauge("app_llm_admission_backlog", 0.0, model=label)
+        m.set_gauge("app_llm_brownout_state", 1.0 if self.overload.brownout else 0.0, model=label)
+        if self.ledger is not None:
+            m.set_gauge("app_llm_fairness_debt", self.ledger.debt_spread(), model=label)
 
     def _spec_regime(self, stepped: bool, depth: int) -> tuple[bool, bool]:
         """The speculative regime's policy for one scheduler pass (JAX
@@ -1671,20 +1929,65 @@ class LLMEngine:
     # :2983-3140, :5548-5660) ----------------------------------------------
     def _init_observability(
         self, metrics, goodput, quotas, usage_meter, usage_window_s, flight_records, flight_redact, blackbox_dir,
-        blackbox_interval_s, anomaly, wide_event_sample,
+        blackbox_interval_s, anomaly, wide_event_sample, slo, slo_tenants, tracer,
     ) -> None:
-        """The ledger, the meter, the quota gate, the recorder, the dumper
-        and the detectors with the JAX engine's defaults and env
-        fallbacks (the recorder, the dumper and the detectors read their
-        own knobs for a None)."""
+        """The engine's series, the SLO tracker, the phase windows, the
+        MFU constants, the ledger, the meter, the quota gate, the
+        recorder, the dumper and the detectors with the JAX engine's
+        defaults and env fallbacks (the recorder, the dumper and the
+        detectors read their own knobs for a None)."""
         env = os.environ.get
         self.metrics = metrics
+        self.tracer = tracer
+        # a disaggregated pool's role rides the phase histograms as a label
+        self._role_labels = {"role": self.role} if self.role else {}
         if metrics is not None:
-            register_goodput_metrics(metrics)
+            _register_phase_metrics(metrics)
+            metrics.set_gauge("app_llm_model_version_info", 1.0, model=self.label, version=self.version)
+            metrics.set_gauge("app_llm_tp_degree", 1.0, model=self.label)
+            metrics.set_gauge("app_llm_moe_experts", float(self.cfg.n_experts or 0), model=self.label)
+        # the SLO engine (JAX llm.py:919-940): an explicit policy, else the
+        # process env; no target anywhere, no tracker
+        policy = SLOPolicy.coerce(slo)
+        if policy is None:
+            policy = SLOPolicy(
+                ttft_ms=float(env("TPU_LLM_SLO_TTFT_MS", "") or 0) or None,
+                tpot_ms=float(env("TPU_LLM_SLO_TPOT_MS", "") or 0) or None,
+                availability=float(env("TPU_LLM_SLO_AVAILABILITY", "") or 0) or None,
+            )
+        self.slo = None
+        if policy.active():
+            self.slo = SLOTracker(
+                policy, metrics, self.label,
+                tenant_overrides={str(t): SLOPolicy.coerce(p) for t, p in (slo_tenants or {}).items()},
+            )
+        # exact recent windows of the phase latencies (s) for stats()/debug
+        self._phases = {k: RollingWindow() for k in ("queue_wait", "ttft", "time_per_output_token", "decode_step",
+                                                      "step")}
+        # MFU and the roofline (JAX llm.py:958-972): analytic costs once,
+        # the card's peaks from its name
+        self._costs = mfu_mod.model_costs(self.cfg, quantized=self.quantized)
+        if self.device.type == "cuda":
+            platform, kind = "gpu", torch.cuda.get_device_name(self.device)
+        else:
+            platform, kind = "cpu", "cpu"
+        self._peak_flops = mfu_mod.device_peak_flops(platform, kind)
+        self._hbm_bw = mfu_mod.device_hbm_bandwidth(platform, kind)
+        self._n_chips = 1
+        self._mfu_windows = {"prefill": RollingWindow(), "decode": RollingWindow()}
+        self._roofline_windows = {"prefill": RollingWindow(), "decode": RollingWindow()}
+        self._tok_chip_window = RollingWindow()
+        self._registry = default_registry()
+        self._stat_chunk_steps = 0  # decode steps dispatched (the profile route's ``steps``)
         self.flightrec = FlightRecorder(flight_records, redact=flight_redact)
         self.blackbox = BlackboxDumper(
             blackbox_dir, min_interval_s=blackbox_interval_s, logger=self.logger, metrics=metrics, label=self.label,
         )
+        if self.slo is not None:
+            # the fast-burn 0 -> 1 flip is a bundle trigger (JAX llm.py:995-1002)
+            self.slo.on_fast_burn = lambda: self._incident(
+                "slo_fast_burn", reason=f"error-budget fast burn tripped on {self.label}",
+            )
         if anomaly is None:
             anomaly = env("TPU_LLM_ANOMALY", "1") not in ("", "0")
         self.anomaly = None
@@ -1789,17 +2092,50 @@ class LLMEngine:
         self.goodput.observe(kind, fetch.t0, now, lanes)
 
     def _observe_finish(self, r: GenRequest, now: float) -> None:
-        """A request's terminal observability (JAX ``_observe_finish``'s
-        flight-record, anomaly and wide-event part): finalize its record
-        with its phase times and chip time, feed the queue-wait, TTFT and
-        TPOT detectors, and keep its wide event (logged 1-in-N). Lock
-        held."""
+        """A request's terminal observability (JAX ``_observe_finish``):
+        the TPOT histogram, the SLO verdict, the per-version and
+        disconnect counters, its record finalized with its phase times and
+        chip time, the queue-wait, TTFT and TPOT detectors, the
+        ``llm.emit`` span and the ``llm.request`` span's end, and its wide
+        event (logged 1-in-N). Lock held."""
         total = None if r.submitted_at is None else now - r.submitted_at
         queue_wait = None if r.admitted_at is None or r.submitted_at is None else r.admitted_at - r.submitted_at
         ttft = None if r.first_token_at is None or r.submitted_at is None else r.first_token_at - r.submitted_at
         tpot = None
         if r.first_token_at is not None and r.emitted > 1:
             tpot = (now - r.first_token_at) / (r.emitted - 1)
+            self._phases["time_per_output_token"].observe(tpot)
+            if self.metrics is not None:
+                self.metrics.record_histogram(
+                    "app_llm_time_per_output_token_seconds", tpot,
+                    exemplar={"trace_id": r.span.trace_id} if r.span is not None else None,
+                    **self._role_labels, model=self.label,
+                )
+        if self.slo is not None and r.finish_reason not in ("cancelled", "disconnect"):
+            # a client that hung up is not the service's error budget
+            self.slo.observe(
+                tenant=r.adapter or "-", priority=r.priority if r.priority == "batch" else "interactive",
+                ok=r.finish_reason in ("eos", "length"), ttft_ms=None if ttft is None else ttft * 1e3,
+                tpot_ms=None if tpot is None else tpot * 1e3,
+            )
+        if self.metrics is not None:
+            if r.finish_reason == "disconnect":
+                self.metrics.increment_counter("app_llm_disconnect_cancels_total", model=self.label)
+            self.metrics.increment_counter(
+                "app_llm_requests_by_version_total", model=self.label, version=self.version,
+                finish=r.finish_reason or "unknown",
+            )
+        if r.span is not None and r.span.end_ns == 0:
+            if r._fetch_t is not None:
+                # the host-side tail: final tokens fetched -> queued to the consumer
+                self._phase_span(r, "llm.emit", r._fetch_t, now)
+            r.span.set_attribute("llm.output_tokens", r.emitted)
+            r.span.set_attribute("llm.finish_reason", r.finish_reason)
+            if r.prefix_hit:
+                r.span.set_attribute("llm.prefix_hit", True)
+            if r.finish_reason in ("cancelled", "disconnect", "shed"):
+                r.span.set_status("ERROR")
+            r.span.end()
         chip = dict(r._chip)
 
         def ms(v):
@@ -1816,7 +2152,8 @@ class LLMEngine:
                     self.anomaly.observe(signal, v * 1e3)
         ev = {
             "event": "llm_request", "model": self.label, "model_version": self.version, "id": r.id,
-            "trace_id": "", "journey_id": "", "hop": r.hop, "prompt_tokens": len(r.prompt_tokens),
+            "trace_id": r.span.trace_id if r.span is not None else "", "journey_id": r.journey_id or "",
+            "hop": r.hop, "prompt_tokens": len(r.prompt_tokens),
             "output_tokens": r.emitted, "finish_reason": r.finish_reason, "queue_wait_ms": ms(queue_wait),
             "ttft_ms": ms(ttft), "per_token_ms": ms(tpot), "total_ms": ms(total), "prefix_hit": r.prefix_hit,
             "capped": r.capped, "chip_ms": ms(sum(chip.values())),
@@ -1933,14 +2270,14 @@ class LLMEngine:
 
     def _incident(self, trigger: str, *, reason: str = "", lock_timeout: float = 2.0) -> str | None:
         """Dump one black-box bundle (JAX ``_incident``): debug_state, the
-        retained wide events, the HBM samples, the config fingerprint, the
+        tracer's ring (``traces``, left out without a tracer or ring, as in
+        JAX), the retained wide events, this engine's capture-registry rows
+        (``compiles``), the HBM samples, the config fingerprint, the
         detectors' state and the flight records of everything in flight
         (then the newest 64 final ones). Returns its path, or None when
-        unarmed or rate-limited. Never raises. The bundle's ``traces`` and
-        ``compiles`` sections wait for the port's tracer and compile
-        registry (ROADMAP ID 10), as JAX leaves ``traces`` out without a
-        tracer. Nothing here synchronizes the card: a hung stream or a
-        sticky error costs a section at most."""
+        unarmed or rate-limited. Never raises. Nothing here synchronizes
+        the card: a hung stream or a sticky error costs a section at
+        most."""
         if not self.blackbox.enabled():
             return None
         try:
@@ -1954,7 +2291,11 @@ class LLMEngine:
                     self._lock.release()
             else:
                 sections["debug_state"] = {"lock_wedged": True, "died": self._died, "died_reason": self.died_reason}
+            ring = getattr(self.tracer, "ring", None) if self.tracer is not None else None
+            if ring is not None:
+                sections["traces"] = {"stats": ring.stats(), "trace_ids": ring.trace_ids(64), "spans": ring.dump(512)}
             sections["wide_events"] = list(self._wide_retained)
+            sections["compiles"] = self._registry.snapshot(model=self.label)
             sections["hbm"] = self._hbm_samples()
             sections["config"] = self._config_fingerprint()
             if self.anomaly is not None:
@@ -1985,11 +2326,28 @@ class LLMEngine:
         return replay_record(self, rec, timeout=timeout)
 
     def _zero_gauges(self) -> None:
-        """close() and _die(): a dead engine must not hold its goodput ratio
-        or an anomaly flag on the exposition (and a restarted one starts
-        on fresh baselines)."""
+        """close() and _die() (JAX ``_zero_state_gauges`` and
+        ``_teardown_profiling``): a dead engine must not hold its
+        occupancy, version row, goodput ratio, SLO burn, anomaly flag or
+        MFU on the exposition, nor list its programs in the capture
+        registry (and a restarted one starts on fresh baselines)."""
+        self._registry.remove_model(self.label)
+        if self.metrics is not None:
+            for name in (
+                "app_llm_slots_in_use", "app_llm_queue_depth", "app_llm_admission_backlog",
+                "app_llm_step_budget_utilization", "app_llm_drain_state", "app_llm_brownout_state",
+                "app_llm_fairness_debt", "app_llm_spec_accept_rate", "app_llm_constrained_grammars",
+                "app_llm_adapters_resident", "app_llm_moe_experts", "app_llm_tokens_per_second_per_chip",
+            ):
+                self.metrics.set_gauge(name, 0.0, model=self.label)
+            self.metrics.set_gauge("app_llm_model_version_info", 0.0, model=self.label, version=self.version)
+            for phase in ("prefill", "decode"):
+                self.metrics.set_gauge("app_llm_mfu", 0.0, model=self.label, phase=phase)
+                self.metrics.set_gauge("app_llm_roofline_ratio", 0.0, model=self.label, phase=phase)
         if self.goodput is not None:
             self.goodput.zero_gauges()
+        if self.slo is not None:
+            self.slo.zero_gauges()
         if self.anomaly is not None:
             self.anomaly.zero_gauges()
 
@@ -2015,11 +2373,15 @@ class LLMEngine:
         """Close admission (``submit`` raises ``EngineDraining``, 503) while
         every queued and slotted request runs to completion."""
         self._draining = True
+        if self.metrics is not None:
+            self.metrics.set_gauge("app_llm_drain_state", 1.0, model=self.label)
         self._kick.set()
 
     def undrain(self) -> None:
         """Reopen admission after a drain that was called off."""
         self._draining = False
+        if self.metrics is not None:
+            self.metrics.set_gauge("app_llm_drain_state", 0.0, model=self.label)
         self._kick.set()
 
     def drained(self) -> bool:
@@ -2051,6 +2413,8 @@ class LLMEngine:
     def _count_fault(self, point: str) -> None:
         if self.logger is not None:
             self.logger.warn(f"fault injection: {point} fired on {self.label}")
+        if self.metrics is not None:
+            self.metrics.increment_counter("app_llm_faults_injected_total", point=point, model=self.label)
 
     def _poison_fault(self) -> bool:
         """Poison-payload seam (each scheduler pass): a ``device_step`` spec
@@ -2071,6 +2435,8 @@ class LLMEngine:
         """Non-finite logits reached a fetched token array: the engine dies
         with a classifiable reason, and a fleet fails its requests over."""
         self.numerical_trips += 1
+        if self.metrics is not None:
+            self.metrics.increment_counter("app_llm_numerical_trips_total", model=self.label)
         self._die(f"numerical watchdog: non-finite logits ({where})")
 
     def _numeric_check_fetch(self, arr: np.ndarray, cols: list[int], where: str) -> tuple[np.ndarray, bool]:
@@ -2299,6 +2665,8 @@ class LLMEngine:
             self._load_tokens -= r._load_acct  # the residue a cut leaves
             r._load_acct = 0
             self.deadline_cancels += reason == "deadline"
+            if reason == "deadline" and self.metrics is not None:
+                self.metrics.increment_counter("app_llm_deadline_cancels_total", model=self.label)
             self.disconnect_cancels += reason == "disconnect"
             self.errored += reason in ("error", "poison")
             if 0 <= r._g_id < len(self._g_refs):
@@ -2616,6 +2984,10 @@ class LLMEngine:
         self._stage(False, self._host_tables(), np.zeros((self.slots,), bool), meta, pack)
         t0 = time.perf_counter()
         first, logits, rows = self._launch(name)
+        if self.metrics is not None:
+            self.metrics.record_histogram(
+                "app_tpu_stats", time.perf_counter() - t0, model="llm", op=f"prefill_dispatch_{bucket}",
+            )
         self._inflight.append(("prefill", _Fetch(first, prompt_tokens, t0, gp=("wave", bucket)), taken, nb))
         self.waves[nb] = self.waves.get(nb, 0) + 1
         self.wave_reqs += len(reqs)
@@ -2646,10 +3018,20 @@ class LLMEngine:
         r.slot = slot
         r.prefill_pos = 0
         r.prefill_done = False
-        r.admitted_at = time.perf_counter()
+        r._prefill_t0 = None
+        r.admitted_at = now = time.perf_counter()
         if self.ledger is not None and not r._prompt_billed:
             r._prompt_billed = True
             self.ledger.charge(r.client, len(r.prompt_tokens))
+        if r.submitted_at is not None:  # the queue wait (JAX _observe_admission)
+            wait = now - r.submitted_at
+            self._phases["queue_wait"].observe(wait)
+            if self.metrics is not None:
+                self.metrics.record_histogram(
+                    "app_llm_queue_wait_seconds", wait, model=self.label,
+                    exemplar={"trace_id": r.span.trace_id} if r.span is not None else None, **self._role_labels,
+                )
+            self._phase_span(r, "llm.queue_wait", r.submitted_at, now)
 
     def _kv_attach(self, r: GenRequest, slot: int, plan) -> dict:
         """Bind the slot's block table to ``r`` and its seed plan (adopting
@@ -2959,6 +3341,10 @@ class LLMEngine:
         r._spec_pending = []
         r._spec_inflight = 0
         r.preempted += 1
+        if self.tracer is not None and r.span is not None:
+            # the continuation re-admits inside this engine (never through
+            # submit): its hop is recorded here (JAX llm.py:4260-4282)
+            self._trace_hop(r, "preemption", {})
         r.submitted_at = time.perf_counter()  # a fresh queue wait
         self._load_tokens -= r._load_acct
         r._load_acct = len(r.prompt_tokens) + max(0, r.max_new_tokens - r.emitted)
@@ -2967,6 +3353,8 @@ class LLMEngine:
         if self.ledger is not None:
             self.ledger.touch(r.client)
         self.preemptions += 1
+        if self.metrics is not None:
+            self.metrics.increment_counter("app_llm_preemptions_total", model=self.label)
 
     # -- paged-pool housekeeping (scheduler thread) -------------------------
     def _kv_publish(self, slot: int, r: GenRequest, logits=None, *, session: bool = False) -> None:
@@ -3150,7 +3538,10 @@ class LLMEngine:
         gather (None off the card): a consumer on another stream waits on
         it. None when the prompt is not an exact record with logits
         (dropped, evicted, sharing off) or the pool is contiguous. The
-        probe counts no hit. Runs on the scheduler thread."""
+        probe counts in the radix's stats, not in the ``app_kvcache_events``
+        series. ``app_llm_collective_seconds{phase=kv_handoff_gather}`` is
+        the host wall of enqueueing the gather. Runs on the scheduler
+        thread."""
         if not self.kv.paged or self.kv.radix is None:
             return None
 
@@ -3160,6 +3551,7 @@ class LLMEngine:
                 self.kv.release_plan(plan)
                 return None
             try:
+                t0 = time.perf_counter()
                 blocks = list(plan.blocks) + ([plan.tail_src] if plan.tail_src >= 0 else [])
                 if not blocks:
                     return None
@@ -3176,6 +3568,11 @@ class LLMEngine:
                 }
                 if payload["ready"] is not None:
                     payload["ready"].record()  # on the scheduler thread's current stream: the engine's
+                if self.metrics is not None:
+                    self.metrics.record_histogram(
+                        "app_llm_collective_seconds", time.perf_counter() - t0, model=self.label,
+                        phase="kv_handoff_gather",
+                    )
                 return payload
             finally:
                 self.kv.release_plan(plan)
@@ -3199,6 +3596,7 @@ class LLMEngine:
             return False
 
         def work():
+            t0 = time.perf_counter()
             k, v, sc = (None if payload.get(x) is None else torch.as_tensor(payload[x]) for x in ("k", "v", "sc"))
             n = int(k.shape[1])
             ids = self.kv.alloc_restore(n)
@@ -3232,6 +3630,11 @@ class LLMEngine:
                 payload["tokens"], ids[:n_full], ids[n_full] if n > n_full else -1, int(payload["tail_len"]),
                 logits=logits, logits_nbytes=0 if logits is None else logits.numel() * logits.element_size(),
             )
+            if self.metrics is not None:
+                self.metrics.record_histogram(
+                    "app_llm_collective_seconds", time.perf_counter() - t0, model=self.label,
+                    phase="kv_handoff_scatter",
+                )
             return True
 
         return self._run_on_scheduler(work, timeout)
@@ -3410,6 +3813,16 @@ class LLMEngine:
             self.step_tokens += work
             self.prefill_tokens += prefill_tokens
             self.chunks += 1
+            if work > prefill_tokens:
+                self._stat_chunk_steps += K
+            for r, _n in rows:
+                if r._prefill_t0 is None:
+                    r._prefill_t0 = t0
+            if self.metrics is not None:
+                self.metrics.record_histogram("app_llm_step_tokens", float(work), model=self.label)
+                self.metrics.set_gauge(
+                    "app_llm_step_budget_utilization", work / self.step_token_budget, model=self.label,
+                )
             if logits is not None:
                 # store each finished prompt: its logits row (and on the
                 # contiguous layouts its slot rows) cloned on the engine
@@ -3453,6 +3866,7 @@ class LLMEngine:
             fetch = _Fetch(self._launch(name), k * sum(r is not None for r in snapshot), t0)
             self._inflight.append(("chunk", fetch, snapshot, k))
             self.chunks += 1
+            self._stat_chunk_steps += k
             self._work_cv.notify()
             return k
 
@@ -3601,12 +4015,32 @@ class LLMEngine:
             self._stage(use_g, self._host_tables(), np.zeros((self.slots,), bool), verify=pack)
             t0 = time.perf_counter()
             fetch = _Fetch(self._launch(name), t0=t0)
+            # each lane's device length at dispatch (the verify's MFU spans)
+            cursors = {slot: len(r.prompt_tokens) + r.emitted + len(r._spec_pending) - len(pred[slot])
+                       for slot, r in sel}
             self._inflight.append(
-                ("verify", fetch, sel, {"W": W, "n_draft": n_draft, "pred": pred, "gset": gset})
+                ("verify", fetch, sel, {"W": W, "n_draft": n_draft, "pred": pred, "gset": gset, "cursors": cursors})
             )
             self.spec_steps += 1
+            proposed_c = sum(n_draft[slot] for slot in gset)
             self.spec_proposed += proposed
-            self.spec_proposed_c += sum(n_draft[slot] for slot in gset)
+            self.spec_proposed_c += proposed_c
+            self._stat_chunk_steps += 1
+            if self.metrics is not None:
+                m, step_tokens = self.metrics, W * len(sel)
+                if proposed - proposed_c:
+                    m.increment_counter(
+                        "app_llm_spec_proposed_total", by=float(proposed - proposed_c), model=self.label,
+                        constrained="0",
+                    )
+                if proposed_c:
+                    m.increment_counter(
+                        "app_llm_spec_proposed_total", by=float(proposed_c), model=self.label, constrained="1",
+                    )
+                m.record_histogram("app_llm_step_tokens", float(step_tokens), model=self.label)
+                if self.step_token_budget:
+                    m.set_gauge("app_llm_step_budget_utilization", step_tokens / self.step_token_budget,
+                                model=self.label)
             self._work_cv.notify()
             return True
 
@@ -3632,6 +4066,16 @@ class LLMEngine:
         if toks:
             if r.emitted == 0:
                 r.first_token_at = now
+                if r.submitted_at is not None:
+                    ttft = now - r.submitted_at
+                    self._phases["ttft"].observe(ttft)
+                    if self.metrics is not None:
+                        self.metrics.record_histogram(
+                            "app_llm_ttft_seconds", ttft, model=self.label,
+                            exemplar={"trace_id": r.span.trace_id} if r.span is not None else None,
+                            **self._role_labels,
+                        )
+                        self.metrics.record_histogram("app_tpu_queue_wait", ttft, model="llm", op="ttft")
             r.out.put(toks)
             r.emitted += len(toks)
             r.history.extend(toks)
@@ -3644,6 +4088,7 @@ class LLMEngine:
         if finish is None and r.emitted >= r.max_new_tokens:
             finish = "length"
         if finish is not None:
+            r._fetch_t = now
             self._finish(r, finish)
 
     # -- collector --------------------------------------------------------
@@ -3729,6 +4174,7 @@ class LLMEngine:
         the next program meanwhile) and emit them; the entry leaves
         ``_processing`` in the same lock acquisition as the emits."""
         fetch = entry[1]
+        t_wait = time.perf_counter()
         toks = fetch.wait()
         # the numerical watchdog, outside the lock (_die takes it) and
         # before any emission, on the lanes of live requests
@@ -3768,16 +4214,27 @@ class LLMEngine:
         if self.anomaly is not None and entry[0] == "step":
             self.anomaly.observe("step", (now - fetch.t0) * 1e3)  # JAX llm.py:6594
         self._observe_tput(fetch.work, now - fetch.t0)
+        active_n = self._observe_entry(entry, now, now - t_wait)
         with self._lock:
             if entry[0] == "prefill":
+                bucket = fetch.gp[1] if fetch.gp is not None else 0
                 for j, (slot, r) in enumerate(entry[2]):
                     if r is not None:  # None: preempted (the row is kept)
+                        if r.span is not None and r.finish_reason is None:
+                            self._phase_span(r, "llm.prefill", fetch.t0, now, attrs={
+                                "llm.wave": entry[3] or len(entry[2]), "llm.bucket": bucket,
+                                "llm.prefix_hit": r.prefix_hit,
+                            })
                         self._emit_to(r, slot, [int(toks[j])], now)
                 self._processing = None
                 return
             if entry[0] == "step":
                 _, _fetch, finishes, nb, snapshot, k = entry
                 for j, slot, r in finishes:
+                    if r.span is not None and r.finish_reason is None:
+                        self._phase_span(r, "llm.prefill", r._prefill_t0 or fetch.t0, now, attrs={
+                            "llm.wave": nb, "llm.bucket": fetch.gp[1], "llm.prefix_hit": r.prefix_hit,
+                        })
                     self._emit_to(r, slot, [int(toks[j])], now)
                 toks = toks[nb:]
             else:
@@ -3785,8 +4242,115 @@ class LLMEngine:
             cols = toks.reshape(k, self.slots)
             for slot, r in enumerate(snapshot):
                 if r is not None:
+                    if r.span is not None and r.finish_reason is None:
+                        self._phase_span(r, "llm.decode", fetch.t0, now, attrs={
+                            "llm.chunk": k, "llm.active": active_n, "llm.slot": slot,
+                        })
                     self._emit_to(r, slot, cols[:, slot].tolist(), now)
             self._processing = None
+
+    def _ctx_tokens(self, snapshot: list) -> tuple[int, int]:
+        """(active requests, summed attended context positions) for one
+        decode step (JAX ``_ctx_tokens``): a slot's context is capped at the
+        sliding window, which a ring never reads past."""
+        w = self._costs.sliding_window
+        active = ctx = 0
+        for r in snapshot:
+            if r is None:
+                continue
+            active += 1
+            c = len(r.prompt_tokens) + r.emitted
+            ctx += min(c, w) if w else c
+        return active, ctx
+
+    def _observe_entry(self, entry: tuple, now: float, fetch_s: float) -> int:
+        """The phase series and MFU of one fetched step, chunk or wave (JAX
+        ``_process_entry`` / ``_process_step_entry``), on its dispatch ->
+        fetch wall; ``fetch_s`` is the collector's blocking wait. Returns
+        the decode lanes it served. Collector thread, outside the lock."""
+        kind, fetch = entry[0], entry[1]
+        dt = now - fetch.t0
+        m, costs = self.metrics, self._costs
+        if kind == "prefill":
+            if fetch.gp is not None:  # a wave ran a prefill (a hit group ran none)
+                seq_lens = [len(r.prompt_tokens) for _s, r in entry[2] if r is not None]
+                self._observe_mfu(
+                    "prefill", sum(seq_lens), mfu_mod.prefill_flops(costs, seq_lens),
+                    costs.params_bytes + sum(seq_lens) * costs.kv_bytes_per_ctx_token, dt,
+                )
+            return 0
+        if kind == "step":
+            _, _f, _fin, _nb, snapshot, k = entry
+            spans = [(pos, n) for _r, pos, n in fetch.gp[4]]
+            prefill_tokens = fetch.gp[3]
+            self._phases["step"].observe(dt)
+            if m is not None:
+                m.record_histogram("app_llm_step_seconds", dt, model=self.label, **self._role_labels)
+            if prefill_tokens:
+                w = costs.sliding_window
+                ctx_read = sum(min(pos, w) if w else pos for pos, _n in spans)
+                self._observe_mfu(
+                    "prefill", prefill_tokens, mfu_mod.chunk_prefill_flops(costs, spans),
+                    costs.params_bytes + (prefill_tokens + ctx_read) * costs.kv_bytes_per_ctx_token, dt,
+                )
+        else:
+            _, _f, snapshot, k = entry
+            prefill_tokens = 0
+        active_n, ctx_sum = self._ctx_tokens(snapshot)
+        if not active_n:
+            return 0
+        if m is not None:
+            m.record_histogram("app_tpu_stats", fetch_s, model="llm", op="decode_chunk")
+        step_s = dt / k
+        self._phases["decode_step"].observe(step_s)
+        self._observe_mfu(
+            "decode", k * active_n, mfu_mod.decode_flops(costs, k * active_n, k * ctx_sum),
+            k * (costs.params_bytes + ctx_sum * costs.kv_bytes_per_ctx_token), dt,
+        )
+        if m is not None:
+            m.record_histogram(
+                "app_llm_decode_step_seconds", step_s, model=self.label, chunk=str(k), wave=str(_pow2_wave(active_n)),
+                fused="1" if prefill_tokens else "0", **self._role_labels,
+            )
+        return active_n
+
+    def _observe_mfu(self, phase: str, tokens: int, flops: float, bytes_moved: float, dt: float) -> None:
+        """One MFU / roofline observation of a finished device window (JAX
+        ``_observe_mfu``): ``dt`` is the wall from dispatch to fetch, and
+        with up to ``lookahead`` programs in flight the windows overlap, so
+        this is an apparent utilization (read the window percentiles,
+        never sum them)."""
+        if dt <= 0 or flops <= 0:
+            return
+        peak, bw = self._peak_flops * self._n_chips, self._hbm_bw * self._n_chips
+        mfu = flops / dt / peak
+        ratio = mfu_mod.roofline_ratio(flops, bytes_moved, peak, bw)
+        self._mfu_windows[phase].observe(mfu)
+        self._roofline_windows[phase].observe(ratio)
+        if phase == "decode":
+            self._tok_chip_window.observe(tokens / dt / self._n_chips)
+        if self.metrics is not None:
+            self.metrics.set_gauge("app_llm_mfu", mfu, model=self.label, phase=phase)
+            self.metrics.set_gauge("app_llm_roofline_ratio", ratio, model=self.label, phase=phase)
+            if phase == "decode":
+                self.metrics.set_gauge("app_llm_tokens_per_second_per_chip", tokens / dt / self._n_chips,
+                                       model=self.label)
+
+    def _mfu_summary(self) -> dict:
+        """The stats()/debug block (JAX ``_mfu_summary``): the analytic
+        constants, recent-window utilization percentiles and the roofline
+        verdict (median decode ratio). Host reads only."""
+        decode_ratio = self._roofline_windows["decode"].summary()
+        return {
+            "peak_flops_per_chip": self._peak_flops, "hbm_bw_per_chip": self._hbm_bw, "chips": self._n_chips,
+            "params": self._costs.params, "flops_per_token": self._costs.matmul_flops_per_token,
+            "prefill": self._mfu_windows["prefill"].summary(), "decode": self._mfu_windows["decode"].summary(),
+            "tokens_per_second_per_chip": self._tok_chip_window.summary(),
+            "roofline": {
+                "prefill": self._roofline_windows["prefill"].summary(), "decode": decode_ratio,
+                "bound": mfu_mod.classify_bound(decode_ratio["p50"]),
+            },
+        }
 
     def _process_verify_entry(self, entry: tuple, toks: np.ndarray, now: float) -> None:
         """Emit one verify's tokens (JAX ``_process_verify_entry``, its
@@ -3807,11 +4371,18 @@ class LLMEngine:
             self.anomaly.observe("step", (now - fetch.t0) * 1e3)
             # this verify's acceptance over the drafts it could accept
             self.anomaly.observe("spec_accept", sum(int(acc[slot]) for slot, _r in sel) / max(1, len(sel) * (W - 1)))
+        self._observe_verify(entry, acc, now)
         with self._lock:
             self._observe_tput(sum(int(acc[slot]) + 1 for slot, _r in sel), now - fetch.t0)
             for slot, r in sel:
                 a = int(acc[slot])
                 out = ys[slot, : a + 1].tolist()
+                if self.metrics is not None:
+                    self.metrics.record_histogram("app_llm_spec_tokens_per_step", float(a + 1), model=self.label)
+                if r.span is not None and r.finish_reason is None:
+                    self._phase_span(r, "llm.decode", fetch.t0, now, attrs={
+                        "llm.spec_draft": info["n_draft"].get(slot, 0), "llm.spec_accepted": a, "llm.slot": slot,
+                    })
                 self.spec_accepted += a
                 if slot in info["gset"]:
                     self.spec_accepted_c += a
@@ -3827,6 +4398,51 @@ class LLMEngine:
                 r._spec_inflight = max(0, r._spec_inflight - 1)
                 self._emit_to(r, slot, out, now)
             self._processing = None
+
+    def _observe_verify(self, entry: tuple, acc, now: float) -> None:
+        """The phase series, acceptance series and MFU of one fetched
+        verify (JAX ``_process_verify_entry``): useful FLOPs are the
+        accepted spans plus each lane's bonus token
+        (``mfu.spec_verify_flops``). Collector thread, outside the lock."""
+        _, fetch, sel, info = entry
+        dt = now - fetch.t0
+        w = self._costs.sliding_window
+        spans, ctx_sum, emitted, accepted, accepted_c = [], 0, 0, 0, 0
+        for slot, _r in sel:
+            a = int(acc[slot])
+            n = a + 1
+            emitted += n
+            accepted += a
+            if slot in info["gset"]:
+                accepted_c += a
+            cur = info["cursors"].get(slot, 0)
+            spans.append((cur, n))
+            ctx_sum += min(cur, w) if w else cur
+        self._phases["step"].observe(dt)
+        per_tok = dt / max(1.0, emitted / max(1, len(sel)))
+        self._phases["decode_step"].observe(per_tok)
+        self._observe_mfu(
+            "decode", emitted, mfu_mod.spec_verify_flops(self._costs, spans),
+            self._costs.params_bytes + ctx_sum * self._costs.kv_bytes_per_ctx_token, dt,
+        )
+        m = self.metrics
+        if m is None:
+            return
+        if accepted - accepted_c:
+            m.increment_counter("app_llm_spec_accepted_total", by=float(accepted - accepted_c), model=self.label,
+                                constrained="0")
+        if accepted_c:
+            m.increment_counter("app_llm_spec_accepted_total", by=float(accepted_c), model=self.label,
+                                constrained="1")
+        # the counters the collector adds under the lock right after this
+        m.set_gauge(
+            "app_llm_spec_accept_rate", (self.spec_accepted + accepted) / max(1, self.spec_proposed), model=self.label,
+        )
+        m.record_histogram("app_llm_step_seconds", dt, model=self.label, **self._role_labels)
+        m.record_histogram(
+            "app_llm_decode_step_seconds", per_tok, model=self.label, chunk=f"v{info['W']}",
+            wave=str(_pow2_wave(len(sel))), fused="0", **self._role_labels,
+        )
 
     def _spec_summary(self) -> dict:
         """Speculation counters (JAX ``_spec_summary``'s keys), split
@@ -3931,6 +4547,11 @@ class LLMEngine:
                         dirty = {i for i, g in enumerate(self._grammars) if g is not None}
                     for gid in sorted(dirty):
                         self._g_write(gid)
+                    if self.metrics is not None:
+                        self.metrics.set_gauge(
+                            "app_llm_constrained_grammars", float(sum(g is not None for g in self._grammars)),
+                            model=self.label,
+                        )
                     return
             self._drain()  # outside the lock; then look again
             drained = True
@@ -4096,7 +4717,9 @@ class LLMEngine:
         with self._capture_lock:
             rows = self._lora_rows(canon)
             with self._lock:
+                ev0 = self._lora_pool.evictions
                 gid = self._lora_pool.allocate(name, version=version, rank=rank)
+                evicted = self._lora_pool.evictions - ev0
                 try:
                     self._lora_stage(gid, rows)
                 except BaseException:
@@ -4104,6 +4727,10 @@ class LLMEngine:
                     raise
         if fair_weight is not None and self.ledger is not None:
             self.ledger.set_weight(f"adapter:{name}", fair_weight)
+        if self.metrics is not None:
+            if evicted:
+                self.metrics.increment_counter("app_llm_adapter_evictions_total", float(evicted), model=self.label)
+            self.metrics.set_gauge("app_llm_adapters_resident", float(len(self._lora_pool)), model=self.label)
         self._adapters_host[name] = {"adapter": adapter, "version": str(version), "alpha": alpha,
                                      "fair_weight": fair_weight}
         return gid
@@ -4116,6 +4743,9 @@ class LLMEngine:
         self._require_lora()
         with self._lock:
             prev = self._lora_pool.publish(staging, name)
+        if self.metrics is not None:
+            self.metrics.increment_counter("app_llm_adapter_swaps_total", model=self.label)
+            self.metrics.set_gauge("app_llm_adapters_resident", float(len(self._lora_pool)), model=self.label)
         rec = self._adapters_host.pop(staging, None)
         if rec is not None:
             self._adapters_host[name] = rec
@@ -4128,7 +4758,10 @@ class LLMEngine:
         self._require_lora()
         self._adapters_host.pop(name, None)
         with self._lock:
-            return self._lora_pool.remove(name)
+            gid = self._lora_pool.remove(name)
+        if self.metrics is not None:
+            self.metrics.set_gauge("app_llm_adapters_resident", float(len(self._lora_pool)), model=self.label)
+        return gid
 
     def adapters(self) -> dict:
         """Pool snapshot: resident adapters (gid / version / rank / refs),
@@ -4160,14 +4793,44 @@ class LLMEngine:
             raise EngineStoppedError(f"engine stopped ({self.died_reason or 'closed'})")
         with self._hb_dispatch.beat(f"dispatch:{name}"):
             if self.device.type == "cpu":
+                first = name not in self._ran
+                t0 = time.perf_counter()
                 out = self._program(name)[0]()
+                if first:  # no graph here: the first eager run is the family's entry
+                    self._ran.add(name)
+                    self._record_family(name, time.perf_counter() - t0, "first_call")
             else:
                 fam = self.families[name]
                 fam.graph.replay()
                 add_launches(fam.launches)
                 out = fam.out
+                first = False
+        if not first:
+            self._registry.note_hit(name, self.label, self._family_shapes(name))
+            if self.metrics is not None:
+                self.metrics.increment_counter("app_jax_trace_cache_hits_total", program=name, model=self.label)
         self._sched_fail_streak = 0
         return out
+
+    def _family_shapes(self, name: str) -> tuple[str, ...]:
+        """A family's registry signature: its kind and shape argument
+        (made once a family: every launch notes a hit under it)."""
+        sig = self._fam_sigs.get(name)
+        if sig is None:
+            _fn, kind, arg = self._program(name)
+            sig = self._fam_sigs[name] = (kind, str(arg))
+        return sig
+
+    def _record_family(self, name: str, seconds: float, measured: str) -> None:
+        """One capture (or, on the CPU, first eager run) of family ``name``
+        into the capture registry and the ``app_jax_*`` series."""
+        self._registry.record_compile(
+            program=name, model=self.label, arg_shapes=self._family_shapes(name), compile_s=seconds,
+            backend=self.device.type, measured=measured,
+        )
+        if self.metrics is not None:
+            self.metrics.record_histogram("app_jax_compile_seconds", seconds, program=name, model=self.label)
+            self.metrics.increment_counter("app_jax_compiles_total", program=name, model=self.label)
 
     def _program(self, name: str) -> tuple:
         """(eager program, kind, arg) of family ``name``, constrained or not."""
@@ -4190,6 +4853,7 @@ class LLMEngine:
         torch.cuda.synchronize(self.device)
         self.warmup_s = time.perf_counter() - t0
         self.warmup_reserved = (before, torch.cuda.memory_reserved(self.device))
+        self._registry.record_warmup(self.label, self.warmup_s, programs=len(self.families))
 
     def _capture(self, name: str) -> None:
         """Capture one program family as a CUDA graph on the engine's
@@ -4207,6 +4871,7 @@ class LLMEngine:
         graph inserts every lane, as each lane of a served wave names a
         slot."""
         fn, kind, arg = self._program(name)
+        t_cap = time.perf_counter()
         g = name in self._programs_g
         gids = np.full((self.slots,), -1, np.int32) if g else None
         aids = np.zeros((self.slots,), np.int32) if self.lora_slots else None
@@ -4251,6 +4916,8 @@ class LLMEngine:
             ):
                 out = fn()
         self.families[name] = _Family(graph, out, dict(tally))
+        # the host wall of the family's warm-up runs and its capture
+        self._record_family(name, time.perf_counter() - t_cap, "capture")
 
     def _step_program(self, shape: int, nb: int, g: bool = False):
         """The unified step (JAX ``llm.step_p{shape}_d{K}``) of ``nb`` rows
@@ -4557,6 +5224,11 @@ class ReplicatedLLMEngine:
     alone). A continuation that has streamed tokens fails over only to a
     replica of its version."""
 
+    # the fleet's series and tracer (``__init__`` takes them from the
+    # engine kwargs); None: nothing observed
+    metrics = None
+    tracer = None
+
     def __init__(
         self,
         cfg,
@@ -4671,6 +5343,15 @@ class ReplicatedLLMEngine:
         self._canary_ref: dict[str, list[int]] = {}  # a healthy replica's probe tokens, per version
         self._adapters_host: dict[str, dict] = {}  # re-staged on every rebuild
         self._engine_kw = engine_kw
+        # the fleet's own series (JAX llm.py:7416-7436): the replicas write
+        # theirs under "<label>/r<i>", the fleet under its label
+        self.metrics = engine_kw.get("metrics")
+        self.tracer = engine_kw.get("tracer")
+        self._versions_seen: set[str] = set()
+        if self.metrics is not None:
+            register_resilience_metrics(self.metrics)
+            if self.health.metrics is None:
+                self.health.metrics, self.health.model = self.metrics, self.label
         # one at a time: on one card a capture syncs the device, and the
         # first build's failure must close what came up
         self.engines: list[LLMEngine] = []
@@ -4687,6 +5368,7 @@ class ReplicatedLLMEngine:
         self.health.on_quarantine = lambda device, why: self.incident(
             "quarantine", reason=f"device {device} quarantined ({why})"
         )
+        self._observe_versions()
         self.supervisor: ReplicaSupervisor | None = None
         if supervise:
             self.supervisor = ReplicaSupervisor(
@@ -4722,6 +5404,8 @@ class ReplicatedLLMEngine:
         if inj.take("device_sick", key) is not None:
             if self.logger is not None:
                 self.logger.warn(f"fault injection: device_sick fired on {key}")
+            if self.metrics is not None:
+                self.metrics.increment_counter("app_llm_faults_injected_total", point="device_sick", model=self.label)
             raise InjectedFault(f"device_sick: build refused on {key}")
         dev = resolve_device(spec["device"])
         eng = LLMEngine(
@@ -4762,6 +5446,18 @@ class ReplicatedLLMEngine:
         self.engines[i] = replacement  # one item assignment: routers see the old or the new
         self._current_keys[i] = key
         self._current_seats[i] = spec.get("seat", (key, 0))
+        self._observe_versions()
+
+    def _observe_versions(self) -> None:
+        """``app_llm_model_version_info{model,version}`` = the live replicas
+        serving each version, every version ever exported rewritten (a
+        finished rollout's old row reads 0, not its last value)."""
+        if self.metrics is None:
+            return
+        counts = self.version_counts()
+        for v in set(self._versions) | set(counts) | self._versions_seen:
+            self._versions_seen.add(v)
+            self.metrics.set_gauge("app_llm_model_version_info", float(counts.get(v, 0)), model=self.label, version=v)
 
     def _canary_check(self, replacement: LLMEngine) -> tuple[bool, str]:
         """The canary gate: the fixed greedy probe, token-compared with a
@@ -4836,8 +5532,8 @@ class ReplicatedLLMEngine:
         return f"v{n}"
 
     def version_counts(self) -> dict[str, int]:
-        """Live replicas per model version (mixed only mid-rollout). (JAX's
-        ``app_llm_model_version_info`` gauge reads it: ROADMAP ID 10.)"""
+        """Live replicas per model version (mixed only mid-rollout): what the
+        fleet's ``app_llm_model_version_info`` gauge exports."""
         counts: dict[str, int] = {}
         for e in self.engines:
             if e.alive():
@@ -4934,6 +5630,9 @@ class ReplicatedLLMEngine:
         retried elsewhere (``EngineStoppedError``, ``EngineDraining``,
         ``UnknownAdapterError`` are retryable; ``EngineOverloaded`` is not),
         each retry drawing from the retry budget."""
+        # the budget gauge stays live while the bucket refills (JAX
+        # llm.py:8038-8042), not only at retries
+        self._observe_retry_budget()
         if self.fleet_max_queue_tokens > 0:
             queued = sum(e.load_tokens() for e in self.engines if e.accepting())
             cap = self.fleet_max_queue_tokens
@@ -4941,6 +5640,8 @@ class ReplicatedLLMEngine:
                 cap = int(cap * self.fleet_batch_factor)
             if queued >= cap:
                 self.fleet_rejected += 1
+                if self.metrics is not None:
+                    self.metrics.increment_counter("app_llm_fleet_rejected_total", model=self.label)
                 raise EngineOverloaded(
                     f"fleet queue full ({queued} >= {cap} queued tokens"
                     + (" at batch-class headroom)" if cap < self.fleet_max_queue_tokens else ")"),
@@ -4960,9 +5661,12 @@ class ReplicatedLLMEngine:
         tried: set[int] = set()
         first_err: Exception | None = None
         for attempt in range(2 * len(self.engines) + 2):
-            if attempt > 0 and not self.retry_budget.take():
-                self.retry_budget_exhausted += 1
-                raise first_err
+            if attempt > 0:
+                taken = self.retry_budget.take()
+                self._observe_retry_budget()
+                if not taken:
+                    self.retry_budget_exhausted += 1
+                    raise first_err
             eng = prefer if prefer is not None and id(prefer) not in tried else self._pick(exclude=tried)
             try:
                 out = eng.submit(req)
@@ -4979,6 +5683,10 @@ class ReplicatedLLMEngine:
             self._shadow_ring.append(tuple(req.prompt_tokens[:32]))
             return out
         raise first_err or EngineStoppedError("all replicas dead")
+
+    def _observe_retry_budget(self) -> None:
+        if self.metrics is not None:
+            self.metrics.set_gauge("app_llm_retry_budget_remaining", self.retry_budget.remaining(), model=self.label)
 
     def _fleet_retry_after(self, queued_tokens: int) -> float:
         """The backlog past the cap at the fleet's pooled throughput (1 s
@@ -5003,10 +5711,13 @@ class ReplicatedLLMEngine:
         for r in reqs:
             if self.poison_deaths and r.deaths >= self.poison_deaths:
                 self.poisoned += 1
+                if self.metrics is not None:
+                    self.metrics.increment_counter("app_llm_poison_requests_total", model=self.label)
                 if self.logger is not None:
                     self.logger.error(f"poison quarantine: request {r.id} implicated in {r.deaths} replica deaths; "
                                       "failover refused")
                 r.finish_reason = "poison"
+                self._end_span(r)
                 r.out.put(None)
                 continue
             r.retries += 1
@@ -5016,6 +5727,8 @@ class ReplicatedLLMEngine:
                 budget_ok = self.retry_budget.take()
                 if not budget_ok:
                     self.retry_budget_exhausted += 1
+            if r.retries <= self.failover_retries:
+                self._observe_retry_budget()
             if budget_ok and r.retries <= self.failover_retries:
                 replay_to = r.prefill_pos
                 if r.history:
@@ -5054,13 +5767,27 @@ class ReplicatedLLMEngine:
                         break  # the continuation no longer fits the cache
             if placed:
                 self.failovers += 1
+                if self.metrics is not None:
+                    self.metrics.increment_counter("app_llm_failovers_total", model=self.label)
                 if self.logger is not None:
                     self.logger.warn(f"failover: request {r.id} re-dispatched (retry {r.retries}/{self.failover_retries})")
             else:
                 self.failover_errors += 1
+                if self.metrics is not None:
+                    self.metrics.increment_counter("app_llm_failover_errors_total", model=self.label)
                 r.error = "failover found no live replica (or its retries were spent)"
                 r.finish_reason = "error"
+                self._end_span(r)
                 r.out.put(None)
+
+    @staticmethod
+    def _end_span(r: GenRequest) -> None:
+        """A request the fleet ends itself (poison, no live replica): its
+        journey's ``llm.request`` span closes as an error."""
+        if r.span is not None and r.span.end_ns == 0:
+            r.span.set_attribute("llm.finish_reason", r.finish_reason)
+            r.span.set_status("ERROR")
+            r.span.end()
 
     # -- the engine's surface ------------------------------------------------------
     @property
@@ -5121,7 +5848,43 @@ class ReplicatedLLMEngine:
             "decode_chunk": per[0]["decode_chunk"],
             "load_tokens": self.load_tokens(),
             "per_replica": per,
+            # pooled raw windows, never an average of per-replica percentiles
+            "phases": self._merged_phases(),
+            "mfu": self._merged_mfu(),
         }
+
+    def _merged_phases(self) -> dict:
+        merged: dict[str, list[float]] = {}
+        for e in self.engines:
+            for name, w in e._phases.items():
+                merged.setdefault(name, []).extend(w.values())
+        return {name: summarize_window(vs) for name, vs in merged.items()}
+
+    def _merged_mfu(self) -> dict:
+        """The fleet's utilization in ``LLMEngine.stats()["mfu"]``'s shape:
+        the replicas' raw windows pooled (JAX ``_merged_mfu``)."""
+        lead = self.engines[0]
+        out: dict = {
+            "chips": sum(e._n_chips for e in self.engines), "peak_flops_per_chip": lead._peak_flops,
+            "hbm_bw_per_chip": lead._hbm_bw, "params": lead._costs.params,
+            "flops_per_token": lead._costs.matmul_flops_per_token,
+        }
+        for key in ("prefill", "decode"):
+            out[key] = summarize_window([v for e in self.engines for v in e._mfu_windows[key].values()])
+        out["tokens_per_second_per_chip"] = summarize_window(
+            [v for e in self.engines for v in e._tok_chip_window.values()]
+        )
+        roofline = {
+            key: summarize_window([v for e in self.engines for v in e._roofline_windows[key].values()])
+            for key in ("prefill", "decode")
+        }
+        roofline["bound"] = mfu_mod.classify_bound(roofline["decode"]["p50"])
+        out["roofline"] = roofline
+        return out
+
+    def _merged_slo(self) -> dict | None:
+        """Summed goodput, the hottest replica's burn (JAX ``_merged_slo``)."""
+        return pool_snapshots([e.slo.snapshot() for e in self.engines if e.slo is not None]) or None
 
     def debug_state(self) -> dict:
         return {
@@ -5150,6 +5913,8 @@ class ReplicatedLLMEngine:
             "poison_deaths": self.poison_deaths,
             "poisoned": self.poisoned,
             "canary": self._canary_enabled,
+            "phases": self._merged_phases(),
+            "slo": self._merged_slo(),
             "goodput": self._merged_goodput(),
             "usage": self.usage.snapshot() if self.usage is not None else None,
             "per_replica": [e.debug_state() for e in self.engines],
@@ -5233,3 +5998,10 @@ class ReplicatedLLMEngine:
             self.supervisor.close()
         for e in self.engines:
             e.close()
+        if self.metrics is not None:
+            # a closed fleet exports no live state (JAX llm.py:8610-8624)
+            for name in ("app_llm_retry_budget_remaining", "app_llm_devices_quarantined", "app_llm_replicas_parked",
+                         "app_llm_replicas_failed", "app_llm_rollout_state"):
+                self.metrics.set_gauge(name, 0.0, model=self.label)
+            for v in set(self._versions) | self._versions_seen:
+                self.metrics.set_gauge("app_llm_model_version_info", 0.0, model=self.label, version=v)

@@ -30,10 +30,15 @@ replicas by resident slots. Every failure degrades to a colocated submit:
 a dead decode pool re-prefills on a live prefill replica, a missing
 publish or a full pool costs a re-prefill on the decode side.
 
-The JAX engine's ``app_llm_kv_handoff*`` and ``app_llm_collective_seconds``
-series and its ``llm.disagg`` / ``disagg.*`` spans come with the port's
-metrics and tracing (ROADMAP ID 10); the counters they read are here.
-Tensor-parallel role pools (``meshes=``) wait for ROADMAP ID 11.
+With a ``metrics`` manager the engine writes the JAX engine's
+``app_llm_kv_handoffs_total{outcome}``, ``app_llm_kv_handoff_seconds``
+(submit to decode admission of an ok handoff) and
+``app_llm_collective_seconds{phase=kv_handoff_transfer}`` (the host wall
+of enqueueing the device copy, or of staging through host memory); with
+a ``tracer`` every request is one ``llm.disagg`` journey whose
+``disagg.prefill_probe``, ``disagg.kv_handoff`` and
+``disagg.decode_admit`` phases and both pools' ``llm.request`` spans nest
+under it. Tensor-parallel role pools (``meshes=``) wait for ROADMAP ID 11.
 """
 
 from __future__ import annotations
@@ -49,6 +54,7 @@ import torch
 from . import resolve_device
 from .llm import EngineDraining, EngineOverloaded, EngineStoppedError, GenRequest, ReplicatedLLMEngine
 from .resilience import FairLedger
+from .tracing import current_span, parse_traceparent
 
 __all__ = ["DisaggregatedLLMEngine"]
 
@@ -126,6 +132,8 @@ class DisaggregatedLLMEngine:
         self.logger = logger
         self.label = engine_kw.pop("kv_label", "llm")
         self.version = str(version)
+        self.metrics = engine_kw.get("metrics")
+        self.tracer = engine_kw.get("tracer")
         dev = engine_kw.pop("device", None)
         if devices is None:
             devices = [resolve_device(dev)] * max(2, int(replicas or 2))
@@ -200,6 +208,12 @@ class DisaggregatedLLMEngine:
             raise EngineDraining("engine draining (rolling deploy)")
         with self._lock:
             self.submitted += 1
+        if self.tracer is not None and req.traceparent is None:
+            # the caller's trace context, captured on the submitting thread:
+            # the handoff worker's thread carries none
+            cs = current_span()
+            if cs is not None and cs.end_ns == 0:
+                req.traceparent = cs.traceparent
         if req.session_id:
             return self.decode.submit(req)
         peng = self._pick_prefill()
@@ -207,10 +221,24 @@ class DisaggregatedLLMEngine:
             # the prefill pool is down: colocated on the decode pool
             with self._lock:
                 self.fallbacks += 1
+            self._count_handoff("fallback")
             return self.decode.submit(req)
-        # JAX opens an llm.disagg span here (ROADMAP ID 10)
+        dspan = None
+        if self.tracer is not None:
+            # one journey span for the whole decision: the probe's and the
+            # decode side's llm.request spans and the handoff phases nest
+            # under it (JAX llm_disagg.py:283-301)
+            dspan = self.tracer.start_detached_span(
+                "llm.disagg", parent=parse_traceparent(req.traceparent),
+                attributes={"llm.model": self.label, "llm.request_id": req.id,
+                            "llm.prompt_tokens": len(req.prompt_tokens)},
+            )
+            req.traceparent = dspan.traceparent
+            if req.journey_id is None:
+                req.journey_id = dspan.trace_id
         preq = GenRequest(list(req.prompt_tokens), max_new_tokens=1, temperature=0.0, eos_token=-1,
-                          priority=req.priority, client=req.client, deadline=req.deadline)
+                          priority=req.priority, client=req.client, deadline=req.deadline,
+                          traceparent=req.traceparent)
         tried: set[int] = set()
         while True:
             try:
@@ -222,21 +250,41 @@ class DisaggregatedLLMEngine:
                 if peng is None:
                     with self._lock:
                         self.fallbacks += 1
+                    self._count_handoff("fallback")
+                    if dspan is not None:
+                        dspan.set_attribute("llm.disagg.outcome", "fallback")
+                        dspan.end()
                     return self.decode.submit(req)
-        self._pool.submit(self._serve, req, peng, preq, time.perf_counter())
+        self._pool.submit(self._serve, req, peng, preq, time.perf_counter(), dspan)
         return req
 
-    def _serve(self, req: GenRequest, peng, preq: GenRequest, t0: float) -> None:
+    def _count_handoff(self, outcome: str) -> None:
+        if self.metrics is not None:
+            self.metrics.increment_counter("app_llm_kv_handoffs_total", model=self.label, outcome=outcome)
+
+    def _rec_phase(self, dspan, name: str, t0_ns: int, attrs: dict) -> None:
+        """One retrospective handoff phase under the journey span."""
+        if dspan is not None:
+            self.tracer.record_span(
+                name, trace_id=dspan.trace_id, parent_id=dspan.span_id, start_ns=t0_ns, end_ns=time.time_ns(),
+                attributes=attrs,
+            )
+
+    def _serve(self, req: GenRequest, peng, preq: GenRequest, t0: float, dspan=None) -> None:
         """Handoff worker: wait out the probe, move the prompt's KV to a
         decode replica, then hand the caller's request to it (an exact
         radix hit). Every failure falls back to a colocated submit; the
         stream errors only when no live replica exists anywhere."""
         try:
+            probe_t0 = time.time_ns()
             try:
                 preq.tokens(timeout=max(60.0, self.handoff_timeout_s))
                 prefilled = preq.finish_reason in ("eos", "length")
             except Exception:  # noqa: BLE001 — the probe died with its replica
                 prefilled = False
+            self._rec_phase(dspan, "disagg.prefill_probe", probe_t0,
+                            {"llm.request_id": req.id, "disagg.prefilled": prefilled})
+            handoff_t0 = time.time_ns()
             payload = None
             if prefilled and peng.alive():
                 try:
@@ -257,18 +305,45 @@ class DisaggregatedLLMEngine:
                     if self.logger is not None:
                         self.logger.warn(f"kv handoff import failed: {e!r}")
                     imported = False
+            admit_t0 = time.time_ns()
             placed_on = self._submit_decode(req, deng)
             # "ok" only when the replica holding the blocks took the request
+            outcome = "ok" if imported and placed_on is deng else "miss"
+            dt = time.perf_counter() - t0
             with self._lock:
-                if imported and placed_on is deng:
+                if outcome == "ok":
                     self.handoffs_ok += 1
                     self.handoff_bytes += nbytes
-                    self._handoff_window.append(time.perf_counter() - t0)
+                    self._handoff_window.append(dt)
                 else:
                     self.handoffs_miss += 1
+            self._count_handoff(outcome)
+            if outcome == "ok" and self.metrics is not None:
+                self.metrics.record_histogram(
+                    "app_llm_kv_handoff_seconds", dt, model=self.label,
+                    exemplar={"trace_id": dspan.trace_id} if dspan is not None else None,
+                )
+            self._rec_phase(dspan, "disagg.kv_handoff", handoff_t0, {
+                "llm.request_id": req.id, "disagg.outcome": outcome, "disagg.bytes": nbytes,
+                "disagg.imported": imported,
+            })
+            self._rec_phase(dspan, "disagg.decode_admit", admit_t0, {
+                "llm.request_id": req.id, "disagg.placed": placed_on is not None,
+                "disagg.on_transfer_target": placed_on is deng,
+            })
+            if dspan is not None:
+                dspan.set_attribute("llm.disagg.outcome", outcome)
+                dspan.set_attribute("llm.disagg.bytes", nbytes)
+                if placed_on is None:
+                    dspan.set_status("ERROR")
+                dspan.end()
         except BaseException as e:  # noqa: BLE001 — the stream must end
             if self.logger is not None:
                 self.logger.error(f"disaggregated serve failed: {e!r}")
+            if dspan is not None and dspan.end_ns == 0:
+                dspan.set_attribute("error", repr(e))
+                dspan.set_status("ERROR")
+                dspan.end()
             if req.finish_reason is None:
                 req.finish_reason = "error"
                 req.error = f"disaggregated serve failed: {e!r}"
@@ -299,6 +374,7 @@ class DisaggregatedLLMEngine:
                     fell_back = True
                     with self._lock:
                         self.fallbacks += 1
+                    self._count_handoff("fallback")
             try:
                 eng.submit(req)
                 return eng
@@ -328,6 +404,17 @@ class DisaggregatedLLMEngine:
         import records the copies on the decode engine's stream in turn).
         Host-staged: pinned host copies once the gather's event has passed
         (the import copies them in on its own stream)."""
+        t0 = time.perf_counter()
+        try:
+            return self._move(payload, deng)
+        finally:
+            if self.metrics is not None:
+                self.metrics.record_histogram(
+                    "app_llm_collective_seconds", time.perf_counter() - t0, model=self.label,
+                    phase="kv_handoff_transfer",
+                )
+
+    def _move(self, payload: dict, deng) -> dict:
         ready = payload.get("ready")
         src = {x: payload.get(x) for x in _HANDOFF_TENSORS}
         if not self.handoff_d2d:

@@ -9,10 +9,10 @@ exact percentiles (``summarize_window``); the anomaly detectors of
 ``flightrec`` read its means. Instruments are lock-light: one small lock
 a series map.
 
-The port registers only the series its goodput ledger and flight recorder
-write (``goodput.register_goodput_metrics``,
-``flightrec.register_flightrec_metrics``); the engine's other
-``app_llm_*`` series and the metrics server are ROADMAP ID 10 and ID 16.
+``slo`` holds the SLO engine (``SLOPolicy``, ``SLOTracker``). The engine,
+the KV cache manager, the resilience code, the goodput ledger and the
+flight recorder register their series on a ``Manager`` they are handed;
+the metrics server is ROADMAP ID 16.
 """
 
 from __future__ import annotations
@@ -22,11 +22,13 @@ import threading
 import time
 from typing import Iterable
 
-from .logging import Logger
+from ..logging import Logger
 
 DEFAULT_HISTOGRAM_BUCKETS = (
     0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1, 2.5, 5, 10,
 )
+# device-program latencies, 100 us .. 5 s (the engine's phase histograms)
+TPU_BUCKETS = (0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0)
 
 
 def _label_key(labels: dict[str, str]) -> tuple[tuple[str, str], ...]:

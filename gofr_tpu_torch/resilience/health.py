@@ -66,7 +66,7 @@ class DeviceHealthLedger:
 
     def __init__(
         self, *, failures: int | None = None, window_s: float | None = None, cooldown_s: float | None = None,
-        cooldown_max_s: float | None = None, now_fn=time.monotonic, logger=None,
+        cooldown_max_s: float | None = None, now_fn=time.monotonic, logger=None, metrics=None, model: str = "llm",
     ):
         if failures is None:
             failures = int(os.environ.get("TPU_LLM_DEVICE_QUARANTINE_FAILURES", "3"))
@@ -82,6 +82,9 @@ class DeviceHealthLedger:
         self.cooldown_max_s = cooldown_max_s
         self.now = now_fn
         self.logger = logger
+        # the quarantine counter and gauge (a fleet sets its manager)
+        self.metrics = metrics
+        self.model = model
         self.quarantines = 0  # trips, re-trips included
         self._lock = threading.Lock()
         # the incident seam (JAX health.py:159-165): ReplicatedLLMEngine
@@ -142,12 +145,19 @@ class DeviceHealthLedger:
                 f"device {device} quarantined ({reason}: {detail or 'n/a'}; trip {self.quarantines}, "
                 f"cooldown {self._devices[device]['cooldown']:.1f}s)"
             )
+        if tripped and self.metrics is not None:
+            self.metrics.increment_counter("app_llm_device_quarantines_total", model=self.model)
         if tripped and self.on_quarantine is not None:
             try:
                 self.on_quarantine(device, f"{reason}: {detail or 'n/a'}")
             except Exception:  # noqa: BLE001 — incident capture is best-effort
                 pass
+        self._observe_gauge()
         return tripped
+
+    def _observe_gauge(self) -> None:
+        if self.metrics is not None:
+            self.metrics.set_gauge("app_llm_devices_quarantined", float(self.quarantined_count()), model=self.model)
 
     def probe_ok(self, device: str) -> None:
         """A canary-gated rebuild on ``device`` passed: reintegrate it (a
@@ -161,6 +171,7 @@ class DeviceHealthLedger:
                 d["cooldown"] = self.cooldown_s
         if back and self.logger is not None:
             self.logger.info(f"device {device} reintegrated (canary passed)")
+        self._observe_gauge()
 
     def state(self, device: str) -> str:
         with self._lock:

@@ -25,10 +25,11 @@ copied: the port imports nothing of the JAX package).
   admin route, a concurrent one a 409.
 
 A rollback dumps a ``rollback`` incident bundle (``flightrec``) from a
-live replica before it converges. The JAX controller's ``app_llm_rollout*``
-and ``app_llm_faults_injected`` series and its ``rollout.shadow_replay``
-span come with the port's metrics and tracing (ROADMAP ID 10); each seam
-is marked where it goes.
+live replica before it converges. The controllers write the JAX
+controller's series (``app_llm_rollouts_{started,completed,rolled_back}
+_total``, the ``app_llm_rollout_state`` gauge, ``app_llm_faults_injected
+_total``), and a shadow replay is one ``rollout.shadow_replay`` journey
+when the candidate has a tracer.
 """
 
 from __future__ import annotations
@@ -56,6 +57,11 @@ class RolloutInProgress(RolloutError):
 
 
 _ACTIVE_STATES = ("idle", "shifting", "baking", "rolling_back")
+# the app_llm_rollout_state gauge's value per state (0 idle or terminal)
+ROLLOUT_STATE_GAUGE = {
+    "idle": 0.0, "shifting": 1.0, "baking": 2.0, "rolling_back": 3.0, "completed": 0.0, "rolled_back": 0.0,
+    "aborted": 0.0,
+}
 
 SHADOW_MAX_NEW = 8  # tokens per shadow replay (sanity, not equality)
 
@@ -86,40 +92,61 @@ def _recent_distinct(ring, n: int) -> list[tuple]:
 
 
 def shadow_probe(candidate, prompts, *, max_new: int = SHADOW_MAX_NEW, timeout: float = 60.0,
-                 adapter: str = "") -> tuple[bool, str]:
+                 adapter: str = "", tracer=None) -> tuple[bool, str]:
     """Replay a few real prompts on a not-yet-routed candidate and judge
     sanity only: each stream must complete (``max_new`` tokens; no eos is
     set) and stay inside the vocabulary (the numerical watchdog's sentinel
     -1 is outside it). Token equality is not checked: a new version
     answers differently. ``adapter`` replays through a staged LoRA adapter
-    of a live engine. (JAX wraps the replay in a ``rollout.shadow_replay``
-    span: ROADMAP ID 10.)"""
+    of a live engine. With a tracer (``tracer``, else the candidate's) the
+    replay is one ``rollout.shadow_replay`` journey and each probe's
+    engine spans nest under it."""
     from ..llm import GenRequest
+
+    prompts = list(prompts)
+    gate_span = tp = None
+    if tracer is None:
+        tracer = getattr(candidate, "tracer", None)
+    if tracer is not None:
+        gate_span = tracer.start_detached_span(
+            "rollout.shadow_replay", attributes={"rollout.probes": len(prompts), "rollout.adapter": adapter},
+        )
+        tp = gate_span.traceparent
+
+    def verdict(ok: bool, detail: str) -> tuple[bool, str]:
+        if gate_span is not None:
+            gate_span.set_attribute("rollout.verdict", detail)
+            if not ok:
+                gate_span.set_status("ERROR")
+            gate_span.end()
+        return ok, detail
 
     vocab = getattr(getattr(candidate, "cfg", None), "vocab_size", None)
     for n, prompt in enumerate(prompts):
         try:
             req = candidate.submit(GenRequest(
-                list(prompt), max_new_tokens=max_new, temperature=0.0, eos_token=-1, adapter=adapter, probe=True,
+                list(prompt), max_new_tokens=max_new, temperature=0.0, eos_token=-1, adapter=adapter,
+                traceparent=tp, probe=True,
             ))
             toks = req.tokens(timeout=timeout)
         except Exception as e:  # noqa: BLE001 — a crashing replay IS the verdict
-            return False, f"shadow probe {n} crashed: {e!r}"
+            return verdict(False, f"shadow probe {n} crashed: {e!r}")
         if len(toks) != max_new:
-            return False, (f"shadow probe {n} incomplete ({len(toks)}/{max_new} tokens, "
-                           f"finish={req.finish_reason!r})")
+            return verdict(False, f"shadow probe {n} incomplete ({len(toks)}/{max_new} tokens, "
+                                  f"finish={req.finish_reason!r})")
         if vocab is not None and any(t < 0 or t >= vocab for t in toks):
-            return False, f"shadow probe {n} emitted out-of-vocabulary token"
-    return True, "ok"
+            return verdict(False, f"shadow probe {n} emitted out-of-vocabulary token")
+    return verdict(True, "ok")
 
 
 class _RolloutBase:
     """The fleet controller's and the single-engine swap's shared state
     machine, history ring of 32 and bake-window watch."""
 
-    def __init__(self, *, label: str, logger=None, bake_s: float | None = None, shadow_probes: int | None = None,
-                 drain_timeout_s: float | None = None, interval_s: float = 0.05):
+    def __init__(self, *, label: str, metrics=None, logger=None, bake_s: float | None = None,
+                 shadow_probes: int | None = None, drain_timeout_s: float | None = None, interval_s: float = 0.05):
         self.label = label
+        self.metrics = metrics
         self.logger = logger
         self.bake_s = _env_float("TPU_LLM_ROLLOUT_BAKE_S", 5.0) if bake_s is None else max(0.0, float(bake_s))
         self.shadow_probes = (
@@ -144,6 +171,8 @@ class _RolloutBase:
     # -- lifecycle --------------------------------------------------------
     def start(self) -> None:
         self.started_at = time.perf_counter()
+        if self.metrics is not None:
+            self.metrics.increment_counter("app_llm_rollouts_started_total", model=self.label)
         self._thread = threading.Thread(target=self._run_safe, name="llm-rollout", daemon=True)
         self._thread.start()
 
@@ -193,11 +222,15 @@ class _RolloutBase:
 
     def _set_state(self, state: str) -> None:
         self.state = state
-        self._note(f"state -> {state}")  # + the app_llm_rollout_state gauge (ROADMAP ID 10)
+        self._note(f"state -> {state}")
+        if self.metrics is not None:
+            self.metrics.set_gauge("app_llm_rollout_state", ROLLOUT_STATE_GAUGE[state], model=self.label)
 
     def _finish(self, state: str) -> None:
         self.finished_at = time.perf_counter()
-        self._set_state(state)  # + app_llm_rollouts_{state}_total (ROADMAP ID 10)
+        self._set_state(state)
+        if self.metrics is not None and state in ("completed", "rolled_back"):
+            self.metrics.increment_counter(f"app_llm_rollouts_{state}_total", model=self.label)
 
     def snapshot(self) -> dict:
         out = {
@@ -223,8 +256,10 @@ class _RolloutBase:
         return self._fault_injector if self._fault_injector is not None else default_injector()
 
     def _count_fault(self, point: str) -> None:
-        if self.logger is not None:  # + app_llm_faults_injected_total (ROADMAP ID 10)
+        if self.logger is not None:
             self.logger.warn(f"fault injection: {point} fired on {self.label}")
+        if self.metrics is not None:
+            self.metrics.increment_counter("app_llm_faults_injected_total", point=point, model=self.label)
 
     def _wait_drained(self, engine, deadline: float) -> bool:
         while not self._stop and time.perf_counter() < deadline:
@@ -279,7 +314,7 @@ class RolloutController(_RolloutBase):
     step failed."""
 
     def __init__(self, fleet, to_version: str, **kw):
-        super().__init__(label=fleet.label, logger=fleet.logger, **kw)
+        super().__init__(label=fleet.label, metrics=fleet.metrics, logger=fleet.logger, **kw)
         self.fleet = fleet
         self.from_version = fleet.version
         self.to_version = to_version
@@ -463,7 +498,7 @@ class _EngineSwapRollout(_RolloutBase):
     so a regression swaps back instead of rebuilding."""
 
     def __init__(self, handle, to_version: str, cfg, params, **kw):
-        super().__init__(label=handle._engine.label, logger=handle._logger, **kw)
+        super().__init__(label=handle._engine.label, metrics=handle._metrics, logger=handle._logger, **kw)
         self.handle = handle
         self.from_version = handle._engine.version
         self.to_version = to_version
@@ -574,11 +609,12 @@ class ModelHandle:
     holds: on the card a params reference would pin a retired version's
     weights after a commit."""
 
-    def __init__(self, name: str, engine, *, build_kw: dict | None = None, logger=None):
+    def __init__(self, name: str, engine, *, build_kw: dict | None = None, logger=None, metrics=None):
         self.name = name
         self._engine = engine
         self._build_kw = dict(build_kw or {})
         self._logger = logger
+        self._metrics = metrics
         self._lock = threading.Lock()
         self._swap: _EngineSwapRollout | None = None
 
@@ -643,6 +679,10 @@ class ModelHandle:
             ok, detail = shadow_probe(eng, seen, adapter=staging)
             if not ok:
                 eng.evict_adapter(staging)  # and its host copy
+                if self._metrics is not None:
+                    self._metrics.increment_counter(
+                        "app_llm_rollouts_rolled_back_total", model=getattr(eng, "label", self.name),
+                    )
                 raise RolloutError(f"adapter {name!r} version {version!r} rejected by shadow gate: {detail}")
         eng.publish_adapter(staging, name)  # the host copy moves to ``name``
         if fair_weight is not None:

@@ -91,6 +91,7 @@ class ReplicaSupervisor:
                 st["parked"] = False
                 st["reason"] = None
                 st["next_try"] = now
+                self._observe_slots()
             if now < st["next_try"]:
                 continue
             self._rebuild(i, st)
@@ -102,6 +103,7 @@ class ReplicaSupervisor:
         if picked is None:
             st["parked"] = True
             st["reason"] = "parked: no usable device (home quarantined, no alternate)"
+            self._observe_slots()
             if log is not None:
                 log.error(f"replica {i} parked: no usable device for rebuild")
             return
@@ -141,6 +143,10 @@ class ReplicaSupervisor:
             health.probe_ok(key)
         self._state.pop(i, None)
         self.restarts += 1
+        self._observe_slots()
+        metrics = getattr(fleet, "metrics", None)
+        if metrics is not None:
+            metrics.increment_counter("app_llm_replica_restarts_total", model=fleet.label)
         self.rebuild_s.append(time.perf_counter() - t0)
         if log is not None:
             log.info(f"replica {i} restarted on {key} and routed back in {self.rebuild_s[-1]:.1f}s")
@@ -155,6 +161,7 @@ class ReplicaSupervisor:
         if self.max_attempts and st["failures"] >= self.max_attempts:
             st["failed"] = True
             st["reason"] = f"permanently failed after {st['failures']} rebuild attempts (last: {why})"
+            self._observe_slots()
             if log is not None:
                 log.error(f"replica {i} {st['reason']}")
             return
@@ -162,6 +169,14 @@ class ReplicaSupervisor:
         st["next_try"] = time.perf_counter() + st["backoff"]
         if log is not None:
             log.error(f"replica {i} rebuild on {key} failed ({why}); next attempt in {st['backoff']:.1f}s")
+
+    def _observe_slots(self) -> None:
+        """The capacity-degradation gauges: parked and permanently failed
+        slots (JAX ``_observe_slots``)."""
+        metrics = getattr(self.fleet, "metrics", None)
+        if metrics is not None:
+            metrics.set_gauge("app_llm_replicas_parked", float(self.parked_count()), model=self.fleet.label)
+            metrics.set_gauge("app_llm_replicas_failed", float(self.failed_count()), model=self.fleet.label)
 
     def parked_count(self) -> int:
         return sum(1 for st in list(self._state.values()) if st.get("parked"))

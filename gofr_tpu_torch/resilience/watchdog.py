@@ -82,6 +82,8 @@ class StepWatchdog:
     def _trip(self, name: str, dt: float) -> None:
         eng = self.engine
         self.trips += 1
+        if eng.metrics is not None:
+            eng.metrics.increment_counter("app_llm_watchdog_trips_total", model=eng.label)
         if eng.logger is not None:
             eng.logger.error(
                 f"LLM engine watchdog: {name} in flight {dt:.1f}s (threshold {self.threshold:.1f}s) — killing replica"

@@ -583,6 +583,21 @@ def test_moe_on_the_dense_slab():
 PROMPT = list(range(1, 9))
 
 
+def _hold_collector(eng) -> threading.Event:
+    """Slow ``eng``'s collector (JAX's or the port's) and block it while the
+    returned event is clear (``_contend`` clears it for the arrival)."""
+    process, hold = eng._process_entry, threading.Event()
+    hold.set()
+
+    def slow(entry):
+        hold.wait(timeout=10)
+        time.sleep(0.01)
+        return process(entry)
+
+    eng._process_entry = slow
+    return hold
+
+
 def _contend(eng, R, hold=None):
     """A batch request decoding 48 tokens when an interactive one arrives
     after its 4th (tests/test_torch_overload.py's ``_contend``)."""
@@ -620,7 +635,11 @@ def test_preempted_batch_stream_resumes_on_the_ring(mistral, lookahead):
     ref = JEngine(jcfg, jp, **JAX_KW, **kw)
     try:
         want = ref.generate(PROMPT, max_new_tokens=48)
-        got_j, inter_j, batch_j = _contend(ref, JRequest)
+        # both engines' collectors held while the interactive request
+        # arrives: without it a loaded host let the JAX batch stream's
+        # programs in flight cover its remaining tokens (a virtually free
+        # slot: no preemption)
+        got_j, inter_j, batch_j = _contend(ref, JRequest, _hold_collector(ref))
         assert batch_j.preempted == 1 and got_j == want
     finally:
         ref.close()
@@ -628,16 +647,7 @@ def test_preempted_batch_stream_resumes_on_the_ring(mistral, lookahead):
     try:
         assert port.kv.rolling and port.kv.capacity == 24
         assert port.generate(PROMPT, max_new_tokens=48) == want
-        process, hold = port._process_entry, threading.Event()
-        hold.set()
-
-        def slow(entry):
-            hold.wait(timeout=10)
-            time.sleep(0.01)
-            return process(entry)
-
-        port._process_entry = slow
-        got, inter, batch = _contend(port, GenRequest, hold)
+        got, inter, batch = _contend(port, GenRequest, _hold_collector(port))
         assert got == want and inter == inter_j
         assert batch.preempted == port.preemptions == 1 and batch.finish_reason == "length"
         # the continuation's prompt carries the stream it had; it decodes

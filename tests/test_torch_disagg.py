@@ -25,6 +25,7 @@ from gofr_tpu_torch.config import new_mock_config
 from gofr_tpu_torch.datasource.gpu import GPURuntime
 from gofr_tpu_torch.llm import EngineStoppedError, GenRequest, LLMEngine
 from gofr_tpu_torch.llm_disagg import DisaggregatedLLMEngine
+from gofr_tpu_torch.metrics import Manager
 from gofr_tpu_torch.models import transformer as TT
 from gofr_tpu_torch.resilience.rollout import ModelHandle, RolloutError
 
@@ -111,29 +112,33 @@ def test_export_none_for_an_unpublished_prompt_and_an_unpaged_engine(weights):
 
 
 def test_export_counts_no_hit(weights):
-    """``count=False``: an export probe leaves the port's hit counters
-    alone, as it leaves the JAX engine's app_kvcache_events series (JAX's
-    radix stats count every lookup; the port's stand in for the series)."""
+    """``count=False``: an export probe leaves the ``app_kvcache_events``
+    series alone on both engines, and counts in the radix's stats as JAX's
+    does (three exports, three exact hits); an admission's consult counts
+    in both."""
     prompt = [5, 9, 2, 7, 1, 3, 8]
-    m = new_metrics_manager()
-    eng = LLMEngine(weights[2], weights[3], prefix_cache_mb=8.0, **PORT_KW)
+    m, tm = new_metrics_manager(), Manager()
+    eng = LLMEngine(weights[2], weights[3], prefix_cache_mb=8.0, metrics=tm, **PORT_KW)
     je = JEngine(weights[0], weights[1], prefix_cache_mb=8.0, metrics=m, **JAX_KW)
 
-    def jax_hits():
-        rows = [ln for ln in m.render_prometheus().splitlines() if ln.startswith("app_kvcache_events") and
+    def hits(mgr):
+        rows = [ln for ln in mgr.render_prometheus().splitlines() if ln.startswith("app_kvcache_events") and
                 'event="hit"' in ln]
         return sum(float(r.rsplit(" ", 1)[1]) for r in rows)
 
     try:
         eng.generate(list(prompt), max_new_tokens=1, eos_token=-1)
         je.generate(list(prompt), max_new_tokens=1, eos_token=-1)
-        before, jbefore = eng.stats()["kvcache"]["prefix"], jax_hits()
+        before, jbefore = eng.stats()["kvcache"]["prefix"], je.stats()["kvcache"]["prefix"]
+        series, jseries = hits(tm), hits(m)
         for _ in range(3):
             assert eng.kv_handoff_export(prompt) is not None and je.kv_handoff_export(prompt) is not None
-        assert eng.stats()["kvcache"]["prefix"] == before and jax_hits() == jbefore
+        assert (hits(tm), hits(m)) == (series, jseries)
+        after, jafter = eng.stats()["kvcache"]["prefix"], je.stats()["kvcache"]["prefix"]
+        assert after["hits"] - before["hits"] == jafter["hits"] - jbefore["hits"] == 3
         plan = eng.kv.lookup_seed(prompt, allow_partial=False)  # an admission's consult counts
         eng.kv.release_plan(plan)
-        assert eng.stats()["kvcache"]["prefix"]["hits"] == before["hits"] + 1
+        assert eng.stats()["kvcache"]["prefix"]["hits"] == after["hits"] + 1 and hits(tm) == series + 1
     finally:
         eng.close()
         je.close()
@@ -166,7 +171,7 @@ def test_matches_jax_and_colocated_under_mixed_load(weights):
         assert pre["submitted"] == dec["submitted"] == len(MIXED)
         assert (pre["role"], dec["role"]) == ("prefill", "decode")
         assert dec["kvcache"]["prefix"]["hits"] == len(MIXED) and dec["prefill_tokens"] == 0
-        assert pre["kvcache"]["prefix"]["hits"] == 0  # the exports counted nothing
+        assert pre["kvcache"]["prefix"]["hits"] == len(MIXED)  # each export is one radix hit, as in JAX
     finally:
         eng.close()
 

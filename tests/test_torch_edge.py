@@ -701,3 +701,46 @@ def test_unknown_adapter_same_status(lora_apps, how):
     assert js == ps == 404, (j, p)
     if how != "generate_header":
         assert p == j
+
+
+def test_slo_knobs_engage_a_tracker_like_jax(weights, monkeypatch):
+    """Queue 3 item 33: ``TPU_LLM_SLO_TTFT_MS`` (and its siblings) in the
+    config build an SLO tracker on the engine ``register_llm`` returns,
+    with the JAX runtime's policy; the process env does the same on a bare
+    engine; an explicit ``slo=`` wins over the config."""
+    from gofr_tpu.datasource.tpu import TPURuntime
+    from gofr_tpu.llm import LLMEngine as JEngine
+    from gofr_tpu_torch.datasource.gpu import GPURuntime
+    from gofr_tpu_torch.llm import LLMEngine
+
+    jcfg, jp, tp = weights
+    cfg = TT.TransformerConfig.tiny()
+    knobs = {"TPU_LLM_SLO_TTFT_MS": "100"}
+    jrt = TPURuntime(jax_mock_config({**knobs, "TPU_TELEMETRY_INTERVAL_S": "0"}))
+    trt = GPURuntime(new_mock_config({**knobs, "TORCH_DEVICE": "cpu", "TPU_TELEMETRY_INTERVAL_S": "0"}))
+    jh = jrt.register_llm("m", jcfg, jp, slots=2, max_seq_len=64, warmup=False)
+    th = trt.register_llm("m", cfg, tp, slots=2, max_seq_len=64)
+    try:
+        assert jh.engine.slo is not None and th.engine.slo is not None
+        assert th.engine.slo.policy.to_dict() == jh.engine.slo.policy.to_dict() == {
+            "ttft_ms": 100.0, "tpot_ms": None, "availability": None}
+        assert len(th.generate([1, 2, 3], max_new_tokens=4)) == 4
+        assert th.engine.slo.snapshot()["total"] == 1
+    finally:
+        jh.close()
+        th.close()
+    th = trt.register_llm("m2", cfg, tp, slots=2, max_seq_len=64, slo={"tpot_ms": 7})
+    try:
+        assert th.engine.slo.policy.to_dict() == {"ttft_ms": None, "tpot_ms": 7.0, "availability": None}
+    finally:
+        th.close()
+        trt.close()
+        jrt.close()
+    monkeypatch.setenv("TPU_LLM_SLO_TTFT_MS", "100")
+    je = JEngine(jcfg, jp, slots=2, max_seq_len=64, warmup=False)
+    te = LLMEngine(cfg, tp, device="cpu", slots=2, max_seq_len=64)
+    try:
+        assert te.slo is not None and te.slo.policy.to_dict() == je.slo.policy.to_dict()
+    finally:
+        je.close()
+        te.close()

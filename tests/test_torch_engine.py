@@ -143,11 +143,12 @@ def test_port_imports_nothing_of_jax():
     files = sorted((ROOT / "gofr_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 5
     # every subpackage is walked, the copied host modules too
-    for sub in ("resilience", "structured", "spec", "kvcache", "datasource/gpu", "lora"):
+    for sub in ("resilience", "structured", "spec", "kvcache", "datasource/gpu", "lora", "metrics", "profiling"):
         assert any(f.parent == ROOT / "gofr_tpu_torch" / sub for f in files), sub
     assert ROOT / "gofr_tpu_torch" / "grpcx.py" in files
-    # the copied accounting and recorder modules are walked too
-    for name in ("metrics.py", "goodput.py", "flightrec.py"):
+    # the copied accounting, recorder, observability and tracing modules too
+    for name in ("metrics/__init__.py", "metrics/slo.py", "goodput.py", "flightrec.py", "tracing.py",
+                 "profiling/__init__.py", "profiling/mfu.py", "profiling/capture.py", "datasource/gpu/telemetry.py"):
         assert ROOT / "gofr_tpu_torch" / name in files, name
     bad = []
     for f in files:

@@ -358,8 +358,15 @@ def test_die_writes_a_classified_bundle_first(models, tmp_path):
         assert r.tokens(timeout=60) == [] or r.finish_reason == "cancelled"
         (b,) = _bundles(tmp_path)
         assert b["trigger"] == "numerical" and b["reason"].startswith("numerical watchdog")
+        # JAX's sections: ``compiles`` always (the capture registry's rows of
+        # this engine; on the CPU its first eager runs), ``traces`` only
+        # with a tracer (none here)
         assert {"manifest.json", "debug_state.json", "hbm.json", "config.json", "wide_events.json",
-                "anomaly.json", "flight_records.json"} == set(b["files"])
+                "anomaly.json", "flight_records.json", "compiles.json"} == set(b["files"])
+        with open(os.path.join(tmp_path, os.listdir(tmp_path)[0], "compiles.json")) as f:
+            comp = json.load(f)
+        assert comp["programs"] and {p["model"] for p in comp["programs"]} == {"llm"}
+        assert {p["measured"] for p in comp["programs"]} == {"first_call"}
         inflight = [rec for rec in b["records"] if not rec["final"]]
         assert [rec["id"] for rec in inflight] == [r.id] and inflight[0]["phase"] in ("prefill", "decode")
         assert done.id in {rec["id"] for rec in b["records"] if rec["final"]}

@@ -506,13 +506,32 @@ def test_int8_engine_greedy_identity_one_at_a_time(int8_engines):
         assert len(set(want)) > 1  # a real stream, not one repeated token
 
 
+def _together(eng, R, prompts, news):
+    """Submit every request before either engine's first admission (its
+    drain held until the last submit). Which requests share a unified
+    step fixes the chunk shape of its rows, and over an int8 pool a
+    chunk's own rows are attended at full precision while earlier chunks'
+    are read back quantized: so the streams depend on the admission
+    timing, in both engines, and the comparison must pin it."""
+    name = "_drain_and_observe" if isinstance(eng, JEngine) else "_drain_submits"
+    setattr(eng, name, lambda *a, **k: None)
+    try:
+        # one whole scheduler pass after the patch, so no pass that looked
+        # the real drain up before it drains a first submit alone
+        eng._run_on_scheduler(lambda: None)
+        return [eng.submit(R(p, max_new_tokens=n)) for p, n in zip(prompts, news)]
+    finally:
+        delattr(eng, name)
+
+
 def test_int8_engine_greedy_identity_concurrent(int8_engines):
     """More requests than slots, 19 new tokens each: prefill chunks share
     unified steps with decode chunks, then pure decode chunks run."""
     _mode, ref, port = int8_engines
     prompts = _prompts(11, (3, 17, 33, 9, 40, 16))
-    jreqs = [ref.submit(JRequest(p, max_new_tokens=19 if i % 2 else 8)) for i, p in enumerate(prompts)]
-    treqs = [port.submit(GenRequest(p, max_new_tokens=19 if i % 2 else 8)) for i, p in enumerate(prompts)]
+    news = [19 if i % 2 else 8 for i in range(len(prompts))]
+    jreqs = _together(ref, JRequest, prompts, news)
+    treqs = _together(port, GenRequest, prompts, news)
     for j, t in zip(jreqs, treqs):
         assert t.tokens() == j.tokens()
         assert t.finish_reason == "length"
