@@ -1,6 +1,6 @@
 """GPU smoke run of the PyTorch/CUDA port (gofr_tpu_torch) on one card.
 
-    python3 chip_smoke.py [--parent TREE] [--only observe|families|moe|contiguous|wave|knobs|mnist|fleet|rollout|disagg]
+    python3 chip_smoke.py [--parent TREE] [--only observe|families|moe|contiguous|wave|knobs|mnist|fleet|rollout|disagg|gateway]
 
 GOFR_BLACKBOX_DIR is set to a fresh temporary directory (removed at the
 end) and GOFR_BLACKBOX_INTERVAL_S to 1 before anything is built, so every
@@ -146,6 +146,24 @@ Phases, each raising on failure:
    KV pool must show 0 blocks in use within 3 s); both kernels must
    launch during the phase. Prints an "edge" line: tok/s and the
    client's time to first byte beside the engine phase's numbers;
+8b. gateway — while the edge phase's app still serves (``--only
+   gateway``: its own edge app at full depth first), a plain ``new()``
+   App in the same process in front of it (``build_gateway``: basic
+   auth, the model app as service ``gemma`` behind a circuit breaker,
+   and a service ``down`` on a port nothing listens on; ephemeral HTTP
+   and metrics ports). Checks: no credentials or a wrong password answer
+   401, health needs none; the burst as concurrent authenticated POST
+   /ask/gemma, forwarded through the async client (every token through
+   the replay gate, each stream the edge burst's for the same prompt or
+   leaving it only at a near-tie, both kernels launched during it); the
+   chat request streamed through astream joins to the plain answer;
+   /ask/down answers 503 twice, then 503 from the open breaker at once
+   while /ask/gemma serves; both apps' metrics servers, scraped over
+   HTTP, count the forwarded requests; new_cmd()'s ``replay -id`` of a
+   burst record reports token-identical (or a near-tie divergence) and
+   ``replay -bundle`` lists a bundle's records. Prints a "gateway" line:
+   tok/s and time to first byte through the gateway and direct, the
+   breaker's time to open, the launches;
 9. prefix — the prefix cache and the session tier at the same full
    width and CUT_LAYERS of 18 layers: LLMEngine(prefix_cache_mb=64, session_mb=64, host_cache_mb=256),
    its 15 families (kv_seed and the hit programs too) held bitwise
@@ -399,12 +417,15 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import base64
 import concurrent.futures
 import contextlib
 import ctypes
 import dataclasses
 import gc
 import http.client
+import importlib
+import io
 import json
 import math
 import os
@@ -1630,7 +1651,7 @@ def _metric_lines(text: str, name: str) -> dict:
     """{label string: value} of one series in a Prometheus exposition."""
     out = {}
     for line in text.splitlines():
-        m = re.match(rf"^{name}(\{{[^}}]*\}})? (\S+)$", line)
+        m = re.match(rf"^{name}(\{{.*\}})? (\S+)$", line)  # a label value may hold braces: /ask/{{svc}}
         if m:
             out[m.group(1) or ""] = float(m.group(2))
     return out
@@ -1815,7 +1836,7 @@ def _observe(dev: dict, seed: int, cfg, params, eng, main) -> dict:
     lap("probe")
 
     # 4. the quota: a quarter of acme's metered rate sheds its next submit
-    app = new_app(new_mock_config({"HTTP_PORT": "0", "REQUEST_TIMEOUT": "600", "LOG_LEVEL": "WARN"}))
+    app = new_app(new_mock_config({"HTTP_PORT": "0", "METRICS_PORT": "0", "REQUEST_TIMEOUT": "600", "LOG_LEVEL": "WARN"}))
     rt = app.container.tpu()
     rt._llms["gemma"] = ModelHandle("gemma", eng)
 
@@ -2046,7 +2067,7 @@ def _observe_device(dev: dict, seed: int, cfg, params, eng, prompts, new_tokens:
 
     out: dict = {}
     m = eng.metrics
-    app = new_app(new_mock_config({"HTTP_PORT": "0", "REQUEST_TIMEOUT": "600", "LOG_LEVEL": "WARN",
+    app = new_app(new_mock_config({"HTTP_PORT": "0", "METRICS_PORT": "0", "REQUEST_TIMEOUT": "600", "LOG_LEVEL": "WARN",
                                    "TRACE_RING_SPANS": "262144"}))
     tracer = app.tracer
 
@@ -3351,9 +3372,10 @@ def _divergence_at_near_ties(params, cfg, prompts, got, want, gap: float, label:
             logits = logits.masked_fill(~allowed, float("-inf"))
         top2 = torch.topk(logits, 2).values
         g = float(top2[0] - top2[1])
-        print(f"{label}request {i} (prompt {len(p)}) leaves the spec-off stream at token {j}: top-2 gap {g:.4f}")
+        print(f"{label}request {i} (prompt {len(p)}) leaves the stream it is held against at token {j}: "
+              f"top-2 gap {g:.4f}")
         if g >= gap:
-            raise AssertionError(f"{label}request {i} differs from spec-off at token {j}, gap {g:.4f} >= {gap}")
+            raise AssertionError(f"{label}request {i} differs from its reference at token {j}, gap {g:.4f} >= {gap}")
     return differ
 
 
@@ -3826,18 +3848,96 @@ def _sse_events(raw: bytes) -> list:
     return [json.loads(e) for e in events[:-1]]
 
 
-def phase_edge(dev: dict, seed: int, cfg: TransformerConfig, params: dict, engine_out: dict) -> dict:
+GATEWAY_USER, GATEWAY_PASSWORD = "smoke", "gateway-secret"
+_JSON = {"Content-Type": "application/json"}
+
+
+def free_port() -> int:
+    """A loopback port nothing listens on (bound once, then released)."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def basic_auth(user: str = GATEWAY_USER, password: str = GATEWAY_PASSWORD) -> dict:
+    return {"Authorization": "Basic " + base64.b64encode(f"{user}:{password}".encode()).decode()}
+
+
+def build_gateway(model_url: str, down_url: str, package: str = "gofr_tpu_torch"):
+    """The gateway in front of a model app: a plain ``new()`` App on
+    ephemeral HTTP and metrics ports (REQUEST_TIMEOUT 600) with basic auth
+    (GATEWAY_USER / GATEWAY_PASSWORD) and two outbound services: ``gemma``
+    at ``model_url`` (breaker threshold 3, interval 1 s, health at
+    .well-known/alive) and ``down`` at ``down_url`` (threshold 2, 1 s).
+    ``POST /ask/{svc}`` forwards its body to the service's ``/generate``
+    through the async client; ``POST /ask/{svc}/stream`` proxies the
+    OpenAI chat route through ``astream``, chunk by chunk. An open breaker
+    or an unreachable service answers 503; any upstream answer passes
+    through with its status and body. ``package`` is the framework the
+    gateway is built from: the port by default (the CPU tests build the
+    same gateway over the JAX package too). Returns the App, not started."""
+    mod = lambda name: importlib.import_module(f"{package}.{name}")  # noqa: E731
+    app_mod, config, errors, responder, service = (
+        mod(n) for n in ("app", "config", "http.errors", "http.responder", "service"))
+    app = app_mod.new(config=config.new_mock_config({
+        "APP_NAME": "gateway", "HTTP_PORT": "0", "METRICS_PORT": "0", "REQUEST_TIMEOUT": "600", "LOG_LEVEL": "ERROR",
+    }))
+    app.enable_basic_auth(GATEWAY_USER, GATEWAY_PASSWORD)
+    app.add_http_service("gemma", model_url, service.CircuitBreaker(threshold=3, interval=1.0),
+                         service.HealthConfig(".well-known/alive"))
+    app.add_http_service("down", down_url, service.CircuitBreaker(threshold=2, interval=1.0))
+
+    def upstream(ctx):
+        name = ctx.path_param("svc")
+        svc = ctx.get_http_service(name)
+        if svc is None:
+            raise errors.ErrorEntityNotFound("service", name)
+        return name, svc
+
+    async def ask(ctx):
+        name, svc = upstream(ctx)
+        try:
+            resp = await svc.apost("generate", body=ctx.request.body, headers=_JSON, timeout=600.0)
+        except service.CircuitOpenError as e:
+            raise errors.ErrorServiceUnavailable(str(e)) from None
+        except OSError:
+            raise errors.ErrorServiceUnavailable(f"service {name} unreachable") from None
+        ctype = {k.lower(): v for k, v in resp.headers.items()}.get("content-type", "application/json")
+        return responder.Response(resp.status_code, [("Content-Type", ctype)], resp.body)
+
+    async def ask_stream(ctx):
+        name, svc = upstream(ctx)
+        try:
+            st = await svc.astream("POST", "v1/chat/completions", body=ctx.request.body, headers=_JSON,
+                                   timeout=600.0, metric_path="v1/chat/completions")
+        except service.CircuitOpenError as e:
+            raise errors.ErrorServiceUnavailable(str(e)) from None
+        except (OSError, EOFError):
+            raise errors.ErrorServiceUnavailable(f"service {name} unreachable") from None
+        ctype = st.headers.get("content-type", "application/json")
+        if st.status_code != 200 or not st.streamed:
+            return responder.Response(st.status_code, [("Content-Type", ctype)], await st.aread())
+        return responder.StreamingResponse(st.aiter_raw(), ctype)
+
+    app.post("/ask/{svc}", ask)
+    app.post("/ask/{svc}/stream", ask_stream)
+    return app
+
+
+def phase_edge(dev: dict, seed: int, cfg: TransformerConfig, params: dict, engine_out: dict | None,
+               gateway: bool = True) -> dict:
     """The port's HTTP server (gofr_tpu_torch.serve) on an ephemeral port,
     serving Gemma-2B through a bf16 engine at its defaults over the same
     weights, driven over real sockets: the burst as concurrent POST
     /generate requests (every token through the replay gate), one OpenAI
     chat request plain and then SSE, and a client that hangs up mid-stream
-    (its blocks must be free within 3 s)."""
+    (its blocks must be free within 3 s). Then, with ``gateway``, the
+    gateway part (``_gateway``) against this app while it still serves."""
     from gofr_tpu_torch.config import new_mock_config
     from gofr_tpu_torch.serve import build_app
 
     app = build_app(new_mock_config({
-        "HTTP_PORT": "0", "GEMMA_PRESET": "2b", "LLM_SLOTS": "32", "LLM_MAX_SEQ": "512",
+        "HTTP_PORT": "0", "METRICS_PORT": "0", "GEMMA_PRESET": "2b", "LLM_SLOTS": "32", "LLM_MAX_SEQ": "512",
         "REQUEST_TIMEOUT": "600", "LOG_LEVEL": "WARN",
     }), params=params)
     thread = app.run_in_background()
@@ -3934,6 +4034,11 @@ def phase_edge(dev: dict, seed: int, cfg: TransformerConfig, params: dict, engin
             raise AssertionError(f"disconnected stream not retired within 3 s: {st}")
         launches = {"flash_attention": A.flash_attention.launches,
                     "paged_decode_partials": A.paged_decode_partials.launches}
+        first = sorted(a[2] for a in answers.values())
+        gw = None
+        if gateway:
+            gw = _gateway(dev, app, cfg, params, prompts, results, new_tokens, chat, content,
+                          {"tok_s": total / wall, "ttft_p50_s": first[len(first) // 2], "sse_first_byte_s": sse_first})
     finally:
         app.shutdown()
         thread.join(timeout=60)
@@ -3943,20 +4048,200 @@ def phase_edge(dev: dict, seed: int, cfg: TransformerConfig, params: dict, engin
         if n <= 0 or burst_launches[name] <= 0:
             raise AssertionError(f"{name} was not launched while the edge served: {launches}, burst {burst_launches}")
 
-    first = sorted(a[2] for a in answers.values())
     out = {
         "requests": len(results), "tokens": total, "wall_s": wall, "tok_s": total / wall,
         "ttft_p50_s": first[len(first) // 2], "ttft_max_s": first[-1], "sse_first_byte_s": sse_first,
         "disconnect_freed_s": freed_s, "tokens_matched": checked, "tokens_exempt": exempt,
-        "launches": launches, "burst_launches": burst_launches, "warmup": warm,
+        "launches": launches, "burst_launches": burst_launches, "warmup": warm, "gateway": gw,
     }
+    engine_note = "" if engine_out is None else (
+        f"; engine phase in-process {engine_out['tok_s']:.1f} tok/s, ttft p50 {engine_out['ttft_p50_s']:.3f}s max "
+        f"{engine_out['ttft_max_s']:.3f}s")
     print(
         f"edge gemma_2b over HTTP on {dev['smi']}: {out['requests']} concurrent POST /generate, {total} tokens "
         f"in {wall:.3f}s = {out['tok_s']:.1f} tok/s; client ttft (first response byte, which carries the whole "
-        f"answer) p50 {out['ttft_p50_s']:.3f}s max {out['ttft_max_s']:.3f}s; engine phase in-process "
-        f"{engine_out['tok_s']:.1f} tok/s, ttft p50 {engine_out['ttft_p50_s']:.3f}s max "
-        f"{engine_out['ttft_max_s']:.3f}s; {checked} tokens matched, {exempt} exempt; SSE first byte "
-        f"{sse_first:.3f}s; disconnect freed in {freed_s:.3f}s; burst launches {burst_launches}, phase {launches}"
+        f"answer) p50 {out['ttft_p50_s']:.3f}s max {out['ttft_max_s']:.3f}s{engine_note}; {checked} tokens "
+        f"matched, {exempt} exempt; SSE first byte {sse_first:.3f}s; disconnect freed in {freed_s:.3f}s; "
+        f"burst launches {burst_launches}, phase {launches}"
+    )
+    return out
+
+
+def _series(port: int, name: str) -> dict:
+    """One series of an app's metrics server, scraped over HTTP."""
+    status, raw, _, _, _ = _http(port, "GET", "/metrics", timeout=30)
+    if status != 200:
+        raise AssertionError(f"scrape of :{port}/metrics: {status}")
+    return _metric_lines(raw.decode(), name)
+
+
+def _cli(app, argv: list) -> tuple[int, str]:
+    """Run a CMDApp with ``argv``; -> (exit code, what it printed)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(buf):
+        rc = app.run(argv)
+    return rc, buf.getvalue()
+
+
+def _gateway(dev: dict, model_app, cfg, params, prompts, direct: dict, new_tokens: int, chat: dict, content: str,
+             direct_stats: dict) -> dict:
+    """The gateway part: ``build_gateway`` in front of the edge phase's
+    model app (Gemma-2B, full width and depth), in the same process.
+    Checks, each raising: (1) auth: no credentials and a wrong password
+    answer 401 with the framework's body, health needs none; (2) the burst
+    as concurrent authenticated POST /ask/gemma: 201, every token through
+    the replay gate, each stream equal to the direct /generate stream of
+    the same prompt or leaving it only at a near-tie, both kernels
+    launched during the burst; (3) the chat request streamed through POST
+    /ask/gemma/stream joins to the plain answer's content; (4) /ask/down
+    answers 503 twice (unreachable), then 503 CircuitOpenError at once,
+    while /ask/gemma keeps serving; (5) both apps' metrics servers,
+    scraped over HTTP, count the forwarded requests (the gateway's
+    app_http_service_response, the model app's app_http_response by
+    template); (6) ``new_cmd()``'s ``replay -id`` of a burst record
+    reports token-identical (or a divergence at a near-tie) and ``replay
+    -bundle`` lists a bundle's records."""
+    from gofr_tpu_torch import new_cmd
+    from gofr_tpu_torch.config import new_mock_config
+
+    t_part = time.perf_counter()
+    eng = model_app.container.tpu().llm("gemma")
+    mport, mmetrics = model_app.http_server.port, model_app.metrics_server.port
+    gw = build_gateway(f"http://127.0.0.1:{mport}", f"http://127.0.0.1:{free_port()}")
+    thread = gw.run_in_background()
+    port, gmetrics = gw.http_server.port, gw.metrics_server.port
+    auth = basic_auth()
+    small = {"tokens": prompts[0], "max_new_tokens": 8}
+    forwarded = 0
+    try:
+        # 1. auth
+        unauthorized = b'{"error":{"message":"Unauthorized"}}'
+        for hdrs in ({}, basic_auth(password="wrong")):
+            status, raw, _, _, _ = _http(port, "POST", "/ask/gemma", small, hdrs)
+            if status != 401 or raw != unauthorized:
+                raise AssertionError(f"gateway auth {sorted(hdrs)}: {status} {raw[:200]!r}")
+        status, raw, _, _, _ = _http(port, "GET", "/.well-known/health")
+        health = json.loads(raw)["data"] if status == 200 else {}
+        if health.get("gemma", {}).get("status") != "UP" or health.get("down", {}).get("status") != "DOWN":
+            raise AssertionError(f"gateway health without credentials: {status} {raw[:300]!r}")
+
+        # 2. the burst through the gateway
+        series = 'app_http_response_count'
+        model0 = _series(mmetrics, series).get('{method="POST",path="/generate",status="201"}', 0.0)
+        answers: dict = {}
+        errors: list = []
+
+        def client(i):
+            try:
+                answers[i] = _http(port, "POST", "/ask/gemma", {"tokens": prompts[i], "max_new_tokens": new_tokens},
+                                   auth)
+            except BaseException as e:  # surfaced below, after every client joined
+                errors.append(e)
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(len(prompts))]
+        l0 = (A.flash_attention.launches, A.paged_decode_partials.launches)
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=900)
+        wall = time.perf_counter() - t0
+        launches = {"flash_attention": A.flash_attention.launches - l0[0],
+                    "paged_decode_partials": A.paged_decode_partials.launches - l0[1]}
+        if errors:
+            raise errors[0]
+        if len(answers) != len(prompts):
+            raise TimeoutError(f"{len(answers)} of {len(prompts)} gateway clients finished")
+        results = {}
+        for i, (status, raw, _, _, _) in sorted(answers.items()):
+            toks = json.loads(raw)["data"]["tokens"] if status == 201 else None
+            if toks is None or len(toks) != new_tokens:
+                raise AssertionError(f"gateway request {i} (prompt {len(prompts[i])}): {status} {raw[:200]!r}")
+            results[i] = toks
+        forwarded += len(results)
+        checked, exempt = _replay_gate(params, cfg, prompts, results, TOKEN_GAP, label="gateway ", verbose=False)
+        differ = _divergence_at_near_ties(params, cfg, prompts, results, direct, TOKEN_GAP, "gateway ")
+        for name, n in launches.items():
+            if n <= 0:
+                raise AssertionError(f"{name} was not launched during the gateway's burst: {launches}")
+        total = sum(len(t) for t in results.values())
+        first = sorted(a[2] for a in answers.values())
+
+        # 3. the chat request streamed through the gateway
+        status, raw, gw_first, _, _ = _http(port, "POST", "/ask/gemma/stream", {**chat, "stream": True}, auth)
+        if status != 200:
+            raise AssertionError(f"gateway SSE: {status} {raw[:300]!r}")
+        joined = "".join(e["choices"][0]["delta"].get("content", "") for e in _sse_events(raw))
+        if joined != content:
+            raise AssertionError(f"gateway SSE deltas {joined!r} differ from the plain answer {content!r}")
+
+        # 4. the breaker of the service nothing listens on
+        t0 = time.perf_counter()
+        downs = [_http(port, "POST", "/ask/down", small, auth) for _ in range(3)]
+        open_s = time.perf_counter() - t0
+        msgs = [json.loads(d[1])["error"]["message"] if d[0] == 503 else f"status {d[0]}" for d in downs]
+        if (msgs[:2] != ["service down unreachable"] * 2 or not msgs[2].startswith("circuit breaker open for")
+                or open_s > 5.0):
+            raise AssertionError(f"gateway breaker: {msgs} in {open_s:.3f}s")
+        status, raw, _, _, _ = _http(port, "POST", "/ask/gemma", small, auth)
+        if status != 201 or len(json.loads(raw)["data"]["tokens"]) != 8:
+            raise AssertionError(f"gemma while down's breaker is open: {status} {raw[:200]!r}")
+        forwarded += 1
+
+        # 5. both metrics servers, over HTTP
+        svc_count = _series(gmetrics, "app_http_service_response_count")
+        fwd = svc_count.get('{method="POST",path="generate",status="201"}', 0.0)
+        model1 = _series(mmetrics, series).get('{method="POST",path="/generate",status="201"}', 0.0)
+        refused = _series(gmetrics, series).get('{method="POST",path="/ask/{svc}",status="401"}', 0.0)
+        if fwd != forwarded or model1 - model0 != forwarded or refused != 2:
+            raise AssertionError(f"gateway metrics: service {fwd}, model app {model1 - model0}, 401s {refused}; "
+                                 f"forwarded {forwarded}")
+
+        # 6. the CLI: replay a burst record, list a bundle
+        cli = new_cmd(config=new_mock_config({"LOG_LEVEL": "ERROR"}))
+        rec = next((r for r in eng.flightrec.records(final=True) if r.get("prompt_token_ids") == prompts[3]), None)
+        if rec is None:
+            raise AssertionError("gateway: no final flight record of the burst")
+        rc, said = _cli(cli, ["replay", f"-id={rec['id']}", f"-url=http://127.0.0.1:{mport}", "-model=gemma"])
+        m = re.search(r"DIVERGED at token index (\d+)", said)
+        if rc != 0 or ("token-identical" not in said and m is None):
+            raise AssertionError(f"gateway CLI replay: exit {rc}: {said!r}")
+        if m is not None:  # a divergence must sit at a near-tie of the recorded stream
+            k = int(m.group(1))
+            emitted = list(rec["emitted_token_ids"])
+            _divergence_at_near_ties(params, cfg, [list(rec["prompt_token_ids"])], [emitted[:k] + [-1]], [emitted],
+                                     TOKEN_GAP, "gateway replay ")
+        path = eng._incident("manual_check", reason="gateway: a bundle for the CLI")
+        if path is None:
+            raise AssertionError("gateway: no bundle written")
+        rc, listed = _cli(cli, ["replay", f"-bundle={path}"])
+        n_records = _bundle(path, "gateway ")["manifest"]["flight_records"]
+        if rc != 0 or not listed.startswith(f"{n_records} flight record(s) in {path}:") or n_records < 1 \
+                or len(listed.strip().splitlines()) != n_records + 1:
+            raise AssertionError(f"gateway CLI bundle listing: exit {rc}: {listed[:300]!r}")
+    finally:
+        gw.shutdown()
+        thread.join(timeout=60)
+    if thread.is_alive():
+        raise AssertionError("gateway did not stop")
+    out = {
+        "requests": len(results), "tokens": total, "wall_s": wall, "tok_s": total / wall,
+        "ttft_p50_s": first[len(first) // 2], "ttft_max_s": first[-1], "sse_first_byte_s": gw_first,
+        "direct_tok_s": direct_stats["tok_s"], "direct_ttft_p50_s": direct_stats["ttft_p50_s"],
+        "direct_sse_first_byte_s": direct_stats["sse_first_byte_s"], "breaker_open_s": open_s,
+        "streams_differ": differ, "tokens_matched": checked, "tokens_exempt": exempt, "launches": launches,
+        "forwarded": forwarded, "replay": said.strip(), "bundle_records": n_records,
+        "seconds": time.perf_counter() - t_part,
+    }
+    print(
+        f"gateway gemma_2b on {dev['smi']}: {out['requests']} concurrent authenticated POST /ask/gemma through the "
+        f"gateway's async client, {total} tokens in {wall:.3f}s = {out['tok_s']:.1f} tok/s against "
+        f"{out['direct_tok_s']:.1f} tok/s direct; client ttft (first response byte) p50 {out['ttft_p50_s']:.3f}s "
+        f"against {out['direct_ttft_p50_s']:.3f}s direct; SSE first byte {gw_first:.3f}s through the gateway, "
+        f"{out['direct_sse_first_byte_s']:.3f}s direct; {checked} tokens matched, {exempt} exempt, {differ} streams "
+        f"leave the direct ones at near-ties; breaker open after 2 failures in {open_s:.3f}s; forwarded "
+        f"{forwarded}; burst launches {launches}; CLI: {out['replay']}; bundle of {n_records} records listed; "
+        f"part {out['seconds']:.1f}s"
     )
     return out
 
@@ -5330,7 +5615,7 @@ def phase_mnist(dev: dict, seed: int) -> dict:
     with torch.inference_mode():
         plain = mlp_forward({k: v.float() for k, v in params.items()}, torch.from_numpy(images).cuda()).cpu().numpy()
     t0 = time.perf_counter()
-    app = serve_mnist.build_app(new_mock_config({"HTTP_PORT": "0", "REQUEST_TIMEOUT": "30", "LOG_LEVEL": "ERROR"}),
+    app = serve_mnist.build_app(new_mock_config({"HTTP_PORT": "0", "METRICS_PORT": "0", "REQUEST_TIMEOUT": "30", "LOG_LEVEL": "ERROR"}),
                                 params=params)
     register_s = time.perf_counter() - t0
     th = app.run_in_background()
@@ -5515,7 +5800,7 @@ def phase_fleet(dev: dict, seed: int, cfg=None, params=None, main: dict | None =
     out: dict = {}
     mem0 = _fleet_memory("before the fleet")
     app = build_app(new_mock_config({
-        "HTTP_PORT": "0", "GEMMA_PRESET": "2b", "LLM_SLOTS": "32", "LLM_MAX_SEQ": "512", "LLM_REPLICAS": "2",
+        "HTTP_PORT": "0", "METRICS_PORT": "0", "GEMMA_PRESET": "2b", "LLM_SLOTS": "32", "LLM_MAX_SEQ": "512", "LLM_REPLICAS": "2",
         "TPU_LLM_STEP_WATCHDOG_S": str(FLEET_WATCHDOG_S), "REQUEST_TIMEOUT": "600", "LOG_LEVEL": "WARN",
     }), params=params)
     thread = app.run_in_background()
@@ -5831,7 +6116,7 @@ def phase_rollout(dev: dict, seed: int) -> dict:
     out: dict = {}
     mem0 = _fleet_memory("before the rollout fleet")
     app = build_app(new_mock_config({
-        "HTTP_PORT": "0", "GEMMA_PRESET": "2b", "LLM_SLOTS": "32", "LLM_MAX_SEQ": "512", "LLM_REPLICAS": "2",
+        "HTTP_PORT": "0", "METRICS_PORT": "0", "GEMMA_PRESET": "2b", "LLM_SLOTS": "32", "LLM_MAX_SEQ": "512", "LLM_REPLICAS": "2",
         "REQUEST_TIMEOUT": "600", "LOG_LEVEL": "WARN",
     }), params=weights["v1"])
     thread = app.run_in_background()
@@ -6151,7 +6436,7 @@ def main() -> int:
                     help="also build another checkout's paged-decode kernels (e.g. the parent commit from "
                          "git archive) and time them beside this tree's on the same inputs")
     ap.add_argument("--only", choices=("observe", "families", "moe", "contiguous", "wave", "knobs", "mnist", "fleet",
-                                       "rollout", "disagg"),
+                                       "rollout", "disagg", "gateway"),
                     help="build the kernels and run this one phase, which makes its own weights (prints no "
                          "kernels line and no result)")
     args = ap.parse_args()
@@ -6196,6 +6481,10 @@ def _main(args, dev: dict) -> int:
     if args.only:
         if args.only == "observe":
             timed("observe", phase_observe, dev, SEED, *gemma_weights(SEED))
+        elif args.only == "gateway":  # the edge phase's model app of its own, full depth, then the gateway part
+            edge = timed("edge", phase_edge, dev, SEED, *gemma_weights(SEED), None)
+            seconds["edge"] -= edge["gateway"]["seconds"]
+            seconds["gateway"] = edge["gateway"]["seconds"]
         else:
             timed(args.only, {"families": phase_families, "moe": phase_moe, "contiguous": phase_contiguous,
                               "wave": phase_wave, "knobs": phase_knobs, "mnist": phase_mnist,
@@ -6219,7 +6508,9 @@ def _main(args, dev: dict) -> int:
     del engine  # its pool and graphs go at the next phase's collection
     eng8 = timed("int8", phase_engine_int8, dev, SEED, cfg, params)
     lora = timed("lora", phase_lora, dev, SEED, cfg, params, eng)
-    timed("edge", phase_edge, dev, SEED, cfg, params, eng)
+    edge = timed("edge", phase_edge, dev, SEED, cfg, params, eng)
+    seconds["edge"] -= edge["gateway"]["seconds"]
+    seconds["gateway"] = edge["gateway"]["seconds"]
     pre = timed("prefix", phase_prefix, dev, SEED, cfg, params)
     pre8 = timed("prefix int8", phase_prefix_int8, dev, SEED, cfg, params)
     spec = timed("spec", phase_spec, dev, SEED, cfg, params)

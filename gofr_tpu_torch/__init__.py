@@ -34,13 +34,19 @@ mirror the JAX package so each counterpart is easy to find:
 - the serving edge: ``serve`` (``python -m gofr_tpu_torch.serve``:
   ``/generate``, ``/stats`` and the OpenAI routes of ``openai_compat``),
   ``app``, ``handler``, ``context``, ``container``, ``config``,
-  ``logging``, ``http`` (the asyncio HTTP/1.1 server, router, request and
-  responder), ``grpcx`` (JSON over gRPC: serve's ``Gemma/Generate`` and
+  ``logging`` (with the remote level), ``http`` (the asyncio HTTP/1.1
+  server, the router with path parameters, request and responder, the
+  default and the auth middleware), ``service`` (the outbound HTTP client
+  with circuit breakers and streams), ``metrics.server`` (the metrics
+  server), ``cron``, ``staticfiles``, ``swagger``, ``cmd`` (CLI apps:
+  ``new_cmd``), ``fileutil``, ``version``, ``grpcx`` (JSON over gRPC: serve's ``Gemma/Generate`` and
   ``Gemma/Stream``; imported only when a gRPC route is registered),
   ``datasource.gpu`` (``GPURuntime.register_llm``, and
   ``register_model`` with its dynamic ``Batcher``), ``serve_mnist`` (the
   MNIST app: ``POST /infer``, ``GET /model``) and ``models.tokenizer``
-  (``ByteTokenizer``).
+  (``ByteTokenizer``); ``examples`` holds the counterparts of the JAX
+  package's framework examples, each run as ``python -m
+  gofr_tpu_torch.examples.<name>``.
 
 The package imports torch and numpy only: nothing of ``jax`` and nothing of
 ``gofr_tpu``. Host-only pieces it needs are copied and trimmed.
@@ -72,4 +78,11 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-__all__ = ["resolve_device"]
+def new_cmd(config=None, configs_dir: str = "./configs"):
+    """A CLI app (``cmd.CMDApp``): sub-commands, no servers."""
+    from .cmd import CMDApp
+
+    return CMDApp(config=config, configs_dir=configs_dir)
+
+
+__all__ = ["new_cmd", "resolve_device"]

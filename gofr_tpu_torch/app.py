@@ -2,14 +2,28 @@
 
 ``new(config)`` builds the App: config (``EnvConfig`` over ``./configs``
 unless one is passed), the container and its logger, the router behind
-the request-log and CORS middleware, and the asyncio HTTP server on
-``HTTP_PORT`` (default 8000; 0 binds an ephemeral port, read back from
-``app.http_server.port``). Handlers registered with ``get`` / ``post`` run
-under ``REQUEST_TIMEOUT`` seconds (default 5; 408 past it). ``run()``
-serves until SIGINT (at once) or SIGTERM (the graceful drain);
+the default chain (tracer -> request log -> CORS -> metrics; the CORS
+headers take ``ACCESS_CONTROL_ALLOW_ORIGIN`` / ``_HEADERS`` /
+``_CREDENTIALS`` overrides), the asyncio HTTP server on ``HTTP_PORT``
+(default 8000; 0 binds an ephemeral port, read back from
+``app.http_server.port``; HTTPS when ``HTTP_TLS_CERT_FILE`` and
+``HTTP_TLS_KEY_FILE`` name PEM files) and the metrics server on
+``METRICS_PORT`` (default 2121; 0 binds an ephemeral port, read back from
+``app.metrics_server.port``; a failed bind raises), which starts and
+stops with the HTTP server. Handlers registered with ``get`` / ``post`` /
+``put`` / ``patch`` / ``delete`` (``{name}`` and trailing ``{rest...}``
+path segments; ``ctx.path_param``) run under ``REQUEST_TIMEOUT`` seconds
+(default 5; 408 past it). ``use_middleware`` and the auth enables
+(``enable_basic_auth[_with_func]``, ``enable_api_key_auth[_with_func]``,
+``enable_oauth``) append to the chain in the order called.
+``add_http_service`` registers an outbound ``service.HTTPService``;
+``add_cron_job`` and ``add_background_task`` run on the serving loop and
+are cancelled at shutdown; ``add_static_files`` serves a directory;
+``register_model`` is ``ctx.tpu().register_model``. ``run()`` serves
+until SIGINT (at once) or SIGTERM (the graceful drain);
 ``run_in_background()`` serves from a daemon thread and returns once the
-socket listens; ``shutdown()`` stops the server and closes the registered
-engines.
+socket listens; ``shutdown()`` stops the servers and closes the
+registered engines and services.
 
 The graceful drain (``begin_drain``, ``POST /.well-known/debug/drain``,
 SIGTERM; JAX app.py:427-470): health answers 503 with a Retry-After at
@@ -44,8 +58,12 @@ registry; ``GET /.well-known/debug/traces``: the span ring;
 its own timeout). The App builds one tracer from the config
 (``tracing.new_tracer``: ``TRACE_EXPORTER``, ``TRACE_RING_SPANS``), opens
 a span per HTTP request and per RPC (parented by an incoming
-``traceparent``) and hands the tracer to every engine. Left out of the
-port: the metrics server, cron, pub/sub, auth, static files and swagger.
+``traceparent``) and hands the tracer to every engine; ``/favicon.ico``,
+and ``/.well-known/openapi.json`` with the swagger page when
+``./static/openapi.json`` exists. Left out of the port: the native HTTP
+codec, ``HTTP_WORKERS`` prefork, pub/sub and ``subscribe``, the SQL,
+Redis and Mongo datasources with ``migrate``, ``add_mongo`` and
+``add_rest_handlers``.
 """
 
 from __future__ import annotations
@@ -66,6 +84,7 @@ from .handler import (
     debug_profile_handler,
     debug_traces_handler,
     debug_usage_handler,
+    favicon_wire_handler,
     health_handler,
     live_handler,
     replay_handler,
@@ -73,9 +92,18 @@ from .handler import (
     rollout_status_handler,
     wrap_handler,
 )
-from .http.middleware import cors_middleware, logging_middleware, tracer_middleware
+from .http.middleware import (
+    apikey_auth_middleware,
+    basic_auth_middleware,
+    cors_middleware,
+    logging_middleware,
+    metrics_middleware,
+    oauth_middleware,
+    tracer_middleware,
+)
 from .http.router import Router
 from .http.server import AsyncHTTPServer
+from .metrics.server import MetricsServer
 from .tracing import new_tracer
 
 
@@ -87,12 +115,21 @@ class App:
         self.tracer = new_tracer(self.config, self.logger)
         self.container.tracer = self.tracer
         self.http_port = self.config.get_int("HTTP_PORT", 8000)
+        self.metrics_port = self.config.get_int("METRICS_PORT", 2121)
         self.request_timeout = self.config.get_float("REQUEST_TIMEOUT", 5.0)
         self.router = Router()
         self.router.use(tracer_middleware(self.tracer))  # outermost: the log line carries the trace id
         self.router.use(logging_middleware(self.logger))
-        self.router.use(cors_middleware())
-        self.http_server = AsyncHTTPServer(self.router.dispatch, self.http_port, logger=self.logger)
+        self.router.use(cors_middleware(self._cors_overrides()))
+        self.router.use(metrics_middleware(self.container.metrics))
+        self.http_server = AsyncHTTPServer(self.router.dispatch, self.http_port, logger=self.logger,
+                                           tls=self._server_tls())
+        self.metrics_server = MetricsServer(self.container.metrics, self.metrics_port)
+        self._bg_factories: list[Callable] = []  # add_background_task
+        self._bg_tasks: list[asyncio.Task] = []
+        self._cron = None  # built at the first add_cron_job
+        self._static_dirs: list[tuple[str, str]] = []
+        self._jwks = None  # enable_oauth's key refresher, closed at shutdown
         self.grpc_port = self.config.get_int("GRPC_PORT", 9000)
         self.grpc_server = None  # built at the first gRPC registration
         self._grpc_registered = False
@@ -102,6 +139,27 @@ class App:
         self._draining = False
         self.container.draining = False
         self.drain_deadline_s = self.config.get_float("GOFR_DRAIN_DEADLINE_S", 30.0)
+
+    def _server_tls(self):
+        """HTTPS when HTTP_TLS_CERT_FILE and HTTP_TLS_KEY_FILE name PEM files."""
+        cert = self.config.get("HTTP_TLS_CERT_FILE")
+        key = self.config.get("HTTP_TLS_KEY_FILE")
+        if not cert or not key:
+            return None
+        import ssl
+
+        ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
+        ctx.load_cert_chain(cert, key)
+        return ctx
+
+    def _cors_overrides(self) -> dict[str, str]:
+        """ACCESS_CONTROL_ALLOW_* config keys -> CORS header names."""
+        out = {}
+        for key in ("ACCESS_CONTROL_ALLOW_ORIGIN", "ACCESS_CONTROL_ALLOW_HEADERS", "ACCESS_CONTROL_ALLOW_CREDENTIALS"):
+            v = self.config.get(key)
+            if v:
+                out["-".join(w.capitalize() for w in key.split("_"))] = v
+        return out
 
     def _add(self, method: str, path: str, handler: Callable, timeout_s: float | None = None) -> None:
         self.router.add(
@@ -114,6 +172,67 @@ class App:
 
     def post(self, path: str, handler: Callable) -> None:
         self._add("POST", path, handler)
+
+    def put(self, path: str, handler: Callable) -> None:
+        self._add("PUT", path, handler)
+
+    def patch(self, path: str, handler: Callable) -> None:
+        self._add("PATCH", path, handler)
+
+    def delete(self, path: str, handler: Callable) -> None:
+        self._add("DELETE", path, handler)
+
+    def use_middleware(self, *mws) -> None:
+        for mw in mws:
+            self.router.use(mw)
+
+    # -- auth (JAX app.py:157-178) -------------------------------------------
+    def enable_basic_auth(self, *user_pass: str) -> None:
+        if len(user_pass) % 2 != 0:
+            self.logger.warn("enable_basic_auth: odd argument count; ignoring trailing username")
+        self.router.use(basic_auth_middleware(users=dict(zip(user_pass[::2], user_pass[1::2]))))
+
+    def enable_basic_auth_with_func(self, validate_func) -> None:
+        self.router.use(basic_auth_middleware(validate_func=validate_func))
+
+    def enable_api_key_auth(self, *keys: str) -> None:
+        self.router.use(apikey_auth_middleware(keys=list(keys)))
+
+    def enable_api_key_auth_with_func(self, validate_func) -> None:
+        self.router.use(apikey_auth_middleware(validate_func=validate_func))
+
+    def enable_oauth(self, jwks_url: str, refresh_interval_s: float = 300.0) -> None:
+        from .http.middleware.auth import JWKSProvider
+
+        self._jwks = JWKSProvider(jwks_url, refresh_interval_s)
+        self.router.use(oauth_middleware(self._jwks))
+
+    # -- outbound services, models, tasks, cron, static files ------------------
+    def add_http_service(self, name: str, address: str, *options) -> None:
+        from .service import new_http_service
+
+        if name in self.container.services:
+            self.logger.warn(f"service {name} already registered, overwriting")
+        self.container.services[name] = new_http_service(address, self.logger, self.container.metrics, *options)
+
+    def register_model(self, name: str, *args, **kwargs):
+        return self.container.tpu().register_model(name, *args, **kwargs)
+
+    def add_background_task(self, coro_factory: Callable) -> None:
+        """Run ``coro_factory()`` as a task on the serving loop from
+        ``serve()`` on, cancelled at shutdown. Pass the coroutine function,
+        not a coroutine: it is called on the serving loop."""
+        self._bg_factories.append(coro_factory)
+
+    def add_cron_job(self, schedule: str, job_name: str, job: Callable) -> None:
+        from .cron import Cron
+
+        if self._cron is None:
+            self._cron = Cron(self.container)
+        self._cron.add_job(schedule, job_name, job)
+
+    def add_static_files(self, route: str, directory: str) -> None:
+        self._static_dirs.append((route, directory))
 
     # -- gRPC (JAX app.py:252-276) ------------------------------------------
     def _ensure_grpc(self):
@@ -163,6 +282,13 @@ class App:
         self.get("/.well-known/debug/blackbox", debug_blackbox_handler)
         self.get("/.well-known/debug/usage", debug_usage_handler)
         self._add("POST", "/.well-known/debug/replay", replay_handler, timeout_s=max(120.0, self.request_timeout))
+        self.router.add("GET", "/favicon.ico", favicon_wire_handler)
+        from .staticfiles import register_static_route
+        from .swagger import register_swagger_routes
+
+        register_swagger_routes(self)
+        for route, directory in self._static_dirs:
+            register_static_route(self, route, directory)
 
     # -- the graceful drain (JAX app.py:427-510) -------------------------------
     def _drain_handler(self, ctx) -> dict:
@@ -216,16 +342,28 @@ class App:
         self._shutdown_event = asyncio.Event()
         self._register_well_known()
         self.router.build()
-        await self.http_server.start()
-        if self._grpc_registered and self.grpc_server is not None:
-            self.grpc_server.start()
-            self.logger.info(f"gRPC server listening on :{self.grpc_server.port}")
+        self.metrics_server.start()
+        self.logger.info(f"Starting metrics server on :{self.metrics_server.port}")
         try:
+            await self.http_server.start()
+            if self._grpc_registered and self.grpc_server is not None:
+                self.grpc_server.start()
+                self.logger.info(f"gRPC server listening on :{self.grpc_server.port}")
+            self._bg_tasks = [asyncio.ensure_future(factory()) for factory in self._bg_factories]
+            if self._cron is not None:
+                self._bg_tasks.append(asyncio.ensure_future(self._cron.run()))
             await self._shutdown_event.wait()
         finally:
+            for t in self._bg_tasks:
+                t.cancel()
+            await asyncio.gather(*self._bg_tasks, return_exceptions=True)
+            self._bg_tasks = []
             await self.http_server.shutdown()
             if self.grpc_server is not None:
                 self.grpc_server.shutdown()
+            self.metrics_server.shutdown()
+            if self._jwks is not None:
+                self._jwks.close()
             self.container.close()
             self.tracer.shutdown()
             self.logger.info("Server shutdown complete")

@@ -1,9 +1,14 @@
 """Container: the dependency hub handed to every handler (counterpart of
-gofr_tpu/container/__init__.py: config, logger, the metrics manager and
-the lazily built runtime behind ``tpu()``; no SQL, Redis, Mongo or
-pub/sub). The manager carries the series the runtime and its engines
-write; ``tracer`` (set by the App) is handed to the runtime, which passes
-it to every engine; the metrics server is ROADMAP ID 16."""
+gofr_tpu/container/__init__.py: config, logger, the metrics manager, the
+outbound HTTP services and the lazily built runtime behind ``tpu()``; no
+SQL, Redis, Mongo or pub/sub). ``create`` installs the remote-level
+logger (REMOTE_LOG_URL) and registers the framework's series (the runtime
+gauges, ``app_info`` and the two HTTP histograms); the manager also
+carries the series the runtime and its engines write, and the App's
+metrics server serves it. ``tracer`` (set by the App) is handed to the
+runtime, which passes it to every engine. ``health`` aggregates the
+runtime's and every service's health; ``close`` closes the runtime, the
+services (breaker probes, pooled sockets) and the level poller."""
 
 from __future__ import annotations
 
@@ -13,11 +18,9 @@ from typing import Any
 
 from . import logging as gl
 from .config import Config
-from .metrics import Manager
-
-# The framework version the health route reports: the JAX package's, whose
-# wire format this edge keeps.
-FRAMEWORK = "0.4.0"
+from .logging.remote import RemoteLevelLogger
+from .metrics import HTTP_BUCKETS, Manager
+from .version import FRAMEWORK
 
 
 class Container:
@@ -27,6 +30,7 @@ class Container:
         self.metrics_manager = Manager(self.logger)
         self.app_name = "gofr-tpu-app"
         self.app_version = "dev"
+        self.services: dict[str, Any] = {}  # outbound HTTP services by name
         self.tpu_runtime = None
         self.tracer = None  # the App's tracing.Tracer
         self.start_time = time.time()
@@ -34,10 +38,35 @@ class Container:
 
     @classmethod
     def create(cls, config: Config) -> "Container":
-        c = cls(config=config, logger=gl.new_logger(config.get("LOG_LEVEL")))
+        c = cls(config=config, logger=RemoteLevelLogger(
+            gl.level_from_string(config.get("LOG_LEVEL")),
+            config.get("REMOTE_LOG_URL") or None,
+            config.get_float("REMOTE_LOG_FETCH_INTERVAL", 15.0),
+        ))
         c.app_name = config.get_or_default("APP_NAME", "gofr-tpu-app")
         c.app_version = config.get_or_default("APP_VERSION", "dev")
+        c.register_framework_metrics()
+        c.metrics_manager.set_gauge(
+            "app_info", 1.0, app_name=c.app_name, app_version=c.app_version, framework_version=FRAMEWORK
+        )
         return c
+
+    def register_framework_metrics(self) -> None:
+        m = self.metrics_manager
+        m.new_gauge("app_info", "static app info")
+        m.new_gauge("app_python_threads", "live thread count")
+        m.new_gauge("app_sys_memory_rss", "resident set size bytes")
+        m.new_gauge("app_python_gc_gen0", "gen0 allocations since last gc")
+        m.new_gauge("app_python_num_gc", "completed gc collections")
+        m.new_histogram("app_http_response", "http server response time s", HTTP_BUCKETS)
+        m.new_histogram("app_http_service_response", "outbound http call time s", HTTP_BUCKETS)
+
+    @property
+    def metrics(self) -> Manager:
+        return self.metrics_manager
+
+    def get_http_service(self, name: str):
+        return self.services.get(name)
 
     def tpu(self):
         """The GPU runtime (LLM registry), built on first use: an app that
@@ -55,6 +84,11 @@ class Container:
         out: dict[str, Any] = {}
         if self.tpu_runtime is not None:
             out["tpu"] = self.tpu_runtime.health_check()
+        for name, svc in self.services.items():
+            try:
+                out[name] = svc.health_check_sync()
+            except Exception as e:  # noqa: BLE001
+                out[name] = {"status": "DOWN", "details": {"error": str(e)}}
         out["app"] = {
             "status": "UP",
             "details": {
@@ -69,3 +103,7 @@ class Container:
     def close(self) -> None:
         if self.tpu_runtime is not None:
             self.tpu_runtime.close()
+        for svc in self.services.values():
+            svc.close()
+        if isinstance(self.logger, RemoteLevelLogger):
+            self.logger.close()

@@ -1,6 +1,11 @@
 """Context: the per-request facade handed to every handler (counterpart of
-gofr_tpu/context.py: the request, the container, the route's deadline, and
-the request's trace through ``trace``, ``trace_id`` and ``traceparent``)."""
+gofr_tpu/context.py): the request's surface (``param``, ``params``,
+``path_param``, ``bind``, ``header``, ``host_name``), the container's
+(``logger``, ``metrics``, ``tpu()``, ``get_http_service``), the route's
+deadline, what the auth middleware found (``authenticated_user``,
+``jwt_claims``), and the request's trace through ``trace``, ``trace_id``
+and ``traceparent``. HTTP, gRPC, CLI and cron handlers get the same
+Context."""
 
 from __future__ import annotations
 
@@ -26,11 +31,42 @@ class Context:
     def param(self, key: str) -> str:
         return self.request.param(key)
 
-    def bind(self) -> Any:
-        return self.request.bind()
+    def params(self, key: str) -> list[str]:
+        return self.request.params(key)
+
+    def path_param(self, key: str) -> str:
+        return self.request.path_param(key)
+
+    def bind(self, target: Any = None) -> Any:
+        return self.request.bind(target)
 
     def header(self, key: str) -> str:
         return self.request.header(key)
+
+    def host_name(self) -> str:
+        return self.request.host_name()
+
+    @property
+    def logger(self):
+        return self.container.logger
+
+    @property
+    def metrics(self):
+        return self.container.metrics
+
+    def get_http_service(self, name: str):
+        return self.container.get_http_service(name)
+
+    # -- what the auth middleware found --
+    @property
+    def jwt_claims(self) -> dict | None:
+        ctx = getattr(self.request, "context", None)
+        return ctx.get("JWTClaims") if isinstance(ctx, dict) else None
+
+    @property
+    def authenticated_user(self) -> str | None:
+        ctx = getattr(self.request, "context", None)
+        return ctx.get("user") if isinstance(ctx, dict) else None
 
     # -- tracing (JAX context.py:78-113) --
     def trace(self, name: str):

@@ -1,0 +1,23 @@
+"""The port's counterparts of the JAX package's framework examples, one
+module each, run as ``python -m gofr_tpu_torch.examples.<name>``:
+``http_server``, ``using_http_service``, ``sample_cmd``,
+``using_cron_jobs``, ``using_custom_metrics`` and ``using_file_bind``.
+Each has a ``build_app(config=None)``; without a config it reads the
+process environment over the example's own defaults (its ports, name and
+log level)."""
+
+from __future__ import annotations
+
+import os
+
+from ..config import Config
+
+
+class DefaultsConfig(Config):
+    """The process environment over an example's defaults."""
+
+    def __init__(self, defaults: dict[str, str]):
+        self._defaults = dict(defaults)
+
+    def get(self, key: str) -> str | None:
+        return os.environ.get(key, self._defaults.get(key))

@@ -1,7 +1,7 @@
 """Handler adaptation: ``handler(ctx) -> result`` to a wire handler
 (counterpart of gofr_tpu/handler.py: ``wrap_handler``,
 ``llm_request_kwargs``, the health and liveness handlers, the loopback
-guard of the drain route, the rollout routes, the engine, capture
+guard of the drain route, the favicon, the rollout routes, the engine, capture
 registry, trace ring and profile routes, and the flight recorder's and
 the usage meter's routes: blackbox listing, usage, replay)."""
 
@@ -21,6 +21,17 @@ from .http.errors import ErrorPanicRecovery, ErrorRequestTimeout, ErrorServiceUn
 from .http.request import Request
 from .http.responder import Response, respond
 from .http.router import WireHandler
+
+# a 1x1 transparent PNG: /favicon.ico answers 200 with an image
+FAVICON = (
+    b"\x89PNG\r\n\x1a\n\x00\x00\x00\rIHDR\x00\x00\x00\x01\x00\x00\x00\x01\x08\x06"
+    b"\x00\x00\x00\x1f\x15\xc4\x89\x00\x00\x00\nIDATx\x9cc\x00\x01\x00\x00\x05\x00"
+    b"\x01\r\n-\xb4\x00\x00\x00\x00IEND\xaeB`\x82"
+)
+
+
+async def favicon_wire_handler(_req: Request) -> Response:
+    return Response(200, [("Content-Type", "image/png")], FAVICON)
 
 
 async def _call_handler(fn: Callable, ctx: Context) -> Any:

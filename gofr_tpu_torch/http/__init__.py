@@ -3,26 +3,36 @@ request and responder, router and middleware, errors, and the asyncio
 HTTP/1.1 server."""
 
 from .errors import (
+    ErrorEntityNotFound,
     ErrorInvalidParam,
     ErrorInvalidRoute,
     ErrorMethodNotAllowed,
+    ErrorMissingParam,
     ErrorPanicRecovery,
     ErrorRequestTimeout,
     ErrorServiceUnavailable,
+    ErrorTooManyRequests,
     HTTPError,
 )
-from .request import Request
-from .responder import Response, StreamingResponse
+from .request import Request, UploadedFile
+from .responder import FileResponse, Raw, Redirect, Response, StreamingResponse
 
 __all__ = [
+    "ErrorEntityNotFound",
     "ErrorInvalidParam",
     "ErrorInvalidRoute",
     "ErrorMethodNotAllowed",
+    "ErrorMissingParam",
     "ErrorPanicRecovery",
     "ErrorRequestTimeout",
     "ErrorServiceUnavailable",
+    "ErrorTooManyRequests",
+    "FileResponse",
     "HTTPError",
+    "Raw",
+    "Redirect",
     "Request",
     "Response",
     "StreamingResponse",
+    "UploadedFile",
 ]

@@ -22,6 +22,14 @@ class ErrorInvalidParam(HTTPError):
         super().__init__(f"'{len(self.params)}' invalid parameter(s): {', '.join(self.params)}")
 
 
+class ErrorMissingParam(HTTPError):
+    status_code = 400
+
+    def __init__(self, *params: str):
+        self.params = list(params)
+        super().__init__(f"'{len(self.params)}' missing parameter(s): {', '.join(self.params)}")
+
+
 class ErrorEntityNotFound(HTTPError):
     status_code = 404
 
@@ -67,6 +75,19 @@ class ErrorServiceUnavailable(HTTPError):
     retry_after: float | None = None
 
     def __init__(self, message: str = "service unavailable", retry_after: float | None = None):
+        super().__init__(message)
+        if retry_after is not None:
+            self.retry_after = retry_after
+
+
+class ErrorTooManyRequests(HTTPError):
+    """429: a handler shedding its own work; ``retry_after`` becomes the
+    Retry-After header."""
+
+    status_code = 429
+    retry_after: float | None = None
+
+    def __init__(self, message: str = "too many requests", retry_after: float | None = None):
         super().__init__(message)
         if retry_after is not None:
             self.retry_after = retry_after

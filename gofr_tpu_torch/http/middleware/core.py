@@ -1,18 +1,20 @@
-"""Tracer, request-log and CORS middleware (counterpart of
-gofr_tpu/http/middleware/core.py, without the metrics middleware: the
-metrics server is ROADMAP ID 16)."""
+"""Tracer, request-log, CORS and metrics middleware (counterpart of
+gofr_tpu/http/middleware/core.py). The App chains them in this order:
+Tracer -> Logging -> CORS -> Metrics, then the user's and the auth
+middleware in the order they were added."""
 
 from __future__ import annotations
 
 import time
 import traceback
 
-from ..logging import Logger
-from ..tracing import Tracer
-from .errors import ErrorPanicRecovery
-from .request import Request
-from .responder import Response, respond
-from .router import WireHandler
+from ...logging import Logger
+from ...metrics import Manager
+from ...tracing import Tracer
+from ..errors import ErrorPanicRecovery
+from ..request import Request
+from ..responder import Response, respond
+from ..router import WireHandler
 
 
 def tracer_middleware(tracer: Tracer):
@@ -78,13 +80,16 @@ def logging_middleware(logger: Logger):
     return mw
 
 
-def cors_middleware():
+def cors_middleware(overrides: dict[str, str] | None = None):
     """Wildcard CORS headers on every answer, and the preflight (OPTIONS)
-    answered here with 200."""
+    answered here with 200. ``overrides`` replaces or adds headers (the
+    App maps ACCESS_CONTROL_ALLOW_* config keys onto them)."""
     headers = {
         "Access-Control-Allow-Origin": "*",
         "Access-Control-Allow-Headers": "Authorization, Content-Type, x-requested-with, origin, true-client-ip, X-Correlation-ID",
     }
+    if overrides:
+        headers.update(overrides)
 
     def mw(next_handler: WireHandler) -> WireHandler:
         async def h(req: Request) -> Response:
@@ -93,6 +98,25 @@ def cors_middleware():
                 return Response(200, hs, b"")
             resp = await next_handler(req)
             resp.headers.extend(headers.items())
+            return resp
+
+        return h
+
+    return mw
+
+
+def metrics_middleware(manager: Manager):
+    """The ``app_http_response`` histogram (seconds), labelled by the
+    matched route template, the method and the status."""
+
+    def mw(next_handler: WireHandler) -> WireHandler:
+        async def h(req: Request) -> Response:
+            start = time.perf_counter()
+            resp = await next_handler(req)
+            manager.record_histogram(
+                "app_http_response", time.perf_counter() - start,
+                path=req.route_template, method=req.method, status=str(resp.status),
+            )
             return resp
 
         return h

@@ -1,9 +1,9 @@
-"""Response serialization (counterpart of gofr_tpu/http/responder.py,
-without redirect responses): the success envelope
-``{"data": ...}`` (POST answers 201, DELETE 204), the error envelope
-``{"error": {"message": ...}}`` with the status from the error, chunked
-streaming bodies and raw file bodies (``FileResponse``: a profile
-archive)."""
+"""Response serialization (counterpart of gofr_tpu/http/responder.py):
+the success envelope ``{"data": ...}`` (POST answers 201, DELETE 204),
+the error envelope ``{"error": {"message": ...}}`` with the status from
+the error, chunked streaming bodies, raw file bodies (``FileResponse``: a
+profile archive), bare JSON without the envelope (``Raw``) and redirects
+(``Redirect``: its status, 302 by default, with a Location header)."""
 
 from __future__ import annotations
 
@@ -41,6 +41,23 @@ class StreamingResponse:
     def __init__(self, chunks: AsyncIterator[bytes], content_type: str = "text/event-stream"):
         self.chunks = chunks
         self.content_type = content_type
+
+
+class Raw:
+    """Bare JSON payload without the {"data": ...} envelope."""
+
+    __slots__ = ("data",)
+
+    def __init__(self, data: Any):
+        self.data = data
+
+
+class Redirect:
+    __slots__ = ("url", "status")
+
+    def __init__(self, url: str, status: int = 302):
+        self.url = url
+        self.status = status
 
 
 class FileResponse:
@@ -89,10 +106,14 @@ def respond(result: Any, err: BaseException | None, method: str = "GET") -> Resp
         return Response(status, headers, to_json_bytes({"error": {"message": msg}}))
     if isinstance(result, Response):
         return result
+    if isinstance(result, Redirect):
+        return Response(result.status, [("Location", result.url)], b"")
     if isinstance(result, FileResponse):
         return Response(200, [("Content-Type", result.content_type)], result.content)
     if isinstance(result, StreamingResponse):
         return Response(200, [("Content-Type", result.content_type)], b"", stream=result.chunks)
+    if isinstance(result, Raw):
+        return Response(200, [("Content-Type", "application/json")], to_json_bytes(result.data))
     status = _METHOD_SUCCESS.get(method, 200)
     if status == 204 and result is None:
         return Response(204, [], b"")

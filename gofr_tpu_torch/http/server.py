@@ -1,6 +1,7 @@
 """Asyncio HTTP/1.1 server with keep-alive and chunked streaming responses
-(counterpart of gofr_tpu/http/server.py ``AsyncHTTPServer``, without TLS,
-SO_REUSEPORT workers and the native C server).
+(counterpart of gofr_tpu/http/server.py ``AsyncHTTPServer``, without
+SO_REUSEPORT workers and the native C server). ``tls`` (a server-side
+``ssl.SSLContext``) serves HTTPS.
 
 One event loop; each request is a task awaiting its handler. Protocol
 support: request line and headers (64 KiB cap), Content-Length and chunked
@@ -189,20 +190,23 @@ class AsyncHTTPServer:
         port: int = 8000,
         host: str = "0.0.0.0",
         logger: Logger | None = None,
+        tls=None,
     ):
         self.dispatch = dispatch  # async (Request) -> Response
         self.port = port
         self.host = host
         self.logger = logger
+        self.tls = tls  # server-side ssl.SSLContext: HTTPS
         self._server: asyncio.AbstractServer | None = None
 
     async def start(self) -> None:
         self._server = await asyncio.start_server(
-            self._handle_conn, self.host, self.port, limit=MAX_HEADER_BYTES,
+            self._handle_conn, self.host, self.port, limit=MAX_HEADER_BYTES, ssl=self.tls,
         )
         self.port = self._server.sockets[0].getsockname()[1]
         if self.logger:
-            self.logger.info(f"HTTP server listening on :{self.port}")
+            scheme = "HTTPS" if self.tls is not None else "HTTP"
+            self.logger.info(f"{scheme} server listening on :{self.port}")
 
     async def serve_forever(self) -> None:
         if self._server is None:

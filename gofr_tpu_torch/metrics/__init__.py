@@ -12,7 +12,7 @@ a series map.
 ``slo`` holds the SLO engine (``SLOPolicy``, ``SLOTracker``). The engine,
 the KV cache manager, the resilience code, the goodput ledger and the
 flight recorder register their series on a ``Manager`` they are handed;
-the metrics server is ROADMAP ID 16.
+``server.MetricsServer`` serves the exposition on the App's METRICS_PORT.
 """
 
 from __future__ import annotations
@@ -27,6 +27,9 @@ from ..logging import Logger
 DEFAULT_HISTOGRAM_BUCKETS = (
     0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1, 2.5, 5, 10,
 )
+# HTTP server and outbound-service latencies (app_http_response,
+# app_http_service_response)
+HTTP_BUCKETS = (0.001, 0.003, 0.005, 0.01, 0.02, 0.03, 0.05, 0.1, 0.2, 0.3, 0.5, 0.75, 1, 2, 3, 5, 10, 30)
 # device-program latencies, 100 us .. 5 s (the engine's phase histograms)
 TPU_BUCKETS = (0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0)
 
@@ -381,3 +384,7 @@ def _escape(v: str) -> str:
 def _exemplar_suffix(labels: dict, value: float, ts: float) -> str:
     lab = ",".join(f'{k}="{_escape(v)}"' for k, v in sorted(labels.items()))
     return f" # {{{lab}}} {_fmt(float(value))} {ts:.3f}"
+
+
+def new_metrics_manager(logger: Logger | None = None) -> Manager:
+    return Manager(logger)

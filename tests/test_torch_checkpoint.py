@@ -300,7 +300,7 @@ def test_serve_checkpoint_and_tokenizer_from_disk(tmp_path, tokenizer_json):
     ref = JEngine(jcfg, JC.load_llama_checkpoint(ckpt, jcfg), warmup=False, kv_paged=True,
                   slots=4, max_seq_len=256, prefill_buckets=(16, 64, 128))
     app = serve.build_app(new_mock_config({
-        "HTTP_PORT": "0", "REQUEST_TIMEOUT": "30", "LOG_LEVEL": "ERROR", "TORCH_DEVICE": "cpu",
+        "HTTP_PORT": "0", "METRICS_PORT": "0", "REQUEST_TIMEOUT": "30", "LOG_LEVEL": "ERROR", "TORCH_DEVICE": "cpu",
         "GEMMA_PRESET": "tiny-llama", "GEMMA_CKPT": ckpt, "GEMMA_TOKENIZER": tokenizer_json,
     }))
     th = app.run_in_background()

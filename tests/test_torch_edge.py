@@ -29,7 +29,7 @@ from gofr_tpu_torch.models import transformer as TT
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 SLOTS, MAX_SEQ = 4, 256
-COMMON = {"HTTP_PORT": "0", "REQUEST_TIMEOUT": "30", "LOG_LEVEL": "ERROR"}
+COMMON = {"HTTP_PORT": "0", "METRICS_PORT": "0", "REQUEST_TIMEOUT": "30", "LOG_LEVEL": "ERROR"}
 PORT_CONFIG = {**COMMON, "GEMMA_PRESET": "tiny", "TORCH_DEVICE": "cpu",
                "LLM_SLOTS": str(SLOTS), "LLM_MAX_SEQ": str(MAX_SEQ)}
 

@@ -674,7 +674,7 @@ def test_app_drain_with_fleet(weights):
     from gofr_tpu_torch.config import new_mock_config
 
     _jcfg, _jp, tcfg, tp = weights
-    app = new(config=new_mock_config({"HTTP_PORT": "0", "GOFR_DRAIN_DEADLINE_S": "20", "TORCH_DEVICE": "cpu"}))
+    app = new(config=new_mock_config({"HTTP_PORT": "0", "METRICS_PORT": "0", "GOFR_DRAIN_DEADLINE_S": "20", "TORCH_DEVICE": "cpu"}))
     rep = app.container.tpu().register_llm("m", tcfg, tp, replicas=2, supervise=False,
                                            **{k: v for k, v in FLEET_KW.items() if k != "device"})
     th = app.run_in_background()

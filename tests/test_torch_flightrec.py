@@ -534,7 +534,7 @@ def _call(app, method, path, body=None):
 def test_replay_and_blackbox_routes(models, tmp_path):
     _j, _jp, tcfg, tp = models["tiny"]
     app = serve.build_app(new_mock_config({
-        "HTTP_PORT": "0", "REQUEST_TIMEOUT": "30", "LOG_LEVEL": "ERROR", "GEMMA_PRESET": "tiny",
+        "HTTP_PORT": "0", "METRICS_PORT": "0", "REQUEST_TIMEOUT": "30", "LOG_LEVEL": "ERROR", "GEMMA_PRESET": "tiny",
         "TORCH_DEVICE": "cpu", "LLM_SLOTS": "2", "LLM_MAX_SEQ": "128", "GOFR_BLACKBOX_DIR": str(tmp_path),
         "TPU_LLM_FLIGHT_RECORDS": "16",
     }), params=tp)

@@ -458,7 +458,7 @@ def quota_app(models):
     OpenAI usage extra."""
     _j, _jp, tcfg, tp = models["tiny"]
     app = serve.build_app(new_mock_config({
-        "HTTP_PORT": "0", "REQUEST_TIMEOUT": "30", "LOG_LEVEL": "ERROR", "GEMMA_PRESET": "tiny",
+        "HTTP_PORT": "0", "METRICS_PORT": "0", "REQUEST_TIMEOUT": "30", "LOG_LEVEL": "ERROR", "GEMMA_PRESET": "tiny",
         "TORCH_DEVICE": "cpu", "LLM_SLOTS": "4", "LLM_MAX_SEQ": "256", "TPU_LLM_TENANT_QUOTA_TOK_S": "acme=0.5",
         "GOFR_OPENAI_USAGE_EXTRA": "1",
     }), params=tp)
@@ -498,7 +498,7 @@ def test_quota_shed_over_http_and_openai(quota_app):
 def test_openai_usage_extra_off_by_default(models):
     _j, _jp, tcfg, tp = models["tiny"]
     app = serve.build_app(new_mock_config({
-        "HTTP_PORT": "0", "REQUEST_TIMEOUT": "30", "LOG_LEVEL": "ERROR", "GEMMA_PRESET": "tiny",
+        "HTTP_PORT": "0", "METRICS_PORT": "0", "REQUEST_TIMEOUT": "30", "LOG_LEVEL": "ERROR", "GEMMA_PRESET": "tiny",
         "TORCH_DEVICE": "cpu", "LLM_SLOTS": "2", "LLM_MAX_SEQ": "128",
     }), params=tp)
     th = app.run_in_background()

@@ -31,7 +31,7 @@ from gofr_tpu_torch.models import transformer as TT
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 SLOTS, MAX_SEQ = 4, 256
-COMMON = {"HTTP_PORT": "0", "GRPC_PORT": "0", "REQUEST_TIMEOUT": "30", "LOG_LEVEL": "FATAL"}
+COMMON = {"HTTP_PORT": "0", "METRICS_PORT": "0", "GRPC_PORT": "0", "REQUEST_TIMEOUT": "30", "LOG_LEVEL": "FATAL"}
 
 
 def _example_module():
@@ -174,7 +174,7 @@ def test_unknown_adapter_same_status(apps):
 
 @pytest.fixture(scope="module")
 def grpc_app():
-    app = new(config=new_mock_config({"APP_NAME": "grpc-test", "HTTP_PORT": "0", "GRPC_PORT": "0",
+    app = new(config=new_mock_config({"APP_NAME": "grpc-test", "HTTP_PORT": "0", "METRICS_PORT": "0", "GRPC_PORT": "0",
                                       "LOG_LEVEL": "FATAL"}))
 
     def hello(ctx):
@@ -253,7 +253,7 @@ def test_serve_builds_without_grpc(monkeypatch):
     import json
 
     monkeypatch.setitem(sys.modules, "grpc", None)
-    base = {"HTTP_PORT": "0", "GEMMA_PRESET": "tiny", "TORCH_DEVICE": "cpu", "LOG_LEVEL": "FATAL",
+    base = {"HTTP_PORT": "0", "METRICS_PORT": "0", "GEMMA_PRESET": "tiny", "TORCH_DEVICE": "cpu", "LOG_LEVEL": "FATAL",
             "LLM_SLOTS": "2", "LLM_MAX_SEQ": "64"}
     app = serve.build_app(new_mock_config(base))
     th = app.run_in_background()

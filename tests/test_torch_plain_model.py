@@ -308,7 +308,7 @@ def mnist_apps():
     the same weights (f32, so logits compare at the f32 tolerance)."""
     _jcfg, jp, _tcfg, tp = _weights("f32")
     example = _example_module()
-    common = {"HTTP_PORT": "0", "REQUEST_TIMEOUT": "30", "LOG_LEVEL": "ERROR"}
+    common = {"HTTP_PORT": "0", "METRICS_PORT": "0", "REQUEST_TIMEOUT": "30", "LOG_LEVEL": "ERROR"}
     japp = gofr_tpu.new(config=jax_mock_config({**common, "METRICS_PORT": "0", "TRACE_EXPORTER": "none"}))
     japp.container.tpu().register_model("mnist", lambda p, x: JM.mlp_forward(p, x), jp,
                                         example_args=(np.zeros(784, np.float32),))

@@ -107,7 +107,7 @@ def apps():
     jp = JT.init_params(jax.random.PRNGKey(0), jcfg)
     jp = dict(jp, unembed=jax.random.normal(jax.random.PRNGKey(9), (jcfg.vocab_size, jcfg.d_model), jnp.float32))
     tp = TT.params_from_jax(jax.tree.map(np.asarray, jp), TT.TransformerConfig.tiny(), device="cpu")
-    common = {"HTTP_PORT": "0", "REQUEST_TIMEOUT": "30", "LOG_LEVEL": "ERROR", "TPU_TELEMETRY_INTERVAL_S": "0"}
+    common = {"HTTP_PORT": "0", "METRICS_PORT": "0", "REQUEST_TIMEOUT": "30", "LOG_LEVEL": "ERROR", "TPU_TELEMETRY_INTERVAL_S": "0"}
     japp = gofr_tpu.new(config=jax_mock_config({**common, "METRICS_PORT": "0", "TRACE_EXPORTER": "none"}))
     japp.container.tpu().register_llm("gemma", jcfg, jp, warmup=False, kv_paged=True, **KW)
     papp = tapp.new(new_mock_config({**common, "TORCH_DEVICE": "cpu"}))

@@ -420,7 +420,7 @@ def test_app_drain_route_flips_readiness_and_stops(weights):
     from gofr_tpu_torch.config import new_mock_config
 
     _jcfg, _jp, tcfg, tp = weights
-    app = new(config=new_mock_config({"HTTP_PORT": "0", "GOFR_DRAIN_DEADLINE_S": "5", "TORCH_DEVICE": "cpu"}))
+    app = new(config=new_mock_config({"HTTP_PORT": "0", "METRICS_PORT": "0", "GOFR_DRAIN_DEADLINE_S": "5", "TORCH_DEVICE": "cpu"}))
     eng = app.container.tpu().register_llm("m", tcfg, tp, **ENGINE_KW)
     th = app.run_in_background()
     base = f"http://127.0.0.1:{app.http_server.port}"
@@ -469,7 +469,7 @@ def test_edge_maps_draining_and_poison():
     from gofr_tpu_torch.llm import PoisonedRequestError
     from gofr_tpu_torch.serve import build_app
 
-    app = build_app(new_mock_config({"HTTP_PORT": "0", "TORCH_DEVICE": "cpu", "GEMMA_PRESET": "tiny",
+    app = build_app(new_mock_config({"HTTP_PORT": "0", "METRICS_PORT": "0", "TORCH_DEVICE": "cpu", "GEMMA_PRESET": "tiny",
                                      "LLM_MAX_SEQ": "64", "LOG_LEVEL": "WARN"}))
     th = app.run_in_background()
     base = f"http://127.0.0.1:{app.http_server.port}"

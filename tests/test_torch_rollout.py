@@ -445,7 +445,7 @@ def test_rollout_routes_match_the_jax_app(v1, tmp_path):
     from gofr_tpu_torch.app import App
     from gofr_tpu_torch.config import new_mock_config
 
-    common = {"HTTP_PORT": "0", "LOG_LEVEL": "ERROR", "REQUEST_TIMEOUT": "30"}
+    common = {"HTTP_PORT": "0", "METRICS_PORT": "0", "LOG_LEVEL": "ERROR", "REQUEST_TIMEOUT": "30"}
     japp = JApp(config=jax_mock_config({**common, "APP_NAME": "radm", "METRICS_PORT": "0",
                                         "TPU_TELEMETRY_INTERVAL_S": "0"}))
     japp.container.tpu().register_llm("tiny", v1[0], v1[1], **JAX_KW)

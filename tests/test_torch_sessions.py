@@ -220,7 +220,7 @@ def test_http_session_turns_match_the_jax_app(weights):
     carrying X-GoFr-Session over real sockets: the same tokens, and the
     port's /stats shows the resume."""
     jcfg, jp, _tcfg, tp = weights
-    common = {"HTTP_PORT": "0", "REQUEST_TIMEOUT": "30", "LOG_LEVEL": "ERROR", "TPU_LLM_SESSION_MB": "16"}
+    common = {"HTTP_PORT": "0", "METRICS_PORT": "0", "REQUEST_TIMEOUT": "30", "LOG_LEVEL": "ERROR", "TPU_LLM_SESSION_MB": "16"}
     japp = gofr_tpu.new(config=jax_mock_config({**common, "METRICS_PORT": "0", "TRACE_EXPORTER": "none"}))
     japp.container.tpu().register_llm("gemma", jcfg, jp, warmup=False, kv_paged=True, slots=4, max_seq_len=256,
                                       prefill_buckets=(16, 64, 128))

@@ -268,7 +268,7 @@ def traced_apps(weights):
     spec = importlib.util.spec_from_file_location("grpc_gemma_main", root / "examples/grpc-gemma/main.py")
     example = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(example)
-    common = {"HTTP_PORT": "0", "REQUEST_TIMEOUT": "30", "LOG_LEVEL": "ERROR"}
+    common = {"HTTP_PORT": "0", "METRICS_PORT": "0", "REQUEST_TIMEOUT": "30", "LOG_LEVEL": "ERROR"}
     japp = gofr_tpu.new(config=jax_mock_config({**common, "METRICS_PORT": "0", "TRACE_EXPORTER": "none"}))
     japp.container.tpu().register_llm("gemma", jcfg, jp, warmup=False, kv_paged=True, slots=4, max_seq_len=256,
                                       prefill_buckets=(16, 64, 128))
