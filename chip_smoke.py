@@ -1,6 +1,10 @@
 """GPU smoke run of the PyTorch/CUDA port (gofr_tpu_torch) on one card.
 
-    python3 chip_smoke.py [--parent TREE] [--only observe|families|moe|contiguous|wave|knobs|mnist|fleet|rollout|disagg|gateway]
+    python3 chip_smoke.py [--parent TREE] [--only observe|families|moe|contiguous|wave|knobs|mnist|fleet|rollout|disagg|gateway|batch|router]
+    python3 chip_smoke.py --engine-process --port P --metrics-port M [--log-dir DIR]
+
+The second form is one engine process of the router phase (22), which the
+front router launches.
 
 GOFR_BLACKBOX_DIR is set to a fresh temporary directory (removed at the
 end) and GOFR_BLACKBOX_INTERVAL_S to 1 before anything is built, so every
@@ -105,6 +109,17 @@ Phases, each raising on failure:
    preempted, interactive and light streams through the replay gate; no
    family captured in the phase, nothing held once idle, both kernels
    launched;
+5b. batch — the job tier on the engine phase's engine (``--only batch``:
+   an engine of its own at the same defaults): the burst alone (the direct
+   streams, TTFT without a backlog), then 16 jobs (the burst's prompts
+   twice, 32 new tokens) published on a FILE pub/sub topic in a temporary
+   directory and drained by gofr_tpu_torch.batch's BatchWorker at
+   concurrency 4 while the burst runs again as interactive traffic (TTFT
+   with the backlog). One result per job on the reply topic, each job's
+   tokens equal to the direct stream of its prompt or leaving it at a
+   near-tie (the interactive streams too), 16 requests in the engine's
+   batch class, a job published twice deduplicated (one result), both
+   kernels launched ("batch_launches");
 6. int8 engine — the same through LLMEngine(kv_int8=True, quantize=True)
    on the same weights' first CUT_LAYERS layers: int8 weights and an int8 KV pool read by the
    int8 paged-decode kernel; every served token checked against the
@@ -393,7 +408,31 @@ Phases, each raising on failure:
    its image (MNIST_ATOL), GET /model listing the model. No kernel of the
    port runs here: the MLP's products are cuBLAS calls, as JAX's are XLA
    dots outside any Pallas kernel;
-22. report — a "kernels" JSON line (launches on the engine phase's main
+22. router — the scale-out tier, last: ``python -m gofr_tpu_torch.router``
+   as a process of its own (TPU_ROUTER_ENGINE_CMD: this script's
+   --engine-process, which serves Gemma-2B's seeded weights at
+   ROUTER_LAYERS of 18 layers, full width, through serve's app at the
+   engine defaults; 2 to 3 replicas; backlog scale-ups off), driven over
+   sockets by this process. The router process maps no CUDA library
+   (/proc/<pid>/maps) and is absent from nvidia-smi's compute apps while
+   each engine process maps it (and is listed, where nvidia-smi shows this
+   machine's pids); the burst through the router and direct to one engine
+   (tok/s, first-byte p50; every routed token through the replay gate,
+   routed streams equal to the direct ones or leaving them at near-ties,
+   both kernels launched in the engine processes); 4 conversations of 3
+   turns with X-GoFr-Session, each on one engine, both engines used; a
+   SIGKILL of one engine process under 8 SSE chat streams (completed and
+   truncated streams, seconds until the fleet marks it down, the next
+   burst with 0 failed requests, the replacement's seconds to accepting,
+   the dead engine's sessions rehomed); replica_kill armed in a live
+   engine process (its engine dies, the process stays up, the next burst
+   0 failed); a drain POSTed to one engine with 4 SSE streams on it (all
+   4 complete, the process exits and leaves nvidia-smi, the minimum
+   restored); the router's SIGTERM reaping every engine process. Launches
+   of every kernel summed over the engine processes ("router_launches";
+   the counters of the killed and the drained process after their last
+   reading die with them);
+23. report — a "kernels" JSON line (launches on the engine phase's main
    path, in the prefix phases as "prefix_launches", in the spec phases as
    "spec_launches", in the structured phase as "structured_launches", in
    the overload phase as "overload_launches", in the lora phase as
@@ -404,7 +443,8 @@ Phases, each raising on failure:
    "wave_launches", in the knobs phase's as "knobs_launches", in the
    fleet phase's unfaulted burst as "fleet_launches", in the rollout
    phase as "rollout_launches", in the disagg phase's main burst by pool as
-   "disagg_launches";
+   "disagg_launches", in the batch part as "batch_launches" and summed
+   over the router phase's engine processes as "router_launches";
    flash_attention_prompt is the flash kernel's
    full-prompt mode, row 2, whose main path is the wave's burst), then
    the last line {"ok": true, "device": {...}}.
@@ -2350,9 +2390,12 @@ def _consume(reqs) -> callable:
     return join
 
 
-def _wait_until(pred, seconds: float, what: str) -> None:
-    if not _wait_for(pred, seconds):
-        raise TimeoutError(f"overload: timed out waiting for {what}")
+def _wait_until(pred, seconds: float, what: str, every: float = 0.005):
+    """``_wait_for`` that raises, naming ``what``, when ``pred()`` stayed false."""
+    got = _wait_for(pred, seconds, every)
+    if not got:
+        raise TimeoutError(f"timed out waiting for {what}")
+    return got
 
 
 def _overload_preempt_run(eng, label: str, batch_prompts, inter_prompts) -> dict:
@@ -3815,13 +3858,15 @@ def phase_structured(dev: dict, seed: int, cfg: TransformerConfig, params: dict)
             "spec": sp, "tokens_matched": checked, "tokens_exempt": exempt}
 
 
-def _wait_for(pred, seconds: float) -> bool:
+def _wait_for(pred, seconds: float, every: float = 0.005):
+    """The first truthy value of ``pred()`` within ``seconds``, polled every
+    ``every`` seconds; None when there was none."""
     t0 = time.perf_counter()
-    while not pred():
+    while not (got := pred()):
         if time.perf_counter() - t0 > seconds:
-            return False
-        time.sleep(0.005)
-    return True
+            return None
+        time.sleep(every)
+    return got
 
 
 def _http(port: int, method: str, path: str, body=None, headers=None, timeout: float = 600.0):
@@ -6430,16 +6475,568 @@ def phase_disagg(dev: dict, seed: int) -> dict:
     return out
 
 
+ROUTER_LAYERS = 6  # the engine processes' depth, of Gemma-2B's 18 (full width): 18 ran the whole script past 1,000 s
+ROUTER_NEW = 32  # new tokens of the burst's requests
+ROUTER_STREAM_NEW = 96  # max_tokens of the SSE streams the kill and the drain cut into
+ROUTER_CHECKED = ("flash_attention", "paged_decode_partials")  # rows 1 and 3: the engine processes' path
+ROUTER_WAIT_S = 300.0  # ceiling on an engine process's start (weights, warmup) and on each wait below
+
+
+def engine_process(args) -> int:
+    """``--engine-process``: one engine process behind the front router.
+    Gemma-2B's seeded weights (ROUTER_LAYERS of its layers, full width)
+    served by gofr_tpu_torch.serve's app at the engine defaults (32 slots,
+    max_seq_len 512, graphs, lookahead 3) on ``--port``, plus the script's
+    own hooks: an X-Engine-Id header on every response, ``GET
+    /smoke/state`` (pid, the launch counters of rows 1 and 3, read and
+    zeroed with ``?zero=1``, the engine's death reason, memory) and ``POST
+    /smoke/arm`` (arms ``replica_kill`` in this process). The kernels load
+    from the libraries the parent script built (build/kernels); nothing
+    builds here. Logs go to ``--log-dir``/engine-<port>.log."""
+    from gofr_tpu_torch.config import new_mock_config
+    from gofr_tpu_torch.resilience import default_injector
+    from gofr_tpu_torch.serve import build_app
+
+    if args.log_dir:
+        fd = os.open(os.path.join(args.log_dir, f"engine-{args.port}.log"), os.O_WRONLY | os.O_CREAT | os.O_APPEND)
+        os.dup2(fd, 1)
+        os.dup2(fd, 2)
+    cfg, params = _first_layers(*gemma_weights(SEED), ROUTER_LAYERS)
+    app = build_app(new_mock_config({
+        "HTTP_PORT": str(args.port), "METRICS_PORT": str(args.metrics_port), "GEMMA_PRESET": "2b",
+        "LLM_SLOTS": "32", "LLM_MAX_SEQ": "512", "REQUEST_TIMEOUT": "600", "LOG_LEVEL": "WARN",
+        "GOFR_DRAIN_DEADLINE_S": "120",
+    }), params=params)
+    del params
+    eid = f"engine-{args.port}"
+
+    def engine_id(next_handler):
+        async def h(req):
+            resp = await next_handler(req)
+            resp.headers.append(("X-Engine-Id", eid))
+            return resp
+
+        return h
+
+    def state(ctx):
+        eng = ctx.tpu().llm("gemma")
+        out = {"engine_id": eid, "pid": os.getpid(), "launches": _launches(KERNEL_COUNTERS),
+               "died_reason": eng.died_reason, "memory_reserved": torch.cuda.memory_reserved()}
+        if ctx.param("zero") == "1":
+            _zero_launches(KERNEL_COUNTERS)
+        return out
+
+    def arm(_ctx):
+        default_injector().arm("replica_kill", count=1)
+        return {"armed": "replica_kill"}
+
+    app.use_middleware(engine_id)
+    app.get("/smoke/state", state)
+    app.post("/smoke/arm", arm)
+    print(f"engine process {eid} pid {os.getpid()}: serving on :{args.port}", flush=True)
+    app.run()
+    return 0
+
+
+def _gpu_apps() -> dict:
+    """{pid: used MiB} of the card's compute processes (nvidia-smi)."""
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True).stdout
+    apps = {}
+    for ln in out.strip().splitlines():
+        pid, mem = (x.strip() for x in ln.split(","))
+        apps[int(pid)] = float(mem)
+    return apps
+
+
+def _gpu_used_mib() -> float:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=memory.used", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True).stdout
+    return float(out.strip().splitlines()[0])
+
+
+def _maps_cuda(pid: int) -> bool:
+    """Whether process ``pid`` has the CUDA driver library mapped (a CUDA
+    context needs it)."""
+    with open(f"/proc/{pid}/maps") as f:
+        return "libcuda.so" in f.read()
+
+
+def _running(pid: int) -> bool:
+    """Alive and not a zombie."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except FileNotFoundError:
+        return False
+
+
+def _get_json(port: int, path: str, method: str = "GET", body=None, headers=None) -> dict:
+    status, raw, _, _, _ = _http(port, method, path, body, headers, timeout=60)
+    if status >= 300:
+        raise AssertionError(f"{method} :{port}{path}: {status} {raw[:300]!r}")
+    data = json.loads(raw)
+    return data.get("data", data)
+
+
+def _fleet(port: int) -> list:
+    return _get_json(port, "/.well-known/router")["fleet"]["backends"]
+
+
+def _accepting(port: int) -> list:
+    return sorted(b["address"] for b in _fleet(port) if b["accepting"])
+
+
+def _port_of(address: str) -> int:
+    return int(address.rsplit(":", 1)[1])
+
+
+def _generate_burst(port: int, prompts, new_tokens: int, headers=None) -> dict:
+    """Every prompt as a concurrent POST /generate on ``port`` -> {"results",
+    "engines", "first", "wall_s", "failed"}; a failed request is counted,
+    not raised."""
+    answers: dict[int, tuple] = {}
+    errors: dict[int, str] = {}
+
+    def client(i):
+        try:
+            answers[i] = _http(port, "POST", "/generate", {"tokens": prompts[i], "max_new_tokens": new_tokens},
+                               headers)
+        except BaseException as e:  # noqa: BLE001 — a failed request, counted below
+            errors[i] = repr(e)
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(len(prompts))]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    wall = time.perf_counter() - t0
+    results, engines, first = {}, {}, []
+    for i, (status, raw, t_first, _, hdrs) in answers.items():
+        toks = json.loads(raw)["data"]["tokens"] if status == 201 else None
+        if toks is None or len(toks) != new_tokens:
+            errors[i] = f"{status} {raw[:200]!r}"
+            continue
+        results[i] = toks
+        engines[i] = hdrs.get("X-Engine-Id")
+        first.append(t_first)
+    first.sort()
+    return {"results": results, "engines": engines, "first": first, "wall_s": wall, "failed": errors,
+            "tokens": sum(len(t) for t in results.values())}
+
+
+def _sse_stream(port: int, body: dict, headers: dict, out: dict, started: threading.Event | None = None) -> None:
+    """One SSE chat completion on its own connection; fills ``out`` with the
+    status, the engine, first-byte seconds, the events' text and whether
+    the stream ended with [DONE] (a cut stream: complete False)."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    raw = b""
+    try:
+        t0 = time.perf_counter()
+        conn.request("POST", "/v1/chat/completions", body=json.dumps({**body, "stream": True}).encode(),
+                     headers={"Content-Type": "application/json", **headers})
+        resp = conn.getresponse()
+        out["status"], out["engine"] = resp.status, resp.getheader("X-Engine-Id")
+        raw = resp.read1(65536)
+        out["first_s"] = time.perf_counter() - t0
+        if started is not None:
+            started.set()
+        while True:
+            chunk = resp.read1(65536)
+            if not chunk:
+                break
+            raw += chunk
+    except (http.client.HTTPException, OSError) as e:
+        out["error"] = repr(e)
+    finally:
+        conn.close()
+        if started is not None:
+            started.set()
+    out["complete"] = raw.rstrip().endswith(b"data: [DONE]")
+    out["raw"] = raw
+
+
+def _sse_burst(port: int, n: int, sessions=None):
+    """``n`` SSE streams through the router, one thread each -> (threads,
+    outs, the events set once each stream has its first bytes)."""
+    outs = [{} for _ in range(n)]
+    started = [threading.Event() for _ in range(n)]
+    threads = []
+    for i in range(n):
+        body = {"model": "gemma", "messages": [{"role": "user", "content": f"Stream {i}: count to ninety."}],
+                "max_tokens": ROUTER_STREAM_NEW}
+        headers = {"X-GoFr-Session": sessions[i]} if sessions else {}
+        th = threading.Thread(target=_sse_stream, args=(port, body, headers, outs[i], started[i]))
+        th.start()
+        threads.append(th)
+    return threads, outs, started
+
+
+def _sessions_owned_by(members, owner: str, n: int, prefix: str) -> list:
+    """``n`` session ids whose rendezvous owner among ``members`` is ``owner``."""
+    from gofr_tpu_torch.router.ring import HashRing
+
+    ring, out, i = HashRing(members), [], 0
+    while len(out) < n:
+        sid = f"{prefix}-{i}"
+        if ring.owner(sid) == owner:
+            out.append(sid)
+        i += 1
+    return out
+
+
+def phase_router(dev: dict, seed: int) -> dict:
+    """The scale-out tier: ``python -m gofr_tpu_torch.router`` as a process
+    of its own, autoscaling engine processes of this script
+    (``--engine-process``) between 2 and 3, driven over sockets by this
+    process (see the module docstring). Returns its readings and the
+    launches of rows 1 and 3 summed over the engine processes."""
+    cfg, params = _first_layers(*gemma_weights(seed), ROUTER_LAYERS)
+    _plens, prompts = _burst_prompts(cfg, seed)
+    logs = tempfile.mkdtemp(prefix="gofr-router-")
+    port = free_port()
+    engine_cmd = (f"{sys.executable} {Path(__file__).resolve()} --engine-process --port {{port}} "
+                  f"--metrics-port {{metrics_port}} --log-dir {logs}")
+    env = {**os.environ, "HTTP_PORT": str(port), "METRICS_PORT": str(free_port()), "LOG_LEVEL": "WARN",
+           "APP_NAME": "front-router", "REQUEST_TIMEOUT": "600", "TPU_ROUTER_ENGINE_CMD": engine_cmd,
+           "TPU_ROUTER_MIN_REPLICAS": "2", "TPU_ROUTER_MAX_REPLICAS": "3", "TPU_ROUTER_POLL_INTERVAL_S": "0.25",
+           "TPU_ROUTER_UPSTREAM_TIMEOUT_S": "600", "TPU_ROUTER_PROXY_TIMEOUT_S": "600",
+           # no backlog scale-up during the script's bursts: only the minimum launches
+           "TPU_ROUTER_SCALE_UP_WAIT_S": "60"}
+    router_log = open(os.path.join(logs, "router.log"), "w")
+    t_start = time.perf_counter()
+    router = subprocess.Popen([sys.executable, "-m", "gofr_tpu_torch.router"], env=env,
+                              cwd=Path(TL.__file__).resolve().parents[1], stdout=router_log, stderr=subprocess.STDOUT)
+    pids: dict[str, int] = {}  # engine address -> pid
+    launches = {k: 0 for k in KERNEL_COUNTERS}
+    out: dict = {}
+
+    def state(address, zero=False):
+        st = _get_json(_port_of(address), "/smoke/state" + ("?zero=1" if zero else ""))
+        pids[address] = st["pid"]
+        if zero:
+            for k in KERNEL_COUNTERS:
+                launches[k] += st["launches"][k]
+        return st
+
+    try:
+        # 1. two engine processes, each on the card; the router holds no CUDA context
+        def two_up():
+            if router.poll() is not None:
+                raise AssertionError(f"the router process exited {router.returncode}")
+            return _http_ok(port) and len(_accepting(port)) == 2
+
+        _wait_until(two_up, ROUTER_WAIT_S, "router: two accepting engine processes", every=0.25)
+        out["start_s"] = time.perf_counter() - t_start
+        a_addr, b_addr = _accepting(port)
+        for addr in (a_addr, b_addr):
+            state(addr, zero=True)
+        apps = _gpu_apps()
+        mem = {addr: apps.get(pids[addr]) for addr in (a_addr, b_addr)}
+        print(f"router: nvidia-smi compute apps {apps}; router pid {router.pid}, engine pids "
+              f"{ {a: pids[a] for a in (a_addr, b_addr)} }")
+        if _maps_cuda(router.pid) or router.pid in apps:
+            raise AssertionError(f"the router process {router.pid} holds a CUDA context")
+        for addr in (a_addr, b_addr):
+            if not _maps_cuda(pids[addr]):
+                raise AssertionError(f"engine process {pids[addr]} has no CUDA context")
+        pid_visible = any(pids[a] in apps for a in (a_addr, b_addr))
+        if pid_visible and not all(pids[a] in apps for a in (a_addr, b_addr)):
+            raise AssertionError(f"an engine pid is missing from nvidia-smi: {apps}")
+        out["engine_reserved"] = [state(a)["memory_reserved"] for a in (a_addr, b_addr)]
+        print(f"router: 2 engine processes accepting {out['start_s']:.1f}s after the router started; each on the "
+              f"card ({'MiB by nvidia-smi ' + str(mem) if pid_visible else 'nvidia-smi shows other pids: ' + str(apps)}"
+              f"; memory_reserved {out['engine_reserved']}); the router process maps no libcuda")
+        out["engine_mib"] = mem
+
+        # 2. the burst through the router, and direct to one engine
+        for addr in (a_addr, b_addr):  # warm-up, outside the timed runs
+            _generate_burst(_port_of(addr), [[1, 2, 3]], 4)
+        for addr in (a_addr, b_addr):
+            state(addr, zero=True)
+        routed = _generate_burst(port, prompts, ROUTER_NEW)
+        burst = {k: 0 for k in KERNEL_COUNTERS}
+        for addr in (a_addr, b_addr):
+            for k, v in state(addr)["launches"].items():
+                burst[k] += v
+            state(addr, zero=True)
+        direct = _generate_burst(_port_of(a_addr), prompts, ROUTER_NEW)
+        for b in (routed, direct):
+            if b["failed"]:
+                raise AssertionError(f"router burst: failed requests {b['failed']}")
+        if any(burst[k] <= 0 for k in ROUTER_CHECKED):
+            raise AssertionError(f"a kernel did not launch in the engine processes during the routed burst: {burst}")
+        checked, exempt = _replay_gate(params, cfg, prompts, routed["results"], TOKEN_GAP, label="router ",
+                                       verbose=False)
+        differ = _divergence_at_near_ties(params, cfg, prompts, routed["results"], direct["results"], TOKEN_GAP,
+                                          "router vs direct ")
+        for key, b in (("routed", routed), ("direct", direct)):
+            out[key] = {"tok_s": b["tokens"] / b["wall_s"], "first_p50_s": b["first"][len(b["first"]) // 2],
+                        "engines": sorted(set(b["engines"].values()))}
+        print(f"router burst on {dev['smi']}: {len(prompts)} x {ROUTER_NEW} tokens routed "
+              f"{out['routed']['tok_s']:.1f} tok/s, first byte p50 {out['routed']['first_p50_s']:.3f}s over "
+              f"{out['routed']['engines']}; direct to one engine {out['direct']['tok_s']:.1f} tok/s, first byte p50 "
+              f"{out['direct']['first_p50_s']:.3f}s; {checked} routed tokens at the plain argmax, {exempt} exempt; "
+              f"{differ} routed streams leave the direct ones (each at a near-tie); launches in the engine "
+              f"processes {burst}")
+        out["burst_launches"] = burst
+
+        # 3. sessions: 4 conversations of 3 turns, two owned by each engine
+        convs = (_sessions_owned_by([a_addr, b_addr], a_addr, 2, "conv")
+                 + _sessions_owned_by([a_addr, b_addr], b_addr, 2, "conv"))
+        history = {sid: list(prompts[i]) for i, sid in enumerate(convs)}
+        homes: dict[str, str] = {}
+        for turn in range(3):
+            for sid in convs:
+                st, raw, _, _, hdrs = _http(port, "POST", "/generate",
+                                            {"tokens": history[sid], "max_new_tokens": 16}, {"X-GoFr-Session": sid})
+                if st != 201:
+                    raise AssertionError(f"session {sid} turn {turn}: {st} {raw[:200]!r}")
+                if homes.setdefault(sid, hdrs["X-Engine-Id"]) != hdrs["X-Engine-Id"]:
+                    raise AssertionError(f"session {sid} turn {turn} left {homes[sid]} for {hdrs['X-Engine-Id']}")
+                history[sid] += json.loads(raw)["data"]["tokens"] + [7, 8, 9]
+        if len(set(homes.values())) != 2:
+            raise AssertionError(f"the sessions used one engine: {homes}")
+        print(f"router sessions: 4 conversations x 3 turns, each on one engine: {homes}")
+
+        # 4. SIGKILL one engine process under a streamed burst of 8
+        for addr in (a_addr, b_addr):
+            state(addr, zero=True)
+        threads, outs, started = _sse_burst(port, 8)
+        for ev in started:
+            ev.wait(timeout=300)
+        victim_eid = next(o["engine"] for o in outs if o.get("engine"))
+        victim = next(a for a in (a_addr, b_addr) if f"engine-{_port_of(a)}" == victim_eid)
+        survivor = b_addr if victim == a_addr else a_addr
+        on_victim = sum(o.get("engine") == victim_eid for o in outs)
+        t_kill = time.perf_counter()
+        os.kill(pids[victim], 9)
+        _wait_until(lambda: victim not in _accepting(port), 60, "the killed process marked down", every=0.01)
+        down_s = time.perf_counter() - t_kill
+        for th in threads:
+            th.join(timeout=600)
+        completed = sum(o.get("complete", False) for o in outs)
+        cut = [o.get("engine") for o in outs if not o.get("complete", False)]
+        after = _generate_burst(port, prompts, ROUTER_NEW)
+        if after["failed"]:
+            raise AssertionError(f"router: the burst after the kill failed requests {after['failed']}")
+        _replay_gate(params, cfg, prompts, after["results"], TOKEN_GAP, label="router after kill ", verbose=False)
+        replacement = _wait_until(lambda: [a for a in _accepting(port) if a not in (a_addr, b_addr)], ROUTER_WAIT_S,
+                                  "a replacement engine process accepting", every=0.1)[0]
+        replace_s = time.perf_counter() - t_kill
+        state(replacement, zero=True)
+        rehomed = {}
+        for sid in convs:
+            if homes[sid] != victim_eid:
+                continue
+            st, raw, _, _, hdrs = _http(port, "POST", "/generate", {"tokens": history[sid], "max_new_tokens": 16},
+                                        {"X-GoFr-Session": sid})
+            if st != 201 or hdrs["X-Engine-Id"] == victim_eid:
+                raise AssertionError(f"session {sid} of the killed engine: {st} on {hdrs.get('X-Engine-Id')}")
+            rehomed[sid] = hdrs["X-Engine-Id"]
+        if any(e != victim_eid for e in cut) or completed + len(cut) != 8:
+            raise AssertionError(f"router kill: cut streams {cut} not all on the killed {victim_eid}")
+        out["kill"] = {"streams_on_victim": on_victim, "completed": completed, "truncated": len(cut),
+                       "marked_down_s": down_s, "failed_after": len(after["failed"]), "replacement_s": replace_s,
+                       "rehomed": rehomed}
+        print(f"router kill: SIGKILL of {victim_eid} with {on_victim} of 8 SSE streams on it: {completed} completed, "
+              f"{len(cut)} truncated; marked down in {down_s:.3f}s; the next burst of 8: 0 failed "
+              f"({after['tokens']} tokens); replacement {replacement} accepting {replace_s:.1f}s after the kill; "
+              f"the killed engine's sessions rehomed to {rehomed}")
+
+        # 5. an engine death in a live process (replica_kill): the process stays up
+        _get_json(_port_of(survivor), "/smoke/arm", "POST", {})
+        st, raw, _, _, _ = _http(_port_of(survivor), "POST", "/generate", {"tokens": [1, 2, 3], "max_new_tokens": 8})
+        dead = _wait_until(lambda: state(survivor)["died_reason"], 60, "the armed engine's death", every=0.05)
+        retries0 = _get_json(port, "/.well-known/router")["retries"]
+        after_death = _generate_burst(port, prompts, ROUTER_NEW)
+        if after_death["failed"]:
+            raise AssertionError(f"router: the burst after replica_kill failed {after_death['failed']}")
+        _replay_gate(params, cfg, prompts, after_death["results"], TOKEN_GAP, label="router after replica_kill ",
+                     verbose=False)
+        retries = _get_json(port, "/.well-known/router")["retries"] - retries0
+        if not _running(pids[survivor]):
+            raise AssertionError("the replica_kill process exited")
+        out["replica_kill"] = {"trigger_status": st, "died_reason": dead, "failed_after": 0, "retries": retries,
+                               "engines": sorted(set(after_death["engines"].values()))}
+        print(f"router replica_kill: engine-{_port_of(survivor)}'s engine died ({dead!r}; the triggering request "
+              f"answered {st}), its process stays up; the next burst of 8 through the router: 0 failed, "
+              f"{retries} re-dispatches, served by {out['replica_kill']['engines']}")
+
+        # 6. drain the replacement with 4 SSE streams in flight on it (its
+        # counters are read first: they leave with the process)
+        members = _get_json(port, "/.well-known/router")["fleet"]["ring"]
+        drained_pid = pids[replacement]
+        state(replacement, zero=True)
+        apps0, used0 = _gpu_apps(), _gpu_used_mib()
+        threads, outs, started = _sse_burst(port, 4, _sessions_owned_by(members, replacement, 4, "drain"))
+        for ev in started:
+            ev.wait(timeout=300)
+        if any(o.get("engine") != f"engine-{_port_of(replacement)}" for o in outs):
+            raise AssertionError(f"drain streams not on {replacement}: {[o.get('engine') for o in outs]}")
+        t_drain = time.perf_counter()
+        _get_json(_port_of(replacement), "/.well-known/debug/drain", "POST", {})
+        for th in threads:
+            th.join(timeout=600)
+        if not all(o.get("complete") for o in outs):
+            raise AssertionError(f"drain: streams cut {[o.get('error') for o in outs]}")
+        streams_s = time.perf_counter() - t_drain
+        _wait_until(lambda: not _running(drained_pid), 180, "the drained process's exit", every=0.05)
+        exit_s = time.perf_counter() - t_drain
+        _wait_until(lambda: all(replacement != b["address"] for b in _fleet(port)), 60, "the drained process reaped",
+                    every=0.05)
+        apps1, used1 = _gpu_apps(), _gpu_used_mib()
+        if pid_visible and (drained_pid not in apps0 or drained_pid in apps1):
+            raise AssertionError(f"the drained process {drained_pid} in nvidia-smi: before {apps0}, after {apps1}")
+        if used1 >= used0:
+            raise AssertionError(f"the card's memory did not drop when the drained process exited: {used0} -> {used1}")
+        restored = _wait_until(lambda: len(_accepting(port)) >= 2 and _accepting(port), ROUTER_WAIT_S,
+                               "the minimum restored", every=0.1)
+        restore_s = time.perf_counter() - t_drain
+        for b in _fleet(port):
+            state(b["address"], zero=True)
+        out["drain"] = {"streams": 4, "completed": 4, "streams_s": streams_s, "exit_s": exit_s,
+                        "apps_before": apps0, "apps_after": apps1, "used_mib": (used0, used1),
+                        "restored_s": restore_s}
+        print(f"router drain of {replacement} with 4 SSE streams on it: 4 of 4 completed {streams_s:.2f}s after the "
+              f"drain POST; the process exited at {exit_s:.2f}s; nvidia-smi compute apps {apps0} -> {apps1} (card "
+              f"memory {used0:.0f} -> {used1:.0f} MiB, the next engine starting meanwhile); the minimum restored at "
+              f"{restore_s:.1f}s: {restored}")
+    finally:
+        t_stop = time.perf_counter()
+        router.terminate()  # SIGTERM: the router's drain, then its close reaps every managed process
+        try:
+            router.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            router.kill()
+            router.wait(timeout=30)
+        router_log.close()
+        left = [p for p in pids.values() if _running(p)]
+        for p in left:
+            os.kill(p, 9)
+        if sys.exc_info()[0] is not None:
+            for name in sorted(os.listdir(logs)):
+                with open(os.path.join(logs, name), errors="replace") as f:
+                    tail = f.read()[-3000:]
+                print(f"--- {name} (last 3000 chars) ---\n{tail}")
+        shutil.rmtree(logs, ignore_errors=True)
+    if left:
+        raise AssertionError(f"the router's shutdown left engine processes {left}")
+    out["shutdown_s"] = time.perf_counter() - t_stop
+    out["launches"] = launches
+    print(f"router shutdown: the router exited in {out['shutdown_s']:.1f}s and reaped every engine process "
+          f"({len(pids)} launched); launches summed over the engine processes {launches}")
+    return out
+
+
+def _http_ok(port: int) -> bool:
+    try:
+        return _http(port, "GET", "/.well-known/alive", timeout=2)[0] == 200
+    except OSError:
+        return False
+
+
+BATCH_JOBS = 16  # jobs of the batch part: the burst's prompts twice
+BATCH_CONCURRENCY = 4
+
+
+def phase_batch(dev: dict, seed: int, cfg: TransformerConfig, params: dict, eng) -> dict:
+    """The job tier on ``eng`` in this process: a gofr_tpu_torch.batch
+    BatchWorker draining a FILE pub/sub topic in a temporary directory (see
+    the module docstring). Returns its readings and the launches of the
+    part."""
+    from types import SimpleNamespace
+
+    from gofr_tpu_torch.batch import BatchWorker
+    from gofr_tpu_torch.datasource.pubsub import FilePubSub
+
+    _plens, prompts = _burst_prompts(cfg, seed)
+    # the interactive burst alone: the direct streams and the TTFT without a backlog
+    alone, reqs, _ = _serve(eng, prompts, ROUTER_NEW)
+    ttft_alone = sorted(r.first_token_at - r.submitted_at for r in reqs.values())
+    box = tempfile.mkdtemp(prefix="gofr-batch-")
+    ps = FilePubSub(box)
+    classes: dict[str, int] = {}
+    submit = eng.submit
+
+    def counting(req):  # the priority class of every request the engine takes
+        classes[req.priority] = classes.get(req.priority, 0) + 1
+        return submit(req)
+
+    eng.submit = counting
+    container = SimpleNamespace(pubsub=ps, logger=None, metrics_manager=eng.metrics, tracer=None,
+                                tpu=lambda: SimpleNamespace(llm=lambda _name: eng))
+    worker = BatchWorker(container, "jobs", model="gemma", concurrency=BATCH_CONCURRENCY, poll_timeout=0.1)
+    loop = asyncio.new_event_loop()
+    runner = threading.Thread(target=lambda: loop.run_until_complete(worker.run()), daemon=True)
+    try:
+        _zero_launches(KERNEL_COUNTERS)
+        t0 = time.perf_counter()
+        for i in range(BATCH_JOBS):
+            ps.publish_sync("jobs", json.dumps({"id": f"job-{i}", "tokens": prompts[i % len(prompts)],
+                                                "max_new_tokens": ROUTER_NEW}))
+        runner.start()
+        _wait_until(lambda: worker.stats()["inflight"] or worker.jobs_ok, 60, "batch: the worker's first job",
+                    every=0.002)
+        with_backlog, reqs_b, _ = _serve(eng, prompts, ROUTER_NEW)
+        ttft_backlog = sorted(r.first_token_at - r.submitted_at for r in reqs_b.values())
+        _wait_until(lambda: worker.jobs_ok == BATCH_JOBS, 600, "every batch job's result", every=0.02)
+        jobs_s = time.perf_counter() - t0
+        launches = _launches(KERNEL_COUNTERS)
+        ps.publish_sync("jobs", json.dumps({"id": "job-0", "tokens": prompts[0], "max_new_tokens": ROUTER_NEW}))
+        _wait_until(lambda: worker.jobs_deduped == 1, 60, "the duplicate job's dedup", every=0.02)
+        time.sleep(0.3)  # a second result, were there one, would be published by now
+    finally:
+        worker.close()
+        runner.join(timeout=30)
+        loop.close()
+        eng.submit = submit
+    with open(os.path.join(box, "jobs.results.jsonl")) as f:
+        results = [json.loads(json.loads(ln)["value"]) for ln in f if ln.strip()]
+    shutil.rmtree(box, ignore_errors=True)
+    ids = sorted(r["id"] for r in results)
+    if ids != sorted(f"job-{i}" for i in range(BATCH_JOBS)):
+        raise AssertionError(f"batch: results {ids} are not one per job")
+    if classes.get("batch") != BATCH_JOBS or worker.jobs_ok != BATCH_JOBS or worker.jobs_error:
+        raise AssertionError(f"batch: engine classes {classes}, worker {worker.stats()}")
+    got = {int(r["id"].split("-")[1]): r["tokens"] for r in results}
+    job_prompts = [prompts[i % len(prompts)] for i in range(BATCH_JOBS)]
+    want = {i: alone[i % len(prompts)] for i in range(BATCH_JOBS)}
+    differ = _divergence_at_near_ties(params, cfg, job_prompts, got, want, TOKEN_GAP, "batch job ")
+    differ_i = _divergence_at_near_ties(params, cfg, prompts, with_backlog, alone, TOKEN_GAP, "batch interactive ")
+    for name in ROUTER_CHECKED:
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} was not launched in the batch part: {launches}")
+    out = {"jobs": BATCH_JOBS, "results": len(results), "jobs_s": jobs_s, "classes": classes,
+           "ttft_p50_alone_s": ttft_alone[len(ttft_alone) // 2],
+           "ttft_p50_backlog_s": ttft_backlog[len(ttft_backlog) // 2], "differ": differ,
+           "interactive_differ": differ_i, "deduped": worker.jobs_deduped, "launches": launches}
+    print(f"batch on {dev['smi']}: {BATCH_JOBS} jobs x {ROUTER_NEW} tokens over FILE pub/sub at concurrency "
+          f"{BATCH_CONCURRENCY}, one result each, in {jobs_s:.2f}s beside an interactive burst of 8; engine classes "
+          f"{classes}; {differ} job streams leave the direct ones (each at a near-tie), {differ_i} interactive; "
+          f"interactive ttft p50 {out['ttft_p50_backlog_s']:.3f}s with the backlog, {out['ttft_p50_alone_s']:.3f}s "
+          f"without; the job published twice: {worker.jobs_deduped} dedup, one result; launches {launches}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="GPU smoke run of gofr_tpu_torch on one card")
     ap.add_argument("--parent", metavar="TREE",
                     help="also build another checkout's paged-decode kernels (e.g. the parent commit from "
                          "git archive) and time them beside this tree's on the same inputs")
     ap.add_argument("--only", choices=("observe", "families", "moe", "contiguous", "wave", "knobs", "mnist", "fleet",
-                                       "rollout", "disagg", "gateway"),
+                                       "rollout", "disagg", "gateway", "batch", "router"),
                     help="build the kernels and run this one phase, which makes its own weights (prints no "
                          "kernels line and no result)")
+    ap.add_argument("--engine-process", action="store_true",
+                    help="serve as one engine process of the router phase (launched by the front router)")
+    ap.add_argument("--port", type=int, help="--engine-process: the HTTP port")
+    ap.add_argument("--metrics-port", type=int, default=0, help="--engine-process: the metrics port")
+    ap.add_argument("--log-dir", help="--engine-process: where its log goes")
     args = ap.parse_args()
+    if args.engine_process:
+        return engine_process(args)
     dev = phase_device()
     # every engine built from here on is armed: its deaths, quarantines,
     # rollbacks and anomalies write bundles here (one a trigger class a
@@ -6481,6 +7078,17 @@ def _main(args, dev: dict) -> int:
     if args.only:
         if args.only == "observe":
             timed("observe", phase_observe, dev, SEED, *gemma_weights(SEED))
+        elif args.only == "batch":  # an engine of its own at the engine phase's defaults
+            from gofr_tpu_torch.metrics import Manager
+
+            cfg, params = gemma_weights(SEED)
+            engine = LLMEngine(cfg, params, seed=SEED, metrics=Manager())
+            try:
+                timed("batch", phase_batch, dev, SEED, cfg, params, engine)
+            finally:
+                engine.close()
+        elif args.only == "router":
+            timed("router", phase_router, dev, SEED)
         elif args.only == "gateway":  # the edge phase's model app of its own, full depth, then the gateway part
             edge = timed("edge", phase_edge, dev, SEED, *gemma_weights(SEED), None)
             seconds["edge"] -= edge["gateway"]["seconds"]
@@ -6503,6 +7111,7 @@ def _main(args, dev: dict) -> int:
     try:
         obs = timed("observe", phase_observe, dev, SEED, cfg, params, engine, eng)
         ovl = timed("overload", phase_overload, dev, SEED, cfg, params, engine)
+        bat = timed("batch", phase_batch, dev, SEED, cfg, params, engine)
     finally:
         engine.close()
     del engine  # its pool and graphs go at the next phase's collection
@@ -6525,6 +7134,7 @@ def _main(args, dev: dict) -> int:
     moe = timed("moe", phase_moe, dev, SEED)
     contiguous = timed("contiguous", phase_contiguous, dev, SEED)
     timed("mnist", phase_mnist, dev, SEED)
+    rt = timed("router", phase_router, dev, SEED)
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     print(f"script seconds: {sum(seconds.values()):.1f}; black-box bundles by trigger: {_bundle_counts()}")
     # name -> (source, replaced Pallas kernel, timing key, engine run whose
@@ -6559,6 +7169,7 @@ def _main(args, dev: dict) -> int:
             "knobs_launches": {label: n[name] for label, n in knobs["launches"].items()},
             "fleet_launches": fleet["launches"][name],
             "rollout_launches": rollout["launches"][name], "disagg_launches": disagg["launches"][name],
+            "router_launches": rt["launches"][name], "batch_launches": bat["launches"][name],
             "max_abs_err": kern["errs"][name],
             "ms": t["ms"], "device_ms": t["device_ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],

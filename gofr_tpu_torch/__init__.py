@@ -44,12 +44,22 @@ mirror the JAX package so each counterpart is easy to find:
   ``datasource.gpu`` (``GPURuntime.register_llm``, and
   ``register_model`` with its dynamic ``Batcher``), ``serve_mnist`` (the
   MNIST app: ``POST /infer``, ``GET /model``) and ``models.tokenizer``
-  (``ByteTokenizer``); ``examples`` holds the counterparts of the JAX
+  (``ByteTokenizer``);
+- the scale-out and job tiers: ``router`` (``python -m
+  gofr_tpu_torch.router``: the front router over engine processes, with
+  the rendezvous ring, the polled fleet view, failover, the autoscaler,
+  and ``router.engine_stub``, a runnable engine process),
+  ``datasource.pubsub`` (the MEMORY and FILE backends behind
+  ``App.subscribe``) and ``batch`` (offline generation jobs over pub/sub
+  in the engine's batch class, ``POST /v1/batches``); ``examples`` holds the counterparts of the JAX
   package's framework examples, each run as ``python -m
   gofr_tpu_torch.examples.<name>``.
 
 The package imports torch and numpy only: nothing of ``jax`` and nothing of
-``gofr_tpu``. Host-only pieces it needs are copied and trimmed.
+``gofr_tpu``. Host-only pieces it needs are copied and trimmed. Importing
+the package itself loads no torch: the HTTP framework and the front
+router (``router``, which launches engine processes and proxies to them)
+run without it.
 
 Device rule: entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``; without a GPU they raise. A kernel wrapper given a CPU
@@ -59,14 +69,14 @@ launches the kernel or raises — there is no fallback.
 
 from __future__ import annotations
 
-import torch
 
-
-def resolve_device(device=None) -> torch.device:
+def resolve_device(device=None) -> "torch.device":  # noqa: F821 — torch loads here, not at package import
     """The device an entry point runs on: ``cuda`` by default, ``cpu`` only
     when the caller asks for it. Raises when CUDA is requested (explicitly
     or by default) and no GPU is visible — a missing card must never turn
     into a silent CPU run."""
+    import torch
+
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

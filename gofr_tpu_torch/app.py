@@ -18,7 +18,9 @@ path segments; ``ctx.path_param``) run under ``REQUEST_TIMEOUT`` seconds
 ``enable_oauth``) append to the chain in the order called.
 ``add_http_service`` registers an outbound ``service.HTTPService``;
 ``add_cron_job`` and ``add_background_task`` run on the serving loop and
-are cancelled at shutdown; ``add_static_files`` serves a directory;
+are cancelled at shutdown, as are the loops of ``subscribe`` (a handler
+per topic of the container's pub/sub backend, ``PUBSUB_BACKEND``:
+commit on success, a raising handler recovered); ``add_static_files`` serves a directory;
 ``register_model`` is ``ctx.tpu().register_model``. ``run()`` serves
 until SIGINT (at once) or SIGTERM (the graceful drain);
 ``run_in_background()`` serves from a daemon thread and returns once the
@@ -61,7 +63,7 @@ a span per HTTP request and per RPC (parented by an incoming
 ``traceparent``) and hands the tracer to every engine; ``/favicon.ico``,
 and ``/.well-known/openapi.json`` with the swagger page when
 ``./static/openapi.json`` exists. Left out of the port: the native HTTP
-codec, ``HTTP_WORKERS`` prefork, pub/sub and ``subscribe``, the SQL,
+codec, ``HTTP_WORKERS`` prefork, the SQL,
 Redis and Mongo datasources with ``migrate``, ``add_mongo`` and
 ``add_rest_handlers``.
 """
@@ -125,6 +127,7 @@ class App:
         self.http_server = AsyncHTTPServer(self.router.dispatch, self.http_port, logger=self.logger,
                                            tls=self._server_tls())
         self.metrics_server = MetricsServer(self.container.metrics, self.metrics_port)
+        self._subscriptions: dict[str, Callable] = {}  # subscribe: topic -> handler
         self._bg_factories: list[Callable] = []  # add_background_task
         self._bg_tasks: list[asyncio.Task] = []
         self._cron = None  # built at the first add_cron_job
@@ -218,6 +221,53 @@ class App:
     def register_model(self, name: str, *args, **kwargs):
         return self.container.tpu().register_model(name, *args, **kwargs)
 
+    # -- pub/sub (JAX app.py:206-210) -------------------------------------------
+    def subscribe(self, topic: str, handler: Callable) -> None:
+        """Run ``handler(ctx)`` for every message of `topic` from
+        ``serve()`` on (``ctx.bind()`` reads the payload); the message is
+        committed only when the handler returns None without raising."""
+        if self.container.pubsub is None:
+            self.logger.error("subscriber not initialized in the container (set PUBSUB_BACKEND)")
+            return
+        self._subscriptions[topic] = handler
+
+    async def _run_subscriber(self, topic: str, handler: Callable) -> None:
+        """One topic's loop (JAX app.py:374-409): receive, build a Context,
+        run the handler (a sync one on the executor), commit on success. A
+        raising handler is logged and its message left uncommitted, as is
+        one that returns an error; the loop goes on."""
+        from .context import Context
+        from .datasource.pubsub import SubscribeContextRequest
+
+        pubsub = self.container.pubsub
+        metrics = self.container.metrics
+        while self._shutdown_event is not None and not self._shutdown_event.is_set():
+            try:
+                msg = await pubsub.subscribe(topic)
+            except asyncio.CancelledError:
+                return
+            except Exception as e:  # noqa: BLE001 — a broker hiccup
+                self.logger.error(f"error while reading from topic {topic}: {e!r}")
+                await asyncio.sleep(1.0)
+                continue
+            if msg is None:
+                continue
+            metrics.increment_counter("app_pubsub_subscribe_total_count", topic=topic)
+            ctx = Context(SubscribeContextRequest(msg), self.container)
+            try:
+                if asyncio.iscoroutinefunction(handler):
+                    err = await handler(ctx)
+                else:
+                    err = await asyncio.get_running_loop().run_in_executor(None, handler, ctx)
+            except Exception as e:  # noqa: BLE001 — the handler's panic is recovered
+                self.logger.error(f"error in subscriber handler for {topic}: {e!r}")
+                continue
+            if err is not None:
+                self.logger.error(f"subscriber handler for {topic} returned error: {err!r}")
+                continue
+            msg.commit()
+            metrics.increment_counter("app_pubsub_subscribe_success_count", topic=topic)
+
     def add_background_task(self, coro_factory: Callable) -> None:
         """Run ``coro_factory()`` as a task on the serving loop from
         ``serve()`` on, cancelled at shutdown. Pass the coroutine function,
@@ -278,9 +328,13 @@ class App:
         self._add("POST", "/.well-known/debug/rollout", rollout_handler, timeout_s=max(120.0, self.request_timeout))
         # the flight recorder and the usage meter (JAX app.py:313-333): the
         # bundles and the chargeback view read what runs; the replay
-        # re-decodes a recorded request on the card, under its own timeout
-        self.get("/.well-known/debug/blackbox", debug_blackbox_handler)
-        self.get("/.well-known/debug/usage", debug_usage_handler)
+        # re-decodes a recorded request on the card, under its own timeout.
+        # The front router binds its fleet-wide views to the blackbox and
+        # usage paths first (router.new_router_app): the built-ins yield
+        if not self.router.has("GET", "/.well-known/debug/blackbox"):
+            self.get("/.well-known/debug/blackbox", debug_blackbox_handler)
+        if not self.router.has("GET", "/.well-known/debug/usage"):
+            self.get("/.well-known/debug/usage", debug_usage_handler)
         self._add("POST", "/.well-known/debug/replay", replay_handler, timeout_s=max(120.0, self.request_timeout))
         self.router.add("GET", "/favicon.ico", favicon_wire_handler)
         from .staticfiles import register_static_route
@@ -316,6 +370,14 @@ class App:
                 rt.drain()
             except Exception as e:  # noqa: BLE001 — the drain must reach the shutdown
                 self.logger.error(f"drain: engine drain failed: {e!r}")
+        fr = self.container.front_router
+        if fr is not None:
+            # a router's drain stops its autoscaler and leaves the managed
+            # engines serving (container.close() reaps them at exit)
+            try:
+                fr.drain()
+            except Exception as e:  # noqa: BLE001 — the drain must reach the shutdown
+                self.logger.error(f"drain: front-router drain failed: {e!r}")
         threading.Thread(target=self._drain_then_stop, args=(deadline_s,), name="app-drain", daemon=True).start()
         return True
 
@@ -349,7 +411,9 @@ class App:
             if self._grpc_registered and self.grpc_server is not None:
                 self.grpc_server.start()
                 self.logger.info(f"gRPC server listening on :{self.grpc_server.port}")
-            self._bg_tasks = [asyncio.ensure_future(factory()) for factory in self._bg_factories]
+            self._bg_tasks = [asyncio.ensure_future(self._run_subscriber(topic, handler))
+                              for topic, handler in self._subscriptions.items()]
+            self._bg_tasks += [asyncio.ensure_future(factory()) for factory in self._bg_factories]
             if self._cron is not None:
                 self._bg_tasks.append(asyncio.ensure_future(self._cron.run()))
             await self._shutdown_event.wait()

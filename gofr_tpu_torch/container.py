@@ -1,13 +1,18 @@
 """Container: the dependency hub handed to every handler (counterpart of
 gofr_tpu/container/__init__.py: config, logger, the metrics manager, the
-outbound HTTP services and the lazily built runtime behind ``tpu()``; no
-SQL, Redis, Mongo or pub/sub). ``create`` installs the remote-level
-logger (REMOTE_LOG_URL) and registers the framework's series (the runtime
-gauges, ``app_info`` and the two HTTP histograms); the manager also
-carries the series the runtime and its engines write, and the App's
-metrics server serves it. ``tracer`` (set by the App) is handed to the
-runtime, which passes it to every engine. ``health`` aggregates the
-runtime's and every service's health; ``close`` closes the runtime, the
+outbound HTTP services, the pub/sub backend, the lazily built runtime
+behind ``tpu()`` and the front router; no SQL, Redis or Mongo).
+``create`` installs the remote-level logger (REMOTE_LOG_URL), registers
+the framework's series (the runtime gauges, ``app_info``, the two HTTP
+histograms and the four ``app_pubsub_*`` counters) and builds the pub/sub
+backend ``PUBSUB_BACKEND`` names (``datasource.pubsub.new_pubsub``:
+MEMORY or FILE); the manager also carries the series the runtime and its
+engines write, and the App's metrics server serves it. ``tracer`` (set by
+the App) is handed to the runtime, which passes it to every engine;
+``front_router`` is set by ``router.new_router_app``. ``health``
+aggregates the pub/sub backend's, the runtime's and every service's
+health; ``close`` closes the pub/sub backend, the runtime, the front
+router (its poll, its probes and the engine processes it launched), the
 services (breaker probes, pooled sockets) and the level poller."""
 
 from __future__ import annotations
@@ -31,7 +36,9 @@ class Container:
         self.app_name = "gofr-tpu-app"
         self.app_version = "dev"
         self.services: dict[str, Any] = {}  # outbound HTTP services by name
+        self.pubsub = None  # PUBSUB_BACKEND's publisher and subscriber
         self.tpu_runtime = None
+        self.front_router = None  # the scale-out proxy core (router.new_router_app)
         self.tracer = None  # the App's tracing.Tracer
         self.start_time = time.time()
         self._lock = threading.Lock()
@@ -49,6 +56,11 @@ class Container:
         c.metrics_manager.set_gauge(
             "app_info", 1.0, app_name=c.app_name, app_version=c.app_version, framework_version=FRAMEWORK
         )
+        backend = (config.get("PUBSUB_BACKEND") or "").upper()
+        if backend:
+            from .datasource.pubsub import new_pubsub
+
+            c.pubsub = new_pubsub(backend, config, c.logger, c.metrics_manager)
         return c
 
     def register_framework_metrics(self) -> None:
@@ -60,6 +72,10 @@ class Container:
         m.new_gauge("app_python_num_gc", "completed gc collections")
         m.new_histogram("app_http_response", "http server response time s", HTTP_BUCKETS)
         m.new_histogram("app_http_service_response", "outbound http call time s", HTTP_BUCKETS)
+        m.new_counter("app_pubsub_publish_total_count", "messages published")
+        m.new_counter("app_pubsub_publish_success_count", "messages published ok")
+        m.new_counter("app_pubsub_subscribe_total_count", "subscribe receives")
+        m.new_counter("app_pubsub_subscribe_success_count", "messages handled ok")
 
     @property
     def metrics(self) -> Manager:
@@ -67,6 +83,12 @@ class Container:
 
     def get_http_service(self, name: str):
         return self.services.get(name)
+
+    def get_publisher(self):
+        return self.pubsub
+
+    def get_subscriber(self):
+        return self.pubsub
 
     def tpu(self):
         """The GPU runtime (LLM registry), built on first use: an app that
@@ -82,6 +104,8 @@ class Container:
 
     def health(self) -> dict[str, Any]:
         out: dict[str, Any] = {}
+        if self.pubsub is not None:
+            out["pubsub"] = self.pubsub.health()
         if self.tpu_runtime is not None:
             out["tpu"] = self.tpu_runtime.health_check()
         for name, svc in self.services.items():
@@ -101,8 +125,12 @@ class Container:
         return out
 
     def close(self) -> None:
-        if self.tpu_runtime is not None:
-            self.tpu_runtime.close()
+        for ds in (self.pubsub, self.tpu_runtime, self.front_router):
+            if ds is not None:
+                try:
+                    ds.close()
+                except Exception:  # noqa: BLE001 — the rest must still close
+                    pass
         for svc in self.services.values():
             svc.close()
         if isinstance(self.logger, RemoteLevelLogger):

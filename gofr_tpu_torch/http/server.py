@@ -10,6 +10,9 @@ responses (token streams) and Connection: close. A streaming response
 checks the transport before every chunk; when the peer is gone it aborts
 the connection and closes the producing generator, which is where a
 token stream cancels its engine request (finish_reason "disconnect").
+At shutdown an idle keep-alive connection closes at once and a busy one
+after its response (the JAX server waits out the keep-alive idle timeout:
+ROADMAP queue 3 item 37).
 """
 
 from __future__ import annotations
@@ -198,6 +201,10 @@ class AsyncHTTPServer:
         self.logger = logger
         self.tls = tls  # server-side ssl.SSLContext: HTTPS
         self._server: asyncio.AbstractServer | None = None
+        # keep-alive connections waiting for their next request, and the
+        # shutdown flag that stops a connection after its response
+        self._idle: set[asyncio.StreamWriter] = set()
+        self._closing = False
 
     async def start(self) -> None:
         self._server = await asyncio.start_server(
@@ -215,8 +222,16 @@ class AsyncHTTPServer:
         await self._server.serve_forever()
 
     async def shutdown(self) -> None:
+        """Stop listening and wait for the open connections: one in the
+        middle of a response finishes it (a drain's streams run to their
+        end) and then closes; an idle keep-alive connection closes now.
+        Left open, a client's pooled connection (a front router's) would
+        hold ``wait_closed`` for the 75 s keep-alive idle timeout."""
         if self._server is not None:
             self._server.close()
+            self._closing = True
+            for w in list(self._idle):
+                w.close()
             await self._server.wait_closed()
             self._server = None
 
@@ -226,11 +241,17 @@ class AsyncHTTPServer:
         try:
             first_request = True
             while True:
+                if not first_request:
+                    if self._closing:
+                        return
+                    self._idle.add(writer)
                 try:
                     timeout = READ_HEADER_TIMEOUT if first_request else 75.0  # keep-alive idle
                     head = await asyncio.wait_for(_read_headers(reader), timeout=timeout)
                 except asyncio.TimeoutError:
                     return
+                finally:
+                    self._idle.discard(writer)
                 if head is None:
                     return
                 first_request = False

@@ -144,7 +144,7 @@ def test_port_imports_nothing_of_jax():
     assert len(files) > 5
     # every subpackage is walked, the copied host modules too
     for sub in ("resilience", "structured", "spec", "kvcache", "datasource/gpu", "lora", "metrics", "profiling",
-                "service", "http/middleware", "logging", "examples"):
+                "service", "http/middleware", "logging", "examples", "router", "batch", "datasource/pubsub"):
         assert any(f.parent == ROOT / "gofr_tpu_torch" / sub for f in files), sub
     assert ROOT / "gofr_tpu_torch" / "grpcx.py" in files
     # the copied accounting, recorder, observability and tracing modules too
