@@ -1,6 +1,6 @@
 """GPU smoke run of the PyTorch/CUDA port (gofr_tpu_torch) on one card.
 
-    python3 chip_smoke.py [--parent TREE] [--only observe|families|moe|contiguous|wave|knobs|mnist|fleet|rollout|disagg|gateway|batch|router]
+    python3 chip_smoke.py [--parent TREE] [--only observe|families|moe|contiguous|wave|knobs|mnist|fleet|rollout|disagg|gateway|edge|batch|router]
     python3 chip_smoke.py --engine-process --port P --metrics-port M [--log-dir DIR]
 
 The second form is one engine process of the router phase (22), which the
@@ -15,7 +15,9 @@ Phases, each raising on failure:
 
 1. device — require CUDA, print the card's name and power limit, turn TF32
    off for float32 products;
-2. build — compile the CUDA kernels from gofr_tpu_torch/csrc (one nvcc per
+2. build — compile the HTTP wire codec every App serves through
+   (gofr_tpu_torch/native/httpcore.cc, g++; a failed build fails the
+   script) and the CUDA kernels from gofr_tpu_torch/csrc (one nvcc per
    source, in parallel) into build/kernels; print each kernel's registers
    and spill bytes (a bf16 flash kernel or a paged-decode kernel that
    spills fails), the count of tensor-core (HMMA) instructions per kernel
@@ -159,10 +161,22 @@ Phases, each raising on failure:
    completion plain and then as SSE (the deltas must join to the plain
    content), and a client that hangs up after the first SSE chunk (the
    KV pool must show 0 blocks in use within 3 s); both kernels must
-   launch during the phase. Prints an "edge" line: tok/s and the
-   client's time to first byte beside the engine phase's numbers;
+   launch during the phase. The App serves through NativeHTTPServer (the
+   C++ codec), its default. Last, the app shuts down with an idle
+   keep-alive connection open: its server must close within 5 s. Prints
+   an "edge" line: tok/s and the client's time to first byte beside the
+   engine phase's numbers, the shutdown's seconds;
+8a. native — on the edge app and its engine: the codec loaded, an App
+   under GOFR_HTTP_NATIVE=0 builds AsyncHTTPServer, and that server over
+   the edge app's router listens beside the native one; the burst served
+   directly by the engine, then through native, asyncio, asyncio, native:
+   every stream equal to the direct one or leaving it only at a near-tie
+   (counted); a mid-SSE hang-up retired on the asyncio server too; the
+   asyncio server closes within 5 s with an idle keep-alive connection.
+   Prints a "native" line: each server's tok/s;
 8b. gateway — while the edge phase's app still serves (``--only
-   gateway``: its own edge app at full depth first), a plain ``new()``
+   gateway`` or ``--only edge``: its own edge app at full depth first,
+   with all of 8a-8d), a plain ``new()``
    App in the same process in front of it (``build_gateway``: basic
    auth, the model app as service ``gemma`` behind a circuit breaker,
    and a service ``down`` on a port nothing listens on; ephemeral HTTP
@@ -179,6 +193,17 @@ Phases, each raising on failure:
    ``replay -bundle`` lists a bundle's records. Prints a "gateway" line:
    tok/s and time to first byte through the gateway and direct, the
    breaker's time to open, the launches;
+8c. prefork — host processes: a CPU-only App with HTTP_WORKERS=3 answers
+   from more than one pid within 15 s and SIGTERM reaps every worker; a
+   model app (serve's app over a tiny engine on the card) with
+   HTTP_WORKERS=3 logs the refusal (torch is imported), answers from one
+   pid and serves a generate. Prints a "prefork" line: the pids;
+8d. datasources — host only: the using-migrations (with Redis beside its
+   sqlite file), using-add-rest-handlers and http-server-using-redis
+   examples over sqlite files and the port's MiniRedis: the migration
+   applied once and a no-op second start, health with sql and redis UP,
+   app_sql_stats and app_redis_stats on /metrics, a CRUD round trip,
+   Redis set, get and pipeline. Prints a "datasources" line;
 9. prefix — the prefix cache and the session tier at the same full
    width and CUT_LAYERS of 18 layers: LLMEngine(prefix_cache_mb=64, session_mb=64, host_cache_mb=256),
    its 15 families (kv_seed and the hit programs too) held bitwise
@@ -471,6 +496,7 @@ import math
 import os
 import re
 import shutil
+import signal
 import socket
 import statistics
 import subprocess
@@ -612,6 +638,15 @@ def phase_device() -> dict:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
+    # the HTTP wire codec every App serves through (host C++, g++), built
+    # here once for the script and its engine processes: a build that
+    # fails on this machine fails the script instead of falling back
+    from gofr_tpu_torch.native import build_error, load_http_codec
+
+    codec = load_http_codec()
+    if codec is None:
+        raise AssertionError(f"the native HTTP codec did not build: {build_error()}")
+    print(f"build http codec: {time.perf_counter() - t0:.2f}s ({codec.__file__})")
     report = _build.build()
     spills = []
     for name, r in report.items():
@@ -3976,8 +4011,14 @@ def phase_edge(dev: dict, seed: int, cfg: TransformerConfig, params: dict, engin
     weights, driven over real sockets: the burst as concurrent POST
     /generate requests (every token through the replay gate), one OpenAI
     chat request plain and then SSE, and a client that hangs up mid-stream
-    (its blocks must be free within 3 s). Then, with ``gateway``, the
-    gateway part (``_gateway``) against this app while it still serves."""
+    (its blocks must be free within 3 s). The App's default server is the
+    native-codec one, so all of that runs through it; the native part
+    (``_native_part``) then holds it against the asyncio server. With
+    ``gateway``, the gateway part (``_gateway``) runs against this app
+    while it still serves; then the host-only prefork and datasources
+    parts (``_prefork_part``, ``_datasources_part``). Last, the app shuts
+    down with an idle keep-alive connection open: its server must close
+    within 5 s."""
     from gofr_tpu_torch.config import new_mock_config
     from gofr_tpu_torch.serve import build_app
 
@@ -3991,6 +4032,7 @@ def phase_edge(dev: dict, seed: int, cfg: TransformerConfig, params: dict, engin
     warm = _warm_report("edge ", eng)
     A.flash_attention.launches = 0
     A.paged_decode_partials.launches = 0
+    idle = None  # a keep-alive connection left idle for the shutdown
     try:
         status, raw, _, _, _ = _http(port, "POST", "/generate", {"tokens": [1, 2, 3], "max_new_tokens": 4})
         if status != 201 or len(json.loads(raw)["data"]["tokens"]) != 4:  # warm-up, outside the timed run
@@ -4001,37 +4043,16 @@ def phase_edge(dev: dict, seed: int, cfg: TransformerConfig, params: dict, engin
         plens = [5, 16, 17, 63, 64, 65, 200, 440]
         prompts = [rng.integers(1, cfg.vocab_size, n).tolist() for n in plens]
         new_tokens = 32
-        answers: dict[int, tuple] = {}
-        errors: list[BaseException] = []
-
-        def client(i):
-            try:
-                answers[i] = _http(port, "POST", "/generate", {"tokens": prompts[i], "max_new_tokens": new_tokens})
-            except BaseException as e:  # surfaced below, after every client joined
-                errors.append(e)
-
-        threads = [threading.Thread(target=client, args=(i,)) for i in range(len(prompts))]
         burst_launches0 = (A.flash_attention.launches, A.paged_decode_partials.launches)
-        t0 = time.perf_counter()
-        for th in threads:
-            th.start()
-        for th in threads:
-            th.join(timeout=900)
-        wall = time.perf_counter() - t0
+        burst = _http_burst(port, prompts, new_tokens)
         burst_launches = {
             "flash_attention": A.flash_attention.launches - burst_launches0[0],
             "paged_decode_partials": A.paged_decode_partials.launches - burst_launches0[1],
         }
-        if errors:
-            raise errors[0]
-        if any(th.is_alive() for th in threads) or len(answers) != len(prompts):
-            raise TimeoutError(f"{len(answers)} of {len(prompts)} HTTP clients finished")
-        results = {}
-        for i, (status, raw, _, _, _) in sorted(answers.items()):
-            toks = json.loads(raw)["data"]["tokens"] if status == 201 else None
-            if toks is None or len(toks) != new_tokens or any(t < 0 or t >= cfg.vocab_size for t in toks):
-                raise AssertionError(f"edge request {i} (prompt {plens[i]}): {status} {raw[:200]!r}")
-            results[i] = toks
+        results, wall, first = burst["results"], burst["wall_s"], burst["first_s"]
+        for i, toks in results.items():
+            if any(t < 0 or t >= cfg.vocab_size for t in toks):
+                raise AssertionError(f"edge request {i} (prompt {plens[i]}): token out of range {toks}")
         total = sum(len(t) for t in results.values())
         checked, exempt = _replay_gate(params, cfg, prompts, results, TOKEN_GAP, label="edge ")
 
@@ -4055,40 +4076,29 @@ def phase_edge(dev: dict, seed: int, cfg: TransformerConfig, params: dict, engin
             raise AssertionError(f"SSE deltas {joined!r} / {events[-1]} differ from the plain answer {content!r}")
 
         # 3. a client that hangs up after the first SSE chunk
-        disconnects0 = eng.stats()["disconnect_cancels"]
-        body = json.dumps({**chat, "max_tokens": 400, "stream": True}).encode()
-        with socket.create_connection(("127.0.0.1", port), timeout=120) as sock:
-            sock.sendall(b"POST /v1/chat/completions HTTP/1.1\r\nHost: smoke\r\n"
-                         b"Content-Type: application/json\r\n"
-                         + f"Content-Length: {len(body)}\r\n\r\n".encode() + body)
-            got = b""
-            while b"data: " not in got:
-                chunk = sock.recv(4096)
-                if not chunk:
-                    raise AssertionError("server closed the SSE stream before its first chunk")
-                got += chunk
-        t_gone = time.perf_counter()
-        while time.perf_counter() - t_gone < 3.0:
-            st = eng.stats()
-            if st["kvcache"]["blocks_in_use"] == 0 and st["disconnect_cancels"] == disconnects0 + 1:
-                break
-            time.sleep(0.01)
-        freed_s = time.perf_counter() - t_gone
-        st = eng.stats()
-        if st["kvcache"]["blocks_in_use"] or st["disconnect_cancels"] != disconnects0 + 1:
-            raise AssertionError(f"disconnected stream not retired within 3 s: {st}")
+        freed_s = _sse_cut(port, eng, chat)
         launches = {"flash_attention": A.flash_attention.launches,
                     "paged_decode_partials": A.paged_decode_partials.launches}
-        first = sorted(a[2] for a in answers.values())
+        native = _native_part(dev, app, eng, cfg, params, prompts, burst, new_tokens, chat)
         gw = None
         if gateway:
             gw = _gateway(dev, app, cfg, params, prompts, results, new_tokens, chat, content,
                           {"tok_s": total / wall, "ttft_p50_s": first[len(first) // 2], "sse_first_byte_s": sse_first})
+        prefork = _prefork_part(dev)
+        datasources = _datasources_part(dev)
+        idle = _idle_keepalive(port)
     finally:
+        t_down = time.perf_counter()
         app.shutdown()
+        _wait_for(lambda: app.http_server._server is None, 60.0, every=0.01)
+        closed_s = time.perf_counter() - t_down
         thread.join(timeout=60)
+        stopped_s = time.perf_counter() - t_down
     if thread.is_alive():
         raise AssertionError("edge server did not stop")
+    _closed_by_server(idle, "edge native server")
+    if closed_s >= 5.0:
+        raise AssertionError(f"the native server took {closed_s:.3f}s to close with an idle keep-alive connection")
     for name, n in launches.items():
         if n <= 0 or burst_launches[name] <= 0:
             raise AssertionError(f"{name} was not launched while the edge served: {launches}, burst {burst_launches}")
@@ -4097,7 +4107,8 @@ def phase_edge(dev: dict, seed: int, cfg: TransformerConfig, params: dict, engin
         "requests": len(results), "tokens": total, "wall_s": wall, "tok_s": total / wall,
         "ttft_p50_s": first[len(first) // 2], "ttft_max_s": first[-1], "sse_first_byte_s": sse_first,
         "disconnect_freed_s": freed_s, "tokens_matched": checked, "tokens_exempt": exempt,
-        "launches": launches, "burst_launches": burst_launches, "warmup": warm, "gateway": gw,
+        "launches": launches, "burst_launches": burst_launches, "warmup": warm, "gateway": gw, "native": native,
+        "prefork": prefork, "datasources": datasources, "shutdown_closed_s": closed_s, "shutdown_s": stopped_s,
     }
     engine_note = "" if engine_out is None else (
         f"; engine phase in-process {engine_out['tok_s']:.1f} tok/s, ttft p50 {engine_out['ttft_p50_s']:.3f}s max "
@@ -4107,8 +4118,397 @@ def phase_edge(dev: dict, seed: int, cfg: TransformerConfig, params: dict, engin
         f"in {wall:.3f}s = {out['tok_s']:.1f} tok/s; client ttft (first response byte, which carries the whole "
         f"answer) p50 {out['ttft_p50_s']:.3f}s max {out['ttft_max_s']:.3f}s{engine_note}; {checked} tokens "
         f"matched, {exempt} exempt; SSE first byte {sse_first:.3f}s; disconnect freed in {freed_s:.3f}s; "
-        f"burst launches {burst_launches}, phase {launches}"
+        f"burst launches {burst_launches}, phase {launches}; shut down with an idle keep-alive connection open: "
+        f"server closed in {closed_s:.3f}s, app stopped (engine closed) in {stopped_s:.3f}s"
     )
+    return out
+
+
+def _sse_cut(port: int, eng, chat: dict) -> float:
+    """A client that hangs up after the first SSE chunk of a 400-token chat
+    stream: its request must be retired (one more disconnect, no blocks in
+    use) within 3 s. Returns the seconds that took."""
+    disconnects0 = eng.stats()["disconnect_cancels"]
+    body = json.dumps({**chat, "max_tokens": 400, "stream": True}).encode()
+    with socket.create_connection(("127.0.0.1", port), timeout=120) as sock:
+        sock.sendall(b"POST /v1/chat/completions HTTP/1.1\r\nHost: smoke\r\n"
+                     b"Content-Type: application/json\r\n"
+                     + f"Content-Length: {len(body)}\r\n\r\n".encode() + body)
+        got = b""
+        while b"data: " not in got:
+            chunk = sock.recv(4096)
+            if not chunk:
+                raise AssertionError("server closed the SSE stream before its first chunk")
+            got += chunk
+    t_gone = time.perf_counter()
+    while time.perf_counter() - t_gone < 3.0:
+        st = eng.stats()
+        if st["kvcache"]["blocks_in_use"] == 0 and st["disconnect_cancels"] == disconnects0 + 1:
+            break
+        time.sleep(0.01)
+    freed_s = time.perf_counter() - t_gone
+    st = eng.stats()
+    if st["kvcache"]["blocks_in_use"] or st["disconnect_cancels"] != disconnects0 + 1:
+        raise AssertionError(f"disconnected stream not retired within 3 s: {st}")
+    return freed_s
+
+
+def _idle_keepalive(port: int) -> socket.socket:
+    """A connection that has had one answer and stays open, idle (a
+    pooled keep-alive socket, as a front router holds)."""
+    sock = socket.create_connection(("127.0.0.1", port), timeout=30)
+    sock.sendall(b"GET /.well-known/alive HTTP/1.1\r\nHost: smoke\r\n\r\n")
+    got = b""
+    while b"\r\n\r\n" not in got:
+        chunk = sock.recv(4096)
+        if not chunk:
+            raise AssertionError("the keep-alive probe's connection closed before its answer")
+        got += chunk
+    if not got.startswith(b"HTTP/1.1 200"):
+        raise AssertionError(f"keep-alive probe: {got[:200]!r}")
+    return sock
+
+
+def _closed_by_server(sock: socket.socket | None, label: str) -> None:
+    """The idle connection was closed by the server's shutdown."""
+    if sock is None:
+        return
+    try:
+        sock.settimeout(5.0)
+        rest = sock.recv(4096)
+    finally:
+        sock.close()
+    if rest:
+        raise AssertionError(f"{label}: the idle connection received {rest[:100]!r} instead of its close")
+
+
+def _http_burst(port: int, prompts, new_tokens: int) -> dict:
+    """The burst as concurrent POST /generate requests, one connection
+    each: {"results": {i: tokens}, "wall_s", "first_s": each client's
+    seconds to its first response byte, sorted}."""
+    answers: dict = {}
+    errors: list = []
+
+    def client(i):
+        try:
+            answers[i] = _http(port, "POST", "/generate", {"tokens": prompts[i], "max_new_tokens": new_tokens})
+        except BaseException as e:  # surfaced below, after every client joined
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(len(prompts))]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=900)
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    if len(answers) != len(prompts):
+        raise TimeoutError(f"{len(answers)} of {len(prompts)} HTTP clients finished")
+    results = {}
+    for i, (status, raw, _, _, _) in sorted(answers.items()):
+        toks = json.loads(raw)["data"]["tokens"] if status == 201 else None
+        if toks is None or len(toks) != new_tokens:
+            raise AssertionError(f"burst request {i} on :{port}: {status} {raw[:200]!r}")
+        results[i] = toks
+    return {"results": results, "wall_s": wall, "first_s": sorted(a[2] for a in answers.values())}
+
+
+def _native_part(dev: dict, app, eng, cfg, params, prompts, native_run: dict, new_tokens: int, chat: dict) -> dict:
+    """The native part, on the edge phase's app and engine: (1) the app
+    serves through NativeHTTPServer and the codec loaded, and an App
+    configured with GOFR_HTTP_NATIVE=0 builds AsyncHTTPServer; (2) that
+    asyncio server, over the edge app's own router on its own loop,
+    listens beside the native one; (3) the burst served directly by the
+    engine (in-process clients), then through the servers in the order
+    native (the edge phase's burst), asyncio, asyncio, native: every
+    stream of every burst equal to the direct one token for token, or
+    leaving it only at a near-tie (the gateway's rule; counted); (4) a
+    client that hangs up mid-SSE on the asyncio server is retired as on the
+    native one; (5) the asyncio server shuts down with an idle keep-alive
+    connection open, in under 5 s."""
+    from gofr_tpu_torch.app import App
+    from gofr_tpu_torch.config import new_mock_config
+    from gofr_tpu_torch.http.nativeserver import NativeHTTPServer
+    from gofr_tpu_torch.http.server import AsyncHTTPServer
+    from gofr_tpu_torch.native import load_http_codec
+
+    t_part = time.perf_counter()
+    codec = load_http_codec()
+    if type(app.http_server) is not NativeHTTPServer or codec is None:
+        raise AssertionError(f"the edge app serves through {type(app.http_server).__name__}, codec {codec}")
+    probe = App(new_mock_config({"HTTP_PORT": "0", "METRICS_PORT": "0", "GOFR_HTTP_NATIVE": "0", "LOG_LEVEL": "ERROR"}))
+    probe.container.close()
+    if type(probe.http_server) is not AsyncHTTPServer:
+        raise AssertionError(f"GOFR_HTTP_NATIVE=0 built {type(probe.http_server).__name__}")
+    alt = AsyncHTTPServer(app.router.dispatch, 0, host="127.0.0.1", logger=app.logger)
+    asyncio.run_coroutine_threadsafe(alt.start(), app._loop).result(30)
+    ports = {"native": app.http_server.port, "asyncio": alt.port}
+    try:
+        direct, _reqs, direct_wall = _serve(eng, prompts, new_tokens)
+        runs = {"native": [native_run], "asyncio": []}
+        for name in ("asyncio", "asyncio", "native"):
+            runs[name].append(_http_burst(ports[name], prompts, new_tokens))
+        tok_s, differ = {}, {}
+        for name, rs in runs.items():
+            tok_s[name] = [sum(map(len, r["results"].values())) / r["wall_s"] for r in rs]
+            differ[name] = [_divergence_at_near_ties(params, cfg, prompts, r["results"], direct, TOKEN_GAP,
+                                                     f"native part {name} ") for r in rs]
+        sse_freed_s = _sse_cut(alt.port, eng, chat)
+        idle = _idle_keepalive(alt.port)
+        t0 = time.perf_counter()
+        asyncio.run_coroutine_threadsafe(alt.shutdown(), app._loop).result(30)
+        alt_closed_s = time.perf_counter() - t0
+        _closed_by_server(idle, "asyncio server")
+    finally:
+        if alt._server is not None:
+            asyncio.run_coroutine_threadsafe(alt.shutdown(), app._loop).result(30)
+    if alt_closed_s >= 5.0:
+        raise AssertionError(f"the asyncio server took {alt_closed_s:.3f}s to close with an idle connection")
+    total = sum(map(len, direct.values()))
+    out = {"direct_tok_s": total / direct_wall, "tok_s": tok_s, "streams_differ": differ,
+           "asyncio_sse_freed_s": sse_freed_s, "asyncio_closed_s": alt_closed_s,
+           "codec": os.path.basename(codec.__file__), "seconds": time.perf_counter() - t_part}
+    fmt = lambda xs: ", ".join(f"{x:.1f}" for x in xs)  # noqa: E731
+    print(
+        f"native gemma_2b on {dev['smi']}: the edge app on NativeHTTPServer ({out['codec']}); the burst of "
+        f"{len(prompts)} concurrent POST /generate ({total} tokens) native {fmt(tok_s['native'])} tok/s (runs 1 and 4) "
+        f"against asyncio {fmt(tok_s['asyncio'])} tok/s (runs 2 and 3), {out['direct_tok_s']:.1f} tok/s direct "
+        f"in-process; streams leaving the direct ones at near-ties: native {differ['native']}, asyncio "
+        f"{differ['asyncio']} (of {len(prompts)} each); asyncio SSE disconnect freed in {sse_freed_s:.3f}s; the "
+        f"asyncio server closed in {alt_closed_s:.3f}s with an idle keep-alive connection; part {out['seconds']:.1f}s"
+    )
+    return out
+
+
+PREFORK_WORKERS = 3
+_PREFORK_CPU_APP = (
+    "import os, sys\n"
+    "from gofr_tpu_torch.app import App\n"
+    "from gofr_tpu_torch.config import new_mock_config\n"
+    "app = App(config=new_mock_config({{'APP_NAME': 'prefork', 'HTTP_PORT': '{port}', 'METRICS_PORT': '{mport}', "
+    "'LOG_LEVEL': 'INFO', 'HTTP_WORKERS': '{workers}'}}))\n"
+    "app.get('/pid', lambda ctx: {{'pid': os.getpid(), 'torch': 'torch' in sys.modules}})\n"
+    "app.run()\n"
+)
+_PREFORK_MODEL_APP = (
+    "import os, sys\n"
+    "from gofr_tpu_torch.config import new_mock_config\n"
+    "from gofr_tpu_torch.serve import build_app\n"
+    "app = build_app(new_mock_config({{'APP_NAME': 'prefork-model', 'HTTP_PORT': '{port}', 'METRICS_PORT': '{mport}', "
+    "'LOG_LEVEL': 'INFO', 'HTTP_WORKERS': '{workers}', 'GEMMA_PRESET': 'tiny', 'LLM_SLOTS': '2', "
+    "'LLM_MAX_SEQ': '128'}}))\n"
+    "app.get('/pid', lambda ctx: {{'pid': os.getpid(), 'torch': 'torch' in sys.modules}})\n"
+    "app.run()\n"
+)
+
+
+def _prefork_run(template: str, log_path: str, want_pids: int, seconds: float, generate: bool) -> dict:
+    """One app of ``template`` with HTTP_WORKERS=PREFORK_WORKERS in a
+    process of its own (its log in ``log_path``): the pids that answer GET
+    /pid on fresh connections (until ``want_pids`` answer, within
+    ``seconds`` of the launch; then 20 more answers), with ``generate`` one
+    POST /generate, then SIGTERM; every pid must be gone within 30 s."""
+    port, mport = free_port(), free_port()
+    root = str(Path(__file__).resolve().parent)
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen([sys.executable, "-c", template.format(port=port, mport=mport, workers=PREFORK_WORKERS)],
+                                cwd=root, env={**os.environ, "PYTHONPATH": root}, stdout=log, stderr=subprocess.STDOUT)
+    t0 = time.perf_counter()
+    pids: set = set()
+    torch_seen: set = set()
+    t_first = t_want = None
+    try:
+        while time.perf_counter() - t0 < seconds and len(pids) < want_pids:
+            if proc.poll() is not None:
+                raise AssertionError(f"prefork app exited with {proc.returncode}")
+            try:
+                got = _get_json(port, "/pid")
+            except (OSError, AssertionError):
+                time.sleep(0.1)
+                continue
+            t_first = t_first or time.perf_counter() - t0
+            pids.add(got["pid"])
+            torch_seen.add(got["torch"])
+        t_want = time.perf_counter() - t0
+        for _ in range(20):
+            got = _get_json(port, "/pid")
+            pids.add(got["pid"])
+            torch_seen.add(got["torch"])
+        gen = None
+        if generate:
+            status, raw, _, _, _ = _http(port, "POST", "/generate", {"tokens": [1, 2, 3], "max_new_tokens": 4},
+                                         timeout=60)
+            gen = (status, len(json.loads(raw)["data"]["tokens"]) if status == 201 else raw[:200])
+    finally:
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGTERM)
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=10)
+            raise AssertionError("the prefork app did not exit within 30 s of SIGTERM") from None
+    time.sleep(0.2)
+    left = sorted(p for p in pids if _running(p))
+    with open(log_path) as f:
+        lines = [json.loads(ln) for ln in f if ln.startswith("{")]
+    msgs = [ln["message"] for ln in lines if isinstance(ln.get("message"), str)]
+    return {"pids": sorted(pids), "parent": proc.pid, "torch": sorted(torch_seen), "first_answer_s": t_first,
+            "answered_s": t_want, "generate": gen, "left": left, "rc": proc.returncode,
+            "forked": any(m.startswith("HTTP multi-worker") for m in msgs),
+            "refused": [m for m in msgs if m.startswith("HTTP_WORKERS>1 ignored")]}
+
+
+def _prefork_part(dev: dict) -> dict:
+    """The prefork part (host processes; tests/test_torch_prefork.py on
+    the card's machine): (1) a CPU-only App with HTTP_WORKERS=3 (no torch
+    imported) answers from more than one pid within 15 s, and SIGTERM
+    reaps every worker; (2) a model app (serve's app over a tiny engine on
+    the card, torch imported) with HTTP_WORKERS=3 logs the refusal,
+    answers from its one pid and serves a generate."""
+    t_part = time.perf_counter()
+    logs = tempfile.mkdtemp(prefix="gofr-prefork-")
+    try:
+        cpu = _prefork_run(_PREFORK_CPU_APP, os.path.join(logs, "cpu.log"), 2, 15.0, generate=False)
+        if len(cpu["pids"]) < 2 or cpu["answered_s"] >= 15.0 or cpu["torch"] != [False] or not cpu["forked"]:
+            raise AssertionError(f"prefork cpu app: {cpu}")
+        if cpu["left"]:
+            raise AssertionError(f"prefork cpu app: workers {cpu['left']} outlived SIGTERM")
+        model = _prefork_run(_PREFORK_MODEL_APP, os.path.join(logs, "model.log"), 1, 240.0, generate=True)
+        refusal = ("HTTP_WORKERS>1 ignored: torch already imported and device state does not survive fork — "
+                   "use engine replicas to scale")
+        if model["pids"] != [model["parent"]] or model["refused"] != [refusal] or model["forked"] \
+                or model["torch"] != [True] or model["generate"] != (201, 4) or model["left"]:
+            raise AssertionError(f"prefork model app: {model}")
+    except BaseException:
+        for name in sorted(os.listdir(logs)):
+            with open(os.path.join(logs, name)) as f:
+                print(f"--- prefork log {name} ---\n{f.read()[-4000:]}")
+        raise
+    finally:
+        shutil.rmtree(logs, ignore_errors=True)
+    out = {"cpu": cpu, "model": model, "seconds": time.perf_counter() - t_part}
+    print(
+        f"prefork on {dev['smi']}: a CPU-only App with HTTP_WORKERS={PREFORK_WORKERS} answered from pids "
+        f"{cpu['pids']} (parent {cpu['parent']}), two within {cpu['answered_s']:.2f}s of its launch, every worker gone "
+        f"after SIGTERM (exit {cpu['rc']}); the model app (tiny engine on the card) refused ({model['refused'][0]!r}), "
+        f"answered from pid {model['pids']} only, first answer {model['first_answer_s']:.2f}s after its launch, "
+        f"generate {model['generate']}; part {out['seconds']:.1f}s"
+    )
+    return out
+
+
+def _datasources_part(dev: dict) -> dict:
+    """The datasources part (host only), the port's three examples over
+    sqlite files and the port's MiniRedis: (1) using-migrations, with Redis
+    configured beside its database: the migration applied once (recorded
+    in the gofr_migrations table and hash), its routes, /.well-known/health
+    with sql and redis UP, and /metrics carrying app_sql_stats and
+    app_redis_stats; a second start over the same file runs nothing; (2)
+    using-add-rest-handlers: a CRUD round trip; (3)
+    http-server-using-redis: set, get, a missing key and the pipeline."""
+    from gofr_tpu_torch.config import new_mock_config
+    from gofr_tpu_torch.examples import http_server_using_redis, using_add_rest_handlers, using_migrations
+    from gofr_tpu_torch.testutil import MiniRedis
+
+    t_part = time.perf_counter()
+    mini = MiniRedis().start()
+    tmp = tempfile.mkdtemp(prefix="gofr-ds-")
+    base = {"HTTP_PORT": "0", "METRICS_PORT": "0", "LOG_LEVEL": "ERROR"}
+    redis_cfg = {"REDIS_HOST": "127.0.0.1", "REDIS_PORT": str(mini.port)}
+
+    def serving(mod, extra):
+        app = mod.build_app(new_mock_config({**mod.DEFAULTS, **base, **extra}))
+        return app, app.run_in_background()
+
+    def call(app, method, path, body=None):
+        status, raw, _, _, _ = _http(app.http_server.port, method, path, body, timeout=30)
+        return status, json.loads(raw) if raw else None
+
+    def expect(got, status, data=...):
+        if got[0] != status or (data is not ... and (got[1] or {}).get("data") != data):
+            raise AssertionError(f"datasources part: {got} where {status} {data!r} was expected")
+
+    def stop(app, thread):
+        app.shutdown()
+        thread.join(timeout=30)
+
+    checks = 0
+    try:
+        # 1. using-migrations, Redis beside the database
+        mig_cfg = {**redis_cfg, "DB_NAME": os.path.join(tmp, "employee.db")}
+        app, th = serving(using_migrations, mig_cfg)
+        try:
+            rows = app.container.sql.query("SELECT version, method FROM gofr_migrations")
+            hashed = app.container.redis.execute_sync("HGETALL", "gofr_migrations")
+            if rows != [{"version": 1708322067, "method": "UP"}] or hashed[:1] != [b"1708322067"]:
+                raise AssertionError(f"migration records: table {rows}, hash {hashed}")
+            expect(call(app, "GET", "/employee?name=Umang"), 200, {"id": 1, "name": "Umang", "gender": "M",
+                                                                   "contact_number": "0987654321", "dob": None})
+            emp = {"id": 2, "name": "Ada", "gender": "F", "contact_number": "123", "dob": "1815-12-10"}
+            expect(call(app, "POST", "/employee", emp), 201, "successfully posted entity")
+            expect(call(app, "GET", "/employee?name=Ada"), 200, emp)
+            expect(call(app, "GET", "/employee"), 400)
+            status, health = call(app, "GET", "/.well-known/health")
+            ups = {k: health["data"][k]["status"] for k in ("sql", "redis")}
+            if status != 200 or ups != {"sql": "UP", "redis": "UP"}:
+                raise AssertionError(f"health: {status} {health}")
+            series = {name: _series(app.metrics_server.port, name) for name in ("app_sql_stats_count",
+                                                                                "app_redis_stats_count")}
+            if not all(sum(v.values()) > 0 for v in series.values()):
+                raise AssertionError(f"/metrics: {series}")
+            checks += 7
+        finally:
+            stop(app, th)
+        again = using_migrations.build_app(new_mock_config({**using_migrations.DEFAULTS, **base, **mig_cfg}))
+        try:  # a re-run: the recorded version is skipped (a second insert of employee 1 would raise)
+            rows = again.container.sql.query("SELECT version FROM gofr_migrations")
+            people = again.container.sql.query("SELECT id FROM employee ORDER BY id")
+            if rows != [{"version": 1708322067}] or people != [{"id": 1}, {"id": 2}]:
+                raise AssertionError(f"migration re-run: {rows} {people}")
+            checks += 1
+        finally:
+            again.container.close()
+
+        # 2. using-add-rest-handlers: a CRUD round trip
+        app, th = serving(using_add_rest_handlers, {"DB_NAME": os.path.join(tmp, "users.db")})
+        try:
+            user = {"id": 1, "name": "ada", "age": 36, "is_employed": True}
+            expect(call(app, "GET", "/user"), 200, "user GetAll called")
+            expect(call(app, "POST", "/user", user), 201, "User successfully created with id: 1")
+            expect(call(app, "GET", "/user/1"), 200, {**user, "is_employed": 1})
+            expect(call(app, "PUT", "/user/1", {"age": 37}), 200, "User successfully updated with id: 1")
+            expect(call(app, "GET", "/user/1"), 200, {**user, "age": 37, "is_employed": 1})
+            expect(call(app, "DELETE", "/user/1"), 204)
+            expect(call(app, "GET", "/user/1"), 404)
+            checks += 7
+        finally:
+            stop(app, th)
+
+        # 3. http-server-using-redis
+        app, th = serving(http_server_using_redis, redis_cfg)
+        try:
+            expect(call(app, "POST", "/redis", {"greeting": "hello", "card": "h100"}), 201, "Successful")
+            expect(call(app, "GET", "/redis/greeting"), 200, {"greeting": "hello"})
+            expect(call(app, "GET", "/redis/card"), 200, {"card": "h100"})
+            expect(call(app, "GET", "/redis/absent-key"), 404)
+            expect(call(app, "GET", "/redis-pipeline"), 200, {"values": ["one", "two"]})
+            ttl = app.container.redis.execute_sync("TTL", "greeting")
+            if not 0 < ttl <= 300:
+                raise AssertionError(f"redis expiry: TTL {ttl}")
+            checks += 6
+        finally:
+            stop(app, th)
+    finally:
+        mini.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out = {"checks": checks, "seconds": time.perf_counter() - t_part}
+    print(f"datasources on {dev['smi']}: the using-migrations, using-add-rest-handlers and http-server-using-redis "
+          f"examples over sqlite files and MiniRedis, {checks} checks passed (migration once and a no-op re-run, "
+          f"health sql and redis UP, app_sql_stats and app_redis_stats scraped, a CRUD round trip, Redis set, get "
+          f"and pipeline); part {out['seconds']:.1f}s")
     return out
 
 
@@ -7026,7 +7426,7 @@ def main() -> int:
                     help="also build another checkout's paged-decode kernels (e.g. the parent commit from "
                          "git archive) and time them beside this tree's on the same inputs")
     ap.add_argument("--only", choices=("observe", "families", "moe", "contiguous", "wave", "knobs", "mnist", "fleet",
-                                       "rollout", "disagg", "gateway", "batch", "router"),
+                                       "rollout", "disagg", "gateway", "edge", "batch", "router"),
                     help="build the kernels and run this one phase, which makes its own weights (prints no "
                          "kernels line and no result)")
     ap.add_argument("--engine-process", action="store_true",
@@ -7063,6 +7463,13 @@ def _bundle_counts() -> dict:
     return out
 
 
+def _edge_seconds(seconds: dict, edge: dict) -> None:
+    """The edge phase's parts as phases of their own in ``phase seconds``."""
+    for part in ("native", "gateway", "prefork", "datasources"):
+        seconds["edge"] -= edge[part]["seconds"]
+        seconds[part] = edge[part]["seconds"]
+
+
 def _main(args, dev: dict) -> int:
     seconds = {}
 
@@ -7089,10 +7496,8 @@ def _main(args, dev: dict) -> int:
                 engine.close()
         elif args.only == "router":
             timed("router", phase_router, dev, SEED)
-        elif args.only == "gateway":  # the edge phase's model app of its own, full depth, then the gateway part
-            edge = timed("edge", phase_edge, dev, SEED, *gemma_weights(SEED), None)
-            seconds["edge"] -= edge["gateway"]["seconds"]
-            seconds["gateway"] = edge["gateway"]["seconds"]
+        elif args.only in ("gateway", "edge"):  # the edge phase's model app of its own, full depth, and its parts
+            _edge_seconds(seconds, timed("edge", phase_edge, dev, SEED, *gemma_weights(SEED), None))
         else:
             timed(args.only, {"families": phase_families, "moe": phase_moe, "contiguous": phase_contiguous,
                               "wave": phase_wave, "knobs": phase_knobs, "mnist": phase_mnist,
@@ -7117,9 +7522,7 @@ def _main(args, dev: dict) -> int:
     del engine  # its pool and graphs go at the next phase's collection
     eng8 = timed("int8", phase_engine_int8, dev, SEED, cfg, params)
     lora = timed("lora", phase_lora, dev, SEED, cfg, params, eng)
-    edge = timed("edge", phase_edge, dev, SEED, cfg, params, eng)
-    seconds["edge"] -= edge["gateway"]["seconds"]
-    seconds["gateway"] = edge["gateway"]["seconds"]
+    _edge_seconds(seconds, timed("edge", phase_edge, dev, SEED, cfg, params, eng))
     pre = timed("prefix", phase_prefix, dev, SEED, cfg, params)
     pre8 = timed("prefix int8", phase_prefix_int8, dev, SEED, cfg, params)
     spec = timed("spec", phase_spec, dev, SEED, cfg, params)

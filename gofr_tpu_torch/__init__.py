@@ -51,9 +51,14 @@ mirror the JAX package so each counterpart is easy to find:
   and ``router.engine_stub``, a runnable engine process),
   ``datasource.pubsub`` (the MEMORY and FILE backends behind
   ``App.subscribe``) and ``batch`` (offline generation jobs over pub/sub
-  in the engine's batch class, ``POST /v1/batches``); ``examples`` holds the counterparts of the JAX
-  package's framework examples, each run as ``python -m
-  gofr_tpu_torch.examples.<name>``.
+  in the engine's batch class, ``POST /v1/batches``);
+- the native edge and the datasources: ``native`` (the HTTP wire codec,
+  C++ built with g++ at first use) behind ``http.nativeserver`` (the
+  App's default server), ``datasource.sql``, ``datasource.redis``,
+  ``migration`` (``App.migrate``), ``crud`` (``App.add_rest_handlers``),
+  ``testutil`` (``MiniRedis``) and ``utils`` (``snake_case``);
+  ``examples`` holds the counterparts of the JAX package's framework
+  examples, each run as ``python -m gofr_tpu_torch.examples.<name>``.
 
 The package imports torch and numpy only: nothing of ``jax`` and nothing of
 ``gofr_tpu``. Host-only pieces it needs are copied and trimmed. Importing

@@ -4,13 +4,17 @@
 unless one is passed), the container and its logger, the router behind
 the default chain (tracer -> request log -> CORS -> metrics; the CORS
 headers take ``ACCESS_CONTROL_ALLOW_ORIGIN`` / ``_HEADERS`` /
-``_CREDENTIALS`` overrides), the asyncio HTTP server on ``HTTP_PORT``
-(default 8000; 0 binds an ephemeral port, read back from
-``app.http_server.port``; HTTPS when ``HTTP_TLS_CERT_FILE`` and
-``HTTP_TLS_KEY_FILE`` name PEM files) and the metrics server on
+``_CREDENTIALS`` overrides), the HTTP server on ``HTTP_PORT`` (default
+8000; 0 binds an ephemeral port, read back from ``app.http_server.port``;
+HTTPS when ``HTTP_TLS_CERT_FILE`` and ``HTTP_TLS_KEY_FILE`` name PEM
+files) and the metrics server on
 ``METRICS_PORT`` (default 2121; 0 binds an ephemeral port, read back from
 ``app.metrics_server.port``; a failed bind raises), which starts and
-stops with the HTTP server. Handlers registered with ``get`` / ``post`` /
+stops with the HTTP server. The HTTP server is ``NativeHTTPServer`` (the
+C++ wire codec, ``native/httpcore.cc``, built with g++ at the first
+start) unless ``GOFR_HTTP_NATIVE=0``; when the codec cannot be built the
+App logs a warning and serves through the asyncio ``AsyncHTTPServer``
+(one conformance suite holds both). Handlers registered with ``get`` / ``post`` /
 ``put`` / ``patch`` / ``delete`` (``{name}`` and trailing ``{rest...}``
 path segments; ``ctx.path_param``) run under ``REQUEST_TIMEOUT`` seconds
 (default 5; 408 past it). ``use_middleware`` and the auth enables
@@ -21,8 +25,18 @@ path segments; ``ctx.path_param``) run under ``REQUEST_TIMEOUT`` seconds
 are cancelled at shutdown, as are the loops of ``subscribe`` (a handler
 per topic of the container's pub/sub backend, ``PUBSUB_BACKEND``:
 commit on success, a raising handler recovered); ``add_static_files`` serves a directory;
-``register_model`` is ``ctx.tpu().register_model``. ``run()`` serves
-until SIGINT (at once) or SIGTERM (the graceful drain);
+``register_model`` is ``ctx.tpu().register_model``. ``migrate`` runs data
+migrations over the container's SQL and Redis datasources (``migration``),
+``add_rest_handlers`` registers an entity's CRUD routes (``crud``). ``run()`` serves
+until SIGINT (at once) or SIGTERM (the graceful drain); with
+``HTTP_WORKERS`` = N > 1 it first forks N - 1 workers that share the HTTP
+and metrics ports through SO_REUSEPORT (the kernel balances accepts),
+and at exit SIGTERMs and reaps them (SIGKILL after 10 s). It refuses, logs
+a warning and serves in one process when torch is already imported (an
+app that serves a model: a CUDA context does not survive a fork; scale
+such an app with engine replicas), when a port is 0, or without
+SO_REUSEPORT; ``REMOTE_LOG_URL``'s level poller then runs in the parent
+only;
 ``run_in_background()`` serves from a daemon thread and returns once the
 socket listens; ``shutdown()`` stops the servers and closes the
 registered engines and services.
@@ -62,10 +76,8 @@ its own timeout). The App builds one tracer from the config
 a span per HTTP request and per RPC (parented by an incoming
 ``traceparent``) and hands the tracer to every engine; ``/favicon.ico``,
 and ``/.well-known/openapi.json`` with the swagger page when
-``./static/openapi.json`` exists. Left out of the port: the native HTTP
-codec, ``HTTP_WORKERS`` prefork, the SQL,
-Redis and Mongo datasources with ``migrate``, ``add_mongo`` and
-``add_rest_handlers``.
+``./static/openapi.json`` exists. Left out of the port: the Mongo
+datasource with ``add_mongo``.
 """
 
 from __future__ import annotations
@@ -74,7 +86,7 @@ import asyncio
 import signal
 import threading
 import time
-from typing import Callable
+from typing import Any, Callable
 
 from .config import Config, EnvConfig
 from .container import Container
@@ -124,8 +136,7 @@ class App:
         self.router.use(logging_middleware(self.logger))
         self.router.use(cors_middleware(self._cors_overrides()))
         self.router.use(metrics_middleware(self.container.metrics))
-        self.http_server = AsyncHTTPServer(self.router.dispatch, self.http_port, logger=self.logger,
-                                           tls=self._server_tls())
+        self.http_server = self._make_http_server()
         self.metrics_server = MetricsServer(self.container.metrics, self.metrics_port)
         self._subscriptions: dict[str, Callable] = {}  # subscribe: topic -> handler
         self._bg_factories: list[Callable] = []  # add_background_task
@@ -142,6 +153,19 @@ class App:
         self._draining = False
         self.container.draining = False
         self.drain_deadline_s = self.config.get_float("GOFR_DRAIN_DEADLINE_S", 30.0)
+
+    def _make_http_server(self):
+        """The native-codec server when the C++ extension builds, the
+        asyncio one otherwise or under ``GOFR_HTTP_NATIVE=0`` (JAX
+        app.py:93-110)."""
+        tls = self._server_tls()
+        if self.config.get_or_default("GOFR_HTTP_NATIVE", "1") != "0":
+            from .http.nativeserver import NativeHTTPServer
+
+            if NativeHTTPServer.available():
+                return NativeHTTPServer(self.router.dispatch, self.http_port, logger=self.logger, tls=tls)
+            self.logger.warn("native HTTP codec unavailable; using pure-Python server")
+        return AsyncHTTPServer(self.router.dispatch, self.http_port, logger=self.logger, tls=tls)
 
     def _server_tls(self):
         """HTTPS when HTTP_TLS_CERT_FILE and HTTP_TLS_KEY_FILE name PEM files."""
@@ -267,6 +291,25 @@ class App:
                 continue
             msg.commit()
             metrics.increment_counter("app_pubsub_subscribe_success_count", topic=topic)
+
+    # -- migrations and CRUD (JAX app.py:229-250) --------------------------------
+    def migrate(self, migrations: dict[int, Any]) -> None:
+        """Run the pending ``migrations`` ({version: up}) now, logging and
+        re-raising a failure (``migration.run``)."""
+        from .migration import run as run_migrations
+
+        try:
+            run_migrations(migrations, self.container)
+        except Exception as e:  # noqa: BLE001 — logged, then raised
+            self.logger.error(f"migration failed: {e!r}")
+            raise
+
+    def add_rest_handlers(self, entity_cls) -> None:
+        """POST / GET / GET by id / PUT / DELETE routes for an entity class
+        over the SQL datasource (``crud.register_crud_handlers``)."""
+        from .crud import register_crud_handlers
+
+        register_crud_handlers(self, entity_cls)
 
     def add_background_task(self, coro_factory: Callable) -> None:
         """Run ``coro_factory()`` as a task on the serving loop from
@@ -442,7 +485,10 @@ class App:
 
     def run(self) -> None:
         """Blocking entry point; SIGINT stops the server, SIGTERM (a rolling
-        deploy) runs the graceful drain."""
+        deploy) runs the graceful drain. ``HTTP_WORKERS`` > 1 forks the
+        workers first (``_fork_workers``) and reaps them at exit."""
+        workers = self.config.get_int("HTTP_WORKERS", 1)
+        child_pids = self._fork_workers(workers) if workers > 1 else []
 
         async def main():
             loop = asyncio.get_running_loop()
@@ -453,7 +499,90 @@ class App:
                     pass
             await self.serve()
 
-        asyncio.run(main())
+        try:
+            asyncio.run(main())
+        finally:
+            if child_pids:
+                self._reap_workers(child_pids)
+
+    @staticmethod
+    def _reap_workers(pids: list[int], grace: float = 10.0) -> None:
+        """SIGTERM each worker, wait up to ``grace`` seconds, then SIGKILL
+        any survivor: a worker wedged in a C call must not hold the
+        parent's exit."""
+        import os
+
+        for pid in pids:
+            try:
+                os.kill(pid, signal.SIGTERM)
+            except ProcessLookupError:
+                pass
+        deadline = time.monotonic() + grace
+        remaining = list(pids)
+        while remaining and time.monotonic() < deadline:
+            for pid in list(remaining):
+                try:
+                    done, _ = os.waitpid(pid, os.WNOHANG)
+                except ChildProcessError:
+                    done = pid
+                if done:
+                    remaining.remove(pid)
+            if remaining:
+                time.sleep(0.05)
+        for pid in remaining:
+            try:
+                os.kill(pid, signal.SIGKILL)
+                os.waitpid(pid, 0)
+            except (ProcessLookupError, ChildProcessError):
+                pass
+
+    def _fork_workers(self, workers: int) -> list[int]:
+        """Fork ``workers`` - 1 children that share the HTTP and metrics
+        ports through SO_REUSEPORT (JAX app.py:581-632). The child pids in
+        the parent; [] in a child, or when prefork is refused: without
+        SO_REUSEPORT, once torch is imported (device state does not
+        survive a fork), or on an ephemeral port."""
+        import os
+        import socket
+        import sys
+
+        if not hasattr(socket, "SO_REUSEPORT"):
+            self.logger.warn("HTTP_WORKERS: SO_REUSEPORT unsupported; single worker")
+            return []
+        if "torch" in sys.modules:
+            self.logger.warn(
+                "HTTP_WORKERS>1 ignored: torch already imported and device "
+                "state does not survive fork — use engine replicas to scale"
+            )
+            return []
+        if self.http_port == 0 or self.metrics_port == 0:
+            # SO_REUSEPORT on port 0 gives every worker a port of its own,
+            # which no client knows
+            self.logger.warn(
+                "HTTP_WORKERS>1 ignored: ephemeral port 0 cannot be shared "
+                "across workers; set fixed HTTP_PORT/METRICS_PORT"
+            )
+            return []
+        if self.config.get("REMOTE_LOG_URL"):
+            # threads do not survive a fork: only the parent's poller runs
+            self.logger.warn("HTTP_WORKERS>1: remote log-level polling runs in the parent worker only")
+        # datasource sockets opened before run() would be shared by every
+        # worker; the framework's datasources connect lazily per process
+        self.http_server.reuse_port = True
+        self.metrics_server.reuse_port = True
+        pids: list[int] = []
+        try:
+            for _ in range(workers - 1):
+                pid = os.fork()
+                if pid == 0:
+                    return []  # a child serves like a single process
+                pids.append(pid)
+        except OSError:
+            # a partial fork failure: never orphan the workers already alive
+            self._reap_workers(pids)
+            raise
+        self.logger.info(f"HTTP multi-worker: {workers} processes on :{self.http_port}")
+        return pids
 
     def run_in_background(self) -> threading.Thread:
         """Serve from a daemon thread; returns once the sockets listen."""

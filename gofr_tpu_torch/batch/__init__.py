@@ -599,7 +599,14 @@ class BatchWorker:
         """Give the job back to the broker. Offset backends redeliver the
         uncommitted record by themselves; MEMORY pops on delivery, so the
         payload is republished explicitly (attempt count rides the
-        payload there — the store's count is per-process)."""
+        payload there — the store's count is per-process). The in-flight
+        mark goes first: a pull already waiting in ``subscribe`` can take
+        the republished payload before ``_process`` returns, and a mark
+        still held would drop it as a concurrent duplicate, which MEMORY
+        never redelivers (ROADMAP queue 3 item 42)."""
+        with self._lock:
+            self._inflight.discard(job.id)
+            self._depth()
         if getattr(msg, "_committer", None) is None:
             payload = dict(job.raw)
             if consume_attempt:

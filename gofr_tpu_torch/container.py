@@ -1,19 +1,23 @@
 """Container: the dependency hub handed to every handler (counterpart of
 gofr_tpu/container/__init__.py: config, logger, the metrics manager, the
-outbound HTTP services, the pub/sub backend, the lazily built runtime
-behind ``tpu()`` and the front router; no SQL, Redis or Mongo).
-``create`` installs the remote-level logger (REMOTE_LOG_URL), registers
-the framework's series (the runtime gauges, ``app_info``, the two HTTP
-histograms and the four ``app_pubsub_*`` counters) and builds the pub/sub
-backend ``PUBSUB_BACKEND`` names (``datasource.pubsub.new_pubsub``:
-MEMORY or FILE); the manager also carries the series the runtime and its
-engines write, and the App's metrics server serves it. ``tracer`` (set by
-the App) is handed to the runtime, which passes it to every engine;
-``front_router`` is set by ``router.new_router_app``. ``health``
-aggregates the pub/sub backend's, the runtime's and every service's
-health; ``close`` closes the pub/sub backend, the runtime, the front
-router (its poll, its probes and the engine processes it launched), the
-services (breaker probes, pooled sockets) and the level poller."""
+outbound HTTP services, the Redis and SQL datasources, the pub/sub
+backend, the lazily built runtime behind ``tpu()`` and the front router;
+no Mongo). ``create`` installs the remote-level logger (REMOTE_LOG_URL),
+registers the framework's series (the runtime gauges, ``app_info``, the
+two HTTP histograms, ``app_redis_stats``, ``app_sql_stats``, the two SQL
+connection gauges and the four ``app_pubsub_*`` counters), builds the
+Redis client when ``REDIS_HOST`` is set (``datasource.redis.new_client``),
+the SQL handle when ``DB_DIALECT`` or ``DB_HOST`` is
+(``datasource.sql.new_sql``) and the pub/sub backend ``PUBSUB_BACKEND``
+names (``datasource.pubsub.new_pubsub``: MEMORY or FILE); the manager
+also carries the series the runtime and its engines write, and the App's
+metrics server serves it. ``tracer`` (set by the App) is handed to the
+runtime, which passes it to every engine; ``front_router`` is set by
+``router.new_router_app``. ``health`` aggregates the SQL, Redis, pub/sub,
+runtime and service healths; ``close`` closes the Redis client, the SQL
+handle, the pub/sub backend, the runtime, the front router (its poll, its
+probes and the engine processes it launched), the services (breaker
+probes, pooled sockets) and the level poller."""
 
 from __future__ import annotations
 
@@ -24,7 +28,7 @@ from typing import Any
 from . import logging as gl
 from .config import Config
 from .logging.remote import RemoteLevelLogger
-from .metrics import HTTP_BUCKETS, Manager
+from .metrics import DATASOURCE_BUCKETS, HTTP_BUCKETS, Manager
 from .version import FRAMEWORK
 
 
@@ -36,6 +40,8 @@ class Container:
         self.app_name = "gofr-tpu-app"
         self.app_version = "dev"
         self.services: dict[str, Any] = {}  # outbound HTTP services by name
+        self.redis = None  # datasource.redis.Redis, when REDIS_HOST is set
+        self.sql = None  # datasource.sql.DB, when DB_DIALECT or DB_HOST is set
         self.pubsub = None  # PUBSUB_BACKEND's publisher and subscriber
         self.tpu_runtime = None
         self.front_router = None  # the scale-out proxy core (router.new_router_app)
@@ -56,6 +62,15 @@ class Container:
         c.metrics_manager.set_gauge(
             "app_info", 1.0, app_name=c.app_name, app_version=c.app_version, framework_version=FRAMEWORK
         )
+        # datasources are wired only when configured
+        if config.get("REDIS_HOST"):
+            from .datasource.redis import new_client as new_redis
+
+            c.redis = new_redis(config, c.logger, c.metrics_manager)
+        if config.get("DB_DIALECT") or config.get("DB_HOST"):
+            from .datasource.sql import new_sql
+
+            c.sql = new_sql(config, c.logger, c.metrics_manager)
         backend = (config.get("PUBSUB_BACKEND") or "").upper()
         if backend:
             from .datasource.pubsub import new_pubsub
@@ -72,6 +87,10 @@ class Container:
         m.new_gauge("app_python_num_gc", "completed gc collections")
         m.new_histogram("app_http_response", "http server response time s", HTTP_BUCKETS)
         m.new_histogram("app_http_service_response", "outbound http call time s", HTTP_BUCKETS)
+        m.new_histogram("app_redis_stats", "redis op time s", DATASOURCE_BUCKETS)
+        m.new_histogram("app_sql_stats", "sql op time s", DATASOURCE_BUCKETS)
+        m.new_gauge("app_sql_open_connections", "open sql connections")
+        m.new_gauge("app_sql_inuse_connections", "in-use sql connections")
         m.new_counter("app_pubsub_publish_total_count", "messages published")
         m.new_counter("app_pubsub_publish_success_count", "messages published ok")
         m.new_counter("app_pubsub_subscribe_total_count", "subscribe receives")
@@ -104,6 +123,10 @@ class Container:
 
     def health(self) -> dict[str, Any]:
         out: dict[str, Any] = {}
+        if self.sql is not None:
+            out["sql"] = self.sql.health_check()
+        if self.redis is not None:
+            out["redis"] = self.redis.health_check()
         if self.pubsub is not None:
             out["pubsub"] = self.pubsub.health()
         if self.tpu_runtime is not None:
@@ -125,7 +148,7 @@ class Container:
         return out
 
     def close(self) -> None:
-        for ds in (self.pubsub, self.tpu_runtime, self.front_router):
+        for ds in (self.redis, self.sql, self.pubsub, self.tpu_runtime, self.front_router):
             if ds is not None:
                 try:
                     ds.close()

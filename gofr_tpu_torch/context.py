@@ -1,7 +1,8 @@
 """Context: the per-request facade handed to every handler (counterpart of
 gofr_tpu/context.py): the request's surface (``param``, ``params``,
 ``path_param``, ``bind``, ``header``, ``host_name``), the container's
-(``logger``, ``metrics``, ``tpu()``, ``get_http_service``), the route's
+(``logger``, ``metrics``, ``redis``, ``sql``, ``tpu()``,
+``get_http_service``), the route's
 deadline, what the auth middleware found (``authenticated_user``,
 ``jwt_claims``), and the request's trace through ``trace``, ``trace_id``
 and ``traceparent``. HTTP, gRPC, CLI and cron handlers get the same
@@ -53,6 +54,14 @@ class Context:
     @property
     def metrics(self):
         return self.container.metrics
+
+    @property
+    def redis(self):
+        return self.container.redis
+
+    @property
+    def sql(self):
+        return self.container.sql
 
     def get_http_service(self, name: str):
         return self.container.get_http_service(name)

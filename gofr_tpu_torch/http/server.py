@@ -1,7 +1,9 @@
 """Asyncio HTTP/1.1 server with keep-alive and chunked streaming responses
-(counterpart of gofr_tpu/http/server.py ``AsyncHTTPServer``, without
-SO_REUSEPORT workers and the native C server). ``tls`` (a server-side
-``ssl.SSLContext``) serves HTTPS.
+(counterpart of gofr_tpu/http/server.py ``AsyncHTTPServer``): the App's
+server under ``GOFR_HTTP_NATIVE=0`` or when the native codec cannot be
+built (``http/nativeserver.py`` is the default). ``tls`` (a server-side
+``ssl.SSLContext``) serves HTTPS; ``reuse_port`` binds with SO_REUSEPORT
+(the App's ``HTTP_WORKERS`` prefork).
 
 One event loop; each request is a task awaiting its handler. Protocol
 support: request line and headers (64 KiB cap), Content-Length and chunked
@@ -200,6 +202,7 @@ class AsyncHTTPServer:
         self.host = host
         self.logger = logger
         self.tls = tls  # server-side ssl.SSLContext: HTTPS
+        self.reuse_port = False  # HTTP_WORKERS prefork: every worker binds the port
         self._server: asyncio.AbstractServer | None = None
         # keep-alive connections waiting for their next request, and the
         # shutdown flag that stops a connection after its response
@@ -208,7 +211,8 @@ class AsyncHTTPServer:
 
     async def start(self) -> None:
         self._server = await asyncio.start_server(
-            self._handle_conn, self.host, self.port, limit=MAX_HEADER_BYTES, ssl=self.tls,
+            self._handle_conn, self.host, self.port, limit=MAX_HEADER_BYTES,
+            reuse_port=self.reuse_port or None, ssl=self.tls,
         )
         self.port = self._server.sockets[0].getsockname()[1]
         if self.logger:

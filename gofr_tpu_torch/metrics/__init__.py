@@ -30,6 +30,8 @@ DEFAULT_HISTOGRAM_BUCKETS = (
 # HTTP server and outbound-service latencies (app_http_response,
 # app_http_service_response)
 HTTP_BUCKETS = (0.001, 0.003, 0.005, 0.01, 0.02, 0.03, 0.05, 0.1, 0.2, 0.3, 0.5, 0.75, 1, 2, 3, 5, 10, 30)
+# datasource op latencies, 50 us .. 10 ms (app_sql_stats, app_redis_stats)
+DATASOURCE_BUCKETS = (0.00005, 0.0001, 0.00025, 0.0005, 0.001, 0.002, 0.003, 0.005, 0.0075, 0.01)
 # device-program latencies, 100 us .. 5 s (the engine's phase histograms)
 TPU_BUCKETS = (0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0)
 

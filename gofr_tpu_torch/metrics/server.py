@@ -68,12 +68,16 @@ class MetricsServer:
         self.manager = manager
         self.port = port
         self.host = host
+        self.reuse_port = False  # HTTP_WORKERS prefork: every worker binds the port
         self._httpd: ThreadingHTTPServer | None = None
         self._thread: threading.Thread | None = None
 
     def start(self) -> None:
         handler = type("BoundHandler", (_Handler,), {"manager": self.manager})
-        self._httpd = ThreadingHTTPServer((self.host, self.port), handler)
+        server_cls = ThreadingHTTPServer
+        if self.reuse_port:
+            server_cls = type("ReusePortHTTPServer", (ThreadingHTTPServer,), {"allow_reuse_port": True})
+        self._httpd = server_cls((self.host, self.port), handler)
         self.port = self._httpd.server_address[1]  # resolve port 0
         self._thread = threading.Thread(target=self._httpd.serve_forever, daemon=True, name="gofr-metrics-server")
         self._thread.start()

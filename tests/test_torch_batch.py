@@ -400,6 +400,59 @@ def test_engine_shed_pauses_pull_rate(weights):
         eng.close()
 
 
+@pytest.mark.parametrize("pkg", ["port", "jax"])
+def test_shed_job_reaching_a_waiting_pull_is_not_dropped(weights, pkg):
+    """ROADMAP queue 3 item 42. On MEMORY a shed job is republished while
+    the pull loop may already wait in ``subscribe``; forced here: the pull
+    classifies the republished job before ``_process`` has returned. The
+    JAX worker still marks the job in flight then, takes it for a
+    concurrent duplicate and drops it, and MEMORY never redelivers it: the
+    job is lost (the intermittent timeout of
+    test_engine_shed_pauses_pull_rate). The port's worker releases the
+    mark before the republish, and the job runs."""
+    from gofr_tpu.resilience import FaultInjector as JFaultInjector
+
+    jcfg, jp, tcfg, tp = weights
+    kw = dict(slots=2, max_seq_len=64, shed_predicted_wait_s=1.0)
+    if pkg == "port":
+        inj = FaultInjector()
+        eng = LLMEngine(tcfg, tp, device="cpu", fault_injector=inj, **kw)
+        ps, worker_cls = MemoryPubSub(), BatchWorker
+    else:
+        inj = JFaultInjector()
+        eng = JEngine(jcfg, jp, warmup=False, kv_paged=True, fault_injector=inj, **kw)
+        ps, worker_cls = JMemoryPubSub(), JBatchWorker
+    # a long poll: the pull surely waits in subscribe when the shed lands
+    w = worker_cls(_Container(ps, eng), "jobs", model="m", poll_timeout=5.0, max_attempts=2)
+    republished, classified = threading.Event(), threading.Event()
+    requeue, state = w._requeue, w.store.state
+
+    def held_requeue(msg, job, consume_attempt):
+        requeue(msg, job, consume_attempt)
+        republished.set()
+        classified.wait(10.0)  # the waiting pull classifies the payload first
+
+    def watched_state(job_id):
+        if republished.is_set():
+            classified.set()
+        return state(job_id)
+
+    w._requeue, w.store.state = held_requeue, watched_state
+    inj.arm("overload_pressure", count=1, delay=30.0)
+    h = _WorkerHarness(w)
+    try:
+        ps.publish_sync("jobs", _job("race"))
+        _wait(lambda: w.jobs_requeued == 1 and classified.is_set(), 30, "the shed and the pull's classification")
+        if pkg == "port":
+            _wait(lambda: w.jobs_ok == 1, 60, "the requeued job")
+        else:
+            time.sleep(1.0)
+            assert w.jobs_ok == 0 and state("race")["status"] == "queued"  # lost: nothing redelivers it
+    finally:
+        h.stop()
+        eng.close()
+
+
 def test_constrained_job_result_validates_and_equals_jax(weights):
     import jsonschema
 

@@ -144,14 +144,17 @@ def test_port_imports_nothing_of_jax():
     assert len(files) > 5
     # every subpackage is walked, the copied host modules too
     for sub in ("resilience", "structured", "spec", "kvcache", "datasource/gpu", "lora", "metrics", "profiling",
-                "service", "http/middleware", "logging", "examples", "router", "batch", "datasource/pubsub"):
+                "service", "http/middleware", "logging", "examples", "router", "batch", "datasource/pubsub",
+                "native", "datasource/sql", "datasource/redis", "migration", "testutil"):
         assert any(f.parent == ROOT / "gofr_tpu_torch" / sub for f in files), sub
     assert ROOT / "gofr_tpu_torch" / "grpcx.py" in files
     # the copied accounting, recorder, observability and tracing modules too
     for name in ("metrics/__init__.py", "metrics/slo.py", "goodput.py", "flightrec.py", "tracing.py",
                  "profiling/__init__.py", "profiling/mfu.py", "profiling/capture.py", "datasource/gpu/telemetry.py",
                  "metrics/server.py", "logging/remote.py", "http/middleware/auth.py", "cron.py", "cmd.py",
-                 "staticfiles.py", "swagger.py", "fileutil.py", "version.py"):
+                 "staticfiles.py", "swagger.py", "fileutil.py", "version.py", "http/nativeserver.py", "crud.py",
+                 "utils.py", "examples/http_server_using_redis.py", "examples/using_migrations.py",
+                 "examples/using_add_rest_handlers.py"):
         assert ROOT / "gofr_tpu_torch" / name in files, name
     bad = []
     for f in files:

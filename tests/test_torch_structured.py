@@ -344,17 +344,31 @@ def test_unconstrained_neighbour_unchanged(weights, grammars, jax_streams):
 
 
 def test_constrained_programs_only_while_a_grammar_is_resident(weights, grammars):
+    """The engine's rule, held at every launch: a ``…g`` program runs if
+    and only if a resident request is constrained (``_grammar_live``, read
+    under the engine lock as the dispatch reads it). A chunk dispatched
+    after the grammar stream ended on eos (its demand counted before the
+    collector retired it) runs the plain program, beside or after the
+    neighbour's last tokens: the rule holds there too."""
     _jg, tg = grammars
     eng = _port(weights)
-    names = []
+    launches = []  # (family, a grammar resident at the launch)
     launch = eng._launch
-    eng._launch = lambda name: (names.append(name), launch(name))[1]
+
+    def recorded(name):
+        with eng._lock:
+            launches.append((name, eng._grammar_live()))
+        return launch(name)
+
+    eng._launch = recorded
     try:
         _serve(eng, [GenRequest([7, 8, 9], max_new_tokens=12)])
-        plain = list(names)
+        plain = list(launches)
         _serve(eng, [GenRequest([1, 2, 3], max_new_tokens=100, grammar=tg), GenRequest([5, 6], max_new_tokens=12)])
-        assert plain and not any(eng._g_name(n) == n for n in plain)
-        assert all(n in eng._programs_g for n in names[len(plain):])
+        seen = list(launches)
+        assert plain and not any(n in eng._programs_g or live for n, live in plain)
+        assert all((n in eng._programs_g) == live for n, live in seen)
+        assert any(live for _n, live in seen[len(plain):])  # the grammar ran constrained programs
     finally:
         del eng._launch
         eng.close()
