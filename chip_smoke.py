@@ -122,6 +122,25 @@ Phases, each raising on failure:
    near-tie (the interactive streams too), 16 requests in the engine's
    batch class, a job published twice deduplicated (one result), both
    kernels launched ("batch_launches");
+5c. batch kafka — the same 16 jobs on the same engine over KAFKA: the
+   port's FakeKafkaBroker on 127.0.0.1 (an ephemeral port; SASL
+   SCRAM-SHA-256 as its one user; topics of 2 partitions) and a
+   BatchWorker over the KafkaPubSub that new_pubsub("KAFKA", ...) builds,
+   at concurrency 4 beside the interactive burst (TTFT with and without
+   the backlog, jobs/s). The results are read back from the broker
+   through a fresh consumer (exactly one per job), the job topic's
+   offsets are committed to its end in both partitions (a new consumer of
+   the worker's group gets no record), 16 requests in the batch class, the
+   gates of 5b, a job published twice deduplicated, both kernels launched
+   ("batch_kafka_launches");
+5d. pubsub — the broker examples, host-light: kafka_batch_inference over
+   KAFKA (SCRAM) with its MLP 16 -> 32 -> 4 on the card, 6 microbatches
+   of 4 rows over HTTP /enqueue, every prediction equal to the argmax of
+   the registered model run directly on the same rows; using_publisher to
+   using_subscriber over KAFKA and over MQTT (QoS 1, the port's
+   FakeMQTTBroker), 8 orders each seen once. Google Pub/Sub is not driven
+   here: the card's machine has no grpcio (the CPU tests hold it).
+   ``phase seconds`` shows 5c as "batch kafka" and 5d as "pubsub";
 6. int8 engine — the same through LLMEngine(kv_int8=True, quantize=True)
    on the same weights' first CUT_LAYERS layers: int8 weights and an int8 KV pool read by the
    int8 paged-decode kernel; every served token checked against the
@@ -468,7 +487,8 @@ Phases, each raising on failure:
    "wave_launches", in the knobs phase's as "knobs_launches", in the
    fleet phase's unfaulted burst as "fleet_launches", in the rollout
    phase as "rollout_launches", in the disagg phase's main burst by pool as
-   "disagg_launches", in the batch part as "batch_launches" and summed
+   "disagg_launches", in the batch part as "batch_launches", in its
+   Kafka run as "batch_kafka_launches" and summed
    over the router phase's engine processes as "router_launches";
    flash_attention_prompt is the flash kernel's
    full-prompt mode, row 2, whose main path is the wave's burst), then
@@ -6015,7 +6035,7 @@ def _knob_engine(dev: dict, seed: int, cfg, params, label: str, kw: dict, prompt
     return out
 
 
-KNOB_LAYERS = 6  # of Gemma-2B's 18 (all 18 until the fleet phase took its time, then 9)
+KNOB_LAYERS = 4  # of Gemma-2B's 18 (18, then 9, then 6 as later phases took the script's time)
 
 
 def phase_knobs(dev: dict, seed: int, cfg=None, params=None) -> dict:
@@ -6141,7 +6161,7 @@ def phase_mnist(dev: dict, seed: int) -> dict:
 FLEET_WATCHDOG_S = 3.0  # the fleet's step watchdog: far above a step's ~0.1 s, under the phase's budget
 FLEET_PINNED = 4  # requests pinned to the replica that is killed
 FLEET_PINNED_NEW = 96  # their new tokens: every stream is mid-decode at the fault
-FLEET_LAYERS = 6  # of Gemma-2B's 18 (full width), for the script's time
+FLEET_LAYERS = 4  # of Gemma-2B's 18 (full width), for the script's time (6 until the broker parts)
 FLEET_REBUILD_BURSTS = 3  # survivor bursts served while a replica is rebuilt
 FLEET_TENANTS = ("fleet-a", "fleet-b")  # the fleet burst's clients, alternating
 
@@ -6875,7 +6895,7 @@ def phase_disagg(dev: dict, seed: int) -> dict:
     return out
 
 
-ROUTER_LAYERS = 6  # the engine processes' depth, of Gemma-2B's 18 (full width): 18 ran the whole script past 1,000 s
+ROUTER_LAYERS = 4  # the engine processes' depth, of Gemma-2B's 18 (full width): 18 ran the whole script past 1,000 s, 6 past 1,100 s
 ROUTER_NEW = 32  # new tokens of the burst's requests
 ROUTER_STREAM_NEW = 96  # max_tokens of the SSE streams the kill and the drain cut into
 ROUTER_CHECKED = ("flash_attention", "paged_decode_partials")  # rows 1 and 3: the engine processes' path
@@ -7417,8 +7437,260 @@ def phase_batch(dev: dict, seed: int, cfg: TransformerConfig, params: dict, eng)
           f"{classes}; {differ} job streams leave the direct ones (each at a near-tie), {differ_i} interactive; "
           f"interactive ttft p50 {out['ttft_p50_backlog_s']:.3f}s with the backlog, {out['ttft_p50_alone_s']:.3f}s "
           f"without; the job published twice: {worker.jobs_deduped} dedup, one result; launches {launches}")
+    # the same jobs over KAFKA on the same engine, then the broker examples
+    for key, run in (("kafka", lambda: phase_batch_kafka(dev, seed, cfg, params, eng)),
+                     ("pubsub", lambda: phase_pubsub(dev, seed))):
+        t0 = time.perf_counter()
+        out[key] = run()
+        out[key]["seconds"] = time.perf_counter() - t0
     return out
 
+
+BATCH_KAFKA_MECH = "SCRAM-SHA-256"  # the Kafka run's SASL mechanism
+BATCH_KAFKA_PARTITIONS = 2
+BATCH_KAFKA_USER = ("batch", "batch-secret")  # the fake broker's one user
+PUBSUB_ORDERS = 8  # orders from using_publisher to using_subscriber, per broker
+PUBSUB_MICROBATCHES = 6  # kafka_batch_inference's messages, of 4 rows each
+
+
+def _kafka_keys(broker, **over) -> dict:
+    """The port's Kafka keys for a client of ``broker``: SCRAM as the one
+    user, two partitions a topic, a 5 ms producer flush."""
+    return {"PUBSUB_BACKEND": "KAFKA", "PUBSUB_BROKER": broker.address, "KAFKA_SASL_MECHANISM": BATCH_KAFKA_MECH,
+            "KAFKA_SASL_USERNAME": BATCH_KAFKA_USER[0], "KAFKA_SASL_PASSWORD": BATCH_KAFKA_USER[1],
+            "KAFKA_PARTITIONS": str(BATCH_KAFKA_PARTITIONS), "KAFKA_BATCH_TIMEOUT": "5", **over}
+
+
+def _kafka_client(broker, group: str):
+    """A KafkaPubSub of ``group`` on ``broker``, as ``PUBSUB_BACKEND=KAFKA``
+    builds it."""
+    from gofr_tpu_torch.config import MapConfig
+    from gofr_tpu_torch.datasource.pubsub import new_pubsub
+
+    return new_pubsub("KAFKA", MapConfig(_kafka_keys(broker, KAFKA_CONSUMER_GROUP=group)))
+
+
+def _kafka_read(broker, topic: str, group: str) -> list:
+    """Every record of ``topic`` that a fresh consumer of ``group`` is
+    served (each committed): it pulls until a pull finds nothing for a
+    second."""
+    reader = _kafka_client(broker, group)
+    out = []
+    try:
+        while (m := reader.subscribe_sync(topic, 1.0)) is not None:
+            out.append(m.value)
+            m.commit()
+        return out
+    finally:
+        reader.close()
+
+
+def phase_batch_kafka(dev: dict, seed: int, cfg: TransformerConfig, params: dict, eng) -> dict:
+    """The FILE run's jobs over KAFKA on ``eng``: the port's FakeKafkaBroker
+    on 127.0.0.1 (SCRAM-SHA-256, two partitions), a BatchWorker over the
+    KafkaPubSub that ``new_pubsub("KAFKA", ...)`` builds, the 16 jobs beside
+    the interactive burst. The results and the committed offsets are read
+    back from the broker through fresh consumers (see the module
+    docstring). Returns its readings and the launches of the run."""
+    from types import SimpleNamespace
+
+    from gofr_tpu_torch.batch import BatchWorker
+    from gofr_tpu_torch.testutil.fakekafka import FakeKafkaBroker
+
+    _plens, prompts = _burst_prompts(cfg, seed)
+    alone, reqs, _ = _serve(eng, prompts, ROUTER_NEW)
+    ttft_alone = sorted(r.first_token_at - r.submitted_at for r in reqs.values())
+    broker = FakeKafkaBroker(users=dict([BATCH_KAFKA_USER]))
+    group = "batch-workers"
+    try:
+        ps = _kafka_client(broker, group)
+        classes: dict[str, int] = {}
+        submit = eng.submit
+
+        def counting(req):
+            classes[req.priority] = classes.get(req.priority, 0) + 1
+            return submit(req)
+
+        eng.submit = counting
+        container = SimpleNamespace(pubsub=ps, logger=None, metrics_manager=eng.metrics, tracer=None,
+                                    tpu=lambda: SimpleNamespace(llm=lambda _name: eng))
+        worker = BatchWorker(container, "jobs", model="gemma", concurrency=BATCH_CONCURRENCY, poll_timeout=0.1)
+        loop = asyncio.new_event_loop()
+        runner = threading.Thread(target=lambda: loop.run_until_complete(worker.run()), daemon=True)
+        try:
+            ps.create_topic("jobs")
+            _zero_launches(KERNEL_COUNTERS)
+            t0 = time.perf_counter()
+            for i in range(BATCH_JOBS):
+                ps.publish_sync("jobs", json.dumps({"id": f"job-{i}", "tokens": prompts[i % len(prompts)],
+                                                    "max_new_tokens": ROUTER_NEW}))
+            ps.flush()
+            runner.start()
+            _wait_until(lambda: worker.stats()["inflight"] or worker.jobs_ok, 60,
+                        "batch kafka: the worker's first job", every=0.002)
+            with_backlog, reqs_b, _ = _serve(eng, prompts, ROUTER_NEW)
+            ttft_backlog = sorted(r.first_token_at - r.submitted_at for r in reqs_b.values())
+            _wait_until(lambda: worker.jobs_ok == BATCH_JOBS, 600, "every Kafka batch job's result", every=0.02)
+            jobs_s = time.perf_counter() - t0
+            launches = _launches(KERNEL_COUNTERS)
+            ps.publish_sync("jobs", json.dumps({"id": "job-0", "tokens": prompts[0], "max_new_tokens": ROUTER_NEW}))
+            ps.flush()
+            _wait_until(lambda: worker.jobs_deduped == 1, 60, "the duplicate Kafka job's dedup", every=0.02)
+            time.sleep(0.3)  # a second result, were there one, would be published by now
+        finally:
+            worker.close()
+            runner.join(timeout=30)
+            loop.close()
+            eng.submit = submit
+            ps.close()
+        raw = _kafka_read(broker, "jobs.results", "result-reader")
+        left = _kafka_read(broker, "jobs", group)  # the worker's group: every record committed
+        committed = [broker.committed(group, "jobs", p) for p in range(BATCH_KAFKA_PARTITIONS)]
+        ends = [len(broker.records("jobs", p)) for p in range(BATCH_KAFKA_PARTITIONS)]
+    finally:
+        broker.close()
+    results = [json.loads(v) for v in raw]
+    ids = sorted(r["id"] for r in results)
+    if ids != sorted(f"job-{i}" for i in range(BATCH_JOBS)):
+        raise AssertionError(f"batch kafka: results {ids} are not one per job")
+    if left or committed != ends or min(ends) <= 0:
+        raise AssertionError(f"batch kafka: committed {committed} of {ends} records a partition; "
+                             f"a new consumer of the group got {len(left)}")
+    if classes.get("batch") != BATCH_JOBS or worker.jobs_ok != BATCH_JOBS or worker.jobs_error:
+        raise AssertionError(f"batch kafka: engine classes {classes}, worker {worker.stats()}")
+    if worker.jobs_deduped != 1:
+        raise AssertionError(f"batch kafka: {worker.jobs_deduped} dedups of the job published twice")
+    got = {int(r["id"].split("-")[1]): r["tokens"] for r in results}
+    job_prompts = [prompts[i % len(prompts)] for i in range(BATCH_JOBS)]
+    want = {i: alone[i % len(prompts)] for i in range(BATCH_JOBS)}
+    differ = _divergence_at_near_ties(params, cfg, job_prompts, got, want, TOKEN_GAP, "batch kafka job ")
+    differ_i = _divergence_at_near_ties(params, cfg, prompts, with_backlog, alone, TOKEN_GAP,
+                                        "batch kafka interactive ")
+    for name in ROUTER_CHECKED:
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} was not launched in the Kafka batch run: {launches}")
+    out = {"jobs": BATCH_JOBS, "results": len(results), "jobs_s": jobs_s, "jobs_per_s": BATCH_JOBS / jobs_s,
+           "classes": classes, "mechanism": BATCH_KAFKA_MECH, "committed": committed,
+           "ttft_p50_alone_s": ttft_alone[len(ttft_alone) // 2],
+           "ttft_p50_backlog_s": ttft_backlog[len(ttft_backlog) // 2], "differ": differ,
+           "interactive_differ": differ_i, "deduped": worker.jobs_deduped, "launches": launches}
+    print(f"batch kafka on {dev['smi']}: {BATCH_JOBS} jobs x {ROUTER_NEW} tokens over KAFKA "
+          f"({BATCH_KAFKA_MECH}, {BATCH_KAFKA_PARTITIONS} partitions, the port's fake broker) at concurrency "
+          f"{BATCH_CONCURRENCY}, one result each read back from the broker, in {jobs_s:.2f}s "
+          f"({out['jobs_per_s']:.3f} jobs/s) beside an interactive burst of 8; committed {committed} of {ends} "
+          f"records a partition, none left for the group; engine classes {classes}; {differ} job streams leave "
+          f"the direct ones (each at a near-tie), {differ_i} interactive; interactive ttft p50 "
+          f"{out['ttft_p50_backlog_s']:.3f}s with the backlog, {out['ttft_p50_alone_s']:.3f}s without; the job "
+          f"published twice: {worker.jobs_deduped} dedup; launches {launches}")
+    return out
+
+
+def _example_app(module, **over):
+    """A port example's app on ephemeral ports, serving, over ``over``."""
+    from gofr_tpu_torch.config import MapConfig
+
+    app = module.build_app(MapConfig({**module.DEFAULTS, "HTTP_PORT": "0", "METRICS_PORT": "0",
+                                      "LOG_LEVEL": "ERROR", **over}))
+    return app, app.run_in_background()
+
+
+def _stop_apps(apps, seconds: dict, key: str) -> None:
+    """Shut the apps down and join their threads; the wall time goes to
+    ``seconds[key]``, and an app whose thread outlives its 10 s join is
+    counted under ``seconds["still running"]``."""
+    t0 = time.perf_counter()
+    for app, th in apps:
+        app.shutdown()
+        th.join(timeout=10)
+        seconds["still running"] = seconds.get("still running", 0) + th.is_alive()
+    seconds[key] = time.perf_counter() - t0
+
+
+def phase_pubsub(dev: dict, seed: int) -> dict:
+    """The broker examples on the card's machine (see the module docstring):
+    kafka_batch_inference over KAFKA with its MLP on the card, and
+    using_publisher to using_subscriber over KAFKA and over MQTT (QoS 1)."""
+    from gofr_tpu_torch.examples import kafka_batch_inference, using_publisher, using_subscriber
+    from gofr_tpu_torch.testutil.fakekafka import FakeKafkaBroker
+    from gofr_tpu_torch.testutil.fakemqtt import FakeMQTTBroker
+
+    out: dict = {}
+    steps: dict = {}  # seconds of the apps' start and stop
+    # kafka_batch_inference: rows through the batcher on the card, predictions over the broker
+    broker = FakeKafkaBroker(users=dict([BATCH_KAFKA_USER]))
+    apps = []
+    try:
+        kafka_batch_inference.RESULTS.clear()
+        t0 = time.perf_counter()
+        apps.append(_example_app(kafka_batch_inference, **_kafka_keys(broker, KAFKA_CONSUMER_GROUP="kbi")))
+        steps["inference up"] = time.perf_counter() - t0
+        app = apps[0][0]
+        rt = app.container.tpu()
+        if rt.device.type != "cuda" or rt.model("mnist").params["w0"].device.type != "cuda":
+            raise AssertionError(f"kafka_batch_inference: the model is on {rt.device}, not the card")
+        rng = np.random.default_rng(seed)
+        want = {}
+        t0 = time.perf_counter()
+        for i in range(PUBSUB_MICROBATCHES):
+            xs = rng.normal(size=(4, 16)).astype(np.float32)
+            status = _http(app.http_server.port, "POST", "/enqueue", {"id": f"mb-{i}", "xs": xs.tolist()})[0]
+            if status != 201:
+                raise AssertionError(f"kafka_batch_inference: /enqueue answered {status}")
+            want[f"mb-{i}"] = np.argmax(np.asarray(rt.infer("mnist", xs)), axis=-1).tolist()
+        _wait_until(lambda: len(kafka_batch_inference.RESULTS) == PUBSUB_MICROBATCHES, 60,
+                    "kafka_batch_inference's predictions", every=0.01)
+        out["inference_s"] = time.perf_counter() - t0
+        got = json.loads(_http(app.http_server.port, "GET", "/results")[1])["data"]
+        if got != want:
+            raise AssertionError(f"kafka_batch_inference: predictions {got} are not the direct model's {want}")
+    finally:
+        _stop_apps(apps, steps, "inference down")
+        broker.close()
+    # using_publisher -> using_subscriber, each order seen once
+    for backend in ("KAFKA", "MQTT"):
+        broker = FakeKafkaBroker(users=dict([BATCH_KAFKA_USER])) if backend == "KAFKA" else FakeMQTTBroker()
+        env = (_kafka_keys(broker) if backend == "KAFKA" else
+               {"PUBSUB_BACKEND": "MQTT", "MQTT_HOST": broker.host, "MQTT_PORT": str(broker.port), "MQTT_QOS": "1"})
+        apps = []
+        try:
+            using_subscriber.RECEIVED.clear()
+            t0 = time.perf_counter()
+            apps.append(_example_app(using_subscriber, **env, MQTT_CLIENT_ID="subscriber"))
+            apps.append(_example_app(using_publisher, **env, MQTT_CLIENT_ID="publisher"))
+            steps[f"{backend.lower()} up"] = time.perf_counter() - t0
+            if backend == "MQTT":
+                _wait_until(lambda: any(s.subs for s in broker._sessions), 30, "using_subscriber's subscription")
+            orders = [{"id": i, "qty": 3 * i} for i in range(PUBSUB_ORDERS)]
+            t0 = time.perf_counter()
+            for o in orders:
+                status = _http(apps[1][0].http_server.port, "POST", "/publish-order", o)[0]
+                if status != 201:
+                    raise AssertionError(f"using_publisher over {backend}: /publish-order answered {status}")
+            _wait_until(lambda: len(using_subscriber.RECEIVED) >= PUBSUB_ORDERS, 60,
+                        f"every order over {backend}", every=0.01)
+            out[f"orders_{backend.lower()}_s"] = time.perf_counter() - t0
+            time.sleep(0.3)  # a duplicate, were there one, would be here by now
+            seen = sorted(using_subscriber.RECEIVED, key=lambda o: o["id"])
+            if seen != orders:
+                raise AssertionError(f"using_subscriber over {backend} saw {seen}, not each order once")
+        finally:
+            _stop_apps(apps, steps, f"{backend.lower()} down")
+            broker.close()
+    out["steps"] = steps
+    print(f"pubsub on {dev['smi']}: kafka_batch_inference over KAFKA ({BATCH_KAFKA_MECH}) with its MLP on the "
+          f"card, {PUBSUB_MICROBATCHES} microbatches of 4 rows, every prediction the direct model's, in "
+          f"{out['inference_s']:.3f}s; using_publisher -> using_subscriber, {PUBSUB_ORDERS} orders each seen once, "
+          f"over KAFKA in {out['orders_kafka_s']:.3f}s and over MQTT (QoS 1) in {out['orders_mqtt_s']:.3f}s; "
+          f"Google Pub/Sub not driven (no grpcio here); apps' start and stop s "
+          f"{ {k: round(v, 3) for k, v in steps.items()} }")
+    return out
+
+
+def _batch_seconds(seconds: dict, bat: dict) -> None:
+    """The batch phase's Kafka run and broker examples as phases of their own."""
+    for part, key in (("batch kafka", "kafka"), ("pubsub", "pubsub")):
+        seconds["batch"] -= bat[key]["seconds"]
+        seconds[part] = bat[key]["seconds"]
 
 def main() -> int:
     ap = argparse.ArgumentParser(description="GPU smoke run of gofr_tpu_torch on one card")
@@ -7491,7 +7763,7 @@ def _main(args, dev: dict) -> int:
             cfg, params = gemma_weights(SEED)
             engine = LLMEngine(cfg, params, seed=SEED, metrics=Manager())
             try:
-                timed("batch", phase_batch, dev, SEED, cfg, params, engine)
+                _batch_seconds(seconds, timed("batch", phase_batch, dev, SEED, cfg, params, engine))
             finally:
                 engine.close()
         elif args.only == "router":
@@ -7517,6 +7789,7 @@ def _main(args, dev: dict) -> int:
         obs = timed("observe", phase_observe, dev, SEED, cfg, params, engine, eng)
         ovl = timed("overload", phase_overload, dev, SEED, cfg, params, engine)
         bat = timed("batch", phase_batch, dev, SEED, cfg, params, engine)
+        _batch_seconds(seconds, bat)
     finally:
         engine.close()
     del engine  # its pool and graphs go at the next phase's collection
@@ -7573,6 +7846,7 @@ def _main(args, dev: dict) -> int:
             "fleet_launches": fleet["launches"][name],
             "rollout_launches": rollout["launches"][name], "disagg_launches": disagg["launches"][name],
             "router_launches": rt["launches"][name], "batch_launches": bat["launches"][name],
+            "batch_kafka_launches": bat["kafka"]["launches"][name],
             "max_abs_err": kern["errs"][name],
             "ms": t["ms"], "device_ms": t["device_ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],

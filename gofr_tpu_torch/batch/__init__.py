@@ -16,10 +16,11 @@ Overload: jobs submit at ``priority="batch"``, so brownout clamps them and
 interactive pressure preempts them first; an ``EngineOverloaded`` shed
 (429 with Retry-After), a drain or a stopped engine pauses the pull loop
 for the advertised backoff and puts the job back without consuming an
-attempt. MEMORY pops on delivery (commit is a no-op), so a failed job is
-republished with its attempt count; FILE redelivers the uncommitted
-record itself. A job past ``max_attempts`` goes to ``<topic>.dlq`` with
-its error.
+attempt. MEMORY pops on delivery (commit is a no-op) and a KAFKA or MQTT
+consumer moves past a record it handed out, so there a failed job is
+republished with its attempt count and the original committed; FILE
+redelivers the uncommitted record itself. A job past ``max_attempts``
+goes to ``<topic>.dlq`` with its error.
 
 Wire format, one JSON object a message::
 
@@ -377,9 +378,15 @@ class BatchWorker:
         if job.webhook:
             self._post_webhook(job.webhook, payload)
             return
-        self.container.pubsub.publish_sync(
-            job.reply_topic or self.reply_topic, payload
-        )
+        pubsub = self.container.pubsub
+        pubsub.publish_sync(job.reply_topic or self.reply_topic, payload)
+        # a batching producer (KAFKA) only buffers in publish_sync: drain it
+        # so the result is on the broker before the job's commit. JAX's
+        # worker commits with the result still in the buffer, where a crash
+        # loses both (ROADMAP queue 3 item 46)
+        flush = getattr(pubsub, "flush", None)
+        if flush is not None:
+            flush()
 
     def _post_webhook(self, url: str, payload: bytes) -> None:
         import urllib.request
@@ -474,9 +481,13 @@ class BatchWorker:
                         self._inflight.add(job.id)
                         self._depth()
                 if dup_running:
-                    # concurrent duplicate delivery (offset backends
-                    # re-serve uncommitted records): leave uncommitted,
-                    # let the claimed owner ack it
+                    # concurrent duplicate delivery: where the backend
+                    # serves uncommitted records again (FILE), leave it
+                    # uncommitted and let the claimed owner ack it; where
+                    # it does not (KAFKA, MQTT), ack the copy, or it would
+                    # hold the commit position below it for good
+                    if not self._redelivered(msg):
+                        await loop.run_in_executor(None, msg.commit)
                     await asyncio.sleep(0.05)
                     continue
                 if already_ok:
@@ -595,25 +606,38 @@ class BatchWorker:
         self.store.finish(job.id, ok=False, error=error)
         self._requeue(msg, job, True)
 
+    def _redelivered(self, msg) -> bool:
+        """Whether the backend serves ``msg`` again while it stays
+        uncommitted: FILE re-reads its committed offset and Google's
+        service redelivers after the ack deadline; MEMORY pops on delivery,
+        and a KAFKA or MQTT consumer has moved past the record and sees it
+        again only after a restart (``redelivers_uncommitted``)."""
+        if getattr(msg, "_committer", None) is None:
+            return False
+        return getattr(self.container.pubsub, "redelivers_uncommitted", True)
+
     def _requeue(self, msg, job: BatchJob, consume_attempt: bool) -> None:
-        """Give the job back to the broker. Offset backends redeliver the
-        uncommitted record by themselves; MEMORY pops on delivery, so the
-        payload is republished explicitly (attempt count rides the
-        payload there — the store's count is per-process). The in-flight
-        mark goes first: a pull already waiting in ``subscribe`` can take
-        the republished payload before ``_process`` returns, and a mark
-        still held would drop it as a concurrent duplicate, which MEMORY
-        never redelivers (ROADMAP queue 3 item 42)."""
+        """Give the job back to the broker. A backend that serves the
+        uncommitted record again does so by itself; for the others the
+        payload is republished (attempt count rides the payload there —
+        the store's count is per-process) and then the original committed:
+        a KAFKA or MQTT consumer never serves it again in this process, so
+        JAX's worker, which republishes on MEMORY alone, loses a shed job
+        there (ROADMAP queue 3 item 44). The in-flight mark goes first: a
+        pull already waiting in ``subscribe`` can take the republished
+        payload before ``_process`` returns, and a mark still held would
+        drop it as a concurrent duplicate (ROADMAP queue 3 item 42)."""
         with self._lock:
             self._inflight.discard(job.id)
             self._depth()
-        if getattr(msg, "_committer", None) is None:
+        if not self._redelivered(msg):
             payload = dict(job.raw)
             if consume_attempt:
                 payload["_attempt"] = job.attempt + 1
             self.container.pubsub.publish_sync(
                 self.topic, json.dumps(payload).encode()
             )
+            msg.commit()
 
     def _to_dlq_raw(self, payload: bytes, error: str) -> None:
         try:

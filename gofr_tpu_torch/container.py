@@ -9,7 +9,8 @@ connection gauges and the four ``app_pubsub_*`` counters), builds the
 Redis client when ``REDIS_HOST`` is set (``datasource.redis.new_client``),
 the SQL handle when ``DB_DIALECT`` or ``DB_HOST`` is
 (``datasource.sql.new_sql``) and the pub/sub backend ``PUBSUB_BACKEND``
-names (``datasource.pubsub.new_pubsub``: MEMORY or FILE); the manager
+names (``datasource.pubsub.new_pubsub``: MEMORY, FILE, KAFKA, MQTT or
+GOOGLE); the manager
 also carries the series the runtime and its engines write, and the App's
 metrics server serves it. ``tracer`` (set by the App) is handed to the
 runtime, which passes it to every engine; ``front_router`` is set by

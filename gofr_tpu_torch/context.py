@@ -2,7 +2,7 @@
 gofr_tpu/context.py): the request's surface (``param``, ``params``,
 ``path_param``, ``bind``, ``header``, ``host_name``), the container's
 (``logger``, ``metrics``, ``redis``, ``sql``, ``tpu()``,
-``get_http_service``), the route's
+``get_http_service``, ``get_publisher``), the route's
 deadline, what the auth middleware found (``authenticated_user``,
 ``jwt_claims``), and the request's trace through ``trace``, ``trace_id``
 and ``traceparent``. HTTP, gRPC, CLI and cron handlers get the same
@@ -62,6 +62,10 @@ class Context:
     @property
     def sql(self):
         return self.container.sql
+
+    def get_publisher(self):
+        """The container's pub/sub backend (PUBSUB_BACKEND), or None."""
+        return self.container.get_publisher()
 
     def get_http_service(self, name: str):
         return self.container.get_http_service(name)

@@ -1,5 +1,4 @@
-"""Pub/sub datasource (counterpart of gofr_tpu/datasource/pubsub/__init__.py:
-the MEMORY and FILE backends).
+"""Pub/sub datasource (counterpart of gofr_tpu/datasource/pubsub/__init__.py).
 
 A transport-agnostic :class:`Message` whose :class:`SubscribeContextRequest`
 gives subscribers the handler's request shape (``ctx.bind()`` reads the
@@ -12,10 +11,14 @@ payload), commit-on-success offsets, and the ``PUBSUB_BACKEND`` switch:
   durable, resumable, shared by the processes of one host, at least once
   (a record is served again until ``Message.commit()`` advances the
   offset). The files are the JAX package's, so a log written by either
-  package is read by the other from its committed offset.
-
-KAFKA, MQTT and GOOGLE are not ported (ROADMAP ID 16 part 3):
-``new_pubsub`` raises for them rather than serving something else.
+  package is read by the other from its committed offset;
+- KAFKA: a Kafka wire client (kafka.py): batched producer, consumer-group
+  committed offsets, topic admin, SASL PLAIN/SCRAM and TLS;
+- MQTT: an MQTT 3.1.1 client (mqtt.py): QoS 0/1, PUBACK on commit, a
+  persistent session at QoS 1, reconnect with re-subscribe;
+- GOOGLE: a Google Pub/Sub v1 client over gRPC (google.py): topic and
+  subscription get-or-create, streaming or unary pull, ack on commit. It
+  needs grpcio, imported when the client is built.
 """
 
 from __future__ import annotations
@@ -90,6 +93,10 @@ class SubscribeContextRequest:
 
 class _BasePubSub:
     """The publish counters and log line every backend shares."""
+
+    # whether a consumer serves a record it handed out again while the
+    # record stays uncommitted (FILE re-reads its committed offset)
+    redelivers_uncommitted = True
 
     def __init__(self, logger=None, metrics=None):
         self.logger = logger
@@ -270,10 +277,10 @@ class FilePubSub(_BasePubSub):
 
 
 def new_pubsub(backend: str, config, logger=None, metrics=None):
-    """The PUBSUB_BACKEND switch: MEMORY (or INMEM) and FILE
-    (PUBSUB_FILE_DIR, default ./pubsub-data; PUBSUB_GROUP, default
-    "default"). KAFKA, MQTT and GOOGLE raise: their clients are not ported
-    yet (ROADMAP ID 16 part 3)."""
+    """The PUBSUB_BACKEND switch: MEMORY (or INMEM), FILE (PUBSUB_FILE_DIR,
+    default ./pubsub-data; PUBSUB_GROUP, default "default"), KAFKA
+    (``KafkaConfig``'s keys), MQTT (``MQTTConfig``'s keys) and GOOGLE
+    (``GooglePubSub``'s keys)."""
     backend = backend.upper()
     if backend in ("MEMORY", "INMEM"):
         return MemoryPubSub(logger, metrics)
@@ -284,9 +291,16 @@ def new_pubsub(backend: str, config, logger=None, metrics=None):
             logger=logger,
             metrics=metrics,
         )
-    if backend in ("KAFKA", "MQTT", "GOOGLE"):
-        raise NotImplementedError(
-            f"PUBSUB_BACKEND={backend} is not ported to gofr_tpu_torch yet (ROADMAP ID 16 part 3); "
-            "use MEMORY or FILE"
-        )
+    if backend == "KAFKA":
+        from .kafka import KafkaConfig, KafkaPubSub
+
+        return KafkaPubSub(KafkaConfig(config), logger=logger, metrics=metrics)
+    if backend == "MQTT":
+        from .mqtt import MQTTConfig, MQTTPubSub
+
+        return MQTTPubSub(MQTTConfig(config), logger=logger, metrics=metrics)
+    if backend == "GOOGLE":
+        from .google import GooglePubSub
+
+        return GooglePubSub(config, logger=logger, metrics=metrics)
     raise RuntimeError(f"unknown PUBSUB_BACKEND {backend!r}")

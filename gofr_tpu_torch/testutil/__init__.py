@@ -1,18 +1,113 @@
-"""Test helpers (counterpart of gofr_tpu/testutil/__init__.py,
-``MiniRedis`` only): an in-process Redis server speaking the real RESP2
-wire protocol, so the Redis datasource, its example and its checks on the
-card run against the protocol and not a mock of the client. The card's
-machine has no Redis server, and the port imports nothing of the JAX
-package, hence its own copy."""
+"""Test helpers (counterpart of gofr_tpu/testutil/__init__.py): stdout and
+stderr capture (``capture_stdout``, ``capture_stderr``), a self-signed
+localhost certificate and the TLS contexts that serve and trust it
+(``self_signed_cert``, ``server_tls_context``, ``client_tls_context``;
+``cryptography`` is imported by ``self_signed_cert`` alone), and
+``MiniRedis``, an in-process Redis server speaking the real RESP2 wire
+protocol. The fake brokers are modules of their own: ``fakekafka``,
+``fakemqtt`` and ``fakegooglepubsub`` (which needs grpcio). The card's
+machine has no Redis server and no broker, and the port imports nothing of
+the JAX package, hence its own copies."""
 
 from __future__ import annotations
 
 import asyncio
 import contextlib
 import fnmatch
+import io
 import ssl
+import sys
 import threading
 import time
+from typing import Iterator
+
+
+@contextlib.contextmanager
+def capture_stdout() -> Iterator[io.StringIO]:
+    """Everything written to ``sys.stdout`` inside the block, in a buffer."""
+    buf = io.StringIO()
+    old = sys.stdout
+    sys.stdout = buf
+    try:
+        yield buf
+    finally:
+        sys.stdout = old
+
+
+@contextlib.contextmanager
+def capture_stderr() -> Iterator[io.StringIO]:
+    """Everything written to ``sys.stderr`` inside the block, in a buffer."""
+    buf = io.StringIO()
+    old = sys.stderr
+    sys.stderr = buf
+    try:
+        yield buf
+    finally:
+        sys.stderr = old
+
+
+_CERT_CACHE: tuple[str, str] | None = None
+
+
+def self_signed_cert() -> tuple[str, str]:
+    """A self-signed localhost certificate and its key, made once per
+    process: (cert_pem_path, key_pem_path). The SANs cover localhost and
+    127.0.0.1, so a verifying client context with cafile=cert_path passes
+    full hostname checking."""
+    global _CERT_CACHE
+    if _CERT_CACHE is not None:
+        return _CERT_CACHE
+    import datetime
+    import ipaddress
+    import tempfile
+
+    from cryptography import x509
+    from cryptography.hazmat.primitives import hashes, serialization
+    from cryptography.hazmat.primitives.asymmetric import rsa
+    from cryptography.x509.oid import NameOID
+
+    key = rsa.generate_private_key(public_exponent=65537, key_size=2048)
+    name = x509.Name([x509.NameAttribute(NameOID.COMMON_NAME, "localhost")])
+    now = datetime.datetime.now(datetime.timezone.utc)
+    cert = (
+        x509.CertificateBuilder()
+        .subject_name(name)
+        .issuer_name(name)
+        .public_key(key.public_key())
+        .serial_number(x509.random_serial_number())
+        .not_valid_before(now - datetime.timedelta(minutes=5))
+        .not_valid_after(now + datetime.timedelta(days=1))
+        .add_extension(
+            x509.SubjectAlternativeName(
+                [x509.DNSName("localhost"), x509.IPAddress(ipaddress.IPv4Address("127.0.0.1"))]
+            ),
+            critical=False,
+        )
+        .sign(key, hashes.SHA256())
+    )
+    d = tempfile.mkdtemp(prefix="gofr-tls-")
+    cert_path, key_path = f"{d}/cert.pem", f"{d}/key.pem"
+    with open(cert_path, "wb") as f:
+        f.write(cert.public_bytes(serialization.Encoding.PEM))
+    with open(key_path, "wb") as f:
+        f.write(key.private_bytes(serialization.Encoding.PEM, serialization.PrivateFormat.TraditionalOpenSSL,
+                                  serialization.NoEncryption()))
+    _CERT_CACHE = (cert_path, key_path)
+    return _CERT_CACHE
+
+
+def server_tls_context() -> ssl.SSLContext:
+    """A server context serving the ``self_signed_cert()`` pair."""
+    cert, key = self_signed_cert()
+    ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
+    ctx.load_cert_chain(cert, key)
+    return ctx
+
+
+def client_tls_context() -> ssl.SSLContext:
+    """A verifying client context trusting only ``self_signed_cert()``."""
+    cert, _ = self_signed_cert()
+    return ssl.create_default_context(cafile=cert)
 
 
 class MiniRedis:

@@ -680,10 +680,24 @@ def test_memory_pubsub_equals_jax():
 
 @pytest.mark.parametrize("backend", ["KAFKA", "MQTT", "GOOGLE", "kafka"])
 def test_new_pubsub_refuses_unported_backends(backend):
-    with pytest.raises(NotImplementedError, match="ROADMAP ID 16 part 3"):
-        new_pubsub(backend, MapConfig({}))
-    with pytest.raises(NotImplementedError):
-        App(config=MapConfig({"PUBSUB_BACKEND": backend, "HTTP_PORT": "0", "METRICS_PORT": "0"}))
+    """No backend is refused as unported any more: each name builds the
+    class JAX's switch builds (against an address nothing listens on), or
+    refuses a config as JAX's does (GOOGLE without an endpoint)."""
+    from gofr_tpu.datasource.pubsub import new_pubsub as jnew_pubsub
+
+    values = {"PUBSUB_BROKER": "127.0.0.1:1", "MQTT_HOST": "127.0.0.1", "MQTT_PORT": "1", "MQTT_TIMEOUT": "1"}
+    if backend == "GOOGLE":
+        for make, cfg in ((new_pubsub, MapConfig), (jnew_pubsub, JMapConfig)):
+            with pytest.raises(RuntimeError, match="PUBSUB_EMULATOR_HOST"):
+                make(backend, cfg({}))
+        values = {"PUBSUB_EMULATOR_HOST": "127.0.0.1:1"}
+    built = [new_pubsub(backend, MapConfig(values)), jnew_pubsub(backend, JMapConfig(values))]
+    try:
+        assert type(built[0]).__name__ == type(built[1]).__name__
+        assert type(built[0]).__module__.startswith("gofr_tpu_torch.datasource.pubsub.")
+    finally:
+        for ps in built:
+            ps.close()
 
 
 def test_new_pubsub_builds_memory_and_file_and_rejects_unknown(tmp_path):

@@ -154,7 +154,11 @@ def test_port_imports_nothing_of_jax():
                  "metrics/server.py", "logging/remote.py", "http/middleware/auth.py", "cron.py", "cmd.py",
                  "staticfiles.py", "swagger.py", "fileutil.py", "version.py", "http/nativeserver.py", "crud.py",
                  "utils.py", "examples/http_server_using_redis.py", "examples/using_migrations.py",
-                 "examples/using_add_rest_handlers.py"):
+                 "examples/using_add_rest_handlers.py", "datasource/scram.py", "datasource/pubsub/kafkaproto.py",
+                 "datasource/pubsub/kafka.py", "datasource/pubsub/mqttproto.py", "datasource/pubsub/mqtt.py",
+                 "datasource/pubsub/google.py", "datasource/pubsub/googleauth.py", "testutil/fakekafka.py",
+                 "testutil/fakemqtt.py", "testutil/fakegooglepubsub.py", "examples/using_publisher.py",
+                 "examples/using_subscriber.py", "examples/kafka_batch_inference.py", "examples/grpc_server.py"):
         assert ROOT / "gofr_tpu_torch" / name in files, name
     bad = []
     for f in files:

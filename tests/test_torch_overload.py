@@ -345,13 +345,16 @@ def _contend(eng, R, prompt, batch_new: int, inter_new: int = 4, hold=None, **ba
 @pytest.fixture(scope="module")
 def jax_contended(weights):
     """The JAX engine's uncontended and preempted 48-token batch streams,
-    at lookahead 1 and 3."""
+    at lookahead 1 and 3. Its collector is held while the interactive
+    request arrives, as the port's is: unheld, the engine on the CPU could
+    cover the batch request's remaining tokens with programs in flight
+    before it looked, and then rightly preempted nothing."""
     out = {}
     for la in (1, 3):
         je = _jax(weights, lookahead=la)
         try:
             want = je.generate(PROMPT, max_new_tokens=48)
-            got, inter, at, batch = _contend(je, JRequest, PROMPT, 48)
+            got, inter, at, batch = _contend(je, JRequest, PROMPT, 48, hold=_slow_collector(je))
             assert je.preemptions == 1 and batch.preempted == 1
             out[la] = (want, got, inter, at)
         finally:
