@@ -57,6 +57,10 @@ mirror the JAX package so each counterpart is easy to find:
   App's default server), ``datasource.sql``, ``datasource.redis``,
   ``migration`` (``App.migrate``), ``crud`` (``App.add_rest_handlers``),
   ``testutil`` (``MiniRedis``) and ``utils`` (``snake_case``);
+  ``datasource.mongo`` (``InMemoryMongo``, ``InstrumentedMongo``, the
+  BSON/OP_MSG codec and ``WireMongo`` over SCRAM and TLS, wired by
+  ``App.add_mongo``) with ``testutil.fakemongo``, and ``container_mock``
+  (``new_mock_container``, ``MockGPU``);
   ``examples`` holds the counterparts of the JAX package's framework
   examples, each run as ``python -m gofr_tpu_torch.examples.<name>``.
 
@@ -64,7 +68,11 @@ The package imports torch and numpy only: nothing of ``jax`` and nothing of
 ``gofr_tpu``. Host-only pieces it needs are copied and trimmed. Importing
 the package itself loads no torch: the HTTP framework and the front
 router (``router``, which launches engine processes and proxies to them)
-run without it.
+run without it. The package exports the JAX package's public names
+(``App``, ``new``, ``new_cmd``, ``Context``, the HTTP errors, ``Raw``,
+``FileResponse``, ``Redirect``, ``StreamingResponse``,
+``new_mock_container``, ``__version__``) and ``resolve_device``, each
+loaded on first access.
 
 Device rule: entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``; without a GPU they raise. A kernel wrapper given a CPU
@@ -73,6 +81,8 @@ launches the kernel or raises — there is no fallback.
 """
 
 from __future__ import annotations
+
+from .version import FRAMEWORK as __version__
 
 
 def resolve_device(device=None) -> "torch.device":  # noqa: F821 — torch loads here, not at package import
@@ -100,4 +110,28 @@ def new_cmd(config=None, configs_dir: str = "./configs"):
     return CMDApp(config=config, configs_dir=configs_dir)
 
 
-__all__ = ["new_cmd", "resolve_device"]
+# The framework's public names (JAX gofr_tpu/__init__.py's), loaded on first
+# access (PEP 562): submodules import ``resolve_device`` from this package,
+# so an eager import of ``.app`` here would run against a half-built
+# package. None of them loads torch.
+_LAZY = {
+    "App": ".app", "new": ".app", "Context": ".context",
+    "ErrorEntityNotFound": ".http", "ErrorInvalidParam": ".http", "ErrorInvalidRoute": ".http",
+    "ErrorMissingParam": ".http", "HTTPError": ".http", "Raw": ".http",
+    "FileResponse": ".http", "Redirect": ".http", "StreamingResponse": ".http",
+    "new_mock_container": ".container_mock",
+}
+
+
+def __getattr__(name: str):
+    module = _LAZY.get(name)
+    if module is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    import importlib
+
+    value = getattr(importlib.import_module(module, __name__), name)
+    globals()[name] = value
+    return value
+
+
+__all__ = ["new_cmd", "resolve_device", *_LAZY]

@@ -76,8 +76,8 @@ its own timeout). The App builds one tracer from the config
 a span per HTTP request and per RPC (parented by an incoming
 ``traceparent``) and hands the tracer to every engine; ``/favicon.ico``,
 and ``/.well-known/openapi.json`` with the swagger page when
-``./static/openapi.json`` exists. Left out of the port: the Mongo
-datasource with ``add_mongo``.
+``./static/openapi.json`` exists. ``add_mongo`` wires a user-built Mongo
+provider into the container (``ctx.mongo``).
 """
 
 from __future__ import annotations
@@ -235,6 +235,12 @@ class App:
         self.router.use(oauth_middleware(self._jwks))
 
     # -- outbound services, models, tasks, cron, static files ------------------
+    def add_mongo(self, provider) -> None:
+        """Wire a user-built Mongo provider (``datasource.mongo``): the
+        container injects the logger and the metrics, connects it and
+        exposes it as ``ctx.mongo``."""
+        self.container.add_mongo(provider)
+
     def add_http_service(self, name: str, address: str, *options) -> None:
         from .service import new_http_service
 

@@ -626,7 +626,10 @@ class BatchWorker:
         there (ROADMAP queue 3 item 44). The in-flight mark goes first: a
         pull already waiting in ``subscribe`` can take the republished
         payload before ``_process`` returns, and a mark still held would
-        drop it as a concurrent duplicate (ROADMAP queue 3 item 42)."""
+        drop it as a concurrent duplicate (ROADMAP queue 3 item 42). A
+        batching producer (KAFKA) is drained before the commit, as in
+        ``_publish_result``: committed with the copy still in its buffer,
+        the job is lost to a crash (ROADMAP queue 3 item 50)."""
         with self._lock:
             self._inflight.discard(job.id)
             self._depth()
@@ -634,9 +637,11 @@ class BatchWorker:
             payload = dict(job.raw)
             if consume_attempt:
                 payload["_attempt"] = job.attempt + 1
-            self.container.pubsub.publish_sync(
-                self.topic, json.dumps(payload).encode()
-            )
+            pubsub = self.container.pubsub
+            pubsub.publish_sync(self.topic, json.dumps(payload).encode())
+            flush = getattr(pubsub, "flush", None)
+            if flush is not None:
+                flush()
             msg.commit()
 
     def _to_dlq_raw(self, payload: bytes, error: str) -> None:

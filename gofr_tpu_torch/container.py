@@ -1,11 +1,13 @@
 """Container: the dependency hub handed to every handler (counterpart of
 gofr_tpu/container/__init__.py: config, logger, the metrics manager, the
 outbound HTTP services, the Redis and SQL datasources, the pub/sub
-backend, the lazily built runtime behind ``tpu()`` and the front router;
-no Mongo). ``create`` installs the remote-level logger (REMOTE_LOG_URL),
-registers the framework's series (the runtime gauges, ``app_info``, the
-two HTTP histograms, ``app_redis_stats``, ``app_sql_stats``, the two SQL
-connection gauges and the four ``app_pubsub_*`` counters), builds the
+backend, the Mongo provider ``add_mongo`` wires, the lazily built runtime
+behind ``tpu()`` and the front router). ``create`` installs the
+remote-level logger (REMOTE_LOG_URL), registers the framework's series
+(the runtime gauges, ``app_info``, the two HTTP histograms,
+``app_redis_stats``, ``app_sql_stats``, ``app_mongo_stats``, the two SQL
+connection gauges, the three ``app_tpu_*`` histograms of the runtime and
+the four ``app_pubsub_*`` counters: the JAX container's set), builds the
 Redis client when ``REDIS_HOST`` is set (``datasource.redis.new_client``),
 the SQL handle when ``DB_DIALECT`` or ``DB_HOST`` is
 (``datasource.sql.new_sql``) and the pub/sub backend ``PUBSUB_BACKEND``
@@ -14,9 +16,12 @@ GOOGLE); the manager
 also carries the series the runtime and its engines write, and the App's
 metrics server serves it. ``tracer`` (set by the App) is handed to the
 runtime, which passes it to every engine; ``front_router`` is set by
-``router.new_router_app``. ``health`` aggregates the SQL, Redis, pub/sub,
+``router.new_router_app``. ``add_mongo(provider)`` wraps a user-built Mongo
+provider in ``datasource.mongo.InstrumentedMongo``, connects it and holds
+it as ``mongo``. ``health`` aggregates the SQL, Redis, pub/sub, Mongo,
 runtime and service healths; ``close`` closes the Redis client, the SQL
-handle, the pub/sub backend, the runtime, the front router (its poll, its
+handle, the pub/sub backend, the Mongo provider (when it has ``close``),
+the runtime, the front router (its poll, its
 probes and the engine processes it launched), the services (breaker
 probes, pooled sockets) and the level poller."""
 
@@ -29,7 +34,7 @@ from typing import Any
 from . import logging as gl
 from .config import Config
 from .logging.remote import RemoteLevelLogger
-from .metrics import DATASOURCE_BUCKETS, HTTP_BUCKETS, Manager
+from .metrics import DATASOURCE_BUCKETS, HTTP_BUCKETS, TPU_BUCKETS, Manager
 from .version import FRAMEWORK
 
 
@@ -44,6 +49,7 @@ class Container:
         self.redis = None  # datasource.redis.Redis, when REDIS_HOST is set
         self.sql = None  # datasource.sql.DB, when DB_DIALECT or DB_HOST is set
         self.pubsub = None  # PUBSUB_BACKEND's publisher and subscriber
+        self.mongo = None  # datasource.mongo.InstrumentedMongo, set by add_mongo
         self.tpu_runtime = None
         self.front_router = None  # the scale-out proxy core (router.new_router_app)
         self.tracer = None  # the App's tracing.Tracer
@@ -90,8 +96,12 @@ class Container:
         m.new_histogram("app_http_service_response", "outbound http call time s", HTTP_BUCKETS)
         m.new_histogram("app_redis_stats", "redis op time s", DATASOURCE_BUCKETS)
         m.new_histogram("app_sql_stats", "sql op time s", DATASOURCE_BUCKETS)
+        m.new_histogram("app_mongo_stats", "mongo op time s", DATASOURCE_BUCKETS)
         m.new_gauge("app_sql_open_connections", "open sql connections")
         m.new_gauge("app_sql_inuse_connections", "in-use sql connections")
+        m.new_histogram("app_tpu_stats", "tpu execute time s", TPU_BUCKETS)
+        m.new_histogram("app_tpu_batch_size", "dynamic batch sizes", (1, 2, 4, 8, 16, 32, 64, 128, 256))
+        m.new_histogram("app_tpu_queue_wait", "batch queue wait s", TPU_BUCKETS)
         m.new_counter("app_pubsub_publish_total_count", "messages published")
         m.new_counter("app_pubsub_publish_success_count", "messages published ok")
         m.new_counter("app_pubsub_subscribe_total_count", "subscribe receives")
@@ -130,6 +140,8 @@ class Container:
             out["redis"] = self.redis.health_check()
         if self.pubsub is not None:
             out["pubsub"] = self.pubsub.health()
+        if self.mongo is not None:
+            out["mongo"] = self.mongo.health_check()
         if self.tpu_runtime is not None:
             out["tpu"] = self.tpu_runtime.health_check()
         for name, svc in self.services.items():
@@ -148,9 +160,18 @@ class Container:
         }
         return out
 
+    def add_mongo(self, provider) -> None:
+        """Wire a user-built Mongo provider: inject the logger and the
+        metrics, connect it, expose it as ``mongo`` (``ctx.mongo``)."""
+        from .datasource.mongo import InstrumentedMongo
+
+        db = InstrumentedMongo(provider, self.logger, self.metrics_manager)
+        provider.connect()
+        self.mongo = db
+
     def close(self) -> None:
-        for ds in (self.redis, self.sql, self.pubsub, self.tpu_runtime, self.front_router):
-            if ds is not None:
+        for ds in (self.redis, self.sql, self.pubsub, self.mongo, self.tpu_runtime, self.front_router):
+            if ds is not None and hasattr(ds, "close"):
                 try:
                     ds.close()
                 except Exception:  # noqa: BLE001 — the rest must still close

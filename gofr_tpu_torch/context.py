@@ -1,7 +1,7 @@
 """Context: the per-request facade handed to every handler (counterpart of
 gofr_tpu/context.py): the request's surface (``param``, ``params``,
 ``path_param``, ``bind``, ``header``, ``host_name``), the container's
-(``logger``, ``metrics``, ``redis``, ``sql``, ``tpu()``,
+(``logger``, ``metrics``, ``redis``, ``sql``, ``mongo``, ``tpu()``,
 ``get_http_service``, ``get_publisher``), the route's
 deadline, what the auth middleware found (``authenticated_user``,
 ``jwt_claims``), and the request's trace through ``trace``, ``trace_id``
@@ -62,6 +62,10 @@ class Context:
     @property
     def sql(self):
         return self.container.sql
+
+    @property
+    def mongo(self):
+        return self.container.mongo
 
     def get_publisher(self):
         """The container's pub/sub backend (PUBSUB_BACKEND), or None."""

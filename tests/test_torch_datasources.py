@@ -1017,8 +1017,9 @@ def test_example_http_server_redis_route(monkeypatch, tmp_path, server):
 def test_new_modules_import_no_torch():
     """ROADMAP queue 3 item 39: the codec, the native server, the
     datasources, migrations, CRUD, MiniRedis, the App, the broker clients,
-    SCRAM, the fake brokers and the broker examples load no torch in a
-    fresh process."""
+    SCRAM, the fake brokers, the broker examples, the Mongo datasource, its
+    fake server, the mock container and the secure_server example load no
+    torch in a fresh process."""
     code = ("import sys, gofr_tpu_torch.native, gofr_tpu_torch.http.nativeserver, gofr_tpu_torch.datasource.sql, "
             "gofr_tpu_torch.datasource.redis, gofr_tpu_torch.migration, gofr_tpu_torch.crud, "
             "gofr_tpu_torch.testutil, gofr_tpu_torch.utils, gofr_tpu_torch.app, gofr_tpu_torch.datasource.scram, "
@@ -1026,9 +1027,12 @@ def test_new_modules_import_no_torch():
             "gofr_tpu_torch.datasource.pubsub.mqttproto, gofr_tpu_torch.datasource.pubsub.mqtt, "
             "gofr_tpu_torch.datasource.pubsub.google, gofr_tpu_torch.datasource.pubsub.googleauth, "
             "gofr_tpu_torch.testutil.fakekafka, gofr_tpu_torch.testutil.fakemqtt, "
-            "gofr_tpu_torch.testutil.fakegooglepubsub; "
+            "gofr_tpu_torch.testutil.fakegooglepubsub, gofr_tpu_torch.datasource.mongo, "
+            "gofr_tpu_torch.datasource.mongo.mongoproto, gofr_tpu_torch.datasource.mongo.wire, "
+            "gofr_tpu_torch.testutil.fakemongo, gofr_tpu_torch.container_mock; "
             "from gofr_tpu_torch.examples import using_migrations, using_add_rest_handlers, "
-            "http_server_using_redis, using_publisher, using_subscriber, kafka_batch_inference, grpc_server; "
+            "http_server_using_redis, using_publisher, using_subscriber, kafka_batch_inference, grpc_server, "
+            "secure_server; "
             "print(sorted(m for m in ('torch', 'jax', 'gofr_tpu') if m in sys.modules))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=60,
                          env={**os.environ, "PYTHONPATH": str(ROOT)})

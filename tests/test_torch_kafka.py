@@ -771,6 +771,51 @@ def test_result_is_on_the_broker_before_the_job_commits(weights, pkg):
 
 
 @pytest.mark.parametrize("pkg", ["port", "jax"])
+def test_requeued_job_is_on_the_broker_before_the_original_commits(weights, pkg):
+    """ROADMAP queue 3 item 50, the twin of item 46's test. A shed job is
+    republished with publish_sync, which only buffers for the batching
+    producer: with a flush timeout of a minute, a commit right after it
+    would leave the job committed while its copy is not on the broker,
+    where a crash loses it. The port's worker drains the producer before
+    it commits the original. JAX's never republishes on KAFKA (item 44):
+    the topic keeps its one record and nothing is committed."""
+    if pkg == "port":
+        from gofr_tpu_torch.resilience import FaultInjector
+    else:
+        from gofr_tpu.resilience import FaultInjector
+    inj = FaultInjector()
+    eng = _engine(pkg, weights, slots=2, shed_predicted_wait_s=1.0, fault_injector=inj)
+    try:
+        with _broker(pkg) as b, _client(pkg, b, KAFKA_CONSUMER_GROUP="w", KAFKA_BATCH_SIZE="1000",
+                                        KAFKA_BATCH_TIMEOUT="60000") as ps:
+            seen = []  # the topic's records on the broker at each commit of "jobs"
+            commit = b._offset_commit
+
+            def watched(group, topics):
+                if "jobs" in topics:
+                    seen.append([json.loads(r.value) for r in b.records("jobs")])
+                return commit(group, topics)
+
+            b._offset_commit = watched
+            w = _worker_cls(pkg)(_Container(ps, eng), "jobs", model="m", poll_timeout=0.1, max_attempts=2)
+            inj.arm("overload_pressure", count=1, delay=30.0)
+            ps.publish_sync("jobs", json.dumps({"id": "rq", "tokens": [1, 2, 3], "max_new_tokens": 4}).encode())
+            ps.flush()
+            with _running(w):
+                _wait(lambda: w.jobs_requeued == 1, 30, "the shed")
+                if pkg == "port":
+                    _wait(lambda: len(seen) >= 1, 10, "the original's commit")
+                    assert [r["id"] for r in seen[0]] == ["rq", "rq"]  # the copy went first
+                    _wait(lambda: w.jobs_ok == 1, 60, "the requeued job")
+                    _wait(lambda: b.committed("w", "jobs") == 2, what="both records committed")
+                else:
+                    time.sleep(1.5)
+                    assert seen == [] and len(b.records("jobs")) == 1 and w.jobs_ok == 0
+    finally:
+        eng.close()
+
+
+@pytest.mark.parametrize("pkg", ["port", "jax"])
 def test_an_empty_topic_is_not_fetched_in_a_spin(pkg):
     """ROADMAP queue 3 item 47. The fake broker answers an empty fetch at
     once. JAX's consumer fetches again at once, thousands of times a
