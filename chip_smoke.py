@@ -1,6 +1,6 @@
 """GPU smoke run of the PyTorch/CUDA port (gofr_tpu_torch) on one card.
 
-    python3 chip_smoke.py [--parent TREE] [--only observe|families|moe|contiguous|wave|knobs|mnist|fleet|rollout|disagg|gateway|edge|batch|router]
+    python3 chip_smoke.py [--parent TREE] [--only observe|families|moe|contiguous|wave|knobs|mnist|fleet|rollout|disagg|gateway|edge|batch|router|train]
     python3 chip_smoke.py --engine-process --port P --metrics-port M [--log-dir DIR]
 
 The second form is one engine process of the router phase (22), which the
@@ -452,7 +452,7 @@ Phases, each raising on failure:
    its image (MNIST_ATOL), GET /model listing the model. No kernel of the
    port runs here: the MLP's products are cuBLAS calls, as JAX's are XLA
    dots outside any Pallas kernel;
-22. router — the scale-out tier, last: ``python -m gofr_tpu_torch.router``
+22. router — the scale-out tier, after mnist: ``python -m gofr_tpu_torch.router``
    as a process of its own (TPU_ROUTER_ENGINE_CMD: this script's
    --engine-process, which serves Gemma-2B's seeded weights at
    ROUTER_LAYERS of 18 layers, full width, through serve's app at the
@@ -476,7 +476,31 @@ Phases, each raising on failure:
    of every kernel summed over the engine processes ("router_launches";
    the counters of the killed and the drained process after their last
    reading die with them);
-23. report — a "kernels" JSON line (launches on the engine phase's main
+23. train — training on the card, last (``--only train``), with weights
+   of its own: "train gemma" (Gemma-2B, 18 layers, bf16, b 4 s 512;
+   batches from a seeded Zipf-like corpus of vocab 256,000 written by
+   encode_corpus and read through TokenDataset and device_prefetch;
+   make_train_step's AdamW; 2 warm-up and 8 timed steps, then one more
+   under the profiler: step ms median/min/max, trained tokens/s, peak
+   memory, MFU as 6 N T over the step and the bf16 peak, the first and last
+   loss, which must be finite and fall), "train grad" (Gemma-2B's widths at
+   2 layers: the loss and every parameter's gradient through the kernel
+   against attention through flash_attention_plain under autograd, loss
+   within 2e-2, each leaf's relative Frobenius error under 2e-2; the
+   autograd op alone at q [4, 512, 8, 256] against the plain version's
+   autograd), "train attn" (the forward kernel and the plain backward at
+   that shape by CUDA events and the profiler, their bounds and their
+   share of a Gemma step), "train moe" (moe_lm_loss at Mixtral-8x7B's
+   widths, 2 of 32 layers, b 2 s 512, 8 steps: losses finite and falling,
+   step ms, peak memory), "train example" (the train-lm example's encode,
+   train -steps=8 and again from the same -ckpt: global step 16, the
+   iterator resumed at 8 batches, the checkpoint read back byte for byte)
+   and "train data" (whether _gofr_torch_data loaded, batches/s native
+   against numpy). Every forward's flash launches are counted
+   ("train_launches": 18 a Gemma step, 2 in the grad check, 2 a MoE step,
+   2 an example step; flash_attention's there is its q_offsets mode
+   alone, 0);
+24. report — a "kernels" JSON line (launches on the engine phase's main
    path, in the prefix phases as "prefix_launches", in the spec phases as
    "spec_launches", in the structured phase as "structured_launches", in
    the overload phase as "overload_launches", in the lora phase as
@@ -488,8 +512,9 @@ Phases, each raising on failure:
    fleet phase's unfaulted burst as "fleet_launches", in the rollout
    phase as "rollout_launches", in the disagg phase's main burst by pool as
    "disagg_launches", in the batch part as "batch_launches", in its
-   Kafka run as "batch_kafka_launches" and summed
-   over the router phase's engine processes as "router_launches";
+   Kafka run as "batch_kafka_launches", summed
+   over the router phase's engine processes as "router_launches" and in
+   the train phase as "train_launches";
    flash_attention_prompt is the flash kernel's
    full-prompt mode, row 2, whose main path is the wave's burst), then
    the last line {"ok": true, "device": {...}}.
@@ -501,6 +526,7 @@ printing no result, when no GPU is visible.
 from __future__ import annotations
 
 import argparse
+import ast
 import asyncio
 import base64
 import concurrent.futures
@@ -546,7 +572,7 @@ from gofr_tpu_torch.models import (
 )
 from gofr_tpu_torch.models import moe as TM
 from gofr_tpu_torch.models import transformer as T
-from gofr_tpu_torch.models.checkpoint import load_llama_checkpoint, validate_params
+from gofr_tpu_torch.models.checkpoint import _flatten, load_llama_checkpoint, validate_params
 from gofr_tpu_torch.models.tokenizer import ByteTokenizer
 from gofr_tpu_torch.ops import _build
 from gofr_tpu_torch.ops import attention as A
@@ -7686,6 +7712,374 @@ def phase_pubsub(dev: dict, seed: int) -> dict:
     return out
 
 
+TRAIN_BATCH, TRAIN_SEQ = 4, 512  # Gemma-2B's steps: 2,048 tokens a step
+TRAIN_WARMUP, TRAIN_TIMED = 2, 8  # steps before the timed ones, and the timed ones
+TRAIN_CORPUS = 1 << 20  # tokens of the seeded corpus the Gemma steps read
+TRAIN_GRAD_LAYERS = 2  # of Gemma-2B's 18 (full width) in the gradient check
+# the kernel path against the plain attention under autograd, both bf16:
+# they differ by the kernel's rounding of each layer's attention output
+# (the loss to within this, each leaf's gradient to this relative
+# Frobenius error)
+TRAIN_LOSS_ATOL = 2e-2
+TRAIN_GRAD_RTOL = 2e-2
+TRAIN_MOE_LAYERS = 2  # of Mixtral-8x7B's 32 (full width)
+TRAIN_MOE_BATCH = 2
+TRAIN_MOE_STEPS = 8  # the first 2 untimed
+TRAIN_DATA_GATHERS = 5000  # batches gathered per path in the data part
+TRAIN_KERNELS = ("flash_attention", "flash_attention_prompt", "paged_decode_partials", "paged_decode_partials_int8")
+
+
+def _train_counted(counts: dict) -> dict:
+    """The launches since the counters were zeroed, added to ``counts``:
+    ``flash_attention`` counts its q_offsets mode alone (its counter less
+    the full-prompt mode's), so each kernel row is counted once."""
+    got = _launches(TRAIN_KERNELS)
+    got["flash_attention"] -= got["flash_attention_prompt"]
+    for name, n in got.items():
+        counts[name] = counts.get(name, 0) + n
+    return got
+
+
+def _zipf_tokens(rng, n: int, vocab: int) -> np.ndarray:
+    """Zipf-like token ids in [0, vocab): something a few steps can learn."""
+    return np.minimum(rng.zipf(1.1, n) - 1, vocab - 1)
+
+
+def _rel_fro(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got.float() - want.float()).norm() / want.float().norm().clamp_min(1e-30))
+
+
+def _train_gemma(dev: dict, seed: int, corpus: str, counts: dict) -> dict:
+    """Gemma-2B at 18 layers, bf16: TRAIN_WARMUP + TRAIN_TIMED steps of
+    make_train_step's AdamW on batches of TRAIN_BATCH x TRAIN_SEQ tokens read
+    through TokenDataset and device_prefetch, then one more step under the
+    profiler."""
+    from gofr_tpu_torch.data import TokenDataset, device_prefetch
+    from gofr_tpu_torch.parallel import make_mesh, make_train_step
+    from gofr_tpu_torch.profiling import default_registry
+
+    label = "train gemma"
+    cfg = TransformerConfig.gemma_2b()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(seed + 27), "cuda")
+    n_params = sum(t.numel() for t in [params["embed"], params["final_norm"], *params["layers"].values()])
+    shard_fn, init_opt, step_fn = make_train_step(cfg, make_mesh())
+    params = shard_fn(params)
+    opt_state = init_opt(params)
+    it = TokenDataset(corpus, seq_len=TRAIN_SEQ - 1).batches(TRAIN_BATCH, seed=seed)
+
+    def feed():  # windows of TRAIN_SEQ tokens, every position kept
+        for x in it:
+            toks = np.concatenate([x["inputs"], x["targets"][:, -1:]], axis=1)
+            yield {"tokens": toks, "mask": np.ones_like(toks, dtype=bool)}
+
+    pf = device_prefetch(feed())
+    losses, step_s = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    _zero_launches(TRAIN_KERNELS)
+    try:
+        for _ in range(TRAIN_WARMUP + TRAIN_TIMED):
+            t0 = time.perf_counter()
+            b = next(pf)
+            params, opt_state, loss = step_fn(params, opt_state, b["tokens"], b["mask"])
+            losses.append(float(loss))
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated()
+        b = next(pf)
+        prof = _profile(lambda: step_fn(params, opt_state, b["tokens"], b["mask"]), f"{label} step ")
+    finally:
+        pf.close()
+    got = _train_counted(counts)
+    want = cfg.n_layers * (TRAIN_WARMUP + TRAIN_TIMED + 1)
+    timed = sorted(step_s[TRAIN_WARMUP:])
+    med = statistics.median(timed)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    mfu = 6 * n_params * tokens / med / dev["peaks"][1]
+    rows = {e["program"]: (e["compiles"], e["hits"]) for e in default_registry().snapshot(model="train")["programs"]}
+    run = {"losses": losses, "step_ms": [1e3 * s for s in step_s], "median_ms": 1e3 * med, "min_ms": 1e3 * timed[0],
+           "max_ms": 1e3 * timed[-1], "tokens_s": tokens / med, "mfu": mfu, "peak_bytes": peak, "n_params": n_params,
+           "base_bytes": base, "launches": got, "idle": prof["idle"], "registry": rows}
+    print(f"{label} on {dev['smi']}: {cfg.n_layers} layers bf16, {n_params / 1e9:.3f} B params, b {TRAIN_BATCH} "
+          f"s {TRAIN_SEQ} ({tokens} tokens a step); step ms median {run['median_ms']:.2f} min {run['min_ms']:.2f} "
+          f"max {run['max_ms']:.2f} over {TRAIN_TIMED} timed steps (after {TRAIN_WARMUP}: "
+          f"{', '.join(f'{1e3 * s:.1f}' for s in step_s[:TRAIN_WARMUP])}); {run['tokens_s']:.1f} trained tokens/s; "
+          f"MFU {100 * mfu:.2f}% (6 N T / step / {dev['peaks'][1] / 1e12:.0f} TFLOP/s bf16); peak allocated "
+          f"{peak / 2**30:.2f} GiB ({base / 2**30:.2f} GiB before the first step); loss first {losses[0]:.4f} last {losses[-1]:.4f} "
+          f"({', '.join(f'{x:.3f}' for x in losses)}); flash_attention_prompt launches {got['flash_attention_prompt']} "
+          f"({TRAIN_WARMUP + TRAIN_TIMED + 1} steps, the last profiled); registry rows {rows}")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{label}: losses {losses}")
+    if got["flash_attention_prompt"] != want or any(got[k] for k in TRAIN_KERNELS if k != "flash_attention_prompt"):
+        raise AssertionError(f"{label}: launches {got}, expected {want} of flash_attention_prompt alone")
+    if rows.get("parallel.train_step") != (1, TRAIN_WARMUP + TRAIN_TIMED) or rows.get("parallel.init_opt") != (1, 0):
+        raise AssertionError(f"{label}: registry rows {rows}")
+    return run
+
+
+def _train_grad(dev: dict, seed: int, counts: dict) -> dict:
+    """Gemma-2B's widths at TRAIN_GRAD_LAYERS layers, bf16: the loss and
+    every parameter's gradient through the kernel against the same model
+    with its attention through flash_attention_plain under autograd; then
+    the autograd op alone at the training shape against the plain
+    version's autograd."""
+    from gofr_tpu_torch.parallel import lm_loss, next_token_loss, value_and_grad
+
+    label = "train grad"
+    cfg = dataclasses.replace(TransformerConfig.gemma_2b(), n_layers=TRAIN_GRAD_LAYERS)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(seed + 28), "cuda")
+    rng = np.random.default_rng(seed + 28)
+    tokens = torch.from_numpy(_zipf_tokens(rng, TRAIN_BATCH * TRAIN_SEQ, cfg.vocab_size)
+                              .reshape(TRAIN_BATCH, TRAIN_SEQ).astype(np.int32)).cuda()
+    mask = torch.ones_like(tokens, dtype=torch.bool)
+    positions = torch.arange(TRAIN_SEQ, device="cuda")[None, :].expand(TRAIN_BATCH, TRAIN_SEQ)
+
+    def plain_loss(p, cfg, tokens, mask):
+        attend = lambda q, k, v: A.flash_attention_plain(  # noqa: E731
+            q, k, v, causal=True, logit_cap=cfg.attn_logit_cap, window=cfg.sliding_window)
+        return next_token_loss(T.train_forward(p, cfg, tokens, positions, prefill_attn=attend), tokens, mask)
+
+    _zero_launches(TRAIN_KERNELS)
+    loss_k, grads_k = value_and_grad(lm_loss, params, cfg, tokens, mask)
+    torch.cuda.synchronize()
+    got = _train_counted(counts)
+    loss_p, grads_p = value_and_grad(plain_loss, params, cfg, tokens, mask)
+    errs = {}
+    for (path, gk), gp in zip(_flatten(grads_k).items(), _flatten(grads_p).values()):
+        errs[path] = _rel_fro(gk, gp)
+    worst = max(errs, key=errs.get)
+    dloss = abs(float(loss_k) - float(loss_p))
+    del grads_k, grads_p, params
+    # the op alone at row 2's training shape (not counted)
+    g = torch.Generator(device="cuda").manual_seed(seed + 29)
+    shape_q, shape_kv = (TRAIN_BATCH, TRAIN_SEQ, 8, 256), (TRAIN_BATCH, TRAIN_SEQ, 1, 256)
+    q, k, v = (torch.randn(s, generator=g, device="cuda").to(torch.bfloat16).requires_grad_()
+               for s in (shape_q, shape_kv, shape_kv))
+    dout = torch.randn(shape_q, generator=g, device="cuda").to(torch.bfloat16)
+    out_k = A.flash_attention_train(q, k, v, causal=True)
+    dk_ = torch.autograd.grad(out_k, (q, k, v), dout)
+    out_p = A.flash_attention_plain(q, k, v, causal=True)
+    dp_ = torch.autograd.grad(out_p, (q, k, v), dout)
+    op = {"out": float((out_k.detach().float() - out_p.detach().float()).abs().max())}
+    for name, a, b in zip(("dq", "dk", "dv"), dk_, dp_):
+        op[name] = float((a.float() - b.float()).abs().max())
+        op[name + "_rel"] = _rel_fro(a, b)
+    run = {"loss_kernel": float(loss_k), "loss_plain": float(loss_p), "dloss": dloss, "rel_fro": errs,
+           "worst": worst, "op": op, "launches": got}
+    print(f"{label} on {dev['smi']}: Gemma-2B widths at {TRAIN_GRAD_LAYERS} layers bf16, b {TRAIN_BATCH} s "
+          f"{TRAIN_SEQ}: loss kernel {float(loss_k):.5f} plain {float(loss_p):.5f} (|diff| {dloss:.2e}, limit "
+          f"{TRAIN_LOSS_ATOL}); gradient relative Frobenius error worst {worst} {errs[worst]:.3e} (limit "
+          f"{TRAIN_GRAD_RTOL}), by leaf {', '.join(f'{k} {v:.2e}' for k, v in errs.items())}; the op alone at q "
+          f"{list(shape_q)} k/v {list(shape_kv)}: max abs err out {op['out']:.3e} dq {op['dq']:.3e} dk "
+          f"{op['dk']:.3e} dv {op['dv']:.3e} (relative Frobenius {op['dq_rel']:.2e} / {op['dk_rel']:.2e} / "
+          f"{op['dv_rel']:.2e}); flash_attention_prompt launches {got['flash_attention_prompt']}")
+    if dloss > TRAIN_LOSS_ATOL or errs[worst] > TRAIN_GRAD_RTOL or not math.isfinite(float(loss_k)):
+        raise AssertionError(f"{label}: loss {float(loss_k)} vs {float(loss_p)}, worst {worst} {errs[worst]}")
+    if max(op["dq_rel"], op["dk_rel"], op["dv_rel"]) > TRAIN_GRAD_RTOL or op["out"] > BF16_ATOL:
+        raise AssertionError(f"{label}: the op alone {op}")
+    if got["flash_attention_prompt"] != TRAIN_GRAD_LAYERS:
+        raise AssertionError(f"{label}: launches {got}")
+    return run
+
+
+def _train_attn(dev: dict, seed: int, step_ms: float, layers: int) -> dict:
+    """Row 2 at the training shape (q [4, 512, 8, 256], k/v [4, 512, 1, 256]
+    bf16, causal): the forward kernel and flash_attention_backward, each by
+    CUDA events and by the profiler's device time, their bounds, and their
+    share of a Gemma step (``layers`` of each)."""
+    g = torch.Generator(device="cuda").manual_seed(seed + 30)
+    shape_q, shape_kv = (TRAIN_BATCH, TRAIN_SEQ, 8, 256), (TRAIN_BATCH, TRAIN_SEQ, 1, 256)
+    q, k, v = (torch.randn(s, generator=g, device="cuda").to(torch.bfloat16) for s in (shape_q, shape_kv, shape_kv))
+    dout = torch.randn(shape_q, generator=g, device="cuda").to(torch.bfloat16)
+    out = A.flash_attention(q, k, v, causal=True)
+
+    def fwd():
+        return A.flash_attention(q, k, v, causal=True)
+
+    def bwd():
+        return A.flash_attention_backward(q, k, v, out, dout, True)
+
+    nbytes, flops, _mask = _flash_work(q, k, None, True, 0)
+    f_bound, f_by = _bound(nbytes, flops, torch.bfloat16, dev["peaks"])
+    # the backward reads q, k, v, out, dout and writes dq, dk, dv (twice
+    # the forward's bytes); it recomputes the scores and forms dP, dV, dQ,
+    # dK: 5 products of 2 d flops a pair, where the forward has 2
+    b_bound, b_by = _bound(2 * nbytes, 2.5 * flops, torch.bfloat16, dev["peaks"])
+    run = {"fwd_ms": time_ms(fwd), "fwd_device_ms": device_ms(fwd, "flash_mma_kernel"),
+           "bwd_ms": time_ms(bwd, iters=10), "bwd_device_ms": device_ms(bwd, None, iters=10),
+           "fwd_bound_ms": f_bound, "fwd_bound_by": f_by, "bwd_bound_ms": b_bound, "bwd_bound_by": b_by,
+           "plain_ms": time_ms(lambda: A.flash_attention_plain(q, k, v, causal=True), iters=10),
+           "library_ms": time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+               q.transpose(1, 2), k.transpose(1, 2).expand(-1, 8, -1, -1),
+               v.transpose(1, 2).expand(-1, 8, -1, -1), is_causal=True))}
+    per_step = layers * (run["fwd_ms"] + run["bwd_ms"])
+    run["share"] = per_step / step_ms
+    print(f"train attn on {dev['smi']}: q {list(shape_q)} k/v {list(shape_kv)} bf16 causal: forward kernel "
+          f"{run['fwd_ms']:.4f} ms ({run['fwd_device_ms']:.4f} device ms; bound {f_bound:.5f} ms by {f_by}; plain "
+          f"{run['plain_ms']:.4f} ms; SDPA {run['library_ms']:.4f} ms), backward (plain PyTorch, no kernel) {run['bwd_ms']:.4f} ms "
+          f"({run['bwd_device_ms']:.4f} device ms; bound {b_bound:.5f} ms by {b_by}); {layers} layers of both "
+          f"{per_step:.2f} ms = {100 * run['share']:.1f}% of the median Gemma step {step_ms:.2f} ms")
+    return run
+
+
+def _train_moe(dev: dict, seed: int, counts: dict) -> dict:
+    """moe_lm_loss at Mixtral-8x7B's widths, TRAIN_MOE_LAYERS of 32 layers,
+    bf16, b TRAIN_MOE_BATCH s TRAIN_SEQ: TRAIN_MOE_STEPS AdamW steps on
+    seeded Zipf-like batches."""
+    from gofr_tpu_torch.parallel import AdamW, value_and_grad
+
+    label = "train moe"
+    cfg = TM.MoEConfig(vocab_size=32_000, d_model=4096, n_layers=TRAIN_MOE_LAYERS, n_heads=32, head_dim=128,
+                       d_ff=14_336, n_experts=8, top_k=2, dtype=torch.bfloat16)
+    params = TM.moe_init(torch.Generator(device="cuda").manual_seed(seed + 31), cfg, "cuda")
+    n_params = sum(t.numel() for t in _flatten(params).values())
+    opt = AdamW(3e-4)
+    state = opt.init(params)
+    rng = np.random.default_rng(seed + 31)
+    losses, step_s = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    _zero_launches(TRAIN_KERNELS)
+    for _ in range(TRAIN_MOE_STEPS):
+        toks = torch.from_numpy(_zipf_tokens(rng, TRAIN_MOE_BATCH * TRAIN_SEQ, cfg.vocab_size)
+                                .reshape(TRAIN_MOE_BATCH, TRAIN_SEQ).astype(np.int32)).cuda()
+        mask = torch.ones_like(toks, dtype=torch.bool)
+        t0 = time.perf_counter()
+        loss, grads = value_and_grad(TM.moe_lm_loss, params, cfg, toks, mask)
+        opt.update(params, grads, state)
+        del grads
+        losses.append(float(loss))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    got = _train_counted(counts)
+    timed = sorted(step_s[2:])
+    run = {"losses": losses, "median_ms": 1e3 * statistics.median(timed), "min_ms": 1e3 * timed[0],
+           "max_ms": 1e3 * timed[-1], "peak_bytes": peak, "base_bytes": base, "n_params": n_params, "launches": got}
+    print(f"{label} on {dev['smi']}: Mixtral-8x7B widths at {TRAIN_MOE_LAYERS} of 32 layers bf16, "
+          f"{n_params / 1e9:.3f} B params, b {TRAIN_MOE_BATCH} s {TRAIN_SEQ}: step ms median {run['median_ms']:.2f} "
+          f"min {run['min_ms']:.2f} max {run['max_ms']:.2f} (after 2: {1e3 * step_s[0]:.1f}, {1e3 * step_s[1]:.1f}); "
+          f"peak allocated {peak / 2**30:.2f} GiB ({base / 2**30:.2f} GiB before the first step); loss first "
+          f"{losses[0]:.4f} last {losses[-1]:.4f} ({', '.join(f'{x:.3f}' for x in losses)}); "
+          f"flash_attention_prompt launches {got['flash_attention_prompt']}")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{label}: losses {losses}")
+    if got["flash_attention_prompt"] != TRAIN_MOE_LAYERS * TRAIN_MOE_STEPS:
+        raise AssertionError(f"{label}: launches {got}")
+    return run
+
+
+def _train_example(dev: dict, tmp: str, counts: dict) -> dict:
+    """The train-lm example in this process, on the card: encode, train
+    -steps=8, train -steps=8 again from the same -ckpt; the checkpoint read
+    back and written again byte for byte."""
+    from gofr_tpu_torch.examples import train_lm
+    from gofr_tpu_torch.models.checkpoint import load_train_state, save_train_state
+
+    label = "train example"
+    app = train_lm.build_app()
+    corpus, ckpt = os.path.join(tmp, "example.tok"), os.path.join(tmp, "example-run")
+
+    def run_cli(argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = app.run(argv)
+        out = buf.getvalue().strip().splitlines()
+        if rc != 0:
+            raise AssertionError(f"{label}: {argv} exited {rc}: {out[-5:]}")
+        return out[-1]
+
+    _zero_launches(TRAIN_KERNELS)
+    t0 = time.perf_counter()
+    wrote = run_cli(["encode", f"-out={corpus}", "-n=50000"])
+    first = ast.literal_eval(run_cli(["train", f"-corpus={corpus}", "-steps=8", f"-ckpt={ckpt}"]))
+    second = ast.literal_eval(run_cli(["train", f"-corpus={corpus}", "-steps=8", f"-ckpt={ckpt}"]))
+    seconds = time.perf_counter() - t0
+    got = _train_counted(counts)
+    state = os.path.join(ckpt, train_lm.STATE_FILE)
+    again = os.path.join(tmp, "again.safetensors")
+    save_train_state(again, *load_train_state(state, device="cuda"))
+    with open(state, "rb") as f1, open(again, "rb") as f2:
+        bitwise = f1.read() == f2.read()
+    run = {"first": first, "second": second, "seconds": seconds, "bitwise": bitwise, "launches": got}
+    print(f"{label} on {dev['smi']}: {wrote}; train 8 steps {first}; again from the checkpoint {second}; "
+          f"{seconds:.2f}s; checkpoint read back and rewritten byte for byte: {bitwise}; "
+          f"flash_attention_prompt launches {got['flash_attention_prompt']}")
+    if first["device"] != "cuda" or second["global_step"] != 16 or second["resumed"] != {"epoch": 0, "step": 8}:
+        raise AssertionError(f"{label}: {first} then {second}")
+    if not bitwise or not second["loss_last"] < first["loss_first"]:
+        raise AssertionError(f"{label}: bitwise {bitwise}, losses {first} then {second}")
+    if got["flash_attention_prompt"] != TransformerConfig.tiny().n_layers * 16:
+        raise AssertionError(f"{label}: launches {got}")
+    return run
+
+
+def _train_data(dev: dict, corpus: str) -> dict:
+    """The data loader's batch gather at the Gemma steps' batch: whether the
+    native _gofr_torch_data loaded, and batches/s through it and through the
+    numpy gather on the same window ids."""
+    from gofr_tpu_torch.data import TokenDataset
+    from gofr_tpu_torch.native import DATA_MODULE, build_error
+
+    ds = TokenDataset(corpus, seq_len=TRAIN_SEQ - 1)
+    ids = np.random.default_rng(0).integers(0, ds.n_windows, (TRAIN_DATA_GATHERS, TRAIN_BATCH))
+    core = ds._core
+    rates = {}
+    outs = {}
+    for name, c in (("native", core), ("numpy", None)):
+        if name == "native" and c is None:
+            continue
+        ds._core = c
+        t0 = time.perf_counter()
+        for row in ids:
+            ds.gather(row)
+        rates[name] = TRAIN_DATA_GATHERS / (time.perf_counter() - t0)
+        outs[name] = ds.gather(ids[0])
+    ds._core = core
+    same = "native" not in outs or np.array_equal(outs["native"], outs["numpy"])
+    run = {"native_loaded": core is not None, "rates": rates, "same": same}
+    print(f"train data on {dev['smi']}: {DATA_MODULE} loaded: {core is not None}"
+          f"{'' if core is not None else f' (build error: {build_error(DATA_MODULE)})'}; gathered batches/s of "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} uint32 tokens: " + ", ".join(f"{k} {v:.0f}" for k, v in rates.items())
+          + f" ({TRAIN_DATA_GATHERS} batches each); the two gathers equal: {same}")
+    if not same:
+        raise AssertionError("train data: native and numpy gathers differ")
+    return run
+
+
+def phase_train(dev: dict, seed: int) -> dict:
+    """Training on the card (see the module docstring): train gemma, train
+    grad, train attn, train moe, train example and train data. Makes its
+    own weights. ``launches``: the counted parts' launches by kernel
+    (flash_attention's q_offsets mode alone)."""
+    from gofr_tpu_torch.data import encode_corpus
+
+    counts: dict = {}
+    tmp = tempfile.mkdtemp(prefix="gofr-train-")
+    try:
+        corpus = encode_corpus(_zipf_tokens(np.random.default_rng(seed), TRAIN_CORPUS, 256_000),
+                               os.path.join(tmp, "gemma.tok"), vocab_size=256_000)
+        gemma = _train_gemma(dev, seed, corpus, counts)
+        gc.collect()
+        torch.cuda.empty_cache()
+        grad = _train_grad(dev, seed, counts)
+        gc.collect()
+        torch.cuda.empty_cache()
+        attn = _train_attn(dev, seed, gemma["median_ms"], TransformerConfig.gemma_2b().n_layers)
+        moe = _train_moe(dev, seed, counts)
+        gc.collect()
+        torch.cuda.empty_cache()
+        example = _train_example(dev, tmp, counts)
+        data = _train_data(dev, corpus)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"train launches by kernel (flash_attention: its q_offsets mode alone): {counts}")
+    return {"gemma": gemma, "grad": grad, "attn": attn, "moe": moe, "example": example, "data": data,
+            "launches": counts}
+
+
 def _batch_seconds(seconds: dict, bat: dict) -> None:
     """The batch phase's Kafka run and broker examples as phases of their own."""
     for part, key in (("batch kafka", "kafka"), ("pubsub", "pubsub")):
@@ -7698,7 +8092,7 @@ def main() -> int:
                     help="also build another checkout's paged-decode kernels (e.g. the parent commit from "
                          "git archive) and time them beside this tree's on the same inputs")
     ap.add_argument("--only", choices=("observe", "families", "moe", "contiguous", "wave", "knobs", "mnist", "fleet",
-                                       "rollout", "disagg", "gateway", "edge", "batch", "router"),
+                                       "rollout", "disagg", "gateway", "edge", "batch", "router", "train"),
                     help="build the kernels and run this one phase, which makes its own weights (prints no "
                          "kernels line and no result)")
     ap.add_argument("--engine-process", action="store_true",
@@ -7773,8 +8167,8 @@ def _main(args, dev: dict) -> int:
         else:
             timed(args.only, {"families": phase_families, "moe": phase_moe, "contiguous": phase_contiguous,
                               "wave": phase_wave, "knobs": phase_knobs, "mnist": phase_mnist,
-                              "fleet": phase_fleet, "rollout": phase_rollout, "disagg": phase_disagg}[args.only], dev,
-                  SEED)
+                              "fleet": phase_fleet, "rollout": phase_rollout, "disagg": phase_disagg,
+                              "train": phase_train}[args.only], dev, SEED)
         print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
         print(f"black-box bundles by trigger: {_bundle_counts()}")
         return 0
@@ -7811,6 +8205,7 @@ def _main(args, dev: dict) -> int:
     contiguous = timed("contiguous", phase_contiguous, dev, SEED)
     timed("mnist", phase_mnist, dev, SEED)
     rt = timed("router", phase_router, dev, SEED)
+    train = timed("train", phase_train, dev, SEED)
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     print(f"script seconds: {sum(seconds.values()):.1f}; black-box bundles by trigger: {_bundle_counts()}")
     # name -> (source, replaced Pallas kernel, timing key, engine run whose
@@ -7846,7 +8241,7 @@ def _main(args, dev: dict) -> int:
             "fleet_launches": fleet["launches"][name],
             "rollout_launches": rollout["launches"][name], "disagg_launches": disagg["launches"][name],
             "router_launches": rt["launches"][name], "batch_launches": bat["launches"][name],
-            "batch_kafka_launches": bat["kafka"]["launches"][name],
+            "batch_kafka_launches": bat["kafka"]["launches"][name], "train_launches": train["launches"][name],
             "max_abs_err": kern["errs"][name],
             "ms": t["ms"], "device_ms": t["device_ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],

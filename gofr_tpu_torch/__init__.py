@@ -62,7 +62,14 @@ mirror the JAX package so each counterpart is easy to find:
   ``App.add_mongo``) with ``testutil.fakemongo``, and ``container_mock``
   (``new_mock_container``, ``MockGPU``);
   ``examples`` holds the counterparts of the JAX package's framework
-  examples, each run as ``python -m gofr_tpu_torch.examples.<name>``.
+  examples, each run as ``python -m gofr_tpu_torch.examples.<name>``;
+- training on one card: ``parallel`` (``make_mesh``, ``lm_loss``,
+  ``make_train_step`` with AdamW as optax's, ``place_batch``; multi-card
+  meshes are refused), ``data`` (the memory-mapped token corpus, the
+  checkpointable batch iterator, ``device_prefetch``; the native gather
+  of ``native/datacore.cc``), ``models.transformer.train_forward`` and
+  the MoE training half of ``models.moe``, whose attention is the flash
+  kernel with a gradient, and the ``train_lm`` example.
 
 The package imports torch and numpy only: nothing of ``jax`` and nothing of
 ``gofr_tpu``. Host-only pieces it needs are copied and trimmed. Importing

@@ -4,7 +4,8 @@ module each, run as ``python -m gofr_tpu_torch.examples.<name>``:
 ``using_cron_jobs``, ``using_custom_metrics``, ``using_file_bind``,
 ``http_server_using_redis``, ``using_migrations``,
 ``using_add_rest_handlers``, ``using_publisher``, ``using_subscriber``,
-``kafka_batch_inference``, ``grpc_server`` and ``secure_server``. Each has a
+``kafka_batch_inference``, ``grpc_server``, ``secure_server`` and
+``train_lm`` (a CLI app that trains on the card). Each has a
 ``build_app(config=None)``; without a config it reads the process
 environment over the example's own defaults (``DEFAULTS``: the keys of the JAX example's ``configs/.env``:
 its ports, name, log level and datasources)."""

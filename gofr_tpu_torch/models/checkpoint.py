@@ -32,6 +32,13 @@ What differs from the JAX loader:
   ``validate_params``).
 - An Orbax directory is refused by name with ``CheckpointValidationError``:
   Orbax needs JAX, which the port does not use.
+
+Training checkpoints, where JAX's train-lm example saves to Orbax: the
+port writes the format it reads (``save_safetensors``, BF16, F16, F32,
+I8, I32 and I64 tensors), and ``save_train_state`` / ``load_train_state``
+put the parameters and the AdamW state (``count``, ``mu``, ``nu``) in
+one file as named tensors (``params/layers/wq``, ``opt/mu/embed``, ...);
+a round trip is bitwise.
 """
 
 from __future__ import annotations
@@ -56,6 +63,9 @@ __all__ = [
     "load_gemma_checkpoint",
     "load_llama_checkpoint",
     "load_safetensors_dir",
+    "load_train_state",
+    "save_safetensors",
+    "save_train_state",
     "validate_params",
 ]
 
@@ -150,7 +160,11 @@ def validate_params(params: Any, cfg) -> None:
 
 # -- the safetensors format ---------------------------------------------------
 
-_ST_DTYPES = {"BF16": torch.bfloat16, "F16": torch.float16, "F32": torch.float32, "I8": torch.int8}
+_ST_DTYPES = {
+    "BF16": torch.bfloat16, "F16": torch.float16, "F32": torch.float32, "I8": torch.int8,
+    "I32": torch.int32, "I64": torch.int64,
+}
+_ST_NAMES = {dtype: name for name, dtype in _ST_DTYPES.items()}
 
 
 class SafetensorsFiles(Mapping):
@@ -217,6 +231,66 @@ def load_safetensors_dir(path: str) -> SafetensorsFiles:
     if not files:
         raise FileNotFoundError(f"no .safetensors files under {path}")
     return SafetensorsFiles(files)
+
+
+def save_safetensors(tensors: Mapping[str, torch.Tensor], path: str) -> str:
+    """Write ``tensors`` (name -> tensor, on any device) as one .safetensors
+    file at ``path``: the 8-byte little-endian header length, the JSON
+    header (padded with spaces to 8 bytes), then each tensor's bytes in
+    order. Written to a temporary name and renamed into place.
+    ``SafetensorsFiles`` reads it back."""
+    header, blobs, offset = {}, [], 0
+    for name, t in tensors.items():
+        code = _ST_NAMES.get(t.dtype)
+        if code is None:
+            raise TypeError(f"tensor {name!r}: dtype {t.dtype} is not written (one of {sorted(_ST_NAMES.values())})")
+        data = t.detach().to("cpu").contiguous().reshape(-1).view(torch.uint8).numpy()
+        header[name] = {"dtype": code, "shape": list(t.shape), "data_offsets": [offset, offset + data.nbytes]}
+        blobs.append(data)
+        offset += data.nbytes
+    raw = json.dumps(header, separators=(",", ":")).encode()
+    raw += b" " * (-len(raw) % 8)
+    tmp = f"{path}.tmp.{os.getpid()}"
+    with open(tmp, "wb") as f:
+        f.write(len(raw).to_bytes(8, "little"))
+        f.write(raw)
+        for data in blobs:
+            f.write(memoryview(data))
+    os.replace(tmp, path)
+    return path
+
+
+def _flatten(tree: Mapping, prefix: str = "") -> dict[str, torch.Tensor]:
+    """{"layers/wq": leaf, ...} of a nested dict of tensors, in order."""
+    out: dict[str, torch.Tensor] = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def save_train_state(path: str, params: Mapping, opt_state: Mapping) -> str:
+    """Parameters and optimizer state as named tensors in one .safetensors
+    file: ``params/<path>`` and ``opt/<path>`` (``opt/count``,
+    ``opt/mu/...``, ``opt/nu/...`` for ``parallel.adamw``)."""
+    return save_safetensors({**_flatten(params, "params/"), **_flatten(opt_state, "opt/")}, path)
+
+
+def load_train_state(path: str, device=None) -> tuple[dict, dict]:
+    """(params, opt_state) from ``save_train_state``'s file, each tensor a
+    copy on ``device`` (``cuda`` by default) in its stored dtype."""
+    dev = resolve_device(device)
+    trees: dict = {"params": {}, "opt": {}}
+    files = SafetensorsFiles([path])
+    for name in files:
+        node = trees
+        *parents, leaf = name.split("/")
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[leaf] = files[name].to(dev, copy=True)
+    return trees["params"], trees["opt"]
 
 
 # -- HF layouts -> the port's tree ---------------------------------------------

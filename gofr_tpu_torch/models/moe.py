@@ -38,9 +38,18 @@ copy of every expert weight per call). int8 experts (``QTensor``)
 dequantize as JAX's ``_deq`` does, ``q * s``, here into the activations'
 dtype; there is no W8A8 product for experts.
 
-The training and expert-parallel half of the JAX module (``moe_init``,
-``moe_transformer_forward``, ``moe_lm_loss``, ``moe_param_specs``) is not
-ported.
+The training half of the JAX module: ``moe_init`` (JAX's tree: packed
+``wqkv`` [L, d, 3 hq hd], no KV-head grouping), ``moe_params_from_jax``,
+``moe_transformer_forward`` (JAX's layer: no embedding scale, causal
+attention through the flash kernel with a gradient,
+``ops.flash_attention_train``, and the served ``moe_ffn`` with its
+auxiliary loss) and ``moe_lm_loss`` (cross entropy plus
+``aux_loss_weight`` times the summed aux). Its expert products run in the
+stored dtype, as served, where JAX's upcast the stacks to float32: the
+same function in float32, where the tests hold the loss and every
+gradient against ``jax.grad``; in bfloat16 no float32 copy of a stack is
+made or kept for the backward. The expert-parallel ``moe_param_specs`` is
+ROADMAP ID 11.
 """
 
 from __future__ import annotations
@@ -51,9 +60,20 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..ops import apply_rope, flash_attention_train, rms_norm
 from .quant import QTensor
 
-__all__ = ["MoEConfig", "moe_ffn", "moe_ffn_plain", "moe_mlp", "moe_route"]
+__all__ = [
+    "MoEConfig",
+    "moe_ffn",
+    "moe_ffn_plain",
+    "moe_init",
+    "moe_lm_loss",
+    "moe_mlp",
+    "moe_params_from_jax",
+    "moe_route",
+    "moe_transformer_forward",
+]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -199,3 +219,84 @@ def moe_ffn_plain(
     a = _ACTS[act](xin @ wg) * (xin @ wu)
     y = torch.einsum("tec,ecd->td", combine, a @ wd).to(x.dtype)
     return y, _aux(probs, top_e, E)
+
+
+# -- the training half --------------------------------------------------------
+
+def _moe_specs(cfg: MoEConfig) -> dict:
+    """JAX ``moe_init``'s tree as (shape, fan_in), in its draw order; None
+    fan_in: zeros (the norms)."""
+    d, hd, hq, ff, E, L = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.d_ff, cfg.n_experts, cfg.n_layers
+    return {
+        "embed": ((cfg.vocab_size, d), d),
+        "final_norm": ((d,), None),
+        "layers": {
+            "attn_norm": ((L, d), None),
+            "wqkv": ((L, d, 3 * hq * hd), d),
+            "wo": ((L, hq * hd, d), hq * hd),
+            "mlp_norm": ((L, d), None),
+            "w_router": ((L, d, E), d),
+            "w_gate": ((L, E, d, ff), d),
+            "w_up": ((L, E, d, ff), d),
+            "w_down": ((L, E, ff, d), ff),
+        },
+    }
+
+
+def moe_init(generator: torch.Generator | None, cfg: MoEConfig, device=None) -> dict:
+    """Random weights of JAX ``moe_init``'s shapes and scaling (normal /
+    sqrt(fan_in) in float32, cast to ``cfg.dtype``; norms zero), drawn from
+    ``generator`` (seed 0 on ``device`` when None) on ``device`` (``cuda``
+    by default), an expert matrix at a time (``transformer.draw_params``)."""
+    from .transformer import draw_params  # transformer imports this module
+
+    return draw_params(_moe_specs(cfg), cfg.dtype, generator, device)
+
+
+def moe_params_from_jax(np_tree: dict, cfg: MoEConfig, device=None) -> dict:
+    """JAX ``moe_init``'s tree, mapped to numpy, as the port's on ``device``
+    in ``cfg.dtype`` (``transformer.params_from_jax``, which reads only the
+    dtype of the config)."""
+    from .transformer import params_from_jax
+
+    return params_from_jax(np_tree, cfg, device)
+
+
+def moe_transformer_forward(params: dict, cfg: MoEConfig, tokens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """[b, s] -> (logits [b, s, vocab] f32, the layers' summed aux loss),
+    with a gradient (JAX ``moe_transformer_forward``): causal multi-head
+    attention through ``flash_attention_train``, the routed FFN through
+    ``moe_ffn``, tied unembedding."""
+    b, s = tokens.shape
+    d, hq, hd = cfg.d_model, cfg.n_heads, cfg.head_dim
+    x = params["embed"][tokens.long()].to(cfg.dtype)
+    positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    # one unbind per stacked leaf (its backward stacks the layers' gradients
+    # once; indexing would zero-fill a copy of the whole stack per layer)
+    layers = {name: w.unbind(0) for name, w in params["layers"].items()}
+    for i in range(cfg.n_layers):
+        h = rms_norm(x, layers["attn_norm"][i], cfg.norm_eps)
+        qkv = (h @ layers["wqkv"][i]).reshape(b, s, 3, hq, hd)
+        q = apply_rope(qkv[:, :, 0], positions, cfg.rope_theta)
+        k = apply_rope(qkv[:, :, 1], positions, cfg.rope_theta)
+        attn = flash_attention_train(q.contiguous(), k.contiguous(), qkv[:, :, 2].contiguous(), causal=True)
+        x = x + (attn.reshape(b, s, hq * hd) @ layers["wo"][i]).to(x.dtype)
+        h = rms_norm(x, layers["mlp_norm"][i], cfg.norm_eps)
+        y, a = moe_ffn(
+            h.reshape(b * s, d), layers["w_router"][i], layers["w_gate"][i], layers["w_up"][i],
+            layers["w_down"][i], cfg,
+        )
+        x = x + y.reshape(b, s, d)
+        aux = aux + a
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return (x @ params["embed"].T.to(cfg.dtype)).float(), aux
+
+
+def moe_lm_loss(params: dict, cfg: MoEConfig, tokens: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Masked next-token cross entropy plus ``cfg.aux_loss_weight`` times the
+    aux loss (JAX ``moe_lm_loss``)."""
+    from ..parallel.train import next_token_loss  # which imports the models
+
+    logits, aux = moe_transformer_forward(params, cfg, tokens)
+    return next_token_loss(logits, tokens, mask) + cfg.aux_loss_weight * aux

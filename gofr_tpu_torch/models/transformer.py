@@ -53,7 +53,10 @@ bf16/f32 or int8, through ``paged_decode_partials``) and ``decode_chunk``
 (the same steps over a contiguous dense slab or rolling ring, plain
 attention as in JAX). W8A8 products for int8 weights in both appends.
 ``transformer_forward`` is the plain oracle: dense causal attention
-through ``mha_reference``, no kernels.
+through ``mha_reference``, no kernels. ``train_forward`` is the same
+forward with a gradient, attending through the flash kernel's
+differentiable full-prompt mode (``ops.flash_attention_train``); the
+training step (``parallel.train``) differentiates it.
 """
 
 from __future__ import annotations
@@ -72,6 +75,7 @@ from ..ops import (
     chunk_decode_attention,
     chunk_prefill_attention,
     flash_attention,
+    flash_attention_train,
     mha_reference,
     paged_chunk_decode_attention,
     rms_norm,
@@ -246,31 +250,39 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator | None = None
     """Random weights from ``generator`` (same shapes and scaling as the
     JAX init: normal / sqrt(fan_in), norms zero; ``param_specs``), made on
     ``device`` (``cuda`` by default). The generator must live on that
-    device. An expert stack (4-D) is drawn one [d_in, d_out] matrix at a
-    time, so its float32 draw never exists whole (a 16-layer
-    Mixtral-width ``w_gate`` would be 30 GB)."""
+    device."""
+    return draw_params(param_specs(cfg), cfg.dtype, generator, device)
+
+
+def draw_params(specs: dict, dtype: torch.dtype, generator: torch.Generator | None = None, device=None) -> dict:
+    """A tree of ``specs``' (shape, fan_in) leaves drawn in order: normal /
+    sqrt(fan_in) in float32 cast to ``dtype``, zeros where fan_in is None,
+    from ``generator`` (seed 0 on ``device`` when None). An expert stack
+    (4-D) is drawn one [d_in, d_out] matrix at a time, so its float32 draw
+    never exists whole (a 16-layer Mixtral-width ``w_gate`` would be 30
+    GB)."""
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
 
     def draw(shape, fan_in):
         t = torch.randn(shape, generator=generator, device=dev, dtype=torch.float32)
-        return (t / math.sqrt(fan_in)).to(cfg.dtype)
+        return (t / math.sqrt(fan_in)).to(dtype)
 
     def make(spec):
         if isinstance(spec, dict):
             return {key: make(val) for key, val in spec.items()}
         shape, fan_in = spec
         if fan_in is None:
-            return torch.zeros(shape, dtype=cfg.dtype, device=dev)
+            return torch.zeros(shape, dtype=dtype, device=dev)
         if len(shape) < 4:
             return draw(shape, fan_in)
-        out = torch.empty(shape, dtype=cfg.dtype, device=dev)
+        out = torch.empty(shape, dtype=dtype, device=dev)
         for idx in itertools.product(*map(range, shape[:-2])):
             out[idx] = draw(shape[-2:], fan_in)
         return out
 
-    return make(param_specs(cfg))
+    return make(specs)
 
 
 def params_from_jax(np_tree: dict, cfg: TransformerConfig, device=None) -> dict:
@@ -491,6 +503,49 @@ def transformer_forward(
         idx = unembed_positions.long()[:, None, None].expand(-1, 1, x.shape[-1])
         x = torch.gather(x, 1, idx)
     return _unembed(params, cfg, x)
+
+
+def _dense_mm(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return h @ w
+
+
+def train_forward(
+    params: dict,
+    cfg: TransformerConfig,
+    tokens: torch.Tensor,  # [b, s] int
+    positions: torch.Tensor,  # [b, s] int
+    *,
+    prefill_attn=None,  # optional (q, k, v) -> attn override
+) -> torch.Tensor:
+    """Full-prompt forward with a gradient (JAX ``transformer_forward``'s
+    no-cache branch, which ``parallel.train.lm_loss`` differentiates): f32
+    logits [b, s, vocab]. Attention is ``flash_attention_train`` (causal,
+    the model's window and cap): the flash kernel in its full-prompt mode
+    on a CUDA tensor, its plain version on the CPU, with the gradient of
+    ``flash_attention_backward``. ``prefill_attn`` replaces it, as JAX's
+    keyword of that name does. Plain weights only: int8 (``QTensor``)
+    weights and LoRA tables are refused, as JAX trains neither."""
+    for name, w in itertools.chain(params["layers"].items(), params.items()):
+        if isinstance(w, QTensor):
+            raise TypeError(f"train_forward: {name!r} is an int8 QTensor; training takes plain weights")
+        if name.startswith("lora_"):
+            raise ValueError(f"train_forward: {name!r} is a LoRA table; training takes no adapters")
+    attend = prefill_attn or (lambda q, k, v: flash_attention_train(
+        q, k, v, causal=True, logit_cap=cfg.attn_logit_cap, window=cfg.sliding_window,
+    ))
+    # one unbind per stacked leaf: its backward stacks the layers' gradients
+    # once, where indexing each layer (``_layer``) would add every layer's
+    # gradient into a zero-filled copy of the whole stack
+    layers = {name: w.unbind(0) for name, w in params["layers"].items()}
+    x = _embed_tokens(params, cfg, tokens)
+    for i in range(cfg.n_layers):
+        lp = {name: w[i] for name, w in layers.items()}
+        h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+        q, k, v = _qkv(cfg, h, lp, positions, _dense_mm)
+        x = _attn_out(cfg, x, attend(q.contiguous(), k.contiguous(), v), lp, _dense_mm)
+        h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
+        x = x + _mlp(cfg, h, lp, _dense_mm)
+    return _unembed(params, cfg, rms_norm(x, params["final_norm"], cfg.norm_eps))
 
 
 @torch.no_grad()

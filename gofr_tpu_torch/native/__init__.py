@@ -1,11 +1,15 @@
 """Native (C++) host components, compiled on demand (counterpart of
-gofr_tpu/native/__init__.py, the HTTP codec only).
+gofr_tpu/native/__init__.py).
 
 ``_gofr_torch_http`` is the HTTP/1.1 wire codec behind the protocol-mode
 HTTP server (``httpcore.cc``, used by ``http/nativeserver.py``): request
 line and header parse, chunked-body decode, response-head serialization.
 It is a copy of the JAX package's ``_gofr_http`` under its own module name,
-so both extensions load in one process.
+so both extensions load in one process. ``_gofr_torch_data``
+(``datacore.cc``, a copy of JAX's ``_gofr_data`` under its own name) is
+the training data loader's batch gather (``gather_windows``: memcpys from
+the memory-mapped corpus with the GIL released), loaded by
+``load_data_core()``; without it ``data.TokenDataset`` gathers with numpy.
 
 Build: the extension is compiled straight from source with the system
 ``g++`` against the running interpreter's headers (``sysconfig``; no
@@ -13,9 +17,10 @@ pybind11), cached under ``native/_build/`` keyed by the source's mtime and
 the interpreter's version. Each process compiles into a name of its own
 and renames the result into place, so processes building at once never
 load a half-written library. A failed build (no compiler) leaves the
-compiler's message in ``_build/_gofr_torch_http.err``; ``load_http_codec()``
+compiler's message in ``_build/<module>.err``; ``load_http_codec()``
 then returns None and the App serves through the pure-Python
-``AsyncHTTPServer`` with a warning. ``GOFR_NATIVE=0`` disables the codec.
+``AsyncHTTPServer`` with a warning (``load_data_core()`` likewise, and the
+loader gathers with numpy). ``GOFR_NATIVE=0`` disables both.
 """
 
 from __future__ import annotations
@@ -29,19 +34,19 @@ import sysconfig
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _BUILD_DIR = os.path.join(_HERE, "_build")
 MODULE = "_gofr_torch_http"
+DATA_MODULE = "_gofr_torch_data"
 
-_http_codec = None
-_http_codec_tried = False
+_loaded: dict = {}  # module name -> the module, or None once its load failed
 
 
 def _ext_suffix() -> str:
     return sysconfig.get_config_var("EXT_SUFFIX") or ".so"
 
 
-def build_error() -> str | None:
-    """The compiler's message of the last failed build, if any."""
+def build_error(module: str = MODULE) -> str | None:
+    """The compiler's message of ``module``'s last failed build, if any."""
     try:
-        with open(os.path.join(_BUILD_DIR, MODULE + ".err")) as f:
+        with open(os.path.join(_BUILD_DIR, module + ".err")) as f:
             return f.read()
     except OSError:
         return None
@@ -99,19 +104,30 @@ def _import_from(path: str, modname: str):
     return mod
 
 
+def _load(src: str, modname: str):
+    """``modname`` built from ``src`` and imported, once per process; None
+    when native components are disabled or the build fails."""
+    if modname not in _loaded:
+        mod = None
+        if os.environ.get("GOFR_NATIVE", "1") != "0":
+            try:
+                path = _build(src, modname)
+                if path:
+                    mod = _import_from(path, modname)
+            except Exception:  # noqa: BLE001 — a native load must never break the app
+                mod = None
+        _loaded[modname] = mod
+    return _loaded[modname]
+
+
 def load_http_codec():
     """The ``_gofr_torch_http`` extension module, built if needed; None
     when native components are disabled or the build fails."""
-    global _http_codec, _http_codec_tried
-    if _http_codec_tried:
-        return _http_codec
-    _http_codec_tried = True
-    if os.environ.get("GOFR_NATIVE", "1") == "0":
-        return None
-    try:
-        path = _build("httpcore.cc", MODULE)
-        if path:
-            _http_codec = _import_from(path, MODULE)
-    except Exception:  # noqa: BLE001 — a native load must never break the app
-        _http_codec = None
-    return _http_codec
+    return _load("httpcore.cc", MODULE)
+
+
+def load_data_core():
+    """The ``_gofr_torch_data`` extension (the data loader's native batch
+    gather), built if needed; None when native components are disabled or
+    the build fails."""
+    return _load("datacore.cc", DATA_MODULE)

@@ -2,7 +2,8 @@
 
 Plain PyTorch ops plus the two CUDA kernels that replace the JAX package's
 Pallas kernels (``flash_attention`` and ``paged_decode_partials``; sources
-in ``gofr_tpu_torch/csrc``, built by ``ops/_build.py`` at first use).
+in ``gofr_tpu_torch/csrc``, built by ``ops/_build.py`` at first use), and
+the flash function with a gradient for training (``flash_attention_train``).
 """
 
 from .attention import (
@@ -10,7 +11,9 @@ from .attention import (
     chunk_decode_attention,
     chunk_prefill_attention,
     flash_attention,
+    flash_attention_backward,
     flash_attention_plain,
+    flash_attention_train,
     mha_reference,
     paged_chunk_decode_attention,
     paged_decode_partials,
@@ -26,6 +29,8 @@ __all__ = [
     "mha_reference",
     "flash_attention",
     "flash_attention_plain",
+    "flash_attention_backward",
+    "flash_attention_train",
     "chunk_decode_attention",
     "chunk_prefill_attention",
     "paged_chunk_decode_attention",

@@ -31,6 +31,11 @@ Two halves:
   graph adds that tally (``add_launches``), so the counters stay true
   launches on the card.
 
+Training: ``FlashPromptAttention`` (``flash_attention_train``) gives the
+full-prompt mode a gradient. Its forward is ``flash_attention`` (the
+kernel on a CUDA tensor); its backward, ``flash_attention_backward``, is
+plain PyTorch in float32, since the JAX package has no backward kernel.
+
 float32 upcasts in the plain dots: JAX's ``preferred_element_type=f32``
 accumulates products of bf16 values in f32. The product of two bf16
 values is exact in f32, so casting both operands to f32 and running an
@@ -541,6 +546,86 @@ def flash_attention(
 
 flash_attention.launches = 0  # both modes
 flash_attention.launches_prompt = 0  # full-prompt mode (no q_offsets)
+
+
+def flash_attention_backward(q, k, v, out, dout, causal=True, scale=None, logit_cap=0.0, window=0):
+    """Gradient of the full-prompt flash function (no offsets): (dq, dk,
+    dv) in the dtypes of q, k, v, from the forward's inputs, its output
+    ``out`` and the output's gradient ``dout`` (all BSHD).
+
+    Plain PyTorch in float32: the masked scores are recomputed, the
+    softmax formed (a masked pair has probability exactly 0), then
+    dV = P^T dO, dS = P * (dO V^T - rowsum(dO * O)), through the soft-cap's
+    derivative 1 - tanh^2 when ``logit_cap`` > 0, dQ = scale dS K and
+    dK = scale dS^T Q, with dK and dV summed over each KV head's query
+    group. The JAX package has no backward kernel (``gofr_tpu`` defines no
+    ``custom_vjp`` for ``_flash_kernel``; its training differentiates
+    ``mha_reference``), so none is hand-written here: a Hopper backward
+    kernel is ROADMAP queue 2's item. Never calls ``flash_attention_plain``."""
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    group = hq // hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+
+    def grouped(t):  # [b, sq, hq, d] -> [b, hkv, group, sq, d] f32
+        return t.float().permute(0, 2, 1, 3).reshape(b, hkv, group, sq, d)
+
+    qs = grouped(q) * scale
+    kf = k.float().permute(0, 2, 1, 3)  # [b, hkv, sk, d]
+    vf = v.float().permute(0, 2, 1, 3)
+    s = torch.einsum("bkgqd,bksd->bkgqs", qs, kf)
+    if logit_cap > 0.0:
+        t = torch.tanh(s / logit_cap)
+        s = logit_cap * t
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask & (kpos <= qpos)
+    if window > 0:
+        mask = mask & (kpos > qpos - window)
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.where(mask, torch.exp(s - s.amax(dim=-1, keepdim=True)), 0.0)
+    denom = p.sum(dim=-1, keepdim=True)
+    p = p / torch.where(denom == 0.0, 1.0, denom)
+    do = grouped(dout)
+    dv = torch.einsum("bkgqs,bkgqd->bksd", p, do)
+    dp = torch.einsum("bkgqd,bksd->bkgqs", do, vf)
+    rows = (do * grouped(out)).sum(dim=-1, keepdim=True)  # rowsum(dO * O)
+    ds = p * (dp - rows)
+    if logit_cap > 0.0:
+        ds = ds * (1.0 - t * t)  # bounded where masked: p is 0 there
+    dq = torch.einsum("bkgqs,bksd->bkgqd", ds, kf) * scale
+    dk = torch.einsum("bkgqs,bkgqd->bksd", ds, qs)
+    dq = dq.reshape(b, hq, sq, d).permute(0, 2, 1, 3).to(q.dtype)
+    return dq, dk.permute(0, 2, 1, 3).to(k.dtype), dv.permute(0, 2, 1, 3).to(v.dtype)
+
+
+class FlashPromptAttention(torch.autograd.Function):
+    """The flash function in its full-prompt mode with a gradient: the
+    forward is ``flash_attention`` with no offsets (the CUDA kernel on a
+    CUDA tensor, counted in ``launches_prompt``; the plain version on the
+    CPU), the backward ``flash_attention_backward`` on the saved q, k, v
+    and output."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, logit_cap, window):
+        out = flash_attention(q, k, v, causal=causal, scale=scale, logit_cap=logit_cap, window=window)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.args = (causal, scale, logit_cap, window)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, out, dout, *ctx.args)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention_train(q, k, v, *, causal=True, scale=None, logit_cap=0.0, window=0):
+    """Differentiable full-prompt attention (``FlashPromptAttention``): the
+    training forward's attention, BSHD in and out, output in q.dtype."""
+    return FlashPromptAttention.apply(q, k, v, causal, scale, float(logit_cap), int(window))
 
 
 def paged_decode_partials_plain(

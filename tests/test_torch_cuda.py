@@ -990,3 +990,49 @@ class TestKnobsOnCard:
         finally:
             base.close()
             eng.close()
+
+
+@pytest.mark.cuda
+class TestTrainOnCard:
+    """Training on the card: the flash function's gradient (kernel forward,
+    plain-PyTorch backward) against autograd of the plain version, and one
+    tiny train step through the kernel."""
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("heads", [(4, 4), (4, 2), (8, 1)])
+    @pytest.mark.parametrize("mask", [dict(), dict(window=7), dict(logit_cap=5.0)])
+    def test_flash_gradient(self, cuda, dtype, heads, mask):
+        hq, hkv = heads
+        g = torch.Generator(device=cuda).manual_seed(hq * 10 + hkv)
+        q = torch.randn((2, 64, hq, 64), generator=g, device=cuda).to(dtype).requires_grad_()
+        k = torch.randn((2, 64, hkv, 64), generator=g, device=cuda).to(dtype).requires_grad_()
+        v = torch.randn((2, 64, hkv, 64), generator=g, device=cuda).to(dtype).requires_grad_()
+        dout = torch.randn((2, 64, hq, 64), generator=g, device=cuda).to(dtype)
+        before = TA.flash_attention.launches_prompt
+        got = torch.autograd.grad(TA.flash_attention_train(q, k, v, causal=True, **mask), (q, k, v), dout)
+        assert TA.flash_attention.launches_prompt == before + 1
+        want = torch.autograd.grad(TA.flash_attention_plain(q, k, v, causal=True, **mask), (q, k, v), dout)
+        for a, b in zip(got, want):
+            # f32: summation order; bf16: the kernel's rounded output in rowsum(dO * O)
+            rel = float((a.float() - b.float()).norm() / b.float().norm())
+            assert rel < (1e-5 if dtype == torch.float32 else 2e-2), rel
+
+    def test_tiny_train_step_launches_the_kernel(self, cuda, monkeypatch):
+        from gofr_tpu_torch.parallel import make_mesh, make_train_step
+
+        def refuse(*a, **kw):
+            raise AssertionError("flash_attention_plain ran on a CUDA tensor in the training forward")
+
+        monkeypatch.setattr(TA, "flash_attention_plain", refuse)
+        cfg = TransformerConfig.tiny()
+        params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+        shard_fn, init_opt, step_fn = make_train_step(cfg, make_mesh(devices=[cuda]), learning_rate=1e-2)
+        params = shard_fn(params)
+        state = init_opt(params)
+        tokens = torch.randint(0, cfg.vocab_size, (4, 32), device=cuda, generator=torch.Generator(device=cuda))
+        mask = torch.ones_like(tokens, dtype=torch.bool)
+        before = TA.flash_attention.launches_prompt
+        losses = [float(step_fn(params, state, tokens, mask)[2]) for _ in range(3)]
+        assert TA.flash_attention.launches_prompt == before + 3 * cfg.n_layers
+        assert all(torch.isfinite(torch.tensor(losses))) and losses[-1] < losses[0]
+        assert int(state["count"]) == 3

@@ -145,7 +145,8 @@ def test_port_imports_nothing_of_jax():
     # every subpackage is walked, the copied host modules too
     for sub in ("resilience", "structured", "spec", "kvcache", "datasource/gpu", "lora", "metrics", "profiling",
                 "service", "http/middleware", "logging", "examples", "router", "batch", "datasource/pubsub",
-                "native", "datasource/sql", "datasource/redis", "migration", "testutil", "datasource/mongo"):
+                "native", "datasource/sql", "datasource/redis", "migration", "testutil", "datasource/mongo", "parallel",
+                "data"):
         assert any(f.parent == ROOT / "gofr_tpu_torch" / sub for f in files), sub
     assert ROOT / "gofr_tpu_torch" / "grpcx.py" in files
     # the copied accounting, recorder, observability and tracing modules too
@@ -160,7 +161,8 @@ def test_port_imports_nothing_of_jax():
                  "testutil/fakemqtt.py", "testutil/fakegooglepubsub.py", "examples/using_publisher.py",
                  "examples/using_subscriber.py", "examples/kafka_batch_inference.py", "examples/grpc_server.py",
                  "datasource/mongo/__init__.py", "datasource/mongo/mongoproto.py", "datasource/mongo/wire.py",
-                 "testutil/fakemongo.py", "container_mock.py", "examples/secure_server.py"):
+                 "testutil/fakemongo.py", "container_mock.py", "examples/secure_server.py", "parallel/mesh.py",
+                 "parallel/train.py", "examples/train_lm.py"):
         assert ROOT / "gofr_tpu_torch" / name in files, name
     bad = []
     for f in files:
